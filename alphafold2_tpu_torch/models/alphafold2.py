@@ -1,0 +1,98 @@
+"""The Alphafold2 distogram model: embeddings, MSA stream, trunk, head.
+
+Port of ``alphafold2_tpu/models/alphafold2.py`` without templates and
+without the ``embedds`` (PLM) input, which raise for now: the outer-sum
+pair grid with axial positional embeddings and an AND-combined pair mask
+(:187-201), the MSA stream with per-position and per-row embeddings
+(:203-215), the python-loop trunk, and the symmetrized distogram head
+(:314-318). ``dtype`` is the compute dtype; parameters stay float32.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from alphafold2_tpu_torch import constants
+from alphafold2_tpu_torch.models.trunk import Trunk
+from alphafold2_tpu_torch.ops.layers import Dense, LayerNorm
+
+
+class Alphafold2(nn.Module):
+    def __init__(
+        self,
+        dim: int,
+        max_seq_len: int = 2048,
+        depth: int = 6,
+        heads: int = 8,
+        dim_head: int = 64,
+        num_tokens: int = constants.NUM_AMINO_ACIDS,
+        max_num_msas: int = constants.MAX_NUM_MSA,
+        gelu_exact: bool = False,
+        msa_tie_row_attn: bool = False,
+        dtype: torch.dtype = torch.float32,
+        **engine_flags,
+    ):
+        super().__init__()
+        self.max_seq_len = max_seq_len
+        self.max_num_msas = max_num_msas
+        self.dtype = dtype
+        self.token_emb = nn.Embedding(num_tokens, dim)
+        self.pos_emb = nn.Embedding(max_seq_len, dim)
+        self.pos_emb_ax = nn.Embedding(max_seq_len, dim)
+        self.msa_pos_emb = nn.Embedding(max_seq_len, dim)
+        self.msa_num_pos_emb = nn.Embedding(max_num_msas, dim)
+        self.trunk = Trunk(dim, depth, heads, dim_head, gelu_exact=gelu_exact,
+                           msa_tie_row_attn=msa_tie_row_attn, **engine_flags)
+        self.distogram_norm = LayerNorm(dim)
+        self.distogram_proj = Dense(dim, constants.DISTOGRAM_BUCKETS)
+
+    def forward(
+        self,
+        seq: torch.Tensor,  # (B, N) int tokens
+        msa: Optional[torch.Tensor] = None,  # (B, M, Nm) int tokens
+        mask: Optional[torch.Tensor] = None,  # (B, N) bool
+        msa_mask: Optional[torch.Tensor] = None,  # (B, M, Nm) bool
+        templates_seq=None,
+        embedds=None,
+    ) -> torch.Tensor:
+        if templates_seq is not None:
+            raise NotImplementedError("templates are not ported yet")
+        if embedds is not None:
+            raise NotImplementedError("the embedds (PLM) path is not ported yet")
+        b, n = seq.shape
+        if n > self.max_seq_len:
+            raise ValueError(
+                f"sequence length {n} exceeds max_seq_len {self.max_seq_len}"
+            )
+        if msa is not None:
+            if msa.shape[-1] > self.max_seq_len:
+                raise ValueError(f"MSA length {msa.shape[-1]} exceeds "
+                                 f"max_seq_len {self.max_seq_len}")
+            if msa.shape[1] > self.max_num_msas:
+                raise ValueError(f"MSA depth {msa.shape[1]} exceeds "
+                                 f"max_num_msas {self.max_num_msas}")
+        dt = self.dtype
+        n_range = torch.arange(n, device=seq.device)
+
+        e = self.token_emb(seq).to(dt)
+        x = e[:, :, None, :] + e[:, None, :, :]
+        x = (x + self.pos_emb(n_range).to(dt)[None, :, None, :]
+             + self.pos_emb_ax(n_range).to(dt)[None, None, :, :])
+        pair_mask = mask[:, :, None] & mask[:, None, :] if mask is not None else None
+
+        m = None
+        if msa is not None:
+            nm, mm = msa.shape[-1], msa.shape[1]
+            m = self.token_emb(msa).to(dt)
+            m = m + self.msa_pos_emb(torch.arange(nm, device=seq.device)).to(dt)[None, None]
+            m = m + self.msa_num_pos_emb(
+                torch.arange(mm, device=seq.device)).to(dt)[None, :, None]
+
+        x, m = self.trunk(x, m, pair_mask=pair_mask, msa_mask=msa_mask)
+
+        x = 0.5 * (x + x.transpose(1, 2))
+        logits = self.distogram_proj(self.distogram_norm(x))
+        return logits.float()

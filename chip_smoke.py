@@ -1,0 +1,615 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (alphafold2_tpu_torch) on one CUDA card.
+
+Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
+
+1. build   — compile every kernel under alphafold2_tpu_torch/csrc with nvcc
+             (sm_90a), one process per source, and load them;
+2. kernels — hold each kernel against its plain PyTorch version on the card
+             at the serving path's shapes (f32 and bf16) plus ragged tails,
+             a 5-key pass, fully masked rows and other head dims; time the
+             kernel, the plain version and torch's scaled_dot_product_attention
+             (a yardstick the port never calls);
+3. serve   — a ServeEngine at full model width (dim 256, depth 6, heads 8,
+             dim_head 64, bf16 compute, tied MSA rows, buckets 64/96/128,
+             batch 4) serves six requests; launch counts must show both
+             kernels on the path and no plain-version call; a request served
+             alone and in a batch must agree; a small model must agree
+             between the card and the CPU's plain versions.
+
+Prints the card's name and power limit, then a JSON line describing every
+kernel, and last ``{"ok": true, "device": {...}}``. Any failed phase exits
+non-zero without that line. Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+import traceback
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor core; f32 CUDA core
+
+# Each case is held to bounds scaled to its own output, so a shape whose
+# outputs are small (a long key axis averages them down) is held as tightly
+# as one whose outputs are large: max|kernel - plain| <= MAX_REL * max|plain|
+# and ||kernel - plain||_2 <= L2_REL * ||plain||_2.
+# On an H100 the kernels came to rel_l2 <= 2.6e-3 and max ratio <= 5.5e-3
+# in bf16, and rel_l2 <= 4.9e-6 in f32; a kernel skipping its last key tile
+# comes to rel_l2 >= 2.4e-2 (the 640 x 147456 cross pass) and is rejected.
+TOL = {  # (MAX_REL, L2_REL)
+    "float32": (1e-4, 2e-5),  # same f32 arithmetic, other summation order
+    # the kernel rounds probabilities to bf16 for P @ V (2^-9 relative),
+    # both round the output to bf16 (one ulp apart is 2^-8..2^-7 relative)
+    "bfloat16": (2**-6, 4e-3),
+}
+MAX_PLAIN_LOGITS_BYTES = 2 << 30  # the plain version runs in batch slices below this
+
+
+class PhaseError(RuntimeError):
+    pass
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def require(cond, msg):
+    if not cond:
+        raise PhaseError(msg)
+
+
+# --------------------------------------------------------------- timing
+
+
+def cuda_ms(fn, reps=3, warmup=1):
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# --------------------------------------------------------------- phase 1
+
+
+def phase_build():
+    from alphafold2_tpu_torch.ops.cuda import build
+
+    t0 = time.perf_counter()
+    paths = build.build_all()
+    for name in paths:
+        build.library(name)
+    secs = time.perf_counter() - t0
+    log(f"[build] {len(paths)} kernels built and loaded in {secs:.1f} s")
+    for name, path in paths.items():
+        report = path.with_suffix(".log")
+        if report.exists():
+            for line in report.read_text().splitlines():
+                if "entry function" in line or "registers" in line or "spill" in line:
+                    log(f"[build] {name}: {line.strip()}")
+    return secs
+
+
+# --------------------------------------------------------------- phase 2
+
+
+def _sliced(fn, args, kwargs, logits_bytes_per_batch):
+    """Run the plain version over batch slices small enough to hold its
+    logits; concatenate along the batch."""
+    import torch
+
+    b = args[0].shape[0]
+    step = max(1, int(MAX_PLAIN_LOGITS_BYTES // max(1, logits_bytes_per_batch)))
+    outs = []
+    for lo in range(0, b, step):
+        sl = slice(lo, lo + step)
+        kw = {k: (v[sl] if isinstance(v, torch.Tensor) and v.dim() and v.shape[0] == b
+                  else v) for k, v in kwargs.items()}
+        outs.append(fn(*(a[sl] for a in args), **kw))
+    return torch.cat(outs)
+
+
+def _prefix(n, lengths):
+    """(len(lengths), n) bool masks valid on a prefix of each row."""
+    import torch
+
+    idx = torch.arange(n, device="cuda")
+    return idx[None, :] < torch.as_tensor(lengths, device="cuda")[:, None]
+
+
+def _drop_last_tile(mask):
+    """``mask`` without each row's last 64 valid keys (its last valid key
+    where it has 64 or fewer): the keys a kernel that skipped its last key
+    tile would see."""
+    import torch
+
+    from_end = mask.flip(-1).long().cumsum(-1).flip(-1)  # valid keys at or after j
+    cut = torch.where(mask.sum(-1, keepdim=True) > 64, 64, 1)
+    return mask & (from_end > cut)
+
+
+def _k1_operands(b, h, nq, nk, d, dtype, gen, serving):
+    """q (B, H, Nq, D), k/v (B, H, Nk, D). With ``serving`` they are built
+    as ops/attention.py builds them: (B, H, N, D) views of a (B, Nq, H*D)
+    query projection and of the two halves of a (B, Nk, 2*H*D) key/value
+    projection, so k and v have token stride 2*H*D and v starts H*D in."""
+    import torch
+
+    dev = torch.device("cuda")
+    if not serving:
+        return tuple(torch.randn((b, h, n, d), device=dev, generator=gen).to(dtype)
+                     for n in (nq, nk, nk))
+    q = torch.randn((b, nq, h * d), device=dev, generator=gen).to(dtype)
+    kv = torch.randn((b, nk, 2 * h * d), device=dev, generator=gen).to(dtype)
+    k, v = (t.view(b, nk, h, d).transpose(1, 2) for t in kv.chunk(2, -1))
+    return q.view(b, nq, h, d).transpose(1, 2), k, v
+
+
+def k1_case(label, b, h, nq, nk, d, dtype, q_mask=None, kv_mask=None, reps=3,
+            library=False, gen=None, serving=False):
+    """One fused_attention check; returns a result row. ``serving`` builds
+    the operands in the serving path's strided layout and also checks that
+    a kernel skipping its last key tile would fail the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from alphafold2_tpu_torch.ops.cuda.axial import (
+        fused_attention, fused_attention_reference)
+
+    dev = torch.device("cuda")
+    q, k, v = _k1_operands(b, h, nq, nk, d, dtype, gen, serving)
+    scale = d**-0.5
+    out = fused_attention(q, k, v, q_mask=q_mask, kv_mask=kv_mask, sm_scale=scale)
+    torch.cuda.synchronize()
+    plain = lambda: _sliced(
+        fused_attention_reference, (q, k, v),
+        {"q_mask": q_mask, "kv_mask": kv_mask, "sm_scale": scale},
+        h * nq * nk * 4 * 3,
+    )
+    ref = plain()
+    row = _compare(label, "fused_attention", out, ref, dtype)
+    if serving:
+        short = fused_attention(q, k, v, q_mask=q_mask, kv_mask=_drop_last_tile(kv_mask),
+                                sm_scale=scale)
+        _control(label, "fused_attention", short, ref, dtype)
+        del short
+    qv = q_mask.sum(1) if q_mask is not None else torch.full((b,), nq, device=dev)
+    kv = kv_mask.sum(1) if kv_mask is not None else torch.full((b,), nk, device=dev)
+    ops = 4.0 * h * d * float((qv * kv).sum())
+    nbytes = (2 * b * h * nq * d + 2 * b * h * nk * d) * q.element_size() + (
+        (b * nq if q_mask is not None else 0) + (b * nk if kv_mask is not None else 0))
+    row.update(_bound(ops, nbytes, dtype))
+    if reps:
+        row["ms"] = cuda_ms(lambda: fused_attention(
+            q, k, v, q_mask=q_mask, kv_mask=kv_mask, sm_scale=scale), reps)
+        row["plain_ms"] = cuda_ms(plain, reps=1, warmup=0)
+        if library:
+            am = kv_mask[:, None, None, :] if kv_mask is not None else None
+            try:
+                row["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=am, scale=scale), reps)
+            except (RuntimeError, torch.OutOfMemoryError) as e:
+                log(f"[kernels] {label}: scaled_dot_product_attention failed: {e}")
+                row["library_ms"] = None
+    del q, k, v, out, ref
+    torch.cuda.empty_cache()
+    return row
+
+
+def k2_case(label, b, r, n, h, d, dtype, length=None, reps=3, library=False, gen=None):
+    import torch
+    import torch.nn.functional as F
+
+    from alphafold2_tpu_torch.ops.cuda.tied_row import (
+        tied_row_attention, tied_row_attention_reference)
+
+    dev = torch.device("cuda")
+    shape = (b, r, n, h, d)
+    q = torch.randn(shape, device=dev, generator=gen)
+    k = torch.randn(shape, device=dev, generator=gen)
+    v = torch.randn(shape, device=dev, generator=gen)
+    mask = _prefix(n, length) if length is not None else None
+    tie = r**-0.5
+    if mask is not None:  # padded columns abstain, as ops/attention.py does
+        q, k, v = (t * mask[:, None, :, None, None] for t in (q, k, v))
+        n_rows = (mask.any(-1).long() * r).clamp_min(1)
+        tie = n_rows.float() ** -0.5
+    q, k, v = (t.to(dtype).contiguous() for t in (q, k, v))
+    scale = d**-0.5
+    run = lambda: tied_row_attention(q, k, v, q_mask=mask, kv_mask=mask,
+                                     sm_scale=scale, tie_scale=tie)
+    out = run()
+    torch.cuda.synchronize()
+    plain = lambda: tied_row_attention_reference(q, k, v, mask, mask, scale, tie)
+    ref = plain()
+    row = _compare(label, "tied_row_attention", out, ref, dtype)
+    if mask is not None:
+        short = tied_row_attention(q, k, v, q_mask=mask, kv_mask=_drop_last_tile(mask),
+                                   sm_scale=scale, tie_scale=tie)
+        _control(label, "tied_row_attention", short, ref, dtype)
+    nv = mask.sum(1) if mask is not None else torch.full((b,), n, device=dev)
+    ops = 4.0 * h * r * d * float((nv * nv).sum())
+    nbytes = 4 * b * r * n * h * d * q.element_size() + (2 * b * n if mask is not None else 0)
+    row.update(_bound(ops, nbytes, dtype))
+    if reps:
+        row["ms"] = cuda_ms(run, reps)
+        row["plain_ms"] = cuda_ms(plain, reps)
+        if library:
+            # the same function through SDPA: fold rows into the head dim
+            def fold(t):
+                return t.permute(0, 3, 2, 1, 4).reshape(b, h, n, r * d)
+
+            tie_t = torch.as_tensor(tie, device=dev, dtype=torch.float32).reshape(-1)
+            qs = (fold(q).float() * tie_t.reshape(-1, 1, 1, 1)).to(dtype)
+            kf, vf = fold(k), fold(v)
+            am = mask[:, None, None, :] if mask is not None else None
+            row["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qs, kf, vf, attn_mask=am, scale=scale), reps)
+    return row
+
+
+def _errors(out, ref, dtype):
+    """(dtype name, max abs error, its ratio to max|plain|, relative L2
+    error, whether both ratios are within TOL)."""
+    import torch
+
+    name = "float32" if dtype == torch.float32 else "bfloat16"
+    max_rel, l2_rel = TOL[name]
+    diff = out.float() - ref.float()
+    err = float(diff.abs().max())
+    rel_max = err / max(float(ref.float().abs().max()), 1e-30)
+    rel_l2 = float(diff.norm()) / max(float(ref.float().norm()), 1e-30)
+    return name, err, rel_max, rel_l2, rel_max <= max_rel and rel_l2 <= l2_rel
+
+
+def _compare(label, kernel, out, ref, dtype):
+    import torch
+
+    require(bool(torch.isfinite(out).all()), f"{label}: non-finite kernel output")
+    name, err, rel_max, rel_l2, ok = _errors(out, ref, dtype)
+    max_rel, l2_rel = TOL[name]
+    log(f"[kernels] {kernel} {label} {name}: max_abs_err={err:.3e} "
+        f"max_abs_err/max|plain|={rel_max:.3e} (tol {max_rel:g}) "
+        f"rel_l2={rel_l2:.3e} (tol {l2_rel:g}) {'ok' if ok else 'FAIL'}")
+    require(ok, f"{kernel} {label} {name}: disagrees with its plain version "
+                f"(max_abs_err {err:.3e}, relative {rel_max:.3e}, rel_l2 {rel_l2:.3e})")
+    return {"label": label, "kernel": kernel, "dtype": name, "max_abs_err": err,
+            "rel_max": rel_max, "rel_l2": rel_l2}
+
+
+def _control(label, kernel, short, ref, dtype):
+    """Negative control: the kernel run without each row's last key tile
+    must fail the bound its full run passes."""
+    name, _, rel_max, rel_l2, ok = _errors(short, ref, dtype)
+    log(f"[kernels] {kernel} {label} {name}: control without the last key tile: "
+        f"max_abs_err/max|plain|={rel_max:.3e} rel_l2={rel_l2:.3e} "
+        f"{'passes (BAD)' if ok else 'rejected'}")
+    require(not ok, f"{kernel} {label} {name}: the bound does not reject a kernel "
+                    "that skips its last key tile")
+
+
+def _bound(ops, nbytes, dtype):
+    import torch
+
+    name = "float32" if dtype == torch.float32 else "bfloat16"
+    t_ops = ops / PEAK_OPS[name] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"ops": ops, "bytes": nbytes, "ops_ms": t_ops, "bytes_ms": t_bytes,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def phase_kernels():
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows = []
+    # serving path at bucket 128, batch 4 (one dummy slot), dim_head 64:
+    # per trunk layer K1 runs two pair axial passes, the MSA column pass
+    # and both cross-attentions; K2 the tied MSA row pass
+    lens = [128, 110, 97, 0]
+    pair_valid = _prefix(384, [3 * l for l in lens])  # (4, 384) elongated tokens
+    pair_mask = pair_valid[:, :, None] & pair_valid[:, None, :]  # (4, 384, 384)
+    msa_valid = _prefix(128, lens)  # (4, 128) residues
+    msa_mask = msa_valid[:, None, :].expand(4, 5, 128)  # (4, 5, 128)
+    axial = pair_mask.reshape(4 * 384, 384)  # rows fold into the batch
+    msa_col = msa_mask.transpose(1, 2).reshape(4 * 128, 5)
+    pair_flat = pair_mask.reshape(4, 384 * 384)
+    msa_flat = msa_mask.reshape(4, 5 * 128)
+    main = []
+    for dt in (bf16, f32):
+        reps = 3 if dt == bf16 else 0
+        lib = dt == bf16
+        main.append(k1_case("pair axial pass (1536x8, 384x384, d64)", 4 * 384, 8, 384, 384,
+                            64, dt, axial, axial, reps=reps, library=lib, gen=gen,
+                            serving=True))
+        main.append(k1_case("MSA column pass (512x8, 5x5, d64)", 4 * 128, 8, 5, 5, 64, dt,
+                            msa_col, msa_col, reps=reps, library=lib, gen=gen,
+                            serving=True))
+        main.append(k1_case("pair<-MSA cross (4x8, 147456x640, d64)", 4, 8, 384 * 384, 640,
+                            64, dt, pair_flat, msa_flat, reps=reps, library=lib, gen=gen,
+                            serving=True))
+        main.append(k1_case("MSA<-pair cross (4x8, 640x147456, d64)", 4, 8, 640, 384 * 384,
+                            64, dt, msa_flat, pair_flat, reps=reps, library=lib, gen=gen,
+                            serving=True))
+        main.append(k2_case("tied MSA rows (4x5x128x8x64, R*D=320)", 4, 5, 128, 8, 64, dt,
+                            length=lens, reps=reps, library=lib, gen=gen))
+    rows += main
+    # edge cases, both dtypes
+    for dt in (f32, bf16):
+        rows.append(k1_case("ragged tails 200x91 d32", 2, 2, 200, 91, 32, dt,
+                            _prefix(200, [197, 150]), _prefix(91, [84, 91]), reps=0,
+                            gen=gen))
+        rows.append(k1_case("Nk=5 d64", 3, 4, 70, 5, 64, dt, _prefix(70, [70, 60, 5]),
+                            _prefix(5, [5, 3, 1]), reps=0, gen=gen))
+        rows.append(k1_case("fully masked batch row d16", 2, 2, 64, 64, 16, dt,
+                            _prefix(64, [64, 64]), _prefix(64, [0, 64]), reps=0, gen=gen))
+        rows.append(k1_case("unmasked 130x130 d128", 1, 2, 130, 130, 128, dt, reps=0,
+                            gen=gen))
+        rows.append(k2_case("R*D=1280 (20 rows, d64)", 1, 20, 48, 2, 64, dt, length=[41],
+                            reps=0, gen=gen))
+        rows.append(k2_case("R*D=80 unmasked (5 rows, d16)", 2, 5, 33, 2, 16, dt, reps=0,
+                            gen=gen))
+    # fully masked query rows must come out exactly 0
+    from alphafold2_tpu_torch.ops.cuda.axial import fused_attention
+
+    q = torch.randn((2, 2, 64, 16), device="cuda", generator=gen)
+    none = torch.zeros((2, 64), dtype=torch.bool, device="cuda")
+    out = fused_attention(q, q, q, kv_mask=none, sm_scale=0.25)
+    require(bool((out == 0).all()), "rows with no valid key are not exactly 0")
+    log("[kernels] rows with no valid key: exactly 0")
+    return rows
+
+
+# --------------------------------------------------------------- phase 3
+
+
+def _kabsch_rmsd(a, b):
+    import torch
+
+    from alphafold2_tpu_torch.utils.metrics import kabsch
+
+    x = torch.as_tensor(a, dtype=torch.float64).reshape(-1, 3).T[None]
+    y = torch.as_tensor(b, dtype=torch.float64).reshape(-1, 3).T[None]
+    xa, yc = kabsch(x, y)
+    return float(torch.sqrt(((xa - yc) ** 2).sum(1).mean()))
+
+
+def phase_reference():
+    """A small model, same weights, on the card (kernels) and on the CPU
+    (plain versions), in float32."""
+    import numpy as np
+    import torch
+
+    from alphafold2_tpu_torch.predict import init_params
+    from alphafold2_tpu_torch.train.end2end import End2EndModel
+
+    torch.manual_seed(0)
+    model = init_params(End2EndModel(dim=64, depth=2, heads=4, dim_head=16,
+                                     max_seq_len=256, mds_iters=50,
+                                     msa_tie_row_attn=True), seed=1).eval()
+    rng = np.random.default_rng(0)
+    b, l, m = 2, 24, 5
+    seq = torch.from_numpy(rng.integers(0, 20, (b, l)))
+    msa = torch.from_numpy(rng.integers(0, 20, (b, m, l)))
+    mask = torch.ones((b, l), dtype=torch.bool)
+    mask[1, 17:] = False
+    msa_mask = mask[:, None].expand(b, m, l).contiguous()
+    with torch.inference_mode():
+        cpu = model(seq, msa, mask=mask, msa_mask=msa_mask)
+        model.cuda()
+        gpu = model(seq.cuda(), msa.cuda(), mask=mask.cuda(), msa_mask=msa_mask.cuda())
+    m3 = mask.repeat_interleave(3, 1)
+    pv = (m3[:, :, None] & m3[:, None, :])[..., None]
+    err = float(((gpu["distogram"].cpu() - cpu["distogram"]).abs() * pv).max())
+    log(f"[reference] small model distogram card vs cpu: max_abs_err={err:.3e} (tol 1e-3)")
+    require(err <= 1e-3, "small model distogram disagrees between card and CPU")
+    for i in range(b):
+        L = int(mask[i].sum())
+        r = _kabsch_rmsd(gpu["refined"][i, :L].cpu().numpy(), cpu["refined"][i, :L].numpy())
+        log(f"[reference] small model refined coords, element {i}: Kabsch RMSD "
+            f"{r:.3e} A (tol 0.5 A)")
+        require(r <= 0.5, "small model structure disagrees between card and CPU")
+
+
+def phase_serve():
+    import numpy as np
+    import torch
+
+    from alphafold2_tpu_torch.config import Config
+    from alphafold2_tpu_torch.ops.cuda.axial import (
+        fused_attention, fused_attention_reference)
+    from alphafold2_tpu_torch.ops.cuda.tied_row import (
+        tied_row_attention, tied_row_attention_reference)
+    from alphafold2_tpu_torch.serve.engine import ServeEngine, ServeRequest
+
+    cfg = Config()
+    cfg.model.msa_tie_row_attn = True
+    cfg.serve.buckets = (64, 96, 128)
+    cfg.serve.max_batch = 4
+    cfg.serve.msa_depth = 5
+    cfg.serve.mds_iters = 200
+    t0 = time.perf_counter()
+    engine = ServeEngine(cfg)
+    engine.warmup()
+    torch.cuda.synchronize()
+    log(f"[serve] engine built and warmed (3 buckets) in {time.perf_counter() - t0:.1f} s")
+
+    rng = np.random.default_rng(7)
+    alphabet = "ACDEFGHIKLMNPQRSTVWY"
+    lengths = [50, 64, 77, 96, 110, 128]
+    seqs = ["".join(rng.choice(list(alphabet), n)) for n in lengths]
+    reqs = [ServeRequest(seq=s, seed=i) for i, s in enumerate(seqs)]
+
+    for fn in (fused_attention, tied_row_attention):
+        fn.launches = 0
+    for fn in (fused_attention_reference, tied_row_attention_reference):
+        fn.calls = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results = engine.predict_many(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fused_attention": fused_attention.launches,
+                "tied_row_attention": tied_row_attention.launches}
+    plain_calls = fused_attention_reference.calls + tied_row_attention_reference.calls
+    peak = torch.cuda.max_memory_allocated()
+
+    for r in results:
+        require(r.ok, f"request of {len(r.seq)} residues failed: {r.error}")
+        require(r.atom14.shape == (len(r.seq), 14, 3), f"atom14 shape {r.atom14.shape}")
+        require(bool(np.isfinite(r.atom14).all()), "non-finite atom14")
+        log(f"[serve] {len(r.seq):4d} residues -> bucket {r.bucket}: "
+            f"latency {r.latency_s * 1e3:.1f} ms")
+    residues = sum(lengths)
+    log(f"[serve] {len(reqs)} requests, {residues} residues, {engine.counters['batches']} "
+        f"batches in {wall:.3f} s: {residues / wall:.2f} residues/s; "
+        f"peak device memory {peak / 2**30:.2f} GiB")
+    log(f"[serve] kernel launches on the path: {launches}; plain-version calls: "
+        f"{plain_calls}")
+    require(all(v > 0 for v in launches.values()), "a kernel never launched on the path")
+    require(plain_calls == 0, "a plain version ran on the serving path")
+
+    alone = engine.predict_many([reqs[4]])[0]
+    diff = float(np.abs(alone.atom14 - results[4].atom14).max())
+    log(f"[serve] same (sequence, seed) alone vs batched: max |d atom14| = {diff:.3e} A "
+        "(tol 1e-3 A)")
+    require(diff <= 1e-3, "batched and solo serving disagree")
+    profile_batch(engine, reqs[4:])
+    return {"launches": launches, "wall_s": wall, "residues_per_s": residues / wall,
+            "peak_bytes": peak,
+            "latency_ms": [round(r.latency_s * 1e3, 3) for r in results]}
+
+
+def profile_batch(engine, reqs):
+    """Device time by kernel over one serving batch (torch.profiler), and
+    the share of the batch's wall time the device was busy."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        bucket = engine.predict_many(reqs)[0].bucket
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    from torch.autograd import DeviceType
+
+    rows = []  # device-side events only: kernels and memcpy/memset
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            rows.append((us / 1e3, e.count, e.key))
+    if not rows:
+        log("[profile] the profiler recorded no device time: not measured")
+        return
+    busy = sum(r[0] for r in rows)
+    log(f"[profile] one bucket-{bucket} batch: wall {wall_ms:.1f} ms "
+        f"(profiler on), device busy {busy:.1f} ms ({busy / wall_ms:.1%})")
+    # K1 and K2 instantiate one kernel template: at head dim 64 both show
+    # as attention_kernel_mma<64>
+    for ms, count, name in sorted(rows, reverse=True)[:12]:
+        log(f"[profile] {ms:9.2f} ms {ms / busy:6.1%} x{count:<6d} {name[:90]}")
+
+
+# --------------------------------------------------------------- main
+
+
+def kernel_line(rows, serve):
+    """One entry per kernel: K1 sums one trunk layer's K1 calls at bucket
+    128 (two pair axial passes, the MSA column pass, both cross
+    attentions), K2 its tied-row call, bf16."""
+    entries = []
+    specs = [
+        ("fused_attention", "alphafold2_tpu_torch/csrc/fused_attention.cu",
+         "alphafold2_tpu/ops/pallas/axial.py:249",
+         {"pair axial pass (1536x8, 384x384, d64)": 2,
+          "MSA column pass (512x8, 5x5, d64)": 1,
+          "pair<-MSA cross (4x8, 147456x640, d64)": 1,
+          "MSA<-pair cross (4x8, 640x147456, d64)": 1}),
+        ("tied_row_attention", "alphafold2_tpu_torch/csrc/tied_row_attention.cu",
+         "alphafold2_tpu/ops/pallas/tied_row.py:53",
+         {"tied MSA rows (4x5x128x8x64, R*D=320)": 1}),
+    ]
+    for name, source, replaces, weights in specs:
+        timed = [r for r in rows if r["label"] in weights and r["dtype"] == "bfloat16"]
+        w = [weights[r["label"]] for r in timed]
+        lib = [r.get("library_ms") for r in timed]
+        ops_ms = sum(c * r["ops_ms"] for c, r in zip(w, timed))
+        bytes_ms = sum(c * r["bytes_ms"] for c, r in zip(w, timed))
+        entries.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": serve["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows if r["kernel"] == name),
+            "ms": sum(c * r["ms"] for c, r in zip(w, timed)),
+            "plain_ms": sum(c * r["plain_ms"] for c, r in zip(w, timed)),
+            "bound_ms": sum(c * r["bound_ms"] for c, r in zip(w, timed)),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": (None if any(x is None for x in lib)
+                           else sum(c * x for c, x in zip(w, lib))),
+        })
+    return {"kernels": entries}
+
+
+def main() -> int:
+    if not os.path.isdir(os.path.join(HERE, "alphafold2_tpu_torch")):
+        log("chip_smoke.py must run from a checkout that holds alphafold2_tpu_torch/")
+        return 2
+    sys.path.insert(0, HERE)
+    import torch
+
+    if not torch.cuda.is_available():
+        log("no CUDA device: chip_smoke.py drives the port on the card only")
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()
+    card = smi[0] if smi else "nvidia-smi gave nothing"
+    log(f"[device] {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}; "
+        f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    try:
+        phase_build()
+        rows = phase_kernels()
+        for r in rows:
+            if "ms" in r:
+                log(f"[kernels] time {r['kernel']} {r['label']} {r['dtype']}: "
+                    f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+                    f"sdpa {r.get('library_ms')} ms, bound {r['bound_ms']:.4f} ms "
+                    f"({r['bound_by']}; {r['ops']:.3e} ops, {r['bytes']:.3e} bytes)")
+        phase_reference()
+        serve = phase_serve()
+    except Exception:  # noqa: BLE001 — any failed phase fails the run
+        traceback.print_exc()
+        log("chip_smoke: FAILED")
+        return 1
+    log(card)
+    print(json.dumps(kernel_line(rows, serve)), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

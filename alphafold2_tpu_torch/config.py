@@ -1,16 +1,20 @@
 """Configuration of the port: copies of the JAX package's dataclasses.
 
-``ModelConfig``, ``DataConfig`` and ``ServeConfig`` carry the same field
-names and defaults as ``alphafold2_tpu/config.py``, so one set of values
-configures both packages. Fields the port does not serve yet (sharding,
-sparse attention, pipelining, caches, the async frontend) are kept for that
-reason; the entry points reject the ones they cannot honour. ``Config.seed``
-stands in for the JAX package's ``train.seed``, the one training field
-serving reads (parameter init and the MDS start).
+``ModelConfig``, ``MeshConfig``, ``DataConfig``, ``ServeConfig`` and
+``TrainConfig`` carry the same field names and defaults as
+``alphafold2_tpu/config.py``, so one set of values configures both packages,
+and ``Config.apply_overrides`` / :func:`parse_cli` read the same
+``section.field=value`` strings. Fields the port does not serve yet
+(sharding, sparse attention, pipelining, caches, the async frontend,
+checkpoints, profiling) are kept for that reason; the entry points reject
+the ones they cannot honour. ``train.seed`` seeds parameter init, the data
+order and the MDS start, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
@@ -39,6 +43,14 @@ class ModelConfig:
     template_attn_depth: int = 2  # template pointwise-attention layers
     bfloat16: bool = True  # compute dtype (parameters stay float32)
     init_scheme: str = "flax"  # parameter init distributions
+
+
+@dataclass
+class MeshConfig:
+    data_parallel: int = 1  # dp axis size; -1 = fill with all devices
+    seq_parallel: int = 1  # sp axis size (pair-map row sharding)
+    grid_rows: int = 1  # spr axis (pair-row shards)
+    grid_cols: int = 1  # spc axis (pair-col shards)
 
 
 @dataclass
@@ -89,8 +101,65 @@ class ServeConfig:
 
 
 @dataclass
+class TrainConfig:
+    learning_rate: float = 3e-4  # peak of the warmup-cosine schedule
+    num_steps: int = 100000  # steps of a training run
+    gradient_accumulate_every: int = 16  # micro-steps per optimizer update
+    warmup_steps: int = 1000  # linear LR warmup steps before cosine decay
+    weight_decay: float = 0.0  # AdamW decoupled weight decay
+    seed: int = 0  # seed of parameter init, data order and the MDS start
+    log_every: int = 50  # steps between train-metric log lines
+    checkpoint_every: int = 1000  # steps between checkpoint writes
+    checkpoint_dir: Optional[str] = None  # checkpoint root; None disables
+    keep_checkpoints: int = 3  # newest checkpoints retained
+    profile_dir: Optional[str] = None  # profiler trace output
+    profile_steps: Tuple[int, int] = (10, 13)  # [start, end) profiled steps
+    trace_events: Optional[str] = None  # host-side span trace output
+    # "off" | "triage" (per-parameter-group norms every step) | "full"
+    numerics: str = "triage"
+
+
+@dataclass
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)  # architecture
+    mesh: MeshConfig = field(default_factory=MeshConfig)  # device mesh axes
     data: DataConfig = field(default_factory=DataConfig)  # dataset + features
+    train: TrainConfig = field(default_factory=TrainConfig)  # optimizer loop
     serve: ServeConfig = field(default_factory=ServeConfig)  # inference plane
-    seed: int = 0  # parameter init + MDS start (JAX: train.seed)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    def apply_overrides(self, overrides: list) -> "Config":
+        """Apply ``section.field=value`` strings (CLI) onto a copy."""
+        cfg = dataclasses.replace(
+            self, **{f.name: dataclasses.replace(getattr(self, f.name))
+                     for f in dataclasses.fields(self)})
+        for item in overrides:
+            key, _, value = item.partition("=")
+            key = key.lstrip("-")
+            section_name, _, field_name = key.partition(".")
+            section = getattr(cfg, section_name, None)
+            if section is None or not hasattr(section, field_name):
+                raise KeyError(f"unknown config field {key!r}")
+            current = getattr(section, field_name)
+            if isinstance(current, bool):
+                parsed = value.lower() in ("1", "true", "yes")
+            elif isinstance(current, int):
+                parsed = int(value)
+            elif isinstance(current, float):
+                parsed = float(value)
+            elif isinstance(current, tuple):
+                # comma-separated ints, e.g. --serve.buckets=64,128,256
+                parsed = tuple(int(v) for v in value.split(",") if v)
+            else:
+                parsed = value
+            setattr(section, field_name, parsed)
+        return cfg
+
+
+def parse_cli(argv: list, base: Optional[Config] = None) -> Config:
+    """``section.field=value`` arguments (``--`` prefix optional) onto
+    ``base`` (default ``Config()``); arguments without ``=`` are ignored."""
+    cfg = base or Config()
+    return cfg.apply_overrides([a for a in argv if "=" in a])

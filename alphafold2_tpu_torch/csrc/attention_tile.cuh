@@ -13,6 +13,12 @@
 // the key count is excluded exactly (probability 0); a query row with no
 // valid key and a masked query row both produce 0.
 //
+// With `lse` set (the training forward) the block of output chunk 0 also
+// writes each query row's logsumexp of its scaled logits, m + log(l), which
+// the backward (fused_attention_bwd.cu) uses to recompute probabilities as
+// exp(s - lse). A row with no valid key writes +inf, so its recomputed
+// probabilities are exactly 0 and never exp(s - (-inf)).
+//
 // Element (b, h, n, f) of an operand lives at
 //     b*sb + h*sh + n*sn + (f / fd)*sr + f % fd
 // so one kernel reads the (B, H, N, D) layout of fused attention and the
@@ -54,6 +60,7 @@ struct Problem {
   const unsigned char* q_mask;   // (batch, nq) 0/1, or null
   const unsigned char* kv_mask;  // (batch, nk) 0/1, or null
   const float* tie_scale;        // (batch,) extra logit scale, or null
+  float* lse = nullptr;          // (batch, heads, nq) f32 row logsumexp out, or null
   Operand qs, ks, vs, os;
   int batch, heads, nq, nk;
   int features;    // F: contraction width of the logits and width of the output
@@ -81,6 +88,12 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src, const Op
     if (n < n_limit && f < p.features) x = src[offset(op, b, h, n, f, p.fd)];
     dst[row * (FC + 1) + col] = x;
   }
+}
+
+// Logsumexp of a row from its running max and sum; +inf for a row with no
+// valid key.
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return m == -CUDART_INF_F ? CUDART_INF_F : m + logf(l);
 }
 
 __device__ __forceinline__ float row_max8(float x) {
@@ -223,6 +236,8 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(Problem p) {
   for (int i = 0; i < 4; ++i) {
     const int n = q0 + ty * 4 + i;
     if (n >= p.nq) continue;
+    if (p.lse != nullptr && chunk == 0 && tx == 0)
+      p.lse[(long long)bh * p.nq + n] = row_lse(m_run[i], l_run[i]);
     const bool qv = p.q_mask == nullptr || p.q_mask[(long long)b * p.nq + n] != 0;
     const float inv = 1.f / fmaxf(l_run[i], 1e-30f);
 #pragma unroll
@@ -427,6 +442,8 @@ __global__ void __launch_bounds__(kThreads) attention_kernel_mma(Problem p, int 
   for (int r = 0; r < 2; ++r) {
     const int n = q0 + r0 + 8 * r;
     if (n >= p.nq) continue;
+    if (p.lse != nullptr && chunk == 0 && t == 0)
+      p.lse[(long long)bh * p.nq + n] = row_lse(m_run[r], l_run[r]);
     const bool qv = p.q_mask == nullptr || p.q_mask[(long long)b * p.nq + n] != 0;
     const float inv = 1.f / fmaxf(l_run[r], 1e-30f);
 #pragma unroll

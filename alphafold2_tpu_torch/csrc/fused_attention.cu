@@ -28,6 +28,10 @@
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // (alphafold2_tpu_torch/ops/cuda/build.py). Bound with ctypes.
+//
+// Training uses af2_fused_attention_lse, which also writes each row's
+// logsumexp for the backward kernels (K3a/K3b, fused_attention_bwd.cu), as the
+// TPU path's `_kernel` does beside `_kernel_no_lse` (:110-120).
 
 #include "attention_tile.cuh"
 
@@ -40,21 +44,15 @@ cudaError_t dispatch_dtype(int dtype, const af2::Problem& p, cudaStream_t stream
   return cudaErrorInvalidValue;
 }
 
-}  // namespace
-
-// strides: 12 element strides, (batch, head, token) for q, k, v and out in
-// that order; the head-dim stride must be 1. dtype: 0 = float32, 1 = bfloat16.
-// Returns the cudaError_t of the launch (0 on success).
-extern "C" int af2_fused_attention(int dtype, const void* q, const void* k, const void* v,
-                                   void* out, const unsigned char* q_mask,
-                                   const unsigned char* kv_mask, const long long* strides,
-                                   int batch, int heads, int nq, int nk, int head_dim,
-                                   float sm_scale, void* stream) {
+int run(int dtype, const void* q, const void* k, const void* v, void* out, float* lse,
+        const unsigned char* q_mask, const unsigned char* kv_mask, const long long* strides,
+        int batch, int heads, int nq, int nk, int head_dim, float sm_scale, void* stream) {
   af2::Problem p;
   p.q = q;
   p.k = k;
   p.v = v;
   p.o = out;
+  p.lse = lse;
   p.q_mask = q_mask;
   p.kv_mask = kv_mask;
   p.tie_scale = nullptr;
@@ -81,4 +79,29 @@ extern "C" int af2_fused_attention(int dtype, const void* q, const void* k, cons
     case 128: return dispatch_dtype<128>(dtype, p, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// strides: 12 element strides, (batch, head, token) for q, k, v and out in
+// that order; the head-dim stride must be 1. dtype: 0 = float32, 1 = bfloat16.
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int af2_fused_attention(int dtype, const void* q, const void* k, const void* v,
+                                   void* out, const unsigned char* q_mask,
+                                   const unsigned char* kv_mask, const long long* strides,
+                                   int batch, int heads, int nq, int nk, int head_dim,
+                                   float sm_scale, void* stream) {
+  return run(dtype, q, k, v, out, nullptr, q_mask, kv_mask, strides, batch, heads, nq, nk,
+             head_dim, sm_scale, stream);
+}
+
+// The training forward: as af2_fused_attention, and also writes each query
+// row's logsumexp into lse, a contiguous (batch, heads, nq) f32 buffer.
+extern "C" int af2_fused_attention_lse(int dtype, const void* q, const void* k, const void* v,
+                                       void* out, float* lse, const unsigned char* q_mask,
+                                       const unsigned char* kv_mask, const long long* strides,
+                                       int batch, int heads, int nq, int nk, int head_dim,
+                                       float sm_scale, void* stream) {
+  return run(dtype, q, k, v, out, lse, q_mask, kv_mask, strides, batch, heads, nq, nk,
+             head_dim, sm_scale, stream);
 }

@@ -6,6 +6,7 @@ pair grid with axial positional embeddings and an AND-combined pair mask
 (:187-201), the MSA stream with per-position and per-row embeddings
 (:203-215), the python-loop trunk, and the symmetrized distogram head
 (:314-318). ``dtype`` is the compute dtype; parameters stay float32.
+Dropout is not ported: nonzero rates raise.
 """
 
 from __future__ import annotations
@@ -33,9 +34,15 @@ class Alphafold2(nn.Module):
         gelu_exact: bool = False,
         msa_tie_row_attn: bool = False,
         dtype: torch.dtype = torch.float32,
+        attn_dropout: float = 0.0,
+        ff_dropout: float = 0.0,
         **engine_flags,
     ):
         super().__init__()
+        if attn_dropout or ff_dropout:
+            raise NotImplementedError(
+                f"dropout (attn {attn_dropout}, ff {ff_dropout}) is not ported yet"
+            )
         self.max_seq_len = max_seq_len
         self.max_num_msas = max_num_msas
         self.dtype = dtype

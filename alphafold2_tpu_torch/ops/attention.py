@@ -26,12 +26,22 @@ from alphafold2_tpu_torch.ops.cuda.tied_row import tied_row_attention
 from alphafold2_tpu_torch.ops.layers import Dense
 
 
+def _no_dropout(rate: float, where: str) -> None:
+    if rate:
+        raise NotImplementedError(
+            f"{where} dropout (rate {rate}) is not ported yet: the kernels have no "
+            "in-kernel random bits, so training runs with dropout 0"
+        )
+
+
 class FeedForward(nn.Module):
     """GEGLU: Dense(d -> 2*mult*d) -> h * gelu(gates) -> Dense(mult*d -> d).
     GELU is the tanh form unless ``gelu_exact`` (flax's default)."""
 
-    def __init__(self, dim: int, mult: int = 4, gelu_exact: bool = False):
+    def __init__(self, dim: int, mult: int = 4, gelu_exact: bool = False,
+                 dropout: float = 0.0):
         super().__init__()
+        _no_dropout(dropout, "feedforward")
         inner = dim * mult
         self.wi = Dense(dim, inner * 2)
         self.wo = Dense(inner, dim)
@@ -48,8 +58,9 @@ class Attention(nn.Module):
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
                  compress_ratio: int = 1,
-                 context_parallel: Optional[str] = None):
+                 context_parallel: Optional[str] = None, dropout: float = 0.0):
         super().__init__()
+        _no_dropout(dropout, "attention")
         if compress_ratio != 1:
             raise NotImplementedError("KV compression is not ported yet")
         if context_parallel is not None:

@@ -35,16 +35,24 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
-# C entry point of each kernel source: (symbol, argtypes)
+# C entry points of each kernel source: {source: {symbol: argtypes}}
 SIGNATURES = {
-    "fused_attention": (
-        "af2_fused_attention",
-        [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    ),
-    "tied_row_attention": (
-        "af2_tied_row_attention",
-        [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
-    ),
+    "fused_attention": {
+        "af2_fused_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+        # the training forward: one more pointer, the (B, H, Nq) f32 logsumexp
+        "af2_fused_attention_lse": [
+            _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    },
+    "fused_attention_bwd": {
+        "af2_fused_attention_bwd_dq": [
+            _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+        "af2_fused_attention_bwd_dkv": [
+            _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    },
+    "tied_row_attention": {
+        "af2_tied_row_attention": [
+            _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    },
 }
 
 _lock = threading.Lock()
@@ -120,10 +128,10 @@ def library(name: str) -> ctypes.CDLL:
             return lib
         path = build_all([name])[name]
         lib = ctypes.CDLL(str(path))
-        symbol, argtypes = SIGNATURES[name]
-        fn = getattr(lib, symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for symbol, argtypes in SIGNATURES[name].items():
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         lib.af2_error_string.argtypes = [ctypes.c_int]
         lib.af2_error_string.restype = ctypes.c_char_p
         _libraries[name] = lib

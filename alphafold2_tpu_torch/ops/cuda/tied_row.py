@@ -15,6 +15,12 @@ Callers pre-zero padded (row, position) entries of q/k/v (abstention), pass
 the SHARED query/column masks (B, N) and the voting-row ``tie_scale``
 (ops/attention.py). Masking follows ``axial.fused_attention``: masked keys
 excluded, masked queries and key-less rows give 0.
+
+K2 is a forward kernel only (the TPU path differentiates it through K1's
+backward at head dim R*D; that backward is not ported for tied rows). On the
+card :func:`tied_row_attention` raises when grad is enabled and an input
+requires it, rather than return an output that carries no gradient; on the
+CPU the plain version is differentiated by autograd.
 """
 
 from __future__ import annotations
@@ -101,6 +107,11 @@ def tied_row_attention(
         )
     if q.device.type != "cuda":
         raise ValueError(f"tied_row_attention runs on cuda or cpu, not {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "tied_row_attention has no backward kernel on the card yet: train "
+            "with model.msa_tie_row_attn=False (the training default)"
+        )
     if any(t.device != q.device for t in (k, v) + tuple(
             m for m in (q_mask, kv_mask) if m is not None)):
         raise ValueError("tied_row_attention operands must share one device")

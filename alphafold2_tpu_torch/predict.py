@@ -94,7 +94,7 @@ def build_model(cfg: Config, mds_iters: int = 200):
     return End2EndModel(
         dim=m.dim, depth=m.depth, heads=m.heads, dim_head=m.dim_head,
         max_seq_len=m.max_seq_len, mds_iters=mds_iters,
-        msa_tie_row_attn=m.msa_tie_row_attn, mds_seed=cfg.seed,
+        msa_tie_row_attn=m.msa_tie_row_attn, mds_seed=cfg.train.seed,
         dtype=torch.bfloat16 if m.bfloat16 else torch.float32,
         gelu_exact=m.gelu_exact, remat=m.remat, reversible=m.reversible,
         scan_layers=m.scan_layers, sparse_self_attn=m.sparse_self_attn,
@@ -133,7 +133,7 @@ def predict(
     device: Optional[Union[str, torch.device]] = None,
 ) -> Prediction:
     """Full prediction on the end-to-end model: random weights from
-    ``cfg.seed`` unless a ``state_dict`` (convert.py) is given. Runs on the
+    ``cfg.train.seed`` unless a ``state_dict`` (convert.py) is given. Runs on the
     CUDA card unless ``device="cpu"``."""
     dev = resolve_device(device)
     L = len(seq)
@@ -149,7 +149,7 @@ def predict(
     if state_dict is not None:
         model.load_state_dict(state_dict)
     else:
-        init_params(model, cfg.seed)
+        init_params(model, cfg.train.seed)
     model = model.to(dev).eval()
     tokens = encode_sequence(seq)
     msa = synthesize_msa(tokens, depth, seed=seed)

@@ -71,7 +71,7 @@ class ServeEngine:
     >>> results = engine.predict_many(["ACDEFGH...", "MKV..."])
 
     ``state_dict`` (e.g. from ``convert.to_state_dict``) replaces the random
-    weights drawn from ``cfg.seed``. ``counters`` counts requests, batches
+    weights drawn from ``cfg.train.seed``. ``counters`` counts requests, batches
     and padded slots/residues."""
 
     def __init__(self, cfg: Config, state_dict: Optional[dict] = None,
@@ -105,7 +105,7 @@ class ServeEngine:
         if state_dict is not None:
             model.load_state_dict(state_dict)
         else:
-            init_params(model, cfg.seed)
+            init_params(model, cfg.train.seed)
         if cfg.serve.dtype == "bfloat16":
             model = model.to(torch.bfloat16)
         self.model = model.to(self.device).eval()

@@ -1,8 +1,9 @@
 """Structure math: pairwise distances, distogram centering, NeRF, sidechain lift.
 
 Port of ``alphafold2_tpu/utils/structure.py``: :func:`cdist`,
-:func:`center_distogram` (:76), :func:`nerf` (:162) and
-:func:`sidechain_container` (:198). Batched tensor functions, same layouts.
+:func:`get_bucketed_distance_matrix` (:55), :func:`center_distogram` (:76),
+:func:`nerf` (:162) and :func:`sidechain_container` (:198). Batched tensor
+functions, same layouts.
 """
 
 from __future__ import annotations
@@ -31,6 +32,29 @@ def cdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     y2 = (y * y).sum(-1, keepdim=True)
     sq = x2 - 2.0 * (x @ y.transpose(-1, -2)) + y2.transpose(-1, -2)
     return sq.clamp_min(0.0).sqrt()
+
+
+def get_bucketed_distance_matrix(
+    coords: torch.Tensor,  # (..., N, 3)
+    mask: torch.Tensor,  # (..., N) bool
+    num_buckets: int = constants.DISTOGRAM_BUCKETS,
+    ignore_index: int = -100,
+) -> torch.Tensor:
+    """Pairwise distances binned into ``num_buckets`` bins over 2-20 A, as
+    int64 labels; pairs where either residue is masked get ``ignore_index``.
+    A distance equal to a boundary goes to the lower bin (searchsorted
+    side="left", which is ``torch.bucketize(right=False)``). The boundaries
+    are the float32 rounding of the exact linspace; the JAX package's
+    ``jnp.linspace`` differs from them by one ulp at some bins, which moves
+    only a distance within that ulp of a boundary."""
+    distances = cdist(coords, coords)
+    boundaries = torch.linspace(
+        constants.DISTOGRAM_MIN_DIST, constants.DISTOGRAM_MAX_DIST, num_buckets,
+        dtype=torch.float64, device=coords.device,
+    )[:-1].to(distances.dtype)
+    discretized = torch.bucketize(distances, boundaries, right=False)
+    pair_mask = mask[..., :, None] & mask[..., None, :]
+    return torch.where(pair_mask, discretized, ignore_index)
 
 
 def center_distogram(distogram: torch.Tensor, bins: Optional[torch.Tensor] = None):

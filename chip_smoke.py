@@ -3,19 +3,33 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 
-1. build   — compile every kernel under alphafold2_tpu_torch/csrc with nvcc
-             (sm_90a), one process per source, and load them;
-2. kernels — hold each kernel against its plain PyTorch version on the card
-             at the serving path's shapes (f32 and bf16) plus ragged tails,
-             a 5-key pass, fully masked rows and other head dims; time the
-             kernel, the plain version and torch's scaled_dot_product_attention
-             (a yardstick the port never calls);
-3. serve   — a ServeEngine at full model width (dim 256, depth 6, heads 8,
-             dim_head 64, bf16 compute, tied MSA rows, buckets 64/96/128,
-             batch 4) serves six requests; launch counts must show both
-             kernels on the path and no plain-version call; a request served
-             alone and in a batch must agree; a small model must agree
-             between the card and the CPU's plain versions.
+1. build    — compile every kernel source under alphafold2_tpu_torch/csrc
+              with nvcc (sm_90a), one process per source, and load them;
+2. kernels  — hold each forward kernel (K1, K2) against its plain PyTorch
+              version on the card at the serving path's shapes (f32 and
+              bf16) plus ragged tails, a 5-key pass, fully masked rows and
+              other head dims; time the kernel, the plain version and
+              torch's scaled_dot_product_attention (a yardstick the port
+              never calls);
+3. backward — the same for K1's training forward (with the row logsumexp)
+              and the backward kernels K3a (dq) and K3b (dk, dv) at the
+              training path's shapes and the edge cases, per tensor; a
+              negative control that drops each row's last key tile (dq) or
+              query tile (dk, dv); two runs bit-identical; SDPA's backward
+              as the yardstick;
+4. serve    — a ServeEngine at full model width (dim 256, depth 6, heads 8,
+              dim_head 64, bf16 compute, tied MSA rows, buckets 64/96/128,
+              batch 4) serves six requests; launch counts must show both
+              forward kernels on the path and no plain-version call; a
+              request served alone and in a batch must agree; a small model
+              must agree between the card and the CPU's plain versions;
+5. train    — distogram pretraining at the same width (untied MSA rows,
+              crop 128, MSA 5x64, batch 1, accumulation 16): 32 steps whose
+              launch counts must show K1, K3a and K3b on every attention and
+              no plain-version call, the first accumulated update at lr 0;
+              20 steps on one repeated batch whose loss must fall; a small
+              f32 model whose gradients must agree between the card and the
+              CPU; one step under torch.profiler.
 
 Prints the card's name and power limit, then a JSON line describing every
 kernel, and last ``{"ok": true, "device": {...}}``. Any failed phase exits
@@ -50,6 +64,9 @@ TOL = {  # (MAX_REL, L2_REL)
     "bfloat16": (2**-6, 4e-3),
 }
 MAX_PLAIN_LOGITS_BYTES = 2 << 30  # the plain version runs in batch slices below this
+# a small f32 model's gradients, card vs CPU: per-leaf relative L2 error
+GRAD_REL_L2 = 1e-4
+STEP_REPS = 10  # steps timed back to back in the training phase
 
 
 class PhaseError(RuntimeError):
@@ -291,15 +308,15 @@ def _compare(label, kernel, out, ref, dtype):
             "rel_max": rel_max, "rel_l2": rel_l2}
 
 
-def _control(label, kernel, short, ref, dtype):
-    """Negative control: the kernel run without each row's last key tile
-    must fail the bound its full run passes."""
+def _control(label, kernel, short, ref, dtype, tile="key"):
+    """Negative control: the kernel run without each row's last key (or
+    query) tile must fail the bound its full run passes."""
     name, _, rel_max, rel_l2, ok = _errors(short, ref, dtype)
-    log(f"[kernels] {kernel} {label} {name}: control without the last key tile: "
+    log(f"[kernels] {kernel} {label} {name}: control without the last {tile} tile: "
         f"max_abs_err/max|plain|={rel_max:.3e} rel_l2={rel_l2:.3e} "
         f"{'passes (BAD)' if ok else 'rejected'}")
     require(not ok, f"{kernel} {label} {name}: the bound does not reject a kernel "
-                    "that skips its last key tile")
+                    f"that skips its last {tile} tile")
 
 
 def _bound(ops, nbytes, dtype):
@@ -377,6 +394,339 @@ def phase_kernels():
 
 
 # --------------------------------------------------------------- phase 3
+
+
+def _ones(b, n):
+    import torch
+
+    return torch.ones((b, n), dtype=torch.bool, device="cuda")
+
+
+def _grad_operands(b, h, nq, nk, d, dtype, gen, strided):
+    """q/k/v as _k1_operands builds them, and the output cotangent dO: with
+    ``strided`` a (B, H, Nq, D) view of a (B, Nq, H*D) buffer, the layout
+    autograd hands back through ops/attention.py's head fold."""
+    import torch
+
+    q, k, v = _k1_operands(b, h, nq, nk, d, dtype, gen, strided)
+    if strided:
+        do = torch.randn((b, nq, h * d), device="cuda", generator=gen).to(dtype)
+        do = do.view(b, nq, h, d).transpose(1, 2)
+    else:
+        do = torch.randn((b, h, nq, d), device="cuda", generator=gen).to(dtype)
+    return q, k, v, do
+
+
+def _check_lse(label, lse, ref):
+    import torch
+
+    require(bool((torch.isinf(lse) == torch.isinf(ref)).all()),
+            f"{label}: logsumexp rows without a valid key disagree")
+    fin = torch.isfinite(ref)
+    err = float((lse[fin] - ref[fin]).abs().max()) if bool(fin.any()) else 0.0
+    log(f"[backward] fused_attention (lse) {label}: lse max_abs_err={err:.3e} (tol 1e-4)")
+    require(err <= 1e-4, f"{label}: logsumexp disagrees with its plain version")
+
+
+def k3_case(label, b, h, nq, nk, d, dtype, q_mask=None, kv_mask=None, reps=3,
+            library=False, gen=None, strided=False):
+    """K1's training forward, K3a and K3b on one problem, each held against
+    its plain version; a negative control; two backward runs bit-identical.
+    Returns result rows for K1 (lse), K3a and K3b."""
+    import torch
+    import torch.nn.functional as F
+
+    from alphafold2_tpu_torch.ops.cuda import axial
+
+    q, k, v, do = _grad_operands(b, h, nq, nk, d, dtype, gen, strided)
+    scale = d**-0.5
+    out, lse = axial.fused_attention_lse(q, k, v, q_mask, kv_mask, scale)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = axial.fused_attention_lse_reference(q, k, v, q_mask, kv_mask, scale)
+    fwd = _compare(label, "fused_attention (lse)", out, ref_out, dtype)
+    _check_lse(label, lse, ref_lse)
+    dsum = axial.attention_dsum(out, do)
+    args = (q, k, v, do, lse, dsum, q_mask, kv_mask, scale)
+    dq = axial.fused_attention_dq(*args)
+    dk, dv = axial.fused_attention_dkv(*args)
+    torch.cuda.synchronize()
+    rq = axial.fused_attention_dq_reference(*args)
+    rk, rv = axial.fused_attention_dkv_reference(*args)
+    row_q = _compare(label, "fused_attention_bwd_dq", dq, rq, dtype)
+    row_k = _compare(label, "fused_attention_bwd_dkv dk", dk, rk, dtype)
+    row_v = _compare(label, "fused_attention_bwd_dkv dv", dv, rv, dtype)
+    row_kv = dict(row_k, kernel="fused_attention_bwd_dkv",
+                  max_abs_err=max(row_k["max_abs_err"], row_v["max_abs_err"]))
+    row_q["kernel"] = "fused_attention_bwd_dq"
+    require(torch.equal(dq, axial.fused_attention_dq(*args)), f"{label}: K3a not deterministic")
+    dk2, dv2 = axial.fused_attention_dkv(*args)
+    require(torch.equal(dk, dk2) and torch.equal(dv, dv2), f"{label}: K3b not deterministic")
+    log(f"[backward] {label} {fwd['dtype']}: two backward runs bit-identical")
+    if strided:
+        # negative control: without each row's last key tile (dq), without
+        # each key's last query tile (dk, dv)
+        qm = q_mask if q_mask is not None else _ones(b, nq)
+        km = kv_mask if kv_mask is not None else _ones(b, nk)
+        short = axial.fused_attention_dq(q, k, v, do, lse, dsum, qm, _drop_last_tile(km), scale)
+        _control(label, "fused_attention_bwd_dq", short, rq, dtype)
+        sk, sv = axial.fused_attention_dkv(q, k, v, do, lse, dsum, _drop_last_tile(qm), km,
+                                           scale)
+        _control(label, "fused_attention_bwd_dkv dk", sk, rk, dtype, tile="query")
+        _control(label, "fused_attention_bwd_dkv dv", sv, rv, dtype, tile="query")
+        del short, sk, sv
+    qv = q_mask.sum(1) if q_mask is not None else torch.full((b,), nq, device="cuda")
+    kvn = kv_mask.sum(1) if kv_mask is not None else torch.full((b,), nk, device="cuda")
+    pairs = h * float((qv * kvn).sum())
+    es = q.element_size()
+    reads = (2 * b * h * nq * d + 2 * b * h * nk * d) * es + (
+        (b * nq if q_mask is not None else 0) + (b * nk if kv_mask is not None else 0))
+    rows_lse = 4 * b * h * nq
+    # the forward reads q, k, v and writes out (as many bytes as q, k, v, dO)
+    fwd.update(_bound(4.0 * d * pairs, reads + rows_lse, dtype))
+    # K3a: q.k recompute, dO.v, ds.k; K3b: q.k recompute, dO.v, p^T dO, ds^T q
+    row_q.update(_bound(6.0 * d * pairs, reads + 2 * rows_lse + b * h * nq * d * es, dtype))
+    row_kv.update(_bound(8.0 * d * pairs, reads + 2 * rows_lse + 2 * b * h * nk * d * es,
+                         dtype))
+    if reps:
+        fwd["ms"] = cuda_ms(lambda: axial.fused_attention_lse(q, k, v, q_mask, kv_mask, scale),
+                            reps)
+        fwd["plain_ms"] = cuda_ms(lambda: axial.fused_attention_lse_reference(
+            q, k, v, q_mask, kv_mask, scale), reps=1, warmup=0)
+        row_q["ms"] = cuda_ms(lambda: axial.fused_attention_dq(*args), reps)
+        row_kv["ms"] = cuda_ms(lambda: axial.fused_attention_dkv(*args), reps)
+        row_q["plain_ms"] = cuda_ms(lambda: axial.fused_attention_dq_reference(*args),
+                                    reps=1, warmup=0)
+        row_kv["plain_ms"] = cuda_ms(lambda: axial.fused_attention_dkv_reference(*args),
+                                     reps=1, warmup=0)
+        if library:
+            # the same masked problem through SDPA: its forward once, then
+            # its backward (dq, dk and dv in one call) timed
+            am = kv_mask[:, None, None, :] if kv_mask is not None else None
+            try:
+                leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+                o = F.scaled_dot_product_attention(*leaves, attn_mask=am, scale=scale)
+                fwd["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=am, scale=scale), reps)
+                bwd = cuda_ms(lambda: torch.autograd.grad(o, leaves, do, retain_graph=True),
+                              reps)
+                row_q["library_ms"] = row_kv["library_ms"] = bwd
+                del o, leaves
+            except (RuntimeError, torch.OutOfMemoryError) as e:
+                log(f"[backward] {label}: scaled_dot_product_attention failed: {e}")
+                fwd["library_ms"] = row_q["library_ms"] = row_kv["library_ms"] = None
+    del q, k, v, do, out, lse, dq, dk, dv, rq, rk, rv
+    torch.cuda.empty_cache()
+    return [fwd, row_q, row_kv]
+
+
+# training shapes: crop 128, batch 1, heads 8, dim_head 64, one synthetic
+# chain of TRAIN_LEN residues (its MSA, 5 x 64, is fully valid); per trunk
+# layer two pair axial passes, the MSA column and row passes, both crosses
+TRAIN_LEN = 110
+TRAIN_CASES = {  # label: (b, nq, nk, per-layer calls)
+    "pair axial (128x8, 128x128)": (128, 128, 128, 2),
+    "MSA column (64x8, 5x5)": (64, 5, 5, 1),
+    "MSA row (5x8, 64x64)": (5, 64, 64, 1),
+    "pair<-MSA (1x8, 16384x320)": (1, 16384, 320, 1),
+    "MSA<-pair (1x8, 320x16384)": (1, 320, 16384, 1),
+}
+
+
+def _train_masks(label):
+    res = _prefix(128, [TRAIN_LEN])  # (1, 128) residues
+    pair = (res[:, :, None] & res[:, None, :])[0]  # (128, 128)
+    msa = _ones(1, 5 * 64)
+    return {
+        "pair axial (128x8, 128x128)": (pair, pair),
+        "MSA column (64x8, 5x5)": (_ones(64, 5), _ones(64, 5)),
+        "MSA row (5x8, 64x64)": (_ones(5, 64), _ones(5, 64)),
+        "pair<-MSA (1x8, 16384x320)": (pair.reshape(1, -1), msa),
+        "MSA<-pair (1x8, 320x16384)": (msa, pair.reshape(1, -1)),
+    }[label]
+
+
+def phase_backward():
+    import torch
+
+    from alphafold2_tpu_torch.ops.cuda.tied_row import tied_row_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows = []
+    for dt in (bf16, f32):
+        for label, (b, nq, nk, _) in TRAIN_CASES.items():
+            qm, km = _train_masks(label)
+            rows += k3_case(label, b, 8, nq, nk, 64, dt, qm, km, reps=3 if dt == bf16 else 0,
+                            library=dt == bf16, gen=gen, strided=True)
+    for dt in (f32, bf16):
+        rows += k3_case("ragged tails 200x91 d32", 2, 2, 200, 91, 32, dt,
+                        _prefix(200, [197, 150]), _prefix(91, [84, 91]), reps=0, gen=gen)
+        rows += k3_case("Nk=5 d64", 3, 4, 70, 5, 64, dt, _prefix(70, [70, 60, 5]),
+                        _prefix(5, [5, 3, 1]), reps=0, gen=gen)
+        rows += k3_case("fully masked batch row d16", 2, 2, 64, 64, 16, dt,
+                        _prefix(64, [64, 64]), _prefix(64, [0, 64]), reps=0, gen=gen)
+        rows += k3_case("unmasked 130x130 d128", 1, 2, 130, 130, 128, dt, reps=0, gen=gen)
+    # a batch row with no valid key: zero, finite gradients
+    from alphafold2_tpu_torch.ops.cuda.axial import fused_attention
+
+    q, k, v = (torch.randn((2, 2, 64, 16), device="cuda", generator=gen).requires_grad_()
+               for _ in range(3))
+    km = _prefix(64, [0, 64])
+    fused_attention(q, k, v, kv_mask=km, sm_scale=0.25).sum().backward()
+    for g in (q.grad, k.grad, v.grad):
+        require(bool(torch.isfinite(g).all()) and bool((g[0] == 0).all()),
+                "a row with no valid key has nonzero or non-finite gradients")
+    log("[backward] rows with no valid key: gradients exactly 0, all finite")
+    # K2 has no backward kernel: with grad it must raise, never return an
+    # output that carries no gradient
+    qt = torch.randn((1, 2, 8, 2, 16), device="cuda", requires_grad=True)
+    try:
+        tied_row_attention(qt, qt, qt)
+        raise PhaseError("tied_row_attention on the card returned an output under grad")
+    except NotImplementedError:
+        log("[backward] tied_row_attention under grad on the card raises NotImplementedError")
+    return rows
+
+
+# --------------------------------------------------------------- phase 5
+
+
+def _params(model):
+    return [p.detach().clone() for p in model.parameters()]
+
+
+def phase_train():
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from alphafold2_tpu_torch.config import Config
+    from alphafold2_tpu_torch.data.pipeline import SyntheticDataset
+    from alphafold2_tpu_torch.ops.cuda import axial, tied_row
+    from alphafold2_tpu_torch.train import loop
+
+    plain = (axial.fused_attention_reference, axial.fused_attention_lse_reference,
+             axial.fused_attention_dq_reference, axial.fused_attention_dkv_reference,
+             tied_row.tied_row_attention_reference)
+    kernels = {"fused_attention": axial.fused_attention,
+               "fused_attention_bwd_dq": axial.fused_attention_dq,
+               "fused_attention_bwd_dkv": axial.fused_attention_dkv}
+
+    # (a) the slice configuration: 32 steps = 2 accumulated updates
+    cfg = Config()
+    depth = cfg.model.depth
+    steps = 2 * cfg.train.gradient_accumulate_every
+    snap, changed, times, losses, oks = {}, [], [], [], []
+
+    def watch(i, state, metrics):
+        torch.cuda.synchronize()
+        times.append(time.perf_counter())
+        if "p0" not in snap:
+            snap["p0"] = _params(state.model)  # after step 0 (lr 0 or no update)
+        same = all(torch.equal(a, b) for a, b in zip(snap["p0"], state.model.parameters()))
+        changed.append(not same)
+        losses.append(float(metrics["loss"]))
+        oks.append((bool(metrics["grads_ok"]), int(metrics["skipped"])))
+
+    for fn in kernels.values():
+        fn.launches = 0
+    for fn in plain:
+        fn.calls = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = loop.train(cfg, num_steps=steps, callbacks=[watch])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    plain_calls = sum(fn.calls for fn in plain)
+    peak = torch.cuda.max_memory_allocated()
+    lat = np.diff(times[1:]) * 1e3  # steps 2 .. 32, warm
+    log(f"[train] {steps} steps at dim {cfg.model.dim}, depth {depth}, crop "
+        f"{cfg.data.crop_len}, MSA {cfg.data.msa_depth}x{cfg.data.msa_len}, accumulation "
+        f"{cfg.train.gradient_accumulate_every}: {wall:.2f} s incl. init; with per-step "
+        f"norms and parameter checks, warm step latency median {np.median(lat):.2f} ms "
+        f"(min {lat.min():.2f}, max {lat.max():.2f}), {1e3 / np.median(lat):.2f} steps/s; "
+        f"peak device memory {peak / 2**30:.2f} GiB")
+    log(f"[train] losses: first {losses[0]:.4f}, last {losses[-1]:.4f}; all finite: "
+        f"{bool(np.isfinite(losses).all())}; skipped {oks[-1][1]}")
+    log(f"[train] kernel launches: {launches}; plain-version calls: {plain_calls}")
+    require(bool(np.isfinite(losses).all()), "non-finite training loss")
+    require(all(ok for ok, _ in oks) and oks[-1][1] == 0, "a training step was skipped")
+    # every attention's forward runs K1; every attention whose output reaches
+    # the loss runs K3a and K3b (the last layer's MSA<-pair update does not)
+    require(launches["fused_attention"] == 6 * depth * steps, "K1 launches per step")
+    for name in ("fused_attention_bwd_dq", "fused_attention_bwd_dkv"):
+        require(launches[name] == (6 * depth - 1) * steps, f"{name} launches per step")
+    require(plain_calls == 0, "a plain version ran on the training path")
+    require(not any(changed[:steps - 1]),
+            "parameters moved before the second accumulated update (schedule(0) must be 0)")
+    require(changed[steps - 1], "parameters did not move at the second accumulated update")
+    log(f"[train] parameters unchanged through step {steps - 1}, changed after step {steps}")
+    del state
+    torch.cuda.empty_cache()
+
+    # (b) no accumulation, warmup 1, one repeated batch: the loss must fall
+    cfg_b = Config()
+    cfg_b.train.gradient_accumulate_every = 1
+    cfg_b.train.warmup_steps = 1
+    batch = next(iter(SyntheticDataset(cfg_b.data, seed=cfg_b.train.seed)))
+    rep = []
+    loop.train(cfg_b, num_steps=20, dataset=itertools.repeat(batch),
+               callbacks=[lambda i, s, m: rep.append(float(m["loss"]))])
+    log("[train] repeated batch, 20 steps: losses " + " ".join(f"{x:.3f}" for x in rep))
+    require(bool(np.isfinite(rep).all()) and np.mean(rep[-5:]) < np.mean(rep[:5]) and
+            rep[-1] < rep[0], "the loss did not fall on a repeated batch")
+
+    # (c) a small f32 model: the same step's gradients on the card (kernels)
+    # and on the CPU (plain versions)
+    small = Config()
+    small.model.dim, small.model.depth, small.model.heads, small.model.dim_head = 64, 2, 4, 16
+    small.model.bfloat16 = False
+    small.data.crop_len, small.data.msa_depth, small.data.msa_len = 48, 3, 32
+    small.data.batch_size = 2
+    batch = next(iter(SyntheticDataset(small.data, seed=3)))
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        st = loop.init_state(small, loop.build_model(small), device=dev)
+        st, _ = loop.make_train_step(st.model)(st, loop.batch_to_device(batch, torch.device(dev)))
+        grads[dev] = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).cpu()
+                      for n, p in st.model.named_parameters()}
+    worst, worst_name = 0.0, ""
+    for name, g_cpu in grads["cpu"].items():
+        g_gpu = grads["cuda"][name]
+        norm = float(g_cpu.norm())
+        if norm == 0.0:
+            require(bool((g_gpu == 0).all()), f"{name}: zero on the CPU, nonzero on the card")
+            continue
+        rel = float((g_gpu - g_cpu).norm()) / norm
+        if rel > worst:
+            worst, worst_name = rel, name
+    log(f"[train] small f32 model, card vs CPU gradients: worst per-leaf relative L2 "
+        f"{worst:.3e} ({worst_name}; tol {GRAD_REL_L2:g})")
+    require(worst <= GRAD_REL_L2, "small-model gradients disagree between the card and the CPU")
+
+    # (d) the step alone (numerics off, no callbacks, one batch on the
+    # card): its rate, then one step under the profiler
+    st = loop.init_state(cfg, loop.build_model(cfg))
+    step = loop.make_train_step(st.model)
+    data = iter(SyntheticDataset(cfg.data, seed=cfg.train.seed))
+    b = loop.batch_to_device(next(data), torch.device("cuda"))
+    step(st, b)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(STEP_REPS):
+        step(st, b)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / STEP_REPS * 1e3
+    log(f"[train] the step alone, {STEP_REPS} steps: {step_ms:.2f} ms per step, "
+        f"{1e3 / step_ms:.2f} steps/s")
+    profile_device("one training step", lambda: step(st, b), host=True)
+    return {"launches": launches, "steps": steps, "wall_s": wall,
+            "step_ms": step_ms, "peak_bytes": peak}
+
+
+# --------------------------------------------------------------- phase 4
 
 
 def _kabsch_rmsd(a, b):
@@ -490,25 +840,26 @@ def phase_serve():
     log(f"[serve] same (sequence, seed) alone vs batched: max |d atom14| = {diff:.3e} A "
         "(tol 1e-3 A)")
     require(diff <= 1e-3, "batched and solo serving disagree")
-    profile_batch(engine, reqs[4:])
+    profile_device(f"one bucket-{results[4].bucket} serving batch",
+                   lambda: engine.predict_many(reqs[4:]))
     return {"launches": launches, "wall_s": wall, "residues_per_s": residues / wall,
             "peak_bytes": peak,
             "latency_ms": [round(r.latency_s * 1e3, 3) for r in results]}
 
 
-def profile_batch(engine, reqs):
-    """Device time by kernel over one serving batch (torch.profiler), and
-    the share of the batch's wall time the device was busy."""
+def profile_device(what, fn, host=False):
+    """Device time by kernel over ``fn()`` (torch.profiler), and the share of
+    its wall time the device was busy; with ``host``, also the host ops that
+    took the most time of their own and the count of kernel launches."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        bucket = engine.predict_many(reqs)[0].bucket
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    from torch.autograd import DeviceType
-
     rows = []  # device-side events only: kernels and memcpy/memset
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -519,54 +870,88 @@ def profile_batch(engine, reqs):
         if us > 0:
             rows.append((us / 1e3, e.count, e.key))
     if not rows:
-        log("[profile] the profiler recorded no device time: not measured")
+        log(f"[profile] {what}: the profiler recorded no device time: not measured")
         return
     busy = sum(r[0] for r in rows)
-    log(f"[profile] one bucket-{bucket} batch: wall {wall_ms:.1f} ms "
-        f"(profiler on), device busy {busy:.1f} ms ({busy / wall_ms:.1%})")
+    log(f"[profile] {what}: wall {wall_ms:.1f} ms (profiler on), device busy "
+        f"{busy:.1f} ms ({busy / wall_ms:.1%}), idle {1 - busy / wall_ms:.1%}")
     # K1 and K2 instantiate one kernel template: at head dim 64 both show
-    # as attention_kernel_mma<64>
+    # as attention_kernel_mma<64>; K3a/K3b as dq_kernel_mma / dkv_kernel_mma
     for ms, count, name in sorted(rows, reverse=True)[:12]:
         log(f"[profile] {ms:9.2f} ms {ms / busy:6.1%} x{count:<6d} {name[:90]}")
+    if not host:
+        return
+    cpu = [(e.self_cpu_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+           if e.device_type == DeviceType.CPU]
+    launches = sum(c for _, c, k in cpu if k in ("cudaLaunchKernel", "cuLaunchKernel",
+                                                  "cudaLaunchKernelExC", "cuLaunchKernelEx"))
+    log(f"[profile] {what}, host: {sum(r[0] for r in cpu):.1f} ms of host ops' own time, "
+        f"{launches} kernel launches")
+    for ms, count, name in sorted(cpu, reverse=True)[:10]:
+        log(f"[profile] host {ms:9.2f} ms x{count:<6d} {name[:80]}")
 
 
 # --------------------------------------------------------------- main
 
 
-def kernel_line(rows, serve):
-    """One entry per kernel: K1 sums one trunk layer's K1 calls at bucket
-    128 (two pair axial passes, the MSA column pass, both cross
-    attentions), K2 its tied-row call, bf16."""
-    entries = []
-    specs = [
-        ("fused_attention", "alphafold2_tpu_torch/csrc/fused_attention.cu",
-         "alphafold2_tpu/ops/pallas/axial.py:249",
-         {"pair axial pass (1536x8, 384x384, d64)": 2,
-          "MSA column pass (512x8, 5x5, d64)": 1,
-          "pair<-MSA cross (4x8, 147456x640, d64)": 1,
-          "MSA<-pair cross (4x8, 640x147456, d64)": 1}),
-        ("tied_row_attention", "alphafold2_tpu_torch/csrc/tied_row_attention.cu",
-         "alphafold2_tpu/ops/pallas/tied_row.py:53",
-         {"tied MSA rows (4x5x128x8x64, R*D=320)": 1}),
-    ]
-    for name, source, replaces, weights in specs:
-        timed = [r for r in rows if r["label"] in weights and r["dtype"] == "bfloat16"]
-        w = [weights[r["label"]] for r in timed]
-        lib = [r.get("library_ms") for r in timed]
-        ops_ms = sum(c * r["ops_ms"] for c, r in zip(w, timed))
-        bytes_ms = sum(c * r["bytes_ms"] for c, r in zip(w, timed))
-        entries.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": serve["launches"][name],
-            "max_abs_err": max(r["max_abs_err"] for r in rows if r["kernel"] == name),
-            "ms": sum(c * r["ms"] for c, r in zip(w, timed)),
-            "plain_ms": sum(c * r["plain_ms"] for c, r in zip(w, timed)),
-            "bound_ms": sum(c * r["bound_ms"] for c, r in zip(w, timed)),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": (None if any(x is None for x in lib)
-                           else sum(c * x for c, x in zip(w, lib))),
-        })
-    return {"kernels": entries}
+def _entry(name, source, replaces, launches, rows, weights):
+    """One kernel's JSON entry: ``weights`` maps a result-row label to its
+    calls; times and bounds are the weighted sums over the bf16 rows."""
+    timed = [r for r in rows if r["kernel"] == name and r["label"] in weights
+             and r["dtype"] == "bfloat16"]
+    w = [weights[r["label"]] for r in timed]
+    lib = [r.get("library_ms") for r in timed]
+    ops_ms = sum(c * r["ops_ms"] for c, r in zip(w, timed))
+    bytes_ms = sum(c * r["bytes_ms"] for c, r in zip(w, timed))
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows if r["kernel"] == name),
+        "ms": sum(c * r["ms"] for c, r in zip(w, timed)),
+        "plain_ms": sum(c * r["plain_ms"] for c, r in zip(w, timed)),
+        "bound_ms": sum(c * r["bound_ms"] for c, r in zip(w, timed)),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": (None if any(x is None for x in lib)
+                       else sum(c * x for c, x in zip(w, lib))),
+    }
+
+
+def _step_weights(backward, depth=6):
+    """Calls per training step of each TRAIN_CASES label: every attention
+    runs K1; the last layer's MSA<-pair update runs no backward."""
+    weights = {label: depth * calls for label, (_, _, _, calls) in TRAIN_CASES.items()}
+    if backward:
+        weights["MSA<-pair (1x8, 320x16384)"] -= 1
+    return weights
+
+
+def kernel_line(rows, serve, train):
+    """One entry per kernel. K1 sums one serving trunk layer's K1 calls at
+    bucket 128 (two pair axial passes, the MSA column pass, both cross
+    attentions), K2 its tied-row call, bf16, with the serving run's
+    launches. K3a and K3b sum one training step's calls (6 layers; the last
+    layer's MSA<-pair update runs no backward), with the training run's
+    launches; their library_ms is SDPA's whole backward (dq, dk and dv in
+    one call) on the same problems."""
+    serve_k1 = {"pair axial pass (1536x8, 384x384, d64)": 2,
+                "MSA column pass (512x8, 5x5, d64)": 1,
+                "pair<-MSA cross (4x8, 147456x640, d64)": 1,
+                "MSA<-pair cross (4x8, 640x147456, d64)": 1}
+    step_k3 = _step_weights(backward=True)
+    bwd = "alphafold2_tpu_torch/csrc/fused_attention_bwd.cu"
+    return {"kernels": [
+        _entry("fused_attention", "alphafold2_tpu_torch/csrc/fused_attention.cu",
+               "alphafold2_tpu/ops/pallas/axial.py:249",
+               serve["launches"]["fused_attention"], rows, serve_k1),
+        _entry("tied_row_attention", "alphafold2_tpu_torch/csrc/tied_row_attention.cu",
+               "alphafold2_tpu/ops/pallas/tied_row.py:53",
+               serve["launches"]["tied_row_attention"], rows,
+               {"tied MSA rows (4x5x128x8x64, R*D=320)": 1}),
+        _entry("fused_attention_bwd_dq", bwd, "alphafold2_tpu/ops/pallas/axial.py:275",
+               train["launches"]["fused_attention_bwd_dq"], rows, step_k3),
+        _entry("fused_attention_bwd_dkv", bwd, "alphafold2_tpu/ops/pallas/axial.py:313",
+               train["launches"]["fused_attention_bwd_dkv"], rows, step_k3),
+    ]}
 
 
 def main() -> int:
@@ -590,21 +975,29 @@ def main() -> int:
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     try:
         phase_build()
-        rows = phase_kernels()
+        rows = phase_kernels() + phase_backward()
         for r in rows:
             if "ms" in r:
                 log(f"[kernels] time {r['kernel']} {r['label']} {r['dtype']}: "
                     f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
                     f"sdpa {r.get('library_ms')} ms, bound {r['bound_ms']:.4f} ms "
                     f"({r['bound_by']}; {r['ops']:.3e} ops, {r['bytes']:.3e} bytes)")
+        for name, weights in (("fused_attention (lse)", _step_weights(backward=False)),
+                              ("fused_attention_bwd_dq", _step_weights(backward=True)),
+                              ("fused_attention_bwd_dkv", _step_weights(backward=True))):
+            e = _entry(name, "", "", None, rows, weights)
+            log(f"[backward] per training step, {name}: kernel {e['ms']:.3f} ms, plain "
+                f"{e['plain_ms']:.3f} ms, sdpa {e['library_ms']} ms, bound "
+                f"{e['bound_ms']:.4f} ms ({e['bound_by']})")
         phase_reference()
         serve = phase_serve()
+        train = phase_train()
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
         log("chip_smoke: FAILED")
         return 1
     log(card)
-    print(json.dumps(kernel_line(rows, serve)), flush=True)
+    print(json.dumps(kernel_line(rows, serve, train)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

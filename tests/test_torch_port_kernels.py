@@ -164,4 +164,4 @@ def test_build_targets_hopper_and_hashes_sources():
     assert build.ARCH_FLAGS == ["-gencode", "arch=compute_90a,code=sm_90a"]
     assert set(build.SIGNATURES) == {p.stem for p in build.CSRC.glob("*.cu")}
     paths = {build._library_path(n) for n in build.SIGNATURES}
-    assert len(paths) == 2 and all(p.parent == build.BUILD_DIR for p in paths)
+    assert len(paths) == 3 and all(p.parent == build.BUILD_DIR for p in paths)

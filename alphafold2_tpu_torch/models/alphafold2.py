@@ -4,14 +4,16 @@ Port of ``alphafold2_tpu/models/alphafold2.py`` without templates and
 without the ``embedds`` (PLM) input, which raise for now: the outer-sum
 pair grid with axial positional embeddings and an AND-combined pair mask
 (:187-201), the MSA stream with per-position and per-row embeddings
-(:203-215), the python-loop trunk, and the symmetrized distogram head
-(:314-318). ``dtype`` is the compute dtype; parameters stay float32.
-Dropout is not ported: nonzero rates raise.
+(:203-215), the python-loop trunk (block-sparse pair attention with
+``sparse_self_attn``, ``sparse_config`` and ``seq_len=max_seq_len``, as
+:288-299 passes them), and the symmetrized distogram head (:314-318).
+``dtype`` is the compute dtype; parameters stay float32. Dropout is not
+ported: nonzero rates raise.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -36,6 +38,8 @@ class Alphafold2(nn.Module):
         dtype: torch.dtype = torch.float32,
         attn_dropout: float = 0.0,
         ff_dropout: float = 0.0,
+        sparse_self_attn: Union[bool, Sequence[bool]] = False,
+        sparse_config=None,
         **engine_flags,
     ):
         super().__init__()
@@ -52,7 +56,9 @@ class Alphafold2(nn.Module):
         self.msa_pos_emb = nn.Embedding(max_seq_len, dim)
         self.msa_num_pos_emb = nn.Embedding(max_num_msas, dim)
         self.trunk = Trunk(dim, depth, heads, dim_head, gelu_exact=gelu_exact,
-                           msa_tie_row_attn=msa_tie_row_attn, **engine_flags)
+                           msa_tie_row_attn=msa_tie_row_attn,
+                           sparse_self_attn=sparse_self_attn, seq_len=max_seq_len,
+                           sparse_config=sparse_config, **engine_flags)
         self.distogram_norm = LayerNorm(dim)
         self.distogram_proj = Dense(dim, constants.DISTOGRAM_BUCKETS)
 

@@ -2,13 +2,15 @@
 
 Port of the default engine of ``alphafold2_tpu/models/trunk.py``
 (``TrunkLayer`` :42-168 and the python-loop ``Trunk``). Streams stay grids:
-pair (B, N, N, D), MSA (B, M, Nm, D). The remat, reversible and scanned
-engines and sparse self-attention are not ported yet and raise.
+pair (B, N, N, D), MSA (B, M, Nm, D). ``sparse_self_attn`` (a bool, or one
+per layer) makes a layer's pair axial passes block-sparse (K4/K5), as in
+JAX only the pair stream. The remat, reversible and scanned engines are not
+ported yet and raise.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -22,13 +24,16 @@ class TrunkLayer(nn.Module):
     cross-attention, then GEGLU feedforwards. All residual, all pre-LN."""
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
-                 gelu_exact: bool = False, msa_tie_row_attn: bool = False):
+                 gelu_exact: bool = False, msa_tie_row_attn: bool = False,
+                 sparse_attn: bool = False, seq_len: Optional[int] = None,
+                 sparse_config=None):
         super().__init__()
         for name in ("pair_axial_norm", "msa_axial_norm", "pair_cross_norm",
                      "pair_cross_ctx_norm", "msa_cross_norm",
                      "msa_cross_ctx_norm", "pair_ff_norm", "msa_ff_norm"):
             self.add_module(name, LayerNorm(dim))
-        self.pair_axial = AxialAttention(dim, heads, dim_head)
+        self.pair_axial = AxialAttention(dim, heads, dim_head, sparse_attn=sparse_attn,
+                                         seq_len=seq_len, sparse_config=sparse_config)
         self.msa_axial = AxialAttention(dim, heads, dim_head,
                                         tie_row_attn=msa_tie_row_attn)
         self.pair_from_msa = Attention(dim, heads, dim_head)
@@ -71,24 +76,33 @@ class TrunkLayer(nn.Module):
 
 
 class Trunk(nn.Module):
-    """``depth`` TrunkLayers named ``layer_0`` ... (the flax names)."""
+    """``depth`` TrunkLayers named ``layer_0`` ... (the flax names).
+    ``sparse_self_attn`` is one bool for every layer or a tuple of one per
+    layer; ``seq_len`` and ``sparse_config`` go to the sparse layers."""
 
     def __init__(self, dim: int, depth: int = 6, heads: int = 8,
                  dim_head: int = 64, gelu_exact: bool = False,
                  msa_tie_row_attn: bool = False, remat: bool = False,
                  reversible: bool = False, scan_layers: bool = False,
-                 sparse_self_attn: bool = False):
+                 sparse_self_attn: Union[bool, Sequence[bool]] = False,
+                 seq_len: Optional[int] = None, sparse_config=None):
         super().__init__()
         for flag, name in ((remat, "remat"), (reversible, "reversible"),
-                           (scan_layers, "scan_layers"),
-                           (sparse_self_attn, "sparse_self_attn")):
+                           (scan_layers, "scan_layers")):
             if flag:
                 raise NotImplementedError(f"trunk {name} is not ported yet")
+        sparse = sparse_self_attn
+        if not isinstance(sparse, (tuple, list)):
+            sparse = (sparse,) * depth
+        if len(sparse) != depth:
+            raise ValueError(f"sparse_self_attn tuple has {len(sparse)} entries "
+                             f"for depth {depth}")
         self.depth = depth
         for i in range(depth):
             self.add_module(f"layer_{i}", TrunkLayer(
                 dim, heads, dim_head, gelu_exact=gelu_exact,
-                msa_tie_row_attn=msa_tie_row_attn,
+                msa_tie_row_attn=msa_tie_row_attn, sparse_attn=bool(sparse[i]),
+                seq_len=seq_len, sparse_config=sparse_config,
             ))
 
     def forward(self, x, m, pair_mask=None, msa_mask=None):

@@ -1,10 +1,12 @@
 """FeedForward (GEGLU), Attention and AxialAttention as torch modules.
 
 Port of ``alphafold2_tpu/ops/attention.py``. Every attention runs through
-the two hand-written kernels: :func:`~alphafold2_tpu_torch.ops.cuda.axial.
-fused_attention` (K1) for self/cross attention and the axial passes, and
+the hand-written kernels: :func:`~alphafold2_tpu_torch.ops.cuda.axial.
+fused_attention` (K1) for self/cross attention and the axial passes,
 :func:`~alphafold2_tpu_torch.ops.cuda.tied_row.tied_row_attention` (K2) for
-tied MSA rows. Their wrappers run the plain PyTorch versions on CPU tensors.
+tied MSA rows, and, with ``AxialAttention(sparse_attn=True)``, the
+block-sparse K4 of ``ops/sparse.py`` for both axial passes. Their wrappers
+run the plain PyTorch versions on CPU tensors.
 
 Parameter names mirror the flax modules (``to_q``, ``to_kv``, ``to_out``,
 ``wi``, ``wo``, ``attn_width``, ``attn_height``), so ``convert.py`` maps a
@@ -32,6 +34,38 @@ def _no_dropout(rate: float, where: str) -> None:
             f"{where} dropout (rate {rate}) is not ported yet: the kernels have no "
             "in-kernel random bits, so training runs with dropout 0"
         )
+
+
+def grid_axial_project_attend(to_q, to_kv, to_out, heads: int, dim_head: int,
+                              x: torch.Tensor, mask: Optional[torch.Tensor],
+                              attend_axis: int, attend) -> torch.Tensor:
+    """One axial self-attention pass over a (B, Hg, Wg, D) grid, shared by
+    ``Attention`` and ``SparseAttention`` as the JAX package shares it
+    (``alphafold2_tpu/ops/attention.py:44``): pointwise q/kv projections on
+    the grid, ``attend(q, k, v, m)`` on (B*rows, H, n, dh) views with the
+    (B*rows, n) mask (or None), output projection. Axis 2 attends within
+    rows (over columns), axis 1 within columns (over rows); the other axis
+    folds into the batch."""
+    b, gh, gw, _ = x.shape
+    h, dh = heads, dim_head
+    q = to_q(x).view(b, gh, gw, h, dh)
+    k, v = (t.view(b, gh, gw, h, dh) for t in to_kv(x).chunk(2, -1))
+    if attend_axis == 1:
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+        mask = mask.transpose(1, 2) if mask is not None else None
+    elif attend_axis != 2:
+        raise ValueError(f"attend_axis must be 1 or 2, got {attend_axis}")
+    rows, n = q.shape[1], q.shape[2]
+
+    def flat(t):  # (B, rows, n, H, dh) -> (B*rows, H, n, dh) view
+        return t.reshape(b * rows, n, h, dh).transpose(1, 2)
+
+    m2 = mask.reshape(b * rows, n) if mask is not None else None
+    out = attend(flat(q), flat(k), flat(v), m2)
+    out = out.transpose(1, 2).reshape(b, rows, n, h * dh)
+    if attend_axis == 1:
+        out = out.transpose(1, 2)
+    return to_out(out)
 
 
 class FeedForward(nn.Module):
@@ -79,31 +113,14 @@ class Attention(nn.Module):
 
     def grid_axial(self, x: torch.Tensor, mask: Optional[torch.Tensor],
                    attend_axis: int) -> torch.Tensor:
-        """Self-attention along one axis of a (B, Hg, Wg, D) grid: axis 2
-        attends within rows (over columns), axis 1 within columns (over
-        rows); the other axis folds into the batch. Masks key and query
-        validity with the (B, Hg, Wg) mask."""
-        b, gh, gw, _ = x.shape
-        h, dh = self.heads, self.dim_head
-        q = self.to_q(x).view(b, gh, gw, h, dh)
-        k, v = (t.view(b, gh, gw, h, dh) for t in self.to_kv(x).chunk(2, -1))
-        if attend_axis == 1:
-            q, k, v = (t.transpose(1, 2) for t in (q, k, v))
-            mask = mask.transpose(1, 2) if mask is not None else None
-        elif attend_axis != 2:
-            raise ValueError(f"attend_axis must be 1 or 2, got {attend_axis}")
-        rows, n = q.shape[1], q.shape[2]
-
-        def flat(t):  # (B, rows, n, H, dh) -> (B*rows, H, n, dh) view
-            return t.reshape(b * rows, n, h, dh).transpose(1, 2)
-
-        m2 = mask.reshape(b * rows, n) if mask is not None else None
-        out = fused_attention(flat(q), flat(k), flat(v), q_mask=m2,
-                              kv_mask=m2, sm_scale=dh**-0.5)
-        out = out.transpose(1, 2).reshape(b, rows, n, h * dh)
-        if attend_axis == 1:
-            out = out.transpose(1, 2)
-        return self.to_out(out)
+        """Self-attention along one axis of a (B, Hg, Wg, D) grid (see
+        :func:`grid_axial_project_attend`), masking key and query validity
+        with the (B, Hg, Wg) mask."""
+        scale = self.dim_head**-0.5
+        return grid_axial_project_attend(
+            self.to_q, self.to_kv, self.to_out, self.heads, self.dim_head, x, mask,
+            attend_axis, lambda q, k, v, m: fused_attention(
+                q, k, v, q_mask=m, kv_mask=m, sm_scale=scale))
 
     def forward(self, x, context=None, mask=None, context_mask=None,
                 tie_dim: Optional[int] = None):
@@ -162,18 +179,40 @@ class AxialAttention(nn.Module):
     axis 2), summed. Without a context and untied rows the passes run on
     the grid (the JAX package's meshless grid route); with a broadcast
     ``context`` (B, Nc, D) or ``tie_row_attn`` they run on the flat
-    (B*, n, D) route, the row pass tied across the Hg rows."""
+    (B*, n, D) route, the row pass tied across the Hg rows.
+
+    ``sparse_attn`` makes both passes block-sparse ``SparseAttention``
+    (``ops/sparse.py``; ``seq_len`` bounds the attended length and
+    ``sparse_config`` gives the layout, ``BlockSparseConfig()`` by default).
+    They take the grid route when both grid axes are multiples of the block
+    size and the flat route, which pads to one, otherwise, as
+    ``alphafold2_tpu/ops/attention.py:516-550`` decides. The module names
+    stay ``attn_width``/``attn_height``, so a flax tree maps unchanged."""
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
-                 tie_row_attn: bool = False):
+                 tie_row_attn: bool = False, sparse_attn: bool = False,
+                 seq_len: Optional[int] = None, sparse_config=None):
         super().__init__()
         self.tie_row_attn = tie_row_attn
-        self.attn_width = Attention(dim, heads, dim_head)
-        self.attn_height = Attention(dim, heads, dim_head)
+        self.block_size = None
+        if sparse_attn:
+            from alphafold2_tpu_torch.ops.sparse import BlockSparseConfig, SparseAttention
+
+            config = sparse_config or BlockSparseConfig()
+            self.block_size = config.block_size
+            make = lambda: SparseAttention(dim, heads, dim_head, seq_len=seq_len,
+                                           config=config)
+        else:
+            make = lambda: Attention(dim, heads, dim_head)
+        self.attn_width = make()
+        self.attn_height = make()
 
     def forward(self, x, mask=None, context=None, context_mask=None):
         b, height, w, d = x.shape
-        if context is None and not self.tie_row_attn:
+        grid = context is None and not self.tie_row_attn
+        if grid and self.block_size is not None:
+            grid = height % self.block_size == 0 and w % self.block_size == 0
+        if grid:
             return (self.attn_width.grid_axial(x, mask, attend_axis=1)
                     + self.attn_height.grid_axial(x, mask, attend_axis=2))
 

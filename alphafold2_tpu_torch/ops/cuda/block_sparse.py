@@ -1,0 +1,379 @@
+"""K4 (block-sparse flash-attention forward) and K5a/K5b (its backward):
+CUDA kernel wrappers, plain versions, and the autograd ``Function`` joining
+them.
+
+Port of ``alphafold2_tpu/ops/pallas/block_sparse.py``: the forward ``_run``
+(K4, ``csrc/block_sparse_attention.cu``) and the custom-VJP backward
+``_run_dq`` / ``_run_dkv`` (K5a/K5b, ``csrc/block_sparse_attention_bwd.cu``)
+of ``block_sparse_attention_pallas`` (``alphafold2_tpu/ops/sparse.py:167``).
+Each kernel has a plain PyTorch version here, gather-based as the JAX jnp
+oracle (``ops/sparse.py:119``) is: every query block gathers the key blocks
+of its row list, every key block (in the backward's dk/dv) the query blocks
+of its column list. The wrappers run the plain versions only for tensors on
+the CPU; for CUDA tensors they launch the kernel or raise.
+
+The layout reaches the kernels as a :class:`BlockLayout`: the row lists
+(active key blocks of each query block, ascending, padded to the longest)
+with their counts, and the column lists (the layout transposed) with theirs.
+It copies them to a device once and keeps them there, so a call does no
+host work for the layout.
+
+Contract (the JAX function's, with one sharpening, as K1's): q/k/v
+(B, H, N, D), N a multiple of the block size (16, 32, 64 or 128), boolean
+``kv_mask`` (B, N) shared by all heads and applied to keys only. Masked
+keys are excluded exactly; query rows are not masked. A row whose active
+blocks hold no valid key gives exactly 0 and lse +inf, and takes no part in
+the backward (its gradients are 0); the TPU kernel gave it a finite average
+of its padded slots. Masked keys get dk = dv = 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import numpy as np
+import torch
+
+from alphafold2_tpu_torch.ops.cuda import build
+from alphafold2_tpu_torch.ops.cuda.axial import (
+    _DTYPES, _check as _check_attention, _check_grad_operands, _cuda_operands,
+    _like_heads, _masked_softmax_weights, _ptr, _strides, attention_dsum)
+
+BLOCK_SIZES = (16, 32, 64, 128)
+
+
+class BlockLayout:
+    """A block layout packed for the kernels.
+
+    ``rows`` (nb, A) int32: the active key blocks of each query block in
+    ascending order, padded with 0 past ``row_counts`` (nb,); ``cols``
+    (nb, At) and ``col_counts``: the same for the layout transposed (the
+    query blocks that attend each key block)."""
+
+    def __init__(self, rows, row_counts, cols, col_counts, block_size: int):
+        if block_size not in BLOCK_SIZES:
+            raise ValueError(f"block size {block_size} not in {BLOCK_SIZES}")
+        lists = [np.ascontiguousarray(a, dtype=np.int32)
+                 for a in (rows, row_counts, cols, col_counts)]
+        nb = lists[1].shape[0]
+        for name, idx, cnt in (("rows", lists[0], lists[1]), ("cols", lists[2], lists[3])):
+            if (idx.ndim != 2 or idx.shape[0] != nb or cnt.shape != (nb,)
+                    or (cnt > idx.shape[1]).any() or (cnt < 0).any()
+                    or (idx < 0).any() or (idx >= nb).any()):
+                raise ValueError(f"malformed {name} lists {idx.shape} / counts {cnt.shape}")
+        self.rows, self.row_counts, self.cols, self.col_counts = lists
+        self.block_size = block_size
+        self.num_blocks = nb
+        self._on: dict = {}
+
+    @property
+    def seq_len(self) -> int:
+        return self.num_blocks * self.block_size
+
+    def tensors(self, device: torch.device):
+        """(rows, row_counts, cols, col_counts) as int32 tensors on
+        ``device``, copied there on first use and kept."""
+        key = str(device)
+        found = self._on.get(key)
+        if found is None:
+            found = tuple(torch.from_numpy(a).to(device) for a in
+                          (self.rows, self.row_counts, self.cols, self.col_counts))
+            self._on[key] = found
+        return found
+
+    def active_pairs(self) -> int:
+        """(query block, key block) pairs the layout makes active."""
+        return int(self.row_counts.sum())
+
+
+# ---------------------------------------------------------------- plain versions
+
+
+def _gather_blocks(t: torch.Tensor, idx: torch.Tensor, nb: int) -> torch.Tensor:
+    """(B, H, N, ...) -> (B, H, nb, A, bs, ...): for block i its listed
+    blocks idx[i] (f32)."""
+    b, h, n = t.shape[:3]
+    return t.float().reshape(b, h, nb, n // nb, *t.shape[3:])[:, :, idx]
+
+
+def _listed_keys(idx, cnt, kv_mask, nb, bs):
+    """(B or 1, nb, A, bs) bool: which gathered positions are real (in a
+    listed block, not a padding slot) and valid under ``kv_mask``."""
+    a = idx.shape[1]
+    slots = torch.arange(a, device=idx.device)[None, :] < cnt[:, None]  # (nb, A)
+    slots = slots[None, :, :, None].expand(1, nb, a, bs)
+    if kv_mask is None:
+        return slots
+    return slots & kv_mask.reshape(kv_mask.shape[0], nb, bs)[:, idx]
+
+
+def _lists(layout: BlockLayout, device, transpose=False):
+    rows, row_counts, cols, col_counts = layout.tensors(device)
+    return (cols.long(), col_counts.long()) if transpose else (rows.long(), row_counts.long())
+
+
+def _row_logits(q, k, layout, kv_mask, sm_scale):
+    """Each query block against its gathered key blocks: logits
+    (B, H, nb, bs, A*bs) f32 and their validity (B or 1, 1, nb, 1, A*bs)."""
+    b, h, n, d = q.shape
+    nb, bs = layout.num_blocks, layout.block_size
+    idx, cnt = _lists(layout, q.device)
+    kg = _gather_blocks(k, idx, nb).reshape(b, h, nb, -1, d)
+    s = torch.einsum("bhiqd,bhikd->bhiqk", q.float().reshape(b, h, nb, bs, d), kg) * sm_scale
+    valid = _listed_keys(idx, cnt, kv_mask, nb, bs).reshape(-1, 1, nb, 1, s.shape[-1])
+    return s, valid, idx
+
+
+def _forward(q, k, v, layout, kv_mask, sm_scale, with_lse):
+    b, h, n, d = q.shape
+    s, valid, idx = _row_logits(q, k, layout, kv_mask, sm_scale)
+    p, l = _masked_softmax_weights(s, valid)
+    vg = _gather_blocks(v, idx, layout.num_blocks).reshape(b, h, layout.num_blocks, -1, d)
+    out = (torch.einsum("bhiqk,bhikd->bhiqd", p, vg) / l).reshape(b, h, n, d).to(q.dtype)
+    if not with_lse:
+        return out
+    lse = torch.logsumexp(s.masked_fill(~valid, float("-inf")), dim=-1).reshape(b, h, n)
+    return out, lse.masked_fill(lse == float("-inf"), float("inf"))
+
+
+def block_sparse_attention_reference(q, k, v, layout, kv_mask=None, sm_scale=1.0):
+    """The plain version of K4 (f32 arithmetic, gather-based)."""
+    block_sparse_attention_reference.calls += 1
+    return _forward(q, k, v, layout, kv_mask, sm_scale, with_lse=False)
+
+
+block_sparse_attention_reference.calls = 0
+
+
+def block_sparse_attention_lse_reference(q, k, v, layout, kv_mask=None, sm_scale=1.0):
+    """The plain version of the training forward: (out, lse)."""
+    block_sparse_attention_lse_reference.calls += 1
+    return _forward(q, k, v, layout, kv_mask, sm_scale, with_lse=True)
+
+
+block_sparse_attention_lse_reference.calls = 0
+
+
+def _exp_live(s, lse, valid):
+    """exp(s - lse), exactly 0 where ``valid`` is False or lse is +inf."""
+    live = torch.isfinite(lse)
+    return torch.where(valid & live, torch.exp(s - torch.where(live, lse, 0.0)), 0.0)
+
+
+def block_sparse_attention_dq_reference(q, k, v, dout, lse, dsum, layout, kv_mask=None,
+                                        sm_scale=1.0):
+    """The plain version of K5a: dq = sm_scale * ds @ k over each query
+    block's row list, ds rounded to the operand dtype first."""
+    block_sparse_attention_dq_reference.calls += 1
+    b, h, n, d = q.shape
+    nb, bs = layout.num_blocks, layout.block_size
+    s, valid, idx = _row_logits(q, k, layout, kv_mask, sm_scale)
+    p = _exp_live(s, lse.reshape(b, h, nb, bs, 1), valid)
+    vg = _gather_blocks(v, idx, nb).reshape(b, h, nb, -1, d)
+    dp = torch.einsum("bhiqd,bhikd->bhiqk", dout.float().reshape(b, h, nb, bs, d), vg)
+    ds = (p * (dp - dsum.reshape(b, h, nb, bs, 1))).to(q.dtype).float()
+    kg = _gather_blocks(k, idx, nb).reshape(b, h, nb, -1, d)
+    dq = sm_scale * torch.einsum("bhiqk,bhikd->bhiqd", ds, kg)
+    return dq.reshape(b, h, n, d).to(q.dtype)
+
+
+block_sparse_attention_dq_reference.calls = 0
+
+
+def block_sparse_attention_dkv_reference(q, k, v, dout, lse, dsum, layout, kv_mask=None,
+                                         sm_scale=1.0):
+    """The plain version of K5b: (dk, dv) = (sm_scale * ds^T @ q, p^T @ dO)
+    over each key block's column list, p and ds rounded to the operand dtype
+    first."""
+    block_sparse_attention_dkv_reference.calls += 1
+    b, h, n, d = q.shape
+    nb, bs = layout.num_blocks, layout.block_size
+    idx, cnt = _lists(layout, q.device, transpose=True)
+    qg = _gather_blocks(q, idx, nb).reshape(b, h, nb, -1, d)  # attending queries
+    dog = _gather_blocks(dout, idx, nb).reshape(b, h, nb, -1, d)
+    lse_g = _gather_blocks(lse, idx, nb).reshape(b, h, nb, 1, -1)
+    dsum_g = _gather_blocks(dsum, idx, nb).reshape(b, h, nb, 1, -1)
+    kb = k.float().reshape(b, h, nb, bs, d)
+    s = torch.einsum("bhjkd,bhjqd->bhjkq", kb, qg) * sm_scale  # (B, H, nb, bs, At*bs)
+    valid = _listed_keys(idx, cnt, None, nb, bs).reshape(1, 1, nb, 1, -1)
+    if kv_mask is not None:
+        valid = valid & kv_mask.reshape(b, 1, nb, bs, 1)
+    p = _exp_live(s, lse_g, valid)
+    dv = torch.einsum("bhjkq,bhjqd->bhjkd", p.to(q.dtype).float(), dog)
+    dp = torch.einsum("bhjkd,bhjqd->bhjkq", v.float().reshape(b, h, nb, bs, d), dog)
+    ds = (p * (dp - dsum_g)).to(q.dtype).float()
+    dk = sm_scale * torch.einsum("bhjkq,bhjqd->bhjkd", ds, qg)
+    return dk.reshape(b, h, n, d).to(k.dtype), dv.reshape(b, h, n, d).to(v.dtype)
+
+
+block_sparse_attention_dkv_reference.calls = 0
+
+
+# ---------------------------------------------------------------- kernels
+
+
+def _check(q, k, v, layout, kv_mask):
+    _check_attention(q, k, v, None, kv_mask)
+    if k.shape != q.shape:
+        raise ValueError(f"block-sparse attention is self-attention: k {tuple(k.shape)} "
+                         f"!= q {tuple(q.shape)}")
+    if not isinstance(layout, BlockLayout):
+        raise TypeError(f"layout must be a BlockLayout, got {type(layout).__name__}")
+    if q.shape[2] != layout.seq_len:
+        raise ValueError(f"sequence length {q.shape[2]} != the layout's {layout.num_blocks} "
+                         f"blocks of {layout.block_size}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"block-sparse attention runs on cuda or cpu, not {q.device}")
+
+
+def _check_grad(q, k, v, dout, lse, dsum):
+    _check_grad_operands(q, k, v, dout, lse, dsum)
+    if any(t.device != q.device for t in (dout, lse, dsum)):
+        raise ValueError("dout, lse and dsum must lie on q's device")
+
+
+def _stream():
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def _launch_forward(q, k, v, layout, kv_mask, sm_scale, with_lse):
+    """K4 on CUDA tensors: out, and the (B, H, N) f32 lse when asked."""
+    _, km = _cuda_operands(q, k, v, None, kv_mask, "block_sparse_attention")
+    b, h, n, d = q.shape
+    out = _like_heads(q)
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device) if with_lse else None
+    if b * h == 0:
+        return out, lse
+    rows, counts, _, _ = layout.tensors(q.device)
+    lib = build.library("block_sparse_attention")
+    with torch.cuda.device(q.device):
+        code = lib.af2_block_sparse_attention(
+            _DTYPES[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), _ptr(km),
+            _ptr(rows), _ptr(counts), rows.shape[1], _strides(q, k, v, out), b, h, n, d,
+            layout.block_size, float(sm_scale), _stream())
+    build.check(lib, code, "block_sparse_attention")
+    return out, lse
+
+
+def block_sparse_attention_lse(q, k, v, layout, kv_mask=None, sm_scale=1.0):
+    """K4's training forward: (out, lse), lse the (B, H, N) f32 logsumexp of
+    each row's scaled logits over its active valid keys, +inf for a row with
+    none. Not differentiable itself: :class:`BlockSparseAttention` wraps it."""
+    _check(q, k, v, layout, kv_mask)
+    if q.device.type == "cpu":
+        return block_sparse_attention_lse_reference(q, k, v, layout, kv_mask, sm_scale)
+    result = _launch_forward(q, k, v, layout, kv_mask, sm_scale, with_lse=True)
+    block_sparse_attention_lse.launches += 1
+    return result
+
+
+block_sparse_attention_lse.launches = 0
+
+
+def _launch_backward(symbol, outs, slots, lists, q, k, v, dout, lse, dsum, layout, kv_mask,
+                     sm_scale):
+    """Launch K5a or K5b writing ``outs``; ``slots`` gives the kernel the
+    strides of its (dq, dk, dv) in that order (stand-ins for the ones it
+    does not write); ``lists`` is (idx, counts), row or column lists."""
+    _, km = _cuda_operands(q, k, v, None, kv_mask, symbol)
+    if dout.stride(-1) != 1:
+        dout = dout.contiguous()
+    lse, dsum = lse.contiguous(), dsum.contiguous()
+    b, h, n, d = q.shape
+    if b * h == 0:
+        return
+    idx, counts = lists
+    lib = build.library("block_sparse_attention_bwd")
+    with torch.cuda.device(q.device):
+        code = getattr(lib, symbol)(
+            _DTYPES[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(lse), _ptr(dsum),
+            *(_ptr(o) for o in outs), _ptr(km), _ptr(idx), _ptr(counts), idx.shape[1],
+            _strides(q, k, v, dout, *slots), b, h, n, d, layout.block_size, float(sm_scale),
+            _stream())
+    build.check(lib, code, symbol)
+
+
+def block_sparse_attention_dq(q, k, v, dout, lse, dsum, layout, kv_mask=None, sm_scale=1.0):
+    """K5a: dq (B, H, N, D) in q's dtype from the forward's ``lse`` and
+    ``dsum = attention_dsum(out, dout)``, over each query block's row list."""
+    _check(q, k, v, layout, kv_mask)
+    _check_grad(q, k, v, dout, lse, dsum)
+    if q.device.type == "cpu":
+        return block_sparse_attention_dq_reference(q, k, v, dout, lse, dsum, layout, kv_mask,
+                                                   sm_scale)
+    dq = _like_heads(q)
+    rows, counts, _, _ = layout.tensors(q.device)
+    _launch_backward("af2_block_sparse_attention_bwd_dq", (dq,), (dq, k, v), (rows, counts),
+                     q, k, v, dout, lse, dsum, layout, kv_mask, sm_scale)
+    block_sparse_attention_dq.launches += 1
+    return dq
+
+
+block_sparse_attention_dq.launches = 0
+
+
+def block_sparse_attention_dkv(q, k, v, dout, lse, dsum, layout, kv_mask=None, sm_scale=1.0):
+    """K5b: (dk, dv), each (B, H, N, D) in k's dtype, over each key block's
+    column list (the query blocks that attend it)."""
+    _check(q, k, v, layout, kv_mask)
+    _check_grad(q, k, v, dout, lse, dsum)
+    if q.device.type == "cpu":
+        return block_sparse_attention_dkv_reference(q, k, v, dout, lse, dsum, layout, kv_mask,
+                                                    sm_scale)
+    dk, dv = _like_heads(k), _like_heads(v)
+    _, _, cols, counts = layout.tensors(q.device)
+    _launch_backward("af2_block_sparse_attention_bwd_dkv", (dk, dv), (q, dk, dv),
+                     (cols, counts), q, k, v, dout, lse, dsum, layout, kv_mask, sm_scale)
+    block_sparse_attention_dkv.launches += 1
+    return dk, dv
+
+
+block_sparse_attention_dkv.launches = 0
+
+
+class BlockSparseAttention(torch.autograd.Function):
+    """Forward K4 with the row logsumexp, backward K5a + K5b (or, on the
+    CPU, their plain versions)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, layout, kv_mask, sm_scale):
+        out, lse = block_sparse_attention_lse(q, k, v, layout, kv_mask, sm_scale)
+        ctx.save_for_backward(q, k, v, out, lse, kv_mask)
+        ctx.layout, ctx.sm_scale = layout, sm_scale
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out, lse, kv_mask = ctx.saved_tensors
+        args = (q, k, v, dout, lse, attention_dsum(out, dout), ctx.layout, kv_mask,
+                ctx.sm_scale)
+        return (block_sparse_attention_dq(*args), *block_sparse_attention_dkv(*args),
+                None, None, None)
+
+
+def block_sparse_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    layout: BlockLayout,
+    kv_mask: Optional[torch.Tensor] = None,
+    sm_scale: float = 1.0,
+) -> torch.Tensor:
+    """Block-sparse self-attention over ``layout``; returns (B, H, N, D) in
+    q's dtype, differentiable.
+
+    CUDA tensors: q/k/v may be strided views with a contiguous head dim; the
+    result is a (B, H, N, D) view of a (B, N, H, D) buffer, as K1's is."""
+    _check(q, k, v, layout, kv_mask)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return BlockSparseAttention.apply(q, k, v, layout, kv_mask, sm_scale)
+    if q.device.type == "cpu":
+        return block_sparse_attention_reference(q, k, v, layout, kv_mask, sm_scale)
+    out = _launch_forward(q, k, v, layout, kv_mask, sm_scale, with_lse=False)[0]
+    block_sparse_attention.launches += 1
+    return out
+
+
+block_sparse_attention.launches = 0

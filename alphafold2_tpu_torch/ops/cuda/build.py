@@ -53,6 +53,17 @@ SIGNATURES = {
         "af2_tied_row_attention": [
             _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     },
+    # dtype, q, k, v, out, lse (or null), kv_mask, idx, cnt, max_active,
+    # strides, batch, heads, n, head_dim, block, sm_scale, stream
+    "block_sparse_attention": {
+        "af2_block_sparse_attention": [_I] + [_P] * 8 + [_I, _P] + [_I] * 5 + [_F, _P],
+    },
+    # dtype, q, k, v, dout, lse, dsum, outputs (dq | dk, dv), kv_mask, idx,
+    # cnt, max_active, strides, batch, heads, n, head_dim, block, sm_scale, stream
+    "block_sparse_attention_bwd": {
+        "af2_block_sparse_attention_bwd_dq": [_I] + [_P] * 10 + [_I, _P] + [_I] * 5 + [_F, _P],
+        "af2_block_sparse_attention_bwd_dkv": [_I] + [_P] * 11 + [_I, _P] + [_I] * 5 + [_F, _P],
+    },
 }
 
 _lock = threading.Lock()

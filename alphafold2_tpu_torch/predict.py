@@ -82,7 +82,11 @@ def synthesize_msa(seq_tokens: np.ndarray, depth: int, seed: int = 0,
 
 def build_model(cfg: Config, mds_iters: int = 200):
     """The End2EndModel a config describes (compute dtype bf16 when
-    ``model.bfloat16``), with parameters on the CPU in float32."""
+    ``model.bfloat16``), with parameters on the CPU in float32. It takes
+    the fields JAX's ``predict`` (``alphafold2_tpu/predict.py:137-143``)
+    and ``ServeEngine`` (``serve/engine.py:306-315``) pass: ``gelu_exact``,
+    ``sparse_self_attn``, ``reversible`` and ``scan_layers`` are training
+    options that serving ignores there and here."""
     from alphafold2_tpu_torch.train.end2end import End2EndModel
 
     m = cfg.model
@@ -95,9 +99,7 @@ def build_model(cfg: Config, mds_iters: int = 200):
         dim=m.dim, depth=m.depth, heads=m.heads, dim_head=m.dim_head,
         max_seq_len=m.max_seq_len, mds_iters=mds_iters,
         msa_tie_row_attn=m.msa_tie_row_attn, mds_seed=cfg.train.seed,
-        dtype=torch.bfloat16 if m.bfloat16 else torch.float32,
-        gelu_exact=m.gelu_exact, remat=m.remat, reversible=m.reversible,
-        scan_layers=m.scan_layers, sparse_self_attn=m.sparse_self_attn,
+        dtype=torch.bfloat16 if m.bfloat16 else torch.float32, remat=m.remat,
     )
 
 

@@ -29,7 +29,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
               no plain-version call, the first accumulated update at lr 0;
               20 steps on one repeated batch whose loss must fall; a small
               f32 model whose gradients must agree between the card and the
-              CPU; one step under torch.profiler.
+              CPU; one step under torch.profiler;
+6. sparse   — the block-sparse kernels K4 (forward, with and without the
+              row logsumexp), K5a (dq) and K5b (dk, dv) against their plain
+              versions per tensor at the sparse training path's pair pass
+              and at a long, an unaligned, a block-128 and a dead-row
+              problem, f32 and bf16; rows without a valid key exactly 0; a
+              negative control dropping each query block's last valid
+              active block (K4, K5a) or each key block's last query block
+              (K5b); two backward runs bit-identical; SDPA with the
+              element-level layout and key mask as the yardstick;
+7. sparse train — the training phase's checks with
+              model.sparse_self_attn=True: every pair axial pass through
+              K4/K5a/K5b, the rest through K1/K3a/K3b, small-model
+              gradients on the grid route (crop 48) and the flat route
+              (crop 40), one step under torch.profiler.
 
 Prints the card's name and power limit, then a JSON line describing every
 kernel, and last ``{"ok": true, "device": {...}}``. Any failed phase exits
@@ -417,14 +431,14 @@ def _grad_operands(b, h, nq, nk, d, dtype, gen, strided):
     return q, k, v, do
 
 
-def _check_lse(label, lse, ref):
+def _check_lse(label, lse, ref, kernel="fused_attention (lse)"):
     import torch
 
     require(bool((torch.isinf(lse) == torch.isinf(ref)).all()),
             f"{label}: logsumexp rows without a valid key disagree")
     fin = torch.isfinite(ref)
     err = float((lse[fin] - ref[fin]).abs().max()) if bool(fin.any()) else 0.0
-    log(f"[backward] fused_attention (lse) {label}: lse max_abs_err={err:.3e} (tol 1e-4)")
+    log(f"[backward] {kernel} {label}: lse max_abs_err={err:.3e} (tol 1e-4)")
     require(err <= 1e-4, f"{label}: logsumexp disagrees with its plain version")
 
 
@@ -595,7 +609,9 @@ def _params(model):
     return [p.detach().clone() for p in model.parameters()]
 
 
-def phase_train():
+def phase_train(sparse=False):
+    """The training checks at the slice configuration; with ``sparse``,
+    model.sparse_self_attn=True (log tag ``[sparse train]``)."""
     import itertools
 
     import numpy as np
@@ -603,18 +619,28 @@ def phase_train():
 
     from alphafold2_tpu_torch.config import Config
     from alphafold2_tpu_torch.data.pipeline import SyntheticDataset
-    from alphafold2_tpu_torch.ops.cuda import axial, tied_row
+    from alphafold2_tpu_torch.ops.cuda import axial, block_sparse, tied_row
     from alphafold2_tpu_torch.train import loop
 
+    tag = "[sparse train]" if sparse else "[train]"
     plain = (axial.fused_attention_reference, axial.fused_attention_lse_reference,
              axial.fused_attention_dq_reference, axial.fused_attention_dkv_reference,
-             tied_row.tied_row_attention_reference)
+             tied_row.tied_row_attention_reference,
+             block_sparse.block_sparse_attention_reference,
+             block_sparse.block_sparse_attention_lse_reference,
+             block_sparse.block_sparse_attention_dq_reference,
+             block_sparse.block_sparse_attention_dkv_reference)
     kernels = {"fused_attention": axial.fused_attention,
                "fused_attention_bwd_dq": axial.fused_attention_dq,
-               "fused_attention_bwd_dkv": axial.fused_attention_dkv}
+               "fused_attention_bwd_dkv": axial.fused_attention_dkv,
+               "block_sparse_attention": block_sparse.block_sparse_attention_lse,
+               "block_sparse_attention (no lse)": block_sparse.block_sparse_attention,
+               "block_sparse_attention_bwd_dq": block_sparse.block_sparse_attention_dq,
+               "block_sparse_attention_bwd_dkv": block_sparse.block_sparse_attention_dkv}
 
     # (a) the slice configuration: 32 steps = 2 accumulated updates
     cfg = Config()
+    cfg.model.sparse_self_attn = sparse
     depth = cfg.model.depth
     steps = 2 * cfg.train.gradient_accumulate_every
     snap, changed, times, losses, oks = {}, [], [], [], []
@@ -639,72 +665,87 @@ def phase_train():
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in kernels.items()}
+    launches["block_sparse_attention"] += launches.pop("block_sparse_attention (no lse)")
     plain_calls = sum(fn.calls for fn in plain)
     peak = torch.cuda.max_memory_allocated()
     lat = np.diff(times[1:]) * 1e3  # steps 2 .. 32, warm
-    log(f"[train] {steps} steps at dim {cfg.model.dim}, depth {depth}, crop "
+    log(f"{tag} {steps} steps at dim {cfg.model.dim}, depth {depth}, crop "
         f"{cfg.data.crop_len}, MSA {cfg.data.msa_depth}x{cfg.data.msa_len}, accumulation "
         f"{cfg.train.gradient_accumulate_every}: {wall:.2f} s incl. init; with per-step "
         f"norms and parameter checks, warm step latency median {np.median(lat):.2f} ms "
         f"(min {lat.min():.2f}, max {lat.max():.2f}), {1e3 / np.median(lat):.2f} steps/s; "
         f"peak device memory {peak / 2**30:.2f} GiB")
-    log(f"[train] losses: first {losses[0]:.4f}, last {losses[-1]:.4f}; all finite: "
+    log(f"{tag} losses: first {losses[0]:.4f}, last {losses[-1]:.4f}; all finite: "
         f"{bool(np.isfinite(losses).all())}; skipped {oks[-1][1]}")
-    log(f"[train] kernel launches: {launches}; plain-version calls: {plain_calls}")
+    log(f"{tag} kernel launches: {launches}; plain-version calls: {plain_calls}")
     require(bool(np.isfinite(losses).all()), "non-finite training loss")
     require(all(ok for ok, _ in oks) and oks[-1][1] == 0, "a training step was skipped")
-    # every attention's forward runs K1; every attention whose output reaches
-    # the loss runs K3a and K3b (the last layer's MSA<-pair update does not)
-    require(launches["fused_attention"] == 6 * depth * steps, "K1 launches per step")
+    # every attention's forward runs K1, or K4 for the pair axial passes of a
+    # sparse model; every attention whose output reaches the loss runs the
+    # backward (the last layer's MSA<-pair update does not)
+    sparse_calls = 2 * depth if sparse else 0
+    require(launches["fused_attention"] == (6 * depth - sparse_calls) * steps,
+            "K1 launches per step")
     for name in ("fused_attention_bwd_dq", "fused_attention_bwd_dkv"):
-        require(launches[name] == (6 * depth - 1) * steps, f"{name} launches per step")
+        require(launches[name] == (6 * depth - 1 - sparse_calls) * steps,
+                f"{name} launches per step")
+    for name in ("block_sparse_attention", "block_sparse_attention_bwd_dq",
+                 "block_sparse_attention_bwd_dkv"):
+        require(launches[name] == sparse_calls * steps, f"{name} launches per step")
     require(plain_calls == 0, "a plain version ran on the training path")
     require(not any(changed[:steps - 1]),
             "parameters moved before the second accumulated update (schedule(0) must be 0)")
     require(changed[steps - 1], "parameters did not move at the second accumulated update")
-    log(f"[train] parameters unchanged through step {steps - 1}, changed after step {steps}")
+    log(f"{tag} parameters unchanged through step {steps - 1}, changed after step {steps}")
     del state
     torch.cuda.empty_cache()
 
     # (b) no accumulation, warmup 1, one repeated batch: the loss must fall
     cfg_b = Config()
+    cfg_b.model.sparse_self_attn = sparse
     cfg_b.train.gradient_accumulate_every = 1
     cfg_b.train.warmup_steps = 1
     batch = next(iter(SyntheticDataset(cfg_b.data, seed=cfg_b.train.seed)))
     rep = []
     loop.train(cfg_b, num_steps=20, dataset=itertools.repeat(batch),
                callbacks=[lambda i, s, m: rep.append(float(m["loss"]))])
-    log("[train] repeated batch, 20 steps: losses " + " ".join(f"{x:.3f}" for x in rep))
+    log(f"{tag} repeated batch, 20 steps: losses " + " ".join(f"{x:.3f}" for x in rep))
     require(bool(np.isfinite(rep).all()) and np.mean(rep[-5:]) < np.mean(rep[:5]) and
             rep[-1] < rep[0], "the loss did not fall on a repeated batch")
 
     # (c) a small f32 model: the same step's gradients on the card (kernels)
-    # and on the CPU (plain versions)
-    small = Config()
-    small.model.dim, small.model.depth, small.model.heads, small.model.dim_head = 64, 2, 4, 16
-    small.model.bfloat16 = False
-    small.data.crop_len, small.data.msa_depth, small.data.msa_len = 48, 3, 32
-    small.data.batch_size = 2
-    batch = next(iter(SyntheticDataset(small.data, seed=3)))
-    grads = {}
-    for dev in ("cpu", "cuda"):
-        st = loop.init_state(small, loop.build_model(small), device=dev)
-        st, _ = loop.make_train_step(st.model)(st, loop.batch_to_device(batch, torch.device(dev)))
-        grads[dev] = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).cpu()
-                      for n, p in st.model.named_parameters()}
-    worst, worst_name = 0.0, ""
-    for name, g_cpu in grads["cpu"].items():
-        g_gpu = grads["cuda"][name]
-        norm = float(g_cpu.norm())
-        if norm == 0.0:
-            require(bool((g_gpu == 0).all()), f"{name}: zero on the CPU, nonzero on the card")
-            continue
-        rel = float((g_gpu - g_cpu).norm()) / norm
-        if rel > worst:
-            worst, worst_name = rel, name
-    log(f"[train] small f32 model, card vs CPU gradients: worst per-leaf relative L2 "
-        f"{worst:.3e} ({worst_name}; tol {GRAD_REL_L2:g})")
-    require(worst <= GRAD_REL_L2, "small-model gradients disagree between the card and the CPU")
+    # and on the CPU (plain versions); a sparse model on the grid route
+    # (crop 48, a block multiple) and the flat route (crop 40, padded to 48)
+    for crop in (48, 40) if sparse else (48,):
+        small = Config()
+        small.model.dim, small.model.depth, small.model.heads, small.model.dim_head = (
+            64, 2, 4, 16)
+        small.model.bfloat16 = False
+        small.model.sparse_self_attn = sparse
+        small.data.crop_len, small.data.msa_depth, small.data.msa_len = crop, 3, 32
+        small.data.batch_size = 2
+        batch = next(iter(SyntheticDataset(small.data, seed=3)))
+        grads = {}
+        for dev in ("cpu", "cuda"):
+            st = loop.init_state(small, loop.build_model(small), device=dev)
+            st, _ = loop.make_train_step(st.model)(
+                st, loop.batch_to_device(batch, torch.device(dev)))
+            grads[dev] = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).cpu()
+                          for n, p in st.model.named_parameters()}
+        worst, worst_name = 0.0, ""
+        for name, g_cpu in grads["cpu"].items():
+            g_gpu = grads["cuda"][name]
+            norm = float(g_cpu.norm())
+            if norm == 0.0:
+                require(bool((g_gpu == 0).all()), f"{name}: zero on the CPU, nonzero on the card")
+                continue
+            rel = float((g_gpu - g_cpu).norm()) / norm
+            if rel > worst:
+                worst, worst_name = rel, name
+        log(f"{tag} small f32 model (crop {crop}), card vs CPU gradients: worst per-leaf "
+            f"relative L2 {worst:.3e} ({worst_name}; tol {GRAD_REL_L2:g})")
+        require(worst <= GRAD_REL_L2,
+                "small-model gradients disagree between the card and the CPU")
 
     # (d) the step alone (numerics off, no callbacks, one batch on the
     # card): its rate, then one step under the profiler
@@ -719,11 +760,257 @@ def phase_train():
         step(st, b)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / STEP_REPS * 1e3
-    log(f"[train] the step alone, {STEP_REPS} steps: {step_ms:.2f} ms per step, "
+    log(f"{tag} the step alone, {STEP_REPS} steps: {step_ms:.2f} ms per step, "
         f"{1e3 / step_ms:.2f} steps/s")
-    profile_device("one training step", lambda: step(st, b), host=True)
+    profile_device(f"one {'sparse ' if sparse else ''}training step", lambda: step(st, b),
+                   host=True)
     return {"launches": launches, "steps": steps, "wall_s": wall,
             "step_ms": step_ms, "peak_bytes": peak}
+
+
+# --------------------------------------------------------------- phase 6
+
+
+# the sparse training path's pair axial pass: crop 128, 110 valid residues,
+# so the pair mask leaves rows 110+ without a valid key; 2 per trunk layer
+SPARSE_TRAIN_LABEL = "pair axial (128x8, 128x128, block 16)"
+SPARSE_GATHER_BYTES = 2 << 30  # the plain versions run in batch slices below this
+
+
+def _dense_layout(layout):
+    """The (nb, nb) bool layout a BlockLayout's row lists describe."""
+    import numpy as np
+
+    lay = np.zeros((layout.num_blocks, layout.num_blocks), dtype=bool)
+    for i in range(layout.num_blocks):
+        lay[i, layout.rows[i, :layout.row_counts[i]]] = True
+    return lay
+
+
+def _reached_keys(layout, kv_mask, b):
+    """(B, nb) f32: the valid keys each query block's active blocks hold."""
+    import torch
+
+    nb, bs = layout.num_blocks, layout.block_size
+    lay = torch.as_tensor(_dense_layout(layout), device="cuda", dtype=torch.float32)
+    if kv_mask is None:
+        keys = torch.full((b, nb), float(bs), device="cuda")
+    else:
+        keys = kv_mask.reshape(b, nb, bs).sum(-1).float()
+    return keys @ lay.T
+
+
+def _shortened(layout, kv_mask, rows):
+    """``layout`` without each query block's last listed block that holds a
+    valid key (``rows``), or without each key block's last listed query
+    block: the work of a kernel that stopped one block early."""
+    import numpy as np
+
+    from alphafold2_tpu_torch.ops.cuda.block_sparse import BlockLayout
+
+    nb, bs = layout.num_blocks, layout.block_size
+    if not rows:
+        return BlockLayout(layout.rows, layout.row_counts, layout.cols,
+                           np.maximum(layout.col_counts - 1, 0), bs)
+    has_key = (np.ones(nb, bool) if kv_mask is None
+               else kv_mask.reshape(-1, nb, bs).any(-1).any(0).cpu().numpy())
+    idx, cnt = np.zeros_like(layout.rows), layout.row_counts.copy()
+    for i in range(nb):
+        keep = list(layout.rows[i, :cnt[i]])
+        valid = [j for j, blk in enumerate(keep) if has_key[blk]]
+        if valid:
+            del keep[valid[-1]]
+        idx[i, :len(keep)], cnt[i] = keep, len(keep)
+    return BlockLayout(idx, cnt, layout.cols, layout.col_counts, bs)
+
+
+def _plain_sliced(fn, tensors, layout, kv_mask, scale):
+    """A sparse plain version over batch slices whose gathered blocks stay
+    under SPARSE_GATHER_BYTES; outputs concatenated along the batch."""
+    import torch
+
+    b, h, n, d = tensors[0].shape
+    per_row = 4 * 4 * h * layout.num_blocks * layout.rows.shape[1] * layout.block_size * d
+    step = max(1, SPARSE_GATHER_BYTES // per_row)
+    outs = []
+    for lo in range(0, b, step):
+        sl = slice(lo, lo + step)
+        outs.append(fn(*(t[sl] for t in tensors), layout,
+                       kv_mask[sl] if kv_mask is not None else None, scale))
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
+
+
+def sparse_case(label, b, h, n, d, dtype, lengths, config, gen, reps=0, library=False,
+                control=True):
+    """K4 (with and without lse), K5a and K5b on one problem, each held
+    against its plain version per tensor; rows without a valid key exactly
+    0 (lse +inf, dq 0) and masked keys' dk, dv exactly 0; with ``control``
+    the negative controls; two backward runs bit-identical. ``lengths``:
+    each batch row's valid keys (a prefix), or None. q, k, v and dO are
+    strided as the grid route lays them out. Returns result rows for K4,
+    K5a and K5b."""
+    import torch
+    import torch.nn.functional as F
+
+    from alphafold2_tpu_torch.ops.cuda import axial
+    from alphafold2_tpu_torch.ops.cuda import block_sparse as bsa
+    from alphafold2_tpu_torch.ops.sparse import config_layout
+
+    layout = config_layout(config, n)
+    q, k, v, do = _grad_operands(b, h, n, n, d, dtype, gen, strided=True)
+    km = _prefix(n, lengths) if lengths is not None else None
+    scale = d**-0.5
+    out_nl = bsa.block_sparse_attention(q, k, v, layout, km, scale)
+    out, lse = bsa.block_sparse_attention_lse(q, k, v, layout, km, scale)
+    torch.cuda.synchronize()
+    plain_fwd = lambda: _plain_sliced(bsa.block_sparse_attention_lse_reference, (q, k, v),
+                                      layout, km, scale)
+    ref_out, ref_lse = plain_fwd()
+    _compare(label, "block_sparse_attention (no lse)", out_nl, ref_out, dtype)
+    fwd = _compare(label, "block_sparse_attention", out, ref_out, dtype)
+    _check_lse(label, lse, ref_lse, "block_sparse_attention")
+    dsum = axial.attention_dsum(out, do)
+    grad_in = (q, k, v, do, lse, dsum)
+    args = (*grad_in, layout, km, scale)
+    dq = bsa.block_sparse_attention_dq(*args)
+    dk, dv = bsa.block_sparse_attention_dkv(*args)
+    torch.cuda.synchronize()
+    plain_dq = lambda: _plain_sliced(bsa.block_sparse_attention_dq_reference, grad_in,
+                                     layout, km, scale)
+    plain_dkv = lambda: _plain_sliced(bsa.block_sparse_attention_dkv_reference, grad_in,
+                                      layout, km, scale)
+    rq = plain_dq()
+    rk, rv = plain_dkv()
+    row_q = _compare(label, "block_sparse_attention_bwd_dq", dq, rq, dtype)
+    row_k = _compare(label, "block_sparse_attention_bwd_dkv dk", dk, rk, dtype)
+    row_v = _compare(label, "block_sparse_attention_bwd_dkv dv", dv, rv, dtype)
+    row_kv = dict(row_k, kernel="block_sparse_attention_bwd_dkv",
+                  max_abs_err=max(row_k["max_abs_err"], row_v["max_abs_err"]))
+    require(torch.equal(dq, bsa.block_sparse_attention_dq(*args)),
+            f"{label}: K5a not deterministic")
+    dk2, dv2 = bsa.block_sparse_attention_dkv(*args)
+    require(torch.equal(dk, dk2) and torch.equal(dv, dv2), f"{label}: K5b not deterministic")
+    # rows whose active blocks hold no valid key, and masked keys
+    reached = _reached_keys(layout, km, b)  # (B, nb)
+    dead = (reached == 0).repeat_interleave(layout.block_size, 1)[:, None, :]  # (B, 1, N)
+    masked = (~km if km is not None else torch.zeros((b, n), dtype=torch.bool,
+                                                     device="cuda"))[:, None, :]
+    require(bool((out.masked_select(dead[..., None]) == 0).all())
+            and bool((out_nl.masked_select(dead[..., None]) == 0).all())
+            and bool(torch.isposinf(lse.masked_select(dead)).all())
+            and bool((dq.masked_select(dead[..., None]) == 0).all()),
+            f"{label}: a row without a valid key is not exactly 0 (out, lse +inf, dq)")
+    require(bool((dk.masked_select(masked[..., None]) == 0).all())
+            and bool((dv.masked_select(masked[..., None]) == 0).all()),
+            f"{label}: a masked key has a nonzero dk or dv")
+    log(f"[sparse] {label} {fwd['dtype']}: two backward runs bit-identical; "
+        f"{int(dead.sum())} rows without a valid key exactly 0, "
+        f"{int(masked.sum())} masked keys with dk = dv = 0")
+    if control:
+        rows_short = _shortened(layout, km, rows=True)
+        cols_short = _shortened(layout, km, rows=False)
+        short, _ = bsa.block_sparse_attention_lse(q, k, v, rows_short, km, scale)
+        _control(label, "block_sparse_attention", short, ref_out, dtype,
+                 tile="valid active block's")
+        short = bsa.block_sparse_attention_dq(*grad_in, rows_short, km, scale)
+        _control(label, "block_sparse_attention_bwd_dq", short, rq, dtype,
+                 tile="valid active block's")
+        sk, sv = bsa.block_sparse_attention_dkv(*grad_in, cols_short, km, scale)
+        _control(label, "block_sparse_attention_bwd_dkv dk", sk, rk, dtype,
+                 tile="query block's")
+        _control(label, "block_sparse_attention_bwd_dkv dv", sv, rv, dtype,
+                 tile="query block's")
+        del short, sk, sv
+    # the bound counts only the (query, key) pairs of active blocks whose
+    # key is valid; every input read once and every output written once
+    pairs = float(h * layout.block_size * reached.sum())
+    es = q.element_size()
+    tensor = b * h * n * d * es
+    masks = b * n if km is not None else 0
+    stats = 4 * b * h * n
+    lists = 4 * (layout.rows.size + layout.row_counts.size)
+    lists_t = 4 * (layout.cols.size + layout.col_counts.size)
+    fwd.update(_bound(4.0 * d * pairs, 4 * tensor + masks + stats + lists, dtype))
+    # K5a: q.k recompute, dO.v, ds.k; K5b: q.k recompute, dO.v, p^T dO, ds^T q
+    row_q.update(_bound(6.0 * d * pairs, 5 * tensor + masks + 2 * stats + lists, dtype))
+    row_kv.update(_bound(8.0 * d * pairs, 6 * tensor + masks + 2 * stats + lists_t, dtype))
+    log(f"[sparse] {label}: layout {layout.num_blocks}x{layout.num_blocks} blocks of "
+        f"{layout.block_size}, {layout.active_pairs()} active block pairs (density "
+        f"{layout.active_pairs() / layout.num_blocks**2:.3f}); {pairs:.4e} valid "
+        f"(query, key) pairs")
+    if reps:
+        fwd["ms"] = cuda_ms(lambda: bsa.block_sparse_attention_lse(q, k, v, layout, km, scale),
+                            reps)
+        no_lse = cuda_ms(lambda: bsa.block_sparse_attention(q, k, v, layout, km, scale), reps)
+        log(f"[sparse] {label}: K4 without lse {no_lse:.4f} ms")
+        fwd["plain_ms"] = cuda_ms(plain_fwd, reps=1)
+        row_q["ms"] = cuda_ms(lambda: bsa.block_sparse_attention_dq(*args), reps)
+        row_kv["ms"] = cuda_ms(lambda: bsa.block_sparse_attention_dkv(*args), reps)
+        row_q["plain_ms"] = cuda_ms(plain_dq, reps=1)
+        row_kv["plain_ms"] = cuda_ms(plain_dkv, reps=1)
+        if library:
+            # the same function through SDPA: the element-level layout and
+            # the key mask as one boolean mask; its forward, then its
+            # backward (dq, dk and dv in one call)
+            lay = torch.as_tensor(_dense_layout(layout), device="cuda")
+            bs = layout.block_size
+            am = lay.repeat_interleave(bs, 0).repeat_interleave(bs, 1)[None, None]
+            if km is not None:
+                am = am & km[:, None, None, :]
+            try:
+                leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+                o = F.scaled_dot_product_attention(*leaves, attn_mask=am, scale=scale)
+                fwd["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=am, scale=scale), reps)
+                bwd = cuda_ms(lambda: torch.autograd.grad(o, leaves, do, retain_graph=True),
+                              reps)
+                row_q["library_ms"] = row_kv["library_ms"] = bwd
+                del o, leaves
+            except (RuntimeError, torch.OutOfMemoryError) as e:
+                log(f"[sparse] {label}: scaled_dot_product_attention failed: {e}")
+                fwd["library_ms"] = row_q["library_ms"] = row_kv["library_ms"] = None
+    del q, k, v, do, out, out_nl, lse, dq, dk, dv, rq, rk, rv, ref_out, ref_lse
+    torch.cuda.empty_cache()
+    return [fwd, row_q, row_kv]
+
+
+def phase_sparse():
+    import torch
+
+    from alphafold2_tpu_torch.ops.sparse import BlockSparseConfig
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    f32, bf16 = torch.float32, torch.bfloat16
+    default = BlockSparseConfig()
+    rows = []
+    for dt in (bf16, f32):
+        # 20 launches back to back, so the card, not the host's launch
+        # latency, sets the time of the short calls
+        timed = dict(reps=20 if dt == bf16 else 0, library=dt == bf16, gen=gen)
+        # the training path: one pair axial pass (128 grid rows fold into
+        # the batch); the pair mask leaves rows 110+ without a valid key
+        rows += sparse_case(SPARSE_TRAIN_LABEL, 128, 8, 128, 64, dt,
+                            [TRAIN_LEN] * TRAIN_LEN + [0] * (128 - TRAIN_LEN), default,
+                            **timed)
+        # a length where the layout is really sparse (density 0.388)
+        rows += sparse_case("pair axial (512x8, 512x512, block 16)", 512, 8, 512, 64, dt,
+                            [500] * 500 + [0] * 12, default, **timed)
+        # the flat route: a 100-long axis padded to 112, padding masked
+        rows += sparse_case("flat route (64x8, 100 padded to 112, block 16)", 64, 8, 112,
+                            64, dt, [100] * 56 + [81] * 8, default, **timed)
+        rows += sparse_case("block 128 (16x4, 512x512, d128)", 16, 4, 512, 128, dt,
+                            [512] * 8 + [300] * 8, BlockSparseConfig(block_size=128),
+                            **timed)
+        rows += sparse_case("block 32 (8x4, 256x256, d32)", 8, 4, 256, 32, dt,
+                            [256, 200, 97, 256, 33, 256, 160, 1],
+                            BlockSparseConfig(block_size=32, num_random_blocks=1), **timed)
+        # half the batch rows without a valid key: exactly 0 (no control:
+        # rows of zeros cannot tell a short kernel from a whole one)
+        rows += sparse_case("dead rows (6x2, 64x64, d16)", 6, 2, 64, 16, dt,
+                            [64, 0, 40, 0, 17, 0], default, control=False, **timed)
+    return rows
 
 
 # --------------------------------------------------------------- phase 4
@@ -925,20 +1212,25 @@ def _step_weights(backward, depth=6):
     return weights
 
 
-def kernel_line(rows, serve, train):
+def kernel_line(rows, serve, train, sparse_train):
     """One entry per kernel. K1 sums one serving trunk layer's K1 calls at
     bucket 128 (two pair axial passes, the MSA column pass, both cross
     attentions), K2 its tied-row call, bf16, with the serving run's
     launches. K3a and K3b sum one training step's calls (6 layers; the last
     layer's MSA<-pair update runs no backward), with the training run's
     launches; their library_ms is SDPA's whole backward (dq, dk and dv in
-    one call) on the same problems."""
+    one call) on the same problems. K4 (its training forward, with lse),
+    K5a and K5b sum one sparse training step's 12 pair axial passes, with
+    the sparse training run's launches; library_ms is SDPA with the
+    element-level layout and key mask (its whole backward for K5a/K5b)."""
     serve_k1 = {"pair axial pass (1536x8, 384x384, d64)": 2,
                 "MSA column pass (512x8, 5x5, d64)": 1,
                 "pair<-MSA cross (4x8, 147456x640, d64)": 1,
                 "MSA<-pair cross (4x8, 640x147456, d64)": 1}
     step_k3 = _step_weights(backward=True)
+    step_k4 = {SPARSE_TRAIN_LABEL: 12}  # 2 pair axial passes x 6 layers
     bwd = "alphafold2_tpu_torch/csrc/fused_attention_bwd.cu"
+    sparse_bwd = "alphafold2_tpu_torch/csrc/block_sparse_attention_bwd.cu"
     return {"kernels": [
         _entry("fused_attention", "alphafold2_tpu_torch/csrc/fused_attention.cu",
                "alphafold2_tpu/ops/pallas/axial.py:249",
@@ -951,6 +1243,15 @@ def kernel_line(rows, serve, train):
                train["launches"]["fused_attention_bwd_dq"], rows, step_k3),
         _entry("fused_attention_bwd_dkv", bwd, "alphafold2_tpu/ops/pallas/axial.py:313",
                train["launches"]["fused_attention_bwd_dkv"], rows, step_k3),
+        _entry("block_sparse_attention", "alphafold2_tpu_torch/csrc/block_sparse_attention.cu",
+               "alphafold2_tpu/ops/pallas/block_sparse.py:296",
+               sparse_train["launches"]["block_sparse_attention"], rows, step_k4),
+        _entry("block_sparse_attention_bwd_dq", sparse_bwd,
+               "alphafold2_tpu/ops/pallas/block_sparse.py:339",
+               sparse_train["launches"]["block_sparse_attention_bwd_dq"], rows, step_k4),
+        _entry("block_sparse_attention_bwd_dkv", sparse_bwd,
+               "alphafold2_tpu/ops/pallas/block_sparse.py:388",
+               sparse_train["launches"]["block_sparse_attention_bwd_dkv"], rows, step_k4),
     ]}
 
 
@@ -975,11 +1276,11 @@ def main() -> int:
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     try:
         phase_build()
-        rows = phase_kernels() + phase_backward()
+        rows = phase_kernels() + phase_backward() + phase_sparse()
         for r in rows:
             if "ms" in r:
                 log(f"[kernels] time {r['kernel']} {r['label']} {r['dtype']}: "
-                    f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+                    f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
                     f"sdpa {r.get('library_ms')} ms, bound {r['bound_ms']:.4f} ms "
                     f"({r['bound_by']}; {r['ops']:.3e} ops, {r['bytes']:.3e} bytes)")
         for name, weights in (("fused_attention (lse)", _step_weights(backward=False)),
@@ -989,15 +1290,22 @@ def main() -> int:
             log(f"[backward] per training step, {name}: kernel {e['ms']:.3f} ms, plain "
                 f"{e['plain_ms']:.3f} ms, sdpa {e['library_ms']} ms, bound "
                 f"{e['bound_ms']:.4f} ms ({e['bound_by']})")
+        for name in ("block_sparse_attention", "block_sparse_attention_bwd_dq",
+                     "block_sparse_attention_bwd_dkv"):
+            e = _entry(name, "", "", None, rows, {SPARSE_TRAIN_LABEL: 12})
+            log(f"[sparse] per sparse training step, {name}: kernel {e['ms']:.4f} ms, plain "
+                f"{e['plain_ms']:.3f} ms, sdpa {e['library_ms']} ms, bound "
+                f"{e['bound_ms']:.4f} ms ({e['bound_by']})")
         phase_reference()
         serve = phase_serve()
         train = phase_train()
+        sparse_train = phase_train(sparse=True)
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
         log("chip_smoke: FAILED")
         return 1
     log(card)
-    print(json.dumps(kernel_line(rows, serve, train)), flush=True)
+    print(json.dumps(kernel_line(rows, serve, train, sparse_train)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

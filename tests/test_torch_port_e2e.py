@@ -170,7 +170,7 @@ def test_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch):
 
 def test_unported_options_raise():
     cfg = _tiny_config()
-    cfg.model.reversible = True
+    cfg.model.context_parallel = "ring"
     with pytest.raises(NotImplementedError):
         ServeEngine(cfg, device="cpu")
     cfg = _tiny_config()

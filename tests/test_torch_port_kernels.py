@@ -164,4 +164,5 @@ def test_build_targets_hopper_and_hashes_sources():
     assert build.ARCH_FLAGS == ["-gencode", "arch=compute_90a,code=sm_90a"]
     assert set(build.SIGNATURES) == {p.stem for p in build.CSRC.glob("*.cu")}
     paths = {build._library_path(n) for n in build.SIGNATURES}
-    assert len(paths) == 3 and all(p.parent == build.BUILD_DIR for p in paths)
+    # K1, K3a/K3b, K2, K4, K5a/K5b: five sources, one library each
+    assert len(paths) == 5 and all(p.parent == build.BUILD_DIR for p in paths)

@@ -2,10 +2,13 @@
 
 A second package beside the JAX one, which stays the reference. It imports
 torch and numpy, never jax, flax or anything of ``alphafold2_tpu``. Its
-attention runs two kernels written by hand for Hopper (``csrc/``), built
-with nvcc on first use; their plain PyTorch versions serve CPU tensors.
+attention runs kernels written by hand for Hopper (``csrc/``), built with
+nvcc on first use; their plain PyTorch versions serve CPU tensors.
 
-Entry points: :func:`alphafold2_tpu_torch.predict.predict` and
-:class:`alphafold2_tpu_torch.serve.engine.ServeEngine`, on the CUDA card
-unless the caller passes ``device="cpu"``.
+Entry points: :func:`alphafold2_tpu_torch.predict.predict`,
+:class:`alphafold2_tpu_torch.serve.engine.ServeEngine` and
+:func:`alphafold2_tpu_torch.train.loop.train`, on the CUDA card unless the
+caller passes ``device="cpu"``. :mod:`alphafold2_tpu_torch.analysis` holds
+the pre-hardware checks: the linter, the graph audit and the Hopper build
+gate.
 """

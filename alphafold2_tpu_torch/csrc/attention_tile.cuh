@@ -42,6 +42,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "launch_plan.cuh"
+
 namespace af2 {
 
 constexpr int kBlockM = 64;   // query rows per block
@@ -462,30 +464,51 @@ __host__ inline bool aligned16(const void* ptr) {
 }
 
 // f32 operands run attention_kernel (CUDA cores); bf16 operands run
-// attention_kernel_mma (tensor cores).
+// attention_kernel_mma (tensor cores). One block per (batch, head, 64-row
+// query tile, output chunk).
 template <typename T, int FC>
-cudaError_t launch_attention(const Problem& p, cudaStream_t stream) {
+Af2LaunchPlan plan_attention(const Problem& p) {
   static_assert(std::is_same<T, float>::value || std::is_same<T, __nv_bfloat16>::value,
                 "operands are float32 or bfloat16");
-  const long long blocks = (long long)p.batch * p.heads * ((p.nq + kBlockM - 1) / kBlockM) *
-                           p.out_chunks;
-  if (blocks <= 0 || blocks > 2147483647LL) return cudaErrorInvalidConfiguration;
+  Af2LaunchPlan plan{};
+  plan.blocks = (long long)p.batch * p.heads * ((p.nq + kBlockM - 1) / kBlockM) * p.out_chunks;
+  plan.threads = kThreads;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    plan.dynamic_smem =
+        (2 * kBlockM * (FC + 8) + FC * (kBlockN + 8)) * (int)sizeof(__nv_bfloat16);
+    name_kernel(plan, "attention_kernel_mma<%d>", FC);
+  } else {
+    plan.dynamic_smem = (3 * kBlockM * (FC + 1) + kBlockM * (kBlockN + 1)) * (int)sizeof(float);
+    name_kernel(plan, "attention_kernel<%d>", FC);
+  }
+  return plan;
+}
+
+// Launches the plan's kernel; with `plan_out` it only fills the plan.
+template <typename T, int FC>
+cudaError_t launch_attention(const Problem& p, cudaStream_t stream,
+                             Af2LaunchPlan* plan_out = nullptr) {
+  const Af2LaunchPlan plan = plan_attention<T, FC>(p);
+  if (plan_out != nullptr) {
+    *plan_out = plan;
+    return cudaSuccess;
+  }
+  if (!grid_fits(plan)) return cudaErrorInvalidConfiguration;
+  const unsigned blocks = (unsigned)plan.blocks;
   cudaError_t err;
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    const int smem = (2 * kBlockM * (FC + 8) + FC * (kBlockN + 8)) * (int)sizeof(__nv_bfloat16);
     bool vec = p.fd % 8 == 0 && aligned16(p.q) && aligned16(p.k) && aligned16(p.v);
     for (const Operand* op : {&p.qs, &p.ks, &p.vs})
       vec = vec && op->sb % 8 == 0 && op->sh % 8 == 0 && op->sn % 8 == 0 && op->sr % 8 == 0;
     err = cudaFuncSetAttribute(attention_kernel_mma<FC>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, plan.dynamic_smem);
     if (err != cudaSuccess) return err;
-    attention_kernel_mma<FC><<<(unsigned)blocks, kThreads, smem, stream>>>(p, vec ? 1 : 0);
+    attention_kernel_mma<FC><<<blocks, plan.threads, plan.dynamic_smem, stream>>>(p, vec ? 1 : 0);
   } else {
-    const int smem = (3 * kBlockM * (FC + 1) + kBlockM * (kBlockN + 1)) * (int)sizeof(float);
     err = cudaFuncSetAttribute(attention_kernel<FC>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, plan.dynamic_smem);
     if (err != cudaSuccess) return err;
-    attention_kernel<FC><<<(unsigned)blocks, kThreads, smem, stream>>>(p);
+    attention_kernel<FC><<<blocks, plan.threads, plan.dynamic_smem, stream>>>(p);
   }
   return cudaGetLastError();
 }

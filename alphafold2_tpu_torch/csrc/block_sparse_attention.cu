@@ -177,41 +177,93 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(Fwd p, int vec) {
   }
 }
 
+// One block per G::kPerBlock row tiles of R queries (groups of R / 16 warps).
 template <typename T, int R, int D>
-cudaError_t launch(const Fwd& p, cudaStream_t stream) {
+Af2LaunchPlan plan_launch(const Fwd& p) {
   using G = Group<R>;
+  Af2LaunchPlan plan{};
   const long long groups = (long long)p.batch * p.heads * (p.n / R);
-  const long long blocks = (groups + G::kPerBlock - 1) / G::kPerBlock;
-  if (blocks <= 0 || blocks > 2147483647LL) return cudaErrorInvalidConfiguration;
+  plan.blocks = (groups + G::kPerBlock - 1) / G::kPerBlock;
+  plan.threads = kThreads;
+  plan.dynamic_smem = FwdSmem<T, R, D>::kBytes;
+  af2::name_kernel(plan, "fwd_kernel<%s,%d,%d>", af2::TypeName<T>::value, R, D);
+  return plan;
+}
+
+// Launches the plan's kernel; with `plan_out` it only fills the plan.
+template <typename T, int R, int D>
+cudaError_t launch(const Fwd& p, cudaStream_t stream, Af2LaunchPlan* plan_out) {
+  const Af2LaunchPlan plan = plan_launch<T, R, D>(p);
+  if (plan_out != nullptr) {
+    *plan_out = plan;
+    return cudaSuccess;
+  }
+  if (!af2::grid_fits(plan)) return cudaErrorInvalidConfiguration;
   const bool vec = vec_ok<T>({p.q, p.k, p.v}, {&p.qs, &p.ks, &p.vs});
-  constexpr int smem = FwdSmem<T, R, D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(fwd_kernel<T, R, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         plan.dynamic_smem);
   if (err != cudaSuccess) return err;
-  fwd_kernel<T, R, D><<<(unsigned)blocks, kThreads, smem, stream>>>(p, vec ? 1 : 0);
+  fwd_kernel<T, R, D><<<(unsigned)plan.blocks, plan.threads, plan.dynamic_smem, stream>>>(
+      p, vec ? 1 : 0);
   return cudaGetLastError();
 }
 
 template <typename T, int R>
-cudaError_t dispatch_dim(const Fwd& p, int head_dim, cudaStream_t s) {
+cudaError_t dispatch_dim(const Fwd& p, int head_dim, cudaStream_t s, Af2LaunchPlan* plan_out) {
   switch (head_dim) {
-    case 16: return launch<T, R, 16>(p, s);
-    case 32: return launch<T, R, 32>(p, s);
-    case 64: return launch<T, R, 64>(p, s);
-    case 128: return launch<T, R, 128>(p, s);
+    case 16: return launch<T, R, 16>(p, s, plan_out);
+    case 32: return launch<T, R, 32>(p, s, plan_out);
+    case 64: return launch<T, R, 64>(p, s, plan_out);
+    case 128: return launch<T, R, 128>(p, s, plan_out);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
-cudaError_t dispatch_rows(const Fwd& p, int head_dim, cudaStream_t s) {
+cudaError_t dispatch_rows(const Fwd& p, int head_dim, cudaStream_t s, Af2LaunchPlan* plan_out) {
   switch (p.block) {
-    case 16: return dispatch_dim<T, 16>(p, head_dim, s);
-    case 32: return dispatch_dim<T, 32>(p, head_dim, s);
+    case 16: return dispatch_dim<T, 16>(p, head_dim, s, plan_out);
+    case 32: return dispatch_dim<T, 32>(p, head_dim, s, plan_out);
     case 64:
-    case 128: return dispatch_dim<T, 64>(p, head_dim, s);
+    case 128: return dispatch_dim<T, 64>(p, head_dim, s, plan_out);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// Launches K4, or with `plan_out` only fills its plan (strides may then be
+// null and no pointer is read).
+int run(int dtype, const void* q, const void* k, const void* v, void* out, float* lse,
+        const unsigned char* kv_mask, const int* idx, const int* cnt, int max_active,
+        const long long* strides, int batch, int heads, int n, int head_dim, int block,
+        float sm_scale, void* stream, Af2LaunchPlan* plan_out = nullptr) {
+  if (block <= 0 || n % block != 0) return cudaErrorInvalidValue;
+  Fwd p;
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.o = out;
+  p.lse = lse;
+  p.kv_mask = kv_mask;
+  p.idx = idx;
+  p.cnt = cnt;
+  p.max_active = max_active;
+  Operand* ops[4] = {&p.qs, &p.ks, &p.vs, &p.os};
+  for (int i = 0; i < 4; ++i) {
+    ops[i]->sb = strides != nullptr ? strides[3 * i] : 0;
+    ops[i]->sh = strides != nullptr ? strides[3 * i + 1] : 0;
+    ops[i]->sn = strides != nullptr ? strides[3 * i + 2] : 0;
+    ops[i]->sr = 0;
+  }
+  p.batch = batch;
+  p.heads = heads;
+  p.n = n;
+  p.block = block;
+  p.sm_scale = sm_scale;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return dispatch_rows<float>(p, head_dim, s, plan_out);
+  if (dtype == 1) return dispatch_rows<__nv_bfloat16>(p, head_dim, s, plan_out);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -230,31 +282,15 @@ extern "C" int af2_block_sparse_attention(int dtype, const void* q, const void* 
                                           const long long* strides, int batch, int heads,
                                           int n, int head_dim, int block, float sm_scale,
                                           void* stream) {
-  if (block <= 0 || n % block != 0) return cudaErrorInvalidValue;
-  Fwd p;
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.o = out;
-  p.lse = lse;
-  p.kv_mask = kv_mask;
-  p.idx = idx;
-  p.cnt = cnt;
-  p.max_active = max_active;
-  Operand* ops[4] = {&p.qs, &p.ks, &p.vs, &p.os};
-  for (int i = 0; i < 4; ++i) {
-    ops[i]->sb = strides[3 * i];
-    ops[i]->sh = strides[3 * i + 1];
-    ops[i]->sn = strides[3 * i + 2];
-    ops[i]->sr = 0;
-  }
-  p.batch = batch;
-  p.heads = heads;
-  p.n = n;
-  p.block = block;
-  p.sm_scale = sm_scale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_rows<float>(p, head_dim, s);
-  if (dtype == 1) return dispatch_rows<__nv_bfloat16>(p, head_dim, s);
-  return cudaErrorInvalidValue;
+  return run(dtype, q, k, v, out, lse, kv_mask, idx, cnt, max_active, strides, batch, heads, n,
+             head_dim, block, sm_scale, stream);
+}
+
+// K4's launch plan at one shape (with or without lse: the same kernel);
+// touches no device. Returns 0, or cudaErrorInvalidValue for a dtype, head
+// dim, block or length the kernel does not take.
+extern "C" int af2_block_sparse_attention_plan(int dtype, int batch, int heads, int n,
+                                               int head_dim, int block, Af2LaunchPlan* plan) {
+  return run(dtype, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0,
+             nullptr, batch, heads, n, head_dim, block, 1.f, nullptr, plan);
 }

@@ -288,59 +288,81 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(Bwd p, int vec) {
 
 enum class Which { kDq, kDkv };
 
+// One block per G::kPerBlock row tiles of R queries (K5a) or keys (K5b).
 template <typename T, int R, int D>
-cudaError_t launch(Which which, const Bwd& p, cudaStream_t stream) {
+Af2LaunchPlan plan_launch(Which which, const Bwd& p) {
   using G = Group<R>;
   using S = BwdSmem<T, R, D>;
+  Af2LaunchPlan plan{};
   const long long groups = (long long)p.batch * p.heads * (p.n / R);
-  const long long blocks = (groups + G::kPerBlock - 1) / G::kPerBlock;
-  if (blocks <= 0 || blocks > 2147483647LL) return cudaErrorInvalidConfiguration;
+  plan.blocks = (groups + G::kPerBlock - 1) / G::kPerBlock;
+  plan.threads = kThreads;
+  plan.dynamic_smem = which == Which::kDq ? S::kDqBytes : S::kDkvBytes;
+  af2::name_kernel(plan, "%s<%s,%d,%d>", which == Which::kDq ? "dq_kernel" : "dkv_kernel",
+                   af2::TypeName<T>::value, R, D);
+  return plan;
+}
+
+// Launches the plan's kernel; with `plan_out` it only fills the plan.
+template <typename T, int R, int D>
+cudaError_t launch(Which which, const Bwd& p, cudaStream_t stream, Af2LaunchPlan* plan_out) {
+  const Af2LaunchPlan plan = plan_launch<T, R, D>(which, p);
+  if (plan_out != nullptr) {
+    *plan_out = plan;
+    return cudaSuccess;
+  }
+  if (!af2::grid_fits(plan)) return cudaErrorInvalidConfiguration;
   const bool vec = vec_ok<T>({p.q, p.k, p.v, p.dout}, {&p.qs, &p.ks, &p.vs, &p.dos});
+  const unsigned blocks = (unsigned)plan.blocks;
+  const int smem = plan.dynamic_smem;
   cudaError_t err;
   if (which == Which::kDq) {
     err = cudaFuncSetAttribute(dq_kernel<T, R, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               S::kDqBytes);
+                               smem);
     if (err != cudaSuccess) return err;
-    dq_kernel<T, R, D><<<(unsigned)blocks, kThreads, S::kDqBytes, stream>>>(p, vec ? 1 : 0);
+    dq_kernel<T, R, D><<<blocks, plan.threads, smem, stream>>>(p, vec ? 1 : 0);
   } else {
     err = cudaFuncSetAttribute(dkv_kernel<T, R, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               S::kDkvBytes);
+                               smem);
     if (err != cudaSuccess) return err;
-    dkv_kernel<T, R, D><<<(unsigned)blocks, kThreads, S::kDkvBytes, stream>>>(p, vec ? 1 : 0);
+    dkv_kernel<T, R, D><<<blocks, plan.threads, smem, stream>>>(p, vec ? 1 : 0);
   }
   return cudaGetLastError();
 }
 
 template <typename T, int R>
-cudaError_t dispatch_dim(Which which, const Bwd& p, int head_dim, cudaStream_t s) {
+cudaError_t dispatch_dim(Which which, const Bwd& p, int head_dim, cudaStream_t s,
+                         Af2LaunchPlan* plan_out) {
   switch (head_dim) {
-    case 16: return launch<T, R, 16>(which, p, s);
-    case 32: return launch<T, R, 32>(which, p, s);
-    case 64: return launch<T, R, 64>(which, p, s);
-    case 128: return launch<T, R, 128>(which, p, s);
+    case 16: return launch<T, R, 16>(which, p, s, plan_out);
+    case 32: return launch<T, R, 32>(which, p, s, plan_out);
+    case 64: return launch<T, R, 64>(which, p, s, plan_out);
+    case 128: return launch<T, R, 128>(which, p, s, plan_out);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
-cudaError_t dispatch_rows(Which which, const Bwd& p, int head_dim, cudaStream_t s) {
+cudaError_t dispatch_rows(Which which, const Bwd& p, int head_dim, cudaStream_t s,
+                          Af2LaunchPlan* plan_out) {
   switch (p.block) {
-    case 16: return dispatch_dim<T, 16>(which, p, head_dim, s);
-    case 32: return dispatch_dim<T, 32>(which, p, head_dim, s);
+    case 16: return dispatch_dim<T, 16>(which, p, head_dim, s, plan_out);
+    case 32: return dispatch_dim<T, 32>(which, p, head_dim, s, plan_out);
     case 64:
-    case 128: return dispatch_dim<T, 64>(which, p, head_dim, s);
+    case 128: return dispatch_dim<T, 64>(which, p, head_dim, s, plan_out);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // strides: 21 element strides, (batch, head, token) of q, k, v, dout, dq, dk
 // and dv in that order (those of an absent output are ignored); the
-// head-dim stride of each must be 1.
+// head-dim stride of each must be 1. With `plan_out` it only fills the plan
+// (strides may then be null and no pointer is read).
 int run(Which which, int dtype, const void* q, const void* k, const void* v, const void* dout,
         const float* lse, const float* dsum, void* dq, void* dk, void* dv,
         const unsigned char* kv_mask, const int* idx, const int* cnt, int max_active,
         const long long* strides, int batch, int heads, int n, int head_dim, int block,
-        float sm_scale, void* stream) {
+        float sm_scale, void* stream, Af2LaunchPlan* plan_out = nullptr) {
   if (block <= 0 || n % block != 0) return cudaErrorInvalidValue;
   Bwd p;
   p.q = q;
@@ -358,9 +380,9 @@ int run(Which which, int dtype, const void* q, const void* k, const void* v, con
   p.max_active = max_active;
   Operand* ops[7] = {&p.qs, &p.ks, &p.vs, &p.dos, &p.dqs, &p.dks, &p.dvs};
   for (int i = 0; i < 7; ++i) {
-    ops[i]->sb = strides[3 * i];
-    ops[i]->sh = strides[3 * i + 1];
-    ops[i]->sn = strides[3 * i + 2];
+    ops[i]->sb = strides != nullptr ? strides[3 * i] : 0;
+    ops[i]->sh = strides != nullptr ? strides[3 * i + 1] : 0;
+    ops[i]->sn = strides != nullptr ? strides[3 * i + 2] : 0;
     ops[i]->sr = 0;
   }
   p.batch = batch;
@@ -369,8 +391,8 @@ int run(Which which, int dtype, const void* q, const void* k, const void* v, con
   p.block = block;
   p.sm_scale = sm_scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_rows<float>(which, p, head_dim, s);
-  if (dtype == 1) return dispatch_rows<__nv_bfloat16>(which, p, head_dim, s);
+  if (dtype == 0) return dispatch_rows<float>(which, p, head_dim, s, plan_out);
+  if (dtype == 1) return dispatch_rows<__nv_bfloat16>(which, p, head_dim, s, plan_out);
   return cudaErrorInvalidValue;
 }
 
@@ -398,4 +420,16 @@ extern "C" int af2_block_sparse_attention_bwd_dkv(
     int head_dim, int block, float sm_scale, void* stream) {
   return run(Which::kDkv, dtype, q, k, v, dout, lse, dsum, nullptr, dk, dv, kv_mask, idx, cnt,
              max_active, strides, batch, heads, n, head_dim, block, sm_scale, stream);
+}
+
+// The launch plan of K5a (which = 0) or K5b (which = 1) at one shape; touches
+// no device. Returns 0, or cudaErrorInvalidValue for a dtype, head dim, block,
+// length or `which` the kernels do not take.
+extern "C" int af2_block_sparse_attention_bwd_plan(int which, int dtype, int batch, int heads,
+                                                   int n, int head_dim, int block,
+                                                   Af2LaunchPlan* plan) {
+  if (which != 0 && which != 1) return cudaErrorInvalidValue;
+  return run(which == 0 ? Which::kDq : Which::kDkv, dtype, nullptr, nullptr, nullptr, nullptr,
+             nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0, nullptr,
+             batch, heads, n, head_dim, block, 1.f, nullptr, plan);
 }

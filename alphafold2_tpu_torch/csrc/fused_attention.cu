@@ -38,15 +38,19 @@
 namespace {
 
 template <int D>
-cudaError_t dispatch_dtype(int dtype, const af2::Problem& p, cudaStream_t stream) {
-  if (dtype == 0) return af2::launch_attention<float, D>(p, stream);
-  if (dtype == 1) return af2::launch_attention<__nv_bfloat16, D>(p, stream);
+cudaError_t dispatch_dtype(int dtype, const af2::Problem& p, cudaStream_t stream,
+                           Af2LaunchPlan* plan_out) {
+  if (dtype == 0) return af2::launch_attention<float, D>(p, stream, plan_out);
+  if (dtype == 1) return af2::launch_attention<__nv_bfloat16, D>(p, stream, plan_out);
   return cudaErrorInvalidValue;
 }
 
+// Launches K1, or with `plan_out` only fills its plan (strides may then be
+// null and no pointer is read).
 int run(int dtype, const void* q, const void* k, const void* v, void* out, float* lse,
         const unsigned char* q_mask, const unsigned char* kv_mask, const long long* strides,
-        int batch, int heads, int nq, int nk, int head_dim, float sm_scale, void* stream) {
+        int batch, int heads, int nq, int nk, int head_dim, float sm_scale, void* stream,
+        Af2LaunchPlan* plan_out = nullptr) {
   af2::Problem p;
   p.q = q;
   p.k = k;
@@ -58,9 +62,9 @@ int run(int dtype, const void* q, const void* k, const void* v, void* out, float
   p.tie_scale = nullptr;
   af2::Operand* ops[4] = {&p.qs, &p.ks, &p.vs, &p.os};
   for (int t = 0; t < 4; ++t) {
-    ops[t]->sb = strides[3 * t];
-    ops[t]->sh = strides[3 * t + 1];
-    ops[t]->sn = strides[3 * t + 2];
+    ops[t]->sb = strides != nullptr ? strides[3 * t] : 0;
+    ops[t]->sh = strides != nullptr ? strides[3 * t + 1] : 0;
+    ops[t]->sn = strides != nullptr ? strides[3 * t + 2] : 0;
     ops[t]->sr = 0;
   }
   p.batch = batch;
@@ -73,10 +77,10 @@ int run(int dtype, const void* q, const void* k, const void* v, void* out, float
   p.sm_scale = sm_scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 16: return dispatch_dtype<16>(dtype, p, s);
-    case 32: return dispatch_dtype<32>(dtype, p, s);
-    case 64: return dispatch_dtype<64>(dtype, p, s);
-    case 128: return dispatch_dtype<128>(dtype, p, s);
+    case 16: return dispatch_dtype<16>(dtype, p, s, plan_out);
+    case 32: return dispatch_dtype<32>(dtype, p, s, plan_out);
+    case 64: return dispatch_dtype<64>(dtype, p, s, plan_out);
+    case 128: return dispatch_dtype<128>(dtype, p, s, plan_out);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -104,4 +108,13 @@ extern "C" int af2_fused_attention_lse(int dtype, const void* q, const void* k, 
                                        float sm_scale, void* stream) {
   return run(dtype, q, k, v, out, lse, q_mask, kv_mask, strides, batch, heads, nq, nk,
              head_dim, sm_scale, stream);
+}
+
+// K1's launch plan at one shape (with or without lse: the same kernel).
+// Touches no device. Returns 0, or cudaErrorInvalidValue for a dtype or head
+// dim the kernel does not take.
+extern "C" int af2_fused_attention_plan(int dtype, int batch, int heads, int nq, int nk,
+                                        int head_dim, Af2LaunchPlan* plan) {
+  return run(dtype, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+             batch, heads, nq, nk, head_dim, 1.f, nullptr, plan);
 }

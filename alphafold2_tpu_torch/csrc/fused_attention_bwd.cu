@@ -554,63 +554,93 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel_mma(Grad g, int vec) {
 enum class Which { kDq, kDkv };
 
 template <typename T, int D>
-cudaError_t launch(Which which, const Grad& g, cudaStream_t stream) {
+Af2LaunchPlan plan_launch(Which which, const Grad& g) {
+  Af2LaunchPlan plan{};
   const int rows = which == Which::kDq ? g.nq : g.nk;
-  const long long blocks = (long long)g.batch * g.heads * ((rows + kBlockM - 1) / kBlockM);
-  if (blocks <= 0 || blocks > 2147483647LL) return cudaErrorInvalidConfiguration;
+  plan.blocks = (long long)g.batch * g.heads * ((rows + kBlockM - 1) / kBlockM);
+  plan.threads = kThreads;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const int bf = (int)sizeof(__nv_bfloat16);
+    if (which == Which::kDq) {
+      plan.dynamic_smem = (4 * kBlockM * (D + 8) + D * (kBlockN + 8)) * bf;
+      af2::name_kernel(plan, "dq_kernel_mma<%d>", D);
+    } else {
+      plan.dynamic_smem =
+          (4 * kBlockM * (D + 8) + 2 * D * (kBlockM + 8)) * bf + 2 * kBlockM * (int)sizeof(float);
+      af2::name_kernel(plan, "dkv_kernel_mma<%d>", D);
+    }
+  } else {
+    const int fl = (int)sizeof(float);
+    if (which == Which::kDq) {
+      plan.dynamic_smem = (4 * kBlockM * (D + 1) + kBlockM * (kBlockN + 1)) * fl;
+      af2::name_kernel(plan, "dq_kernel<%d>", D);
+    } else {
+      plan.dynamic_smem = (4 * kBlockM * (D + 1) + 2 * kBlockN * (kBlockM + 1) + 2 * kBlockM) * fl;
+      af2::name_kernel(plan, "dkv_kernel<%d>", D);
+    }
+  }
+  return plan;
+}
+
+// Launches the plan's kernel; with `plan_out` it only fills the plan.
+template <typename T, int D>
+cudaError_t launch(Which which, const Grad& g, cudaStream_t stream, Af2LaunchPlan* plan_out) {
+  const Af2LaunchPlan pl = plan_launch<T, D>(which, g);
+  if (plan_out != nullptr) {
+    *plan_out = pl;
+    return cudaSuccess;
+  }
+  if (!af2::grid_fits(pl)) return cudaErrorInvalidConfiguration;
+  const unsigned blocks = (unsigned)pl.blocks;
+  const int smem = pl.dynamic_smem;
   cudaError_t err;
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     bool vec = af2::aligned16(g.q) && af2::aligned16(g.k) && af2::aligned16(g.v) &&
                af2::aligned16(g.dout);
     for (const Operand* op : {&g.qs, &g.ks, &g.vs, &g.dos})
       vec = vec && op->sb % 8 == 0 && op->sh % 8 == 0 && op->sn % 8 == 0;
-    const int bf = (int)sizeof(__nv_bfloat16);
     if (which == Which::kDq) {
-      const int smem = (4 * kBlockM * (D + 8) + D * (kBlockN + 8)) * bf;
       err = cudaFuncSetAttribute(dq_kernel_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  smem);
       if (err != cudaSuccess) return err;
-      dq_kernel_mma<D><<<(unsigned)blocks, kThreads, smem, stream>>>(g, vec ? 1 : 0);
+      dq_kernel_mma<D><<<blocks, pl.threads, smem, stream>>>(g, vec ? 1 : 0);
     } else {
-      const int smem =
-          (4 * kBlockM * (D + 8) + 2 * D * (kBlockM + 8)) * bf + 2 * kBlockM * (int)sizeof(float);
       err = cudaFuncSetAttribute(dkv_kernel_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  smem);
       if (err != cudaSuccess) return err;
-      dkv_kernel_mma<D><<<(unsigned)blocks, kThreads, smem, stream>>>(g, vec ? 1 : 0);
+      dkv_kernel_mma<D><<<blocks, pl.threads, smem, stream>>>(g, vec ? 1 : 0);
     }
   } else {
-    const int fl = (int)sizeof(float);
     if (which == Which::kDq) {
-      const int smem = (4 * kBlockM * (D + 1) + kBlockM * (kBlockN + 1)) * fl;
       err = cudaFuncSetAttribute(dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (err != cudaSuccess) return err;
-      dq_kernel<D><<<(unsigned)blocks, kThreads, smem, stream>>>(g);
+      dq_kernel<D><<<blocks, pl.threads, smem, stream>>>(g);
     } else {
-      const int smem =
-          (4 * kBlockM * (D + 1) + 2 * kBlockN * (kBlockM + 1) + 2 * kBlockM) * fl;
       err = cudaFuncSetAttribute(dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (err != cudaSuccess) return err;
-      dkv_kernel<D><<<(unsigned)blocks, kThreads, smem, stream>>>(g);
+      dkv_kernel<D><<<blocks, pl.threads, smem, stream>>>(g);
     }
   }
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t dispatch_dtype(int dtype, Which which, const Grad& g, cudaStream_t stream) {
-  if (dtype == 0) return launch<float, D>(which, g, stream);
-  if (dtype == 1) return launch<__nv_bfloat16, D>(which, g, stream);
+cudaError_t dispatch_dtype(int dtype, Which which, const Grad& g, cudaStream_t stream,
+                           Af2LaunchPlan* plan_out) {
+  if (dtype == 0) return launch<float, D>(which, g, stream, plan_out);
+  if (dtype == 1) return launch<__nv_bfloat16, D>(which, g, stream, plan_out);
   return cudaErrorInvalidValue;
 }
 
 // strides: 21 element strides, (batch, head, token) of q, k, v, dout, dq,
 // dk and dv in that order (those of an absent output are ignored); the
-// head-dim stride of each must be 1.
+// head-dim stride of each must be 1. With `plan_out` it only fills the plan
+// (strides may then be null and no pointer is read).
 int run(Which which, int dtype, const void* q, const void* k, const void* v, const void* dout,
         const float* lse, const float* dsum, void* dq, void* dk, void* dv,
         const unsigned char* q_mask, const unsigned char* kv_mask, const long long* strides,
-        int batch, int heads, int nq, int nk, int head_dim, float sm_scale, void* stream) {
+        int batch, int heads, int nq, int nk, int head_dim, float sm_scale, void* stream,
+        Af2LaunchPlan* plan_out = nullptr) {
   Grad g;
   g.q = q;
   g.k = k;
@@ -625,9 +655,9 @@ int run(Which which, int dtype, const void* q, const void* k, const void* v, con
   g.dv = dv;
   Operand* ops[7] = {&g.qs, &g.ks, &g.vs, &g.dos, &g.dqs, &g.dks, &g.dvs};
   for (int t = 0; t < 7; ++t) {
-    ops[t]->sb = strides[3 * t];
-    ops[t]->sh = strides[3 * t + 1];
-    ops[t]->sn = strides[3 * t + 2];
+    ops[t]->sb = strides != nullptr ? strides[3 * t] : 0;
+    ops[t]->sh = strides != nullptr ? strides[3 * t + 1] : 0;
+    ops[t]->sn = strides != nullptr ? strides[3 * t + 2] : 0;
     ops[t]->sr = 0;
   }
   g.geom.features = head_dim;
@@ -639,10 +669,10 @@ int run(Which which, int dtype, const void* q, const void* k, const void* v, con
   g.sm_scale = sm_scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 16: return dispatch_dtype<16>(dtype, which, g, s);
-    case 32: return dispatch_dtype<32>(dtype, which, g, s);
-    case 64: return dispatch_dtype<64>(dtype, which, g, s);
-    case 128: return dispatch_dtype<128>(dtype, which, g, s);
+    case 16: return dispatch_dtype<16>(dtype, which, g, s, plan_out);
+    case 32: return dispatch_dtype<32>(dtype, which, g, s, plan_out);
+    case 64: return dispatch_dtype<64>(dtype, which, g, s, plan_out);
+    case 128: return dispatch_dtype<128>(dtype, which, g, s, plan_out);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -676,4 +706,15 @@ extern "C" int af2_fused_attention_bwd_dkv(int dtype, const void* q, const void*
                                            void* stream) {
   return run(Which::kDkv, dtype, q, k, v, dout, lse, dsum, nullptr, dk, dv, q_mask, kv_mask,
              strides, batch, heads, nq, nk, head_dim, sm_scale, stream);
+}
+
+// The launch plan of K3a (which = 0) or K3b (which = 1) at one shape; touches
+// no device. Returns 0, or cudaErrorInvalidValue for a dtype, head dim or
+// `which` the kernels do not take.
+extern "C" int af2_fused_attention_bwd_plan(int which, int dtype, int batch, int heads, int nq,
+                                            int nk, int head_dim, Af2LaunchPlan* plan) {
+  if (which != 0 && which != 1) return cudaErrorInvalidValue;
+  return run(which == 0 ? Which::kDq : Which::kDkv, dtype, nullptr, nullptr, nullptr, nullptr,
+             nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, batch,
+             heads, nq, nk, head_dim, 1.f, nullptr, plan);
 }

@@ -32,17 +32,11 @@ namespace {
 
 constexpr int kChunk = 64;  // feature chunk for logits and output
 
-}  // namespace
-
-// q: (batch, rows, nq, heads, head_dim), k/v: (batch, rows, nk, heads,
-// head_dim), out like q; all contiguous. tie_scale: (batch,) f32 on the
-// device. dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the
-// launch (0 on success).
-extern "C" int af2_tied_row_attention(int dtype, const void* q, const void* k, const void* v,
-                                      void* out, const unsigned char* q_mask,
-                                      const unsigned char* kv_mask, const float* tie_scale,
-                                      int batch, int rows, int heads, int nq, int nk,
-                                      int head_dim, float sm_scale, void* stream) {
+// Launches K2, or with `plan_out` only fills its plan (no pointer is read).
+int run(int dtype, const void* q, const void* k, const void* v, void* out,
+        const unsigned char* q_mask, const unsigned char* kv_mask, const float* tie_scale,
+        int batch, int rows, int heads, int nq, int nk, int head_dim, float sm_scale,
+        void* stream, Af2LaunchPlan* plan_out = nullptr) {
   af2::Problem p;
   p.q = q;
   p.k = k;
@@ -69,7 +63,30 @@ extern "C" int af2_tied_row_attention(int dtype, const void* q, const void* k, c
   p.out_chunks = (p.features + kChunk - 1) / kChunk;
   p.sm_scale = sm_scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return af2::launch_attention<float, kChunk>(p, s);
-  if (dtype == 1) return af2::launch_attention<__nv_bfloat16, kChunk>(p, s);
+  if (dtype == 0) return af2::launch_attention<float, kChunk>(p, s, plan_out);
+  if (dtype == 1) return af2::launch_attention<__nv_bfloat16, kChunk>(p, s, plan_out);
   return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// q: (batch, rows, nq, heads, head_dim), k/v: (batch, rows, nk, heads,
+// head_dim), out like q; all contiguous. tie_scale: (batch,) f32 on the
+// device. dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the
+// launch (0 on success).
+extern "C" int af2_tied_row_attention(int dtype, const void* q, const void* k, const void* v,
+                                      void* out, const unsigned char* q_mask,
+                                      const unsigned char* kv_mask, const float* tie_scale,
+                                      int batch, int rows, int heads, int nq, int nk,
+                                      int head_dim, float sm_scale, void* stream) {
+  return run(dtype, q, k, v, out, q_mask, kv_mask, tie_scale, batch, rows, heads, nq, nk,
+             head_dim, sm_scale, stream);
+}
+
+// K2's launch plan at one shape; touches no device. Returns 0, or
+// cudaErrorInvalidValue for a dtype the kernel does not take.
+extern "C" int af2_tied_row_attention_plan(int dtype, int batch, int rows, int heads, int nq,
+                                           int nk, int head_dim, Af2LaunchPlan* plan) {
+  return run(dtype, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, batch, rows,
+             heads, nq, nk, head_dim, 1.f, nullptr, plan);
 }

@@ -95,7 +95,7 @@ class EquivariantLayer(nn.Module):
         s = s + self.s_out(torch.cat([s_agg, v_norms.to(dt)], dim=-1))
         g_self, g_nbr, g_rel = self.gates(self.s_norm2(s)).chunk(3, dim=-1)
         v = v + (g_self[..., None] * v_mix + g_nbr[..., None] * v_nbr
-                 + g_rel[..., None] * v_rel)
+                 + g_rel[..., None] * v_rel).to(v.dtype)
         return s, v
 
 
@@ -133,4 +133,4 @@ class SE3Refiner(nn.Module):
         delta = self.to_delta(v.transpose(-1, -2).to(self.dtype))[..., 0]
         if mask is not None:
             delta = torch.where(mask[..., None], delta, torch.zeros_like(delta))
-        return coords + delta
+        return coords + delta.to(coords.dtype)

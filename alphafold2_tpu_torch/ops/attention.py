@@ -158,9 +158,9 @@ class Attention(nn.Module):
                                         device=x.device)
             qr = mask.reshape(bt, r, n) if mask is not None else ones(n)
             kr = kv_side.reshape(bt, r, j) if kv_side is not None else ones(j)
-            q = q * qr[..., None, None]
-            k = k * kr[..., None, None]
-            v = v * kr[..., None, None]
+            q = q * qr[..., None, None].to(q.dtype)
+            k = k * kr[..., None, None].to(k.dtype)
+            v = v * kr[..., None, None].to(v.dtype)
             n_rows = (qr.any(-1) & kr.any(-1)).sum(-1).clamp_min(1)
             tie_scale = n_rows.to(torch.float32) ** -0.5
             mask = qr.any(1)

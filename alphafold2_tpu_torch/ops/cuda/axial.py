@@ -48,7 +48,7 @@ def _masked_softmax_weights(s: torch.Tensor, valid: Optional[torch.Tensor]):
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(s - m)
     if valid is not None:
-        p = p * valid
+        p = p * valid.to(p.dtype)
     return p, p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
 
 
@@ -61,7 +61,7 @@ def _attend(q, k, v, q_mask, kv_mask, sm_scale, with_lse):
     p, l = _masked_softmax_weights(s, valid)
     out = torch.einsum("bhij,bhjd->bhid", p, v.float()) / l
     if q_mask is not None:
-        out = out * q_mask[:, None, :, None]
+        out = out * q_mask[:, None, :, None].to(out.dtype)
     if not with_lse:
         return out.to(q.dtype)
     if valid is not None:

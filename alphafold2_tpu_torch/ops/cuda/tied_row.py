@@ -72,7 +72,7 @@ def tied_row_attention_reference(
     p, l = _masked_softmax_weights(s, valid)
     out = torch.einsum("bhij,brjhd->brihd", p / l, v.float())
     if q_mask is not None:
-        out = out * q_mask[:, None, :, None, None]
+        out = out * q_mask[:, None, :, None, None].to(out.dtype)
     return out.to(q.dtype)
 
 

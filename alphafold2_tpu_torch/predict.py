@@ -39,7 +39,7 @@ def realize_structure(
     distances, weights = center_distogram(probs)
     residue_mask = None
     if mask is not None:
-        weights = weights * (mask[:, :, None] & mask[:, None, :])
+        weights = weights * (mask[:, :, None] & mask[:, None, :]).to(weights.dtype)
         if fix_mirror:
             residue_mask = mask.reshape(b, n // 3, 3).any(-1)
     if coords0 is None:

@@ -22,6 +22,7 @@ DISTANCE_THRESHOLDS = np.linspace(
     constants.DISTOGRAM_MAX_DIST,
     constants.DISTOGRAM_BUCKETS,
 )
+_THRESHOLDS_F32 = DISTANCE_THRESHOLDS.astype(np.float32)  # rounded once, on the host
 
 
 def cdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -48,10 +49,10 @@ def get_bucketed_distance_matrix(
     ``jnp.linspace`` differs from them by one ulp at some bins, which moves
     only a distance within that ulp of a boundary."""
     distances = cdist(coords, coords)
-    boundaries = torch.linspace(
-        constants.DISTOGRAM_MIN_DIST, constants.DISTOGRAM_MAX_DIST, num_buckets,
-        dtype=torch.float64, device=coords.device,
-    )[:-1].to(distances.dtype)
+    # the exact linspace, rounded once (on the host: the card computes no float64)
+    edges = np.linspace(constants.DISTOGRAM_MIN_DIST, constants.DISTOGRAM_MAX_DIST,
+                        num_buckets, dtype=np.float64)[:-1].astype(np.float32)
+    boundaries = torch.from_numpy(edges).to(device=coords.device, dtype=distances.dtype)
     discretized = torch.bucketize(distances, boundaries, right=False)
     pair_mask = mask[..., :, None] & mask[..., None, :]
     return torch.where(pair_mask, discretized, ignore_index)
@@ -63,8 +64,8 @@ def center_distogram(distogram: torch.Tensor, bins: Optional[torch.Tensor] = Non
     inflated to 1.33x the top threshold), weight 0 past the penultimate
     threshold, zero diagonal, weight = mask / (1 + std), NaN -> 0."""
     if bins is None:
-        bins = torch.as_tensor(DISTANCE_THRESHOLDS, dtype=distogram.dtype,
-                               device=distogram.device)
+        bins = torch.from_numpy(_THRESHOLDS_F32).to(device=distogram.device,
+                                                     dtype=distogram.dtype)
     half_width = 0.5 * (bins[2] - bins[1])
     centers = bins - half_width
     centers = torch.cat([centers.new_tensor([1.5]), centers[1:-1],

@@ -5,6 +5,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 
 1. build    — compile every kernel source under alphafold2_tpu_torch/csrc
               with nvcc (sm_90a), one process per source, and load them;
+1b. gate    — the port's pre-hardware analysis layer: the Hopper build gate
+              (analysis/lowering.py: every case's launch plans and ptxas
+              resources within sm_90's limits, f32 and bf16, and X's
+              mis-tiled negative control refused by ptxas); X's valid
+              counterpart (scale_rows) bitwise against 2 * x at (4, 512),
+              timed beside torch.mul; the launch-level control, a
+              2048-thread block the card must refuse with
+              cudaErrorInvalidConfiguration; and the graph audit
+              (analysis/audit.py) of every target on the card, clean apart
+              from reasoned waivers, its backward seen on the autograd
+              engine's device threads;
 2. kernels  — hold each forward kernel (K1, K2) against its plain PyTorch
               version on the card at the serving path's shapes (f32 and
               bf16) plus ragged tails, a 5-key pass, fully masked rows and
@@ -125,14 +136,121 @@ def phase_build():
     for name in paths:
         build.library(name)
     secs = time.perf_counter() - t0
+    # each instantiation's registers, spills and shared memory: the gate phase
     log(f"[build] {len(paths)} kernels built and loaded in {secs:.1f} s")
-    for name, path in paths.items():
-        report = path.with_suffix(".log")
-        if report.exists():
-            for line in report.read_text().splitlines():
-                if "entry function" in line or "registers" in line or "spill" in line:
-                    log(f"[build] {name}: {line.strip()}")
     return secs
+
+
+# --------------------------------------------------------------- phase 1b
+
+
+def _log_gate(records, summary):
+    from alphafold2_tpu_torch.analysis import lowering
+
+    for rec in records:
+        if rec["status"] == "not_ported":
+            log(f"[gate] {rec['case']}: not_ported ({rec['reason']})")
+            continue
+        if rec["case"] == lowering.CONTROL_CASE:
+            log(f"[gate] {rec['case']}: nvcc exit {rec['nvcc_exit']}, "
+                f"{'refused' if rec['rejected'] else 'NOT REFUSED'}: "
+                f"{rec.get('refusal') or rec.get('error')}")
+            continue
+        for ln in rec["launches"]:
+            log(f"[gate] {rec['case']} {ln['role']} {ln['dtype']} {ln.get('kernel', '?')}: "
+                f"blocks {ln.get('blocks')}, threads {ln.get('threads')}, registers "
+                f"{ln.get('registers')}, barriers {ln.get('barriers')}, smem "
+                f"{ln.get('static_smem')} static + {ln.get('dynamic_smem')} dynamic, stack "
+                f"{ln.get('stack_frame')}, spills {ln.get('spill_stores')}/"
+                f"{ln.get('spill_loads')} B; {'; '.join(ln['problems']) or 'ok'}")
+        for w in rec.get("warning", ()):
+            log(f"[gate] {rec['case']} warning: {w}")
+    log(f"[gate] {json.dumps(summary)}")
+
+
+def phase_gate():
+    """The analysis layer on the card: the build gate, X's counterpart and
+    its launch-level control, the audit of every target. Every part runs;
+    the phase then fails with all the problems found."""
+    import torch
+
+    from alphafold2_tpu_torch.analysis import audit, lowering
+    from alphafold2_tpu_torch.ops.cuda import build, controls
+
+    problems = []
+
+    def check(cond, msg):
+        if not cond:
+            log(f"[gate] FAILED: {msg}")
+            problems.append(msg)
+
+    t0 = time.perf_counter()
+    try:
+        records, summary = lowering.run_gate()
+    except (lowering.ToolMissing, RuntimeError, OSError, subprocess.SubprocessError) as e:
+        traceback.print_exc()
+        check(False, f"the build gate did not run: {type(e).__name__}: {e}")
+    else:
+        _log_gate(records, summary)
+        log(f"[gate] build gate: {summary['cases']} cases in {time.perf_counter() - t0:.1f} s")
+        check(not summary["failed"], f"build gate failed: {summary['failed']}")
+        check(summary["control_rejected"], "the mis-tiled control was not refused by ptxas")
+        check(summary["not_ported"] == ["tied_row_bwd_256"],
+              f"not-ported cases {summary['not_ported']}")
+
+    # X at its own shape: the path is one launch at (4, 512) f32
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(controls.X_SHAPE, device="cuda", generator=gen)
+    controls.scale_rows.launches = 0
+    out = controls.scale_rows(x)
+    torch.cuda.synchronize()
+    launches = controls.scale_rows.launches
+    ref = controls.scale_rows_reference(x)
+    check(launches == 1, f"scale_rows launched {launches} times")
+    check(torch.equal(out.view(torch.int32), ref.view(torch.int32)),
+          "scale_rows is not bitwise 2 * x")
+    err = float((out - ref).abs().max())
+    nbytes = 2 * x.numel() * x.element_size()  # read x once, write o once: 16 KiB
+    row = {"label": "X (4, 512) f32", "kernel": "scale_rows", "dtype": "float32",
+           "max_abs_err": err, **_bound(float(x.numel()), nbytes, torch.float32)}
+    row["ms"] = cuda_ms(lambda: controls.scale_rows(x), reps=200, warmup=10)
+    row["plain_ms"] = cuda_ms(lambda: controls.scale_rows_reference(x), reps=200, warmup=10)
+    row["library_ms"] = cuda_ms(lambda: torch.mul(x, 2), reps=200, warmup=10)
+    log(f"[gate] scale_rows (4, 512) f32: bitwise equal to 2 * x (max_abs_err {err}); kernel "
+        f"{row['ms']:.5f} ms, plain {row['plain_ms']:.5f} ms, torch.mul {row['library_ms']:.5f} "
+        f"ms, bound {row['bound_ms']:.6f} ms ({row['bound_by']}, {nbytes} bytes)")
+
+    # the launch-level control: the same kernel with a (1, 2048)-thread block
+    try:
+        controls.scale_rows(torch.zeros(controls.LAUNCH_CONTROL_SHAPE, device="cuda"))
+        check(False, "a 2048-thread block of scale_rows launched")
+    except build.KernelLaunchError as e:
+        log(f"[gate] launch control (1, 2048): refused, {e}")
+        check(e.code == controls.INVALID_CONFIGURATION,
+              f"the launch control failed with CUDA error {e.code}, not "
+              f"cudaErrorInvalidConfiguration ({controls.INVALID_CONFIGURATION})")
+    torch.cuda.synchronize()
+
+    # the graph audit of every target, on the card
+    t0 = time.perf_counter()
+    reports = audit.audit(device="cuda")
+    for r in reports:
+        log(f"[gate] audit {r.target} on {r.device}: {r.ops} ops, {len(r.findings)} findings, "
+            f"{len(r.waived)} waived; memory {r.budget['verdict']} "
+            f"({r.budget.get('program_bytes')} of {r.budget.get('budget_bytes')} bytes); "
+            f"autograd nodes {list(r.nodes)}")
+        for f in r.findings:
+            log(f"[gate] audit finding {f.format()}")
+        for f in r.waived:
+            log(f"[gate] audit waived {f.format()}")
+    log(f"[gate] audit: {len(reports)} targets in {time.perf_counter() - t0:.1f} s")
+    check(not any(r.findings for r in reports), "the audit has findings on the card")
+    nodes = {r.target: set(r.nodes) for r in reports}
+    check("FusedAttentionBackward" in nodes["train_grad"]
+          and "BlockSparseAttentionBackward" in nodes["train_step_sparse"],
+          "the audit did not see the attention backward on the card")
+    require(not problems, "gate phase: " + "; ".join(problems))
+    return {"launches": launches, "row": row}
 
 
 # --------------------------------------------------------------- phase 2
@@ -593,7 +711,7 @@ def phase_backward():
     log("[backward] rows with no valid key: gradients exactly 0, all finite")
     # K2 has no backward kernel: with grad it must raise, never return an
     # output that carries no gradient
-    qt = torch.randn((1, 2, 8, 2, 16), device="cuda", requires_grad=True)
+    qt = torch.randn((1, 2, 8, 2, 16), device="cuda", generator=gen, requires_grad=True)
     try:
         tied_row_attention(qt, qt, qt)
         raise PhaseError("tied_row_attention on the card returned an output under grad")
@@ -1036,7 +1154,6 @@ def phase_reference():
     from alphafold2_tpu_torch.predict import init_params
     from alphafold2_tpu_torch.train.end2end import End2EndModel
 
-    torch.manual_seed(0)
     model = init_params(End2EndModel(dim=64, depth=2, heads=4, dim_head=16,
                                      max_seq_len=256, mds_iters=50,
                                      msa_tie_row_attn=True), seed=1).eval()
@@ -1181,11 +1298,12 @@ def profile_device(what, fn, host=False):
 # --------------------------------------------------------------- main
 
 
-def _entry(name, source, replaces, launches, rows, weights):
+def _entry(name, source, replaces, launches, rows, weights, dtype="bfloat16"):
     """One kernel's JSON entry: ``weights`` maps a result-row label to its
-    calls; times and bounds are the weighted sums over the bf16 rows."""
+    calls; times and bounds are the weighted sums over the rows of
+    ``dtype``."""
     timed = [r for r in rows if r["kernel"] == name and r["label"] in weights
-             and r["dtype"] == "bfloat16"]
+             and r["dtype"] == dtype]
     w = [weights[r["label"]] for r in timed]
     lib = [r.get("library_ms") for r in timed]
     ops_ms = sum(c * r["ops_ms"] for c, r in zip(w, timed))
@@ -1212,7 +1330,7 @@ def _step_weights(backward, depth=6):
     return weights
 
 
-def kernel_line(rows, serve, train, sparse_train):
+def kernel_line(rows, serve, train, sparse_train, gate):
     """One entry per kernel. K1 sums one serving trunk layer's K1 calls at
     bucket 128 (two pair axial passes, the MSA column pass, both cross
     attentions), K2 its tied-row call, bf16, with the serving run's
@@ -1222,7 +1340,9 @@ def kernel_line(rows, serve, train, sparse_train):
     one call) on the same problems. K4 (its training forward, with lse),
     K5a and K5b sum one sparse training step's 12 pair axial passes, with
     the sparse training run's launches; library_ms is SDPA with the
-    element-level layout and key mask (its whole backward for K5a/K5b)."""
+    element-level layout and key mask (its whole backward for K5a/K5b).
+    scale_rows (X's counterpart) is the gate phase's one launch at X's
+    (4, 512) f32, timed alone in f32; library_ms is torch.mul(x, 2)."""
     serve_k1 = {"pair axial pass (1536x8, 384x384, d64)": 2,
                 "MSA column pass (512x8, 5x5, d64)": 1,
                 "pair<-MSA cross (4x8, 147456x640, d64)": 1,
@@ -1252,6 +1372,9 @@ def kernel_line(rows, serve, train, sparse_train):
         _entry("block_sparse_attention_bwd_dkv", sparse_bwd,
                "alphafold2_tpu/ops/pallas/block_sparse.py:388",
                sparse_train["launches"]["block_sparse_attention_bwd_dkv"], rows, step_k4),
+        _entry("scale_rows", "alphafold2_tpu_torch/csrc/controls/scale_rows.cu",
+               "alphafold2_tpu/analysis/lowering.py:267", gate["launches"], [gate["row"]],
+               {gate["row"]["label"]: 1}, dtype="float32"),
     ]}
 
 
@@ -1276,6 +1399,7 @@ def main() -> int:
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     try:
         phase_build()
+        gate = phase_gate()
         rows = phase_kernels() + phase_backward() + phase_sparse()
         for r in rows:
             if "ms" in r:
@@ -1305,7 +1429,7 @@ def main() -> int:
         log("chip_smoke: FAILED")
         return 1
     log(card)
-    print(json.dumps(kernel_line(rows, serve, train, sparse_train)), flush=True)
+    print(json.dumps(kernel_line(rows, serve, train, sparse_train, gate)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

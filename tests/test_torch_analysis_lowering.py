@@ -1,0 +1,397 @@
+"""The Hopper build gate (alphafold2_tpu_torch/analysis/lowering.py) on the
+CPU, where there is no nvcc: its cases stand for the JAX gate's one for
+one; the ptxas report parser reads reports recorded on the card's machine;
+sm_90's limits reject each synthetic bad plan; the negative control's
+classifier accepts ptxas's shared-data refusal and nothing else; the CLI
+exits 2 without nvcc; and X's plain version equals X's Pallas kernel
+(interpret mode) bit for bit."""
+
+import ctypes
+import json
+import os
+import stat
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from alphafold2_tpu.analysis import lowering as jax_lowering
+from alphafold2_tpu_torch.analysis import lowering
+from alphafold2_tpu_torch.ops.cuda import build, controls
+
+torch.set_num_threads(1)
+
+# ptxas -v as nvcc printed it on the card's machine (build/torch_kernels/
+# *.log): two instantiations of csrc/block_sparse_attention_bwd.cu, one
+# spilling, X's valid kernel, and the report ptxas gave for the mis-tiled
+# control before refusing it
+BWD = "_ZN62_GLOBAL__N__11c3b89c_29_block_sparse_attention_bwd_cu_0c59534c"
+DKV = BWD + "10dkv_kernelI13__nv_bfloat16Li64ELi128EEEvNS_3BwdEi"
+DQ = BWD + "9dq_kernelI13__nv_bfloat16Li64ELi128EEEvNS_3BwdEi"
+X = "_ZN46_GLOBAL__N__b117a957_13_scale_rows_cu_9c597b6210scale_rowsEPKfPfi"
+MISTILED = ("_ZN55_GLOBAL__N__df0ac9e4_22_scale_rows_mistiled_cu_9536f1e3"
+            "19scale_rows_mistiledEPKfPfi")
+REPORT = f"""\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '{DKV}' for 'sm_90a'
+ptxas info    : Function properties for {DKV}
+    40 bytes stack frame, 38 bytes spill stores, 80 bytes spill loads
+ptxas info    : Used 255 registers, used 16 barriers, 40 bytes cumulative stack size
+ptxas info    : Compile time = 636.614 ms
+ptxas info    : Compiling entry function '{DQ}' for 'sm_90a'
+ptxas info    : Function properties for {DQ}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 16 barriers
+ptxas info    : Compile time = 533.699 ms
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '{X}' for 'sm_90a'
+ptxas info    : Function properties for {X}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 10 registers, used 0 barriers
+ptxas info    : Compile time = 5.395 ms
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '{MISTILED}' for 'sm_90a'
+ptxas info    : Function properties for {MISTILED}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 16 registers, used 1 barriers, 65536 bytes smem
+ptxas info    : Compile time = 10.894 ms
+"""
+# demangled as cu++filt printed them on the card's machine (the other
+# spelling of an anonymous namespace is in test_kernel_key)
+DEMANGLED = {
+    DKV: "void <unnamed>::dkv_kernel<__nv_bfloat16, (int)64, (int)128>(<unnamed>::Bwd, int)",
+    DQ: "void <unnamed>::dq_kernel<__nv_bfloat16, (int)64, (int)128>(<unnamed>::Bwd, int)",
+    X: "<unnamed>::scale_rows(const float *, float *, int)",
+    MISTILED: "<unnamed>::scale_rows_mistiled(const float *, float *, int)",
+}
+REFUSAL = f"""\
+ptxas error   : Entry function '{MISTILED}' uses too much shared data (0x10000 bytes, 0xc000 max)
+"""
+
+
+def _demangle(names):
+    return {n: DEMANGLED[n] for n in names}
+
+
+# ------------------------------------------------------------ cases
+
+
+def test_cases_stand_for_the_jax_gate_one_for_one():
+    jax_names = [name for name, _ in jax_lowering.CASES]
+    ours = [c.name for c in lowering.CASES]
+    assert [c.name for c in lowering.JAX_CASES] + [lowering.CONTROL_CASE] == jax_names
+    assert ours[-1] == lowering.CONTROL_CASE and len(set(ours)) == len(ours)
+    assert [c.name for c in lowering.PORT_CASES] == [
+        "serve_pair_axial_384", "serve_msa_column", "serve_cross_pair_from_msa",
+        "serve_cross_msa_from_pair", "serve_tied_rows", "train_pair_axial_128",
+        "train_msa_column", "train_msa_row", "train_cross_pair_from_msa",
+        "train_cross_msa_from_pair", "sparse_train_pair_128", "sparse_pair_512",
+        "edge_dense_d128", "edge_sparse_block128_d128", "edge_tied_rows_1280",
+        "scale_rows_4x512"]
+
+
+def test_case_shapes_and_sources():
+    by = {c.name: c for c in lowering.CASES}
+    # JAX's block-sparse cases: block 128, 4 heads, head dim 64
+    assert by["block_sparse_fwd_n1024"].launches[0].args == (None, 1, 4, 1024, 64, 128)
+    assert [l.role for l in by["block_sparse_custom_vjp_n512"].launches] == ["K4", "K5a", "K5b"]
+    assert [l.role for l in by["fused_axial_bwd_256"].launches] == ["K1", "K3a", "K3b"]
+    assert by["tied_row_fwd_256"].launches[0].args == (None, 1, 8, 4, 256, 256, 64)  # R*D 512
+    assert by["tied_row_bwd_256"].not_ported and "item 4" in by["tied_row_bwd_256"].not_ported
+    assert by["serve_cross_msa_from_pair"].launches[0].args == (None, 4, 8, 640, 147456, 64)
+    assert by["scale_rows_4x512"].dtypes == ("float32",)
+    every = {l.source for c in lowering.CASES for l in c.launches}
+    assert every == set(build.SIGNATURES)  # every kernel source is gated
+    for c in lowering.CASES:
+        if c.launches:
+            assert set(c.dtypes) <= {"float32", "bfloat16"}
+            assert all(build.SIGNATURES[l.source].get(l.symbol) for l in c.launches)
+    assert by["flash_axial_256"].launches[0].plan_args("bfloat16") == (1, 4, 8, 256, 256, 64)
+
+
+# ------------------------------------------------------------ ptxas report
+
+
+def test_parse_ptxas_report():
+    entries = lowering.parse_ptxas(REPORT)
+    assert list(entries) == [DKV, DQ, X, MISTILED]
+    dkv = entries[DKV]
+    assert (dkv.registers, dkv.barriers, dkv.stack_frame, dkv.spill_stores,
+            dkv.spill_loads, dkv.static_smem) == (255, 16, 40, 38, 80, 0)
+    dq = entries[DQ]
+    assert (dq.registers, dq.barriers, dq.stack_frame, dq.spill_stores) == (168, 16, 0, 0)
+    assert (entries[X].registers, entries[X].barriers, entries[X].static_smem) == (10, 0, 0)
+    assert (entries[MISTILED].registers, entries[MISTILED].static_smem) == (16, 65536)
+
+
+def test_report_by_kernel_names_instantiations_as_the_plans_do():
+    report = lowering.report_by_kernel(REPORT, _demangle)
+    assert set(report) == {"dq_kernel<__nv_bfloat16,64,128>", "dkv_kernel<__nv_bfloat16,64,128>",
+                           "scale_rows", "scale_rows_mistiled"}
+    assert report["scale_rows"].demangled == DEMANGLED[X]
+
+
+@pytest.mark.parametrize("demangled,key", [
+    ("void af2::attention_kernel_mma<64>(af2::Problem, int)", "attention_kernel_mma<64>"),
+    ("void af2::attention_kernel<128>(af2::Problem)", "attention_kernel<128>"),
+    ("void (anonymous namespace)::fwd_kernel<__nv_bfloat16, 16, 64>((anonymous namespace)::Fwd,"
+     " int)", "fwd_kernel<__nv_bfloat16,16,64>"),
+    ("void _GLOBAL__N__1b2c_7_k_cu::dq_kernel_mma<32>(_GLOBAL__N__1b2c_7_k_cu::Grad, int)",
+     "dq_kernel_mma<32>"),
+    ("void af2::attention_kernel_mma<(int)64>(af2::Problem, int)", "attention_kernel_mma<64>"),
+    ("void <unnamed>::fwd_kernel<float, (int)16, (int)64>(<unnamed>::Fwd, int)",
+     "fwd_kernel<float,16,64>"),
+    ("scale_rows(float const*, float*, int)", "scale_rows"),
+])
+def test_kernel_key(demangled, key):
+    assert lowering.kernel_key(demangled) == key
+
+
+# ------------------------------------------------------------ limits
+
+
+GOOD = {"blocks": 128, "threads": 128, "dynamic_smem": 50_000, "kernel": "k<64>"}
+
+
+def _res(**kw):
+    return lowering.Resources("k", **{"registers": 128, **kw})
+
+
+def test_a_plan_within_the_limits_passes():
+    assert lowering.check_launch(GOOD, _res(static_smem=1024)) == []
+    # the largest legal launch: 1024 threads of 64 registers, 227 KiB
+    edge = dict(GOOD, blocks=2**31 - 1, threads=1024, dynamic_smem=232_448)
+    assert lowering.check_launch(edge, _res(registers=64)) == []
+
+
+@pytest.mark.parametrize("plan,res,needle", [
+    (dict(GOOD, blocks=0), _res(), "0 blocks"),
+    (dict(GOOD, blocks=2**31), _res(), "2147483648 blocks"),
+    (dict(GOOD, threads=2048), _res(registers=16), "2048 threads"),
+    (dict(GOOD, threads=100), _res(), "100 threads"),
+    (dict(GOOD, dynamic_smem=240 * 1024), _res(), "> 232448"),
+    (GOOD, _res(static_smem=64 * 1024), "static shared memory > 49152"),
+    (dict(GOOD, threads=1024), _res(registers=255), "255 registers x 1024 threads"),
+    (GOOD, _res(registers=256), "256 registers a thread > 255"),
+    (GOOD, None, "not in ptxas's report"),
+])
+def test_each_broken_limit_fails(plan, res, needle):
+    problems = lowering.check_launch(plan, res)
+    assert problems and any(needle in p for p in problems), problems
+
+
+# ------------------------------------------------------------ negative control
+
+
+def test_shared_data_refusal_is_a_rejection():
+    assert lowering._is_hopper_rejection(2, "nvcc output\n" + REFUSAL)
+
+
+@pytest.mark.parametrize("code,log", [
+    (0, REFUSAL),  # built: never a rejection
+    (None, REFUSAL + "\nnvcc timed out after 600 s"),  # timed out
+    (127, "/bin/sh: 1: nvcc: not found"),  # no compiler
+    (1, "scale_rows_mistiled.cu(25): error: identifier \"tile\" is undefined"),  # a C++ error
+    (1, "fatal error: ../launch_plan.cuh: No such file or directory"),  # a missing header
+    (2, REFUSAL.replace("scale_rows_mistiled", "other_kernel")),  # another kernel's refusal
+    (2, REFUSAL.replace("0x10000 bytes", "0x8000 bytes")),  # not over the limit
+])
+def test_anything_else_is_not_a_rejection(code, log):
+    assert not lowering._is_hopper_rejection(code, log)
+
+
+def _fake_nvcc(tmp_path, body):
+    """A stand-in compiler: a script that prints ``body`` and exits as it
+    says, so the control's path runs without the toolkit."""
+    path = tmp_path / "nvcc"
+    path.write_text(f"#!{sys.executable}\n{body}\n")
+    path.chmod(path.stat().st_mode | stat.S_IEXEC)
+    return str(path)
+
+
+@pytest.mark.parametrize("body,ok", [
+    (f"import sys; print({REFUSAL!r}); sys.exit(255)", True),
+    ("import sys; print('x.cu(3): error: expected a \";\"'); sys.exit(1)", False),
+    ("import sys; sys.exit(0)", False),
+])
+def test_run_control_classifies_the_compiler(tmp_path, monkeypatch, body, ok):
+    monkeypatch.setattr(build, "nvcc_path", lambda: _fake_nvcc(tmp_path, body))
+    rec = lowering.run_control(tmp_path / "out")
+    assert rec["case"] == lowering.CONTROL_CASE and rec["ok"] is ok
+    assert (rec["status"] == "ok") is ok
+    if not ok:
+        assert "BUILT" in rec["error"] or "another reason" in rec["error"]
+
+
+def test_compile_source_returns_none_on_timeout(tmp_path, monkeypatch):
+    monkeypatch.setattr(build, "nvcc_path",
+                        lambda: _fake_nvcc(tmp_path, "import time; time.sleep(30)"))
+    code, log = build.compile_source(build.MISTILED, tmp_path, timeout=1)
+    assert code is None and "timed out" in log
+    assert not lowering._is_hopper_rejection(code, log)
+
+
+# ------------------------------------------------------------ the gate, faked
+
+
+class _FakeLib:
+    """Plan entries that fill the struct as the C code would."""
+
+    def __init__(self, plans):
+        self.plans = plans
+
+    def __getattr__(self, symbol):
+        def entry(*args):
+            out = args[-1]._obj
+            plan = self.plans(symbol, args[:-1])
+            out.blocks, out.threads, out.dynamic_smem = plan[:3]
+            out.kernel = plan[3].encode()
+            return 0
+        return entry
+
+
+def test_run_gate_assembles_cases(tmp_path, monkeypatch):
+    monkeypatch.setattr(build, "nvcc_path", lambda: "/fake/nvcc")
+    monkeypatch.setattr(build, "build_sources",
+                        lambda names: {n: (0, REPORT, tmp_path / f"{n}.so") for n in names})
+
+    def plans(symbol, args):
+        if symbol == "af2_scale_rows_plan":
+            return (args[0], args[1], 0, "scale_rows")
+        return (10, 128, 1000, "dq_kernel<__nv_bfloat16,64,128>")
+
+    monkeypatch.setattr(build, "library", lambda name: _FakeLib(plans))
+    monkeypatch.setattr(lowering, "run_control",
+                        lambda: {"case": lowering.CONTROL_CASE, "ok": True, "status": "ok"})
+    records, summary = lowering.run_gate(("scale_rows_4x512", "tied_row_bwd_256",
+                                          "block_sparse_bwd_n512", lowering.CONTROL_CASE),
+                                         demangle=_demangle)
+    by = {r["case"]: r for r in records}
+    x = by["scale_rows_4x512"]["launches"]
+    assert len(x) == 1 and x[0]["blocks"] == 4 and x[0]["threads"] == 512
+    assert x[0]["registers"] == 10 and x[0]["static_smem"] == 0 and x[0]["problems"] == []
+    assert x[0]["demangled"] == DEMANGLED[X]
+    assert by["scale_rows_4x512"]["ok"]
+    # 3 launches x 2 dtypes, all naming dq_kernel<__nv_bfloat16,64,128>, which the report has
+    assert len(by["block_sparse_bwd_n512"]["launches"]) == 6 and by["block_sparse_bwd_n512"]["ok"]
+    assert by["tied_row_bwd_256"]["status"] == "not_ported" and not by["tied_row_bwd_256"]["ok"]
+    assert summary == {"gate": "hopper_build", "cases": 4, "failed": [],
+                       "not_ported": ["tied_row_bwd_256"], "control_rejected": True}
+
+
+def test_run_gate_fails_a_kernel_missing_from_the_report(tmp_path, monkeypatch):
+    monkeypatch.setattr(build, "nvcc_path", lambda: "/fake/nvcc")
+    monkeypatch.setattr(build, "build_sources",
+                        lambda names: {n: (0, REPORT, tmp_path / f"{n}.so") for n in names})
+    monkeypatch.setattr(build, "library", lambda name: _FakeLib(
+        lambda symbol, args: (8, 128, 0, "fwd_kernel<float,64,64>")))
+    records, summary = lowering.run_gate(("block_sparse_fwd_n512",), demangle=_demangle)
+    assert summary["failed"] == ["block_sparse_fwd_n512"]
+    assert "never built" in records[0]["launches"][0]["problems"][0]
+
+
+def test_run_gate_reports_spills_as_warnings(tmp_path, monkeypatch):
+    monkeypatch.setattr(build, "nvcc_path", lambda: "/fake/nvcc")
+    monkeypatch.setattr(build, "build_sources",
+                        lambda names: {n: (0, REPORT, tmp_path / f"{n}.so") for n in names})
+    monkeypatch.setattr(build, "library", lambda name: _FakeLib(
+        lambda symbol, args: (8, 128, 0, "dkv_kernel<__nv_bfloat16,64,128>")))
+    records, summary = lowering.run_gate(("block_sparse_fwd_n512",), demangle=_demangle)
+    assert summary["failed"] == [] and records[0]["ok"]
+    assert "38 bytes spill stores, 80 bytes spill loads" in records[0]["warning"][0]
+
+
+def test_a_source_that_does_not_build_fails_its_cases(tmp_path, monkeypatch):
+    monkeypatch.setattr(build, "nvcc_path", lambda: "/fake/nvcc")
+    monkeypatch.setattr(build, "build_sources", lambda names: {
+        n: (1, "x.cu(1): error: bad", tmp_path / f"{n}.so") for n in names})
+    records, summary = lowering.run_gate(("flash_axial_256",), demangle=_demangle)
+    assert summary["failed"] == ["flash_axial_256"]
+    assert "did not build" in records[0]["launches"][0]["problems"][0]
+
+
+# ------------------------------------------------------------ CLI
+
+
+def test_cli_exits_2_naming_nvcc_without_it(monkeypatch, capsys):
+    monkeypatch.setattr(build, "nvcc_path", lambda: None)
+    assert lowering.main([]) == 2
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["gate"] == "hopper_build" and "nvcc" in line["error"]
+
+
+def test_cli_exits_2_on_an_unknown_case(capsys):
+    assert lowering.main(["flash_axial_265"]) == 2
+    assert "unknown case" in capsys.readouterr().out
+
+
+def test_cli_without_nvcc_in_a_fresh_process(tmp_path):
+    """On a machine without the CUDA toolkit, in a fresh process: exit 2."""
+    import subprocess
+
+    if build.nvcc_path() is not None:
+        pytest.skip("this machine has nvcc: the gate would build")
+    proc = subprocess.run([sys.executable, "-m", "alphafold2_tpu_torch.analysis.lowering"],
+                          capture_output=True, text=True, timeout=120,
+                          cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    assert proc.returncode == 2 and "nvcc" in proc.stdout
+
+
+# ------------------------------------------------------------ X
+
+
+def test_x_plain_version_equals_the_pallas_kernel_bitwise():
+    """X's kernel body (alphafold2_tpu/analysis/lowering.py:263-264) with
+    its BlockSpecs at (4, 512), in interpret mode, against the port's plain
+    version and its wrapper on the CPU."""
+
+    def kern(x_ref, o_ref):
+        o_ref[...] = x_ref[...] * 2.0
+
+    x = np.random.default_rng(0).standard_normal((4, 512)).astype(np.float32)
+    ref = pl.pallas_call(
+        kern,
+        out_shape=jax.ShapeDtypeStruct((4, 512), jnp.float32),
+        grid=(4,),
+        in_specs=[pl.BlockSpec((1, 512), lambda i: (i, 0))],
+        out_specs=pl.BlockSpec((1, 512), lambda i: (i, 0)),
+        interpret=True,
+    )(jnp.asarray(x))
+    ref = np.asarray(ref)
+    calls = controls.scale_rows_reference.calls
+    plain = controls.scale_rows_reference(torch.from_numpy(x)).numpy()
+    wrapped = controls.scale_rows(torch.from_numpy(x)).numpy()
+    assert plain.dtype == ref.dtype == np.float32
+    assert np.array_equal(plain.view(np.uint32), ref.view(np.uint32))
+    assert np.array_equal(wrapped.view(np.uint32), ref.view(np.uint32))
+    assert controls.scale_rows_reference.calls == calls + 2  # the CPU takes the plain version
+
+
+def test_x_wrapper_checks_its_operand():
+    with pytest.raises(ValueError):
+        controls.scale_rows(torch.ones(4, 512, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        controls.scale_rows(torch.ones(4, 4, 512))
+    assert controls.X_SHAPE == (4, 512) and controls.LAUNCH_CONTROL_SHAPE == (1, 2048)
+    assert controls.INVALID_CONFIGURATION == 9
+
+
+def test_launch_plan_struct_layout():
+    assert ctypes.sizeof(build.LaunchPlan) == 8 + 4 + 4 + 120
+    assert build.SIGNATURES["scale_rows"]["af2_scale_rows_plan"][-1]._type_ is build.LaunchPlan
+
+
+def test_launch_errors_carry_their_code():
+    class Lib:
+        @staticmethod
+        def af2_error_string(code):
+            return b"invalid configuration argument"
+
+    with pytest.raises(build.KernelLaunchError) as e:
+        build.check(Lib(), 9, "scale_rows")
+    assert e.value.code == 9 and "CUDA error 9" in str(e.value)
+    build.check(Lib(), 0, "scale_rows")

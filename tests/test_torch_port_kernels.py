@@ -162,7 +162,10 @@ def test_wrappers_reject_bad_operands():
 
 def test_build_targets_hopper_and_hashes_sources():
     assert build.ARCH_FLAGS == ["-gencode", "arch=compute_90a,code=sm_90a"]
-    assert set(build.SIGNATURES) == {p.stem for p in build.CSRC.glob("*.cu")}
+    # every kernel source, and X's valid counterpart; never the mis-tiled control
+    assert set(build.SIGNATURES) == {p.stem for p in build.CSRC.glob("*.cu")} | {"scale_rows"}
+    assert build.MISTILED.stem not in build.SIGNATURES and build.MISTILED.exists()
+    assert build.source("scale_rows") == build.CONTROLS / "scale_rows.cu"
     paths = {build._library_path(n) for n in build.SIGNATURES}
-    # K1, K3a/K3b, K2, K4, K5a/K5b: five sources, one library each
-    assert len(paths) == 5 and all(p.parent == build.BUILD_DIR for p in paths)
+    # K1, K3a/K3b, K2, K4, K5a/K5b and X: six sources, one library each
+    assert len(paths) == 6 and all(p.parent == build.BUILD_DIR for p in paths)

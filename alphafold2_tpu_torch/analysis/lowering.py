@@ -53,6 +53,7 @@ from pathlib import Path
 from typing import Callable, Optional
 
 from alphafold2_tpu_torch.ops.cuda import build
+from alphafold2_tpu_torch.ops.cuda.axial import key_splits
 
 GATE = "hopper_build"
 DTYPES = ("float32", "bfloat16")
@@ -89,10 +90,11 @@ class Launch:
     """One kernel launch a case plans: ``symbol`` of kernel source
     ``source`` called with ``args`` (``None`` marks the dtype code)."""
 
-    role: str  # K1, K2, K3a, ..., X
+    role: str  # K1, K1c (K1's combine pass), K2, K3a, ..., X
     source: str
     symbol: str
     args: tuple
+    dtypes: tuple = DTYPES  # the dtypes that launch it
 
     def plan_args(self, dtype: str) -> tuple:
         return tuple(_DTYPE_CODE[dtype] if a is None else a for a in self.args)
@@ -107,7 +109,16 @@ class Case:
 
 
 def _k1(b, h, nq, nk, d):
-    return Launch("K1", "fused_attention", "af2_fused_attention_plan", (None, b, h, nq, nk, d))
+    """K1 at one shape, with the split its wrapper passes and operands as
+    TMA can describe them; where the key axis is split (bf16 only), the
+    combine pass too."""
+    splits = key_splits(b, h, nq, nk, d)
+    main = Launch("K1", "fused_attention", "af2_fused_attention_plan",
+                  (None, b, h, nq, nk, d, splits, 1))
+    if splits == 1:
+        return (main,)
+    return (main, Launch("K1c", "fused_attention", "af2_fused_attention_combine_plan",
+                         (b, h, nq, d), dtypes=("bfloat16",)))
 
 
 def _k3(b, h, nq, nk, d):
@@ -146,11 +157,11 @@ JAX_CASES = (
     Case("block_sparse_bwd_n512", (_k4(1, 4, 512, 64, 128), *_k5(1, 4, 512, 64, 128))),
     Case("block_sparse_bwd_n1024", (_k4(1, 4, 1024, 64, 128), *_k5(1, 4, 1024, 64, 128))),
     Case("block_sparse_custom_vjp_n512", (_k4(1, 4, 512, 64, 128), *_k5(1, 4, 512, 64, 128))),
-    Case("flash_axial_256", (_k1(4, 8, 256, 256, 64),)),
-    Case("flash_compressed_cross", (_k1(1, 8, 4096, 128, 64),)),
-    Case("flash_bwd_256", (_k1(2, 8, 256, 256, 64), *_k3(2, 8, 256, 256, 64))),
-    Case("fused_axial_fwd_256", (_k1(2, 4, 256, 256, 64),)),
-    Case("fused_axial_bwd_256", (_k1(2, 4, 256, 256, 64), *_k3(2, 4, 256, 256, 64))),
+    Case("flash_axial_256", (*_k1(4, 8, 256, 256, 64),)),
+    Case("flash_compressed_cross", (*_k1(1, 8, 4096, 128, 64),)),
+    Case("flash_bwd_256", (*_k1(2, 8, 256, 256, 64), *_k3(2, 8, 256, 256, 64))),
+    Case("fused_axial_fwd_256", (*_k1(2, 4, 256, 256, 64),)),
+    Case("fused_axial_bwd_256", (*_k1(2, 4, 256, 256, 64), *_k3(2, 4, 256, 256, 64))),
     Case("tied_row_fwd_256", (_k2(1, 8, 4, 256, 64),)),
     Case("tied_row_bwd_256", not_ported=NOT_PORTED_TIED_ROW_BWD),
 )
@@ -159,21 +170,21 @@ JAX_CASES = (
 # training and sparse cases): bucket 128 at batch 4 elongates to 384 tokens;
 # training crops 128 with a 5 x 64 MSA; sparse training at block 16.
 PORT_CASES = (
-    Case("serve_pair_axial_384", (_k1(1536, 8, 384, 384, 64),)),
-    Case("serve_msa_column", (_k1(512, 8, 5, 5, 64),)),
-    Case("serve_cross_pair_from_msa", (_k1(4, 8, 147456, 640, 64),)),
-    Case("serve_cross_msa_from_pair", (_k1(4, 8, 640, 147456, 64),)),
+    Case("serve_pair_axial_384", (*_k1(1536, 8, 384, 384, 64),)),
+    Case("serve_msa_column", (*_k1(512, 8, 5, 5, 64),)),
+    Case("serve_cross_pair_from_msa", (*_k1(4, 8, 147456, 640, 64),)),
+    Case("serve_cross_msa_from_pair", (*_k1(4, 8, 640, 147456, 64),)),
     Case("serve_tied_rows", (_k2(4, 5, 8, 128, 64),)),
-    Case("train_pair_axial_128", (_k1(128, 8, 128, 128, 64), *_k3(128, 8, 128, 128, 64))),
-    Case("train_msa_column", (_k1(64, 8, 5, 5, 64), *_k3(64, 8, 5, 5, 64))),
-    Case("train_msa_row", (_k1(5, 8, 64, 64, 64), *_k3(5, 8, 64, 64, 64))),
-    Case("train_cross_pair_from_msa", (_k1(1, 8, 16384, 320, 64), *_k3(1, 8, 16384, 320, 64))),
-    Case("train_cross_msa_from_pair", (_k1(1, 8, 320, 16384, 64), *_k3(1, 8, 320, 16384, 64))),
+    Case("train_pair_axial_128", (*_k1(128, 8, 128, 128, 64), *_k3(128, 8, 128, 128, 64))),
+    Case("train_msa_column", (*_k1(64, 8, 5, 5, 64), *_k3(64, 8, 5, 5, 64))),
+    Case("train_msa_row", (*_k1(5, 8, 64, 64, 64), *_k3(5, 8, 64, 64, 64))),
+    Case("train_cross_pair_from_msa", (*_k1(1, 8, 16384, 320, 64), *_k3(1, 8, 16384, 320, 64))),
+    Case("train_cross_msa_from_pair", (*_k1(1, 8, 320, 16384, 64), *_k3(1, 8, 320, 16384, 64))),
     Case("sparse_train_pair_128", (_k4(128, 8, 128, 64, 16), *_k5(128, 8, 128, 64, 16))),
     Case("sparse_pair_512", (_k4(512, 8, 512, 64, 16), *_k5(512, 8, 512, 64, 16))),
     # the largest instantiations chip_smoke.py checks: head dim 128 (K5b in
     # f32 plans 222,720 of the 232,448 bytes of shared memory), 20 tied rows
-    Case("edge_dense_d128", (_k1(1, 2, 130, 130, 128), *_k3(1, 2, 130, 130, 128))),
+    Case("edge_dense_d128", (*_k1(1, 2, 130, 130, 128), *_k3(1, 2, 130, 130, 128))),
     Case("edge_sparse_block128_d128", (_k4(16, 4, 512, 128, 128), *_k5(16, 4, 512, 128, 128))),
     Case("edge_tied_rows_1280", (_k2(1, 20, 2, 48, 64),)),
     # X's valid form at X's shape (f32 only, as X)
@@ -447,7 +458,8 @@ def run_gate(names=(), demangle: Callable = demangle_cufilt) -> tuple:
                             "reason": case.not_ported})
             continue
         launches = [_launch_record(launch, dtype, built, reports, libs)
-                    for dtype in case.dtypes for launch in case.launches]
+                    for dtype in case.dtypes for launch in case.launches
+                    if dtype in launch.dtypes]
         ok = not any(rec["problems"] for rec in launches)
         warnings = [f"{r['role']} {r['dtype']} {r['kernel']}: {r['spill_stores']} bytes spill "
                     f"stores, {r['spill_loads']} bytes spill loads"

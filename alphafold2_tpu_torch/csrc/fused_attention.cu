@@ -15,16 +15,18 @@
 // What bounds it on the H100: at the main-path shapes (head dim 64) the
 // logits work is 4*Nq*Nk*D operations against (2*Nq + 2*Nk)*D elements of
 // traffic, far above the card's ops-per-byte ridge, so the bound is the
-// arithmetic rate. What the design does about it: logits and probabilities
-// never leave the SM (the TPU kernel's VMEM scratch becomes registers and
-// shared memory), each 64x64 logit tile reuses a staged q tile against a
-// staged k tile 64 times, and the (B, H, N, D) operands are read through
-// their strides so a caller's (B, N, H, D) projection output needs no
-// transpose. bf16 operands (the serving path) multiply on the tensor cores
-// with mma.sync, the probabilities passing from the logit accumulators to
-// P @ V in registers; f32 operands multiply on the CUDA cores (67 TFLOP/s).
-// Without wgmma, TMA or cp.async double buffering the bf16 path stays well
-// below the 989 TFLOP/s tensor-core peak; those are later work.
+// arithmetic rate. The plan picks one of three kernels, by dtype, head dim
+// and alignment alone (never by retrying a failed launch):
+//
+// * bf16 at head dim 32, 64 or 128 with operands TMA can describe (16-byte
+//   aligned bases, strides of 8 elements): attention_kernel_sm90
+//   (fused_attention_sm90.cuh): TMA-fed K/V ring, wgmma, skipped masked
+//   tiles, and where the grid is short of two waves a split over the key
+//   axis merged by combine_kernel. Every main-path shape takes it.
+// * any other bf16 problem: attention_kernel_mma (attention_tile.cuh,
+//   mma.sync on tiles staged by ordinary loads), which K2 also runs.
+// * f32: attention_kernel on the CUDA cores, the exactness path of the
+//   small-model checks.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // (alphafold2_tpu_torch/ops/cuda/build.py). Bound with ctypes.
@@ -34,6 +36,7 @@
 // TPU path's `_kernel` does beside `_kernel_no_lse` (:110-120).
 
 #include "attention_tile.cuh"
+#include "fused_attention_sm90.cuh"
 
 namespace {
 
@@ -45,12 +48,29 @@ cudaError_t dispatch_dtype(int dtype, const af2::Problem& p, cudaStream_t stream
   return cudaErrorInvalidValue;
 }
 
+template <int D>
+cudaError_t dispatch_sm90(const af2::Problem& p, int splits, float* partials,
+                          cudaStream_t stream, Af2LaunchPlan* plan_out) {
+  if (plan_out != nullptr) {
+    *plan_out = af2::sm90::plan_attention<D>(p, splits);
+    return cudaSuccess;
+  }
+  return af2::sm90::launch_attention<D>(p, splits, partials, stream);
+}
+
 // Launches K1, or with `plan_out` only fills its plan (strides may then be
-// null and no pointer is read).
+// null, no pointer is read, and `aligned` stands for the operands'
+// alignment; a launch finds it from the pointers and strides). `splits` is
+// ops/cuda/axial.py key_splits() of the shape: the redesigned kernel takes
+// it as given, the others run whole. `info`, when given, receives the
+// kernel taken (1: attention_kernel_sm90, 0: another) and the splits run;
+// with more than one, the partials are in `partials` and the caller
+// launches af2_fused_attention_combine next.
 int run(int dtype, const void* q, const void* k, const void* v, void* out, float* lse,
         const unsigned char* q_mask, const unsigned char* kv_mask, const long long* strides,
-        int batch, int heads, int nq, int nk, int head_dim, float sm_scale, void* stream,
-        Af2LaunchPlan* plan_out = nullptr) {
+        int batch, int heads, int nq, int nk, int head_dim, float sm_scale, int splits,
+        float* partials, int* info, void* stream, Af2LaunchPlan* plan_out = nullptr,
+        int aligned = 0) {
   af2::Problem p;
   p.q = q;
   p.k = k;
@@ -75,7 +95,21 @@ int run(int dtype, const void* q, const void* k, const void* v, void* out, float
   p.fd = head_dim;
   p.out_chunks = 1;
   p.sm_scale = sm_scale;
+  if (splits < 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool sm90 = dtype == 1 && (head_dim == 32 || head_dim == 64 || head_dim == 128) &&
+                    (plan_out != nullptr ? aligned != 0 : af2::sm90::takes(p));
+  if (info != nullptr) {
+    info[0] = sm90 ? 1 : 0;
+    info[1] = sm90 ? splits : 1;
+  }
+  if (sm90) {
+    switch (head_dim) {
+      case 32: return dispatch_sm90<32>(p, splits, partials, s, plan_out);
+      case 64: return dispatch_sm90<64>(p, splits, partials, s, plan_out);
+      default: return dispatch_sm90<128>(p, splits, partials, s, plan_out);
+    }
+  }
   switch (head_dim) {
     case 16: return dispatch_dtype<16>(dtype, p, s, plan_out);
     case 32: return dispatch_dtype<32>(dtype, p, s, plan_out);
@@ -85,36 +119,100 @@ int run(int dtype, const void* q, const void* k, const void* v, void* out, float
   }
 }
 
+// The combine pass, or with `plan_out` only its plan.
+int combine(const float* partials, void* out, float* lse, const unsigned char* q_mask,
+            const long long* out_strides, int batch, int heads, int nq, int head_dim,
+            int splits, void* stream, Af2LaunchPlan* plan_out = nullptr) {
+  if (plan_out != nullptr) {
+    switch (head_dim) {
+      case 32: *plan_out = af2::sm90::plan_combine<32>(batch, heads, nq); return cudaSuccess;
+      case 64: *plan_out = af2::sm90::plan_combine<64>(batch, heads, nq); return cudaSuccess;
+      case 128: *plan_out = af2::sm90::plan_combine<128>(batch, heads, nq); return cudaSuccess;
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  af2::sm90::CombineParams c;
+  c.part = partials;
+  c.out = out;
+  c.lse = lse;
+  c.q_mask = q_mask;
+  c.osb = out_strides[0];
+  c.osh = out_strides[1];
+  c.osn = out_strides[2];
+  c.batch = batch;
+  c.heads = heads;
+  c.nq = nq;
+  c.splits = splits;
+  if (splits < 1 || !af2::aligned16(out) ||
+      !af2::sm90::stride_ok(c.osb, batch) || !af2::sm90::stride_ok(c.osh, heads) ||
+      !af2::sm90::stride_ok(c.osn, nq))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 32: return af2::sm90::launch_combine<32>(c, s);
+    case 64: return af2::sm90::launch_combine<64>(c, s);
+    case 128: return af2::sm90::launch_combine<128>(c, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // strides: 12 element strides, (batch, head, token) for q, k, v and out in
 // that order; the head-dim stride must be 1. dtype: 0 = float32, 1 = bfloat16.
-// Returns the cudaError_t of the launch (0 on success).
+// splits, partials, info: as `run`. Returns the cudaError_t of the launch
+// (0 on success).
 extern "C" int af2_fused_attention(int dtype, const void* q, const void* k, const void* v,
                                    void* out, const unsigned char* q_mask,
                                    const unsigned char* kv_mask, const long long* strides,
                                    int batch, int heads, int nq, int nk, int head_dim,
-                                   float sm_scale, void* stream) {
+                                   float sm_scale, int splits, float* partials, int* info,
+                                   void* stream) {
   return run(dtype, q, k, v, out, nullptr, q_mask, kv_mask, strides, batch, heads, nq, nk,
-             head_dim, sm_scale, stream);
+             head_dim, sm_scale, splits, partials, info, stream);
 }
 
 // The training forward: as af2_fused_attention, and also writes each query
-// row's logsumexp into lse, a contiguous (batch, heads, nq) f32 buffer.
+// row's logsumexp into lse, a contiguous (batch, heads, nq) f32 buffer (with
+// splits, the combine pass writes it).
 extern "C" int af2_fused_attention_lse(int dtype, const void* q, const void* k, const void* v,
                                        void* out, float* lse, const unsigned char* q_mask,
                                        const unsigned char* kv_mask, const long long* strides,
                                        int batch, int heads, int nq, int nk, int head_dim,
-                                       float sm_scale, void* stream) {
+                                       float sm_scale, int splits, float* partials, int* info,
+                                       void* stream) {
   return run(dtype, q, k, v, out, lse, q_mask, kv_mask, strides, batch, heads, nq, nk,
-             head_dim, sm_scale, stream);
+             head_dim, sm_scale, splits, partials, info, stream);
 }
 
-// K1's launch plan at one shape (with or without lse: the same kernel).
-// Touches no device. Returns 0, or cudaErrorInvalidValue for a dtype or head
-// dim the kernel does not take.
+// K1's combine pass: merges `splits` partials (as attention_kernel_sm90
+// writes them: m (splits, rows), l (splits, rows), acc (splits, rows,
+// head_dim), rows = batch * heads * nq, f32) in split order into the bf16
+// output (3 element strides, batch, head, token) and, when lse is given,
+// the (batch, heads, nq) logsumexp. A masked query row writes 0.
+extern "C" int af2_fused_attention_combine(const float* partials, void* out, float* lse,
+                                           const unsigned char* q_mask,
+                                           const long long* out_strides, int batch, int heads,
+                                           int nq, int head_dim, int splits, void* stream) {
+  return combine(partials, out, lse, q_mask, out_strides, batch, heads, nq, head_dim, splits,
+                 stream);
+}
+
+// K1's launch plan at one shape (with or without lse: the same kernel),
+// given the splits and whether the operands are TMA-aligned. Touches no
+// device. Returns 0, or cudaErrorInvalidValue for a dtype, head dim or
+// split count the kernels do not take.
 extern "C" int af2_fused_attention_plan(int dtype, int batch, int heads, int nq, int nk,
-                                        int head_dim, Af2LaunchPlan* plan) {
+                                        int head_dim, int splits, int aligned,
+                                        Af2LaunchPlan* plan) {
   return run(dtype, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-             batch, heads, nq, nk, head_dim, 1.f, nullptr, plan);
+             batch, heads, nq, nk, head_dim, 1.f, splits, nullptr, nullptr, nullptr, plan,
+             aligned);
+}
+
+// The combine pass's launch plan (bf16 output).
+extern "C" int af2_fused_attention_combine_plan(int batch, int heads, int nq, int head_dim,
+                                                Af2LaunchPlan* plan) {
+  return combine(nullptr, nullptr, nullptr, nullptr, nullptr, batch, heads, nq, head_dim, 2,
+                 nullptr, plan);
 }

@@ -11,6 +11,13 @@ here: :func:`fused_attention_reference` (forward),
 (the backward, one per kernel). The wrappers run the plain versions only for tensors on the CPU;
 for CUDA tensors they launch the kernel or raise.
 
+K1's bf16 forward at head dim 32, 64 or 128 runs the Hopper kernel of
+``csrc/fused_attention_sm90.cuh``. Where its grid leaves the card short of
+two waves, :func:`key_splits` cuts the key axis into ranges; each block then
+writes f32 partials and K1's combine pass (:func:`fused_attention_combine`)
+merges them. Their plain versions: :func:`attention_partials_reference` and
+:func:`combine_partials_reference`.
+
 :func:`fused_attention` is differentiable. When grad is enabled and an input
 requires it, it runs :class:`FusedAttention`: on the card K1 with the
 logsumexp forward and K3a + K3b backward, on the CPU the plain versions of
@@ -37,6 +44,39 @@ from alphafold2_tpu_torch.ops.cuda import build
 
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# the redesigned kernel's tiles (csrc/fused_attention_sm90.cuh kBlockM,
+# kBlockN) and the card it fills
+QUERY_TILE = 128
+KEY_TILE = 128
+SM_COUNT = 132  # streaming multiprocessors of one H100
+MIN_SPLIT_TILES = 4  # key tiles a split keeps at least
+
+
+def key_splits(b: int, h: int, nq: int, nk: int, d: int) -> int:
+    """How many contiguous key ranges K1 cuts the key axis into: 1 where
+    its b*h*ceil(nq/128) blocks make two waves on the card's 132 SMs,
+    otherwise enough ranges for about two waves, each of at least
+    MIN_SPLIT_TILES 128-key tiles. A pure function of the shape: the
+    wrapper passes it to the kernel, the build gate plans with it. ``d``
+    does not change the count (every head dim uses 128-row, 128-key
+    tiles)."""
+    del d
+    blocks = b * h * -(-nq // QUERY_TILE)
+    if blocks == 0 or blocks >= 2 * SM_COUNT:
+        return 1
+    tiles = -(-nk // KEY_TILE)
+    return max(1, min(-(-2 * SM_COUNT // blocks), tiles // MIN_SPLIT_TILES))
+
+
+def split_ranges(nk: int, splits: int, block: int = KEY_TILE) -> list:
+    """The key range ``[lo, hi)`` of each split, cut as the kernel cuts
+    them: whole ``block``-key tiles, split s taking tiles
+    ``[s*T//S, (s+1)*T//S)`` of ``T = ceil(nk/block)``. A range may be
+    empty."""
+    tiles = -(-nk // block)
+    return [(min(nk, s * tiles // splits * block), min(nk, (s + 1) * tiles // splits * block))
+            for s in range(splits)]
 
 
 def _masked_softmax_weights(s: torch.Tensor, valid: Optional[torch.Tensor]):
@@ -93,6 +133,48 @@ def fused_attention_lse_reference(q, k, v, q_mask=None, kv_mask=None, sm_scale=1
 
 
 fused_attention_lse_reference.calls = 0
+
+
+def attention_partials_reference(q, k, v, kv_mask=None, sm_scale=1.0, splits=1,
+                                 block=KEY_TILE):
+    """The plain version of K1's split forward: per split s over its keys
+    (:func:`split_ranges`), ``m`` (S, B, H, Nq) the largest scaled logit of
+    a valid key (-inf where the range has none), ``l`` (S, B, H, Nq) the sum
+    of exp(s - m) and ``acc`` (S, B, H, Nq, D) the sum of exp(s - m) v over
+    the range's valid keys, all f32 (masked keys weigh 0)."""
+    s = torch.einsum("bhid,bhjd->bhij", q.float(), k.float()) * sm_scale
+    if kv_mask is not None:
+        s = s.masked_fill(~kv_mask[:, None, None, :], float("-inf"))
+    ms, ls, accs = [], [], []
+    for lo, hi in split_ranges(k.shape[2], splits, block):
+        part = s[..., lo:hi]
+        m = (part.amax(dim=-1) if hi > lo
+             else torch.full(part.shape[:-1], float("-inf"), dtype=s.dtype))
+        p = torch.exp(part - torch.where(torch.isfinite(m), m, 0.0)[..., None])
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bhij,bhjd->bhid", p, v[:, :, lo:hi].float()))
+    return torch.stack(ms), torch.stack(ls), torch.stack(accs)
+
+
+def combine_partials_reference(m, l, acc, q_mask=None, with_lse=False,
+                               dtype=torch.float32):
+    """The plain version of K1's combine pass: the partials of
+    :func:`attention_partials_reference` merged into out (B, H, Nq, D) in
+    ``dtype`` and, with ``with_lse``, the (B, H, Nq) f32 logsumexp (+inf
+    for a row with no valid key). A masked query row and a row with no
+    valid key give 0."""
+    big = m.amax(dim=0)
+    live = torch.isfinite(big)
+    w = torch.exp(m - torch.where(live, big, 0.0))  # 0 for a range with no valid key
+    total = (w * l).sum(dim=0)
+    out = (w[..., None] * acc).sum(dim=0) / total.clamp_min(1e-30)[..., None]
+    if q_mask is not None:
+        out = out * q_mask[:, None, :, None].to(out.dtype)
+    if not with_lse:
+        return out.to(dtype)
+    lse = torch.where(live, big + torch.log(torch.where(live, total, 1.0)), float("inf"))
+    return out.to(dtype), lse
 
 
 def _probabilities(q, k, lse, q_mask, kv_mask, sm_scale):
@@ -203,27 +285,82 @@ def _like_heads(x: torch.Tensor) -> torch.Tensor:
 
 
 def _launch_forward(q, k, v, q_mask, kv_mask, sm_scale, with_lse):
-    """K1 on CUDA tensors: out, and the (B, H, Nq) f32 lse when asked."""
+    """K1 on CUDA tensors: out, and the (B, H, Nq) f32 lse when asked.
+    Where the plan splits the key axis, the combine pass follows."""
     masks = _cuda_operands(q, k, v, q_mask, kv_mask, "fused_attention")
     b, h, nq, d = q.shape
+    nk = k.shape[2]
     out = _like_heads(q)
     lse = (torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     if nq == 0 or b * h == 0:
         return out, lse
     lib = build.library("fused_attention")
-    args = (b, h, nq, k.shape[2], d, float(sm_scale))
+    splits = key_splits(b, h, nq, nk, d)
+    part = (torch.empty(splits * b * h * nq * (d + 2), dtype=torch.float32, device=q.device)
+            if splits > 1 else None)
+    info = (ctypes.c_int * 2)()
     with torch.cuda.device(q.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         ptrs = (_ptr(q), _ptr(k), _ptr(v), _ptr(out))
-        tail = (_ptr(masks[0]), _ptr(masks[1]), _strides(q, k, v, out), *args, stream)
+        tail = (_ptr(masks[0]), _ptr(masks[1]), _strides(q, k, v, out), b, h, nq, nk, d,
+                float(sm_scale), splits, _ptr(part), info, stream)
         if with_lse:
             code = lib.af2_fused_attention_lse(_DTYPES[q.dtype], *ptrs, _ptr(lse), *tail)
         else:
             code = lib.af2_fused_attention(_DTYPES[q.dtype], *ptrs, *tail)
     build.check(lib, code, "fused_attention")
     fused_attention.launches += 1
+    fused_attention.sm90_launches += info[0]
+    if info[1] > 1:
+        _launch_combine(part, out, lse, masks[0], info[1])
     return out, lse
+
+
+def _launch_combine(part, out, lse, q_mask, splits):
+    """K1's combine pass on the card: the packed partials ``part`` (m, l,
+    acc, as the kernel writes them) into ``out`` and ``lse`` (or None)."""
+    b, h, nq, d = out.shape
+    lib = build.library("fused_attention")
+    with torch.cuda.device(out.device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        code = lib.af2_fused_attention_combine(
+            _ptr(part), _ptr(out), _ptr(lse), _ptr(q_mask), _strides(out), b, h, nq, d,
+            splits, stream)
+    build.check(lib, code, "fused_attention_combine")
+    fused_attention_combine.launches += 1
+
+
+def fused_attention_combine(m, l, acc, q_mask=None, with_lse=False):
+    """K1's combine pass: partials (m, l, acc) as
+    :func:`attention_partials_reference` gives them merged into a bf16
+    (B, H, Nq, D) output and, with ``with_lse``, the f32 lse. On the card
+    the kernel (which takes head dim 32, 64 or 128), on the CPU
+    :func:`combine_partials_reference`."""
+    splits, b, h, nq = m.shape
+    d = acc.shape[-1]
+    if l.shape != m.shape or acc.shape != (splits, b, h, nq, d):
+        raise ValueError(f"partials m {tuple(m.shape)}, l {tuple(l.shape)}, acc "
+                         f"{tuple(acc.shape)} do not match")
+    if q_mask is not None and (q_mask.dtype != torch.bool or tuple(q_mask.shape) != (b, nq)):
+        raise ValueError(f"q_mask must be bool ({b}, {nq}), got {q_mask.dtype} "
+                         f"{tuple(q_mask.shape)}")
+    if any(t.device != m.device for t in (l, acc, q_mask) if t is not None):
+        raise ValueError("the partials and q_mask must share one device")
+    if m.device.type == "cpu":
+        return combine_partials_reference(m, l, acc, q_mask, with_lse, dtype=torch.bfloat16)
+    if d not in (32, 64, 128):
+        raise ValueError(f"the combine pass takes head dim 32, 64 or 128, not {d}")
+    part = torch.cat([t.float().reshape(-1) for t in (m, l, acc)])
+    out = torch.empty((b, nq, h, d), dtype=torch.bfloat16, device=m.device).permute(0, 2, 1, 3)
+    lse = (torch.empty((b, h, nq), dtype=torch.float32, device=m.device)
+           if with_lse else None)
+    qm = q_mask.contiguous() if q_mask is not None else None
+    _launch_combine(part, out, lse, qm, splits)
+    return (out, lse) if with_lse else out
+
+
+fused_attention_combine.launches = 0
 
 
 def fused_attention_lse(q, k, v, q_mask=None, kv_mask=None, sm_scale=1.0):
@@ -350,3 +487,4 @@ def fused_attention(
 
 
 fused_attention.launches = 0
+fused_attention.sm90_launches = 0  # of them, launches of attention_kernel_sm90

@@ -58,12 +58,18 @@ _PLAN = ctypes.POINTER(LaunchPlan)
 # C entry points of each kernel source: {source: {symbol: argtypes}}
 SIGNATURES = {
     "fused_attention": {
-        "af2_fused_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+        # dtype, q, k, v, out, q_mask, kv_mask, strides, batch, heads, nq, nk,
+        # head_dim, sm_scale, splits, partials, info (2 ints out), stream
+        "af2_fused_attention": [_I] + [_P] * 7 + [_I] * 5 + [_F, _I, _P, _P, _P],
         # the training forward: one more pointer, the (B, H, Nq) f32 logsumexp
-        "af2_fused_attention_lse": [
-            _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-        # dtype, batch, heads, nq, nk, head_dim, plan
-        "af2_fused_attention_plan": [_I] * 6 + [_PLAN],
+        "af2_fused_attention_lse": [_I] + [_P] * 8 + [_I] * 5 + [_F, _I, _P, _P, _P],
+        # the combine pass: partials, out, lse, q_mask, out strides, batch,
+        # heads, nq, head_dim, splits, stream
+        "af2_fused_attention_combine": [_P] * 5 + [_I] * 5 + [_P],
+        # dtype, batch, heads, nq, nk, head_dim, splits, aligned, plan
+        "af2_fused_attention_plan": [_I] * 8 + [_PLAN],
+        # batch, heads, nq, head_dim, plan
+        "af2_fused_attention_combine_plan": [_I] * 4 + [_PLAN],
     },
     "fused_attention_bwd": {
         "af2_fused_attention_bwd_dq": [

@@ -16,15 +16,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
               (analysis/audit.py) of every target on the card, clean apart
               from reasoned waivers, its backward seen on the autograd
               engine's device threads;
-2. kernels  — hold each forward kernel (K1, K2) against its plain PyTorch
-              version on the card at the serving path's shapes (f32 and
-              bf16) plus ragged tails, a 5-key pass, fully masked rows and
-              other head dims; time the kernel, the plain version and
-              torch's scaled_dot_product_attention (a yardstick the port
-              never calls);
-3. backward — the same for K1's training forward (with the row logsumexp)
-              and the backward kernels K3a (dq) and K3b (dk, dv) at the
-              training path's shapes and the edge cases, per tensor; a
+2. kernels  — K1's plan on its nine main-path passes must name the Hopper
+              kernel (attention_kernel_sm90<64>, and combine_kernel<64>
+              where the key axis splits); hold each forward kernel (K1, K2)
+              against its plain PyTorch version on the card at the serving
+              path's shapes (f32 and bf16) plus ragged tails, a 5-key pass,
+              fully masked rows, other head dims and a negative scale, each
+              bf16 serving pass launching the Hopper kernel and repeating
+              bit for bit; time the kernel (and its host time a call), the
+              plain version and torch's scaled_dot_product_attention (a
+              yardstick the port never calls);
+3. backward — the same for K1's training forward (with the row logsumexp,
+              the split pass repeating bit for bit) and K1's combine pass
+              alone, and the backward kernels K3a (dq) and K3b (dk, dv) at
+              the training path's shapes and the edge cases, per tensor; a
               negative control that drops each row's last key tile (dq) or
               query tile (dk, dv); two runs bit-identical; SDPA's backward
               as the yardstick;
@@ -55,6 +60,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
               K4/K5a/K5b, the rest through K1/K3a/K3b, small-model
               gradients on the grid route (crop 48) and the flat route
               (crop 40), one step under torch.profiler.
+
+``phase_k1_time`` (not part of the run) times K1 alone on its nine
+main-path passes beside SDPA: ``python3 -c "import chip_smoke as c;
+c.phase_build(); c.phase_k1_time()"``; ``chip_compare.sh`` runs it, or the
+serving and training phases, for two checkouts in turns.
 
 Prints the card's name and power limit, then a JSON line describing every
 kernel, and last ``{"ok": true, "device": {...}}``. Any failed phase exits
@@ -308,21 +318,62 @@ def _k1_operands(b, h, nq, nk, d, dtype, gen, serving):
     return q.view(b, nq, h, d).transpose(1, 2), k, v
 
 
+def _host_us(fn, calls=20):
+    """Host time per call of ``fn`` in microseconds: the enqueue, measured
+    without synchronising inside (the card runs behind)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def _sm90_launched(fn, what):
+    """Run ``fn`` once; require that K1 launched attention_kernel_sm90.
+    Returns fn's result and how many combine passes it launched."""
+    from alphafold2_tpu_torch.ops.cuda import axial
+
+    before = (axial.fused_attention.sm90_launches, axial.fused_attention_combine.launches)
+    result = fn()
+    sm90 = axial.fused_attention.sm90_launches - before[0]
+    combine = axial.fused_attention_combine.launches - before[1]
+    require(sm90 == 1, f"{what}: K1 did not launch attention_kernel_sm90")
+    return result, combine
+
+
 def k1_case(label, b, h, nq, nk, d, dtype, q_mask=None, kv_mask=None, reps=3,
-            library=False, gen=None, serving=False):
+            library=False, gen=None, serving=False, sm_scale=None):
     """One fused_attention check; returns a result row. ``serving`` builds
     the operands in the serving path's strided layout and also checks that
-    a kernel skipping its last key tile would fail the bound."""
+    a kernel skipping its last key tile would fail the bound. A bf16 main
+    path case (``serving``) must launch attention_kernel_sm90 and, where
+    the key axis splits, its combine pass; two runs must agree bit for
+    bit."""
     import torch
     import torch.nn.functional as F
 
     from alphafold2_tpu_torch.ops.cuda.axial import (
-        fused_attention, fused_attention_reference)
+        fused_attention, fused_attention_reference, key_splits)
 
     dev = torch.device("cuda")
     q, k, v = _k1_operands(b, h, nq, nk, d, dtype, gen, serving)
-    scale = d**-0.5
-    out = fused_attention(q, k, v, q_mask=q_mask, kv_mask=kv_mask, sm_scale=scale)
+    scale = d**-0.5 if sm_scale is None else sm_scale
+    run = lambda: fused_attention(q, k, v, q_mask=q_mask, kv_mask=kv_mask, sm_scale=scale)
+    if serving and dtype == torch.bfloat16:
+        splits = key_splits(b, h, nq, nk, d)
+        out, combined = _sm90_launched(run, label)
+        require(combined == (splits > 1), f"{label}: combine launches {combined}, "
+                                          f"{splits} key splits")
+        require(torch.equal(out, run()), f"{label}: two K1 runs differ")
+        log(f"[kernels] fused_attention {label}: attention_kernel_sm90, {splits} key "
+            f"split(s), two runs bit-identical")
+    else:
+        out = run()
     torch.cuda.synchronize()
     plain = lambda: _sliced(
         fused_attention_reference, (q, k, v),
@@ -343,8 +394,8 @@ def k1_case(label, b, h, nq, nk, d, dtype, q_mask=None, kv_mask=None, reps=3,
         (b * nq if q_mask is not None else 0) + (b * nk if kv_mask is not None else 0))
     row.update(_bound(ops, nbytes, dtype))
     if reps:
-        row["ms"] = cuda_ms(lambda: fused_attention(
-            q, k, v, q_mask=q_mask, kv_mask=kv_mask, sm_scale=scale), reps)
+        row["ms"] = cuda_ms(run, reps)
+        row["host_us"] = _host_us(run)
         row["plain_ms"] = cuda_ms(plain, reps=1, warmup=0)
         if library:
             am = kv_mask[:, None, None, :] if kv_mask is not None else None
@@ -462,8 +513,112 @@ def _bound(ops, nbytes, dtype):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+# K1's nine main-path passes (b, h, nq, nk, d): the four serving passes at
+# bucket 128 and the five training passes of TRAIN_CASES (heads 8, d 64)
+K1_MAIN_PATH = {
+    "serve pair axial": (1536, 8, 384, 384, 64),
+    "serve pair<-MSA": (4, 8, 147456, 640, 64),
+    "serve MSA<-pair": (4, 8, 640, 147456, 64),
+    "serve MSA column": (512, 8, 5, 5, 64),
+    "train pair axial": (128, 8, 128, 128, 64),
+    "train MSA column": (64, 8, 5, 5, 64),
+    "train MSA row": (5, 8, 64, 64, 64),
+    "train pair<-MSA": (1, 8, 16384, 320, 64),
+    "train MSA<-pair": (1, 8, 320, 16384, 64),
+}
+K1_SM90 = "attention_kernel_sm90<64>"
+
+
+def check_k1_plans():
+    """K1's plan on each main-path shape (bf16, TMA-aligned operands) must
+    name the redesigned kernel, and a split shape the combine pass."""
+    import ctypes
+
+    from alphafold2_tpu_torch.ops.cuda import build
+    from alphafold2_tpu_torch.ops.cuda.axial import key_splits
+
+    lib = build.library("fused_attention")
+    for label, (b, h, nq, nk, d) in K1_MAIN_PATH.items():
+        splits = key_splits(b, h, nq, nk, d)
+        plan = build.LaunchPlan()
+        build.check(lib, lib.af2_fused_attention_plan(1, b, h, nq, nk, d, splits, 1,
+                                                      ctypes.byref(plan)), "K1 plan")
+        name = plan.kernel.decode()
+        line = f"{name}, {plan.blocks} blocks of {plan.threads}, {plan.dynamic_smem} B"
+        if splits > 1:
+            comb = build.LaunchPlan()
+            build.check(lib, lib.af2_fused_attention_combine_plan(b, h, nq, d,
+                                                                  ctypes.byref(comb)),
+                        "K1 combine plan")
+            line += f"; {splits} key splits, then {comb.kernel.decode()} ({comb.blocks} blocks)"
+            require(comb.kernel.decode() == "combine_kernel<64>",
+                    f"{label}: the combine pass plans {comb.kernel.decode()}")
+        log(f"[kernels] K1 plan, {label} {(b, h, nq, nk, d)}: {line}")
+        require(name == K1_SM90, f"{label}: K1 plans {name}, not {K1_SM90}")
+
+
+SERVE_LENGTHS = [128, 110, 97, 0]  # a bucket-128 batch of 4: one dummy slot
+
+
+def _serve_masks():
+    """The serving path's K1 masks at bucket 128, batch 4 (one dummy slot):
+    the pair axial pass (rows fold into the batch), the MSA column pass and
+    the flat pair and MSA token masks of the cross passes."""
+    lens = SERVE_LENGTHS
+    pair_valid = _prefix(384, [3 * l for l in lens])  # (4, 384) elongated tokens
+    pair_mask = pair_valid[:, :, None] & pair_valid[:, None, :]  # (4, 384, 384)
+    msa_valid = _prefix(128, lens)  # (4, 128) residues
+    msa_mask = msa_valid[:, None, :].expand(4, 5, 128)  # (4, 5, 128)
+    return (pair_mask.reshape(4 * 384, 384), msa_mask.transpose(1, 2).reshape(4 * 128, 5),
+            pair_mask.reshape(4, 384 * 384), msa_mask.reshape(4, 5 * 128))
+
+
+def phase_k1_time(reps=10):
+    """K1 alone on its nine main-path passes, bf16, operands laid out as
+    the path lays them out: the four serving passes (no lse) and the five
+    training passes (with lse), each timed beside SDPA on the same masked
+    problem, with the host time of a call. No checks: phase_kernels and
+    phase_backward hold K1 to its plain version. Returns {label: row}."""
+    import torch
+    import torch.nn.functional as F
+
+    from alphafold2_tpu_torch.ops.cuda import axial
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    pair_axial, msa_col, pair_flat, msa_flat = _serve_masks()
+    serve = {"serve pair axial": (pair_axial, pair_axial), "serve MSA column": (msa_col, msa_col),
+             "serve pair<-MSA": (pair_flat, msa_flat), "serve MSA<-pair": (msa_flat, pair_flat)}
+    train = dict(zip(list(K1_MAIN_PATH)[4:], (_train_masks(t) for t in TRAIN_CASES)))
+    rows = {}
+    for label, (b, h, nq, nk, d) in K1_MAIN_PATH.items():
+        qm, km = {**serve, **train}[label]
+        with_lse = label in train
+        q, k, v = _k1_operands(b, h, nq, nk, d, torch.bfloat16, gen, serving=True)
+        scale = d**-0.5
+        run = ((lambda: axial.fused_attention_lse(q, k, v, qm, km, scale)) if with_lse else
+               (lambda: axial.fused_attention(q, k, v, q_mask=qm, kv_mask=km, sm_scale=scale)))
+        am = km[:, None, None, :]
+        row = {"ms": cuda_ms(run, reps), "host_us": _host_us(run),
+               "sdpa_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                   q, k, v, attn_mask=am, scale=scale), reps)}
+        rows[label] = row
+        log(f"[k1 time] {label} {(b, h, nq, nk, d)}{' lse' if with_lse else ''}: K1 "
+            f"{row['ms']:.4f} ms, host {row['host_us']:.1f} us a call; SDPA {row['sdpa_ms']:.4f} ms")
+        del q, k, v
+    layer = {"serve pair axial": 2, "serve MSA column": 1, "serve pair<-MSA": 1,
+             "serve MSA<-pair": 1}
+    step = {label: 6 * calls for label, (*_, calls) in zip(train, TRAIN_CASES.values())}
+    for what, weights in (("serving trunk layer", layer), ("training step", step)):
+        k1 = sum(w * rows[lb]["ms"] for lb, w in weights.items())
+        sdpa = sum(w * rows[lb]["sdpa_ms"] for lb, w in weights.items())
+        log(f"[k1 time] per {what}: K1 {k1:.3f} ms, SDPA {sdpa:.3f} ms")
+    return rows
+
+
 def phase_kernels():
     import torch
+
+    check_k1_plans()
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     f32, bf16 = torch.float32, torch.bfloat16
@@ -471,15 +626,8 @@ def phase_kernels():
     # serving path at bucket 128, batch 4 (one dummy slot), dim_head 64:
     # per trunk layer K1 runs two pair axial passes, the MSA column pass
     # and both cross-attentions; K2 the tied MSA row pass
-    lens = [128, 110, 97, 0]
-    pair_valid = _prefix(384, [3 * l for l in lens])  # (4, 384) elongated tokens
-    pair_mask = pair_valid[:, :, None] & pair_valid[:, None, :]  # (4, 384, 384)
-    msa_valid = _prefix(128, lens)  # (4, 128) residues
-    msa_mask = msa_valid[:, None, :].expand(4, 5, 128)  # (4, 5, 128)
-    axial = pair_mask.reshape(4 * 384, 384)  # rows fold into the batch
-    msa_col = msa_mask.transpose(1, 2).reshape(4 * 128, 5)
-    pair_flat = pair_mask.reshape(4, 384 * 384)
-    msa_flat = msa_mask.reshape(4, 5 * 128)
+    lens = SERVE_LENGTHS
+    axial, msa_col, pair_flat, msa_flat = _serve_masks()
     main = []
     for dt in (bf16, f32):
         reps = 3 if dt == bf16 else 0
@@ -510,6 +658,11 @@ def phase_kernels():
                             _prefix(64, [64, 64]), _prefix(64, [0, 64]), reps=0, gen=gen))
         rows.append(k1_case("unmasked 130x130 d128", 1, 2, 130, 130, 128, dt, reps=0,
                             gen=gen))
+        # a negative scale: the Hopper kernel's softmax then tracks each
+        # row's smallest raw logit
+        rows.append(k1_case("negative sm_scale 150x300 d64", 2, 2, 150, 300, 64, dt,
+                            _prefix(150, [150, 99]), _prefix(300, [300, 170]), reps=0,
+                            gen=gen, sm_scale=-0.125))
         rows.append(k2_case("R*D=1280 (20 rows, d64)", 1, 20, 48, 2, 64, dt, length=[41],
                             reps=0, gen=gen))
         rows.append(k2_case("R*D=80 unmasked (5 rows, d16)", 2, 5, 33, 2, 16, dt, reps=0,
@@ -572,7 +725,20 @@ def k3_case(label, b, h, nq, nk, d, dtype, q_mask=None, kv_mask=None, reps=3,
 
     q, k, v, do = _grad_operands(b, h, nq, nk, d, dtype, gen, strided)
     scale = d**-0.5
-    out, lse = axial.fused_attention_lse(q, k, v, q_mask, kv_mask, scale)
+    forward = lambda: axial.fused_attention_lse(q, k, v, q_mask, kv_mask, scale)
+    if strided and dtype == torch.bfloat16:  # a training main-path pass
+        splits = axial.key_splits(b, h, nq, nk, d)
+        (out, lse), combined = _sm90_launched(forward, label)
+        require(combined == (splits > 1), f"{label}: combine launches {combined}, "
+                                          f"{splits} key splits")
+        out2, lse2 = forward()
+        require(torch.equal(out, out2) and torch.equal(lse, lse2),
+                f"{label}: two K1 (lse) runs differ")
+        log(f"[backward] fused_attention (lse) {label}: attention_kernel_sm90, {splits} key "
+            f"split(s), two runs bit-identical (out and lse)")
+        del out2, lse2
+    else:
+        out, lse = forward()
     torch.cuda.synchronize()
     ref_out, ref_lse = axial.fused_attention_lse_reference(q, k, v, q_mask, kv_mask, scale)
     fwd = _compare(label, "fused_attention (lse)", out, ref_out, dtype)
@@ -620,8 +786,8 @@ def k3_case(label, b, h, nq, nk, d, dtype, q_mask=None, kv_mask=None, reps=3,
     row_kv.update(_bound(8.0 * d * pairs, reads + 2 * rows_lse + 2 * b * h * nk * d * es,
                          dtype))
     if reps:
-        fwd["ms"] = cuda_ms(lambda: axial.fused_attention_lse(q, k, v, q_mask, kv_mask, scale),
-                            reps)
+        fwd["ms"] = cuda_ms(forward, reps)
+        fwd["host_us"] = _host_us(forward)
         fwd["plain_ms"] = cuda_ms(lambda: axial.fused_attention_lse_reference(
             q, k, v, q_mask, kv_mask, scale), reps=1, warmup=0)
         row_q["ms"] = cuda_ms(lambda: axial.fused_attention_dq(*args), reps)
@@ -677,6 +843,28 @@ def _train_masks(label):
     }[label]
 
 
+def combine_case(label, b, h, nq, nk, d, q_mask, kv_mask, gen):
+    """K1's combine pass alone against its plain version, on the plain
+    per-split partials of one problem (with the lse)."""
+    import torch
+
+    from alphafold2_tpu_torch.ops.cuda import axial
+
+    q, k, v = _k1_operands(b, h, nq, nk, d, torch.bfloat16, gen, serving=False)
+    splits = axial.key_splits(b, h, nq, nk, d)
+    m, l, acc = axial.attention_partials_reference(q, k, v, kv_mask, d**-0.5, splits)
+    before = axial.fused_attention_combine.launches
+    out, lse = axial.fused_attention_combine(m, l, acc, q_mask, with_lse=True)
+    torch.cuda.synchronize()
+    require(axial.fused_attention_combine.launches == before + 1,
+            f"{label}: the combine kernel did not launch")
+    ref, ref_lse = axial.combine_partials_reference(m, l, acc, q_mask, with_lse=True)
+    row = _compare(f"{label}, {splits} splits", "fused_attention_combine", out, ref,
+                   torch.bfloat16)
+    _check_lse(label, lse, ref_lse, "fused_attention_combine")
+    return row
+
+
 def phase_backward():
     import torch
 
@@ -690,6 +878,8 @@ def phase_backward():
             qm, km = _train_masks(label)
             rows += k3_case(label, b, 8, nq, nk, 64, dt, qm, km, reps=3 if dt == bf16 else 0,
                             library=dt == bf16, gen=gen, strided=True)
+    label = "MSA<-pair (1x8, 320x16384)"
+    combine_case(label, 1, 8, 320, 16384, 64, *_train_masks(label), gen)
     for dt in (f32, bf16):
         rows += k3_case("ragged tails 200x91 d32", 2, 2, 200, 91, 32, dt,
                         _prefix(200, [197, 150]), _prefix(91, [84, 91]), reps=0, gen=gen)
@@ -749,6 +939,7 @@ def phase_train(sparse=False):
              block_sparse.block_sparse_attention_dq_reference,
              block_sparse.block_sparse_attention_dkv_reference)
     kernels = {"fused_attention": axial.fused_attention,
+               "fused_attention_combine": axial.fused_attention_combine,
                "fused_attention_bwd_dq": axial.fused_attention_dq,
                "fused_attention_bwd_dkv": axial.fused_attention_dkv,
                "block_sparse_attention": block_sparse.block_sparse_attention_lse,
@@ -775,6 +966,7 @@ def phase_train(sparse=False):
 
     for fn in kernels.values():
         fn.launches = 0
+    axial.fused_attention.sm90_launches = 0
     for fn in plain:
         fn.calls = 0
     torch.cuda.reset_peak_memory_stats()
@@ -804,6 +996,11 @@ def phase_train(sparse=False):
     sparse_calls = 2 * depth if sparse else 0
     require(launches["fused_attention"] == (6 * depth - sparse_calls) * steps,
             "K1 launches per step")
+    require(axial.fused_attention.sm90_launches == launches["fused_attention"],
+            "a K1 launch of the training path did not run attention_kernel_sm90")
+    # the MSA<-pair pass, one a layer, is the one that splits its key axis
+    require(launches["fused_attention_combine"] == depth * steps,
+            "K1 combine launches per step")
     for name in ("fused_attention_bwd_dq", "fused_attention_bwd_dkv"):
         require(launches[name] == (6 * depth - 1 - sparse_calls) * steps,
                 f"{name} launches per step")
@@ -1187,7 +1384,7 @@ def phase_serve():
 
     from alphafold2_tpu_torch.config import Config
     from alphafold2_tpu_torch.ops.cuda.axial import (
-        fused_attention, fused_attention_reference)
+        fused_attention, fused_attention_combine, fused_attention_reference)
     from alphafold2_tpu_torch.ops.cuda.tied_row import (
         tied_row_attention, tied_row_attention_reference)
     from alphafold2_tpu_torch.serve.engine import ServeEngine, ServeRequest
@@ -1210,8 +1407,9 @@ def phase_serve():
     seqs = ["".join(rng.choice(list(alphabet), n)) for n in lengths]
     reqs = [ServeRequest(seq=s, seed=i) for i, s in enumerate(seqs)]
 
-    for fn in (fused_attention, tied_row_attention):
+    for fn in (fused_attention, tied_row_attention, fused_attention_combine):
         fn.launches = 0
+    fused_attention.sm90_launches = 0
     for fn in (fused_attention_reference, tied_row_attention_reference):
         fn.calls = 0
     torch.cuda.reset_peak_memory_stats()
@@ -1220,7 +1418,11 @@ def phase_serve():
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"fused_attention": fused_attention.launches,
+                "fused_attention_combine": fused_attention_combine.launches,
                 "tied_row_attention": tied_row_attention.launches}
+    require(fused_attention.sm90_launches == fused_attention.launches,
+            f"{fused_attention.launches - fused_attention.sm90_launches} of K1's serving "
+            f"launches did not run attention_kernel_sm90")
     plain_calls = fused_attention_reference.calls + tied_row_attention_reference.calls
     peak = torch.cuda.max_memory_allocated()
 
@@ -1279,8 +1481,9 @@ def profile_device(what, fn, host=False):
     busy = sum(r[0] for r in rows)
     log(f"[profile] {what}: wall {wall_ms:.1f} ms (profiler on), device busy "
         f"{busy:.1f} ms ({busy / wall_ms:.1%}), idle {1 - busy / wall_ms:.1%}")
-    # K1 and K2 instantiate one kernel template: at head dim 64 both show
-    # as attention_kernel_mma<64>; K3a/K3b as dq_kernel_mma / dkv_kernel_mma
+    # K1 shows as attention_kernel_sm90<64> (and combine_kernel<64> where it
+    # splits the key axis), K2 as attention_kernel_mma<64>, K3a/K3b as
+    # dq_kernel_mma / dkv_kernel_mma
     for ms, count, name in sorted(rows, reverse=True)[:12]:
         log(f"[profile] {ms:9.2f} ms {ms / busy:6.1%} x{count:<6d} {name[:90]}")
     if not host:
@@ -1333,8 +1536,8 @@ def _step_weights(backward, depth=6):
 def kernel_line(rows, serve, train, sparse_train, gate):
     """One entry per kernel. K1 sums one serving trunk layer's K1 calls at
     bucket 128 (two pair axial passes, the MSA column pass, both cross
-    attentions), K2 its tied-row call, bf16, with the serving run's
-    launches. K3a and K3b sum one training step's calls (6 layers; the last
+    attentions; a call's time includes its combine pass where it splits),
+    K2 its tied-row call, bf16, with the serving run's launches. K3a and K3b sum one training step's calls (6 layers; the last
     layer's MSA<-pair update runs no backward), with the training run's
     launches; their library_ms is SDPA's whole backward (dq, dk and dv in
     one call) on the same problems. K4 (its training forward, with lse),
@@ -1403,10 +1606,12 @@ def main() -> int:
         rows = phase_kernels() + phase_backward() + phase_sparse()
         for r in rows:
             if "ms" in r:
+                host = f", host {r['host_us']:.1f} us a call" if "host_us" in r else ""
                 log(f"[kernels] time {r['kernel']} {r['label']} {r['dtype']}: "
-                    f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
+                    f"kernel {r['ms']:.4f} ms{host}, plain {r['plain_ms']:.3f} ms, "
                     f"sdpa {r.get('library_ms')} ms, bound {r['bound_ms']:.4f} ms "
-                    f"({r['bound_by']}; {r['ops']:.3e} ops, {r['bytes']:.3e} bytes)")
+                    f"({r['bound_by']}; {r['ops']:.3e} ops, {r['bytes']:.3e} bytes; "
+                    f"{r['bound_ms'] / r['ms']:.1%} of the bound)")
         for name, weights in (("fused_attention (lse)", _step_weights(backward=False)),
                               ("fused_attention_bwd_dq", _step_weights(backward=True)),
                               ("fused_attention_bwd_dkv", _step_weights(backward=True))):

@@ -77,6 +77,28 @@ def _demangle(names):
     return {n: DEMANGLED[n] for n in names}
 
 
+# K1's Hopper kernel and its combine pass at head dim 64, as ptxas reported
+# them for csrc/fused_attention.cu on the card's machine (NVIDIA H100,
+# nvcc for sm_90a)
+SM90 = "_ZN3af24sm9021attention_kernel_sm90ILi64EEEv14CUtensorMap_stS2_S2_NS0_6ParamsE"
+COMBINE = "_ZN3af24sm9014combine_kernelILi64EEEvNS0_13CombineParamsE"
+K1_REPORT = f"""\
+ptxas info    : Compiling entry function '{COMBINE}' for 'sm_90a'
+ptxas info    : Function properties for {COMBINE}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 48 registers, used 0 barriers
+ptxas info    : Compiling entry function '{SM90}' for 'sm_90a'
+ptxas info    : Function properties for {SM90}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 123 registers, used 16 barriers
+"""
+K1_DEMANGLED = {
+    SM90: "void af2::sm90::attention_kernel_sm90<(int)64>(CUtensorMap_st, CUtensorMap_st, "
+          "CUtensorMap_st, af2::sm90::Params)",
+    COMBINE: "void af2::sm90::combine_kernel<(int)64>(af2::sm90::CombineParams)",
+}
+
+
 # ------------------------------------------------------------ cases
 
 
@@ -102,7 +124,7 @@ def test_case_shapes_and_sources():
     assert [l.role for l in by["fused_axial_bwd_256"].launches] == ["K1", "K3a", "K3b"]
     assert by["tied_row_fwd_256"].launches[0].args == (None, 1, 8, 4, 256, 256, 64)  # R*D 512
     assert by["tied_row_bwd_256"].not_ported and "item 4" in by["tied_row_bwd_256"].not_ported
-    assert by["serve_cross_msa_from_pair"].launches[0].args == (None, 4, 8, 640, 147456, 64)
+    assert by["serve_cross_msa_from_pair"].launches[0].args == (None, 4, 8, 640, 147456, 64, 2, 1)
     assert by["scale_rows_4x512"].dtypes == ("float32",)
     every = {l.source for c in lowering.CASES for l in c.launches}
     assert every == set(build.SIGNATURES)  # every kernel source is gated
@@ -110,7 +132,29 @@ def test_case_shapes_and_sources():
         if c.launches:
             assert set(c.dtypes) <= {"float32", "bfloat16"}
             assert all(build.SIGNATURES[l.source].get(l.symbol) for l in c.launches)
-    assert by["flash_axial_256"].launches[0].plan_args("bfloat16") == (1, 4, 8, 256, 256, 64)
+    # K1 plans with its key split and TMA-aligned operands
+    assert by["flash_axial_256"].launches[0].plan_args("bfloat16") == (
+        1, 4, 8, 256, 256, 64, 1, 1)
+
+
+@pytest.mark.parametrize("case,splits", [
+    ("serve_cross_msa_from_pair", 2), ("train_cross_msa_from_pair", 11),
+    ("serve_pair_axial_384", 1), ("serve_msa_column", 1), ("train_msa_column", 1),
+    ("train_pair_axial_128", 1), ("serve_cross_pair_from_msa", 1),
+])
+def test_k1_lists_its_combine_pass_where_the_key_axis_splits(case, splits):
+    """Wherever key_splits cuts the key axis, the case plans K1 with that
+    split and then K1's combine pass (bf16 only); elsewhere K1 alone."""
+    launches = {c.name: c for c in lowering.CASES}[case].launches
+    k1 = [l for l in launches if l.role.startswith("K1")]
+    assert k1[0].role == "K1" and k1[0].args[6:] == (splits, 1)
+    if splits == 1:
+        assert len(k1) == 1
+    else:
+        b, h, nq, _, d = k1[0].args[1:6]
+        assert [l.role for l in k1] == ["K1", "K1c"]
+        assert k1[1].symbol == "af2_fused_attention_combine_plan"
+        assert k1[1].args == (b, h, nq, d) and k1[1].dtypes == ("bfloat16",)
 
 
 # ------------------------------------------------------------ ptxas report
@@ -143,12 +187,31 @@ def test_report_by_kernel_names_instantiations_as_the_plans_do():
     ("void _GLOBAL__N__1b2c_7_k_cu::dq_kernel_mma<32>(_GLOBAL__N__1b2c_7_k_cu::Grad, int)",
      "dq_kernel_mma<32>"),
     ("void af2::attention_kernel_mma<(int)64>(af2::Problem, int)", "attention_kernel_mma<64>"),
+    (K1_DEMANGLED[SM90], "attention_kernel_sm90<64>"),
     ("void <unnamed>::fwd_kernel<float, (int)16, (int)64>(<unnamed>::Fwd, int)",
      "fwd_kernel<float,16,64>"),
     ("scale_rows(float const*, float*, int)", "scale_rows"),
 ])
 def test_kernel_key(demangled, key):
     assert lowering.kernel_key(demangled) == key
+
+
+def test_k1_hopper_kernels_fit_sm90():
+    """K1's plans at the serving MSA<-pair pass (288 threads, 115,832 bytes
+    of dynamic shared memory, 640 blocks at 2 key splits; the combine pass
+    160 blocks of 128) against ptxas's report of their instantiations."""
+    report = lowering.report_by_kernel(K1_REPORT, lambda names: {
+        n: K1_DEMANGLED[n] for n in names})
+    assert set(report) == {"attention_kernel_sm90<64>", "combine_kernel<64>"}
+    main = {"blocks": 640, "threads": 288, "dynamic_smem": 115_832,
+            "kernel": "attention_kernel_sm90<64>"}
+    combine = {"blocks": 160, "threads": 128, "dynamic_smem": 0,
+               "kernel": "combine_kernel<64>"}
+    assert lowering.check_launch(main, report[main["kernel"]]) == []
+    assert lowering.check_launch(combine, report[combine["kernel"]]) == []
+    sm90 = report["attention_kernel_sm90<64>"]
+    assert (sm90.registers, sm90.spill_stores, sm90.spill_loads) == (123, 0, 0)
+    assert sm90.registers * main["threads"] <= lowering.SM90_LIMITS["registers_per_sm"]
 
 
 # ------------------------------------------------------------ limits

@@ -33,10 +33,10 @@ CLI::
     python -m alphafold2_tpu_torch.analysis.lowering [case ...]
 
 One JSON line per case, then ``{"gate": "hopper_build", "cases": n,
-"failed": [...], "not_ported": [...], "control_rejected": bool}``. Exit 0
-only if every case passes and the control is refused; 1 otherwise; 2 for an
-unknown case name or when ``nvcc`` (or ``cu++filt``) is not installed, so
-the gate never exits 0 without a build.
+"failed": [...], "control_rejected": bool}``. Exit 0 only if every case
+passes and the control is refused; 1 otherwise; 2 for an unknown case name
+or when ``nvcc`` (or ``cu++filt``) is not installed, so the gate never
+exits 0 without a build.
 """
 
 from __future__ import annotations
@@ -73,9 +73,6 @@ SM90_LIMITS = {
 
 CONTROL_CASE = "negative_control_rejects_bad_tiling"
 CONTROL_KERNEL = "scale_rows_mistiled"
-NOT_PORTED_TIED_ROW_BWD = (
-    "K2 has no backward kernel on the card (ROADMAP.md section 1, item 4): "
-    "tied rows raise under grad")
 
 
 class ToolMissing(RuntimeError):
@@ -90,7 +87,7 @@ class Launch:
     """One kernel launch a case plans: ``symbol`` of kernel source
     ``source`` called with ``args`` (``None`` marks the dtype code)."""
 
-    role: str  # K1, K1c (K1's combine pass), K2, K3a, ..., X
+    role: str  # K1, K1c (K1's combine pass), K2, K2a/K2b (its backward), K3a, ..., X
     source: str
     symbol: str
     args: tuple
@@ -105,7 +102,6 @@ class Case:
     name: str
     launches: tuple = ()
     dtypes: tuple = DTYPES
-    not_ported: Optional[str] = None  # why the case has no kernel yet
 
 
 def _k1(b, h, nq, nk, d):
@@ -122,14 +118,23 @@ def _k1(b, h, nq, nk, d):
 
 
 def _k3(b, h, nq, nk, d):
-    return tuple(Launch(role, "fused_attention_bwd", "af2_fused_attention_bwd_plan",
-                        (which, None, b, h, nq, nk, d))
+    """K3a and K3b as their wrappers launch them: past head dim 128 the
+    D-chunked kernels of tied_row_attention_bwd.cu."""
+    source = "tied_row_attention_bwd" if d > 128 else "fused_attention_bwd"
+    return tuple(Launch(role, source, f"af2_{source}_plan", (which, None, b, h, nq, nk, d))
                  for role, which in (("K3a", 0), ("K3b", 1)))
 
 
 def _k2(b, r, h, n, d):
     return Launch("K2", "tied_row_attention", "af2_tied_row_attention_plan",
                   (None, b, r, h, n, n, d))
+
+
+def _k2_bwd(b, r, h, n, d):
+    """K2's backward: dq (K2a) and dk/dv (K2b) at the fused axis F = R*D."""
+    return tuple(Launch(role, "tied_row_attention_bwd", "af2_tied_row_attention_bwd_plan",
+                        (which, None, b, h, n, n, r * d))
+                 for role, which in (("K2a", 0), ("K2b", 1)))
 
 
 def _k4(b, h, n, d, block):
@@ -163,12 +168,13 @@ JAX_CASES = (
     Case("fused_axial_fwd_256", (*_k1(2, 4, 256, 256, 64),)),
     Case("fused_axial_bwd_256", (*_k1(2, 4, 256, 256, 64), *_k3(2, 4, 256, 256, 64))),
     Case("tied_row_fwd_256", (_k2(1, 8, 4, 256, 64),)),
-    Case("tied_row_bwd_256", not_ported=NOT_PORTED_TIED_ROW_BWD),
+    Case("tied_row_bwd_256", (_k2(1, 8, 4, 256, 64), *_k2_bwd(1, 8, 4, 256, 64))),
 )
 
 # The shapes the port launches on the card (chip_smoke.py's serving,
 # training and sparse cases): bucket 128 at batch 4 elongates to 384 tokens;
-# training crops 128 with a 5 x 64 MSA; sparse training at block 16.
+# training crops 128 with a 5 x 64 MSA (with tied rows: R 5, N 64, R*D 320);
+# sparse training at block 16.
 PORT_CASES = (
     Case("serve_pair_axial_384", (*_k1(1536, 8, 384, 384, 64),)),
     Case("serve_msa_column", (*_k1(512, 8, 5, 5, 64),)),
@@ -180,6 +186,7 @@ PORT_CASES = (
     Case("train_msa_row", (*_k1(5, 8, 64, 64, 64), *_k3(5, 8, 64, 64, 64))),
     Case("train_cross_pair_from_msa", (*_k1(1, 8, 16384, 320, 64), *_k3(1, 8, 16384, 320, 64))),
     Case("train_cross_msa_from_pair", (*_k1(1, 8, 320, 16384, 64), *_k3(1, 8, 320, 16384, 64))),
+    Case("train_tied_rows", (_k2(1, 5, 8, 64, 64), *_k2_bwd(1, 5, 8, 64, 64))),
     Case("sparse_train_pair_128", (_k4(128, 8, 128, 64, 16), *_k5(128, 8, 128, 64, 16))),
     Case("sparse_pair_512", (_k4(512, 8, 512, 64, 16), *_k5(512, 8, 512, 64, 16))),
     # the largest instantiations chip_smoke.py checks: head dim 128 (K5b in
@@ -187,6 +194,8 @@ PORT_CASES = (
     Case("edge_dense_d128", (*_k1(1, 2, 130, 130, 128), *_k3(1, 2, 130, 130, 128))),
     Case("edge_sparse_block128_d128", (_k4(16, 4, 512, 128, 128), *_k5(16, 4, 512, 128, 128))),
     Case("edge_tied_rows_1280", (_k2(1, 20, 2, 48, 64),)),
+    # a head dim past 128: K1 D-chunked, K3a/K3b through the chunked backward
+    Case("edge_dense_d256", (*_k1(1, 2, 130, 130, 256), *_k3(1, 2, 130, 130, 256))),
     # X's valid form at X's shape (f32 only, as X)
     Case("scale_rows_4x512", (_x(4, 512),), dtypes=("float32",)),
 )
@@ -453,10 +462,6 @@ def run_gate(names=(), demangle: Callable = demangle_cufilt) -> tuple:
         if case.name == CONTROL_CASE:
             records.append(run_control())
             continue
-        if case.not_ported:
-            records.append({"case": case.name, "ok": False, "status": "not_ported",
-                            "reason": case.not_ported})
-            continue
         launches = [_launch_record(launch, dtype, built, reports, libs)
                     for dtype in case.dtypes for launch in case.launches
                     if dtype in launch.dtypes]
@@ -472,7 +477,6 @@ def run_gate(names=(), demangle: Callable = demangle_cufilt) -> tuple:
     summary = {
         "gate": GATE, "cases": len(records),
         "failed": [r["case"] for r in records if r["status"] == "failed"],
-        "not_ported": [r["case"] for r in records if r["status"] == "not_ported"],
         "control_rejected": any(r["case"] == CONTROL_CASE and r["ok"] for r in records),
     }
     return records, summary

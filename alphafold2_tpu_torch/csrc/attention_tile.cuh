@@ -281,6 +281,25 @@ __device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// The A fragment of rows r0, r0 + 8 and features kc, kc + 8 of a
+// token-major bf16 tile with rows of `ld` (the backward kernels).
+__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const __nv_bfloat16* tile, int ld,
+                                       int r0, int kc) {
+  a[0] = lds32(tile + r0 * ld + kc);
+  a[1] = lds32(tile + (r0 + 8) * ld + kc);
+  a[2] = lds32(tile + r0 * ld + kc + 8);
+  a[3] = lds32(tile + (r0 + 8) * ld + kc + 8);
+}
+
+// The A fragment of 16 columns (n-tiles 2kk, 2kk+1) of an m16n8
+// accumulator, rounded to bf16: p or ds passed on to the next product.
+__device__ __forceinline__ void acc_frag(uint32_t (&a)[4], const float (&c)[8][4], int kk) {
+  a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+  a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+  a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+  a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+}
+
 // Stage a 64 x FC bf16 tile (tokens n0.., features f0..) in shared memory,
 // row stride ld, or transposed (feature-major) when `transpose`. With `vec`
 // every 8 consecutive features sit in one 16-byte-aligned row group and

@@ -28,6 +28,12 @@
 // * f32: attention_kernel on the CUDA cores, the exactness path of the
 //   small-model checks.
 //
+// A head dim past 128 runs the same two tile kernels D-chunked, as K2 runs
+// its fused R*D axis: one block per 64-wide output chunk, the logits
+// accumulated over 64-wide feature chunks (attention_tile.cuh). Head dims
+// below 128 that no kernel is built for are zero-padded up to the next one
+// by the caller (ops/cuda/axial.py), which is exact.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // (alphafold2_tpu_torch/ops/cuda/build.py). Bound with ctypes.
 //
@@ -115,7 +121,10 @@ int run(int dtype, const void* q, const void* k, const void* v, void* out, float
     case 32: return dispatch_dtype<32>(dtype, p, s, plan_out);
     case 64: return dispatch_dtype<64>(dtype, p, s, plan_out);
     case 128: return dispatch_dtype<128>(dtype, p, s, plan_out);
-    default: return cudaErrorInvalidValue;
+    default:
+      if (head_dim <= 128) return cudaErrorInvalidValue;
+      p.out_chunks = (head_dim + 63) / 64;
+      return dispatch_dtype<64>(dtype, p, s, plan_out);
   }
 }
 
@@ -201,7 +210,8 @@ extern "C" int af2_fused_attention_combine(const float* partials, void* out, flo
 // K1's launch plan at one shape (with or without lse: the same kernel),
 // given the splits and whether the operands are TMA-aligned. Touches no
 // device. Returns 0, or cudaErrorInvalidValue for a dtype, head dim or
-// split count the kernels do not take.
+// split count the kernels do not take (head dims: 16, 32, 64, 128 and any
+// past 128).
 extern "C" int af2_fused_attention_plan(int dtype, int batch, int heads, int nq, int nk,
                                         int head_dim, int splits, int aligned,
                                         Af2LaunchPlan* plan) {

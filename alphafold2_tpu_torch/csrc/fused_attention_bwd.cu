@@ -307,27 +307,10 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(Grad g) {
 // across tokens (k in K3a; q and dO in K3b) are also staged transposed, rows
 // of 64 + 8 tokens, so every fragment is one 32-bit load.
 
+using af2::a_frag;
+using af2::acc_frag;
 using af2::lds32;
 using af2::mma_bf16;
-using af2::pack_bf16;
-
-// A fragment of rows r0, r0 + 8 and features kc, kc + 8 of a token-major tile.
-__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const __nv_bfloat16* tile, int ld,
-                                       int r0, int kc) {
-  a[0] = lds32(tile + r0 * ld + kc);
-  a[1] = lds32(tile + (r0 + 8) * ld + kc);
-  a[2] = lds32(tile + r0 * ld + kc + 8);
-  a[3] = lds32(tile + (r0 + 8) * ld + kc + 8);
-}
-
-// The A fragment of 16 columns (n-tiles 2kk, 2kk+1) of an accumulator,
-// rounded to bf16.
-__device__ __forceinline__ void acc_frag(uint32_t (&a)[4], const float (&c)[8][4], int kk) {
-  a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-  a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-  a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-  a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads) dq_kernel_mma(Grad g, int vec) {

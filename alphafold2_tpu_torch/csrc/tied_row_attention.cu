@@ -23,6 +23,12 @@
 // The (B, R, N, H, D) operands are read in place (no fold copy) and the tie
 // scale is applied to the f32 logits, not to a rounded copy of q.
 //
+// Training uses af2_tied_row_attention_lse, which also writes each row's
+// logsumexp of the shared (tie-scaled) logits for the backward kernels
+// (tied_row_attention_bwd.cu), as the TPU path's `_kernel` does beside
+// `_kernel_no_lse` (axial.py :110-120). Both entries launch the same
+// kernel, so af2_tied_row_attention_plan plans both.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // (alphafold2_tpu_torch/ops/cuda/build.py). Bound with ctypes.
 
@@ -33,7 +39,7 @@ namespace {
 constexpr int kChunk = 64;  // feature chunk for logits and output
 
 // Launches K2, or with `plan_out` only fills its plan (no pointer is read).
-int run(int dtype, const void* q, const void* k, const void* v, void* out,
+int run(int dtype, const void* q, const void* k, const void* v, void* out, float* lse,
         const unsigned char* q_mask, const unsigned char* kv_mask, const float* tie_scale,
         int batch, int rows, int heads, int nq, int nk, int head_dim, float sm_scale,
         void* stream, Af2LaunchPlan* plan_out = nullptr) {
@@ -42,6 +48,7 @@ int run(int dtype, const void* q, const void* k, const void* v, void* out,
   p.k = k;
   p.v = v;
   p.o = out;
+  p.lse = lse;
   p.q_mask = q_mask;
   p.kv_mask = kv_mask;
   p.tie_scale = tie_scale;
@@ -79,14 +86,28 @@ extern "C" int af2_tied_row_attention(int dtype, const void* q, const void* k, c
                                       const unsigned char* kv_mask, const float* tie_scale,
                                       int batch, int rows, int heads, int nq, int nk,
                                       int head_dim, float sm_scale, void* stream) {
-  return run(dtype, q, k, v, out, q_mask, kv_mask, tie_scale, batch, rows, heads, nq, nk,
+  return run(dtype, q, k, v, out, nullptr, q_mask, kv_mask, tie_scale, batch, rows, heads, nq,
+             nk, head_dim, sm_scale, stream);
+}
+
+// The training forward: as af2_tied_row_attention, and also writes each
+// query row's logsumexp of the shared scaled logits into lse, a contiguous
+// (batch, heads, nq) f32 buffer (+inf for a row with no valid key).
+extern "C" int af2_tied_row_attention_lse(int dtype, const void* q, const void* k,
+                                          const void* v, void* out, float* lse,
+                                          const unsigned char* q_mask,
+                                          const unsigned char* kv_mask, const float* tie_scale,
+                                          int batch, int rows, int heads, int nq, int nk,
+                                          int head_dim, float sm_scale, void* stream) {
+  return run(dtype, q, k, v, out, lse, q_mask, kv_mask, tie_scale, batch, rows, heads, nq, nk,
              head_dim, sm_scale, stream);
 }
 
-// K2's launch plan at one shape; touches no device. Returns 0, or
-// cudaErrorInvalidValue for a dtype the kernel does not take.
+// K2's launch plan at one shape (with or without lse: the same kernel);
+// touches no device. Returns 0, or cudaErrorInvalidValue for a dtype the
+// kernel does not take.
 extern "C" int af2_tied_row_attention_plan(int dtype, int batch, int rows, int heads, int nq,
                                            int nk, int head_dim, Af2LaunchPlan* plan) {
-  return run(dtype, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, batch, rows,
-             heads, nq, nk, head_dim, 1.f, nullptr, plan);
+  return run(dtype, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+             batch, rows, heads, nq, nk, head_dim, 1.f, nullptr, plan);
 }

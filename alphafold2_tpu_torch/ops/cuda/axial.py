@@ -11,6 +11,15 @@ here: :func:`fused_attention_reference` (forward),
 (the backward, one per kernel). The wrappers run the plain versions only for tensors on the CPU;
 for CUDA tensors they launch the kernel or raise.
 
+Head dims: the kernels are built for 16, 32, 64 and 128 (``HEAD_DIMS``)
+and, D-chunked, for any head dim past 128 (K1 through
+``csrc/attention_tile.cuh``, K3a/K3b through
+``csrc/tied_row_attention_bwd.cu``). A head dim below 128 that is not
+built runs zero-padded up to the next built one (:func:`kernel_head_dim`,
+:func:`at_kernel_head_dim`), which is exact: zero columns add nothing to
+q.k, P.V, ds.k or ds^T.q, and ``sm_scale`` stays the caller's. So the card
+takes every head dim JAX's ``fused_attention`` takes.
+
 K1's bf16 forward at head dim 32, 64 or 128 runs the Hopper kernel of
 ``csrc/fused_attention_sm90.cuh``. Where its grid leaves the card short of
 two waves, :func:`key_splits` cuts the key axis into ranges; each block then
@@ -51,6 +60,38 @@ QUERY_TILE = 128
 KEY_TILE = 128
 SM_COUNT = 132  # streaming multiprocessors of one H100
 MIN_SPLIT_TILES = 4  # key tiles a split keeps at least
+
+
+def kernel_head_dim(d: int) -> int:
+    """The head dim the kernels run head dim ``d`` at: ``d`` itself where a
+    kernel is built for it (``HEAD_DIMS``, or past 128, D-chunked),
+    otherwise the next of ``HEAD_DIMS`` up, to zero-pad to."""
+    if d in HEAD_DIMS or d > HEAD_DIMS[-1]:
+        return d
+    return next(x for x in HEAD_DIMS if x > d)
+
+
+def pad_head_dim(t: torch.Tensor, dp: int) -> torch.Tensor:
+    """(B, H, N, D) ``t`` zero-padded along D to ``dp``: a (B, H, N, dp) view
+    of one new (B, N, H, dp) buffer, the layout the projections give."""
+    b, h, n, d = t.shape
+    out = t.new_zeros((b, n, h, dp)).permute(0, 2, 1, 3)
+    out[..., :d] = t
+    return out
+
+
+def at_kernel_head_dim(run, tensors):
+    """``run(*tensors)`` at :func:`kernel_head_dim` of the tensors' head
+    dim: where that differs, each (B, H, N, D) operand is zero-padded (one
+    buffer each) and every 4-d result is sliced back to D; other results
+    (lse) pass as they are. ``run`` returns a tensor or a tuple."""
+    d = tensors[0].shape[-1]
+    dp = kernel_head_dim(d)
+    if dp == d:
+        return run(*tensors)
+    res = run(*(pad_head_dim(t, dp) for t in tensors))
+    cut = lambda t: t[..., :d] if t is not None and t.dim() == 4 else t
+    return tuple(cut(t) for t in res) if isinstance(res, tuple) else cut(res)
 
 
 def key_splits(b: int, h: int, nq: int, nk: int, d: int) -> int:
@@ -177,18 +218,23 @@ def combine_partials_reference(m, l, acc, q_mask=None, with_lse=False,
     return out.to(dtype), lse
 
 
-def _probabilities(q, k, lse, q_mask, kv_mask, sm_scale):
-    """The backward's recomputed probabilities exp(s - lse), exactly 0 for
-    masked keys, masked query rows and rows with lse = +inf."""
+def recomputed_probabilities(s, lse, q_mask, kv_mask):
+    """The backward's probabilities exp(s - lse) from the scaled (B, H, Nq,
+    Nk) f32 logits ``s``, exactly 0 for masked keys, masked query rows and
+    rows with lse = +inf."""
     live = torch.isfinite(lse)
     if q_mask is not None:
         live = live & q_mask[:, None, :]
     valid = live[..., None]
     if kv_mask is not None:
         valid = valid & kv_mask[:, None, None, :]
-    s = torch.einsum("bhid,bhjd->bhij", q.float(), k.float()) * sm_scale
     p = torch.exp(s - torch.where(live, lse, 0.0)[..., None])
     return torch.where(valid, p, 0.0)
+
+
+def _probabilities(q, k, lse, q_mask, kv_mask, sm_scale):
+    s = torch.einsum("bhid,bhjd->bhij", q.float(), k.float()) * sm_scale
+    return recomputed_probabilities(s, lse, q_mask, kv_mask)
 
 
 def _ds(p, v, dout, dsum):
@@ -261,8 +307,9 @@ def _cuda_operands(q, k, v, q_mask, kv_mask, what):
     tensors = [t for t in (q, k, v, q_mask, kv_mask) if t is not None]
     if any(t.device != q.device for t in tensors):
         raise ValueError(f"{what} operands must share one device")
-    if q.shape[3] not in HEAD_DIMS:
-        raise ValueError(f"head dim {q.shape[3]} not in {HEAD_DIMS}")
+    if kernel_head_dim(q.shape[3]) != q.shape[3]:
+        raise ValueError(f"head dim {q.shape[3]}: no kernel is built for it (pad it to "
+                         f"{kernel_head_dim(q.shape[3])} first)")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("q/k/v head dim must be contiguous (stride 1)")
     if k.shape[2] == 0:
@@ -296,7 +343,9 @@ def _launch_forward(q, k, v, q_mask, kv_mask, sm_scale, with_lse):
     if nq == 0 or b * h == 0:
         return out, lse
     lib = build.library("fused_attention")
-    splits = key_splits(b, h, nq, nk, d)
+    # only the Hopper kernel (bf16, head dim 32, 64 or 128) splits the key axis
+    hopper = q.dtype == torch.bfloat16 and d in HEAD_DIMS[1:]
+    splits = key_splits(b, h, nq, nk, d) if hopper else 1
     part = (torch.empty(splits * b * h * nq * (d + 2), dtype=torch.float32, device=q.device)
             if splits > 1 else None)
     info = (ctypes.c_int * 2)()
@@ -370,7 +419,9 @@ def fused_attention_lse(q, k, v, q_mask=None, kv_mask=None, sm_scale=1.0):
     _check(q, k, v, q_mask, kv_mask)
     if q.device.type == "cpu":
         return fused_attention_lse_reference(q, k, v, q_mask, kv_mask, sm_scale)
-    return _launch_forward(q, k, v, q_mask, kv_mask, sm_scale, with_lse=True)
+    return at_kernel_head_dim(
+        lambda q, k, v: _launch_forward(q, k, v, q_mask, kv_mask, sm_scale, with_lse=True),
+        (q, k, v))
 
 
 def _check_grad_operands(q, k, v, dout, lse, dsum):
@@ -382,11 +433,32 @@ def _check_grad_operands(q, k, v, dout, lse, dsum):
             raise ValueError(f"{name} must be f32 ({b}, {h}, {nq})")
 
 
-def _launch_backward(symbol, outs, slots, q, k, v, dout, lse, dsum, q_mask, kv_mask,
+def launch_chunked_backward(which, outs, q, k, v, dout, lse, dsum, masks, tie, strides,
+                            dims, sm_scale):
+    """The D-chunked backward kernels of ``csrc/tied_row_attention_bwd.cu``
+    on CUDA tensors: ``which`` "dq" writes ``outs`` (dq,), "dkv" writes
+    (dk, dv). ``strides``: 28 element strides, (batch, head, token, row
+    group) of q, k, v, dout and the (dq, dk, dv) slots; ``dims``: (batch,
+    heads, nq, nk, features, row width); ``tie``: a (B,) f32 tensor or
+    None; ``masks``: contiguous (q_mask, kv_mask), each or None."""
+    symbol = f"af2_tied_row_attention_bwd_{which}"
+    lib = build.library("tied_row_attention_bwd")
+    with torch.cuda.device(q.device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        code = getattr(lib, symbol)(
+            _DTYPES[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(lse), _ptr(dsum),
+            *(_ptr(o) for o in outs), _ptr(masks[0]), _ptr(masks[1]), _ptr(tie),
+            (ctypes.c_longlong * 28)(*strides), *dims, float(sm_scale), stream)
+    build.check(lib, code, symbol)
+
+
+def _launch_backward(which, outs, slots, q, k, v, dout, lse, dsum, q_mask, kv_mask,
                      sm_scale):
-    """Launch K3a or K3b writing ``outs``; ``slots`` gives the kernel the
-    strides of its (dq, dk, dv) in that order (stand-ins for the ones it
-    does not write)."""
+    """Launch K3a (``which`` "dq") or K3b ("dkv") writing ``outs``;
+    ``slots`` gives the kernel the strides of its (dq, dk, dv) in that order
+    (stand-ins for the ones it does not write). A head dim past 128 runs the
+    D-chunked kernels (no row groups: row-group stride 0)."""
+    symbol = f"af2_fused_attention_bwd_{which}"
     masks = _cuda_operands(q, k, v, q_mask, kv_mask, symbol)
     if dout.stride(-1) != 1:
         dout = dout.contiguous()
@@ -395,6 +467,11 @@ def _launch_backward(symbol, outs, slots, q, k, v, dout, lse, dsum, q_mask, kv_m
     if nq == 0 or b * h == 0:
         for o in outs:
             o.zero_()
+        return
+    if d > HEAD_DIMS[-1]:
+        strides = [x for t in (q, k, v, dout, *slots) for x in (*t.stride()[:3], 0)]
+        launch_chunked_backward(which, outs, q, k, v, dout, lse, dsum, masks, None, strides,
+                                (b, h, nq, k.shape[2], d, d), sm_scale)
         return
     lib = build.library("fused_attention_bwd")
     strides = _strides(q, k, v, dout, *slots)
@@ -416,11 +493,15 @@ def fused_attention_dq(q, k, v, dout, lse, dsum, q_mask=None, kv_mask=None, sm_s
     if q.device.type == "cpu":
         return fused_attention_dq_reference(q, k, v, dout, lse, dsum, q_mask, kv_mask,
                                             sm_scale)
-    dq = _like_heads(q)
-    _launch_backward("af2_fused_attention_bwd_dq", (dq,), (dq, k, v), q, k, v, dout, lse,
-                     dsum, q_mask, kv_mask, sm_scale)
-    fused_attention_dq.launches += 1
-    return dq
+
+    def run(q, k, v, dout):
+        dq = _like_heads(q)
+        _launch_backward("dq", (dq,), (dq, k, v), q, k, v, dout, lse, dsum, q_mask, kv_mask,
+                         sm_scale)
+        fused_attention_dq.launches += 1
+        return dq
+
+    return at_kernel_head_dim(run, (q, k, v, dout))
 
 
 fused_attention_dq.launches = 0
@@ -433,11 +514,15 @@ def fused_attention_dkv(q, k, v, dout, lse, dsum, q_mask=None, kv_mask=None, sm_
     if q.device.type == "cpu":
         return fused_attention_dkv_reference(q, k, v, dout, lse, dsum, q_mask, kv_mask,
                                              sm_scale)
-    dk, dv = _like_heads(k), _like_heads(v)
-    _launch_backward("af2_fused_attention_bwd_dkv", (dk, dv), (q, dk, dv), q, k, v, dout,
-                     lse, dsum, q_mask, kv_mask, sm_scale)
-    fused_attention_dkv.launches += 1
-    return dk, dv
+
+    def run(q, k, v, dout):
+        dk, dv = _like_heads(k), _like_heads(v)
+        _launch_backward("dkv", (dk, dv), (q, dk, dv), q, k, v, dout, lse, dsum, q_mask,
+                         kv_mask, sm_scale)
+        fused_attention_dkv.launches += 1
+        return dk, dv
+
+    return at_kernel_head_dim(run, (q, k, v, dout))
 
 
 fused_attention_dkv.launches = 0
@@ -475,7 +560,8 @@ def fused_attention(
     CUDA tensors: q/k/v may be strided views (any batch/head/token strides)
     as long as the head dim is contiguous; the result is a (B, H, Nq, D)
     view of a (B, Nq, H, D) buffer, so folding heads back into channels
-    (``out.transpose(1, 2).reshape(B, Nq, H * D)``) copies nothing."""
+    (``out.transpose(1, 2).reshape(B, Nq, H * D)``) copies nothing (at a
+    zero-padded head dim it is a slice of one, and the fold copies)."""
     _check(q, k, v, q_mask, kv_mask)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_attention runs on cuda or cpu, not {q.device}")
@@ -483,7 +569,9 @@ def fused_attention(
         return FusedAttention.apply(q, k, v, q_mask, kv_mask, sm_scale)
     if q.device.type == "cpu":
         return fused_attention_reference(q, k, v, q_mask, kv_mask, sm_scale)
-    return _launch_forward(q, k, v, q_mask, kv_mask, sm_scale, with_lse=False)[0]
+    return at_kernel_head_dim(
+        lambda q, k, v: _launch_forward(q, k, v, q_mask, kv_mask, sm_scale, with_lse=False)[0],
+        (q, k, v))
 
 
 fused_attention.launches = 0

@@ -80,10 +80,22 @@ SIGNATURES = {
         "af2_fused_attention_bwd_plan": [_I] * 7 + [_PLAN],
     },
     "tied_row_attention": {
-        "af2_tied_row_attention": [
-            _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+        # dtype, q, k, v, out, q_mask, kv_mask, tie_scale, batch, rows, heads,
+        # nq, nk, head_dim, sm_scale, stream
+        "af2_tied_row_attention": [_I] + [_P] * 7 + [_I] * 6 + [_F, _P],
+        # the training forward: one more pointer after out, the (B, H, Nq) lse
+        "af2_tied_row_attention_lse": [_I] + [_P] * 8 + [_I] * 6 + [_F, _P],
         # dtype, batch, rows, heads, nq, nk, head_dim, plan
         "af2_tied_row_attention_plan": [_I] * 7 + [_PLAN],
+    },
+    # dtype, q, k, v, dout, lse, dsum, outputs (dq | dk, dv), q_mask, kv_mask,
+    # tie_scale, strides (28), batch, heads, nq, nk, features, row width,
+    # sm_scale, stream
+    "tied_row_attention_bwd": {
+        "af2_tied_row_attention_bwd_dq": [_I] + [_P] * 11 + [_I] * 6 + [_F, _P],
+        "af2_tied_row_attention_bwd_dkv": [_I] + [_P] * 12 + [_I] * 6 + [_F, _P],
+        # which (0 dq, 1 dkv), dtype, batch, heads, nq, nk, features, plan
+        "af2_tied_row_attention_bwd_plan": [_I] * 7 + [_PLAN],
     },
     # dtype, q, k, v, out, lse (or null), kv_mask, idx, cnt, max_active,
     # strides, batch, heads, n, head_dim, block, sm_scale, stream

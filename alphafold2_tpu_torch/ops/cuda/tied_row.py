@@ -1,4 +1,6 @@
-"""K2: tied-row MSA attention — CUDA kernel wrapper and plain version.
+"""K2: tied-row MSA attention, with its training forward and its backward —
+CUDA kernel wrappers, plain versions, and the autograd ``Function`` joining
+them.
 
 Port of ``alphafold2_tpu/ops/pallas/tied_row.py`` ``tied_row_attention``.
 One attention matrix per (batch, head) is shared by all R MSA rows:
@@ -6,21 +8,28 @@ One attention matrix per (batch, head) is shared by all R MSA rows:
     logits[b, h, i, j] = sm_scale * tie_scale[b] * sum_r q[b, r, i, h] . k[b, r, j, h]
     out[b, r, i, h]    = sum_j softmax_j(logits) v[b, r, j, h]
 
-The kernel is ``csrc/tied_row_attention.cu``, which reads the (B, R, N, H, D)
-layout in place and chunks the fused R*D feature axis (no fold copy, unlike
-the TPU path). :func:`tied_row_attention_reference` is the same function in
-plain PyTorch; :func:`tied_row_attention` runs it only for CPU tensors.
+The forward kernel is ``csrc/tied_row_attention.cu`` (K2; with the row
+logsumexp, ``af2_tied_row_attention_lse``), the backward kernels are
+``csrc/tied_row_attention_bwd.cu``: what the TPU path runs under
+``jax.grad`` as K3a/K3b (``_run_dq``/``_run_dkv``) at head dim R*D. All
+read the (B, R, N, H, D) layout in place and chunk the fused R*D feature
+axis (no fold copy, unlike the TPU path). Plain PyTorch versions:
+:func:`tied_row_attention_reference`, :func:`tied_row_attention_lse_reference`,
+:func:`tied_row_attention_dq_reference` and
+:func:`tied_row_attention_dkv_reference`; the wrappers run them only for
+CPU tensors.
+
+:func:`tied_row_attention` is differentiable: with grad enabled and an
+input that requires it, it runs :class:`TiedRowAttention` (K2 with lse,
+then the two backward kernels; on the CPU the plain versions of the same
+math). The tie scale is data (it counts the voting rows) and carries no
+gradient; it scales the f32 logits, so dq and dk both carry it.
 
 Callers pre-zero padded (row, position) entries of q/k/v (abstention), pass
 the SHARED query/column masks (B, N) and the voting-row ``tie_scale``
 (ops/attention.py). Masking follows ``axial.fused_attention``: masked keys
-excluded, masked queries and key-less rows give 0.
-
-K2 is a forward kernel only (the TPU path differentiates it through K1's
-backward at head dim R*D; that backward is not ported for tied rows). On the
-card :func:`tied_row_attention` raises when grad is enabled and an input
-requires it, rather than return an output that carries no gradient; on the
-CPU the plain version is differentiated by autograd.
+excluded, masked queries and key-less rows give 0; in the backward they get
+dq = 0 and add nothing to dk/dv, and masked keys get dk = dv = 0.
 """
 
 from __future__ import annotations
@@ -35,6 +44,8 @@ from alphafold2_tpu_torch.ops.cuda.axial import (
     _DTYPES,
     _masked_softmax_weights,
     _ptr,
+    launch_chunked_backward,
+    recomputed_probabilities,
 )
 
 
@@ -53,6 +64,33 @@ def _tie_vector(tie_scale, b: int, r: int, device) -> torch.Tensor:
     return torch.full((b,), float(tie_scale), dtype=torch.float32, device=device)
 
 
+def _scale(q, sm_scale, tie_scale) -> torch.Tensor:
+    """The (B,) f32 logit scale sm_scale * tie_scale."""
+    b, r = q.shape[:2]
+    return sm_scale * _tie_vector(tie_scale, b, r, q.device)
+
+
+def _logits(q, k, scale):
+    """The shared scaled logits (B, H, Nq, Nk), f32."""
+    s = torch.einsum("brihd,brjhd->bhij", q.float(), k.float())
+    return s * scale[:, None, None, None]
+
+
+def _attend(q, k, v, q_mask, kv_mask, sm_scale, tie_scale, with_lse):
+    s = _logits(q, k, _scale(q, sm_scale, tie_scale))
+    valid = kv_mask[:, None, None, :] if kv_mask is not None else None
+    p, l = _masked_softmax_weights(s, valid)
+    out = torch.einsum("bhij,brjhd->brihd", p / l, v.float())
+    if q_mask is not None:
+        out = out * q_mask[:, None, :, None, None].to(out.dtype)
+    if not with_lse:
+        return out.to(q.dtype)
+    if valid is not None:
+        s = s.masked_fill(~valid, float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)
+    return out.to(q.dtype), lse.masked_fill(lse == float("-inf"), float("inf"))
+
+
 def tied_row_attention_reference(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -64,32 +102,69 @@ def tied_row_attention_reference(
 ) -> torch.Tensor:
     """The plain PyTorch version of the kernel (f32 arithmetic)."""
     tied_row_attention_reference.calls += 1
-    b, r = q.shape[:2]
-    tie = _tie_vector(tie_scale, b, r, q.device)
-    s = torch.einsum("brihd,brjhd->bhij", q.float(), k.float())
-    s = s * (sm_scale * tie)[:, None, None, None]
-    valid = kv_mask[:, None, None, :] if kv_mask is not None else None
-    p, l = _masked_softmax_weights(s, valid)
-    out = torch.einsum("bhij,brjhd->brihd", p / l, v.float())
-    if q_mask is not None:
-        out = out * q_mask[:, None, :, None, None].to(out.dtype)
-    return out.to(q.dtype)
+    return _attend(q, k, v, q_mask, kv_mask, sm_scale, tie_scale, with_lse=False)
 
 
 tied_row_attention_reference.calls = 0
 
 
-def tied_row_attention(
-    q: torch.Tensor,  # (B, R, Nq, H, D), padded entries pre-zeroed
-    k: torch.Tensor,  # (B, R, Nk, H, D)
-    v: torch.Tensor,
-    q_mask: Optional[torch.Tensor] = None,  # (B, Nq) shared query mask
-    kv_mask: Optional[torch.Tensor] = None,  # (B, Nk) shared column mask
-    sm_scale: float = 1.0,
-    tie_scale: Union[None, float, torch.Tensor] = None,
-) -> torch.Tensor:
-    """Tied-row attention; returns (B, R, Nq, H, D) in q's dtype. CUDA
-    operands must be contiguous."""
+def tied_row_attention_lse_reference(q, k, v, q_mask=None, kv_mask=None, sm_scale=1.0,
+                                     tie_scale=None):
+    """The plain version of the training forward: (out, lse), lse the
+    (B, H, Nq) f32 logsumexp of each row's shared scaled logits over its
+    valid keys, +inf for a row with none."""
+    tied_row_attention_lse_reference.calls += 1
+    return _attend(q, k, v, q_mask, kv_mask, sm_scale, tie_scale, with_lse=True)
+
+
+tied_row_attention_lse_reference.calls = 0
+
+
+def _p_ds(q, k, v, dout, lse, dsum, q_mask, kv_mask, scale):
+    """Recomputed probabilities and ds = p * (dO'.V' - dsum), ds rounded to
+    the operand dtype as the kernels round it."""
+    p = recomputed_probabilities(_logits(q, k, scale), lse, q_mask, kv_mask)
+    dp = torch.einsum("brihd,brjhd->bhij", dout.float(), v.float())
+    return p, (p * (dp - dsum[..., None])).to(q.dtype).float()
+
+
+def tied_row_attention_dq_reference(q, k, v, dout, lse, dsum, q_mask=None, kv_mask=None,
+                                    sm_scale=1.0, tie_scale=None):
+    """The plain version of the dq kernel: dq = s * ds K' with s =
+    sm_scale * tie_scale[b] (f32 arithmetic, ds rounded to the operand
+    dtype first)."""
+    tied_row_attention_dq_reference.calls += 1
+    scale = _scale(q, sm_scale, tie_scale)
+    _, ds = _p_ds(q, k, v, dout, lse, dsum, q_mask, kv_mask, scale)
+    dq = torch.einsum("bhij,brjhd->brihd", ds, k.float())
+    return (dq * scale[:, None, None, None, None]).to(q.dtype)
+
+
+tied_row_attention_dq_reference.calls = 0
+
+
+def tied_row_attention_dkv_reference(q, k, v, dout, lse, dsum, q_mask=None, kv_mask=None,
+                                     sm_scale=1.0, tie_scale=None):
+    """The plain version of the dk/dv kernel: (dk, dv) = (s * ds^T Q',
+    p^T dO'), p and ds rounded to the operand dtype first."""
+    tied_row_attention_dkv_reference.calls += 1
+    scale = _scale(q, sm_scale, tie_scale)
+    p, ds = _p_ds(q, k, v, dout, lse, dsum, q_mask, kv_mask, scale)
+    dv = torch.einsum("bhij,brihd->brjhd", p.to(q.dtype).float(), dout.float())
+    dk = torch.einsum("bhij,brihd->brjhd", ds, q.float()) * scale[:, None, None, None, None]
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+tied_row_attention_dkv_reference.calls = 0
+
+
+def tied_row_dsum(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """dsum[b, h, i] = sum over the whole fused (r, d) axis of out * dO, in
+    f32, (B, H, Nq): not per row, since the rows share one softmax."""
+    return torch.einsum("brihd,brihd->bhi", out.float(), dout.float())
+
+
+def _check(q, k, v, q_mask, kv_mask):
     if q.dim() != 5 or k.dim() != 5 or k.shape != v.shape:
         raise ValueError("q, k, v must be (B, R, N, H, D), k and v alike")
     b, r, nq, h, d = q.shape
@@ -101,40 +176,162 @@ def tied_row_attention(
     for name, m, n in (("q_mask", q_mask, nq), ("kv_mask", kv_mask, nk)):
         if m is not None and (m.dtype != torch.bool or tuple(m.shape) != (b, n)):
             raise ValueError(f"{name} must be bool ({b}, {n})")
-    if q.device.type == "cpu":
-        return tied_row_attention_reference(
-            q, k, v, q_mask, kv_mask, sm_scale, tie_scale
-        )
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"tied_row_attention runs on cuda or cpu, not {q.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "tied_row_attention has no backward kernel on the card yet: train "
-            "with model.msa_tie_row_attn=False (the training default)"
-        )
+
+
+def _cuda_operands(q, k, v, q_mask, kv_mask, tie_scale, what):
+    """Checks the CUDA routes share; returns (tie (B,) f32, contiguous
+    masks)."""
     if any(t.device != q.device for t in (k, v) + tuple(
             m for m in (q_mask, kv_mask) if m is not None)):
-        raise ValueError("tied_row_attention operands must share one device")
+        raise ValueError(f"{what} operands must share one device")
     if not all(t.is_contiguous() for t in (q, k, v)):
-        raise ValueError("tied_row_attention needs contiguous (B, R, N, H, D) operands")
-    if nk == 0:
-        raise ValueError("tied_row_attention needs at least one key")
-    tie = _tie_vector(tie_scale, b, r, q.device)
-    masks = [m.contiguous() if m is not None else None for m in (q_mask, kv_mask)]
+        raise ValueError(f"{what} needs contiguous (B, R, N, H, D) operands")
+    if k.shape[2] == 0:
+        raise ValueError(f"{what} needs at least one key")
+    tie = _tie_vector(tie_scale, q.shape[0], q.shape[1], q.device)
+    return tie, [m.contiguous() if m is not None else None for m in (q_mask, kv_mask)]
+
+
+def _launch_forward(q, k, v, q_mask, kv_mask, sm_scale, tie_scale, with_lse):
+    """K2 on CUDA tensors: out, and the (B, H, Nq) f32 lse when asked."""
+    tie, masks = _cuda_operands(q, k, v, q_mask, kv_mask, tie_scale, "tied_row_attention")
+    b, r, nq, h, d = q.shape
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if out.numel() == 0:
-        return out
+        return out, lse
     lib = build.library("tied_row_attention")
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.af2_tied_row_attention(
-            _DTYPES[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(out),
-            _ptr(masks[0]), _ptr(masks[1]), _ptr(tie),
-            b, r, h, nq, nk, d, float(sm_scale), ctypes.c_void_p(stream),
-        )
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        head = (_DTYPES[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(out))
+        tail = (_ptr(masks[0]), _ptr(masks[1]), _ptr(tie), b, r, h, nq, k.shape[2], d,
+                float(sm_scale), stream)
+        if with_lse:
+            code = lib.af2_tied_row_attention_lse(*head, _ptr(lse), *tail)
+        else:
+            code = lib.af2_tied_row_attention(*head, *tail)
     build.check(lib, code, "tied_row_attention")
     tied_row_attention.launches += 1
-    return out
+    return out, lse
+
+
+def tied_row_attention_lse(q, k, v, q_mask=None, kv_mask=None, sm_scale=1.0,
+                           tie_scale=None):
+    """K2's training forward: (out, lse). Not differentiable itself:
+    :class:`TiedRowAttention` wraps it."""
+    _check(q, k, v, q_mask, kv_mask)
+    if q.device.type == "cpu":
+        return tied_row_attention_lse_reference(q, k, v, q_mask, kv_mask, sm_scale, tie_scale)
+    return _launch_forward(q, k, v, q_mask, kv_mask, sm_scale, tie_scale, with_lse=True)
+
+
+def _launch_backward(which, outs, q, k, v, dout, lse, dsum, q_mask, kv_mask, sm_scale,
+                     tie_scale):
+    tie, masks = _cuda_operands(q, k, v, q_mask, kv_mask, tie_scale,
+                                f"tied_row_attention_{which}")
+    dout = dout.contiguous()
+    b, r, nq, h, d = q.shape
+    if b * r * nq * h * d == 0:
+        for o in outs:
+            o.zero_()
+        return
+    slots = (outs[0], k, v) if which == "dq" else (q, *outs)
+    # (batch, head, token, row group) strides of (B, R, N, H, D) operands
+    strides = [x for t in (q, k, v, dout, *slots)
+               for x in (t.stride(0), t.stride(3), t.stride(2), t.stride(1))]
+    launch_chunked_backward(which, outs, q, k, v, dout, lse.contiguous(), dsum.contiguous(),
+                            masks, tie, strides, (b, h, nq, k.shape[2], r * d, d), sm_scale)
+
+
+def _check_grad_operands(q, dout, lse, dsum):
+    b, r, nq, h, _ = q.shape
+    if dout.shape != q.shape or dout.dtype != q.dtype or dout.device != q.device:
+        raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} does not match q")
+    for name, t in (("lse", lse), ("dsum", dsum)):
+        if t.shape != (b, h, nq) or t.dtype != torch.float32 or t.device != q.device:
+            raise ValueError(f"{name} must be f32 ({b}, {h}, {nq}) on q's device")
+
+
+def tied_row_attention_dq(q, k, v, dout, lse, dsum, q_mask=None, kv_mask=None,
+                          sm_scale=1.0, tie_scale=None):
+    """K2's backward, dq (B, R, Nq, H, D) in q's dtype, from the forward's
+    ``lse`` and ``dsum = tied_row_dsum(out, dout)``."""
+    _check(q, k, v, q_mask, kv_mask)
+    _check_grad_operands(q, dout, lse, dsum)
+    if q.device.type == "cpu":
+        return tied_row_attention_dq_reference(q, k, v, dout, lse, dsum, q_mask, kv_mask,
+                                               sm_scale, tie_scale)
+    dq = torch.empty_like(q)
+    _launch_backward("dq", (dq,), q, k, v, dout, lse, dsum, q_mask, kv_mask, sm_scale,
+                     tie_scale)
+    tied_row_attention_dq.launches += 1
+    return dq
+
+
+tied_row_attention_dq.launches = 0
+
+
+def tied_row_attention_dkv(q, k, v, dout, lse, dsum, q_mask=None, kv_mask=None,
+                           sm_scale=1.0, tie_scale=None):
+    """K2's backward, (dk, dv), each (B, R, Nk, H, D) in k's dtype."""
+    _check(q, k, v, q_mask, kv_mask)
+    _check_grad_operands(q, dout, lse, dsum)
+    if q.device.type == "cpu":
+        return tied_row_attention_dkv_reference(q, k, v, dout, lse, dsum, q_mask, kv_mask,
+                                                sm_scale, tie_scale)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch_backward("dkv", (dk, dv), q, k, v, dout, lse, dsum, q_mask, kv_mask, sm_scale,
+                     tie_scale)
+    tied_row_attention_dkv.launches += 1
+    return dk, dv
+
+
+tied_row_attention_dkv.launches = 0
+
+
+class TiedRowAttention(torch.autograd.Function):
+    """K2 with the row logsumexp forward, the two tied backward kernels
+    backward (or, on the CPU, their plain versions). ``tie`` is a (B,) f32
+    tensor that carries no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_mask, kv_mask, sm_scale, tie):
+        out, lse = tied_row_attention_lse(q, k, v, q_mask, kv_mask, sm_scale, tie)
+        ctx.save_for_backward(q, k, v, out, lse, q_mask, kv_mask, tie)
+        ctx.sm_scale = sm_scale
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out, lse, q_mask, kv_mask, tie = ctx.saved_tensors
+        args = (q, k, v, dout, lse, tied_row_dsum(out, dout), q_mask, kv_mask, ctx.sm_scale,
+                tie)
+        return (tied_row_attention_dq(*args), *tied_row_attention_dkv(*args), None, None,
+                None, None)
+
+
+def tied_row_attention(
+    q: torch.Tensor,  # (B, R, Nq, H, D), padded entries pre-zeroed
+    k: torch.Tensor,  # (B, R, Nk, H, D)
+    v: torch.Tensor,
+    q_mask: Optional[torch.Tensor] = None,  # (B, Nq) shared query mask
+    kv_mask: Optional[torch.Tensor] = None,  # (B, Nk) shared column mask
+    sm_scale: float = 1.0,
+    tie_scale: Union[None, float, torch.Tensor] = None,
+) -> torch.Tensor:
+    """Tied-row attention; returns (B, R, Nq, H, D) in q's dtype,
+    differentiable in q, k and v. CUDA operands must be contiguous."""
+    _check(q, k, v, q_mask, kv_mask)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        tie = _tie_vector(tie_scale, q.shape[0], q.shape[1], q.device).detach()
+        return TiedRowAttention.apply(q, k, v, q_mask, kv_mask, sm_scale, tie)
+    if q.device.type == "cpu":
+        return tied_row_attention_reference(q, k, v, q_mask, kv_mask, sm_scale, tie_scale)
+    return _launch_forward(q, k, v, q_mask, kv_mask, sm_scale, tie_scale, with_lse=False)[0]
 
 
 tied_row_attention.launches = 0

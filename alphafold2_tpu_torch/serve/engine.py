@@ -47,6 +47,7 @@ class ServeResult:
     atom14: Optional[np.ndarray] = None  # (L, 14, 3) refined all-atom coords
     backbone: Optional[np.ndarray] = None  # (L, 3, 3) N/CA/C
     weights: Optional[np.ndarray] = None  # (3L, 3L) distogram confidence
+    distogram: Optional[np.ndarray] = None  # (3L, 3L, K) logits if requested
     latency_s: float = 0.0  # wall time of the dispatch that carried it
     status: str = "ok"
     error: Optional[str] = None
@@ -125,7 +126,8 @@ class ServeEngine:
         }
 
     def _run(self, bucket: int, items: list) -> dict:
-        """One forward over a stacked batch; returns host arrays."""
+        """One forward over a stacked batch; returns host arrays (the
+        distogram logits too with ``serve.return_distogram``)."""
         stacked = {k: np.stack([it[k] for it in items]) for k in items[0]}
         dev = self.device
 
@@ -135,9 +137,10 @@ class ServeEngine:
         with torch.inference_mode():
             out = self.model(t("seq").long(), t("msa").long(), mask=t("mask"),
                              msa_mask=t("msa_mask"))
-            refined = out["refined"].float().cpu().numpy()
-            weights = out["weights"].float().cpu().numpy()
-        return {"refined": refined, "weights": weights}
+            picked = {"refined": out["refined"], "weights": out["weights"]}
+            if self.cfg.serve.return_distogram:
+                picked["distogram"] = out["distogram"]
+            return {k: v.float().cpu().numpy() for k, v in picked.items()}
 
     def _dispatch(self, bucket: int, reqs: list) -> list:
         batch = self._padded_batch(len(reqs))
@@ -160,12 +163,15 @@ class ServeEngine:
                                 status="error", error=msg) for r in reqs]
         dt = time.perf_counter() - t0
         results = []
+        disto = out.get("distogram")
         for slot, r in enumerate(reqs):
             L = len(r.seq)
             atom14 = out["refined"][slot, :L]
             results.append(ServeResult(
                 seq=r.seq, bucket=bucket, atom14=atom14, backbone=atom14[:, :3],
-                weights=out["weights"][slot, : 3 * L, : 3 * L], latency_s=dt,
+                weights=out["weights"][slot, : 3 * L, : 3 * L],
+                distogram=disto[slot, : 3 * L, : 3 * L] if disto is not None else None,
+                latency_s=dt,
             ))
         return results
 

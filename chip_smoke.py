@@ -33,19 +33,40 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
               negative control that drops each row's last key tile (dq) or
               query tile (dk, dv); two runs bit-identical; SDPA's backward
               as the yardstick;
-4. serve    — a ServeEngine at full model width (dim 256, depth 6, heads 8,
-              dim_head 64, bf16 compute, tied MSA rows, buckets 64/96/128,
-              batch 4) serves six requests; launch counts must show both
-              forward kernels on the path and no plain-version call; a
-              request served alone and in a batch must agree; a small model
-              must agree between the card and the CPU's plain versions;
+3b. head dims — K1, K1 with lse, K3a and K3b at head dims 48 (zero-padded
+              to 64) and 256 (D-chunked) against their plain versions, f32
+              and bf16; the autograd route through the kernels alone, bit
+              for bit the direct calls;
+3c. tied    — K2 with the row logsumexp and K2's backward (dq; dk and dv,
+              csrc/tied_row_attention_bwd.cu) against their plain versions
+              at the tied training shape (1x5x64x8x64, R*D 320) and JAX's
+              gate shape (1x8x256x4x64, R*D 512), f32 and bf16, with ragged
+              rows and masked columns; a negative control per kernel that
+              drops the last 64-wide feature chunk; two backward runs
+              bit-identical; the autograd route through the kernels alone;
+              SDPA on the folded (B, H, N, R*D) tensors as the yardstick,
+              with the backend that takes that head dim named;
+4. serve    — a small model must agree between the card and the CPU's
+              plain versions; the refiner's streamed edge attention must
+              agree with its dense path on the card (f32, threshold
+              lowered); a ServeEngine at full model width (dim 256, depth
+              6, heads 8, dim_head 64, bf16 compute, tied MSA rows, the
+              default ladder 64/96/128/192/256 at batch 4, buckets 192 and
+              256 streaming the refiner) warms up every bucket and serves
+              twelve requests of 50-256 residues; launch counts must show
+              both forward kernels on the path and no plain-version call; a
+              request served alone and in a batch must agree; one request
+              with serve.return_distogram must bring back (3L, 3L, 37)
+              logits; a bucket-128 and a bucket-256 batch are profiled;
 5. train    — distogram pretraining at the same width (untied MSA rows,
               crop 128, MSA 5x64, batch 1, accumulation 16): 32 steps whose
               launch counts must show K1, K3a and K3b on every attention and
               no plain-version call, the first accumulated update at lr 0;
               20 steps on one repeated batch whose loss must fall; a small
               f32 model whose gradients must agree between the card and the
-              CPU; one step under torch.profiler;
+              CPU; one step under torch.profiler; then all of it again with
+              model.msa_tie_row_attn=True (K2 with lse and K2's backward on
+              every MSA row pass);
 6. sparse   — the block-sparse kernels K4 (forward, with and without the
               row logsumexp), K5a (dq) and K5b (dk, dv) against their plain
               versions per tensor at the sparse training path's pair pass
@@ -158,9 +179,6 @@ def _log_gate(records, summary):
     from alphafold2_tpu_torch.analysis import lowering
 
     for rec in records:
-        if rec["status"] == "not_ported":
-            log(f"[gate] {rec['case']}: not_ported ({rec['reason']})")
-            continue
         if rec["case"] == lowering.CONTROL_CASE:
             log(f"[gate] {rec['case']}: nvcc exit {rec['nvcc_exit']}, "
                 f"{'refused' if rec['rejected'] else 'NOT REFUSED'}: "
@@ -205,8 +223,6 @@ def phase_gate():
         log(f"[gate] build gate: {summary['cases']} cases in {time.perf_counter() - t0:.1f} s")
         check(not summary["failed"], f"build gate failed: {summary['failed']}")
         check(summary["control_rejected"], "the mis-tiled control was not refused by ptxas")
-        check(summary["not_ported"] == ["tied_row_bwd_256"],
-              f"not-ported cases {summary['not_ported']}")
 
     # X at its own shape: the path is one launch at (4, 512) f32
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -868,8 +884,6 @@ def combine_case(label, b, h, nq, nk, d, q_mask, kv_mask, gen):
 def phase_backward():
     import torch
 
-    from alphafold2_tpu_torch.ops.cuda.tied_row import tied_row_attention
-
     gen = torch.Generator(device="cuda").manual_seed(1)
     f32, bf16 = torch.float32, torch.bfloat16
     rows = []
@@ -899,14 +913,239 @@ def phase_backward():
         require(bool(torch.isfinite(g).all()) and bool((g[0] == 0).all()),
                 "a row with no valid key has nonzero or non-finite gradients")
     log("[backward] rows with no valid key: gradients exactly 0, all finite")
-    # K2 has no backward kernel: with grad it must raise, never return an
-    # output that carries no gradient
-    qt = torch.randn((1, 2, 8, 2, 16), device="cuda", generator=gen, requires_grad=True)
-    try:
-        tied_row_attention(qt, qt, qt)
-        raise PhaseError("tied_row_attention on the card returned an output under grad")
-    except NotImplementedError:
-        log("[backward] tied_row_attention under grad on the card raises NotImplementedError")
+    return rows
+
+
+# --------------------------------------------------------------- phase 3b
+
+
+HEAD_DIM_CASES = (48, 256)  # padded to 64; D-chunked past 128
+
+
+def head_dim_case(d, dtype, gen):
+    """K1, K1 with lse, K3a and K3b at a head dim no kernel is built for,
+    each against its plain version (k1_case, k3_case); then the autograd
+    route, which must launch K1 (lse), K3a and K3b once each, call no plain
+    version, and give the direct calls' results bit for bit."""
+    import torch
+
+    from alphafold2_tpu_torch.ops.cuda import axial
+
+    b, h, nq, nk = 2, 4, 200, 150
+    label = f"head dim {d} (2x4, 200x150)"
+    qm, km = _prefix(nq, [200, 123]), _prefix(nk, [150, 77])
+    rows = k3_case(label, b, h, nq, nk, d, dtype, qm, km, reps=0, gen=gen)
+    rows.append(k1_case(label, b, h, nq, nk, d, dtype, qm, km, reps=0, gen=gen))
+    q, k, v, do = _grad_operands(b, h, nq, nk, d, dtype, gen, strided=True)
+    scale = d**-0.5
+    plain = (axial.fused_attention_reference, axial.fused_attention_lse_reference,
+             axial.fused_attention_dq_reference, axial.fused_attention_dkv_reference)
+    wrappers = (axial.fused_attention, axial.fused_attention_dq, axial.fused_attention_dkv)
+    calls, launches = [f.calls for f in plain], [f.launches for f in wrappers]
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = axial.fused_attention(*leaves, q_mask=qm, kv_mask=km, sm_scale=scale)
+    out.backward(do)
+    torch.cuda.synchronize()
+    ran = [f.launches - n for f, n in zip(wrappers, launches)]
+    require(ran == [1, 1, 1], f"{label}: the autograd route launched {ran} (K1, K3a, K3b)")
+    require([f.calls for f in plain] == calls, f"{label}: a plain version ran on the card")
+    out2, lse = axial.fused_attention_lse(q, k, v, qm, km, scale)
+    args = (q, k, v, do, lse, axial.attention_dsum(out2, do), qm, km, scale)
+    dk, dv = axial.fused_attention_dkv(*args)
+    require(torch.equal(out.detach(), out2) and torch.equal(leaves[0].grad,
+                                                            axial.fused_attention_dq(*args))
+            and torch.equal(leaves[1].grad, dk) and torch.equal(leaves[2].grad, dv),
+            f"{label}: the autograd route differs from the direct kernel calls")
+    log(f"[head dims] {label} {rows[0]['dtype']}: through kernels only, at head dim "
+        f"{axial.kernel_head_dim(d)}; autograd route bit-identical to the direct calls")
+    return rows
+
+
+def phase_head_dims():
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for d in HEAD_DIM_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            rows += head_dim_case(d, dt, gen)
+    return rows
+
+
+# --------------------------------------------------------------- phase 3c
+
+
+# K2's shapes (b, r, n, h, d) under grad: the tied training path (MSA 5 x 64,
+# 8 heads, R*D 320; 6 layers, one call each a step) and JAX's gate case
+# case_tied_row_bwd (R*D 512)
+TIED_TRAIN_LABEL = "tied rows, training (1x5x64x8x64, R*D 320)"
+TIED_CASES = {TIED_TRAIN_LABEL: (1, 5, 64, 8, 64),
+              "tied rows, gate (1x8x256x4x64, R*D 512)": (1, 8, 256, 4, 64)}
+
+
+def _tied_operands(b, r, n, h, d, dtype, gen):
+    """q, k, v, dO (B, R, N, H, D) and the shared mask and tie scale as
+    ops/attention.py builds them: the last n/8 columns masked, row 1 ragged
+    (half as long), a middle row absent (the last row keeps its data, which
+    the feature-chunk controls drop), padded entries of q, k, v zeroed, the
+    tie scale counting the voting rows."""
+    import torch
+
+    rows = torch.ones((b, r, n), dtype=torch.bool, device="cuda")
+    rows[:, :, n - n // 8:] = False
+    rows[:, 1, n // 2:] = False
+    rows[:, r // 2] = False
+    q, k, v, do = (torch.randn((b, r, n, h, d), device="cuda", generator=gen)
+                   for _ in range(4))
+    q, k, v = (t * rows[..., None, None] for t in (q, k, v))
+    tie = rows.any(-1).sum(-1).clamp_min(1).float() ** -0.5
+    return (*(t.to(dtype).contiguous() for t in (q, k, v, do)), rows.any(1), tie)
+
+
+def _drop_last_chunk(t, chunk=64):
+    """A copy of (B, R, N, H, D) ``t`` whose last ``chunk`` fused features
+    (f = r*D + d) are 0: what a kernel that skipped its last feature chunk
+    would read."""
+    t = t.clone()
+    r, d = t.shape[1], t.shape[-1]
+    for row in range(r):
+        lo = max(0, r * d - chunk - row * d)
+        if lo < d:
+            t[:, row, ..., lo:] = 0
+    return t
+
+
+def _sdpa_backend(fn):
+    """The first SDPA backend (flash, memory-efficient, cuDNN, math) that
+    runs ``fn``, or None."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                fn()
+                torch.cuda.synchronize()
+            return backend
+        except RuntimeError:
+            continue
+    return None
+
+
+def tied_case(label, b, r, n, h, d, dtype, gen, reps=3, library=False):
+    """K2 with lse, and K2's backward (dq; dk and dv), at one tied shape,
+    each against its plain version; a negative control per kernel (the
+    last feature chunk dropped from its recomputation); two backward runs
+    bit-identical; the autograd route through the kernels alone. Returns
+    result rows for the three kernels."""
+    import torch
+    import torch.nn.functional as F
+
+    from alphafold2_tpu_torch.ops.cuda import tied_row as tr
+
+    q, k, v, do, mask, tie = _tied_operands(b, r, n, h, d, dtype, gen)
+    scale = d**-0.5
+    forward = lambda: tr.tied_row_attention_lse(q, k, v, mask, mask, scale, tie)
+    out, lse = forward()
+    torch.cuda.synchronize()
+    ref_out, ref_lse = tr.tied_row_attention_lse_reference(q, k, v, mask, mask, scale, tie)
+    fwd = _compare(label, "tied_row_attention (lse)", out, ref_out, dtype)
+    _check_lse(label, lse, ref_lse, "tied_row_attention (lse)")
+    _control(label, "tied_row_attention (lse)",
+             tr.tied_row_attention_lse(_drop_last_chunk(q), k, v, mask, mask, scale, tie)[0],
+             ref_out, dtype, tile="feature")
+    dsum = tr.tied_row_dsum(out, do)
+    args = (q, k, v, do, lse, dsum, mask, mask, scale, tie)
+    dq = tr.tied_row_attention_dq(*args)
+    dk, dv = tr.tied_row_attention_dkv(*args)
+    torch.cuda.synchronize()
+    rq = tr.tied_row_attention_dq_reference(*args)
+    rk, rv = tr.tied_row_attention_dkv_reference(*args)
+    row_q = _compare(label, "tied_row_attention_bwd_dq", dq, rq, dtype)
+    row_k = _compare(label, "tied_row_attention_bwd_dkv dk", dk, rk, dtype)
+    row_v = _compare(label, "tied_row_attention_bwd_dkv dv", dv, rv, dtype)
+    row_kv = dict(row_k, kernel="tied_row_attention_bwd_dkv",
+                  max_abs_err=max(row_k["max_abs_err"], row_v["max_abs_err"]))
+    require(torch.equal(dq, tr.tied_row_attention_dq(*args)), f"{label}: dq not deterministic")
+    dk2, dv2 = tr.tied_row_attention_dkv(*args)
+    require(torch.equal(dk, dk2) and torch.equal(dv, dv2), f"{label}: dk/dv not deterministic")
+    # negative controls: q and dO feed only S and dO.V^T in the dq kernel, k
+    # and v only S and dO.V^T in the dk/dv kernel
+    short = tr.tied_row_attention_dq(_drop_last_chunk(q), k, v, _drop_last_chunk(do), lse,
+                                     dsum, mask, mask, scale, tie)
+    _control(label, "tied_row_attention_bwd_dq", short, rq, dtype, tile="feature")
+    sk, sv = tr.tied_row_attention_dkv(q, _drop_last_chunk(k), _drop_last_chunk(v), do, lse,
+                                       dsum, mask, mask, scale, tie)
+    _control(label, "tied_row_attention_bwd_dkv dk", sk, rk, dtype, tile="feature")
+    _control(label, "tied_row_attention_bwd_dkv dv", sv, rv, dtype, tile="feature")
+    # the autograd route: K2 (lse), then both backward kernels, nothing else
+    wrappers = (tr.tied_row_attention, tr.tied_row_attention_dq, tr.tied_row_attention_dkv)
+    before = [f.launches for f in wrappers]
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    tr.tied_row_attention(*leaves, q_mask=mask, kv_mask=mask, sm_scale=scale,
+                          tie_scale=tie).backward(do)
+    ran = [f.launches - n0 for f, n0 in zip(wrappers, before)]
+    require(ran == [1, 1, 1], f"{label}: the autograd route launched {ran}")
+    require(all(torch.equal(a.grad, x) for a, x in zip(leaves, (dq, dk, dv))),
+            f"{label}: the autograd route differs from the direct kernel calls")
+    log(f"[tied] {label} {fwd['dtype']}: autograd route bit-identical to the direct calls")
+    # bounds: each of q, k, v, dO read once, each output written once
+    nv = mask.sum(1).double()
+    pairs = h * float((nv * nv).sum())
+    f_ = r * d
+    es = q.element_size()
+    operand = b * r * n * h * d * es
+    stats = 4 * b * h * n
+    fwd.update(_bound(4.0 * f_ * pairs, 4 * operand + stats + 2 * b * n, dtype))
+    row_q.update(_bound(6.0 * f_ * pairs, 5 * operand + 2 * stats + 2 * b * n, dtype))
+    row_kv.update(_bound(8.0 * f_ * pairs, 6 * operand + 2 * stats + 2 * b * n, dtype))
+    if reps:
+        fwd["ms"] = cuda_ms(forward, reps)
+        row_q["ms"] = cuda_ms(lambda: tr.tied_row_attention_dq(*args), reps)
+        row_kv["ms"] = cuda_ms(lambda: tr.tied_row_attention_dkv(*args), reps)
+        fwd["plain_ms"] = cuda_ms(lambda: tr.tied_row_attention_lse_reference(
+            q, k, v, mask, mask, scale, tie), reps)
+        row_q["plain_ms"] = cuda_ms(lambda: tr.tied_row_attention_dq_reference(*args), reps)
+        row_kv["plain_ms"] = cuda_ms(lambda: tr.tied_row_attention_dkv_reference(*args), reps)
+        if library:
+            # SDPA on the folded (B, H, N, R*D) tensors, the tie scale in q
+            from torch.nn.attention import sdpa_kernel
+
+            fold = lambda t: t.permute(0, 3, 2, 1, 4).reshape(b, h, n, r * d)
+            qf = (fold(q).float() * tie[:, None, None, None]).to(dtype)
+            leaves = [t.detach().requires_grad_() for t in (qf, fold(k), fold(v))]
+            am = mask[:, None, None, :]
+            sdpa = lambda *t: F.scaled_dot_product_attention(*t, attn_mask=am, scale=scale)
+            backend = _sdpa_backend(lambda: sdpa(*leaves).backward(fold(do)))
+            fwd["library"] = row_q["library"] = row_kv["library"] = (
+                backend.name if backend is not None else None)
+            if backend is None:
+                fwd["library_ms"] = row_q["library_ms"] = row_kv["library_ms"] = None
+            else:
+                with sdpa_kernel([backend]):
+                    o = sdpa(*leaves)
+                    g = fold(do)
+                    fwd["library_ms"] = cuda_ms(lambda: sdpa(*(t.detach() for t in leaves)),
+                                                reps)
+                    row_q["library_ms"] = row_kv["library_ms"] = cuda_ms(
+                        lambda: torch.autograd.grad(o, leaves, g, retain_graph=True), reps)
+            log(f"[tied] {label} {fwd['dtype']}: SDPA takes head dim {r * d} on its "
+                f"{fwd['library']} backend")
+    return [fwd, row_q, row_kv]
+
+
+def phase_tied():
+    """K2 with lse and K2's backward at the tied training shape and the
+    gate's shape, f32 and bf16."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows = []
+    for dt in (torch.bfloat16, torch.float32):
+        for label, shape in TIED_CASES.items():
+            timed = dt == torch.bfloat16 and label == TIED_TRAIN_LABEL
+            rows += tied_case(label, *shape, dt, gen, reps=10 if timed else 0, library=timed)
     return rows
 
 
@@ -917,9 +1156,11 @@ def _params(model):
     return [p.detach().clone() for p in model.parameters()]
 
 
-def phase_train(sparse=False):
+def phase_train(sparse=False, tied=False):
     """The training checks at the slice configuration; with ``sparse``,
-    model.sparse_self_attn=True (log tag ``[sparse train]``)."""
+    model.sparse_self_attn=True (log tag ``[sparse train]``), with ``tied``
+    model.msa_tie_row_attn=True (``[tied train]``: the MSA row pass through
+    K2 with lse and K2's backward)."""
     import itertools
 
     import numpy as np
@@ -930,10 +1171,11 @@ def phase_train(sparse=False):
     from alphafold2_tpu_torch.ops.cuda import axial, block_sparse, tied_row
     from alphafold2_tpu_torch.train import loop
 
-    tag = "[sparse train]" if sparse else "[train]"
+    tag = "[sparse train]" if sparse else "[tied train]" if tied else "[train]"
     plain = (axial.fused_attention_reference, axial.fused_attention_lse_reference,
              axial.fused_attention_dq_reference, axial.fused_attention_dkv_reference,
-             tied_row.tied_row_attention_reference,
+             tied_row.tied_row_attention_reference, tied_row.tied_row_attention_lse_reference,
+             tied_row.tied_row_attention_dq_reference, tied_row.tied_row_attention_dkv_reference,
              block_sparse.block_sparse_attention_reference,
              block_sparse.block_sparse_attention_lse_reference,
              block_sparse.block_sparse_attention_dq_reference,
@@ -942,6 +1184,9 @@ def phase_train(sparse=False):
                "fused_attention_combine": axial.fused_attention_combine,
                "fused_attention_bwd_dq": axial.fused_attention_dq,
                "fused_attention_bwd_dkv": axial.fused_attention_dkv,
+               "tied_row_attention": tied_row.tied_row_attention,
+               "tied_row_attention_bwd_dq": tied_row.tied_row_attention_dq,
+               "tied_row_attention_bwd_dkv": tied_row.tied_row_attention_dkv,
                "block_sparse_attention": block_sparse.block_sparse_attention_lse,
                "block_sparse_attention (no lse)": block_sparse.block_sparse_attention,
                "block_sparse_attention_bwd_dq": block_sparse.block_sparse_attention_dq,
@@ -950,6 +1195,7 @@ def phase_train(sparse=False):
     # (a) the slice configuration: 32 steps = 2 accumulated updates
     cfg = Config()
     cfg.model.sparse_self_attn = sparse
+    cfg.model.msa_tie_row_attn = tied
     depth = cfg.model.depth
     steps = 2 * cfg.train.gradient_accumulate_every
     snap, changed, times, losses, oks = {}, [], [], [], []
@@ -991,10 +1237,12 @@ def phase_train(sparse=False):
     require(bool(np.isfinite(losses).all()), "non-finite training loss")
     require(all(ok for ok, _ in oks) and oks[-1][1] == 0, "a training step was skipped")
     # every attention's forward runs K1, or K4 for the pair axial passes of a
-    # sparse model; every attention whose output reaches the loss runs the
-    # backward (the last layer's MSA<-pair update does not)
+    # sparse model, or K2 for the tied MSA row pass; every attention whose
+    # output reaches the loss runs the backward (the last layer's MSA<-pair
+    # update does not)
     sparse_calls = 2 * depth if sparse else 0
-    require(launches["fused_attention"] == (6 * depth - sparse_calls) * steps,
+    tied_calls = depth if tied else 0
+    require(launches["fused_attention"] == (6 * depth - sparse_calls - tied_calls) * steps,
             "K1 launches per step")
     require(axial.fused_attention.sm90_launches == launches["fused_attention"],
             "a K1 launch of the training path did not run attention_kernel_sm90")
@@ -1002,8 +1250,11 @@ def phase_train(sparse=False):
     require(launches["fused_attention_combine"] == depth * steps,
             "K1 combine launches per step")
     for name in ("fused_attention_bwd_dq", "fused_attention_bwd_dkv"):
-        require(launches[name] == (6 * depth - 1 - sparse_calls) * steps,
+        require(launches[name] == (6 * depth - 1 - sparse_calls - tied_calls) * steps,
                 f"{name} launches per step")
+    for name in ("tied_row_attention", "tied_row_attention_bwd_dq",
+                 "tied_row_attention_bwd_dkv"):
+        require(launches[name] == tied_calls * steps, f"{name} launches per step")
     for name in ("block_sparse_attention", "block_sparse_attention_bwd_dq",
                  "block_sparse_attention_bwd_dkv"):
         require(launches[name] == sparse_calls * steps, f"{name} launches per step")
@@ -1018,6 +1269,7 @@ def phase_train(sparse=False):
     # (b) no accumulation, warmup 1, one repeated batch: the loss must fall
     cfg_b = Config()
     cfg_b.model.sparse_self_attn = sparse
+    cfg_b.model.msa_tie_row_attn = tied
     cfg_b.train.gradient_accumulate_every = 1
     cfg_b.train.warmup_steps = 1
     batch = next(iter(SyntheticDataset(cfg_b.data, seed=cfg_b.train.seed)))
@@ -1037,6 +1289,7 @@ def phase_train(sparse=False):
             64, 2, 4, 16)
         small.model.bfloat16 = False
         small.model.sparse_self_attn = sparse
+        small.model.msa_tie_row_attn = tied
         small.data.crop_len, small.data.msa_depth, small.data.msa_len = crop, 3, 32
         small.data.batch_size = 2
         batch = next(iter(SyntheticDataset(small.data, seed=3)))
@@ -1077,8 +1330,8 @@ def phase_train(sparse=False):
     step_ms = (time.perf_counter() - t0) / STEP_REPS * 1e3
     log(f"{tag} the step alone, {STEP_REPS} steps: {step_ms:.2f} ms per step, "
         f"{1e3 / step_ms:.2f} steps/s")
-    profile_device(f"one {'sparse ' if sparse else ''}training step", lambda: step(st, b),
-                   host=True)
+    kind = "sparse " if sparse else "tied " if tied else ""
+    profile_device(f"one {kind}training step", lambda: step(st, b), host=True)
     return {"launches": launches, "steps": steps, "wall_s": wall,
             "step_ms": step_ms, "peak_bytes": peak}
 
@@ -1378,6 +1631,55 @@ def phase_reference():
         require(r <= 0.5, "small model structure disagrees between card and CPU")
 
 
+def phase_se3_streamed():
+    """The refiner's streamed edge attention against its dense path on the
+    card, in f32, at the serving refiner's width (dim 64, 8 vector
+    channels, 4 heads) and a bucket-128 batch of 2 (1792 atoms, padded to
+    2048 in 1024-edge blocks): the threshold lowered so the same layer runs
+    both paths; valid atoms held to the f32 bound."""
+    import torch
+
+    from alphafold2_tpu_torch.models import se3
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    b, n = 2, 14 * 128
+    layer = se3.EquivariantLayer(64, 8, 4).cuda()
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.copy_(torch.randn(p.shape, device="cuda", generator=gen) * 0.2)
+    s = torch.randn((b, n, 64), device="cuda", generator=gen)
+    v = torch.randn((b, n, 8, 3), device="cuda", generator=gen)
+    coords = torch.randn((b, n, 3), device="cuda", generator=gen) * 10
+    mask = _prefix(n, [n, 14 * 97])
+    threshold = se3.CHUNK_THRESHOLD
+    require(not se3.should_chunk(b * layer.num_basis, n, n), "the dense path would stream")
+    with torch.inference_mode():
+        dense = layer(s, v, coords, mask=mask)
+        se3.CHUNK_THRESHOLD = 1
+        try:
+            t0 = time.perf_counter()
+            streamed = layer(s, v, coords, mask=mask)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            se3.CHUNK_THRESHOLD = threshold
+    for name, a, r in zip(("scalars", "vectors"), streamed, dense):
+        _compare(f"streamed vs dense, {b}x{n} atoms, valid atoms", f"SE(3) edge attention "
+                 f"{name}", a[mask], r[mask], torch.float32)
+    log(f"[se3] streamed layer ({b}x{n} atoms, {-(-n // 1024)}x{-(-n // 1024)} tiles), first "
+        f"call: {secs * 1e3:.1f} ms")
+    # one layer at a bucket-256 batch's size (4 x 3584 atoms, 4 x 4 tiles),
+    # where serving streams it at the default threshold
+    b, n = 4, 14 * 256
+    s, v, coords = (torch.randn(shape, device="cuda", generator=gen)
+                    for shape in ((b, n, 64), (b, n, 8, 3), (b, n, 3)))
+    require(se3.should_chunk(b * layer.num_basis, n, n), "bucket 256 does not stream")
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: layer(s, v, coords * 10, mask=_prefix(n, [n] * b)), reps=3)
+    log(f"[se3] streamed layer at a bucket-256 batch ({b}x{n} atoms, 4x4 tiles, f32): "
+        f"{ms:.2f} ms a layer")
+
+
 def phase_serve():
     import numpy as np
     import torch
@@ -1389,41 +1691,53 @@ def phase_serve():
         tied_row_attention, tied_row_attention_reference)
     from alphafold2_tpu_torch.serve.engine import ServeEngine, ServeRequest
 
-    cfg = Config()
+    from alphafold2_tpu_torch.constants import DISTOGRAM_BUCKETS
+    from alphafold2_tpu_torch.models import se3
+
+    cfg = Config()  # the default ladder: buckets 64, 96, 128, 192, 256 at batch 4
     cfg.model.msa_tie_row_attn = True
-    cfg.serve.buckets = (64, 96, 128)
-    cfg.serve.max_batch = 4
     cfg.serve.msa_depth = 5
-    cfg.serve.mds_iters = 200
+    require(cfg.serve.buckets == (64, 96, 128, 192, 256) and cfg.serve.max_batch == 4
+            and cfg.serve.mds_iters == 200, "ServeConfig's defaults changed")
+    streamed = [bk for bk in cfg.serve.buckets
+                if se3.should_chunk(cfg.serve.max_batch * 16, 14 * bk, 14 * bk)]
+    require(streamed == [192, 256], f"buckets {streamed} stream the SE(3) edge attention")
     t0 = time.perf_counter()
     engine = ServeEngine(cfg)
     engine.warmup()
     torch.cuda.synchronize()
-    log(f"[serve] engine built and warmed (3 buckets) in {time.perf_counter() - t0:.1f} s")
+    log(f"[serve] engine built and warmed ({len(cfg.serve.buckets)} buckets "
+        f"{cfg.serve.buckets}, refiner streamed at {streamed}) in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     rng = np.random.default_rng(7)
     alphabet = "ACDEFGHIKLMNPQRSTVWY"
-    lengths = [50, 64, 77, 96, 110, 128]
+    lengths = [50, 64, 77, 96, 110, 128, 129, 150, 192, 193, 230, 256]
     seqs = ["".join(rng.choice(list(alphabet), n)) for n in lengths]
     reqs = [ServeRequest(seq=s, seed=i) for i, s in enumerate(seqs)]
 
     for fn in (fused_attention, tied_row_attention, fused_attention_combine):
         fn.launches = 0
     fused_attention.sm90_launches = 0
-    for fn in (fused_attention_reference, tied_row_attention_reference):
+    plain = (fused_attention_reference, tied_row_attention_reference)
+    for fn in plain:
         fn.calls = 0
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    results = engine.predict_many(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    # the six requests of 50-128 residues that earlier runs served, then the
+    # six of 129-256 that only the full ladder serves, each timed alone
+    results, walls = [], []
+    for part in (reqs[:6], reqs[6:]):
+        t0 = time.perf_counter()
+        results += engine.predict_many(part)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
     launches = {"fused_attention": fused_attention.launches,
                 "fused_attention_combine": fused_attention_combine.launches,
                 "tied_row_attention": tied_row_attention.launches}
     require(fused_attention.sm90_launches == fused_attention.launches,
             f"{fused_attention.launches - fused_attention.sm90_launches} of K1's serving "
             f"launches did not run attention_kernel_sm90")
-    plain_calls = fused_attention_reference.calls + tied_row_attention_reference.calls
+    plain_calls = sum(fn.calls for fn in plain)
     peak = torch.cuda.max_memory_allocated()
 
     for r in results:
@@ -1432,10 +1746,14 @@ def phase_serve():
         require(bool(np.isfinite(r.atom14).all()), "non-finite atom14")
         log(f"[serve] {len(r.seq):4d} residues -> bucket {r.bucket}: "
             f"latency {r.latency_s * 1e3:.1f} ms")
-    residues = sum(lengths)
-    log(f"[serve] {len(reqs)} requests, {residues} residues, {engine.counters['batches']} "
-        f"batches in {wall:.3f} s: {residues / wall:.2f} residues/s; "
-        f"peak device memory {peak / 2**30:.2f} GiB")
+    rates = []
+    for what, part, wall in (("buckets 64-128", lengths[:6], walls[0]),
+                             ("buckets 192-256", lengths[6:], walls[1])):
+        rates.append(sum(part) / wall)
+        log(f"[serve] {what}: {len(part)} requests, {sum(part)} residues in {wall:.3f} s: "
+            f"{rates[-1]:.2f} residues/s")
+    log(f"[serve] {len(reqs)} requests in {engine.counters['batches']} batches; peak device "
+        f"memory {peak / 2**30:.2f} GiB")
     log(f"[serve] kernel launches on the path: {launches}; plain-version calls: "
         f"{plain_calls}")
     require(all(v > 0 for v in launches.values()), "a kernel never launched on the path")
@@ -1446,11 +1764,69 @@ def phase_serve():
     log(f"[serve] same (sequence, seed) alone vs batched: max |d atom14| = {diff:.3e} A "
         "(tol 1e-3 A)")
     require(diff <= 1e-3, "batched and solo serving disagree")
+    require(all(r.distogram is None for r in results), "a distogram came back unasked")
+
+    # serve.return_distogram: the (3L, 3L, K) logits of each request
+    cfg_d = Config()
+    cfg_d.model.msa_tie_row_attn = True
+    cfg_d.serve.msa_depth = 5
+    cfg_d.serve.return_distogram = True
+    disto = ServeEngine(cfg_d, state_dict=engine.model.state_dict()).predict_many(
+        [reqs[7]])[0]
+    n3 = 3 * len(reqs[7].seq)
+    require(disto.ok and disto.distogram is not None
+            and disto.distogram.shape == (n3, n3, DISTOGRAM_BUCKETS)
+            and bool(np.isfinite(disto.distogram).all()),
+            f"return_distogram gave {getattr(disto.distogram, 'shape', None)}, not "
+            f"{(n3, n3, DISTOGRAM_BUCKETS)}")
+    log(f"[serve] return_distogram: a {len(reqs[7].seq)}-residue request came back with "
+        f"finite {disto.distogram.shape} logits")
+
     profile_device(f"one bucket-{results[4].bucket} serving batch",
-                   lambda: engine.predict_many(reqs[4:]))
-    return {"launches": launches, "wall_s": wall, "residues_per_s": residues / wall,
+                   lambda: engine.predict_many(reqs[4:6]))
+    profile_device(f"one bucket-{results[-1].bucket} serving batch (streamed refiner)",
+                   lambda: engine.predict_many(reqs[9:]))
+    for lo, hi in ((4, 6), (9, 12)):
+        spans, total = _module_spans({"trunk and distogram head": engine.model.af2,
+                                      "SE(3) refiner": engine.model.refiner},
+                                     lambda: engine.predict_many(reqs[lo:hi]))
+        log(f"[serve] bucket-{results[lo].bucket} batch, device timeline {total:.1f} ms: "
+            + ", ".join(f"{k} {v:.1f} ms" for k, v in spans.items())
+            + f", the rest (featurization, realization, copies) {total - sum(spans.values()):.1f} ms")
+    return {"launches": launches, "wall_s": walls, "residues_per_s": rates,
             "peak_bytes": peak,
             "latency_ms": [round(r.latency_s * 1e3, 3) for r in results]}
+
+
+def _module_spans(modules, fn):
+    """Device-timeline ms from entry to exit of each named module over
+    ``fn()`` (CUDA events recorded by forward hooks), and the whole
+    ``fn()``'s."""
+    import torch
+
+    marks = {name: [] for name in modules}
+    hooks = []
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    for name, mod in modules.items():
+        hooks.append(mod.register_forward_pre_hook(
+            lambda m, a, name=name: marks[name].append([event()])))
+        hooks.append(mod.register_forward_hook(
+            lambda m, a, o, name=name: marks[name][-1].append(event())))
+    try:
+        start = event()
+        fn()
+        end = event()
+    finally:
+        for h in hooks:
+            h.remove()
+    torch.cuda.synchronize()
+    return ({name: sum(a.elapsed_time(b) for a, b in spans) for name, spans in marks.items()},
+            start.elapsed_time(end))
 
 
 def profile_device(what, fn, host=False):
@@ -1483,7 +1859,8 @@ def profile_device(what, fn, host=False):
         f"{busy:.1f} ms ({busy / wall_ms:.1%}), idle {1 - busy / wall_ms:.1%}")
     # K1 shows as attention_kernel_sm90<64> (and combine_kernel<64> where it
     # splits the key axis), K2 as attention_kernel_mma<64>, K3a/K3b as
-    # dq_kernel_mma / dkv_kernel_mma
+    # dq_kernel_mma / dkv_kernel_mma, K2's backward as chunked_dq_kernel_mma /
+    # chunked_dkv_kernel_mma
     for ms, count, name in sorted(rows, reverse=True)[:12]:
         log(f"[profile] {ms:9.2f} ms {ms / busy:6.1%} x{count:<6d} {name[:90]}")
     if not host:
@@ -1533,7 +1910,7 @@ def _step_weights(backward, depth=6):
     return weights
 
 
-def kernel_line(rows, serve, train, sparse_train, gate):
+def kernel_line(rows, serve, train, tied_train, sparse_train, gate):
     """One entry per kernel. K1 sums one serving trunk layer's K1 calls at
     bucket 128 (two pair axial passes, the MSA column pass, both cross
     attentions; a call's time includes its combine pass where it splits),
@@ -1544,8 +1921,12 @@ def kernel_line(rows, serve, train, sparse_train, gate):
     K5a and K5b sum one sparse training step's 12 pair axial passes, with
     the sparse training run's launches; library_ms is SDPA with the
     element-level layout and key mask (its whole backward for K5a/K5b).
-    scale_rows (X's counterpart) is the gate phase's one launch at X's
-    (4, 512) f32, timed alone in f32; library_ms is torch.mul(x, 2)."""
+    K2's backward (tied_row_attention_bwd_dq and _dkv) sums one tied training
+    step's six tied MSA row passes (1x5x64x8x64, R*D 320), with the tied
+    training run's launches; library_ms is SDPA's whole backward on the
+    folded (B, H, N, R*D) tensors. scale_rows (X's counterpart) is the gate
+    phase's one launch at X's (4, 512) f32, timed alone in f32; library_ms is
+    torch.mul(x, 2)."""
     serve_k1 = {"pair axial pass (1536x8, 384x384, d64)": 2,
                 "MSA column pass (512x8, 5x5, d64)": 1,
                 "pair<-MSA cross (4x8, 147456x640, d64)": 1,
@@ -1553,6 +1934,8 @@ def kernel_line(rows, serve, train, sparse_train, gate):
     step_k3 = _step_weights(backward=True)
     step_k4 = {SPARSE_TRAIN_LABEL: 12}  # 2 pair axial passes x 6 layers
     bwd = "alphafold2_tpu_torch/csrc/fused_attention_bwd.cu"
+    tied_bwd = "alphafold2_tpu_torch/csrc/tied_row_attention_bwd.cu"
+    step_tied = {TIED_TRAIN_LABEL: 6}  # one tied MSA row pass a layer
     sparse_bwd = "alphafold2_tpu_torch/csrc/block_sparse_attention_bwd.cu"
     return {"kernels": [
         _entry("fused_attention", "alphafold2_tpu_torch/csrc/fused_attention.cu",
@@ -1566,6 +1949,10 @@ def kernel_line(rows, serve, train, sparse_train, gate):
                train["launches"]["fused_attention_bwd_dq"], rows, step_k3),
         _entry("fused_attention_bwd_dkv", bwd, "alphafold2_tpu/ops/pallas/axial.py:313",
                train["launches"]["fused_attention_bwd_dkv"], rows, step_k3),
+        _entry("tied_row_attention_bwd_dq", tied_bwd, "alphafold2_tpu/ops/pallas/axial.py:275",
+               tied_train["launches"]["tied_row_attention_bwd_dq"], rows, step_tied),
+        _entry("tied_row_attention_bwd_dkv", tied_bwd, "alphafold2_tpu/ops/pallas/axial.py:313",
+               tied_train["launches"]["tied_row_attention_bwd_dkv"], rows, step_tied),
         _entry("block_sparse_attention", "alphafold2_tpu_torch/csrc/block_sparse_attention.cu",
                "alphafold2_tpu/ops/pallas/block_sparse.py:296",
                sparse_train["launches"]["block_sparse_attention"], rows, step_k4),
@@ -1603,7 +1990,8 @@ def main() -> int:
     try:
         phase_build()
         gate = phase_gate()
-        rows = phase_kernels() + phase_backward() + phase_sparse()
+        rows = (phase_kernels() + phase_backward() + phase_head_dims() + phase_tied()
+                + phase_sparse())
         for r in rows:
             if "ms" in r:
                 host = f", host {r['host_us']:.1f} us a call" if "host_us" in r else ""
@@ -1619,6 +2007,12 @@ def main() -> int:
             log(f"[backward] per training step, {name}: kernel {e['ms']:.3f} ms, plain "
                 f"{e['plain_ms']:.3f} ms, sdpa {e['library_ms']} ms, bound "
                 f"{e['bound_ms']:.4f} ms ({e['bound_by']})")
+        for name in ("tied_row_attention (lse)", "tied_row_attention_bwd_dq",
+                     "tied_row_attention_bwd_dkv"):
+            e = _entry(name, "", "", None, rows, {TIED_TRAIN_LABEL: 6})
+            log(f"[tied] per tied training step, {name}: kernel {e['ms']:.4f} ms, plain "
+                f"{e['plain_ms']:.3f} ms, sdpa {e['library_ms']} ms, bound "
+                f"{e['bound_ms']:.4f} ms ({e['bound_by']})")
         for name in ("block_sparse_attention", "block_sparse_attention_bwd_dq",
                      "block_sparse_attention_bwd_dkv"):
             e = _entry(name, "", "", None, rows, {SPARSE_TRAIN_LABEL: 12})
@@ -1626,15 +2020,18 @@ def main() -> int:
                 f"{e['plain_ms']:.3f} ms, sdpa {e['library_ms']} ms, bound "
                 f"{e['bound_ms']:.4f} ms ({e['bound_by']})")
         phase_reference()
+        phase_se3_streamed()
         serve = phase_serve()
         train = phase_train()
+        tied_train = phase_train(tied=True)
         sparse_train = phase_train(sparse=True)
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
         log("chip_smoke: FAILED")
         return 1
     log(card)
-    print(json.dumps(kernel_line(rows, serve, train, sparse_train, gate)), flush=True)
+    print(json.dumps(kernel_line(rows, serve, train, tied_train, sparse_train, gate)),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -111,9 +111,9 @@ def test_cases_stand_for_the_jax_gate_one_for_one():
         "serve_pair_axial_384", "serve_msa_column", "serve_cross_pair_from_msa",
         "serve_cross_msa_from_pair", "serve_tied_rows", "train_pair_axial_128",
         "train_msa_column", "train_msa_row", "train_cross_pair_from_msa",
-        "train_cross_msa_from_pair", "sparse_train_pair_128", "sparse_pair_512",
-        "edge_dense_d128", "edge_sparse_block128_d128", "edge_tied_rows_1280",
-        "scale_rows_4x512"]
+        "train_cross_msa_from_pair", "train_tied_rows", "sparse_train_pair_128",
+        "sparse_pair_512", "edge_dense_d128", "edge_sparse_block128_d128",
+        "edge_tied_rows_1280", "edge_dense_d256", "scale_rows_4x512"]
 
 
 def test_case_shapes_and_sources():
@@ -123,7 +123,17 @@ def test_case_shapes_and_sources():
     assert [l.role for l in by["block_sparse_custom_vjp_n512"].launches] == ["K4", "K5a", "K5b"]
     assert [l.role for l in by["fused_axial_bwd_256"].launches] == ["K1", "K3a", "K3b"]
     assert by["tied_row_fwd_256"].launches[0].args == (None, 1, 8, 4, 256, 256, 64)  # R*D 512
-    assert by["tied_row_bwd_256"].not_ported and "item 4" in by["tied_row_bwd_256"].not_ported
+    # K2's backward at JAX's case_tied_row_bwd shape, R*D 512, and at the
+    # training shape, R*D 320: K2 with lse, then dq (K2a) and dk/dv (K2b)
+    assert [(l.role, l.source, l.args) for l in by["tied_row_bwd_256"].launches] == [
+        ("K2", "tied_row_attention", (None, 1, 8, 4, 256, 256, 64)),
+        ("K2a", "tied_row_attention_bwd", (0, None, 1, 4, 256, 256, 512)),
+        ("K2b", "tied_row_attention_bwd", (1, None, 1, 4, 256, 256, 512))]
+    assert [l.args[-1] for l in by["train_tied_rows"].launches] == [64, 320, 320]
+    # past head dim 128, K3a/K3b plan the D-chunked kernels
+    assert [(l.role, l.source) for l in by["edge_dense_d256"].launches] == [
+        ("K1", "fused_attention"), ("K3a", "tied_row_attention_bwd"),
+        ("K3b", "tied_row_attention_bwd")]
     assert by["serve_cross_msa_from_pair"].launches[0].args == (None, 4, 8, 640, 147456, 64, 2, 1)
     assert by["scale_rows_4x512"].dtypes == ("float32",)
     every = {l.source for c in lowering.CASES for l in c.launches}
@@ -341,9 +351,10 @@ def test_run_gate_assembles_cases(tmp_path, monkeypatch):
     assert by["scale_rows_4x512"]["ok"]
     # 3 launches x 2 dtypes, all naming dq_kernel<__nv_bfloat16,64,128>, which the report has
     assert len(by["block_sparse_bwd_n512"]["launches"]) == 6 and by["block_sparse_bwd_n512"]["ok"]
-    assert by["tied_row_bwd_256"]["status"] == "not_ported" and not by["tied_row_bwd_256"]["ok"]
+    tied = by["tied_row_bwd_256"]
+    assert tied["ok"] and [r["role"] for r in tied["launches"]] == ["K2", "K2a", "K2b"] * 2
     assert summary == {"gate": "hopper_build", "cases": 4, "failed": [],
-                       "not_ported": ["tied_row_bwd_256"], "control_rejected": True}
+                       "control_rejected": True}
 
 
 def test_run_gate_fails_a_kernel_missing_from_the_report(tmp_path, monkeypatch):

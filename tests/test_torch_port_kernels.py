@@ -167,5 +167,6 @@ def test_build_targets_hopper_and_hashes_sources():
     assert build.MISTILED.stem not in build.SIGNATURES and build.MISTILED.exists()
     assert build.source("scale_rows") == build.CONTROLS / "scale_rows.cu"
     paths = {build._library_path(n) for n in build.SIGNATURES}
-    # K1, K3a/K3b, K2, K4, K5a/K5b and X: six sources, one library each
-    assert len(paths) == 6 and all(p.parent == build.BUILD_DIR for p in paths)
+    # K1, K3a/K3b, K2, K2's backward, K4, K5a/K5b and X: seven sources, one
+    # library each
+    assert len(paths) == 7 and all(p.parent == build.BUILD_DIR for p in paths)

@@ -53,7 +53,7 @@ from pathlib import Path
 from typing import Callable, Optional
 
 from alphafold2_tpu_torch.ops.cuda import build
-from alphafold2_tpu_torch.ops.cuda.axial import key_splits
+from alphafold2_tpu_torch.ops.cuda.axial import grad_splits, key_splits
 
 GATE = "hopper_build"
 DTYPES = ("float32", "bfloat16")
@@ -87,7 +87,8 @@ class Launch:
     """One kernel launch a case plans: ``symbol`` of kernel source
     ``source`` called with ``args`` (``None`` marks the dtype code)."""
 
-    role: str  # K1, K1c (K1's combine pass), K2, K2a/K2b (its backward), K3a, ..., X
+    role: str  # K1, K1c (K1's combine pass), K2, K2a/K2b (its backward), K3a, K3b,
+    # K3m (K3's merge pass), ..., X
     source: str
     symbol: str
     args: tuple
@@ -118,11 +119,24 @@ def _k1(b, h, nq, nk, d):
 
 
 def _k3(b, h, nq, nk, d):
-    """K3a and K3b as their wrappers launch them: past head dim 128 the
-    D-chunked kernels of tied_row_attention_bwd.cu."""
-    source = "tied_row_attention_bwd" if d > 128 else "fused_attention_bwd"
-    return tuple(Launch(role, source, f"af2_{source}_plan", (which, None, b, h, nq, nk, d))
-                 for role, which in (("K3a", 0), ("K3b", 1)))
+    """K3a and K3b as their wrappers launch them: with the split of their
+    long loop and operands as TMA can describe them, each followed by K3's
+    merge pass (bf16 only) where it splits; past head dim 128 the D-chunked
+    kernels of tied_row_attention_bwd.cu."""
+    if d > 128:
+        source = "tied_row_attention_bwd"
+        return tuple(Launch(role, source, f"af2_{source}_plan", (which, None, b, h, nq, nk, d))
+                     for role, which in (("K3a", 0), ("K3b", 1)))
+    source = "fused_attention_bwd"
+    launches = []
+    for role, which, name, outs, rows in (("K3a", 0, "dq", 1, nq), ("K3b", 1, "dkv", 2, nk)):
+        splits = grad_splits(b, h, nq, nk, d, name)
+        launches.append(Launch(role, source, "af2_fused_attention_bwd_plan",
+                               (which, None, b, h, nq, nk, d, splits, 1)))
+        if splits > 1:
+            launches.append(Launch("K3m", source, "af2_fused_attention_bwd_merge_plan",
+                                   (outs, b, h, rows, d), dtypes=("bfloat16",)))
+    return tuple(launches)
 
 
 def _k2(b, r, h, n, d):

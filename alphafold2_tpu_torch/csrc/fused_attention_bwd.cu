@@ -16,28 +16,50 @@
 //
 // The TPU schedule is kept: two kernels, each looping in-block over the other
 // side's tiles (the TPU's sequential grid axis), each with its own recompute
-// of q.k. No atomics: every output element is summed by one thread in a fixed
-// order, so the backward is bitwise deterministic. Masked queries give dq = 0
-// and add nothing to dk/dv (the JAX path zeroes their cotangent with
-// jnp.where at :433); masked keys get dk = dv = 0.
+// of q.k. No atomics: every output element is summed in a fixed order, so the
+// backward is bitwise deterministic. Masked queries give dq = 0 and add
+// nothing to dk/dv (the JAX path zeroes their cotangent with jnp.where at
+// :433); masked keys get dk = dv = 0.
 //
-// What bounds it on the H100: per (query, key) pair the backward does 2 products
-// of 2*D operations in K3a and 3 in K3b plus the q.k recompute in each, against
-// O((Nq + Nk) * D) bytes, so at the training shapes (head dim 64) it is bound by
-// the arithmetic rate, as K1 is. What the design does about it: operand tiles
-// are staged once per loop step in shared memory, read through the callers'
-// strides (the (B, N, H, D) projection outputs need no transpose), and in bf16
-// all four products run on the tensor cores (mma.sync m16n8k16, f32
-// accumulation); the probabilities and ds go from the logit accumulators to
-// the next product in registers, rounded to bf16 first as `_dkv_kernel` rounds
-// them (:199, :207). f32 operands multiply on the CUDA cores. wgmma, TMA,
-// pipelined loads and a split over the long loop of the cross-attention shapes
-// (40 blocks on 132 SMs for the 320 x 16384 passes) are later work.
+// What bounds it on the H100: per (query, key) pair K3a does three products
+// of 2*D operations (the q.k recompute, dO.v, ds.k) and K3b four (q.k, dO.v,
+// p^T dO, ds^T q), against O((Nq + Nk) * D) bytes, so at the training shapes
+// (head dim 64) the tensor-core rate bounds every pass; the per-pair exp and
+// the short loops of the small passes (5 to 128 keys a row) make latency the
+// practical limit there. Three things kept the first design far from that
+// bound, and the plan addresses each (it picks a kernel from dtype, head dim
+// and alignment alone, never by retrying a failed launch):
+//
+// * Occupancy. The cross passes (320 x 16384) gave one kernel 40 blocks for
+//   132 SMs, each looping over 256 tiles. ops/cuda/axial.py grad_splits()
+//   cuts the long loop into contiguous ranges wherever a kernel's grid is
+//   short of two waves (7 ranges there); each block writes f32 partials and
+//   grad_merge_kernel adds them in split order, so the result keeps its bits
+//   from run to run.
+// * Synchronous staging. bf16 at head dim 32, 64 or 128 with operands TMA can
+//   describe runs dq_kernel_sm90 / dkv_kernel_sm90
+//   (fused_attention_bwd_sm90.cuh): a producer warp keeps TMA loads of the
+//   streamed operand pair in flight in an mbarrier ring while the consumer
+//   warpgroup computes, and tiles with no valid key (K3a) or no live query
+//   (K3b) are never staged.
+// * Transposed copies and narrow products. The Hopper kernels run all four
+//   products as wgmma and read the operands crossed by the second products
+//   (k in K3a; q and dO in K3b) transposed through their shared-memory
+//   descriptors, where the first design staged a transposed copy of each
+//   and ran mma.sync on 32-bit shared loads.
+//
+// Every other bf16 problem runs dq_kernel_mma / dkv_kernel_mma below
+// (mma.sync m16n8k16, the probabilities and ds passed in registers, rounded
+// to bf16 first as `_dkv_kernel` rounds them at :199, :207); f32 operands run
+// dq_kernel / dkv_kernel on the CUDA cores, the exactness path of the
+// small-model checks. Head dims past 128 take the D-chunked kernels of
+// tied_row_attention_bwd.cu (ops/cuda/axial.py routes them).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // (alphafold2_tpu_torch/ops/cuda/build.py). Bound with ctypes.
 
 #include "attention_tile.cuh"
+#include "fused_attention_bwd_sm90.cuh"
 
 namespace {
 
@@ -615,15 +637,41 @@ cudaError_t dispatch_dtype(int dtype, Which which, const Grad& g, cudaStream_t s
   return cudaErrorInvalidValue;
 }
 
+namespace grad = af2::sm90::grad;
+
+// The head dims the Hopper kernels are built for (bf16, TMA-aligned
+// operands); every one of them compiles without a spill for both kernels.
+bool sm90_head_dim(int head_dim) {
+  return head_dim == 32 || head_dim == 64 || head_dim == 128;
+}
+
+template <int D>
+cudaError_t dispatch_sm90(Which which, const grad::GradOperands& a, int splits, float* partials,
+                          cudaStream_t stream, Af2LaunchPlan* plan_out) {
+  const bool dkv = which == Which::kDkv;
+  if (plan_out != nullptr) {
+    *plan_out = grad::plan_grad<D>(dkv, a.batch, a.heads, a.nq, a.nk, splits);
+    return cudaSuccess;
+  }
+  return grad::launch_grad<D>(dkv, a, splits, partials, stream);
+}
+
 // strides: 21 element strides, (batch, head, token) of q, k, v, dout, dq,
 // dk and dv in that order (those of an absent output are ignored); the
-// head-dim stride of each must be 1. With `plan_out` it only fills the plan
-// (strides may then be null and no pointer is read).
+// head-dim stride of each must be 1. `splits` is ops/cuda/axial.py
+// grad_splits() of the shape: the Hopper kernels take it as given, the
+// others run whole. `info`, when given, receives the kernel taken (1:
+// dq_kernel_sm90 / dkv_kernel_sm90, 0: another) and the splits run; with
+// more than one, the partials are in `partials` and the caller launches
+// af2_fused_attention_bwd_merge next. With `plan_out` it only fills the plan
+// (strides may then be null, no pointer is read, and `aligned` stands for
+// the operands' alignment; a launch finds it from the pointers and strides).
 int run(Which which, int dtype, const void* q, const void* k, const void* v, const void* dout,
         const float* lse, const float* dsum, void* dq, void* dk, void* dv,
         const unsigned char* q_mask, const unsigned char* kv_mask, const long long* strides,
-        int batch, int heads, int nq, int nk, int head_dim, float sm_scale, void* stream,
-        Af2LaunchPlan* plan_out = nullptr) {
+        int batch, int heads, int nq, int nk, int head_dim, float sm_scale, int splits,
+        float* partials, int* info, void* stream, Af2LaunchPlan* plan_out = nullptr,
+        int aligned = 0) {
   Grad g;
   g.q = q;
   g.k = k;
@@ -650,7 +698,44 @@ int run(Which which, int dtype, const void* q, const void* k, const void* v, con
   g.nq = nq;
   g.nk = nk;
   g.sm_scale = sm_scale;
+  if (splits < 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool dkv = which == Which::kDkv;
+  grad::GradOperands a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.dout = dout;
+  a.lse = lse;
+  a.dsum = dsum;
+  a.q_mask = q_mask;
+  a.kv_mask = kv_mask;
+  a.out0 = dkv ? dk : dq;
+  a.out1 = dkv ? dv : nullptr;
+  a.qs = g.qs;
+  a.ks = g.ks;
+  a.vs = g.vs;
+  a.dos = g.dos;
+  a.o0s = dkv ? g.dks : g.dqs;
+  a.o1s = g.dvs;
+  a.batch = batch;
+  a.heads = heads;
+  a.nq = nq;
+  a.nk = nk;
+  a.sm_scale = sm_scale;
+  const bool sm90 = dtype == 1 && sm90_head_dim(head_dim) &&
+                    (plan_out != nullptr ? aligned != 0 : grad::takes(a, dkv));
+  if (info != nullptr) {
+    info[0] = sm90 ? 1 : 0;
+    info[1] = sm90 ? splits : 1;
+  }
+  if (sm90) {
+    switch (head_dim) {
+      case 32: return dispatch_sm90<32>(which, a, splits, partials, s, plan_out);
+      case 64: return dispatch_sm90<64>(which, a, splits, partials, s, plan_out);
+      default: return dispatch_sm90<128>(which, a, splits, partials, s, plan_out);
+    }
+  }
   switch (head_dim) {
     case 16: return dispatch_dtype<16>(dtype, which, g, s, plan_out);
     case 32: return dispatch_dtype<32>(dtype, which, g, s, plan_out);
@@ -660,12 +745,55 @@ int run(Which which, int dtype, const void* q, const void* k, const void* v, con
   }
 }
 
+// The merge pass, or with `plan_out` only its plan.
+int merge(const float* partials, void* out0, void* out1, const long long* out_strides,
+          float scale0, float scale1, int outs, int batch, int heads, int n, int head_dim,
+          int splits, void* stream, Af2LaunchPlan* plan_out = nullptr) {
+  if (outs != 1 && outs != 2) return cudaErrorInvalidValue;
+  if (plan_out != nullptr) {
+    switch (head_dim) {
+      case 32: *plan_out = grad::plan_merge<32>(outs, batch, heads, n); return cudaSuccess;
+      case 64: *plan_out = grad::plan_merge<64>(outs, batch, heads, n); return cudaSuccess;
+      case 128: *plan_out = grad::plan_merge<128>(outs, batch, heads, n); return cudaSuccess;
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  grad::MergeParams m;
+  m.part = partials;
+  m.out0 = out0;
+  m.out1 = outs == 2 ? out1 : nullptr;
+  for (int i = 0; i < 3; ++i) {
+    m.os0[i] = out_strides[i];
+    m.os1[i] = outs == 2 ? out_strides[3 + i] : 0;
+  }
+  m.scale0 = scale0;
+  m.scale1 = scale1;
+  m.outs = outs;
+  m.batch = batch;
+  m.heads = heads;
+  m.n = n;
+  m.splits = splits;
+  const Operand o0{m.os0[0], m.os0[1], m.os0[2], 0}, o1{m.os1[0], m.os1[1], m.os1[2], 0};
+  if (splits < 1 || partials == nullptr ||
+      !af2::sm90::tma_operand(out0, o0, batch, heads, n) ||
+      (outs == 2 && !af2::sm90::tma_operand(out1, o1, batch, heads, n)))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 32: return grad::launch_merge<32>(m, s);
+    case 64: return grad::launch_merge<64>(m, s);
+    case 128: return grad::launch_merge<128>(m, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // K3a. q (batch, heads, nq, head_dim), k/v (batch, heads, nk, head_dim), dout
 // and dq like q, all read or written through `strides`; lse and dsum
 // contiguous (batch, heads, nq) f32. dtype: 0 = float32, 1 = bfloat16.
-// Returns the cudaError_t of the launch (0 on success).
+// splits, partials, info: as `run` (partials: splits * batch*heads*nq *
+// head_dim floats). Returns the cudaError_t of the launch (0 on success).
 extern "C" int af2_fused_attention_bwd_dq(int dtype, const void* q, const void* k,
                                           const void* v, const void* dout, const float* lse,
                                           const float* dsum, void* dq,
@@ -673,12 +801,14 @@ extern "C" int af2_fused_attention_bwd_dq(int dtype, const void* q, const void* 
                                           const unsigned char* kv_mask,
                                           const long long* strides, int batch, int heads,
                                           int nq, int nk, int head_dim, float sm_scale,
+                                          int splits, float* partials, int* info,
                                           void* stream) {
   return run(Which::kDq, dtype, q, k, v, dout, lse, dsum, dq, nullptr, nullptr, q_mask, kv_mask,
-             strides, batch, heads, nq, nk, head_dim, sm_scale, stream);
+             strides, batch, heads, nq, nk, head_dim, sm_scale, splits, partials, info, stream);
 }
 
-// K3b. As K3a, writing dk and dv (like k) instead of dq.
+// K3b. As K3a, writing dk and dv (like k) instead of dq (partials: 2 *
+// splits * batch*heads*nk * head_dim floats, dk's then dv's).
 extern "C" int af2_fused_attention_bwd_dkv(int dtype, const void* q, const void* k,
                                            const void* v, const void* dout, const float* lse,
                                            const float* dsum, void* dk, void* dv,
@@ -686,18 +816,41 @@ extern "C" int af2_fused_attention_bwd_dkv(int dtype, const void* q, const void*
                                            const unsigned char* kv_mask,
                                            const long long* strides, int batch, int heads,
                                            int nq, int nk, int head_dim, float sm_scale,
+                                           int splits, float* partials, int* info,
                                            void* stream) {
   return run(Which::kDkv, dtype, q, k, v, dout, lse, dsum, nullptr, dk, dv, q_mask, kv_mask,
-             strides, batch, heads, nq, nk, head_dim, sm_scale, stream);
+             strides, batch, heads, nq, nk, head_dim, sm_scale, splits, partials, info, stream);
 }
 
-// The launch plan of K3a (which = 0) or K3b (which = 1) at one shape; touches
-// no device. Returns 0, or cudaErrorInvalidValue for a dtype, head dim or
+// K3's merge pass: `outs` (1: dq; 2: dk then dv) outputs, each the sum of
+// its `splits` f32 partials ((outs, splits, batch*heads*n, head_dim), as the
+// Hopper kernels write them) in split order, times its scale (scale0,
+// scale1), as bf16 through its 3 element strides (batch, head, token; out0's
+// then out1's). Head dim 32, 64 or 128.
+extern "C" int af2_fused_attention_bwd_merge(const float* partials, void* out0, void* out1,
+                                             const long long* out_strides, float scale0,
+                                             float scale1, int outs, int batch, int heads,
+                                             int n, int head_dim, int splits, void* stream) {
+  return merge(partials, out0, out1, out_strides, scale0, scale1, outs, batch, heads, n,
+               head_dim, splits, stream);
+}
+
+// The launch plan of K3a (which = 0) or K3b (which = 1) at one shape, given
+// the splits and whether the operands are TMA-aligned; touches no device.
+// Returns 0, or cudaErrorInvalidValue for a dtype, head dim, split count or
 // `which` the kernels do not take.
 extern "C" int af2_fused_attention_bwd_plan(int which, int dtype, int batch, int heads, int nq,
-                                            int nk, int head_dim, Af2LaunchPlan* plan) {
+                                            int nk, int head_dim, int splits, int aligned,
+                                            Af2LaunchPlan* plan) {
   if (which != 0 && which != 1) return cudaErrorInvalidValue;
   return run(which == 0 ? Which::kDq : Which::kDkv, dtype, nullptr, nullptr, nullptr, nullptr,
              nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, batch,
-             heads, nq, nk, head_dim, 1.f, nullptr, plan);
+             heads, nq, nk, head_dim, 1.f, splits, nullptr, nullptr, nullptr, plan, aligned);
+}
+
+// The merge pass's launch plan for `outs` outputs of (batch, heads, n).
+extern "C" int af2_fused_attention_bwd_merge_plan(int outs, int batch, int heads, int n,
+                                                  int head_dim, Af2LaunchPlan* plan) {
+  return merge(nullptr, nullptr, nullptr, nullptr, 1.f, 1.f, outs, batch, heads, n, head_dim, 2,
+               nullptr, plan);
 }

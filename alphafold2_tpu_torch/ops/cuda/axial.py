@@ -27,6 +27,14 @@ writes f32 partials and K1's combine pass (:func:`fused_attention_combine`)
 merges them. Their plain versions: :func:`attention_partials_reference` and
 :func:`combine_partials_reference`.
 
+K3a/K3b's bf16 backward at head dim 32, 64 or 128 runs the Hopper kernels of
+``csrc/fused_attention_bwd_sm90.cuh``. Where a kernel's grid leaves the card
+short of two waves, :func:`grad_splits` cuts its long loop (keys for K3a,
+queries for K3b) into ranges; each block then writes f32 partials and K3's
+merge pass (:func:`fused_attention_bwd_merge`) adds them in split order.
+Their plain versions: :func:`dq_partials_reference`,
+:func:`dkv_partials_reference` and :func:`merge_grad_partials_reference`.
+
 :func:`fused_attention` is differentiable. When grad is enabled and an input
 requires it, it runs :class:`FusedAttention`: on the card K1 with the
 logsumexp forward and K3a + K3b backward, on the CPU the plain versions of
@@ -60,6 +68,11 @@ QUERY_TILE = 128
 KEY_TILE = 128
 SM_COUNT = 132  # streaming multiprocessors of one H100
 MIN_SPLIT_TILES = 4  # key tiles a split keeps at least
+# K3a/K3b's Hopper kernels (csrc/fused_attention_bwd_sm90.cuh): the rows of
+# every tile, the head dims they are built for, the tiles a split keeps
+GRAD_TILE = 64
+GRAD_SM90_HEAD_DIMS = (32, 64, 128)
+MIN_GRAD_SPLIT_TILES = 4
 
 
 def kernel_head_dim(d: int) -> int:
@@ -108,6 +121,26 @@ def key_splits(b: int, h: int, nq: int, nk: int, d: int) -> int:
         return 1
     tiles = -(-nk // KEY_TILE)
     return max(1, min(-(-2 * SM_COUNT // blocks), tiles // MIN_SPLIT_TILES))
+
+
+def grad_splits(b: int, h: int, nq: int, nk: int, d: int, which: str) -> int:
+    """How many contiguous ranges K3a (``which`` "dq") cuts its key loop
+    into, or K3b ("dkv") its query loop: 1 where the kernel's
+    b*h*ceil(rows/64) blocks (rows: queries for K3a, keys for K3b) make two
+    waves on the card's 132 SMs, otherwise enough ranges for about two
+    waves, each of at least MIN_GRAD_SPLIT_TILES 64-row tiles. A pure
+    function of the shape, as :func:`key_splits`: the wrapper passes it to
+    the kernel, the build gate plans with it. ``d`` does not change the
+    count."""
+    del d
+    if which not in ("dq", "dkv"):
+        raise ValueError(f"which must be 'dq' or 'dkv', not {which!r}")
+    rows, streamed = (nq, nk) if which == "dq" else (nk, nq)
+    blocks = b * h * -(-rows // GRAD_TILE)
+    if blocks == 0 or blocks >= 2 * SM_COUNT:
+        return 1
+    tiles = -(-streamed // GRAD_TILE)
+    return max(1, min(-(-2 * SM_COUNT // blocks), tiles // MIN_GRAD_SPLIT_TILES))
 
 
 def split_ranges(nk: int, splits: int, block: int = KEY_TILE) -> list:
@@ -268,6 +301,44 @@ def fused_attention_dkv_reference(q, k, v, dout, lse, dsum, q_mask=None, kv_mask
 
 
 fused_attention_dkv_reference.calls = 0
+
+
+def dq_partials_reference(q, k, v, dout, lse, dsum, q_mask=None, kv_mask=None, sm_scale=1.0,
+                          splits=1, block=GRAD_TILE):
+    """The plain version of K3a's split: per key range of
+    :func:`split_ranges` (``block``-key tiles), ds @ k over the range's keys,
+    unscaled, as (S, B, H, Nq, D) f32 (ds rounded to the operand dtype
+    first, as in :func:`fused_attention_dq_reference`)."""
+    p = _probabilities(q, k, lse, q_mask, kv_mask, sm_scale)
+    ds = _ds(p, v, dout, dsum).to(q.dtype).float()
+    return torch.stack([torch.einsum("bhij,bhjd->bhid", ds[..., lo:hi], k[:, :, lo:hi].float())
+                        for lo, hi in split_ranges(k.shape[2], splits, block)])
+
+
+def dkv_partials_reference(q, k, v, dout, lse, dsum, q_mask=None, kv_mask=None, sm_scale=1.0,
+                           splits=1, block=GRAD_TILE):
+    """The plain version of K3b's split: per query range of
+    :func:`split_ranges`, (ds^T @ q unscaled, p^T @ dO) over the range's
+    queries, each (S, B, H, Nk, D) f32 (p and ds rounded to the operand
+    dtype first, as in :func:`fused_attention_dkv_reference`)."""
+    p = _probabilities(q, k, lse, q_mask, kv_mask, sm_scale)
+    ds = _ds(p, v, dout, dsum).to(q.dtype).float()
+    p = p.to(q.dtype).float()
+    ranges = split_ranges(q.shape[2], splits, block)
+    dk = [torch.einsum("bhij,bhid->bhjd", ds[:, :, lo:hi], q[:, :, lo:hi].float())
+          for lo, hi in ranges]
+    dv = [torch.einsum("bhij,bhid->bhjd", p[:, :, lo:hi], dout[:, :, lo:hi].float())
+          for lo, hi in ranges]
+    return torch.stack(dk), torch.stack(dv)
+
+
+def merge_grad_partials_reference(part, scale=1.0, dtype=torch.float32):
+    """The plain version of K3's merge pass: the (S, B, H, N, D) f32
+    partials added in split order, times ``scale``, in ``dtype``."""
+    acc = part[0].float()
+    for s in range(1, part.shape[0]):
+        acc = acc + part[s]
+    return (acc * scale).to(dtype)
 
 
 def attention_dsum(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
@@ -457,32 +528,85 @@ def _launch_backward(which, outs, slots, q, k, v, dout, lse, dsum, q_mask, kv_ma
     """Launch K3a (``which`` "dq") or K3b ("dkv") writing ``outs``;
     ``slots`` gives the kernel the strides of its (dq, dk, dv) in that order
     (stand-ins for the ones it does not write). A head dim past 128 runs the
-    D-chunked kernels (no row groups: row-group stride 0)."""
+    D-chunked kernels (no row groups: row-group stride 0). Where the plan
+    splits the long loop, the merge pass follows. Returns 1 if the Hopper
+    kernel ran, else 0."""
     symbol = f"af2_fused_attention_bwd_{which}"
     masks = _cuda_operands(q, k, v, q_mask, kv_mask, symbol)
     if dout.stride(-1) != 1:
         dout = dout.contiguous()
     lse, dsum = lse.contiguous(), dsum.contiguous()
     b, h, nq, d = q.shape
+    nk = k.shape[2]
     if nq == 0 or b * h == 0:
         for o in outs:
             o.zero_()
-        return
+        return 0
     if d > HEAD_DIMS[-1]:
         strides = [x for t in (q, k, v, dout, *slots) for x in (*t.stride()[:3], 0)]
         launch_chunked_backward(which, outs, q, k, v, dout, lse, dsum, masks, None, strides,
-                                (b, h, nq, k.shape[2], d, d), sm_scale)
-        return
+                                (b, h, nq, nk, d, d), sm_scale)
+        return 0
     lib = build.library("fused_attention_bwd")
-    strides = _strides(q, k, v, dout, *slots)
+    # only the Hopper kernels (bf16, GRAD_SM90_HEAD_DIMS) split their loop
+    hopper = q.dtype == torch.bfloat16 and d in GRAD_SM90_HEAD_DIMS
+    splits = grad_splits(b, h, nq, nk, d, which) if hopper else 1
+    rows = nq if which == "dq" else nk
+    part = (torch.empty(len(outs) * splits * b * h * rows * d, dtype=torch.float32,
+                        device=q.device) if splits > 1 else None)
+    info = (ctypes.c_int * 2)()
     with torch.cuda.device(q.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         code = getattr(lib, symbol)(
             _DTYPES[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(lse), _ptr(dsum),
-            *(_ptr(o) for o in outs), _ptr(masks[0]), _ptr(masks[1]), strides,
-            b, h, nq, k.shape[2], d, float(sm_scale), stream,
+            *(_ptr(o) for o in outs), _ptr(masks[0]), _ptr(masks[1]),
+            _strides(q, k, v, dout, *slots), b, h, nq, nk, d, float(sm_scale), splits,
+            _ptr(part), info, stream,
         )
-    build.check(lib, code, symbol)
+        build.check(lib, code, symbol)
+        if info[1] > 1:
+            scales = (float(sm_scale),) if which == "dq" else (float(sm_scale), 1.0)
+            _launch_merge(lib, stream, part, outs, scales, info[1])
+    return info[0]
+
+
+def _launch_merge(lib, stream, part, outs, scales, splits):
+    """K3's merge pass on the card, on the current device and ``stream``:
+    the packed f32 partials ``part`` (per output, per split, (B, H, N, D))
+    into the bf16 ``outs`` (one or two (B, H, N, D) tensors), each times its
+    scale."""
+    b, h, n, d = outs[0].shape
+    two = len(outs) == 2
+    code = lib.af2_fused_attention_bwd_merge(
+        _ptr(part), _ptr(outs[0]), _ptr(outs[1] if two else None), _strides(*outs),
+        scales[0], scales[1] if two else 1.0, len(outs), b, h, n, d, splits, stream)
+    build.check(lib, code, "fused_attention_bwd_merge")
+    fused_attention_bwd_merge.launches += 1
+
+
+def fused_attention_bwd_merge(part, scale=1.0):
+    """K3's merge pass: f32 partials (S, B, H, N, D), as
+    :func:`dq_partials_reference` and :func:`dkv_partials_reference` give
+    them, added in split order, times ``scale``, as a bf16 (B, H, N, D)
+    tensor. On the card the kernel (head dim 32, 64 or 128), on the CPU
+    :func:`merge_grad_partials_reference`."""
+    if part.dim() != 5 or part.shape[0] < 1:
+        raise ValueError(f"partials must be (S, B, H, N, D) with S >= 1, got "
+                         f"{tuple(part.shape)}")
+    if part.device.type == "cpu":
+        return merge_grad_partials_reference(part, scale, dtype=torch.bfloat16)
+    splits, b, h, n, d = part.shape
+    if d not in GRAD_SM90_HEAD_DIMS:
+        raise ValueError(f"the merge pass takes head dim 32, 64 or 128, not {d}")
+    out = torch.empty((b, n, h, d), dtype=torch.bfloat16, device=part.device).permute(0, 2, 1, 3)
+    lib = build.library("fused_attention_bwd")
+    with torch.cuda.device(part.device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        _launch_merge(lib, stream, part.float().contiguous(), (out,), (float(scale),), splits)
+    return out
+
+
+fused_attention_bwd_merge.launches = 0
 
 
 def fused_attention_dq(q, k, v, dout, lse, dsum, q_mask=None, kv_mask=None, sm_scale=1.0):
@@ -496,8 +620,8 @@ def fused_attention_dq(q, k, v, dout, lse, dsum, q_mask=None, kv_mask=None, sm_s
 
     def run(q, k, v, dout):
         dq = _like_heads(q)
-        _launch_backward("dq", (dq,), (dq, k, v), q, k, v, dout, lse, dsum, q_mask, kv_mask,
-                         sm_scale)
+        fused_attention_dq.sm90_launches += _launch_backward(
+            "dq", (dq,), (dq, k, v), q, k, v, dout, lse, dsum, q_mask, kv_mask, sm_scale)
         fused_attention_dq.launches += 1
         return dq
 
@@ -505,6 +629,7 @@ def fused_attention_dq(q, k, v, dout, lse, dsum, q_mask=None, kv_mask=None, sm_s
 
 
 fused_attention_dq.launches = 0
+fused_attention_dq.sm90_launches = 0  # of them, launches of dq_kernel_sm90
 
 
 def fused_attention_dkv(q, k, v, dout, lse, dsum, q_mask=None, kv_mask=None, sm_scale=1.0):
@@ -517,8 +642,8 @@ def fused_attention_dkv(q, k, v, dout, lse, dsum, q_mask=None, kv_mask=None, sm_
 
     def run(q, k, v, dout):
         dk, dv = _like_heads(k), _like_heads(v)
-        _launch_backward("dkv", (dk, dv), (q, dk, dv), q, k, v, dout, lse, dsum, q_mask,
-                         kv_mask, sm_scale)
+        fused_attention_dkv.sm90_launches += _launch_backward(
+            "dkv", (dk, dv), (q, dk, dv), q, k, v, dout, lse, dsum, q_mask, kv_mask, sm_scale)
         fused_attention_dkv.launches += 1
         return dk, dv
 
@@ -526,6 +651,7 @@ def fused_attention_dkv(q, k, v, dout, lse, dsum, q_mask=None, kv_mask=None, sm_
 
 
 fused_attention_dkv.launches = 0
+fused_attention_dkv.sm90_launches = 0  # of them, launches of dkv_kernel_sm90
 
 
 class FusedAttention(torch.autograd.Function):

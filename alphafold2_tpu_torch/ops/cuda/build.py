@@ -72,12 +72,19 @@ SIGNATURES = {
         "af2_fused_attention_combine_plan": [_I] * 4 + [_PLAN],
     },
     "fused_attention_bwd": {
-        "af2_fused_attention_bwd_dq": [
-            _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-        "af2_fused_attention_bwd_dkv": [
-            _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-        # which (0 dq, 1 dkv), dtype, batch, heads, nq, nk, head_dim, plan
-        "af2_fused_attention_bwd_plan": [_I] * 7 + [_PLAN],
+        # dtype, q, k, v, dout, lse, dsum, outputs (dq | dk, dv), q_mask,
+        # kv_mask, strides, batch, heads, nq, nk, head_dim, sm_scale, splits,
+        # partials, info (2 ints out), stream
+        "af2_fused_attention_bwd_dq": [_I] + [_P] * 10 + [_I] * 5 + [_F, _I, _P, _P, _P],
+        "af2_fused_attention_bwd_dkv": [_I] + [_P] * 11 + [_I] * 5 + [_F, _I, _P, _P, _P],
+        # the merge pass: partials, out0, out1, out strides, scale0, scale1,
+        # outs, batch, heads, n, head_dim, splits, stream
+        "af2_fused_attention_bwd_merge": [_P] * 4 + [_F, _F] + [_I] * 6 + [_P],
+        # which (0 dq, 1 dkv), dtype, batch, heads, nq, nk, head_dim, splits,
+        # aligned, plan
+        "af2_fused_attention_bwd_plan": [_I] * 9 + [_PLAN],
+        # outs, batch, heads, n, head_dim, plan
+        "af2_fused_attention_bwd_merge_plan": [_I] * 5 + [_PLAN],
     },
     "tied_row_attention": {
         # dtype, q, k, v, out, q_mask, kv_mask, tie_scale, batch, rows, heads,

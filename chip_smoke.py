@@ -8,7 +8,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 1b. gate    — the port's pre-hardware analysis layer: the Hopper build gate
               (analysis/lowering.py: every case's launch plans and ptxas
               resources within sm_90's limits, f32 and bf16, and X's
-              mis-tiled negative control refused by ptxas); X's valid
+              mis-tiled negative control refused by ptxas; K3's Hopper
+              kernels and their merge at head dim 64 without a spill); X's valid
               counterpart (scale_rows) bitwise against 2 * x at (4, 512),
               timed beside torch.mul; the launch-level control, a
               2048-thread block the card must refuse with
@@ -29,10 +30,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 3. backward — the same for K1's training forward (with the row logsumexp,
               the split pass repeating bit for bit) and K1's combine pass
               alone, and the backward kernels K3a (dq) and K3b (dk, dv) at
-              the training path's shapes and the edge cases, per tensor; a
-              negative control that drops each row's last key tile (dq) or
-              query tile (dk, dv); two runs bit-identical; SDPA's backward
-              as the yardstick;
+              the training path's shapes and the edge cases, per tensor: K3's
+              plans on the five training passes must name dq_kernel_sm90<64>
+              and dkv_kernel_sm90<64> with their splits (7 on the cross
+              passes), each bf16 training pass must launch them, and the
+              merge pass exactly where it splits; a negative control that
+              drops each row's last key tile (dq) or query tile (dk, dv); on
+              the split passes the merge kernel alone against its plain
+              version and a merge that drops the last split, which must be
+              rejected; two runs bit-identical; SDPA's backward as the
+              yardstick;
 3b. head dims — K1, K1 with lse, K3a and K3b at head dims 48 (zero-padded
               to 64) and 256 (D-chunked) against their plain versions, f32
               and bf16; the autograd route through the kernels alone, bit
@@ -60,8 +67,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
               logits; a bucket-128 and a bucket-256 batch are profiled;
 5. train    — distogram pretraining at the same width (untied MSA rows,
               crop 128, MSA 5x64, batch 1, accumulation 16): 32 steps whose
-              launch counts must show K1, K3a and K3b on every attention and
-              no plain-version call, the first accumulated update at lr 0;
+              launch counts must show K1, K3a and K3b on every attention
+              (every K1 and K3 launch on its Hopper kernel, K3's merge pass
+              on the 11 split passes a step) and no plain-version call, the
+              first accumulated update at lr 0;
               20 steps on one repeated batch whose loss must fall; a small
               f32 model whose gradients must agree between the card and the
               CPU; one step under torch.profiler; then all of it again with
@@ -84,8 +93,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 
 ``phase_k1_time`` (not part of the run) times K1 alone on its nine
 main-path passes beside SDPA: ``python3 -c "import chip_smoke as c;
-c.phase_build(); c.phase_k1_time()"``; ``chip_compare.sh`` runs it, or the
-serving and training phases, for two checkouts in turns.
+c.phase_build(); c.phase_k1_time()"``; ``phase_k3_time`` likewise times K3a
+and K3b on the five training passes beside SDPA's backward, per pass and
+per step. ``chip_compare.sh`` runs them, or any other phases, for two
+checkouts in turns.
 
 Prints the card's name and power limit, then a JSON line describing every
 kernel, and last ``{"ok": true, "device": {...}}``. Any failed phase exits
@@ -223,6 +234,14 @@ def phase_gate():
         log(f"[gate] build gate: {summary['cases']} cases in {time.perf_counter() - t0:.1f} s")
         check(not summary["failed"], f"build gate failed: {summary['failed']}")
         check(summary["control_rejected"], "the mis-tiled control was not refused by ptxas")
+        # K3's Hopper kernels and their merge at the main path's head dim
+        # must not spill
+        spills = {ln["kernel"]: (ln.get("spill_stores"), ln.get("spill_loads"))
+                  for rec in records for ln in rec.get("launches", ())
+                  if ln.get("kernel") in (*K3_SM90, "grad_merge_kernel<64>")}
+        check(set(spills) == {*K3_SM90, "grad_merge_kernel<64>"},
+              f"the gate planned K3's Hopper kernels only as {sorted(spills)}")
+        check(all(x == (0, 0) for x in spills.values()), f"K3's Hopper kernels spill: {spills}")
 
     # X at its own shape: the path is one launch at (4, 512) f32
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -631,6 +650,75 @@ def phase_k1_time(reps=10):
     return rows
 
 
+def _device_ms(fn, calls=10):
+    """Device time per call of ``fn`` in ms: every device-side event that
+    torch.profiler records over ``calls`` calls, free of the host's pace."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+             for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    return us / calls / 1e3
+
+
+def phase_k3_time(reps=10):
+    """K3a and K3b alone on the five training passes, bf16, operands laid
+    out as the training path lays them out, each beside SDPA's whole
+    backward (dq, dk and dv in one call) on the same masked problem: a
+    call's time by CUDA events over ``reps`` calls (paced by the host where
+    the call is short), its device time under torch.profiler (kernels only,
+    the merge pass included where it splits) and its host time; then per
+    training step. No checks: phase_backward holds K3 to its plain versions.
+    Uses only what every tree of the port has, so chip_compare.sh can run it
+    for a parent that lacks it. Returns {label: row}."""
+    import torch
+    import torch.nn.functional as F
+
+    from alphafold2_tpu_torch.ops.cuda import axial
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows = {}
+    for label, (b, nq, nk, _) in TRAIN_CASES.items():
+        h, d = 8, 64
+        qm, km = _train_masks(label)
+        q, k, v, do = _grad_operands(b, h, nq, nk, d, torch.bfloat16, gen, strided=True)
+        scale = d**-0.5
+        out, lse = axial.fused_attention_lse(q, k, v, qm, km, scale)
+        args = (q, k, v, do, lse, axial.attention_dsum(out, do), qm, km, scale)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = F.scaled_dot_product_attention(*leaves, attn_mask=km[:, None, None, :], scale=scale)
+        calls = {"dq": lambda: axial.fused_attention_dq(*args),
+                 "dkv": lambda: axial.fused_attention_dkv(*args),
+                 "sdpa": lambda: torch.autograd.grad(o, leaves, do, retain_graph=True)}
+        row = {}
+        for name, fn in calls.items():
+            row[f"{name}_ms"] = cuda_ms(fn, reps)
+            row[f"{name}_device_ms"] = _device_ms(fn)
+            row[f"{name}_host_us"] = _host_us(fn)
+        rows[label] = row
+        splits = (tuple(axial.grad_splits(b, h, nq, nk, d, w) for w in ("dq", "dkv"))
+                  if hasattr(axial, "grad_splits") else "-")
+        log(f"[k3 time] {label} {(b, h, nq, nk, d)} splits {splits}: " + "; ".join(
+            f"{what} {row[f'{n}_ms']:.4f} ms, device {row[f'{n}_device_ms']:.4f} ms, host "
+            f"{row[f'{n}_host_us']:.1f} us a call"
+            for n, what in (("dq", "K3a"), ("dkv", "K3b"), ("sdpa", "SDPA backward"))))
+        del q, k, v, do, out, lse, args, leaves, o, calls
+    weights = _step_weights(backward=True)
+    step = {key: sum(w * rows[lb][key] for lb, w in weights.items()) for key in rows[label]}
+    for kind in ("", "device_"):
+        k3a, k3b = step[f"dq_{kind}ms"], step[f"dkv_{kind}ms"]
+        log(f"[k3 time] per training step, {kind or 'event '}ms: K3a {k3a:.3f} + K3b {k3b:.3f} "
+            f"= {k3a + k3b:.3f} ms; SDPA backward {step[f'sdpa_{kind}ms']:.3f} ms")
+    return rows
+
+
 def phase_kernels():
     import torch
 
@@ -729,6 +817,22 @@ def _check_lse(label, lse, ref, kernel="fused_attention (lse)"):
     require(err <= 1e-4, f"{label}: logsumexp disagrees with its plain version")
 
 
+def _k3_sm90_launched(args, what):
+    """K3a and K3b once each on ``args``; require that both ran the Hopper
+    kernels. Returns ((dq, dk, dv), how many merge passes they launched)."""
+    from alphafold2_tpu_torch.ops.cuda import axial
+
+    before = (axial.fused_attention_dq.sm90_launches, axial.fused_attention_dkv.sm90_launches,
+              axial.fused_attention_bwd_merge.launches)
+    dq = axial.fused_attention_dq(*args)
+    dk, dv = axial.fused_attention_dkv(*args)
+    require(axial.fused_attention_dq.sm90_launches - before[0] == 1,
+            f"{what}: K3a did not launch dq_kernel_sm90")
+    require(axial.fused_attention_dkv.sm90_launches - before[1] == 1,
+            f"{what}: K3b did not launch dkv_kernel_sm90")
+    return (dq, dk, dv), axial.fused_attention_bwd_merge.launches - before[2]
+
+
 def k3_case(label, b, h, nq, nk, d, dtype, q_mask=None, kv_mask=None, reps=3,
             library=False, gen=None, strided=False):
     """K1's training forward, K3a and K3b on one problem, each held against
@@ -761,8 +865,17 @@ def k3_case(label, b, h, nq, nk, d, dtype, q_mask=None, kv_mask=None, reps=3,
     _check_lse(label, lse, ref_lse)
     dsum = axial.attention_dsum(out, do)
     args = (q, k, v, do, lse, dsum, q_mask, kv_mask, scale)
-    dq = axial.fused_attention_dq(*args)
-    dk, dv = axial.fused_attention_dkv(*args)
+    if strided and dtype == torch.bfloat16:  # a training main-path pass
+        (dq, dk, dv), merged = _k3_sm90_launched(args, label)
+        splits = (axial.grad_splits(b, h, nq, nk, d, "dq"),
+                  axial.grad_splits(b, h, nq, nk, d, "dkv"))
+        require(merged == sum(s > 1 for s in splits),
+                f"{label}: merge launches {merged}, splits (K3a, K3b) {splits}")
+        log(f"[backward] {label}: dq_kernel_sm90 and dkv_kernel_sm90, splits (K3a, K3b) "
+            f"{splits}, {merged} merge pass(es)")
+    else:
+        dq = axial.fused_attention_dq(*args)
+        dk, dv = axial.fused_attention_dkv(*args)
     torch.cuda.synchronize()
     rq = axial.fused_attention_dq_reference(*args)
     rk, rv = axial.fused_attention_dkv_reference(*args)
@@ -788,6 +901,8 @@ def k3_case(label, b, h, nq, nk, d, dtype, q_mask=None, kv_mask=None, reps=3,
         _control(label, "fused_attention_bwd_dkv dk", sk, rk, dtype, tile="query")
         _control(label, "fused_attention_bwd_dkv dv", sv, rv, dtype, tile="query")
         del short, sk, sv
+        if dtype == torch.bfloat16:
+            merge_checks(label, args, (rq, rk, rv))
     qv = q_mask.sum(1) if q_mask is not None else torch.full((b,), nq, device="cuda")
     kvn = kv_mask.sum(1) if kv_mask is not None else torch.full((b,), nk, device="cuda")
     pairs = h * float((qv * kvn).sum())
@@ -831,6 +946,46 @@ def k3_case(label, b, h, nq, nk, d, dtype, q_mask=None, kv_mask=None, reps=3,
     del q, k, v, do, out, lse, dq, dk, dv, rq, rk, rv
     torch.cuda.empty_cache()
     return [fwd, row_q, row_kv]
+
+
+def merge_checks(label, args, refs):
+    """Where K3a or K3b splits this pass: K3's merge kernel alone on the
+    plain per-split partials against the plain merge, the merged gradient
+    against the plain whole one, and the negative control, a merge that
+    drops the last split, which the bound must reject."""
+    import torch
+
+    from alphafold2_tpu_torch.ops.cuda import axial
+
+    q, k, v = args[:3]
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    scale = args[-1]
+    for which in ("dq", "dkv"):
+        splits = axial.grad_splits(b, h, nq, nk, d, which)
+        if splits == 1:
+            continue
+        if which == "dq":
+            parts = {"dq": (axial.dq_partials_reference(*args, splits=splits), scale, refs[0])}
+        else:
+            pk, pv = axial.dkv_partials_reference(*args, splits=splits)
+            parts = {"dk": (pk, scale, refs[1]), "dv": (pv, 1.0, refs[2])}
+        for name, (part, sc, ref) in parts.items():
+            before = axial.fused_attention_bwd_merge.launches
+            merged = axial.fused_attention_bwd_merge(part, sc)
+            torch.cuda.synchronize()
+            require(axial.fused_attention_bwd_merge.launches == before + 1,
+                    f"{label}: the merge kernel did not launch")
+            plain = axial.merge_grad_partials_reference(part, sc, torch.bfloat16)
+            _compare(f"{label}, {name}, {splits} splits", "fused_attention_bwd_merge", merged,
+                     plain, torch.bfloat16)
+            _compare(f"{label}, {name} merged", "fused_attention_bwd_merge", merged, ref,
+                     torch.bfloat16)
+            short = axial.fused_attention_bwd_merge(part[:-1], sc)
+            _control(f"{label}, {name}", "fused_attention_bwd_merge", short, ref,
+                     torch.bfloat16, tile="split")
+            del part, merged, plain, short
+        del parts
 
 
 # training shapes: crop 128, batch 1, heads 8, dim_head 64, one synthetic
@@ -881,9 +1036,87 @@ def combine_case(label, b, h, nq, nk, d, q_mask, kv_mask, gen):
     return row
 
 
+# K3's five main-path passes (the training passes of TRAIN_CASES, heads 8,
+# d 64) and the split counts (K3a, K3b) of ops/cuda/axial.py grad_splits
+K3_SPLITS = {
+    "pair axial (128x8, 128x128)": (1, 1),
+    "MSA column (64x8, 5x5)": (1, 1),
+    "MSA row (5x8, 64x64)": (1, 1),
+    "pair<-MSA (1x8, 16384x320)": (1, 7),
+    "MSA<-pair (1x8, 320x16384)": (7, 1),
+}
+K3_SM90 = ("dq_kernel_sm90<64>", "dkv_kernel_sm90<64>")
+
+
+def check_k3_plans():
+    """K3a's and K3b's plans on each training pass (bf16, TMA-aligned
+    operands) must name the Hopper kernels with the expected splits, and a
+    split pass the merge kernel."""
+    import ctypes
+
+    from alphafold2_tpu_torch.ops.cuda import build
+    from alphafold2_tpu_torch.ops.cuda.axial import grad_splits
+
+    lib = build.library("fused_attention_bwd")
+    for label, (b, nq, nk, _) in TRAIN_CASES.items():
+        h, d = 8, 64
+        for which, name, want, outs, rows in ((0, "dq", K3_SM90[0], 1, nq),
+                                              (1, "dkv", K3_SM90[1], 2, nk)):
+            splits = grad_splits(b, h, nq, nk, d, name)
+            require(splits == K3_SPLITS[label][which],
+                    f"{label}: grad_splits gives {splits} for {name}, not "
+                    f"{K3_SPLITS[label][which]}")
+            plan = build.LaunchPlan()
+            build.check(lib, lib.af2_fused_attention_bwd_plan(which, 1, b, h, nq, nk, d, splits,
+                                                              1, ctypes.byref(plan)), "K3 plan")
+            kernel = plan.kernel.decode()
+            line = f"{kernel}, {plan.blocks} blocks of {plan.threads}, {plan.dynamic_smem} B"
+            if splits > 1:
+                merge = build.LaunchPlan()
+                build.check(lib, lib.af2_fused_attention_bwd_merge_plan(
+                    outs, b, h, rows, d, ctypes.byref(merge)), "K3 merge plan")
+                line += f"; {splits} splits, then {merge.kernel.decode()} ({merge.blocks} blocks)"
+                require(merge.kernel.decode() == "grad_merge_kernel<64>",
+                        f"{label}: the merge pass plans {merge.kernel.decode()}")
+            log(f"[backward] K3{'ab'[which]} plan, {label}: {line}")
+            require(kernel == want, f"{label}: K3{'ab'[which]} plans {kernel}, not {want}")
+
+
+def unaligned_k3_case(gen):
+    """bf16 operands TMA cannot describe (views one element into a buffer
+    with rows of 65): the plan must take the older tile kernels, which
+    launch no Hopper kernel and no merge, and agree with the plain
+    versions."""
+    import torch
+
+    from alphafold2_tpu_torch.ops.cuda import axial
+
+    b, h, nq, nk, d = 2, 2, 150, 200, 64
+    q, k, v, do = (torch.randn((b, h, n, d + 1), device="cuda", generator=gen)
+                   .to(torch.bfloat16)[..., 1:] for n in (nq, nk, nk, nq))
+    qm, km = _prefix(nq, [150, 111]), _prefix(nk, [200, 77])
+    out, lse = axial.fused_attention_lse(q, k, v, qm, km, d**-0.5)
+    args = (q, k, v, do, lse, axial.attention_dsum(out, do), qm, km, d**-0.5)
+    counts = lambda: (axial.fused_attention_dq.sm90_launches,
+                      axial.fused_attention_dkv.sm90_launches,
+                      axial.fused_attention_bwd_merge.launches)
+    before = counts()
+    dq = axial.fused_attention_dq(*args)
+    dk, dv = axial.fused_attention_dkv(*args)
+    torch.cuda.synchronize()
+    require(counts() == before, "unaligned bf16 operands reached a Hopper K3 kernel")
+    label = "unaligned operands 150x200 d64"
+    _compare(label, "fused_attention_bwd_dq", dq, axial.fused_attention_dq_reference(*args),
+             torch.bfloat16)
+    for name, got, ref in zip(("dk", "dv"), (dk, dv), axial.fused_attention_dkv_reference(*args)):
+        _compare(label, f"fused_attention_bwd_dkv {name}", got, ref, torch.bfloat16)
+    log(f"[backward] {label}: dq_kernel_mma and dkv_kernel_mma, no merge")
+
+
 def phase_backward():
     import torch
 
+    check_k3_plans()
     gen = torch.Generator(device="cuda").manual_seed(1)
     f32, bf16 = torch.float32, torch.bfloat16
     rows = []
@@ -902,6 +1135,7 @@ def phase_backward():
         rows += k3_case("fully masked batch row d16", 2, 2, 64, 64, 16, dt,
                         _prefix(64, [64, 64]), _prefix(64, [0, 64]), reps=0, gen=gen)
         rows += k3_case("unmasked 130x130 d128", 1, 2, 130, 130, 128, dt, reps=0, gen=gen)
+    unaligned_k3_case(gen)
     # a batch row with no valid key: zero, finite gradients
     from alphafold2_tpu_torch.ops.cuda.axial import fused_attention
 
@@ -1184,6 +1418,7 @@ def phase_train(sparse=False, tied=False):
                "fused_attention_combine": axial.fused_attention_combine,
                "fused_attention_bwd_dq": axial.fused_attention_dq,
                "fused_attention_bwd_dkv": axial.fused_attention_dkv,
+               "fused_attention_bwd_merge": axial.fused_attention_bwd_merge,
                "tied_row_attention": tied_row.tied_row_attention,
                "tied_row_attention_bwd_dq": tied_row.tied_row_attention_dq,
                "tied_row_attention_bwd_dkv": tied_row.tied_row_attention_dkv,
@@ -1212,7 +1447,8 @@ def phase_train(sparse=False, tied=False):
 
     for fn in kernels.values():
         fn.launches = 0
-    axial.fused_attention.sm90_launches = 0
+    for fn in (axial.fused_attention, axial.fused_attention_dq, axial.fused_attention_dkv):
+        fn.sm90_launches = 0
     for fn in plain:
         fn.calls = 0
     torch.cuda.reset_peak_memory_stats()
@@ -1221,6 +1457,8 @@ def phase_train(sparse=False, tied=False):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in kernels.items()}
+    sm90 = {name: kernels[name].sm90_launches
+            for name in ("fused_attention", "fused_attention_bwd_dq", "fused_attention_bwd_dkv")}
     launches["block_sparse_attention"] += launches.pop("block_sparse_attention (no lse)")
     plain_calls = sum(fn.calls for fn in plain)
     peak = torch.cuda.max_memory_allocated()
@@ -1244,7 +1482,7 @@ def phase_train(sparse=False, tied=False):
     tied_calls = depth if tied else 0
     require(launches["fused_attention"] == (6 * depth - sparse_calls - tied_calls) * steps,
             "K1 launches per step")
-    require(axial.fused_attention.sm90_launches == launches["fused_attention"],
+    require(sm90["fused_attention"] == launches["fused_attention"],
             "a K1 launch of the training path did not run attention_kernel_sm90")
     # the MSA<-pair pass, one a layer, is the one that splits its key axis
     require(launches["fused_attention_combine"] == depth * steps,
@@ -1252,6 +1490,12 @@ def phase_train(sparse=False, tied=False):
     for name in ("fused_attention_bwd_dq", "fused_attention_bwd_dkv"):
         require(launches[name] == (6 * depth - 1 - sparse_calls - tied_calls) * steps,
                 f"{name} launches per step")
+        require(sm90[name] == launches[name],
+                f"a {name} launch of the training path did not run {name[20:]}_kernel_sm90")
+    # K3b splits on each layer's pair<-MSA pass, K3a on every MSA<-pair pass
+    # that runs a backward (not the last layer's)
+    require(launches["fused_attention_bwd_merge"] == (2 * depth - 1) * steps,
+            "K3 merge launches per step")
     for name in ("tied_row_attention", "tied_row_attention_bwd_dq",
                  "tied_row_attention_bwd_dkv"):
         require(launches[name] == tied_calls * steps, f"{name} launches per step")
@@ -1859,8 +2103,8 @@ def profile_device(what, fn, host=False):
         f"{busy:.1f} ms ({busy / wall_ms:.1%}), idle {1 - busy / wall_ms:.1%}")
     # K1 shows as attention_kernel_sm90<64> (and combine_kernel<64> where it
     # splits the key axis), K2 as attention_kernel_mma<64>, K3a/K3b as
-    # dq_kernel_mma / dkv_kernel_mma, K2's backward as chunked_dq_kernel_mma /
-    # chunked_dkv_kernel_mma
+    # dq_kernel_sm90 / dkv_kernel_sm90 (and grad_merge_kernel<64> where they
+    # split), K2's backward as chunked_dq_kernel_mma / chunked_dkv_kernel_mma
     for ms, count, name in sorted(rows, reverse=True)[:12]:
         log(f"[profile] {ms:9.2f} ms {ms / busy:6.1%} x{count:<6d} {name[:90]}")
     if not host:
@@ -1914,11 +2158,13 @@ def kernel_line(rows, serve, train, tied_train, sparse_train, gate):
     """One entry per kernel. K1 sums one serving trunk layer's K1 calls at
     bucket 128 (two pair axial passes, the MSA column pass, both cross
     attentions; a call's time includes its combine pass where it splits),
-    K2 its tied-row call, bf16, with the serving run's launches. K3a and K3b sum one training step's calls (6 layers; the last
-    layer's MSA<-pair update runs no backward), with the training run's
-    launches; their library_ms is SDPA's whole backward (dq, dk and dv in
-    one call) on the same problems. K4 (its training forward, with lse),
-    K5a and K5b sum one sparse training step's 12 pair axial passes, with
+    K2 its tied-row call, bf16, with the serving run's launches. K3a and
+    K3b sum one training step's calls (6 layers; the last layer's MSA<-pair
+    update runs no backward; a call's time includes its merge pass where it
+    splits), with the training run's launches; their library_ms is SDPA's
+    whole backward (dq, dk and dv in one call) on the same problems. K4 (its
+    training forward, with lse), K5a and K5b sum one sparse training step's
+    12 pair axial passes, with
     the sparse training run's launches; library_ms is SDPA with the
     element-level layout and key mask (its whole backward for K5a/K5b).
     K2's backward (tied_row_attention_bwd_dq and _dkv) sums one tied training

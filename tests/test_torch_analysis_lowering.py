@@ -98,6 +98,36 @@ K1_DEMANGLED = {
     COMBINE: "void af2::sm90::combine_kernel<(int)64>(af2::sm90::CombineParams)",
 }
 
+# K3's Hopper kernels and their merge pass at head dim 64, as ptxas reported
+# them for csrc/fused_attention_bwd.cu on the card's machine (NVIDIA H100,
+# nvcc for sm_90a)
+K3_DQ = ("_ZN3af24sm904grad14dq_kernel_sm90ILi64EEEv14CUtensorMap_stS3_S3_S3_"
+         "NS1_10GradParamsE")
+K3_DKV = ("_ZN3af24sm904grad15dkv_kernel_sm90ILi64EEEv14CUtensorMap_stS3_S3_S3_"
+          "NS1_10GradParamsE")
+K3_MERGE = "_ZN3af24sm904grad17grad_merge_kernelILi64EEEvNS1_11MergeParamsE"
+K3_REPORT = f"""\
+ptxas info    : Compiling entry function '{K3_MERGE}' for 'sm_90a'
+ptxas info    : Function properties for {K3_MERGE}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, used 0 barriers
+ptxas info    : Compiling entry function '{K3_DQ}' for 'sm_90a'
+ptxas info    : Function properties for {K3_DQ}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 124 registers, used 1 barriers
+ptxas info    : Compiling entry function '{K3_DKV}' for 'sm_90a'
+ptxas info    : Function properties for {K3_DKV}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+"""
+_TMAPS = "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st"
+K3_DEMANGLED = {
+    K3_DQ: f"void af2::sm90::grad::dq_kernel_sm90<(int)64>({_TMAPS}, af2::sm90::grad::GradParams)",
+    K3_DKV: f"void af2::sm90::grad::dkv_kernel_sm90<(int)64>({_TMAPS}, "
+            "af2::sm90::grad::GradParams)",
+    K3_MERGE: "void af2::sm90::grad::grad_merge_kernel<(int)64>(af2::sm90::grad::MergeParams)",
+}
+
 
 # ------------------------------------------------------------ cases
 
@@ -167,6 +197,31 @@ def test_k1_lists_its_combine_pass_where_the_key_axis_splits(case, splits):
         assert k1[1].args == (b, h, nq, d) and k1[1].dtypes == ("bfloat16",)
 
 
+@pytest.mark.parametrize("case,splits", [
+    ("train_cross_pair_from_msa", (1, 7)), ("train_cross_msa_from_pair", (7, 1)),
+    ("train_pair_axial_128", (1, 1)), ("train_msa_column", (1, 1)), ("train_msa_row", (1, 1)),
+    ("flash_bwd_256", (1, 1)), ("fused_axial_bwd_256", (1, 1)), ("edge_dense_d128", (1, 1)),
+])
+def test_k3_lists_its_merge_pass_where_it_splits(case, splits):
+    """K3a and K3b plan with grad_splits' count and TMA-aligned operands;
+    wherever one splits, K3's merge pass follows it (bf16 only) under its
+    own role, K3m: one output (dq) after K3a, two (dk, dv) after K3b."""
+    launches = [l for l in {c.name: c for c in lowering.CASES}[case].launches
+                if l.role.startswith("K3")]
+    b, h, nq, nk, d = launches[0].args[2:7]
+    roles = ["K3a"] + ["K3m"] * (splits[0] > 1) + ["K3b"] + ["K3m"] * (splits[1] > 1)
+    assert [l.role for l in launches] == roles
+    main = [l for l in launches if l.role != "K3m"]
+    assert [l.args for l in main] == [(0, None, b, h, nq, nk, d, splits[0], 1),
+                                      (1, None, b, h, nq, nk, d, splits[1], 1)]
+    assert all(l.symbol == "af2_fused_attention_bwd_plan" for l in main)
+    merges = [l for l in launches if l.role == "K3m"]
+    want = [(1, b, h, nq, d)] * (splits[0] > 1) + [(2, b, h, nk, d)] * (splits[1] > 1)
+    assert [l.args for l in merges] == want
+    assert all(l.symbol == "af2_fused_attention_bwd_merge_plan" and l.dtypes == ("bfloat16",)
+               for l in merges)
+
+
 # ------------------------------------------------------------ ptxas report
 
 
@@ -198,6 +253,7 @@ def test_report_by_kernel_names_instantiations_as_the_plans_do():
      "dq_kernel_mma<32>"),
     ("void af2::attention_kernel_mma<(int)64>(af2::Problem, int)", "attention_kernel_mma<64>"),
     (K1_DEMANGLED[SM90], "attention_kernel_sm90<64>"),
+    (K3_DEMANGLED[K3_DKV], "dkv_kernel_sm90<64>"),
     ("void <unnamed>::fwd_kernel<float, (int)16, (int)64>(<unnamed>::Fwd, int)",
      "fwd_kernel<float,16,64>"),
     ("scale_rows(float const*, float*, int)", "scale_rows"),
@@ -222,6 +278,31 @@ def test_k1_hopper_kernels_fit_sm90():
     sm90 = report["attention_kernel_sm90<64>"]
     assert (sm90.registers, sm90.spill_stores, sm90.spill_loads) == (123, 0, 0)
     assert sm90.registers * main["threads"] <= lowering.SM90_LIMITS["registers_per_sm"]
+
+
+def test_k3_hopper_kernels_fit_sm90():
+    """K3's plans at the two cross passes (K3a at MSA<-pair, K3b at
+    pair<-MSA: 280 blocks of 160 threads at 7 splits, 68,208 bytes of
+    dynamic shared memory; the merge pass 160 and 320 blocks of 128) against
+    ptxas's report of their instantiations: no spill, and two blocks fit an
+    SM in registers and shared memory."""
+    report = lowering.report_by_kernel(K3_REPORT, lambda names: {
+        n: K3_DEMANGLED[n] for n in names})
+    assert set(report) == {"dq_kernel_sm90<64>", "dkv_kernel_sm90<64>", "grad_merge_kernel<64>"}
+    plans = [{"blocks": 280, "threads": 160, "dynamic_smem": 68_208,
+              "kernel": "dq_kernel_sm90<64>"},
+             {"blocks": 280, "threads": 160, "dynamic_smem": 68_208,
+              "kernel": "dkv_kernel_sm90<64>"},
+             {"blocks": 160, "threads": 128, "dynamic_smem": 0, "kernel": "grad_merge_kernel<64>"},
+             {"blocks": 320, "threads": 128, "dynamic_smem": 0, "kernel": "grad_merge_kernel<64>"}]
+    for plan in plans:
+        res = report[plan["kernel"]]
+        assert lowering.check_launch(plan, res) == []
+        assert (res.spill_stores, res.spill_loads, res.stack_frame) == (0, 0, 0)
+    for name in ("dq_kernel_sm90<64>", "dkv_kernel_sm90<64>"):
+        assert 2 * report[name].registers * 160 <= lowering.SM90_LIMITS["registers_per_sm"]
+    # an SM's 228 KiB of shared memory, 1 KiB of it reserved per block
+    assert 2 * (68_208 + 1024) <= 228 * 1024
 
 
 # ------------------------------------------------------------ limits

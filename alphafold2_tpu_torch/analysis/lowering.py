@@ -157,8 +157,11 @@ def _k4(b, h, n, d, block):
 
 
 def _k5(b, h, n, d, block):
+    """K5a and K5b with operands as TMA can describe them: bf16 at head dim
+    32, 64 or 128 plans the Hopper kernels (sparse_dq_kernel_sm90,
+    sparse_dkv_kernel_sm90), f32 the older ones."""
     return tuple(Launch(role, "block_sparse_attention_bwd", "af2_block_sparse_attention_bwd_plan",
-                        (which, None, b, h, n, d, block))
+                        (which, None, b, h, n, d, block, 1))
                  for role, which in (("K5a", 0), ("K5b", 1)))
 
 

@@ -14,27 +14,47 @@
 //     K5b  dv = sum_i p[i, :] dO_i              over the key block's column list
 //          dk = sm_scale * sum_i ds[i, :] q_i   (the layout transposed)
 //
-// The TPU's sequential slot axis becomes a loop inside a group of warps over
-// that block's own list (row list in K5a, column list in K5b), so padding
-// slots are never visited. Each output element is summed by one lane in a
-// fixed order: no atomics, bitwise deterministic. bf16 rounds ds (for dq and
-// dk) and p (for dv) to bf16 before their products, as `_dq_kernel` (:173)
-// and `_dkv_kernel` (:221, :229) round them.
-//
 // What bounds it on the H100: per (query, active key) pair K5a does 3
 // products of 2*D operations (q.k recompute, dO.v, ds.k) and K5b 4, against
-// each operand read once: bound by the arithmetic rate in bf16 at head dim
-// 64, as K4 is. What the design does about it: the staging and the group
-// schedule of K4 (block_sparse_tile.cuh), all products on the tensor cores
-// in bf16 with p and ds passed in registers, operands read through the
-// callers' strides. The operands read across tokens (k in K5a; q and dO in
-// K5b) are staged a second time transposed, as K3a/K3b do. Every active
-// block is staged once per block that lists it; wgmma/TMA and reuse of a
-// staged block across neighbouring rows are later work.
+// each operand read once: at the sparse training pass (128 x 128 at block
+// 16, head dim 64, 68.8% of the pairs active) that is little work per byte,
+// and the bytes give the larger bound (chip_smoke.py computes both from the
+// run's inputs). What held the first design (the f32 and
+// fallback kernels below) far from it: a group of one warp per 16-row block
+// at block 16, mma.sync m16n8k16 on 32-bit shared loads, every tile staged
+// synchronously between two barriers, the operands read across tokens
+// staged a second time transposed, and every active block staged once for
+// each block that lists it.
+//
+// bf16 at head dim 32, 64 or 128 with operands TMA can describe (and every
+// block size) runs sparse_dq_kernel_sm90 / sparse_dkv_kernel_sm90
+// (block_sparse_bwd_sm90.cuh): K3's Hopper consumers (wgmma on TMA-fed
+// tiles, K, Q and dO read MN-major through their descriptors, a producer
+// warp keeping a 3-stage ring in flight) on 64-row resident tiles that
+// stream the union of their blocks' lists as gathered stages, with one mask
+// word set per warp from the stage's layout bits. The union costs products
+// the lists do not need: with BlockSparseConfig's defaults it is 7.5 of the
+// 8 blocks a tile at the training pass (N 128, block 16) against a mean
+// list of 5.5 (1.36x the listed work), 26.0 against 12.4 at N 512 (2.10x),
+// 7.0 against 5.5 at block 32 (1.27x), and exactly the list at block 64 and
+// 128 (one resident block a tile). Every streamed block is then staged once
+// per 64 resident rows, not once per block that lists it.
+//
+// f32, head dim 16 and bf16 operands TMA cannot describe run dq_kernel /
+// dkv_kernel below: the TPU's sequential slot axis becomes a loop inside a
+// group of warps over that block's own list (row list in K5a, column list
+// in K5b), so padding slots are never visited; all products on the tensor
+// cores in bf16 with p and ds passed in registers (on the CUDA cores in
+// f32), the operands read across tokens staged a second time transposed.
+// Both routes sum each output element in one thread in a fixed order: no
+// atomics, bitwise deterministic. bf16 rounds ds (for dq and dk) and p (for
+// dv) to bf16 before their products, as `_dq_kernel` (:173) and
+// `_dkv_kernel` (:221, :229) round them.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // (alphafold2_tpu_torch/ops/cuda/build.py). Bound with ctypes.
 
+#include "block_sparse_bwd_sm90.cuh"
 #include "block_sparse_tile.cuh"
 
 namespace {
@@ -354,15 +374,40 @@ cudaError_t dispatch_rows(Which which, const Bwd& p, int head_dim, cudaStream_t 
   }
 }
 
+namespace grad = af2::sm90::grad;
+
+// The head dims the Hopper kernels are built for (bf16, TMA-aligned
+// operands).
+bool sm90_head_dim(int head_dim) {
+  return head_dim == 32 || head_dim == 64 || head_dim == 128;
+}
+
+template <int D>
+cudaError_t dispatch_sm90(Which which, const grad::GradOperands& a, const grad::ListParams& lists,
+                          cudaStream_t stream, Af2LaunchPlan* plan_out) {
+  const bool dkv = which == Which::kDkv;
+  if (plan_out != nullptr) {
+    *plan_out = grad::plan_listed<D>(dkv, a.batch, a.heads, a.nq);
+    return cudaSuccess;
+  }
+  return grad::launch_listed<D>(dkv, a, lists, stream);
+}
+
 // strides: 21 element strides, (batch, head, token) of q, k, v, dout, dq, dk
 // and dv in that order (those of an absent output are ignored); the
-// head-dim stride of each must be 1. With `plan_out` it only fills the plan
-// (strides may then be null and no pointer is read).
+// head-dim stride of each must be 1. idx/cnt/max_active: the layout's lists
+// the older kernels walk; lists: the union lists the Hopper kernels stream
+// (ops/cuda/block_sparse.py union_stages). `info`, when given, receives the
+// kernel taken (1: sparse_dq_kernel_sm90 / sparse_dkv_kernel_sm90, 0:
+// another). With `plan_out` it only fills the plan (strides may then be
+// null, no pointer is read, and `aligned` stands for the operands'
+// alignment; a launch finds it from the pointers and strides).
 int run(Which which, int dtype, const void* q, const void* k, const void* v, const void* dout,
         const float* lse, const float* dsum, void* dq, void* dk, void* dv,
         const unsigned char* kv_mask, const int* idx, const int* cnt, int max_active,
-        const long long* strides, int batch, int heads, int n, int head_dim, int block,
-        float sm_scale, void* stream, Af2LaunchPlan* plan_out = nullptr) {
+        const grad::ListParams& lists, const long long* strides, int batch, int heads, int n,
+        int head_dim, int block, float sm_scale, int* info, void* stream,
+        Af2LaunchPlan* plan_out = nullptr, int aligned = 0) {
   if (block <= 0 || n % block != 0) return cudaErrorInvalidValue;
   Bwd p;
   p.q = q;
@@ -391,45 +436,100 @@ int run(Which which, int dtype, const void* q, const void* k, const void* v, con
   p.block = block;
   p.sm_scale = sm_scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool dkv = which == Which::kDkv;
+  grad::GradOperands a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.dout = dout;
+  a.lse = lse;
+  a.dsum = dsum;
+  a.q_mask = nullptr;
+  a.kv_mask = kv_mask;
+  a.out0 = dkv ? dk : dq;
+  a.out1 = dkv ? dv : nullptr;
+  a.qs = p.qs;
+  a.ks = p.ks;
+  a.vs = p.vs;
+  a.dos = p.dos;
+  a.o0s = dkv ? p.dks : p.dqs;
+  a.o1s = p.dvs;
+  a.batch = batch;
+  a.heads = heads;
+  a.nq = n;
+  a.nk = n;
+  a.sm_scale = sm_scale;
+  const bool sm90 = dtype == 1 && sm90_head_dim(head_dim) &&
+                    (block == 16 || block == 32 || block == 64 || block == 128) &&
+                    (plan_out != nullptr ? aligned != 0 : grad::takes(a, dkv));
+  if (info != nullptr) info[0] = sm90 ? 1 : 0;
+  if (sm90) {
+    switch (head_dim) {
+      case 32: return dispatch_sm90<32>(which, a, lists, s, plan_out);
+      case 64: return dispatch_sm90<64>(which, a, lists, s, plan_out);
+      default: return dispatch_sm90<128>(which, a, lists, s, plan_out);
+    }
+  }
   if (dtype == 0) return dispatch_rows<float>(which, p, head_dim, s, plan_out);
   if (dtype == 1) return dispatch_rows<__nv_bfloat16>(which, p, head_dim, s, plan_out);
   return cudaErrorInvalidValue;
+}
+
+grad::ListParams list_params(const int* blocks, const int* bits, const int* counts,
+                             int max_stages, int block) {
+  grad::ListParams lists;
+  lists.blocks = blocks;
+  lists.bits = bits;
+  lists.counts = counts;
+  lists.max_stages = max_stages;
+  lists.block = block;
+  return lists;
 }
 
 }  // namespace
 
 // K5a. q, k, v, dout, dq: (batch, heads, n, head_dim) through `strides`; lse
 // and dsum contiguous (batch, heads, n) f32; idx/cnt the layout's row lists
-// (active key blocks per query block) as K4 takes them. dtype: 0 = float32,
-// 1 = bfloat16. Returns the cudaError_t of the launch (0 on success).
+// (active key blocks per query block) as K4 takes them; u_blocks, u_bits,
+// u_counts, u_max_stages: the union of the row lists per 64-query tile
+// (union_stages). dtype: 0 = float32, 1 = bfloat16. info (1 int out): 1 if
+// sparse_dq_kernel_sm90 ran. Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int af2_block_sparse_attention_bwd_dq(
     int dtype, const void* q, const void* k, const void* v, const void* dout, const float* lse,
     const float* dsum, void* dq, const unsigned char* kv_mask, const int* idx, const int* cnt,
-    int max_active, const long long* strides, int batch, int heads, int n, int head_dim,
-    int block, float sm_scale, void* stream) {
+    int max_active, const int* u_blocks, const int* u_bits, const int* u_counts,
+    int u_max_stages, const long long* strides, int batch, int heads, int n, int head_dim,
+    int block, float sm_scale, int* info, void* stream) {
   return run(Which::kDq, dtype, q, k, v, dout, lse, dsum, dq, nullptr, nullptr, kv_mask, idx,
-             cnt, max_active, strides, batch, heads, n, head_dim, block, sm_scale, stream);
+             cnt, max_active, list_params(u_blocks, u_bits, u_counts, u_max_stages, block),
+             strides, batch, heads, n, head_dim, block, sm_scale, info, stream);
 }
 
 // K5b. As K5a, writing dk and dv; idx/cnt are the column lists (the query
-// blocks that attend each key block: the layout transposed).
+// blocks that attend each key block: the layout transposed) and the u_*
+// lists their union per 64-key tile. info: 1 if sparse_dkv_kernel_sm90 ran.
 extern "C" int af2_block_sparse_attention_bwd_dkv(
     int dtype, const void* q, const void* k, const void* v, const void* dout, const float* lse,
     const float* dsum, void* dk, void* dv, const unsigned char* kv_mask, const int* idx,
-    const int* cnt, int max_active, const long long* strides, int batch, int heads, int n,
-    int head_dim, int block, float sm_scale, void* stream) {
+    const int* cnt, int max_active, const int* u_blocks, const int* u_bits, const int* u_counts,
+    int u_max_stages, const long long* strides, int batch, int heads, int n, int head_dim,
+    int block, float sm_scale, int* info, void* stream) {
   return run(Which::kDkv, dtype, q, k, v, dout, lse, dsum, nullptr, dk, dv, kv_mask, idx, cnt,
-             max_active, strides, batch, heads, n, head_dim, block, sm_scale, stream);
+             max_active, list_params(u_blocks, u_bits, u_counts, u_max_stages, block), strides,
+             batch, heads, n, head_dim, block, sm_scale, info, stream);
 }
 
-// The launch plan of K5a (which = 0) or K5b (which = 1) at one shape; touches
-// no device. Returns 0, or cudaErrorInvalidValue for a dtype, head dim, block,
-// length or `which` the kernels do not take.
+// The launch plan of K5a (which = 0) or K5b (which = 1) at one shape, given
+// whether the operands are TMA-aligned; touches no device. Returns 0, or
+// cudaErrorInvalidValue for a dtype, head dim, block, length or `which` the
+// kernels do not take.
 extern "C" int af2_block_sparse_attention_bwd_plan(int which, int dtype, int batch, int heads,
-                                                   int n, int head_dim, int block,
+                                                   int n, int head_dim, int block, int aligned,
                                                    Af2LaunchPlan* plan) {
   if (which != 0 && which != 1) return cudaErrorInvalidValue;
   return run(which == 0 ? Which::kDq : Which::kDkv, dtype, nullptr, nullptr, nullptr, nullptr,
-             nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0, nullptr,
-             batch, heads, n, head_dim, block, 1.f, nullptr, plan);
+             nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0,
+             list_params(nullptr, nullptr, nullptr, 0, block), nullptr, batch, heads, n,
+             head_dim, block, 1.f, nullptr, nullptr, plan, aligned);
 }

@@ -62,6 +62,9 @@
 //   caller's strides. No atomics: two runs give the same bits.
 // * Deadlocks cannot hang the card: every mbarrier wait traps after
 //   kSpinLimit polls (sm90_ptx.cuh).
+// * K5a/K5b (block_sparse_bwd_sm90.cuh) run the same consumers on another
+//   tile source: stages gathered from a block layout's lists, with a mask
+//   word set per consumer warp (the template argument W = 4; K3 is W = 1).
 
 #pragma once
 
@@ -89,20 +92,42 @@ struct Cfg {
   static constexpr int kMinBlocks = D <= 64 ? 2 : 1;  // blocks an SM
 };
 
-struct Control {
+// The ring's control block. W sets of mask words a stage: one shared by the
+// consumer warpgroup (W = 1, K3), or one per consumer warp (W = 4, K5's
+// listed blocks, block_sparse_bwd_sm90.cuh: warp w holds the accumulator rows
+// 16w .. 16w + 15, and the layout lists keys per block of rows).
+template <int W>
+struct ControlT {
   uint64_t full[kMaxStages];
   uint64_t empty[kMaxStages];
   uint64_t resbar;  // the resident tiles
-  // K3b: each streamed query's lse * log2(e) (+inf when dead) and dsum (0)
+  // K3b, K5b: each streamed query's lse * log2(e) (+inf when dead) and dsum (0)
   alignas(16) float lse[kMaxStages][kRows];
   alignas(16) float dsum[kMaxStages][kRows];
-  uint32_t mask[kMaxStages][kMaskWords];  // K3a: the staged tile's valid keys
-  int tile[kMaxStages];  // first row of the staged tile, -1 ends the stream
+  // K3a: the staged tile's valid keys; K5a: the keys each warp's rows may
+  // take (valid and listed); K5b: the queries each warp's keys are listed by
+  uint32_t mask[kMaxStages][W][kMaskWords];
+  int tile[kMaxStages];  // >= 0 while the stream runs, -1 ends it
 };
+using Control = ControlT<1>;
 
-template <int D>
+template <int D, int W = 1>
 constexpr int smem_bytes() {
-  return 1024 + (2 + 2 * Cfg<D>::kStages) * Cfg<D>::kTile + (int)sizeof(Control);
+  return 1024 + (2 + 2 * Cfg<D>::kStages) * Cfg<D>::kTile + (int)sizeof(ControlT<W>);
+}
+
+// Thread 0 initialises the ring's barriers; every thread then syncs.
+template <int D, int W>
+__device__ __forceinline__ void init_ring(ControlT<W>& ctl) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < Cfg<D>::kStages; ++s) {
+      mbar_init(&ctl.full[s], 32);    // the producer warp
+      mbar_init(&ctl.empty[s], 128);  // every consumer thread
+    }
+    mbar_init(&ctl.resbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 }
 
 struct GradParams {
@@ -294,8 +319,8 @@ __device__ __forceinline__ void producer_dq(const CUtensorMap* tq, const CUtenso
     mbar_wait(&ctl.empty[st], ((it / C::kStages) & 1) ^ 1);
     unsigned char* ks = ring + st * 2 * C::kTile;
     if (lane == 0) {
-      ctl.mask[st][0] = w0;
-      ctl.mask[st][1] = w1;
+      ctl.mask[st][0][0] = w0;
+      ctl.mask[st][0][1] = w1;
       ctl.tile[st] = k0;
       mbar_arrive_expect_tx(&ctl.full[st], 2 * C::kTile);
 #pragma unroll
@@ -314,9 +339,11 @@ __device__ __forceinline__ void producer_dq(const CUtensorMap* tq, const CUtenso
   mbar_arrive(&ctl.full[st]);
 }
 
-template <int D>
+// The consumer warpgroup of K3a (W = 1) and K5a (W = 4: each warp masks its
+// own rows with its own word set).
+template <int D, int W>
 __device__ __forceinline__ void consumer_dq(const GradParams& p, unsigned char* res,
-                                            unsigned char* ring, Control& ctl, int b, int h,
+                                            unsigned char* ring, ControlT<W>& ctl, int b, int h,
                                             int bh, int q0, int split) {
   using C = Cfg<D>;
   const int lane = threadIdx.x & 31, t = lane & 3;
@@ -351,7 +378,8 @@ __device__ __forceinline__ void consumer_dq(const GradParams& p, unsigned char* 
     fence_operands(s);
     fence_operands(dp);
 
-    const uint32_t m0 = ctl.mask[st][0], m1 = ctl.mask[st][1];
+    const int set = W == 1 ? 0 : (int)threadIdx.x >> 5;
+    const uint32_t m0 = ctl.mask[st][set][0], m1 = ctl.mask[st][set][1];
     const uint32_t mw[kMaskWords] = {m0 >> (2 * t), m1 >> (2 * t)};
     if (__shfl_sync(0xffffffffu, (m0 & m1) == ~0u, 0))
       ds_rows<false>(s, dp, mw, p.scale_log2, lse2, dsum);
@@ -401,15 +429,7 @@ __global__ void __launch_bounds__(kThreads, Cfg<D>::kMinBlocks)
     zero_rows<D>(p, 1, b, h, bh, q0, p.nq, split);
     return;
   }
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < C::kStages; ++s) {
-      mbar_init(&ctl.full[s], 32);    // the producer warp
-      mbar_init(&ctl.empty[s], 128);  // every consumer thread
-    }
-    mbar_init(&ctl.resbar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+  init_ring<D>(ctl);
 
   // the role, broadcast from lane 0 so that ptxas sees the branch as
   // warp-uniform (a branch it cannot prove uniform serialises every wgmma)
@@ -419,7 +439,7 @@ __global__ void __launch_bounds__(kThreads, Cfg<D>::kMinBlocks)
     const int t_end = (int)((long long)(split + 1) * p.long_tiles / p.splits);
     producer_dq<D>(&tq, &tdo, &tk, &tv, p, res, ring, ctl, b, h, q0, t_begin, t_end);
   } else {
-    consumer_dq<D>(p, res, ring, ctl, b, h, bh, q0, split);
+    consumer_dq<D, 1>(p, res, ring, ctl, b, h, bh, q0, split);
   }
 }
 
@@ -477,9 +497,39 @@ __device__ __forceinline__ void producer_dkv(const CUtensorMap* tq, const CUtens
   mbar_arrive(&ctl.full[st]);
 }
 
-template <int D>
+// p^T (in s) and ds^T (in dp) of one staged query tile: key row r of this
+// thread is live when kv[r]; column 8j + 2t + e reads its lse2 and dsum from
+// the stage's slice (a dead query carries lse2 = +inf, so p = 0). kMasked:
+// column 8j + 2t + e is bit 8(j % 4) + e of mw[j / 4] (the warp's words
+// shifted by 2t), and a column whose bit is clear takes p = 0 by select.
+template <bool kMasked>
+__device__ __forceinline__ void dkv_cols(float (&s)[32], float (&dp)[32],
+                                         const uint32_t (&mw)[kMaskWords], float scale_log2,
+                                         const bool (&kv)[2], const float* lse,
+                                         const float* dsum, int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 l2 = *reinterpret_cast<const float2*>(&lse[8 * j + 2 * t]);
+    const float2 d2 = *reinterpret_cast<const float2*>(&dsum[8 * j + 2 * t]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * j + 2 * r + e;
+        float pr = ex2(fmaf(s[i], scale_log2, -(e ? l2.y : l2.x)));
+        if (!kv[r]) pr = 0.f;
+        if (kMasked && !((mw[j / 4] >> (8 * (j % 4) + e)) & 1u)) pr = 0.f;
+        s[i] = pr;
+        dp[i] = pr * (dp[i] - (e ? d2.y : d2.x));
+      }
+  }
+}
+
+// The consumer warpgroup of K3b (W = 1) and K5b (W = 4: each warp masks the
+// query columns its key rows are not listed by).
+template <int D, int W>
 __device__ __forceinline__ void consumer_dkv(const GradParams& p, unsigned char* res,
-                                             unsigned char* ring, Control& ctl, int b, int h,
+                                             unsigned char* ring, ControlT<W>& ctl, int b, int h,
                                              int bh, int k0, int split) {
   using C = Cfg<D>;
   const int lane = threadIdx.x & 31, t = lane & 3;
@@ -509,20 +559,17 @@ __device__ __forceinline__ void consumer_dkv(const GradParams& p, unsigned char*
     fence_operands(dp);
 
     // p^T in s, ds^T in dp; a dead query column has lse2 = +inf (p = 0)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 l2 = *reinterpret_cast<const float2*>(&ctl.lse[st][8 * j + 2 * t]);
-      const float2 d2 = *reinterpret_cast<const float2*>(&ctl.dsum[st][8 * j + 2 * t]);
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int i = 4 * j + 2 * r + e;
-          float pr = ex2(fmaf(s[i], p.scale_log2, -(e ? l2.y : l2.x)));
-          if (!kv[r]) pr = 0.f;
-          s[i] = pr;
-          dp[i] = pr * (dp[i] - (e ? d2.y : d2.x));
-        }
+    if constexpr (W == 1) {
+      const uint32_t all[kMaskWords] = {~0u, ~0u};
+      dkv_cols<false>(s, dp, all, p.scale_log2, kv, ctl.lse[st], ctl.dsum[st], t);
+    } else {
+      const int set = (int)threadIdx.x >> 5;
+      const uint32_t m0 = ctl.mask[st][set][0], m1 = ctl.mask[st][set][1];
+      const uint32_t mw[kMaskWords] = {m0 >> (2 * t), m1 >> (2 * t)};
+      if (__shfl_sync(0xffffffffu, (m0 & m1) == ~0u, 0))
+        dkv_cols<false>(s, dp, mw, p.scale_log2, kv, ctl.lse[st], ctl.dsum[st], t);
+      else
+        dkv_cols<true>(s, dp, mw, p.scale_log2, kv, ctl.lse[st], ctl.dsum[st], t);
     }
 
     wgmma_fence();
@@ -574,15 +621,7 @@ __global__ void __launch_bounds__(kThreads, Cfg<D>::kMinBlocks)
     zero_rows<D>(p, 2, b, h, bh, k0, p.nk, split);
     return;
   }
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < C::kStages; ++s) {
-      mbar_init(&ctl.full[s], 32);
-      mbar_init(&ctl.empty[s], 128);
-    }
-    mbar_init(&ctl.resbar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+  init_ring<D>(ctl);
 
   const int role = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
   if (role == 1) {
@@ -590,7 +629,7 @@ __global__ void __launch_bounds__(kThreads, Cfg<D>::kMinBlocks)
     const int t_end = (int)((long long)(split + 1) * p.long_tiles / p.splits);
     producer_dkv<D>(&tq, &tdo, &tk, &tv, p, res, ring, ctl, b, h, bh, k0, t_begin, t_end);
   } else {
-    consumer_dkv<D>(p, res, ring, ctl, b, h, bh, k0, split);
+    consumer_dkv<D, 1>(p, res, ring, ctl, b, h, bh, k0, split);
   }
 }
 

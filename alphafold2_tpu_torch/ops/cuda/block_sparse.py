@@ -14,9 +14,12 @@ the CPU; for CUDA tensors they launch the kernel or raise.
 
 The layout reaches the kernels as a :class:`BlockLayout`: the row lists
 (active key blocks of each query block, ascending, padded to the longest)
-with their counts, and the column lists (the layout transposed) with theirs.
-It copies them to a device once and keeps them there, so a call does no
-host work for the layout.
+with their counts, and the column lists (the layout transposed) with theirs;
+and for K5a/K5b's Hopper kernels, which own 64 rows a block, the union of
+the lists of each 64-row tile packed as stages (:func:`union_stages`). It
+copies them to a device once and keeps them there, so a call does no host
+work for the layout. :func:`dq_union_reference` and
+:func:`dkv_union_reference` are the plain versions of that decomposition.
 
 Contract (the JAX function's, with one sharpening, as K1's): q/k/v
 (B, H, N, D), N a multiple of the block size (16, 32, 64 or 128), boolean
@@ -41,6 +44,53 @@ from alphafold2_tpu_torch.ops.cuda.axial import (
     _like_heads, _masked_softmax_weights, _ptr, _strides, attention_dsum)
 
 BLOCK_SIZES = (16, 32, 64, 128)
+TILE_ROWS = 64  # rows of a resident tile and of a streamed stage (wgmma's m64)
+
+
+def union_stages(idx, cnt, num_blocks: int, block_size: int):
+    """The lists of each 64-row tile as the Hopper K5 kernels stream them.
+
+    ``idx`` (nb, A) / ``cnt`` (nb,): the per-block lists (row lists for
+    K5a, column lists for K5b). A tile's resident blocks are the 64 / bs
+    blocks its rows cover at bs 16 or 32 (fewer where the axis ends), or the
+    one block at bs 64 and 128 (two tiles a block at 128). Its stream is the
+    ascending union of their lists, packed ``slots`` = 64 / min(bs, 64)
+    blocks a stage. Returns int32 arrays:
+
+    - ``blocks`` (tiles, S, slots): the listed block of each slot; a
+      stage's empty slots repeat its last listed block;
+    - ``bits`` (tiles, S): bit ``s * slots + r`` set when resident block
+      ``r`` lists slot ``s``'s block; 0 for every empty slot;
+    - ``counts`` (tiles,): each tile's stages (S = max(counts, 1)).
+    """
+    idx = np.asarray(idx)
+    cnt = np.asarray(cnt)
+    listed = np.zeros((num_blocks, num_blocks), dtype=bool)
+    for i in range(num_blocks):
+        listed[i, idx[i, :cnt[i]]] = True
+    box = min(block_size, TILE_ROWS)
+    slots = TILE_ROWS // box
+    tiles = -(-num_blocks * block_size // TILE_ROWS)
+    residents, streams = [], []
+    for t in range(tiles):
+        if block_size < TILE_ROWS:
+            resident = [rb for rb in range(t * slots, (t + 1) * slots) if rb < num_blocks]
+        else:
+            resident = [t * TILE_ROWS // block_size]
+        residents.append(resident)
+        streams.append(np.flatnonzero(listed[resident].any(0)))
+    counts = np.array([-(-len(u) // slots) for u in streams], dtype=np.int32)
+    depth = max(int(counts.max()) if tiles else 0, 1)
+    blocks = np.zeros((tiles, depth, slots), dtype=np.int32)
+    bits = np.zeros((tiles, depth), dtype=np.int32)
+    for t, (union, resident) in enumerate(zip(streams, residents)):
+        for a in range(counts[t]):
+            stage = union[a * slots:(a + 1) * slots]
+            blocks[t, a, :len(stage)] = stage
+            blocks[t, a, len(stage):] = stage[-1]
+            bits[t, a] = sum(1 << (s * slots + r) for s, blk in enumerate(stage)
+                             for r, rb in enumerate(resident) if listed[rb, blk])
+    return blocks, bits, counts
 
 
 class BlockLayout:
@@ -65,6 +115,9 @@ class BlockLayout:
         self.rows, self.row_counts, self.cols, self.col_counts = lists
         self.block_size = block_size
         self.num_blocks = nb
+        # the Hopper K5 kernels' streams: rows (K5a) and columns (K5b)
+        self.row_union = union_stages(self.rows, self.row_counts, nb, block_size)
+        self.col_union = union_stages(self.cols, self.col_counts, nb, block_size)
         self._on: dict = {}
 
     @property
@@ -79,6 +132,18 @@ class BlockLayout:
         if found is None:
             found = tuple(torch.from_numpy(a).to(device) for a in
                           (self.rows, self.row_counts, self.cols, self.col_counts))
+            self._on[key] = found
+        return found
+
+    def union_tensors(self, device: torch.device):
+        """(row blocks, row bits, row counts, column blocks, column bits,
+        column counts) of :func:`union_stages` as int32 tensors on
+        ``device``, copied there on first use and kept."""
+        key = ("union", str(device))
+        found = self._on.get(key)
+        if found is None:
+            found = tuple(torch.from_numpy(a).to(device)
+                          for a in (*self.row_union, *self.col_union))
             self._on[key] = found
         return found
 
@@ -210,6 +275,130 @@ def block_sparse_attention_dkv_reference(q, k, v, dout, lse, dsum, layout, kv_ma
 block_sparse_attention_dkv_reference.calls = 0
 
 
+def _union_walk(layout: BlockLayout, columns: bool):
+    """The stages the Hopper K5 kernels stream, in their order: for each
+    64-row tile and each ring stage of its union lists, (tile, the stage's
+    64 streamed tokens, ``allowed`` (64 resident rows, 64 streamed rows)
+    bool from the layout bits, the stage's empty slots). ``columns``: K5b's
+    column lists, else K5a's row lists."""
+    blocks, bits, counts = layout.col_union if columns else layout.row_union
+    bs = layout.block_size
+    box = min(bs, TILE_ROWS)
+    slots = TILE_ROWS // box
+    halves = max(bs // TILE_ROWS, 1)
+    # the resident block of each tile row (the accumulator rows of its warp)
+    # and the slot of each streamed row
+    rb = torch.arange(TILE_ROWS) // box
+    slot = torch.arange(TILE_ROWS) // box
+    own = (1 << slots) - 1
+    offsets = torch.arange(box)
+    for t in range(len(counts)):
+        for a in range(int(counts[t])):
+            word = int(bits[t, a])
+            groups = torch.tensor([(word >> (s * slots)) & own for s in range(slots)])
+            allowed = ((groups[slot][None, :] >> rb[:, None]) & 1).bool()
+            empty = [s for s in range(slots) if groups[s] == 0]
+            for half in range(halves):
+                tokens = torch.cat([int(blk) * bs + half * TILE_ROWS + offsets
+                                    for blk in blocks[t, a]])
+                yield t, tokens, allowed, empty
+
+
+def _pad_rows(x, rows, value=0.0):
+    """(B, H, N, ...) f32, padded along N to ``rows`` with ``value``."""
+    x = x.float()
+    extra = rows - x.shape[2]
+    if extra == 0:
+        return x
+    return torch.cat([x, x.new_full((*x.shape[:2], extra, *x.shape[3:]), value)], dim=2)
+
+
+def _staged(x, tokens, empty, box, pad):
+    """A stage's rows of ``x`` (B, H, N, D); with ``pad`` "nan" the
+    empty slots hold NaN instead of the repeated block."""
+    st = x[:, :, tokens]
+    for s in empty if pad == "nan" else ():
+        st[:, :, s * box:(s + 1) * box] = float("nan")
+    return st
+
+
+def _slot_ranges(empty, box, pad):
+    """The column ranges a stage adds, slot by slot (empty slots left out
+    with ``pad`` "skip")."""
+    return [slice(s * box, (s + 1) * box) for s in range(TILE_ROWS // box)
+            if not (pad == "skip" and s in empty)]
+
+
+_PADS = ("repeat", "nan", "skip")
+
+
+def dq_union_reference(q, k, v, dout, lse, dsum, layout, kv_mask=None, sm_scale=1.0,
+                       pad="repeat"):
+    """The plain version of the Hopper K5a's decomposition: each 64-query
+    tile walks the union of its blocks' row lists stage by stage (64 key
+    rows, 64 / bs listed blocks); a (query, key) pair outside the query's
+    block's list takes p = 0 by select; ds rounded to q's dtype; dq summed
+    slot by slot. ``pad``: "repeat" fills a stage's empty slots as the
+    kernel does (its last block, bits 0), "nan" with NaN, "skip" leaves
+    them out of the sums."""
+    if pad not in _PADS:
+        raise ValueError(f"pad must be one of {_PADS}, got {pad!r}")
+    b, h, n, d = q.shape
+    box = min(layout.block_size, TILE_ROWS)
+    rows = len(layout.row_union[2]) * TILE_ROWS
+    qf, dof = _pad_rows(q, rows), _pad_rows(dout, rows)
+    lse_p, dsum_p = _pad_rows(lse, rows, float("inf")), _pad_rows(dsum, rows)
+    kf, vf = k.float(), v.float()
+    keys = (kv_mask if kv_mask is not None
+            else torch.ones((b, n), dtype=torch.bool, device=q.device))
+    dq = torch.zeros((b, h, rows, d), dtype=torch.float32, device=q.device)
+    for t, tokens, allowed, empty in _union_walk(layout, columns=False):
+        r = slice(t * TILE_ROWS, (t + 1) * TILE_ROWS)
+        kst, vst = (_staged(x, tokens, empty, box, pad) for x in (kf, vf))
+        s = qf[:, :, r] @ kst.transpose(-1, -2) * sm_scale
+        valid = allowed.to(q.device)[None, None] & keys[:, None, None, tokens]
+        p = _exp_live(s, lse_p[:, :, r, None], valid)
+        dp = dof[:, :, r] @ vst.transpose(-1, -2)
+        ds = (p * (dp - dsum_p[:, :, r, None])).to(q.dtype).float()
+        for c in _slot_ranges(empty, box, pad):
+            dq[:, :, r] += ds[..., c] @ kst[:, :, c]
+    return (sm_scale * dq[:, :, :n]).to(q.dtype)
+
+
+def dkv_union_reference(q, k, v, dout, lse, dsum, layout, kv_mask=None, sm_scale=1.0,
+                        pad="repeat"):
+    """The plain version of the Hopper K5b's decomposition: each 64-key
+    tile walks the union of its blocks' column lists stage by stage (64
+    query rows with their lse and dsum); a pair outside the key's block's
+    list takes p = 0 by select; p and ds rounded to k's dtype; (dk, dv)
+    summed slot by slot. ``pad`` as in :func:`dq_union_reference`."""
+    if pad not in _PADS:
+        raise ValueError(f"pad must be one of {_PADS}, got {pad!r}")
+    b, h, n, d = q.shape
+    box = min(layout.block_size, TILE_ROWS)
+    rows = len(layout.col_union[2]) * TILE_ROWS
+    kf, vf = _pad_rows(k, rows), _pad_rows(v, rows)
+    keys = (kv_mask if kv_mask is not None
+            else torch.ones((b, n), dtype=torch.bool, device=q.device))
+    keys = torch.cat([keys, keys.new_zeros((b, rows - n))], dim=1)
+    qf, dof = q.float(), dout.float()
+    dk = torch.zeros((b, h, rows, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for t, tokens, allowed, empty in _union_walk(layout, columns=True):
+        r = slice(t * TILE_ROWS, (t + 1) * TILE_ROWS)
+        qst, dost = (_staged(x, tokens, empty, box, pad) for x in (qf, dof))
+        s = kf[:, :, r] @ qst.transpose(-1, -2) * sm_scale  # keys x queries
+        valid = allowed.to(q.device)[None, None] & keys[:, None, r, None]
+        p = _exp_live(s, lse[:, :, None, tokens], valid)
+        dp = vf[:, :, r] @ dost.transpose(-1, -2)
+        ds = (p * (dp - dsum[:, :, None, tokens])).to(k.dtype).float()
+        pr = p.to(k.dtype).float()
+        for c in _slot_ranges(empty, box, pad):
+            dv[:, :, r] += pr[..., c] @ dost[:, :, c]
+            dk[:, :, r] += ds[..., c] @ qst[:, :, c]
+    return ((sm_scale * dk[:, :, :n]).to(k.dtype), dv[:, :, :n].to(v.dtype))
+
+
 # ---------------------------------------------------------------- kernels
 
 
@@ -271,27 +460,33 @@ def block_sparse_attention_lse(q, k, v, layout, kv_mask=None, sm_scale=1.0):
 block_sparse_attention_lse.launches = 0
 
 
-def _launch_backward(symbol, outs, slots, lists, q, k, v, dout, lse, dsum, layout, kv_mask,
-                     sm_scale):
+def _launch_backward(symbol, outs, slots, lists, union, q, k, v, dout, lse, dsum, layout,
+                     kv_mask, sm_scale):
     """Launch K5a or K5b writing ``outs``; ``slots`` gives the kernel the
     strides of its (dq, dk, dv) in that order (stand-ins for the ones it
-    does not write); ``lists`` is (idx, counts), row or column lists."""
+    does not write); ``lists`` is (idx, counts), row or column lists, and
+    ``union`` their (blocks, bits, counts) per 64-row tile. Returns 1 if the
+    Hopper kernel ran, else 0."""
     _, km = _cuda_operands(q, k, v, None, kv_mask, symbol)
     if dout.stride(-1) != 1:
         dout = dout.contiguous()
     lse, dsum = lse.contiguous(), dsum.contiguous()
     b, h, n, d = q.shape
     if b * h == 0:
-        return
+        return 0
     idx, counts = lists
+    blocks, bits, stages = union
+    info = (ctypes.c_int * 1)()
     lib = build.library("block_sparse_attention_bwd")
     with torch.cuda.device(q.device):
         code = getattr(lib, symbol)(
             _DTYPES[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(lse), _ptr(dsum),
             *(_ptr(o) for o in outs), _ptr(km), _ptr(idx), _ptr(counts), idx.shape[1],
+            _ptr(blocks), _ptr(bits), _ptr(stages), blocks.shape[1],
             _strides(q, k, v, dout, *slots), b, h, n, d, layout.block_size, float(sm_scale),
-            _stream())
+            info, _stream())
     build.check(lib, code, symbol)
+    return info[0]
 
 
 def block_sparse_attention_dq(q, k, v, dout, lse, dsum, layout, kv_mask=None, sm_scale=1.0):
@@ -304,13 +499,16 @@ def block_sparse_attention_dq(q, k, v, dout, lse, dsum, layout, kv_mask=None, sm
                                                    sm_scale)
     dq = _like_heads(q)
     rows, counts, _, _ = layout.tensors(q.device)
-    _launch_backward("af2_block_sparse_attention_bwd_dq", (dq,), (dq, k, v), (rows, counts),
-                     q, k, v, dout, lse, dsum, layout, kv_mask, sm_scale)
+    union = layout.union_tensors(q.device)[:3]
+    block_sparse_attention_dq.sm90_launches += _launch_backward(
+        "af2_block_sparse_attention_bwd_dq", (dq,), (dq, k, v), (rows, counts), union,
+        q, k, v, dout, lse, dsum, layout, kv_mask, sm_scale)
     block_sparse_attention_dq.launches += 1
     return dq
 
 
 block_sparse_attention_dq.launches = 0
+block_sparse_attention_dq.sm90_launches = 0  # of them, launches of sparse_dq_kernel_sm90
 
 
 def block_sparse_attention_dkv(q, k, v, dout, lse, dsum, layout, kv_mask=None, sm_scale=1.0):
@@ -323,13 +521,16 @@ def block_sparse_attention_dkv(q, k, v, dout, lse, dsum, layout, kv_mask=None, s
                                                     sm_scale)
     dk, dv = _like_heads(k), _like_heads(v)
     _, _, cols, counts = layout.tensors(q.device)
-    _launch_backward("af2_block_sparse_attention_bwd_dkv", (dk, dv), (q, dk, dv),
-                     (cols, counts), q, k, v, dout, lse, dsum, layout, kv_mask, sm_scale)
+    union = layout.union_tensors(q.device)[3:]
+    block_sparse_attention_dkv.sm90_launches += _launch_backward(
+        "af2_block_sparse_attention_bwd_dkv", (dk, dv), (q, dk, dv), (cols, counts), union,
+        q, k, v, dout, lse, dsum, layout, kv_mask, sm_scale)
     block_sparse_attention_dkv.launches += 1
     return dk, dv
 
 
 block_sparse_attention_dkv.launches = 0
+block_sparse_attention_dkv.sm90_launches = 0  # of them, launches of sparse_dkv_kernel_sm90
 
 
 class BlockSparseAttention(torch.autograd.Function):

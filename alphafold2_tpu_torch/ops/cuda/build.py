@@ -112,12 +112,17 @@ SIGNATURES = {
         "af2_block_sparse_attention_plan": [_I] * 6 + [_PLAN],
     },
     # dtype, q, k, v, dout, lse, dsum, outputs (dq | dk, dv), kv_mask, idx,
-    # cnt, max_active, strides, batch, heads, n, head_dim, block, sm_scale, stream
+    # cnt, max_active, the union lists (blocks, bits, counts, max_stages),
+    # strides, batch, heads, n, head_dim, block, sm_scale, info (1 int out),
+    # stream
     "block_sparse_attention_bwd": {
-        "af2_block_sparse_attention_bwd_dq": [_I] + [_P] * 10 + [_I, _P] + [_I] * 5 + [_F, _P],
-        "af2_block_sparse_attention_bwd_dkv": [_I] + [_P] * 11 + [_I, _P] + [_I] * 5 + [_F, _P],
-        # which (0 dq, 1 dkv), dtype, batch, heads, n, head_dim, block, plan
-        "af2_block_sparse_attention_bwd_plan": [_I] * 7 + [_PLAN],
+        "af2_block_sparse_attention_bwd_dq":
+            [_I] + [_P] * 10 + [_I] + [_P] * 3 + [_I, _P] + [_I] * 5 + [_F, _P, _P],
+        "af2_block_sparse_attention_bwd_dkv":
+            [_I] + [_P] * 11 + [_I] + [_P] * 3 + [_I, _P] + [_I] * 5 + [_F, _P, _P],
+        # which (0 dq, 1 dkv), dtype, batch, heads, n, head_dim, block,
+        # aligned, plan
+        "af2_block_sparse_attention_bwd_plan": [_I] * 8 + [_PLAN],
     },
     # X's valid counterpart: x, out, rows, n, stream; plan: rows, n, plan
     "scale_rows": {

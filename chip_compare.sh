@@ -6,10 +6,13 @@
 #
 # PARENT_DIR: e.g. a `git archive` of the parent unpacked under _checkout/.
 # PHASES: chip_smoke.py functions to run, default "phase_serve phase_train"
-# (serving throughput, device busy time, training step times);
+# (serving throughput, device busy time, training step times); a phase may
+# carry flags after a colon, "phase_train:sparse" for phase_train(sparse=True);
 # "phase_k1_time" times K1 alone on its nine main-path passes,
-# "phase_k3_time" K3a and K3b alone on the five training passes (a phase the
-# parent lacks runs from this tree's chip_smoke.py, on the parent's kernels);
+# "phase_k3_time" K3a and K3b alone on the five training passes,
+# "phase_k5_time" K5a and K5b (and K4) on the sparse training pass and at
+# N 512 (a phase the parent lacks runs from this tree's chip_smoke.py, on the
+# parent's kernels);
 # "phase_backward phase_train" times K1 (lse), K3a and K3b on the training
 # passes (per call and per training step) beside the training step.
 # Builds both trees' kernels first (in parallel), then writes each run's
@@ -34,8 +37,11 @@ spec = importlib.util.spec_from_file_location("chip_smoke_change", sys.argv[1])
 change = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(change)
 
+# a phase may carry flags: "phase_train:sparse" runs phase_train(sparse=True)
 for phase in sys.argv[2:]:
-    rows = (getattr(c, phase, None) or getattr(change, phase))()
+    name, _, flags = phase.partition(":")
+    kwargs = {flag: True for flag in flags.split(",") if flag}
+    rows = (getattr(c, name, None) or getattr(change, name))(**kwargs)
     if not isinstance(rows, list):
         continue
     for r in rows:
@@ -48,6 +54,12 @@ for phase in sys.argv[2:]:
             weights = c._step_weights(backward=name != "fused_attention (lse)")
             e = c._entry(name, "", "", None, rows, weights)
             c.log(f"[kernels] time {name} per training step: kernel {e['ms']:.3f} ms, "
+                  f"sdpa {e['library_ms']} ms")
+    for name in ("block_sparse_attention", "block_sparse_attention_bwd_dq",
+                 "block_sparse_attention_bwd_dkv"):
+        if any(r["kernel"] == name and "ms" in r for r in rows):
+            e = c._entry(name, "", "", None, rows, {c.SPARSE_TRAIN_LABEL: 12})
+            c.log(f"[kernels] time {name} per sparse training step: kernel {e['ms']:.3f} ms, "
                   f"sdpa {e['library_ms']} ms")
 EOF
 )
@@ -65,6 +77,6 @@ for who in parent change change parent; do
   (cd "$dir" && timeout 400 python3 -c "$runner" "$here/chip_smoke.py" $phases) \
       > "chiprun_out/cmp/$i.$who.log" 2>&1
   echo "== $i $who rc=$?"
-  grep -h "residues/s\|device busy\|the step alone\|warm step latency\|k1 time\|k3 time\|time fused_attention" \
+  grep -h "residues/s\|device busy\|the step alone\|warm step latency\|k1 time\|k3 time\|k5 time\|time fused_attention\|time block_sparse" \
       "chiprun_out/cmp/$i.$who.log" | cut -c1-220
 done

@@ -9,7 +9,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
               (analysis/lowering.py: every case's launch plans and ptxas
               resources within sm_90's limits, f32 and bf16, and X's
               mis-tiled negative control refused by ptxas; K3's Hopper
-              kernels and their merge at head dim 64 without a spill); X's valid
+              kernels and their merge, and K5's Hopper kernels, at head
+              dim 64 without a spill); X's valid
               counterpart (scale_rows) bitwise against 2 * x at (4, 512),
               timed beside torch.mul; the launch-level control, a
               2048-thread block the card must refuse with
@@ -79,15 +80,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 6. sparse   — the block-sparse kernels K4 (forward, with and without the
               row logsumexp), K5a (dq) and K5b (dk, dv) against their plain
               versions per tensor at the sparse training path's pair pass
-              and at a long, an unaligned, a block-128 and a dead-row
-              problem, f32 and bf16; rows without a valid key exactly 0; a
+              and at a long, an unaligned, a block-128, a block-32, a
+              dead-row and a disjoint-lists problem, f32 and bf16; K5's
+              plans, and every bf16 case at head dim 32/64/128 launching
+              K5's Hopper kernels (sparse_dq_kernel_sm90 /
+              sparse_dkv_kernel_sm90, which stream the union of each 64-row
+              tile's lists); rows without a valid key exactly 0; a
               negative control dropping each query block's last valid
               active block (K4, K5a) or each key block's last query block
               (K5b); two backward runs bit-identical; SDPA with the
               element-level layout and key mask as the yardstick;
 7. sparse train — the training phase's checks with
               model.sparse_self_attn=True: every pair axial pass through
-              K4/K5a/K5b, the rest through K1/K3a/K3b, small-model
+              K4/K5a/K5b (every K5 launch on its Hopper kernel), the rest
+              through K1/K3a/K3b, small-model
               gradients on the grid route (crop 48) and the flat route
               (crop 40), one step under torch.profiler.
 
@@ -95,8 +101,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 main-path passes beside SDPA: ``python3 -c "import chip_smoke as c;
 c.phase_build(); c.phase_k1_time()"``; ``phase_k3_time`` likewise times K3a
 and K3b on the five training passes beside SDPA's backward, per pass and
-per step. ``chip_compare.sh`` runs them, or any other phases, for two
-checkouts in turns.
+per step; ``phase_k5_time`` K5a and K5b (and K4) on the sparse training pass
+and at N 512 beside SDPA with the layout mask, per pass and per sparse step.
+``chip_compare.sh`` runs them, or any other phases, for two checkouts in
+turns.
 
 Prints the card's name and power limit, then a JSON line describing every
 kernel, and last ``{"ok": true, "device": {...}}``. Any failed phase exits
@@ -242,6 +250,12 @@ def phase_gate():
         check(set(spills) == {*K3_SM90, "grad_merge_kernel<64>"},
               f"the gate planned K3's Hopper kernels only as {sorted(spills)}")
         check(all(x == (0, 0) for x in spills.values()), f"K3's Hopper kernels spill: {spills}")
+        # nor K5's, which run K3's consumers on gathered stages
+        k5 = {ln["kernel"]: (ln.get("registers"), ln.get("spill_stores"), ln.get("spill_loads"))
+              for rec in records for ln in rec.get("launches", ()) if ln.get("kernel") in K5_SM90}
+        log(f"[gate] K5's Hopper kernels at head dim 64 (registers, spill stores, loads): {k5}")
+        check(set(k5) == set(K5_SM90), f"the gate planned K5's Hopper kernels only as {sorted(k5)}")
+        check(all(x[1:] == (0, 0) for x in k5.values()), f"K5's Hopper kernels spill: {k5}")
 
     # X at its own shape: the path is one launch at (4, 512) f32
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -1447,7 +1461,8 @@ def phase_train(sparse=False, tied=False):
 
     for fn in kernels.values():
         fn.launches = 0
-    for fn in (axial.fused_attention, axial.fused_attention_dq, axial.fused_attention_dkv):
+    for fn in (axial.fused_attention, axial.fused_attention_dq, axial.fused_attention_dkv,
+               block_sparse.block_sparse_attention_dq, block_sparse.block_sparse_attention_dkv):
         fn.sm90_launches = 0
     for fn in plain:
         fn.calls = 0
@@ -1458,7 +1473,8 @@ def phase_train(sparse=False, tied=False):
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in kernels.items()}
     sm90 = {name: kernels[name].sm90_launches
-            for name in ("fused_attention", "fused_attention_bwd_dq", "fused_attention_bwd_dkv")}
+            for name in ("fused_attention", "fused_attention_bwd_dq", "fused_attention_bwd_dkv",
+                         "block_sparse_attention_bwd_dq", "block_sparse_attention_bwd_dkv")}
     launches["block_sparse_attention"] += launches.pop("block_sparse_attention (no lse)")
     plain_calls = sum(fn.calls for fn in plain)
     peak = torch.cuda.max_memory_allocated()
@@ -1502,6 +1518,11 @@ def phase_train(sparse=False, tied=False):
     for name in ("block_sparse_attention", "block_sparse_attention_bwd_dq",
                  "block_sparse_attention_bwd_dkv"):
         require(launches[name] == sparse_calls * steps, f"{name} launches per step")
+    # every K5 launch of the (bf16, head dim 64) sparse path on its Hopper kernel
+    for name in ("block_sparse_attention_bwd_dq", "block_sparse_attention_bwd_dkv"):
+        require(sm90[name] == launches[name],
+                f"a {name} launch of the training path did not run "
+                f"sparse_{name[27:]}_kernel_sm90")
     require(plain_calls == 0, "a plain version ran on the training path")
     require(not any(changed[:steps - 1]),
             "parameters moved before the second accumulated update (schedule(0) must be 0)")
@@ -1586,6 +1607,7 @@ def phase_train(sparse=False, tied=False):
 # the sparse training path's pair axial pass: crop 128, 110 valid residues,
 # so the pair mask leaves rows 110+ without a valid key; 2 per trunk layer
 SPARSE_TRAIN_LABEL = "pair axial (128x8, 128x128, block 16)"
+DISJOINT_LABEL = "disjoint lists (32x4, 256x256, block 16)"
 SPARSE_GATHER_BYTES = 2 << 30  # the plain versions run in batch slices below this
 
 
@@ -1636,6 +1658,40 @@ def _shortened(layout, kv_mask, rows):
     return BlockLayout(idx, cnt, layout.cols, layout.col_counts, bs)
 
 
+def _k5_sm90_counts():
+    from alphafold2_tpu_torch.ops.cuda import block_sparse as bsa
+
+    return (bsa.block_sparse_attention_dq.sm90_launches,
+            bsa.block_sparse_attention_dkv.sm90_launches)
+
+
+def _union_cost(layout):
+    """The (query, key) pairs the Hopper K5a/K5b stages cover, against the
+    layout's active pairs: what streaming the union of each 64-row tile's
+    lists costs in products."""
+    pairs = layout.active_pairs() * layout.block_size**2
+    halves = max(layout.block_size // 64, 1)
+    covered = [int(u[2].sum()) * halves * 64 * 64 for u in (layout.row_union, layout.col_union)]
+    return (f"{covered[0] / pairs:.3f}x (K5a) and {covered[1] / pairs:.3f}x (K5b) of the "
+            f"{pairs} active pairs")
+
+
+def disjoint_layout(nb=16, block=16):
+    """A hand-made layout in which the query blocks of each 64-row tile
+    list mostly different key blocks (each its own block, and two more
+    spread over the axis): the union a Hopper K5 tile streams is wide, most
+    of each stage lies outside each warp's list, and the last stage of a
+    tile has empty slots."""
+    import numpy as np
+
+    from alphafold2_tpu_torch.ops.sparse import pack_layout
+
+    lay = np.zeros((nb, nb), dtype=bool)
+    for i in range(nb):
+        lay[i, [i, (5 * i + 3) % nb, (11 * i + 7) % nb]] = True
+    return pack_layout(lay, block)
+
+
 def _plain_sliced(fn, tensors, layout, kv_mask, scale):
     """A sparse plain version over batch slices whose gathered blocks stay
     under SPARSE_GATHER_BYTES; outputs concatenated along the batch."""
@@ -1659,10 +1715,12 @@ def sparse_case(label, b, h, n, d, dtype, lengths, config, gen, reps=0, library=
     """K4 (with and without lse), K5a and K5b on one problem, each held
     against its plain version per tensor; rows without a valid key exactly
     0 (lse +inf, dq 0) and masked keys' dk, dv exactly 0; with ``control``
-    the negative controls; two backward runs bit-identical. ``lengths``:
-    each batch row's valid keys (a prefix), or None. q, k, v and dO are
-    strided as the grid route lays them out. Returns result rows for K4,
-    K5a and K5b."""
+    the negative controls; two backward runs bit-identical; bf16 at head dim
+    32, 64 or 128 must run K5's Hopper kernels, anything else the older
+    ones. ``lengths``: each batch row's valid keys (a prefix), or None;
+    ``config``: a BlockSparseConfig, or a BlockLayout as it is. q, k, v and
+    dO are strided as the grid route lays them out. Returns result rows for
+    K4, K5a and K5b."""
     import torch
     import torch.nn.functional as F
 
@@ -1670,7 +1728,7 @@ def sparse_case(label, b, h, n, d, dtype, lengths, config, gen, reps=0, library=
     from alphafold2_tpu_torch.ops.cuda import block_sparse as bsa
     from alphafold2_tpu_torch.ops.sparse import config_layout
 
-    layout = config_layout(config, n)
+    layout = config if isinstance(config, bsa.BlockLayout) else config_layout(config, n)
     q, k, v, do = _grad_operands(b, h, n, n, d, dtype, gen, strided=True)
     km = _prefix(n, lengths) if lengths is not None else None
     scale = d**-0.5
@@ -1686,9 +1744,15 @@ def sparse_case(label, b, h, n, d, dtype, lengths, config, gen, reps=0, library=
     dsum = axial.attention_dsum(out, do)
     grad_in = (q, k, v, do, lse, dsum)
     args = (*grad_in, layout, km, scale)
+    before = _k5_sm90_counts()
     dq = bsa.block_sparse_attention_dq(*args)
     dk, dv = bsa.block_sparse_attention_dkv(*args)
     torch.cuda.synchronize()
+    sm90 = tuple(x - y for x, y in zip(_k5_sm90_counts(), before))
+    hopper = dtype == torch.bfloat16 and d in (32, 64, 128)
+    require(sm90 == ((1, 1) if hopper else (0, 0)),
+            f"{label}: K5a/K5b launched their Hopper kernels {sm90} times, not "
+            f"{(1, 1) if hopper else (0, 0)}")
     plain_dq = lambda: _plain_sliced(bsa.block_sparse_attention_dq_reference, grad_in,
                                      layout, km, scale)
     plain_dkv = lambda: _plain_sliced(bsa.block_sparse_attention_dkv_reference, grad_in,
@@ -1719,7 +1783,8 @@ def sparse_case(label, b, h, n, d, dtype, lengths, config, gen, reps=0, library=
             f"{label}: a masked key has a nonzero dk or dv")
     log(f"[sparse] {label} {fwd['dtype']}: two backward runs bit-identical; "
         f"{int(dead.sum())} rows without a valid key exactly 0, "
-        f"{int(masked.sum())} masked keys with dk = dv = 0")
+        f"{int(masked.sum())} masked keys with dk = dv = 0; K5 on "
+        f"{'sparse_dq/dkv_kernel_sm90' if hopper else 'dq/dkv_kernel'}")
     if control:
         rows_short = _shortened(layout, km, rows=True)
         cols_short = _shortened(layout, km, rows=False)
@@ -1751,7 +1816,7 @@ def sparse_case(label, b, h, n, d, dtype, lengths, config, gen, reps=0, library=
     log(f"[sparse] {label}: layout {layout.num_blocks}x{layout.num_blocks} blocks of "
         f"{layout.block_size}, {layout.active_pairs()} active block pairs (density "
         f"{layout.active_pairs() / layout.num_blocks**2:.3f}); {pairs:.4e} valid "
-        f"(query, key) pairs")
+        f"(query, key) pairs; the Hopper K5's stages cover {_union_cost(layout)}")
     if reps:
         fwd["ms"] = cuda_ms(lambda: bsa.block_sparse_attention_lse(q, k, v, layout, km, scale),
                             reps)
@@ -1788,11 +1853,43 @@ def sparse_case(label, b, h, n, d, dtype, lengths, config, gen, reps=0, library=
     return [fwd, row_q, row_kv]
 
 
+K5_SM90 = ("sparse_dq_kernel_sm90<64>", "sparse_dkv_kernel_sm90<64>")
+
+
+def check_k5_plans():
+    """K5a's and K5b's plans on the sparse training pass and at N 512: bf16
+    with TMA-aligned operands must name the Hopper kernels (a block per
+    64-row tile), unaligned bf16 and f32 the older ones."""
+    import ctypes
+
+    from alphafold2_tpu_torch.ops.cuda import build
+
+    lib = build.library("block_sparse_attention_bwd")
+    for b, n in ((128, 128), (512, 512)):
+        for which in (0, 1):
+            got = []
+            for dtype, aligned in ((1, 1), (1, 0), (0, 1)):
+                plan = build.LaunchPlan()
+                build.check(lib, lib.af2_block_sparse_attention_bwd_plan(
+                    which, dtype, b, 8, n, 64, 16, aligned, ctypes.byref(plan)), "K5 plan")
+                got.append((plan.kernel.decode(), plan.blocks, plan.threads,
+                            plan.dynamic_smem))
+            log(f"[sparse] K5{'ab'[which]} plans ({b}x8, {n}, block 16): bf16 aligned "
+                f"{got[0]}, bf16 unaligned {got[1]}, f32 {got[2]}")
+            require(got[0][0] == K5_SM90[which] and got[0][1] == b * 8 * (n // 64),
+                    f"K5{'ab'[which]} plans {got[0]} for aligned bf16")
+            older = ("dq_kernel" if which == 0 else "dkv_kernel")
+            require(got[1][0] == f"{older}<__nv_bfloat16,16,64>" and
+                    got[2][0] == f"{older}<float,16,64>",
+                    f"K5{'ab'[which]} plans {got[1][0]} / {got[2][0]} for unaligned bf16 / f32")
+
+
 def phase_sparse():
     import torch
 
     from alphafold2_tpu_torch.ops.sparse import BlockSparseConfig
 
+    check_k5_plans()
     gen = torch.Generator(device="cuda").manual_seed(2)
     f32, bf16 = torch.float32, torch.bfloat16
     default = BlockSparseConfig()
@@ -1822,7 +1919,85 @@ def phase_sparse():
         # rows of zeros cannot tell a short kernel from a whole one)
         rows += sparse_case("dead rows (6x2, 64x64, d16)", 6, 2, 64, 16, dt,
                             [64, 0, 40, 0, 17, 0], default, control=False, **timed)
+        # each 64-row tile's four blocks list mostly different blocks: most
+        # of every stage lies outside each warp's list, and stages end in
+        # empty slots (where ignoring the layout bits, or a non-finite
+        # padding slot, would show)
+        rows += sparse_case(DISJOINT_LABEL, 32, 4, 256, 64, dt, [256] * 24 + [131] * 8,
+                            disjoint_layout(), **timed)
     return rows
+
+
+# K5's timed passes: the sparse training path's pair axial pass (2 a trunk
+# layer, 12 a step) and a length where the layout is really sparse
+K5_TIME_CASES = {  # label: (b, n, valid keys of each batch row)
+    SPARSE_TRAIN_LABEL: (128, 128, [TRAIN_LEN] * TRAIN_LEN + [0] * (128 - TRAIN_LEN)),
+    "pair axial (512x8, 512x512, block 16)": (512, 512, [500] * 500 + [0] * 12),
+}
+
+
+def phase_k5_time(reps=10):
+    """K5a and K5b alone on the sparse training pass and at (512x8, 512,
+    block 16), bf16, operands laid out as the grid route lays them out,
+    beside SDPA's whole backward (dq, dk and dv in one call) with the
+    element-level layout and key mask; K4 (with lse) and SDPA's forward
+    beside those. Each: a call's time by CUDA events over ``reps`` calls, its
+    device time under torch.profiler and its host time; then per sparse
+    training step (12 calls of the training pass). No checks: phase_sparse
+    holds the kernels to their plain versions. Uses only the public
+    wrappers, so chip_compare.sh can run it on a parent's kernels. Returns
+    {label: row}."""
+    import torch
+    import torch.nn.functional as F
+
+    from alphafold2_tpu_torch.ops.cuda import axial
+    from alphafold2_tpu_torch.ops.cuda import block_sparse as bsa
+    from alphafold2_tpu_torch.ops.sparse import BlockSparseConfig, config_layout
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows = {}
+    for label, (b, n, lengths) in K5_TIME_CASES.items():
+        h, d = 8, 64
+        layout = config_layout(BlockSparseConfig(), n)
+        q, k, v, do = _grad_operands(b, h, n, n, d, torch.bfloat16, gen, strided=True)
+        km = _prefix(n, lengths)
+        scale = d**-0.5
+        out, lse = bsa.block_sparse_attention_lse(q, k, v, layout, km, scale)
+        args = (q, k, v, do, lse, axial.attention_dsum(out, do), layout, km, scale)
+        lay = torch.as_tensor(_dense_layout(layout), device="cuda")
+        bs = layout.block_size
+        am = lay.repeat_interleave(bs, 0).repeat_interleave(bs, 1)[None, None]
+        am = am & km[:, None, None, :]
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = F.scaled_dot_product_attention(*leaves, attn_mask=am, scale=scale)
+        calls = {"dq": lambda: bsa.block_sparse_attention_dq(*args),
+                 "dkv": lambda: bsa.block_sparse_attention_dkv(*args),
+                 "sdpa_bwd": lambda: torch.autograd.grad(o, leaves, do, retain_graph=True),
+                 "fwd": lambda: bsa.block_sparse_attention_lse(q, k, v, layout, km, scale),
+                 "sdpa_fwd": lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am,
+                                                                     scale=scale)}
+        row = {}
+        for name, fn in calls.items():
+            row[f"{name}_ms"] = cuda_ms(fn, reps)
+            row[f"{name}_device_ms"] = _device_ms(fn)
+            row[f"{name}_host_us"] = _host_us(fn)
+        rows[label] = row
+        log(f"[k5 time] {label}: " + "; ".join(
+            f"{what} {row[f'{m}_ms']:.4f} ms, device {row[f'{m}_device_ms']:.4f} ms, host "
+            f"{row[f'{m}_host_us']:.1f} us a call"
+            for m, what in (("dq", "K5a"), ("dkv", "K5b"), ("sdpa_bwd", "SDPA backward"),
+                            ("fwd", "K4"), ("sdpa_fwd", "SDPA forward"))))
+        del q, k, v, do, out, lse, args, leaves, o, calls, am
+        torch.cuda.empty_cache()
+    step = rows[SPARSE_TRAIN_LABEL]
+    for kind in ("", "device_"):
+        k5a, k5b = 12 * step[f"dq_{kind}ms"], 12 * step[f"dkv_{kind}ms"]
+        log(f"[k5 time] per sparse training step (12 calls), {kind or 'event '}ms: K5a "
+            f"{k5a:.3f} + K5b {k5b:.3f} = {k5a + k5b:.3f} ms; SDPA backward "
+            f"{12 * step[f'sdpa_bwd_{kind}ms']:.3f} ms; K4 {12 * step[f'fwd_{kind}ms']:.3f} "
+            f"ms; SDPA forward {12 * step[f'sdpa_fwd_{kind}ms']:.3f} ms")
+    return rows
+
 
 
 # --------------------------------------------------------------- phase 4

@@ -128,6 +128,29 @@ K3_DEMANGLED = {
     K3_MERGE: "void af2::sm90::grad::grad_merge_kernel<(int)64>(af2::sm90::grad::MergeParams)",
 }
 
+# K5's Hopper kernels at head dim 64 (K3's consumers on gathered stages), as
+# ptxas reported them for csrc/block_sparse_attention_bwd.cu on the card's
+# machine
+K5_DQ = ("_ZN3af24sm904grad21sparse_dq_kernel_sm90ILi64EEEv14CUtensorMap_stS3_S3_S3_"
+         "NS1_10GradParamsENS1_10ListParamsE")
+K5_DKV = ("_ZN3af24sm904grad22sparse_dkv_kernel_sm90ILi64EEEv14CUtensorMap_stS3_S3_S3_"
+          "NS1_10GradParamsENS1_10ListParamsE")
+K5_REPORT = f"""\
+ptxas info    : Compiling entry function '{K5_DKV}' for 'sm_90a'
+ptxas info    : Function properties for {K5_DKV}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Compiling entry function '{K5_DQ}' for 'sm_90a'
+ptxas info    : Function properties for {K5_DQ}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 124 registers, used 1 barriers
+"""
+_K5_ARGS = f"{_TMAPS}, af2::sm90::grad::GradParams, af2::sm90::grad::ListParams"
+K5_DEMANGLED = {
+    K5_DQ: f"void af2::sm90::grad::sparse_dq_kernel_sm90<(int)64>({_K5_ARGS})",
+    K5_DKV: f"void af2::sm90::grad::sparse_dkv_kernel_sm90<(int)64>({_K5_ARGS})",
+}
+
 
 # ------------------------------------------------------------ cases
 
@@ -222,6 +245,27 @@ def test_k3_lists_its_merge_pass_where_it_splits(case, splits):
                for l in merges)
 
 
+@pytest.mark.parametrize("case", [
+    "block_sparse_bwd_n512", "block_sparse_bwd_n1024", "block_sparse_custom_vjp_n512",
+    "sparse_train_pair_128", "sparse_pair_512", "edge_sparse_block128_d128",
+])
+def test_k5_plans_with_tma_aligned_operands(case):
+    """K5a and K5b plan at the case's shape with operands TMA can describe
+    (the ``aligned`` argument), so bf16 at head dim 32, 64 or 128 plans the
+    Hopper kernels; both dtypes launch them."""
+    launches = [l for l in {c.name: c for c in lowering.CASES}[case].launches
+                if l.role.startswith("K5")]
+    k4 = {c.name: c for c in lowering.CASES}[case].launches[0]
+    b, h, n, d, block = k4.args[1:]
+    assert [l.role for l in launches] == ["K5a", "K5b"]
+    assert [l.args for l in launches] == [(0, None, b, h, n, d, block, 1),
+                                          (1, None, b, h, n, d, block, 1)]
+    assert all(l.symbol == "af2_block_sparse_attention_bwd_plan" and l.dtypes == lowering.DTYPES
+               for l in launches)
+    assert launches[1].plan_args("bfloat16") == (1, 1, b, h, n, d, block, 1)
+    assert len(build.SIGNATURES["block_sparse_attention_bwd"][launches[0].symbol]) == 9
+
+
 # ------------------------------------------------------------ ptxas report
 
 
@@ -303,6 +347,26 @@ def test_k3_hopper_kernels_fit_sm90():
         assert 2 * report[name].registers * 160 <= lowering.SM90_LIMITS["registers_per_sm"]
     # an SM's 228 KiB of shared memory, 1 KiB of it reserved per block
     assert 2 * (68_208 + 1024) <= 228 * 1024
+
+
+def test_k5_hopper_kernels_fit_sm90():
+    """K5's plans at the sparse training pass (2048 blocks of 160 threads,
+    one per 64-row tile of 128 x 8 heads x 128 tokens; 68,272 bytes of
+    dynamic shared memory, K3's ring with a mask word set per consumer
+    warp) against ptxas's report of their instantiations: K3's registers
+    (124 and 168), no spill, and two blocks fit an SM."""
+    report = lowering.report_by_kernel(K5_REPORT, lambda names: {
+        n: K5_DEMANGLED[n] for n in names})
+    assert set(report) == {"sparse_dq_kernel_sm90<64>", "sparse_dkv_kernel_sm90<64>"}
+    for name, registers in (("sparse_dq_kernel_sm90<64>", 124),
+                            ("sparse_dkv_kernel_sm90<64>", 168)):
+        plan = {"blocks": 2048, "threads": 160, "dynamic_smem": 68_272, "kernel": name}
+        res = report[name]
+        assert lowering.check_launch(plan, res) == []
+        assert (res.registers, res.spill_stores, res.spill_loads, res.stack_frame) == (
+            registers, 0, 0, 0)
+        assert 2 * res.registers * 160 <= lowering.SM90_LIMITS["registers_per_sm"]
+    assert 2 * (68_272 + 1024) <= 228 * 1024
 
 
 # ------------------------------------------------------------ limits

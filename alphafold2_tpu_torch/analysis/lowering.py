@@ -152,8 +152,11 @@ def _k2_bwd(b, r, h, n, d):
 
 
 def _k4(b, h, n, d, block):
+    """K4 with operands as TMA can describe them: bf16 at head dim 32, 64
+    or 128 plans the Hopper kernel (sparse_fwd_kernel_sm90), f32 the older
+    one."""
     return Launch("K4", "block_sparse_attention", "af2_block_sparse_attention_plan",
-                  (None, b, h, n, d, block))
+                  (None, b, h, n, d, block, 1))
 
 
 def _k5(b, h, n, d, block):

@@ -16,25 +16,45 @@
 // gave such a row a finite average of its padded slots; every caller masks
 // it). Query rows are not masked, as on the TPU.
 //
-// The TPU grid (batch*heads, q blocks, A) walks A = max_active slots for
-// every query block and masks the padding slots; the global row makes A the
-// block count, so a TPU query block visits every slot. Here a group of warps
-// (block_sparse_tile.cuh) loops over its own query block's count of active
-// blocks only, read from a compact (nb, A) list and an (nb,) count.
+// What bounds it on the H100: per (query, active key) pair 4*D operations,
+// against q, k, v and the output each read or written once. At the sparse
+// training pass (128 x 8 heads, N 128, block 16, head dim 64, 68.8% of the
+// block pairs active) that is about 33 operations a byte over the whole
+// call, at N 512 (density 0.388) about 95, both below the card's ridge of
+// about 295 in bf16: the bytes bound it (chip_smoke.py computes both bounds
+// from the run's inputs). What held the first design far from either (its f32 and fallback
+// kernel below): one warp per 16-row query block on mma.sync at block 16,
+// K and V staged synchronously between two barriers, V transposed by hand,
+// each key block staged once for every query block that lists it, and an
+// expf per logit in natural-log units.
 //
-// What bounds it on the H100: per (query, active key) pair 4*D operations
-// against each operand read once, far above the card's ops-per-byte ridge in
-// bf16 at head dim 64, so the bound is the arithmetic rate over the active
-// pairs. What the design does about it: probabilities never leave the SM,
-// the q tile is staged once and reused across the row's active blocks, bf16
-// products run on the tensor cores with mma.sync, and at block 16 four query
-// blocks share a 128-thread block so the card has enough warps in flight.
-// Each key block is staged per query block that needs it (no reuse across
-// query blocks), and there is no cp.async/TMA pipelining or wgmma: later work.
+// bf16 at head dim 32, 64 or 128 with operands TMA can describe (and every
+// block size) runs sparse_fwd_kernel_sm90 (block_sparse_fwd_sm90.cuh): K1's
+// Hopper consumer pieces (wgmma on TMA-fed stages, the online softmax in
+// log2 units, V read MN-major through its descriptor, the 16-byte store
+// epilogue) on 64-query tiles that stream the union of their blocks' key
+// lists as gathered stages, through K5a's producer warp, with one mask word
+// set per warp from the stage's layout bits. Every listed key block is then
+// staged once per 64 query rows. The union costs products the lists do not
+// need: with BlockSparseConfig's defaults it covers 1.45x the active block
+// pairs at the training pass (N 128, block 16: the whole 8 x 8 grid, the
+// dense problem), 1.88x on the flat route's 112 tokens (the padded last
+// tile), 2.22x at N 512 (0.86 of the dense pairs), about 1.27x at block 32
+// and exactly the lists at block 64 and 128 (one query block a tile).
+//
+// f32, head dim 16 and bf16 operands TMA cannot describe run fwd_kernel
+// below: the TPU grid (batch*heads, q blocks, A) walks A = max_active slots
+// for every query block and masks the padding slots; here a group of warps
+// (block_sparse_tile.cuh) loops over its own query block's count of active
+// blocks only, read from a compact (nb, A) list and an (nb,) count, with
+// the q tile staged once and reused across the row's active blocks, bf16
+// products on the tensor cores with mma.sync, and at block 16 four query
+// blocks sharing a 128-thread block.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // (alphafold2_tpu_torch/ops/cuda/build.py). Bound with ctypes.
 
+#include "block_sparse_fwd_sm90.cuh"
 #include "block_sparse_tile.cuh"
 
 namespace {
@@ -231,12 +251,33 @@ cudaError_t dispatch_rows(const Fwd& p, int head_dim, cudaStream_t s, Af2LaunchP
   }
 }
 
+namespace grad = af2::sm90::grad;
+
+bool sm90_head_dim(int head_dim) {
+  return head_dim == 32 || head_dim == 64 || head_dim == 128;
+}
+
+template <int D>
+cudaError_t dispatch_sm90(const af2::Problem& a, const grad::ListParams& lists, cudaStream_t stream,
+                          Af2LaunchPlan* plan_out) {
+  if (plan_out != nullptr) {
+    *plan_out = af2::sm90::plan_sparse_fwd<D>(a.batch, a.heads, a.nq);
+    return cudaSuccess;
+  }
+  return af2::sm90::launch_sparse_fwd<D>(a, lists, stream);
+}
+
 // Launches K4, or with `plan_out` only fills its plan (strides may then be
-// null and no pointer is read).
+// null, no pointer is read, and `aligned` stands for the operands'
+// alignment; a launch finds it from the pointers and strides). `lists`: the
+// union of the row lists the Hopper kernel streams (ops/cuda/block_sparse.py
+// union_stages). `info`, when given, receives the kernel taken (1:
+// sparse_fwd_kernel_sm90, 0: fwd_kernel).
 int run(int dtype, const void* q, const void* k, const void* v, void* out, float* lse,
         const unsigned char* kv_mask, const int* idx, const int* cnt, int max_active,
-        const long long* strides, int batch, int heads, int n, int head_dim, int block,
-        float sm_scale, void* stream, Af2LaunchPlan* plan_out = nullptr) {
+        const grad::ListParams& lists, const long long* strides, int batch,
+        int heads, int n, int head_dim, int block, float sm_scale, int* info, void* stream,
+        Af2LaunchPlan* plan_out = nullptr, int aligned = 0) {
   if (block <= 0 || n % block != 0) return cudaErrorInvalidValue;
   Fwd p;
   p.q = q;
@@ -261,6 +302,38 @@ int run(int dtype, const void* q, const void* k, const void* v, void* out, float
   p.block = block;
   p.sm_scale = sm_scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  af2::Problem a{};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.o = out;
+  a.q_mask = nullptr;
+  a.kv_mask = kv_mask;
+  a.tie_scale = nullptr;
+  a.lse = lse;
+  a.qs = p.qs;
+  a.ks = p.ks;
+  a.vs = p.vs;
+  a.os = p.os;
+  a.batch = batch;
+  a.heads = heads;
+  a.nq = n;
+  a.nk = n;
+  a.features = head_dim;
+  a.fd = head_dim;
+  a.out_chunks = 1;
+  a.sm_scale = sm_scale;
+  const bool sm90 = dtype == 1 && sm90_head_dim(head_dim) &&
+                    (block == 16 || block == 32 || block == 64 || block == 128) &&
+                    (plan_out != nullptr ? aligned != 0 : af2::sm90::takes(a));
+  if (info != nullptr) info[0] = sm90 ? 1 : 0;
+  if (sm90) {
+    switch (head_dim) {
+      case 32: return dispatch_sm90<32>(a, lists, s, plan_out);
+      case 64: return dispatch_sm90<64>(a, lists, s, plan_out);
+      default: return dispatch_sm90<128>(a, lists, s, plan_out);
+    }
+  }
   if (dtype == 0) return dispatch_rows<float>(p, head_dim, s, plan_out);
   if (dtype == 1) return dispatch_rows<__nv_bfloat16>(p, head_dim, s, plan_out);
   return cudaErrorInvalidValue;
@@ -272,25 +345,33 @@ int run(int dtype, const void* q, const void* k, const void* v, void* out, float
 // `strides` (12 element strides: batch, head, token of q, k, v and out; the
 // head-dim stride must be 1). idx/cnt: the layout's active key blocks per
 // query block, (n / block, max_active) and (n / block,) int32 on the device.
-// lse: a contiguous (batch, heads, n) f32 buffer, or null for the forward
-// without it. dtype: 0 = float32, 1 = bfloat16. n must be a multiple of
-// block (16, 32, 64 or 128). Returns the cudaError_t of the launch.
+// u_blocks, u_bits, u_counts, u_max_stages: the union of the row lists per
+// 64-query tile (union_stages), on the device. lse: a contiguous (batch,
+// heads, n) f32 buffer, or null for the forward without it. dtype: 0 =
+// float32, 1 = bfloat16. n must be a multiple of block (16, 32, 64 or 128).
+// info (1 int out): 1 if sparse_fwd_kernel_sm90 ran. Returns the
+// cudaError_t of the launch.
 extern "C" int af2_block_sparse_attention(int dtype, const void* q, const void* k,
                                           const void* v, void* out, float* lse,
                                           const unsigned char* kv_mask, const int* idx,
-                                          const int* cnt, int max_active,
-                                          const long long* strides, int batch, int heads,
-                                          int n, int head_dim, int block, float sm_scale,
-                                          void* stream) {
-  return run(dtype, q, k, v, out, lse, kv_mask, idx, cnt, max_active, strides, batch, heads, n,
-             head_dim, block, sm_scale, stream);
+                                          const int* cnt, int max_active, const int* u_blocks,
+                                          const int* u_bits, const int* u_counts,
+                                          int u_max_stages, const long long* strides, int batch,
+                                          int heads, int n, int head_dim, int block,
+                                          float sm_scale, int* info, void* stream) {
+  return run(dtype, q, k, v, out, lse, kv_mask, idx, cnt, max_active,
+             grad::list_params(u_blocks, u_bits, u_counts, u_max_stages, block), strides, batch,
+             heads, n, head_dim, block, sm_scale, info, stream);
 }
 
-// K4's launch plan at one shape (with or without lse: the same kernel);
-// touches no device. Returns 0, or cudaErrorInvalidValue for a dtype, head
-// dim, block or length the kernel does not take.
+// K4's launch plan at one shape (with or without lse: the same kernel),
+// given whether the operands are TMA-aligned; touches no device. Returns 0,
+// or cudaErrorInvalidValue for a dtype, head dim, block or length the
+// kernels do not take.
 extern "C" int af2_block_sparse_attention_plan(int dtype, int batch, int heads, int n,
-                                               int head_dim, int block, Af2LaunchPlan* plan) {
+                                               int head_dim, int block, int aligned,
+                                               Af2LaunchPlan* plan) {
   return run(dtype, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0,
-             nullptr, batch, heads, n, head_dim, block, 1.f, nullptr, plan);
+             grad::list_params(nullptr, nullptr, nullptr, 0, block), nullptr, batch, heads, n,
+             head_dim, block, 1.f, nullptr, nullptr, plan, aligned);
 }

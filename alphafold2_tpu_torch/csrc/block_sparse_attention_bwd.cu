@@ -475,17 +475,6 @@ int run(Which which, int dtype, const void* q, const void* k, const void* v, con
   return cudaErrorInvalidValue;
 }
 
-grad::ListParams list_params(const int* blocks, const int* bits, const int* counts,
-                             int max_stages, int block) {
-  grad::ListParams lists;
-  lists.blocks = blocks;
-  lists.bits = bits;
-  lists.counts = counts;
-  lists.max_stages = max_stages;
-  lists.block = block;
-  return lists;
-}
-
 }  // namespace
 
 // K5a. q, k, v, dout, dq: (batch, heads, n, head_dim) through `strides`; lse
@@ -502,7 +491,7 @@ extern "C" int af2_block_sparse_attention_bwd_dq(
     int u_max_stages, const long long* strides, int batch, int heads, int n, int head_dim,
     int block, float sm_scale, int* info, void* stream) {
   return run(Which::kDq, dtype, q, k, v, dout, lse, dsum, dq, nullptr, nullptr, kv_mask, idx,
-             cnt, max_active, list_params(u_blocks, u_bits, u_counts, u_max_stages, block),
+             cnt, max_active, grad::list_params(u_blocks, u_bits, u_counts, u_max_stages, block),
              strides, batch, heads, n, head_dim, block, sm_scale, info, stream);
 }
 
@@ -516,8 +505,8 @@ extern "C" int af2_block_sparse_attention_bwd_dkv(
     int u_max_stages, const long long* strides, int batch, int heads, int n, int head_dim,
     int block, float sm_scale, int* info, void* stream) {
   return run(Which::kDkv, dtype, q, k, v, dout, lse, dsum, nullptr, dk, dv, kv_mask, idx, cnt,
-             max_active, list_params(u_blocks, u_bits, u_counts, u_max_stages, block), strides,
-             batch, heads, n, head_dim, block, sm_scale, info, stream);
+             max_active, grad::list_params(u_blocks, u_bits, u_counts, u_max_stages, block),
+             strides, batch, heads, n, head_dim, block, sm_scale, info, stream);
 }
 
 // The launch plan of K5a (which = 0) or K5b (which = 1) at one shape, given
@@ -530,6 +519,6 @@ extern "C" int af2_block_sparse_attention_bwd_plan(int which, int dtype, int bat
   if (which != 0 && which != 1) return cudaErrorInvalidValue;
   return run(which == 0 ? Which::kDq : Which::kDkv, dtype, nullptr, nullptr, nullptr, nullptr,
              nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0,
-             list_params(nullptr, nullptr, nullptr, 0, block), nullptr, batch, heads, n,
+             grad::list_params(nullptr, nullptr, nullptr, 0, block), nullptr, batch, heads, n,
              head_dim, block, 1.f, nullptr, nullptr, plan, aligned);
 }

@@ -64,22 +64,26 @@ struct ListParams {
 
 // The producer warp of K5a (kDkv false: resident q and dO, streamed k and v)
 // and K5b (kDkv true: resident k and v, streamed q and dO with their lse and
-// dsum slices). r0: the block's first resident row, tile = r0 / 64.
-template <int D, bool kDkv>
+// dsum slices), and of K4 (block_sparse_fwd_sm90.cuh: kDkv false with
+// kResident 1, resident q alone, tr1 unused). r0: the block's first
+// resident row, tile = r0 / 64.
+template <int D, bool kDkv, int kResident = 2>
 __device__ __forceinline__ void producer_listed(const CUtensorMap* tr0, const CUtensorMap* tr1,
                                                 const CUtensorMap* ts0, const CUtensorMap* ts1,
                                                 const GradParams& p, const ListParams& lp,
                                                 unsigned char* res, unsigned char* ring,
                                                 ListControl& ctl, int b, int h, int bh, int r0,
                                                 int tile) {
+  static_assert(kResident == 1 || kResident == 2, "one or two resident tiles");
   using C = Cfg<D>;
   const int lane = threadIdx.x & 31;
   if (lane == 0) {
-    mbar_arrive_expect_tx(&ctl.resbar, 2 * C::kTile);
+    mbar_arrive_expect_tx(&ctl.resbar, kResident * C::kTile);
 #pragma unroll
     for (int c = 0; c < C::NCH; ++c) {
       tma_load_4d(res + c * C::kChunk, tr0, &ctl.resbar, c * C::CW, r0, h, b);
-      tma_load_4d(res + C::kTile + c * C::kChunk, tr1, &ctl.resbar, c * C::CW, r0, h, b);
+      if constexpr (kResident == 2)
+        tma_load_4d(res + C::kTile + c * C::kChunk, tr1, &ctl.resbar, c * C::CW, r0, h, b);
     }
   }
   const int bs = lp.block;
@@ -234,6 +238,18 @@ __global__ void __launch_bounds__(kThreads, Cfg<D>::kMinBlocks)
 }
 
 // ---------------------------------------------------------------- host
+
+// The union lists of one direction as the kernels take them.
+__host__ inline ListParams list_params(const int* blocks, const int* bits, const int* counts,
+                                       int max_stages, int block) {
+  ListParams lists;
+  lists.blocks = blocks;
+  lists.bits = bits;
+  lists.counts = counts;
+  lists.max_stages = max_stages;
+  lists.block = block;
+  return lists;
+}
 
 template <int D>
 __host__ inline Af2LaunchPlan plan_listed(bool dkv, int batch, int heads, int n) {

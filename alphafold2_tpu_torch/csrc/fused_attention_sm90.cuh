@@ -57,6 +57,9 @@
 //   atomics: two runs give the same bits, split or not.
 // * Epilogue: each warpgroup stages its 64 x D bf16 rows in its own q
 //   tile (swizzled by 16-byte chunk) and writes them with 16-byte stores.
+// * K4's Hopper kernel (block_sparse_fwd_sm90.cuh) runs the same pieces
+//   (qk_tile, softmax_tile, pv_tile, store_out) on 64-key stages gathered
+//   from a block layout's lists, with a mask word set per consumer warp.
 
 #pragma once
 
@@ -174,15 +177,18 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 // The online-softmax update of one thread's two rows (lrow, lrow + 8) for
-// one staged tile of raw logits s (s[4j + 2r + e]: row r, key 8j + 2t + e;
-// mw: the tile's key-mask words shifted by 2t). The row's extreme raw logit
-// (max, or min for a negative scale) times the scale is its largest scaled
-// logit, so each probability is one FMA and one ex2: 2^(x * scale - m).
-// Every row of a staged tile has a valid key (the mask is per key), so m is
-// finite. kMasked: the tile holds masked keys (weight 0); a full tile
-// skips the mask arithmetic. The probabilities replace s.
+// one staged tile of NS * 2 raw logits s (s[4j + 2r + e]: row r, key
+// 8j + 2t + e; mw: the tile's key-mask words shifted by 2t, one per 32
+// keys). The row's extreme raw logit (max, or min for a negative scale)
+// times the scale is its largest scaled logit, so each probability is one
+// FMA and one ex2: 2^(x * scale - m). The caller guarantees that the rows
+// have a valid key in the tile, so m is finite: in K1 every row of a staged
+// tile has one (the mask is per key); K4 (block_sparse_fwd_sm90.cuh) never
+// calls it for a warp whose rows have none. kMasked: the tile holds masked
+// keys (weight 0); a full tile skips the mask arithmetic. The
+// probabilities replace s.
 template <bool kMasked, bool kNeg, int NS, int NCH, int OC>
-__device__ __forceinline__ void softmax_tile(float (&s)[NS], const uint32_t (&mw)[kMaskWords],
+__device__ __forceinline__ void softmax_tile(float (&s)[NS], const uint32_t (&mw)[NS / 16],
                                              float scale, float (&m_run)[2], float (&l_run)[2],
                                              float (&o)[NCH][OC]) {
   constexpr int NJ = NS / 4;
@@ -231,6 +237,88 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NS], const uint32_t (&mw
   }
 }
 
+// S = Q K^T of one staged tile of N keys: the warpgroup's 64 q rows and
+// the tile's N key rows, both K-major in D / CW swizzled chunks of 64 (q)
+// and N (k) rows. Issues the products; the caller fences, commits and waits.
+template <int D, int N>
+__device__ __forceinline__ void qk_tile(float (&s)[N / 2], uint32_t qaddr, uint32_t kaddr) {
+  using C = Cfg<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int c = kk * 16 / C::CW, off = (kk * 16 % C::CW) * 2;
+    wgmma_ss<N>(s, kmajor_desc<C::SWB>(qaddr + c * 64 * C::SWB + off),
+                kmajor_desc<C::SWB>(kaddr + c * N * C::SWB + off), kk > 0);
+  }
+}
+
+// O += P V over one staged tile of N keys: P (the probabilities in s) as
+// bf16 A fragments, V's N rows read MN-major through their descriptors.
+// Issues the products; the caller fences, commits and waits.
+template <int D, int N>
+__device__ __forceinline__ void pv_tile(float (&o)[Cfg<D>::NCH][Cfg<D>::CW / 2],
+                                        const float (&s)[N / 2], uint32_t vaddr) {
+  using C = Cfg<D>;
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    const uint32_t a[4] = {pack_bf16(s[8 * kk + 0], s[8 * kk + 1]),
+                           pack_bf16(s[8 * kk + 2], s[8 * kk + 3]),
+                           pack_bf16(s[8 * kk + 4], s[8 * kk + 5]),
+                           pack_bf16(s[8 * kk + 6], s[8 * kk + 7])};
+#pragma unroll
+    for (int c = 0; c < C::NCH; ++c)
+      wgmma_rs<C::CW>(o[c], a, mnmajor_desc<C::SWB>(vaddr + c * N * C::SWB + kk * 16 * C::SWB),
+                      1);
+  }
+}
+
+// The epilogue of one consumer warpgroup: rows r0 .. r0 + 63 of (b, h).
+// Each row's lse (+inf for a row with no valid key) when p.lse is set, and
+// its output, 0 for a masked query or a row with no valid key. The rows are
+// staged in the warpgroup's q tile at qw (free: its last product has
+// completed), 16-byte chunks of a row XOR-swizzled by the row, and written
+// with 16-byte stores after named barrier `bar` of the warpgroup's 128
+// threads.
+template <int D>
+__device__ __forceinline__ void store_out(const Params& p, unsigned char* qw,
+                                          const float (&m_run)[2], const float (&l_run)[2],
+                                          const float (&o)[Cfg<D>::NCH][Cfg<D>::CW / 2], int b,
+                                          int h, int bh, int r0, int bar) {
+  using C = Cfg<D>;
+  const int wt = threadIdx.x % 128;
+  const int lane = wt & 31, t = lane & 3;
+  const int lrow = 16 * (wt / 32) + (lane >> 2);
+  constexpr int CPR = D / 8;                   // 16-byte chunks per row
+  constexpr int SWZ = (CPR < 8 ? CPR : 8) - 1;
+  __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(qw);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int n = r0 + lrow + 8 * r, lr = lrow + 8 * r;
+    const bool qv = n < p.nq && (p.q_mask == nullptr || p.q_mask[(long long)b * p.nq + n] != 0);
+    if (p.lse != nullptr && t == 0 && n < p.nq)
+      p.lse[(long long)bh * p.nq + n] =
+          m_run[r] == -CUDART_INF_F ? CUDART_INF_F : m_run[r] * kLn2 + logf(l_run[r]);
+    const float inv = qv ? 1.f / fmaxf(l_run[r], 1e-30f) : 0.f;
+#pragma unroll
+    for (int c = 0; c < C::NCH; ++c)
+#pragma unroll
+      for (int j = 0; j < C::CW / 8; ++j) {
+        const int chunk = (c * C::CW) / 8 + j;
+        *reinterpret_cast<uint32_t*>(stage + lr * D + ((chunk ^ (lr & SWZ)) * 8) + 2 * t) =
+            pack_bf16(o[c][4 * j + 2 * r] * inv, o[c][4 * j + 2 * r + 1] * inv);
+      }
+  }
+  named_sync(bar, 128);
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out) + (long long)b * p.osb +
+                       (long long)h * p.osh;
+  for (int e = wt; e < 64 * CPR; e += 128) {
+    const int lr = e / CPR, chunk = e % CPR;
+    const int n = r0 + lr;
+    if (n < p.nq)
+      *reinterpret_cast<uint4*>(out + (long long)n * p.osn + chunk * 8) =
+          *reinterpret_cast<const uint4*>(stage + lr * D + (chunk ^ (lr & SWZ)) * 8);
+  }
+}
+
 template <int D>
 __device__ __forceinline__ void consumer(const Params& p, unsigned char* qs, unsigned char* kv,
                                          Control& ctl, int wg, int b, int h, int bh, int q0,
@@ -261,12 +349,7 @@ __device__ __forceinline__ void consumer(const Params& p, unsigned char* qs, uns
 
     float s[kBlockN / 2];
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int c = kk * 16 / C::CW, off = (kk * 16 % C::CW) * 2;
-      wgmma_ss<kBlockN>(s, kmajor_desc<C::SWB>(qaddr + c * 64 * C::SWB + off),
-                        kmajor_desc<C::SWB>(kaddr + c * kBlockN * C::SWB + off), kk > 0);
-    }
+    qk_tile<D, kBlockN>(s, qaddr, kaddr);
     wgmma_commit();
     wgmma_wait_all();
     fence_operands(s);
@@ -287,17 +370,7 @@ __device__ __forceinline__ void consumer(const Params& p, unsigned char* qs, uns
     }
 
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[8 * kk + 0], s[8 * kk + 1]),
-                             pack_bf16(s[8 * kk + 2], s[8 * kk + 3]),
-                             pack_bf16(s[8 * kk + 4], s[8 * kk + 5]),
-                             pack_bf16(s[8 * kk + 6], s[8 * kk + 7])};
-#pragma unroll
-      for (int c = 0; c < C::NCH; ++c)
-        wgmma_rs<C::CW>(
-            o[c], a, mnmajor_desc<C::SWB>(vaddr + c * kBlockN * C::SWB + kk * 16 * C::SWB), 1);
-    }
+    pv_tile<D, kBlockN>(o, s, vaddr);
     wgmma_commit();
     wgmma_wait_all();
 #pragma unroll
@@ -329,38 +402,7 @@ __device__ __forceinline__ void consumer(const Params& p, unsigned char* qs, uns
     return;
   }
 
-  // stage the warpgroup's 64 rows in its q tile (free: its last product has
-  // completed), 16-byte chunks of a row XOR-swizzled by the row
-  constexpr int CPR = D / 8;                   // 16-byte chunks per row
-  constexpr int SWZ = (CPR < 8 ? CPR : 8) - 1;
-  __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(qw);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int n = row0 + 8 * r, lr = lrow + 8 * r;
-    const bool qv = n < p.nq && (p.q_mask == nullptr || p.q_mask[(long long)b * p.nq + n] != 0);
-    if (p.lse != nullptr && t == 0 && n < p.nq)
-      p.lse[(long long)bh * p.nq + n] =
-          m_run[r] == -CUDART_INF_F ? CUDART_INF_F : m_run[r] * kLn2 + logf(l_run[r]);
-    const float inv = qv ? 1.f / fmaxf(l_run[r], 1e-30f) : 0.f;
-#pragma unroll
-    for (int c = 0; c < C::NCH; ++c)
-#pragma unroll
-      for (int j = 0; j < C::CW / 8; ++j) {
-        const int chunk = (c * C::CW) / 8 + j;
-        *reinterpret_cast<uint32_t*>(stage + lr * D + ((chunk ^ (lr & SWZ)) * 8) + 2 * t) =
-            pack_bf16(o[c][4 * j + 2 * r] * inv, o[c][4 * j + 2 * r + 1] * inv);
-      }
-  }
-  named_sync(1 + wg, 128);
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out) + (long long)b * p.osb +
-                       (long long)h * p.osh;
-  for (int e = wt; e < 64 * CPR; e += 128) {
-    const int lr = e / CPR, chunk = e % CPR;
-    const int n = q0 + 64 * wg + lr;
-    if (n < p.nq)
-      *reinterpret_cast<uint4*>(out + (long long)n * p.osn + chunk * 8) =
-          *reinterpret_cast<const uint4*>(stage + lr * D + (chunk ^ (lr & SWZ)) * 8);
-  }
+  store_out<D>(p, qw, m_run, l_run, o, b, h, bh, q0 + 64 * wg, 1 + wg);
 }
 
 // One block per (batch, head, 128-row query tile, key split); block order

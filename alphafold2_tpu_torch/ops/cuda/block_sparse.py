@@ -15,10 +15,11 @@ the CPU; for CUDA tensors they launch the kernel or raise.
 The layout reaches the kernels as a :class:`BlockLayout`: the row lists
 (active key blocks of each query block, ascending, padded to the longest)
 with their counts, and the column lists (the layout transposed) with theirs;
-and for K5a/K5b's Hopper kernels, which own 64 rows a block, the union of
-the lists of each 64-row tile packed as stages (:func:`union_stages`). It
-copies them to a device once and keeps them there, so a call does no host
-work for the layout. :func:`dq_union_reference` and
+and for the Hopper K4, K5a and K5b kernels, which own 64 rows a block, the
+union of the lists of each 64-row tile packed as stages
+(:func:`union_stages`). It copies them to a device once and keeps them
+there, so a call does no host work for the layout.
+:func:`fwd_union_reference`, :func:`dq_union_reference` and
 :func:`dkv_union_reference` are the plain versions of that decomposition.
 
 Contract (the JAX function's, with one sharpening, as K1's): q/k/v
@@ -45,13 +46,16 @@ from alphafold2_tpu_torch.ops.cuda.axial import (
 
 BLOCK_SIZES = (16, 32, 64, 128)
 TILE_ROWS = 64  # rows of a resident tile and of a streamed stage (wgmma's m64)
+LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
 
 
 def union_stages(idx, cnt, num_blocks: int, block_size: int):
-    """The lists of each 64-row tile as the Hopper K5 kernels stream them.
+    """The lists of each 64-row tile as the Hopper K4 and K5 kernels stream
+    them.
 
-    ``idx`` (nb, A) / ``cnt`` (nb,): the per-block lists (row lists for
-    K5a, column lists for K5b). A tile's resident blocks are the 64 / bs
+    ``idx`` (nb, A) / ``cnt`` (nb,): the per-block lists (row lists for K4
+    and K5a, column lists for K5b). A tile's resident blocks are the 64 / bs
     blocks its rows cover at bs 16 or 32 (fewer where the axis ends), or the
     one block at bs 64 and 128 (two tiles a block at 128). Its stream is the
     ascending union of their lists, packed ``slots`` = 64 / min(bs, 64)
@@ -115,7 +119,7 @@ class BlockLayout:
         self.rows, self.row_counts, self.cols, self.col_counts = lists
         self.block_size = block_size
         self.num_blocks = nb
-        # the Hopper K5 kernels' streams: rows (K5a) and columns (K5b)
+        # the Hopper kernels' streams: rows (K4, K5a) and columns (K5b)
         self.row_union = union_stages(self.rows, self.row_counts, nb, block_size)
         self.col_union = union_stages(self.cols, self.col_counts, nb, block_size)
         self._on: dict = {}
@@ -276,11 +280,11 @@ block_sparse_attention_dkv_reference.calls = 0
 
 
 def _union_walk(layout: BlockLayout, columns: bool):
-    """The stages the Hopper K5 kernels stream, in their order: for each
-    64-row tile and each ring stage of its union lists, (tile, the stage's
+    """The stages the Hopper K4 and K5 kernels stream, in their order: for
+    each 64-row tile and each ring stage of its union lists, (tile, the stage's
     64 streamed tokens, ``allowed`` (64 resident rows, 64 streamed rows)
     bool from the layout bits, the stage's empty slots). ``columns``: K5b's
-    column lists, else K5a's row lists."""
+    column lists, else the row lists of K4 and K5a."""
     blocks, bits, counts = layout.col_union if columns else layout.row_union
     bs = layout.block_size
     box = min(bs, TILE_ROWS)
@@ -399,6 +403,56 @@ def dkv_union_reference(q, k, v, dout, lse, dsum, layout, kv_mask=None, sm_scale
     return ((sm_scale * dk[:, :, :n]).to(k.dtype), dv[:, :, :n].to(v.dtype))
 
 
+def fwd_union_reference(q, k, v, layout, kv_mask=None, sm_scale=1.0, pad="repeat"):
+    """The plain version of the Hopper K4's decomposition: each 64-query
+    tile walks the union of its blocks' row lists stage by stage (64 keys,
+    64 / bs listed blocks); a (query, key) pair outside the query's block's
+    list weighs 0 by select. The online softmax runs in log2 units in stage
+    order, each row with its f32 max, sum and accumulator; a row with no
+    valid key in a stage keeps all three (alpha 1, p 0), as a warp of the
+    kernel does where another warp's rows need the stage. p is rounded to
+    q's dtype before P V (the sum keeps it in f32), and P V is summed slot
+    by slot; a stage with no valid listed key for any row is skipped, as the
+    kernel never stages it. Returns (out, lse) as
+    :func:`block_sparse_attention_lse`: a row
+    with no valid key gives 0 and lse +inf. ``pad`` as in
+    :func:`dq_union_reference`."""
+    if pad not in _PADS:
+        raise ValueError(f"pad must be one of {_PADS}, got {pad!r}")
+    b, h, n, d = q.shape
+    box = min(layout.block_size, TILE_ROWS)
+    rows = len(layout.row_union[2]) * TILE_ROWS
+    qf = _pad_rows(q, rows)
+    kf, vf = k.float(), v.float()
+    keys = (kv_mask if kv_mask is not None
+            else torch.ones((b, n), dtype=torch.bool, device=q.device))
+    scale2 = sm_scale * LOG2E
+    m = torch.full((b, h, rows, 1), float("-inf"), device=q.device)
+    l = torch.zeros((b, h, rows, 1), device=q.device)
+    acc = torch.zeros((b, h, rows, d), device=q.device)
+    for t, tokens, allowed, empty in _union_walk(layout, columns=False):
+        r = slice(t * TILE_ROWS, (t + 1) * TILE_ROWS)
+        kst, vst = (_staged(x, tokens, empty, box, pad) for x in (kf, vf))
+        x = qf[:, :, r] @ kst.transpose(-1, -2) * scale2
+        valid = allowed.to(q.device)[None, None] & keys[:, None, None, tokens]
+        if not valid.any():
+            continue  # no valid listed key for any row: the kernel never stages it
+        live = valid.any(-1, keepdim=True)
+        ext = x.masked_fill(~valid, float("-inf")).amax(-1, keepdim=True)
+        m_new = torch.where(live, torch.maximum(m[:, :, r], ext), m[:, :, r])
+        alpha = torch.where(live, torch.exp2(m[:, :, r] - m_new), 1.0)
+        p = torch.where(valid, torch.exp2(x - m_new), 0.0)
+        l[:, :, r] = l[:, :, r] * alpha + p.sum(-1, keepdim=True)
+        pr = p.to(q.dtype).float()
+        acc[:, :, r] *= alpha
+        for c in _slot_ranges(empty, box, pad):
+            acc[:, :, r] += pr[..., c] @ vst[:, :, c]
+        m[:, :, r] = m_new
+    out = acc / l.clamp_min(1e-30)
+    lse = torch.where(torch.isneginf(m), float("inf"), m * LN2 + torch.log(l))
+    return out[:, :, :n].to(q.dtype), lse[:, :, :n, 0]
+
+
 # ---------------------------------------------------------------- kernels
 
 
@@ -427,22 +481,26 @@ def _stream():
 
 
 def _launch_forward(q, k, v, layout, kv_mask, sm_scale, with_lse):
-    """K4 on CUDA tensors: out, and the (B, H, N) f32 lse when asked."""
+    """K4 on CUDA tensors: (out, the (B, H, N) f32 lse or None, 1 if the
+    Hopper kernel ran else 0)."""
     _, km = _cuda_operands(q, k, v, None, kv_mask, "block_sparse_attention")
     b, h, n, d = q.shape
     out = _like_heads(q)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device) if with_lse else None
     if b * h == 0:
-        return out, lse
+        return out, lse, 0
     rows, counts, _, _ = layout.tensors(q.device)
+    blocks, bits, stages = layout.union_tensors(q.device)[:3]
+    info = (ctypes.c_int * 1)()
     lib = build.library("block_sparse_attention")
     with torch.cuda.device(q.device):
         code = lib.af2_block_sparse_attention(
             _DTYPES[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), _ptr(km),
-            _ptr(rows), _ptr(counts), rows.shape[1], _strides(q, k, v, out), b, h, n, d,
-            layout.block_size, float(sm_scale), _stream())
+            _ptr(rows), _ptr(counts), rows.shape[1], _ptr(blocks), _ptr(bits), _ptr(stages),
+            blocks.shape[1], _strides(q, k, v, out), b, h, n, d, layout.block_size,
+            float(sm_scale), info, _stream())
     build.check(lib, code, "block_sparse_attention")
-    return out, lse
+    return out, lse, info[0]
 
 
 def block_sparse_attention_lse(q, k, v, layout, kv_mask=None, sm_scale=1.0):
@@ -452,12 +510,14 @@ def block_sparse_attention_lse(q, k, v, layout, kv_mask=None, sm_scale=1.0):
     _check(q, k, v, layout, kv_mask)
     if q.device.type == "cpu":
         return block_sparse_attention_lse_reference(q, k, v, layout, kv_mask, sm_scale)
-    result = _launch_forward(q, k, v, layout, kv_mask, sm_scale, with_lse=True)
+    out, lse, sm90 = _launch_forward(q, k, v, layout, kv_mask, sm_scale, with_lse=True)
+    block_sparse_attention_lse.sm90_launches += sm90
     block_sparse_attention_lse.launches += 1
-    return result
+    return out, lse
 
 
 block_sparse_attention_lse.launches = 0
+block_sparse_attention_lse.sm90_launches = 0  # of them, launches of sparse_fwd_kernel_sm90
 
 
 def _launch_backward(symbol, outs, slots, lists, union, q, k, v, dout, lse, dsum, layout,
@@ -572,9 +632,11 @@ def block_sparse_attention(
         return BlockSparseAttention.apply(q, k, v, layout, kv_mask, sm_scale)
     if q.device.type == "cpu":
         return block_sparse_attention_reference(q, k, v, layout, kv_mask, sm_scale)
-    out = _launch_forward(q, k, v, layout, kv_mask, sm_scale, with_lse=False)[0]
+    out, _, sm90 = _launch_forward(q, k, v, layout, kv_mask, sm_scale, with_lse=False)
+    block_sparse_attention.sm90_launches += sm90
     block_sparse_attention.launches += 1
     return out
 
 
 block_sparse_attention.launches = 0
+block_sparse_attention.sm90_launches = 0  # of them, launches of sparse_fwd_kernel_sm90

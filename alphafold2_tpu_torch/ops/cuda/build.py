@@ -104,12 +104,14 @@ SIGNATURES = {
         # which (0 dq, 1 dkv), dtype, batch, heads, nq, nk, features, plan
         "af2_tied_row_attention_bwd_plan": [_I] * 7 + [_PLAN],
     },
-    # dtype, q, k, v, out, lse (or null), kv_mask, idx, cnt, max_active,
-    # strides, batch, heads, n, head_dim, block, sm_scale, stream
+    # dtype, q, k, v, out, lse (or null), kv_mask, idx, cnt, max_active, the
+    # union lists (blocks, bits, counts, max_stages), strides, batch, heads,
+    # n, head_dim, block, sm_scale, info (1 int out), stream
     "block_sparse_attention": {
-        "af2_block_sparse_attention": [_I] + [_P] * 8 + [_I, _P] + [_I] * 5 + [_F, _P],
-        # dtype, batch, heads, n, head_dim, block, plan
-        "af2_block_sparse_attention_plan": [_I] * 6 + [_PLAN],
+        "af2_block_sparse_attention":
+            [_I] + [_P] * 8 + [_I] + [_P] * 3 + [_I, _P] + [_I] * 5 + [_F, _P, _P],
+        # dtype, batch, heads, n, head_dim, block, aligned, plan
+        "af2_block_sparse_attention_plan": [_I] * 7 + [_PLAN],
     },
     # dtype, q, k, v, dout, lse, dsum, outputs (dq | dk, dv), kv_mask, idx,
     # cnt, max_active, the union lists (blocks, bits, counts, max_stages),

@@ -10,8 +10,11 @@
 # carry flags after a colon, "phase_train:sparse" for phase_train(sparse=True);
 # "phase_k1_time" times K1 alone on its nine main-path passes,
 # "phase_k3_time" K3a and K3b alone on the five training passes,
-# "phase_k5_time" K5a and K5b (and K4) on the sparse training pass and at
-# N 512 (a phase the parent lacks runs from this tree's chip_smoke.py, on the
+# "phase_k5_time" K5a and K5b (and K4, SDPA's forward and K1 with lse on
+# the dense problem) on the sparse training pass and at N 512,
+# "phase_k2_time" K2, K2 with lse and K2's backward beside SDPA,
+# "phase_registers" every Hopper instantiation's registers and spills (a
+# phase the parent lacks runs from this tree's chip_smoke.py, on the
 # parent's kernels);
 # "phase_backward phase_train" times K1 (lse), K3a and K3b on the training
 # passes (per call and per training step) beside the training step.
@@ -77,6 +80,6 @@ for who in parent change change parent; do
   (cd "$dir" && timeout 400 python3 -c "$runner" "$here/chip_smoke.py" $phases) \
       > "chiprun_out/cmp/$i.$who.log" 2>&1
   echo "== $i $who rc=$?"
-  grep -h "residues/s\|device busy\|the step alone\|warm step latency\|k1 time\|k3 time\|k5 time\|time fused_attention\|time block_sparse" \
+  grep -h "residues/s\|device busy\|the step alone\|warm step latency\|k1 time\|k2 time\|k3 time\|k5 time\|time fused_attention\|time block_sparse\|\[registers\]" \
       "chiprun_out/cmp/$i.$who.log" | cut -c1-220
 done

@@ -9,8 +9,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
               (analysis/lowering.py: every case's launch plans and ptxas
               resources within sm_90's limits, f32 and bf16, and X's
               mis-tiled negative control refused by ptxas; K3's Hopper
-              kernels and their merge, and K5's Hopper kernels, at head
-              dim 64 without a spill); X's valid
+              kernels and their merge, K4's and K5's Hopper kernels, at head
+              dim 64 without a spill, and K4's at 32 and 128); X's valid
               counterpart (scale_rows) bitwise against 2 * x at (4, 512),
               timed beside torch.mul; the launch-level control, a
               2048-thread block the card must refuse with
@@ -81,19 +81,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
               row logsumexp), K5a (dq) and K5b (dk, dv) against their plain
               versions per tensor at the sparse training path's pair pass
               and at a long, an unaligned, a block-128, a block-32, a
-              dead-row and a disjoint-lists problem, f32 and bf16; K5's
-              plans, and every bf16 case at head dim 32/64/128 launching
-              K5's Hopper kernels (sparse_dq_kernel_sm90 /
+              dead-row, a disjoint-lists and a negative-scale problem, f32
+              and bf16; K4's and K5's plans, and every bf16 case at head
+              dim 32/64/128 launching K4's and K5's Hopper kernels
+              (sparse_fwd_kernel_sm90, sparse_dq_kernel_sm90,
               sparse_dkv_kernel_sm90, which stream the union of each 64-row
               tile's lists); rows without a valid key exactly 0; a
               negative control dropping each query block's last valid
               active block (K4, K5a) or each key block's last query block
-              (K5b); two backward runs bit-identical; SDPA with the
-              element-level layout and key mask as the yardstick;
+              (K5b); two forward and two backward runs bit-identical; SDPA
+              with the element-level layout and key mask as the yardstick;
 7. sparse train — the training phase's checks with
               model.sparse_self_attn=True: every pair axial pass through
-              K4/K5a/K5b (every K5 launch on its Hopper kernel), the rest
-              through K1/K3a/K3b, small-model
+              K4/K5a/K5b (every K4 and K5 launch on its Hopper kernel), the
+              rest through K1/K3a/K3b, small-model
               gradients on the grid route (crop 48) and the flat route
               (crop 40), one step under torch.profiler.
 
@@ -101,10 +102,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 main-path passes beside SDPA: ``python3 -c "import chip_smoke as c;
 c.phase_build(); c.phase_k1_time()"``; ``phase_k3_time`` likewise times K3a
 and K3b on the five training passes beside SDPA's backward, per pass and
-per step; ``phase_k5_time`` K5a and K5b (and K4) on the sparse training pass
-and at N 512 beside SDPA with the layout mask, per pass and per sparse step.
-``chip_compare.sh`` runs them, or any other phases, for two checkouts in
-turns.
+per step; ``phase_k5_time`` K5a and K5b (and K4, with K1 with lse on the
+dense problem of the same shape) on the sparse training pass and at N 512
+beside SDPA with the layout mask, per pass and per sparse step;
+``phase_k2_time`` K2, K2 with lse and K2's backward on the tied passes
+beside SDPA, with device times; ``phase_registers`` every Hopper
+instantiation's registers and spills. ``chip_compare.sh`` runs them, or
+any other phases, for two checkouts in turns.
 
 Prints the card's name and power limit, then a JSON line describing every
 kernel, and last ``{"ok": true, "device": {...}}``. Any failed phase exits
@@ -215,6 +219,31 @@ def _log_gate(records, summary):
     log(f"[gate] {json.dumps(summary)}")
 
 
+def _sm90_resources(sources=("fused_attention", "fused_attention_bwd", "block_sparse_attention",
+                             "block_sparse_attention_bwd")):
+    """{instantiation: (registers, spill stores, spill loads)} of every
+    Hopper kernel (a name with ``_sm90``) in the build reports of
+    ``sources``, as ptxas gave them."""
+    from alphafold2_tpu_torch.analysis import lowering
+    from alphafold2_tpu_torch.ops.cuda import build
+
+    found = {}
+    for name, (code, report, _) in build.build_sources(sources).items():
+        require(code == 0, f"{name} did not build")
+        for key, res in lowering.report_by_kernel(report, lowering.demangle_cufilt).items():
+            if "_sm90" in key:
+                found[key] = (res.registers, res.spill_stores, res.spill_loads)
+    return dict(sorted(found.items()))
+
+
+def phase_registers():
+    """Log every Hopper instantiation's registers and spills (the build
+    reports of K1, K3, K4 and K5), so chip_compare.sh can set a parent's
+    beside this tree's."""
+    for name, (regs, stores, loads) in _sm90_resources().items():
+        log(f"[registers] {name}: {regs} registers, spills {stores}/{loads} B")
+
+
 def phase_gate():
     """The analysis layer on the card: the build gate, X's counterpart and
     its launch-level control, the audit of every target. Every part runs;
@@ -256,6 +285,15 @@ def phase_gate():
         log(f"[gate] K5's Hopper kernels at head dim 64 (registers, spill stores, loads): {k5}")
         check(set(k5) == set(K5_SM90), f"the gate planned K5's Hopper kernels only as {sorted(k5)}")
         check(all(x[1:] == (0, 0) for x in k5.values()), f"K5's Hopper kernels spill: {k5}")
+        # nor K4's (K1's consumer pieces on K5a's gathered stages), which the
+        # gate plans at head dim 64 and 128, at any head dim it is built for
+        planned = {ln.get("kernel") for rec in records for ln in rec.get("launches", ())}
+        check(K4_SM90 in planned, f"the gate did not plan K4's Hopper kernel {K4_SM90}")
+        fwd = {name: res for name, res in _sm90_resources(("block_sparse_attention",)).items()
+               if name.startswith("sparse_fwd_kernel")}
+        log(f"[gate] K4's Hopper instantiations (registers, spill stores, loads): {fwd}")
+        check(len(fwd) == 3 and all(res[1:] == (0, 0) for res in fwd.values()),
+              f"K4's Hopper instantiations at head dim 32/64/128: {fwd}")
 
     # X at its own shape: the path is one launch at (4, 512) f32
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -1462,6 +1500,7 @@ def phase_train(sparse=False, tied=False):
     for fn in kernels.values():
         fn.launches = 0
     for fn in (axial.fused_attention, axial.fused_attention_dq, axial.fused_attention_dkv,
+               block_sparse.block_sparse_attention, block_sparse.block_sparse_attention_lse,
                block_sparse.block_sparse_attention_dq, block_sparse.block_sparse_attention_dkv):
         fn.sm90_launches = 0
     for fn in plain:
@@ -1474,8 +1513,10 @@ def phase_train(sparse=False, tied=False):
     launches = {name: fn.launches for name, fn in kernels.items()}
     sm90 = {name: kernels[name].sm90_launches
             for name in ("fused_attention", "fused_attention_bwd_dq", "fused_attention_bwd_dkv",
+                         "block_sparse_attention", "block_sparse_attention (no lse)",
                          "block_sparse_attention_bwd_dq", "block_sparse_attention_bwd_dkv")}
     launches["block_sparse_attention"] += launches.pop("block_sparse_attention (no lse)")
+    sm90["block_sparse_attention"] += sm90.pop("block_sparse_attention (no lse)")
     plain_calls = sum(fn.calls for fn in plain)
     peak = torch.cuda.max_memory_allocated()
     lat = np.diff(times[1:]) * 1e3  # steps 2 .. 32, warm
@@ -1518,11 +1559,13 @@ def phase_train(sparse=False, tied=False):
     for name in ("block_sparse_attention", "block_sparse_attention_bwd_dq",
                  "block_sparse_attention_bwd_dkv"):
         require(launches[name] == sparse_calls * steps, f"{name} launches per step")
-    # every K5 launch of the (bf16, head dim 64) sparse path on its Hopper kernel
-    for name in ("block_sparse_attention_bwd_dq", "block_sparse_attention_bwd_dkv"):
+    # every K4 and K5 launch of the (bf16, head dim 64) sparse path on its
+    # Hopper kernel
+    for name, kernel in (("block_sparse_attention", "sparse_fwd_kernel_sm90"),
+                         ("block_sparse_attention_bwd_dq", "sparse_dq_kernel_sm90"),
+                         ("block_sparse_attention_bwd_dkv", "sparse_dkv_kernel_sm90")):
         require(sm90[name] == launches[name],
-                f"a {name} launch of the training path did not run "
-                f"sparse_{name[27:]}_kernel_sm90")
+                f"a {name} launch of the training path did not run {kernel}")
     require(plain_calls == 0, "a plain version ran on the training path")
     require(not any(changed[:steps - 1]),
             "parameters moved before the second accumulated update (schedule(0) must be 0)")
@@ -1665,14 +1708,21 @@ def _k5_sm90_counts():
             bsa.block_sparse_attention_dkv.sm90_launches)
 
 
+def _k4_sm90_counts():
+    from alphafold2_tpu_torch.ops.cuda import block_sparse as bsa
+
+    return (bsa.block_sparse_attention.sm90_launches,
+            bsa.block_sparse_attention_lse.sm90_launches)
+
+
 def _union_cost(layout):
-    """The (query, key) pairs the Hopper K5a/K5b stages cover, against the
-    layout's active pairs: what streaming the union of each 64-row tile's
-    lists costs in products."""
+    """The (query, key) pairs the Hopper K4/K5a and K5b stages cover,
+    against the layout's active pairs: what streaming the union of each
+    64-row tile's lists costs in products."""
     pairs = layout.active_pairs() * layout.block_size**2
     halves = max(layout.block_size // 64, 1)
     covered = [int(u[2].sum()) * halves * 64 * 64 for u in (layout.row_union, layout.col_union)]
-    return (f"{covered[0] / pairs:.3f}x (K5a) and {covered[1] / pairs:.3f}x (K5b) of the "
+    return (f"{covered[0] / pairs:.3f}x (K4, K5a) and {covered[1] / pairs:.3f}x (K5b) of the "
             f"{pairs} active pairs")
 
 
@@ -1711,16 +1761,17 @@ def _plain_sliced(fn, tensors, layout, kv_mask, scale):
 
 
 def sparse_case(label, b, h, n, d, dtype, lengths, config, gen, reps=0, library=False,
-                control=True):
+                control=True, sm_scale=None):
     """K4 (with and without lse), K5a and K5b on one problem, each held
     against its plain version per tensor; rows without a valid key exactly
     0 (lse +inf, dq 0) and masked keys' dk, dv exactly 0; with ``control``
-    the negative controls; two backward runs bit-identical; bf16 at head dim
-    32, 64 or 128 must run K5's Hopper kernels, anything else the older
-    ones. ``lengths``: each batch row's valid keys (a prefix), or None;
-    ``config``: a BlockSparseConfig, or a BlockLayout as it is. q, k, v and
-    dO are strided as the grid route lays them out. Returns result rows for
-    K4, K5a and K5b."""
+    the negative controls; two forward and two backward runs bit-identical;
+    bf16 at head dim 32, 64 or 128 must run K4's and K5's Hopper kernels,
+    anything else the older ones. ``lengths``: each batch row's valid keys
+    (a prefix), or None; ``config``: a BlockSparseConfig, or a BlockLayout
+    as it is; ``sm_scale`` defaults to d**-0.5. q, k, v and dO are strided
+    as the grid route lays them out. Returns result rows for K4, K5a and
+    K5b."""
     import torch
     import torch.nn.functional as F
 
@@ -1731,10 +1782,21 @@ def sparse_case(label, b, h, n, d, dtype, lengths, config, gen, reps=0, library=
     layout = config if isinstance(config, bsa.BlockLayout) else config_layout(config, n)
     q, k, v, do = _grad_operands(b, h, n, n, d, dtype, gen, strided=True)
     km = _prefix(n, lengths) if lengths is not None else None
-    scale = d**-0.5
+    scale = d**-0.5 if sm_scale is None else sm_scale
+    hopper = dtype == torch.bfloat16 and d in (32, 64, 128)
+    before = _k4_sm90_counts()
     out_nl = bsa.block_sparse_attention(q, k, v, layout, km, scale)
     out, lse = bsa.block_sparse_attention_lse(q, k, v, layout, km, scale)
     torch.cuda.synchronize()
+    sm90 = tuple(x - y for x, y in zip(_k4_sm90_counts(), before))
+    require(sm90 == ((1, 1) if hopper else (0, 0)),
+            f"{label}: K4 (no lse, lse) launched its Hopper kernel {sm90} times, not "
+            f"{(1, 1) if hopper else (0, 0)}")
+    out2, lse2 = bsa.block_sparse_attention_lse(q, k, v, layout, km, scale)
+    require(torch.equal(out, out2) and torch.equal(lse, lse2)
+            and torch.equal(out_nl, bsa.block_sparse_attention(q, k, v, layout, km, scale)),
+            f"{label}: K4 not deterministic")
+    del out2, lse2
     plain_fwd = lambda: _plain_sliced(bsa.block_sparse_attention_lse_reference, (q, k, v),
                                       layout, km, scale)
     ref_out, ref_lse = plain_fwd()
@@ -1749,7 +1811,6 @@ def sparse_case(label, b, h, n, d, dtype, lengths, config, gen, reps=0, library=
     dk, dv = bsa.block_sparse_attention_dkv(*args)
     torch.cuda.synchronize()
     sm90 = tuple(x - y for x, y in zip(_k5_sm90_counts(), before))
-    hopper = dtype == torch.bfloat16 and d in (32, 64, 128)
     require(sm90 == ((1, 1) if hopper else (0, 0)),
             f"{label}: K5a/K5b launched their Hopper kernels {sm90} times, not "
             f"{(1, 1) if hopper else (0, 0)}")
@@ -1781,9 +1842,10 @@ def sparse_case(label, b, h, n, d, dtype, lengths, config, gen, reps=0, library=
     require(bool((dk.masked_select(masked[..., None]) == 0).all())
             and bool((dv.masked_select(masked[..., None]) == 0).all()),
             f"{label}: a masked key has a nonzero dk or dv")
-    log(f"[sparse] {label} {fwd['dtype']}: two backward runs bit-identical; "
+    log(f"[sparse] {label} {fwd['dtype']}: two forward and two backward runs bit-identical; "
         f"{int(dead.sum())} rows without a valid key exactly 0, "
-        f"{int(masked.sum())} masked keys with dk = dv = 0; K5 on "
+        f"{int(masked.sum())} masked keys with dk = dv = 0; K4 on "
+        f"{'sparse_fwd_kernel_sm90' if hopper else 'fwd_kernel'}, K5 on "
         f"{'sparse_dq/dkv_kernel_sm90' if hopper else 'dq/dkv_kernel'}")
     if control:
         rows_short = _shortened(layout, km, rows=True)
@@ -1816,7 +1878,7 @@ def sparse_case(label, b, h, n, d, dtype, lengths, config, gen, reps=0, library=
     log(f"[sparse] {label}: layout {layout.num_blocks}x{layout.num_blocks} blocks of "
         f"{layout.block_size}, {layout.active_pairs()} active block pairs (density "
         f"{layout.active_pairs() / layout.num_blocks**2:.3f}); {pairs:.4e} valid "
-        f"(query, key) pairs; the Hopper K5's stages cover {_union_cost(layout)}")
+        f"(query, key) pairs; the Hopper kernels' stages cover {_union_cost(layout)}")
     if reps:
         fwd["ms"] = cuda_ms(lambda: bsa.block_sparse_attention_lse(q, k, v, layout, km, scale),
                             reps)
@@ -1854,6 +1916,32 @@ def sparse_case(label, b, h, n, d, dtype, lengths, config, gen, reps=0, library=
 
 
 K5_SM90 = ("sparse_dq_kernel_sm90<64>", "sparse_dkv_kernel_sm90<64>")
+K4_SM90 = "sparse_fwd_kernel_sm90<64>"
+
+
+def check_k4_plans():
+    """K4's plans on the sparse training pass and at N 512: bf16 with
+    TMA-aligned operands must name the Hopper kernel (a block per 64-query
+    tile), unaligned bf16 and f32 the older one."""
+    import ctypes
+
+    from alphafold2_tpu_torch.ops.cuda import build
+
+    lib = build.library("block_sparse_attention")
+    for b, n in ((128, 128), (512, 512)):
+        got = []
+        for dtype, aligned in ((1, 1), (1, 0), (0, 1)):
+            plan = build.LaunchPlan()
+            build.check(lib, lib.af2_block_sparse_attention_plan(
+                dtype, b, 8, n, 64, 16, aligned, ctypes.byref(plan)), "K4 plan")
+            got.append((plan.kernel.decode(), plan.blocks, plan.threads, plan.dynamic_smem))
+        log(f"[sparse] K4 plans ({b}x8, {n}, block 16): bf16 aligned {got[0]}, bf16 unaligned "
+            f"{got[1]}, f32 {got[2]}")
+        require(got[0][0] == K4_SM90 and got[0][1] == b * 8 * (n // 64),
+                f"K4 plans {got[0]} for aligned bf16")
+        require(got[1][0] == "fwd_kernel<__nv_bfloat16,16,64>" and
+                got[2][0] == "fwd_kernel<float,16,64>",
+                f"K4 plans {got[1][0]} / {got[2][0]} for unaligned bf16 / f32")
 
 
 def check_k5_plans():
@@ -1889,6 +1977,7 @@ def phase_sparse():
 
     from alphafold2_tpu_torch.ops.sparse import BlockSparseConfig
 
+    check_k4_plans()
     check_k5_plans()
     gen = torch.Generator(device="cuda").manual_seed(2)
     f32, bf16 = torch.float32, torch.bfloat16
@@ -1925,6 +2014,11 @@ def phase_sparse():
         # padding slot, would show)
         rows += sparse_case(DISJOINT_LABEL, 32, 4, 256, 64, dt, [256] * 24 + [131] * 8,
                             disjoint_layout(), **timed)
+        # the same with a negative scale: a warp whose rows have no valid key
+        # in a stage must neither take -inf - -inf nor +inf for its max
+        rows += sparse_case("negative scale (disjoint, 32x4, 256x256)", 32, 4, 256, 64, dt,
+                            [256] * 24 + [131] * 8, disjoint_layout(), sm_scale=-0.125,
+                            gen=gen)
     return rows
 
 
@@ -1940,13 +2034,14 @@ def phase_k5_time(reps=10):
     """K5a and K5b alone on the sparse training pass and at (512x8, 512,
     block 16), bf16, operands laid out as the grid route lays them out,
     beside SDPA's whole backward (dq, dk and dv in one call) with the
-    element-level layout and key mask; K4 (with lse) and SDPA's forward
-    beside those. Each: a call's time by CUDA events over ``reps`` calls, its
-    device time under torch.profiler and its host time; then per sparse
-    training step (12 calls of the training pass). No checks: phase_sparse
-    holds the kernels to their plain versions. Uses only the public
-    wrappers, so chip_compare.sh can run it on a parent's kernels. Returns
-    {label: row}."""
+    element-level layout and key mask; K4 (with lse), SDPA's forward, and K1
+    with lse on the dense problem of the same shape and key mask (what the
+    union costs against the dense kernel) beside those. Each: a call's time
+    by CUDA events over ``reps`` calls, its device time under torch.profiler
+    and its host time; then per sparse training step (12 calls of the
+    training pass). No checks: phase_sparse holds the kernels to their plain
+    versions. Uses only the public wrappers, so chip_compare.sh can run it
+    on a parent's kernels. Returns {label: row}."""
     import torch
     import torch.nn.functional as F
 
@@ -1975,7 +2070,8 @@ def phase_k5_time(reps=10):
                  "sdpa_bwd": lambda: torch.autograd.grad(o, leaves, do, retain_graph=True),
                  "fwd": lambda: bsa.block_sparse_attention_lse(q, k, v, layout, km, scale),
                  "sdpa_fwd": lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am,
-                                                                     scale=scale)}
+                                                                     scale=scale),
+                 "k1_dense": lambda: axial.fused_attention_lse(q, k, v, None, km, scale)}
         row = {}
         for name, fn in calls.items():
             row[f"{name}_ms"] = cuda_ms(fn, reps)
@@ -1986,7 +2082,8 @@ def phase_k5_time(reps=10):
             f"{what} {row[f'{m}_ms']:.4f} ms, device {row[f'{m}_device_ms']:.4f} ms, host "
             f"{row[f'{m}_host_us']:.1f} us a call"
             for m, what in (("dq", "K5a"), ("dkv", "K5b"), ("sdpa_bwd", "SDPA backward"),
-                            ("fwd", "K4"), ("sdpa_fwd", "SDPA forward"))))
+                            ("fwd", "K4"), ("sdpa_fwd", "SDPA forward"),
+                            ("k1_dense", "K1 with lse, dense"))))
         del q, k, v, do, out, lse, args, leaves, o, calls, am
         torch.cuda.empty_cache()
     step = rows[SPARSE_TRAIN_LABEL]
@@ -1995,7 +2092,82 @@ def phase_k5_time(reps=10):
         log(f"[k5 time] per sparse training step (12 calls), {kind or 'event '}ms: K5a "
             f"{k5a:.3f} + K5b {k5b:.3f} = {k5a + k5b:.3f} ms; SDPA backward "
             f"{12 * step[f'sdpa_bwd_{kind}ms']:.3f} ms; K4 {12 * step[f'fwd_{kind}ms']:.3f} "
-            f"ms; SDPA forward {12 * step[f'sdpa_fwd_{kind}ms']:.3f} ms")
+            f"ms; SDPA forward {12 * step[f'sdpa_fwd_{kind}ms']:.3f} ms; K1 with lse, dense "
+            f"{12 * step[f'k1_dense_{kind}ms']:.3f} ms")
+    return rows
+
+
+# K2's timed shapes (b, r, n, h, d): the serving tied MSA row pass (bucket
+# 128 at batch 4, one a trunk layer) and the tied training pass (one a layer,
+# 6 a step)
+K2_TIME_CASES = {"tied MSA rows, serving (4x5x128x8x64, R*D 320)": (4, 5, 128, 8, 64),
+                 TIED_TRAIN_LABEL: (1, 5, 64, 8, 64)}
+
+
+def phase_k2_time(reps=10):
+    """K2 (no lse) on the serving tied pass, and K2 with lse and K2's
+    backward (dq; dk and dv) on the tied training pass, bf16, each beside
+    SDPA on the folded (B, H, N, R*D) tensors (its forward, and its whole
+    backward for K2's backward) on the backend that takes that head dim: a
+    call's time by CUDA events over ``reps`` calls, its device time under
+    torch.profiler and its host time; then per tied training step (6 calls).
+    No checks: phase_kernels and phase_tied hold K2 to its plain versions.
+    Uses only the public wrappers, so chip_compare.sh can run it on a
+    parent's kernels. Returns {label: row}."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
+
+    from alphafold2_tpu_torch.ops.cuda import tied_row as tr
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rows = {}
+    for label, (b, r, n, h, d) in K2_TIME_CASES.items():
+        q, k, v, do, mask, tie = _tied_operands(b, r, n, h, d, torch.bfloat16, gen)
+        scale = d**-0.5
+        fold = lambda t: t.permute(0, 3, 2, 1, 4).reshape(b, h, n, r * d)
+        qf = (fold(q).float() * tie[:, None, None, None]).to(torch.bfloat16)
+        leaves = [t.detach().requires_grad_() for t in (qf, fold(k), fold(v))]
+        am = mask[:, None, None, :]
+        sdpa = lambda *t: F.scaled_dot_product_attention(*t, attn_mask=am, scale=scale)
+        backend = _sdpa_backend(lambda: sdpa(*leaves).backward(fold(do)))
+        require(backend is not None, f"{label}: no SDPA backend takes head dim {r * d}")
+        if label == TIED_TRAIN_LABEL:
+            out, lse = tr.tied_row_attention_lse(q, k, v, mask, mask, scale, tie)
+            args = (q, k, v, do, lse, tr.tied_row_dsum(out, do), mask, mask, scale, tie)
+            calls = {"lse": lambda: tr.tied_row_attention_lse(q, k, v, mask, mask, scale, tie),
+                     "dq": lambda: tr.tied_row_attention_dq(*args),
+                     "dkv": lambda: tr.tied_row_attention_dkv(*args)}
+        else:
+            calls = {"fwd": lambda: tr.tied_row_attention(q, k, v, q_mask=mask, kv_mask=mask,
+                                                          sm_scale=scale, tie_scale=tie)}
+        with sdpa_kernel([backend]):
+            o = sdpa(*leaves)
+            g = fold(do)
+            calls["sdpa_fwd"] = lambda: sdpa(*(t.detach() for t in leaves))
+            if label == TIED_TRAIN_LABEL:
+                calls["sdpa_bwd"] = lambda: torch.autograd.grad(o, leaves, g, retain_graph=True)
+            row = {"sdpa_backend": backend.name}
+            for name, fn in calls.items():
+                row[f"{name}_ms"] = cuda_ms(fn, reps)
+                row[f"{name}_device_ms"] = _device_ms(fn)
+                row[f"{name}_host_us"] = _host_us(fn)
+        rows[label] = row
+        names = {"fwd": "K2", "lse": "K2 with lse", "dq": "K2's backward dq",
+                 "dkv": "K2's backward dk, dv", "sdpa_fwd": "SDPA forward",
+                 "sdpa_bwd": "SDPA backward"}
+        log(f"[k2 time] {label}, SDPA on {backend.name}: " + "; ".join(
+            f"{names[m]} {row[f'{m}_ms']:.4f} ms, device {row[f'{m}_device_ms']:.4f} ms, host "
+            f"{row[f'{m}_host_us']:.1f} us a call" for m in calls))
+        del q, k, v, do, leaves, o, g, calls
+        torch.cuda.empty_cache()
+    step = rows[TIED_TRAIN_LABEL]
+    for kind in ("", "device_"):
+        log(f"[k2 time] per tied training step (6 calls), {kind or 'event '}ms: K2 with lse "
+            f"{6 * step[f'lse_{kind}ms']:.3f}, SDPA forward {6 * step[f'sdpa_fwd_{kind}ms']:.3f}; "
+            f"K2's backward {6 * step[f'dq_{kind}ms']:.3f} + {6 * step[f'dkv_{kind}ms']:.3f} = "
+            f"{6 * (step[f'dq_{kind}ms'] + step[f'dkv_{kind}ms']):.3f}, SDPA backward "
+            f"{6 * step[f'sdpa_bwd_{kind}ms']:.3f}")
     return rows
 
 

@@ -151,6 +151,23 @@ K5_DEMANGLED = {
     K5_DKV: f"void af2::sm90::grad::sparse_dkv_kernel_sm90<(int)64>({_K5_ARGS})",
 }
 
+# K4's Hopper kernel at head dim 64 (K1's consumer pieces on K5a's gathered
+# stages), as ptxas reported it for csrc/block_sparse_attention.cu on the
+# card's machine
+K4_FWD = ("_ZN3af24sm9022sparse_fwd_kernel_sm90ILi64EEEv14CUtensorMap_stS2_S2_"
+          "NS0_6ParamsENS0_4grad10GradParamsENS4_10ListParamsE")
+K4_REPORT = f"""\
+ptxas info    : Compiling entry function '{K4_FWD}' for 'sm_90a'
+ptxas info    : Function properties for {K4_FWD}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 108 registers, used 2 barriers
+"""
+K4_DEMANGLED = {
+    K4_FWD: "void af2::sm90::sparse_fwd_kernel_sm90<(int)64>(CUtensorMap_st, CUtensorMap_st, "
+            "CUtensorMap_st, af2::sm90::Params, af2::sm90::grad::GradParams, "
+            "af2::sm90::grad::ListParams)",
+}
+
 
 # ------------------------------------------------------------ cases
 
@@ -172,7 +189,7 @@ def test_cases_stand_for_the_jax_gate_one_for_one():
 def test_case_shapes_and_sources():
     by = {c.name: c for c in lowering.CASES}
     # JAX's block-sparse cases: block 128, 4 heads, head dim 64
-    assert by["block_sparse_fwd_n1024"].launches[0].args == (None, 1, 4, 1024, 64, 128)
+    assert by["block_sparse_fwd_n1024"].launches[0].args == (None, 1, 4, 1024, 64, 128, 1)
     assert [l.role for l in by["block_sparse_custom_vjp_n512"].launches] == ["K4", "K5a", "K5b"]
     assert [l.role for l in by["fused_axial_bwd_256"].launches] == ["K1", "K3a", "K3b"]
     assert by["tied_row_fwd_256"].launches[0].args == (None, 1, 8, 4, 256, 256, 64)  # R*D 512
@@ -256,7 +273,7 @@ def test_k5_plans_with_tma_aligned_operands(case):
     launches = [l for l in {c.name: c for c in lowering.CASES}[case].launches
                 if l.role.startswith("K5")]
     k4 = {c.name: c for c in lowering.CASES}[case].launches[0]
-    b, h, n, d, block = k4.args[1:]
+    b, h, n, d, block = k4.args[1:6]
     assert [l.role for l in launches] == ["K5a", "K5b"]
     assert [l.args for l in launches] == [(0, None, b, h, n, d, block, 1),
                                           (1, None, b, h, n, d, block, 1)]
@@ -264,6 +281,26 @@ def test_k5_plans_with_tma_aligned_operands(case):
                for l in launches)
     assert launches[1].plan_args("bfloat16") == (1, 1, b, h, n, d, block, 1)
     assert len(build.SIGNATURES["block_sparse_attention_bwd"][launches[0].symbol]) == 9
+
+
+@pytest.mark.parametrize("case", [
+    "block_sparse_fwd_n512", "block_sparse_fwd_nolse_n512", "block_sparse_fwd_n1024",
+    "block_sparse_bwd_n512", "block_sparse_bwd_n1024", "block_sparse_custom_vjp_n512",
+    "sparse_train_pair_128", "sparse_pair_512", "edge_sparse_block128_d128",
+])
+def test_k4_plans_with_tma_aligned_operands(case):
+    """K4 plans at the case's shape with operands TMA can describe (the
+    ``aligned`` argument), so bf16 at head dim 32, 64 or 128 plans the Hopper
+    kernel; both dtypes launch it."""
+    k4 = {c.name: c for c in lowering.CASES}[case].launches[0]
+    assert k4.role == "K4" and k4.source == "block_sparse_attention"
+    assert k4.symbol == "af2_block_sparse_attention_plan" and k4.dtypes == lowering.DTYPES
+    b, h, n, d, block = k4.args[1:6]
+    assert k4.args == (None, b, h, n, d, block, 1)
+    assert k4.plan_args("bfloat16") == (1, b, h, n, d, block, 1)
+    assert k4.plan_args("float32") == (0, b, h, n, d, block, 1)
+    assert len(build.SIGNATURES["block_sparse_attention"][k4.symbol]) == 8
+    assert len(build.SIGNATURES["block_sparse_attention"]["af2_block_sparse_attention"]) == 23
 
 
 # ------------------------------------------------------------ ptxas report
@@ -298,6 +335,7 @@ def test_report_by_kernel_names_instantiations_as_the_plans_do():
     ("void af2::attention_kernel_mma<(int)64>(af2::Problem, int)", "attention_kernel_mma<64>"),
     (K1_DEMANGLED[SM90], "attention_kernel_sm90<64>"),
     (K3_DEMANGLED[K3_DKV], "dkv_kernel_sm90<64>"),
+    (K4_DEMANGLED[K4_FWD], "sparse_fwd_kernel_sm90<64>"),
     ("void <unnamed>::fwd_kernel<float, (int)16, (int)64>(<unnamed>::Fwd, int)",
      "fwd_kernel<float,16,64>"),
     ("scale_rows(float const*, float*, int)", "scale_rows"),
@@ -367,6 +405,25 @@ def test_k5_hopper_kernels_fit_sm90():
             registers, 0, 0, 0)
         assert 2 * res.registers * 160 <= lowering.SM90_LIMITS["registers_per_sm"]
     assert 2 * (68_272 + 1024) <= 228 * 1024
+
+
+def test_k4_hopper_kernel_fits_sm90():
+    """K4's plan at the sparse training pass (2048 blocks of 160 threads,
+    one per 64-query tile of 128 x 8 heads x 128 tokens; 60,080 bytes of
+    dynamic shared memory: the q tile, a 3-stage K/V ring and K5's ring
+    control with a mask word set per consumer warp) against ptxas's report
+    of its instantiation: no spill, and three blocks fit an SM in registers
+    and shared memory."""
+    report = lowering.report_by_kernel(K4_REPORT, lambda names: {
+        n: K4_DEMANGLED[n] for n in names})
+    assert set(report) == {"sparse_fwd_kernel_sm90<64>"}
+    plan = {"blocks": 2048, "threads": 160, "dynamic_smem": 60_080,
+            "kernel": "sparse_fwd_kernel_sm90<64>"}
+    res = report[plan["kernel"]]
+    assert lowering.check_launch(plan, res) == []
+    assert (res.registers, res.spill_stores, res.spill_loads, res.stack_frame) == (108, 0, 0, 0)
+    assert 3 * res.registers * 160 <= lowering.SM90_LIMITS["registers_per_sm"]
+    assert 3 * (60_080 + 1024) <= 228 * 1024
 
 
 # ------------------------------------------------------------ limits

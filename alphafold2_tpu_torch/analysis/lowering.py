@@ -140,8 +140,11 @@ def _k3(b, h, nq, nk, d):
 
 
 def _k2(b, r, h, n, d):
+    """K2 with operands TMA can describe: bf16 at head dim 32, 64 or 128
+    with R*D up to 512 (at head dim 64) plans the Hopper kernel
+    (tied_row_attention_kernel_sm90), a wider R*D and f32 the older ones."""
     return Launch("K2", "tied_row_attention", "af2_tied_row_attention_plan",
-                  (None, b, r, h, n, n, d))
+                  (None, b, r, h, n, n, d, 1))
 
 
 def _k2_bwd(b, r, h, n, d):

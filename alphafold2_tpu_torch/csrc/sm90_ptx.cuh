@@ -1,8 +1,9 @@
 // The Hopper (sm_90a) building blocks shared by K1's forward
-// (fused_attention_sm90.cuh) and K3a/K3b's backward
-// (fused_attention_bwd_sm90.cuh): mbarriers with a spin limit, 4-D TMA
-// loads, wgmma with shared-memory descriptors, and on the host the tensor
-// maps over the callers' strided (B, H, N, D) bf16 views.
+// (fused_attention_sm90.cuh), K3a/K3b's backward
+// (fused_attention_bwd_sm90.cuh) and the kernels built on them (K2, K4, K5):
+// mbarriers with a spin limit, 4-D and 5-D TMA loads, wgmma with
+// shared-memory descriptors, and on the host the tensor maps over the
+// callers' strided (B, H, N, D) bf16 views.
 //
 // Tiles land in shared memory as chunks of rows of SWB bytes (SWB = 128 for
 // a 64-column bf16 chunk, 64 for a 32-column one), swizzled by TMA at the
@@ -64,6 +65,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// K2's (B, R, N, H, D) operands: one box spans the R rows of a token tile
+// (tied_row_attention_sm90.cuh).
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4),
       "r"(smem_u32(bar))
       : "memory");
 }

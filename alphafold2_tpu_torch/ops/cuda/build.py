@@ -92,8 +92,8 @@ SIGNATURES = {
         "af2_tied_row_attention": [_I] + [_P] * 7 + [_I] * 6 + [_F, _P],
         # the training forward: one more pointer after out, the (B, H, Nq) lse
         "af2_tied_row_attention_lse": [_I] + [_P] * 8 + [_I] * 6 + [_F, _P],
-        # dtype, batch, rows, heads, nq, nk, head_dim, plan
-        "af2_tied_row_attention_plan": [_I] * 7 + [_PLAN],
+        # dtype, batch, rows, heads, nq, nk, head_dim, aligned, plan
+        "af2_tied_row_attention_plan": [_I] * 8 + [_PLAN],
     },
     # dtype, q, k, v, dout, lse, dsum, outputs (dq | dk, dv), q_mask, kv_mask,
     # tie_scale, strides (28), batch, heads, nq, nk, features, row width,

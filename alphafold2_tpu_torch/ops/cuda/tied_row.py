@@ -9,11 +9,16 @@ One attention matrix per (batch, head) is shared by all R MSA rows:
     out[b, r, i, h]    = sum_j softmax_j(logits) v[b, r, j, h]
 
 The forward kernel is ``csrc/tied_row_attention.cu`` (K2; with the row
-logsumexp, ``af2_tied_row_attention_lse``), the backward kernels are
+logsumexp, ``af2_tied_row_attention_lse``): in bf16 at head dim 32, 64 or
+128 with R*D up to 512 (at head dim 64) the Hopper kernel of
+``csrc/tied_row_attention_sm90.cuh``, which computes the shared logits once
+per 64-key tile over the whole R*D axis for each group of 64 or 128 output
+columns (:func:`hopper_plan`; :func:`hopper_walk_reference` is the plain
+version of that walk). The backward kernels are
 ``csrc/tied_row_attention_bwd.cu``: what the TPU path runs under
 ``jax.grad`` as K3a/K3b (``_run_dq``/``_run_dkv``) at head dim R*D. All
-read the (B, R, N, H, D) layout in place and chunk the fused R*D feature
-axis (no fold copy, unlike the TPU path). Plain PyTorch versions:
+read the (B, R, N, H, D) layout in place (no fold copy, unlike the TPU
+path). Plain PyTorch versions:
 :func:`tied_row_attention_reference`, :func:`tied_row_attention_lse_reference`,
 :func:`tied_row_attention_dq_reference` and
 :func:`tied_row_attention_dkv_reference`; the wrappers run them only for
@@ -35,6 +40,8 @@ dq = 0 and add nothing to dk/dv, and masked keys get dk = dv = 0.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 from typing import Optional, Union
 
 import torch
@@ -47,6 +54,57 @@ from alphafold2_tpu_torch.ops.cuda.axial import (
     launch_chunked_backward,
     recomputed_probabilities,
 )
+
+
+# The Hopper K2's plan (csrc/tied_row_attention_sm90.cuh plan_shape and
+# plan_tied), mirrored: 64-query blocks of one consumer warpgroup and one
+# producer warp, a ring of one or two 64-key stages, C = 64 or 128 output
+# columns a block.
+HOPPER_HEAD_DIMS = (32, 64, 128)
+HOPPER_KERNEL = "tied_row_attention_kernel_sm90"
+TILE = 64  # query rows a block, keys a stage
+MAX_STAGES = 2
+THREADS = 160
+SMS = 132  # the H100 SXM's: a wave
+SMEM_LIMIT = 232_448  # dynamic shared memory a block may take
+SMEM_PER_SM = 233_472  # an SM's shared memory, 1 KB of it reserved a block
+CONTROL_BYTES = 64  # the ring's barriers, mask words and tile starts
+LOG2E = math.log2(math.e)
+LN2 = math.log(2.0)
+
+
+def hopper_smem_bytes(features: int, columns: int, stages: int = MAX_STAGES) -> int:
+    """A block's dynamic shared memory: the resident q tile and ``stages``
+    stages of K (64 x R*D) and V (64 x C), bf16, after up to 1 KB of
+    alignment."""
+    return 1024 + 2 * TILE * (features + stages * (features + columns)) + CONTROL_BYTES
+
+
+def hopper_plan(b: int, r: int, h: int, nq: int, d: int) -> Optional[dict]:
+    """The Hopper K2's launch at a bf16 shape with 16-byte aligned operands,
+    or None where attention_kernel_mma keeps it (head dim outside
+    HOPPER_HEAD_DIMS, or R*D too wide for the q tile and two stages). A
+    pure function of the shape: C = 128 columns a block where the grid then
+    fills a wave of SMS and shared memory allows, else 64; G =
+    ceil(R*D / C) column groups share each 64-query tile. Two stages, or one
+    where the grid outgrows what two-stage blocks hold in one wave and one
+    stage lets more blocks share an SM."""
+    if d not in HOPPER_HEAD_DIMS:
+        return None
+    f = r * d
+    tiles = b * h * -(-nq // TILE)
+    if hopper_smem_bytes(f, 128) <= SMEM_LIMIT and tiles * -(-f // 128) >= SMS:
+        columns = 128
+    elif hopper_smem_bytes(f, 64) <= SMEM_LIMIT:
+        columns = 64
+    else:
+        return None
+    groups = -(-f // columns)
+    two, one = (SMEM_PER_SM // (hopper_smem_bytes(f, columns, s) + 1024) for s in (2, 1))
+    stages = 1 if tiles * groups > SMS * two and one > two else 2
+    return {"kernel": f"{HOPPER_KERNEL}<{d},{columns}>", "columns": columns,
+            "groups": groups, "stages": stages, "blocks": tiles * groups, "threads": THREADS,
+            "dynamic_smem": hopper_smem_bytes(f, columns, stages)}
 
 
 def _tie_vector(tie_scale, b: int, r: int, device) -> torch.Tensor:
@@ -118,6 +176,59 @@ def tied_row_attention_lse_reference(q, k, v, q_mask=None, kv_mask=None, sm_scal
 
 
 tied_row_attention_lse_reference.calls = 0
+
+
+def hopper_walk_reference(q, k, v, q_mask=None, kv_mask=None, sm_scale=1.0, tie_scale=None,
+                          columns=128):
+    """The plain version of the Hopper K2's decomposition: for each group of
+    ``columns`` output columns of the fused (r, d) axis (a block's), the
+    shared logits S of each 64-key tile computed once over the whole R*D
+    axis and scaled in f32 by sm_scale * tie[b] * log2 e; the online
+    softmax in log2 units, tile by tile in key order, each row with its f32
+    max, sum and accumulator; p rounded to q's dtype once per tile before
+    P V' (the sum keeps it in f32); a tile with no valid key of the batch
+    row skipped, as the producer never stages it. Returns (out, lse) as
+    :func:`tied_row_attention_lse`: masked queries and rows with no valid
+    key give 0, and such rows lse +inf."""
+    b, r, nq, h, d = q.shape
+    nk, f = k.shape[2], r * d
+
+    def fold(t):  # (B, R, N, H, D) -> (B, H, N, R*D), f32
+        return t.permute(0, 3, 2, 1, 4).reshape(b, h, t.shape[2], f).float()
+
+    qf, kf, vf = fold(q), fold(k), fold(v)
+    scale2 = _scale(q, sm_scale, tie_scale) * LOG2E
+    keys = (kv_mask if kv_mask is not None
+            else torch.ones((b, nk), dtype=torch.bool, device=q.device))
+    out = torch.zeros((b, h, nq, f), device=q.device)
+    lse = torch.full((b, h, nq), float("inf"), device=q.device)
+    for bi in range(b):
+        for c0 in range(0, f, columns):
+            cols = slice(c0, min(c0 + columns, f))
+            m = torch.full((h, nq, 1), float("-inf"), device=q.device)
+            l = torch.zeros((h, nq, 1), device=q.device)
+            acc = torch.zeros((h, nq, cols.stop - c0), device=q.device)
+            for k0 in range(0, nk, TILE):
+                tile = slice(k0, min(k0 + TILE, nk))
+                valid = keys[bi, tile]
+                if not valid.any():
+                    continue
+                x = qf[bi] @ kf[bi, :, tile].transpose(-1, -2) * scale2[bi]
+                m_new = torch.maximum(m, x.masked_fill(~valid, float("-inf")).amax(
+                    -1, keepdim=True))
+                alpha = torch.exp2(m - m_new)
+                p = torch.where(valid, torch.exp2(x - m_new), 0.0)
+                l = l * alpha + p.sum(-1, keepdim=True)
+                acc = acc * alpha + p.to(q.dtype).float() @ vf[bi, :, tile, cols]
+                m = m_new
+            out[bi, :, :, cols] = acc / l.clamp_min(1e-30)
+            if c0 == 0:
+                lse[bi] = torch.where(torch.isneginf(m), float("inf"),
+                                      m * LN2 + torch.log(l))[..., 0]
+    if q_mask is not None:
+        out = out * q_mask[:, None, :, None].to(out.dtype)
+    out = out.reshape(b, h, nq, r, d).permute(0, 3, 2, 1, 4)
+    return out.to(q.dtype), lse
 
 
 def _p_ds(q, k, v, dout, lse, dsum, q_mask, kv_mask, scale):
@@ -194,6 +305,17 @@ def _cuda_operands(q, k, v, q_mask, kv_mask, tie_scale, what):
     return tie, [m.contiguous() if m is not None else None for m in (q_mask, kv_mask)]
 
 
+@functools.lru_cache(maxsize=None)
+def _planned_kernel(lib, dtype: int, b: int, r: int, h: int, nq: int, nk: int, d: int,
+                    aligned: int) -> str:
+    """The instantiation K2's C plan names at a shape: what the launch takes."""
+    plan = build.LaunchPlan()
+    build.check(lib, lib.af2_tied_row_attention_plan(dtype, b, r, h, nq, nk, d, aligned,
+                                                     ctypes.byref(plan)),
+                "tied_row_attention plan")
+    return plan.kernel.decode()
+
+
 def _launch_forward(q, k, v, q_mask, kv_mask, sm_scale, tie_scale, with_lse):
     """K2 on CUDA tensors: out, and the (B, H, Nq) f32 lse when asked."""
     tie, masks = _cuda_operands(q, k, v, q_mask, kv_mask, tie_scale, "tied_row_attention")
@@ -215,6 +337,10 @@ def _launch_forward(q, k, v, q_mask, kv_mask, sm_scale, tie_scale, with_lse):
             code = lib.af2_tied_row_attention(*head, *tail)
     build.check(lib, code, "tied_row_attention")
     tied_row_attention.launches += 1
+    aligned = int(all(t.data_ptr() % 16 == 0 for t in (q, k, v, out)))
+    if _planned_kernel(lib, _DTYPES[q.dtype], b, r, h, nq, k.shape[2], d,
+                       aligned).startswith(HOPPER_KERNEL + "<"):
+        tied_row_attention.sm90_launches += 1
     return out, lse
 
 
@@ -335,3 +461,4 @@ def tied_row_attention(
 
 
 tied_row_attention.launches = 0
+tied_row_attention.sm90_launches = 0  # of them, launches of tied_row_attention_kernel_sm90

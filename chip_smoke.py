@@ -20,14 +20,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
               engine's device threads;
 2. kernels  — K1's plan on its nine main-path passes must name the Hopper
               kernel (attention_kernel_sm90<64>, and combine_kernel<64>
-              where the key axis splits); hold each forward kernel (K1, K2)
-              against its plain PyTorch version on the card at the serving
-              path's shapes (f32 and bf16) plus ragged tails, a 5-key pass,
-              fully masked rows, other head dims and a negative scale, each
-              bf16 serving pass launching the Hopper kernel and repeating
-              bit for bit; time the kernel (and its host time a call), the
-              plain version and torch's scaled_dot_product_attention (a
-              yardstick the port never calls);
+              where the key axis splits), and K2's plan on its serving,
+              training and gate shapes and on one shape of each other
+              Hopper instantiation tied_row_attention_kernel_sm90<D, C>
+              (head dims 32/64/128, 64 or 128 columns a block) as
+              tied_row.hopper_plan gives it, R*D 1280 and unaligned
+              operands attention_kernel_mma<64>; hold each forward kernel
+              (K1, K2) against its plain PyTorch version on the card at the
+              serving path's shapes (f32 and bf16) plus ragged tails, a
+              5-key pass, fully masked rows, other head dims and a negative
+              scale, each bf16 serving pass and each bf16 K2 shape the
+              Hopper kernel takes launching it and repeating bit for bit,
+              K2 with a control that drops each row's last key tile; time
+              the kernel (and its host time a call), the plain version and
+              torch's scaled_dot_product_attention (a yardstick the port
+              never calls);
 3. backward — the same for K1's training forward (with the row logsumexp,
               the split pass repeating bit for bit) and K1's combine pass
               alone, and the backward kernels K3a (dq) and K3b (dk, dv) at
@@ -49,7 +56,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
               csrc/tied_row_attention_bwd.cu) against their plain versions
               at the tied training shape (1x5x64x8x64, R*D 320) and JAX's
               gate shape (1x8x256x4x64, R*D 512), f32 and bf16, with ragged
-              rows and masked columns; a negative control per kernel that
+              rows and masked columns, bf16 K2 with lse on
+              tied_row_attention_kernel_sm90 and repeating bit for bit
+              (out and lse); a negative control per kernel that
               drops the last 64-wide feature chunk; two backward runs
               bit-identical; the autograd route through the kernels alone;
               SDPA on the folded (B, H, N, R*D) tensors as the yardstick,
@@ -62,7 +71,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
               default ladder 64/96/128/192/256 at batch 4, buckets 192 and
               256 streaming the refiner) warms up every bucket and serves
               twelve requests of 50-256 residues; launch counts must show
-              both forward kernels on the path and no plain-version call; a
+              both forward kernels on the path, every K1 and K2 launch on
+              its Hopper kernel, and no plain-version call; a
               request served alone and in a batch must agree; one request
               with serve.return_distogram must bring back (3L, 3L, 37)
               logits; a bucket-128 and a bucket-256 batch are profiled;
@@ -75,8 +85,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
               20 steps on one repeated batch whose loss must fall; a small
               f32 model whose gradients must agree between the card and the
               CPU; one step under torch.profiler; then all of it again with
-              model.msa_tie_row_attn=True (K2 with lse and K2's backward on
-              every MSA row pass);
+              model.msa_tie_row_attn=True (K2 with lse, every launch on
+              tied_row_attention_kernel_sm90, and K2's backward on every
+              MSA row pass);
 6. sparse   — the block-sparse kernels K4 (forward, with and without the
               row logsumexp), K5a (dq) and K5b (dk, dv) against their plain
               versions per tensor at the sparse training path's pair pass
@@ -220,7 +231,7 @@ def _log_gate(records, summary):
 
 
 def _sm90_resources(sources=("fused_attention", "fused_attention_bwd", "block_sparse_attention",
-                             "block_sparse_attention_bwd")):
+                             "block_sparse_attention_bwd", "tied_row_attention")):
     """{instantiation: (registers, spill stores, spill loads)} of every
     Hopper kernel (a name with ``_sm90``) in the build reports of
     ``sources``, as ptxas gave them."""
@@ -238,7 +249,7 @@ def _sm90_resources(sources=("fused_attention", "fused_attention_bwd", "block_sp
 
 def phase_registers():
     """Log every Hopper instantiation's registers and spills (the build
-    reports of K1, K3, K4 and K5), so chip_compare.sh can set a parent's
+    reports of K1, K2, K3, K4 and K5), so chip_compare.sh can set a parent's
     beside this tree's."""
     for name, (regs, stores, loads) in _sm90_resources().items():
         log(f"[registers] {name}: {regs} registers, spills {stores}/{loads} B")
@@ -497,7 +508,34 @@ def k1_case(label, b, h, nq, nk, d, dtype, q_mask=None, kv_mask=None, reps=3,
     return row
 
 
-def k2_case(label, b, r, n, h, d, dtype, length=None, reps=3, library=False, gen=None):
+def _k2_sm90_launched(fn, what):
+    """Run ``fn`` once; require that K2 launched
+    tied_row_attention_kernel_sm90. Returns fn's result."""
+    from alphafold2_tpu_torch.ops.cuda import tied_row
+
+    before = tied_row.tied_row_attention.sm90_launches
+    result = fn()
+    require(tied_row.tied_row_attention.sm90_launches - before == 1,
+            f"{what}: K2 did not launch tied_row_attention_kernel_sm90")
+    return result
+
+
+def _k2_planned(b, r, n, h, d, dtype):
+    """The Hopper K2's plan at a shape (tied_row.hopper_plan), or None where
+    another kernel takes it: f32, or a shape the Hopper kernel does not take."""
+    import torch
+
+    from alphafold2_tpu_torch.ops.cuda.tied_row import hopper_plan
+
+    return hopper_plan(b, r, h, n, d) if dtype == torch.bfloat16 else None
+
+
+def k2_case(label, b, r, n, h, d, dtype, length=None, reps=3, library=False, gen=None,
+            sm_scale=None):
+    """One tied_row_attention check; returns a result row. A bf16 shape the
+    Hopper kernel takes must launch tied_row_attention_kernel_sm90 and
+    repeat bit for bit; with a mask, a kernel that skipped its last key tile
+    must fail the bound."""
     import torch
     import torch.nn.functional as F
 
@@ -516,10 +554,18 @@ def k2_case(label, b, r, n, h, d, dtype, length=None, reps=3, library=False, gen
         n_rows = (mask.any(-1).long() * r).clamp_min(1)
         tie = n_rows.float() ** -0.5
     q, k, v = (t.to(dtype).contiguous() for t in (q, k, v))
-    scale = d**-0.5
+    scale = d**-0.5 if sm_scale is None else sm_scale
     run = lambda: tied_row_attention(q, k, v, q_mask=mask, kv_mask=mask,
                                      sm_scale=scale, tie_scale=tie)
-    out = run()
+    plan = _k2_planned(b, r, n, h, d, dtype)
+    if plan is not None:
+        out = _k2_sm90_launched(run, label)
+        require(torch.equal(out, run()), f"{label}: two K2 runs differ")
+        log(f"[kernels] tied_row_attention {label}: {plan['kernel']}, {plan['groups']} column "
+            f"group(s) of {plan['columns']}, {plan['stages']} stage(s), {plan['blocks']} blocks, "
+            f"two runs bit-identical")
+    else:
+        out = run()
     torch.cuda.synchronize()
     plain = lambda: tied_row_attention_reference(q, k, v, mask, mask, scale, tie)
     ref = plain()
@@ -547,6 +593,61 @@ def k2_case(label, b, r, n, h, d, dtype, length=None, reps=3, library=False, gen
             row["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
                 qs, kf, vf, attn_mask=am, scale=scale), reps)
     return row
+
+
+# K2's shapes (b, r, n, h, d) by their plans: the serving tied pass, the tied
+# training pass, JAX's gate case (R*D 512), the widest R*D (1280, 20 rows:
+# attention_kernel_mma), and one shape for each other Hopper instantiation
+# (head dims 32 and 128 at 64 and 128 columns a block)
+K2_PLANS = {
+    "serve": ((4, 5, 128, 8, 64), "tied_row_attention_kernel_sm90<64,128>"),
+    "train": ((1, 5, 64, 8, 64), "tied_row_attention_kernel_sm90<64,64>"),
+    "gate": ((1, 8, 256, 4, 64), "tied_row_attention_kernel_sm90<64,64>"),
+    "R*D 1280": ((1, 20, 48, 2, 64), "attention_kernel_mma<64>"),
+    "d32, 64 columns": ((3, 8, 100, 2, 32), "tied_row_attention_kernel_sm90<32,64>"),
+    "d32, 128 columns": ((16, 4, 70, 8, 32), "tied_row_attention_kernel_sm90<32,128>"),
+    "d128, 64 columns": ((2, 4, 70, 2, 128), "tied_row_attention_kernel_sm90<128,64>"),
+    "d128, 128 columns": ((8, 2, 128, 8, 128), "tied_row_attention_kernel_sm90<128,128>"),
+}
+
+
+def check_k2_plans():
+    """K2's C plan (bf16, operands 16-byte aligned) must name the kernel
+    K2_PLANS gives each shape, and agree with tied_row.hopper_plan (blocks,
+    threads, shared memory) where that is the Hopper kernel; unaligned
+    operands keep attention_kernel_mma."""
+    import ctypes
+
+    from alphafold2_tpu_torch.ops.cuda import build, tied_row
+
+    lib = build.library("tied_row_attention")
+
+    def plan(shape, aligned):
+        b, r, n, h, d = shape
+        out = build.LaunchPlan()
+        code = lib.af2_tied_row_attention_plan(1, b, r, h, n, n, d, aligned, ctypes.byref(out))
+        require(code == 0, f"K2 plan at {shape}: code {code}")
+        return out
+
+    for label, (shape, kernel) in K2_PLANS.items():
+        got = plan(shape, 1)
+        name = got.kernel.decode()
+        require(name == kernel, f"K2 plan at {label} {shape}: {name}, not {kernel}")
+        b, r, n, h, d = shape
+        mirror = tied_row.hopper_plan(b, r, h, n, d)
+        if kernel.startswith(tied_row.HOPPER_KERNEL):
+            require(mirror is not None and mirror["kernel"] == name
+                    and (mirror["blocks"], mirror["threads"], mirror["dynamic_smem"])
+                    == (got.blocks, got.threads, got.dynamic_smem),
+                    f"K2 plan at {label}: the C plan ({got.blocks}, {got.threads}, "
+                    f"{got.dynamic_smem}) differs from hopper_plan {mirror}")
+        else:
+            require(mirror is None, f"K2 plan at {label}: hopper_plan takes it, C does not")
+        log(f"[kernels] K2 plan {label} {shape}: {name}, {got.blocks} blocks of {got.threads}, "
+            f"{got.dynamic_smem} bytes of shared memory")
+    unaligned = plan(K2_PLANS["serve"][0], 0).kernel.decode()
+    require(unaligned == "attention_kernel_mma<64>",
+            f"K2 plan with unaligned operands: {unaligned}")
 
 
 def _errors(out, ref, dtype):
@@ -775,6 +876,7 @@ def phase_kernels():
     import torch
 
     check_k1_plans()
+    check_k2_plans()
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     f32, bf16 = torch.float32, torch.bfloat16
@@ -823,6 +925,18 @@ def phase_kernels():
                             reps=0, gen=gen))
         rows.append(k2_case("R*D=80 unmasked (5 rows, d16)", 2, 5, 33, 2, 16, dt, reps=0,
                             gen=gen))
+        # the training and gate shapes without lse, a negative scale, and
+        # each other Hopper instantiation (head dims 32 and 128)
+        rows.append(k2_case("tied rows, training shape (1x5x64x8x64)", 1, 5, 64, 8, 64, dt,
+                            length=[53], reps=0, gen=gen))
+        rows.append(k2_case("tied rows, gate shape (1x8x256x4x64)", 1, 8, 256, 4, 64, dt,
+                            length=[230], reps=0, gen=gen))
+        rows.append(k2_case("negative sm_scale (2x5x150x2x64)", 2, 5, 150, 2, 64, dt,
+                            length=[150, 99], reps=0, gen=gen, sm_scale=-0.125))
+        for name, ((b, r, n, h, d), _) in K2_PLANS.items():
+            if name.startswith("d"):
+                rows.append(k2_case(f"{name} ({b}x{r}x{n}x{h}x{d})", b, r, n, h, d, dt,
+                                    length=[n - 3 * i for i in range(b)], reps=0, gen=gen))
     # fully masked query rows must come out exactly 0
     from alphafold2_tpu_torch.ops.cuda.axial import fused_attention
 
@@ -1333,7 +1447,17 @@ def tied_case(label, b, r, n, h, d, dtype, gen, reps=3, library=False):
     q, k, v, do, mask, tie = _tied_operands(b, r, n, h, d, dtype, gen)
     scale = d**-0.5
     forward = lambda: tr.tied_row_attention_lse(q, k, v, mask, mask, scale, tie)
-    out, lse = forward()
+    plan = _k2_planned(b, r, n, h, d, dtype)
+    if plan is not None:
+        out, lse = _k2_sm90_launched(forward, label)
+        again = forward()
+        require(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+                f"{label}: two K2 (lse) runs differ")
+        log(f"[tied] {label}: K2 with lse on {plan['kernel']}, {plan['groups']} column "
+            f"group(s) of {plan['columns']}, {plan['stages']} stage(s), {plan['blocks']} blocks, "
+            f"two runs bit-identical")
+    else:
+        out, lse = forward()
     torch.cuda.synchronize()
     ref_out, ref_lse = tr.tied_row_attention_lse_reference(q, k, v, mask, mask, scale, tie)
     fwd = _compare(label, "tied_row_attention (lse)", out, ref_out, dtype)
@@ -1500,6 +1624,7 @@ def phase_train(sparse=False, tied=False):
     for fn in kernels.values():
         fn.launches = 0
     for fn in (axial.fused_attention, axial.fused_attention_dq, axial.fused_attention_dkv,
+               tied_row.tied_row_attention,
                block_sparse.block_sparse_attention, block_sparse.block_sparse_attention_lse,
                block_sparse.block_sparse_attention_dq, block_sparse.block_sparse_attention_dkv):
         fn.sm90_launches = 0
@@ -1513,7 +1638,8 @@ def phase_train(sparse=False, tied=False):
     launches = {name: fn.launches for name, fn in kernels.items()}
     sm90 = {name: kernels[name].sm90_launches
             for name in ("fused_attention", "fused_attention_bwd_dq", "fused_attention_bwd_dkv",
-                         "block_sparse_attention", "block_sparse_attention (no lse)",
+                         "tied_row_attention", "block_sparse_attention",
+                         "block_sparse_attention (no lse)",
                          "block_sparse_attention_bwd_dq", "block_sparse_attention_bwd_dkv")}
     launches["block_sparse_attention"] += launches.pop("block_sparse_attention (no lse)")
     sm90["block_sparse_attention"] += sm90.pop("block_sparse_attention (no lse)")
@@ -1556,6 +1682,8 @@ def phase_train(sparse=False, tied=False):
     for name in ("tied_row_attention", "tied_row_attention_bwd_dq",
                  "tied_row_attention_bwd_dkv"):
         require(launches[name] == tied_calls * steps, f"{name} launches per step")
+    require(sm90["tied_row_attention"] == launches["tied_row_attention"],
+            "a K2 launch of the tied training path did not run tied_row_attention_kernel_sm90")
     for name in ("block_sparse_attention", "block_sparse_attention_bwd_dq",
                  "block_sparse_attention_bwd_dkv"):
         require(launches[name] == sparse_calls * steps, f"{name} launches per step")
@@ -2309,7 +2437,7 @@ def phase_serve():
 
     for fn in (fused_attention, tied_row_attention, fused_attention_combine):
         fn.launches = 0
-    fused_attention.sm90_launches = 0
+    fused_attention.sm90_launches = tied_row_attention.sm90_launches = 0
     plain = (fused_attention_reference, tied_row_attention_reference)
     for fn in plain:
         fn.calls = 0
@@ -2328,6 +2456,9 @@ def phase_serve():
     require(fused_attention.sm90_launches == fused_attention.launches,
             f"{fused_attention.launches - fused_attention.sm90_launches} of K1's serving "
             f"launches did not run attention_kernel_sm90")
+    require(tied_row_attention.sm90_launches == tied_row_attention.launches,
+            f"{tied_row_attention.launches - tied_row_attention.sm90_launches} of K2's serving "
+            f"launches did not run tied_row_attention_kernel_sm90")
     plain_calls = sum(fn.calls for fn in plain)
     peak = torch.cuda.max_memory_allocated()
 
@@ -2449,7 +2580,8 @@ def profile_device(what, fn, host=False):
     log(f"[profile] {what}: wall {wall_ms:.1f} ms (profiler on), device busy "
         f"{busy:.1f} ms ({busy / wall_ms:.1%}), idle {1 - busy / wall_ms:.1%}")
     # K1 shows as attention_kernel_sm90<64> (and combine_kernel<64> where it
-    # splits the key axis), K2 as attention_kernel_mma<64>, K3a/K3b as
+    # splits the key axis), K2 as tied_row_attention_kernel_sm90<64,128>
+    # (serving) or <64,64> (tied training), K3a/K3b as
     # dq_kernel_sm90 / dkv_kernel_sm90 (and grad_merge_kernel<64> where they
     # split), K2's backward as chunked_dq_kernel_mma / chunked_dkv_kernel_mma
     for ms, count, name in sorted(rows, reverse=True)[:12]:

@@ -21,7 +21,7 @@ from jax.experimental import pallas as pl
 
 from alphafold2_tpu.analysis import lowering as jax_lowering
 from alphafold2_tpu_torch.analysis import lowering
-from alphafold2_tpu_torch.ops.cuda import build, controls
+from alphafold2_tpu_torch.ops.cuda import build, controls, tied_row
 
 torch.set_num_threads(1)
 
@@ -169,6 +169,25 @@ K4_DEMANGLED = {
 }
 
 
+# K2's Hopper kernel at head dim 64, 128 and 64 output columns a block, as
+# ptxas reported it for csrc/tied_row_attention.cu on the card's machine
+K2_WIDE = ("_ZN3af24sm904tied30tied_row_attention_kernel_sm90ILi64ELi128EEEv14CUtensorMap_stS3_S3_"
+           "NS1_10TiedParamsE")
+K2_NARROW = ("_ZN3af24sm904tied30tied_row_attention_kernel_sm90ILi64ELi64EEEv14CUtensorMap_stS3_"
+             "S3_NS1_10TiedParamsE")
+K2_REPORT = "".join(f"""\
+ptxas info    : Compiling entry function '{name}' for 'sm_90a'
+ptxas info    : Function properties for {name}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used {registers} registers, used 1 barriers
+""" for name, registers in ((K2_WIDE, 138), (K2_NARROW, 106)))
+K2_DEMANGLED = {
+    name: f"void af2::sm90::tied::tied_row_attention_kernel_sm90<(int)64, (int){c}>("
+          "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, af2::sm90::tied::TiedParams)"
+    for name, c in ((K2_WIDE, 128), (K2_NARROW, 64))
+}
+
+
 # ------------------------------------------------------------ cases
 
 
@@ -192,14 +211,14 @@ def test_case_shapes_and_sources():
     assert by["block_sparse_fwd_n1024"].launches[0].args == (None, 1, 4, 1024, 64, 128, 1)
     assert [l.role for l in by["block_sparse_custom_vjp_n512"].launches] == ["K4", "K5a", "K5b"]
     assert [l.role for l in by["fused_axial_bwd_256"].launches] == ["K1", "K3a", "K3b"]
-    assert by["tied_row_fwd_256"].launches[0].args == (None, 1, 8, 4, 256, 256, 64)  # R*D 512
+    assert by["tied_row_fwd_256"].launches[0].args == (None, 1, 8, 4, 256, 256, 64, 1)  # R*D 512
     # K2's backward at JAX's case_tied_row_bwd shape, R*D 512, and at the
     # training shape, R*D 320: K2 with lse, then dq (K2a) and dk/dv (K2b)
     assert [(l.role, l.source, l.args) for l in by["tied_row_bwd_256"].launches] == [
-        ("K2", "tied_row_attention", (None, 1, 8, 4, 256, 256, 64)),
+        ("K2", "tied_row_attention", (None, 1, 8, 4, 256, 256, 64, 1)),
         ("K2a", "tied_row_attention_bwd", (0, None, 1, 4, 256, 256, 512)),
         ("K2b", "tied_row_attention_bwd", (1, None, 1, 4, 256, 256, 512))]
-    assert [l.args[-1] for l in by["train_tied_rows"].launches] == [64, 320, 320]
+    assert [l.args[-1] for l in by["train_tied_rows"].launches] == [1, 320, 320]
     # past head dim 128, K3a/K3b plan the D-chunked kernels
     assert [(l.role, l.source) for l in by["edge_dense_d256"].launches] == [
         ("K1", "fused_attention"), ("K3a", "tied_row_attention_bwd"),
@@ -424,6 +443,60 @@ def test_k4_hopper_kernel_fits_sm90():
     assert (res.registers, res.spill_stores, res.spill_loads, res.stack_frame) == (108, 0, 0, 0)
     assert 3 * res.registers * 160 <= lowering.SM90_LIMITS["registers_per_sm"]
     assert 3 * (60_080 + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("case,kernel", [
+    ("serve_tied_rows", "tied_row_attention_kernel_sm90<64,128>"),
+    ("train_tied_rows", "tied_row_attention_kernel_sm90<64,64>"),
+    ("tied_row_fwd_256", "tied_row_attention_kernel_sm90<64,64>"),
+    ("tied_row_bwd_256", "tied_row_attention_kernel_sm90<64,64>"),
+    ("edge_tied_rows_1280", None),
+])
+def test_k2_plans_with_tma_aligned_operands(case, kernel):
+    """K2 plans at the case's shape with operands TMA can describe (the
+    ``aligned`` argument), so bf16 at R*D up to 512 plans the Hopper kernel
+    (the instantiation tied_row.hopper_plan names, as the C plan does on the
+    card) and R*D 1280 keeps attention_kernel_mma; both dtypes launch it."""
+    k2 = {c.name: c for c in lowering.CASES}[case].launches[0]
+    assert k2.role == "K2" and k2.source == "tied_row_attention"
+    assert k2.symbol == "af2_tied_row_attention_plan" and k2.dtypes == lowering.DTYPES
+    _, b, r, h, nq, nk, d, aligned = k2.args
+    assert aligned == 1 and nq == nk
+    assert k2.plan_args("bfloat16") == (1, b, r, h, nq, nk, d, 1)
+    assert len(build.SIGNATURES["tied_row_attention"][k2.symbol]) == 9
+    plan = tied_row.hopper_plan(b, r, h, nq, d)
+    assert (plan["kernel"] if plan else None) == kernel
+
+
+def test_k2_hopper_kernel_fits_sm90():
+    """K2's plans at the serving tied pass (192 blocks of 160 threads, 3
+    column groups of 128, one stage: 99,392 bytes of dynamic shared memory),
+    the tied training pass (40 blocks, 5 groups of 64, two stages: 140,352
+    bytes) and JAX's gate shape (128 blocks, 8 groups of 64, 214,080 bytes)
+    against ptxas's report of their instantiations: no spill, and the
+    serving pass's blocks fit two an SM in registers and shared memory."""
+    report = lowering.report_by_kernel(K2_REPORT, lambda names: {
+        n: K2_DEMANGLED[n] for n in names})
+    assert set(report) == {"tied_row_attention_kernel_sm90<64,128>",
+                           "tied_row_attention_kernel_sm90<64,64>"}
+    plans = [{"blocks": 192, "threads": 160, "dynamic_smem": 99_392,
+              "kernel": "tied_row_attention_kernel_sm90<64,128>"},
+             {"blocks": 40, "threads": 160, "dynamic_smem": 140_352,
+              "kernel": "tied_row_attention_kernel_sm90<64,64>"},
+             {"blocks": 128, "threads": 160, "dynamic_smem": 214_080,
+              "kernel": "tied_row_attention_kernel_sm90<64,64>"}]
+    for plan, shape in zip(plans, ((4, 5, 8, 128, 64), (1, 5, 8, 64, 64), (1, 8, 4, 256, 64))):
+        mirror = tied_row.hopper_plan(*shape)
+        assert {k: mirror[k] for k in plan} == plan
+        res = report[plan["kernel"]]
+        assert lowering.check_launch(plan, res) == []
+        assert (res.spill_stores, res.spill_loads, res.stack_frame) == (0, 0, 0)
+        assert res.registers * 160 <= lowering.SM90_LIMITS["registers_per_sm"]
+        assert plan["dynamic_smem"] + 1024 <= 228 * 1024
+    assert (report["tied_row_attention_kernel_sm90<64,128>"].registers,
+            report["tied_row_attention_kernel_sm90<64,64>"].registers) == (138, 106)
+    assert 2 * 138 * 160 <= lowering.SM90_LIMITS["registers_per_sm"]
+    assert 2 * (99_392 + 1024) <= 228 * 1024
 
 
 # ------------------------------------------------------------ limits

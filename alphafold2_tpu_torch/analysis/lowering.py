@@ -53,7 +53,7 @@ from pathlib import Path
 from typing import Callable, Optional
 
 from alphafold2_tpu_torch.ops.cuda import build
-from alphafold2_tpu_torch.ops.cuda.axial import grad_splits, key_splits
+from alphafold2_tpu_torch.ops.cuda.axial import grad_splits, key_splits, row_width
 
 GATE = "hopper_build"
 DTYPES = ("float32", "bfloat16")
@@ -121,11 +121,14 @@ def _k1(b, h, nq, nk, d):
 def _k3(b, h, nq, nk, d):
     """K3a and K3b as their wrappers launch them: with the split of their
     long loop and operands as TMA can describe them, each followed by K3's
-    merge pass (bf16 only) where it splits; past head dim 128 the D-chunked
-    kernels of tied_row_attention_bwd.cu."""
+    merge pass (bf16 only) where it splits; past head dim 128 the kernels of
+    tied_row_attention_bwd.cu on the head dim cut into rows of
+    axial.row_width(d) (bf16 at a multiple of 64: tied_dq_kernel_sm90 /
+    tied_dkv_kernel_sm90)."""
     if d > 128:
         source = "tied_row_attention_bwd"
-        return tuple(Launch(role, source, f"af2_{source}_plan", (which, None, b, h, nq, nk, d))
+        return tuple(Launch(role, source, f"af2_{source}_plan",
+                            (which, None, b, h, nq, nk, d, row_width(d), 1))
                      for role, which in (("K3a", 0), ("K3b", 1)))
     source = "fused_attention_bwd"
     launches = []
@@ -148,9 +151,13 @@ def _k2(b, r, h, n, d):
 
 
 def _k2_bwd(b, r, h, n, d):
-    """K2's backward: dq (K2a) and dk/dv (K2b) at the fused axis F = R*D."""
+    """K2's backward: dq (K2a) and dk/dv (K2b) at the fused axis F = R*D of
+    rows of D, operands TMA can describe: bf16 at head dim 32, 64 or 128
+    with R*D up to 448 (at head dim 64) plans the Hopper kernels
+    (tied_dq_kernel_sm90, tied_dkv_kernel_sm90), a wider R*D and f32 the
+    chunked ones."""
     return tuple(Launch(role, "tied_row_attention_bwd", "af2_tied_row_attention_bwd_plan",
-                        (which, None, b, h, n, n, r * d))
+                        (which, None, b, h, n, n, r * d, d, 1))
                  for role, which in (("K2a", 0), ("K2b", 1)))
 
 
@@ -217,7 +224,8 @@ PORT_CASES = (
     Case("edge_dense_d128", (*_k1(1, 2, 130, 130, 128), *_k3(1, 2, 130, 130, 128))),
     Case("edge_sparse_block128_d128", (_k4(16, 4, 512, 128, 128), *_k5(16, 4, 512, 128, 128))),
     Case("edge_tied_rows_1280", (_k2(1, 20, 2, 48, 64),)),
-    # a head dim past 128: K1 D-chunked, K3a/K3b through the chunked backward
+    # a head dim past 128: K1 D-chunked, K3a/K3b through tied_row_attention_bwd.cu
+    # as 4 rows of 64
     Case("edge_dense_d256", (*_k1(1, 2, 130, 130, 256), *_k3(1, 2, 130, 130, 256))),
     # X's valid form at X's shape (f32 only, as X)
     Case("scale_rows_4x512", (_x(4, 512),), dtypes=("float32",)),

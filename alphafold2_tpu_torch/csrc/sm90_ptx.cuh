@@ -3,7 +3,8 @@
 // (fused_attention_bwd_sm90.cuh) and the kernels built on them (K2, K4, K5):
 // mbarriers with a spin limit, 4-D and 5-D TMA loads, wgmma with
 // shared-memory descriptors, and on the host the tensor maps over the
-// callers' strided (B, H, N, D) bf16 views.
+// callers' strided (B, H, N, D) bf16 views and their row-grouped 5-D
+// counterparts.
 //
 // Tiles land in shared memory as chunks of rows of SWB bytes (SWB = 128 for
 // a 64-column bf16 chunk, 64 for a 32-column one), swizzled by TMA at the
@@ -273,6 +274,35 @@ __host__ inline bool encode_bf16(CUtensorMap* map, const void* ptr, const Operan
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            cw * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+// The 5-D tensor map of one bf16 operand whose feature axis is R rows of d
+// (K2's (B, R, N, H, D) layout, or a (B, H, N, R*d) view read as rows),
+// through its element strides: dims {d, H, N, R, B}, box {cw, 1, 64,
+// box_rows, 1} with cw = min(d, 64), swizzled at cw * 2 bytes. One copy of
+// box_rows = R lands a 64-token tile as R K-major chunks of 64 x cw. An
+// axis of extent 1 gets its contiguous stride (its own is never used).
+__host__ inline bool encode_rows(CUtensorMap* map, const void* ptr, const Operand& op, int batch,
+                                 int heads, int n, int rows, int d, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const int cw = d < 64 ? d : 64;
+  const int extent[4] = {heads, n, rows, batch};
+  const long long given[4] = {op.sh, op.sn, op.sr, op.sb};
+  const long long contiguous[4] = {d, (long long)heads * d, (long long)n * heads * d,
+                                   (long long)rows * n * heads * d};
+  const cuuint64_t dims[5] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)n,
+                              (cuuint64_t)rows, (cuuint64_t)batch};
+  cuuint64_t strides[4];
+  for (int i = 0; i < 4; ++i)
+    strides[i] = (cuuint64_t)((extent[i] == 1 ? contiguous[i] : given[i]) * 2);
+  const cuuint32_t box[5] = {(cuuint32_t)cw, 1, 64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(ptr), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
             cw * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;

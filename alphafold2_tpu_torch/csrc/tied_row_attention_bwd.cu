@@ -1,5 +1,5 @@
 // K2's backward, and K3a/K3b at head dims past 128: the backward of
-// attention over a D-chunked feature axis, for Hopper (sm_90a).
+// attention over a row-grouped feature axis, for Hopper (sm_90a).
 //
 // Replaces, on the tied-row route, the TPU kernels alphafold2_tpu/ops/pallas/
 // axial.py `_run_dq` (:268, pallas_call :275) and `_run_dkv` (:306,
@@ -9,42 +9,58 @@
 // in place: element (b, h, n, f) of an operand lives at
 //     b*sb + h*sh + n*sn + (f / fd)*sr + f % fd
 // (attention_tile.cuh), so one kernel reads the (B, R, N, H, D) layout of
-// tied rows (f = r*D + d, fd = D) and K1's (B, H, N, D) layout at any head
-// dim (sr = 0, fd = F), with no fold copy. With s = sm_scale * tie[b] (tie
-// null: 1), the forward's row logsumexp lse (K2 or K1 with lse) and
-// dsum[b, h, i] = sum over the WHOLE fused axis of out * dO:
+// tied rows (f = r*D + d, fd = D) and K1's (B, H, N, D) layout at a head
+// dim past 128 (fd = 64, sr = 64: R = D/64 rows of 64 features; fd = F,
+// sr = 0 where D is not a multiple of 64), with no fold copy. With s =
+// sm_scale * tie[b] (tie null: 1), the forward's row logsumexp lse (K2 or
+// K1 with lse) and dsum[b, h, i] = sum over the WHOLE fused axis of out * dO:
 //
 //     P  = exp(s * Q'K'^T - lse)     (0 for a masked key, a masked query,
 //                                     a row with lse = +inf, a padded tile)
 //     dS = P o (dO'V'^T - dsum)
-//     dq = s * dS K'                 chunked_dq_kernel*: one block per 64 queries
-//     dk = s * dS^T Q'               chunked_dkv_kernel*: one block per 64 keys
+//     dq = s * dS K'                 one block per 64 queries
+//     dk = s * dS^T Q'               one block per 64 keys
 //     dv = P^T dO'
 //
 // The tie scale is applied to the f32 logits, as K2's forward applies it
 // (not to a rounded copy of q, as the TPU path does), so dq and dk both
 // carry the factor s.
 //
-// What bounds it on the H100: F = 320 (MSA depth 5, head dim 64) or more
-// does not fit one tile of shared memory or registers, so the design is
-// K2's D-chunked form: each block owns a 64-row tile and one 64-wide
-// feature chunk of its outputs; for every tile of the other side it
-// recomputes S and dO'V'^T over the whole fused axis, one 64-wide chunk of
-// each operand staged at a time, then adds its own chunk of dq (or of dk and
-// dv). The recomputation repeats F/64 times (5x at R*D 320), so the kernels
-// are bound by that arithmetic, not by bytes; at the training shape
-// (1 x 8 heads, N 64) they are bound by launch and latency more than by
-// either roofline. No atomics: every output element is summed by one thread
-// in a fixed order, so the backward is bitwise deterministic. bf16 products
-// run on the tensor cores (mma.sync m16n8k16, f32 accumulation, P and dS
-// rounded to bf16 before their products, as K3 rounds them); f32 runs on
-// the CUDA cores. Splitting the recomputation across blocks, wgmma and TMA
-// are later work.
+// What bounds it on the H100: at the tied training shape (1 x 8 heads,
+// N 64, R*D 320) the work is small (about 8 * R*D operations per (query,
+// key) pair against 2 * R*D bytes a row of each operand), so one block's
+// latency is the floor: loading its resident tile pair, then each streamed
+// pair, and the two chains of R*D / 16 products for S and dO'V'^T. The plan
+// picks one of three kernel pairs by dtype, shape and alignment alone
+// (never by retrying a failed launch):
+//
+// * bf16 at row width 32, 64 or 128 whose operands TMA can describe and
+//   whose resident tile pair plus one streamed pair fit shared memory
+//   (R*D <= 448 at row width 64): tied_dq_kernel_sm90<D, C> and
+//   tied_dkv_kernel_sm90<D, 64> (tied_row_attention_bwd_sm90.cuh). Whole
+//   (B, R, N, H, D) tiles land by 5-D TMA boxes of all R rows; S and
+//   dO'V'^T are computed once per 64-row tile pair over the whole R*D axis
+//   by wgmma, for each group of C output columns; the streamed tiles
+//   overlap the products through a ring of mbarriers. The tied training
+//   pass and K1's backward at head dim 192 or 256 take them; JAX's gate
+//   shape (R*D 512) does not fit one stage.
+// * any other bf16 problem: chunked_dq_kernel_mma / chunked_dkv_kernel_mma,
+//   one block per 64-row tile and 64-wide output chunk, each recomputing S
+//   and dO'V'^T over 64-wide feature chunks staged one at a time by
+//   ordinary loads (F/64 times the work: 8x at R*D 512), on mma.sync.
+// * f32: chunked_dq_kernel / chunked_dkv_kernel on the CUDA cores, chunked
+//   likewise, the exactness path of the small-model checks.
+//
+// No atomics: every output element is summed by one thread in a fixed
+// order, so the backward is bitwise deterministic. bf16 products run on the
+// tensor cores with f32 accumulation, P and dS rounded to bf16 before their
+// products, as K3 rounds them.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // (alphafold2_tpu_torch/ops/cuda/build.py). Bound with ctypes.
 
 #include "attention_tile.cuh"
+#include "tied_row_attention_bwd_sm90.cuh"
 
 namespace {
 
@@ -608,8 +624,8 @@ __global__ void __launch_bounds__(kThreads) chunked_dkv_kernel_mma(Grad g, int v
 }
 
 // ---------------------------------------------------------------------------
-// Launch: one block per (batch * head, 64-row tile, 64-wide output chunk);
-// dynamic shared memory set per instantiation.
+// The chunked kernels' launch: one block per (batch * head, 64-row tile,
+// 64-wide output chunk); dynamic shared memory set per instantiation.
 
 enum class Which { kDq, kDkv };
 
@@ -652,7 +668,7 @@ cudaError_t launch_kernel(K kernel, const Af2LaunchPlan& pl, cudaStream_t stream
   return cudaGetLastError();
 }
 
-// Launches the plan's kernel; with `plan_out` it only fills the plan.
+// Launches the plan's chunked kernel; with `plan_out` it only fills the plan.
 template <typename T>
 cudaError_t launch(Which which, const Grad& g, cudaStream_t stream, Af2LaunchPlan* plan_out) {
   const Af2LaunchPlan pl = plan_launch<T>(which, g);
@@ -676,17 +692,44 @@ cudaError_t launch(Which which, const Grad& g, cudaStream_t stream, Af2LaunchPla
   }
 }
 
+namespace tg = af2::sm90::tied_grad;
+
+template <int D, int C, bool kDkv>
+cudaError_t dispatch_sm90(const tg::TiedGradOperands& a, int stages, cudaStream_t stream,
+                          Af2LaunchPlan* plan_out) {
+  if (plan_out != nullptr) {
+    *plan_out = tg::plan_tied_grad<D, C>(kDkv, a.batch, a.heads, a.nq, a.nk, a.features, stages);
+    return cudaSuccess;
+  }
+  return tg::launch_tied_grad<D, C, kDkv>(a, stages, stream);
+}
+
+// The Hopper pair at row width D: dk/dv at 64 output columns a block, dq at
+// the plan's 64 or 128.
+template <int D>
+cudaError_t dispatch_columns(Which which, const tg::TiedGradOperands& a, tg::TiedGradPlan hp,
+                             cudaStream_t stream, Af2LaunchPlan* plan_out) {
+  if (which == Which::kDkv) return dispatch_sm90<D, 64, true>(a, hp.stages, stream, plan_out);
+  if (hp.columns == 128) return dispatch_sm90<D, 128, false>(a, hp.stages, stream, plan_out);
+  return dispatch_sm90<D, 64, false>(a, hp.stages, stream, plan_out);
+}
+
 // strides: 28 element strides, (batch, head, token, row group) of q, k, v,
 // dout, dq, dk and dv in that order (those of an absent output are ignored;
 // the feature stride of each must be 1). features: F, the fused feature
 // axis; row_width: fd, the features of one row group (F itself for plain
-// attention, whose row-group strides are then never used). With `plan_out`
-// it only fills the plan (strides may then be null and no pointer is read).
+// attention, whose row-group strides are then never used). `info`, when
+// given, receives 1 if the Hopper kernel (tied_dq_kernel_sm90 /
+// tied_dkv_kernel_sm90) ran, else 0. With `plan_out` it only fills the plan
+// (strides may then be null, no pointer is read, and `aligned` stands for
+// whether TMA can describe the operands; a launch finds it from the
+// pointers and strides).
 int run(Which which, int dtype, const void* q, const void* k, const void* v, const void* dout,
         const float* lse, const float* dsum, void* dq, void* dk, void* dv,
         const unsigned char* q_mask, const unsigned char* kv_mask, const float* tie_scale,
         const long long* strides, int batch, int heads, int nq, int nk, int features,
-        int row_width, float sm_scale, void* stream, Af2LaunchPlan* plan_out = nullptr) {
+        int row_width, float sm_scale, int* info, void* stream,
+        Af2LaunchPlan* plan_out = nullptr, int aligned = 0) {
   if (features < 1 || row_width < 1) return cudaErrorInvalidValue;
   Grad g;
   g.q = q;
@@ -717,6 +760,44 @@ int run(Which which, int dtype, const void* q, const void* k, const void* v, con
   g.chunks = (features + kChunk - 1) / kChunk;
   g.sm_scale = sm_scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool dkv = which == Which::kDkv;
+  tg::TiedGradOperands a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.dout = dout;
+  a.lse = lse;
+  a.dsum = dsum;
+  a.q_mask = q_mask;
+  a.kv_mask = kv_mask;
+  a.tie_scale = tie_scale;
+  a.out0 = dkv ? dk : dq;
+  a.out1 = dkv ? dv : nullptr;
+  a.qs = g.qs;
+  a.ks = g.ks;
+  a.vs = g.vs;
+  a.dos = g.dos;
+  a.o0s = dkv ? g.dks : g.dqs;
+  a.o1s = g.dvs;
+  a.batch = batch;
+  a.heads = heads;
+  a.nq = nq;
+  a.nk = nk;
+  a.features = features;
+  a.row_width = row_width;
+  a.sm_scale = sm_scale;
+  const bool tma = plan_out != nullptr ? aligned != 0 : tg::takes(a, dkv);
+  const tg::TiedGradPlan hp =
+      dtype == 1 && tma ? tg::plan_shape(dkv, batch, heads, nq, nk, features, row_width)
+                        : tg::TiedGradPlan{0, 0};
+  if (info != nullptr) info[0] = hp.columns != 0 ? 1 : 0;
+  if (hp.columns != 0) {
+    switch (row_width) {
+      case 32: return dispatch_columns<32>(which, a, hp, s, plan_out);
+      case 64: return dispatch_columns<64>(which, a, hp, s, plan_out);
+      default: return dispatch_columns<128>(which, a, hp, s, plan_out);
+    }
+  }
   if (dtype == 0) return launch<float>(which, g, s, plan_out);
   if (dtype == 1) return launch<__nv_bfloat16>(which, g, s, plan_out);
   return cudaErrorInvalidValue;
@@ -726,8 +807,8 @@ int run(Which which, int dtype, const void* q, const void* k, const void* v, con
 
 // dq (like q) from the forward's lse and dsum, both contiguous (batch,
 // heads, nq) f32; tie_scale (batch,) f32 on the device, or null. dtype: 0 =
-// float32, 1 = bfloat16. Returns the cudaError_t of the launch (0 on
-// success).
+// float32, 1 = bfloat16. info: as `run`, or null. Returns the cudaError_t
+// of the launch (0 on success).
 extern "C" int af2_tied_row_attention_bwd_dq(int dtype, const void* q, const void* k,
                                              const void* v, const void* dout, const float* lse,
                                              const float* dsum, void* dq,
@@ -735,9 +816,11 @@ extern "C" int af2_tied_row_attention_bwd_dq(int dtype, const void* q, const voi
                                              const unsigned char* kv_mask,
                                              const float* tie_scale, const long long* strides,
                                              int batch, int heads, int nq, int nk, int features,
-                                             int row_width, float sm_scale, void* stream) {
+                                             int row_width, float sm_scale, int* info,
+                                             void* stream) {
   return run(Which::kDq, dtype, q, k, v, dout, lse, dsum, dq, nullptr, nullptr, q_mask, kv_mask,
-             tie_scale, strides, batch, heads, nq, nk, features, row_width, sm_scale, stream);
+             tie_scale, strides, batch, heads, nq, nk, features, row_width, sm_scale, info,
+             stream);
 }
 
 // dk and dv (like k) instead of dq.
@@ -748,19 +831,23 @@ extern "C" int af2_tied_row_attention_bwd_dkv(int dtype, const void* q, const vo
                                               const unsigned char* kv_mask,
                                               const float* tie_scale, const long long* strides,
                                               int batch, int heads, int nq, int nk, int features,
-                                              int row_width, float sm_scale, void* stream) {
+                                              int row_width, float sm_scale, int* info,
+                                              void* stream) {
   return run(Which::kDkv, dtype, q, k, v, dout, lse, dsum, nullptr, dk, dv, q_mask, kv_mask,
-             tie_scale, strides, batch, heads, nq, nk, features, row_width, sm_scale, stream);
+             tie_scale, strides, batch, heads, nq, nk, features, row_width, sm_scale, info,
+             stream);
 }
 
 // The launch plan of the dq (which = 0) or dk/dv (which = 1) kernel at one
-// shape; touches no device. Returns 0, or cudaErrorInvalidValue for a
-// dtype, `which` or feature count the kernels do not take.
+// shape (R = features / row_width rows), given whether TMA can describe the
+// operands; touches no device. Names the instantiation a launch at that
+// shape takes. Returns 0, or cudaErrorInvalidValue for a dtype, `which`,
+// feature count or row width the kernels do not take.
 extern "C" int af2_tied_row_attention_bwd_plan(int which, int dtype, int batch, int heads,
-                                               int nq, int nk, int features,
-                                               Af2LaunchPlan* plan) {
+                                               int nq, int nk, int features, int row_width,
+                                               int aligned, Af2LaunchPlan* plan) {
   if (which != 0 && which != 1) return cudaErrorInvalidValue;
   return run(which == 0 ? Which::kDq : Which::kDkv, dtype, nullptr, nullptr, nullptr, nullptr,
              nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-             batch, heads, nq, nk, features, features, 1.f, nullptr, plan);
+             batch, heads, nq, nk, features, row_width, 1.f, nullptr, nullptr, plan, aligned);
 }

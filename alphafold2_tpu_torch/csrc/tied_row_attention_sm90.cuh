@@ -383,26 +383,6 @@ __host__ inline Af2LaunchPlan plan_tied(int batch, int rows, int heads, int nq, 
   return plan;
 }
 
-// The 5-D tensor map of one contiguous (B, R, N, H, D) bf16 operand: box
-// {CW, 1, 64, box_rows, 1}, swizzled at CW * 2 bytes.
-__host__ inline bool encode_tied(CUtensorMap* map, const void* ptr, int batch, int rows, int n,
-                                 int heads, int d, int box_rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const int cw = d < 64 ? d : 64;
-  const cuuint64_t dims[5] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)n,
-                              (cuuint64_t)rows, (cuuint64_t)batch};
-  const cuuint64_t row = 2ull * d;
-  const cuuint64_t strides[4] = {row, row * heads, row * heads * n, row * heads * n * rows};
-  const cuuint32_t box[5] = {(cuuint32_t)cw, 1, (cuuint32_t)kRows, (cuuint32_t)box_rows, 1};
-  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(ptr), dims, strides, box,
-            unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            cw * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
-}
-
 // Launches tied_row_attention_kernel_sm90<D, C> on contiguous operands
 // (p.q .. p.o, p.lse for the training forward); rows = R.
 template <int D, int C>
@@ -411,10 +391,13 @@ __host__ inline cudaError_t launch_tied(const Problem& a, int rows, int stages,
   const Af2LaunchPlan plan = plan_tied<D, C>(a.batch, rows, a.heads, a.nq, stages);
   if (!grid_fits(plan) || a.tie_scale == nullptr || stages < 1 || stages > kMaxStages)
     return cudaErrorInvalidValue;
+  // contiguous (B, R, N, H, D): element strides (batch, head, token, row)
+  const long long hd = (long long)a.heads * D;
+  const Operand oq{hd * a.nq * rows, D, hd, hd * a.nq}, okv{hd * a.nk * rows, D, hd, hd * a.nk};
   CUtensorMap tq, tk, tv;
-  if (!encode_tied(&tq, a.q, a.batch, rows, a.nq, a.heads, D, rows) ||
-      !encode_tied(&tk, a.k, a.batch, rows, a.nk, a.heads, D, rows) ||
-      !encode_tied(&tv, a.v, a.batch, rows, a.nk, a.heads, D, 1))
+  if (!encode_rows(&tq, a.q, oq, a.batch, a.heads, a.nq, rows, D, rows) ||
+      !encode_rows(&tk, a.k, okv, a.batch, a.heads, a.nk, rows, D, rows) ||
+      !encode_rows(&tv, a.v, okv, a.batch, a.heads, a.nk, rows, D, 1))
     return cudaErrorInvalidValue;
   TiedParams p;
   p.out = a.o;

@@ -12,9 +12,11 @@ here: :func:`fused_attention_reference` (forward),
 for CUDA tensors they launch the kernel or raise.
 
 Head dims: the kernels are built for 16, 32, 64 and 128 (``HEAD_DIMS``)
-and, D-chunked, for any head dim past 128 (K1 through
-``csrc/attention_tile.cuh``, K3a/K3b through
-``csrc/tied_row_attention_bwd.cu``). A head dim below 128 that is not
+and for any head dim past 128 (K1 D-chunked through
+``csrc/attention_tile.cuh``; K3a/K3b through
+``csrc/tied_row_attention_bwd.cu``, which reads the head dim as R = D/64
+rows of 64 features where D is a multiple of 64 and runs its Hopper kernels
+there in bf16, D-chunked otherwise). A head dim below 128 that is not
 built runs zero-padded up to the next built one (:func:`kernel_head_dim`,
 :func:`at_kernel_head_dim`), which is exact: zero columns add nothing to
 q.k, P.V, ds.k or ds^T.q, and ``sm_scale`` stays the caller's. So the card
@@ -504,23 +506,37 @@ def _check_grad_operands(q, k, v, dout, lse, dsum):
             raise ValueError(f"{name} must be f32 ({b}, {h}, {nq})")
 
 
-def launch_chunked_backward(which, outs, q, k, v, dout, lse, dsum, masks, tie, strides,
-                            dims, sm_scale):
-    """The D-chunked backward kernels of ``csrc/tied_row_attention_bwd.cu``
-    on CUDA tensors: ``which`` "dq" writes ``outs`` (dq,), "dkv" writes
-    (dk, dv). ``strides``: 28 element strides, (batch, head, token, row
-    group) of q, k, v, dout and the (dq, dk, dv) slots; ``dims``: (batch,
-    heads, nq, nk, features, row width); ``tie``: a (B,) f32 tensor or
-    None; ``masks``: contiguous (q_mask, kv_mask), each or None."""
+def launch_tied_backward(which, outs, q, k, v, dout, lse, dsum, masks, tie, strides, dims,
+                         sm_scale) -> int:
+    """The backward kernels of ``csrc/tied_row_attention_bwd.cu`` on CUDA
+    tensors: ``which`` "dq" writes ``outs`` (dq,), "dkv" writes (dk, dv).
+    ``strides``: 28 element strides, (batch, head, token, row group) of q,
+    k, v, dout and the (dq, dk, dv) slots; ``dims``: (batch, heads, nq, nk,
+    features, row width); ``tie``: a (B,) f32 tensor or None; ``masks``:
+    contiguous (q_mask, kv_mask), each or None. The C plan picks the Hopper
+    kernels (bf16 at row width 32, 64 or 128, operands TMA can describe, the
+    fused axis narrow enough) or the chunked ones. Returns 1 if the Hopper
+    kernel ran, else 0."""
     symbol = f"af2_tied_row_attention_bwd_{which}"
     lib = build.library("tied_row_attention_bwd")
+    info = (ctypes.c_int * 1)()
     with torch.cuda.device(q.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         code = getattr(lib, symbol)(
             _DTYPES[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(lse), _ptr(dsum),
             *(_ptr(o) for o in outs), _ptr(masks[0]), _ptr(masks[1]), _ptr(tie),
-            (ctypes.c_longlong * 28)(*strides), *dims, float(sm_scale), stream)
+            (ctypes.c_longlong * 28)(*strides), *dims, float(sm_scale), info, stream)
     build.check(lib, code, symbol)
+    return info[0]
+
+
+def row_width(d: int) -> int:
+    """The row width K3a/K3b's backward past head dim 128 groups a head dim
+    ``d`` into: 64 where ``d`` is a multiple of 64 (R = d/64 rows of 64
+    features, which the Hopper kernels of
+    ``csrc/tied_row_attention_bwd_sm90.cuh`` take), else ``d`` itself (one
+    row, the chunked kernels)."""
+    return 64 if d % 64 == 0 else d
 
 
 def _launch_backward(which, outs, slots, q, k, v, dout, lse, dsum, q_mask, kv_mask,
@@ -528,9 +544,10 @@ def _launch_backward(which, outs, slots, q, k, v, dout, lse, dsum, q_mask, kv_ma
     """Launch K3a (``which`` "dq") or K3b ("dkv") writing ``outs``;
     ``slots`` gives the kernel the strides of its (dq, dk, dv) in that order
     (stand-ins for the ones it does not write). A head dim past 128 runs the
-    D-chunked kernels (no row groups: row-group stride 0). Where the plan
-    splits the long loop, the merge pass follows. Returns 1 if the Hopper
-    kernel ran, else 0."""
+    kernels of ``csrc/tied_row_attention_bwd.cu`` on the head dim cut into
+    rows (:func:`row_width`). Where the plan splits the long loop, the merge
+    pass follows. Returns 1 if a Hopper kernel ran (past head dim 128,
+    tied_dq_kernel_sm90 / tied_dkv_kernel_sm90), else 0."""
     symbol = f"af2_fused_attention_bwd_{which}"
     masks = _cuda_operands(q, k, v, q_mask, kv_mask, symbol)
     if dout.stride(-1) != 1:
@@ -543,10 +560,12 @@ def _launch_backward(which, outs, slots, q, k, v, dout, lse, dsum, q_mask, kv_ma
             o.zero_()
         return 0
     if d > HEAD_DIMS[-1]:
-        strides = [x for t in (q, k, v, dout, *slots) for x in (*t.stride()[:3], 0)]
-        launch_chunked_backward(which, outs, q, k, v, dout, lse, dsum, masks, None, strides,
-                                (b, h, nq, nk, d, d), sm_scale)
-        return 0
+        # R = d / row rows of `row` features each, row stride `row` (0: one row)
+        row = row_width(d)
+        strides = [x for t in (q, k, v, dout, *slots)
+                   for x in (*t.stride()[:3], row if row < d else 0)]
+        return launch_tied_backward(which, outs, q, k, v, dout, lse, dsum, masks, None,
+                                    strides, (b, h, nq, nk, d, row), sm_scale)
     lib = build.library("fused_attention_bwd")
     # only the Hopper kernels (bf16, GRAD_SM90_HEAD_DIMS) split their loop
     hopper = q.dtype == torch.bfloat16 and d in GRAD_SM90_HEAD_DIMS
@@ -629,7 +648,9 @@ def fused_attention_dq(q, k, v, dout, lse, dsum, q_mask=None, kv_mask=None, sm_s
 
 
 fused_attention_dq.launches = 0
-fused_attention_dq.sm90_launches = 0  # of them, launches of dq_kernel_sm90
+# of them, launches of a Hopper kernel: dq_kernel_sm90, or past head dim 128
+# tied_dq_kernel_sm90
+fused_attention_dq.sm90_launches = 0
 
 
 def fused_attention_dkv(q, k, v, dout, lse, dsum, q_mask=None, kv_mask=None, sm_scale=1.0):
@@ -651,7 +672,8 @@ def fused_attention_dkv(q, k, v, dout, lse, dsum, q_mask=None, kv_mask=None, sm_
 
 
 fused_attention_dkv.launches = 0
-fused_attention_dkv.sm90_launches = 0  # of them, launches of dkv_kernel_sm90
+# of them, launches of dkv_kernel_sm90, or past head dim 128 tied_dkv_kernel_sm90
+fused_attention_dkv.sm90_launches = 0
 
 
 class FusedAttention(torch.autograd.Function):

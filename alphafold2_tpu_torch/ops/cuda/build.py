@@ -97,12 +97,13 @@ SIGNATURES = {
     },
     # dtype, q, k, v, dout, lse, dsum, outputs (dq | dk, dv), q_mask, kv_mask,
     # tie_scale, strides (28), batch, heads, nq, nk, features, row width,
-    # sm_scale, stream
+    # sm_scale, info (1 int out: the Hopper kernel ran), stream
     "tied_row_attention_bwd": {
-        "af2_tied_row_attention_bwd_dq": [_I] + [_P] * 11 + [_I] * 6 + [_F, _P],
-        "af2_tied_row_attention_bwd_dkv": [_I] + [_P] * 12 + [_I] * 6 + [_F, _P],
-        # which (0 dq, 1 dkv), dtype, batch, heads, nq, nk, features, plan
-        "af2_tied_row_attention_bwd_plan": [_I] * 7 + [_PLAN],
+        "af2_tied_row_attention_bwd_dq": [_I] + [_P] * 11 + [_I] * 6 + [_F, _P, _P],
+        "af2_tied_row_attention_bwd_dkv": [_I] + [_P] * 12 + [_I] * 6 + [_F, _P, _P],
+        # which (0 dq, 1 dkv), dtype, batch, heads, nq, nk, features, row
+        # width, aligned, plan
+        "af2_tied_row_attention_bwd_plan": [_I] * 9 + [_PLAN],
     },
     # dtype, q, k, v, out, lse (or null), kv_mask, idx, cnt, max_active, the
     # union lists (blocks, bits, counts, max_stages), strides, batch, heads,

@@ -16,7 +16,12 @@ per 64-key tile over the whole R*D axis for each group of 64 or 128 output
 columns (:func:`hopper_plan`; :func:`hopper_walk_reference` is the plain
 version of that walk). The backward kernels are
 ``csrc/tied_row_attention_bwd.cu``: what the TPU path runs under
-``jax.grad`` as K3a/K3b (``_run_dq``/``_run_dkv``) at head dim R*D. All
+``jax.grad`` as K3a/K3b (``_run_dq``/``_run_dkv``) at head dim R*D. In bf16
+at head dim 32, 64 or 128 with R*D up to 448 (at head dim 64) those are the
+Hopper kernels of ``csrc/tied_row_attention_bwd_sm90.cuh``, which compute S
+and dO'V'^T once per 64-row tile pair over the whole R*D axis for each
+group of 64 or 128 output columns (:func:`hopper_bwd_plan`;
+:func:`hopper_bwd_walk_reference` is the plain version of that walk). All
 read the (B, R, N, H, D) layout in place (no fold copy, unlike the TPU
 path). Plain PyTorch versions:
 :func:`tied_row_attention_reference`, :func:`tied_row_attention_lse_reference`,
@@ -51,7 +56,7 @@ from alphafold2_tpu_torch.ops.cuda.axial import (
     _DTYPES,
     _masked_softmax_weights,
     _ptr,
-    launch_chunked_backward,
+    launch_tied_backward,
     recomputed_probabilities,
 )
 
@@ -105,6 +110,51 @@ def hopper_plan(b: int, r: int, h: int, nq: int, d: int) -> Optional[dict]:
     return {"kernel": f"{HOPPER_KERNEL}<{d},{columns}>", "columns": columns,
             "groups": groups, "stages": stages, "blocks": tiles * groups, "threads": THREADS,
             "dynamic_smem": hopper_smem_bytes(f, columns, stages)}
+
+
+# The Hopper K2 backward's plan (csrc/tied_row_attention_bwd_sm90.cuh
+# plan_shape and plan_tied_grad), mirrored: 64-row blocks of one consumer
+# warpgroup and one producer warp, a resident tile pair and a ring of one or
+# two streamed pairs, C = 64 or 128 output columns a block (dq), 64 (dk/dv).
+HOPPER_BWD_KERNELS = {"dq": "tied_dq_kernel_sm90", "dkv": "tied_dkv_kernel_sm90"}
+BWD_MAX_STAGES = 2
+BWD_CONTROL_BYTES = 1152  # the ring's control block, rounded up
+
+
+def hopper_bwd_smem_bytes(features: int, stages: int) -> int:
+    """A backward block's dynamic shared memory: the resident tile pair and
+    ``stages`` streamed pairs, each tile 64 rows x R*D bf16, after up to 1
+    KB of alignment, then the control block."""
+    return 1024 + 4 * TILE * features * (1 + stages) + BWD_CONTROL_BYTES
+
+
+def hopper_bwd_plan(which: str, b: int, h: int, nq: int, nk: int, features: int,
+                    row_width: int) -> Optional[dict]:
+    """The Hopper K2 backward's launch for ``which`` ("dq" or "dkv") at a
+    bf16 shape whose operands TMA can describe, or None where the chunked
+    kernels keep it (row width outside HOPPER_HEAD_DIMS, a fused axis that
+    is not whole rows, or one too wide for the resident tile pair and one
+    streamed pair: R*D above 448 at row width 64). A pure function of the
+    shape: as many stages as shared memory holds, up to BWD_MAX_STAGES;
+    dk/dv C = 64 (four accumulators); dq C = 128 where the grid then fills a
+    wave of SMS, else 64; G = ceil(R*D / C) column groups share each 64-row
+    tile."""
+    if which not in HOPPER_BWD_KERNELS:
+        raise ValueError(f"which must be 'dq' or 'dkv', not {which!r}")
+    if row_width not in HOPPER_HEAD_DIMS or features < row_width or features % row_width:
+        return None
+    stages = next((s for s in range(BWD_MAX_STAGES, 0, -1)
+                   if hopper_bwd_smem_bytes(features, s) <= SMEM_LIMIT), 0)
+    if stages == 0:
+        return None
+    tiles = b * h * -(-(nq if which == "dq" else nk) // TILE)
+    wide = which == "dq" and features >= 128 and tiles * -(-features // 128) >= SMS
+    columns = 128 if wide else 64
+    groups = -(-features // columns)
+    return {"kernel": f"{HOPPER_BWD_KERNELS[which]}<{row_width},{columns}>",
+            "columns": columns, "groups": groups, "stages": stages,
+            "blocks": tiles * groups, "threads": THREADS,
+            "dynamic_smem": hopper_bwd_smem_bytes(features, stages)}
 
 
 def _tie_vector(tie_scale, b: int, r: int, device) -> torch.Tensor:
@@ -269,6 +319,77 @@ def tied_row_attention_dkv_reference(q, k, v, dout, lse, dsum, q_mask=None, kv_m
 tied_row_attention_dkv_reference.calls = 0
 
 
+def hopper_bwd_walk_reference(q, k, v, dout, lse, dsum, q_mask=None, kv_mask=None,
+                              sm_scale=1.0, tie_scale=None, columns=64):
+    """The plain version of the Hopper K2 backward's decomposition, (dq,
+    dk, dv): for each group of ``columns`` output columns of the fused
+    (r, d) axis (a block's), tile by tile in order along the streamed axis,
+    S and dO'V'^T of each 64 x 64 tile pair computed once over the whole
+    R*D axis; p = 2^(S * s * log2 e - lse * log2 e) with s = sm_scale *
+    tie[b] in f32 (0 for a masked key and a dead query row); ds = p * (dP -
+    dsum); p and ds rounded to q's dtype before their products, which add
+    into f32 sums. dq (a 64-query block with a live row): the key tiles with
+    a valid key, dq[:, cols] += ds K[:, cols]. dk, dv (a 64-key block with a
+    valid key): the query tiles with a live query, dv[:, cols] += p^T
+    dO[:, cols] and dk[:, cols] += ds^T Q[:, cols]. dq and dk times s at
+    the end; a block with nothing live stays 0. Only the tests call it."""
+    b, r, nq, h, d = q.shape
+    nk, f = k.shape[2], r * d
+
+    def fold(t):  # (B, R, N, H, D) -> (B, H, N, R*D), f32
+        return t.permute(0, 3, 2, 1, 4).reshape(b, h, t.shape[2], f).float()
+
+    qf, kf, vf, dof = fold(q), fold(k), fold(v), fold(dout)
+    scale = _scale(q, sm_scale, tie_scale)
+    live = torch.isfinite(lse)
+    if q_mask is not None:
+        live = live & q_mask[:, None, :]
+    lse2 = torch.where(live, lse * LOG2E, float("inf"))
+    dsum = torch.where(live, dsum, 0.0)
+    keys = (kv_mask if kv_mask is not None
+            else torch.ones((b, nk), dtype=torch.bool, device=q.device))
+    rnd = lambda x: x.to(q.dtype).float()
+    dq = torch.zeros((b, h, nq, f), device=q.device)
+    dk, dv = (torch.zeros((b, h, nk, f), device=q.device) for _ in range(2))
+
+    def tile_pair(bi, qt, kt):
+        """p and ds (H, |qt|, |kt|) of one query tile and one key tile."""
+        s2 = qf[bi, :, qt] @ kf[bi, :, kt].transpose(-1, -2) * (scale[bi] * LOG2E)
+        p = torch.exp2(s2 - lse2[bi, :, qt, None])
+        p = torch.where(keys[bi, None, None, kt] & live[bi, :, qt, None], p, 0.0)
+        dp = dof[bi, :, qt] @ vf[bi, :, kt].transpose(-1, -2)
+        return p, p * (dp - dsum[bi, :, qt, None])
+
+    for bi in range(b):
+        for c0 in range(0, f, columns):
+            cols = slice(c0, min(c0 + columns, f))
+            for q0 in range(0, nq, TILE):  # dq: a 64-query block
+                qt = slice(q0, min(q0 + TILE, nq))
+                if not live[bi, :, qt].any():
+                    continue  # every row dead: zeros, no key read
+                for k0 in range(0, nk, TILE):
+                    kt = slice(k0, min(k0 + TILE, nk))
+                    if keys[bi, kt].any():
+                        _, ds = tile_pair(bi, qt, kt)
+                        dq[bi, :, qt, cols] += rnd(ds) @ kf[bi, :, kt, cols]
+            for k0 in range(0, nk, TILE):  # dk, dv: a 64-key block
+                kt = slice(k0, min(k0 + TILE, nk))
+                if not keys[bi, kt].any():
+                    continue  # every key masked: zeros, no query read
+                for q0 in range(0, nq, TILE):
+                    qt = slice(q0, min(q0 + TILE, nq))
+                    if live[bi, :, qt].any():
+                        p, ds = tile_pair(bi, qt, kt)
+                        dv[bi, :, kt, cols] += rnd(p).transpose(-1, -2) @ dof[bi, :, qt, cols]
+                        dk[bi, :, kt, cols] += rnd(ds).transpose(-1, -2) @ qf[bi, :, qt, cols]
+
+    def unfold(t, dtype):  # (B, H, N, R*D) -> (B, R, N, H, D)
+        return t.reshape(b, h, t.shape[2], r, d).permute(0, 3, 2, 1, 4).to(dtype)
+
+    s5 = scale[:, None, None, None]
+    return unfold(dq * s5, q.dtype), unfold(dk * s5, k.dtype), unfold(dv, v.dtype)
+
+
 def tied_row_dsum(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
     """dsum[b, h, i] = sum over the whole fused (r, d) axis of out * dO, in
     f32, (B, H, Nq): not per row, since the rows share one softmax."""
@@ -363,13 +484,14 @@ def _launch_backward(which, outs, q, k, v, dout, lse, dsum, q_mask, kv_mask, sm_
     if b * r * nq * h * d == 0:
         for o in outs:
             o.zero_()
-        return
+        return 0
     slots = (outs[0], k, v) if which == "dq" else (q, *outs)
     # (batch, head, token, row group) strides of (B, R, N, H, D) operands
     strides = [x for t in (q, k, v, dout, *slots)
                for x in (t.stride(0), t.stride(3), t.stride(2), t.stride(1))]
-    launch_chunked_backward(which, outs, q, k, v, dout, lse.contiguous(), dsum.contiguous(),
-                            masks, tie, strides, (b, h, nq, k.shape[2], r * d, d), sm_scale)
+    return launch_tied_backward(which, outs, q, k, v, dout, lse.contiguous(),
+                                dsum.contiguous(), masks, tie, strides,
+                                (b, h, nq, k.shape[2], r * d, d), sm_scale)
 
 
 def _check_grad_operands(q, dout, lse, dsum):
@@ -391,13 +513,14 @@ def tied_row_attention_dq(q, k, v, dout, lse, dsum, q_mask=None, kv_mask=None,
         return tied_row_attention_dq_reference(q, k, v, dout, lse, dsum, q_mask, kv_mask,
                                                sm_scale, tie_scale)
     dq = torch.empty_like(q)
-    _launch_backward("dq", (dq,), q, k, v, dout, lse, dsum, q_mask, kv_mask, sm_scale,
-                     tie_scale)
+    tied_row_attention_dq.sm90_launches += _launch_backward(
+        "dq", (dq,), q, k, v, dout, lse, dsum, q_mask, kv_mask, sm_scale, tie_scale)
     tied_row_attention_dq.launches += 1
     return dq
 
 
 tied_row_attention_dq.launches = 0
+tied_row_attention_dq.sm90_launches = 0  # of them, launches of tied_dq_kernel_sm90
 
 
 def tied_row_attention_dkv(q, k, v, dout, lse, dsum, q_mask=None, kv_mask=None,
@@ -409,13 +532,14 @@ def tied_row_attention_dkv(q, k, v, dout, lse, dsum, q_mask=None, kv_mask=None,
         return tied_row_attention_dkv_reference(q, k, v, dout, lse, dsum, q_mask, kv_mask,
                                                 sm_scale, tie_scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch_backward("dkv", (dk, dv), q, k, v, dout, lse, dsum, q_mask, kv_mask, sm_scale,
-                     tie_scale)
+    tied_row_attention_dkv.sm90_launches += _launch_backward(
+        "dkv", (dk, dv), q, k, v, dout, lse, dsum, q_mask, kv_mask, sm_scale, tie_scale)
     tied_row_attention_dkv.launches += 1
     return dk, dv
 
 
 tied_row_attention_dkv.launches = 0
+tied_row_attention_dkv.sm90_launches = 0  # of them, launches of tied_dkv_kernel_sm90
 
 
 class TiedRowAttention(torch.autograd.Function):

@@ -80,13 +80,14 @@ def synthesize_msa(seq_tokens: np.ndarray, depth: int, seed: int = 0,
     return msa
 
 
-def build_model(cfg: Config, mds_iters: int = 200):
+def build_model(cfg: Config, mds_iters: int = 200, mds_seed: Optional[int] = None):
     """The End2EndModel a config describes (compute dtype bf16 when
     ``model.bfloat16``), with parameters on the CPU in float32. It takes
     the fields JAX's ``predict`` (``alphafold2_tpu/predict.py:137-143``)
     and ``ServeEngine`` (``serve/engine.py:306-315``) pass: ``gelu_exact``,
     ``sparse_self_attn``, ``reversible`` and ``scan_layers`` are training
-    options that serving ignores there and here."""
+    options that serving ignores there and here. ``mds_seed`` keys the MDS
+    start (default ``cfg.train.seed``, as the serving engines key it)."""
     from alphafold2_tpu_torch.train.end2end import End2EndModel
 
     m = cfg.model
@@ -98,7 +99,8 @@ def build_model(cfg: Config, mds_iters: int = 200):
     return End2EndModel(
         dim=m.dim, depth=m.depth, heads=m.heads, dim_head=m.dim_head,
         max_seq_len=m.max_seq_len, mds_iters=mds_iters,
-        msa_tie_row_attn=m.msa_tie_row_attn, mds_seed=cfg.train.seed,
+        msa_tie_row_attn=m.msa_tie_row_attn,
+        mds_seed=cfg.train.seed if mds_seed is None else mds_seed,
         dtype=torch.bfloat16 if m.bfloat16 else torch.float32, remat=m.remat,
     )
 
@@ -135,8 +137,10 @@ def predict(
     device: Optional[Union[str, torch.device]] = None,
 ) -> Prediction:
     """Full prediction on the end-to-end model: random weights from
-    ``cfg.train.seed`` unless a ``state_dict`` (convert.py) is given. Runs on the
-    CUDA card unless ``device="cpu"``."""
+    ``cfg.train.seed`` unless a ``state_dict`` (convert.py) is given.
+    ``seed`` drives the synthesized MSA and keys the MDS start, as JAX's
+    ``mds_key=jax.random.key(seed)`` does. Runs on the CUDA card unless
+    ``device="cpu"``."""
     dev = resolve_device(device)
     L = len(seq)
     if 3 * L > cfg.model.max_seq_len:
@@ -147,7 +151,7 @@ def predict(
     depth = msa_depth if msa_depth is not None else cfg.data.msa_depth
     if depth > constants.MAX_NUM_MSA:
         raise ValueError(f"msa_depth={depth} exceeds MAX_NUM_MSA={constants.MAX_NUM_MSA}")
-    model = build_model(cfg)
+    model = build_model(cfg, mds_seed=seed)
     if state_dict is not None:
         model.load_state_dict(state_dict)
     else:

@@ -40,7 +40,10 @@ class ServeRequest:
 @dataclasses.dataclass
 class ServeResult:
     """One request's outcome: ``status`` "ok" (arrays set) or "error"
-    (the dispatch raised; ``error`` holds the message)."""
+    (the dispatch raised; ``error`` holds the message). An error is
+    converted, never propagated, so a batch partner's poison pill cannot
+    crash the caller. ``latency_s`` is ``queue_wait_s + dispatch_s``, as
+    JAX's engine reports it."""
 
     seq: str
     bucket: int
@@ -48,7 +51,9 @@ class ServeResult:
     backbone: Optional[np.ndarray] = None  # (L, 3, 3) N/CA/C
     weights: Optional[np.ndarray] = None  # (3L, 3L) distogram confidence
     distogram: Optional[np.ndarray] = None  # (3L, 3L, K) logits if requested
-    latency_s: float = 0.0  # wall time of the dispatch that carried it
+    latency_s: float = 0.0  # queue wait + dispatch: what a caller observes
+    queue_wait_s: float = 0.0  # from the start of predict_many to its dispatch's start
+    dispatch_s: float = 0.0  # wall time of the dispatch that carried it
     status: str = "ok"
     error: Optional[str] = None
 
@@ -142,11 +147,16 @@ class ServeEngine:
                 picked["distogram"] = out["distogram"]
             return {k: v.float().cpu().numpy() for k, v in picked.items()}
 
-    def _dispatch(self, bucket: int, reqs: list) -> list:
+    def _dispatch(self, bucket: int, reqs: list, arrival: float) -> list:
+        """One chunk of a bucket: featurize, run, unpad. ``arrival`` (a
+        ``time.perf_counter`` stamp, the start of ``predict_many``) is the
+        queue wait's origin. Any exception becomes per-request error
+        results."""
         batch = self._padded_batch(len(reqs))
         self.counters["batches"] += 1
         self.counters["padded_slots"] += batch - len(reqs)
         t0 = time.perf_counter()
+        wait = max(0.0, t0 - arrival)
         try:
             items = []
             for r in reqs:
@@ -156,11 +166,12 @@ class ServeEngine:
                 ))
             items += [self._dummy_item(bucket) for _ in range(batch - len(reqs))]
             out = self._run(bucket, items)
-        except (RuntimeError, ValueError, NotImplementedError) as e:
+        except Exception as e:  # noqa: BLE001 — converted per request, as JAX does
             msg = f"{type(e).__name__}: {e}"
             dt = time.perf_counter() - t0
-            return [ServeResult(seq=r.seq, bucket=bucket, latency_s=dt,
-                                status="error", error=msg) for r in reqs]
+            return [ServeResult(seq=r.seq, bucket=bucket, latency_s=wait + dt,
+                                queue_wait_s=wait, dispatch_s=dt, status="error", error=msg)
+                    for r in reqs]
         dt = time.perf_counter() - t0
         results = []
         disto = out.get("distogram")
@@ -171,13 +182,14 @@ class ServeEngine:
                 seq=r.seq, bucket=bucket, atom14=atom14, backbone=atom14[:, :3],
                 weights=out["weights"][slot, : 3 * L, : 3 * L],
                 distogram=disto[slot, : 3 * L, : 3 * L] if disto is not None else None,
-                latency_s=dt,
+                latency_s=wait + dt, queue_wait_s=wait, dispatch_s=dt,
             ))
         return results
 
     def predict_many(self, requests: Sequence[Union[str, ServeRequest]]) -> list:
         """Serve a request list: group by bucket, batch, dispatch, unpad.
-        Results come back in input order."""
+        Results come back in input order. Every request's queue wait counts
+        from the start of this call, as in JAX's engine."""
         reqs = [r if isinstance(r, ServeRequest) else ServeRequest(seq=r)
                 for r in requests]
         self.counters["requests"] += len(reqs)
@@ -187,11 +199,13 @@ class ServeEngine:
                 raise ValueError(f"request {i} has an empty sequence")
             by_bucket.setdefault(bucket_for(len(r.seq), self.buckets), []).append(i)
         results: list = [None] * len(reqs)
+        arrival = time.perf_counter()  # the queue wait's origin
         for bucket in sorted(by_bucket):
             order = by_bucket[bucket]
             for lo in range(0, len(order), self.max_batch):
                 chunk = order[lo: lo + self.max_batch]
-                for idx, res in zip(chunk, self._dispatch(bucket, [reqs[i] for i in chunk])):
+                for idx, res in zip(chunk, self._dispatch(bucket, [reqs[i] for i in chunk],
+                                                          arrival)):
                     results[idx] = res
         return results
 

@@ -49,20 +49,28 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
               rejected; two runs bit-identical; SDPA's backward as the
               yardstick;
 3b. head dims — K1, K1 with lse, K3a and K3b at head dims 48 (zero-padded
-              to 64) and 256 (D-chunked) against their plain versions, f32
-              and bf16; the autograd route through the kernels alone, bit
-              for bit the direct calls;
-3c. tied    — K2 with the row logsumexp and K2's backward (dq; dk and dv,
-              csrc/tied_row_attention_bwd.cu) against their plain versions
-              at the tied training shape (1x5x64x8x64, R*D 320) and JAX's
-              gate shape (1x8x256x4x64, R*D 512), f32 and bf16, with ragged
-              rows and masked columns, bf16 K2 with lse on
-              tied_row_attention_kernel_sm90 and repeating bit for bit
-              (out and lse); a negative control per kernel that
-              drops the last 64-wide feature chunk; two backward runs
-              bit-identical; the autograd route through the kernels alone;
-              SDPA on the folded (B, H, N, R*D) tensors as the yardstick,
-              with the backend that takes that head dim named;
+              to 64) and 256 (K1 D-chunked; K3a/K3b as 4 rows of 64, bf16
+              on tied_dq_kernel_sm90 / tied_dkv_kernel_sm90) against their
+              plain versions, f32 and bf16; the autograd route through the
+              kernels alone, bit for bit the direct calls;
+3c. tied    — K2's backward plans (check_k2_bwd_plans: every Hopper
+              instantiation tied_dq_kernel_sm90<D, C> and
+              tied_dkv_kernel_sm90<D, 64> at one shape each, as
+              tied_row.hopper_bwd_plan gives it; R*D 512, unaligned operands
+              and f32 on the chunked kernels); K2 with the row logsumexp and
+              K2's backward (dq; dk and dv, csrc/tied_row_attention_bwd.cu)
+              against their plain versions at the tied training shape
+              (1x5x64x8x64, R*D 320) and JAX's gate shape (1x8x256x4x64,
+              R*D 512), f32 and bf16, with ragged rows and masked columns,
+              bf16 K2 with lse on tied_row_attention_kernel_sm90 and
+              repeating bit for bit (out and lse), bf16 K2's backward on
+              its Hopper kernels wherever the plan takes the shape (the
+              training shape; R*D 512 stays chunked); a negative control
+              per kernel that drops the last 64-wide feature chunk; two
+              backward runs bit-identical; the autograd route through the
+              kernels alone; SDPA on the folded (B, H, N, R*D) tensors as
+              the yardstick, with the backend that takes that head dim
+              named;
 4. serve    — a small model must agree between the card and the CPU's
               plain versions; the refiner's streamed edge attention must
               agree with its dense path on the card (f32, threshold
@@ -87,7 +95,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
               CPU; one step under torch.profiler; then all of it again with
               model.msa_tie_row_attn=True (K2 with lse, every launch on
               tied_row_attention_kernel_sm90, and K2's backward on every
-              MSA row pass);
+              MSA row pass, every launch on tied_dq_kernel_sm90 and
+              tied_dkv_kernel_sm90);
 6. sparse   — the block-sparse kernels K4 (forward, with and without the
               row logsumexp), K5a (dq) and K5b (dk, dv) against their plain
               versions per tensor at the sparse training path's pair pass
@@ -117,8 +126,9 @@ per step; ``phase_k5_time`` K5a and K5b (and K4, with K1 with lse on the
 dense problem of the same shape) on the sparse training pass and at N 512
 beside SDPA with the layout mask, per pass and per sparse step;
 ``phase_k2_time`` K2, K2 with lse and K2's backward on the tied passes
-beside SDPA, with device times; ``phase_registers`` every Hopper
-instantiation's registers and spills. ``chip_compare.sh`` runs them, or
+beside SDPA, with device times; ``phase_d256_time`` K1 with lse, K3a and
+K3b at head dim 256 beside SDPA's forward and backward;
+``phase_registers`` every Hopper instantiation's registers and spills. ``chip_compare.sh`` runs them, or
 any other phases, for two checkouts in turns.
 
 Prints the card's name and power limit, then a JSON line describing every
@@ -231,7 +241,8 @@ def _log_gate(records, summary):
 
 
 def _sm90_resources(sources=("fused_attention", "fused_attention_bwd", "block_sparse_attention",
-                             "block_sparse_attention_bwd", "tied_row_attention")):
+                             "block_sparse_attention_bwd", "tied_row_attention",
+                             "tied_row_attention_bwd")):
     """{instantiation: (registers, spill stores, spill loads)} of every
     Hopper kernel (a name with ``_sm90``) in the build reports of
     ``sources``, as ptxas gave them."""
@@ -249,8 +260,8 @@ def _sm90_resources(sources=("fused_attention", "fused_attention_bwd", "block_sp
 
 def phase_registers():
     """Log every Hopper instantiation's registers and spills (the build
-    reports of K1, K2, K3, K4 and K5), so chip_compare.sh can set a parent's
-    beside this tree's."""
+    reports of K1, K2, K2's backward, K3, K4 and K5), so chip_compare.sh can
+    set a parent's beside this tree's."""
     for name, (regs, stores, loads) in _sm90_resources().items():
         log(f"[registers] {name}: {regs} registers, spills {stores}/{loads} B")
 
@@ -648,6 +659,78 @@ def check_k2_plans():
     unaligned = plan(K2_PLANS["serve"][0], 0).kernel.decode()
     require(unaligned == "attention_kernel_mma<64>",
             f"K2 plan with unaligned operands: {unaligned}")
+
+
+# K2's backward at its shapes (b, h, nq, nk, features, row width) by their
+# plans, dq then dk/dv: the tied training pass, JAX's gate case (R*D 512:
+# the chunked kernels), a serving-size grid (dq at 128 columns), K3 at head
+# dims 256 and 192 as rows of 64, and one shape for each other Hopper
+# instantiation (row widths 32 and 128, dq at 64 and 128 columns)
+K2_BWD_PLANS = {
+    "train": ((1, 8, 64, 64, 320, 64), ("tied_dq_kernel_sm90<64,64>",
+                                        "tied_dkv_kernel_sm90<64,64>")),
+    "gate": ((1, 4, 256, 256, 512, 64), ("chunked_dq_kernel_mma<64>",
+                                         "chunked_dkv_kernel_mma<64>")),
+    "serve-size grid": ((4, 8, 128, 128, 320, 64), ("tied_dq_kernel_sm90<64,128>",
+                                                    "tied_dkv_kernel_sm90<64,64>")),
+    "K3 head dim 256": ((2, 4, 200, 150, 256, 64), ("tied_dq_kernel_sm90<64,64>",
+                                                    "tied_dkv_kernel_sm90<64,64>")),
+    "K3 head dim 192": ((1, 2, 130, 130, 192, 64), ("tied_dq_kernel_sm90<64,64>",
+                                                    "tied_dkv_kernel_sm90<64,64>")),
+    "d32, 64 columns": ((3, 2, 100, 100, 256, 32), ("tied_dq_kernel_sm90<32,64>",
+                                                    "tied_dkv_kernel_sm90<32,64>")),
+    "d32, 128 columns": ((16, 8, 70, 70, 128, 32), ("tied_dq_kernel_sm90<32,128>",
+                                                    "tied_dkv_kernel_sm90<32,64>")),
+    "d128, 64 columns": ((2, 2, 70, 70, 256, 128), ("tied_dq_kernel_sm90<128,64>",
+                                                    "tied_dkv_kernel_sm90<128,64>")),
+    "d128, 128 columns": ((8, 8, 128, 128, 256, 128), ("tied_dq_kernel_sm90<128,128>",
+                                                       "tied_dkv_kernel_sm90<128,64>")),
+}
+
+
+def check_k2_bwd_plans():
+    """K2's backward C plan (bf16, operands TMA can describe) must name the
+    kernels K2_BWD_PLANS gives each shape, and agree with
+    tied_row.hopper_bwd_plan (blocks, threads, shared memory) where those
+    are the Hopper kernels; unaligned operands and f32 keep the chunked
+    kernels."""
+    import ctypes
+
+    from alphafold2_tpu_torch.ops.cuda import build, tied_row
+
+    lib = build.library("tied_row_attention_bwd")
+
+    def plan(which, shape, dtype=1, aligned=1):
+        out = build.LaunchPlan()
+        code = lib.af2_tied_row_attention_bwd_plan(which, dtype, *shape, aligned,
+                                                   ctypes.byref(out))
+        require(code == 0, f"K2 backward plan at {shape}: code {code}")
+        return out
+
+    for label, (shape, kernels) in K2_BWD_PLANS.items():
+        for which, name, kernel in ((0, "dq", kernels[0]), (1, "dkv", kernels[1])):
+            got = plan(which, shape)
+            taken = got.kernel.decode()
+            require(taken == kernel, f"K2 {name} plan at {label} {shape}: {taken}, not {kernel}")
+            mirror = tied_row.hopper_bwd_plan(name, *shape)
+            if kernel.startswith(tied_row.HOPPER_BWD_KERNELS[name]):
+                require(mirror is not None and mirror["kernel"] == taken
+                        and (mirror["blocks"], mirror["threads"], mirror["dynamic_smem"])
+                        == (got.blocks, got.threads, got.dynamic_smem),
+                        f"K2 {name} plan at {label}: the C plan ({got.blocks}, {got.threads}, "
+                        f"{got.dynamic_smem}) differs from hopper_bwd_plan {mirror}")
+            else:
+                require(mirror is None,
+                        f"K2 {name} plan at {label}: hopper_bwd_plan takes it, C does not")
+            log(f"[kernels] K2 {name} plan {label} {shape}: {taken}, {got.blocks} blocks of "
+                f"{got.threads}, {got.dynamic_smem} bytes of shared memory")
+    train = K2_BWD_PLANS["train"][0]
+    for which, kernel in ((0, "chunked_dq_kernel_mma<64>"), (1, "chunked_dkv_kernel_mma<64>")):
+        taken = plan(which, train, aligned=0).kernel.decode()
+        require(taken == kernel, f"K2 backward plan with unaligned operands: {taken}")
+    for which, kernel in ((0, "chunked_dq_kernel<64>"), (1, "chunked_dkv_kernel<64>")):
+        taken = plan(which, train, dtype=0).kernel.decode()
+        require(taken == kernel, f"K2 backward plan in f32: {taken}")
 
 
 def _errors(out, ref, dtype):
@@ -1069,19 +1152,9 @@ def k3_case(label, b, h, nq, nk, d, dtype, q_mask=None, kv_mask=None, reps=3,
         del short, sk, sv
         if dtype == torch.bfloat16:
             merge_checks(label, args, (rq, rk, rv))
-    qv = q_mask.sum(1) if q_mask is not None else torch.full((b,), nq, device="cuda")
-    kvn = kv_mask.sum(1) if kv_mask is not None else torch.full((b,), nk, device="cuda")
-    pairs = h * float((qv * kvn).sum())
-    es = q.element_size()
-    reads = (2 * b * h * nq * d + 2 * b * h * nk * d) * es + (
-        (b * nq if q_mask is not None else 0) + (b * nk if kv_mask is not None else 0))
-    rows_lse = 4 * b * h * nq
-    # the forward reads q, k, v and writes out (as many bytes as q, k, v, dO)
-    fwd.update(_bound(4.0 * d * pairs, reads + rows_lse, dtype))
-    # K3a: q.k recompute, dO.v, ds.k; K3b: q.k recompute, dO.v, p^T dO, ds^T q
-    row_q.update(_bound(6.0 * d * pairs, reads + 2 * rows_lse + b * h * nq * d * es, dtype))
-    row_kv.update(_bound(8.0 * d * pairs, reads + 2 * rows_lse + 2 * b * h * nk * d * es,
-                         dtype))
+    for r, bound in zip((fwd, row_q, row_kv),
+                        _k3_bounds(b, h, nq, nk, d, q_mask, kv_mask, dtype)):
+        r.update(bound)
     if reps:
         fwd["ms"] = cuda_ms(forward, reps)
         fwd["host_us"] = _host_us(forward)
@@ -1112,6 +1185,25 @@ def k3_case(label, b, h, nq, nk, d, dtype, q_mask=None, kv_mask=None, reps=3,
     del q, k, v, do, out, lse, dq, dk, dv, rq, rk, rv
     torch.cuda.empty_cache()
     return [fwd, row_q, row_kv]
+
+
+def _k3_bounds(b, h, nq, nk, d, q_mask, kv_mask, dtype):
+    """The bounds (_bound) of K1 with lse, K3a and K3b on one problem: each
+    of q, k, v, dO (and the masks) read once, each output written once."""
+    import torch
+
+    qv = q_mask.sum(1) if q_mask is not None else torch.full((b,), nq, device="cuda")
+    kvn = kv_mask.sum(1) if kv_mask is not None else torch.full((b,), nk, device="cuda")
+    pairs = h * float((qv * kvn).sum())
+    es = torch.finfo(dtype).bits // 8
+    reads = (2 * b * h * nq * d + 2 * b * h * nk * d) * es + (
+        (b * nq if q_mask is not None else 0) + (b * nk if kv_mask is not None else 0))
+    rows_lse = 4 * b * h * nq
+    # the forward reads q, k, v and writes out (as many bytes as q, k, v, dO);
+    # K3a: q.k recompute, dO.v, ds.k; K3b: q.k recompute, dO.v, p^T dO, ds^T q
+    return (_bound(4.0 * d * pairs, reads + rows_lse, dtype),
+            _bound(6.0 * d * pairs, reads + 2 * rows_lse + b * h * nq * d * es, dtype),
+            _bound(8.0 * d * pairs, reads + 2 * rows_lse + 2 * b * h * nk * d * es, dtype))
 
 
 def merge_checks(label, args, refs):
@@ -1330,6 +1422,7 @@ def head_dim_case(d, dtype, gen):
     import torch
 
     from alphafold2_tpu_torch.ops.cuda import axial
+    from alphafold2_tpu_torch.ops.cuda import tied_row as tr
 
     b, h, nq, nk = 2, 4, 200, 150
     label = f"head dim {d} (2x4, 200x150)"
@@ -1342,12 +1435,23 @@ def head_dim_case(d, dtype, gen):
              axial.fused_attention_dq_reference, axial.fused_attention_dkv_reference)
     wrappers = (axial.fused_attention, axial.fused_attention_dq, axial.fused_attention_dkv)
     calls, launches = [f.calls for f in plain], [f.launches for f in wrappers]
+    hopper = [f.sm90_launches for f in wrappers[1:]]
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     out = axial.fused_attention(*leaves, q_mask=qm, kv_mask=km, sm_scale=scale)
     out.backward(do)
     torch.cuda.synchronize()
     ran = [f.launches - n for f, n in zip(wrappers, launches)]
     require(ran == [1, 1, 1], f"{label}: the autograd route launched {ran} (K1, K3a, K3b)")
+    if d > axial.HEAD_DIMS[-1]:
+        # past head dim 128 K3a/K3b run tied_row_attention_bwd.cu on rows of
+        # 64, on its Hopper kernels wherever their plan takes the shape
+        plans = [tr.hopper_bwd_plan(w, b, h, nq, nk, d, axial.row_width(d))
+                 if dtype == torch.bfloat16 else None for w in ("dq", "dkv")]
+        hop = [f.sm90_launches - n for f, n in zip(wrappers[1:], hopper)]
+        require(hop == [int(x is not None) for x in plans],
+                f"{label}: the backward ran {hop} Hopper launches, plans {plans}")
+        log(f"[head dims] {label} {rows[0]['dtype']}: K3a/K3b on "
+            f"{[x['kernel'] if x else 'the chunked kernels' for x in plans]}")
     require([f.calls for f in plain] == calls, f"{label}: a plain version ran on the card")
     out2, lse = axial.fused_attention_lse(q, k, v, qm, km, scale)
     args = (q, k, v, do, lse, axial.attention_dsum(out2, do), qm, km, scale)
@@ -1467,9 +1571,19 @@ def tied_case(label, b, r, n, h, d, dtype, gen, reps=3, library=False):
              ref_out, dtype, tile="feature")
     dsum = tr.tied_row_dsum(out, do)
     args = (q, k, v, do, lse, dsum, mask, mask, scale, tie)
+    bwd = (tr.tied_row_attention_dq, tr.tied_row_attention_dkv)
+    plans = [tr.hopper_bwd_plan(w, b, h, n, n, r * d, d) if dtype == torch.bfloat16 else None
+             for w in ("dq", "dkv")]
+    before = [f.sm90_launches for f in bwd]
     dq = tr.tied_row_attention_dq(*args)
     dk, dv = tr.tied_row_attention_dkv(*args)
     torch.cuda.synchronize()
+    hop = [f.sm90_launches - n0 for f, n0 in zip(bwd, before)]
+    require(hop == [int(x is not None) for x in plans],
+            f"{label}: K2's backward ran {hop} Hopper launches, plans {plans}")
+    log(f"[tied] {label}: K2's backward on " + ", ".join(
+        f"{x['kernel']} ({x['groups']} column group(s) of {x['columns']}, {x['stages']} "
+        f"stage(s), {x['blocks']} blocks)" if x else "the chunked kernel" for x in plans))
     rq = tr.tied_row_attention_dq_reference(*args)
     rk, rv = tr.tied_row_attention_dkv_reference(*args)
     row_q = _compare(label, "tied_row_attention_bwd_dq", dq, rq, dtype)
@@ -1492,11 +1606,14 @@ def tied_case(label, b, r, n, h, d, dtype, gen, reps=3, library=False):
     # the autograd route: K2 (lse), then both backward kernels, nothing else
     wrappers = (tr.tied_row_attention, tr.tied_row_attention_dq, tr.tied_row_attention_dkv)
     before = [f.launches for f in wrappers]
+    hopper = [f.sm90_launches for f in bwd]
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     tr.tied_row_attention(*leaves, q_mask=mask, kv_mask=mask, sm_scale=scale,
                           tie_scale=tie).backward(do)
     ran = [f.launches - n0 for f, n0 in zip(wrappers, before)]
     require(ran == [1, 1, 1], f"{label}: the autograd route launched {ran}")
+    require([f.sm90_launches - n0 for f, n0 in zip(bwd, hopper)] == hop,
+            f"{label}: the autograd route's backward left the Hopper kernels")
     require(all(torch.equal(a.grad, x) for a, x in zip(leaves, (dq, dk, dv))),
             f"{label}: the autograd route differs from the direct kernel calls")
     log(f"[tied] {label} {fwd['dtype']}: autograd route bit-identical to the direct calls")
@@ -1546,10 +1663,12 @@ def tied_case(label, b, r, n, h, d, dtype, gen, reps=3, library=False):
 
 
 def phase_tied():
-    """K2 with lse and K2's backward at the tied training shape and the
-    gate's shape, f32 and bf16."""
+    """K2's backward plans (check_k2_bwd_plans), then K2 with lse and K2's
+    backward at the tied training shape and the gate's shape, f32 and
+    bf16."""
     import torch
 
+    check_k2_bwd_plans()
     gen = torch.Generator(device="cuda").manual_seed(6)
     rows = []
     for dt in (torch.bfloat16, torch.float32):
@@ -1624,7 +1743,8 @@ def phase_train(sparse=False, tied=False):
     for fn in kernels.values():
         fn.launches = 0
     for fn in (axial.fused_attention, axial.fused_attention_dq, axial.fused_attention_dkv,
-               tied_row.tied_row_attention,
+               tied_row.tied_row_attention, tied_row.tied_row_attention_dq,
+               tied_row.tied_row_attention_dkv,
                block_sparse.block_sparse_attention, block_sparse.block_sparse_attention_lse,
                block_sparse.block_sparse_attention_dq, block_sparse.block_sparse_attention_dkv):
         fn.sm90_launches = 0
@@ -1638,7 +1758,8 @@ def phase_train(sparse=False, tied=False):
     launches = {name: fn.launches for name, fn in kernels.items()}
     sm90 = {name: kernels[name].sm90_launches
             for name in ("fused_attention", "fused_attention_bwd_dq", "fused_attention_bwd_dkv",
-                         "tied_row_attention", "block_sparse_attention",
+                         "tied_row_attention", "tied_row_attention_bwd_dq",
+                         "tied_row_attention_bwd_dkv", "block_sparse_attention",
                          "block_sparse_attention (no lse)",
                          "block_sparse_attention_bwd_dq", "block_sparse_attention_bwd_dkv")}
     launches["block_sparse_attention"] += launches.pop("block_sparse_attention (no lse)")
@@ -1684,6 +1805,10 @@ def phase_train(sparse=False, tied=False):
         require(launches[name] == tied_calls * steps, f"{name} launches per step")
     require(sm90["tied_row_attention"] == launches["tied_row_attention"],
             "a K2 launch of the tied training path did not run tied_row_attention_kernel_sm90")
+    for name, kernel in (("tied_row_attention_bwd_dq", "tied_dq_kernel_sm90"),
+                         ("tied_row_attention_bwd_dkv", "tied_dkv_kernel_sm90")):
+        require(sm90[name] == launches[name],
+                f"a {name} launch of the tied training path did not run {kernel}")
     for name in ("block_sparse_attention", "block_sparse_attention_bwd_dq",
                  "block_sparse_attention_bwd_dkv"):
         require(launches[name] == sparse_calls * steps, f"{name} launches per step")
@@ -2300,6 +2425,77 @@ def phase_k2_time(reps=10):
 
 
 
+# K1 and K3 at head dim 256 (b, h, nq, nk): head_dim_case's problem, and the
+# training pair axial pass with model.dim_head 256
+D256_TIME_CASES = {"head dim 256 (2x4, 200x150)": (2, 4, 200, 150),
+                   "pair axial at head dim 256 (128x8, 128x128)": (128, 8, 128, 128)}
+
+
+def phase_d256_time(reps=10):
+    """K1 with lse, K3a and K3b at head dim 256, bf16, operands laid out as
+    the projections lay them out, beside SDPA's forward and its whole
+    backward on the same masked problem: a call's time by CUDA events over
+    ``reps`` calls, its device time under torch.profiler and its host time;
+    each one's bound and its plain version's time. No checks:
+    phase_head_dims holds them to their plain versions. Uses only the
+    public wrappers, so chip_compare.sh can run it on a parent's kernels.
+    Returns {label: row}."""
+    import torch
+    import torch.nn.functional as F
+
+    from alphafold2_tpu_torch.ops.cuda import axial
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows = {}
+    d = 256
+    for label, (b, h, nq, nk) in D256_TIME_CASES.items():
+        if b == 2:
+            qm, km = _prefix(nq, [200, 123]), _prefix(nk, [150, 77])
+        else:
+            qm, km = _train_masks("pair axial (128x8, 128x128)")
+        q, k, v, do = _grad_operands(b, h, nq, nk, d, torch.bfloat16, gen, strided=True)
+        scale = d**-0.5
+        out, lse = axial.fused_attention_lse(q, k, v, qm, km, scale)
+        args = (q, k, v, do, lse, axial.attention_dsum(out, do), qm, km, scale)
+        am = km[:, None, None, :]
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = F.scaled_dot_product_attention(*leaves, attn_mask=am, scale=scale)
+        calls = {"lse": lambda: axial.fused_attention_lse(q, k, v, qm, km, scale),
+                 "dq": lambda: axial.fused_attention_dq(*args),
+                 "dkv": lambda: axial.fused_attention_dkv(*args),
+                 "sdpa_fwd": lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am,
+                                                                    scale=scale),
+                 "sdpa_bwd": lambda: torch.autograd.grad(o, leaves, do, retain_graph=True)}
+        row = {}
+        for name, fn in calls.items():
+            row[f"{name}_ms"] = cuda_ms(fn, reps)
+            row[f"{name}_device_ms"] = _device_ms(fn)
+            row[f"{name}_host_us"] = _host_us(fn)
+        plain = (lambda: axial.fused_attention_lse_reference(q, k, v, qm, km, scale),
+                 lambda: axial.fused_attention_dq_reference(*args),
+                 lambda: axial.fused_attention_dkv_reference(*args))
+        bounds = _k3_bounds(b, h, nq, nk, d, qm, km, torch.bfloat16)
+        for name, fn, bound in zip(("lse", "dq", "dkv"), plain, bounds):
+            row[f"{name}_plain_ms"] = cuda_ms(fn, reps=1)
+            row[f"{name}_bound_ms"], row[f"{name}_bound_by"] = bound["bound_ms"], bound["bound_by"]
+        rows[label] = row
+        names = {"lse": "K1 with lse", "dq": "K3a", "dkv": "K3b", "sdpa_fwd": "SDPA forward",
+                 "sdpa_bwd": "SDPA backward"}
+        log(f"[d256 time] {label}: " + "; ".join(
+            f"{names[m]} {row[f'{m}_ms']:.4f} ms, device {row[f'{m}_device_ms']:.4f} ms, host "
+            f"{row[f'{m}_host_us']:.1f} us a call" for m in calls))
+        log(f"[d256 time] {label}, bound (plain) ms: " + "; ".join(
+            f"{names[m]} {row[f'{m}_bound_ms']:.4f} ({row[f'{m}_bound_by']}; plain "
+            f"{row[f'{m}_plain_ms']:.3f})" for m in ("lse", "dq", "dkv")))
+        log(f"[d256 time] {label}, device ms: K3a + K3b "
+            f"{row['dq_device_ms'] + row['dkv_device_ms']:.4f}, SDPA backward "
+            f"{row['sdpa_bwd_device_ms']:.4f}; K1 with lse {row['lse_device_ms']:.4f}, SDPA "
+            f"forward {row['sdpa_fwd_device_ms']:.4f}")
+        del q, k, v, do, out, lse, args, leaves, o, calls, plain
+        torch.cuda.empty_cache()
+    return rows
+
+
 # --------------------------------------------------------------- phase 4
 
 
@@ -2467,7 +2663,8 @@ def phase_serve():
         require(r.atom14.shape == (len(r.seq), 14, 3), f"atom14 shape {r.atom14.shape}")
         require(bool(np.isfinite(r.atom14).all()), "non-finite atom14")
         log(f"[serve] {len(r.seq):4d} residues -> bucket {r.bucket}: "
-            f"latency {r.latency_s * 1e3:.1f} ms")
+            f"latency {r.latency_s * 1e3:.1f} ms (queue wait {r.queue_wait_s * 1e3:.1f} + "
+            f"dispatch {r.dispatch_s * 1e3:.1f})")
     rates = []
     for what, part, wall in (("buckets 64-128", lengths[:6], walls[0]),
                              ("buckets 192-256", lengths[6:], walls[1])):
@@ -2583,7 +2780,8 @@ def profile_device(what, fn, host=False):
     # splits the key axis), K2 as tied_row_attention_kernel_sm90<64,128>
     # (serving) or <64,64> (tied training), K3a/K3b as
     # dq_kernel_sm90 / dkv_kernel_sm90 (and grad_merge_kernel<64> where they
-    # split), K2's backward as chunked_dq_kernel_mma / chunked_dkv_kernel_mma
+    # split), K2's backward as tied_dq_kernel_sm90<64,64> /
+    # tied_dkv_kernel_sm90<64,64> (tied training)
     for ms, count, name in sorted(rows, reverse=True)[:12]:
         log(f"[profile] {ms:9.2f} ms {ms / busy:6.1%} x{count:<6d} {name[:90]}")
     if not host:

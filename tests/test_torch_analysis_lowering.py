@@ -213,16 +213,22 @@ def test_case_shapes_and_sources():
     assert [l.role for l in by["fused_axial_bwd_256"].launches] == ["K1", "K3a", "K3b"]
     assert by["tied_row_fwd_256"].launches[0].args == (None, 1, 8, 4, 256, 256, 64, 1)  # R*D 512
     # K2's backward at JAX's case_tied_row_bwd shape, R*D 512, and at the
-    # training shape, R*D 320: K2 with lse, then dq (K2a) and dk/dv (K2b)
+    # training shape, R*D 320: K2 with lse, then dq (K2a) and dk/dv (K2b),
+    # each planned with its fused axis, its row width (D) and TMA-aligned
+    # operands
     assert [(l.role, l.source, l.args) for l in by["tied_row_bwd_256"].launches] == [
         ("K2", "tied_row_attention", (None, 1, 8, 4, 256, 256, 64, 1)),
-        ("K2a", "tied_row_attention_bwd", (0, None, 1, 4, 256, 256, 512)),
-        ("K2b", "tied_row_attention_bwd", (1, None, 1, 4, 256, 256, 512))]
-    assert [l.args[-1] for l in by["train_tied_rows"].launches] == [1, 320, 320]
-    # past head dim 128, K3a/K3b plan the D-chunked kernels
-    assert [(l.role, l.source) for l in by["edge_dense_d256"].launches] == [
-        ("K1", "fused_attention"), ("K3a", "tied_row_attention_bwd"),
-        ("K3b", "tied_row_attention_bwd")]
+        ("K2a", "tied_row_attention_bwd", (0, None, 1, 4, 256, 256, 512, 64, 1)),
+        ("K2b", "tied_row_attention_bwd", (1, None, 1, 4, 256, 256, 512, 64, 1))]
+    assert [l.args for l in by["train_tied_rows"].launches] == [
+        (None, 1, 5, 8, 64, 64, 64, 1), (0, None, 1, 8, 64, 64, 320, 64, 1),
+        (1, None, 1, 8, 64, 64, 320, 64, 1)]
+    # past head dim 128, K3a/K3b plan tied_row_attention_bwd.cu's kernels on
+    # the head dim as 4 rows of 64
+    assert [(l.role, l.source, l.args) for l in by["edge_dense_d256"].launches] == [
+        ("K1", "fused_attention", (None, 1, 2, 130, 130, 256, 1, 1)),
+        ("K3a", "tied_row_attention_bwd", (0, None, 1, 2, 130, 130, 256, 64, 1)),
+        ("K3b", "tied_row_attention_bwd", (1, None, 1, 2, 130, 130, 256, 64, 1))]
     assert by["serve_cross_msa_from_pair"].launches[0].args == (None, 4, 8, 640, 147456, 64, 2, 1)
     assert by["scale_rows_4x512"].dtypes == ("float32",)
     every = {l.source for c in lowering.CASES for l in c.launches}

@@ -135,12 +135,17 @@ def predict(
     msa_depth: Optional[int] = None,
     seed: int = 0,
     device: Optional[Union[str, torch.device]] = None,
+    checkpoint_dir: Optional[str] = None,
 ) -> Prediction:
     """Full prediction on the end-to-end model: random weights from
-    ``cfg.train.seed`` unless a ``state_dict`` (convert.py) is given.
-    ``seed`` drives the synthesized MSA and keys the MDS start, as JAX's
+    ``cfg.train.seed`` unless a ``state_dict`` (convert.py) or a
+    ``checkpoint_dir`` (the latest checkpoint's parameters, whatever the
+    optimizer of the run that wrote it) is given, not both. ``seed``
+    drives the synthesized MSA and keys the MDS start, as JAX's
     ``mds_key=jax.random.key(seed)`` does. Runs on the CUDA card unless
     ``device="cpu"``."""
+    if state_dict is not None and checkpoint_dir:
+        raise ValueError("pass state_dict or checkpoint_dir, not both")
     dev = resolve_device(device)
     L = len(seq)
     if 3 * L > cfg.model.max_seq_len:
@@ -154,6 +159,10 @@ def predict(
     model = build_model(cfg, mds_seed=seed)
     if state_dict is not None:
         model.load_state_dict(state_dict)
+    elif checkpoint_dir:
+        from alphafold2_tpu_torch.train.checkpoint import CheckpointManager
+
+        CheckpointManager(checkpoint_dir).restore_params(model)
     else:
         init_params(model, cfg.train.seed)
     model = model.to(dev).eval()

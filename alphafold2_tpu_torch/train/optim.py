@@ -91,6 +91,33 @@ class Optimizer:
         self.mini_step = 0
         self.acc = [torch.zeros_like(p) for p in self.params] if self.every_k > 1 else None
 
+    def state_dict(self) -> dict:
+        """Adam's moments and count, the accumulator and its micro-step
+        (tensors are the live ones: a caller that keeps them copies)."""
+        return {"mu": list(self.mu), "nu": list(self.nu), "count": self.count,
+                "mini_step": self.mini_step,
+                "acc": list(self.acc) if self.acc is not None else None}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy a :meth:`state_dict` into this optimizer's tensors (which
+        keep their device); the accumulator must match ``every_k``."""
+        if (state["acc"] is None) != (self.acc is None):
+            raise ValueError("the checkpoint's gradient accumulation does not "
+                             f"match every_k={self.every_k}")
+        for mine, theirs in ((self.mu, state["mu"]), (self.nu, state["nu"]),
+                             (self.acc or [], state["acc"] or [])):
+            if len(mine) != len(theirs):
+                raise ValueError(f"optimizer state for {len(theirs)} parameters, "
+                                 f"expected {len(mine)}")
+            for a, b in zip(mine, theirs):
+                if a.shape != b.shape:
+                    raise ValueError(f"optimizer state of shape {tuple(b.shape)}, "
+                                     f"expected {tuple(a.shape)}")
+                a.copy_(b)
+        self.count = int(state["count"])
+        self.mini_step = int(state["mini_step"])
+
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> bool:
         grads = list(grads)

@@ -17,7 +17,8 @@ import sys
 from alphafold2_tpu_torch.config import Config, ModelConfig, parse_cli
 
 
-def main(argv) -> None:
+def split_device(argv) -> tuple:
+    """``(device, the other arguments)``: ``--device=cpu|cuda`` or None."""
     device = None
     rest = []
     for arg in argv:
@@ -25,6 +26,11 @@ def main(argv) -> None:
             device = arg.split("=", 1)[1]
         else:
             rest.append(arg)
+    return device, rest
+
+
+def main(argv) -> None:
+    device, rest = split_device(argv)
     cfg = parse_cli(rest, Config(model=ModelConfig(dim=256, depth=1)))
     print("config:", cfg.to_json(), flush=True)
     from alphafold2_tpu_torch.train.loop import train

@@ -28,11 +28,14 @@ _THRESHOLDS_F32 = DISTANCE_THRESHOLDS.astype(np.float32)  # rounded once, on the
 def cdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """(..., N, D), (..., M, D) -> (..., N, M) Euclidean distances, in the
     expanded-difference form (a matrix product), clamped at 0 before the
-    square root."""
+    square root. The square root is gated as JAX's is: where the squared
+    distance is 0 (self-distances) the gradient is 0, not 0/0."""
     x2 = (x * x).sum(-1, keepdim=True)
     y2 = (y * y).sum(-1, keepdim=True)
     sq = x2 - 2.0 * (x @ y.transpose(-1, -2)) + y2.transpose(-1, -2)
-    return sq.clamp_min(0.0).sqrt()
+    positive = sq > 0.0
+    root = torch.sqrt(torch.where(positive, sq, torch.ones_like(sq)))
+    return torch.where(positive, root, torch.zeros_like(sq))
 
 
 def get_bucketed_distance_matrix(

@@ -116,7 +116,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
               K4/K5a/K5b (every K4 and K5 launch on its Hopper kernel), the
               rest through K1/K3a/K3b, small-model
               gradients on the grid route (crop 48) and the flat route
-              (crop 40), one step under torch.profiler.
+              (crop 40), one step under torch.profiler;
+8. end2end  — end-to-end structure training at the end-to-end CLI's width
+              (dim 256, depth 1, crop 64: 192 atom tokens, 896 refiner
+              atoms, 200 MDS iterations), untied then tied MSA rows: a
+              small f32 model's loss and gradients on the card against the
+              CPU's plain versions; 8 steps through train_end2end, every
+              one finite and unskipped with gradients in the trunk and the
+              refiner, K1 and K3 (and with tied rows K2 and its backward)
+              launched on their Hopper kernels, no plain version; 20 steps
+              on a repeated batch whose loss must fall; a checkpoint
+              resumed into a fresh model equal to an uninterrupted run bit
+              for bit, and predict from it equal to predict(state_dict=);
+              the step alone timed, profiled, and split into trunk,
+              structure (MDS), refiner and loss; the two steps in turns.
 
 ``phase_k1_time`` (not part of the run) times K1 alone on its nine
 main-path passes beside SDPA: ``python3 -c "import chip_smoke as c;
@@ -1487,18 +1500,20 @@ TIED_CASES = {TIED_TRAIN_LABEL: (1, 5, 64, 8, 64),
               "tied rows, gate (1x8x256x4x64, R*D 512)": (1, 8, 256, 4, 64)}
 
 
-def _tied_operands(b, r, n, h, d, dtype, gen):
+def _tied_operands(b, r, n, h, d, dtype, gen, rows=None):
     """q, k, v, dO (B, R, N, H, D) and the shared mask and tie scale as
-    ops/attention.py builds them: the last n/8 columns masked, row 1 ragged
-    (half as long), a middle row absent (the last row keeps its data, which
-    the feature-chunk controls drop), padded entries of q, k, v zeroed, the
-    tie scale counting the voting rows."""
+    ops/attention.py builds them from the MSA mask ``rows`` (B, R, N), by
+    default: the last n/8 columns masked, row 1 ragged (half as long), a
+    middle row absent (the last row keeps its data, which the feature-chunk
+    controls drop); padded entries of q, k, v zeroed, the tie scale
+    counting the voting rows."""
     import torch
 
-    rows = torch.ones((b, r, n), dtype=torch.bool, device="cuda")
-    rows[:, :, n - n // 8:] = False
-    rows[:, 1, n // 2:] = False
-    rows[:, r // 2] = False
+    if rows is None:
+        rows = torch.ones((b, r, n), dtype=torch.bool, device="cuda")
+        rows[:, :, n - n // 8:] = False
+        rows[:, 1, n // 2:] = False
+        rows[:, r // 2] = False
     q, k, v, do = (torch.randn((b, r, n, h, d), device="cuda", generator=gen)
                    for _ in range(4))
     q, k, v = (t * rows[..., None, None] for t in (q, k, v))
@@ -1537,18 +1552,19 @@ def _sdpa_backend(fn):
     return None
 
 
-def tied_case(label, b, r, n, h, d, dtype, gen, reps=3, library=False):
-    """K2 with lse, and K2's backward (dq; dk and dv), at one tied shape,
-    each against its plain version; a negative control per kernel (the
-    last feature chunk dropped from its recomputation); two backward runs
-    bit-identical; the autograd route through the kernels alone. Returns
-    result rows for the three kernels."""
+def tied_case(label, b, r, n, h, d, dtype, gen, reps=3, library=False, rows=None):
+    """K2 with lse, and K2's backward (dq; dk and dv), at one tied shape
+    (with the MSA mask ``rows``, else _tied_operands' own), each against
+    its plain version; a negative control per kernel (the last feature
+    chunk dropped from its recomputation); two backward runs bit-identical;
+    the autograd route through the kernels alone. Returns result rows for
+    the three kernels."""
     import torch
     import torch.nn.functional as F
 
     from alphafold2_tpu_torch.ops.cuda import tied_row as tr
 
-    q, k, v, do, mask, tie = _tied_operands(b, r, n, h, d, dtype, gen)
+    q, k, v, do, mask, tie = _tied_operands(b, r, n, h, d, dtype, gen, rows)
     scale = d**-0.5
     forward = lambda: tr.tied_row_attention_lse(q, k, v, mask, mask, scale, tie)
     plan = _k2_planned(b, r, n, h, d, dtype)
@@ -1685,6 +1701,49 @@ def _params(model):
     return [p.detach().clone() for p in model.parameters()]
 
 
+def _plain_versions():
+    """Every kernel's plain PyTorch version (each counts its ``calls``)."""
+    from alphafold2_tpu_torch.ops.cuda import axial, block_sparse, tied_row
+
+    return (axial.fused_attention_reference, axial.fused_attention_lse_reference,
+            axial.fused_attention_dq_reference, axial.fused_attention_dkv_reference,
+            tied_row.tied_row_attention_reference, tied_row.tied_row_attention_lse_reference,
+            tied_row.tied_row_attention_dq_reference, tied_row.tied_row_attention_dkv_reference,
+            block_sparse.block_sparse_attention_reference,
+            block_sparse.block_sparse_attention_lse_reference,
+            block_sparse.block_sparse_attention_dq_reference,
+            block_sparse.block_sparse_attention_dkv_reference)
+
+
+def _training_kernels():
+    """The wrappers a training step can launch, by kernel-line name (each
+    counts its ``launches``; the Hopper ones also ``sm90_launches``)."""
+    from alphafold2_tpu_torch.ops.cuda import axial, block_sparse, tied_row
+
+    return {"fused_attention": axial.fused_attention,
+            "fused_attention_combine": axial.fused_attention_combine,
+            "fused_attention_bwd_dq": axial.fused_attention_dq,
+            "fused_attention_bwd_dkv": axial.fused_attention_dkv,
+            "fused_attention_bwd_merge": axial.fused_attention_bwd_merge,
+            "tied_row_attention": tied_row.tied_row_attention,
+            "tied_row_attention_bwd_dq": tied_row.tied_row_attention_dq,
+            "tied_row_attention_bwd_dkv": tied_row.tied_row_attention_dkv,
+            "block_sparse_attention": block_sparse.block_sparse_attention_lse,
+            "block_sparse_attention (no lse)": block_sparse.block_sparse_attention,
+            "block_sparse_attention_bwd_dq": block_sparse.block_sparse_attention_dq,
+            "block_sparse_attention_bwd_dkv": block_sparse.block_sparse_attention_dkv}
+
+
+def _reset_counts(kernels, plain):
+    """Every launch count, Hopper launch count and plain-version call count to 0."""
+    for fn in kernels.values():
+        fn.launches = 0
+        if hasattr(fn, "sm90_launches"):
+            fn.sm90_launches = 0
+    for fn in plain:
+        fn.calls = 0
+
+
 def phase_train(sparse=False, tied=False):
     """The training checks at the slice configuration; with ``sparse``,
     model.sparse_self_attn=True (log tag ``[sparse train]``), with ``tied``
@@ -1697,30 +1756,11 @@ def phase_train(sparse=False, tied=False):
 
     from alphafold2_tpu_torch.config import Config
     from alphafold2_tpu_torch.data.pipeline import SyntheticDataset
-    from alphafold2_tpu_torch.ops.cuda import axial, block_sparse, tied_row
     from alphafold2_tpu_torch.train import loop
 
     tag = "[sparse train]" if sparse else "[tied train]" if tied else "[train]"
-    plain = (axial.fused_attention_reference, axial.fused_attention_lse_reference,
-             axial.fused_attention_dq_reference, axial.fused_attention_dkv_reference,
-             tied_row.tied_row_attention_reference, tied_row.tied_row_attention_lse_reference,
-             tied_row.tied_row_attention_dq_reference, tied_row.tied_row_attention_dkv_reference,
-             block_sparse.block_sparse_attention_reference,
-             block_sparse.block_sparse_attention_lse_reference,
-             block_sparse.block_sparse_attention_dq_reference,
-             block_sparse.block_sparse_attention_dkv_reference)
-    kernels = {"fused_attention": axial.fused_attention,
-               "fused_attention_combine": axial.fused_attention_combine,
-               "fused_attention_bwd_dq": axial.fused_attention_dq,
-               "fused_attention_bwd_dkv": axial.fused_attention_dkv,
-               "fused_attention_bwd_merge": axial.fused_attention_bwd_merge,
-               "tied_row_attention": tied_row.tied_row_attention,
-               "tied_row_attention_bwd_dq": tied_row.tied_row_attention_dq,
-               "tied_row_attention_bwd_dkv": tied_row.tied_row_attention_dkv,
-               "block_sparse_attention": block_sparse.block_sparse_attention_lse,
-               "block_sparse_attention (no lse)": block_sparse.block_sparse_attention,
-               "block_sparse_attention_bwd_dq": block_sparse.block_sparse_attention_dq,
-               "block_sparse_attention_bwd_dkv": block_sparse.block_sparse_attention_dkv}
+    plain = _plain_versions()
+    kernels = _training_kernels()
 
     # (a) the slice configuration: 32 steps = 2 accumulated updates
     cfg = Config()
@@ -1740,16 +1780,7 @@ def phase_train(sparse=False, tied=False):
         losses.append(float(metrics["loss"]))
         oks.append((bool(metrics["grads_ok"]), int(metrics["skipped"])))
 
-    for fn in kernels.values():
-        fn.launches = 0
-    for fn in (axial.fused_attention, axial.fused_attention_dq, axial.fused_attention_dkv,
-               tied_row.tied_row_attention, tied_row.tied_row_attention_dq,
-               tied_row.tied_row_attention_dkv,
-               block_sparse.block_sparse_attention, block_sparse.block_sparse_attention_lse,
-               block_sparse.block_sparse_attention_dq, block_sparse.block_sparse_attention_dkv):
-        fn.sm90_launches = 0
-    for fn in plain:
-        fn.calls = 0
+    _reset_counts(kernels, plain)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state = loop.train(cfg, num_steps=steps, callbacks=[watch])
@@ -1895,6 +1926,471 @@ def phase_train(sparse=False, tied=False):
     profile_device(f"one {kind}training step", lambda: step(st, b), host=True)
     return {"launches": launches, "steps": steps, "wall_s": wall,
             "step_ms": step_ms, "peak_bytes": peak}
+
+
+# --------------------------------------------------------------- phase 5b
+
+
+E2E_STEPS = 8  # train_end2end steps at the CLI's full width
+E2E_REPEAT_STEPS = 20  # steps on one repeated batch
+E2E_RESUME = (2, 2)  # steps before the checkpoint, steps after the resume
+E2E_PARITY_MDS_ITERS = 20  # the small f32 model's MDS iterations, card vs CPU
+# a small f32 end-to-end model's gradients, card vs CPU: per-leaf relative
+# L2 error (MDS amplifies small deltas, so 10x the distogram
+# model's); only a leaf whose CPU gradient is itself at most 1e-6 of the
+# total norm (0 by symmetry, as a bias added along the softmax axis, so
+# roundoff only) is held absolutely, to 1e-6 of the total norm
+E2E_GRAD_REL_L2 = 1e-3
+E2E_ZERO_GRAD_ATOL = 1e-6
+
+
+def _e2e_config(tied):
+    """The end-to-end CLI's base config (alphafold2_tpu_torch/train_end2end.py):
+    ModelConfig(dim=256, depth=1), DataConfig(crop_len=64), every other
+    default (heads 8, dim_head 64, bf16, MSA 5x64, refiner depth 2, 200 MDS
+    iterations)."""
+    from alphafold2_tpu_torch.config import Config, DataConfig, ModelConfig
+
+    cfg = Config(model=ModelConfig(dim=256, depth=1), data=DataConfig(crop_len=64))
+    cfg.model.msa_tie_row_attn = tied
+    return cfg
+
+
+def _grad_norm(module):
+    import torch
+
+    grads = [p.grad.float() for p in module.parameters() if p.grad is not None]
+    return float(torch.linalg.vector_norm(torch.stack([g.norm() for g in grads]))) if grads else 0.0
+
+
+def _e2e_parity(tied, tag):
+    """A small f32 end-to-end model (dim 64, depth 2, crop 16 with padded
+    residues, 20 MDS iterations): one step on the card's kernels and one on
+    the CPU's plain versions from the same weights, batch and MDS start;
+    the loss and every gradient leaf compared."""
+    import torch
+
+    from alphafold2_tpu_torch.config import Config
+    from alphafold2_tpu_torch.data.pipeline import SyntheticDataset
+    from alphafold2_tpu_torch.train import end2end, loop
+
+    small = Config()
+    small.model.dim, small.model.depth, small.model.heads, small.model.dim_head = 64, 2, 4, 16
+    small.model.bfloat16 = False
+    small.model.msa_tie_row_attn = tied
+    small.data.crop_len, small.data.msa_depth, small.data.msa_len = 16, 3, 16
+    small.data.batch_size, small.data.min_len_filter = 2, 8
+    batch = next(iter(SyntheticDataset(small.data, seed=3)))
+    n = 3 * small.data.crop_len
+    loss, grads = {}, {}
+    for side, dev in (("plain", "cpu"), ("kernels", "cuda")):
+        model = end2end.build_end2end_model(small, mds_iters=E2E_PARITY_MDS_ITERS)
+        st = loop.init_state(small, model, device=dev)
+        st, met = end2end.make_end2end_step(st.model)(
+            st, loop.batch_to_device(batch, torch.device(dev)),
+            end2end.mds_start(small.train.seed + 1, 0, 2, n, dev))
+        require(bool(met["grads_ok"]), f"small end-to-end step on {dev}: non-finite gradients")
+        loss[side] = float(met["loss"])
+        grads[side] = {k: (p.grad if p.grad is not None else torch.zeros_like(p)).cpu()
+                       for k, p in st.model.named_parameters()}
+    total = float(torch.stack([g.norm() for g in grads["plain"].values()]).norm())
+    worst, worst_name, sym = 0.0, "", 0.0
+    for name, g_cpu in grads["plain"].items():
+        g_gpu = grads["kernels"][name]
+        norm, err = float(g_cpu.norm()), float((g_gpu - g_cpu).norm())
+        if norm == 0.0:
+            require(bool((g_gpu == 0).all()), f"{name}: zero on the CPU, nonzero on the card")
+            continue
+        if norm <= E2E_ZERO_GRAD_ATOL * total:  # a leaf that is 0 by symmetry
+            sym = max(sym, err / total)
+            continue
+        if err / norm > worst:
+            worst, worst_name = err / norm, name
+    loss_rel = abs(loss["kernels"] - loss["plain"]) / abs(loss["plain"])
+    log(f"{tag} small f32 model (crop 16, padded, {E2E_PARITY_MDS_ITERS} MDS iterations), card "
+        f"vs CPU: loss {loss['kernels']:.6f} vs {loss['plain']:.6f} (relative {loss_rel:.2e}; tol "
+        f"1e-4), worst per-leaf gradient relative L2 {worst:.3e} ({worst_name}; tol "
+        f"{E2E_GRAD_REL_L2:g}), leaves 0 by symmetry within {sym:.2e} of the total norm "
+        f"(tol {E2E_ZERO_GRAD_ATOL:g})")
+    require(loss_rel <= 1e-4, "small end-to-end loss disagrees between the card and the CPU")
+    require(worst <= E2E_GRAD_REL_L2,
+            "small end-to-end gradients disagree between the card and the CPU")
+    require(sym <= E2E_ZERO_GRAD_ATOL,
+            "a small end-to-end gradient that is 0 by symmetry is not 0 on the card")
+
+
+def _e2e_passes(cfg):
+    """The attention passes of an end-to-end trunk layer at ``cfg``'s shapes,
+    with the masks of the first batch train_end2end takes: label -> (b, nq,
+    nk, q_mask, kv_mask), and the MSA mask (1, R, L). Residues elongate x3
+    into atom tokens, so the pair is 3L x 3L and the MSA R x L."""
+    import torch
+
+    from alphafold2_tpu_torch.data.pipeline import make_dataset
+    from alphafold2_tpu_torch.train.loop import apply_features
+
+    batch = next(apply_features(iter(make_dataset(cfg.data, seed=cfg.train.seed)), cfg))
+    tok = torch.from_numpy(batch["mask"]).bool().cuda().repeat_interleave(3, dim=1)[0]
+    msa3 = torch.from_numpy(batch["msa_mask"]).bool().cuda()
+    pair, msa = tok[:, None] & tok[None, :], msa3[0]
+    (n, _), (r, l), h = pair.shape, msa.shape, cfg.model.heads
+    col = msa.T.contiguous()
+    return {
+        f"e2e pair axial ({n}x{h}, {n}x{n})": (n, n, n, pair, pair),
+        f"e2e MSA column ({l}x{h}, {r}x{r})": (l, r, r, col, col),
+        f"e2e MSA row ({r}x{h}, {l}x{l})": (r, l, l, msa, msa),
+        f"e2e pair<-MSA (1x{h}, {n * n}x{r * l})": (1, n * n, r * l, pair.reshape(1, -1),
+                                                    msa.reshape(1, -1)),
+        f"e2e MSA<-pair (1x{h}, {r * l}x{n * n})": (1, r * l, n * n, msa.reshape(1, -1),
+                                                    pair.reshape(1, -1)),
+    }, msa3
+
+
+def _e2e_kernel_cases(cfg, tied, tag):
+    """The kernels of the end-to-end step at its own shapes, masks and
+    route (bf16 at head dim 64: the Hopper kernels), each held against its
+    plain version on the same inputs. Untied: K1 with lse, K3a and K3b on
+    every pass (k3_case: the Hopper launches, the combine and merge passes
+    where the pass splits, negative controls), and the combine pass alone
+    where K1 splits. Tied: K2 and its backward on the MSA row pass with
+    the batch's MSA mask (the other passes are the untied ones)."""
+    import torch
+
+    from alphafold2_tpu_torch.ops.cuda import axial
+
+    h, d = cfg.model.heads, cfg.model.dim_head
+    dtype = torch.bfloat16 if cfg.model.bfloat16 else torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    passes, msa3 = _e2e_passes(cfg)
+    worst = {}
+    for label, (b, nq, nk, qm, km) in passes.items():
+        if tied and "MSA row" not in label:
+            continue
+        if tied:
+            _, r, l = msa3.shape
+            rows = tied_case(label, 1, r, l, h, d, dtype, gen, reps=0, rows=msa3)
+        else:
+            rows = k3_case(label, b, h, nq, nk, d, dtype, qm, km, reps=0, gen=gen,
+                           strided=True)
+            if axial.key_splits(b, h, nq, nk, d) > 1:
+                rows.append(combine_case(label, b, h, nq, nk, d, qm, km, gen))
+        for row in rows:
+            worst[row["kernel"]] = max(worst.get(row["kernel"], 0.0), row["max_abs_err"])
+    log(f"{tag} kernels at the step's shapes and masks ({dtype}, head dim {d}), worst "
+        "max_abs_err against the plain versions: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+
+
+def profile_end2end(what, model, fn):
+    """One end-to-end step ``fn()`` under torch.profiler, split into its
+    parts by zero-length marks that module and gradient hooks drop: the
+    trunk (forward; backward until the token embedding's gradient is
+    accumulated), the structure (softmax, centering, MDS, sidechain lift;
+    forward, and backward until the logits' gradient), the refiner
+    (forward; backward until its input's gradient), the loss (forward and
+    backward until the refined coordinates' gradient) and the rest
+    (gradient checks and the optimizer). For each part: host ms between the
+    marks, host ops' own time, kernel launches, and the device time of the
+    kernels that start between the marks (the step is host-bound, so a
+    kernel runs close to its launch)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    labels = []
+
+    def mark(label):
+        with record_function(f"e2e_mark:{len(labels)}"):
+            labels.append(label)
+
+    def then(tensor, label):  # mark when the gradient with respect to tensor is ready
+        tensor.register_hook(lambda grad: mark(label))
+
+    def trunk_done(module, args, logits):
+        mark("trunk")
+        then(logits, "structure")
+
+    def structure_done(module, args):
+        mark("structure")
+        then(args[1], "refiner")
+
+    def refiner_done(module, args, refined):
+        mark("refiner")
+        then(refined, "loss")
+
+    # hooks that return None leave the module's inputs and outputs as they are
+    hooks = [model.af2.register_forward_hook(trunk_done),
+             model.refiner.register_forward_pre_hook(structure_done),
+             model.refiner.register_forward_hook(refiner_done),
+             model.af2.token_emb.weight.register_post_accumulate_grad_hook(
+                 lambda p: mark("trunk"))]
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            mark("start")
+            fn()
+            torch.cuda.synchronize()
+            mark("rest")
+    finally:
+        for h in hooks:
+            h.remove()
+    events = list(prof.events())
+    at = {}
+    for e in events:
+        if e.name.startswith("e2e_mark:"):
+            at[int(e.name.split(":")[1])] = e.time_range.start
+    if len(at) != len(labels):
+        log(f"[profile] {what}: the profiler recorded {len(at)} of {len(labels)} marks: "
+            "the split is not measured")
+        return
+    bounds = [at[i] for i in range(len(labels))]
+    parts = {}
+
+    def part_of(t):
+        for i in range(1, len(bounds)):
+            if bounds[i - 1] <= t < bounds[i]:
+                return labels[i]
+        return None
+
+    launch_names = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx")
+    for i in range(1, len(bounds)):
+        p = parts.setdefault(labels[i], {"host": 0.0, "own": 0.0, "launches": 0, "device": 0.0})
+        p["host"] += (bounds[i] - bounds[i - 1]) / 1e3
+    for e in events:
+        part = parts.get(part_of(e.time_range.start))
+        if part is None:
+            continue
+        if e.device_type == DeviceType.CUDA:
+            part["device"] += (e.time_range.end - e.time_range.start) / 1e3
+        else:
+            part["own"] += e.self_cpu_time_total / 1e3
+            part["launches"] += e.name in launch_names
+    total_host = sum(p["host"] for p in parts.values())
+    total_dev = sum(p["device"] for p in parts.values())
+    log(f"[profile] {what}, split (profiler on): host {total_host:.1f} ms, device busy "
+        f"{total_dev:.1f} ms ({total_dev / total_host:.1%}), "
+        f"{sum(p['launches'] for p in parts.values())} kernel launches")
+    for label in ("trunk", "structure", "refiner", "loss", "rest"):
+        p = parts.get(label)
+        if p is not None:
+            log(f"[profile] {what}, {label:9s}: host {p['host']:8.2f} ms, host ops' own "
+                f"{p['own']:8.2f} ms, {p['launches']:6d} launches, device busy "
+                f"{p['device']:8.2f} ms")
+
+
+def _e2e_run(tied):
+    """phase_end2end for untied or tied MSA rows."""
+    import itertools
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from alphafold2_tpu_torch import constants
+    from alphafold2_tpu_torch.data.pipeline import SyntheticDataset
+    from alphafold2_tpu_torch.predict import predict
+    from alphafold2_tpu_torch.train import end2end, loop
+
+    tag = "[end2end tied]" if tied else "[end2end]"
+    plain, kernels = _plain_versions(), _training_kernels()
+
+    # (1) a small f32 model: card against the CPU's plain versions; then the
+    # kernels at full width, each against its plain version
+    _e2e_parity(tied, tag)
+    cfg = _e2e_config(tied)
+    _e2e_kernel_cases(cfg, tied, tag)
+
+    # (2) steps at full width through the entry point
+    depth = cfg.model.depth
+    times, losses, oks, norms, rmsds = [], [], [], [], []
+
+    def watch(i, state, metrics):
+        torch.cuda.synchronize()
+        times.append(time.perf_counter())
+        losses.append(float(metrics["loss"]))
+        rmsds.append(float(metrics["rmsd"]))
+        oks.append(bool(metrics["grads_ok"]))
+        norms.append((_grad_norm(state.model.af2), _grad_norm(state.model.refiner)))
+
+    _reset_counts(kernels, plain)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = end2end.train_end2end(cfg, num_steps=E2E_STEPS, callbacks=[watch])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    sm90 = {name: fn.sm90_launches for name, fn in kernels.items() if hasattr(fn, "sm90_launches")}
+    plain_calls = sum(fn.calls for fn in plain)
+    peak = torch.cuda.max_memory_allocated()
+    lat = np.diff(times) * 1e3  # steps 2 .. E2E_STEPS, warm
+    log(f"{tag} {E2E_STEPS} train_end2end steps at dim {cfg.model.dim}, depth {depth}, crop "
+        f"{cfg.data.crop_len} ({3 * cfg.data.crop_len} atom tokens, "
+        f"{constants.NUM_COORDS_PER_RES * cfg.data.crop_len} refiner atoms), MSA "
+        f"{cfg.data.msa_depth}x{cfg.data.msa_len}, 200 MDS iterations, accumulation "
+        f"{cfg.train.gradient_accumulate_every}: {wall:.2f} s incl. init; with per-step "
+        f"checks, warm step latency median {np.median(lat):.2f} ms (min {lat.min():.2f}, max "
+        f"{lat.max():.2f}), {1e3 / np.median(lat):.3f} steps/s; peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    log(f"{tag} losses " + " ".join(f"{x:.4f}" for x in losses) + "; rmsd "
+        + " ".join(f"{x:.3f}" for x in rmsds) + f"; skipped {int(state.skipped)}")
+    log(f"{tag} gradient norms (trunk, refiner) " + " ".join(f"({a:.3e}, {b:.3e})" for a, b in norms))
+    log(f"{tag} kernel launches: {launches}; plain-version calls: {plain_calls}")
+    require(bool(np.isfinite(losses).all()), "non-finite end-to-end loss")
+    require(all(oks) and int(state.skipped) == 0, "an end-to-end step was skipped")
+    require(all(a > 0 and b > 0 for a, b in norms), "no gradient in the trunk or the refiner")
+    tied_calls = depth if tied else 0
+    require(launches["fused_attention"] == (6 * depth - tied_calls) * E2E_STEPS,
+            "K1 launches per end-to-end step")
+    for name in ("fused_attention_bwd_dq", "fused_attention_bwd_dkv"):
+        # the last layer's MSA<-pair update reaches no output and runs no backward
+        require(launches[name] == (6 * depth - 1 - tied_calls) * E2E_STEPS,
+                f"{name} launches per end-to-end step")
+    for name in ("tied_row_attention", "tied_row_attention_bwd_dq", "tied_row_attention_bwd_dkv"):
+        require(launches[name] == tied_calls * E2E_STEPS, f"{name} launches per end-to-end step")
+    for name, count in sm90.items():
+        require(count == launches[name], f"a {name} launch of the end-to-end path missed its "
+                "Hopper kernel")
+    require(launches["block_sparse_attention"] + launches["block_sparse_attention (no lse)"] == 0,
+            "a block-sparse kernel ran on the end-to-end path")
+    require(plain_calls == 0, "a plain version ran on the end-to-end path")
+    del state
+    torch.cuda.empty_cache()
+
+    # (3) no accumulation, warmup 1, one repeated batch: the loss must fall
+    cfg_b = _e2e_config(tied)
+    cfg_b.train.gradient_accumulate_every = 1
+    cfg_b.train.warmup_steps = 1
+    batch = next(iter(SyntheticDataset(cfg_b.data, seed=cfg_b.train.seed)))
+    fb = loop.batch_to_device(next(loop.apply_features(iter([batch]), cfg_b)),
+                              torch.device("cuda"))
+    start0 = end2end.mds_start(cfg_b.train.seed + 1, 0, 1, 3 * cfg_b.data.crop_len, "cuda")
+    rep, fixed, lrs, gnorms, rmsd_rep = [], [], [], [], []
+
+    def watch_rep(i, s, m):
+        # the step's loss (its own MDS start, the parameters before its
+        # update), the learning rate it applied, its raw gradient norm, and
+        # the loss at step 0's MDS start with the updated parameters
+        rep.append(float(m["loss"]))
+        rmsd_rep.append(float(m["rmsd"]))
+        lrs.append(s.optimizer.schedule(s.optimizer.count - 1))
+        gnorms.append(float(m["grad_norm"]))
+        with torch.no_grad():
+            out = s.model(fb["seq"], fb["msa"], mask=fb["mask"], msa_mask=fb["msa_mask"],
+                          coords0=start0)
+            fixed.append(float(end2end.structure_loss(out, fb["backbone"], fb["mask"])[0]))
+
+    end2end.train_end2end(cfg_b, num_steps=E2E_REPEAT_STEPS, dataset=itertools.repeat(batch),
+                          callbacks=[watch_rep])
+
+    def fell(xs):
+        return bool(np.isfinite(xs).all()) and np.mean(xs[-5:]) < np.mean(xs[:5]) and xs[-1] < xs[0]
+
+    falls, fixed_falls = fell(rep), fell(fixed)
+    log(f"{tag} repeated batch ({int(batch['mask'].sum())} residues), {E2E_REPEAT_STEPS} steps: "
+        "losses " + " ".join(f"{x:.3f}" for x in rep) + f"; falls: {falls}")
+    log(f"{tag} repeated batch: rmsd " + " ".join(f"{x:.3f}" for x in rmsd_rep)
+        + "; learning rate " + " ".join(f"{x:.3g}" for x in lrs) + "; gradient norm "
+        + " ".join(f"{x:.3f}" for x in gnorms))
+    log(f"{tag} repeated batch, loss at step 0's MDS start after each update: "
+        + " ".join(f"{x:.3f}" for x in fixed) + f"; falls: {fixed_falls}")
+    require(falls, "the end-to-end loss did not fall on a repeated batch")
+    require(fixed_falls, "the end-to-end loss at a fixed MDS start did not fall on a repeated "
+                         "batch")
+
+    # (4) checkpoint and resume against an uninterrupted run (cfg_b: the
+    # parameters move every step), then (5) predict from the checkpoint
+    k, more = E2E_RESUME
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="e2e_ckpt_", dir=os.path.join(HERE, "build"))
+    try:
+        whole_losses, first_losses, resumed_losses = [], [], []
+        whole = end2end.train_end2end(cfg_b, num_steps=k + more, callbacks=[
+            lambda i, s, m: whole_losses.append(float(m["loss"]))])
+        whole_params = _params(whole.model)
+        del whole
+        cfg_c = _e2e_config(tied)
+        cfg_c.train.gradient_accumulate_every = 1
+        cfg_c.train.warmup_steps = 1
+        cfg_c.train.checkpoint_dir = ckpt_dir
+        end2end.train_end2end(cfg_c, num_steps=k, callbacks=[
+            lambda i, s, m: first_losses.append(float(m["loss"]))])
+        resumed = end2end.train_end2end(cfg_c, num_steps=k + more, callbacks=[
+            lambda i, s, m: resumed_losses.append(float(m["loss"]))])
+        loss_diff = max(abs(a - b) for a, b in zip(first_losses + resumed_losses, whole_losses))
+        param_diff = max(float((a - b).abs().max())
+                         for a, b in zip(_params(resumed.model), whole_params))
+        log(f"{tag} checkpoint at step {k}, fresh model resumed to step {k + more}: losses "
+            + " ".join(f"{x:.6f}" for x in first_losses + resumed_losses) + " vs uninterrupted "
+            + " ".join(f"{x:.6f}" for x in whole_losses) + f"; max |loss diff| {loss_diff:.3e}, "
+            f"max |parameter diff| {param_diff:.3e} (bound: 0, every op of the step "
+            "deterministic)")
+        require(len(resumed_losses) == more and resumed.step == k + more,
+                "the resumed run did not start at the checkpoint")
+        require(loss_diff == 0.0 and param_diff == 0.0,
+                "the resumed run differs from the uninterrupted one")
+        rng = np.random.default_rng(7)
+        seq = "".join(constants.AA_ALPHABET[i] for i in rng.integers(0, 20, 60))
+        from_ckpt = predict(cfg_c, seq, checkpoint_dir=ckpt_dir)
+        from_sd = predict(cfg_c, seq, state_dict=resumed.model.state_dict())
+        diff = float(np.abs(from_ckpt.atom14 - from_sd.atom14).max())
+        log(f"{tag} predict from the step-{k + more} checkpoint, {len(seq)} residues: atom14 "
+            f"{from_ckpt.atom14.shape}, finite {bool(np.isfinite(from_ckpt.atom14).all())}, "
+            f"max |diff| against predict(state_dict=) {diff:.3e} (bound 0)")
+        require(bool(np.isfinite(from_ckpt.atom14).all()), "predict from a checkpoint: non-finite")
+        require(diff == 0.0, "predict from a checkpoint differs from predict(state_dict=)")
+        del resumed
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (6) the step alone (no callbacks, one batch on the card): its rate,
+    # then one step under the profiler, whole and split into its parts
+    st = loop.init_state(cfg, end2end.build_end2end_model(cfg))
+    step = end2end.make_end2end_step(st.model)
+    b = loop.batch_to_device(next(iter(SyntheticDataset(cfg.data, seed=cfg.train.seed))),
+                             torch.device("cuda"))
+    n = 3 * cfg.data.crop_len
+    coords0 = end2end.mds_start(cfg.train.seed + 1, 0, 1, n, "cuda")
+    step(st, b, coords0)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(STEP_REPS):
+        step(st, b, coords0)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / STEP_REPS * 1e3
+    step_peak = torch.cuda.max_memory_allocated()
+    log(f"{tag} the step alone, {STEP_REPS} steps: {step_ms:.2f} ms per step, "
+        f"{1e3 / step_ms:.3f} steps/s; peak device memory {step_peak / 2**30:.2f} GiB")
+    kind = "tied " if tied else ""
+    profile_device(f"one {kind}end-to-end step", lambda: step(st, b, coords0), host=True)
+    profile_end2end(f"one {kind}end-to-end step", st.model, lambda: step(st, b, coords0))
+    return {"launches": launches, "steps": E2E_STEPS, "wall_s": wall, "step_ms": step_ms,
+            "peak_bytes": peak, "step": lambda: step(st, b, coords0)}
+
+
+def phase_end2end():
+    """End-to-end structure training at the CLI's full width, untied and
+    then tied MSA rows (log tags ``[end2end]``, ``[end2end tied]``); then
+    the two steps alone in turns (untied, tied, tied, untied), since the
+    host's speed drifts within a call."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = {"untied": _e2e_run(False), "tied": _e2e_run(True)}
+    turns = {"untied": [], "tied": []}
+    for kind in ("untied", "tied", "tied", "untied"):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(STEP_REPS):
+            out[kind]["step"]()
+        torch.cuda.synchronize()
+        turns[kind].append((time.perf_counter() - t1) / STEP_REPS * 1e3)
+    log("[end2end] the steps alone in turns, ms per step over " + str(STEP_REPS)
+        + " steps: " + "; ".join(f"{k} " + ", ".join(f"{x:.2f}" for x in v)
+                                 for k, v in turns.items()))
+    log(f"[end2end] phase: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 # --------------------------------------------------------------- phase 6
@@ -2948,6 +3444,7 @@ def main() -> int:
         train = phase_train()
         tied_train = phase_train(tied=True)
         sparse_train = phase_train(sparse=True)
+        phase_end2end()
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
         log("chip_smoke: FAILED")

@@ -11,6 +11,12 @@ leaf name alone decides the mapping:
 - ``LayerNorm`` ``scale`` / ``bias`` -> ``weight`` / ``bias``;
 - ``Dense`` ``bias`` -> ``bias``.
 
+The scanned and reversible trunks stack their layers' parameters on a
+leading depth axis (``trunk/scan/layer/...``, ``trunk/reversible/layers/...``,
+as the port's ``scan.layer`` and ``reversible.layers`` do): under those
+paths a ``kernel`` is (depth, in, out) and maps to (depth, out, in), and
+every other leaf keeps its depth axis.
+
 Every flax leaf must map exactly once onto a parameter of the target module
 with the same shape, and every parameter of the module must be filled:
 anything else raises. No JAX import is needed.
@@ -25,6 +31,8 @@ import torch
 
 _LEAF_NAMES = {"kernel": "weight", "embedding": "weight", "scale": "weight",
                "bias": "bias"}
+# the module paths under which each leaf carries a leading depth axis
+_STACKED = (("scan", "layer"), ("reversible", "layers"))
 
 
 def _leaves(tree: Mapping, prefix: tuple = ()):
@@ -61,9 +69,10 @@ def to_state_dict(flax_params: Mapping, module: torch.nn.Module) -> dict:
             )
         arr = np.array(value, dtype=np.float32)
         if leaf == "kernel":
-            if arr.ndim != 2:
+            stacked = any(pair in zip(path, path[1:]) for pair in _STACKED)
+            if arr.ndim != 2 + stacked:
                 raise ValueError(f"{'/'.join(path)}: kernel of rank {arr.ndim}")
-            arr = arr.T
+            arr = np.swapaxes(arr, -1, -2)
         if tuple(arr.shape) != expected[key]:
             raise ValueError(
                 f"{'/'.join(path)} -> {key}: shape {arr.shape} != {expected[key]}"

@@ -4,11 +4,14 @@ Port of ``alphafold2_tpu/models/alphafold2.py`` without templates and
 without the ``embedds`` (PLM) input, which raise for now: the outer-sum
 pair grid with axial positional embeddings and an AND-combined pair mask
 (:187-201), the MSA stream with per-position and per-row embeddings
-(:203-215), the python-loop trunk (block-sparse pair attention with
-``sparse_self_attn``, ``sparse_config`` and ``seq_len=max_seq_len``, as
-:288-299 passes them), and the symmetrized distogram head (:314-318).
-``dtype`` is the compute dtype; parameters stay float32. Dropout is not
-ported: nonzero rates raise.
+(:203-215), the trunk under any of its engines (``remat`` with
+``remat_policy``, ``reversible``, ``scan_layers``; block-sparse pair
+attention with ``sparse_self_attn``, ``sparse_config`` and
+``seq_len=max_seq_len``, as :288-312 passes them), and the symmetrized
+distogram head (:314-318), whose LayerNorm output is cast to the compute
+dtype (the reversible engine returns float32 streams). ``dtype`` is the
+compute dtype; parameters stay float32. Dropout is not ported: nonzero
+rates raise.
 """
 
 from __future__ import annotations
@@ -40,7 +43,10 @@ class Alphafold2(nn.Module):
         ff_dropout: float = 0.0,
         sparse_self_attn: Union[bool, Sequence[bool]] = False,
         sparse_config=None,
-        **engine_flags,
+        remat: bool = False,
+        remat_policy: Optional[str] = None,
+        reversible: bool = False,
+        scan_layers: bool = False,
     ):
         super().__init__()
         if attn_dropout or ff_dropout:
@@ -58,7 +64,9 @@ class Alphafold2(nn.Module):
         self.trunk = Trunk(dim, depth, heads, dim_head, gelu_exact=gelu_exact,
                            msa_tie_row_attn=msa_tie_row_attn,
                            sparse_self_attn=sparse_self_attn, seq_len=max_seq_len,
-                           sparse_config=sparse_config, **engine_flags)
+                           sparse_config=sparse_config, remat=remat,
+                           remat_policy=remat_policy, reversible=reversible,
+                           scan_layers=scan_layers, dtype=dtype)
         self.distogram_norm = LayerNorm(dim)
         self.distogram_proj = Dense(dim, constants.DISTOGRAM_BUCKETS)
 
@@ -107,5 +115,5 @@ class Alphafold2(nn.Module):
         x, m = self.trunk(x, m, pair_mask=pair_mask, msa_mask=msa_mask)
 
         x = 0.5 * (x + x.transpose(1, 2))
-        logits = self.distogram_proj(self.distogram_norm(x))
+        logits = self.distogram_proj(self.distogram_norm(x).to(dt))
         return logits.float()

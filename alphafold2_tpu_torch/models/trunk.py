@@ -1,19 +1,46 @@
-"""The trunk: a python loop of TrunkLayers over the pair and MSA streams.
+"""The trunk and its engines: layers of axial self-attention and pair<->MSA
+cross-attention over the pair and MSA streams.
 
-Port of the default engine of ``alphafold2_tpu/models/trunk.py``
-(``TrunkLayer`` :42-168 and the python-loop ``Trunk``). Streams stay grids:
-pair (B, N, N, D), MSA (B, M, Nm, D). ``sparse_self_attn`` (a bool, or one
-per layer) makes a layer's pair axial passes block-sparse (K4/K5), as in
-JAX only the pair stream. The remat, reversible and scanned engines are not
-ported yet and raise.
+Port of ``alphafold2_tpu/models/trunk.py``: ``TrunkLayer`` (:42-168),
+``resolve_remat_policy`` (:171-193), ``_ScanBody`` (:196-219) and ``Trunk``
+with its three engines (:222-412). Streams stay grids: pair (B, N, N, D),
+MSA (B, M, Nm, D).
+
+- The default engine is a python loop of TrunkLayers named ``layer_{i}``.
+- ``remat=True`` runs each layer under ``torch.utils.checkpoint``
+  (non-reentrant), so the backward recomputes its activations. The
+  parameters stay ``layer_{i}``, the default engine's. ``remat_policy``
+  "dots" keeps the outputs of every matmul (``mm``, ``addmm``, ``bmm``,
+  ``baddbmm``), "dots_no_batch" those of the matmuls without batch dims
+  (``mm``, ``addmm``: the Dense projections), as JAX's ``checkpoint_dots``
+  and ``checkpoint_dots_with_no_batch_dims`` do. The attention kernels are
+  no matmuls to either policy: their outputs are recomputed, as JAX
+  recomputes its ``pallas_call``s. Under no gradient remat changes nothing.
+- ``scan_layers=True`` keeps one TrunkLayer whose parameters carry a leading
+  depth axis (``scan.layer.<...>``, flax's ``trunk/scan/layer``) and applies
+  depth slice ``i`` with ``torch.func.functional_call``. PyTorch runs
+  eagerly, so unlike ``lax.scan`` this saves no compile time: the engine
+  exists so that a JAX scanned checkpoint, and the same network, run in the
+  port. With ``remat`` each step is checkpointed.
+- ``reversible=True`` is ``models/reversible.py``'s inversion-based engine,
+  a different network with its own stacked parameters. It takes precedence
+  over ``remat`` and ``scan_layers``.
+
+``sparse_self_attn`` (a bool, or one per layer) makes a layer's pair axial
+passes block-sparse (K4/K5), as in JAX only the pair stream; the scanned and
+reversible engines need one value for every layer. MSA-row and pair-grid
+sharding and context parallelism are not ported; the reversible engine
+refuses them as JAX's does.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from alphafold2_tpu_torch.ops.attention import Attention, AxialAttention, FeedForward
 from alphafold2_tpu_torch.ops.layers import LayerNorm
@@ -75,37 +102,162 @@ class TrunkLayer(nn.Module):
         return x, m
 
 
+# the matmuls whose outputs each remat policy keeps
+_SAVED_DOTS = {"dots": ("mm", "addmm", "bmm", "baddbmm"), "dots_no_batch": ("mm", "addmm")}
+
+
+def resolve_remat_policy(name: Optional[str]):
+    """A config-level policy name -> the ``context_fn`` that
+    ``torch.utils.checkpoint`` takes, or None for None/"nothing" (save
+    nothing: the whole layer is recomputed). Unknown names raise."""
+    if name is None or name == "nothing":
+        return None
+    if name not in _SAVED_DOTS:
+        raise ValueError(
+            f"unknown remat_policy {name!r}; have {[None, 'nothing', *_SAVED_DOTS]}")
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    ops = [getattr(torch.ops.aten, op).default for op in _SAVED_DOTS[name]]
+    return functools.partial(create_selective_checkpoint_contexts, ops)
+
+
+def remat_call(fn, context_fn, *args):
+    """``fn(*args)`` with its activations recomputed in the backward (under
+    ``context_fn``'s policy when one is given); plain under no gradient."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    kw = {} if context_fn is None else {"context_fn": context_fn}
+    return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
+def stack_parameters(module: nn.Module, depth: int) -> nn.Module:
+    """Give every parameter of ``module`` a leading depth axis in place (each
+    slice a copy of its value), as flax's scanned and vmapped inits stack
+    them; returns ``module``, whose ``forward`` then runs on one depth
+    slice through :func:`depth_slice`."""
+    for name, p in list(module.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        stacked = p.detach()[None].repeat(depth, *([1] * p.dim()))
+        setattr(module.get_submodule(owner), leaf, nn.Parameter(stacked))
+    return module
+
+
+def depth_slice(names: Sequence[str], stacked: Sequence[torch.Tensor], i: int) -> dict:
+    """Depth slice ``i`` of stacked parameters, by name, for
+    ``torch.func.functional_call``."""
+    return {n: p[i] for n, p in zip(names, stacked)}
+
+
+class ScanBody(nn.Module):
+    """The scanned engine (JAX's ``_ScanBody`` under ``nn.scan``): ``layer``
+    is one TrunkLayer with depth-stacked parameters; the masks are the same
+    at every step."""
+
+    def __init__(self, depth: int, remat: bool, context_fn, **layer_kwargs):
+        super().__init__()
+        self.depth, self.remat, self.context_fn = depth, remat, context_fn
+        self.layer = stack_parameters(TrunkLayer(**layer_kwargs), depth)
+
+    def forward(self, x, m, pair_mask=None, msa_mask=None):
+        names, stacked = zip(*self.layer.named_parameters())
+
+        def step(i, x, m):
+            return torch.func.functional_call(
+                self.layer, depth_slice(names, stacked, i), (x, m, pair_mask, msa_mask))
+
+        for i in range(self.depth):
+            if self.remat:
+                x, m = remat_call(functools.partial(step, i), self.context_fn, x, m)
+            else:
+                x, m = step(i, x, m)
+        return x, m
+
+
 class Trunk(nn.Module):
-    """``depth`` TrunkLayers named ``layer_0`` ... (the flax names).
+    """``depth`` layers under one of the three engines (module docstring).
     ``sparse_self_attn`` is one bool for every layer or a tuple of one per
-    layer; ``seq_len`` and ``sparse_config`` go to the sparse layers."""
+    layer; ``seq_len`` and ``sparse_config`` go to the sparse layers;
+    ``dtype`` is the compute dtype, which only the reversible engine needs
+    (its carry is float32)."""
 
     def __init__(self, dim: int, depth: int = 6, heads: int = 8,
                  dim_head: int = 64, gelu_exact: bool = False,
                  msa_tie_row_attn: bool = False, remat: bool = False,
+                 remat_policy: Optional[str] = None,
                  reversible: bool = False, scan_layers: bool = False,
                  sparse_self_attn: Union[bool, Sequence[bool]] = False,
-                 seq_len: Optional[int] = None, sparse_config=None):
+                 seq_len: Optional[int] = None, sparse_config=None,
+                 msa_row_shard: bool = False, grid_parallel: bool = False,
+                 context_parallel: Optional[str] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        for flag, name in ((remat, "remat"), (reversible, "reversible"),
-                           (scan_layers, "scan_layers")):
-            if flag:
-                raise NotImplementedError(f"trunk {name} is not ported yet")
         sparse = sparse_self_attn
         if not isinstance(sparse, (tuple, list)):
             sparse = (sparse,) * depth
         if len(sparse) != depth:
             raise ValueError(f"sparse_self_attn tuple has {len(sparse)} entries "
                              f"for depth {depth}")
+        # validate eagerly, as JAX does: a policy with remat off, or with the
+        # reversible engine (which never applies one), would be a silent
+        # no-op. "nothing" spells the default and is always allowed
+        context_fn = resolve_remat_policy(remat_policy)
+        if context_fn is not None and (not remat or reversible):
+            raise ValueError(
+                f"remat_policy={remat_policy!r} has no effect "
+                + ("with the reversible engine (it has its own O(1)-memory "
+                   "schedule and never applies checkpoint policies)"
+                   if reversible else "without remat=True"))
+        layer_kwargs = dict(dim=dim, heads=heads, dim_head=dim_head, gelu_exact=gelu_exact,
+                            msa_tie_row_attn=msa_tie_row_attn, seq_len=seq_len,
+                            sparse_config=sparse_config)
         self.depth = depth
+        if reversible:
+            from alphafold2_tpu_torch.models.reversible import ReversibleTrunk
+
+            if len(set(sparse)) > 1:
+                raise ValueError(
+                    "the reversible engine scans one stacked layer; per-layer "
+                    f"sparse_self_attn={tuple(sparse)} needs the python loop")
+            for flag, name, why in (
+                    (context_parallel is not None, "context_parallel",
+                     "its cross-attention runs dense per device"),
+                    (msa_row_shard, "msa_row_shard", "its MSA streams are replicated"),
+                    (grid_parallel, "grid_parallel",
+                     "its axial passes run dense, so the memory benefit would be lost")):
+                if flag:
+                    raise ValueError(f"{name} is not supported by the reversible engine "
+                                     f"({why}); use remat=True with it")
+            self.engine = "reversible"
+            self.reversible = ReversibleTrunk(depth=depth, sparse_attn=bool(sparse[0]),
+                                              dtype=dtype, **layer_kwargs)
+            return
+        if msa_row_shard or grid_parallel or context_parallel is not None:
+            raise NotImplementedError(
+                "MSA-row and pair-grid sharding and context parallelism are not ported yet")
+        self.remat, self.context_fn = remat, context_fn
+        if scan_layers:
+            if len(set(sparse)) > 1:
+                raise ValueError(
+                    "scan_layers needs homogeneous layers; per-layer "
+                    f"sparse_self_attn={tuple(sparse)} requires the python loop")
+            self.engine = "scan"
+            self.scan = ScanBody(depth, remat, context_fn, sparse_attn=bool(sparse[0]),
+                                 **layer_kwargs)
+            return
+        self.engine = "loop"
         for i in range(depth):
-            self.add_module(f"layer_{i}", TrunkLayer(
-                dim, heads, dim_head, gelu_exact=gelu_exact,
-                msa_tie_row_attn=msa_tie_row_attn, sparse_attn=bool(sparse[i]),
-                seq_len=seq_len, sparse_config=sparse_config,
-            ))
+            self.add_module(f"layer_{i}", TrunkLayer(sparse_attn=bool(sparse[i]),
+                                                     **layer_kwargs))
 
     def forward(self, x, m, pair_mask=None, msa_mask=None):
+        if self.engine == "reversible":
+            return self.reversible(x, m, pair_mask=pair_mask, msa_mask=msa_mask)
+        if self.engine == "scan":
+            return self.scan(x, m, pair_mask, msa_mask)
         for i in range(self.depth):
-            x, m = getattr(self, f"layer_{i}")(x, m, pair_mask, msa_mask)
+            layer = getattr(self, f"layer_{i}")
+            if self.remat:
+                x, m = remat_call(layer, self.context_fn, x, m, pair_mask, msa_mask)
+            else:
+                x, m = layer(x, m, pair_mask, msa_mask)
         return x, m

@@ -80,14 +80,18 @@ def synthesize_msa(seq_tokens: np.ndarray, depth: int, seed: int = 0,
     return msa
 
 
-def build_model(cfg: Config, mds_iters: int = 200, mds_seed: Optional[int] = None):
+def build_model(cfg: Config, mds_iters: int = 200, mds_seed: Optional[int] = None,
+                remat_policy: Optional[str] = None, reversible: bool = False):
     """The End2EndModel a config describes (compute dtype bf16 when
     ``model.bfloat16``), with parameters on the CPU in float32. It takes
     the fields JAX's ``predict`` (``alphafold2_tpu/predict.py:137-143``)
-    and ``ServeEngine`` (``serve/engine.py:306-315``) pass: ``gelu_exact``,
-    ``sparse_self_attn``, ``reversible`` and ``scan_layers`` are training
-    options that serving ignores there and here. ``mds_seed`` keys the MDS
-    start (default ``cfg.train.seed``, as the serving engines key it)."""
+    and ``ServeEngine`` (``serve/engine.py:306-315``) pass, ``remat`` among
+    them: ``gelu_exact``, ``sparse_self_attn``, ``remat_policy``,
+    ``reversible`` and ``scan_layers`` are training options that serving
+    ignores there and here, so a reversible config serves the default
+    trunk; end-to-end training passes its ``remat_policy`` and
+    ``reversible``. ``mds_seed`` keys the MDS start (default
+    ``cfg.train.seed``, as the serving engines key it)."""
     from alphafold2_tpu_torch.train.end2end import End2EndModel
 
     m = cfg.model
@@ -102,13 +106,16 @@ def build_model(cfg: Config, mds_iters: int = 200, mds_seed: Optional[int] = Non
         msa_tie_row_attn=m.msa_tie_row_attn,
         mds_seed=cfg.train.seed if mds_seed is None else mds_seed,
         dtype=torch.bfloat16 if m.bfloat16 else torch.float32, remat=m.remat,
+        remat_policy=remat_policy, reversible=reversible,
     )
 
 
 def init_params(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
     """Random weights from a seeded ``torch.Generator``, at flax's scales:
     dense kernels N(0, 1/fan_in), embeddings N(0, 1/dim), biases 0,
-    LayerNorm scale 1 (the model's weights stay float32)."""
+    LayerNorm scale 1 (the model's weights stay float32). A depth-stacked
+    kernel (the scanned and reversible trunks) gets that scale in every
+    depth slice: its fan_in is the layer's ``in_features``."""
     from alphafold2_tpu_torch.ops.layers import Dense, LayerNorm
 
     gen = torch.Generator().manual_seed(seed)

@@ -17,8 +17,10 @@ The MDS start: JAX splits a fresh key each step and starts MDS from a new
 uniform draw over (B, 3L, 3). The port draws that start in [-1, 1) from a
 numpy generator keyed by ``(train.seed + 1, step)`` (:func:`mds_start`)
 and passes it as ``coords0``; the bits differ from threefry, so tests
-inject JAX's start. Dropout, the ``plm``/``embedds`` inputs, the trunk
-engines and a device mesh raise, as in distogram pretraining.
+inject JAX's start. The trunk engines ``remat`` (with ``remat_policy``)
+and ``reversible`` train here as in JAX (:285-295, which passes no
+``scan_layers``). Dropout, the ``plm``/``embedds`` inputs and a device mesh
+raise, as in distogram pretraining.
 """
 
 from __future__ import annotations
@@ -53,7 +55,8 @@ class End2EndModel(nn.Module):
 
     Submodules are ``af2`` and ``refiner``, the flax names. ``mds_seed``
     keys the position-keyed MDS start (utils/mds.py) when no ``coords0`` is
-    passed to :meth:`forward`."""
+    passed to :meth:`forward`. ``remat``, ``remat_policy`` and
+    ``reversible`` choose the trunk's engine (JAX's fields, :71-73)."""
 
     def __init__(
         self,
@@ -67,7 +70,9 @@ class End2EndModel(nn.Module):
         msa_tie_row_attn: bool = False,
         mds_seed: int = 0,
         dtype: torch.dtype = torch.float32,
-        **engine_flags,
+        remat: bool = False,
+        remat_policy: Optional[str] = None,
+        reversible: bool = False,
     ):
         super().__init__()
         self.mds_iters = mds_iters
@@ -75,7 +80,7 @@ class End2EndModel(nn.Module):
         self.af2 = Alphafold2(
             dim=dim, max_seq_len=max_seq_len, depth=depth, heads=heads,
             dim_head=dim_head, msa_tie_row_attn=msa_tie_row_attn, dtype=dtype,
-            **engine_flags,
+            remat=remat, remat_policy=remat_policy, reversible=reversible,
         )
         self.refiner = SE3Refiner(
             dim=64, depth=refiner_depth,
@@ -170,13 +175,14 @@ def make_end2end_step(model: End2EndModel):
 
 def build_end2end_model(cfg: Config, mds_iters: int = 200) -> End2EndModel:
     """The End2EndModel JAX's ``train_end2end`` builds from ``cfg.model``
-    (:285-295): ``msa_tie_row_attn`` and the ``bfloat16`` compute dtype
-    among its fields. The options no training loop honours raise
-    (``loop.check_unported``)."""
+    (:285-295): serving's fields (``predict.build_model``) and, for
+    training, ``remat_policy`` and ``reversible``. The options no training
+    loop honours raise (``loop.check_unported``)."""
     from alphafold2_tpu_torch.predict import build_model
 
     check_unported(cfg)
-    return build_model(cfg, mds_iters=mds_iters)
+    return build_model(cfg, mds_iters=mds_iters, remat_policy=cfg.model.remat_policy,
+                       reversible=cfg.model.reversible)
 
 
 def train_end2end(cfg: Config, num_steps: Optional[int] = None, dataset=None,

@@ -19,8 +19,9 @@ as the JAX step returns its new state.
 Not ported (each raises ``NotImplementedError``): ``train.numerics="full"``
 and the NaN-triage rerun of a skipped step (``numerics="triage"`` gives the
 per-group norms and logs that the rerun did not run), profiling, host span
-traces, a device mesh, the remat / reversible / scanned trunks, dropout,
-and the ``plm`` feature stream.
+traces, a device mesh, dropout, and the ``plm`` feature stream. The trunk
+engines (``remat`` with ``remat_policy``, ``reversible``, ``scan_layers``)
+train as in JAX (``models/trunk.py``, ``models/reversible.py``).
 """
 
 from __future__ import annotations
@@ -92,7 +93,7 @@ def build_model(cfg: Config) -> Alphafold2:
         msa_tie_row_attn=m.msa_tie_row_attn,
         dtype=torch.bfloat16 if m.bfloat16 else torch.float32,
         attn_dropout=m.attn_dropout, ff_dropout=m.ff_dropout, remat=m.remat,
-        reversible=m.reversible, scan_layers=m.scan_layers,
+        remat_policy=m.remat_policy, reversible=m.reversible, scan_layers=m.scan_layers,
         sparse_self_attn=m.sparse_self_attn,
     )
 
@@ -237,8 +238,6 @@ def check_unported(cfg: Config) -> None:
     if m.attn_dropout or m.ff_dropout:
         raise NotImplementedError(
             f"dropout (attn {m.attn_dropout}, ff {m.ff_dropout}) is not ported yet")
-    if m.reversible:
-        raise NotImplementedError("trunk reversible is not ported yet")
     for field, value in (("profile_dir", t.profile_dir), ("trace_events", t.trace_events)):
         if value:
             raise NotImplementedError(f"train.{field} is not ported yet")

@@ -129,7 +129,26 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
               resumed into a fresh model equal to an uninterrupted run bit
               for bit, and predict from it equal to predict(state_dict=);
               the step alone timed, profiled, and split into trunk,
-              structure (MDS), refiner and loss; the two steps in turns.
+              structure (MDS), refiner and loss; the two steps in turns;
+9. engines  — the trunk engines at the training smoke's width: the
+              default, remat (no policy, "dots", "dots_no_batch"), scan,
+              scan+remat, reversible, tied and sparse reversible, and
+              end-to-end training at its CLI's width with remat and with
+              reversible: 3 steps each through train.loop.train or
+              train_end2end (finite, unskipped, every launch on its
+              Hopper kernel, no plain version, launches a step as each
+              schedule gives them), then the step alone timed with its peak
+              memory; one remat and one reversible step profiled; remat and
+              scan against the default engine at full width (loss and
+              gradients, bit-equal or the worst leaf); a small f32
+              reversible model on the card against the CPU's plain
+              versions; RevLayerPair's inversion at full width, one
+              layer and six (f32 compute; bf16 on the f32 carry; bf16 on a
+              bf16 carry); the reversible backward against plain autograd
+              at full width, f32 and bf16; peak
+              memory at depth 6 and 12 for the default, remat and
+              reversible engines; serving with model.remat=True equal to
+              remat=False on one bucket-128 batch.
 
 ``phase_k1_time`` (not part of the run) times K1 alone on its nine
 main-path passes beside SDPA: ``python3 -c "import chip_smoke as c;
@@ -1884,24 +1903,7 @@ def phase_train(sparse=False, tied=False):
         small.model.msa_tie_row_attn = tied
         small.data.crop_len, small.data.msa_depth, small.data.msa_len = crop, 3, 32
         small.data.batch_size = 2
-        batch = next(iter(SyntheticDataset(small.data, seed=3)))
-        grads = {}
-        for dev in ("cpu", "cuda"):
-            st = loop.init_state(small, loop.build_model(small), device=dev)
-            st, _ = loop.make_train_step(st.model)(
-                st, loop.batch_to_device(batch, torch.device(dev)))
-            grads[dev] = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).cpu()
-                          for n, p in st.model.named_parameters()}
-        worst, worst_name = 0.0, ""
-        for name, g_cpu in grads["cpu"].items():
-            g_gpu = grads["cuda"][name]
-            norm = float(g_cpu.norm())
-            if norm == 0.0:
-                require(bool((g_gpu == 0).all()), f"{name}: zero on the CPU, nonzero on the card")
-                continue
-            rel = float((g_gpu - g_cpu).norm()) / norm
-            if rel > worst:
-                worst, worst_name = rel, name
+        _, worst, worst_name = _small_step_card_vs_cpu(small)
         log(f"{tag} small f32 model (crop {crop}), card vs CPU gradients: worst per-leaf "
             f"relative L2 {worst:.3e} ({worst_name}; tol {GRAD_REL_L2:g})")
         require(worst <= GRAD_REL_L2,
@@ -1909,21 +1911,12 @@ def phase_train(sparse=False, tied=False):
 
     # (d) the step alone (numerics off, no callbacks, one batch on the
     # card): its rate, then one step under the profiler
-    st = loop.init_state(cfg, loop.build_model(cfg))
-    step = loop.make_train_step(st.model)
-    data = iter(SyntheticDataset(cfg.data, seed=cfg.train.seed))
-    b = loop.batch_to_device(next(data), torch.device("cuda"))
-    step(st, b)  # warm
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(STEP_REPS):
-        step(st, b)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / STEP_REPS * 1e3
+    step = _step_fn(cfg, False)
+    step_ms, _ = _time_step(step, STEP_REPS)
     log(f"{tag} the step alone, {STEP_REPS} steps: {step_ms:.2f} ms per step, "
         f"{1e3 / step_ms:.2f} steps/s")
     kind = "sparse " if sparse else "tied " if tied else ""
-    profile_device(f"one {kind}training step", lambda: step(st, b), host=True)
+    profile_device(f"one {kind}training step", step, host=True)
     return {"launches": launches, "steps": steps, "wall_s": wall,
             "step_ms": step_ms, "peak_bytes": peak}
 
@@ -2345,28 +2338,15 @@ def _e2e_run(tied):
 
     # (6) the step alone (no callbacks, one batch on the card): its rate,
     # then one step under the profiler, whole and split into its parts
-    st = loop.init_state(cfg, end2end.build_end2end_model(cfg))
-    step = end2end.make_end2end_step(st.model)
-    b = loop.batch_to_device(next(iter(SyntheticDataset(cfg.data, seed=cfg.train.seed))),
-                             torch.device("cuda"))
-    n = 3 * cfg.data.crop_len
-    coords0 = end2end.mds_start(cfg.train.seed + 1, 0, 1, n, "cuda")
-    step(st, b, coords0)  # warm
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    for _ in range(STEP_REPS):
-        step(st, b, coords0)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / STEP_REPS * 1e3
-    step_peak = torch.cuda.max_memory_allocated()
+    step = _step_fn(cfg, True)
+    step_ms, step_peak = _time_step(step, STEP_REPS)
     log(f"{tag} the step alone, {STEP_REPS} steps: {step_ms:.2f} ms per step, "
         f"{1e3 / step_ms:.3f} steps/s; peak device memory {step_peak / 2**30:.2f} GiB")
     kind = "tied " if tied else ""
-    profile_device(f"one {kind}end-to-end step", lambda: step(st, b, coords0), host=True)
-    profile_end2end(f"one {kind}end-to-end step", st.model, lambda: step(st, b, coords0))
+    profile_device(f"one {kind}end-to-end step", step, host=True)
+    profile_end2end(f"one {kind}end-to-end step", step.model, step)
     return {"launches": launches, "steps": E2E_STEPS, "wall_s": wall, "step_ms": step_ms,
-            "peak_bytes": peak, "step": lambda: step(st, b, coords0)}
+            "peak_bytes": peak, "step": step}
 
 
 def phase_end2end():
@@ -2391,6 +2371,502 @@ def phase_end2end():
                                  for k, v in turns.items()))
     log(f"[end2end] phase: {time.perf_counter() - t0:.1f} s")
     return out
+
+
+# --------------------------------------------------------------- phase 9
+
+
+ENGINE_STEPS = 3  # steps through the training entry point per engine
+ENGINE_REPS = 5  # steps timed back to back per engine
+MEMORY_DEPTHS = (6, 12)  # the trunk depths of the peak-memory sweep
+# the engines at the training smoke's width (Config(): dim 256, depth 6,
+# heads 8, dim_head 64, bf16, crop 128, MSA 5x64, batch 1): label ->
+# ModelConfig fields; "e2e ..." at the end-to-end CLI's width instead
+ENGINES = {
+    "default": {},
+    "remat": {"remat": True},
+    "remat dots": {"remat": True, "remat_policy": "dots"},
+    "remat dots_no_batch": {"remat": True, "remat_policy": "dots_no_batch"},
+    "scan": {"scan_layers": True},
+    "scan+remat": {"scan_layers": True, "remat": True},
+    "reversible": {"reversible": True},
+    "tied reversible": {"reversible": True, "msa_tie_row_attn": True},
+    "sparse reversible": {"reversible": True, "sparse_self_attn": True},
+    "e2e remat": {"remat": True},
+    "e2e reversible": {"reversible": True},
+}
+# card against card at full width, bf16: the engines' gradients against the
+# default engine's (the same network, another schedule), per-leaf relative L2
+ENGINE_GRAD_REL_L2 = 2e-2
+
+
+def _engine_config(label, depth=None):
+    """The configuration an ENGINES label names."""
+    from alphafold2_tpu_torch.config import Config
+
+    cfg = _e2e_config(False) if label.startswith("e2e") else Config()
+    for field, value in ENGINES[label].items():
+        setattr(cfg.model, field, value)
+    if depth is not None:
+        cfg.model.depth = depth
+    return cfg
+
+
+def _step_fn(cfg, e2e):
+    """A fresh state at ``cfg`` on the card and its step on one synthetic
+    batch (numerics off, no callbacks), as a closure whose ``model``
+    attribute is the state's model. ``e2e``: the end-to-end step, from
+    step 0's MDS start."""
+    import torch
+
+    from alphafold2_tpu_torch.data.pipeline import SyntheticDataset
+    from alphafold2_tpu_torch.train import end2end, loop
+
+    model = end2end.build_end2end_model(cfg) if e2e else loop.build_model(cfg)
+    st = loop.init_state(cfg, model)
+    batch = loop.batch_to_device(next(iter(SyntheticDataset(cfg.data, seed=cfg.train.seed))),
+                                 torch.device("cuda"))
+    step = (end2end.make_end2end_step if e2e else loop.make_train_step)(st.model)
+    extra = ((end2end.mds_start(cfg.train.seed + 1, 0, 1, 3 * cfg.data.crop_len, "cuda"),)
+             if e2e else ())
+
+    def fn():
+        return step(st, batch, *extra)
+
+    fn.model = st.model
+    return fn
+
+
+def _time_step(fn, reps):
+    """ms per step over ``reps`` warm steps, and the peak device memory
+    allocated while they ran (parameters and optimizer state included)."""
+    import torch
+
+    fn()  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()  # the peak starts at what is allocated now
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3, torch.cuda.max_memory_allocated()
+
+
+def _free():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _expected_launches(label, depth):
+    """Kernel launches a step that an engine's schedule gives, by
+    _training_kernels name."""
+    f = ENGINES[label]
+    tied, sparse = f.get("msa_tie_row_attn", False), f.get("sparse_self_attn", False)
+    dense = 6 - tied - 2 * sparse  # K1 passes a layer
+    if f.get("reversible"):
+        # each pass runs once without the row logsumexp (the forward, under
+        # no gradient) and once with it (the re-evaluation in the backward),
+        # then its backward: every pass, the last layer's MSA updates too
+        out = {"fused_attention": 2 * dense * depth, "fused_attention_bwd_dq": dense * depth,
+               "fused_attention_bwd_dkv": dense * depth}
+        if tied:
+            out.update({"tied_row_attention": 2 * depth, "tied_row_attention_bwd_dq": depth,
+                        "tied_row_attention_bwd_dkv": depth})
+        if sparse:
+            out.update({"block_sparse_attention (no lse)": 2 * depth,
+                        "block_sparse_attention": 2 * depth,
+                        "block_sparse_attention_bwd_dq": 2 * depth,
+                        "block_sparse_attention_bwd_dkv": 2 * depth})
+        return out
+    # remat recomputes each layer's forward in the backward; the last
+    # layer's MSA<-pair update reaches no output and runs no backward
+    runs = 2 if f.get("remat") else 1
+    return {"fused_attention": runs * 6 * depth, "fused_attention_bwd_dq": 6 * depth - 1,
+            "fused_attention_bwd_dkv": 6 * depth - 1}
+
+
+def _engine_run(label):
+    """ENGINE_STEPS steps of one engine through its training entry point
+    (finite losses, no skipped step, every launch on its Hopper kernel, no
+    plain version), then the step alone timed with its peak memory."""
+    import numpy as np
+    import torch
+
+    from alphafold2_tpu_torch.train import end2end, loop
+
+    e2e = label.startswith("e2e")
+    cfg = _engine_config(label)
+    plain, kernels = _plain_versions(), _training_kernels()
+    losses, oks = [], []
+    _reset_counts(kernels, plain)
+    train = end2end.train_end2end if e2e else loop.train
+    state = train(cfg, num_steps=ENGINE_STEPS, callbacks=[
+        lambda i, s, m: (losses.append(float(m["loss"])), oks.append(bool(m["grads_ok"])))])
+    skipped = int(state.skipped)
+    del state
+    per_step = {name: fn.launches / ENGINE_STEPS for name, fn in kernels.items() if fn.launches}
+    missed = {name: fn.launches - fn.sm90_launches for name, fn in kernels.items()
+              if hasattr(fn, "sm90_launches") and fn.sm90_launches != fn.launches}
+    plain_calls = sum(fn.calls for fn in plain)
+    _free()
+    resident = torch.cuda.memory_allocated()  # held before the model is built
+    fn = _step_fn(cfg, e2e)
+    step_ms, peak = _time_step(fn, ENGINE_REPS)
+    del fn
+    _free()
+    log(f"[engines] {label} (depth {cfg.model.depth}, crop {cfg.data.crop_len}): losses "
+        + " ".join(f"{x:.4f}" for x in losses) + f", skipped {skipped}; the step alone "
+        f"{step_ms:.2f} ms ({1e3 / step_ms:.3f} steps/s) over {ENGINE_REPS} steps, peak device "
+        f"memory {peak / 2**20:.1f} MiB ({resident / 2**20:.1f} MiB held before the model); kernel launches a step {per_step}; launches off their "
+        f"Hopper kernel {missed}; plain-version calls {plain_calls}")
+    require(bool(np.isfinite(losses).all()) and all(oks) and skipped == 0,
+            f"{label}: a non-finite loss or a skipped step")
+    require(not missed, f"{label}: a launch missed its Hopper kernel")
+    require(plain_calls == 0, f"{label}: a plain version ran")
+    expected = _expected_launches(label, cfg.model.depth)
+    off = {name: (per_step.get(name, 0), n) for name, n in expected.items()
+           if per_step.get(name, 0) != n}
+    if off:
+        log(f"[engines] {label}: launches a step (measured, expected) {off}")
+    return {"label": label, "step_ms": step_ms, "peak_bytes": peak, "launches": per_step,
+            "losses": losses, "off_expected": off}
+
+
+def _loss_and_grads(model, batch):
+    """The distogram loss of one batch and every parameter's gradient (f32;
+    zeros for a leaf that does not reach the loss)."""
+    import torch
+
+    from alphafold2_tpu_torch.train import loop
+    from alphafold2_tpu_torch.utils.structure import get_bucketed_distance_matrix
+
+    model.zero_grad(set_to_none=True)
+    logits = model(batch["seq"], batch.get("msa"), mask=batch["mask"],
+                   msa_mask=batch.get("msa_mask"))
+    loss = loop.distogram_cross_entropy(
+        logits, get_bucketed_distance_matrix(batch["coords"], batch["mask"]))
+    loss.backward()
+    return float(loss.detach()), {n: (p.grad if p.grad is not None else torch.zeros_like(p)).float()
+                         for n, p in model.named_parameters()}
+
+
+def _engines_against_default():
+    """Remat under each policy and the scanned trunk (with and without
+    remat) against the default engine at full width on the card: the same
+    weights (the scan's stacked from the loop's layers) and batch; the loss
+    and every gradient leaf, bit-equal or the worst relative L2."""
+    import torch
+
+    from alphafold2_tpu_torch.data.pipeline import SyntheticDataset
+    from alphafold2_tpu_torch.predict import init_params
+    from alphafold2_tpu_torch.train import loop
+
+    cfg = _engine_config("default")
+    batch = loop.batch_to_device(next(iter(SyntheticDataset(cfg.data, seed=cfg.train.seed))),
+                                 torch.device("cuda"))
+    base = init_params(loop.build_model(cfg), cfg.train.seed).cuda()
+    sd = base.state_dict()
+    ref_loss, ref = _loss_and_grads(base, batch)
+    del base
+    depth = cfg.model.depth
+    for label in ("remat", "remat dots", "remat dots_no_batch", "scan", "scan+remat"):
+        c = _engine_config(label)
+        model = loop.build_model(c)
+        if c.model.scan_layers:
+            prefix = "trunk.scan.layer."
+            model.load_state_dict({
+                k: (torch.stack([sd[f"trunk.layer_{i}.{k[len(prefix):]}"] for i in range(depth)])
+                    if k.startswith(prefix) else sd[k]) for k in model.state_dict()})
+        else:
+            model.load_state_dict(sd)
+        loss, grads = _loss_and_grads(model.cuda(), batch)
+        if c.model.scan_layers:  # each layer's slice of the stacked gradients
+            grads = {**{k: g for k, g in grads.items() if not k.startswith(prefix)},
+                     **{f"trunk.layer_{i}.{k[len(prefix):]}": g[i] for k, g in grads.items()
+                        if k.startswith(prefix) for i in range(depth)}}
+        require(set(grads) == set(ref), f"{label}: another parameter set than the default's")
+        equal = loss == ref_loss and all(torch.equal(grads[k], ref[k]) for k in ref)
+        worst, worst_name = 0.0, ""
+        for k, g in ref.items():
+            norm = float(g.norm())
+            rel = float((grads[k] - g).norm()) / norm if norm else float((grads[k] != 0).any())
+            if rel > worst:
+                worst, worst_name = rel, k
+        log(f"[engines] {label} against the default engine at full width (bf16): loss "
+            f"{loss:.6f} vs {ref_loss:.6f}; loss and gradients bit-equal: {equal}; worst "
+            f"per-leaf relative L2 {worst:.3e} ({worst_name or '-'}; tol {ENGINE_GRAD_REL_L2:g})")
+        require(abs(loss - ref_loss) <= 1e-3 * abs(ref_loss) and worst <= ENGINE_GRAD_REL_L2,
+                f"{label} disagrees with the default engine")
+        del model, grads
+        _free()
+
+
+def _small_step_card_vs_cpu(small):
+    """One training step of the small f32 model ``small`` describes, from
+    the same weights and batch (seed 3) on the CPU's plain versions and on
+    the card's kernels: both losses, and the worst per-leaf gradient
+    relative L2 with its leaf (a leaf 0 on the CPU must be 0 on the card)."""
+    import torch
+
+    from alphafold2_tpu_torch.data.pipeline import SyntheticDataset
+    from alphafold2_tpu_torch.train import loop
+
+    batch = next(iter(SyntheticDataset(small.data, seed=3)))
+    loss, grads = {}, {}
+    for side, dev in (("plain", "cpu"), ("kernels", "cuda")):
+        st = loop.init_state(small, loop.build_model(small), device=dev)
+        st, met = loop.make_train_step(st.model)(
+            st, loop.batch_to_device(batch, torch.device(dev)))
+        loss[side] = float(met["loss"])
+        grads[side] = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).cpu()
+                       for n, p in st.model.named_parameters()}
+    worst, worst_name = 0.0, ""
+    for name, g_cpu in grads["plain"].items():
+        g_gpu = grads["kernels"][name]
+        norm = float(g_cpu.norm())
+        if norm == 0.0:
+            require(bool((g_gpu == 0).all()), f"{name}: zero on the CPU, nonzero on the card")
+            continue
+        rel = float((g_gpu - g_cpu).norm()) / norm
+        if rel > worst:
+            worst, worst_name = rel, name
+    return loss, worst, worst_name
+
+
+def _reversible_parity():
+    """A small f32 reversible model: one step's loss and gradients on the
+    card's kernels against the CPU's plain versions, as phase_train (c)
+    holds the default engine: the loss within 1e-5 relative, every leaf
+    within 1e-3 relative L2 (the inversion recomputes every activation from
+    the final state, so each side's roundoff enters its backward twice)."""
+    from alphafold2_tpu_torch.config import Config
+
+    small = Config()
+    small.model.dim, small.model.depth, small.model.heads, small.model.dim_head = 64, 2, 4, 16
+    small.model.bfloat16 = False
+    small.model.reversible = True
+    small.data.crop_len, small.data.msa_depth, small.data.msa_len = 48, 3, 32
+    small.data.batch_size = 2
+    loss, worst, worst_name = _small_step_card_vs_cpu(small)
+    loss_rel = abs(loss["kernels"] - loss["plain"]) / abs(loss["plain"])
+    log(f"[engines] small f32 reversible model (dim 64, depth 2, crop 48), card vs CPU: loss "
+        f"{loss['kernels']:.6f} vs {loss['plain']:.6f} (relative {loss_rel:.2e}; tol 1e-5), worst "
+        f"per-leaf gradient relative L2 {worst:.3e} ({worst_name}; tol 1e-3)")
+    require(loss_rel <= 1e-5, "small reversible loss disagrees between the card and the CPU")
+    require(worst <= 1e-3, "small reversible gradients disagree between the card and the CPU")
+
+
+# bounds on the reversible inversion's relative L2 error, one layer and the
+# engine's depth: f32 compute inverts at f32 roundoff; bf16 compute does not
+# (on the f32 carry each re-evaluated sub-function sees inputs that differ
+# from the forward's by f32 roundoff, and a bf16 rounding of its LayerNorm
+# output that flips there moves its output by a bf16 ulp, so each layer
+# reconstructs to about 2e-3 and the error grows through the layers above
+# it); the bf16 bounds only catch a coupling that does not invert at all
+INVERT_REL_L2 = {"f32": (1e-5, 1e-4), "bf16": (1e-2, 1e-1)}
+
+
+def _reversible_inversion():
+    """RevLayerPair.invert(forward(h)) at full width with the training
+    batch's masks, one layer and the engine's depth (forward through every
+    layer, then inverted back): f32 compute, bf16 compute on the f32 carry
+    the engine keeps, and bf16 compute on a bf16 carry for comparison. The
+    max and the relative L2 error, held to INVERT_REL_L2."""
+    import torch
+
+    from alphafold2_tpu_torch.data.pipeline import SyntheticDataset
+    from alphafold2_tpu_torch.models.reversible import RevLayerPair
+    from alphafold2_tpu_torch.predict import init_params
+
+    cfg = _engine_config("default")
+    m = cfg.model
+    batch = next(iter(SyntheticDataset(cfg.data, seed=cfg.train.seed)))
+    mask = torch.from_numpy(batch["mask"]).bool().cuda()
+    pm, mm = mask[:, :, None] & mask[:, None, :], torch.from_numpy(batch["msa_mask"]).bool().cuda()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    n, (r, l) = cfg.data.crop_len, mm.shape[1:]
+    x = torch.randn((1, n, n, m.dim), generator=gen, device="cuda")
+    msa = torch.randn((1, r, l, m.dim), generator=gen, device="cuda")
+    out = {}
+    for compute, carry, depth in ((torch.float32, torch.float32, 1),
+                                  (torch.float32, torch.float32, m.depth),
+                                  (torch.bfloat16, torch.float32, 1),
+                                  (torch.bfloat16, torch.float32, m.depth),
+                                  (torch.bfloat16, torch.bfloat16, 1)):
+        what = (f"{'bf16' if compute == torch.bfloat16 else 'f32'} compute, "
+                f"{'bf16' if carry == torch.bfloat16 else 'f32'} carry, {depth} layer(s)")
+        layers = [init_params(RevLayerPair(m.dim, m.heads, m.dim_head, dtype=compute),
+                              seed=1 + i).cuda() for i in range(depth)]
+        h = tuple(t.to(carry) for t in (x, 0.5 * x, msa, 0.5 * msa))
+        with torch.no_grad():
+            stepped = h
+            for layer in layers:
+                stepped = layer(stepped, pm, mm)
+            back = stepped
+            for layer in reversed(layers):
+                back = layer.invert(back, pm, mm)
+        diff = [(a.float() - b.float()) for a, b in zip(h, back)]
+        err = max(float(d.abs().max()) for d in diff)
+        rel = float(torch.stack([d.norm() for d in diff]).norm()
+                    / torch.stack([a.float().norm() for a in h]).norm())
+        moved = max(float((a.float() - b.float()).abs().max()) for a, b in zip(h, stepped))
+        scale = max(float(a.float().abs().max()) for a in h)
+        out[what] = {"max": err, "rel_l2": rel}
+        log(f"[engines] RevLayerPair at dim {m.dim}, crop {n}, MSA {r}x{l}, {what}: "
+            f"invert(forward(h)) - h: max {err:.3e} (max |h| {scale:.3f}, the forward moved h "
+            f"by up to {moved:.3f}), relative L2 {rel:.3e}")
+        del layers
+        if carry == torch.float32:
+            bound = INVERT_REL_L2["bf16" if compute == torch.bfloat16 else "f32"][depth > 1]
+            require(moved > 0.1 and rel <= bound,
+                    f"the reversible coupling ({what}) does not invert within {bound:g}")
+    return out
+
+
+def _reversible_custom_vs_plain():
+    """The reversible engine's hand-written backward against plain autograd
+    through the same coupling, at full width on the card, f32 and then bf16
+    compute from the same weights (the forwards take K1 without and with
+    the row logsumexp): the loss within 1e-5 (f32) or 1e-3 (bf16) relative;
+    the gradients' relative L2 over every leaf at once within 1e-4 (f32,
+    roundoff) or 0.1 (bf16: the bf16 inversion error above enters the
+    backward; a wrong backward is off by O(1)), and the worst leaf's. The
+    yardstick for bf16: plain autograd in bf16 against plain autograd in
+    f32, the rounding any bf16 step carries."""
+    import torch
+
+    from alphafold2_tpu_torch.data.pipeline import SyntheticDataset
+    from alphafold2_tpu_torch.predict import init_params
+    from alphafold2_tpu_torch.train import loop
+
+    def rel(grads, ref):
+        total = float(torch.stack([(grads[k] - g).norm() for k, g in ref.items()]).norm()
+                      / torch.stack([g.norm() for g in ref.values()]).norm())
+        worst = max((float((grads[k] - g).norm() / g.norm()), k)
+                    for k, g in ref.items() if float(g.norm()) > 0)
+        return total, worst
+
+    out, f32_plain = {}, None
+    for bf16, bound, loss_bound in ((False, 1e-4, 1e-5), (True, 1e-1, 1e-3)):
+        cfg = _engine_config("reversible")
+        cfg.model.bfloat16 = bf16
+        batch = loop.batch_to_device(
+            next(iter(SyntheticDataset(cfg.data, seed=cfg.train.seed))), torch.device("cuda"))
+        model = init_params(loop.build_model(cfg), cfg.train.seed).cuda()
+        custom_loss, custom = _loss_and_grads(model, batch)
+        model.trunk.reversible.use_custom_vjp = False
+        plain_loss, plain = _loss_and_grads(model, batch)
+        total, (worst, worst_name) = rel(custom, plain)
+        what = "bf16" if bf16 else "f32"
+        out[what] = {"total": total, "worst": worst}
+        log(f"[engines] reversible at full width, {what} compute: custom backward vs plain "
+            f"autograd: loss {custom_loss:.6f} vs {plain_loss:.6f}; gradient relative L2 over "
+            f"every leaf {total:.3e} (tol {bound:g}), worst leaf {worst:.3e} ({worst_name})")
+        if bf16:
+            for side, grads in (("plain autograd", plain), ("custom backward", custom)):
+                t, (w, name) = rel(grads, f32_plain)
+                out[f"bf16 {side} vs f32"] = {"total": t, "worst": w}
+                log(f"[engines] reversible at full width, bf16 {side} against f32 plain "
+                    f"autograd: gradient relative L2 over every leaf {t:.3e}, worst leaf "
+                    f"{w:.3e} ({name})")
+        else:
+            f32_plain = plain
+        require(abs(custom_loss - plain_loss) <= loss_bound * abs(plain_loss) and total <= bound,
+                f"the reversible backward ({what}) disagrees with plain autograd")
+        del model, custom, plain
+        _free()
+    return out
+
+
+def _memory_sweep(at_depth6):
+    """Peak device memory of one training step at depth 6 (from the engine
+    runs) and 12 for the default, remat and reversible engines, and each
+    engine's slope a layer."""
+    import torch
+
+    out = {}
+    for label in ("default", "remat", "reversible"):
+        peaks = {MEMORY_DEPTHS[0]: at_depth6[label]["peak_bytes"]}
+        for depth in MEMORY_DEPTHS[1:]:
+            resident = torch.cuda.memory_allocated()
+            fn = _step_fn(_engine_config(label, depth), False)
+            _, peaks[depth] = _time_step(fn, 1)
+            del fn
+            _free()
+            log(f"[engines] {label} at depth {depth}: {resident / 2**20:.1f} MiB held before "
+                "the model")
+        d0, d1 = MEMORY_DEPTHS[0], MEMORY_DEPTHS[-1]
+        slope = (peaks[d1] - peaks[d0]) / (d1 - d0)
+        out[label] = {"peaks": peaks, "slope_bytes": slope}
+        log(f"[engines] peak device memory of one step, {label}: "
+            + ", ".join(f"depth {d} {p / 2**20:.1f} MiB" for d, p in peaks.items())
+            + f"; {slope / 2**20:.1f} MiB a layer")
+    require(out["remat"]["slope_bytes"] < out["default"]["slope_bytes"]
+            and out["reversible"]["slope_bytes"] < out["default"]["slope_bytes"],
+            "remat or reversible memory grows with depth as fast as the default engine's")
+    return out
+
+
+def _serve_with_remat():
+    """model.remat=True serves one batch of the serving smoke (bucket 128,
+    full width, tied rows) with the same atom14 as remat=False."""
+    import dataclasses
+
+    import numpy as np
+
+    from alphafold2_tpu_torch.config import Config
+    from alphafold2_tpu_torch.serve.engine import ServeEngine, ServeRequest
+
+    cfg = Config()
+    cfg.model.msa_tie_row_attn = True
+    cfg.serve.msa_depth = 5
+    cfg_r = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, remat=True))
+    rng = np.random.default_rng(7)
+    reqs = [ServeRequest("".join(rng.choice(list("ACDEFGHIKLMNPQRSTVWY"), n)), seed=i)
+            for i, n in enumerate((110, 128))]
+    plain = ServeEngine(cfg)
+    remat = ServeEngine(cfg_r, state_dict=plain.model.state_dict())
+    require(remat.model.af2.trunk.remat, "the serving trunk did not take model.remat")
+    a, b = plain.predict_many(reqs), remat.predict_many(reqs)
+    require(all(r.ok for r in a + b), "a serving request failed")
+    equal = all(np.array_equal(x.atom14, y.atom14) for x, y in zip(a, b))
+    diff = max(float(np.abs(x.atom14 - y.atom14).max()) for x, y in zip(a, b))
+    log(f"[engines] serving with model.remat=True, one bucket-{a[0].bucket} batch of "
+        f"{len(reqs)}: atom14 bit-equal to remat=False: {equal} (max |diff| {diff:.3e})")
+    require(equal, "serving with model.remat=True differs from remat=False")
+    del plain, remat
+    _free()
+
+
+def phase_engines():
+    """The trunk engines (log tag ``[engines]``): each ENGINES entry trained
+    through its entry point at full width (launches a step, the step alone,
+    peak memory); remat and scan held to the default engine on the card; a
+    small f32 reversible model held to the CPU's plain versions; the
+    reversible step inverted at full width; peak memory at depth 6 and 12;
+    serving with model.remat=True."""
+    t0 = time.perf_counter()
+    runs = {label: _engine_run(label) for label in ENGINES}
+    off = {label: r["off_expected"] for label, r in runs.items() if r["off_expected"]}
+    require(not off, f"launches a step off the engines' schedules: {off}")
+    for label in ("remat", "reversible"):
+        fn = _step_fn(_engine_config(label), False)
+        fn()  # warm
+        profile_device(f"one {label} training step", fn, host=True)
+        del fn
+        _free()
+    _engines_against_default()
+    _reversible_parity()
+    _reversible_inversion()
+    _reversible_custom_vs_plain()
+    memory = _memory_sweep(runs)
+    _serve_with_remat()
+    log(f"[engines] phase: {time.perf_counter() - t0:.1f} s")
+    return {"runs": runs, "memory": memory}
 
 
 # --------------------------------------------------------------- phase 6
@@ -3327,7 +3803,7 @@ def _step_weights(backward, depth=6):
     return weights
 
 
-def kernel_line(rows, serve, train, tied_train, sparse_train, gate):
+def kernel_line(rows, serve, train, tied_train, sparse_train, gate, engines):
     """One entry per kernel. K1 sums one serving trunk layer's K1 calls at
     bucket 128 (two pair axial passes, the MSA column pass, both cross
     attentions; a call's time includes its combine pass where it splits),
@@ -3345,7 +3821,9 @@ def kernel_line(rows, serve, train, tied_train, sparse_train, gate):
     training run's launches; library_ms is SDPA's whole backward on the
     folded (B, H, N, R*D) tensors. scale_rows (X's counterpart) is the gate
     phase's one launch at X's (4, 512) f32, timed alone in f32; library_ms is
-    torch.mul(x, 2)."""
+    torch.mul(x, 2). Each training kernel's entry also carries
+    ``engine_launches``: its launches a step under each engine of
+    phase_engines (K4 with and without the row logsumexp together)."""
     serve_k1 = {"pair axial pass (1536x8, 384x384, d64)": 2,
                 "MSA column pass (512x8, 5x5, d64)": 1,
                 "pair<-MSA cross (4x8, 147456x640, d64)": 1,
@@ -3356,7 +3834,7 @@ def kernel_line(rows, serve, train, tied_train, sparse_train, gate):
     tied_bwd = "alphafold2_tpu_torch/csrc/tied_row_attention_bwd.cu"
     step_tied = {TIED_TRAIN_LABEL: 6}  # one tied MSA row pass a layer
     sparse_bwd = "alphafold2_tpu_torch/csrc/block_sparse_attention_bwd.cu"
-    return {"kernels": [
+    entries = [
         _entry("fused_attention", "alphafold2_tpu_torch/csrc/fused_attention.cu",
                "alphafold2_tpu/ops/pallas/axial.py:249",
                serve["launches"]["fused_attention"], rows, serve_k1),
@@ -3384,7 +3862,15 @@ def kernel_line(rows, serve, train, tied_train, sparse_train, gate):
         _entry("scale_rows", "alphafold2_tpu_torch/csrc/controls/scale_rows.cu",
                "alphafold2_tpu/analysis/lowering.py:267", gate["launches"], [gate["row"]],
                {gate["row"]["label"]: 1}, dtype="float32"),
-    ]}
+    ]
+    for e in entries:
+        if e["name"] in _training_kernels():
+            e["engine_launches"] = {
+                label: run["launches"].get(e["name"], 0)
+                + (run["launches"].get("block_sparse_attention (no lse)", 0)
+                   if e["name"] == "block_sparse_attention" else 0)
+                for label, run in engines["runs"].items()}
+    return {"kernels": entries}
 
 
 def main() -> int:
@@ -3445,13 +3931,14 @@ def main() -> int:
         tied_train = phase_train(tied=True)
         sparse_train = phase_train(sparse=True)
         phase_end2end()
+        engines = phase_engines()
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
         log("chip_smoke: FAILED")
         return 1
     log(card)
-    print(json.dumps(kernel_line(rows, serve, train, tied_train, sparse_train, gate)),
-          flush=True)
+    print(json.dumps(kernel_line(rows, serve, train, tied_train, sparse_train, gate,
+                                 engines)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

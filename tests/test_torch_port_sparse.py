@@ -442,8 +442,9 @@ def test_trunk_checks_the_per_layer_flags():
 
     with pytest.raises(ValueError, match="2 entries for depth 3"):
         Trunk(16, depth=3, heads=2, dim_head=8, sparse_self_attn=(True, False))
-    with pytest.raises(NotImplementedError):
-        Trunk(16, depth=1, heads=2, dim_head=8, sparse_self_attn=True, reversible=True)
+    with pytest.raises(ValueError, match="per-layer"):
+        Trunk(16, depth=2, heads=2, dim_head=8, sparse_self_attn=(True, False),
+              reversible=True)
 
 
 def test_train_pre_cli_takes_the_sparse_override(capsys):

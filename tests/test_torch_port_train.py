@@ -422,8 +422,8 @@ def test_config_matches_the_jax_config_and_parses_overrides():
 
 
 @pytest.mark.parametrize("change", [
-    ("model", "attn_dropout", 0.1), ("model", "ff_dropout", 0.1), ("model", "remat", True),
-    ("model", "reversible", True), ("model", "scan_layers", True),
+    ("model", "attn_dropout", 0.1), ("model", "ff_dropout", 0.1), ("mesh", "grid_cols", 2),
+    ("data", "source", "npz"), ("data", "source", "sidechainnet"),
     ("mesh", "seq_parallel", 2), ("train", "numerics", "full"),
     ("mesh", "grid_rows", 2), ("train", "profile_dir", "prof"),
     ("train", "trace_events", "trace.json"), ("mesh", "data_parallel", 2),

@@ -14,8 +14,8 @@ Weights come from the port's own init (``predict.init_params``, a seeded
 Targets waiving a rule carry its id in ``allow`` with a reason in
 ``allow_reasons``: a waiver without a reason fails construction, as in JAX.
 
-JAX targets that wait for parallelism (ROADMAP section 1, item 8):
-``serve_fwd_grid`` (a 2D pair-grid mesh) and ``serve_fwd_long`` (the
+JAX targets that wait for parallelism (ROADMAP section 1, long chains and
+parallelism): ``serve_fwd_grid`` (a 2D pair-grid mesh) and ``serve_fwd_long`` (the
 sequence-parallel long-bucket rung) — see :data:`NOT_PORTED`.
 """
 
@@ -39,9 +39,10 @@ JAX_COUNTERPARTS = {
     "train_step_sparse": None,  # the port's own: the block-sparse path on the card
 }
 NOT_PORTED = {
-    "serve_fwd_grid": "a 2D pair-grid mesh: parallelism is not ported (ROADMAP section 1, item 8)",
+    "serve_fwd_grid": "a 2D pair-grid mesh: parallelism is not ported "
+                      "(ROADMAP section 1, long chains and parallelism)",
     "serve_fwd_long": "the sequence-parallel long-bucket rung: parallelism is not ported "
-                      "(ROADMAP section 1, item 8)",
+                      "(ROADMAP section 1, long chains and parallelism)",
 }
 
 

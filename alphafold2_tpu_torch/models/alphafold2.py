@@ -10,8 +10,11 @@ attention with ``sparse_self_attn``, ``sparse_config`` and
 ``seq_len=max_seq_len``, as :288-312 passes them), and the symmetrized
 distogram head (:314-318), whose LayerNorm output is cast to the compute
 dtype (the reversible engine returns float32 streams). ``dtype`` is the
-compute dtype; parameters stay float32. Dropout is not ported: nonzero
-rates raise.
+compute dtype; parameters stay float32. ``attn_dropout`` and
+``ff_dropout`` are active when the forward is given a ``dropout_key``
+(``ops/attention.py``), as a training step gives one; the trunk draws
+under ``trunk/...``. The numerics tags ``embed.pair``, ``embed.msa`` and
+``distogram.logits`` sit where JAX's do (:197, :225, :318).
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ from torch import nn
 
 from alphafold2_tpu_torch import constants
 from alphafold2_tpu_torch.models.trunk import Trunk
+from alphafold2_tpu_torch.observe.numerics import tag
+from alphafold2_tpu_torch.ops.attention import DropoutKey, child_key
 from alphafold2_tpu_torch.ops.layers import Dense, LayerNorm
 
 
@@ -49,10 +54,6 @@ class Alphafold2(nn.Module):
         scan_layers: bool = False,
     ):
         super().__init__()
-        if attn_dropout or ff_dropout:
-            raise NotImplementedError(
-                f"dropout (attn {attn_dropout}, ff {ff_dropout}) is not ported yet"
-            )
         self.max_seq_len = max_seq_len
         self.max_num_msas = max_num_msas
         self.dtype = dtype
@@ -66,7 +67,8 @@ class Alphafold2(nn.Module):
                            sparse_self_attn=sparse_self_attn, seq_len=max_seq_len,
                            sparse_config=sparse_config, remat=remat,
                            remat_policy=remat_policy, reversible=reversible,
-                           scan_layers=scan_layers, dtype=dtype)
+                           scan_layers=scan_layers, dtype=dtype,
+                           attn_dropout=attn_dropout, ff_dropout=ff_dropout)
         self.distogram_norm = LayerNorm(dim)
         self.distogram_proj = Dense(dim, constants.DISTOGRAM_BUCKETS)
 
@@ -78,6 +80,7 @@ class Alphafold2(nn.Module):
         msa_mask: Optional[torch.Tensor] = None,  # (B, M, Nm) bool
         templates_seq=None,
         embedds=None,
+        dropout_key: Optional[DropoutKey] = None,
     ) -> torch.Tensor:
         if templates_seq is not None:
             raise NotImplementedError("templates are not ported yet")
@@ -102,6 +105,7 @@ class Alphafold2(nn.Module):
         x = e[:, :, None, :] + e[:, None, :, :]
         x = (x + self.pos_emb(n_range).to(dt)[None, :, None, :]
              + self.pos_emb_ax(n_range).to(dt)[None, None, :, :])
+        x = tag("embed.pair", x)
         pair_mask = mask[:, :, None] & mask[:, None, :] if mask is not None else None
 
         m = None
@@ -111,9 +115,11 @@ class Alphafold2(nn.Module):
             m = m + self.msa_pos_emb(torch.arange(nm, device=seq.device)).to(dt)[None, None]
             m = m + self.msa_num_pos_emb(
                 torch.arange(mm, device=seq.device)).to(dt)[None, :, None]
+            m = tag("embed.msa", m)
 
-        x, m = self.trunk(x, m, pair_mask=pair_mask, msa_mask=msa_mask)
+        x, m = self.trunk(x, m, pair_mask=pair_mask, msa_mask=msa_mask,
+                          key=child_key(dropout_key, "trunk"))
 
         x = 0.5 * (x + x.transpose(1, 2))
         logits = self.distogram_proj(self.distogram_norm(x).to(dt))
-        return logits.float()
+        return tag("distogram.logits", logits.float())

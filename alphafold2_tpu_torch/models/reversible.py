@@ -30,8 +30,13 @@ would compound over 8 updates a layer. The sub-functions compute in
 ``dtype`` (their LayerNorms cast their output to it), and their outputs
 promote to float32 on the add. ``use_custom_vjp=False`` runs the same
 coupling under plain autograd: the oracle the tests hold the custom backward
-to. Dropout is not ported; when it is, each layer's dropout must replay
-exactly in the re-evaluation (JAX passes the same per-layer key, :305-309).
+to.
+
+Dropout: layer ``i``'s sub-function ``sub`` draws under the key
+``trunk/reversible/layers/<sub>/...`` at index ``i``, whatever order the
+sub-functions run in, so the forward, :meth:`RevLayerPair.invert` and the
+backward's re-evaluation draw the same masks, as JAX's per-layer key does
+(:305-340); the plain-autograd path uses the same keys.
 """
 
 from __future__ import annotations
@@ -43,7 +48,9 @@ from torch import nn
 from torch.autograd.function import once_differentiable
 
 from alphafold2_tpu_torch.models.trunk import depth_slice, stack_parameters
-from alphafold2_tpu_torch.ops.attention import Attention, AxialAttention, FeedForward
+from alphafold2_tpu_torch.ops.attention import (
+    Attention, AxialAttention, DropoutKey, FeedForward, child_key,
+)
 from alphafold2_tpu_torch.ops.layers import LayerNorm
 
 # one depth step's updates in forward order: (stream written, sub-function,
@@ -73,92 +80,102 @@ class RevLayerPair(nn.Module):
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
                  gelu_exact: bool = False, msa_tie_row_attn: bool = False,
                  sparse_attn: bool = False, seq_len: Optional[int] = None,
-                 sparse_config=None, dtype: torch.dtype = torch.float32):
+                 sparse_config=None, dtype: torch.dtype = torch.float32,
+                 attn_dropout: float = 0.0, ff_dropout: float = 0.0):
         super().__init__()
         self.dtype = dtype
         for names in SUBMODULES.values():
             for name in names[:-1]:
                 self.add_module(name, LayerNorm(dim))
+        ff = lambda: FeedForward(dim, gelu_exact=gelu_exact, dropout=ff_dropout)
         self.f_s = AxialAttention(dim, heads, dim_head, sparse_attn=sparse_attn,
-                                  seq_len=seq_len, sparse_config=sparse_config)
-        self.g_s = FeedForward(dim, gelu_exact=gelu_exact)
-        self.j_s = AxialAttention(dim, heads, dim_head, tie_row_attn=msa_tie_row_attn)
-        self.k_s = FeedForward(dim, gelu_exact=gelu_exact)
-        self.f_c = Attention(dim, heads, dim_head)
-        self.g_c = FeedForward(dim, gelu_exact=gelu_exact)
-        self.j_c = Attention(dim, heads, dim_head)
-        self.k_c = FeedForward(dim, gelu_exact=gelu_exact)
+                                  seq_len=seq_len, sparse_config=sparse_config,
+                                  dropout=attn_dropout)
+        self.g_s = ff()
+        self.j_s = AxialAttention(dim, heads, dim_head, tie_row_attn=msa_tie_row_attn,
+                                  dropout=attn_dropout)
+        self.k_s = ff()
+        self.f_c = Attention(dim, heads, dim_head, dropout=attn_dropout)
+        self.g_c = ff()
+        self.j_c = Attention(dim, heads, dim_head, dropout=attn_dropout)
+        self.k_c = ff()
 
     def _norm(self, name: str, t: torch.Tensor) -> torch.Tensor:
         return getattr(self, name)(t).to(self.dtype)
 
-    # --- the eight sub-functions: streams read, then (pair_mask, msa_mask)
+    # --- the eight sub-functions: streams read, then (pair_mask, msa_mask),
+    # then the sub-function's dropout key
 
-    def _f_s(self, x2, pm, mm):
-        return self.f_s(self._norm("f_s_norm", x2), mask=pm)
+    def _f_s(self, x2, pm, mm, key):
+        return self.f_s(self._norm("f_s_norm", x2), mask=pm, key=key)
 
-    def _g_s(self, x1, pm, mm):
-        return self.g_s(self._norm("g_s_norm", x1))
+    def _g_s(self, x1, pm, mm, key):
+        return self.g_s(self._norm("g_s_norm", x1), key=key)
 
-    def _j_s(self, m2, pm, mm):
-        return self.j_s(self._norm("j_s_norm", m2), mask=mm)
+    def _j_s(self, m2, pm, mm, key):
+        return self.j_s(self._norm("j_s_norm", m2), mask=mm, key=key)
 
-    def _k_s(self, m1, pm, mm):
-        return self.k_s(self._norm("k_s_norm", m1))
+    def _k_s(self, m1, pm, mm, key):
+        return self.k_s(self._norm("k_s_norm", m1), key=key)
 
-    def _f_c(self, x2, m2, pm, mm):
+    def _f_c(self, x2, m2, pm, mm, key):
         b, n, n2, d = x2.shape
         out = self.f_c(self._norm("f_c_norm", x2.reshape(b, n * n2, d)),
                        context=self._norm("f_c_ctx_norm", m2.reshape(b, -1, d)),
-                       mask=_flat_mask(pm, b), context_mask=_flat_mask(mm, b))
+                       mask=_flat_mask(pm, b), context_mask=_flat_mask(mm, b), key=key)
         return out.reshape(x2.shape)
 
-    def _g_c(self, x1, pm, mm):
-        return self.g_c(self._norm("g_c_norm", x1))
+    def _g_c(self, x1, pm, mm, key):
+        return self.g_c(self._norm("g_c_norm", x1), key=key)
 
-    def _j_c(self, m2, x2, pm, mm):
+    def _j_c(self, m2, x2, pm, mm, key):
         b, d = m2.shape[0], m2.shape[-1]
         out = self.j_c(self._norm("j_c_norm", m2.reshape(b, -1, d)),
                        context=self._norm("j_c_ctx_norm", x2.reshape(b, -1, d)),
-                       mask=_flat_mask(mm, b), context_mask=_flat_mask(pm, b))
+                       mask=_flat_mask(mm, b), context_mask=_flat_mask(pm, b), key=key)
         return out.reshape(m2.shape)
 
-    def _k_c(self, m1, pm, mm):
-        return self.k_c(self._norm("k_c_norm", m1))
+    def _k_c(self, m1, pm, mm, key):
+        return self.k_c(self._norm("k_c_norm", m1), key=key)
 
     def forward(self, h: Sequence[torch.Tensor], pair_mask=None, msa_mask=None,
-                sub: Optional[str] = None):
+                sub: Optional[str] = None, key: Optional[DropoutKey] = None):
         """The coupling h -> h after the step's eight updates. With ``sub``
         (one of ``SUBMODULES``), that sub-function alone of the streams
-        ``h`` it reads: the form ``torch.func.functional_call`` reaches."""
+        ``h`` it reads: the form ``torch.func.functional_call`` reaches.
+        ``key`` is the layer's; each sub-function draws under its own name."""
         if sub is not None:
-            return getattr(self, "_" + sub)(*h, pair_mask, msa_mask)
+            return getattr(self, "_" + sub)(*h, pair_mask, msa_mask, child_key(key, sub))
         h = list(h)
         for t, name, reads in UPDATES:
-            h[t] = h[t] + self(tuple(h[r] for r in reads), pair_mask, msa_mask, sub=name)
+            h[t] = h[t] + self(tuple(h[r] for r in reads), pair_mask, msa_mask, sub=name,
+                               key=key)
         return tuple(h)
 
-    def invert(self, h: Sequence[torch.Tensor], pair_mask=None, msa_mask=None):
-        """The exact inverse of ``forward``: the updates in reverse order,
-        with subtraction."""
+    def invert(self, h: Sequence[torch.Tensor], pair_mask=None, msa_mask=None,
+               key: Optional[DropoutKey] = None):
+        """The exact inverse of ``forward`` under the same ``key``: the
+        updates in reverse order, with subtraction."""
         h = list(h)
         for t, name, reads in reversed(UPDATES):
-            h[t] = h[t] - self(tuple(h[r] for r in reads), pair_mask, msa_mask, sub=name)
+            h[t] = h[t] - self(tuple(h[r] for r in reads), pair_mask, msa_mask, sub=name,
+                               key=key)
         return tuple(h)
 
 
 class ReversibleScan(torch.autograd.Function):
     """Every layer of a :class:`ReversibleTrunk` with the inversion-based
-    backward: inputs ``(trunk, names, pair_mask, msa_mask, x1, x2, m1, m2,
-    *stacked)``, ``stacked`` the depth-stacked parameters in ``names``'
-    order; outputs the final (x1, x2, m1, m2)."""
+    backward: inputs ``(trunk, names, key, pair_mask, msa_mask, x1, x2, m1,
+    m2, *stacked)``, ``stacked`` the depth-stacked parameters in ``names``'
+    order, ``key`` the trunk's dropout key or None; outputs the final (x1,
+    x2, m1, m2)."""
 
     @staticmethod
-    def forward(ctx, trunk, names, pair_mask, msa_mask, *tensors):
+    def forward(ctx, trunk, names, key, pair_mask, msa_mask, *tensors):
         h, stacked = tensors[:4], tensors[4:]
         for i in range(trunk.depth):
-            h = trunk.step(names, stacked, i, h, pair_mask, msa_mask)
-        ctx.trunk, ctx.names = trunk, names
+            h = trunk.step(names, stacked, i, h, pair_mask, msa_mask, key)
+        ctx.trunk, ctx.names, ctx.key = trunk, names, key
         # only the final state: activation memory independent of depth
         ctx.save_for_backward(pair_mask, msa_mask, *h, *stacked)
         return h
@@ -181,7 +198,8 @@ class ReversibleScan(torch.autograd.Function):
                 with torch.enable_grad():
                     out = torch.func.functional_call(
                         trunk.layers, {names[k]: p for k, p in zip(own, leaves)},
-                        (tuple(inputs), pm, mm), {"sub": sub})
+                        (tuple(inputs), pm, mm),
+                        {"sub": sub, "key": trunk.layer_key(ctx.key, i)})
                 h[t] = h[t] - out.detach()
                 pulled = torch.autograd.grad(out, leaves + inputs, gh[t].to(out.dtype),
                                              allow_unused=True)
@@ -191,7 +209,7 @@ class ReversibleScan(torch.autograd.Function):
                 for r, g in zip(reads, pulled[len(own):]):
                     if g is not None:
                         gh[r] = gh[r] + g
-        return (None, None, None, None, *gh, *grads)
+        return (None, None, None, None, None, *gh, *grads)
 
 
 class ReversibleTrunk(nn.Module):
@@ -204,31 +222,39 @@ class ReversibleTrunk(nn.Module):
                  gelu_exact: bool = False, msa_tie_row_attn: bool = False,
                  sparse_attn: bool = False, seq_len: Optional[int] = None,
                  sparse_config=None, use_custom_vjp: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, attn_dropout: float = 0.0,
+                 ff_dropout: float = 0.0):
         super().__init__()
         self.depth, self.use_custom_vjp = depth, use_custom_vjp
         self.layers = stack_parameters(RevLayerPair(
             dim, heads, dim_head, gelu_exact=gelu_exact, msa_tie_row_attn=msa_tie_row_attn,
             sparse_attn=sparse_attn, seq_len=seq_len, sparse_config=sparse_config,
-            dtype=dtype), depth)
+            dtype=dtype, attn_dropout=attn_dropout, ff_dropout=ff_dropout), depth)
 
-    def step(self, names, stacked, i, h, pair_mask, msa_mask):
+    @staticmethod
+    def layer_key(key: Optional[DropoutKey], i: int) -> Optional[DropoutKey]:
+        """Layer ``i``'s dropout key under the trunk's (``reversible``)."""
+        return None if key is None else key.child("layers").at(i)
+
+    def step(self, names, stacked, i, h, pair_mask, msa_mask, key=None):
         """Depth step ``i`` of the coupling on h."""
         return torch.func.functional_call(self.layers, depth_slice(names, stacked, i),
-                                          (h, pair_mask, msa_mask))
+                                          (h, pair_mask, msa_mask),
+                                          {"key": self.layer_key(key, i)})
 
-    def forward(self, x, m, pair_mask=None, msa_mask=None):
+    def forward(self, x, m, pair_mask=None, msa_mask=None,
+                key: Optional[DropoutKey] = None):
         if m is None:
             raise ValueError("ReversibleTrunk requires the MSA stream (reference "
                              "reversible.py:316); use Trunk(remat=True) without one")
         x, m = x.float(), m.float()
         names, stacked = zip(*self.layers.named_parameters())
         if self.use_custom_vjp:
-            x1, x2, m1, m2 = ReversibleScan.apply(self, names, pair_mask, msa_mask,
+            x1, x2, m1, m2 = ReversibleScan.apply(self, names, key, pair_mask, msa_mask,
                                                   x, x, m, m, *stacked)
         else:
             h = (x, x, m, m)
             for i in range(self.depth):
-                h = self.step(names, stacked, i, h, pair_mask, msa_mask)
+                h = self.step(names, stacked, i, h, pair_mask, msa_mask, key)
             x1, x2, m1, m2 = h
         return 0.5 * (x1 + x2), 0.5 * (m1 + m2)

@@ -26,6 +26,16 @@ MSA (B, M, Nm, D).
   a different network with its own stacked parameters. It takes precedence
   over ``remat`` and ``scan_layers``.
 
+Dropout (``attn_dropout``, ``ff_dropout``) is active where the forward is
+given a ``DropoutKey`` (``ops/attention.py``): the loop's layers draw under
+``trunk/layer_{i}/<module>``, the scanned layer under ``trunk/scan/layer``
+at index ``i``, so remat's recompute replays each mask from its key, not
+from the RNG state ``torch.utils.checkpoint`` saves (that covers only the
+global generators). The numerics tags sit where JAX's do: each loop
+layer's streams as ``trunk.layer_{i}.pair``/``.msa``, outside the
+checkpointed call (JAX :408-413); the scanned and reversible engines tag
+only ``trunk.out.pair``/``.msa`` (:362-366, :392-394).
+
 ``sparse_self_attn`` (a bool, or one per layer) makes a layer's pair axial
 passes block-sparse (K4/K5), as in JAX only the pair stream; the scanned and
 reversible engines need one value for every layer. MSA-row and pair-grid
@@ -42,7 +52,10 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from alphafold2_tpu_torch.ops.attention import Attention, AxialAttention, FeedForward
+from alphafold2_tpu_torch.observe.numerics import tag
+from alphafold2_tpu_torch.ops.attention import (
+    Attention, AxialAttention, DropoutKey, FeedForward, child_key,
+)
 from alphafold2_tpu_torch.ops.layers import LayerNorm
 
 
@@ -53,20 +66,21 @@ class TrunkLayer(nn.Module):
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
                  gelu_exact: bool = False, msa_tie_row_attn: bool = False,
                  sparse_attn: bool = False, seq_len: Optional[int] = None,
-                 sparse_config=None):
+                 sparse_config=None, attn_dropout: float = 0.0, ff_dropout: float = 0.0):
         super().__init__()
         for name in ("pair_axial_norm", "msa_axial_norm", "pair_cross_norm",
                      "pair_cross_ctx_norm", "msa_cross_norm",
                      "msa_cross_ctx_norm", "pair_ff_norm", "msa_ff_norm"):
             self.add_module(name, LayerNorm(dim))
         self.pair_axial = AxialAttention(dim, heads, dim_head, sparse_attn=sparse_attn,
-                                         seq_len=seq_len, sparse_config=sparse_config)
-        self.msa_axial = AxialAttention(dim, heads, dim_head,
-                                        tie_row_attn=msa_tie_row_attn)
-        self.pair_from_msa = Attention(dim, heads, dim_head)
-        self.msa_from_pair = Attention(dim, heads, dim_head)
-        self.pair_ff = FeedForward(dim, gelu_exact=gelu_exact)
-        self.msa_ff = FeedForward(dim, gelu_exact=gelu_exact)
+                                         seq_len=seq_len, sparse_config=sparse_config,
+                                         dropout=attn_dropout)
+        self.msa_axial = AxialAttention(dim, heads, dim_head, tie_row_attn=msa_tie_row_attn,
+                                        dropout=attn_dropout)
+        self.pair_from_msa = Attention(dim, heads, dim_head, dropout=attn_dropout)
+        self.msa_from_pair = Attention(dim, heads, dim_head, dropout=attn_dropout)
+        self.pair_ff = FeedForward(dim, gelu_exact=gelu_exact, dropout=ff_dropout)
+        self.msa_ff = FeedForward(dim, gelu_exact=gelu_exact, dropout=ff_dropout)
 
     def forward(
         self,
@@ -74,10 +88,13 @@ class TrunkLayer(nn.Module):
         m: Optional[torch.Tensor],  # (B, M, Nm, D) MSA grid or None
         pair_mask: Optional[torch.Tensor] = None,  # (B, N, N)
         msa_mask: Optional[torch.Tensor] = None,  # (B, M, Nm)
+        key: Optional[DropoutKey] = None,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        x = x + self.pair_axial(self.pair_axial_norm(x), mask=pair_mask)
+        x = x + self.pair_axial(self.pair_axial_norm(x), mask=pair_mask,
+                                key=child_key(key, "pair_axial"))
         if m is not None:
-            m = m + self.msa_axial(self.msa_axial_norm(m), mask=msa_mask)
+            m = m + self.msa_axial(self.msa_axial_norm(m), mask=msa_mask,
+                                   key=child_key(key, "msa_axial"))
             b, n, n2, d = x.shape
             bm, mm, nm, _ = m.shape
             x_flat = x.reshape(b, n * n2, d)
@@ -87,18 +104,18 @@ class TrunkLayer(nn.Module):
             x_flat = x_flat + self.pair_from_msa(
                 self.pair_cross_norm(x_flat),
                 context=self.pair_cross_ctx_norm(m_flat),
-                mask=x_mask, context_mask=m_mask,
+                mask=x_mask, context_mask=m_mask, key=child_key(key, "pair_from_msa"),
             )
             m_flat = m_flat + self.msa_from_pair(
                 self.msa_cross_norm(m_flat),
                 context=self.msa_cross_ctx_norm(x_flat),
-                mask=m_mask, context_mask=x_mask,
+                mask=m_mask, context_mask=x_mask, key=child_key(key, "msa_from_pair"),
             )
             x = x_flat.reshape(b, n, n2, d)
             m = m_flat.reshape(bm, mm, nm, d)
-        x = x + self.pair_ff(self.pair_ff_norm(x))
+        x = x + self.pair_ff(self.pair_ff_norm(x), key=child_key(key, "pair_ff"))
         if m is not None:
-            m = m + self.msa_ff(self.msa_ff_norm(m))
+            m = m + self.msa_ff(self.msa_ff_norm(m), key=child_key(key, "msa_ff"))
         return x, m
 
 
@@ -158,12 +175,15 @@ class ScanBody(nn.Module):
         self.depth, self.remat, self.context_fn = depth, remat, context_fn
         self.layer = stack_parameters(TrunkLayer(**layer_kwargs), depth)
 
-    def forward(self, x, m, pair_mask=None, msa_mask=None):
+    def forward(self, x, m, pair_mask=None, msa_mask=None,
+                key: Optional[DropoutKey] = None):
         names, stacked = zip(*self.layer.named_parameters())
+        key = child_key(key, "layer")
 
         def step(i, x, m):
             return torch.func.functional_call(
-                self.layer, depth_slice(names, stacked, i), (x, m, pair_mask, msa_mask))
+                self.layer, depth_slice(names, stacked, i),
+                (x, m, pair_mask, msa_mask, None if key is None else key.at(i)))
 
         for i in range(self.depth):
             if self.remat:
@@ -189,7 +209,8 @@ class Trunk(nn.Module):
                  seq_len: Optional[int] = None, sparse_config=None,
                  msa_row_shard: bool = False, grid_parallel: bool = False,
                  context_parallel: Optional[str] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 attn_dropout: float = 0.0, ff_dropout: float = 0.0):
         super().__init__()
         sparse = sparse_self_attn
         if not isinstance(sparse, (tuple, list)):
@@ -209,7 +230,8 @@ class Trunk(nn.Module):
                    if reversible else "without remat=True"))
         layer_kwargs = dict(dim=dim, heads=heads, dim_head=dim_head, gelu_exact=gelu_exact,
                             msa_tie_row_attn=msa_tie_row_attn, seq_len=seq_len,
-                            sparse_config=sparse_config)
+                            sparse_config=sparse_config, attn_dropout=attn_dropout,
+                            ff_dropout=ff_dropout)
         self.depth = depth
         if reversible:
             from alphafold2_tpu_torch.models.reversible import ReversibleTrunk
@@ -249,15 +271,25 @@ class Trunk(nn.Module):
             self.add_module(f"layer_{i}", TrunkLayer(sparse_attn=bool(sparse[i]),
                                                      **layer_kwargs))
 
-    def forward(self, x, m, pair_mask=None, msa_mask=None):
-        if self.engine == "reversible":
-            return self.reversible(x, m, pair_mask=pair_mask, msa_mask=msa_mask)
-        if self.engine == "scan":
-            return self.scan(x, m, pair_mask, msa_mask)
+    def forward(self, x, m, pair_mask=None, msa_mask=None,
+                key: Optional[DropoutKey] = None):
+        """The trunk over the streams; ``key`` (the trunk's own,
+        ``trunk``) makes dropout active."""
+        if self.engine != "loop":  # the module is named after its engine
+            x, m = getattr(self, self.engine)(x, m, pair_mask, msa_mask,
+                                              key=child_key(key, self.engine))
+            x = tag("trunk.out.pair", x)
+            if m is not None:
+                m = tag("trunk.out.msa", m)
+            return x, m
         for i in range(self.depth):
             layer = getattr(self, f"layer_{i}")
+            args = (x, m, pair_mask, msa_mask, child_key(key, f"layer_{i}"))
             if self.remat:
-                x, m = remat_call(layer, self.context_fn, x, m, pair_mask, msa_mask)
+                x, m = remat_call(layer, self.context_fn, *args)
             else:
-                x, m = layer(x, m, pair_mask, msa_mask)
+                x, m = layer(*args)
+            x = tag(f"trunk.layer_{i}.pair", x)
+            if m is not None:
+                m = tag(f"trunk.layer_{i}.msa", m)
         return x, m

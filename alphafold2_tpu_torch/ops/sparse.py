@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from alphafold2_tpu_torch.ops.attention import _no_dropout, grid_axial_project_attend
+from alphafold2_tpu_torch.ops.attention import DropoutKey, dropout, grid_axial_project_attend
 from alphafold2_tpu_torch.ops.cuda import block_sparse as kernels
 from alphafold2_tpu_torch.ops.cuda.block_sparse import BlockLayout
 from alphafold2_tpu_torch.ops.layers import Dense
@@ -133,13 +133,16 @@ class SparseAttention(nn.Module):
     The flat call pads the sequence to a block multiple (composing with,
     not clobbering, any caller mask) and slices the padding back off;
     ``grid_axial`` runs one axial pass over a block-aligned grid axis.
-    ``seq_len`` bounds the allowed length."""
+    ``seq_len`` bounds the allowed length. ``dropout`` drops the flat
+    call's output after ``to_out``, on the padded output before the slice,
+    as JAX's ``out_dropout`` (:371, :472-479); the kernels still run.
+    Under active dropout ``AxialAttention`` takes the flat route."""
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
                  dropout: float = 0.0, seq_len: Optional[int] = None,
                  config: BlockSparseConfig = BlockSparseConfig()):
         super().__init__()
-        _no_dropout(dropout, "attention")
+        self.dropout = dropout
         if config.backend not in BACKENDS:
             raise ValueError(f"unknown sparse backend {config.backend!r}; have "
                              f"{list(BACKENDS)}")
@@ -177,7 +180,7 @@ class SparseAttention(nn.Module):
             attend_axis, self._attend)
 
     def forward(self, x, context=None, mask=None, context_mask=None,
-                tie_dim: Optional[int] = None):
+                tie_dim: Optional[int] = None, key: Optional[DropoutKey] = None):
         if context is not None:
             raise ValueError("sparse attention is self-attention only")
         if tie_dim is not None:
@@ -196,4 +199,4 @@ class SparseAttention(nn.Module):
         k, v = (t.view(b, padded, h, dh).transpose(1, 2) for t in self.to_kv(x).chunk(2, -1))
         out = self._attend(q, k, v, mask)  # (B, H, padded, dh)
         out = self.to_out(out.transpose(1, 2).reshape(b, padded, h * dh))
-        return out[:, :n]
+        return dropout(out, self.dropout, key)[:, :n]

@@ -19,8 +19,12 @@ numpy generator keyed by ``(train.seed + 1, step)`` (:func:`mds_start`)
 and passes it as ``coords0``; the bits differ from threefry, so tests
 inject JAX's start. The trunk engines ``remat`` (with ``remat_policy``)
 and ``reversible`` train here as in JAX (:285-295, which passes no
-``scan_layers``). Dropout, the ``plm``/``embedds`` inputs and a device mesh
-raise, as in distogram pretraining.
+``scan_layers``). As JAX's ``train_end2end`` (:259-346), it reads neither
+the dropout rates (``End2EndModel`` has none, and no dropout key reaches
+it), nor ``train.numerics``, ``profile_dir`` or ``trace_events``: such a
+config trains as it would without them. Metrics go to ``metrics.jsonl`` in
+``train.checkpoint_dir``, as JAX's loop writes them (:314). The
+``plm``/``embedds`` inputs and a device mesh raise.
 """
 
 from __future__ import annotations
@@ -176,8 +180,8 @@ def make_end2end_step(model: End2EndModel):
 def build_end2end_model(cfg: Config, mds_iters: int = 200) -> End2EndModel:
     """The End2EndModel JAX's ``train_end2end`` builds from ``cfg.model``
     (:285-295): serving's fields (``predict.build_model``) and, for
-    training, ``remat_policy`` and ``reversible``. The options no training
-    loop honours raise (``loop.check_unported``)."""
+    training, ``remat_policy`` and ``reversible``; the dropout rates are
+    not read, as in JAX. A device mesh raises (``loop.check_unported``)."""
     from alphafold2_tpu_torch.predict import build_model
 
     check_unported(cfg)

@@ -10,18 +10,29 @@ Port of the single-device path of ``alphafold2_tpu/train/loop.py``:
 callbacks, checkpoint cadence and SIGTERM, as JAX's ``train`` (:541-712).
 
 On the card every attention's forward runs K1 with its logsumexp and its
-backward K3a + K3b (``ops/cuda/axial.py``). The step mirrors the JAX one:
-gradients that are not all finite are zeroed and still applied, so Adam's
-moments and counts move while the parameters do not, and ``skipped`` counts
-the step. PyTorch updates the state in place; the step returns it anyway,
-as the JAX step returns its new state.
+backward K3a + K3b (``ops/cuda/axial.py``), unless attention-weight dropout
+is active, which takes JAX's dense route (``ops/attention.py``). The step
+mirrors the JAX one: gradients that are not all finite are zeroed and still
+applied, so Adam's moments and counts move while the parameters do not,
+and ``skipped`` counts the step. PyTorch updates the state in place; the
+step returns it anyway, as the JAX step returns its new state.
 
-Not ported (each raises ``NotImplementedError``): ``train.numerics="full"``
-and the NaN-triage rerun of a skipped step (``numerics="triage"`` gives the
-per-group norms and logs that the rerun did not run), profiling, host span
-traces, a device mesh, dropout, and the ``plm`` feature stream. The trunk
-engines (``remat`` with ``remat_policy``, ``reversible``, ``scan_layers``)
-train as in JAX (``models/trunk.py``, ``models/reversible.py``).
+Dropout: step ``i`` passes ``DropoutKey.for_step(train.seed + 1, i)``, as
+JAX's loop splits ``key(seed + 1)`` a step (:556, :662), so a run, and a
+run resumed from a checkpoint, draws the same masks each time.
+``train.numerics``: "off"; "triage" adds per-group norms and reruns a
+skipped step fully tagged (:func:`make_triage_step`) one step late,
+logging ``event: nan_triage`` with the first non-finite tensor; "full"
+also carries every tag's stats (``metrics["numerics"]``). Metrics go to
+``MetricsLogger(train.checkpoint_dir)``; ``train`` adds the host spans of
+``train.trace_events`` and the profiler window of ``train.profile_dir``.
+``compile_s``, ``step_flops`` and ``mfu`` come from XLA's AOT compile in
+JAX (:598-624) and have no counterpart here.
+
+Not ported (raises ``NotImplementedError``): a device mesh, and the ``plm``
+feature stream. The trunk engines (``remat`` with ``remat_policy``,
+``reversible``, ``scan_layers``) train as in JAX (``models/trunk.py``,
+``models/reversible.py``).
 """
 
 from __future__ import annotations
@@ -38,6 +49,9 @@ from torch import nn
 from alphafold2_tpu_torch.config import Config
 from alphafold2_tpu_torch.device import resolve_device
 from alphafold2_tpu_torch.models.alphafold2 import Alphafold2
+from alphafold2_tpu_torch.observe import MetricsLogger, Profiler, Tracer, flatten_metrics
+from alphafold2_tpu_torch.observe import numerics
+from alphafold2_tpu_torch.ops.attention import DropoutKey
 from alphafold2_tpu_torch.train.optim import Optimizer, build_optimizer, global_norm
 from alphafold2_tpu_torch.utils.structure import get_bucketed_distance_matrix
 
@@ -61,6 +75,8 @@ def distogram_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     safe = torch.where(valid, labels, 0).long()
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    # the last forward tensor: a first non-finite here is the loss's own
+    nll = numerics.tag("loss.distogram_nll", nll)
     validf = valid.to(nll.dtype)
     return (nll * validf).sum() / validf.sum().clamp_min(1.0)
 
@@ -161,33 +177,45 @@ def apply_gradients(state: TrainState, grads, grads_ok: torch.Tensor) -> None:
     state.step += 1
 
 
+def _labels(batch: dict) -> torch.Tensor:
+    labels = batch.get("labels")
+    if labels is None:
+        labels = get_bucketed_distance_matrix(batch["coords"], batch["mask"])
+    return labels
+
+
+def _forward_loss(model: nn.Module, batch: dict, key: Optional[DropoutKey]):
+    logits = model(batch["seq"], batch.get("msa"), mask=batch["mask"],
+                   msa_mask=batch.get("msa_mask"), dropout_key=key)
+    return logits, distogram_cross_entropy(logits, _labels(batch))
+
+
 def make_train_step(model: nn.Module, numerics_mode: str = "off"):
-    """Build the distogram-pretraining step: ``step(state, batch) ->
-    (state, metrics)``, ``batch`` a dict of tensors on the model's device.
+    """Build the distogram-pretraining step: ``step(state, batch, key=None)
+    -> (state, metrics)``, ``batch`` a dict of tensors on the model's
+    device, ``key`` the step's ``DropoutKey`` (dropout is off without one).
 
     Metrics: ``loss``, ``grad_norm`` (of the raw gradients), ``grads_ok``,
-    ``skipped``, ``distogram_entropy``; with ``numerics_mode="norms"`` also
-    ``grad_norm/<group>``, ``param_norm/<group>``, ``update_norm/<group>``
-    and ``param_norm``. Values are device tensors (nothing synchronises)."""
-    if numerics_mode not in ("off", "norms"):
-        if numerics_mode == "full":
-            raise NotImplementedError("numerics_mode 'full' is not ported yet")
-        raise ValueError(f"unknown numerics_mode {numerics_mode!r}; expected 'off' or 'norms'")
+    ``skipped``, ``distogram_entropy``; with ``numerics_mode="norms"`` or
+    ``"full"`` also ``grad_norm/<group>``, ``param_norm/<group>``,
+    ``update_norm/<group>`` and ``param_norm``; with ``"full"`` also
+    ``numerics``, every tag's stats (``observe/numerics.py``). Values are
+    device tensors (nothing synchronises)."""
+    if numerics_mode not in ("off", "norms", "full"):
+        raise ValueError(f"unknown numerics_mode {numerics_mode!r}; "
+                         "expected 'off', 'norms' or 'full'")
     groups = _param_groups(model)
+    norms = numerics_mode != "off"
 
-    def step(state: TrainState, batch: dict):
+    def step(state: TrainState, batch: dict, key: Optional[DropoutKey] = None):
         params = list(state.model.parameters())
         for p in params:
             p.grad = None
-        logits = state.model(batch["seq"], batch.get("msa"), mask=batch["mask"],
-                             msa_mask=batch.get("msa_mask"))
-        labels = batch.get("labels")
-        if labels is None:
-            labels = get_bucketed_distance_matrix(batch["coords"], batch["mask"])
-        loss = distogram_cross_entropy(logits, labels)
+        with numerics.collect(enabled=numerics_mode == "full") as col:
+            logits, loss = _forward_loss(state.model, batch, key)
         loss.backward()
         grads, grads_ok = collect_gradients(params)
-        before = [p.detach().clone() for p in params] if numerics_mode == "norms" else None
+        before = [p.detach().clone() for p in params] if norms else None
         apply_gradients(state, grads, grads_ok)
         with torch.no_grad():
             logits = logits.detach()
@@ -195,16 +223,46 @@ def make_train_step(model: nn.Module, numerics_mode: str = "off"):
         metrics = {"loss": loss.detach(), "grad_norm": global_norm(grads),
                    "grads_ok": grads_ok, "skipped": state.skipped,
                    "distogram_entropy": entropy}
-        if numerics_mode == "norms":
+        if norms:
             for group, idx in groups.items():
                 metrics[f"grad_norm/{group}"] = global_norm([grads[i] for i in idx])
                 metrics[f"param_norm/{group}"] = global_norm([params[i].detach() for i in idx])
                 metrics[f"update_norm/{group}"] = global_norm(
                     [params[i].detach() - before[i] for i in idx])
             metrics["param_norm"] = global_norm([p.detach() for p in params])
+        if numerics_mode == "full":
+            metrics["numerics"] = col.stats()
         return state, metrics
 
     return step
+
+
+def make_triage_step(model: nn.Module):
+    """The fully tagged diagnostic step of NaN triage (JAX :371-425):
+    ``triage(batch, key) -> stats``, the model's current parameters run
+    forward and backward under ``key`` with no state change. ``stats`` maps
+    every tag to its ``numerics.tensor_stats``, then ``loss``, then
+    ``grad/<group>`` (``numerics.tree_stats`` of a parameter group's
+    gradients), each with its ``index`` in that order, so
+    ``numerics.first_nonfinite`` names the first tensor that went bad."""
+    groups = _param_groups(model)
+
+    def triage(batch: dict, key: Optional[DropoutKey] = None) -> dict:
+        params = list(model.parameters())
+        with numerics.collect() as col:
+            _, loss = _forward_loss(model, batch, key)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        stats = col.stats()
+        order = len(stats)
+        stats["loss"] = {"index": order, **numerics.tensor_stats(loss)}
+        for name in sorted(groups):  # JAX's grads are a dict in key order
+            order += 1
+            stats[f"grad/{name}"] = {"index": order, **numerics.tree_stats(
+                grads[i] if grads[i] is not None else torch.zeros_like(params[i])
+                for i in groups[name])}
+        return stats
+
+    return triage
 
 
 def batch_to_device(batch: dict, device: torch.device) -> dict:
@@ -218,29 +276,8 @@ def batch_to_device(batch: dict, device: torch.device) -> dict:
     return out
 
 
-def _log(step: int, metrics: dict) -> None:
-    print(f"[step {step}] " + " ".join(
-        f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
-        for k, v in metrics.items()), flush=True)
-
-
-def _note_skip(pending) -> None:
-    """Log a skipped step's NaN triage as not run (read one step late, so
-    the host never waits on the step it just issued)."""
-    if pending is not None and not bool(pending[0]):
-        _log(pending[1], {"event": "nan_triage", "ran": 0.0,
-                          "reason": "the fully tagged rerun is not ported"})
-
-
 def check_unported(cfg: Config) -> None:
-    """Raise for the options neither training loop honours yet."""
-    m, t = cfg.model, cfg.train
-    if m.attn_dropout or m.ff_dropout:
-        raise NotImplementedError(
-            f"dropout (attn {m.attn_dropout}, ff {m.ff_dropout}) is not ported yet")
-    for field, value in (("profile_dir", t.profile_dir), ("trace_events", t.trace_events)):
-        if value:
-            raise NotImplementedError(f"train.{field} is not ported yet")
+    """Raise for what neither training loop honours yet: a device mesh."""
     mesh = cfg.mesh
     if (mesh.data_parallel not in (1, -1) or mesh.seq_parallel != 1
             or mesh.grid_rows * mesh.grid_cols != 1):
@@ -248,7 +285,8 @@ def check_unported(cfg: Config) -> None:
 
 
 def run_steps(cfg: Config, state: TrainState, step_fn, data_iter, num_steps: int,
-              callbacks=(), triage: bool = False) -> TrainState:
+              callbacks=(), triage_fn=None, tracer: Optional[Tracer] = None,
+              profiler: Optional[Profiler] = None) -> TrainState:
     """The loop of both training entry points: ``step_fn(state, batch, i) ->
     (state, metrics)`` for steps ``start .. num_steps - 1``, each batch
     taken from ``data_iter`` (numpy) onto the state's device.
@@ -260,15 +298,29 @@ def run_steps(cfg: Config, state: TrainState, step_fn, data_iter, num_steps: int
     steps and at the end unless a checkpoint of that step exists; on
     SIGTERM finish the step in flight, checkpoint it and stop. The previous
     SIGTERM handler comes back afterwards; off the main thread the loop runs
-    without one. Logs the first step's ``first_step_s`` and then
-    ``steps_per_sec``; with ``triage`` a skipped step's NaN triage is noted
-    one step late. Returns the state."""
+    without one. Metrics go to ``MetricsLogger(train.checkpoint_dir)``
+    (``metrics.jsonl`` there, and stdout): the first step's
+    ``first_step_s``, then ``steps_per_sec``, every ``log_every`` steps.
+
+    With ``triage_fn(batch, i) -> stats`` the loop keeps each step's
+    ``(grads_ok, batch, i)`` and, one step late (so the host never waits on
+    the step it just issued), reruns a skipped step through it on the
+    parameters the skip left (``make_triage_step``), logging ``event: nan_triage`` with
+    ``first_nonfinite``, ``nonfinite`` and the flattened stats (JAX
+    :626-667). ``tracer`` gets the spans ``train.step``,
+    ``train.next_batch``, ``train.checkpoint`` and ``train.nan_triage``,
+    the ``numerics.nan_triage`` instant and, where the metrics carry
+    ``numerics``, its counters; ``profiler`` opens and closes its window
+    around the steps. Returns the state."""
     import signal
 
     from alphafold2_tpu_torch.train.checkpoint import CheckpointManager
 
     t = cfg.train
     dev = state.skipped.device
+    tracer = tracer or Tracer()
+    profiler = profiler or Profiler(None)
+    logger = MetricsLogger(t.checkpoint_dir)
     ckpt = (CheckpointManager(t.checkpoint_dir, keep=t.keep_checkpoints)
             if t.checkpoint_dir else None)
     start = 0
@@ -287,36 +339,59 @@ def run_steps(cfg: Config, state: TrainState, step_fn, data_iter, num_steps: int
             installed = True
         except ValueError:  # not on the main thread
             pass
-    pending = None  # (grads_ok, step) of the last step under triage
+
+    def run_triage(ok, t_batch, t_step):
+        if bool(ok):
+            return
+        with tracer.span("train.nan_triage", step=t_step):
+            stats = triage_fn(t_batch, t_step)
+        report = numerics.triage_report(stats, step=t_step)
+        logger.log(t_step, {"event": "nan_triage",
+                            "first_nonfinite": report["first_nonfinite"],
+                            "nonfinite": report["nonfinite"],
+                            **numerics.flatten_stats(stats)})
+        tracer.instant("numerics.nan_triage", step=t_step,
+                       first_nonfinite=report["first_nonfinite"])
+
+    pending = None  # (grads_ok, batch, step) of the last step under triage
     t0 = time.perf_counter()
     last_logged = None
     try:
         for i in range(start, num_steps):
-            _note_skip(pending)
-            pending = None
-            batch = batch_to_device(next(data_iter), dev)
-            state, metrics = step_fn(state, batch, i)
-            if triage:
-                pending = (metrics["grads_ok"], i)
+            if pending is not None:
+                run_triage(*pending)
+                pending = None
+            with tracer.span("train.next_batch", step=i):
+                batch = batch_to_device(next(data_iter), dev)
+            profiler.maybe_start(i)
+            with tracer.span("train.step", step=i):
+                state, metrics = step_fn(state, batch, i)
+            profiler.maybe_stop(i)
+            if triage_fn is not None:
+                pending = (metrics["grads_ok"], batch, i)
             if (i + 1) % t.log_every == 0 or i == start:
-                m = {k: float(v) for k, v in metrics.items()}
+                m = flatten_metrics(metrics)
                 now = time.perf_counter()
                 if last_logged is None:
                     m["first_step_s"] = round(now - t0, 4)
                 else:
                     m["steps_per_sec"] = (i - last_logged) / max(now - t0, 1e-9)
+                if isinstance(metrics.get("numerics"), dict):
+                    numerics.counters_to_tracer(metrics["numerics"], tracer)
                 last_logged, t0 = i, now
-                _log(i, m)
+                logger.log(i, m)
             for cb in callbacks:
                 cb(i, state, metrics)
             if ckpt is not None and (i + 1) % t.checkpoint_every == 0:
-                ckpt.save(i + 1, state)
+                with tracer.span("train.checkpoint", step=i + 1):
+                    ckpt.save(i + 1, state)
             if stop["requested"]:
-                _log(i, {"preempted": 1.0})
+                logger.log(i, {"preempted": 1.0})
                 if ckpt.latest_step() != i + 1:
                     ckpt.save(i + 1, state)
                 break
-        _note_skip(pending)
+        if pending is not None:  # a skip on the run's last step
+            run_triage(*pending)
     finally:
         if installed:
             signal.signal(signal.SIGTERM, prev_handler)
@@ -335,8 +410,9 @@ def train(cfg: Config, num_steps: Optional[int] = None, dataset=None, callbacks=
     Runs on the CUDA card unless ``device="cpu"``; without a card it raises.
     ``dataset`` (an iterable of numpy batches) replaces the configured
     source; each ``callbacks`` entry is called as ``cb(step, state,
-    metrics)`` after every step; checkpoints as :func:`run_steps` says.
-    Returns the final :class:`TrainState`."""
+    metrics)`` after every step; checkpoints, metrics, triage, spans and the
+    profiler window as :func:`run_steps` says. Returns the final
+    :class:`TrainState`."""
     from alphafold2_tpu_torch.data.pipeline import make_dataset
 
     t = cfg.train
@@ -345,8 +421,6 @@ def train(cfg: Config, num_steps: Optional[int] = None, dataset=None, callbacks=
     if numerics_mode not in ("off", "triage", "full"):
         raise ValueError(f"unknown train.numerics {numerics_mode!r}; "
                          "expected 'off', 'triage' or 'full'")
-    if numerics_mode == "full":
-        raise NotImplementedError("train.numerics='full' is not ported yet")
     dev = resolve_device(device)
     num_steps = num_steps or t.num_steps
     dataset = dataset if dataset is not None else make_dataset(cfg.data, seed=t.seed)
@@ -354,6 +428,17 @@ def train(cfg: Config, num_steps: Optional[int] = None, dataset=None, callbacks=
 
     model = build_model(cfg)
     state = init_state(cfg, model, device=dev)
-    step = make_train_step(state.model, "norms" if numerics_mode == "triage" else "off")
-    return run_steps(cfg, state, lambda st, batch, i: step(st, batch), data_iter,
-                     num_steps, callbacks, triage=numerics_mode == "triage")
+    step = make_train_step(state.model, {"off": "off", "triage": "norms",
+                                         "full": "full"}[numerics_mode])
+    key = lambda i: DropoutKey.for_step(t.seed + 1, i)
+    triage_fn = None
+    if numerics_mode != "off":
+        triage = make_triage_step(state.model)
+        triage_fn = lambda batch, i: triage(batch, key(i))
+    tracer = Tracer(t.trace_events)
+    try:
+        return run_steps(cfg, state, lambda st, batch, i: step(st, batch, key(i)), data_iter,
+                         num_steps, callbacks, triage_fn=triage_fn, tracer=tracer,
+                         profiler=Profiler(t.profile_dir, t.profile_steps, dev))
+    finally:
+        tracer.close()

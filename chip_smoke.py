@@ -148,7 +148,28 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
               at full width, f32 and bf16; peak
               memory at depth 6 and 12 for the default, remat and
               reversible engines; serving with model.remat=True equal to
-              remat=False on one bucket-128 batch.
+              remat=False on one bucket-128 batch;
+10. telemetry — dropout, numerics and the training telemetry at the
+              training smoke's width: 2 steps each through train.loop.train
+              without dropout (the yardstick), with attn and ff dropout 0.1 (JAX's dense route on every
+              dense attention: no K1 or K3 launch), ff dropout only (K1 36,
+              K3a/K3b 35 a step), tied rows with ff dropout (K2 and its
+              backward) and sparse with attn dropout (K4/K5 on the flat
+              route, its output dropped): finite, unskipped, every launch
+              on its Hopper kernel, launches a step as the dropout gate
+              gives them, the step alone and its peak memory; one attn+ff
+              dropout step profiled (device busy, host ops, launches); remat
+              bit-equal to the default engine under one dropout key (both
+              configurations) and the f32 reversible backward within 1e-4
+              of plain autograd under one; the step alone with numerics
+              "off", "norms" (train.numerics="triage") and "full", in
+              turns; a run whose trunk layer 3
+              turns NaN, whose NaN triage must name trunk.layer_3.pair one
+              step late with the reruns launching K1 and K3 as a step does;
+              a train.trace_events span trace with a train.step span a step
+              and the numerics counters, and a train.profile_dir window whose Chrome trace holds the
+              card's kernels. Each line carries the card's name and power
+              limit.
 
 ``phase_k1_time`` (not part of the run) times K1 alone on its nine
 main-path passes beside SDPA: ``python3 -c "import chip_smoke as c;
@@ -2412,11 +2433,12 @@ def _engine_config(label, depth=None):
     return cfg
 
 
-def _step_fn(cfg, e2e):
+def _step_fn(cfg, e2e, key=None, numerics_mode="off"):
     """A fresh state at ``cfg`` on the card and its step on one synthetic
-    batch (numerics off, no callbacks), as a closure whose ``model``
-    attribute is the state's model. ``e2e``: the end-to-end step, from
-    step 0's MDS start."""
+    batch (numerics ``numerics_mode``, no callbacks), as a closure whose
+    ``model`` attribute is the state's model. ``e2e``: the end-to-end step,
+    from step 0's MDS start; otherwise the distogram step under the dropout
+    ``key`` where one is given."""
     import torch
 
     from alphafold2_tpu_torch.data.pipeline import SyntheticDataset
@@ -2426,9 +2448,12 @@ def _step_fn(cfg, e2e):
     st = loop.init_state(cfg, model)
     batch = loop.batch_to_device(next(iter(SyntheticDataset(cfg.data, seed=cfg.train.seed))),
                                  torch.device("cuda"))
-    step = (end2end.make_end2end_step if e2e else loop.make_train_step)(st.model)
-    extra = ((end2end.mds_start(cfg.train.seed + 1, 0, 1, 3 * cfg.data.crop_len, "cuda"),)
-             if e2e else ())
+    if e2e:
+        step = end2end.make_end2end_step(st.model)
+        extra = (end2end.mds_start(cfg.train.seed + 1, 0, 1, 3 * cfg.data.crop_len, "cuda"),)
+    else:
+        step = loop.make_train_step(st.model, numerics_mode)
+        extra = (key,)
 
     def fn():
         return step(st, batch, *extra)
@@ -2489,56 +2514,71 @@ def _expected_launches(label, depth):
             "fused_attention_bwd_dkv": 6 * depth - 1}
 
 
-def _engine_run(label):
-    """ENGINE_STEPS steps of one engine through its training entry point
-    (finite losses, no skipped step, every launch on its Hopper kernel, no
-    plain version), then the step alone timed with its peak memory."""
+def _entry_point_run(tag, label, cfg, e2e, steps, reps, key=None):
+    """``steps`` steps of ``cfg`` through its training entry point
+    (train.loop.train, or train_end2end with ``e2e``) from launch counts
+    of 0: finite losses, no skipped step, every launch on its Hopper
+    kernel, no plain version. Then the step alone over ``reps`` warm steps
+    (under the dropout ``key`` where one is given) with its peak memory.
+    Returns the launches a step by _training_kernels name, the step's ms,
+    its peak bytes and the losses."""
     import numpy as np
     import torch
 
     from alphafold2_tpu_torch.train import end2end, loop
 
-    e2e = label.startswith("e2e")
-    cfg = _engine_config(label)
     plain, kernels = _plain_versions(), _training_kernels()
     losses, oks = [], []
     _reset_counts(kernels, plain)
     train = end2end.train_end2end if e2e else loop.train
-    state = train(cfg, num_steps=ENGINE_STEPS, callbacks=[
+    state = train(cfg, num_steps=steps, callbacks=[
         lambda i, s, m: (losses.append(float(m["loss"])), oks.append(bool(m["grads_ok"])))])
     skipped = int(state.skipped)
     del state
-    per_step = {name: fn.launches / ENGINE_STEPS for name, fn in kernels.items() if fn.launches}
+    per_step = {name: fn.launches / steps for name, fn in kernels.items() if fn.launches}
     missed = {name: fn.launches - fn.sm90_launches for name, fn in kernels.items()
               if hasattr(fn, "sm90_launches") and fn.sm90_launches != fn.launches}
     plain_calls = sum(fn.calls for fn in plain)
     _free()
     resident = torch.cuda.memory_allocated()  # held before the model is built
-    fn = _step_fn(cfg, e2e)
-    step_ms, peak = _time_step(fn, ENGINE_REPS)
+    fn = _step_fn(cfg, e2e, key=key)
+    step_ms, peak = _time_step(fn, reps)
     del fn
     _free()
-    log(f"[engines] {label} (depth {cfg.model.depth}, crop {cfg.data.crop_len}): losses "
+    log(f"{tag} {label} (depth {cfg.model.depth}, crop {cfg.data.crop_len}): losses "
         + " ".join(f"{x:.4f}" for x in losses) + f", skipped {skipped}; the step alone "
-        f"{step_ms:.2f} ms ({1e3 / step_ms:.3f} steps/s) over {ENGINE_REPS} steps, peak device "
-        f"memory {peak / 2**20:.1f} MiB ({resident / 2**20:.1f} MiB held before the model); kernel launches a step {per_step}; launches off their "
-        f"Hopper kernel {missed}; plain-version calls {plain_calls}")
+        f"{step_ms:.2f} ms ({1e3 / step_ms:.3f} steps/s) over {reps} steps, peak device "
+        f"memory {peak / 2**20:.1f} MiB ({resident / 2**20:.1f} MiB held before the model); "
+        f"kernel launches a step {per_step}; launches off their Hopper kernel {missed}; "
+        f"plain-version calls {plain_calls}")
     require(bool(np.isfinite(losses).all()) and all(oks) and skipped == 0,
             f"{label}: a non-finite loss or a skipped step")
     require(not missed, f"{label}: a launch missed its Hopper kernel")
     require(plain_calls == 0, f"{label}: a plain version ran")
+    return {"label": label, "step_ms": step_ms, "peak_bytes": peak, "launches": per_step,
+            "losses": losses}
+
+
+def _engine_run(label):
+    """ENGINE_STEPS steps of one engine through its training entry point,
+    then the step alone (_entry_point_run); launches a step off the
+    engine's schedule are logged."""
+    cfg = _engine_config(label)
+    run = _entry_point_run("[engines]", label, cfg, label.startswith("e2e"), ENGINE_STEPS,
+                           ENGINE_REPS)
     expected = _expected_launches(label, cfg.model.depth)
-    off = {name: (per_step.get(name, 0), n) for name, n in expected.items()
-           if per_step.get(name, 0) != n}
+    run["off_expected"] = off = {name: (run["launches"].get(name, 0), n)
+                                 for name, n in expected.items()
+                                 if run["launches"].get(name, 0) != n}
     if off:
         log(f"[engines] {label}: launches a step (measured, expected) {off}")
-    return {"label": label, "step_ms": step_ms, "peak_bytes": peak, "launches": per_step,
-            "losses": losses, "off_expected": off}
+    return run
 
 
-def _loss_and_grads(model, batch):
+def _loss_and_grads(model, batch, key=None):
     """The distogram loss of one batch and every parameter's gradient (f32;
-    zeros for a leaf that does not reach the loss)."""
+    zeros for a leaf that does not reach the loss), under the dropout
+    ``key`` where one is given."""
     import torch
 
     from alphafold2_tpu_torch.train import loop
@@ -2546,7 +2586,7 @@ def _loss_and_grads(model, batch):
 
     model.zero_grad(set_to_none=True)
     logits = model(batch["seq"], batch.get("msa"), mask=batch["mask"],
-                   msa_mask=batch.get("msa_mask"))
+                   msa_mask=batch.get("msa_mask"), dropout_key=key)
     loss = loop.distogram_cross_entropy(
         logits, get_bucketed_distance_matrix(batch["coords"], batch["mask"]))
     loss.backward()
@@ -2867,6 +2907,276 @@ def phase_engines():
     _serve_with_remat()
     log(f"[engines] phase: {time.perf_counter() - t0:.1f} s")
     return {"runs": runs, "memory": memory}
+
+
+# --------------------------------------------------------------- phase 10
+
+
+TELEMETRY_STEPS = 2  # steps through train.loop.train per dropout configuration
+TELEMETRY_REPS = 3  # steps timed back to back per configuration
+# the dropout configurations at the training smoke's width: label ->
+# ModelConfig fields
+DROPOUT_RUNS = {
+    "no dropout": {},
+    "attn+ff dropout": {"attn_dropout": 0.1, "ff_dropout": 0.1},
+    "ff dropout": {"ff_dropout": 0.1},
+    "tied, ff dropout": {"ff_dropout": 0.1, "msa_tie_row_attn": True},
+    "sparse, attn dropout": {"attn_dropout": 0.1, "sparse_self_attn": True},
+}
+TRIAGE_LAYER = 3  # the trunk layer the triage run poisons
+
+
+def _dropout_config(fields):
+    from alphafold2_tpu_torch.config import Config
+
+    cfg = Config()
+    for field, value in fields.items():
+        setattr(cfg.model, field, value)
+    return cfg
+
+
+def _expected_dropout_launches(fields, depth):
+    """Kernel launches a step under one DROPOUT_RUNS entry, by
+    _training_kernels name. Active
+    attention dropout takes JAX's dense route on every dense attention, as
+    JAX's gate does, so K1 and K3 run only without it; the sparse pair
+    passes keep K4/K5, with lse under grad; the last layer's MSA<-pair
+    update runs no backward."""
+    attn = fields.get("attn_dropout", 0.0) > 0
+    tied, sparse = fields.get("msa_tie_row_attn", False), fields.get("sparse_self_attn", False)
+    dense = 0 if attn else 6 * depth - tied * depth - 2 * sparse * depth
+    out = {"fused_attention": dense, "fused_attention_bwd_dq": max(dense - 1, 0),
+           "fused_attention_bwd_dkv": max(dense - 1, 0)}
+    if tied and not attn:
+        out.update({"tied_row_attention": depth, "tied_row_attention_bwd_dq": depth,
+                    "tied_row_attention_bwd_dkv": depth})
+    if sparse:
+        out.update({"block_sparse_attention": 2 * depth, "block_sparse_attention_bwd_dq": 2 * depth,
+                    "block_sparse_attention_bwd_dkv": 2 * depth})
+    return out
+
+
+def _dropout_run(label, card):
+    """TELEMETRY_STEPS steps of one DROPOUT_RUNS configuration through
+    train.loop.train, then the step alone under step 0's dropout key
+    (_entry_point_run); the launches a step must be those the dropout gate
+    gives."""
+    from alphafold2_tpu_torch.ops.attention import DropoutKey
+
+    cfg = _dropout_config(DROPOUT_RUNS[label])
+    run = _entry_point_run("[telemetry]", f"{label} ({card})", cfg, False, TELEMETRY_STEPS,
+                           TELEMETRY_REPS, key=DropoutKey.for_step(cfg.train.seed + 1, 0))
+    expected = _expected_dropout_launches(DROPOUT_RUNS[label], cfg.model.depth)
+    off = {name: (run["launches"].get(name, 0), n) for name, n in expected.items()
+           if run["launches"].get(name, 0) != n}
+    require(not off, f"{label}: launches a step (measured, expected) {off}")
+    return run
+
+
+def _dropout_engines(card):
+    """Remat against the default engine under one dropout key at full width
+    (attn+ff and ff-only dropout): loss and every gradient bit-equal. The
+    reversible custom backward against plain autograd under one key at
+    full width in f32 (attn and ff dropout 0.1): the loss within 1e-5
+    relative, the gradients' relative L2 over every leaf within 1e-4, the
+    bound _reversible_custom_vs_plain holds f32 to without dropout."""
+    import torch
+
+    from alphafold2_tpu_torch.data.pipeline import SyntheticDataset
+    from alphafold2_tpu_torch.ops.attention import DropoutKey
+    from alphafold2_tpu_torch.predict import init_params
+    from alphafold2_tpu_torch.train import loop
+
+    out = {}
+    for label in ("attn+ff dropout", "ff dropout"):
+        cfg = _dropout_config(DROPOUT_RUNS[label])
+        key = DropoutKey.for_step(cfg.train.seed + 1, 0)
+        batch = loop.batch_to_device(next(iter(SyntheticDataset(cfg.data, seed=cfg.train.seed))),
+                                     torch.device("cuda"))
+        base = init_params(loop.build_model(cfg), cfg.train.seed).cuda()
+        ref_loss, ref = _loss_and_grads(base, batch, key)
+        plain_loss, _ = _loss_and_grads(base, batch)  # no key: no dropout
+        sd = base.state_dict()
+        del base
+        cfg.model.remat = True
+        remat = loop.build_model(cfg)
+        remat.load_state_dict(sd)
+        loss, grads = _loss_and_grads(remat.cuda(), batch, key)
+        equal = loss == ref_loss and all(torch.equal(grads[k], ref[k]) for k in ref)
+        log(f"[telemetry] remat against the default engine under one dropout key, {label} "
+            f"({card}): loss {loss:.6f} vs {ref_loss:.6f} (without the key {plain_loss:.6f}); "
+            f"loss and every gradient bit-equal: {equal}")
+        require(equal, f"remat under {label} differs from the default engine")
+        require(plain_loss != ref_loss, f"{label}: the key changed nothing")
+        out[f"remat, {label}"] = equal
+        del remat, grads, ref
+        _free()
+    cfg = _dropout_config(DROPOUT_RUNS["attn+ff dropout"])
+    cfg.model.reversible, cfg.model.bfloat16 = True, False
+    key = DropoutKey.for_step(cfg.train.seed + 1, 0)
+    batch = loop.batch_to_device(next(iter(SyntheticDataset(cfg.data, seed=cfg.train.seed))),
+                                 torch.device("cuda"))
+    model = init_params(loop.build_model(cfg), cfg.train.seed).cuda()
+    custom_loss, custom = _loss_and_grads(model, batch, key)
+    model.trunk.reversible.use_custom_vjp = False
+    plain_loss, plain = _loss_and_grads(model, batch, key)
+    total = float(torch.stack([(custom[k] - g).norm() for k, g in plain.items()]).norm()
+                  / torch.stack([g.norm() for g in plain.values()]).norm())
+    loss_rel = abs(custom_loss - plain_loss) / abs(plain_loss)
+    log(f"[telemetry] reversible at full width, f32, attn and ff dropout 0.1 under one key "
+        f"({card}): custom backward vs plain autograd: loss {custom_loss:.6f} vs "
+        f"{plain_loss:.6f} (relative {loss_rel:.2e}; tol 1e-5), gradient relative L2 over every "
+        f"leaf {total:.3e} (tol 1e-4)")
+    require(loss_rel <= 1e-5 and total <= 1e-4,
+            "the reversible backward under dropout disagrees with plain autograd")
+    out["reversible f32 grad rel L2"] = total
+    del model, custom, plain
+    _free()
+    return out
+
+
+def _numerics_cost(card):
+    """The step alone with the step's numerics modes, in turns: "off",
+    "norms" (what train.numerics="triage" runs: per-group norms, the
+    parameters cloned) and "full" (the norms and every tag's stats on the
+    device, nothing read back)."""
+    from alphafold2_tpu_torch.config import Config
+
+    cfg = Config()
+    times = {}
+    for mode in ("off", "norms", "full", "full", "norms", "off"):
+        fn = _step_fn(cfg, False, numerics_mode=mode)
+        ms, _ = _time_step(fn, TELEMETRY_REPS)
+        times.setdefault(mode, []).append(ms)
+        del fn
+        _free()
+    log(f"[telemetry] the step alone by numerics mode, in turns off, norms, full, full, norms, "
+        f"off ({card}): " + "; ".join(f"{mode} " + " / ".join(f"{ms:.2f}" for ms in t) + " ms"
+                                       for mode, t in times.items()))
+    return times
+
+
+def _triage_run(card):
+    """train.loop.train with numerics "triage" whose trunk layer
+    TRIAGE_LAYER turns NaN after step 0: steps 1 and 2 skip, each is rerun
+    fully tagged one step late, and its nan_triage must name
+    trunk.layer_{TRIAGE_LAYER}.pair; the reruns launch K1 and K3 as a step
+    does."""
+    import contextlib
+    import io
+
+    import torch
+
+    from alphafold2_tpu_torch.config import Config
+    from alphafold2_tpu_torch.train import loop
+
+    cfg = Config()
+    cfg.train.numerics = "triage"
+    prefix = f"trunk.layer_{TRIAGE_LAYER}."
+
+    def poison(i, state, metrics):
+        if i == 0:
+            with torch.no_grad():
+                for name, p in state.model.named_parameters():
+                    if name.startswith(prefix):
+                        p.fill_(float("nan"))
+
+    plain, kernels = _plain_versions(), _training_kernels()
+    _reset_counts(kernels, plain)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        state = loop.train(cfg, num_steps=3, callbacks=[poison])
+    skipped = int(state.skipped)
+    del state
+    _free()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    notes = [line for line in out.getvalue().splitlines() if "event=nan_triage" in line]
+    firsts = [line.split("first_nonfinite=")[1].split()[0] for line in notes]
+    runs = 3 + len(notes)  # the steps and the reruns
+    log(f"[telemetry] triage run, {prefix}* NaN after step 0 ({card}): skipped {skipped}; "
+        f"nan_triage at " + ", ".join(n.split("]")[0] + "]" for n in notes)
+        + f" naming {firsts}; K1 {launches['fused_attention']}, K3a "
+        f"{launches['fused_attention_bwd_dq']}, K3b {launches['fused_attention_bwd_dkv']} "
+        f"launches over 3 steps and {len(notes)} reruns")
+    require(skipped == 2 and firsts == [f"trunk.layer_{TRIAGE_LAYER}.pair"] * 2,
+            "the triage reruns did not name the poisoned layer")
+    require(launches["fused_attention"] == 36 * runs
+            and launches["fused_attention_bwd_dq"] == 35 * runs
+            and launches["fused_attention_bwd_dkv"] == 35 * runs
+            and kernels["fused_attention"].sm90_launches == launches["fused_attention"],
+            "the triage reruns did not launch K1 and K3 as a step does")
+    return {"first_nonfinite": firsts, "launches": launches}
+
+
+def _trace_run(card):
+    """train.loop.train with train.trace_events and train.profile_dir set
+    and numerics "full" (3 steps, the profiler window around step 1): the
+    span trace loads and holds a train.step span a step and the logged
+    step's numerics counters; the profiler's Chrome trace holds the card's
+    kernels."""
+    import shutil
+
+    from alphafold2_tpu_torch.config import Config
+    from alphafold2_tpu_torch.observe.tracing import load_trace_events
+    from alphafold2_tpu_torch.train import loop
+
+    out_dir = os.path.join(HERE, "build", "telemetry")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cfg = Config()
+    cfg.train.trace_events = os.path.join(out_dir, "trace.json")
+    cfg.train.profile_dir = os.path.join(out_dir, "profile")
+    cfg.train.profile_steps = (1, 1)
+    cfg.train.numerics = "full"
+    loop.train(cfg, num_steps=3)
+    _free()
+    events = load_trace_events(cfg.train.trace_events)
+    steps = [e for e in events if e["name"] == "train.step"]
+    counters = [e for e in events if e["ph"] == "C" and e["name"].startswith("numerics/")]
+    files = os.listdir(cfg.train.profile_dir)
+    require(files == ["trace_steps_1_1.json"], f"the profiler window left {files}")
+    path = os.path.join(cfg.train.profile_dir, files[0])
+    with open(path) as f:
+        trace = json.load(f)["traceEvents"]
+    kernel_events = [e for e in trace if e.get("cat") == "kernel"]
+    size = os.path.getsize(path)
+    log(f"[telemetry] span trace ({card}): {len(events)} events, train.step spans "
+        + ", ".join(f"step {e['args']['step']} {e['dur'] / 1e3:.2f} ms" for e in steps)
+        + f", {len(counters)} numerics counters; profiler window {files} ({size / 2**20:.1f} MiB): {len(trace)} events, "
+        f"{len(kernel_events)} device kernels, {len({e['name'] for e in kernel_events})} distinct")
+    require([e["args"]["step"] for e in steps] == [0, 1, 2], "the span trace lacks train.step spans")
+    require(bool(counters), "the span trace lacks the numerics counters")
+    require(bool(kernel_events), "the profiler window left no trace of the card's kernels")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return {"spans": len(events), "kernel_events": len(kernel_events)}
+
+
+def phase_train_telemetry():
+    """Dropout, numerics and the training telemetry (log tag
+    ``[telemetry]``) at the training smoke's width: each DROPOUT_RUNS entry
+    through train.loop.train (launches a step, the step alone, peak
+    memory), and one attn+ff dropout step profiled; remat bit-equal to the default engine under one dropout key,
+    and the reversible backward against plain autograd under one; a
+    numerics "full" step against "off"; a poisoned-layer run whose NaN
+    triage names the layer; a span trace and a profiler window. Every line
+    carries the card's name and power limit."""
+    from alphafold2_tpu_torch.ops.attention import DropoutKey
+
+    t0 = time.perf_counter()
+    card = _card()
+    runs = {label: _dropout_run(label, card) for label in DROPOUT_RUNS}
+    cfg = _dropout_config(DROPOUT_RUNS["attn+ff dropout"])
+    fn = _step_fn(cfg, False, key=DropoutKey.for_step(cfg.train.seed + 1, 0))
+    fn()  # warm
+    profile_device(f"one attn+ff dropout training step ({card})", fn, host=True)
+    del fn
+    _free()
+    engines = _dropout_engines(card)
+    numerics_ms = _numerics_cost(card)
+    triage = _triage_run(card)
+    traces = _trace_run(card)
+    log(f"[telemetry] phase: {time.perf_counter() - t0:.1f} s")
+    return {"runs": runs, "engines": engines, "numerics_ms": numerics_ms, "triage": triage,
+            "traces": traces}
 
 
 # --------------------------------------------------------------- phase 6
@@ -3803,7 +4113,7 @@ def _step_weights(backward, depth=6):
     return weights
 
 
-def kernel_line(rows, serve, train, tied_train, sparse_train, gate, engines):
+def kernel_line(rows, serve, train, tied_train, sparse_train, gate, engines, telemetry):
     """One entry per kernel. K1 sums one serving trunk layer's K1 calls at
     bucket 128 (two pair axial passes, the MSA column pass, both cross
     attentions; a call's time includes its combine pass where it splits),
@@ -3823,7 +4133,9 @@ def kernel_line(rows, serve, train, tied_train, sparse_train, gate, engines):
     phase's one launch at X's (4, 512) f32, timed alone in f32; library_ms is
     torch.mul(x, 2). Each training kernel's entry also carries
     ``engine_launches``: its launches a step under each engine of
-    phase_engines (K4 with and without the row logsumexp together)."""
+    phase_engines (K4 with and without the row logsumexp together), and
+    ``dropout_launches``: its launches a step under each dropout
+    configuration of phase_train_telemetry."""
     serve_k1 = {"pair axial pass (1536x8, 384x384, d64)": 2,
                 "MSA column pass (512x8, 5x5, d64)": 1,
                 "pair<-MSA cross (4x8, 147456x640, d64)": 1,
@@ -3870,7 +4182,18 @@ def kernel_line(rows, serve, train, tied_train, sparse_train, gate, engines):
                 + (run["launches"].get("block_sparse_attention (no lse)", 0)
                    if e["name"] == "block_sparse_attention" else 0)
                 for label, run in engines["runs"].items()}
+            e["dropout_launches"] = {label: run["launches"].get(e["name"], 0)
+                                     for label, run in telemetry["runs"].items()}
     return {"kernels": entries}
+
+
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()
+    return smi[0] if smi else "nvidia-smi gave nothing"
 
 
 def main() -> int:
@@ -3885,11 +4208,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    ).stdout.strip().splitlines()
-    card = smi[0] if smi else "nvidia-smi gave nothing"
+    card = _card()
     log(f"[device] {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}; "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     try:
@@ -3932,13 +4251,14 @@ def main() -> int:
         sparse_train = phase_train(sparse=True)
         phase_end2end()
         engines = phase_engines()
+        telemetry = phase_train_telemetry()
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
         log("chip_smoke: FAILED")
         return 1
     log(card)
     print(json.dumps(kernel_line(rows, serve, train, tied_train, sparse_train, gate,
-                                 engines)), flush=True)
+                                 engines, telemetry)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -9,7 +9,9 @@ leaf name alone decides the mapping:
   including the SE(3) ``v_mix`` and ``to_delta`` kernels;
 - ``Embed`` ``embedding`` -> ``Embed.weight``;
 - ``LayerNorm`` ``scale`` / ``bias`` -> ``weight`` / ``bias``;
-- ``Dense`` ``bias`` -> ``bias``.
+- ``Dense`` ``bias`` -> ``bias``;
+- the raw leaf ``sidechain_proj`` of ``SE3TemplateEmbedder`` (a flax
+  ``param``) -> the parameter of the same name.
 
 The scanned and reversible trunks stack their layers' parameters on a
 leading depth axis (``trunk/scan/layer/...``, ``trunk/reversible/layers/...``,
@@ -30,7 +32,7 @@ import numpy as np
 import torch
 
 _LEAF_NAMES = {"kernel": "weight", "embedding": "weight", "scale": "weight",
-               "bias": "bias"}
+               "bias": "bias", "sidechain_proj": "sidechain_proj"}
 # the module paths under which each leaf carries a leading depth axis
 _STACKED = (("scan", "layer"), ("reversible", "layers"))
 

@@ -2,7 +2,8 @@
 
 Port of ``alphafold2_tpu/models/se3.py``: :func:`radial_basis`,
 :class:`EquivariantLayer` (the dense path, :116-158, and the streamed path,
-:160-282), :class:`SE3Transformer` and :class:`SE3Refiner`. Attention
+:160-282), :class:`SE3Transformer`, :class:`SE3TemplateEmbedder` (:304,
+the templates' sidechain coloring) and :class:`SE3Refiner`. Attention
 logits come from scalars and RBF(distance) only, so the layer is
 equivariant by construction. Past :func:`should_chunk` (``CHUNK_THRESHOLD``
 edge elements, the JAX package's 2**28) the layer streams the edge
@@ -189,6 +190,25 @@ class SE3Transformer(nn.Module):
         for i in range(self.depth):
             s, v = getattr(self, f"layer_{i}")(s, v, coords, mask=mask)
         return s, v
+
+
+class SE3TemplateEmbedder(nn.Module):
+    """Residue scalars s (B, N, dim) colored by one sidechain vector a
+    residue (B, N, 3) at coords (B, N, 3): the sidechain lifts to
+    ``vec_dim`` channels by the raw per-channel scales ``sidechain_proj``
+    (flax's ``param``, drawn N(0, 1)), then ``net`` runs and only its
+    scalars come back, (B, N, dim) in s's dtype. Its layers take the dense
+    or the streamed edge attention as the refiner's do."""
+
+    def __init__(self, dim: int, depth: int = 2, vec_dim: int = 8):
+        super().__init__()
+        self.sidechain_proj = nn.Parameter(torch.zeros(vec_dim))
+        self.net = SE3Transformer(dim, depth, vec_dim)
+
+    def forward(self, s, sidechain, coords, mask=None):
+        v = sidechain[:, :, None, :] * self.sidechain_proj.to(sidechain.dtype)[None, None, :, None]
+        s, _ = self.net(s, v, coords, mask=mask)
+        return s
 
 
 class SE3Refiner(nn.Module):

@@ -38,9 +38,12 @@ only ``trunk.out.pair``/``.msa`` (:362-366, :392-394).
 
 ``sparse_self_attn`` (a bool, or one per layer) makes a layer's pair axial
 passes block-sparse (K4/K5), as in JAX only the pair stream; the scanned and
-reversible engines need one value for every layer. MSA-row and pair-grid
-sharding and context parallelism are not ported; the reversible engine
-refuses them as JAX's does.
+reversible engines need one value for every layer. ``msa_row_shard``,
+``grid_parallel`` and ``context_parallel`` shard over a device mesh in JAX
+and change nothing without one (``alphafold2_tpu/ops/attention.py:262-281``
+needs an active mesh); the port runs on one device with no mesh, so the
+loop and scanned engines take them and apply none, and the reversible
+engine refuses them as JAX's does.
 """
 
 from __future__ import annotations
@@ -253,9 +256,6 @@ class Trunk(nn.Module):
             self.reversible = ReversibleTrunk(depth=depth, sparse_attn=bool(sparse[0]),
                                               dtype=dtype, **layer_kwargs)
             return
-        if msa_row_shard or grid_parallel or context_parallel is not None:
-            raise NotImplementedError(
-                "MSA-row and pair-grid sharding and context parallelism are not ported yet")
         self.remat, self.context_fn = remat, context_fn
         if scan_layers:
             if len(set(sparse)) > 1:

@@ -81,7 +81,8 @@ def synthesize_msa(seq_tokens: np.ndarray, depth: int, seed: int = 0,
 
 
 def build_model(cfg: Config, mds_iters: int = 200, mds_seed: Optional[int] = None,
-                remat_policy: Optional[str] = None, reversible: bool = False):
+                remat_policy: Optional[str] = None, reversible: bool = False,
+                num_embedds: Optional[int] = None):
     """The End2EndModel a config describes (compute dtype bf16 when
     ``model.bfloat16``), with parameters on the CPU in float32. It takes
     the fields JAX's ``predict`` (``alphafold2_tpu/predict.py:137-143``)
@@ -89,33 +90,37 @@ def build_model(cfg: Config, mds_iters: int = 200, mds_seed: Optional[int] = Non
     them: ``gelu_exact``, ``sparse_self_attn``, ``remat_policy``,
     ``reversible`` and ``scan_layers`` are training options that serving
     ignores there and here, so a reversible config serves the default
-    trunk; end-to-end training passes its ``remat_policy`` and
-    ``reversible``. ``mds_seed`` keys the MDS start (default
-    ``cfg.train.seed``, as the serving engines key it)."""
+    trunk; end-to-end training passes its ``remat_policy``, ``reversible``
+    and, for a PLM stream, ``num_embedds`` (the ``embedds`` width).
+    ``msa_row_shard``, ``grid_parallel`` and ``context_parallel`` reach the
+    trunk, as JAX's ``train_end2end`` passes them: on one device they apply
+    nothing, and the reversible engine refuses them. ``End2EndModel`` has
+    no field for ``cross_attn_compress_ratio``, in JAX as here, so it is not
+    applied. ``mds_seed`` keys the MDS start (default ``cfg.train.seed``,
+    as the serving engines key it)."""
     from alphafold2_tpu_torch.train.end2end import End2EndModel
 
     m = cfg.model
-    if (m.msa_row_shard or m.grid_parallel or m.context_parallel is not None
-            or m.cross_attn_compress_ratio != 1):
-        raise NotImplementedError(
-            "sharding, context parallelism and KV compression are not ported yet"
-        )
     return End2EndModel(
         dim=m.dim, depth=m.depth, heads=m.heads, dim_head=m.dim_head,
         max_seq_len=m.max_seq_len, mds_iters=mds_iters,
         msa_tie_row_attn=m.msa_tie_row_attn,
         mds_seed=cfg.train.seed if mds_seed is None else mds_seed,
         dtype=torch.bfloat16 if m.bfloat16 else torch.float32, remat=m.remat,
-        remat_policy=remat_policy, reversible=reversible,
+        remat_policy=remat_policy, reversible=reversible, msa_row_shard=m.msa_row_shard,
+        grid_parallel=m.grid_parallel, context_parallel=m.context_parallel,
+        num_embedds=num_embedds,
     )
 
 
 def init_params(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
     """Random weights from a seeded ``torch.Generator``, at flax's scales:
     dense kernels N(0, 1/fan_in), embeddings N(0, 1/dim), biases 0,
-    LayerNorm scale 1 (the model's weights stay float32). A depth-stacked
-    kernel (the scanned and reversible trunks) gets that scale in every
-    depth slice: its fan_in is the layer's ``in_features``."""
+    LayerNorm scale 1, the templates' raw ``sidechain_proj`` N(0, 1) (the
+    model's weights stay float32). A depth-stacked kernel (the scanned and
+    reversible trunks) gets that scale in every depth slice: its fan_in is
+    the layer's ``in_features``."""
+    from alphafold2_tpu_torch.models.se3 import SE3TemplateEmbedder
     from alphafold2_tpu_torch.ops.layers import Dense, LayerNorm
 
     gen = torch.Generator().manual_seed(seed)
@@ -132,6 +137,8 @@ def init_params(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
             elif isinstance(mod, LayerNorm):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
+            elif isinstance(mod, SE3TemplateEmbedder):
+                mod.sidechain_proj.copy_(torch.randn(mod.sidechain_proj.shape, generator=gen))
     return model
 
 

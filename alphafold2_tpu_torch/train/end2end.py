@@ -23,12 +23,17 @@ and ``reversible`` train here as in JAX (:285-295, which passes no
 the dropout rates (``End2EndModel`` has none, and no dropout key reaches
 it), nor ``train.numerics``, ``profile_dir`` or ``trace_events``: such a
 config trains as it would without them. Metrics go to ``metrics.jsonl`` in
-``train.checkpoint_dir``, as JAX's loop writes them (:314). The
-``plm``/``embedds`` inputs and a device mesh raise.
+``train.checkpoint_dir``, as JAX's loop writes them (:314). With
+``data.features="plm"`` the batches carry ``embedds`` (``data/plm.py``)
+in place of the MSA: ``End2EndModel`` repeats each residue's embedding
+x3 in place, as it elongates the tokens (:86-88), and ``embedd_project``
+takes the stream's width (JAX's init takes it from the sample batch). A
+device mesh raises.
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Optional, Union
 
 import numpy as np
@@ -42,7 +47,7 @@ from alphafold2_tpu_torch.models.alphafold2 import Alphafold2
 from alphafold2_tpu_torch.models.se3 import SE3Refiner
 from alphafold2_tpu_torch.train.loop import (
     TrainState, apply_features, apply_gradients, check_unported, collect_gradients,
-    init_state, run_steps,
+    embedds_width, init_state, run_steps,
 )
 from alphafold2_tpu_torch.train.optim import global_norm
 from alphafold2_tpu_torch.utils.metrics import kabsch
@@ -60,7 +65,10 @@ class End2EndModel(nn.Module):
     Submodules are ``af2`` and ``refiner``, the flax names. ``mds_seed``
     keys the position-keyed MDS start (utils/mds.py) when no ``coords0`` is
     passed to :meth:`forward`. ``remat``, ``remat_policy`` and
-    ``reversible`` choose the trunk's engine (JAX's fields, :71-73)."""
+    ``reversible`` choose the trunk's engine (JAX's fields, :71-73);
+    ``msa_row_shard``, ``grid_parallel`` and ``context_parallel`` go to the
+    trunk (:75-77), which applies none on one device; ``num_embedds``, the
+    ``embedds`` width, builds ``af2.embedd_project``."""
 
     def __init__(
         self,
@@ -77,6 +85,10 @@ class End2EndModel(nn.Module):
         remat: bool = False,
         remat_policy: Optional[str] = None,
         reversible: bool = False,
+        msa_row_shard: bool = False,
+        grid_parallel: bool = False,
+        context_parallel: Optional[str] = None,
+        num_embedds: Optional[int] = None,
     ):
         super().__init__()
         self.mds_iters = mds_iters
@@ -85,13 +97,15 @@ class End2EndModel(nn.Module):
             dim=dim, max_seq_len=max_seq_len, depth=depth, heads=heads,
             dim_head=dim_head, msa_tie_row_attn=msa_tie_row_attn, dtype=dtype,
             remat=remat, remat_policy=remat_policy, reversible=reversible,
+            msa_row_shard=msa_row_shard, grid_parallel=grid_parallel,
+            context_parallel=context_parallel, num_embedds=num_embedds,
         )
         self.refiner = SE3Refiner(
             dim=64, depth=refiner_depth,
             num_tokens=constants.NUM_COORDS_PER_RES, dtype=dtype,
         )
 
-    def forward(self, seq, msa=None, mask=None, msa_mask=None,
+    def forward(self, seq, msa=None, mask=None, msa_mask=None, embedds=None,
                 coords0: Optional[torch.Tensor] = None) -> dict:
         from alphafold2_tpu_torch.predict import realize_structure
 
@@ -99,7 +113,9 @@ class End2EndModel(nn.Module):
         if mask is None:
             mask = torch.ones((b, l), dtype=torch.bool, device=seq.device)
         seq3, mask3 = elongate(seq, mask)
-        logits = self.af2(seq3, msa, mask=mask3, msa_mask=msa_mask)
+        if embedds is not None:  # per residue: each repeats x3 in place
+            embedds = embedds.repeat_interleave(3, dim=1)
+        logits = self.af2(seq3, msa, mask=mask3, msa_mask=msa_mask, embedds=embedds)
         coords, distances, weights = realize_structure(
             logits, iters=self.mds_iters, mask=mask3, coords0=coords0,
             seed=self.mds_seed,
@@ -165,7 +181,8 @@ def make_end2end_step(model: End2EndModel):
         for p in params:
             p.grad = None
         out = state.model(batch["seq"], batch.get("msa"), mask=batch["mask"],
-                          msa_mask=batch.get("msa_mask"), coords0=coords0)
+                          msa_mask=batch.get("msa_mask"), embedds=batch.get("embedds"),
+                          coords0=coords0)
         loss, aux = structure_loss(out, batch["backbone"], batch["mask"])
         loss.backward()
         grads, grads_ok = collect_gradients(params)
@@ -177,16 +194,18 @@ def make_end2end_step(model: End2EndModel):
     return step
 
 
-def build_end2end_model(cfg: Config, mds_iters: int = 200) -> End2EndModel:
+def build_end2end_model(cfg: Config, mds_iters: int = 200,
+                        num_embedds: Optional[int] = None) -> End2EndModel:
     """The End2EndModel JAX's ``train_end2end`` builds from ``cfg.model``
     (:285-295): serving's fields (``predict.build_model``) and, for
     training, ``remat_policy`` and ``reversible``; the dropout rates are
-    not read, as in JAX. A device mesh raises (``loop.check_unported``)."""
+    not read, as in JAX. ``num_embedds`` is the ``embedds`` width of a PLM
+    stream. A device mesh raises (``loop.check_unported``)."""
     from alphafold2_tpu_torch.predict import build_model
 
     check_unported(cfg)
     return build_model(cfg, mds_iters=mds_iters, remat_policy=cfg.model.remat_policy,
-                       reversible=cfg.model.reversible)
+                       reversible=cfg.model.reversible, num_embedds=num_embedds)
 
 
 def train_end2end(cfg: Config, num_steps: Optional[int] = None, dataset=None,
@@ -212,8 +231,11 @@ def train_end2end(cfg: Config, num_steps: Optional[int] = None, dataset=None,
     num_steps = num_steps or t.num_steps
     dataset = dataset if dataset is not None else make_dataset(cfg.data, seed=t.seed)
     data_iter = apply_features(iter(dataset), cfg)
+    sample = next(data_iter)
+    data_iter = itertools.chain([sample], data_iter)
 
-    state = init_state(cfg, build_end2end_model(cfg), device=dev)
+    state = init_state(cfg, build_end2end_model(cfg, num_embedds=embedds_width(sample)),
+                       device=dev)
     step = make_end2end_step(state.model)
 
     def step_fn(st, batch, i):

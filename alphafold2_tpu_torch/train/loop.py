@@ -29,15 +29,25 @@ also carries every tag's stats (``metrics["numerics"]``). Metrics go to
 ``compile_s``, ``step_flops`` and ``mfu`` come from XLA's AOT compile in
 JAX (:598-624) and have no counterpart here.
 
-Not ported (raises ``NotImplementedError``): a device mesh, and the ``plm``
-feature stream. The trunk engines (``remat`` with ``remat_policy``,
-``reversible``, ``scan_layers``) train as in JAX (``models/trunk.py``,
-``models/reversible.py``).
+``data.features="plm"`` streams ``embedds`` from ``data/plm.py``'s
+provider (``data.plm_provider``, seeded by ``train.seed``) in place of the
+MSA; ``build_model`` sizes ``embedd_project`` from the stream's first
+batch, as JAX's init takes the width from its sample batch (:176-210).
+``model.msa_row_shard``, ``grid_parallel`` and ``context_parallel`` run the
+plain model on one device: JAX's ``train`` without a mesh gives the same
+losses and parameters bit for bit with and without each.
+
+Not ported (raises ``NotImplementedError``): a device mesh, and KV
+compression (``model.cross_attn_compress_ratio`` above 1, which JAX's
+distogram model builds). The trunk engines (``remat`` with
+``remat_policy``, ``reversible``, ``scan_layers``) train as in JAX
+(``models/trunk.py``, ``models/reversible.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 import time
 from typing import Optional, Union
@@ -82,10 +92,15 @@ def distogram_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def apply_features(data_iter, cfg: Config):
-    """Adapt the batch stream to ``data.features``: "msa" (as is) or "none"
-    (sequence only). "plm" is not ported."""
+    """Adapt the batch stream to ``data.features``: "msa" (as is), "plm"
+    (``embedds`` from ``data.plm_provider`` replace the MSA) or "none"
+    (sequence only)."""
     if cfg.data.features == "plm":
-        raise NotImplementedError("the plm feature stream is not ported yet")
+        from alphafold2_tpu_torch.data.plm import make_provider, wrap_with_embeddings
+
+        provider = make_provider(cfg.data.plm_provider, path=cfg.data.plm_path,
+                                 seed=cfg.train.seed)
+        return wrap_with_embeddings(data_iter, provider)
     if cfg.data.features == "none":
         return ({k: v for k, v in b.items() if k not in ("msa", "msa_mask")}
                 for b in data_iter)
@@ -94,15 +109,21 @@ def apply_features(data_iter, cfg: Config):
     return data_iter
 
 
-def build_model(cfg: Config) -> Alphafold2:
+def embedds_width(batch: dict) -> Optional[int]:
+    """The ``embedds`` width of a batch, None where it carries none."""
+    embedds = batch.get("embedds")
+    return None if embedds is None else int(embedds.shape[-1])
+
+
+def build_model(cfg: Config, num_embedds: Optional[int] = None) -> Alphafold2:
     """The distogram model ``cfg.model`` describes; float32 parameters,
-    bfloat16 compute when ``model.bfloat16``."""
+    bfloat16 compute when ``model.bfloat16``. ``num_embedds``, the width
+    of a PLM stream's ``embedds``, builds ``embedd_project``. KV
+    compression raises; the mesh flags go to the trunk, which applies none
+    on one device (module docstring)."""
     m = cfg.model
-    if (m.msa_row_shard or m.grid_parallel or m.context_parallel is not None
-            or m.cross_attn_compress_ratio != 1):
-        raise NotImplementedError(
-            "sharding, context parallelism and KV compression are not ported yet"
-        )
+    if m.cross_attn_compress_ratio != 1:
+        raise NotImplementedError("KV compression is not ported yet")
     return Alphafold2(
         dim=m.dim, max_seq_len=m.max_seq_len, depth=m.depth, heads=m.heads,
         dim_head=m.dim_head, gelu_exact=m.gelu_exact,
@@ -110,7 +131,9 @@ def build_model(cfg: Config) -> Alphafold2:
         dtype=torch.bfloat16 if m.bfloat16 else torch.float32,
         attn_dropout=m.attn_dropout, ff_dropout=m.ff_dropout, remat=m.remat,
         remat_policy=m.remat_policy, reversible=m.reversible, scan_layers=m.scan_layers,
-        sparse_self_attn=m.sparse_self_attn,
+        sparse_self_attn=m.sparse_self_attn, msa_row_shard=m.msa_row_shard,
+        grid_parallel=m.grid_parallel, context_parallel=m.context_parallel,
+        num_embedds=num_embedds,
     )
 
 
@@ -186,7 +209,8 @@ def _labels(batch: dict) -> torch.Tensor:
 
 def _forward_loss(model: nn.Module, batch: dict, key: Optional[DropoutKey]):
     logits = model(batch["seq"], batch.get("msa"), mask=batch["mask"],
-                   msa_mask=batch.get("msa_mask"), dropout_key=key)
+                   msa_mask=batch.get("msa_mask"), embedds=batch.get("embedds"),
+                   dropout_key=key)
     return logits, distogram_cross_entropy(logits, _labels(batch))
 
 
@@ -425,8 +449,10 @@ def train(cfg: Config, num_steps: Optional[int] = None, dataset=None, callbacks=
     num_steps = num_steps or t.num_steps
     dataset = dataset if dataset is not None else make_dataset(cfg.data, seed=t.seed)
     data_iter = apply_features(iter(dataset), cfg)
+    sample = next(data_iter)
+    data_iter = itertools.chain([sample], data_iter)
 
-    model = build_model(cfg)
+    model = build_model(cfg, num_embedds=embedds_width(sample))
     state = init_state(cfg, model, device=dev)
     step = make_train_step(state.model, {"off": "off", "triage": "norms",
                                          "full": "full"}[numerics_mode])

@@ -169,7 +169,39 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
               a train.trace_events span trace with a train.step span a step
               and the numerics counters, and a train.profile_dir window whose Chrome trace holds the
               card's kernels. Each line carries the card's name and power
-              limit.
+              limit;
+11. slice kernels — the kernels on the template and PLM paths' new shapes:
+              K1 (without and with lse), K3a and K3b on the whole
+              template-axis launch (147456 x 8 problems of 5 x 5 at head
+              dim 64: crop 384, 4 templates), held against the plain
+              versions on the batch's first and last 8192 rows, f32 and
+              bf16, bf16 on the Hopper kernels with no split, timed beside
+              SDPA; K2 with lse and its backward on the PLM grid's tied
+              rows at R*D 8192 (timed beside SDPA) and 12288, the chunked
+              kernels' shapes;
+12. templates — a small f32 template model (with and without the SE(3)
+              sidechain embedder) on the card against the CPU's plain
+              versions, every gradient leaf; bench_suite.py config_4 at
+              full width (dim 256, depth 2, 2 template blocks, crop 384,
+              MSA 16x128, 4 templates, bf16) through Alphafold2.forward
+              under a gradient, without and with the SE(3) embedder: 3
+              passes from launch counts of 0 (K1 20, K3a/K3b 19, K2 2 and
+              its backward 2 a pass, every K1 and K3 launch on its Hopper
+              kernel), then the pass alone and its peak memory, one pass
+              profiled;
+13. plm       — small f32 distogram and end-to-end models on the plm
+              stream against the CPU; the training smoke on the plm stream
+              (crop 128, untied and tied, the hash provider and an .npz
+              the phase writes for the precomputed one, whose losses must
+              equal the hash runs') for 3 steps through train.loop.train,
+              and end-to-end training at its CLI's width (untied, tied) for
+              2 steps through train_end2end: finite, unskipped, launches a
+              step as the schedule gives them, K2 and its backward on the
+              chunked kernels their plans name at R*D 8192 and 12288, the
+              step alone and its peak memory, a tied step of each kind
+              profiled; predict on the card with each
+              of cross_attn_compress_ratio, msa_row_shard, grid_parallel and
+              context_parallel bit-equal to the plain config.
 
 ``phase_k1_time`` (not part of the run) times K1 alone on its nine
 main-path passes beside SDPA: ``python3 -c "import chip_smoke as c;
@@ -181,7 +213,10 @@ beside SDPA with the layout mask, per pass and per sparse step;
 ``phase_k2_time`` K2, K2 with lse and K2's backward on the tied passes
 beside SDPA, with device times; ``phase_d256_time`` K1 with lse, K3a and
 K3b at head dim 256 beside SDPA's forward and backward;
-``phase_registers`` every Hopper instantiation's registers and spills. ``chip_compare.sh`` runs them, or
+``phase_registers`` every Hopper instantiation's registers and spills; the
+template and PLM phases run alone after ``phase_build``:
+``python3 -c "import chip_smoke as c; c.phase_build(); c.phase_slice_kernels();
+c.phase_templates(); c.phase_plm()"``. ``chip_compare.sh`` runs them, or
 any other phases, for two checkouts in turns.
 
 Prints the card's name and power limit, then a JSON line describing every
@@ -1977,11 +2012,37 @@ def _grad_norm(module):
     return float(torch.linalg.vector_norm(torch.stack([g.norm() for g in grads]))) if grads else 0.0
 
 
-def _e2e_parity(tied, tag):
+def _leaf_errors(plain, kernels):
+    """Per-leaf gradient errors, card (``kernels``) against CPU (``plain``),
+    both name -> CPU tensor: the worst relative L2 with its leaf, and the
+    worst error over the total norm among the leaves that are 0 by
+    symmetry (a bias added along a softmax axis: a CPU norm at most
+    E2E_ZERO_GRAD_ATOL of the total, roundoff only). A leaf exactly 0 on
+    the CPU must be exactly 0 on the card."""
+    import torch
+
+    total = float(torch.stack([g.norm() for g in plain.values()]).norm())
+    worst, worst_name, sym = 0.0, "", 0.0
+    for name, g_cpu in plain.items():
+        g_gpu = kernels[name]
+        norm, err = float(g_cpu.norm()), float((g_gpu - g_cpu).norm())
+        if norm == 0.0:
+            require(bool((g_gpu == 0).all()), f"{name}: zero on the CPU, nonzero on the card")
+            continue
+        if norm <= E2E_ZERO_GRAD_ATOL * total:
+            sym = max(sym, err / total)
+            continue
+        if err / norm > worst:
+            worst, worst_name = err / norm, name
+    return worst, worst_name, sym
+
+
+def _e2e_parity(tied, tag, features="msa"):
     """A small f32 end-to-end model (dim 64, depth 2, crop 16 with padded
-    residues, 20 MDS iterations): one step on the card's kernels and one on
-    the CPU's plain versions from the same weights, batch and MDS start;
-    the loss and every gradient leaf compared."""
+    residues, 20 MDS iterations) on the ``features`` stream: one step on the
+    card's kernels and one on the CPU's plain versions from the same
+    weights, batch and MDS start; the loss and every gradient leaf
+    compared."""
     import torch
 
     from alphafold2_tpu_torch.config import Config
@@ -1994,11 +2055,13 @@ def _e2e_parity(tied, tag):
     small.model.msa_tie_row_attn = tied
     small.data.crop_len, small.data.msa_depth, small.data.msa_len = 16, 3, 16
     small.data.batch_size, small.data.min_len_filter = 2, 8
-    batch = next(iter(SyntheticDataset(small.data, seed=3)))
+    small.data.features = features
+    batch = next(loop.apply_features(iter(SyntheticDataset(small.data, seed=3)), small))
     n = 3 * small.data.crop_len
     loss, grads = {}, {}
     for side, dev in (("plain", "cpu"), ("kernels", "cuda")):
-        model = end2end.build_end2end_model(small, mds_iters=E2E_PARITY_MDS_ITERS)
+        model = end2end.build_end2end_model(small, mds_iters=E2E_PARITY_MDS_ITERS,
+                                            num_embedds=loop.embedds_width(batch))
         st = loop.init_state(small, model, device=dev)
         st, met = end2end.make_end2end_step(st.model)(
             st, loop.batch_to_device(batch, torch.device(dev)),
@@ -2007,21 +2070,10 @@ def _e2e_parity(tied, tag):
         loss[side] = float(met["loss"])
         grads[side] = {k: (p.grad if p.grad is not None else torch.zeros_like(p)).cpu()
                        for k, p in st.model.named_parameters()}
-    total = float(torch.stack([g.norm() for g in grads["plain"].values()]).norm())
-    worst, worst_name, sym = 0.0, "", 0.0
-    for name, g_cpu in grads["plain"].items():
-        g_gpu = grads["kernels"][name]
-        norm, err = float(g_cpu.norm()), float((g_gpu - g_cpu).norm())
-        if norm == 0.0:
-            require(bool((g_gpu == 0).all()), f"{name}: zero on the CPU, nonzero on the card")
-            continue
-        if norm <= E2E_ZERO_GRAD_ATOL * total:  # a leaf that is 0 by symmetry
-            sym = max(sym, err / total)
-            continue
-        if err / norm > worst:
-            worst, worst_name = err / norm, name
+    worst, worst_name, sym = _leaf_errors(grads["plain"], grads["kernels"])
     loss_rel = abs(loss["kernels"] - loss["plain"]) / abs(loss["plain"])
-    log(f"{tag} small f32 model (crop 16, padded, {E2E_PARITY_MDS_ITERS} MDS iterations), card "
+    log(f"{tag} small f32 model ({features}, crop 16, padded, {E2E_PARITY_MDS_ITERS} MDS "
+        f"iterations), card "
         f"vs CPU: loss {loss['kernels']:.6f} vs {loss['plain']:.6f} (relative {loss_rel:.2e}; tol "
         f"1e-4), worst per-leaf gradient relative L2 {worst:.3e} ({worst_name}; tol "
         f"{E2E_GRAD_REL_L2:g}), leaves 0 by symmetry within {sym:.2e} of the total norm "
@@ -2438,16 +2490,21 @@ def _step_fn(cfg, e2e, key=None, numerics_mode="off"):
     batch (numerics ``numerics_mode``, no callbacks), as a closure whose
     ``model`` attribute is the state's model. ``e2e``: the end-to-end step,
     from step 0's MDS start; otherwise the distogram step under the dropout
-    ``key`` where one is given."""
+    ``key`` where one is given. The batch is the first of ``cfg``'s feature
+    stream (``data.features``), which also gives ``embedd_project`` its
+    width under ``plm``."""
     import torch
 
     from alphafold2_tpu_torch.data.pipeline import SyntheticDataset
     from alphafold2_tpu_torch.train import end2end, loop
 
-    model = end2end.build_end2end_model(cfg) if e2e else loop.build_model(cfg)
+    batch = next(loop.apply_features(iter(SyntheticDataset(cfg.data, seed=cfg.train.seed)),
+                                     cfg))
+    width = loop.embedds_width(batch)
+    model = (end2end.build_end2end_model(cfg, num_embedds=width) if e2e
+             else loop.build_model(cfg, num_embedds=width))
     st = loop.init_state(cfg, model)
-    batch = loop.batch_to_device(next(iter(SyntheticDataset(cfg.data, seed=cfg.train.seed))),
-                                 torch.device("cuda"))
+    batch = loop.batch_to_device(batch, torch.device("cuda"))
     if e2e:
         step = end2end.make_end2end_step(st.model)
         extra = (end2end.mds_start(cfg.train.seed + 1, 0, 1, 3 * cfg.data.crop_len, "cuda"),)
@@ -2514,14 +2571,16 @@ def _expected_launches(label, depth):
             "fused_attention_bwd_dkv": 6 * depth - 1}
 
 
-def _entry_point_run(tag, label, cfg, e2e, steps, reps, key=None):
+def _entry_point_run(tag, label, cfg, e2e, steps, reps, key=None, fallback=()):
     """``steps`` steps of ``cfg`` through its training entry point
     (train.loop.train, or train_end2end with ``e2e``) from launch counts
     of 0: finite losses, no skipped step, every launch on its Hopper
-    kernel, no plain version. Then the step alone over ``reps`` warm steps
-    (under the dropout ``key`` where one is given) with its peak memory.
-    Returns the launches a step by _training_kernels name, the step's ms,
-    its peak bytes and the losses."""
+    kernel (the kernels named in ``fallback``, whose plan at this shape
+    takes the chunked kernel, on no Hopper kernel), no plain version. Then
+    the step alone over ``reps`` warm steps (under the dropout ``key``
+    where one is given) with its peak memory. Returns the launches a step
+    by _training_kernels name, the step's ms, its peak bytes and the
+    losses."""
     import numpy as np
     import torch
 
@@ -2537,7 +2596,10 @@ def _entry_point_run(tag, label, cfg, e2e, steps, reps, key=None):
     del state
     per_step = {name: fn.launches / steps for name, fn in kernels.items() if fn.launches}
     missed = {name: fn.launches - fn.sm90_launches for name, fn in kernels.items()
-              if hasattr(fn, "sm90_launches") and fn.sm90_launches != fn.launches}
+              if hasattr(fn, "sm90_launches") and name not in fallback
+              and fn.sm90_launches != fn.launches}
+    missed.update({name: -kernels[name].sm90_launches for name in fallback
+                   if kernels[name].sm90_launches})
     plain_calls = sum(fn.calls for fn in plain)
     _free()
     resident = torch.cuda.memory_allocated()  # held before the model is built
@@ -2655,10 +2717,11 @@ def _small_step_card_vs_cpu(small):
     from alphafold2_tpu_torch.data.pipeline import SyntheticDataset
     from alphafold2_tpu_torch.train import loop
 
-    batch = next(iter(SyntheticDataset(small.data, seed=3)))
+    batch = next(loop.apply_features(iter(SyntheticDataset(small.data, seed=3)), small))
     loss, grads = {}, {}
     for side, dev in (("plain", "cpu"), ("kernels", "cuda")):
-        st = loop.init_state(small, loop.build_model(small), device=dev)
+        st = loop.init_state(small, loop.build_model(small, loop.embedds_width(batch)),
+                             device=dev)
         st, met = loop.make_train_step(st.model)(
             st, loop.batch_to_device(batch, torch.device(dev)))
         loss[side] = float(met["loss"])
@@ -3177,6 +3240,506 @@ def phase_train_telemetry():
     log(f"[telemetry] phase: {time.perf_counter() - t0:.1f} s")
     return {"runs": runs, "engines": engines, "numerics_ms": numerics_ms, "triage": triage,
             "traces": traces}
+
+
+# --------------------------------------------------------------- phase 11
+
+
+# the template-axis pass at crop 384 with 4 templates: each of the 384^2
+# pair positions attends over its 1+T = 5 tokens (x_ij, t^1_ij .. t^4_ij)
+TEMPLATE_AXIS_LABEL = "template axis (147456x8, 5x5, d64)"
+TEMPLATE_AXIS = (384 * 384, 8, 5, 64)  # (B*N*N, heads, 1+T, dim_head)
+TEMPLATE_AXIS_SLICE = 8192  # batch rows held against the plain version at each end
+# the PLM grid's tied rows: N = 128 rows of 128 at crop 128 (R*D 8192), and
+# 192 of 192 in end-to-end training (crop 64 elongated x3, R*D 12288)
+PLM_TIED_LABEL = "PLM tied rows, distogram (1x128x128x8x64, R*D 8192)"
+PLM_TIED = (1, 128, 128, 8, 64)
+PLM_E2E_TIED_LABEL = "PLM tied rows, end to end (1x192x192x8x64, R*D 12288)"
+PLM_E2E_TIED = (1, 192, 192, 8, 64)
+
+
+def _template_axis_mask(b):
+    """(B, 5) token validity: the pair token always valid; the last
+    template token masked at every third pair position, the last three at
+    every seventh (a template missing those residues)."""
+    import torch
+
+    mask = torch.ones((b, 5), dtype=torch.bool, device="cuda")
+    mask[::3, 4] = False
+    mask[1::7, 2:] = False
+    return mask
+
+
+def template_axis_case(dtype, gen, reps=0, library=False):
+    """K1 (without and with the row logsumexp), K3a and K3b on the whole
+    template-axis launch (the operands in the layout the template block's
+    projections give them), each held against its plain version on a
+    slice of TEMPLATE_AXIS_SLICE batch rows at each end of the batch (the
+    last ones at the largest offsets); bf16 launches named on their Hopper
+    kernels, two runs bit-identical, the key and grad splits logged; a
+    negative control without each row's last valid key. Returns result
+    rows for K1, K1 (lse), K3a and K3b."""
+    import torch
+    import torch.nn.functional as F
+
+    from alphafold2_tpu_torch.ops.cuda import axial
+
+    label = TEMPLATE_AXIS_LABEL
+    b, h, n, d = TEMPLATE_AXIS
+    q, k, v, do = _grad_operands(b, h, n, n, d, dtype, gen, strided=True)
+    mask = _template_axis_mask(b)
+    scale = d**-0.5
+    sl = torch.cat([torch.arange(TEMPLATE_AXIS_SLICE, device="cuda"),
+                    torch.arange(b - TEMPLATE_AXIS_SLICE, b, device="cuda")])
+    splits = (axial.key_splits(b, h, n, n, d), axial.grad_splits(b, h, n, n, d, "dq"),
+              axial.grad_splits(b, h, n, n, d, "dkv"))
+    log(f"[slice kernels] {label}: key splits {splits[0]}, grad splits (K3a, K3b) "
+        f"{splits[1:]}")
+    require(splits == (1, 1, 1), f"{label}: a 5-key pass must not split ({splits})")
+    forward = lambda: axial.fused_attention(q, k, v, q_mask=mask, kv_mask=mask, sm_scale=scale)
+    train_fwd = lambda: axial.fused_attention_lse(q, k, v, mask, mask, scale)
+    bf16 = dtype == torch.bfloat16
+    if bf16:
+        out, _ = _sm90_launched(forward, label)
+        (out_l, lse), _ = _sm90_launched(train_fwd, label)
+        require(torch.equal(out, forward()), f"{label}: two K1 runs differ")
+    else:
+        out, (out_l, lse) = forward(), train_fwd()
+    torch.cuda.synchronize()
+    ref = axial.fused_attention_reference(q[sl], k[sl], v[sl], q_mask=mask[sl],
+                                          kv_mask=mask[sl], sm_scale=scale)
+    row = _compare(label, "fused_attention", out[sl], ref, dtype)
+    _control(label, "fused_attention",
+             axial.fused_attention(q, k, v, q_mask=mask, kv_mask=_drop_last_tile(mask),
+                                   sm_scale=scale)[sl], ref, dtype)
+    ref_out, ref_lse = axial.fused_attention_lse_reference(q[sl], k[sl], v[sl], mask[sl],
+                                                           mask[sl], scale)
+    fwd = _compare(label, "fused_attention (lse)", out_l[sl], ref_out, dtype)
+    _check_lse(label, lse[sl], ref_lse)
+    dsum = axial.attention_dsum(out_l, do)
+    args = (q, k, v, do, lse, dsum, mask, mask, scale)
+    if bf16:
+        (dq, dk, dv), merged = _k3_sm90_launched(args, label)
+        require(merged == 0, f"{label}: {merged} merge passes")
+        require(torch.equal(dq, axial.fused_attention_dq(*args)), f"{label}: K3a not deterministic")
+    else:
+        dq = axial.fused_attention_dq(*args)
+        dk, dv = axial.fused_attention_dkv(*args)
+    torch.cuda.synchronize()
+    sargs = (q[sl], k[sl], v[sl], do[sl], lse[sl], dsum[sl], mask[sl], mask[sl], scale)
+    rq = axial.fused_attention_dq_reference(*sargs)
+    rk, rv = axial.fused_attention_dkv_reference(*sargs)
+    row_q = _compare(label, "fused_attention_bwd_dq", dq[sl], rq, dtype)
+    row_k = _compare(label, "fused_attention_bwd_dkv dk", dk[sl], rk, dtype)
+    row_v = _compare(label, "fused_attention_bwd_dkv dv", dv[sl], rv, dtype)
+    row_kv = dict(row_k, kernel="fused_attention_bwd_dkv",
+                  max_abs_err=max(row_k["max_abs_err"], row_v["max_abs_err"]))
+    log(f"[slice kernels] {label} {row['dtype']}: the whole launch ({b} x {h} problems), "
+        f"held on {2 * TEMPLATE_AXIS_SLICE} batch rows"
+        + (", every launch on attention_kernel_sm90 / dq_kernel_sm90 / dkv_kernel_sm90, two "
+           "runs bit-identical" if bf16 else ""))
+    qv = mask.sum(1).double()
+    row.update(_bound(4.0 * h * d * float((qv * qv).sum()),
+                      4 * b * h * n * d * q.element_size() + 2 * b * n, dtype))
+    for r, bound in zip((fwd, row_q, row_kv), _k3_bounds(b, h, n, n, d, mask, mask, dtype)):
+        r.update(bound)
+    if reps:
+        row["ms"] = cuda_ms(forward, reps)
+        row["host_us"] = _host_us(forward)
+        fwd["ms"] = cuda_ms(train_fwd, reps)
+        row_q["ms"] = cuda_ms(lambda: axial.fused_attention_dq(*args), reps)
+        row_kv["ms"] = cuda_ms(lambda: axial.fused_attention_dkv(*args), reps)
+        row["plain_ms"] = cuda_ms(lambda: axial.fused_attention_reference(
+            q, k, v, q_mask=mask, kv_mask=mask, sm_scale=scale), reps=1, warmup=0)
+        fwd["plain_ms"] = cuda_ms(lambda: axial.fused_attention_lse_reference(
+            q, k, v, mask, mask, scale), reps=1, warmup=0)
+        row_q["plain_ms"] = cuda_ms(lambda: axial.fused_attention_dq_reference(*args),
+                                    reps=1, warmup=0)
+        row_kv["plain_ms"] = cuda_ms(lambda: axial.fused_attention_dkv_reference(*args),
+                                     reps=1, warmup=0)
+        if library:
+            # the first SDPA backend that takes the whole launch (cuDNN's
+            # graph refuses a batch this large)
+            from torch.nn.attention import sdpa_kernel
+
+            am = mask[:, None, None, :]
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            sdpa = lambda *t: F.scaled_dot_product_attention(*t, attn_mask=am, scale=scale)
+            backend = _sdpa_backend(lambda: sdpa(*leaves).backward(do))
+            for r in (row, fwd, row_q, row_kv):
+                r["library"] = backend.name if backend is not None else None
+                r["library_ms"] = None
+            if backend is not None:
+                with sdpa_kernel([backend]):
+                    o = sdpa(*leaves)
+                    row["library_ms"] = fwd["library_ms"] = cuda_ms(
+                        lambda: sdpa(*(t.detach() for t in leaves)), reps)
+                    row_q["library_ms"] = row_kv["library_ms"] = cuda_ms(
+                        lambda: torch.autograd.grad(o, leaves, do, retain_graph=True), reps)
+                del o
+            log(f"[slice kernels] {label}: SDPA on its {row['library']} backend")
+            del leaves
+    del q, k, v, do, out, out_l, lse, dq, dk, dv
+    _free()
+    return [row, fwd, row_q, row_kv]
+
+
+def phase_slice_kernels():
+    """The kernels on the shapes the template and PLM paths give them that
+    no earlier phase runs: K1 and K3a/K3b on the template-axis launch (f32
+    and bf16, timed in bf16 beside SDPA); K2 with lse and its backward on
+    the PLM grid's tied rows at R*D 8192 (f32 and bf16, timed in bf16
+    beside SDPA) and at R*D 12288, the chunked kernels' shapes
+    (tied_row.hopper_plan and hopper_bwd_plan give no Hopper plan there)."""
+    import torch
+
+    from alphafold2_tpu_torch.ops.cuda import tied_row as tr
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    rows = []
+    for dt in (torch.bfloat16, torch.float32):
+        bf16 = dt == torch.bfloat16
+        rows += template_axis_case(dt, gen, reps=10 if bf16 else 0, library=bf16)
+    for label, (b, r, n, h, d) in ((PLM_TIED_LABEL, PLM_TIED),
+                                   (PLM_E2E_TIED_LABEL, PLM_E2E_TIED)):
+        plans = (tr.hopper_plan(b, r, h, n, d), tr.hopper_bwd_plan("dq", b, h, n, n, r * d, d),
+                 tr.hopper_bwd_plan("dkv", b, h, n, n, r * d, d))
+        require(plans == (None, None, None), f"{label}: a Hopper plan at R*D {r * d}: {plans}")
+        for dt in (torch.bfloat16, torch.float32):
+            timed = dt == torch.bfloat16 and label == PLM_TIED_LABEL
+            rows += tied_case(label, b, r, n, h, d, dt, gen, reps=10 if timed else 0,
+                              library=timed)
+    for r in rows:
+        if "ms" in r:
+            log(f"[slice kernels] time {r['kernel']} {r['label']} {r['dtype']}: kernel "
+                f"{r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, sdpa {r.get('library_ms')} ms, "
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+                f"{r['bound_ms'] / r['ms']:.1%} of the bound)")
+    return rows
+
+
+# --------------------------------------------------------------- phase 12
+
+
+TEMPLATE_STEPS = 3  # forward and backward passes per template configuration
+TEMPLATE_REPS = 3  # passes timed back to back
+# bench_suite.py config_4's model and inputs: crop 384, MSA 16x128, 4 templates
+TEMPLATE_CROP, TEMPLATE_MSA, TEMPLATE_T = 384, (16, 128), 4
+TEMPLATE_RUNS = {"templates": False, "templates, SE(3) sidechains": True}
+
+
+def _template_model(se3, dim=256, depth=2, heads=8, dim_head=64, crop=TEMPLATE_CROP,
+                    template_depth=2, dtype=None):
+    import torch
+
+    from alphafold2_tpu_torch import constants
+    from alphafold2_tpu_torch.models.alphafold2 import Alphafold2
+
+    return Alphafold2(dim=dim, depth=depth, heads=heads, dim_head=dim_head,
+                      max_seq_len=2 * crop, msa_tie_row_attn=True,
+                      max_num_templates=constants.MAX_NUM_TEMPLATES,
+                      template_attn_depth=template_depth, use_se3_template_embedder=se3,
+                      dtype=torch.bfloat16 if dtype is None else dtype)
+
+
+def _template_inputs(crop, msa, t, sidechains, device, seed=1):
+    """config_4's inputs from a numpy seed: tokens, an MSA, templates with
+    coordinates (x10 A) and, with ``sidechains``, unit sidechain vectors;
+    every mask valid."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    side = rng.standard_normal((1, t, crop, 3))
+    arrays = {
+        "seq": rng.integers(0, 21, (1, crop)), "msa": rng.integers(0, 21, (1, *msa)),
+        "mask": np.ones((1, crop), bool), "msa_mask": np.ones((1, *msa), bool),
+        "templates_seq": rng.integers(0, 21, (1, t, crop)),
+        "templates_coors": (rng.standard_normal((1, t, crop, 3)) * 10).astype(np.float32),
+        "templates_mask": np.ones((1, t, crop), bool),
+    }
+    if sidechains:
+        arrays["templates_sidechains"] = (side / np.linalg.norm(side, axis=-1,
+                                                                keepdims=True)).astype(np.float32)
+    return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+
+
+def _template_step(model, inputs):
+    """config_4's step: mean(logits**2), forward and backward; the loss."""
+    model.zero_grad(set_to_none=True)
+    loss = (model(**inputs).float() ** 2).mean()
+    loss.backward()
+    return loss.detach()
+
+
+def _template_parity(se3):
+    """A small f32 template model (dim 64, depth 1, heads 4, dim_head 16,
+    crop 24, MSA 3x24, 2 templates, one template block): its loss and
+    every gradient leaf on the card's kernels against the CPU's plain
+    versions from the same weights and inputs."""
+    import torch
+
+    from alphafold2_tpu_torch.predict import init_params
+
+    model = init_params(_template_model(se3, 64, 1, 4, 16, crop=24, template_depth=1,
+                                        dtype=torch.float32), 2)
+    loss, grads = {}, {}
+    for side, dev in (("plain", "cpu"), ("kernels", "cuda")):
+        m = model.to(dev)
+        loss[side] = float(_template_step(m, _template_inputs(24, (3, 24), 2, se3, dev)))
+        # copies: moving the model moves its .grad tensors in place
+        grads[side] = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).to(
+            "cpu", copy=True) for n, p in m.named_parameters()}
+    # the embedder's rbf_bias.bias is 0 by symmetry, as the refiner's
+    worst, worst_name, sym = _leaf_errors(grads["plain"], grads["kernels"])
+    loss_rel = abs(loss["kernels"] - loss["plain"]) / abs(loss["plain"])
+    log(f"[templates] small f32 model{' with SE(3) sidechains' if se3 else ''}, card vs CPU: "
+        f"loss relative {loss_rel:.2e} (tol 1e-5), worst per-leaf gradient relative L2 "
+        f"{worst:.3e} ({worst_name}; tol {GRAD_REL_L2:g}) over {len(grads['plain'])} leaves, "
+        f"leaves 0 by symmetry within {sym:.2e} of the total norm (tol {E2E_ZERO_GRAD_ATOL:g})")
+    require(loss_rel <= 1e-5 and worst <= GRAD_REL_L2 and sym <= E2E_ZERO_GRAD_ATOL,
+            "the small template model disagrees between the card and the CPU")
+
+
+def _template_expected(depth=2, template_depth=2):
+    """Launches a config_4 step: a template block runs K1 on its pair axial
+    (2), template axial (2) and template-axis (1) passes; a tied trunk
+    layer on its pair axial (2), MSA column (1) and cross (2) passes and
+    K2 on its MSA rows; every pass runs its backward but the last trunk
+    layer's MSA<-pair update, which reaches no output."""
+    k1 = 5 * template_depth + 5 * depth
+    return {"fused_attention": k1, "fused_attention_bwd_dq": k1 - 1,
+            "fused_attention_bwd_dkv": k1 - 1, "tied_row_attention": depth,
+            "tied_row_attention_bwd_dq": depth, "tied_row_attention_bwd_dkv": depth}
+
+
+def _template_run(label, se3, card, profile=False):
+    """config_4 at full width (_template_model, bf16) on its inputs:
+    TEMPLATE_STEPS forward and backward passes from launch counts of 0
+    (finite losses and gradients, every K1 and K3 launch on its Hopper
+    kernel, K2 and its backward on the chunked kernels their plans name at
+    R*D 1024, launches a step as _template_expected gives them, no plain
+    version), then the pass alone and its peak memory; with ``profile``
+    one pass under torch.profiler."""
+    import numpy as np
+    import torch
+
+    from alphafold2_tpu_torch.ops.cuda import tied_row as tr
+    from alphafold2_tpu_torch.predict import init_params
+
+    plain, kernels = _plain_versions(), _training_kernels()
+    model = init_params(_template_model(se3), 0).cuda()
+    inputs = _template_inputs(TEMPLATE_CROP, TEMPLATE_MSA, TEMPLATE_T, se3, "cuda")
+    r, l = TEMPLATE_MSA
+    plans = {"tied_row_attention": tr.hopper_plan(1, r, 8, l, 64),
+             "tied_row_attention_bwd_dq": tr.hopper_bwd_plan("dq", 1, 8, l, l, r * 64, 64),
+             "tied_row_attention_bwd_dkv": tr.hopper_bwd_plan("dkv", 1, 8, l, l, r * 64, 64)}
+    _reset_counts(kernels, plain)
+    losses, finite = [], []
+    for _ in range(TEMPLATE_STEPS):
+        losses.append(float(_template_step(model, inputs)))
+        finite.append(all(bool(torch.isfinite(p.grad).all()) for p in model.parameters()
+                          if p.grad is not None))
+    torch.cuda.synchronize()
+    per_step = {n: fn.launches / TEMPLATE_STEPS for n, fn in kernels.items() if fn.launches}
+    hopper = {n: fn.sm90_launches / TEMPLATE_STEPS for n, fn in kernels.items()
+              if hasattr(fn, "sm90_launches") and fn.launches}
+    plain_calls = sum(fn.calls for fn in plain)
+    expected = _template_expected()
+    step_ms, peak = _time_step(lambda: _template_step(model, inputs), TEMPLATE_REPS)
+    log(f"[templates] {label} ({card}): crop {TEMPLATE_CROP}, MSA {r}x{l}, {TEMPLATE_T} "
+        f"templates, dim {model.dim}, depth 2, 2 template blocks, bf16: losses "
+        + " ".join(f"{x:.5f}" for x in losses) + f"; the pass alone {step_ms:.2f} ms over "
+        f"{TEMPLATE_REPS}, peak device memory {peak / 2**20:.1f} MiB; kernel launches a step "
+        f"{per_step}; on a Hopper kernel {hopper}; plain-version calls {plain_calls}")
+    require(bool(np.isfinite(losses).all()) and all(finite),
+            f"{label}: a non-finite loss or gradient")
+    require(plain_calls == 0, f"{label}: a plain version ran")
+    for name, n in expected.items():
+        require(per_step.get(name, 0) == n, f"{label}: {name} launched {per_step.get(name, 0)} "
+                                            f"times a step, expected {n}")
+        on_hopper = name.startswith("fused") or plans[name] is not None
+        require(hopper.get(name, 0) == (n if on_hopper else 0),
+                f"{label}: {name} on a Hopper kernel {hopper.get(name, 0)} times a step")
+    if profile:
+        profile_device(f"one config_4 pass, {label} ({card})",
+                       lambda: _template_step(model, inputs), host=True)
+    del model, inputs
+    _free()
+    return {"label": label, "step_ms": step_ms, "peak_bytes": peak, "launches": per_step,
+            "losses": losses}
+
+
+def phase_templates():
+    """Template conditioning (log tag ``[templates]``): a small f32 model
+    on the card against the CPU's plain versions, every gradient leaf, with
+    and without the SE(3) sidechain embedder; then bench_suite.py
+    config_4 at full width through Alphafold2.forward under a gradient,
+    without and with the SE(3) embedder (_template_run; the first pass
+    profiled), with the edge-attention path should_chunk picks for the
+    embedder."""
+    from alphafold2_tpu_torch.models.se3 import should_chunk
+
+    t0 = time.perf_counter()
+    card = _card()
+    for se3 in (False, True):
+        _template_parity(se3)
+    streamed = should_chunk(TEMPLATE_T * 16, TEMPLATE_CROP, TEMPLATE_CROP)
+    log(f"[templates] the SE(3) embedder at {TEMPLATE_T} x {TEMPLATE_CROP} residues takes the "
+        f"{'streamed' if streamed else 'dense'} edge attention ({TEMPLATE_T} x 16 x "
+        f"{TEMPLATE_CROP}^2 = {TEMPLATE_T * 16 * TEMPLATE_CROP**2} edge elements)")
+    runs = {label: _template_run(label, se3, card, profile=not se3)
+            for label, se3 in TEMPLATE_RUNS.items()}
+    log(f"[templates] phase: {time.perf_counter() - t0:.1f} s")
+    return {"runs": runs}
+
+
+# --------------------------------------------------------------- phase 13
+
+
+PLM_STEPS = 3  # distogram steps through train.loop.train per PLM configuration
+PLM_E2E_STEPS = 2  # end-to-end steps through train_end2end
+PLM_REPS = 3  # steps timed back to back
+PLM_RUNS = {  # label: (tied, provider, end to end)
+    "plm hash": (False, "hash", False),
+    "plm tied hash": (True, "hash", False),
+    "plm precomputed": (False, "precomputed", False),
+    "plm tied precomputed": (True, "precomputed", False),
+    "plm e2e": (False, "hash", True),
+    "plm e2e tied": (True, "hash", True),
+}
+PREDICT_FLAGS = {"cross_attn_compress_ratio": 2, "msa_row_shard": True,
+                 "grid_parallel": True, "context_parallel": "ring"}
+
+
+def _plm_config(tied, provider, e2e, npz=None):
+    """The training smoke's Config() (dim 256, depth 6, crop 128, batch 1)
+    or the end-to-end CLI's (_e2e_config) on the plm stream."""
+    from alphafold2_tpu_torch.config import Config
+
+    cfg = _e2e_config(tied) if e2e else Config()
+    cfg.model.msa_tie_row_attn = tied
+    cfg.data.features, cfg.data.plm_provider, cfg.data.plm_path = "plm", provider, npz
+    return cfg
+
+
+def _write_plm_npz(cfg, batches, path):
+    """An .npz of the hash provider's embeddings for the sequences of the
+    first ``batches`` batches of ``cfg``'s source, keyed as
+    PrecomputedProvider reads them: what a precomputed export of the same
+    frozen model holds."""
+    import numpy as np
+
+    from alphafold2_tpu_torch.data.pipeline import make_dataset
+    from alphafold2_tpu_torch.data.plm import HashProjectionProvider
+
+    provider = HashProjectionProvider(seed=cfg.train.seed)
+    it = iter(make_dataset(cfg.data, seed=cfg.train.seed))
+    store = {}
+    for _ in range(batches):
+        seq = next(it)["seq"]
+        for row, emb in zip(seq, provider(seq)):
+            store["".join("ACDEFGHIKLMNPQRSTVWY"[t] if t < 20 else "X" for t in row)] = emb
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez(path, **store)
+    return len(store)
+
+
+def _plm_expected(cfg, e2e):
+    """Launches a step on the plm stream: as the MSA stream's, the grid in
+    the MSA's place (K1 on 6 passes a layer, 5 and K2 with tied rows; the
+    last layer's MSA<-pair update runs no backward)."""
+    depth, tied = cfg.model.depth, cfg.model.msa_tie_row_attn
+    k1 = (6 - tied) * depth
+    out = {"fused_attention": k1, "fused_attention_bwd_dq": k1 - 1,
+           "fused_attention_bwd_dkv": k1 - 1}
+    if tied:
+        out.update({"tied_row_attention": depth, "tied_row_attention_bwd_dq": depth,
+                    "tied_row_attention_bwd_dkv": depth})
+    return out
+
+
+def _predict_flags(card):
+    """predict on the card with each of the four model flags JAX's predict
+    runs: atom14 bit-equal to the plain config's."""
+    import dataclasses
+
+    import numpy as np
+
+    from alphafold2_tpu_torch.predict import predict
+
+    cfg = _e2e_config(True)
+    seq = "MKVLAAGIHKACDEFGHIKLMNPQRSTVWYACDEFGHIKL"
+    base = predict(cfg, seq, msa_depth=5, seed=1)
+    same = {}
+    for flag, value in PREDICT_FLAGS.items():
+        flagged = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **{flag: value}))
+        out = predict(flagged, seq, msa_depth=5, seed=1)
+        same[flag] = bool(np.array_equal(out.atom14, base.atom14))
+    log(f"[plm] predict on the card ({card}), {len(seq)} residues, dim 256, tied rows: atom14 "
+        f"bit-equal to the plain config with each flag: {same}")
+    require(all(same.values()), "a model flag changed predict's atom14 on the card")
+    require(bool(np.isfinite(base.atom14).all()), "non-finite atom14")
+
+
+def phase_plm():
+    """The plm feature stream (log tag ``[plm]``): small f32 distogram
+    models (untied, tied) and end-to-end models (untied, tied) on the plm
+    stream on the card against the CPU's plain versions, every gradient
+    leaf; then each PLM_RUNS configuration through train.loop.train or
+    train_end2end (_entry_point_run): finite, unskipped, every K1 and K3
+    launch on its Hopper kernel, K2 and its backward on the chunked kernels
+    their plans name at R*D 8192 and 12288, launches a step as
+    _plm_expected gives them, the step alone with its peak memory (one
+    tied distogram and one tied end-to-end step profiled); the precomputed
+    runs (an .npz the phase writes from the hash provider for
+    the runs' sequences) bit-equal to the hash runs; predict with each of
+    the four model flags bit-equal to the plain config."""
+    from alphafold2_tpu_torch.config import Config
+
+    t0 = time.perf_counter()
+    card = _card()
+    for tied in (False, True):
+        small = Config()
+        small.model.dim, small.model.depth, small.model.heads, small.model.dim_head = (
+            64, 2, 4, 16)
+        small.model.bfloat16, small.model.msa_tie_row_attn = False, tied
+        small.data.crop_len, small.data.batch_size, small.data.features = 32, 2, "plm"
+        _, worst, worst_name = _small_step_card_vs_cpu(small)
+        log(f"[plm] small f32 model{' (tied)' if tied else ''}, plm stream, crop 32, card vs "
+            f"CPU gradients: worst per-leaf relative L2 {worst:.3e} ({worst_name}; tol "
+            f"{GRAD_REL_L2:g})")
+        require(worst <= GRAD_REL_L2, "small plm gradients disagree between the card and the CPU")
+        _e2e_parity(tied, "[plm]", features="plm")
+    npz = os.path.join(HERE, "build", "plm_smoke", "hash_embeddings.npz")
+    written = _write_plm_npz(_plm_config(False, "hash", False), PLM_STEPS, npz)
+    log(f"[plm] wrote {written} sequences' hash embeddings to {os.path.relpath(npz, HERE)}")
+    runs = {}
+    for label, (tied, provider, e2e) in PLM_RUNS.items():
+        cfg = _plm_config(tied, provider, e2e, npz if provider == "precomputed" else None)
+        fallback = (("tied_row_attention", "tied_row_attention_bwd_dq",
+                     "tied_row_attention_bwd_dkv") if tied else ())
+        run = _entry_point_run(f"[plm] ({card})", label, cfg, e2e,
+                               PLM_E2E_STEPS if e2e else PLM_STEPS, PLM_REPS,
+                               fallback=fallback)
+        expected = _plm_expected(cfg, e2e)
+        off = {n: (run["launches"].get(n, 0), x) for n, x in expected.items()
+               if run["launches"].get(n, 0) != x}
+        require(not off, f"{label}: launches a step (measured, expected) {off}")
+        runs[label] = run
+        if label in ("plm tied hash", "plm e2e tied"):
+            fn = _step_fn(cfg, e2e)
+            fn()  # warm
+            profile_device(f"one {label} step ({card})", fn, host=True)
+            del fn
+            _free()
+    for tied in ("", " tied"):
+        a, b = runs[f"plm{tied} hash"]["losses"], runs[f"plm{tied} precomputed"]["losses"]
+        log(f"[plm] plm{tied}: precomputed losses bit-equal to the hash provider's: {a == b}")
+        require(a == b, f"plm{tied}: the precomputed run differs from the hash run")
+    _predict_flags(card)
+    log(f"[plm] phase: {time.perf_counter() - t0:.1f} s")
+    return {"runs": runs}
 
 
 # --------------------------------------------------------------- phase 6
@@ -4113,7 +4676,16 @@ def _step_weights(backward, depth=6):
     return weights
 
 
-def kernel_line(rows, serve, train, tied_train, sparse_train, gate, engines, telemetry):
+def _shape_entry(rows, kernel, label):
+    """One bf16 result row's numbers, for a kernel entry's ``shapes``."""
+    (r,) = [r for r in rows if r["kernel"] == kernel and r["label"] == label
+            and r["dtype"] == "bfloat16"]
+    return {k: r.get(k) for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                  "max_abs_err")}
+
+
+def kernel_line(rows, serve, train, tied_train, sparse_train, gate, engines, telemetry,
+                templates, plm):
     """One entry per kernel. K1 sums one serving trunk layer's K1 calls at
     bucket 128 (two pair axial passes, the MSA column pass, both cross
     attentions; a call's time includes its combine pass where it splits),
@@ -4135,7 +4707,11 @@ def kernel_line(rows, serve, train, tied_train, sparse_train, gate, engines, tel
     ``engine_launches``: its launches a step under each engine of
     phase_engines (K4 with and without the row logsumexp together), and
     ``dropout_launches``: its launches a step under each dropout
-    configuration of phase_train_telemetry."""
+    configuration of phase_train_telemetry, ``templates_launches`` and
+    ``plm_launches``: its launches a step in each run of phase_templates
+    and phase_plm. K1, K3a and K3b carry in ``shapes`` their numbers on the
+    template-axis launch, K2 and its backward on the PLM grid's tied rows at
+    R*D 8192 (phase_slice_kernels, bf16)."""
     serve_k1 = {"pair axial pass (1536x8, 384x384, d64)": 2,
                 "MSA column pass (512x8, 5x5, d64)": 1,
                 "pair<-MSA cross (4x8, 147456x640, d64)": 1,
@@ -4184,6 +4760,19 @@ def kernel_line(rows, serve, train, tied_train, sparse_train, gate, engines, tel
                 for label, run in engines["runs"].items()}
             e["dropout_launches"] = {label: run["launches"].get(e["name"], 0)
                                      for label, run in telemetry["runs"].items()}
+            for key, phase in (("templates_launches", templates), ("plm_launches", plm)):
+                e[key] = {label: run["launches"].get(e["name"], 0)
+                          for label, run in phase["runs"].items()}
+    shapes = {"fused_attention": ("fused_attention", TEMPLATE_AXIS_LABEL),
+              "fused_attention_bwd_dq": ("fused_attention_bwd_dq", TEMPLATE_AXIS_LABEL),
+              "fused_attention_bwd_dkv": ("fused_attention_bwd_dkv", TEMPLATE_AXIS_LABEL),
+              "tied_row_attention": ("tied_row_attention (lse)", PLM_TIED_LABEL),
+              "tied_row_attention_bwd_dq": ("tied_row_attention_bwd_dq", PLM_TIED_LABEL),
+              "tied_row_attention_bwd_dkv": ("tied_row_attention_bwd_dkv", PLM_TIED_LABEL)}
+    for e in entries:
+        if e["name"] in shapes:
+            kernel, label = shapes[e["name"]]
+            e["shapes"] = {label: _shape_entry(rows, kernel, label)}
     return {"kernels": entries}
 
 
@@ -4252,13 +4841,16 @@ def main() -> int:
         phase_end2end()
         engines = phase_engines()
         telemetry = phase_train_telemetry()
+        rows += phase_slice_kernels()
+        templates = phase_templates()
+        plm = phase_plm()
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
         log("chip_smoke: FAILED")
         return 1
     log(card)
     print(json.dumps(kernel_line(rows, serve, train, tied_train, sparse_train, gate,
-                                 engines, telemetry)), flush=True)
+                                 engines, telemetry, templates, plm)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -169,10 +169,11 @@ def test_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch):
 
 
 def test_unported_options_raise():
+    # context parallelism needs a mesh to change anything: it serves as the
+    # plain config does (tests/test_torch_port_model_flags.py)
     cfg = _tiny_config()
     cfg.model.context_parallel = "ring"
-    with pytest.raises(NotImplementedError):
-        ServeEngine(cfg, device="cpu")
+    ServeEngine(cfg, device="cpu")
     cfg = _tiny_config()
     cfg.serve.long_buckets = (512,)
     with pytest.raises(NotImplementedError):

@@ -428,7 +428,7 @@ def test_config_matches_the_jax_config_and_parses_overrides():
 @pytest.mark.parametrize("change", [
     ("mesh", "grid_cols", 2), ("data", "source", "npz"), ("data", "source", "sidechainnet"),
     ("mesh", "seq_parallel", 2), ("mesh", "grid_rows", 2), ("mesh", "data_parallel", 2),
-    ("data", "features", "plm"), ("data", "source", "native"),
+    ("model", "cross_attn_compress_ratio", 2), ("data", "source", "native"),
 ])
 def test_unported_options_raise(change):
     cfg = _cpu_cfg()

@@ -11,13 +11,17 @@ leaf name alone decides the mapping:
 - ``LayerNorm`` ``scale`` / ``bias`` -> ``weight`` / ``bias``;
 - ``Dense`` ``bias`` -> ``bias``;
 - the raw leaf ``sidechain_proj`` of ``SE3TemplateEmbedder`` (a flax
-  ``param``) -> the parameter of the same name.
+  ``param``) -> the parameter of the same name;
+- the KV compression's ``Conv`` ``kv_compress/kernel`` (ratio, in/groups,
+  out) -> ``kv_compress.weight`` (out, in/groups, ratio) of the grouped
+  ``conv1d``, and its ``bias`` -> ``bias``.
 
 The scanned and reversible trunks stack their layers' parameters on a
 leading depth axis (``trunk/scan/layer/...``, ``trunk/reversible/layers/...``,
 as the port's ``scan.layer`` and ``reversible.layers`` do): under those
-paths a ``kernel`` is (depth, in, out) and maps to (depth, out, in), and
-every other leaf keeps its depth axis.
+paths a ``kernel`` is (depth, in, out) and maps to (depth, out, in) (a
+conv kernel (depth, ratio, in/groups, out) to (depth, out, in/groups,
+ratio)), and every other leaf keeps its depth axis.
 
 Every flax leaf must map exactly once onto a parameter of the target module
 with the same shape, and every parameter of the module must be filled:
@@ -72,9 +76,11 @@ def to_state_dict(flax_params: Mapping, module: torch.nn.Module) -> dict:
         arr = np.array(value, dtype=np.float32)
         if leaf == "kernel":
             stacked = any(pair in zip(path, path[1:]) for pair in _STACKED)
-            if arr.ndim != 2 + stacked:
+            conv = len(path) > 1 and path[-2] == "kv_compress"
+            if arr.ndim != 2 + conv + stacked:
                 raise ValueError(f"{'/'.join(path)}: kernel of rank {arr.ndim}")
-            arr = np.swapaxes(arr, -1, -2)
+            # Dense (in, out) -> (out, in); Conv (k, in/g, out) -> (out, in/g, k)
+            arr = arr.swapaxes(-1, -3) if conv else arr.swapaxes(-1, -2)
         if tuple(arr.shape) != expected[key]:
             raise ValueError(
                 f"{'/'.join(path)} -> {key}: shape {arr.shape} != {expected[key]}"

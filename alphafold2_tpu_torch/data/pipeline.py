@@ -3,9 +3,16 @@
 - serving featurization: ``featurize_bucketed`` and the ``_fill_msa`` MSA
   synthesis it uses (:49, :84);
 - training batches: the synthetic source, ``_smooth_walk`` (:37),
-  ``_synthesize_backbone`` (:72), ``SyntheticDataset`` (:207) and
-  ``make_dataset`` (:483). The native, npz and sidechainnet sources are not
-  ported and raise.
+  ``_synthesize_backbone`` (:72) and ``SyntheticDataset`` (:207); local
+  ``.npz`` shards (:308-481): ``_npz_paths``, ``_read_shard`` (shapes
+  validated), ``_length_ok``, ``_shard_backbone``, ``shards_carry_msa``,
+  ``load_npz_chains`` and ``NpzShardDataset``; and ``make_dataset``
+  (:483), which routes ``npz`` and ``native`` (``data/native.py``, built
+  from ``native/dataloader.cc``: the shards through its prefetch ring, or
+  its synthetic stream without ``data_dir``; shards carrying stored MSAs
+  go to the numpy pipeline with ``MSA_FALLBACK_WARNING``, as in JAX). The
+  sidechainnet source needs the sidechainnet package and its data and
+  raises.
 
 Each must stay byte-identical to the original (same rng consumption order);
 tests/test_torch_port_modules.py and tests/test_torch_port_train.py hold the
@@ -128,10 +135,178 @@ class SyntheticDataset:
             yield batch
 
 
+def _npz_paths(data_dir: str) -> list:
+    import glob
+    import os
+
+    if not data_dir:
+        raise ValueError("npz shards need data.data_dir")
+    paths = sorted(glob.glob(os.path.join(data_dir, "*.npz")))
+    if not paths:
+        raise FileNotFoundError(f"no .npz shards under {data_dir!r}")
+    return paths
+
+
+def _read_shard(path: str):
+    """One shard -> (seq (L,) int32, coords float32, msa (M, L) int32 or
+    None), shape-validated so a malformed shard fails here and not in the
+    native loader, which trusts lengths."""
+    with np.load(path) as z:
+        seq = np.ascontiguousarray(z["seq"], np.int32)
+        coords = np.asarray(z["coords"], np.float32)
+        msa = np.asarray(z["msa"], np.int32) if "msa" in z else None
+    n = len(seq)
+    ok = (coords.ndim == 2 and coords.shape == (n, 3)) or (
+        coords.ndim == 3 and coords.shape[0] == n and coords.shape[1] >= 3
+        and coords.shape[2] == 3)
+    if not ok:
+        raise ValueError(
+            f"shard {path!r}: coords shape {coords.shape} does not match "
+            f"seq length {n} (want (L, 3) CA or (L, k>=3, 3) atomic)")
+    if msa is not None and (msa.ndim != 2 or msa.shape[1] != n):
+        raise ValueError(
+            f"shard {path!r}: msa shape {msa.shape} does not match seq length {n} "
+            "(want (M, L))")
+    return seq, coords, msa
+
+
+def _length_ok(n: int, config: DataConfig) -> bool:
+    return max(4, config.min_len_filter) <= n <= config.max_len_filter
+
+
+def _shard_backbone(coords: np.ndarray, rng) -> tuple:
+    """coords -> (ca (L, 3), backbone atoms (L*3, 3)); CA-only shards get
+    synthesized N/C pseudo-atoms so structure losses have a target."""
+    if coords.ndim == 3:  # (L, k, 3) atomic: slots 0..2 are N/CA/C
+        return coords[:, 1], coords[:, :3].reshape(-1, 3)
+    return coords, _synthesize_backbone(rng, coords)
+
+
+# one message for the one policy, whichever entry point detects it
+MSA_FALLBACK_WARNING = (
+    "shards carry stored MSAs, which the native loader would replace with "
+    "mutation-synthesized ones; use the numpy npz pipeline "
+    "(data.source='npz') to train on the stored alignments"
+)
+
+
+def shards_carry_msa(config: DataConfig) -> bool:
+    """Does any length-passing shard store an MSA? Reads only the zip
+    directories and the ``seq`` arrays."""
+    for p in _npz_paths(config.data_dir):
+        with np.load(p) as z:
+            if "msa" in z.files and _length_ok(len(z["seq"]), config):
+                return True
+    return False
+
+
+def load_npz_chains(config: DataConfig, seed: int = 0) -> tuple:
+    """Every length-filtered chain of the shard directory as ``(seq (L,)
+    int32, backbone (L, 3, 3) float32)``, the registry the native loader
+    copies once, and whether any of them stores an MSA (which the registry
+    cannot hold): ``(chains, any_msa)``. ``seed`` draws the N/C
+    pseudo-atoms of CA-only shards, once for the run."""
+    rng = np.random.default_rng(seed)
+    chains = []
+    any_msa = False
+    for p in _npz_paths(config.data_dir):
+        seq, coords, msa = _read_shard(p)
+        if not _length_ok(len(seq), config):
+            continue
+        any_msa = any_msa or msa is not None
+        _, backbone_atoms = _shard_backbone(coords, rng)
+        chains.append((seq, np.ascontiguousarray(backbone_atoms.reshape(len(seq), 3, 3))))
+    if not chains:
+        raise ValueError(
+            f"no shard in {config.data_dir!r} passes the length filter "
+            f"[{config.min_len_filter}, {config.max_len_filter}]")
+    return chains, any_msa
+
+
+@dataclasses.dataclass
+class NpzShardDataset:
+    """Local real data: a directory of ``.npz`` shards, one chain each
+    (``seq`` (L,) AA tokens, ``coords`` (L, 3) CA or (L, k>=3, 3) with
+    slots 0..2 N/CA/C, optional ``msa`` (M, L)), length-filtered, cropped
+    and padded to static shapes and cycled forever in a seeded shuffle;
+    missing MSA rows are synthesized by mutation. ``import_pdbs`` writes
+    such shards from PDB files."""
+
+    config: DataConfig
+    seed: int = 0
+
+    def __post_init__(self):
+        self.paths = _npz_paths(self.config.data_dir)
+
+    def __iter__(self) -> Iterator[dict]:
+        cfg = self.config
+        rng = np.random.default_rng(self.seed)
+        L, M, NM, B = cfg.crop_len, cfg.msa_depth, cfg.msa_len, cfg.batch_size
+        order = np.arange(len(self.paths))
+        buf = []
+        while True:
+            rng.shuffle(order)
+            accepted = 0
+            for idx in order:
+                seq, coords, msa_full = _read_shard(self.paths[idx])
+                n = len(seq)
+                if not _length_ok(n, cfg):
+                    continue
+                accepted += 1
+                ca, backbone_atoms = _shard_backbone(coords, rng)
+                start = 0 if n <= L else int(rng.integers(0, n - L + 1))
+                end = min(start + L, n)
+                w = end - start
+                item = {
+                    "seq": np.full(L, constants.AA_PAD_INDEX, np.int32),
+                    "msa": np.full((M, NM), constants.AA_PAD_INDEX, np.int32),
+                    "mask": np.zeros(L, bool),
+                    "msa_mask": np.zeros((M, NM), bool),
+                    "coords": np.zeros((L, 3), np.float32),
+                    "backbone": np.zeros((L * 3, 3), np.float32),
+                }
+                item["seq"][:w] = seq[start:end]
+                item["mask"][:w] = True
+                item["coords"][:w] = ca[start:end]
+                item["backbone"][: w * 3] = backbone_atoms[start * 3: end * 3]
+                if msa_full is not None:
+                    msa_len = min(NM, w)
+                    rows = min(M, len(msa_full))
+                    item["msa"][:rows, :msa_len] = msa_full[:rows, start: start + msa_len]
+                    item["msa_mask"][:rows, :msa_len] = True
+                    if rows < M:
+                        _fill_msa(rng, seq[start:end], item["msa"][rows:],
+                                  item["msa_mask"][rows:])
+                else:
+                    _fill_msa(rng, seq[start:end], item["msa"], item["msa_mask"])
+                buf.append(item)
+                if len(buf) == B:
+                    yield {k: np.stack([it[k] for it in buf]) for k in buf[0]}
+                    buf = []
+            if accepted == 0:
+                raise ValueError(
+                    f"no shard in {cfg.data_dir!r} passes the length filter "
+                    f"[{cfg.min_len_filter}, {cfg.max_len_filter}]")
+
+
 def make_dataset(config: DataConfig, seed: int = 0):
-    """The batch source ``config.source`` names: ``synthetic`` only."""
+    """The batch source ``config.source`` names (module docstring)."""
     if config.source == "synthetic":
         return SyntheticDataset(config, seed=seed)
-    if config.source in ("native", "npz", "sidechainnet"):
-        raise NotImplementedError(f"data source {config.source!r} is not ported yet")
+    if config.source == "native":
+        from alphafold2_tpu_torch.data import native
+
+        if not config.data_dir:
+            return native.NativeSyntheticLoader(config, seed=seed)
+        if shards_carry_msa(config):
+            import warnings
+
+            warnings.warn(MSA_FALLBACK_WARNING)
+            return NpzShardDataset(config, seed=seed)
+        return native.NativeShardLoader(config, seed=seed)
+    if config.source == "npz":
+        return NpzShardDataset(config, seed=seed)
+    if config.source == "sidechainnet":
+        raise NotImplementedError(
+            "data source 'sidechainnet' needs the sidechainnet package and its data")
     raise ValueError(f"unknown data source {config.source!r}")

@@ -13,7 +13,8 @@ engines (``remat`` with ``remat_policy``, ``reversible``, ``scan_layers``;
 block-sparse pair attention with ``sparse_self_attn``, ``sparse_config``
 and ``seq_len=max_seq_len``, as :288-312 passes them; ``msa_row_shard``,
 ``grid_parallel`` and ``context_parallel`` go to the trunk, which applies
-none on one device), and the symmetrized
+none on one device; ``cross_attn_compress_ratio`` compresses the pair<-MSA
+pass's keys and values, :129 and :300), and the symmetrized
 distogram head (:314-318), whose LayerNorm output is cast to the compute
 dtype (the reversible engine returns float32 streams). ``dtype`` is the
 compute dtype; parameters stay float32. ``attn_dropout`` and
@@ -126,6 +127,7 @@ class Alphafold2(nn.Module):
         max_num_templates: int = 0,
         template_attn_depth: int = 2,
         use_se3_template_embedder: bool = True,
+        cross_attn_compress_ratio: int = 1,
     ):
         super().__init__()
         self.dim = dim
@@ -147,7 +149,8 @@ class Alphafold2(nn.Module):
                            remat_policy=remat_policy, reversible=reversible,
                            scan_layers=scan_layers, msa_row_shard=msa_row_shard,
                            grid_parallel=grid_parallel, context_parallel=context_parallel,
-                           dtype=dtype, attn_dropout=attn_dropout, ff_dropout=ff_dropout)
+                           dtype=dtype, attn_dropout=attn_dropout, ff_dropout=ff_dropout,
+                           cross_attn_compress_ratio=cross_attn_compress_ratio)
         self.distogram_norm = LayerNorm(dim)
         self.distogram_proj = Dense(dim, constants.DISTOGRAM_BUCKETS)
         if num_embedds is not None:

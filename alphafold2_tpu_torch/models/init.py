@@ -6,7 +6,9 @@ modules at their defaults, so
 
 - every ``Dense`` weight and its bias ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in)),
   with fan_in as JAX counts it from the flax kernel (in, out): its leading
-  axis, which is the port's ``in_features``;
+  axis, which is the port's ``in_features``; the KV compression's
+  ``Conv1d`` likewise, with fan_in = ratio * in/groups (the flax kernel's
+  leading axes);
 - every embedding table ~ N(0, 1);
 - LayerNorm stays at ones and zeros.
 
@@ -40,13 +42,15 @@ def path_generator(seed: int, path: str) -> torch.Generator:
 
 @torch.no_grad()
 def torch_match_reinit(model: nn.Module, seed: int) -> nn.Module:
-    """Redraw ``model``'s Dense and embedding parameters in place under the
-    torch defaults above; LayerNorm and dtypes are kept."""
+    """Redraw ``model``'s Dense, conv and embedding parameters in place
+    under the torch defaults above; LayerNorm and dtypes are kept."""
     for name, mod in model.named_modules():
         path = "/".join(("params",) + tuple(name.split(".")))
-        if isinstance(mod, Dense):
+        if isinstance(mod, (Dense, nn.Conv1d)):
             gen = path_generator(seed, path)
-            bound = 1.0 / math.sqrt(mod.in_features)
+            fan_in = (mod.in_features if isinstance(mod, Dense)
+                      else mod.in_channels // mod.groups * mod.kernel_size[0])
+            bound = 1.0 / math.sqrt(fan_in)
             for p in (mod.weight, mod.bias):
                 if p is not None:
                     draw = torch.rand(p.shape, generator=gen, dtype=torch.float32)

@@ -81,7 +81,8 @@ class RevLayerPair(nn.Module):
                  gelu_exact: bool = False, msa_tie_row_attn: bool = False,
                  sparse_attn: bool = False, seq_len: Optional[int] = None,
                  sparse_config=None, dtype: torch.dtype = torch.float32,
-                 attn_dropout: float = 0.0, ff_dropout: float = 0.0):
+                 attn_dropout: float = 0.0, ff_dropout: float = 0.0,
+                 cross_attn_compress_ratio: int = 1):
         super().__init__()
         self.dtype = dtype
         for names in SUBMODULES.values():
@@ -95,7 +96,9 @@ class RevLayerPair(nn.Module):
         self.j_s = AxialAttention(dim, heads, dim_head, tie_row_attn=msa_tie_row_attn,
                                   dropout=attn_dropout)
         self.k_s = ff()
-        self.f_c = Attention(dim, heads, dim_head, dropout=attn_dropout)
+        # KV compression in f_c (pair <- MSA) only, as JAX builds it (:108)
+        self.f_c = Attention(dim, heads, dim_head, dropout=attn_dropout,
+                             compress_ratio=cross_attn_compress_ratio)
         self.g_c = ff()
         self.j_c = Attention(dim, heads, dim_head, dropout=attn_dropout)
         self.k_c = ff()
@@ -223,13 +226,14 @@ class ReversibleTrunk(nn.Module):
                  sparse_attn: bool = False, seq_len: Optional[int] = None,
                  sparse_config=None, use_custom_vjp: bool = True,
                  dtype: torch.dtype = torch.float32, attn_dropout: float = 0.0,
-                 ff_dropout: float = 0.0):
+                 ff_dropout: float = 0.0, cross_attn_compress_ratio: int = 1):
         super().__init__()
         self.depth, self.use_custom_vjp = depth, use_custom_vjp
         self.layers = stack_parameters(RevLayerPair(
             dim, heads, dim_head, gelu_exact=gelu_exact, msa_tie_row_attn=msa_tie_row_attn,
             sparse_attn=sparse_attn, seq_len=seq_len, sparse_config=sparse_config,
-            dtype=dtype, attn_dropout=attn_dropout, ff_dropout=ff_dropout), depth)
+            dtype=dtype, attn_dropout=attn_dropout, ff_dropout=ff_dropout,
+            cross_attn_compress_ratio=cross_attn_compress_ratio), depth)
 
     @staticmethod
     def layer_key(key: Optional[DropoutKey], i: int) -> Optional[DropoutKey]:

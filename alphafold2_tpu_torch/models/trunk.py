@@ -64,12 +64,15 @@ from alphafold2_tpu_torch.ops.layers import LayerNorm
 
 class TrunkLayer(nn.Module):
     """One depth step: axial self-attention on both streams, pair<->MSA
-    cross-attention, then GEGLU feedforwards. All residual, all pre-LN."""
+    cross-attention, then GEGLU feedforwards. All residual, all pre-LN.
+    ``cross_attn_compress_ratio`` above 1 compresses the MSA keys and
+    values of the pair<-MSA pass (``ops/attention.py``)."""
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
                  gelu_exact: bool = False, msa_tie_row_attn: bool = False,
                  sparse_attn: bool = False, seq_len: Optional[int] = None,
-                 sparse_config=None, attn_dropout: float = 0.0, ff_dropout: float = 0.0):
+                 sparse_config=None, attn_dropout: float = 0.0, ff_dropout: float = 0.0,
+                 cross_attn_compress_ratio: int = 1):
         super().__init__()
         for name in ("pair_axial_norm", "msa_axial_norm", "pair_cross_norm",
                      "pair_cross_ctx_norm", "msa_cross_norm",
@@ -80,7 +83,9 @@ class TrunkLayer(nn.Module):
                                          dropout=attn_dropout)
         self.msa_axial = AxialAttention(dim, heads, dim_head, tie_row_attn=msa_tie_row_attn,
                                         dropout=attn_dropout)
-        self.pair_from_msa = Attention(dim, heads, dim_head, dropout=attn_dropout)
+        # KV compression in the pair<-MSA pass only, as JAX builds it (:124)
+        self.pair_from_msa = Attention(dim, heads, dim_head, dropout=attn_dropout,
+                                       compress_ratio=cross_attn_compress_ratio)
         self.msa_from_pair = Attention(dim, heads, dim_head, dropout=attn_dropout)
         self.pair_ff = FeedForward(dim, gelu_exact=gelu_exact, dropout=ff_dropout)
         self.msa_ff = FeedForward(dim, gelu_exact=gelu_exact, dropout=ff_dropout)
@@ -200,6 +205,7 @@ class Trunk(nn.Module):
     """``depth`` layers under one of the three engines (module docstring).
     ``sparse_self_attn`` is one bool for every layer or a tuple of one per
     layer; ``seq_len`` and ``sparse_config`` go to the sparse layers;
+    ``cross_attn_compress_ratio`` to every engine's pair<-MSA pass;
     ``dtype`` is the compute dtype, which only the reversible engine needs
     (its carry is float32)."""
 
@@ -213,7 +219,8 @@ class Trunk(nn.Module):
                  msa_row_shard: bool = False, grid_parallel: bool = False,
                  context_parallel: Optional[str] = None,
                  dtype: torch.dtype = torch.float32,
-                 attn_dropout: float = 0.0, ff_dropout: float = 0.0):
+                 attn_dropout: float = 0.0, ff_dropout: float = 0.0,
+                 cross_attn_compress_ratio: int = 1):
         super().__init__()
         sparse = sparse_self_attn
         if not isinstance(sparse, (tuple, list)):
@@ -234,7 +241,8 @@ class Trunk(nn.Module):
         layer_kwargs = dict(dim=dim, heads=heads, dim_head=dim_head, gelu_exact=gelu_exact,
                             msa_tie_row_attn=msa_tie_row_attn, seq_len=seq_len,
                             sparse_config=sparse_config, attn_dropout=attn_dropout,
-                            ff_dropout=ff_dropout)
+                            ff_dropout=ff_dropout,
+                            cross_attn_compress_ratio=cross_attn_compress_ratio)
         self.depth = depth
         if reversible:
             from alphafold2_tpu_torch.models.reversible import ReversibleTrunk

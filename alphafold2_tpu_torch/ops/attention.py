@@ -28,6 +28,17 @@ logits, an f32 softmax cast to the compute dtype, dropout, then P·V, with
 one mask per (b, h, i, j) shared by all R tied rows. Those logits and P·V
 are the matrix products JAX computes outside any Pallas kernel. Without
 active attention dropout every path runs the kernels.
+
+KV compression (``Attention(compress_ratio=r)``, r > 1, cross-attention
+only, JAX :119-138 and :211-234): ``kv_compress`` is a grouped ``conv1d``
+of kernel and stride r, one group a head, no padding, with bias, computing
+in the input's dtype as flax's ``nn.Conv(dtype=...)`` does. One conv is
+shared by k and v. Both are right-padded with zeros to a multiple of r
+after ``to_kv``, then convolved; the context mask is padded with False and
+pooled by "any valid", and without a context mask the padded tail alone is
+masked (no mask at all where nothing is padded). The compressed k and v go
+to K1 (K3a/K3b under autograd), or to the dense route under active
+attention dropout, as JAX's ``fused_ok`` routes them.
 """
 
 from __future__ import annotations
@@ -195,22 +206,52 @@ class Attention(nn.Module):
     """Multi-head attention: self, cross (``context``), and tied rows
     (``tie_dim``) with abstention masking and the voting-row tie scale.
     ``dropout`` is the attention-weight dropout rate; with a ``key`` the
-    forward takes the dense route (module docstring)."""
+    forward takes the dense route. ``compress_ratio`` above 1 compresses a
+    cross-attention's keys and values (module docstring)."""
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
                  compress_ratio: int = 1,
                  context_parallel: Optional[str] = None, dropout: float = 0.0):
         super().__init__()
         self.dropout = dropout
-        if compress_ratio != 1:
-            raise NotImplementedError("KV compression is not ported yet")
         if context_parallel is not None:
             raise NotImplementedError("context parallelism is not ported yet")
         inner = heads * dim_head
         self.heads, self.dim_head = heads, dim_head
+        self.compress_ratio = compress_ratio
         self.to_q = Dense(dim, inner, bias=False)
         self.to_kv = Dense(dim, inner * 2, bias=False)
         self.to_out = Dense(inner, dim)
+        if compress_ratio > 1:
+            self.kv_compress = nn.Conv1d(inner, inner, compress_ratio, stride=compress_ratio,
+                                         groups=heads)
+
+    def _compress(self, k, v, context_mask):
+        """k, v (*lead, j, inner) -> (*lead, ceil(j/r), inner), and the
+        pooled context mask (module docstring). The conv's kernel equals its
+        stride, so it is one matmul per head over each block's r tokens:
+        channels-last in and out, and under the matmul precision switch the
+        Dense layers follow (cuDNN's convolutions would take TF32 for f32)."""
+        r, h = self.compress_ratio, self.heads
+        lead, j, inner = k.shape[:-2], k.shape[-2], k.shape[-1]
+        pad = (-j) % r
+        # (out, in/groups, r) -> (H, out/H, in/H, r): group h maps channels
+        # h*dh.. of a block's r tokens onto output channels h*dh..
+        w = self.kv_compress.weight.to(k.dtype).view(h, inner // h, inner // h, r)
+        b = self.kv_compress.bias.to(k.dtype).view(h, inner // h)
+
+        def conv(t):
+            t = F.pad(t.reshape(-1, j, inner), (0, 0, 0, pad))
+            blocks = t.view(t.shape[0], -1, r, h, inner // h)  # (N, j/r, r, H, dh)
+            out = torch.einsum("ntshi,hois->ntho", blocks, w) + b
+            return out.reshape(*lead, -1, inner)
+
+        if context_mask is None and pad:
+            context_mask = torch.ones((*lead, j), dtype=torch.bool, device=k.device)
+        if context_mask is not None:
+            cm = F.pad(context_mask, (0, pad), value=False)
+            context_mask = cm.reshape(*cm.shape[:-1], -1, r).any(-1)
+        return conv(k), conv(v), context_mask
 
     def _project_out(self, out: torch.Tensor, lead: tuple) -> torch.Tensor:
         # out: (..., H, n, dh) kernel layout -> (*lead, n, H*dh)
@@ -237,8 +278,13 @@ class Attention(nn.Module):
         lead, n = tuple(x.shape[:-2]), x.shape[-2]
         j = ctx.shape[-2]
         q = self.to_q(x).view(*lead, n, h, dh)
-        k, v = (t.view(*ctx.shape[:-2], j, h, dh)
-                for t in self.to_kv(ctx).chunk(2, -1))
+        k, v = self.to_kv(ctx).chunk(2, -1)
+        if self.compress_ratio > 1:
+            if not has_context:
+                raise ValueError("KV compression is for cross-attention only")
+            k, v, context_mask = self._compress(k, v, context_mask)
+            j = k.shape[-2]
+        k, v = (t.view(*ctx.shape[:-2], j, h, dh) for t in (k, v))
         scale = dh**-0.5
         dense = self.dropout > 0.0 and key is not None  # JAX's fused_ok, negated
 

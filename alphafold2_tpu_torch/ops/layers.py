@@ -3,7 +3,9 @@
 - :class:`Dense` computes in its input's dtype (flax ``nn.Dense(dtype=...)``
   casts its f32 kernel to the compute dtype); the weight stays f32.
 - :class:`LayerNorm` uses flax's epsilon 1e-6 (PyTorch's default is 1e-5)
-  and f32 statistics, returning the input's dtype.
+  and computes in f32, its weight and bias cast to f32 too (a bf16 serving
+  model casts them to bf16 at build), returning the input's dtype: flax's
+  numerics, f32 statistics and bf16 out.
 
 Embeddings are plain ``nn.Embedding`` tables; callers cast to their compute
 dtype. ``convert.py`` maps flax ``kernel``/``scale``/``embedding`` leaves
@@ -31,6 +33,7 @@ class LayerNorm(nn.LayerNorm):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.layer_norm(
-            x.float(), self.normalized_shape, self.weight, self.bias, self.eps
+            x.float(), self.normalized_shape, self.weight.float(), self.bias.float(),
+            self.eps,
         )
         return y.to(x.dtype)

@@ -115,11 +115,12 @@ def build_model(cfg: Config, mds_iters: int = 200, mds_seed: Optional[int] = Non
 
 def init_params(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
     """Random weights from a seeded ``torch.Generator``, at flax's scales:
-    dense kernels N(0, 1/fan_in), embeddings N(0, 1/dim), biases 0,
-    LayerNorm scale 1, the templates' raw ``sidechain_proj`` N(0, 1) (the
-    model's weights stay float32). A depth-stacked kernel (the scanned and
-    reversible trunks) gets that scale in every depth slice: its fan_in is
-    the layer's ``in_features``."""
+    dense kernels N(0, 1/fan_in), the KV compression's conv kernel
+    N(0, 1/fan_in) with fan_in its ratio times in/groups, embeddings
+    N(0, 1/dim), biases 0, LayerNorm scale 1, the templates' raw
+    ``sidechain_proj`` N(0, 1) (the model's weights stay float32). A
+    depth-stacked kernel (the scanned and reversible trunks) gets that
+    scale in every depth slice: its fan_in is the layer's."""
     from alphafold2_tpu_torch.models.se3 import SE3TemplateEmbedder
     from alphafold2_tpu_torch.ops.layers import Dense, LayerNorm
 
@@ -131,6 +132,10 @@ def init_params(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
                 mod.weight.copy_(torch.randn(mod.weight.shape, generator=gen) * std)
                 if mod.bias is not None:
                     mod.bias.zero_()
+            elif isinstance(mod, torch.nn.Conv1d):
+                fan_in = mod.in_channels // mod.groups * mod.kernel_size[0]
+                mod.weight.copy_(torch.randn(mod.weight.shape, generator=gen) * fan_in**-0.5)
+                mod.bias.zero_()
             elif isinstance(mod, torch.nn.Embedding):
                 std = mod.embedding_dim ** -0.5
                 mod.weight.copy_(torch.randn(mod.weight.shape, generator=gen) * std)

@@ -76,12 +76,18 @@ class ServeEngine:
     >>> engine = ServeEngine(cfg)               # the CUDA card
     >>> results = engine.predict_many(["ACDEFGH...", "MKV..."])
 
-    ``state_dict`` (e.g. from ``convert.to_state_dict``) replaces the random
-    weights drawn from ``cfg.train.seed``. ``counters`` counts requests, batches
-    and padded slots/residues."""
+    ``state_dict`` (e.g. from ``convert.to_state_dict``) or
+    ``checkpoint_dir`` (the latest checkpoint's parameters, restored through
+    ``CheckpointManager.restore_params`` before any bf16 cast, as JAX's
+    engine restores them) replaces the random weights drawn from
+    ``cfg.train.seed``; passing both raises, as ``predict`` does.
+    ``counters`` counts requests, batches and padded slots/residues."""
 
     def __init__(self, cfg: Config, state_dict: Optional[dict] = None,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 checkpoint_dir: Optional[str] = None):
+        if state_dict is not None and checkpoint_dir:
+            raise ValueError("pass state_dict or checkpoint_dir, not both")
         self.cfg = cfg
         self.device = resolve_device(device)
         buckets = tuple(int(b) for b in cfg.serve.buckets)
@@ -110,6 +116,10 @@ class ServeEngine:
             model.af2.dtype = model.refiner.dtype = torch.bfloat16
         if state_dict is not None:
             model.load_state_dict(state_dict)
+        elif checkpoint_dir:
+            from alphafold2_tpu_torch.train.checkpoint import CheckpointManager
+
+            CheckpointManager(checkpoint_dir).restore_params(model)
         else:
             init_params(model, cfg.train.seed)
         if cfg.serve.dtype == "bfloat16":

@@ -46,8 +46,8 @@ from alphafold2_tpu_torch.device import resolve_device
 from alphafold2_tpu_torch.models.alphafold2 import Alphafold2
 from alphafold2_tpu_torch.models.se3 import SE3Refiner
 from alphafold2_tpu_torch.train.loop import (
-    TrainState, apply_features, apply_gradients, check_unported, collect_gradients,
-    embedds_width, init_state, run_steps,
+    TrainState, apply_features, apply_gradients, check_unported, close_owned,
+    collect_gradients, embedds_width, init_state, run_steps,
 )
 from alphafold2_tpu_torch.train.optim import global_norm
 from alphafold2_tpu_torch.utils.metrics import kabsch
@@ -229,17 +229,21 @@ def train_end2end(cfg: Config, num_steps: Optional[int] = None, dataset=None,
     check_unported(cfg)
     dev = resolve_device(device)
     num_steps = num_steps or t.num_steps
-    dataset = dataset if dataset is not None else make_dataset(cfg.data, seed=t.seed)
-    data_iter = apply_features(iter(dataset), cfg)
-    sample = next(data_iter)
-    data_iter = itertools.chain([sample], data_iter)
+    owned = dataset is None
+    dataset = make_dataset(cfg.data, seed=t.seed) if owned else dataset
+    try:
+        data_iter = apply_features(iter(dataset), cfg)
+        sample = next(data_iter)
+        data_iter = itertools.chain([sample], data_iter)
 
-    state = init_state(cfg, build_end2end_model(cfg, num_embedds=embedds_width(sample)),
-                       device=dev)
-    step = make_end2end_step(state.model)
+        state = init_state(cfg, build_end2end_model(cfg, num_embedds=embedds_width(sample)),
+                           device=dev)
+        step = make_end2end_step(state.model)
 
-    def step_fn(st, batch, i):
-        b, l = batch["seq"].shape
-        return step(st, batch, mds_start(t.seed + 1, i, b, 3 * l, dev))
+        def step_fn(st, batch, i):
+            b, l = batch["seq"].shape
+            return step(st, batch, mds_start(t.seed + 1, i, b, 3 * l, dev))
 
-    return run_steps(cfg, state, step_fn, data_iter, num_steps, callbacks)
+        return run_steps(cfg, state, step_fn, data_iter, num_steps, callbacks)
+    finally:
+        close_owned(dataset, owned)

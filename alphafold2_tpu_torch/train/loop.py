@@ -37,11 +37,13 @@ batch, as JAX's init takes the width from its sample batch (:176-210).
 plain model on one device: JAX's ``train`` without a mesh gives the same
 losses and parameters bit for bit with and without each.
 
-Not ported (raises ``NotImplementedError``): a device mesh, and KV
-compression (``model.cross_attn_compress_ratio`` above 1, which JAX's
-distogram model builds). The trunk engines (``remat`` with
-``remat_policy``, ``reversible``, ``scan_layers``) train as in JAX
-(``models/trunk.py``, ``models/reversible.py``).
+Not ported (raises ``NotImplementedError``): a device mesh. The trunk
+engines (``remat`` with ``remat_policy``, ``reversible``, ``scan_layers``)
+and KV compression (``model.cross_attn_compress_ratio`` above 1, the
+pair<-MSA pass of every engine) train as in JAX (``models/trunk.py``,
+``models/reversible.py``, ``ops/attention.py``). A dataset the loop makes
+from ``cfg.data`` it also closes (the native loader's threads), as JAX's
+does (:712-713).
 """
 
 from __future__ import annotations
@@ -118,12 +120,10 @@ def embedds_width(batch: dict) -> Optional[int]:
 def build_model(cfg: Config, num_embedds: Optional[int] = None) -> Alphafold2:
     """The distogram model ``cfg.model`` describes; float32 parameters,
     bfloat16 compute when ``model.bfloat16``. ``num_embedds``, the width
-    of a PLM stream's ``embedds``, builds ``embedd_project``. KV
-    compression raises; the mesh flags go to the trunk, which applies none
-    on one device (module docstring)."""
+    of a PLM stream's ``embedds``, builds ``embedd_project``. The mesh
+    flags go to the trunk, which applies none on one device (module
+    docstring)."""
     m = cfg.model
-    if m.cross_attn_compress_ratio != 1:
-        raise NotImplementedError("KV compression is not ported yet")
     return Alphafold2(
         dim=m.dim, max_seq_len=m.max_seq_len, depth=m.depth, heads=m.heads,
         dim_head=m.dim_head, gelu_exact=m.gelu_exact,
@@ -133,7 +133,7 @@ def build_model(cfg: Config, num_embedds: Optional[int] = None) -> Alphafold2:
         remat_policy=m.remat_policy, reversible=m.reversible, scan_layers=m.scan_layers,
         sparse_self_attn=m.sparse_self_attn, msa_row_shard=m.msa_row_shard,
         grid_parallel=m.grid_parallel, context_parallel=m.context_parallel,
-        num_embedds=num_embedds,
+        num_embedds=num_embedds, cross_attn_compress_ratio=m.cross_attn_compress_ratio,
     )
 
 
@@ -300,6 +300,13 @@ def batch_to_device(batch: dict, device: torch.device) -> dict:
     return out
 
 
+def close_owned(dataset, owned: bool) -> None:
+    """Close a dataset the loop made itself (the native loaders stop their
+    worker threads); one the caller passed stays the caller's."""
+    if owned and hasattr(dataset, "close"):
+        dataset.close()
+
+
 def check_unported(cfg: Config) -> None:
     """Raise for what neither training loop honours yet: a device mesh."""
     mesh = cfg.mesh
@@ -433,10 +440,10 @@ def train(cfg: Config, num_steps: Optional[int] = None, dataset=None, callbacks=
 
     Runs on the CUDA card unless ``device="cpu"``; without a card it raises.
     ``dataset`` (an iterable of numpy batches) replaces the configured
-    source; each ``callbacks`` entry is called as ``cb(step, state,
-    metrics)`` after every step; checkpoints, metrics, triage, spans and the
-    profiler window as :func:`run_steps` says. Returns the final
-    :class:`TrainState`."""
+    source (a source the loop makes it closes on every exit); each
+    ``callbacks`` entry is called as ``cb(step, state, metrics)`` after
+    every step; checkpoints, metrics, triage, spans and the profiler window
+    as :func:`run_steps` says. Returns the final :class:`TrainState`."""
     from alphafold2_tpu_torch.data.pipeline import make_dataset
 
     t = cfg.train
@@ -447,24 +454,26 @@ def train(cfg: Config, num_steps: Optional[int] = None, dataset=None, callbacks=
                          "expected 'off', 'triage' or 'full'")
     dev = resolve_device(device)
     num_steps = num_steps or t.num_steps
-    dataset = dataset if dataset is not None else make_dataset(cfg.data, seed=t.seed)
-    data_iter = apply_features(iter(dataset), cfg)
-    sample = next(data_iter)
-    data_iter = itertools.chain([sample], data_iter)
-
-    model = build_model(cfg, num_embedds=embedds_width(sample))
-    state = init_state(cfg, model, device=dev)
-    step = make_train_step(state.model, {"off": "off", "triage": "norms",
-                                         "full": "full"}[numerics_mode])
-    key = lambda i: DropoutKey.for_step(t.seed + 1, i)
-    triage_fn = None
-    if numerics_mode != "off":
-        triage = make_triage_step(state.model)
-        triage_fn = lambda batch, i: triage(batch, key(i))
+    owned = dataset is None
+    dataset = make_dataset(cfg.data, seed=t.seed) if owned else dataset
     tracer = Tracer(t.trace_events)
     try:
+        data_iter = apply_features(iter(dataset), cfg)
+        sample = next(data_iter)
+        data_iter = itertools.chain([sample], data_iter)
+
+        model = build_model(cfg, num_embedds=embedds_width(sample))
+        state = init_state(cfg, model, device=dev)
+        step = make_train_step(state.model, {"off": "off", "triage": "norms",
+                                             "full": "full"}[numerics_mode])
+        key = lambda i: DropoutKey.for_step(t.seed + 1, i)
+        triage_fn = None
+        if numerics_mode != "off":
+            triage = make_triage_step(state.model)
+            triage_fn = lambda batch, i: triage(batch, key(i))
         return run_steps(cfg, state, lambda st, batch, i: step(st, batch, key(i)), data_iter,
                          num_steps, callbacks, triage_fn=triage_fn, tracer=tracer,
                          profiler=Profiler(t.profile_dir, t.profile_steps, dev))
     finally:
         tracer.close()
+        close_owned(dataset, owned)

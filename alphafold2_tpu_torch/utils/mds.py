@@ -1,7 +1,9 @@
 """Weighted metric MDS (Guttman iterations) with the mirror fix.
 
 Port of ``alphafold2_tpu/utils/mds.py`` ``mds``, ``_flip_mirrors``,
-``calc_phis_backbone`` and ``mdscaling_backbone``: a fixed trip count with
+``mdscaling`` (the mirror fix from mask-picked backbone atoms),
+``calc_phis_backbone``, ``mdscaling_backbone`` and the public
+``MDScaling``: a fixed trip count with
 per-element ``done`` flags (converged elements freeze, co-batched elements
 cannot extend or end each other's iterations) and the ``n_eff`` divisor
 (the number of positions with any positive weight), so zero-weighted
@@ -10,7 +12,8 @@ padding leaves the valid region's solve unchanged (:35-116).
 The start coordinates are an explicit ``coords0`` argument. The JAX
 package draws them from threefry (``fold_in(key, position)``); those bits
 cannot be reproduced here, so parity tests inject the JAX start, and the
-port's own start is :func:`position_keyed_init`.
+port's own start is :func:`position_keyed_init` (the default of
+:func:`mdscaling` and :func:`MDScaling`, keyed by their ``seed``).
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from alphafold2_tpu_torch.utils.metrics import get_dihedral
+from alphafold2_tpu_torch.utils.metrics import calc_phis, get_dihedral
 from alphafold2_tpu_torch.utils.structure import cdist
 
 
@@ -78,6 +81,36 @@ def _flip_mirrors(preds: torch.Tensor, phi_ratios: torch.Tensor) -> torch.Tensor
     return torch.cat([preds[:, :-1], z[:, None]], dim=1)
 
 
+def _start(pre_dist_mat: torch.Tensor, coords0: Optional[torch.Tensor], seed: int):
+    if coords0 is not None:
+        return coords0
+    return torch.from_numpy(position_keyed_init(pre_dist_mat.shape[-1], seed))
+
+
+def mdscaling(
+    pre_dist_mat: torch.Tensor,
+    coords0: Optional[torch.Tensor] = None,
+    weights: Optional[torch.Tensor] = None,
+    iters: int = 10,
+    tol: float = 1e-5,
+    fix_mirror: bool = True,
+    N_mask=None,
+    CA_mask=None,
+    C_mask=None,
+    seed: int = 0,
+):
+    """MDS plus the chirality fix from backbone phi angles, the atoms picked
+    by boolean masks over the flat stream (``utils.structure.
+    scn_backbone_mask``). ``coords0`` defaults to
+    ``position_keyed_init(N, seed)``. Returns (coords (B, 3, N), stress
+    history)."""
+    preds, stresses = mds(pre_dist_mat, _start(pre_dist_mat, coords0, seed),
+                          weights=weights, iters=iters, tol=tol)
+    if not fix_mirror:
+        return preds, stresses
+    return _flip_mirrors(preds, calc_phis(preds, N_mask, CA_mask, C_mask, prop=True)), stresses
+
+
 def calc_phis_backbone(coords: torch.Tensor, prop: bool = True,
                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Phi angles of an (N, CA, C)-repeating stream (B, 3, 3L); with
@@ -112,3 +145,18 @@ def mdscaling_backbone(
         return preds, stresses
     phi_ratios = calc_phis_backbone(preds, prop=True, mask=residue_mask)
     return _flip_mirrors(preds, phi_ratios), stresses
+
+
+def MDScaling(pre_dist_mat, backend: str = "auto", **kwargs):
+    """The reference's public entry: (N, N) or (B, N, N) distances ->
+    (coords (B, 3, N), stress history), numpy for numpy input; ``kwargs``
+    as :func:`mdscaling` takes them. ``backend`` is accepted and ignored."""
+    del backend
+    numpy_in = not isinstance(pre_dist_mat, torch.Tensor)
+    d = torch.as_tensor(np.asarray(pre_dist_mat) if numpy_in else pre_dist_mat)
+    if d.dim() == 2:
+        d = d[None]
+    coords, stresses = mdscaling(d, **kwargs)
+    if numpy_in:
+        return coords.detach().numpy(), stresses.detach().numpy()
+    return coords, stresses

@@ -2,6 +2,7 @@
 
 Port of ``alphafold2_tpu/utils/structure.py``: :func:`cdist`,
 :func:`get_bucketed_distance_matrix` (:55), :func:`center_distogram` (:76),
+:func:`scn_cloud_mask` and :func:`scn_backbone_mask` (:131-160),
 :func:`nerf` (:162) and :func:`sidechain_container` (:198). Batched tensor
 functions, same layouts.
 """
@@ -81,6 +82,29 @@ def center_distogram(distogram: torch.Tensor, bins: Optional[torch.Tensor] = Non
     dispersion = torch.sqrt((distogram * (centers - central[..., None]) ** 2).sum(-1))
     weights = torch.nan_to_num(mask / (1.0 + dispersion), nan=0.0)
     return central, weights
+
+
+def scn_cloud_mask(seq: torch.Tensor, boolean: bool = True) -> torch.Tensor:
+    """(B, L) AA indices (20 = pad) -> (B, L, 14) bool: which of the
+    sidechainnet layout's 14 atom slots each residue has (a table lookup of
+    ``constants.ATOM_COUNTS``); with ``boolean=False`` the indices of the
+    true entries, (K, 3)."""
+    counts = torch.tensor(constants.ATOM_COUNTS, device=seq.device)[seq.long()]
+    slots = torch.arange(constants.NUM_COORDS_PER_RES, device=seq.device)
+    mask = slots < counts[..., None]
+    return mask if boolean else torch.nonzero(mask)
+
+
+def scn_backbone_mask(seq: torch.Tensor, boolean: bool = True,
+                      l_aa: int = constants.NUM_COORDS_PER_RES):
+    """The (L*l_aa,) masks of backbone N (slot 0) and CA (slot 1) in a flat
+    atom stream of ``seq``'s (..., L) residues; with ``boolean=False`` their
+    indices, (K, 1) each."""
+    idx = torch.arange(seq.shape[-1] * l_aa, device=seq.device)
+    n_mask, ca_mask = idx % l_aa == 0, idx % l_aa == 1
+    if boolean:
+        return n_mask, ca_mask
+    return torch.nonzero(n_mask), torch.nonzero(ca_mask)
 
 
 def nerf(a, b, c, l, theta, chi) -> torch.Tensor:

@@ -83,7 +83,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
               its Hopper kernel, and no plain-version call; a
               request served alone and in a batch must agree; one request
               with serve.return_distogram must bring back (3L, 3L, 37)
-              logits; a bucket-128 and a bucket-256 batch are profiled;
+              logits; serve.dtype=bfloat16 (every parameter cast) serves
+              the six requests of 50-128 residues with finite atom14,
+              timed beside the f32-parameter figure, one request's
+              distogram logits within tests/test_precision.py's 5% of the
+              f32-parameter engine's; an engine built from a 2-step
+              end-to-end checkpoint equals predict(checkpoint_dir=) bit for
+              bit; a bucket-128 and a bucket-256 batch are profiled;
 5. train    — distogram pretraining at the same width (untied MSA rows,
               crop 128, MSA 5x64, batch 1, accumulation 16): 32 steps whose
               launch counts must show K1, K3a and K3b on every attention
@@ -201,7 +207,30 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
               step alone and its peak memory, a tied step of each kind
               profiled; predict on the card with each
               of cross_attn_compress_ratio, msa_row_shard, grid_parallel and
-              context_parallel bit-equal to the plain config.
+              context_parallel bit-equal to the plain config;
+14. compress  — KV compression (model.cross_attn_compress_ratio): a small
+              f32 model of config_3's structure on the card against the
+              CPU, every gradient leaf (kv_compress's among them); K1, K1
+              with lse, K3a and K3b on the compressed pair<-MSA pass
+              (262144 x 342 at head dim 64) against their plain versions,
+              f32 and bf16, bf16 on the Hopper kernels, timed beside SDPA;
+              scripts/bench_suite.py config_3 at full width (dim 256,
+              depth 12, crop 512, MSA 8x128, block-sparse every other
+              layer, compression 3, remat, bf16) for 2 steps through
+              train.loop.train: finite, unskipped, launches a step as its
+              schedule gives them, every K1/K3/K4/K5 launch (the compressed
+              pass's among them) on its Hopper kernel, no plain version;
+              the step alone, its peak memory, one step profiled;
+15. data      — local data, evaluation and relaxation: synthetic
+              backbones written as PDB files with the port's save_pdb,
+              converted by import_pdbs; the distogram loop at the training
+              smoke's width for 3 steps on data.source=npz (checkpointed),
+              native over the shards and native synthetic; the native
+              loader's labels against get_bucketed_distance_matrix on the
+              card; each loader's batches/s; evaluate --checkpoint
+              --realize over 2 batches (finite, the forward's ms); a
+              predicted backbone relaxed for 200 iterations through
+              refinement's run_native_relax (the energy falls, its ms).
 
 ``phase_k1_time`` (not part of the run) times K1 alone on its nine
 main-path passes beside SDPA: ``python3 -c "import chip_smoke as c;
@@ -216,7 +245,9 @@ K3b at head dim 256 beside SDPA's forward and backward;
 ``phase_registers`` every Hopper instantiation's registers and spills; the
 template and PLM phases run alone after ``phase_build``:
 ``python3 -c "import chip_smoke as c; c.phase_build(); c.phase_slice_kernels();
-c.phase_templates(); c.phase_plm()"``. ``chip_compare.sh`` runs them, or
+c.phase_templates(); c.phase_plm()"``, and likewise KV compression and the
+local-data phase: ``python3 -c "import chip_smoke as c; c.phase_build();
+c.phase_compress(); c.phase_data()"``. ``chip_compare.sh`` runs them, or
 any other phases, for two checkouts in turns.
 
 Prints the card's name and power limit, then a JSON line describing every
@@ -4546,6 +4577,9 @@ def phase_serve():
     log(f"[serve] return_distogram: a {len(reqs[7].seq)}-residue request came back with "
         f"finite {disto.distogram.shape} logits")
 
+    bf16 = _serve_bf16(engine, cfg_d, reqs, rates[0], disto)
+    _serve_checkpoint()
+
     profile_device(f"one bucket-{results[4].bucket} serving batch",
                    lambda: engine.predict_many(reqs[4:6]))
     profile_device(f"one bucket-{results[-1].bucket} serving batch (streamed refiner)",
@@ -4558,8 +4592,454 @@ def phase_serve():
             + ", ".join(f"{k} {v:.1f} ms" for k, v in spans.items())
             + f", the rest (featurization, realization, copies) {total - sum(spans.values()):.1f} ms")
     return {"launches": launches, "wall_s": walls, "residues_per_s": rates,
-            "peak_bytes": peak,
+            "peak_bytes": peak, "bf16": bf16,
             "latency_ms": [round(r.latency_s * 1e3, 3) for r in results]}
+
+
+# the bf16 serving engine against the f32-parameter one: the distogram
+# logits' relative L2 bound of tests/test_precision.py
+SERVE_BF16_LOGITS_BOUND = 0.05
+
+
+def _serve_bf16(engine, cfg_d, reqs, f32_rate, f32_disto):
+    """serve.dtype=bfloat16 on the serving smoke config (every parameter
+    cast to bf16): the six requests of 50-128 residues served with finite
+    atom14, timed beside the f32-parameter engine's figure, and one
+    request's distogram logits within SERVE_BF16_LOGITS_BOUND of the
+    f32-parameter engine's (which computes in bf16 too: with LayerNorm
+    scales of 1 and biases of 0, which bf16 holds exactly, the two agree
+    bit for bit) and of an engine computing in f32 (model.bfloat16=False:
+    the drift test_precision.py bounds, which must not be 0). The atom14
+    Kabsch-aligned CA RMSD is logged: the realization amplifies trunk-level
+    drift, so coordinates carry no bound."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from alphafold2_tpu_torch.serve.engine import ServeEngine
+
+    cfg = dataclasses.replace(cfg_d, serve=dataclasses.replace(cfg_d.serve, dtype="bfloat16"))
+    bf16 = ServeEngine(cfg, state_dict=engine.model.state_dict())
+    require(all(p.dtype == torch.bfloat16 for p in bf16.model.parameters()),
+            "serve.dtype=bfloat16 left a parameter in another dtype")
+    bf16.warmup()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = bf16.predict_many(reqs[:6])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for r in out:
+        require(r.ok, f"bf16 serving: a request of {len(r.seq)} residues failed: {r.error}")
+        require(bool(np.isfinite(r.atom14).all()), "bf16 serving: non-finite atom14")
+    rate = sum(len(r.seq) for r in out) / wall
+    one = bf16.predict_many([reqs[7]])[0]
+    del bf16
+    _free()
+    f32_model = dataclasses.replace(cfg_d, model=dataclasses.replace(cfg_d.model,
+                                                                     bfloat16=False))
+    f32 = ServeEngine(f32_model, state_dict=engine.model.state_dict()).predict_many(
+        [reqs[7]])[0]
+    _free()
+    rel = lambda x, y: float(np.linalg.norm(x - y) / np.linalg.norm(y))
+    same, drift = rel(one.distogram, f32_disto.distogram), rel(one.distogram, f32.distogram)
+    rmsd = _kabsch_rmsd(one.atom14[:, 1], f32.atom14[:, 1])
+    log(f"[serve] serve.dtype=bfloat16: 6 requests of 50-128 residues finite, "
+        f"{rate:.2f} residues/s (f32 parameters: {f32_rate:.2f}); a {len(one.seq)}-residue "
+        f"request's distogram logits relative L2 {same:.3e} from the f32-parameter engine's "
+        f"(bf16 compute) and {drift:.3e} from an f32-compute engine's (bound "
+        f"{SERVE_BF16_LOGITS_BOUND}); CA RMSD after Kabsch from the f32-compute engine's "
+        f"{rmsd:.3f} A")
+    require(same <= SERVE_BF16_LOGITS_BOUND and 0 < drift <= SERVE_BF16_LOGITS_BOUND,
+            "bf16 serving drifts past tests/test_precision.py's logits bound")
+    return {"residues_per_s": rate, "logits_rel_l2": drift, "ca_rmsd": rmsd}
+
+
+def _serve_checkpoint():
+    """An engine built from a 2-step end-to-end checkpoint (the end-to-end
+    CLI's width) against predict(checkpoint_dir=...) on one 64-residue
+    request alone in bucket 64 with one MSA row, 200 MDS iterations and
+    predict's seed the engine's MDS seed: atom14 bit for bit."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from alphafold2_tpu_torch.predict import predict
+    from alphafold2_tpu_torch.serve.engine import ServeEngine, ServeRequest
+    from alphafold2_tpu_torch.train import end2end
+
+    root = tempfile.mkdtemp(prefix="af2_serve_ckpt_")
+    try:
+        cfg = _e2e_config(False)
+        cfg.train.checkpoint_dir = root
+        cfg.train.numerics = "off"
+        cfg.serve = dataclasses.replace(cfg.serve, buckets=(64,), max_batch=1, msa_depth=1,
+                                        mds_iters=200)
+        end2end.train_end2end(cfg, num_steps=2)
+        seq = "".join(np.random.default_rng(11).choice(list("ACDEFGHIKLMNPQRSTVWY"), 64))
+        engine = ServeEngine(cfg, checkpoint_dir=root)
+        got = engine.predict_many([ServeRequest(seq=seq, seed=cfg.train.seed)])[0]
+        want = predict(cfg, seq, msa_depth=1, seed=cfg.train.seed, checkpoint_dir=root)
+        same = got.ok and np.array_equal(got.atom14, want.atom14)
+        log(f"[serve] ServeEngine(checkpoint_dir=) from a 2-step end-to-end checkpoint "
+            f"against predict(checkpoint_dir=): atom14 bit-equal {same}"
+            + ("" if same else f" (max |d| {np.abs(got.atom14 - want.atom14).max():.3e} A)"))
+        require(same, "the checkpoint engine and predict disagree")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        _free()
+
+
+# --------------------------------------------------------------- KV compression
+
+COMPRESS_LABEL = "compressed pair<-MSA cross (1x8, 262144x342, d64)"
+COMPRESS_SHAPE = (1, 8, 512 * 512, -(-8 * 128 // 3), 64)  # (B, H, Nq, Nk, D)
+COMPRESS_STEPS = 2  # config_3 steps through train.loop.train
+
+
+def _config3(small=False):
+    """scripts/bench_suite.py config_3 at its full width: dim 256, depth
+    12, heads 8, dim_head 64, crop 512, MSA 8x128, batch 1, block-sparse
+    pair attention on every other layer (from the first), KV compression 3,
+    remat, bf16 compute (numerics off, as bench_suite's step). ``small``: an
+    f32 model of the same structure at dim 32, depth 2, crop 32."""
+    from alphafold2_tpu_torch.config import Config, DataConfig, ModelConfig, TrainConfig
+
+    if small:
+        model = ModelConfig(dim=32, depth=2, heads=2, dim_head=32, max_seq_len=32,
+                            remat=True, bfloat16=False, cross_attn_compress_ratio=3)
+        data = DataConfig(crop_len=32, msa_depth=3, msa_len=20, batch_size=1,
+                          min_len_filter=16)
+    else:
+        model = ModelConfig(dim=256, depth=12, heads=8, dim_head=64, max_seq_len=512,
+                            remat=True, bfloat16=True, cross_attn_compress_ratio=3)
+        data = DataConfig(crop_len=512, msa_depth=8, msa_len=128, batch_size=1,
+                          min_len_filter=512)
+    model.sparse_self_attn = (True, False) * (model.depth // 2)
+    return Config(model=model, data=data,
+                  train=TrainConfig(gradient_accumulate_every=1, warmup_steps=10,
+                                    numerics="off", log_every=1))
+
+
+def _config3_expected(depth=12):
+    """Launches a config_3 step: a dense layer runs K1 on its 6 passes, a
+    sparse one on its 4 MSA and cross passes and K4 (with lse) on its 2
+    pair axial passes; remat runs each layer's forward twice; every pass
+    runs its backward but the last layer's MSA<-pair update."""
+    k1 = 6 * (depth // 2) + 4 * (depth // 2)
+    return {"fused_attention": 2 * k1, "fused_attention_bwd_dq": k1 - 1,
+            "fused_attention_bwd_dkv": k1 - 1, "block_sparse_attention": 2 * depth,
+            "block_sparse_attention_bwd_dq": depth, "block_sparse_attention_bwd_dkv": depth}
+
+
+class _LaunchShapes:
+    """Counts K1's and K3's launches by (kernel, Nq, Nk, Hopper kernel ran)
+    while installed, wrapping the wrappers' launch functions."""
+
+    def __enter__(self):
+        import collections
+
+        from alphafold2_tpu_torch.ops.cuda import axial
+
+        self.axial, self.seen = axial, collections.Counter()
+        self.saved = (axial._launch_forward, axial._launch_backward)
+        fwd, bwd = self.saved
+
+        def forward(q, k, v, *a, **kw):
+            before = axial.fused_attention.sm90_launches
+            out = fwd(q, k, v, *a, **kw)
+            hopper = axial.fused_attention.sm90_launches - before
+            self.seen[("K1", q.shape[2], k.shape[2], hopper)] += 1
+            return out
+
+        def backward(which, outs, slots, q, k, v, *a, **kw):
+            hopper = bwd(which, outs, slots, q, k, v, *a, **kw)
+            self.seen[("K3a" if which == "dq" else "K3b", q.shape[2], k.shape[2], hopper)] += 1
+            return hopper
+
+        axial._launch_forward, axial._launch_backward = forward, backward
+        return self.seen
+
+    def __exit__(self, *exc):
+        self.axial._launch_forward, self.axial._launch_backward = self.saved
+
+
+def _compress_parity():
+    """A small f32 model of config_3's structure (_config3(small=True)):
+    one step's loss and every gradient leaf, kv_compress's among them, on
+    the card's kernels against the CPU's plain versions."""
+    small = _config3(small=True)
+    loss, worst, worst_name = _small_step_card_vs_cpu(small)
+    rel = abs(loss["kernels"] - loss["plain"]) / abs(loss["plain"])
+    log(f"[compress] small f32 model (dim 32, depth 2, crop 32, compression 3, sparse and "
+        f"dense layers, remat), card vs CPU: loss relative {rel:.2e} (tol 1e-5), worst "
+        f"per-leaf gradient relative L2 {worst:.3e} ({worst_name}; tol {GRAD_REL_L2:g})")
+    require(rel <= 1e-5 and worst <= GRAD_REL_L2,
+            "the small compressed model disagrees between the card and the CPU")
+
+
+def _compress_cases():
+    """K1, and K1 with lse, K3a and K3b, on config_3's compressed pass
+    (COMPRESS_SHAPE, every query and key valid as in its batch) against
+    their plain versions, f32 and bf16; bf16 on the Hopper kernels, timed
+    beside SDPA."""
+    import torch
+
+    b, h, nq, nk, d = COMPRESS_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    ones = lambda n: torch.ones((b, n), dtype=torch.bool, device="cuda")
+    rows = []
+    for dtype, reps in ((torch.float32, 0), (torch.bfloat16, 3)):
+        rows.append(k1_case(COMPRESS_LABEL, b, h, nq, nk, d, dtype, q_mask=ones(nq),
+                            kv_mask=ones(nk), reps=reps, library=bool(reps), gen=gen,
+                            serving=True))
+        rows += k3_case(COMPRESS_LABEL, b, h, nq, nk, d, dtype, q_mask=ones(nq),
+                        kv_mask=ones(nk), reps=reps, library=bool(reps), gen=gen, strided=True)
+    for r in rows:
+        if "ms" in r:
+            log(f"[compress] time {r['kernel']} {r['label']}: kernel {r['ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.3f} ms, sdpa {r.get('library_ms')} ms, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}; {r['bound_ms'] / r['ms']:.1%} of "
+                f"the bound)")
+    return rows
+
+
+def phase_compress():
+    """KV compression: the small model card vs CPU; K1 and K3 on the
+    compressed pass; then config_3 (_config3) through train.loop.train for
+    COMPRESS_STEPS steps from launch counts of 0: finite, unskipped,
+    launches a step as _config3_expected gives them, every K1, K3, K4 and
+    K5 launch on its Hopper kernel (K1 and K3a/K3b at 262144 x 342 among
+    them), no plain version; then the step alone (host clock to a
+    synchronize) with its peak memory, and one step profiled. Returns the
+    result rows and the run's numbers."""
+    import numpy as np
+    import torch
+
+    from alphafold2_tpu_torch.train import loop
+
+    t_phase = time.perf_counter()
+    _compress_parity()
+    rows = _compress_cases()
+    cfg = _config3()
+    plain, kernels = _plain_versions(), _training_kernels()
+    losses, oks = [], []
+    _reset_counts(kernels, plain)
+    t0 = time.perf_counter()
+    with _LaunchShapes() as seen:
+        state = loop.train(cfg, num_steps=COMPRESS_STEPS, callbacks=[
+            lambda i, s, m: (losses.append(float(m["loss"])), oks.append(bool(m["grads_ok"])))])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    skipped = int(state.skipped)
+    del state
+    per_step = {name: fn.launches / COMPRESS_STEPS for name, fn in kernels.items()
+                if fn.launches}
+    missed = {name: fn.launches - fn.sm90_launches for name, fn in kernels.items()
+              if hasattr(fn, "sm90_launches") and fn.sm90_launches != fn.launches}
+    plain_calls = sum(fn.calls for fn in plain)
+    _, _, nq, nk, _ = COMPRESS_SHAPE
+    compressed = {k: seen[(k, nq, nk, 1)] for k in ("K1", "K3a", "K3b")}
+    off_hopper = {key: n for key, n in seen.items() if key[3] != 1}
+    expected = _config3_expected(cfg.model.depth)
+    off = {name: (per_step.get(name, 0), n) for name, n in expected.items()
+           if per_step.get(name, 0) != n}
+    log(f"[compress] config_3 (dim 256, depth 12, crop 512, MSA 8x128, sparse every other "
+        f"layer, compression 3, remat, bf16): {COMPRESS_STEPS} steps through train.loop.train "
+        f"in {wall:.1f} s, losses " + " ".join(f"{x:.4f}" for x in losses)
+        + f", skipped {skipped}; launches a step {per_step}; on the compressed pass "
+        f"(262144 x 342) over the run {compressed}; launches off their Hopper kernel "
+        f"{missed} {off_hopper}; plain-version calls {plain_calls}")
+    require(bool(np.isfinite(losses).all()) and all(oks) and skipped == 0,
+            "config_3: a non-finite loss or a skipped step")
+    require(not missed and not off_hopper, "config_3: a launch missed its Hopper kernel")
+    require(plain_calls == 0, "config_3: a plain version ran")
+    require(all(n > 0 for n in compressed.values()),
+            f"config_3: the compressed pass did not run K1 and K3 on the card {compressed}")
+    require(not off, f"config_3: launches a step (measured, expected) {off}")
+    _free()
+    resident = torch.cuda.memory_allocated()
+    fn = _step_fn(cfg, False)
+    step_ms, peak = _time_step(fn, 2)
+    log(f"[compress] config_3: the step alone {step_ms:.2f} ms ({1e3 / step_ms:.3f} steps/s, "
+        f"{512 * 512 / step_ms * 1e3:.0f} pairs/s) over 2 steps, peak device memory "
+        f"{peak / 2**20:.1f} MiB ({resident / 2**20:.1f} MiB held before the model)")
+    profile_device("one config_3 step", fn, host=True)
+    del fn
+    _free()
+    log(f"[compress] phase: {time.perf_counter() - t_phase:.1f} s")
+    return rows, {"launches": per_step, "step_ms": step_ms, "peak_bytes": peak,
+                  "losses": losses}
+
+
+# --------------------------------------------------------------- local data
+
+DATA_STEPS = 3  # distogram steps per data source
+DATA_LENGTHS = (96, 121, 128, 150, 183, 230)  # the synthetic structures' residues
+LOADER_BATCHES = 50  # batches timed per loader
+
+
+def _write_structures(root):
+    """DATA_LENGTHS synthetic backbones as PDB files, written with the
+    port's save_pdb (nothing is downloaded)."""
+    import numpy as np
+
+    from alphafold2_tpu_torch.data.pipeline import _smooth_walk, _synthesize_backbone
+    from alphafold2_tpu_torch.utils import pdb as pdbio
+
+    rng = np.random.default_rng(5)
+    os.makedirs(root)
+    for i, n in enumerate(DATA_LENGTHS):
+        bb = _synthesize_backbone(rng, _smooth_walk(rng, n)).reshape(n, 3, 3)
+        seq = "".join(rng.choice(list("ACDEFGHIKLMNPQRSTVWY"), n))
+        pdbio.save_pdb(pdbio.backbone_to_pdb(seq, bb), os.path.join(root, f"chain{i}.pdb"))
+
+
+def _data_run(label, cfg):
+    """DATA_STEPS distogram steps of ``cfg`` through train.loop.train from
+    launch counts of 0: finite, unskipped, every launch on its Hopper
+    kernel, no plain version. Returns the launches a step."""
+    import numpy as np
+    import torch
+
+    from alphafold2_tpu_torch.train import loop
+
+    plain, kernels = _plain_versions(), _training_kernels()
+    losses, oks = [], []
+    _reset_counts(kernels, plain)
+    t0 = time.perf_counter()
+    state = loop.train(cfg, num_steps=DATA_STEPS, callbacks=[
+        lambda i, s, m: (losses.append(float(m["loss"])), oks.append(bool(m["grads_ok"])))])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    skipped = int(state.skipped)
+    del state
+    per_step = {name: fn.launches / DATA_STEPS for name, fn in kernels.items() if fn.launches}
+    missed = {name: fn.launches - fn.sm90_launches for name, fn in kernels.items()
+              if hasattr(fn, "sm90_launches") and fn.sm90_launches != fn.launches}
+    plain_calls = sum(fn.calls for fn in plain)
+    log(f"[data] {label}: {DATA_STEPS} steps in {wall:.2f} s (model build included), losses "
+        + " ".join(f"{x:.4f}" for x in losses) + f", skipped {skipped}; launches a step "
+        f"{per_step}; off their Hopper kernel {missed}; plain-version calls {plain_calls}")
+    require(bool(np.isfinite(losses).all()) and all(oks) and skipped == 0,
+            f"{label}: a non-finite loss or a skipped step")
+    require(not missed and plain_calls == 0 and per_step.get("fused_attention", 0) > 0,
+            f"{label}: a launch off its Hopper kernel or a plain version")
+    _free()
+    return per_step
+
+
+def _loader_rate(make):
+    """Batches/s over LOADER_BATCHES batches of the iterator ``make()``
+    gives (after its first batch), closed afterwards where it closes."""
+    it = make()
+    try:
+        next(it)
+        t0 = time.perf_counter()
+        for _ in range(LOADER_BATCHES):
+            next(it)
+        return LOADER_BATCHES / (time.perf_counter() - t0)
+    finally:
+        if hasattr(it, "close"):
+            it.close()
+
+
+def phase_data():
+    """Local real data, evaluation and relaxation on the card: PDB files of
+    synthetic backbones through import_pdbs into .npz shards; the
+    distogram loop at the training smoke's width (ModelConfig(), crop 128)
+    on data.source=npz (checkpointed), native over the shards and native
+    synthetic; the native loader's labels against the port's
+    get_bucketed_distance_matrix on the card; the loaders' batches/s;
+    evaluate --checkpoint --realize over 2 batches (finite metrics, the
+    forward's ms); a predicted backbone relaxed through refinement's
+    run_native_relax for 200 iterations (the energy must fall, its ms)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from alphafold2_tpu_torch import evaluate, import_pdbs, refinement
+    from alphafold2_tpu_torch.config import Config, TrainConfig
+    from alphafold2_tpu_torch.data import native
+    from alphafold2_tpu_torch.data.pipeline import NpzShardDataset
+    from alphafold2_tpu_torch.predict import predict
+    from alphafold2_tpu_torch.utils.structure import get_bucketed_distance_matrix
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="af2_data_")
+    try:
+        pdbs, shards = os.path.join(root, "pdbs"), os.path.join(root, "shards")
+        _write_structures(pdbs)
+        require(import_pdbs.main([pdbs, shards]) == 0, "import_pdbs failed")
+        require(len(os.listdir(shards)) == len(DATA_LENGTHS), "import_pdbs lost a structure")
+
+        def config(source, data_dir, ckpt=None):
+            cfg = Config(train=TrainConfig(numerics="off", log_every=1, checkpoint_dir=ckpt))
+            cfg.data.source, cfg.data.data_dir = source, data_dir
+            return cfg
+
+        ckpt = os.path.join(root, "ckpt")
+        npz_cfg = config("npz", shards, ckpt)
+        launches = {"npz": _data_run("data.source=npz", npz_cfg),
+                    "native shards": _data_run("data.source=native (shards)",
+                                               config("native", shards)),
+                    "native synthetic": _data_run("data.source=native (synthetic)",
+                                                  config("native", None))}
+
+        with native.NativeShardLoader(npz_cfg.data, seed=0) as loader:
+            batch = next(loader)
+        dev = torch.device("cuda")
+        labels = get_bucketed_distance_matrix(torch.from_numpy(batch["coords"]).to(dev),
+                                              torch.from_numpy(batch["mask"]).to(dev)).cpu()
+        native_labels = torch.from_numpy(batch["labels"])
+        differ = native_labels != labels
+        worst = int((native_labels - labels)[differ].abs().max()) if differ.any() else 0
+        log(f"[data] the native loader's labels against get_bucketed_distance_matrix on the "
+            f"card: {int(differ.sum())} of {differ.numel()} differ (by at most {worst} bin)")
+        require(float(differ.float().mean()) < 1e-3 and worst <= 1,
+                "the native loader's labels disagree with the card's")
+
+        rates = {"native shards": _loader_rate(lambda: native.NativeShardLoader(npz_cfg.data)),
+                 "native synthetic": _loader_rate(
+                     lambda: native.NativeSyntheticLoader(npz_cfg.data)),
+                 "npz (numpy)": _loader_rate(lambda: iter(NpzShardDataset(npz_cfg.data)))}
+        log(f"[data] loaders at crop 128, MSA 5x64, batch 1 (2 native workers): "
+            + ", ".join(f"{k} {v:.1f} batches/s" for k, v in rates.items()))
+
+        forward_s = []
+        result = evaluate.evaluate(npz_cfg, checkpoint=ckpt, batches=2, realize=True,
+                                   forward_s=forward_s)
+        log(f"[data] evaluate --checkpoint --realize --batches 2: {json.dumps(result)}; "
+            f"forward {', '.join(f'{t * 1e3:.2f}' for t in forward_s)} ms a batch")
+        require(all(np.isfinite(v) for v in result.values()) and "structure_rmsd" in result,
+                "evaluate gave a non-finite metric")
+
+        seq = "".join(np.random.default_rng(12).choice(list("ACDEFGHIKLMNPQRSTVWY"), 128))
+        pred = predict(Config(), seq)
+        src, out = os.path.join(root, "pred.pdb"), os.path.join(root, "relaxed.pdb")
+        from alphafold2_tpu_torch.utils.pdb import save_pdb
+
+        save_pdb(pred.to_pdb(seq), src)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        relaxed = refinement.run_native_relax(src, out, iters=200)
+        torch.cuda.synchronize()
+        relax_ms = (time.perf_counter() - t0) * 1e3
+        e0, e1 = float(relaxed.energy_history[0, 0]), float(relaxed.energy[0])
+        log(f"[data] refinement --native on a predicted 128-residue backbone: energy "
+            f"{e0:.2f} -> {e1:.2f} over 200 iterations in {relax_ms:.1f} ms")
+        require(np.isfinite(e1) and e1 < e0, "relaxation did not lower the energy")
+        log(f"[data] phase: {time.perf_counter() - t_phase:.1f} s")
+        return {"launches": launches, "loader_batches_per_s": rates,
+                "evaluate": result, "forward_ms": [t * 1e3 for t in forward_s],
+                "relax_ms": relax_ms, "energy": (e0, e1)}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        _free()
 
 
 def _module_spans(modules, fn):
@@ -4685,7 +5165,7 @@ def _shape_entry(rows, kernel, label):
 
 
 def kernel_line(rows, serve, train, tied_train, sparse_train, gate, engines, telemetry,
-                templates, plm):
+                templates, plm, compress, data):
     """One entry per kernel. K1 sums one serving trunk layer's K1 calls at
     bucket 128 (two pair axial passes, the MSA column pass, both cross
     attentions; a call's time includes its combine pass where it splits),
@@ -4709,9 +5189,12 @@ def kernel_line(rows, serve, train, tied_train, sparse_train, gate, engines, tel
     ``dropout_launches``: its launches a step under each dropout
     configuration of phase_train_telemetry, ``templates_launches`` and
     ``plm_launches``: its launches a step in each run of phase_templates
-    and phase_plm. K1, K3a and K3b carry in ``shapes`` their numbers on the
-    template-axis launch, K2 and its backward on the PLM grid's tied rows at
-    R*D 8192 (phase_slice_kernels, bf16)."""
+    and phase_plm, ``compress_launches``: its launches a config_3 step
+    (phase_compress), and ``data_launches``: its launches a step on each
+    data source of phase_data. K1, K3a and K3b carry in ``shapes`` their
+    numbers on the template-axis launch (phase_slice_kernels) and on
+    config_3's compressed pair<-MSA pass (phase_compress), K2 and its
+    backward on the PLM grid's tied rows at R*D 8192, bf16."""
     serve_k1 = {"pair axial pass (1536x8, 384x384, d64)": 2,
                 "MSA column pass (512x8, 5x5, d64)": 1,
                 "pair<-MSA cross (4x8, 147456x640, d64)": 1,
@@ -4763,16 +5246,23 @@ def kernel_line(rows, serve, train, tied_train, sparse_train, gate, engines, tel
             for key, phase in (("templates_launches", templates), ("plm_launches", plm)):
                 e[key] = {label: run["launches"].get(e["name"], 0)
                           for label, run in phase["runs"].items()}
-    shapes = {"fused_attention": ("fused_attention", TEMPLATE_AXIS_LABEL),
-              "fused_attention_bwd_dq": ("fused_attention_bwd_dq", TEMPLATE_AXIS_LABEL),
-              "fused_attention_bwd_dkv": ("fused_attention_bwd_dkv", TEMPLATE_AXIS_LABEL),
-              "tied_row_attention": ("tied_row_attention (lse)", PLM_TIED_LABEL),
-              "tied_row_attention_bwd_dq": ("tied_row_attention_bwd_dq", PLM_TIED_LABEL),
-              "tied_row_attention_bwd_dkv": ("tied_row_attention_bwd_dkv", PLM_TIED_LABEL)}
+            e["compress_launches"] = compress["launches"].get(e["name"], 0)
+            e["data_launches"] = {label: n.get(e["name"], 0)
+                                  for label, n in data["launches"].items()}
+    shapes = {"fused_attention": [("fused_attention", TEMPLATE_AXIS_LABEL),
+                                  ("fused_attention", COMPRESS_LABEL),
+                                  ("fused_attention (lse)", COMPRESS_LABEL)],
+              "fused_attention_bwd_dq": [("fused_attention_bwd_dq", TEMPLATE_AXIS_LABEL),
+                                         ("fused_attention_bwd_dq", COMPRESS_LABEL)],
+              "fused_attention_bwd_dkv": [("fused_attention_bwd_dkv", TEMPLATE_AXIS_LABEL),
+                                          ("fused_attention_bwd_dkv", COMPRESS_LABEL)],
+              "tied_row_attention": [("tied_row_attention (lse)", PLM_TIED_LABEL)],
+              "tied_row_attention_bwd_dq": [("tied_row_attention_bwd_dq", PLM_TIED_LABEL)],
+              "tied_row_attention_bwd_dkv": [("tied_row_attention_bwd_dkv", PLM_TIED_LABEL)]}
     for e in entries:
-        if e["name"] in shapes:
-            kernel, label = shapes[e["name"]]
-            e["shapes"] = {label: _shape_entry(rows, kernel, label)}
+        for kernel, label in shapes.get(e["name"], ()):
+            key = label if kernel == e["name"] else f"{label}, {kernel}"
+            e.setdefault("shapes", {})[key] = _shape_entry(rows, kernel, label)
     return {"kernels": entries}
 
 
@@ -4844,13 +5334,17 @@ def main() -> int:
         rows += phase_slice_kernels()
         templates = phase_templates()
         plm = phase_plm()
+        compress_rows, compress = phase_compress()
+        rows += compress_rows
+        data = phase_data()
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
         log("chip_smoke: FAILED")
         return 1
     log(card)
     print(json.dumps(kernel_line(rows, serve, train, tied_train, sparse_train, gate,
-                                 engines, telemetry, templates, plm)), flush=True)
+                                 engines, telemetry, templates, plm, compress, data)),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

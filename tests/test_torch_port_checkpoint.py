@@ -223,7 +223,8 @@ def test_train_end2end_and_its_cli_on_the_cpu(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("change", [
-    ("mesh", "seq_parallel", 2), ("mesh", "data_parallel", 2), ("data", "source", "npz"),
+    ("mesh", "seq_parallel", 2), ("mesh", "data_parallel", 2),
+    ("data", "source", "sidechainnet"),
 ])
 def test_end2end_unported_options_raise(change):
     cfg = _cfg(True)

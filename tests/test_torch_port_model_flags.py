@@ -7,9 +7,11 @@ gives the plain config's results bit for bit. The port refused all four
 with ``NotImplementedError`` in ``predict.build_model``, and with it in
 ``ServeEngine`` and ``train_end2end``; it now runs the plain model, as JAX
 does on one device. The distogram loop takes the three mesh flags (JAX's
-``train`` is bit-equal with and without each, 2 steps on the CPU) and
-still refuses KV compression, which JAX's distogram model does build. The
-reversible engine refuses the three mesh flags, as JAX's does.
+``train`` is bit-equal with and without each, 2 steps on the CPU), and it
+builds KV compression in every layer's pair<-MSA pass, as JAX's distogram
+model does (held against JAX in tests/test_torch_port_compress.py), where
+``predict`` builds none. The reversible engine refuses the three mesh
+flags, as JAX's does.
 """
 
 import dataclasses
@@ -111,8 +113,12 @@ def test_distogram_loop_takes_the_mesh_flags_bit_equal(flag):
 
 
 def test_distogram_loop_still_refuses_kv_compression():
-    with pytest.raises(NotImplementedError, match="KV compression"):
-        loop.build_model(_pre_cfg(cross_attn_compress_ratio=2))
+    # the distogram loop refused KV compression until it was ported: it now
+    # builds it in the pair<-MSA pass only, and predict's model still none
+    cfg = _pre_cfg(cross_attn_compress_ratio=2)
+    names = [n for n, _ in loop.build_model(cfg).named_parameters() if "kv_compress" in n]
+    assert names and all(".pair_from_msa.kv_compress." in n for n in names)
+    assert not any("kv_compress" in n for n, _ in build_model(cfg).named_parameters())
 
 
 @pytest.mark.parametrize("flag", MESH_FLAGS)

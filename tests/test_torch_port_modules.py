@@ -8,6 +8,8 @@ Structure math, MDS (from the JAX start coordinates), the SE(3) refiner,
 featurization, PDB export and the weight converter are held here too.
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,10 +33,12 @@ from alphafold2_tpu_torch.models.se3 import SE3Refiner
 from alphafold2_tpu_torch.models.trunk import TrunkLayer
 from alphafold2_tpu_torch.ops import attention as tattn
 from alphafold2_tpu_torch.train.end2end import End2EndModel
-from alphafold2_tpu_torch.utils import mds as tmds
 from alphafold2_tpu_torch.utils import metrics as tmetrics
 from alphafold2_tpu_torch.utils import pdb as tpdb
 from alphafold2_tpu_torch.utils import structure as tstructure
+
+# the package exports the function ``mds`` under its module's name, as JAX's does
+tmds = importlib.import_module("alphafold2_tpu_torch.utils.mds")
 
 ATOL = 1e-4
 DIM, HEADS, DH = 16, 2, 8

@@ -426,9 +426,8 @@ def test_config_matches_the_jax_config_and_parses_overrides():
 
 
 @pytest.mark.parametrize("change", [
-    ("mesh", "grid_cols", 2), ("data", "source", "npz"), ("data", "source", "sidechainnet"),
+    ("mesh", "grid_cols", 2), ("data", "source", "sidechainnet"),
     ("mesh", "seq_parallel", 2), ("mesh", "grid_rows", 2), ("mesh", "data_parallel", 2),
-    ("model", "cross_attn_compress_ratio", 2), ("data", "source", "native"),
 ])
 def test_unported_options_raise(change):
     cfg = _cpu_cfg()
@@ -436,3 +435,27 @@ def test_unported_options_raise(change):
     setattr(getattr(cfg, section), field, value)
     with pytest.raises(NotImplementedError):
         loop.train(cfg, num_steps=1, device="cpu")
+
+
+@pytest.mark.parametrize("change", [
+    ("data", "source", "npz"), ("model", "cross_attn_compress_ratio", 2),
+    ("data", "source", "native"),
+])
+def test_ported_options_train(change, tmp_path):
+    """The options test_unported_options_raise held before they were
+    ported: one finite, unskipped step each (npz on two shards written
+    here; native on its synthetic stream)."""
+    cfg = _cpu_cfg()
+    section, field, value = change
+    setattr(getattr(cfg, section), field, value)
+    if value == "npz":
+        rng = np.random.default_rng(0)
+        for i, n in enumerate((14, 20)):
+            np.savez(tmp_path / f"c{i}.npz", seq=rng.integers(0, 20, n),
+                     coords=np.cumsum(rng.standard_normal((n, 3)) * 2.2, axis=0))
+        cfg.data.data_dir = str(tmp_path)
+    seen = []
+    state = loop.train(cfg, num_steps=1, device="cpu", callbacks=[
+        lambda i, s, m: seen.append((float(m["loss"]), bool(m["grads_ok"])))])
+    assert state.step == 1 and len(seen) == 1
+    assert np.isfinite(seen[0][0]) and seen[0][1]

@@ -52,7 +52,7 @@ import time
 from pathlib import Path
 from typing import Callable, Optional
 
-from alphafold2_tpu_torch.ops.cuda import build
+from alphafold2_tpu_torch.ops.cuda import build, tied_row
 from alphafold2_tpu_torch.ops.cuda.axial import grad_splits, key_splits, row_width
 
 GATE = "hopper_build"
@@ -87,8 +87,8 @@ class Launch:
     """One kernel launch a case plans: ``symbol`` of kernel source
     ``source`` called with ``args`` (``None`` marks the dtype code)."""
 
-    role: str  # K1, K1c (K1's combine pass), K2, K2a/K2b (its backward), K3a, K3b,
-    # K3m (K3's merge pass), ..., X
+    role: str  # K1, K1c (K1's combine pass), K2, K2a/K2b (its backward; K2g the wide
+    # route's p and ds pass), K3a, K3b, K3m (K3's merge pass), ..., X
     source: str
     symbol: str
     args: tuple
@@ -145,20 +145,34 @@ def _k3(b, h, nq, nk, d):
 def _k2(b, r, h, n, d):
     """K2 with operands TMA can describe: bf16 at head dim 32, 64 or 128
     with R*D up to 512 (at head dim 64) plans the Hopper kernel
-    (tied_row_attention_kernel_sm90), a wider R*D and f32 the older ones."""
-    return Launch("K2", "tied_row_attention", "af2_tied_row_attention_plan",
+    (tied_row_attention_kernel_sm90), a wider R*D at those head dims the
+    wide route (its logits pass, then in bf16 its softmax and P V' passes,
+    tied_row_wide_sm90.cuh), other head dims and f32 the older ones."""
+    main = Launch("K2", "tied_row_attention", "af2_tied_row_attention_plan",
                   (None, b, r, h, n, n, d, 1))
+    if tied_row.wide_plan(b, r, h, n, n, d) is None:
+        return (main,)
+    return (main, *(Launch("K2", "tied_row_attention", "af2_tied_row_attention_wide_pass",
+                           (pass_, None, b, r, h, n, n, d, 1), dtypes=("bfloat16",))
+                    for pass_ in (1, 2)))
 
 
 def _k2_bwd(b, r, h, n, d):
     """K2's backward: dq (K2a) and dk/dv (K2b) at the fused axis F = R*D of
     rows of D, operands TMA can describe: bf16 at head dim 32, 64 or 128
     with R*D up to 448 (at head dim 64) plans the Hopper kernels
-    (tied_dq_kernel_sm90, tied_dkv_kernel_sm90), a wider R*D and f32 the
-    chunked ones."""
-    return tuple(Launch(role, "tied_row_attention_bwd", "af2_tied_row_attention_bwd_plan",
-                        (which, None, b, h, n, n, r * d, d, 1))
+    (tied_dq_kernel_sm90, tied_dkv_kernel_sm90), a wider R*D at those head
+    dims the wide route (its logits pass, then in bf16 p and ds, K2g, and
+    the dq and dk/dv products), other head dims and f32 the chunked
+    ones."""
+    source = "tied_row_attention_bwd"
+    main = tuple(Launch(role, source, f"af2_{source}_plan", (which, None, b, h, n, n, r * d, d, 1))
                  for role, which in (("K2a", 0), ("K2b", 1)))
+    if tied_row.wide_bwd_plan(b, h, n, n, r * d, d) is None:
+        return main
+    return (*main, *(Launch(role, source, f"af2_{source}_wide_pass",
+                            (pass_, None, b, h, n, n, r * d, d, 1), dtypes=("bfloat16",))
+                     for role, pass_ in (("K2g", 1), ("K2a", 2), ("K2b", 3))))
 
 
 def _k4(b, h, n, d, block):
@@ -197,8 +211,8 @@ JAX_CASES = (
     Case("flash_bwd_256", (*_k1(2, 8, 256, 256, 64), *_k3(2, 8, 256, 256, 64))),
     Case("fused_axial_fwd_256", (*_k1(2, 4, 256, 256, 64),)),
     Case("fused_axial_bwd_256", (*_k1(2, 4, 256, 256, 64), *_k3(2, 4, 256, 256, 64))),
-    Case("tied_row_fwd_256", (_k2(1, 8, 4, 256, 64),)),
-    Case("tied_row_bwd_256", (_k2(1, 8, 4, 256, 64), *_k2_bwd(1, 8, 4, 256, 64))),
+    Case("tied_row_fwd_256", (*_k2(1, 8, 4, 256, 64),)),
+    Case("tied_row_bwd_256", (*_k2(1, 8, 4, 256, 64), *_k2_bwd(1, 8, 4, 256, 64))),
 )
 
 # The shapes the port launches on the card (chip_smoke.py's serving,
@@ -210,20 +224,31 @@ PORT_CASES = (
     Case("serve_msa_column", (*_k1(512, 8, 5, 5, 64),)),
     Case("serve_cross_pair_from_msa", (*_k1(4, 8, 147456, 640, 64),)),
     Case("serve_cross_msa_from_pair", (*_k1(4, 8, 640, 147456, 64),)),
-    Case("serve_tied_rows", (_k2(4, 5, 8, 128, 64),)),
+    Case("serve_tied_rows", (*_k2(4, 5, 8, 128, 64),)),
     Case("train_pair_axial_128", (*_k1(128, 8, 128, 128, 64), *_k3(128, 8, 128, 128, 64))),
     Case("train_msa_column", (*_k1(64, 8, 5, 5, 64), *_k3(64, 8, 5, 5, 64))),
     Case("train_msa_row", (*_k1(5, 8, 64, 64, 64), *_k3(5, 8, 64, 64, 64))),
     Case("train_cross_pair_from_msa", (*_k1(1, 8, 16384, 320, 64), *_k3(1, 8, 16384, 320, 64))),
     Case("train_cross_msa_from_pair", (*_k1(1, 8, 320, 16384, 64), *_k3(1, 8, 320, 16384, 64))),
-    Case("train_tied_rows", (_k2(1, 5, 8, 64, 64), *_k2_bwd(1, 5, 8, 64, 64))),
+    Case("train_tied_rows", (*_k2(1, 5, 8, 64, 64), *_k2_bwd(1, 5, 8, 64, 64))),
     Case("sparse_train_pair_128", (_k4(128, 8, 128, 64, 16), *_k5(128, 8, 128, 64, 16))),
     Case("sparse_pair_512", (_k4(512, 8, 512, 64, 16), *_k5(512, 8, 512, 64, 16))),
     # the largest instantiations chip_smoke.py checks: head dim 128 (K5b in
     # f32 plans 222,720 of the 232,448 bytes of shared memory), 20 tied rows
     Case("edge_dense_d128", (*_k1(1, 2, 130, 130, 128), *_k3(1, 2, 130, 130, 128))),
     Case("edge_sparse_block128_d128", (_k4(16, 4, 512, 128, 128), *_k5(16, 4, 512, 128, 128))),
-    Case("edge_tied_rows_1280", (_k2(1, 20, 2, 48, 64),)),
+    Case("edge_tied_rows_1280", (*_k2(1, 20, 2, 48, 64),)),
+    # the wide route's other instantiations: head dims 32 and 128 at 64 and
+    # 128 columns a product block
+    Case("edge_tied_rows_wide_d32", (*_k2(1, 18, 2, 70, 32), *_k2_bwd(1, 18, 2, 70, 32),
+                                     *_k2(4, 18, 8, 128, 32), *_k2_bwd(4, 18, 8, 128, 32))),
+    Case("edge_tied_rows_wide_d128", (*_k2(1, 5, 2, 70, 128), *_k2_bwd(1, 5, 2, 70, 128),
+                                      *_k2(4, 5, 8, 128, 128), *_k2_bwd(4, 5, 8, 128, 128))),
+    # the PLM grid's tied rows (distogram R*D 8192, end to end 12288) and
+    # config_4's (R*D 1024): the wide route forward and backward
+    Case("plm_tied_rows_8192", (*_k2(1, 128, 8, 128, 64), *_k2_bwd(1, 128, 8, 128, 64))),
+    Case("plm_e2e_tied_rows_12288", (*_k2(1, 192, 8, 192, 64), *_k2_bwd(1, 192, 8, 192, 64))),
+    Case("config4_tied_rows_1024", (*_k2(1, 16, 8, 128, 64), *_k2_bwd(1, 16, 8, 128, 64))),
     # a head dim past 128: K1 D-chunked, K3a/K3b through tied_row_attention_bwd.cu
     # as 4 rows of 64
     Case("edge_dense_d256", (*_k1(1, 2, 130, 130, 256), *_k3(1, 2, 130, 130, 256))),

@@ -15,20 +15,28 @@
 //
 // What bounds it on the H100: at the main-path shapes (R*D 320, N 64-128)
 // the problem is small and one block's latency bounds it (its loads and its
-// chain of R*D / 16 products for S). The plan picks one of three kernels by
-// dtype, shape and alignment alone (never by retrying a failed launch):
+// chain of R*D / 16 products for S); at the PLM grid's R*D 8192 the bytes
+// of q, k and v do. The plan picks one of four routes by dtype, shape and
+// alignment alone (never by retrying a failed launch):
 //
 // * bf16 at head dim 32, 64 or 128 with 16-byte aligned operands and R*D
 //   narrow enough for the resident q tile plus two stages (R*D <= 512 at
 //   head dim 64): tied_row_attention_kernel_sm90<D, C>
 //   (tied_row_attention_sm90.cuh): 5-D TMA boxes of all R rows of a token
 //   tile, S computed once per 64-key tile over the whole R*D axis by wgmma,
-//   C = 64 or 128 output columns a block. Every main-path and gate shape
-//   but edge_tied_rows_1280 (R*D 1280) takes it.
-// * any other bf16 problem: attention_kernel_mma<64> (attention_tile.cuh),
-//   D-chunked: the logits of a 64-key tile accumulated over 64-wide feature
-//   chunks staged one at a time, one block per 64-wide output chunk, each
-//   recomputing the logits of its query tile (R*D / 64 times the work).
+//   C = 64 or 128 output columns a block. Every main-path shape takes it.
+// * any wider bf16 problem at those head dims with aligned operands: the
+//   wide route (tied_row_wide_sm90.cuh), three passes: the logits once over
+//   R*D in feature splits (tied_wide_logits_kernel<D, 2>), the splits summed
+//   in a fixed order with the softmax (tied_wide_softmax_kernel, bf16 P and
+//   the lse into the caller's workspace), then P V' by column group
+//   (tied_wide_product_kernel<D, C>). edge_tied_rows_1280, config_4's
+//   R*D 1024 and the PLM grid's R*D 8192 and 12288 take it.
+// * any other bf16 problem (other head dims, unaligned operands):
+//   attention_kernel_mma<64> (attention_tile.cuh), D-chunked: the logits of
+//   a 64-key tile accumulated over 64-wide feature chunks staged one at a
+//   time, one block per 64-wide output chunk, each recomputing the logits
+//   of its query tile (R*D / 64 times the work).
 // * f32: attention_kernel<64> on the CUDA cores, D-chunked likewise, the
 //   exactness path of the small-model checks.
 //
@@ -43,6 +51,7 @@
 
 #include "attention_tile.cuh"
 #include "tied_row_attention_sm90.cuh"
+#include "tied_row_wide_sm90.cuh"
 
 namespace {
 
@@ -58,13 +67,43 @@ cudaError_t dispatch_sm90(const af2::Problem& p, int rows, int stages, cudaStrea
   return af2::sm90::tied::launch_tied<D, C>(p, rows, stages, stream);
 }
 
+namespace wide = af2::sm90::wide;
+
+// The wide route's operands from K2's contiguous problem.
+wide::WideOperands wide_operands(const af2::Problem& p, void* work, long long work_bytes) {
+  wide::WideOperands a{};
+  a.q = p.q;
+  a.k = p.k;
+  a.v = p.v;
+  a.q_mask = p.q_mask;
+  a.kv_mask = p.kv_mask;
+  a.tie_scale = p.tie_scale;
+  a.out = p.o;
+  a.lse_out = p.lse;
+  a.qs = p.qs;
+  a.ks = p.ks;
+  a.vs = p.vs;
+  a.os = p.os;
+  a.batch = p.batch;
+  a.heads = p.heads;
+  a.nq = p.nq;
+  a.nk = p.nk;
+  a.features = p.features;
+  a.row_width = p.fd;
+  a.sm_scale = p.sm_scale;
+  a.work = work;
+  a.work_bytes = work_bytes;
+  return a;
+}
+
 // Launches K2, or with `plan_out` only fills its plan (no pointer is read,
 // and `aligned` stands for the operands' 16-byte alignment, which a launch
 // finds from the pointers).
 int run(int dtype, const void* q, const void* k, const void* v, void* out, float* lse,
         const unsigned char* q_mask, const unsigned char* kv_mask, const float* tie_scale,
         int batch, int rows, int heads, int nq, int nk, int head_dim, float sm_scale,
-        void* stream, Af2LaunchPlan* plan_out = nullptr, int aligned = 0) {
+        void* stream, void* work = nullptr, long long work_bytes = 0,
+        Af2LaunchPlan* plan_out = nullptr, int aligned = 0) {
   af2::Problem p;
   p.q = q;
   p.k = k;
@@ -112,6 +151,21 @@ int run(int dtype, const void* q, const void* k, const void* v, void* out, float
       default: return dispatch_sm90<128, 64>(p, rows, hp.stages, s, plan_out);
     }
   }
+  const wide::WidePlan wp = dtype == 1 && tma && hp.columns == 0
+                               ? wide::plan_wide(false, batch, heads, nq, nk, p.features, head_dim)
+                               : wide::WidePlan{0, 0, 0};
+  if (wp.splits != 0) {
+    if (plan_out != nullptr) {
+      *plan_out = wide::plan_pass(false, 0, wp, batch, heads, nq, nk, p.features, head_dim);
+      return cudaSuccess;
+    }
+    const wide::WideOperands a = wide_operands(p, work, work_bytes);
+    switch (head_dim) {
+      case 32: return wide::launch_forward<32>(a, wp, s);
+      case 64: return wide::launch_forward<64>(a, wp, s);
+      default: return wide::launch_forward<128>(a, wp, s);
+    }
+  }
   if (dtype == 0) return af2::launch_attention<float, kChunk>(p, s, plan_out);
   if (dtype == 1) return af2::launch_attention<__nv_bfloat16, kChunk>(p, s, plan_out);
   return cudaErrorInvalidValue;
@@ -121,15 +175,18 @@ int run(int dtype, const void* q, const void* k, const void* v, void* out, float
 
 // q: (batch, rows, nq, heads, head_dim), k/v: (batch, rows, nk, heads,
 // head_dim), out like q; all contiguous. tie_scale: (batch,) f32 on the
-// device. dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the
-// launch (0 on success).
+// device. dtype: 0 = float32, 1 = bfloat16. work: a 256-byte aligned device
+// buffer of work_bytes, which the wide route needs (at least
+// wide::workspace_bytes of its plan) and the other routes ignore (null, 0).
+// Returns the cudaError_t of the launch (0 on success).
 extern "C" int af2_tied_row_attention(int dtype, const void* q, const void* k, const void* v,
                                       void* out, const unsigned char* q_mask,
                                       const unsigned char* kv_mask, const float* tie_scale,
                                       int batch, int rows, int heads, int nq, int nk,
-                                      int head_dim, float sm_scale, void* stream) {
+                                      int head_dim, float sm_scale, void* work,
+                                      long long work_bytes, void* stream) {
   return run(dtype, q, k, v, out, nullptr, q_mask, kv_mask, tie_scale, batch, rows, heads, nq,
-             nk, head_dim, sm_scale, stream);
+             nk, head_dim, sm_scale, stream, work, work_bytes);
 }
 
 // The training forward: as af2_tied_row_attention, and also writes each
@@ -140,18 +197,53 @@ extern "C" int af2_tied_row_attention_lse(int dtype, const void* q, const void* 
                                           const unsigned char* q_mask,
                                           const unsigned char* kv_mask, const float* tie_scale,
                                           int batch, int rows, int heads, int nq, int nk,
-                                          int head_dim, float sm_scale, void* stream) {
+                                          int head_dim, float sm_scale, void* work,
+                                          long long work_bytes, void* stream) {
   return run(dtype, q, k, v, out, lse, q_mask, kv_mask, tie_scale, batch, rows, heads, nq, nk,
-             head_dim, sm_scale, stream);
+             head_dim, sm_scale, stream, work, work_bytes);
 }
 
-// K2's launch plan at one shape (with or without lse: the same kernel),
+// K2's launch plan at one shape (with or without lse: the same kernels),
 // given whether the operands are 16-byte aligned; touches no device. Names
-// the instantiation a launch at that shape takes. Returns 0, or
-// cudaErrorInvalidValue for a dtype the kernels do not take.
+// the instantiation a launch at that shape takes (the wide route: its first
+// pass, the logits). Returns 0, or cudaErrorInvalidValue for a dtype the
+// kernels do not take.
 extern "C" int af2_tied_row_attention_plan(int dtype, int batch, int rows, int heads, int nq,
                                            int nk, int head_dim, int aligned,
                                            Af2LaunchPlan* plan) {
   return run(dtype, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-             batch, rows, heads, nq, nk, head_dim, 1.f, nullptr, plan, aligned);
+             batch, rows, heads, nq, nk, head_dim, 1.f, nullptr, nullptr, 0, plan, aligned);
+}
+
+// The wide route's plan at one shape, as af2_tied_row_attention_plan
+// (cudaErrorInvalidValue where the shape does not take the wide route):
+// `wide_route` fills the route's numbers, the logits pass's feature splits
+// and the workspace a launch needs; `wide_pass` the plan of pass `pass` (0
+// the logits, 1 the softmax, 2 P V').
+static wide::WidePlan wide_route(int dtype, int batch, int rows, int heads, int nq, int nk,
+                          int head_dim, int aligned) {
+  const bool hopper = dtype == 1 && aligned &&
+                      af2::sm90::tied::plan_shape(batch, rows, heads, nq, head_dim).columns != 0;
+  return dtype == 1 && aligned && !hopper
+             ? wide::plan_wide(false, batch, heads, nq, nk, rows * head_dim, head_dim)
+             : wide::WidePlan{0, 0, 0};
+}
+
+extern "C" int af2_tied_row_attention_wide_route(int dtype, int batch, int rows, int heads,
+                                                 int nq, int nk, int head_dim, int aligned,
+                                                 int* splits, long long* work_bytes) {
+  const wide::WidePlan wp = wide_route(dtype, batch, rows, heads, nq, nk, head_dim, aligned);
+  if (wp.splits == 0) return cudaErrorInvalidValue;
+  *splits = wp.splits;
+  *work_bytes = wide::workspace_bytes(false, wp, batch, heads, nq, nk);
+  return cudaSuccess;
+}
+
+extern "C" int af2_tied_row_attention_wide_pass(int pass, int dtype, int batch, int rows,
+                                                int heads, int nq, int nk, int head_dim,
+                                                int aligned, Af2LaunchPlan* plan) {
+  const wide::WidePlan wp = wide_route(dtype, batch, rows, heads, nq, nk, head_dim, aligned);
+  if (wp.splits == 0 || pass < 0 || pass > 2) return cudaErrorInvalidValue;
+  *plan = wide::plan_pass(false, pass, wp, batch, heads, nq, nk, rows * head_dim, head_dim);
+  return cudaSuccess;
 }

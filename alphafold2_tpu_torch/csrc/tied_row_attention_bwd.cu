@@ -30,9 +30,10 @@
 // N 64, R*D 320) the work is small (about 8 * R*D operations per (query,
 // key) pair against 2 * R*D bytes a row of each operand), so one block's
 // latency is the floor: loading its resident tile pair, then each streamed
-// pair, and the two chains of R*D / 16 products for S and dO'V'^T. The plan
-// picks one of three kernel pairs by dtype, shape and alignment alone
-// (never by retrying a failed launch):
+// pair, and the two chains of R*D / 16 products for S and dO'V'^T; at the
+// PLM grid's R*D 8192 the bytes of the four operands do. The plan picks
+// one of four routes by dtype, shape and alignment alone (never by
+// retrying a failed launch):
 //
 // * bf16 at row width 32, 64 or 128 whose operands TMA can describe and
 //   whose resident tile pair plus one streamed pair fit shared memory
@@ -42,12 +43,20 @@
 //   dO'V'^T are computed once per 64-row tile pair over the whole R*D axis
 //   by wgmma, for each group of C output columns; the streamed tiles
 //   overlap the products through a ring of mbarriers. The tied training
-//   pass and K1's backward at head dim 192 or 256 take them; JAX's gate
-//   shape (R*D 512) does not fit one stage.
+//   pass and K1's backward at head dim 192 or 256 take them.
+// * any wider bf16 problem at those row widths whose operands TMA can
+//   describe: the wide route (tied_row_wide_sm90.cuh): S and dO'V'^T once
+//   over R*D in feature splits (tied_wide_logits_kernel<D, 4>), the splits
+//   summed in a fixed order into bf16 dS, dS^T and P^T
+//   (tied_wide_grad_kernel, in the caller's workspace), then dq, dk and dv
+//   by column group (tied_wide_product_kernel<D, C>). JAX's gate shape
+//   (R*D 512), config_4's R*D 1024 and the PLM grid's R*D 8192 and 12288
+//   take it; af2_tied_row_attention_bwd_grads runs the first two passes
+//   once for dq, dk and dv together.
 // * any other bf16 problem: chunked_dq_kernel_mma / chunked_dkv_kernel_mma,
 //   one block per 64-row tile and 64-wide output chunk, each recomputing S
 //   and dO'V'^T over 64-wide feature chunks staged one at a time by
-//   ordinary loads (F/64 times the work: 8x at R*D 512), on mma.sync.
+//   ordinary loads (F/64 times the work), on mma.sync.
 // * f32: chunked_dq_kernel / chunked_dkv_kernel on the CUDA cores, chunked
 //   likewise, the exactness path of the small-model checks.
 //
@@ -61,6 +70,7 @@
 
 #include "attention_tile.cuh"
 #include "tied_row_attention_bwd_sm90.cuh"
+#include "tied_row_wide_sm90.cuh"
 
 namespace {
 
@@ -714,24 +724,28 @@ cudaError_t dispatch_columns(Which which, const tg::TiedGradOperands& a, tg::Tie
   return dispatch_sm90<D, 64, false>(a, hp.stages, stream, plan_out);
 }
 
+namespace wide = af2::sm90::wide;
+
+// One backward problem as the entries receive it: the chunked kernels'
+// Grad, the Hopper kernels' operands (for `which`) and the wide route's.
+struct Built {
+  Grad g;
+  tg::TiedGradOperands a;
+  wide::WideOperands w;
+};
+
 // strides: 28 element strides, (batch, head, token, row group) of q, k, v,
 // dout, dq, dk and dv in that order (those of an absent output are ignored;
 // the feature stride of each must be 1). features: F, the fused feature
 // axis; row_width: fd, the features of one row group (F itself for plain
-// attention, whose row-group strides are then never used). `info`, when
-// given, receives 1 if the Hopper kernel (tied_dq_kernel_sm90 /
-// tied_dkv_kernel_sm90) ran, else 0. With `plan_out` it only fills the plan
-// (strides may then be null, no pointer is read, and `aligned` stands for
-// whether TMA can describe the operands; a launch finds it from the
-// pointers and strides).
-int run(Which which, int dtype, const void* q, const void* k, const void* v, const void* dout,
-        const float* lse, const float* dsum, void* dq, void* dk, void* dv,
-        const unsigned char* q_mask, const unsigned char* kv_mask, const float* tie_scale,
-        const long long* strides, int batch, int heads, int nq, int nk, int features,
-        int row_width, float sm_scale, int* info, void* stream,
-        Af2LaunchPlan* plan_out = nullptr, int aligned = 0) {
-  if (features < 1 || row_width < 1) return cudaErrorInvalidValue;
-  Grad g;
+// attention, whose row-group strides are then never used).
+Built build(Which which, const void* q, const void* k, const void* v, const void* dout,
+            const float* lse, const float* dsum, void* dq, void* dk, void* dv,
+            const unsigned char* q_mask, const unsigned char* kv_mask, const float* tie_scale,
+            const long long* strides, int batch, int heads, int nq, int nk, int features,
+            int row_width, float sm_scale, void* work, long long work_bytes) {
+  Built r;
+  Grad& g = r.g;
   g.q = q;
   g.k = k;
   g.v = v;
@@ -759,9 +773,8 @@ int run(Which which, int dtype, const void* q, const void* k, const void* v, con
   g.nk = nk;
   g.chunks = (features + kChunk - 1) / kChunk;
   g.sm_scale = sm_scale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool dkv = which == Which::kDkv;
-  tg::TiedGradOperands a;
+  tg::TiedGradOperands& a = r.a;
   a.q = q;
   a.k = k;
   a.v = v;
@@ -786,20 +799,102 @@ int run(Which which, int dtype, const void* q, const void* k, const void* v, con
   a.features = features;
   a.row_width = row_width;
   a.sm_scale = sm_scale;
-  const bool tma = plan_out != nullptr ? aligned != 0 : tg::takes(a, dkv);
+  wide::WideOperands& w = r.w;
+  w = wide::WideOperands{};
+  w.q = q;
+  w.k = k;
+  w.v = v;
+  w.dout = dout;
+  w.lse = lse;
+  w.dsum = dsum;
+  w.q_mask = q_mask;
+  w.kv_mask = kv_mask;
+  w.tie_scale = tie_scale;
+  w.dq = dq;
+  w.dk = dk;
+  w.dv = dv;
+  w.qs = g.qs;
+  w.ks = g.ks;
+  w.vs = g.vs;
+  w.dos = g.dos;
+  w.dqs = g.dqs;
+  w.dks = g.dks;
+  w.dvs = g.dvs;
+  w.batch = batch;
+  w.heads = heads;
+  w.nq = nq;
+  w.nk = nk;
+  w.features = features;
+  w.row_width = row_width;
+  w.sm_scale = sm_scale;
+  w.work = work;
+  w.work_bytes = work_bytes;
+  return r;
+}
+
+// The wide route's plan where a bf16 problem whose operands TMA can
+// describe is too wide for the resident kernels, else splits 0.
+wide::WidePlan wide_plan(int dtype, bool tma, int batch, int heads, int nq, int nk,
+                         int features, int row_width) {
+  if (dtype != 1 || !tma) return {0, 0, 0};
+  if (tg::plan_shape(false, batch, heads, nq, nk, features, row_width).columns != 0)
+    return {0, 0, 0};
+  return wide::plan_wide(true, batch, heads, nq, nk, features, row_width);
+}
+
+cudaError_t launch_wide(const wide::WideOperands& w, const wide::WidePlan& wp, bool want_dq,
+                        bool want_dkv, cudaStream_t stream) {
+  switch (w.row_width) {
+    case 32: return wide::launch_backward<32>(w, wp, want_dq, want_dkv, stream);
+    case 64: return wide::launch_backward<64>(w, wp, want_dq, want_dkv, stream);
+    default: return wide::launch_backward<128>(w, wp, want_dq, want_dkv, stream);
+  }
+}
+
+// `info`, when given, receives {1 if a Hopper kernel (tied_dq_kernel_sm90 /
+// tied_dkv_kernel_sm90 or the wide route) ran, else 0; 1 if the wide route
+// ran}. With `plan_out` it only fills the plan (strides may then be null,
+// no pointer is read, and `aligned` stands for whether TMA can describe the
+// operands; a launch finds it from the pointers and strides).
+int run(Which which, int dtype, const void* q, const void* k, const void* v, const void* dout,
+        const float* lse, const float* dsum, void* dq, void* dk, void* dv,
+        const unsigned char* q_mask, const unsigned char* kv_mask, const float* tie_scale,
+        const long long* strides, int batch, int heads, int nq, int nk, int features,
+        int row_width, float sm_scale, int* info, void* stream, void* work = nullptr,
+        long long work_bytes = 0, Af2LaunchPlan* plan_out = nullptr, int aligned = 0) {
+  if (features < 1 || row_width < 1) return cudaErrorInvalidValue;
+  const Built r = build(which, q, k, v, dout, lse, dsum, dq, dk, dv, q_mask, kv_mask, tie_scale,
+                        strides, batch, heads, nq, nk, features, row_width, sm_scale, work,
+                        work_bytes);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool dkv = which == Which::kDkv;
+  const bool tma = plan_out != nullptr ? aligned != 0 : tg::takes(r.a, dkv);
   const tg::TiedGradPlan hp =
       dtype == 1 && tma ? tg::plan_shape(dkv, batch, heads, nq, nk, features, row_width)
                         : tg::TiedGradPlan{0, 0};
-  if (info != nullptr) info[0] = hp.columns != 0 ? 1 : 0;
+  const wide::WidePlan wp =
+      hp.columns == 0 ? wide_plan(dtype, tma, batch, heads, nq, nk, features, row_width)
+                      : wide::WidePlan{0, 0, 0};
+  if (info != nullptr) {
+    info[0] = hp.columns != 0 || wp.splits != 0 ? 1 : 0;
+    info[1] = wp.splits != 0 ? 1 : 0;
+  }
   if (hp.columns != 0) {
     switch (row_width) {
-      case 32: return dispatch_columns<32>(which, a, hp, s, plan_out);
-      case 64: return dispatch_columns<64>(which, a, hp, s, plan_out);
-      default: return dispatch_columns<128>(which, a, hp, s, plan_out);
+      case 32: return dispatch_columns<32>(which, r.a, hp, s, plan_out);
+      case 64: return dispatch_columns<64>(which, r.a, hp, s, plan_out);
+      default: return dispatch_columns<128>(which, r.a, hp, s, plan_out);
     }
   }
-  if (dtype == 0) return launch<float>(which, g, s, plan_out);
-  if (dtype == 1) return launch<__nv_bfloat16>(which, g, s, plan_out);
+  if (wp.splits != 0) {
+    if (plan_out != nullptr) {
+      *plan_out = wide::plan_pass(true, 0, wp, batch, heads, nq, nk, features, row_width);
+      return cudaSuccess;
+    }
+    return launch_wide(r.w, wp, !dkv, dkv, s);
+  }
+  if (dtype == 0) return launch<float>(which, r.g, s, plan_out);
+  if (dtype == 1) return launch<__nv_bfloat16>(which, r.g, s, plan_out);
   return cudaErrorInvalidValue;
 }
 
@@ -807,8 +902,10 @@ int run(Which which, int dtype, const void* q, const void* k, const void* v, con
 
 // dq (like q) from the forward's lse and dsum, both contiguous (batch,
 // heads, nq) f32; tie_scale (batch,) f32 on the device, or null. dtype: 0 =
-// float32, 1 = bfloat16. info: as `run`, or null. Returns the cudaError_t
-// of the launch (0 on success).
+// float32, 1 = bfloat16. info: 2 ints as `run`, or null. work: a 256-byte
+// aligned device buffer of work_bytes, which the wide route needs (at
+// least wide::workspace_bytes of its plan) and the other routes ignore
+// (null, 0). Returns the cudaError_t of the launch (0 on success).
 extern "C" int af2_tied_row_attention_bwd_dq(int dtype, const void* q, const void* k,
                                              const void* v, const void* dout, const float* lse,
                                              const float* dsum, void* dq,
@@ -816,11 +913,11 @@ extern "C" int af2_tied_row_attention_bwd_dq(int dtype, const void* q, const voi
                                              const unsigned char* kv_mask,
                                              const float* tie_scale, const long long* strides,
                                              int batch, int heads, int nq, int nk, int features,
-                                             int row_width, float sm_scale, int* info,
-                                             void* stream) {
+                                             int row_width, float sm_scale, void* work,
+                                             long long work_bytes, int* info, void* stream) {
   return run(Which::kDq, dtype, q, k, v, dout, lse, dsum, dq, nullptr, nullptr, q_mask, kv_mask,
              tie_scale, strides, batch, heads, nq, nk, features, row_width, sm_scale, info,
-             stream);
+             stream, work, work_bytes);
 }
 
 // dk and dv (like k) instead of dq.
@@ -831,11 +928,57 @@ extern "C" int af2_tied_row_attention_bwd_dkv(int dtype, const void* q, const vo
                                               const unsigned char* kv_mask,
                                               const float* tie_scale, const long long* strides,
                                               int batch, int heads, int nq, int nk, int features,
-                                              int row_width, float sm_scale, int* info,
-                                              void* stream) {
+                                              int row_width, float sm_scale, void* work,
+                                              long long work_bytes, int* info, void* stream) {
   return run(Which::kDkv, dtype, q, k, v, dout, lse, dsum, nullptr, dk, dv, q_mask, kv_mask,
              tie_scale, strides, batch, heads, nq, nk, features, row_width, sm_scale, info,
-             stream);
+             stream, work, work_bytes);
+}
+
+// dq, dk and dv together, as af2_tied_row_attention_bwd_dq and _dkv give
+// them: on the wide route the logits and p, ds passes run once for the
+// three products; on every other route the two entries' launches in turn.
+// info: 3 ints, {dq on a Hopper kernel, dk/dv on a Hopper kernel, the wide
+// route ran}, or null.
+extern "C" int af2_tied_row_attention_bwd_grads(int dtype, const void* q, const void* k,
+                                                const void* v, const void* dout,
+                                                const float* lse, const float* dsum, void* dq,
+                                                void* dk, void* dv,
+                                                const unsigned char* q_mask,
+                                                const unsigned char* kv_mask,
+                                                const float* tie_scale, const long long* strides,
+                                                int batch, int heads, int nq, int nk,
+                                                int features, int row_width, float sm_scale,
+                                                void* work, long long work_bytes, int* info,
+                                                void* stream) {
+  if (features < 1 || row_width < 1) return cudaErrorInvalidValue;
+  const Built r = build(Which::kDq, q, k, v, dout, lse, dsum, dq, dk, dv, q_mask, kv_mask,
+                        tie_scale, strides, batch, heads, nq, nk, features, row_width, sm_scale,
+                        work, work_bytes);
+  tg::TiedGradOperands both = r.a;  // dk/dv's outputs too: TMA must describe all three
+  both.out0 = dk;
+  both.out1 = dv;
+  both.o0s = r.g.dks;
+  const bool tma = tg::takes(r.a, false) && tg::takes(both, true);
+  const wide::WidePlan wp = wide_plan(dtype, tma, batch, heads, nq, nk, features, row_width);
+  if (wp.splits != 0) {
+    if (info != nullptr) info[0] = info[1] = info[2] = 1;
+    return launch_wide(r.w, wp, true, true, static_cast<cudaStream_t>(stream));
+  }
+  int parts[2][2] = {{0, 0}, {0, 0}};
+  int err = run(Which::kDq, dtype, q, k, v, dout, lse, dsum, dq, nullptr, nullptr, q_mask,
+                kv_mask, tie_scale, strides, batch, heads, nq, nk, features, row_width, sm_scale,
+                parts[0], stream);
+  if (err == cudaSuccess)
+    err = run(Which::kDkv, dtype, q, k, v, dout, lse, dsum, nullptr, dk, dv, q_mask, kv_mask,
+              tie_scale, strides, batch, heads, nq, nk, features, row_width, sm_scale, parts[1],
+              stream);
+  if (info != nullptr) {
+    info[0] = parts[0][0];
+    info[1] = parts[1][0];
+    info[2] = 0;
+  }
+  return err;
 }
 
 // The launch plan of the dq (which = 0) or dk/dv (which = 1) kernel at one
@@ -849,5 +992,34 @@ extern "C" int af2_tied_row_attention_bwd_plan(int which, int dtype, int batch, 
   if (which != 0 && which != 1) return cudaErrorInvalidValue;
   return run(which == 0 ? Which::kDq : Which::kDkv, dtype, nullptr, nullptr, nullptr, nullptr,
              nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-             batch, heads, nq, nk, features, row_width, 1.f, nullptr, nullptr, plan, aligned);
+             batch, heads, nq, nk, features, row_width, 1.f, nullptr, nullptr, nullptr, 0, plan,
+             aligned);
+}
+
+// The backward's wide route at one shape, given whether TMA can describe
+// the operands (cudaErrorInvalidValue where the shape does not take it):
+// `wide_route` fills the logits pass's feature splits and the workspace a
+// launch needs; `wide_pass` the plan of pass `pass` (0 the logits, S and
+// dP; 1 p and ds; 2 the dq product; 3 a dk or dv product, launched twice).
+extern "C" int af2_tied_row_attention_bwd_wide_route(int dtype, int batch, int heads, int nq,
+                                                     int nk, int features, int row_width,
+                                                     int aligned, int* splits,
+                                                     long long* work_bytes) {
+  const wide::WidePlan wp =
+      wide_plan(dtype, aligned != 0, batch, heads, nq, nk, features, row_width);
+  if (wp.splits == 0) return cudaErrorInvalidValue;
+  *splits = wp.splits;
+  *work_bytes = wide::workspace_bytes(true, wp, batch, heads, nq, nk);
+  return cudaSuccess;
+}
+
+extern "C" int af2_tied_row_attention_bwd_wide_pass(int pass, int dtype, int batch, int heads,
+                                                    int nq, int nk, int features,
+                                                    int row_width, int aligned,
+                                                    Af2LaunchPlan* plan) {
+  const wide::WidePlan wp =
+      wide_plan(dtype, aligned != 0, batch, heads, nq, nk, features, row_width);
+  if (wp.splits == 0 || pass < 0 || pass > 3) return cudaErrorInvalidValue;
+  *plan = wide::plan_pass(true, pass, wp, batch, heads, nq, nk, features, row_width);
+  return cudaSuccess;
 }

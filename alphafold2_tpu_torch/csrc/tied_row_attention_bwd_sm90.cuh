@@ -3,9 +3,10 @@
 // (B, R, N, H, D) boxes, with wgmma. Included by tied_row_attention_bwd.cu,
 // whose plan routes here every bf16 problem at row width 32, 64 or 128
 // whose operands TMA can describe and whose resident tile pair and one
-// streamed pair fit shared memory (R*D <= 448 at row width 64); every other
-// problem keeps chunked_dq_kernel_mma / chunked_dkv_kernel_mma (bf16) and
-// chunked_dq_kernel / chunked_dkv_kernel (f32).
+// streamed pair fit shared memory (R*D <= 448 at row width 64); wider bf16
+// problems at those row widths take the wide route (tied_row_wide_sm90.cuh),
+// every other problem chunked_dq_kernel_mma / chunked_dkv_kernel_mma (bf16)
+// and chunked_dq_kernel / chunked_dkv_kernel (f32).
 //
 // Replaces, on the tied-row route, alphafold2_tpu/ops/pallas/axial.py
 // `_run_dq` (:268, pallas_call :275) and `_run_dkv` (:306, pallas_call :313)
@@ -63,7 +64,7 @@
 // * Shared memory sets the reach: the resident pair and one streamed pair
 //   take 4 * 64 * R*D bytes (160 KB at R*D 320, one block an SM); two
 //   stages fit up to R*D 288 (head dim 256: two). R*D 512 (JAX's gate
-//   shape) does not fit one stage and keeps the chunked kernels.
+//   shape) does not fit one stage and takes the wide route.
 // * No atomics: each output element is summed by one thread of one block,
 //   in key (query) order, so two runs give the same bits. A block whose own
 //   64 rows are all dead writes zeros and reads nothing. Every mbarrier wait

@@ -3,9 +3,10 @@
 // from TMA-fed (B, R, N, H, D) boxes, with wgmma. Included by
 // tied_row_attention.cu, whose plan routes here every bf16 problem at head
 // dim 32, 64 or 128 with 16-byte aligned operands and R*D narrow enough for
-// the resident q tile and two stages (R*D <= 512 at head dim 64); every
-// other bf16 problem keeps attention_kernel_mma (attention_tile.cuh) and f32
-// keeps attention_kernel.
+// the resident q tile and two stages (R*D <= 512 at head dim 64); wider
+// bf16 problems at those head dims take the wide route
+// (tied_row_wide_sm90.cuh), the rest attention_kernel_mma
+// (attention_tile.cuh), and f32 keeps attention_kernel.
 //
 // Replaces the TPU path alphafold2_tpu/ops/pallas/tied_row.py
 // `tied_row_attention` (:53), which folds the rows into head dim R*D and

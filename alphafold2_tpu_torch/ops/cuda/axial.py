@@ -507,27 +507,38 @@ def _check_grad_operands(q, k, v, dout, lse, dsum):
 
 
 def launch_tied_backward(which, outs, q, k, v, dout, lse, dsum, masks, tie, strides, dims,
-                         sm_scale) -> int:
+                         sm_scale) -> tuple:
     """The backward kernels of ``csrc/tied_row_attention_bwd.cu`` on CUDA
-    tensors: ``which`` "dq" writes ``outs`` (dq,), "dkv" writes (dk, dv).
-    ``strides``: 28 element strides, (batch, head, token, row group) of q,
-    k, v, dout and the (dq, dk, dv) slots; ``dims``: (batch, heads, nq, nk,
-    features, row width); ``tie``: a (B,) f32 tensor or None; ``masks``:
-    contiguous (q_mask, kv_mask), each or None. The C plan picks the Hopper
-    kernels (bf16 at row width 32, 64 or 128, operands TMA can describe, the
-    fused axis narrow enough) or the chunked ones. Returns 1 if the Hopper
-    kernel ran, else 0."""
+    tensors: ``which`` "dq" writes ``outs`` (dq,), "dkv" writes (dk, dv),
+    "grads" writes (dq, dk, dv) (the wide route then computes S, dP, p and
+    ds once for the three). ``strides``: 28 element strides, (batch, head,
+    token, row group) of q, k, v, dout and the (dq, dk, dv) slots;
+    ``dims``: (batch, heads, nq, nk, features, row width); ``tie``: a (B,)
+    f32 tensor or None; ``masks``: contiguous (q_mask, kv_mask), each or
+    None. The C plan picks the resident Hopper kernels (bf16 at row width
+    32, 64 or 128, operands TMA can describe, the fused axis narrow enough),
+    the wide route (the same, wider) or the chunked ones; where the wide
+    route's plan (``tied_row.wide_bwd_plan``) takes the shape, its workspace
+    is allocated here. Returns the entry's info: (a Hopper kernel ran, the
+    wide route ran), for "grads" (dq on a Hopper kernel, dk/dv on one, the
+    wide route ran)."""
+    from alphafold2_tpu_torch.ops.cuda.tied_row import wide_bwd_plan  # it imports this module
+
+    plan = wide_bwd_plan(*dims) if q.dtype == torch.bfloat16 else None
+    work = (torch.empty(plan["workspace"], dtype=torch.uint8, device=q.device)
+            if plan is not None else None)
     symbol = f"af2_tied_row_attention_bwd_{which}"
     lib = build.library("tied_row_attention_bwd")
-    info = (ctypes.c_int * 1)()
+    info = (ctypes.c_int * (3 if which == "grads" else 2))()
     with torch.cuda.device(q.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         code = getattr(lib, symbol)(
             _DTYPES[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(lse), _ptr(dsum),
             *(_ptr(o) for o in outs), _ptr(masks[0]), _ptr(masks[1]), _ptr(tie),
-            (ctypes.c_longlong * 28)(*strides), *dims, float(sm_scale), info, stream)
+            (ctypes.c_longlong * 28)(*strides), *dims, float(sm_scale), _ptr(work),
+            work.numel() if work is not None else 0, info, stream)
     build.check(lib, code, symbol)
-    return info[0]
+    return tuple(info)
 
 
 def row_width(d: int) -> int:
@@ -565,7 +576,7 @@ def _launch_backward(which, outs, slots, q, k, v, dout, lse, dsum, q_mask, kv_ma
         strides = [x for t in (q, k, v, dout, *slots)
                    for x in (*t.stride()[:3], row if row < d else 0)]
         return launch_tied_backward(which, outs, q, k, v, dout, lse, dsum, masks, None,
-                                    strides, (b, h, nq, nk, d, row), sm_scale)
+                                    strides, (b, h, nq, nk, d, row), sm_scale)[0]
     lib = build.library("fused_attention_bwd")
     # only the Hopper kernels (bf16, GRAD_SM90_HEAD_DIMS) split their loop
     hopper = q.dtype == torch.bfloat16 and d in GRAD_SM90_HEAD_DIMS

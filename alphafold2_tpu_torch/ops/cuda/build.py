@@ -53,6 +53,7 @@ class LaunchPlan(ctypes.Structure):
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _PLAN = ctypes.POINTER(LaunchPlan)
 
 # C entry points of each kernel source: {source: {symbol: argtypes}}
@@ -88,22 +89,36 @@ SIGNATURES = {
     },
     "tied_row_attention": {
         # dtype, q, k, v, out, q_mask, kv_mask, tie_scale, batch, rows, heads,
-        # nq, nk, head_dim, sm_scale, stream
-        "af2_tied_row_attention": [_I] + [_P] * 7 + [_I] * 6 + [_F, _P],
+        # nq, nk, head_dim, sm_scale, workspace, its bytes, stream
+        "af2_tied_row_attention": [_I] + [_P] * 7 + [_I] * 6 + [_F, _P, _L, _P],
         # the training forward: one more pointer after out, the (B, H, Nq) lse
-        "af2_tied_row_attention_lse": [_I] + [_P] * 8 + [_I] * 6 + [_F, _P],
+        "af2_tied_row_attention_lse": [_I] + [_P] * 8 + [_I] * 6 + [_F, _P, _L, _P],
         # dtype, batch, rows, heads, nq, nk, head_dim, aligned, plan
         "af2_tied_row_attention_plan": [_I] * 8 + [_PLAN],
+        # the wide route: dtype, batch, rows, heads, nq, nk, head_dim, aligned,
+        # splits (1 int out), workspace bytes (1 long long out); the plan of
+        # one of its passes: pass, dtype, batch, rows, heads, nq, nk,
+        # head_dim, aligned, plan
+        "af2_tied_row_attention_wide_route": [_I] * 8 + [_P, _P],
+        "af2_tied_row_attention_wide_pass": [_I] * 9 + [_PLAN],
     },
-    # dtype, q, k, v, dout, lse, dsum, outputs (dq | dk, dv), q_mask, kv_mask,
-    # tie_scale, strides (28), batch, heads, nq, nk, features, row width,
-    # sm_scale, info (1 int out: the Hopper kernel ran), stream
+    # dtype, q, k, v, dout, lse, dsum, outputs (dq | dk, dv | dq, dk, dv),
+    # q_mask, kv_mask, tie_scale, strides (28), batch, heads, nq, nk,
+    # features, row width, sm_scale, workspace, its bytes, info (ints out: 2
+    # (a Hopper kernel ran, the wide route ran), 3 for the joint entry),
+    # stream
     "tied_row_attention_bwd": {
-        "af2_tied_row_attention_bwd_dq": [_I] + [_P] * 11 + [_I] * 6 + [_F, _P, _P],
-        "af2_tied_row_attention_bwd_dkv": [_I] + [_P] * 12 + [_I] * 6 + [_F, _P, _P],
+        "af2_tied_row_attention_bwd_dq": [_I] + [_P] * 11 + [_I] * 6 + [_F, _P, _L, _P, _P],
+        "af2_tied_row_attention_bwd_dkv": [_I] + [_P] * 12 + [_I] * 6 + [_F, _P, _L, _P, _P],
+        "af2_tied_row_attention_bwd_grads": [_I] + [_P] * 13 + [_I] * 6 + [_F, _P, _L, _P, _P],
         # which (0 dq, 1 dkv), dtype, batch, heads, nq, nk, features, row
         # width, aligned, plan
         "af2_tied_row_attention_bwd_plan": [_I] * 9 + [_PLAN],
+        # the wide route: dtype, batch, heads, nq, nk, features, row width,
+        # aligned, splits (1 int out), workspace bytes (1 long long out);
+        # the plan of one of its passes: pass, then those but the outs, plan
+        "af2_tied_row_attention_bwd_wide_route": [_I] * 8 + [_P, _P],
+        "af2_tied_row_attention_bwd_wide_pass": [_I] * 9 + [_PLAN],
     },
     # dtype, q, k, v, out, lse (or null), kv_mask, idx, cnt, max_active, the
     # union lists (blocks, bits, counts, max_stages), strides, batch, heads,

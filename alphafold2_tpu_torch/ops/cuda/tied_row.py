@@ -21,9 +21,14 @@ at head dim 32, 64 or 128 with R*D up to 448 (at head dim 64) those are the
 Hopper kernels of ``csrc/tied_row_attention_bwd_sm90.cuh``, which compute S
 and dO'V'^T once per 64-row tile pair over the whole R*D axis for each
 group of 64 or 128 output columns (:func:`hopper_bwd_plan`;
-:func:`hopper_bwd_walk_reference` is the plain version of that walk). All
-read the (B, R, N, H, D) layout in place (no fold copy, unlike the TPU
-path). Plain PyTorch versions:
+:func:`hopper_bwd_walk_reference` is the plain version of that walk). Every wider bf16 problem at those head dims takes
+the wide route of ``csrc/tied_row_wide_sm90.cuh``: the logits once over
+R*D in feature splits into an f32 workspace, the splits summed in a fixed
+order with the softmax (forward) or into p and ds (backward), then the
+products by column group (:func:`wide_plan`, :func:`wide_bwd_plan`;
+:func:`wide_walk_reference` and :func:`wide_bwd_walk_reference` are the
+plain versions of those walks). All read the (B, R, N, H, D) layout in
+place (no fold copy, unlike the TPU path). Plain PyTorch versions:
 :func:`tied_row_attention_reference`, :func:`tied_row_attention_lse_reference`,
 :func:`tied_row_attention_dq_reference` and
 :func:`tied_row_attention_dkv_reference`; the wrappers run them only for
@@ -31,7 +36,8 @@ CPU tensors.
 
 :func:`tied_row_attention` is differentiable: with grad enabled and an
 input that requires it, it runs :class:`TiedRowAttention` (K2 with lse,
-then the two backward kernels; on the CPU the plain versions of the same
+then the backward's dq, dk and dv in one call,
+:func:`tied_row_attention_grads`; on the CPU the plain versions of the same
 math). The tie scale is data (it counts the voting rows) and carries no
 gradient; it scales the f32 logits, so dq and dk both carry it.
 
@@ -157,6 +163,127 @@ def hopper_bwd_plan(which: str, b: int, h: int, nq: int, nk: int, features: int,
             "dynamic_smem": hopper_bwd_smem_bytes(features, stages)}
 
 
+# The wide route's plan (csrc/tied_row_wide_sm90.cuh plan_wide, plan_pass
+# and workspace_bytes), mirrored: the logits over R*D in feature splits of
+# WIDE_STAGE_FEATURES-feature stages (a ring of WIDE_LOGIT_STAGES), the
+# split count that fills the logits grid's waves best; the reduction; the
+# products at C = 64 or 128 columns a block (a ring of WIDE_PRODUCT_STAGES).
+WIDE_KERNELS = {"logits": "tied_wide_logits_kernel", "softmax": "tied_wide_softmax_kernel",
+                "grad": "tied_wide_grad_kernel", "product": "tied_wide_product_kernel"}
+WIDE_STAGE_FEATURES = 128
+WIDE_LOGIT_STAGES = 3
+WIDE_PRODUCT_STAGES = 4
+WIDE_MAX_SPLITS = 8
+WIDE_WORKSPACE_BUDGET = 64 << 20  # bytes of f32 partials with more than one split
+WIDE_REDUCE_THREADS = 256
+WIDE_CONTROL_BYTES = 128
+
+
+def wide_logits_smem(ops: int) -> int:
+    """A logits block's dynamic shared memory: WIDE_LOGIT_STAGES stages of
+    ``ops`` operands (2 forward, 4 backward), each 64 tokens x
+    WIDE_STAGE_FEATURES bf16, after up to 1 KB of alignment."""
+    return 1024 + WIDE_LOGIT_STAGES * ops * TILE * WIDE_STAGE_FEATURES * 2 + WIDE_CONTROL_BYTES
+
+
+def wide_product_smem(columns: int) -> int:
+    """A product block's dynamic shared memory: WIDE_PRODUCT_STAGES stages
+    of 64 tokens x ``columns`` bf16, after up to 1 KB of alignment."""
+    return 1024 + WIDE_PRODUCT_STAGES * TILE * columns * 2 + WIDE_CONTROL_BYTES
+
+
+def _round64(n: int) -> int:
+    return -(-n // TILE) * TILE
+
+
+def _wide_columns(b: int, h: int, m: int, features: int) -> int:
+    """A product's columns a block: 128 where the grid then fills a wave of
+    SMS, else 64."""
+    return 128 if features >= 128 and b * h * -(-m // TILE) * -(-features // 128) >= SMS else 64
+
+
+def _product_pass(b, h, m, features, row_width) -> dict:
+    columns = _wide_columns(b, h, m, features)
+    return {"kernel": f"{WIDE_KERNELS['product']}<{row_width},{columns}>", "columns": columns,
+            "blocks": b * h * -(-m // TILE) * -(-features // columns), "threads": THREADS,
+            "dynamic_smem": wide_product_smem(columns)}
+
+
+@functools.lru_cache(maxsize=None)
+def _wide(bwd: bool, b: int, h: int, nq: int, nk: int, features: int,
+          row_width: int) -> Optional[dict]:
+    """The wide route's plan (see :func:`wide_plan`), cached: a wrapper
+    asks for it on every call, and callers only read it."""
+    if (row_width not in HOPPER_HEAD_DIMS or features < row_width or features % row_width
+            or nq < 1 or nk < 1):
+        return None
+    rows, per_stage = features // row_width, WIDE_STAGE_FEATURES // row_width
+    if rows < per_stage:
+        return None
+    stages = -(-rows // per_stage)
+    ops = 4 if bwd else 2
+    tiles = b * h * -(-nq // TILE) * -(-nk // TILE)
+    wave = SMS * (SMEM_PER_SM // (wide_logits_smem(ops) + 1024))
+    plane = b * h * _round64(nq) * _round64(nk)
+    best = None
+    for s in range(1, min(WIDE_MAX_SPLITS, stages) + 1):
+        if s > 1 and s * 4 * (ops // 2) * plane > WIDE_WORKSPACE_BUDGET:
+            break
+        per = -(-stages // s)
+        splits = -(-stages // per)
+        cost = -(-tiles * splits // wave) * per
+        if best is None or cost < best[0]:
+            best = (cost, splits, per)
+    _, splits, per = best
+    align = lambda n: -(-n // 256) * 256
+    logits = {"kernel": f"{WIDE_KERNELS['logits']}<{row_width},{ops}>",
+              "blocks": tiles * splits, "threads": THREADS,
+              "dynamic_smem": wide_logits_smem(ops)}
+    if bwd:
+        reduce = {"kernel": WIDE_KERNELS["grad"],
+                  "blocks": b * h * (_round64(nq) // TILE) * (_round64(nk) // TILE)}
+        products = [_product_pass(b, h, nq, features, row_width),
+                    _product_pass(b, h, nk, features, row_width)]
+    else:
+        reduce = {"kernel": WIDE_KERNELS["softmax"],
+                  "blocks": b * h * _round64(nq) // (WIDE_REDUCE_THREADS // 32)}
+        products = [_product_pass(b, h, nq, features, row_width)]
+    reduce.update(threads=WIDE_REDUCE_THREADS, dynamic_smem=0)
+    return {**logits, "splits": splits, "stages_per_split": per, "stages": stages,
+            "columns": products[0]["columns"], "passes": [logits, reduce, *products],
+            "workspace": align(4 * plane * splits * (2 if bwd else 1))
+            + (3 if bwd else 1) * align(2 * plane)}
+
+
+def wide_plan(b: int, r: int, h: int, nq: int, nk: int, d: int) -> Optional[dict]:
+    """K2's wide route at a bf16 shape with 16-byte aligned operands, or
+    None where another kernel takes it (head dim outside HOPPER_HEAD_DIMS,
+    or a shape :func:`hopper_plan` takes). A pure function of the shape:
+    ``splits`` feature splits of ``stages_per_split`` stages each (the count
+    that fills the logits grid's waves best, at most WIDE_MAX_SPLITS, the
+    partials within WIDE_WORKSPACE_BUDGET; the fewest among equals);
+    ``passes`` the launches in order (logits, softmax, P V' at ``columns``
+    columns a block); ``workspace`` the bytes the wrapper allocates. The
+    top-level kernel, blocks, threads and shared memory are the logits
+    pass's, which the C plan names for the route."""
+    if d not in HOPPER_HEAD_DIMS or hopper_plan(b, r, h, nq, d) is not None:
+        return None
+    return _wide(False, b, h, nq, nk, r * d, d)
+
+
+def wide_bwd_plan(b: int, h: int, nq: int, nk: int, features: int,
+                  row_width: int) -> Optional[dict]:
+    """K2's backward's wide route at a bf16 shape whose operands TMA can
+    describe, or None where another kernel takes it (row width outside
+    HOPPER_HEAD_DIMS, a fused axis that is not whole rows, or a shape
+    :func:`hopper_bwd_plan` takes). As :func:`wide_plan`, with ``passes``
+    (logits with dP, p and ds, the dq product, a dk or dv product) and
+    ``columns`` the dq product's."""
+    if hopper_bwd_plan("dq", b, h, nq, nk, features, row_width) is not None:
+        return None
+    return _wide(True, b, h, nq, nk, features, row_width)
+
+
 def _tie_vector(tie_scale, b: int, r: int, device) -> torch.Tensor:
     """tie_scale (None -> R**-0.5, a float, or anything of B elements) as a
     (B,) f32 tensor on ``device``."""
@@ -242,11 +369,7 @@ def hopper_walk_reference(q, k, v, q_mask=None, kv_mask=None, sm_scale=1.0, tie_
     key give 0, and such rows lse +inf."""
     b, r, nq, h, d = q.shape
     nk, f = k.shape[2], r * d
-
-    def fold(t):  # (B, R, N, H, D) -> (B, H, N, R*D), f32
-        return t.permute(0, 3, 2, 1, 4).reshape(b, h, t.shape[2], f).float()
-
-    qf, kf, vf = fold(q), fold(k), fold(v)
+    qf, kf, vf = _fold(q), _fold(k), _fold(v)
     scale2 = _scale(q, sm_scale, tie_scale) * LOG2E
     keys = (kv_mask if kv_mask is not None
             else torch.ones((b, nk), dtype=torch.bool, device=q.device))
@@ -277,8 +400,110 @@ def hopper_walk_reference(q, k, v, q_mask=None, kv_mask=None, sm_scale=1.0, tie_
                                       m * LN2 + torch.log(l))[..., 0]
     if q_mask is not None:
         out = out * q_mask[:, None, :, None].to(out.dtype)
-    out = out.reshape(b, h, nq, r, d).permute(0, 3, 2, 1, 4)
-    return out.to(q.dtype), lse
+    return _unfold(out, r, q.dtype), lse
+
+
+def _fold(t: torch.Tensor) -> torch.Tensor:
+    """(B, R, N, H, D) -> (B, H, N, R*D), f32."""
+    b, r, n, h, d = t.shape
+    return t.permute(0, 3, 2, 1, 4).reshape(b, h, n, r * d).float()
+
+
+def _unfold(t: torch.Tensor, r: int, dtype) -> torch.Tensor:
+    """(B, H, N, R*D) -> (B, R, N, H, D) in ``dtype``."""
+    b, h, n, f = t.shape
+    return t.reshape(b, h, n, r, f // r).permute(0, 3, 2, 1, 4).to(dtype)
+
+
+def _split_sums(pairs, features: int, row_width: int, splits: int):
+    """The logits pass's partial products summed in split order: for each
+    (A, B) of ``pairs`` ((B, H, M, F) f32), the sum over the feature splits
+    of A[..., split] B[..., split]^T, each split ``per`` stages of
+    WIDE_STAGE_FEATURES features (whole rows), as the kernel cuts them."""
+    rows, per_stage = features // row_width, WIDE_STAGE_FEATURES // row_width
+    stages = -(-rows // per_stage)
+    per = -(-stages // splits)
+    out = [None] * len(pairs)
+    for lo in range(0, stages * WIDE_STAGE_FEATURES, per * WIDE_STAGE_FEATURES):
+        cut = slice(lo, min(lo + per * WIDE_STAGE_FEATURES, features))
+        for i, (x, y) in enumerate(pairs):
+            part = x[..., cut] @ y[..., cut].transpose(-1, -2)
+            out[i] = part if out[i] is None else out[i] + part
+    return out
+
+
+def wide_walk_reference(q, k, v, q_mask=None, kv_mask=None, sm_scale=1.0, tie_scale=None,
+                        splits=None, columns=128):
+    """The plain version of the wide K2's decomposition: the shared logits
+    as ``splits`` partial products over feature splits of whole rows (the
+    plan's count by default), summed in split order and scaled in f32 by
+    sm_scale * tie[b] * log2 e; each row's max and sum over its valid keys,
+    lse2 = max + log2(sum); P = 2^(x - lse2) rounded to q's dtype (0 for a
+    masked key, a masked query and a row with no valid key); then out =
+    P V' for each group of ``columns`` output columns, summed in f32.
+    Returns (out, lse) as :func:`tied_row_attention_lse`. Only the tests
+    call it."""
+    b, r, nq, h, d = q.shape
+    nk, f = k.shape[2], r * d
+    if splits is None:
+        plan = _wide(False, b, h, nq, nk, f, d)
+        splits = plan["splits"] if plan is not None else 1
+    qf, kf, vf = _fold(q), _fold(k), _fold(v)
+    (s,) = _split_sums([(qf, kf)], f, d, splits)
+    x = s * (_scale(q, sm_scale, tie_scale) * LOG2E)[:, None, None, None]
+    keys = (kv_mask if kv_mask is not None
+            else torch.ones((b, nk), dtype=torch.bool, device=q.device))[:, None, None, :]
+    m = x.masked_fill(~keys, float("-inf")).amax(-1, keepdim=True)
+    keyed = torch.isfinite(m)
+    l = torch.where(keys & keyed, torch.exp2(x - m), 0.0).sum(-1, keepdim=True)
+    lse2 = torch.where(keyed, m + torch.log2(l.clamp_min(1e-30)), float("inf"))
+    live = keys & keyed
+    if q_mask is not None:
+        live = live & q_mask[:, None, :, None]
+    p = torch.where(live, torch.exp2(x - lse2), 0.0).to(q.dtype).float()
+    out = torch.zeros((b, h, nq, f), device=q.device)
+    for c0 in range(0, f, columns):
+        out[..., c0:c0 + columns] = p @ vf[..., c0:c0 + columns]
+    return _unfold(out, r, q.dtype), (lse2 * LN2)[..., 0]
+
+
+def wide_bwd_walk_reference(q, k, v, dout, lse, dsum, q_mask=None, kv_mask=None, sm_scale=1.0,
+                            tie_scale=None, splits=None, columns=64):
+    """The plain version of the wide K2 backward's decomposition, (dq, dk,
+    dv): S and dO'V'^T as ``splits`` partial products over feature splits of
+    whole rows (the plan's count by default), each summed in split order; p
+    = 2^(S * s * log2 e - lse * log2 e) with s = sm_scale * tie[b] in f32
+    (0 for a masked key and a dead query row), ds = p * (dP - dsum), both
+    rounded to q's dtype; then by groups of ``columns`` output columns dq =
+    ds K', dk = ds^T Q' (both times s) and dv = p^T dO', summed in f32.
+    Only the tests call it."""
+    b, r, nq, h, d = q.shape
+    nk, f = k.shape[2], r * d
+    if splits is None:
+        plan = _wide(True, b, h, nq, nk, f, d)
+        splits = plan["splits"] if plan is not None else 1
+    qf, kf, vf, dof = _fold(q), _fold(k), _fold(v), _fold(dout)
+    s, dp = _split_sums([(qf, kf), (dof, vf)], f, d, splits)
+    scale = _scale(q, sm_scale, tie_scale)
+    live = torch.isfinite(lse)
+    if q_mask is not None:
+        live = live & q_mask[:, None, :]
+    keys = (kv_mask if kv_mask is not None
+            else torch.ones((b, nk), dtype=torch.bool, device=q.device))
+    ok = live[..., None] & keys[:, None, None, :]
+    p = torch.where(ok, torch.exp2(s * (scale * LOG2E)[:, None, None, None]
+                                   - torch.where(live, lse, 0.0)[..., None] * LOG2E), 0.0)
+    ds = p * (dp - torch.where(live, dsum, 0.0)[..., None])
+    p, ds = p.to(q.dtype).float(), ds.to(q.dtype).float()
+    dq = torch.zeros((b, h, nq, f), device=q.device)
+    dk, dv = (torch.zeros((b, h, nk, f), device=q.device) for _ in range(2))
+    for c0 in range(0, f, columns):
+        cols = slice(c0, c0 + columns)
+        dq[..., cols] = ds @ kf[..., cols]
+        dk[..., cols] = ds.transpose(-1, -2) @ qf[..., cols]
+        dv[..., cols] = p.transpose(-1, -2) @ dof[..., cols]
+    s4 = scale[:, None, None, None]
+    return _unfold(dq * s4, r, q.dtype), _unfold(dk * s4, r, k.dtype), _unfold(dv, r, v.dtype)
 
 
 def _p_ds(q, k, v, dout, lse, dsum, q_mask, kv_mask, scale):
@@ -335,11 +560,7 @@ def hopper_bwd_walk_reference(q, k, v, dout, lse, dsum, q_mask=None, kv_mask=Non
     the end; a block with nothing live stays 0. Only the tests call it."""
     b, r, nq, h, d = q.shape
     nk, f = k.shape[2], r * d
-
-    def fold(t):  # (B, R, N, H, D) -> (B, H, N, R*D), f32
-        return t.permute(0, 3, 2, 1, 4).reshape(b, h, t.shape[2], f).float()
-
-    qf, kf, vf, dof = fold(q), fold(k), fold(v), fold(dout)
+    qf, kf, vf, dof = _fold(q), _fold(k), _fold(v), _fold(dout)
     scale = _scale(q, sm_scale, tie_scale)
     live = torch.isfinite(lse)
     if q_mask is not None:
@@ -383,11 +604,8 @@ def hopper_bwd_walk_reference(q, k, v, dout, lse, dsum, q_mask=None, kv_mask=Non
                         dv[bi, :, kt, cols] += rnd(p).transpose(-1, -2) @ dof[bi, :, qt, cols]
                         dk[bi, :, kt, cols] += rnd(ds).transpose(-1, -2) @ qf[bi, :, qt, cols]
 
-    def unfold(t, dtype):  # (B, H, N, R*D) -> (B, R, N, H, D)
-        return t.reshape(b, h, t.shape[2], r, d).permute(0, 3, 2, 1, 4).to(dtype)
-
     s5 = scale[:, None, None, None]
-    return unfold(dq * s5, q.dtype), unfold(dk * s5, k.dtype), unfold(dv, v.dtype)
+    return _unfold(dq * s5, r, q.dtype), _unfold(dk * s5, r, k.dtype), _unfold(dv, r, v.dtype)
 
 
 def tied_row_dsum(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
@@ -441,17 +659,22 @@ def _launch_forward(q, k, v, q_mask, kv_mask, sm_scale, tie_scale, with_lse):
     """K2 on CUDA tensors: out, and the (B, H, Nq) f32 lse when asked."""
     tie, masks = _cuda_operands(q, k, v, q_mask, kv_mask, tie_scale, "tied_row_attention")
     b, r, nq, h, d = q.shape
+    nk = k.shape[2]
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     if out.numel() == 0:
         return out, lse
     lib = build.library("tied_row_attention")
+    # the wide route's workspace, where its plan takes the shape
+    plan = wide_plan(b, r, h, nq, nk, d) if q.dtype == torch.bfloat16 else None
+    work = (torch.empty(plan["workspace"], dtype=torch.uint8, device=q.device)
+            if plan is not None else None)
     with torch.cuda.device(q.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         head = (_DTYPES[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(out))
-        tail = (_ptr(masks[0]), _ptr(masks[1]), _ptr(tie), b, r, h, nq, k.shape[2], d,
-                float(sm_scale), stream)
+        tail = (_ptr(masks[0]), _ptr(masks[1]), _ptr(tie), b, r, h, nq, nk, d,
+                float(sm_scale), _ptr(work), work.numel() if work is not None else 0, stream)
         if with_lse:
             code = lib.af2_tied_row_attention_lse(*head, _ptr(lse), *tail)
         else:
@@ -459,9 +682,11 @@ def _launch_forward(q, k, v, q_mask, kv_mask, sm_scale, tie_scale, with_lse):
     build.check(lib, code, "tied_row_attention")
     tied_row_attention.launches += 1
     aligned = int(all(t.data_ptr() % 16 == 0 for t in (q, k, v, out)))
-    if _planned_kernel(lib, _DTYPES[q.dtype], b, r, h, nq, k.shape[2], d,
-                       aligned).startswith(HOPPER_KERNEL + "<"):
+    kernel = _planned_kernel(lib, _DTYPES[q.dtype], b, r, h, nq, nk, d, aligned)
+    wide = kernel.startswith(WIDE_KERNELS["logits"] + "<")
+    if wide or kernel.startswith(HOPPER_KERNEL + "<"):
         tied_row_attention.sm90_launches += 1
+    tied_row_attention.wide_launches += int(wide)
     return out, lse
 
 
@@ -476,7 +701,9 @@ def tied_row_attention_lse(q, k, v, q_mask=None, kv_mask=None, sm_scale=1.0,
 
 
 def _launch_backward(which, outs, q, k, v, dout, lse, dsum, q_mask, kv_mask, sm_scale,
-                     tie_scale):
+                     tie_scale) -> tuple:
+    """``which`` "dq", "dkv" or "grads" (dq, dk and dv in one call) into
+    ``outs``; returns the C entry's info (launch_tied_backward)."""
     tie, masks = _cuda_operands(q, k, v, q_mask, kv_mask, tie_scale,
                                 f"tied_row_attention_{which}")
     dout = dout.contiguous()
@@ -484,8 +711,8 @@ def _launch_backward(which, outs, q, k, v, dout, lse, dsum, q_mask, kv_mask, sm_
     if b * r * nq * h * d == 0:
         for o in outs:
             o.zero_()
-        return 0
-    slots = (outs[0], k, v) if which == "dq" else (q, *outs)
+        return (0, 0, 0) if which == "grads" else (0, 0)
+    slots = {"dq": (outs[0], k, v), "dkv": (q, *outs)}.get(which, outs)
     # (batch, head, token, row group) strides of (B, R, N, H, D) operands
     strides = [x for t in (q, k, v, dout, *slots)
                for x in (t.stride(0), t.stride(3), t.stride(2), t.stride(1))]
@@ -513,14 +740,18 @@ def tied_row_attention_dq(q, k, v, dout, lse, dsum, q_mask=None, kv_mask=None,
         return tied_row_attention_dq_reference(q, k, v, dout, lse, dsum, q_mask, kv_mask,
                                                sm_scale, tie_scale)
     dq = torch.empty_like(q)
-    tied_row_attention_dq.sm90_launches += _launch_backward(
-        "dq", (dq,), q, k, v, dout, lse, dsum, q_mask, kv_mask, sm_scale, tie_scale)
+    hopper, wide = _launch_backward("dq", (dq,), q, k, v, dout, lse, dsum, q_mask, kv_mask,
+                                    sm_scale, tie_scale)
     tied_row_attention_dq.launches += 1
+    tied_row_attention_dq.sm90_launches += hopper
+    tied_row_attention_dq.wide_launches += wide
     return dq
 
 
 tied_row_attention_dq.launches = 0
-tied_row_attention_dq.sm90_launches = 0  # of them, launches of tied_dq_kernel_sm90
+# of them, launches of tied_dq_kernel_sm90 or of the wide route
+tied_row_attention_dq.sm90_launches = 0
+tied_row_attention_dq.wide_launches = 0  # of them, the wide route's
 
 
 def tied_row_attention_dkv(q, k, v, dout, lse, dsum, q_mask=None, kv_mask=None,
@@ -532,19 +763,47 @@ def tied_row_attention_dkv(q, k, v, dout, lse, dsum, q_mask=None, kv_mask=None,
         return tied_row_attention_dkv_reference(q, k, v, dout, lse, dsum, q_mask, kv_mask,
                                                 sm_scale, tie_scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    tied_row_attention_dkv.sm90_launches += _launch_backward(
-        "dkv", (dk, dv), q, k, v, dout, lse, dsum, q_mask, kv_mask, sm_scale, tie_scale)
+    hopper, wide = _launch_backward("dkv", (dk, dv), q, k, v, dout, lse, dsum, q_mask, kv_mask,
+                                    sm_scale, tie_scale)
     tied_row_attention_dkv.launches += 1
+    tied_row_attention_dkv.sm90_launches += hopper
+    tied_row_attention_dkv.wide_launches += wide
     return dk, dv
 
 
 tied_row_attention_dkv.launches = 0
-tied_row_attention_dkv.sm90_launches = 0  # of them, launches of tied_dkv_kernel_sm90
+# of them, launches of tied_dkv_kernel_sm90 or of the wide route
+tied_row_attention_dkv.sm90_launches = 0
+tied_row_attention_dkv.wide_launches = 0  # of them, the wide route's
+
+
+def tied_row_attention_grads(q, k, v, dout, lse, dsum, q_mask=None, kv_mask=None,
+                             sm_scale=1.0, tie_scale=None):
+    """K2's whole backward, (dq, dk, dv), as :func:`tied_row_attention_dq`
+    and :func:`tied_row_attention_dkv` give them, in one C call: the wide
+    route computes S, dP, p and ds once for the three products; every
+    other route runs the two wrappers' launches in turn. Counts one launch
+    on each of the two wrappers."""
+    _check(q, k, v, q_mask, kv_mask)
+    _check_grad_operands(q, dout, lse, dsum)
+    if q.device.type == "cpu":
+        args = (q, k, v, dout, lse, dsum, q_mask, kv_mask, sm_scale, tie_scale)
+        return (tied_row_attention_dq_reference(*args),
+                *tied_row_attention_dkv_reference(*args))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    hop_q, hop_kv, wide = _launch_backward("grads", (dq, dk, dv), q, k, v, dout, lse, dsum,
+                                           q_mask, kv_mask, sm_scale, tie_scale)
+    for fn, hopper in ((tied_row_attention_dq, hop_q), (tied_row_attention_dkv, hop_kv)):
+        fn.launches += 1
+        fn.sm90_launches += hopper
+        fn.wide_launches += wide
+    return dq, dk, dv
 
 
 class TiedRowAttention(torch.autograd.Function):
-    """K2 with the row logsumexp forward, the two tied backward kernels
-    backward (or, on the CPU, their plain versions). ``tie`` is a (B,) f32
+    """K2 with the row logsumexp forward, K2's backward
+    (:func:`tied_row_attention_grads`) backward (or, on the CPU, their
+    plain versions). ``tie`` is a (B,) f32
     tensor that carries no gradient."""
 
     @staticmethod
@@ -558,10 +817,8 @@ class TiedRowAttention(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, dout):
         q, k, v, out, lse, q_mask, kv_mask, tie = ctx.saved_tensors
-        args = (q, k, v, dout, lse, tied_row_dsum(out, dout), q_mask, kv_mask, ctx.sm_scale,
-                tie)
-        return (tied_row_attention_dq(*args), *tied_row_attention_dkv(*args), None, None,
-                None, None)
+        return (*tied_row_attention_grads(q, k, v, dout, lse, tied_row_dsum(out, dout), q_mask,
+                                          kv_mask, ctx.sm_scale, tie), None, None, None, None)
 
 
 def tied_row_attention(
@@ -585,4 +842,6 @@ def tied_row_attention(
 
 
 tied_row_attention.launches = 0
-tied_row_attention.sm90_launches = 0  # of them, launches of tied_row_attention_kernel_sm90
+# of them, launches of tied_row_attention_kernel_sm90 or of the wide route
+tied_row_attention.sm90_launches = 0
+tied_row_attention.wide_launches = 0  # of them, the wide route's

@@ -13,6 +13,9 @@
 # "phase_k5_time" K5a and K5b (and K4, SDPA's forward and K1 with lse on
 # the dense problem) on the sparse training pass and at N 512,
 # "phase_k2_time" K2, K2 with lse and K2's backward beside SDPA,
+# "phase_k2_wide_time" K2 with lse and its backward on the wide route's
+# shapes beside SDPA, "phase_wide_steps" the training steps whose tied rows
+# take the wide route,
 # "phase_d256_time" K1 with lse, K3a and K3b at head dim 256 beside SDPA,
 # "phase_registers" every Hopper instantiation's registers and spills (a
 # phase the parent lacks runs from this tree's chip_smoke.py, on the
@@ -81,6 +84,6 @@ for who in parent change change parent; do
   (cd "$dir" && timeout 400 python3 -c "$runner" "$here/chip_smoke.py" $phases) \
       > "chiprun_out/cmp/$i.$who.log" 2>&1
   echo "== $i $who rc=$?"
-  grep -h "residues/s\|device busy\|the step alone\|warm step latency\|k1 time\|k2 time\|k3 time\|k5 time\|d256 time\|time fused_attention\|time block_sparse\|\[registers\]" \
+  grep -h "residues/s\|device busy\|the step alone\|warm step latency\|k1 time\|k2 time\|k2 wide time\|k3 time\|k5 time\|d256 time\|time fused_attention\|time block_sparse\|\[registers\]" \
       "chiprun_out/cmp/$i.$who.log" | cut -c1-220
 done

@@ -363,8 +363,9 @@ def _sm90_resources(sources=("fused_attention", "fused_attention_bwd", "block_sp
                              "block_sparse_attention_bwd", "tied_row_attention",
                              "tied_row_attention_bwd")):
     """{instantiation: (registers, spill stores, spill loads)} of every
-    Hopper kernel (a name with ``_sm90``) in the build reports of
-    ``sources``, as ptxas gave them."""
+    Hopper kernel (a name with ``_sm90``, or K2's wide route's
+    ``tied_wide_``) in the build reports of ``sources``, as ptxas gave
+    them."""
     from alphafold2_tpu_torch.analysis import lowering
     from alphafold2_tpu_torch.ops.cuda import build
 
@@ -372,7 +373,7 @@ def _sm90_resources(sources=("fused_attention", "fused_attention_bwd", "block_sp
     for name, (code, report, _) in build.build_sources(sources).items():
         require(code == 0, f"{name} did not build")
         for key, res in lowering.report_by_kernel(report, lowering.demangle_cufilt).items():
-            if "_sm90" in key:
+            if "_sm90" in key or key.startswith("tied_wide_"):
                 found[key] = (res.registers, res.spill_stores, res.spill_loads)
     return dict(sorted(found.items()))
 
@@ -638,26 +639,68 @@ def k1_case(label, b, h, nq, nk, d, dtype, q_mask=None, kv_mask=None, reps=3,
     return row
 
 
-def _k2_sm90_launched(fn, what):
-    """Run ``fn`` once; require that K2 launched
-    tied_row_attention_kernel_sm90. Returns fn's result."""
+def _k2_sm90_launched(fn, what, wide=False):
+    """Run ``fn`` once; require that K2 launched a Hopper kernel:
+    tied_row_attention_kernel_sm90, or with ``wide`` the wide route's
+    passes. Returns fn's result."""
     from alphafold2_tpu_torch.ops.cuda import tied_row
 
-    before = tied_row.tied_row_attention.sm90_launches
+    fn_ = tied_row.tied_row_attention
+    before = (fn_.sm90_launches, fn_.wide_launches)
     result = fn()
-    require(tied_row.tied_row_attention.sm90_launches - before == 1,
-            f"{what}: K2 did not launch tied_row_attention_kernel_sm90")
+    ran = (fn_.sm90_launches - before[0], fn_.wide_launches - before[1])
+    require(ran == (1, int(wide)), f"{what}: K2 ran (Hopper, wide) launches {ran}, not "
+                                   f"(1, {int(wide)})")
     return result
 
 
 def _k2_planned(b, r, n, h, d, dtype):
-    """The Hopper K2's plan at a shape (tied_row.hopper_plan), or None where
-    another kernel takes it: f32, or a shape the Hopper kernel does not take."""
+    """The Hopper K2's plan at a shape (tied_row.hopper_plan, or the wide
+    route's tied_row.wide_plan, marked ``wide``), or None where another
+    kernel takes it: f32, or a head dim neither takes."""
     import torch
 
-    from alphafold2_tpu_torch.ops.cuda.tied_row import hopper_plan
+    from alphafold2_tpu_torch.ops.cuda.tied_row import hopper_plan, wide_plan
 
-    return hopper_plan(b, r, h, n, d) if dtype == torch.bfloat16 else None
+    if dtype != torch.bfloat16:
+        return None
+    plan = hopper_plan(b, r, h, n, d)
+    if plan is not None:
+        return {**plan, "wide": False}
+    plan = wide_plan(b, r, h, n, n, d)
+    return None if plan is None else {**plan, "wide": True}
+
+
+def _k2_bwd_planned(b, r, n, h, d, dtype):
+    """K2's backward plans (dq, dk/dv) at a shape: the resident Hopper
+    kernels' (tied_row.hopper_bwd_plan) or the wide route's
+    (tied_row.wide_bwd_plan, marked ``wide``), None for f32 or a row width
+    neither takes."""
+    import torch
+
+    from alphafold2_tpu_torch.ops.cuda.tied_row import hopper_bwd_plan, wide_bwd_plan
+
+    if dtype != torch.bfloat16:
+        return [None, None]
+    wide = wide_bwd_plan(b, h, n, n, r * d, d)
+    if wide is not None:
+        return [{**wide, "wide": True}] * 2
+    return [None if x is None else {**x, "wide": False}
+            for x in (hopper_bwd_plan(w, b, h, n, n, r * d, d) for w in ("dq", "dkv"))]
+
+
+def _describe(plan):
+    """A K2 plan for the log: the resident kernel with its groups and
+    stages, or the wide route's passes with their blocks and the splits."""
+    if plan is None:
+        return "the chunked kernel"
+    if plan["wide"]:
+        return (f"the wide route: {plan['splits']} feature split(s) of "
+                f"{plan['stages_per_split']} stage(s), "
+                + ", ".join(f"{x['kernel']} ({x['blocks']} blocks)" for x in plan["passes"])
+                + f", workspace {plan['workspace']} bytes")
+    return (f"{plan['kernel']}, {plan['groups']} column group(s) of {plan['columns']}, "
+            f"{plan['stages']} stage(s), {plan['blocks']} blocks")
 
 
 def k2_case(label, b, r, n, h, d, dtype, length=None, reps=3, library=False, gen=None,
@@ -689,11 +732,9 @@ def k2_case(label, b, r, n, h, d, dtype, length=None, reps=3, library=False, gen
                                      sm_scale=scale, tie_scale=tie)
     plan = _k2_planned(b, r, n, h, d, dtype)
     if plan is not None:
-        out = _k2_sm90_launched(run, label)
+        out = _k2_sm90_launched(run, label, plan["wide"])
         require(torch.equal(out, run()), f"{label}: two K2 runs differ")
-        log(f"[kernels] tied_row_attention {label}: {plan['kernel']}, {plan['groups']} column "
-            f"group(s) of {plan['columns']}, {plan['stages']} stage(s), {plan['blocks']} blocks, "
-            f"two runs bit-identical")
+        log(f"[kernels] tied_row_attention {label}: {_describe(plan)}, two runs bit-identical")
     else:
         out = run()
     torch.cuda.synchronize()
@@ -726,14 +767,22 @@ def k2_case(label, b, r, n, h, d, dtype, length=None, reps=3, library=False, gen
 
 
 # K2's shapes (b, r, n, h, d) by their plans: the serving tied pass, the tied
-# training pass, JAX's gate case (R*D 512), the widest R*D (1280, 20 rows:
-# attention_kernel_mma), and one shape for each other Hopper instantiation
-# (head dims 32 and 128 at 64 and 128 columns a block)
+# training pass, JAX's gate case (R*D 512), one shape for each other Hopper
+# instantiation (head dims 32 and 128 at 64 and 128 columns a block), and
+# the wide route's (its logits pass): JAX's gate case at R*D 1280, config_4's
+# MSA rows (R*D 1024), the PLM grid's tied rows (R*D 8192, end to end 12288)
+# and head dims 32 and 128
+WIDE_FWD = "tied_wide_logits_kernel<{},2>"
 K2_PLANS = {
     "serve": ((4, 5, 128, 8, 64), "tied_row_attention_kernel_sm90<64,128>"),
     "train": ((1, 5, 64, 8, 64), "tied_row_attention_kernel_sm90<64,64>"),
     "gate": ((1, 8, 256, 4, 64), "tied_row_attention_kernel_sm90<64,64>"),
-    "R*D 1280": ((1, 20, 48, 2, 64), "attention_kernel_mma<64>"),
+    "R*D 1280": ((1, 20, 48, 2, 64), WIDE_FWD.format(64)),
+    "config_4 R*D 1024": ((1, 16, 128, 8, 64), WIDE_FWD.format(64)),
+    "PLM R*D 8192": ((1, 128, 128, 8, 64), WIDE_FWD.format(64)),
+    "PLM e2e R*D 12288": ((1, 192, 192, 8, 64), WIDE_FWD.format(64)),
+    "d32 wide": ((1, 18, 70, 2, 32), WIDE_FWD.format(32)),
+    "d128 wide": ((4, 5, 128, 8, 128), WIDE_FWD.format(128)),
     "d32, 64 columns": ((3, 8, 100, 2, 32), "tied_row_attention_kernel_sm90<32,64>"),
     "d32, 128 columns": ((16, 4, 70, 8, 32), "tied_row_attention_kernel_sm90<32,128>"),
     "d128, 64 columns": ((2, 4, 70, 2, 128), "tied_row_attention_kernel_sm90<128,64>"),
@@ -741,21 +790,45 @@ K2_PLANS = {
 }
 
 
+def _wide_route_agrees(lib, route, passes, args, mirror, what):
+    """The C wide route's numbers (splits, workspace bytes) and each pass's
+    plan at ``args`` against the mirror's."""
+    import ctypes
+
+    from alphafold2_tpu_torch.ops.cuda import build
+
+    splits, work = ctypes.c_int(), ctypes.c_longlong()
+    code = getattr(lib, route)(*args, ctypes.byref(splits), ctypes.byref(work))
+    require(code == 0 and (splits.value, work.value) == (mirror["splits"], mirror["workspace"]),
+            f"{what}: the C wide route (code {code}, {splits.value} splits, {work.value} "
+            f"bytes) differs from the mirror ({mirror['splits']}, {mirror['workspace']})")
+    for i, want in enumerate(mirror["passes"]):
+        got = build.LaunchPlan()
+        code = getattr(lib, passes)(i, *args, ctypes.byref(got))
+        have = (got.kernel.decode(), got.blocks, got.threads, got.dynamic_smem)
+        require(code == 0 and have == (want["kernel"], want["blocks"], want["threads"],
+                                       want["dynamic_smem"]),
+                f"{what}: the C plan of pass {i} {have} (code {code}) differs from {want}")
+
+
 def check_k2_plans():
     """K2's C plan (bf16, operands 16-byte aligned) must name the kernel
     K2_PLANS gives each shape, and agree with tied_row.hopper_plan (blocks,
-    threads, shared memory) where that is the Hopper kernel; unaligned
-    operands keep attention_kernel_mma."""
+    threads, shared memory) where that is the Hopper kernel, with
+    tied_row.wide_plan (splits, workspace, every pass's plan) where that is
+    the wide route; unaligned operands keep attention_kernel_mma and f32
+    attention_kernel at every shape."""
     import ctypes
 
     from alphafold2_tpu_torch.ops.cuda import build, tied_row
 
     lib = build.library("tied_row_attention")
 
-    def plan(shape, aligned):
+    def plan(shape, aligned, dtype=1):
         b, r, n, h, d = shape
         out = build.LaunchPlan()
-        code = lib.af2_tied_row_attention_plan(1, b, r, h, n, n, d, aligned, ctypes.byref(out))
+        code = lib.af2_tied_row_attention_plan(dtype, b, r, h, n, n, d, aligned,
+                                               ctypes.byref(out))
         require(code == 0, f"K2 plan at {shape}: code {code}")
         return out
 
@@ -764,32 +837,48 @@ def check_k2_plans():
         name = got.kernel.decode()
         require(name == kernel, f"K2 plan at {label} {shape}: {name}, not {kernel}")
         b, r, n, h, d = shape
-        mirror = tied_row.hopper_plan(b, r, h, n, d)
-        if kernel.startswith(tied_row.HOPPER_KERNEL):
-            require(mirror is not None and mirror["kernel"] == name
-                    and (mirror["blocks"], mirror["threads"], mirror["dynamic_smem"])
-                    == (got.blocks, got.threads, got.dynamic_smem),
-                    f"K2 plan at {label}: the C plan ({got.blocks}, {got.threads}, "
-                    f"{got.dynamic_smem}) differs from hopper_plan {mirror}")
-        else:
-            require(mirror is None, f"K2 plan at {label}: hopper_plan takes it, C does not")
+        wide = kernel.startswith(tied_row.WIDE_KERNELS["logits"])
+        mirror = (tied_row.wide_plan(b, r, h, n, n, d) if wide
+                  else tied_row.hopper_plan(b, r, h, n, d))
+        require(mirror is not None and mirror["kernel"] == name
+                and (mirror["blocks"], mirror["threads"], mirror["dynamic_smem"])
+                == (got.blocks, got.threads, got.dynamic_smem),
+                f"K2 plan at {label}: the C plan ({got.blocks}, {got.threads}, "
+                f"{got.dynamic_smem}) differs from the mirror {mirror}")
+        if wide:
+            require(tied_row.hopper_plan(b, r, h, n, d) is None,
+                    f"K2 plan at {label}: hopper_plan takes it, C does not")
+            _wide_route_agrees(lib, "af2_tied_row_attention_wide_route",
+                               "af2_tied_row_attention_wide_pass", (1, b, r, h, n, n, d, 1),
+                               mirror, f"K2 plan at {label}")
         log(f"[kernels] K2 plan {label} {shape}: {name}, {got.blocks} blocks of {got.threads}, "
-            f"{got.dynamic_smem} bytes of shared memory")
-    unaligned = plan(K2_PLANS["serve"][0], 0).kernel.decode()
-    require(unaligned == "attention_kernel_mma<64>",
-            f"K2 plan with unaligned operands: {unaligned}")
+            f"{got.dynamic_smem} bytes of shared memory"
+            + (f"; {_describe({**mirror, 'wide': True})}" if wide else ""))
+    for label in ("serve", "PLM R*D 8192", "d128 wide"):
+        shape = K2_PLANS[label][0]
+        unaligned = plan(shape, 0).kernel.decode()
+        require(unaligned == "attention_kernel_mma<64>",
+                f"K2 plan at {label} with unaligned operands: {unaligned}")
+        f32 = plan(shape, 1, dtype=0).kernel.decode()
+        require(f32 == "attention_kernel<64>", f"K2 plan at {label} in f32: {f32}")
 
 
 # K2's backward at its shapes (b, h, nq, nk, features, row width) by their
 # plans, dq then dk/dv: the tied training pass, JAX's gate case (R*D 512:
-# the chunked kernels), a serving-size grid (dq at 128 columns), K3 at head
-# dims 256 and 192 as rows of 64, and one shape for each other Hopper
+# the wide route), the wide route's other shapes (config_4, the PLM grid,
+# row widths 32 and 128), a serving-size grid (dq at 128 columns), K3 at
+# head dims 256 and 192 as rows of 64, and one shape for each other Hopper
 # instantiation (row widths 32 and 128, dq at 64 and 128 columns)
+WIDE_BWD = "tied_wide_logits_kernel<{},4>"
 K2_BWD_PLANS = {
     "train": ((1, 8, 64, 64, 320, 64), ("tied_dq_kernel_sm90<64,64>",
                                         "tied_dkv_kernel_sm90<64,64>")),
-    "gate": ((1, 4, 256, 256, 512, 64), ("chunked_dq_kernel_mma<64>",
-                                         "chunked_dkv_kernel_mma<64>")),
+    "gate": ((1, 4, 256, 256, 512, 64), (WIDE_BWD.format(64), WIDE_BWD.format(64))),
+    "config_4 R*D 1024": ((1, 8, 128, 128, 1024, 64), (WIDE_BWD.format(64),) * 2),
+    "PLM R*D 8192": ((1, 8, 128, 128, 8192, 64), (WIDE_BWD.format(64),) * 2),
+    "PLM e2e R*D 12288": ((1, 8, 192, 192, 12288, 64), (WIDE_BWD.format(64),) * 2),
+    "d32 wide": ((1, 2, 70, 70, 576, 32), (WIDE_BWD.format(32),) * 2),
+    "d128 wide": ((4, 8, 128, 128, 640, 128), (WIDE_BWD.format(128),) * 2),
     "serve-size grid": ((4, 8, 128, 128, 320, 64), ("tied_dq_kernel_sm90<64,128>",
                                                     "tied_dkv_kernel_sm90<64,64>")),
     "K3 head dim 256": ((2, 4, 200, 150, 256, 64), ("tied_dq_kernel_sm90<64,64>",
@@ -811,8 +900,9 @@ def check_k2_bwd_plans():
     """K2's backward C plan (bf16, operands TMA can describe) must name the
     kernels K2_BWD_PLANS gives each shape, and agree with
     tied_row.hopper_bwd_plan (blocks, threads, shared memory) where those
-    are the Hopper kernels; unaligned operands and f32 keep the chunked
-    kernels."""
+    are the Hopper kernels, with tied_row.wide_bwd_plan (splits, workspace,
+    every pass's plan) where that is the wide route; unaligned operands and
+    f32 keep the chunked kernels, at the training and PLM shapes."""
     import ctypes
 
     from alphafold2_tpu_torch.ops.cuda import build, tied_row
@@ -832,7 +922,19 @@ def check_k2_bwd_plans():
             taken = got.kernel.decode()
             require(taken == kernel, f"K2 {name} plan at {label} {shape}: {taken}, not {kernel}")
             mirror = tied_row.hopper_bwd_plan(name, *shape)
-            if kernel.startswith(tied_row.HOPPER_BWD_KERNELS[name]):
+            if kernel.startswith(tied_row.WIDE_KERNELS["logits"]):
+                wide = tied_row.wide_bwd_plan(*shape)
+                require(mirror is None and wide is not None and wide["kernel"] == taken
+                        and (wide["blocks"], wide["threads"], wide["dynamic_smem"])
+                        == (got.blocks, got.threads, got.dynamic_smem),
+                        f"K2 {name} plan at {label}: the C plan ({got.blocks}, {got.threads}, "
+                        f"{got.dynamic_smem}) differs from wide_bwd_plan {wide}")
+                _wide_route_agrees(lib, "af2_tied_row_attention_bwd_wide_route",
+                                   "af2_tied_row_attention_bwd_wide_pass", (1, *shape, 1), wide,
+                                   f"K2 {name} plan at {label}")
+                log(f"[kernels] K2 {name} plan {label} {shape}: "
+                    f"{_describe({**wide, 'wide': True})}")
+            elif kernel.startswith(tied_row.HOPPER_BWD_KERNELS[name]):
                 require(mirror is not None and mirror["kernel"] == taken
                         and (mirror["blocks"], mirror["threads"], mirror["dynamic_smem"])
                         == (got.blocks, got.threads, got.dynamic_smem),
@@ -843,13 +945,16 @@ def check_k2_bwd_plans():
                         f"K2 {name} plan at {label}: hopper_bwd_plan takes it, C does not")
             log(f"[kernels] K2 {name} plan {label} {shape}: {taken}, {got.blocks} blocks of "
                 f"{got.threads}, {got.dynamic_smem} bytes of shared memory")
-    train = K2_BWD_PLANS["train"][0]
-    for which, kernel in ((0, "chunked_dq_kernel_mma<64>"), (1, "chunked_dkv_kernel_mma<64>")):
-        taken = plan(which, train, aligned=0).kernel.decode()
-        require(taken == kernel, f"K2 backward plan with unaligned operands: {taken}")
-    for which, kernel in ((0, "chunked_dq_kernel<64>"), (1, "chunked_dkv_kernel<64>")):
-        taken = plan(which, train, dtype=0).kernel.decode()
-        require(taken == kernel, f"K2 backward plan in f32: {taken}")
+    for label in ("train", "PLM R*D 8192"):
+        shape = K2_BWD_PLANS[label][0]
+        for which, kernel in ((0, "chunked_dq_kernel_mma<64>"),
+                              (1, "chunked_dkv_kernel_mma<64>")):
+            taken = plan(which, shape, aligned=0).kernel.decode()
+            require(taken == kernel,
+                    f"K2 backward plan at {label} with unaligned operands: {taken}")
+        for which, kernel in ((0, "chunked_dq_kernel<64>"), (1, "chunked_dkv_kernel<64>")):
+            taken = plan(which, shape, dtype=0).kernel.decode()
+            require(taken == kernel, f"K2 backward plan at {label} in f32: {taken}")
 
 
 def _errors(out, ref, dtype):
@@ -1659,12 +1764,15 @@ def _sdpa_backend(fn):
 
 
 def tied_case(label, b, r, n, h, d, dtype, gen, reps=3, library=False, rows=None):
-    """K2 with lse, and K2's backward (dq; dk and dv), at one tied shape
-    (with the MSA mask ``rows``, else _tied_operands' own), each against
-    its plain version; a negative control per kernel (the last feature
-    chunk dropped from its recomputation); two backward runs bit-identical;
+    """K2 with lse, and K2's backward (dq; dk and dv; the three in one call,
+    tied_row_attention_grads), at one tied shape (with the MSA mask
+    ``rows``, else _tied_operands' own), each against its plain version; a
+    negative control per kernel (the last feature chunk dropped from its
+    recomputation); two forward and two backward runs bit-identical; in
+    bf16 every launch on the Hopper kernels the plans name (the resident
+    ones or the wide route, whose passes, splits and blocks are logged);
     the autograd route through the kernels alone. Returns result rows for
-    the three kernels."""
+    the three kernels (the backward's ``grads_ms``: the one call)."""
     import torch
     import torch.nn.functional as F
 
@@ -1675,13 +1783,11 @@ def tied_case(label, b, r, n, h, d, dtype, gen, reps=3, library=False, rows=None
     forward = lambda: tr.tied_row_attention_lse(q, k, v, mask, mask, scale, tie)
     plan = _k2_planned(b, r, n, h, d, dtype)
     if plan is not None:
-        out, lse = _k2_sm90_launched(forward, label)
+        out, lse = _k2_sm90_launched(forward, label, plan["wide"])
         again = forward()
         require(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
                 f"{label}: two K2 (lse) runs differ")
-        log(f"[tied] {label}: K2 with lse on {plan['kernel']}, {plan['groups']} column "
-            f"group(s) of {plan['columns']}, {plan['stages']} stage(s), {plan['blocks']} blocks, "
-            f"two runs bit-identical")
+        log(f"[tied] {label}: K2 with lse on {_describe(plan)}, two runs bit-identical")
     else:
         out, lse = forward()
     torch.cuda.synchronize()
@@ -1694,18 +1800,25 @@ def tied_case(label, b, r, n, h, d, dtype, gen, reps=3, library=False, rows=None
     dsum = tr.tied_row_dsum(out, do)
     args = (q, k, v, do, lse, dsum, mask, mask, scale, tie)
     bwd = (tr.tied_row_attention_dq, tr.tied_row_attention_dkv)
-    plans = [tr.hopper_bwd_plan(w, b, h, n, n, r * d, d) if dtype == torch.bfloat16 else None
-             for w in ("dq", "dkv")]
-    before = [f.sm90_launches for f in bwd]
+    plans = _k2_bwd_planned(b, r, n, h, d, dtype)
+    counts = lambda: [(f.sm90_launches, f.wide_launches) for f in bwd]
+    before = counts()
     dq = tr.tied_row_attention_dq(*args)
     dk, dv = tr.tied_row_attention_dkv(*args)
     torch.cuda.synchronize()
-    hop = [f.sm90_launches - n0 for f, n0 in zip(bwd, before)]
-    require(hop == [int(x is not None) for x in plans],
-            f"{label}: K2's backward ran {hop} Hopper launches, plans {plans}")
-    log(f"[tied] {label}: K2's backward on " + ", ".join(
-        f"{x['kernel']} ({x['groups']} column group(s) of {x['columns']}, {x['stages']} "
-        f"stage(s), {x['blocks']} blocks)" if x else "the chunked kernel" for x in plans))
+    hop = [(a - a0, w - w0) for (a, w), (a0, w0) in zip(counts(), before)]
+    require(hop == [(int(x is not None), int(x is not None and x["wide"])) for x in plans],
+            f"{label}: K2's backward ran (Hopper, wide) launches {hop}, plans {plans}")
+    log(f"[tied] {label}: K2's backward dq on {_describe(plans[0])}; dk/dv on "
+        f"{_describe(plans[1])}")
+    # the three in one call: on the wide route one logits and one p, ds pass
+    before = counts()
+    joint = tr.tied_row_attention_grads(*args)
+    require([(a - a0, w - w0) for (a, w), (a0, w0) in zip(counts(), before)] == hop,
+            f"{label}: tied_row_attention_grads left the kernels of the two wrappers")
+    require(all(torch.equal(x, y) for x, y in zip(joint, (dq, dk, dv))),
+            f"{label}: tied_row_attention_grads differs from the two wrappers")
+    log(f"[tied] {label}: tied_row_attention_grads bit-identical to dq and dk/dv")
     rq = tr.tied_row_attention_dq_reference(*args)
     rk, rv = tr.tied_row_attention_dkv_reference(*args)
     row_q = _compare(label, "tied_row_attention_bwd_dq", dq, rq, dtype)
@@ -1728,13 +1841,13 @@ def tied_case(label, b, r, n, h, d, dtype, gen, reps=3, library=False, rows=None
     # the autograd route: K2 (lse), then both backward kernels, nothing else
     wrappers = (tr.tied_row_attention, tr.tied_row_attention_dq, tr.tied_row_attention_dkv)
     before = [f.launches for f in wrappers]
-    hopper = [f.sm90_launches for f in bwd]
+    hopper = counts()
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     tr.tied_row_attention(*leaves, q_mask=mask, kv_mask=mask, sm_scale=scale,
                           tie_scale=tie).backward(do)
     ran = [f.launches - n0 for f, n0 in zip(wrappers, before)]
     require(ran == [1, 1, 1], f"{label}: the autograd route launched {ran}")
-    require([f.sm90_launches - n0 for f, n0 in zip(bwd, hopper)] == hop,
+    require([(a - a0, w - w0) for (a, w), (a0, w0) in zip(counts(), hopper)] == hop,
             f"{label}: the autograd route's backward left the Hopper kernels")
     require(all(torch.equal(a.grad, x) for a, x in zip(leaves, (dq, dk, dv))),
             f"{label}: the autograd route differs from the direct kernel calls")
@@ -1753,6 +1866,11 @@ def tied_case(label, b, r, n, h, d, dtype, gen, reps=3, library=False, rows=None
         fwd["ms"] = cuda_ms(forward, reps)
         row_q["ms"] = cuda_ms(lambda: tr.tied_row_attention_dq(*args), reps)
         row_kv["ms"] = cuda_ms(lambda: tr.tied_row_attention_dkv(*args), reps)
+        row_q["grads_ms"] = cuda_ms(lambda: tr.tied_row_attention_grads(*args), reps)
+        if plan is not None and plan["wide"]:  # device time by pass
+            profile_device(f"K2 with lse on the wide route, {label}", forward)
+            profile_device(f"K2's backward in one call on the wide route, {label}",
+                           lambda: tr.tied_row_attention_grads(*args))
         fwd["plain_ms"] = cuda_ms(lambda: tr.tied_row_attention_lse_reference(
             q, k, v, mask, mask, scale, tie), reps)
         row_q["plain_ms"] = cuda_ms(lambda: tr.tied_row_attention_dq_reference(*args), reps)
@@ -1846,6 +1964,8 @@ def _reset_counts(kernels, plain):
         fn.launches = 0
         if hasattr(fn, "sm90_launches"):
             fn.sm90_launches = 0
+        if hasattr(fn, "wide_launches"):
+            fn.wide_launches = 0
     for fn in plain:
         fn.calls = 0
 
@@ -2602,12 +2722,12 @@ def _expected_launches(label, depth):
             "fused_attention_bwd_dkv": 6 * depth - 1}
 
 
-def _entry_point_run(tag, label, cfg, e2e, steps, reps, key=None, fallback=()):
+def _entry_point_run(tag, label, cfg, e2e, steps, reps, key=None):
     """``steps`` steps of ``cfg`` through its training entry point
     (train.loop.train, or train_end2end with ``e2e``) from launch counts
     of 0: finite losses, no skipped step, every launch on its Hopper
-    kernel (the kernels named in ``fallback``, whose plan at this shape
-    takes the chunked kernel, on no Hopper kernel), no plain version. Then
+    kernel (K2's on the resident kernels or the wide route), no plain
+    version. Then
     the step alone over ``reps`` warm steps (under the dropout ``key``
     where one is given) with its peak memory. Returns the launches a step
     by _training_kernels name, the step's ms, its peak bytes and the
@@ -2627,10 +2747,9 @@ def _entry_point_run(tag, label, cfg, e2e, steps, reps, key=None, fallback=()):
     del state
     per_step = {name: fn.launches / steps for name, fn in kernels.items() if fn.launches}
     missed = {name: fn.launches - fn.sm90_launches for name, fn in kernels.items()
-              if hasattr(fn, "sm90_launches") and name not in fallback
-              and fn.sm90_launches != fn.launches}
-    missed.update({name: -kernels[name].sm90_launches for name in fallback
-                   if kernels[name].sm90_launches})
+              if hasattr(fn, "sm90_launches") and fn.sm90_launches != fn.launches}
+    wide = {name: fn.wide_launches / steps for name, fn in kernels.items()
+            if getattr(fn, "wide_launches", 0)}
     plain_calls = sum(fn.calls for fn in plain)
     _free()
     resident = torch.cuda.memory_allocated()  # held before the model is built
@@ -2642,8 +2761,8 @@ def _entry_point_run(tag, label, cfg, e2e, steps, reps, key=None, fallback=()):
         + " ".join(f"{x:.4f}" for x in losses) + f", skipped {skipped}; the step alone "
         f"{step_ms:.2f} ms ({1e3 / step_ms:.3f} steps/s) over {reps} steps, peak device "
         f"memory {peak / 2**20:.1f} MiB ({resident / 2**20:.1f} MiB held before the model); "
-        f"kernel launches a step {per_step}; launches off their Hopper kernel {missed}; "
-        f"plain-version calls {plain_calls}")
+        f"kernel launches a step {per_step}; of them on K2's wide route {wide}; launches "
+        f"off their Hopper kernel {missed}; plain-version calls {plain_calls}")
     require(bool(np.isfinite(losses).all()) and all(oks) and skipped == 0,
             f"{label}: a non-finite loss or a skipped step")
     require(not missed, f"{label}: a launch missed its Hopper kernel")
@@ -3287,6 +3406,12 @@ PLM_TIED_LABEL = "PLM tied rows, distogram (1x128x128x8x64, R*D 8192)"
 PLM_TIED = (1, 128, 128, 8, 64)
 PLM_E2E_TIED_LABEL = "PLM tied rows, end to end (1x192x192x8x64, R*D 12288)"
 PLM_E2E_TIED = (1, 192, 192, 8, 64)
+# config_4's tied MSA rows: 16 rows of 128 (R*D 1024)
+CONFIG4_TIED_LABEL = "config_4 MSA rows (1x16x128x8x64, R*D 1024)"
+CONFIG4_TIED = (1, 16, 128, 8, 64)
+# the wide route's shapes on the port's paths
+WIDE_TIED_CASES = {PLM_TIED_LABEL: PLM_TIED, PLM_E2E_TIED_LABEL: PLM_E2E_TIED,
+                   CONFIG4_TIED_LABEL: CONFIG4_TIED}
 
 
 def _template_axis_mask(b):
@@ -3419,9 +3544,10 @@ def phase_slice_kernels():
     """The kernels on the shapes the template and PLM paths give them that
     no earlier phase runs: K1 and K3a/K3b on the template-axis launch (f32
     and bf16, timed in bf16 beside SDPA); K2 with lse and its backward on
-    the PLM grid's tied rows at R*D 8192 (f32 and bf16, timed in bf16
-    beside SDPA) and at R*D 12288, the chunked kernels' shapes
-    (tied_row.hopper_plan and hopper_bwd_plan give no Hopper plan there)."""
+    the PLM grid's tied rows at R*D 8192 and 12288 and on config_4's MSA
+    rows at R*D 1024 (f32 and bf16, timed in bf16 beside SDPA), the wide
+    route's shapes (tied_row.wide_plan and wide_bwd_plan take them,
+    hopper_plan and hopper_bwd_plan do not)."""
     import torch
 
     from alphafold2_tpu_torch.ops.cuda import tied_row as tr
@@ -3431,13 +3557,15 @@ def phase_slice_kernels():
     for dt in (torch.bfloat16, torch.float32):
         bf16 = dt == torch.bfloat16
         rows += template_axis_case(dt, gen, reps=10 if bf16 else 0, library=bf16)
-    for label, (b, r, n, h, d) in ((PLM_TIED_LABEL, PLM_TIED),
-                                   (PLM_E2E_TIED_LABEL, PLM_E2E_TIED)):
-        plans = (tr.hopper_plan(b, r, h, n, d), tr.hopper_bwd_plan("dq", b, h, n, n, r * d, d),
-                 tr.hopper_bwd_plan("dkv", b, h, n, n, r * d, d))
-        require(plans == (None, None, None), f"{label}: a Hopper plan at R*D {r * d}: {plans}")
+    for label, (b, r, n, h, d) in WIDE_TIED_CASES.items():
+        resident = (tr.hopper_plan(b, r, h, n, d), tr.hopper_bwd_plan("dq", b, h, n, n, r * d, d),
+                    tr.hopper_bwd_plan("dkv", b, h, n, n, r * d, d))
+        wide = (tr.wide_plan(b, r, h, n, n, d), tr.wide_bwd_plan(b, h, n, n, r * d, d))
+        require(resident == (None, None, None) and None not in wide,
+                f"{label}: R*D {r * d} must take the wide route: resident plans {resident}, "
+                f"wide plans {wide}")
         for dt in (torch.bfloat16, torch.float32):
-            timed = dt == torch.bfloat16 and label == PLM_TIED_LABEL
+            timed = dt == torch.bfloat16
             rows += tied_case(label, b, r, n, h, d, dt, gen, reps=10 if timed else 0,
                               library=timed)
     for r in rows:
@@ -3445,7 +3573,9 @@ def phase_slice_kernels():
             log(f"[slice kernels] time {r['kernel']} {r['label']} {r['dtype']}: kernel "
                 f"{r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, sdpa {r.get('library_ms')} ms, "
                 f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
-                f"{r['bound_ms'] / r['ms']:.1%} of the bound)")
+                f"{r['bound_ms'] / r['ms']:.1%} of the bound)"
+                + (f"; dq, dk and dv in one call {r['grads_ms']:.4f} ms" if "grads_ms" in r
+                   else ""))
     return rows
 
 
@@ -3548,10 +3678,10 @@ def _template_run(label, se3, card, profile=False):
     """config_4 at full width (_template_model, bf16) on its inputs:
     TEMPLATE_STEPS forward and backward passes from launch counts of 0
     (finite losses and gradients, every K1 and K3 launch on its Hopper
-    kernel, K2 and its backward on the chunked kernels their plans name at
-    R*D 1024, launches a step as _template_expected gives them, no plain
-    version), then the pass alone and its peak memory; with ``profile``
-    one pass under torch.profiler."""
+    kernel, every K2 launch and its backward on the wide route at R*D 1024,
+    launches a step as _template_expected gives them, no plain version),
+    then the pass alone and its peak memory; with ``profile`` one pass
+    under torch.profiler."""
     import numpy as np
     import torch
 
@@ -3562,9 +3692,9 @@ def _template_run(label, se3, card, profile=False):
     model = init_params(_template_model(se3), 0).cuda()
     inputs = _template_inputs(TEMPLATE_CROP, TEMPLATE_MSA, TEMPLATE_T, se3, "cuda")
     r, l = TEMPLATE_MSA
-    plans = {"tied_row_attention": tr.hopper_plan(1, r, 8, l, 64),
-             "tied_row_attention_bwd_dq": tr.hopper_bwd_plan("dq", 1, 8, l, l, r * 64, 64),
-             "tied_row_attention_bwd_dkv": tr.hopper_bwd_plan("dkv", 1, 8, l, l, r * 64, 64)}
+    require(tr.wide_plan(1, r, 8, l, l, 64) is not None
+            and tr.wide_bwd_plan(1, 8, l, l, r * 64, 64) is not None,
+            f"{label}: the MSA rows at R*D {r * 64} do not take the wide route")
     _reset_counts(kernels, plain)
     losses, finite = [], []
     for _ in range(TEMPLATE_STEPS):
@@ -3575,6 +3705,8 @@ def _template_run(label, se3, card, profile=False):
     per_step = {n: fn.launches / TEMPLATE_STEPS for n, fn in kernels.items() if fn.launches}
     hopper = {n: fn.sm90_launches / TEMPLATE_STEPS for n, fn in kernels.items()
               if hasattr(fn, "sm90_launches") and fn.launches}
+    wide = {n: fn.wide_launches / TEMPLATE_STEPS for n, fn in kernels.items()
+            if hasattr(fn, "wide_launches") and fn.launches}
     plain_calls = sum(fn.calls for fn in plain)
     expected = _template_expected()
     step_ms, peak = _time_step(lambda: _template_step(model, inputs), TEMPLATE_REPS)
@@ -3582,16 +3714,19 @@ def _template_run(label, se3, card, profile=False):
         f"templates, dim {model.dim}, depth 2, 2 template blocks, bf16: losses "
         + " ".join(f"{x:.5f}" for x in losses) + f"; the pass alone {step_ms:.2f} ms over "
         f"{TEMPLATE_REPS}, peak device memory {peak / 2**20:.1f} MiB; kernel launches a step "
-        f"{per_step}; on a Hopper kernel {hopper}; plain-version calls {plain_calls}")
+        f"{per_step}; on a Hopper kernel {hopper}, of them on the wide route {wide}; "
+        f"plain-version calls {plain_calls}")
     require(bool(np.isfinite(losses).all()) and all(finite),
             f"{label}: a non-finite loss or gradient")
     require(plain_calls == 0, f"{label}: a plain version ran")
     for name, n in expected.items():
         require(per_step.get(name, 0) == n, f"{label}: {name} launched {per_step.get(name, 0)} "
                                             f"times a step, expected {n}")
-        on_hopper = name.startswith("fused") or plans[name] is not None
-        require(hopper.get(name, 0) == (n if on_hopper else 0),
+        require(hopper.get(name, 0) == n,
                 f"{label}: {name} on a Hopper kernel {hopper.get(name, 0)} times a step")
+        if name.startswith("tied"):
+            require(wide.get(name, 0) == n,
+                    f"{label}: {name} on the wide route {wide.get(name, 0)} times a step")
     if profile:
         profile_device(f"one config_4 pass, {label} ({card})",
                        lambda: _template_step(model, inputs), host=True)
@@ -3719,8 +3854,8 @@ def phase_plm():
     stream on the card against the CPU's plain versions, every gradient
     leaf; then each PLM_RUNS configuration through train.loop.train or
     train_end2end (_entry_point_run): finite, unskipped, every K1 and K3
-    launch on its Hopper kernel, K2 and its backward on the chunked kernels
-    their plans name at R*D 8192 and 12288, launches a step as
+    launch on its Hopper kernel, every K2 launch and its backward on the
+    wide route at R*D 8192 and 12288, launches a step as
     _plm_expected gives them, the step alone with its peak memory (one
     tied distogram and one tied end-to-end step profiled); the precomputed
     runs (an .npz the phase writes from the hash provider for
@@ -3748,11 +3883,8 @@ def phase_plm():
     runs = {}
     for label, (tied, provider, e2e) in PLM_RUNS.items():
         cfg = _plm_config(tied, provider, e2e, npz if provider == "precomputed" else None)
-        fallback = (("tied_row_attention", "tied_row_attention_bwd_dq",
-                     "tied_row_attention_bwd_dkv") if tied else ())
         run = _entry_point_run(f"[plm] ({card})", label, cfg, e2e,
-                               PLM_E2E_STEPS if e2e else PLM_STEPS, PLM_REPS,
-                               fallback=fallback)
+                               PLM_E2E_STEPS if e2e else PLM_STEPS, PLM_REPS)
         expected = _plm_expected(cfg, e2e)
         off = {n: (run["launches"].get(n, 0), x) for n, x in expected.items()
                if run["launches"].get(n, 0) != x}
@@ -4299,6 +4431,90 @@ def phase_k2_time(reps=10):
             f"{6 * step[f'sdpa_bwd_{kind}ms']:.3f}")
     return rows
 
+
+
+def phase_k2_wide_time(reps=10):
+    """K2 with lse and K2's backward (dq; dk and dv; the three in one call
+    where the tree has tied_row_attention_grads) on the wide route's shapes
+    (WIDE_TIED_CASES: the PLM grid's tied rows at R*D 8192 and 12288,
+    config_4's at 1024), bf16, beside SDPA's forward and whole backward on
+    the folded (B, H, N, R*D) tensors where a backend takes that head dim:
+    a call's time by CUDA events over ``reps`` calls and its device time
+    under torch.profiler. No checks (phase_slice_kernels holds the kernels
+    to their plain versions); only the public wrappers, so chip_compare.sh
+    runs it on a parent's kernels. Returns {label: row}."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
+
+    from alphafold2_tpu_torch.ops.cuda import tied_row as tr
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    rows = {}
+    for label, (b, r, n, h, d) in WIDE_TIED_CASES.items():
+        q, k, v, do, mask, tie = _tied_operands(b, r, n, h, d, torch.bfloat16, gen)
+        scale = d**-0.5
+        out, lse = tr.tied_row_attention_lse(q, k, v, mask, mask, scale, tie)
+        args = (q, k, v, do, lse, tr.tied_row_dsum(out, do), mask, mask, scale, tie)
+        calls = {"lse": lambda: tr.tied_row_attention_lse(q, k, v, mask, mask, scale, tie),
+                 "dq": lambda: tr.tied_row_attention_dq(*args),
+                 "dkv": lambda: tr.tied_row_attention_dkv(*args)}
+        if hasattr(tr, "tied_row_attention_grads"):
+            calls["grads"] = lambda: tr.tied_row_attention_grads(*args)
+        fold = lambda t: t.permute(0, 3, 2, 1, 4).reshape(b, h, n, r * d)
+        qf = (fold(q).float() * tie[:, None, None, None]).to(torch.bfloat16)
+        leaves = [t.detach().requires_grad_() for t in (qf, fold(k), fold(v))]
+        am = mask[:, None, None, :]
+        sdpa = lambda *t: F.scaled_dot_product_attention(*t, attn_mask=am, scale=scale)
+        backend = _sdpa_backend(lambda: sdpa(*leaves).backward(fold(do)))
+        row = {"sdpa_backend": backend.name if backend is not None else None}
+        for name, fn in calls.items():
+            row[f"{name}_ms"] = cuda_ms(fn, reps)
+            row[f"{name}_device_ms"] = _device_ms(fn)
+        if backend is not None:
+            with sdpa_kernel([backend]):
+                o = sdpa(*leaves)
+                g = fold(do)
+                for name, fn in (("sdpa_fwd", lambda: sdpa(*(t.detach() for t in leaves))),
+                                 ("sdpa_bwd", lambda: torch.autograd.grad(
+                                     o, leaves, g, retain_graph=True))):
+                    row[f"{name}_ms"] = cuda_ms(fn, reps)
+                    row[f"{name}_device_ms"] = _device_ms(fn)
+                del o, g
+        rows[label] = row
+        log(f"[k2 wide time] {label}, SDPA on {row['sdpa_backend']}: " + "; ".join(
+            f"{m[:-3]} {x:.4f} ms" for m, x in row.items() if m.endswith("_ms")
+            and not m.endswith("device_ms")) + " | device: " + "; ".join(
+            f"{m[:-10]} {x:.4f} ms" for m, x in row.items() if m.endswith("device_ms")))
+        del q, k, v, do, out, lse, args, leaves, calls
+        _free()
+    return rows
+
+
+def phase_wide_steps(reps=3):
+    """The training steps whose tied rows take K2's wide route, each alone
+    over ``reps`` warm steps with its peak memory: the plm tied distogram
+    step (R*D 8192), the plm tied end-to-end step (12288) and config_4's
+    template pass without the SE(3) embedder (1024). No checks (phase_plm
+    and phase_templates hold them); chip_compare.sh runs it on a parent's
+    package. Returns {label: (ms, peak bytes)}."""
+    from alphafold2_tpu_torch.predict import init_params
+
+    out = {}
+    for label, tied_e2e in (("plm tied hash", False), ("plm e2e tied", True)):
+        fn = _step_fn(_plm_config(True, "hash", tied_e2e), tied_e2e)
+        out[label] = _time_step(fn, reps)
+        del fn
+        _free()
+    model = init_params(_template_model(False), 0).cuda()
+    inputs = _template_inputs(TEMPLATE_CROP, TEMPLATE_MSA, TEMPLATE_T, False, "cuda")
+    out["config_4 templates"] = _time_step(lambda: _template_step(model, inputs), reps)
+    del model, inputs
+    _free()
+    for label, (ms, peak) in out.items():
+        log(f"[wide steps] {label} ({_card()}): the step alone {ms:.2f} ms over {reps}, peak "
+            f"device memory {peak / 2**20:.1f} MiB")
+    return out
 
 
 # K1 and K3 at head dim 256 (b, h, nq, nk): head_dim_case's problem, and the
@@ -5106,7 +5322,10 @@ def profile_device(what, fn, host=False):
     # (serving) or <64,64> (tied training), K3a/K3b as
     # dq_kernel_sm90 / dkv_kernel_sm90 (and grad_merge_kernel<64> where they
     # split), K2's backward as tied_dq_kernel_sm90<64,64> /
-    # tied_dkv_kernel_sm90<64,64> (tied training)
+    # tied_dkv_kernel_sm90<64,64> (tied training); K2 and its backward on
+    # the wide route (the plm grid, config_4) as tied_wide_logits_kernel,
+    # tied_wide_softmax_kernel / tied_wide_grad_kernel and
+    # tied_wide_product_kernel
     for ms, count, name in sorted(rows, reverse=True)[:12]:
         log(f"[profile] {ms:9.2f} ms {ms / busy:6.1%} x{count:<6d} {name[:90]}")
     if not host:
@@ -5161,7 +5380,7 @@ def _shape_entry(rows, kernel, label):
     (r,) = [r for r in rows if r["kernel"] == kernel and r["label"] == label
             and r["dtype"] == "bfloat16"]
     return {k: r.get(k) for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                  "max_abs_err")}
+                                  "max_abs_err", "grads_ms") if k in r}
 
 
 def kernel_line(rows, serve, train, tied_train, sparse_train, gate, engines, telemetry,
@@ -5194,7 +5413,11 @@ def kernel_line(rows, serve, train, tied_train, sparse_train, gate, engines, tel
     data source of phase_data. K1, K3a and K3b carry in ``shapes`` their
     numbers on the template-axis launch (phase_slice_kernels) and on
     config_3's compressed pair<-MSA pass (phase_compress), K2 and its
-    backward on the PLM grid's tied rows at R*D 8192, bf16."""
+    backward on the wide route's shapes (the PLM grid's tied rows at R*D
+    8192 and 12288, config_4's at 1024), bf16, the backward's with
+    ``grads_ms`` (dq, dk and dv in one call); K2 and its backward list
+    ``instantiations``: their Hopper kernels on the resident and the wide
+    route."""
     serve_k1 = {"pair axial pass (1536x8, 384x384, d64)": 2,
                 "MSA column pass (512x8, 5x5, d64)": 1,
                 "pair<-MSA cross (4x8, 147456x640, d64)": 1,
@@ -5256,14 +5479,39 @@ def kernel_line(rows, serve, train, tied_train, sparse_train, gate, engines, tel
                                          ("fused_attention_bwd_dq", COMPRESS_LABEL)],
               "fused_attention_bwd_dkv": [("fused_attention_bwd_dkv", TEMPLATE_AXIS_LABEL),
                                           ("fused_attention_bwd_dkv", COMPRESS_LABEL)],
-              "tied_row_attention": [("tied_row_attention (lse)", PLM_TIED_LABEL)],
-              "tied_row_attention_bwd_dq": [("tied_row_attention_bwd_dq", PLM_TIED_LABEL)],
-              "tied_row_attention_bwd_dkv": [("tied_row_attention_bwd_dkv", PLM_TIED_LABEL)]}
+              "tied_row_attention": [("tied_row_attention (lse)", x) for x in WIDE_TIED_CASES],
+              "tied_row_attention_bwd_dq": [("tied_row_attention_bwd_dq", x)
+                                            for x in WIDE_TIED_CASES],
+              "tied_row_attention_bwd_dkv": [("tied_row_attention_bwd_dkv", x)
+                                             for x in WIDE_TIED_CASES]}
     for e in entries:
         for kernel, label in shapes.get(e["name"], ()):
             key = label if kernel == e["name"] else f"{label}, {kernel}"
             e.setdefault("shapes", {})[key] = _shape_entry(rows, kernel, label)
+    for e in entries:
+        if e["name"] in _K2_INSTANTIATIONS:
+            e["instantiations"] = _K2_INSTANTIATIONS[e["name"]]()
     return {"kernels": entries}
+
+
+def _k2_routes(which):
+    """K2's Hopper instantiations by route: the resident kernel at the
+    serving (forward) or tied training (backward) pass, the wide route's
+    passes at the PLM grid's tied rows."""
+    from alphafold2_tpu_torch.ops.cuda import tied_row as tr
+
+    b, r, n, h, d = PLM_TIED
+    if which == "fwd":
+        return {"resident": tr.hopper_plan(4, 5, 8, 128, 64)["kernel"],
+                "wide": [x["kernel"] for x in tr.wide_plan(b, r, h, n, n, d)["passes"]]}
+    passes = tr.wide_bwd_plan(b, h, n, n, r * d, d)["passes"]
+    return {"resident": tr.hopper_bwd_plan(which, 1, 8, 64, 64, 320, 64)["kernel"],
+            "wide": [x["kernel"] for x in passes[:2] + [passes[2 if which == "dq" else 3]]]}
+
+
+_K2_INSTANTIATIONS = {"tied_row_attention": lambda: _k2_routes("fwd"),
+                      "tied_row_attention_bwd_dq": lambda: _k2_routes("dq"),
+                      "tied_row_attention_bwd_dkv": lambda: _k2_routes("dkv")}
 
 
 def _card() -> str:

@@ -202,7 +202,9 @@ def test_cases_stand_for_the_jax_gate_one_for_one():
         "train_msa_column", "train_msa_row", "train_cross_pair_from_msa",
         "train_cross_msa_from_pair", "train_tied_rows", "sparse_train_pair_128",
         "sparse_pair_512", "edge_dense_d128", "edge_sparse_block128_d128",
-        "edge_tied_rows_1280", "edge_dense_d256", "scale_rows_4x512"]
+        "edge_tied_rows_1280", "edge_tied_rows_wide_d32", "edge_tied_rows_wide_d128",
+        "plm_tied_rows_8192", "plm_e2e_tied_rows_12288", "config4_tied_rows_1024",
+        "edge_dense_d256", "scale_rows_4x512"]
 
 
 def test_case_shapes_and_sources():
@@ -215,11 +217,25 @@ def test_case_shapes_and_sources():
     # K2's backward at JAX's case_tied_row_bwd shape, R*D 512, and at the
     # training shape, R*D 320: K2 with lse, then dq (K2a) and dk/dv (K2b),
     # each planned with its fused axis, its row width (D) and TMA-aligned
-    # operands
-    assert [(l.role, l.source, l.args) for l in by["tied_row_bwd_256"].launches] == [
-        ("K2", "tied_row_attention", (None, 1, 8, 4, 256, 256, 64, 1)),
-        ("K2a", "tied_row_attention_bwd", (0, None, 1, 4, 256, 256, 512, 64, 1)),
-        ("K2b", "tied_row_attention_bwd", (1, None, 1, 4, 256, 256, 512, 64, 1))]
+    # operands; at R*D 512 the backward takes the wide route, whose later
+    # passes (p and ds, K2g; the dq and dk/dv products) plan in bf16
+    assert [(l.role, l.source, l.symbol, l.args, l.dtypes)
+            for l in by["tied_row_bwd_256"].launches] == [
+        ("K2", "tied_row_attention", "af2_tied_row_attention_plan",
+         (None, 1, 8, 4, 256, 256, 64, 1), lowering.DTYPES),
+        ("K2a", "tied_row_attention_bwd", "af2_tied_row_attention_bwd_plan",
+         (0, None, 1, 4, 256, 256, 512, 64, 1), lowering.DTYPES),
+        ("K2b", "tied_row_attention_bwd", "af2_tied_row_attention_bwd_plan",
+         (1, None, 1, 4, 256, 256, 512, 64, 1), lowering.DTYPES),
+        *((role, "tied_row_attention_bwd", "af2_tied_row_attention_bwd_wide_pass",
+           (pass_, None, 1, 4, 256, 256, 512, 64, 1), ("bfloat16",))
+          for role, pass_ in (("K2g", 1), ("K2a", 2), ("K2b", 3)))]
+    # the wide forward: the logits through K2's plan, then its softmax and
+    # P V' passes in bf16
+    assert [(l.symbol, l.args[:2]) for l in by["plm_tied_rows_8192"].launches[:3]] == [
+        ("af2_tied_row_attention_plan", (None, 1)),
+        ("af2_tied_row_attention_wide_pass", (1, None)),
+        ("af2_tied_row_attention_wide_pass", (2, None))]
     assert [l.args for l in by["train_tied_rows"].launches] == [
         (None, 1, 5, 8, 64, 64, 64, 1), (0, None, 1, 8, 64, 64, 320, 64, 1),
         (1, None, 1, 8, 64, 64, 320, 64, 1)]
@@ -456,13 +472,17 @@ def test_k4_hopper_kernel_fits_sm90():
     ("train_tied_rows", "tied_row_attention_kernel_sm90<64,64>"),
     ("tied_row_fwd_256", "tied_row_attention_kernel_sm90<64,64>"),
     ("tied_row_bwd_256", "tied_row_attention_kernel_sm90<64,64>"),
-    ("edge_tied_rows_1280", None),
+    ("edge_tied_rows_1280", "tied_wide_logits_kernel<64,2>"),
+    ("plm_tied_rows_8192", "tied_wide_logits_kernel<64,2>"),
+    ("edge_tied_rows_wide_d32", "tied_wide_logits_kernel<32,2>"),
+    ("edge_tied_rows_wide_d128", "tied_wide_logits_kernel<128,2>"),
 ])
 def test_k2_plans_with_tma_aligned_operands(case, kernel):
     """K2 plans at the case's shape with operands TMA can describe (the
     ``aligned`` argument), so bf16 at R*D up to 512 plans the Hopper kernel
     (the instantiation tied_row.hopper_plan names, as the C plan does on the
-    card) and R*D 1280 keeps attention_kernel_mma; both dtypes launch it."""
+    card) and a wider R*D the wide route (its logits pass, as
+    tied_row.wide_plan names it); both dtypes launch it."""
     k2 = {c.name: c for c in lowering.CASES}[case].launches[0]
     assert k2.role == "K2" and k2.source == "tied_row_attention"
     assert k2.symbol == "af2_tied_row_attention_plan" and k2.dtypes == lowering.DTYPES
@@ -470,8 +490,8 @@ def test_k2_plans_with_tma_aligned_operands(case, kernel):
     assert aligned == 1 and nq == nk
     assert k2.plan_args("bfloat16") == (1, b, r, h, nq, nk, d, 1)
     assert len(build.SIGNATURES["tied_row_attention"][k2.symbol]) == 9
-    plan = tied_row.hopper_plan(b, r, h, nq, d)
-    assert (plan["kernel"] if plan else None) == kernel
+    plan = tied_row.hopper_plan(b, r, h, nq, d) or tied_row.wide_plan(b, r, h, nq, nk, d)
+    assert plan["kernel"] == kernel
 
 
 def test_k2_hopper_kernel_fits_sm90():
@@ -633,7 +653,9 @@ def test_run_gate_assembles_cases(tmp_path, monkeypatch):
     # 3 launches x 2 dtypes, all naming dq_kernel<__nv_bfloat16,64,128>, which the report has
     assert len(by["block_sparse_bwd_n512"]["launches"]) == 6 and by["block_sparse_bwd_n512"]["ok"]
     tied = by["tied_row_bwd_256"]
-    assert tied["ok"] and [r["role"] for r in tied["launches"]] == ["K2", "K2a", "K2b"] * 2
+    # f32 plans the three chunked launches; bf16 the wide backward's passes too
+    assert tied["ok"] and [r["role"] for r in tied["launches"]] == (
+        ["K2", "K2a", "K2b"] + ["K2", "K2a", "K2b", "K2g", "K2a", "K2b"])
     assert summary == {"gate": "hopper_build", "cases": 4, "failed": [],
                        "control_rejected": True}
 

@@ -107,11 +107,21 @@ class Case:
 
 def _k1(b, h, nq, nk, d):
     """K1 at one shape, with the split its wrapper passes and operands as
-    TMA can describe them; where the key axis is split (bf16 only), the
-    combine pass too."""
+    TMA can describe them: bf16 under 64 queries and keys plans the packed
+    kernel (attention_packed_kernel_sm90), other bf16 at head dim 32, 64 or
+    128 attention_kernel_sm90 and, where the key axis is split, the combine
+    pass too. Past head dim 128 at a multiple of 64 the
+    wrapper sends bf16 to K2's plan, the head dim as rows of 64
+    (tied_row_attention_kernel_sm90 through the strided entry), and f32 to
+    fused_attention.cu's D-chunked kernel."""
     splits = key_splits(b, h, nq, nk, d)
     main = Launch("K1", "fused_attention", "af2_fused_attention_plan",
                   (None, b, h, nq, nk, d, splits, 1))
+    if d > 128 and row_width(d) < d:
+        rows = Launch("K1", "tied_row_attention", "af2_tied_row_attention_plan",
+                      (None, b, d // row_width(d), h, nq, nk, row_width(d), 1),
+                      dtypes=("bfloat16",))
+        return (dataclasses.replace(main, dtypes=("float32",)), rows)
     if splits == 1:
         return (main,)
     return (main, Launch("K1c", "fused_attention", "af2_fused_attention_combine_plan",
@@ -249,9 +259,16 @@ PORT_CASES = (
     Case("plm_tied_rows_8192", (*_k2(1, 128, 8, 128, 64), *_k2_bwd(1, 128, 8, 128, 64))),
     Case("plm_e2e_tied_rows_12288", (*_k2(1, 192, 8, 192, 64), *_k2_bwd(1, 192, 8, 192, 64))),
     Case("config4_tied_rows_1024", (*_k2(1, 16, 8, 128, 64), *_k2_bwd(1, 16, 8, 128, 64))),
-    # a head dim past 128: K1 D-chunked, K3a/K3b through tied_row_attention_bwd.cu
-    # as 4 rows of 64
+    # a head dim past 128: K1 (bf16) and K3a/K3b through K2's kernels as 4
+    # rows of 64 (f32 K1 D-chunked); the pair axial pass at dim_head 256
     Case("edge_dense_d256", (*_k1(1, 2, 130, 130, 256), *_k3(1, 2, 130, 130, 256))),
+    Case("pair_axial_d256", (*_k1(128, 8, 128, 128, 256), *_k3(128, 8, 128, 128, 256))),
+    # K1's packed kernel: the template axis (crop 384, 4 templates), config_4's
+    # MSA column pass (MSA 16), and its other instantiations (head dims 32, 128)
+    Case("template_axis", (*_k1(384 * 384, 8, 5, 5, 64), *_k3(384 * 384, 8, 5, 5, 64))),
+    Case("config4_msa_column", (*_k1(128, 8, 16, 16, 64), *_k3(128, 8, 16, 16, 64))),
+    Case("edge_packed_d32", (*_k1(100, 4, 7, 7, 32), *_k3(100, 4, 7, 7, 32))),
+    Case("edge_packed_d128", (*_k1(100, 4, 7, 7, 128), *_k3(100, 4, 7, 7, 128))),
     # X's valid form at X's shape (f32 only, as X)
     Case("scale_rows_4x512", (_x(4, 512),), dtypes=("float32",)),
 )

@@ -18,21 +18,34 @@
 // arithmetic rate. The plan picks one of three kernels, by dtype, head dim
 // and alignment alone (never by retrying a failed launch):
 //
-// * bf16 at head dim 32, 64 or 128 with operands TMA can describe (16-byte
-//   aligned bases, strides of 8 elements): attention_kernel_sm90
-//   (fused_attention_sm90.cuh): TMA-fed K/V ring, wgmma, skipped masked
-//   tiles, and where the grid is short of two waves a split over the key
-//   axis merged by combine_kernel. Every main-path shape takes it.
+// * bf16 at head dim 32, 64 or 128 with fewer than 64 queries and keys
+//   and operands TMA can describe: attention_packed_kernel_sm90
+//   (fused_attention_packed_sm90.cuh): G = min(2 floor(64/nq), floor(128/nk))
+//   problems of one head packed into one 128 x 128 tile under a
+//   block-diagonal mask, persistent blocks walking the tiles. The template
+//   axis and the MSA column passes take it.
+// * any other bf16 problem at head dim 32, 64 or 128 with operands TMA can
+//   describe (16-byte aligned bases, strides of 8 elements):
+//   attention_kernel_sm90 (fused_attention_sm90.cuh): TMA-fed K/V ring,
+//   wgmma, skipped masked tiles, and where the grid is short of two waves a
+//   split over the key axis merged by combine_kernel. The other seven
+//   main-path passes take it.
 // * any other bf16 problem: attention_kernel_mma (attention_tile.cuh,
 //   mma.sync on tiles staged by ordinary loads), which K2 also runs.
 // * f32: attention_kernel on the CUDA cores, the exactness path of the
 //   small-model checks.
 //
-// A head dim past 128 runs the same two tile kernels D-chunked, as K2 runs
-// its fused R*D axis: one block per 64-wide output chunk, the logits
+// A bf16 head dim past 128 that is a multiple of 64 never reaches this
+// file: the wrapper (ops/cuda/axial.py) runs it on K2's kernels
+// (tied_row_attention.cu's strided entry, whose plan takes the Hopper walk
+// where TMA can describe the operands), the head dim read as R = D/64 rows
+// of 64 features under tie scale 1, as K3a/K3b have run it since their
+// Hopper port. Any other head dim past 128 (f32, a head dim that is not a
+// multiple of 64) runs the tile kernels here D-chunked, as K2 runs its
+// fused R*D axis: one block per 64-wide output chunk, the logits
 // accumulated over 64-wide feature chunks (attention_tile.cuh). Head dims
 // below 128 that no kernel is built for are zero-padded up to the next one
-// by the caller (ops/cuda/axial.py), which is exact.
+// by the caller, which is exact.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // (alphafold2_tpu_torch/ops/cuda/build.py). Bound with ctypes.
@@ -42,6 +55,7 @@
 // TPU path's `_kernel` does beside `_kernel_no_lse` (:110-120).
 
 #include "attention_tile.cuh"
+#include "fused_attention_packed_sm90.cuh"
 #include "fused_attention_sm90.cuh"
 
 namespace {
@@ -64,14 +78,26 @@ cudaError_t dispatch_sm90(const af2::Problem& p, int splits, float* partials,
   return af2::sm90::launch_attention<D>(p, splits, partials, stream);
 }
 
+template <int D>
+cudaError_t dispatch_packed(const af2::Problem& p, cudaStream_t stream,
+                            Af2LaunchPlan* plan_out) {
+  if (plan_out != nullptr) {
+    *plan_out = af2::sm90::packed::plan_packed<D>(p.batch, p.heads, p.nq, p.nk);
+    return cudaSuccess;
+  }
+  return af2::sm90::packed::launch_packed<D>(p, stream);
+}
+
 // Launches K1, or with `plan_out` only fills its plan (strides may then be
 // null, no pointer is read, and `aligned` stands for the operands'
-// alignment; a launch finds it from the pointers and strides). `splits` is
-// ops/cuda/axial.py key_splits() of the shape: the redesigned kernel takes
-// it as given, the others run whole. `info`, when given, receives the
-// kernel taken (1: attention_kernel_sm90, 0: another) and the splits run;
-// with more than one, the partials are in `partials` and the caller
-// launches af2_fused_attention_combine next.
+// alignment; a launch finds it from the pointers and strides).
+// `splits` is ops/cuda/axial.py key_splits() of the shape:
+// attention_kernel_sm90 takes it as given, the others run whole (it is 1
+// on every shape the packed kernel takes). `info`, when given, receives
+// {1 if a Hopper kernel ran (attention_kernel_sm90 or the packed one), the
+// splits run, 1 if the packed kernel ran}; with more than one split, the
+// partials are in `partials` and the caller launches
+// af2_fused_attention_combine next.
 int run(int dtype, const void* q, const void* k, const void* v, void* out, float* lse,
         const unsigned char* q_mask, const unsigned char* kv_mask, const long long* strides,
         int batch, int heads, int nq, int nk, int head_dim, float sm_scale, int splits,
@@ -105,9 +131,18 @@ int run(int dtype, const void* q, const void* k, const void* v, void* out, float
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool sm90 = dtype == 1 && (head_dim == 32 || head_dim == 64 || head_dim == 128) &&
                     (plan_out != nullptr ? aligned != 0 : af2::sm90::takes(p));
+  const bool packed = sm90 && af2::sm90::packed::takes_shape(head_dim, nq, nk);
   if (info != nullptr) {
     info[0] = sm90 ? 1 : 0;
-    info[1] = sm90 ? splits : 1;
+    info[1] = sm90 && !packed ? splits : 1;
+    info[2] = packed ? 1 : 0;
+  }
+  if (packed) {
+    switch (head_dim) {
+      case 32: return dispatch_packed<32>(p, s, plan_out);
+      case 64: return dispatch_packed<64>(p, s, plan_out);
+      default: return dispatch_packed<128>(p, s, plan_out);
+    }
   }
   if (sm90) {
     switch (head_dim) {
@@ -169,8 +204,8 @@ int combine(const float* partials, void* out, float* lse, const unsigned char* q
 
 // strides: 12 element strides, (batch, head, token) for q, k, v and out in
 // that order; the head-dim stride must be 1. dtype: 0 = float32, 1 = bfloat16.
-// splits, partials, info: as `run`. Returns the cudaError_t of the launch
-// (0 on success).
+// splits, partials, info (3 ints out): as `run`. Returns the cudaError_t of
+// the launch (0 on success).
 extern "C" int af2_fused_attention(int dtype, const void* q, const void* k, const void* v,
                                    void* out, const unsigned char* q_mask,
                                    const unsigned char* kv_mask, const long long* strides,
@@ -209,9 +244,11 @@ extern "C" int af2_fused_attention_combine(const float* partials, void* out, flo
 
 // K1's launch plan at one shape (with or without lse: the same kernel),
 // given the splits and whether the operands are TMA-aligned. Touches no
-// device. Returns 0, or cudaErrorInvalidValue for a dtype, head dim or
-// split count the kernels do not take (head dims: 16, 32, 64, 128 and any
-// past 128).
+// device. Returns 0, or
+// cudaErrorInvalidValue for a dtype, head dim or split count the kernels do
+// not take (head dims: 16, 32, 64, 128 and any past 128; past 128 it plans
+// this file's D-chunked kernel, which the wrapper keeps for the shapes K2's
+// walk does not take).
 extern "C" int af2_fused_attention_plan(int dtype, int batch, int heads, int nq, int nk,
                                         int head_dim, int splits, int aligned,
                                         Af2LaunchPlan* plan) {

@@ -2,8 +2,10 @@
 // a split over long key loops with its combine pass, and skipped masked
 // tiles. Included by fused_attention.cu, whose plan routes every bf16
 // problem the kernel takes here (head dim 32, 64 or 128, operands TMA can
-// describe); every other bf16 problem runs attention_kernel_mma
-// (attention_tile.cuh) and f32 runs attention_kernel, as before.
+// describe) but the short ones the packed kernel takes
+// (fused_attention_packed_sm90.cuh, which reuses this file's pieces); every
+// other bf16 problem runs attention_kernel_mma (attention_tile.cuh) and f32
+// runs attention_kernel, as before.
 //
 // Replaces the TPU kernel alphafold2_tpu/ops/pallas/axial.py `_run`
 // (pallas_call at :249, body `_fwd_core` :56), with the masking contract of
@@ -15,8 +17,12 @@
 // P @ V work, 4*D operations per (query, key) pair, against 2*D bytes of
 // q and k per row read once, puts every pass above the card's ridge of
 // about 295 operations a byte once a row meets more than a few hundred
-// keys, so the tensor-core rate bounds it; short-key passes (the MSA
-// column, 5 keys) are bound by the bytes of q and the output. The design:
+// keys, so the tensor-core rate bounds it. Short problems (under 64
+// queries and keys: the MSA column pass, 5 keys; the template axis) are
+// bound by the bytes of q, k, v and the output, and one block per problem
+// pays its whole setup for a few rows: they take the packed route of
+// fused_attention_packed_sm90.cuh, which shares this file's pieces. The
+// design here:
 //
 // * Block: two consumer warpgroups (64 query rows each, 128 rows a block)
 //   and one producer warp, 288 threads, one block an SM.
@@ -178,18 +184,18 @@ __device__ __forceinline__ float ex2(float x) {
 
 // The online-softmax update of one thread's two rows (lrow, lrow + 8) for
 // one staged tile of NS * 2 raw logits s (s[4j + 2r + e]: row r, key
-// 8j + 2t + e; mw: the tile's key-mask words shifted by 2t, one per 32
-// keys). The row's extreme raw logit (max, or min for a negative scale)
-// times the scale is its largest scaled logit, so each probability is one
-// FMA and one ex2: 2^(x * scale - m). The caller guarantees that the rows
-// have a valid key in the tile, so m is finite: in K1 every row of a staged
-// tile has one (the mask is per key); K4 (block_sparse_fwd_sm90.cuh) never
-// calls it for a warp whose rows have none. kMasked: the tile holds masked
-// keys (weight 0); a full tile skips the mask arithmetic. The
-// probabilities replace s.
-template <bool kMasked, bool kNeg, int NS, int NCH, int OC>
-__device__ __forceinline__ void softmax_tile(float (&s)[NS], const uint32_t (&mw)[NS / 16],
-                                             float scale, float (&m_run)[2], float (&l_run)[2],
+// 8j + 2t + e), with valid(r, j, e) telling whether row r may see that key.
+// The row's extreme raw logit (max, or min for a negative scale) times the
+// scale is its largest scaled logit, so each probability is one FMA and one
+// ex2: 2^(x * scale - m). A row with no valid key in the tile needs a finite
+// running max (m_run) to come through without a NaN: K1 and K4 never give
+// one such a tile (softmax_tile below); the packed kernel
+// (fused_attention_packed_sm90.cuh) starts its rows at a finite max.
+// kMasked: the tile holds invalid entries (weight 0); a full tile skips the
+// mask arithmetic. The probabilities replace s.
+template <bool kMasked, bool kNeg, int NS, int NCH, int OC, typename Valid>
+__device__ __forceinline__ void softmax_rows(float (&s)[NS], Valid valid, float scale,
+                                             float (&m_run)[2], float (&l_run)[2],
                                              float (&o)[NCH][OC]) {
   constexpr int NJ = NS / 4;
 #pragma unroll
@@ -200,8 +206,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NS], const uint32_t (&mw
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const float x = s[4 * j + 2 * r + e];
-        const bool valid = !kMasked || ((mw[j / 4] >> (8 * (j % 4) + e)) & 1u);
-        if (valid) ext = kNeg ? fminf(ext, x) : fmaxf(ext, x);
+        if (!kMasked || valid(r, j, e)) ext = kNeg ? fminf(ext, x) : fmaxf(ext, x);
       }
     if (kNeg) {
       ext = fminf(ext, __shfl_xor_sync(0xffffffffu, ext, 1));
@@ -219,7 +224,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NS], const uint32_t (&mw
       for (int e = 0; e < 2; ++e) {
         float& x = s[4 * j + 2 * r + e];
         float pr = ex2(fmaf(x, scale, -m_new));
-        if (kMasked && !((mw[j / 4] >> (8 * (j % 4) + e)) & 1u)) pr = 0.f;
+        if (kMasked && !valid(r, j, e)) pr = 0.f;
         x = pr;
         rs += pr;
       }
@@ -235,6 +240,20 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NS], const uint32_t (&mw
         o[c][4 * j + 2 * r + 1] *= alpha;
       }
   }
+}
+
+// softmax_rows with one key mask for both rows: mw holds the tile's
+// key-mask words shifted by 2t, one per 32 keys. The caller guarantees that
+// the rows have a valid key in the tile, so m is finite: in K1 every row of
+// a staged tile has one (the mask is per key); K4 (block_sparse_fwd_sm90.cuh)
+// never calls it for a warp whose rows have none.
+template <bool kMasked, bool kNeg, int NS, int NCH, int OC>
+__device__ __forceinline__ void softmax_tile(float (&s)[NS], const uint32_t (&mw)[NS / 16],
+                                             float scale, float (&m_run)[2], float (&l_run)[2],
+                                             float (&o)[NCH][OC]) {
+  softmax_rows<kMasked, kNeg>(
+      s, [&](int, int j, int e) { return ((mw[j / 4] >> (8 * (j % 4) + e)) & 1u) != 0; },
+      scale, m_run, l_run, o);
 }
 
 // S = Q K^T of one staged tile of N keys: the warpgroup's 64 q rows and
@@ -271,18 +290,19 @@ __device__ __forceinline__ void pv_tile(float (&o)[Cfg<D>::NCH][Cfg<D>::CW / 2],
   }
 }
 
-// The epilogue of one consumer warpgroup: rows r0 .. r0 + 63 of (b, h).
-// Each row's lse (+inf for a row with no valid key) when p.lse is set, and
-// its output, 0 for a masked query or a row with no valid key. The rows are
-// staged in the warpgroup's q tile at qw (free: its last product has
-// completed), 16-byte chunks of a row XOR-swizzled by the row, and written
-// with 16-byte stores after named barrier `bar` of the warpgroup's 128
-// threads.
-template <int D>
-__device__ __forceinline__ void store_out(const Params& p, unsigned char* qw,
-                                          const float (&m_run)[2], const float (&l_run)[2],
-                                          const float (&o)[Cfg<D>::NCH][Cfg<D>::CW / 2], int b,
-                                          int h, int bh, int r0, int bar) {
+// The epilogue of one consumer warpgroup: its 64 rows of head h, where
+// row(lr, b, n) names the query (batch b, token n) of warpgroup row lr and
+// whether it is written. Each row's lse (+inf for a row with no valid key)
+// at bh * p.nq + n when p.lse is set, and its output, 0 for a masked query
+// or a row with no valid key. The rows are staged in the warpgroup's q tile
+// at qw (free: its last product has completed), 16-byte chunks of a row
+// XOR-swizzled by the row, and written with 16-byte stores after named
+// barrier `bar` of the warpgroup's 128 threads.
+template <int D, typename Row>
+__device__ __forceinline__ void store_rows(const Params& p, unsigned char* qw,
+                                           const float (&m_run)[2], const float (&l_run)[2],
+                                           const float (&o)[Cfg<D>::NCH][Cfg<D>::CW / 2], int h,
+                                           int bh, int bar, Row row) {
   using C = Cfg<D>;
   const int wt = threadIdx.x % 128;
   const int lane = wt & 31, t = lane & 3;
@@ -292,9 +312,11 @@ __device__ __forceinline__ void store_out(const Params& p, unsigned char* qw,
   __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(qw);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int n = r0 + lrow + 8 * r, lr = lrow + 8 * r;
-    const bool qv = n < p.nq && (p.q_mask == nullptr || p.q_mask[(long long)b * p.nq + n] != 0);
-    if (p.lse != nullptr && t == 0 && n < p.nq)
+    const int lr = lrow + 8 * r;
+    int b, n;
+    const bool live = row(lr, b, n);
+    const bool qv = live && (p.q_mask == nullptr || p.q_mask[(long long)b * p.nq + n] != 0);
+    if (p.lse != nullptr && t == 0 && live)
       p.lse[(long long)bh * p.nq + n] =
           m_run[r] == -CUDART_INF_F ? CUDART_INF_F : m_run[r] * kLn2 + logf(l_run[r]);
     const float inv = qv ? 1.f / fmaxf(l_run[r], 1e-30f) : 0.f;
@@ -308,15 +330,27 @@ __device__ __forceinline__ void store_out(const Params& p, unsigned char* qw,
       }
   }
   named_sync(bar, 128);
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out) + (long long)b * p.osb +
-                       (long long)h * p.osh;
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out) + (long long)h * p.osh;
   for (int e = wt; e < 64 * CPR; e += 128) {
     const int lr = e / CPR, chunk = e % CPR;
-    const int n = r0 + lr;
-    if (n < p.nq)
-      *reinterpret_cast<uint4*>(out + (long long)n * p.osn + chunk * 8) =
+    int b, n;
+    if (row(lr, b, n))
+      *reinterpret_cast<uint4*>(out + (long long)b * p.osb + (long long)n * p.osn + chunk * 8) =
           *reinterpret_cast<const uint4*>(stage + lr * D + (chunk ^ (lr & SWZ)) * 8);
   }
+}
+
+// store_rows for rows r0 .. r0 + 63 of (b, h), those below p.nq written.
+template <int D>
+__device__ __forceinline__ void store_out(const Params& p, unsigned char* qw,
+                                          const float (&m_run)[2], const float (&l_run)[2],
+                                          const float (&o)[Cfg<D>::NCH][Cfg<D>::CW / 2], int b,
+                                          int h, int bh, int r0, int bar) {
+  store_rows<D>(p, qw, m_run, l_run, o, h, bh, bar, [&](int lr, int& bb, int& n) {
+    bb = b;
+    n = r0 + lr;
+    return n < p.nq;
+  });
 }
 
 template <int D>

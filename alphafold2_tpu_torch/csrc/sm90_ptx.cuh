@@ -1,5 +1,5 @@
 // The Hopper (sm_90a) building blocks shared by K1's forward
-// (fused_attention_sm90.cuh), K3a/K3b's backward
+// (fused_attention_sm90.cuh, fused_attention_packed_sm90.cuh), K3a/K3b's backward
 // (fused_attention_bwd_sm90.cuh) and the kernels built on them (K2, K4, K5):
 // mbarriers with a spin limit, 4-D and 5-D TMA loads, wgmma with
 // shared-memory descriptors, and on the host the tensor maps over the
@@ -98,6 +98,13 @@ template <int N>
 __device__ __forceinline__ void fence_operands(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Orders this thread's generic-proxy accesses to shared memory before later
+// async-proxy ones (TMA writes, wgmma reads) to the same bytes: a stage a
+// consumer staged its output in is then safe to refill.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void named_sync(int id, int threads) {
@@ -253,12 +260,22 @@ __host__ inline bool tma_operand(const void* ptr, const Operand& op, int batch, 
          stride_ok(op.sn, n);
 }
 
+// Can TMA address an operand of `n` tokens and `rows` row groups (K2's
+// layout, or a head dim read as rows): as tma_operand, and the row-group
+// stride too.
+__host__ inline bool rows_operand(const void* ptr, const Operand& op, int batch, int heads,
+                                  int n, int rows) {
+  return tma_operand(ptr, op, batch, heads, n) && stride_ok(op.sr, rows);
+}
+
 // The tensor map of one (B, H, N, d) bf16 operand: dims (d, N, H, B), box
-// (cw, rows, 1, 1) with cw = min(d, 64) columns, swizzled at cw * 2 bytes
-// (128 at d >= 64, 64 at d = 32). An axis of extent 1 gets its contiguous
-// stride (its own is never used).
+// (cw, rows, 1, box_batch) with cw = min(d, 64) columns, swizzled at cw * 2
+// bytes (128 at d >= 64, 64 at d = 32). One copy lands the rows of
+// box_batch batch entries one after another (K1's packed kernel takes whole
+// short problems so). An axis of extent 1 gets its contiguous stride (its
+// own is never used).
 __host__ inline bool encode_bf16(CUtensorMap* map, const void* ptr, const Operand& op, int batch,
-                                 int heads, int n, int d, int box_rows) {
+                                 int heads, int n, int d, int box_rows, int box_batch = 1) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const int cw = d < 64 ? d : 64;
@@ -270,7 +287,7 @@ __host__ inline bool encode_bf16(CUtensorMap* map, const void* ptr, const Operan
   cuuint64_t strides[3];
   for (int i = 0; i < 3; ++i)
     strides[i] = (cuuint64_t)((extent[i] == 1 ? contiguous[i] : given[i]) * 2);
-  const cuuint32_t box[4] = {(cuuint32_t)cw, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)cw, (cuuint32_t)box_rows, 1, (cuuint32_t)box_batch};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,

@@ -44,7 +44,11 @@
 // logsumexp of the shared (tie-scaled) logits for the backward kernels
 // (tied_row_attention_bwd.cu), as the TPU path's `_kernel` does beside
 // `_kernel_no_lse` (axial.py :110-120). Both entries launch the kernel the
-// plan names, so af2_tied_row_attention_plan plans both.
+// plan names, so af2_tied_row_attention_plan plans both. The strided entry,
+// af2_tied_row_attention_strided, takes each operand's element strides
+// instead of the contiguous layout; K1's wrapper runs a bf16 head dim past
+// 128 that is a multiple of 64 through it, as R = D/64 rows of 64 under tie
+// scale 1 (the same plans, by R and the row width).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // (alphafold2_tpu_torch/ops/cuda/build.py). Bound with ctypes.
@@ -97,13 +101,17 @@ wide::WideOperands wide_operands(const af2::Problem& p, void* work, long long wo
 }
 
 // Launches K2, or with `plan_out` only fills its plan (no pointer is read,
-// and `aligned` stands for the operands' 16-byte alignment, which a launch
-// finds from the pointers).
+// and `aligned` stands for whether TMA can describe the operands, which a
+// launch finds from the pointers and strides). strides: 16 element strides,
+// (batch, head, token, row group) of q, k, v and out, or null for the
+// contiguous (B, R, N, H, D) layout. tie_scale: (batch,) f32, or null (1).
+// `info`, when given, receives {1 if a Hopper kernel (the resident one or
+// the wide route) ran, 1 if the wide route ran}.
 int run(int dtype, const void* q, const void* k, const void* v, void* out, float* lse,
         const unsigned char* q_mask, const unsigned char* kv_mask, const float* tie_scale,
-        int batch, int rows, int heads, int nq, int nk, int head_dim, float sm_scale,
-        void* stream, void* work = nullptr, long long work_bytes = 0,
-        Af2LaunchPlan* plan_out = nullptr, int aligned = 0) {
+        const long long* strides, int batch, int rows, int heads, int nq, int nk, int head_dim,
+        float sm_scale, void* stream, void* work = nullptr, long long work_bytes = 0,
+        int* info = nullptr, Af2LaunchPlan* plan_out = nullptr, int aligned = 0) {
   af2::Problem p;
   p.q = q;
   p.k = k;
@@ -115,12 +123,23 @@ int run(int dtype, const void* q, const void* k, const void* v, void* out, float
   p.tie_scale = tie_scale;
   const long long hd = (long long)heads * head_dim;
   const int n_of[4] = {nq, nk, nk, nq};
+  const void* ptr_of[4] = {q, k, v, out};
   af2::Operand* ops[4] = {&p.qs, &p.ks, &p.vs, &p.os};
+  bool tma = true;
   for (int t = 0; t < 4; ++t) {
-    ops[t]->sn = hd;
-    ops[t]->sh = head_dim;
-    ops[t]->sr = (long long)n_of[t] * hd;
-    ops[t]->sb = (long long)rows * n_of[t] * hd;
+    if (strides != nullptr) {
+      ops[t]->sb = strides[4 * t];
+      ops[t]->sh = strides[4 * t + 1];
+      ops[t]->sn = strides[4 * t + 2];
+      ops[t]->sr = strides[4 * t + 3];
+    } else {
+      ops[t]->sn = hd;
+      ops[t]->sh = head_dim;
+      ops[t]->sr = (long long)n_of[t] * hd;
+      ops[t]->sb = (long long)rows * n_of[t] * hd;
+    }
+    if (plan_out == nullptr)
+      tma = tma && af2::sm90::rows_operand(ptr_of[t], *ops[t], batch, heads, n_of[t], rows);
   }
   p.batch = batch;
   p.heads = heads;
@@ -131,12 +150,17 @@ int run(int dtype, const void* q, const void* k, const void* v, void* out, float
   p.out_chunks = (p.features + kChunk - 1) / kChunk;
   p.sm_scale = sm_scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool tma = plan_out != nullptr ? aligned != 0
-                                       : af2::aligned16(q) && af2::aligned16(k) &&
-                                             af2::aligned16(v) && af2::aligned16(out);
+  if (plan_out != nullptr) tma = aligned != 0;
   const af2::sm90::tied::TiedPlan hp =
       dtype == 1 && tma ? af2::sm90::tied::plan_shape(batch, rows, heads, nq, head_dim)
                         : af2::sm90::tied::TiedPlan{0, 0};
+  const wide::WidePlan wp = dtype == 1 && tma && hp.columns == 0
+                               ? wide::plan_wide(false, batch, heads, nq, nk, p.features, head_dim)
+                               : wide::WidePlan{0, 0, 0};
+  if (info != nullptr) {
+    info[0] = hp.columns != 0 || wp.splits != 0 ? 1 : 0;
+    info[1] = wp.splits != 0 ? 1 : 0;
+  }
   if (hp.columns == 128) {
     switch (head_dim) {
       case 32: return dispatch_sm90<32, 128>(p, rows, hp.stages, s, plan_out);
@@ -151,9 +175,6 @@ int run(int dtype, const void* q, const void* k, const void* v, void* out, float
       default: return dispatch_sm90<128, 64>(p, rows, hp.stages, s, plan_out);
     }
   }
-  const wide::WidePlan wp = dtype == 1 && tma && hp.columns == 0
-                               ? wide::plan_wide(false, batch, heads, nq, nk, p.features, head_dim)
-                               : wide::WidePlan{0, 0, 0};
   if (wp.splits != 0) {
     if (plan_out != nullptr) {
       *plan_out = wide::plan_pass(false, 0, wp, batch, heads, nq, nk, p.features, head_dim);
@@ -185,8 +206,8 @@ extern "C" int af2_tied_row_attention(int dtype, const void* q, const void* k, c
                                       int batch, int rows, int heads, int nq, int nk,
                                       int head_dim, float sm_scale, void* work,
                                       long long work_bytes, void* stream) {
-  return run(dtype, q, k, v, out, nullptr, q_mask, kv_mask, tie_scale, batch, rows, heads, nq,
-             nk, head_dim, sm_scale, stream, work, work_bytes);
+  return run(dtype, q, k, v, out, nullptr, q_mask, kv_mask, tie_scale, nullptr, batch, rows,
+             heads, nq, nk, head_dim, sm_scale, stream, work, work_bytes);
 }
 
 // The training forward: as af2_tied_row_attention, and also writes each
@@ -199,12 +220,37 @@ extern "C" int af2_tied_row_attention_lse(int dtype, const void* q, const void* 
                                           int batch, int rows, int heads, int nq, int nk,
                                           int head_dim, float sm_scale, void* work,
                                           long long work_bytes, void* stream) {
-  return run(dtype, q, k, v, out, lse, q_mask, kv_mask, tie_scale, batch, rows, heads, nq, nk,
-             head_dim, sm_scale, stream, work, work_bytes);
+  return run(dtype, q, k, v, out, lse, q_mask, kv_mask, tie_scale, nullptr, batch, rows, heads,
+             nq, nk, head_dim, sm_scale, stream, work, work_bytes);
 }
 
-// K2's launch plan at one shape (with or without lse: the same kernels),
-// given whether the operands are 16-byte aligned; touches no device. Names
+// K2 on operands through their element strides, as the backward's entries
+// take them, and the route of K1 at a head dim past 128 that is a multiple
+// of 64 (ops/cuda/axial.py): its (B, H, N, D) views read as R = D/64 rows
+// of 64 features (row stride 64) under tie scale 1 (tie_scale null).
+// strides: 16 element strides, (batch, head, token, row group) of q, k, v
+// and out; features: R * row_width; lse: (batch, heads, nq) f32, or null
+// (serving); info: 2 ints out, as `run`. work, work_bytes: as
+// af2_tied_row_attention. Returns the cudaError_t of the launch.
+extern "C" int af2_tied_row_attention_strided(int dtype, const void* q, const void* k,
+                                              const void* v, void* out, float* lse,
+                                              const unsigned char* q_mask,
+                                              const unsigned char* kv_mask,
+                                              const float* tie_scale, const long long* strides,
+                                              int batch, int heads, int nq, int nk,
+                                              int features, int row_width, float sm_scale,
+                                              void* work, long long work_bytes, int* info,
+                                              void* stream) {
+  if (row_width < 1 || features < row_width || features % row_width != 0 || strides == nullptr)
+    return cudaErrorInvalidValue;
+  return run(dtype, q, k, v, out, lse, q_mask, kv_mask, tie_scale, strides, batch,
+             features / row_width, heads, nq, nk, row_width, sm_scale, stream, work, work_bytes,
+             info);
+}
+
+// K2's launch plan at one shape (with or without lse, contiguous or
+// strided: the same kernels), given whether TMA can describe the operands;
+// touches no device. Names
 // the instantiation a launch at that shape takes (the wide route: its first
 // pass, the logits). Returns 0, or cudaErrorInvalidValue for a dtype the
 // kernels do not take.
@@ -212,7 +258,8 @@ extern "C" int af2_tied_row_attention_plan(int dtype, int batch, int rows, int h
                                            int nk, int head_dim, int aligned,
                                            Af2LaunchPlan* plan) {
   return run(dtype, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-             batch, rows, heads, nq, nk, head_dim, 1.f, nullptr, nullptr, 0, plan, aligned);
+             nullptr, batch, rows, heads, nq, nk, head_dim, 1.f, nullptr, nullptr, 0, nullptr,
+             plan, aligned);
 }
 
 // The wide route's plan at one shape, as af2_tied_row_attention_plan

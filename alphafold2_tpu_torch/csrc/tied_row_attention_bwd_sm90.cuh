@@ -616,14 +616,8 @@ struct TiedGradOperands {
   float sm_scale;
 };
 
-// Can TMA (and the 16-byte zero stores) address an operand of `n` tokens
-// and `rows` rows: a 16-byte aligned base and every stride of an axis
-// longer than 1 a positive multiple of 8 elements below 2^39?
-__host__ inline bool rows_operand(const void* ptr, const Operand& op, int batch, int heads,
-                                  int n, int rows) {
-  return tma_operand(ptr, op, batch, heads, n) && stride_ok(op.sr, rows);
-}
-
+// rows_operand (sm90_ptx.cuh): can TMA, and the 16-byte zero stores, address
+// each operand?
 __host__ inline bool takes(const TiedGradOperands& a, bool dkv) {
   if (a.row_width < 1 || a.features % a.row_width != 0) return false;
   const int rows = a.features / a.row_width, n = dkv ? a.nk : a.nq;

@@ -26,8 +26,11 @@
 // (5x at R*D 320) from tiles staged by ordinary loads. The design:
 //
 // * Operands are read in place through one 5-D tensor map each: dims
-//   {D, H, N, R, B}, byte strides {2D, 2HD, 2NHD, 2RNHD}, box {CW, 1, 64, R,
-//   1} for q and k (CW = min(D, 64) columns, 128-byte swizzled at CW 64,
+//   {D, H, N, R, B}, the operand's byte strides (contiguous K2: {2D, 2HD,
+//   2NHD, 2RNHD}; K1's (B, H, N, E) view of a (B, N, H, E) buffer at a head
+//   dim E past 128, read as E/64 rows of 64: {2E, 2HE, 128, 2NHE}, the token
+//   stride doubled for the k and v halves of one projection), box {CW, 1,
+//   64, R, 1} for q and k (CW = min(D, 64) columns, 128-byte swizzled at CW 64,
 //   64-byte at 32; head dim 128 takes two boxes along D). One copy lands a
 //   64-token tile as R K-major chunks of 64 x CW, the layout in which wgmma
 //   contracts the fused (r, d) axis; no fold copy. v's map has box {CW, 1,
@@ -46,7 +49,7 @@
 //   ex2 a logit, no mask arithmetic on a tile whose keys are all valid, the
 //   row's smallest raw logit for a negative scale). The per-batch tie scale
 //   multiplies the f32 logits (scale = sm_scale * tie[b] * log2 e), never a
-//   rounded copy of q. P goes to P V' as bf16 A fragments from registers;
+//   rounded copy of q; K1's head dim read as rows passes none (tie 1). P goes to P V' as bf16 A fragments from registers;
 //   V' is read MN-major from the stage through its descriptor, as K1 reads V.
 // * Column groups: a consumer's f32 accumulator for 64 rows x C columns
 //   costs C / 2 registers a thread, so a block covers C = 64 or 128 of the
@@ -65,7 +68,7 @@
 // * Without lse (serving), a block whose 64 query rows are all masked
 //   writes 0 to its columns and reads no key. Rows past N are zero-filled
 //   by TMA and never written. The epilogue writes each thread's bf16 pairs
-//   straight from registers into the (B, R, N, H, D) output.
+//   straight from registers into the output through its strides.
 
 #pragma once
 
@@ -108,11 +111,12 @@ __host__ __device__ constexpr long long smem_bytes(int features, int columns, in
 }
 
 struct TiedParams {
-  void* out;     // bf16 (B, R, Nq, H, D), contiguous
+  void* out;     // bf16 (B, R, Nq, H, D) through os's element strides
   float* lse;    // (B, H, Nq) f32, or null (serving)
   const unsigned char* q_mask;
   const unsigned char* kv_mask;
-  const float* tie_scale;  // (B,) f32
+  const float* tie_scale;  // (B,) f32, or null (1)
+  Operand os;              // the output's (batch, head, token, row) strides
   int batch, rows, heads, nq, nk, q_tiles, groups, stages;
   float scale_log2;  // sm_scale * log2(e); the kernel multiplies in tie[b]
 };
@@ -193,7 +197,7 @@ __device__ __forceinline__ void consumer(const TiedParams& p, unsigned char* qs,
 #pragma unroll
     for (int i = 0; i < G::CW / 2; ++i) o[c][i] = 0.f;
   float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F}, l_run[2] = {0.f, 0.f};
-  const float scale = p.scale_log2 * p.tie_scale[b];
+  const float scale = p.scale_log2 * (p.tie_scale != nullptr ? p.tie_scale[b] : 1.f);
   const bool neg = scale < 0.f;
 
   const uint32_t qaddr = smem_u32(qs);
@@ -267,9 +271,9 @@ __device__ __forceinline__ void consumer(const TiedParams& p, unsigned char* qs,
     for (int c = 0; c < CPG; ++c) {
       const int fc = fc0 + c;
       if (fc >= chunks) continue;  // the last group's repeated chunk
-      __nv_bfloat16* row = out + (((long long)b * p.rows + fc / G::NDC) * p.nq + n) *
-                                     p.heads * D +
-                           (long long)h * D + (fc % G::NDC) * G::CW;
+      __nv_bfloat16* row = out + (long long)b * p.os.sb + (long long)(fc / G::NDC) * p.os.sr +
+                           (long long)n * p.os.sn + (long long)h * p.os.sh +
+                           (fc % G::NDC) * G::CW;
 #pragma unroll
       for (int j = 0; j < G::CW / 8; ++j)
         *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * t) =
@@ -312,9 +316,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int e = threadIdx.x; e < kRows * CPG * kVecs; e += kThreads) {
         const int n_ = q0 + e / (CPG * kVecs), fc = fc0 + (e / kVecs) % CPG;
         if (n_ < p.nq && fc < chunks)
-          *reinterpret_cast<uint4*>(out + (((long long)b * p.rows + fc / G::NDC) * p.nq + n_) *
-                                              p.heads * D +
-                                    (long long)h * D + (fc % G::NDC) * G::CW +
+          *reinterpret_cast<uint4*>(out + (long long)b * p.os.sb +
+                                    (long long)(fc / G::NDC) * p.os.sr + (long long)n_ * p.os.sn +
+                                    (long long)h * p.os.sh + (fc % G::NDC) * G::CW +
                                     (e % kVecs) * 8) = make_uint4(0, 0, 0, 0);
       }
       return;
@@ -384,24 +388,23 @@ __host__ inline Af2LaunchPlan plan_tied(int batch, int rows, int heads, int nq, 
   return plan;
 }
 
-// Launches tied_row_attention_kernel_sm90<D, C> on contiguous operands
-// (p.q .. p.o, p.lse for the training forward); rows = R.
+// Launches tied_row_attention_kernel_sm90<D, C> on operands through their
+// element strides (a.qs .. a.os: batch, head, token, row; K2's contiguous
+// (B, R, N, H, D), or a (B, H, N, R*D) view of K1 read as rows); p.lse for
+// the training forward; a.tie_scale null for a tie scale of 1; rows = R.
 template <int D, int C>
 __host__ inline cudaError_t launch_tied(const Problem& a, int rows, int stages,
                                         cudaStream_t stream) {
   const Af2LaunchPlan plan = plan_tied<D, C>(a.batch, rows, a.heads, a.nq, stages);
-  if (!grid_fits(plan) || a.tie_scale == nullptr || stages < 1 || stages > kMaxStages)
-    return cudaErrorInvalidValue;
-  // contiguous (B, R, N, H, D): element strides (batch, head, token, row)
-  const long long hd = (long long)a.heads * D;
-  const Operand oq{hd * a.nq * rows, D, hd, hd * a.nq}, okv{hd * a.nk * rows, D, hd, hd * a.nk};
+  if (!grid_fits(plan) || stages < 1 || stages > kMaxStages) return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
-  if (!encode_rows(&tq, a.q, oq, a.batch, a.heads, a.nq, rows, D, rows) ||
-      !encode_rows(&tk, a.k, okv, a.batch, a.heads, a.nk, rows, D, rows) ||
-      !encode_rows(&tv, a.v, okv, a.batch, a.heads, a.nk, rows, D, 1))
+  if (!encode_rows(&tq, a.q, a.qs, a.batch, a.heads, a.nq, rows, D, rows) ||
+      !encode_rows(&tk, a.k, a.ks, a.batch, a.heads, a.nk, rows, D, rows) ||
+      !encode_rows(&tv, a.v, a.vs, a.batch, a.heads, a.nk, rows, D, 1))
     return cudaErrorInvalidValue;
   TiedParams p;
   p.out = a.o;
+  p.os = a.os;
   p.lse = a.lse;
   p.q_mask = a.q_mask;
   p.kv_mask = a.kv_mask;

@@ -247,7 +247,7 @@ struct SoftmaxParams {
   float* lse;            // (B, H, nq) f32, or null (serving)
   const unsigned char* q_mask;
   const unsigned char* kv_mask;
-  const float* tie_scale;  // (B,) f32
+  const float* tie_scale;  // (B,) f32, or null (1)
   long long plane;
   int heads, nq, nk, nqp, nkp, splits;
   float scale_log2;  // sm_scale * log2(e); the kernel multiplies in tie[b]
@@ -259,7 +259,7 @@ __global__ void __launch_bounds__(kReduceThreads)
   const long long row = (long long)blockIdx.x * (kReduceThreads / 32) + warp;  // of B*H*nqp
   const long long bh = row / p.nqp;
   const int q = (int)(row % p.nqp), b = (int)(bh / p.heads);
-  const float scale = p.scale_log2 * p.tie_scale[b];
+  const float scale = p.scale_log2 * (p.tie_scale != nullptr ? p.tie_scale[b] : 1.f);
   const float* w = p.ws + row * p.nkp;
   const unsigned char* km = p.kv_mask != nullptr ? p.kv_mask + (long long)b * p.nk : nullptr;
 
@@ -585,7 +585,7 @@ struct WideOperands {
   const float* dsum;             // backward
   const unsigned char* q_mask;   // (B, Nq) 0/1, or null
   const unsigned char* kv_mask;  // (B, Nk) 0/1, or null
-  const float* tie_scale;        // (B,) f32 (backward: or null, 1)
+  const float* tie_scale;        // (B,) f32, or null (1)
   void* out;                     // forward
   float* lse_out;                // forward, or null (serving)
   void* dq;
@@ -698,7 +698,7 @@ __host__ inline bool work_fits(const WideOperands& a, bool bwd, const WidePlan& 
 template <int D>
 __host__ inline cudaError_t launch_forward(const WideOperands& a, const WidePlan& wp,
                                            cudaStream_t stream) {
-  if (!work_fits(a, false, wp) || a.tie_scale == nullptr) return cudaErrorInvalidValue;
+  if (!work_fits(a, false, wp)) return cudaErrorInvalidValue;
   const long long nqp = round64(a.nq), nkp = round64(a.nk);
   const long long tile = (long long)a.batch * a.heads * nqp * nkp;
   float* ws = static_cast<float*>(a.work);

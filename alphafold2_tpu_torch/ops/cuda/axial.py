@@ -12,17 +12,27 @@ here: :func:`fused_attention_reference` (forward),
 for CUDA tensors they launch the kernel or raise.
 
 Head dims: the kernels are built for 16, 32, 64 and 128 (``HEAD_DIMS``)
-and for any head dim past 128 (K1 D-chunked through
-``csrc/attention_tile.cuh``; K3a/K3b through
-``csrc/tied_row_attention_bwd.cu``, which reads the head dim as R = D/64
-rows of 64 features where D is a multiple of 64 and runs its Hopper kernels
-there in bf16, D-chunked otherwise). A head dim below 128 that is not
-built runs zero-padded up to the next built one (:func:`kernel_head_dim`,
+and for any head dim past 128: where D is a multiple of 64 both directions
+read the head dim as R = D/64 rows of 64 features (:func:`row_width`) and
+run K2's kernels on it, K1's bf16 forward on the Hopper walk of
+``csrc/tied_row_attention.cu`` (its strided entry, tie scale 1; the plain
+version of that walk is ``tied_row.hopper_walk_reference`` on
+:func:`head_rows` views) and K3a/K3b through
+``csrc/tied_row_attention_bwd.cu`` (operands TMA cannot describe run their
+chunked kernels there); otherwise (and in f32) K1 runs D-chunked through
+``csrc/attention_tile.cuh``. A head dim below 128 that is not built runs
+zero-padded up to the next built one (:func:`kernel_head_dim`,
 :func:`at_kernel_head_dim`), which is exact: zero columns add nothing to
 q.k, P.V, ds.k or ds^T.q, and ``sm_scale`` stays the caller's. So the card
 takes every head dim JAX's ``fused_attention`` takes.
 
-K1's bf16 forward at head dim 32, 64 or 128 runs the Hopper kernel of
+K1's bf16 forward at head dim 32, 64 or 128 runs one of two Hopper kernels.
+Short problems (fewer than 64 queries and keys: the template axis, the MSA
+column passes) run ``csrc/fused_attention_packed_sm90.cuh``: G consecutive
+problems of one head packed into one 128 x 128 tile under a block-diagonal
+mask, walked by persistent blocks (:func:`packed_plan`;
+:func:`packed_walk_reference` is the plain version of that walk). Every
+other shape runs
 ``csrc/fused_attention_sm90.cuh``. Where its grid leaves the card short of
 two waves, :func:`key_splits` cuts the key axis into ranges; each block then
 writes f32 partials and K1's combine pass (:func:`fused_attention_combine`)
@@ -55,6 +65,7 @@ and add nothing to dk/dv; masked keys get dk = dv = 0.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
 
 import torch
@@ -70,11 +81,25 @@ QUERY_TILE = 128
 KEY_TILE = 128
 SM_COUNT = 132  # streaming multiprocessors of one H100
 MIN_SPLIT_TILES = 4  # key tiles a split keeps at least
+LOG2E = math.log2(math.e)
+LN2 = math.log(2.0)
 # K3a/K3b's Hopper kernels (csrc/fused_attention_bwd_sm90.cuh): the rows of
 # every tile, the head dims they are built for, the tiles a split keeps
 GRAD_TILE = 64
 GRAD_SM90_HEAD_DIMS = (32, 64, 128)
 MIN_GRAD_SPLIT_TILES = 4
+# K1's packed kernel (csrc/fused_attention_packed_sm90.cuh kRows, kMaxN,
+# kRingBytes, kSMs; PackedControl), mirrored: 128-row tiles of G problems,
+# problems under 64 tokens, a 192 KB ring of whole stages, one persistent
+# block an SM
+PACKED_KERNEL = "attention_packed_kernel_sm90"
+PACKED_TILE = 128
+PACKED_MAX_N = 63
+PACKED_RING_BYTES = 196_608
+PACKED_MAX_STAGES = 8
+PACKED_CONTROL_BYTES = 416  # 8 full and 8 empty barriers, 8 x 4 mask words, 8 tiles,
+# and each warpgroup row's problem and token (64 bytes each)
+PACKED_THREADS = 288  # two consumer warpgroups and one producer warp
 
 
 def kernel_head_dim(d: int) -> int:
@@ -153,6 +178,72 @@ def split_ranges(nk: int, splits: int, block: int = KEY_TILE) -> list:
     tiles = -(-nk // block)
     return [(min(nk, s * tiles // splits * block), min(nk, (s + 1) * tiles // splits * block))
             for s in range(splits)]
+
+
+def packed_group(nq: int, nk: int) -> int:
+    """G, the problems one packed tile holds: Gh = 64 // nq in each
+    consumer warpgroup's 64 query rows, G = min(2 Gh, 128 // nk) so that
+    their keys fit one 128-key stage."""
+    return min(2 * (PACKED_TILE // 2 // nq), PACKED_TILE // nk)
+
+
+def packed_plan(b: int, h: int, nq: int, nk: int, d: int) -> Optional[dict]:
+    """K1's packed kernel at a bf16 shape whose operands TMA can describe,
+    or None where another kernel takes it (head dim outside 32/64/128, 64
+    or more queries or keys). A pure function of the shape: G problems a
+    tile (:func:`packed_group`), ``tiles`` = h * ceil(b / G) in the order
+    (problem set, head), ``blocks`` a persistent grid of at most SM_COUNT,
+    one an SM, each with as many whole stages as the ring's 192 KB hold.
+    ``key_splits`` does not apply: one key tile covers a problem set."""
+    if (d not in GRAD_SM90_HEAD_DIMS or not 1 <= nq <= PACKED_MAX_N
+            or not 1 <= nk <= PACKED_MAX_N):
+        return None
+    g = packed_group(nq, nk)
+    tiles = h * -(-b // g)
+    stage = 2 * 64 * d * 2 + 2 * PACKED_TILE * d * 2  # q (two warpgroups), K and V
+    stages = PACKED_RING_BYTES // stage
+    return {"kernel": f"{PACKED_KERNEL}<{d}>", "group": g, "tiles": tiles,
+            "blocks": min(tiles, SM_COUNT), "threads": PACKED_THREADS, "stages": stages,
+            "dynamic_smem": 1024 + stages * stage + PACKED_CONTROL_BYTES}
+
+
+def packed_walk_reference(q, k, v, q_mask=None, kv_mask=None, sm_scale=1.0, group=None):
+    """The plain version of K1's packed walk: the problems cut into tiles of
+    G (:func:`packed_group` by default) consecutive problems of one head, as
+    the kernel cuts them, each tile's G*nq x G*nk logits computed at once
+    and scaled in f32 by sm_scale * log2 e; each row sees the keys of its
+    own problem that kv_mask keeps (block-diagonal), its max and sum over
+    them, p = 2^(x - max) rounded to q's dtype before P V (the sum keeps it
+    in f32). Returns (out, lse) as :func:`fused_attention_lse`: masked
+    queries and rows with no valid key give 0, such rows lse +inf (a masked
+    query keeps its lse)."""
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    g = packed_group(nq, nk) if group is None else group
+    scale2 = sm_scale * LOG2E
+    keys = (kv_mask if kv_mask is not None
+            else torch.ones((b, nk), dtype=torch.bool, device=q.device))
+    out = torch.zeros((b, h, nq, d), device=q.device)
+    lse = torch.full((b, h, nq), float("inf"), device=q.device)
+    for b0 in range(0, b, g):
+        sl = slice(b0, min(b0 + g, b))
+        m = sl.stop - b0
+        fold = lambda t, n: t[sl].float().permute(1, 0, 2, 3).reshape(h, m * n, d)
+        x = fold(q, nq) @ fold(k, nk).transpose(-1, -2) * scale2  # (H, m*nq, m*nk)
+        same = (torch.arange(m * nq, device=q.device)[:, None] // nq
+                == torch.arange(m * nk, device=q.device)[None, :] // nk)
+        valid = same & keys[sl].reshape(1, m * nk)
+        mx = x.masked_fill(~valid, float("-inf")).amax(-1, keepdim=True)
+        keyed = torch.isfinite(mx)
+        p = torch.where(valid, torch.exp2(x - torch.where(keyed, mx, 0.0)), 0.0)
+        l = p.sum(-1, keepdim=True)
+        o = (p.to(q.dtype).float() @ fold(v, nk)) / l.clamp_min(1e-30)
+        lt = torch.where(keyed, mx * LN2 + torch.log(l.clamp_min(1e-30)), float("inf"))
+        out[sl] = o.reshape(h, m, nq, d).permute(1, 0, 2, 3)
+        lse[sl] = lt[..., 0].reshape(h, m, nq).permute(1, 0, 2)
+    if q_mask is not None:
+        out = out * q_mask[:, None, :, None].to(out.dtype)
+    return out.to(q.dtype), lse
 
 
 def _masked_softmax_weights(s: torch.Tensor, valid: Optional[torch.Tensor]):
@@ -404,9 +495,51 @@ def _like_heads(x: torch.Tensor) -> torch.Tensor:
     return torch.empty((b, n, h, d), dtype=x.dtype, device=x.device).permute(0, 2, 1, 3)
 
 
+def head_rows(t: torch.Tensor, row: int = 64) -> torch.Tensor:
+    """A (B, H, N, R*row) tensor as the (B, R, N, H, row) view K2's kernels
+    and plain versions take (R rows of ``row`` features, row stride
+    ``row``): no copy."""
+    b, h, n, d = t.shape
+    return t.unflatten(-1, (d // row, row)).permute(0, 3, 2, 1, 4)
+
+
+def _launch_rows_forward(q, k, v, out, lse, masks, sm_scale):
+    """K1 past head dim 128 on the card, bf16 at a multiple of 64: the head
+    dim read as R = D/64 rows of 64 features (:func:`head_rows`) and run on
+    K2's kernels through their strided entry under tie scale 1. K2's plan
+    picks the Hopper walk (R*D up to 512), the wide route (wider; its
+    workspace allocated here from ``tied_row.wide_plan``) or, for operands
+    TMA cannot describe, the chunked tile kernel K1 itself would run.
+    Returns 1 if a Hopper kernel ran."""
+    from alphafold2_tpu_torch.ops.cuda import tied_row  # it imports this module
+
+    b, h, nq, d = q.shape
+    nk, row = k.shape[2], row_width(d)
+    plan = tied_row.wide_plan(b, d // row, h, nq, nk, row)
+    work = (torch.empty(plan["workspace"], dtype=torch.uint8, device=q.device)
+            if plan is not None else None)
+    # (batch, head, token, row) element strides of the (B, R, N, H, row) views
+    views = [head_rows(t, row) for t in (q, k, v, out)]
+    strides = (ctypes.c_longlong * 16)(*(x for r in views
+                                         for x in (r.stride(0), r.stride(3), r.stride(2),
+                                                   r.stride(1))))
+    lib = build.library("tied_row_attention")
+    info = (ctypes.c_int * 2)()
+    with torch.cuda.device(q.device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        code = lib.af2_tied_row_attention_strided(
+            _DTYPES[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), _ptr(masks[0]),
+            _ptr(masks[1]), None, strides, b, h, nq, nk, d, row, float(sm_scale), _ptr(work),
+            work.numel() if work is not None else 0, info, stream)
+    build.check(lib, code, "tied_row_attention_strided")
+    return info[0]
+
+
 def _launch_forward(q, k, v, q_mask, kv_mask, sm_scale, with_lse):
     """K1 on CUDA tensors: out, and the (B, H, Nq) f32 lse when asked.
-    Where the plan splits the key axis, the combine pass follows."""
+    Where the plan splits the key axis, the combine pass follows. A bf16
+    head dim past 128 that is a multiple of 64 runs on K2's kernels
+    (:func:`_launch_rows_forward`)."""
     masks = _cuda_operands(q, k, v, q_mask, kv_mask, "fused_attention")
     b, h, nq, d = q.shape
     nk = k.shape[2]
@@ -415,13 +548,20 @@ def _launch_forward(q, k, v, q_mask, kv_mask, sm_scale, with_lse):
            if with_lse else None)
     if nq == 0 or b * h == 0:
         return out, lse
+    if q.dtype == torch.bfloat16 and d > HEAD_DIMS[-1] and row_width(d) < d:
+        hopper = _launch_rows_forward(q, k, v, out, lse, masks, sm_scale)
+        fused_attention.launches += 1
+        fused_attention.sm90_launches += hopper
+        fused_attention.row_launches += hopper
+        return out, lse
     lib = build.library("fused_attention")
-    # only the Hopper kernel (bf16, head dim 32, 64 or 128) splits the key axis
+    # only attention_kernel_sm90 (bf16, head dim 32, 64 or 128) splits the
+    # key axis; at the packed kernel's shapes key_splits is 1
     hopper = q.dtype == torch.bfloat16 and d in HEAD_DIMS[1:]
     splits = key_splits(b, h, nq, nk, d) if hopper else 1
     part = (torch.empty(splits * b * h * nq * (d + 2), dtype=torch.float32, device=q.device)
             if splits > 1 else None)
-    info = (ctypes.c_int * 2)()
+    info = (ctypes.c_int * 3)()
     with torch.cuda.device(q.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         ptrs = (_ptr(q), _ptr(k), _ptr(v), _ptr(out))
@@ -434,6 +574,7 @@ def _launch_forward(q, k, v, q_mask, kv_mask, sm_scale, with_lse):
     build.check(lib, code, "fused_attention")
     fused_attention.launches += 1
     fused_attention.sm90_launches += info[0]
+    fused_attention.packed_launches += info[2]
     if info[1] > 1:
         _launch_combine(part, out, lse, masks[0], info[1])
     return out, lse
@@ -542,11 +683,12 @@ def launch_tied_backward(which, outs, q, k, v, dout, lse, dsum, masks, tie, stri
 
 
 def row_width(d: int) -> int:
-    """The row width K3a/K3b's backward past head dim 128 groups a head dim
-    ``d`` into: 64 where ``d`` is a multiple of 64 (R = d/64 rows of 64
-    features, which the Hopper kernels of
-    ``csrc/tied_row_attention_bwd_sm90.cuh`` take), else ``d`` itself (one
-    row, the chunked kernels)."""
+    """The row width K1's forward and K3a/K3b's backward past head dim 128
+    group a head dim ``d`` into: 64 where ``d`` is a multiple of 64 (R =
+    d/64 rows of 64 features, which K2's Hopper kernels take,
+    ``csrc/tied_row_attention_sm90.cuh`` forward and
+    ``csrc/tied_row_attention_bwd_sm90.cuh`` backward), else ``d`` itself
+    (one row, the chunked kernels)."""
     return 64 if d % 64 == 0 else d
 
 
@@ -734,4 +876,8 @@ def fused_attention(
 
 
 fused_attention.launches = 0
-fused_attention.sm90_launches = 0  # of them, launches of attention_kernel_sm90
+# of them, launches of a Hopper kernel: attention_kernel_sm90, the packed
+# kernel, or past head dim 128 K2's Hopper walk
+fused_attention.sm90_launches = 0
+fused_attention.packed_launches = 0  # of them, attention_packed_kernel_sm90's
+fused_attention.row_launches = 0  # of them, K2's Hopper walk's (past head dim 128)

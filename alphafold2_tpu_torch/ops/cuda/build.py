@@ -60,7 +60,8 @@ _PLAN = ctypes.POINTER(LaunchPlan)
 SIGNATURES = {
     "fused_attention": {
         # dtype, q, k, v, out, q_mask, kv_mask, strides, batch, heads, nq, nk,
-        # head_dim, sm_scale, splits, partials, info (2 ints out), stream
+        # head_dim, sm_scale, splits, partials, info (3 ints out: a Hopper
+        # kernel ran, the splits run, the packed kernel ran), stream
         "af2_fused_attention": [_I] + [_P] * 7 + [_I] * 5 + [_F, _I, _P, _P, _P],
         # the training forward: one more pointer, the (B, H, Nq) f32 logsumexp
         "af2_fused_attention_lse": [_I] + [_P] * 8 + [_I] * 5 + [_F, _I, _P, _P, _P],
@@ -93,6 +94,12 @@ SIGNATURES = {
         "af2_tied_row_attention": [_I] + [_P] * 7 + [_I] * 6 + [_F, _P, _L, _P],
         # the training forward: one more pointer after out, the (B, H, Nq) lse
         "af2_tied_row_attention_lse": [_I] + [_P] * 8 + [_I] * 6 + [_F, _P, _L, _P],
+        # through element strides (K1 past head dim 128 as rows of 64): dtype,
+        # q, k, v, out, lse (or null), q_mask, kv_mask, tie_scale (or null),
+        # strides (16), batch, heads, nq, nk, features, row width, sm_scale,
+        # workspace, its bytes, info (2 ints out: a Hopper kernel ran, the
+        # wide route ran), stream
+        "af2_tied_row_attention_strided": [_I] + [_P] * 9 + [_I] * 6 + [_F, _P, _L, _P, _P],
         # dtype, batch, rows, heads, nq, nk, head_dim, aligned, plan
         "af2_tied_row_attention_plan": [_I] * 8 + [_PLAN],
         # the wide route: dtype, batch, rows, heads, nq, nk, head_dim, aligned,

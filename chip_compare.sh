@@ -16,7 +16,10 @@
 # "phase_k2_wide_time" K2 with lse and its backward on the wide route's
 # shapes beside SDPA, "phase_wide_steps" the training steps whose tied rows
 # take the wide route,
-# "phase_d256_time" K1 with lse, K3a and K3b at head dim 256 beside SDPA,
+# "phase_d256_time" K1 without and with lse, K3a and K3b at head dim 256
+# beside SDPA, "phase_k1_packed_time" K1 on its short passes (the template
+# axis, the MSA column passes) beside SDPA, "phase_config4_pass"
+# config_4's template pass alone with its peak memory,
 # "phase_registers" every Hopper instantiation's registers and spills (a
 # phase the parent lacks runs from this tree's chip_smoke.py, on the
 # parent's kernels);
@@ -84,6 +87,6 @@ for who in parent change change parent; do
   (cd "$dir" && timeout 400 python3 -c "$runner" "$here/chip_smoke.py" $phases) \
       > "chiprun_out/cmp/$i.$who.log" 2>&1
   echo "== $i $who rc=$?"
-  grep -h "residues/s\|device busy\|the step alone\|warm step latency\|k1 time\|k2 time\|k2 wide time\|k3 time\|k5 time\|d256 time\|time fused_attention\|time block_sparse\|\[registers\]" \
+  grep -h "residues/s\|device busy\|the step alone\|the pass alone\|warm step latency\|k1 time\|k1 packed time\|k2 time\|k2 wide time\|k3 time\|k5 time\|d256 time\|time fused_attention\|time block_sparse\|\[registers\]" \
       "chiprun_out/cmp/$i.$who.log" | cut -c1-220
 done

@@ -18,9 +18,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
               (analysis/audit.py) of every target on the card, clean apart
               from reasoned waivers, its backward seen on the autograd
               engine's device threads;
-2. kernels  — K1's plan on its nine main-path passes must name the Hopper
-              kernel (attention_kernel_sm90<64>, and combine_kernel<64>
-              where the key axis splits), and K2's plan on its serving,
+2. kernels  — K1's plan on its nine main-path passes and the template
+              axis must name its Hopper kernel (the packed kernel
+              attention_packed_kernel_sm90<64> on the two MSA column passes
+              and the template axis, as axial.packed_plan mirrors it;
+              attention_kernel_sm90<64> on the other seven, and
+              combine_kernel<64> where the key axis splits), and K2's plan on its serving,
               training and gate shapes and on one shape of each other
               Hopper instantiation tied_row_attention_kernel_sm90<D, C>
               (head dims 32/64/128, 64 or 128 columns a block) as
@@ -30,7 +33,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
               serving path's shapes (f32 and bf16) plus ragged tails, a
               5-key pass, fully masked rows, other head dims and a negative
               scale, each bf16 serving pass and each bf16 K2 shape the
-              Hopper kernel takes launching it and repeating bit for bit,
+              Hopper kernel takes launching it (the MSA column pass the
+              packed kernel) and repeating bit for bit,
               K2 with a control that drops each row's last key tile; time
               the kernel (and its host time a call), the plain version and
               torch's scaled_dot_product_attention (a yardstick the port
@@ -49,10 +53,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
               rejected; two runs bit-identical; SDPA's backward as the
               yardstick;
 3b. head dims — K1, K1 with lse, K3a and K3b at head dims 48 (zero-padded
-              to 64) and 256 (K1 D-chunked; K3a/K3b as 4 rows of 64, bf16
-              on tied_dq_kernel_sm90 / tied_dkv_kernel_sm90) against their
-              plain versions, f32 and bf16; the autograd route through the
-              kernels alone, bit for bit the direct calls;
+              to 64) and 256 (as 4 rows of 64: bf16 K1 with and without
+              lse on tied_row_attention_kernel_sm90, repeating bit for bit,
+              with a control that drops each row's last key tile, f32 K1
+              D-chunked; K3a/K3b bf16 on tied_dq_kernel_sm90 /
+              tied_dkv_kernel_sm90) against their plain versions, f32 and
+              bf16; the autograd route through the kernels alone, bit for
+              bit the direct calls;
 3c. tied    — K2's backward plans (check_k2_bwd_plans: every Hopper
               instantiation tied_dq_kernel_sm90<D, C> and
               tied_dkv_kernel_sm90<D, 64> at one shape each, as
@@ -181,10 +188,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
               template-axis launch (147456 x 8 problems of 5 x 5 at head
               dim 64: crop 384, 4 templates), held against the plain
               versions on the batch's first and last 8192 rows, f32 and
-              bf16, bf16 on the Hopper kernels with no split, timed beside
-              SDPA; K2 with lse and its backward on the PLM grid's tied
-              rows at R*D 8192 (timed beside SDPA) and 12288, the chunked
-              kernels' shapes;
+              bf16, bf16 on the Hopper kernels with no split (K1 on the
+              packed kernel, out and lse repeating bit for bit, a control
+              without each problem's last valid key), timed beside SDPA;
+              K2 with lse and its backward on the PLM grid's tied rows at
+              R*D 8192 (timed beside SDPA) and 12288, the chunked kernels'
+              shapes;
 12. templates — a small f32 template model (with and without the SE(3)
               sidechain embedder) on the card against the CPU's plain
               versions, every gradient leaf; bench_suite.py config_4 at
@@ -234,14 +243,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 
 ``phase_k1_time`` (not part of the run) times K1 alone on its nine
 main-path passes beside SDPA: ``python3 -c "import chip_smoke as c;
-c.phase_build(); c.phase_k1_time()"``; ``phase_k3_time`` likewise times K3a
+c.phase_build(); c.phase_k1_time()"`` (``phase_k1_device_time`` with device
+times); ``phase_k1_packed_time`` K1 on its short passes (the template axis,
+the MSA column passes of serving, training, config_4 and config_3) beside
+SDPA, with device times and bounds; ``phase_config4_pass`` config_4's
+template pass alone with its peak memory; ``phase_k3_time`` likewise times K3a
 and K3b on the five training passes beside SDPA's backward, per pass and
 per step; ``phase_k5_time`` K5a and K5b (and K4, with K1 with lse on the
 dense problem of the same shape) on the sparse training pass and at N 512
 beside SDPA with the layout mask, per pass and per sparse step;
 ``phase_k2_time`` K2, K2 with lse and K2's backward on the tied passes
-beside SDPA, with device times; ``phase_d256_time`` K1 with lse, K3a and
-K3b at head dim 256 beside SDPA's forward and backward;
+beside SDPA, with device times; ``phase_d256_time`` K1 without and with
+lse, K3a and K3b at head dim 256 beside SDPA's forward and backward;
 ``phase_registers`` every Hopper instantiation's registers and spills; the
 template and PLM phases run alone after ``phase_build``:
 ``python3 -c "import chip_smoke as c; c.phase_build(); c.phase_slice_kernels();
@@ -436,6 +449,17 @@ def phase_gate():
         log(f"[gate] K4's Hopper instantiations (registers, spill stores, loads): {fwd}")
         check(len(fwd) == 3 and all(res[1:] == (0, 0) for res in fwd.values()),
               f"K4's Hopper instantiations at head dim 32/64/128: {fwd}")
+        # nor K1's packed kernel, which the gate plans at head dim 32, 64 and
+        # 128, nor K2's walk that K1 takes past head dim 128
+        packed = {name: res for name, res in _sm90_resources(("fused_attention",)).items()
+                  if name.startswith("attention_packed_kernel_sm90")}
+        log(f"[gate] K1's packed instantiations (registers, spill stores, loads): {packed}")
+        check({f"attention_packed_kernel_sm90<{d}>" for d in (32, 64, 128)} <= planned,
+              "the gate did not plan K1's packed kernel at head dim 32, 64 and 128")
+        check(len(packed) == 3 and all(res[1:] == (0, 0) for res in packed.values()),
+              f"K1's packed instantiations at head dim 32/64/128: {packed}")
+        check("tied_row_attention_kernel_sm90<64,128>" in planned,
+              "the gate did not plan K1 at head dim 256 on K2's walk")
 
     # X at its own shape: the path is one launch at (4, 512) f32
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -562,16 +586,36 @@ def _host_us(fn, calls=20):
     return us
 
 
-def _sm90_launched(fn, what):
-    """Run ``fn`` once; require that K1 launched attention_kernel_sm90.
-    Returns fn's result and how many combine passes it launched."""
+K1_ROUTES = {"sm90": "attention_kernel_sm90", "packed": "attention_packed_kernel_sm90",
+             "rows": "tied_row_attention_kernel_sm90 (head dim as rows of 64)"}
+
+
+def _k1_route(b, h, nq, nk, d):
+    """The Hopper kernel K1's plan takes for a bf16 shape whose operands TMA
+    can describe: "packed" (attention_packed_kernel_sm90, short problems),
+    "rows" (K2's walk past head dim 128) or "sm90"."""
     from alphafold2_tpu_torch.ops.cuda import axial
 
-    before = (axial.fused_attention.sm90_launches, axial.fused_attention_combine.launches)
+    if d > axial.HEAD_DIMS[-1]:
+        return "rows"
+    return "packed" if axial.packed_plan(b, h, nq, nk, d) is not None else "sm90"
+
+
+def _sm90_launched(fn, what, route="sm90"):
+    """Run ``fn`` once; require that K1 launched the Hopper kernel of
+    ``route`` (K1_ROUTES) and no other. Returns fn's result and how many
+    combine passes it launched."""
+    from alphafold2_tpu_torch.ops.cuda import axial
+
+    f = axial.fused_attention
+    counts = lambda: (f.sm90_launches, f.packed_launches, f.row_launches,
+                      axial.fused_attention_combine.launches)
+    before = counts()
     result = fn()
-    sm90 = axial.fused_attention.sm90_launches - before[0]
-    combine = axial.fused_attention_combine.launches - before[1]
-    require(sm90 == 1, f"{what}: K1 did not launch attention_kernel_sm90")
+    sm90, packed, rows, combine = (x - y for x, y in zip(counts(), before))
+    require((sm90, packed, rows) == (1, int(route == "packed"), int(route == "rows")),
+            f"{what}: K1 did not launch {K1_ROUTES[route]} (Hopper, packed, rows launches "
+            f"{(sm90, packed, rows)})")
     return result, combine
 
 
@@ -580,9 +624,10 @@ def k1_case(label, b, h, nq, nk, d, dtype, q_mask=None, kv_mask=None, reps=3,
     """One fused_attention check; returns a result row. ``serving`` builds
     the operands in the serving path's strided layout and also checks that
     a kernel skipping its last key tile would fail the bound. A bf16 main
-    path case (``serving``) must launch attention_kernel_sm90 and, where
-    the key axis splits, its combine pass; two runs must agree bit for
-    bit."""
+    path case (``serving``) must launch the Hopper kernel of its shape
+    (``_k1_route``: attention_packed_kernel_sm90 under 64 tokens, else
+    attention_kernel_sm90) and, where the key axis splits, its combine pass;
+    two runs must agree bit for bit."""
     import torch
     import torch.nn.functional as F
 
@@ -594,12 +639,13 @@ def k1_case(label, b, h, nq, nk, d, dtype, q_mask=None, kv_mask=None, reps=3,
     scale = d**-0.5 if sm_scale is None else sm_scale
     run = lambda: fused_attention(q, k, v, q_mask=q_mask, kv_mask=kv_mask, sm_scale=scale)
     if serving and dtype == torch.bfloat16:
-        splits = key_splits(b, h, nq, nk, d)
-        out, combined = _sm90_launched(run, label)
+        route = _k1_route(b, h, nq, nk, d)
+        splits = key_splits(b, h, nq, nk, d) if route == "sm90" else 1
+        out, combined = _sm90_launched(run, label, route)
         require(combined == (splits > 1), f"{label}: combine launches {combined}, "
                                           f"{splits} key splits")
         require(torch.equal(out, run()), f"{label}: two K1 runs differ")
-        log(f"[kernels] fused_attention {label}: attention_kernel_sm90, {splits} key "
+        log(f"[kernels] fused_attention {label}: {K1_ROUTES[route]}, {splits} key "
             f"split(s), two runs bit-identical")
     else:
         out = run()
@@ -1022,25 +1068,42 @@ K1_MAIN_PATH = {
     "train MSA<-pair": (1, 8, 320, 16384, 64),
 }
 K1_SM90 = "attention_kernel_sm90<64>"
+K1_PACKED = "attention_packed_kernel_sm90<64>"
+# the main-path passes of fewer than 64 tokens: the packed kernel's
+K1_PACKED_PASSES = ("serve MSA column", "train MSA column")
 
 
 def check_k1_plans():
-    """K1's plan on each main-path shape (bf16, TMA-aligned operands) must
-    name the redesigned kernel, and a split shape the combine pass."""
+    """K1's plan on each main-path shape and on the template axis (bf16,
+    TMA-aligned operands) must name its Hopper kernel: the packed kernel on
+    the two MSA column passes and the template axis, with the launch
+    axial.packed_plan mirrors; attention_kernel_sm90 on the other seven,
+    and a split shape the combine pass."""
     import ctypes
 
     from alphafold2_tpu_torch.ops.cuda import build
-    from alphafold2_tpu_torch.ops.cuda.axial import key_splits
+    from alphafold2_tpu_torch.ops.cuda.axial import key_splits, packed_plan
 
     lib = build.library("fused_attention")
-    for label, (b, h, nq, nk, d) in K1_MAIN_PATH.items():
+
+    b, h, n, d = TEMPLATE_AXIS
+    shapes = {**K1_MAIN_PATH, TEMPLATE_AXIS_LABEL: (b, h, n, n, d)}
+    for label, (b, h, nq, nk, d) in shapes.items():
         splits = key_splits(b, h, nq, nk, d)
         plan = build.LaunchPlan()
         build.check(lib, lib.af2_fused_attention_plan(1, b, h, nq, nk, d, splits, 1,
                                                       ctypes.byref(plan)), "K1 plan")
         name = plan.kernel.decode()
         line = f"{name}, {plan.blocks} blocks of {plan.threads}, {plan.dynamic_smem} B"
-        if splits > 1:
+        packed = label in K1_PACKED_PASSES or label == TEMPLATE_AXIS_LABEL
+        if packed:
+            mirror = packed_plan(b, h, nq, nk, d)
+            line += f"; {mirror['group']} problems a tile, {mirror['tiles']} tiles"
+            require((name, plan.blocks, plan.threads, plan.dynamic_smem) ==
+                    (mirror["kernel"], mirror["blocks"], mirror["threads"],
+                     mirror["dynamic_smem"]),
+                    f"{label}: the C plan {line} is not axial.packed_plan's {mirror}")
+        elif splits > 1:
             comb = build.LaunchPlan()
             build.check(lib, lib.af2_fused_attention_combine_plan(b, h, nq, d,
                                                                   ctypes.byref(comb)),
@@ -1049,7 +1112,8 @@ def check_k1_plans():
             require(comb.kernel.decode() == "combine_kernel<64>",
                     f"{label}: the combine pass plans {comb.kernel.decode()}")
         log(f"[kernels] K1 plan, {label} {(b, h, nq, nk, d)}: {line}")
-        require(name == K1_SM90, f"{label}: K1 plans {name}, not {K1_SM90}")
+        want = K1_PACKED if packed else K1_SM90
+        require(name == want, f"{label}: K1 plans {name}, not {want}")
 
 
 SERVE_LENGTHS = [128, 110, 97, 0]  # a bucket-128 batch of 4: one dummy slot
@@ -1068,12 +1132,13 @@ def _serve_masks():
             pair_mask.reshape(4, 384 * 384), msa_mask.reshape(4, 5 * 128))
 
 
-def phase_k1_time(reps=10):
+def phase_k1_time(reps=10, device=False):
     """K1 alone on its nine main-path passes, bf16, operands laid out as
     the path lays them out: the four serving passes (no lse) and the five
     training passes (with lse), each timed beside SDPA on the same masked
-    problem, with the host time of a call. No checks: phase_kernels and
-    phase_backward hold K1 to its plain version. Returns {label: row}."""
+    problem, with the host time of a call; with ``device`` also each one's
+    device time and SDPA's under torch.profiler. No checks: phase_kernels
+    and phase_backward hold K1 to its plain version. Returns {label: row}."""
     import torch
     import torch.nn.functional as F
 
@@ -1093,12 +1158,15 @@ def phase_k1_time(reps=10):
         run = ((lambda: axial.fused_attention_lse(q, k, v, qm, km, scale)) if with_lse else
                (lambda: axial.fused_attention(q, k, v, q_mask=qm, kv_mask=km, sm_scale=scale)))
         am = km[:, None, None, :]
-        row = {"ms": cuda_ms(run, reps), "host_us": _host_us(run),
-               "sdpa_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                   q, k, v, attn_mask=am, scale=scale), reps)}
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am, scale=scale)
+        row = {"ms": cuda_ms(run, reps), "host_us": _host_us(run), "sdpa_ms": cuda_ms(sdpa, reps)}
+        if device:
+            row.update(device_ms=_device_ms(run), sdpa_device_ms=_device_ms(sdpa))
         rows[label] = row
         log(f"[k1 time] {label} {(b, h, nq, nk, d)}{' lse' if with_lse else ''}: K1 "
-            f"{row['ms']:.4f} ms, host {row['host_us']:.1f} us a call; SDPA {row['sdpa_ms']:.4f} ms")
+            f"{row['ms']:.4f} ms, host {row['host_us']:.1f} us a call; SDPA {row['sdpa_ms']:.4f} ms"
+            + (f"; device K1 {row['device_ms']:.4f} ms, SDPA {row['sdpa_device_ms']:.4f} ms"
+               if device else ""))
         del q, k, v
     layer = {"serve pair axial": 2, "serve MSA column": 1, "serve pair<-MSA": 1,
              "serve MSA<-pair": 1}
@@ -1108,6 +1176,88 @@ def phase_k1_time(reps=10):
         sdpa = sum(w * rows[lb]["sdpa_ms"] for lb, w in weights.items())
         log(f"[k1 time] per {what}: K1 {k1:.3f} ms, SDPA {sdpa:.3f} ms")
     return rows
+
+
+def phase_k1_device_time(reps=10):
+    """phase_k1_time with device times, a name no older tree has, so that
+    chip_compare.sh runs this tree's version on a parent's kernels."""
+    return phase_k1_time(reps, device=True)
+
+
+# K1's short passes (label: (b, h, nq, nk, d, with lse)): the packed
+# kernel's shapes on the port's paths
+K1_SHORT_PASSES = {
+    "template axis (147456x8, 5x5)": (384 * 384, 8, 5, 5, 64, False),
+    "template axis, lse (147456x8, 5x5)": (384 * 384, 8, 5, 5, 64, True),
+    "serve MSA column (512x8, 5x5)": (512, 8, 5, 5, 64, False),
+    "train MSA column, lse (64x8, 5x5)": (64, 8, 5, 5, 64, True),
+    "config_4 MSA column, lse (128x8, 16x16)": (128, 8, 16, 16, 64, True),
+    "config_3 MSA column, lse (128x8, 8x8)": (128, 8, 8, 8, 64, True),
+}
+
+
+def phase_k1_packed_time(reps=10):
+    """K1 alone on its short passes (K1_SHORT_PASSES), bf16, operands laid
+    out as the projections lay them out, with the masks of their paths (the
+    template axis's _template_axis_mask, the serving MSA column's bucket-128
+    mask, all-valid elsewhere), each beside SDPA's forward on the same
+    masked problem: a call's time by CUDA events over ``reps`` calls, its
+    device time under torch.profiler and its host time, and its bound. No
+    checks (phase_kernels and phase_slice_kernels hold K1 there). Uses only
+    the public wrappers, so chip_compare.sh can run it on a parent's
+    kernels. Returns {label: row}."""
+    import torch
+    import torch.nn.functional as F
+
+    from alphafold2_tpu_torch.ops.cuda import axial
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    rows = {}
+    for label, (b, h, nq, nk, d, with_lse) in K1_SHORT_PASSES.items():
+        q, k, v = _k1_operands(b, h, nq, nk, d, torch.bfloat16, gen, serving=True)
+        if label.startswith("template"):
+            qm = km = _template_axis_mask(b)
+        elif label.startswith("serve"):
+            qm = km = _serve_masks()[1]
+        else:
+            qm, km = _ones(b, nq), _ones(b, nk)
+        scale = d**-0.5
+        run = ((lambda: axial.fused_attention_lse(q, k, v, qm, km, scale)) if with_lse else
+               (lambda: axial.fused_attention(q, k, v, q_mask=qm, kv_mask=km, sm_scale=scale)))
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=km[:, None, None, :],
+                                                      scale=scale)
+        valid = (qm.sum(1).double() * km.sum(1).double()).sum()
+        row = {"ms": cuda_ms(run, reps), "device_ms": _device_ms(run), "host_us": _host_us(run),
+               "sdpa_device_ms": _device_ms(sdpa),
+               **_bound(4.0 * h * d * float(valid),
+                        (2 * b * h * nq * d + 2 * b * h * nk * d) * 2 + b * (nq + nk),
+                        torch.bfloat16)}
+        rows[label] = row
+        log(f"[k1 packed time] {label} ({_card()}): K1 {row['ms']:.4f} ms, device "
+            f"{row['device_ms']:.4f} ms ({row['bound_ms'] / row['device_ms']:.1%} of the "
+            f"{row['bound_by']} bound {row['bound_ms']:.4f}), host {row['host_us']:.1f} us a "
+            f"call; SDPA device {row['sdpa_device_ms']:.4f} ms")
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_config4_pass(reps=3):
+    """bench_suite.py config_4's template pass without the SE(3) embedder
+    (phase_templates' model and inputs) alone over ``reps`` warm passes,
+    with its peak memory: the pass that carries K1's template-axis calls.
+    No checks (phase_templates holds it); chip_compare.sh runs it on a
+    parent's package. Returns (ms, peak bytes)."""
+    from alphafold2_tpu_torch.predict import init_params
+
+    model = init_params(_template_model(False), 0).cuda()
+    inputs = _template_inputs(TEMPLATE_CROP, TEMPLATE_MSA, TEMPLATE_T, False, "cuda")
+    ms, peak = _time_step(lambda: _template_step(model, inputs), reps)
+    del model, inputs
+    _free()
+    log(f"[config4 pass] ({_card()}): the pass alone {ms:.2f} ms over {reps}, peak device "
+        f"memory {peak / 2**20:.1f} MiB")
+    return ms, peak
 
 
 def _device_ms(fn, calls=10):
@@ -1320,14 +1470,15 @@ def k3_case(label, b, h, nq, nk, d, dtype, q_mask=None, kv_mask=None, reps=3,
     scale = d**-0.5
     forward = lambda: axial.fused_attention_lse(q, k, v, q_mask, kv_mask, scale)
     if strided and dtype == torch.bfloat16:  # a training main-path pass
-        splits = axial.key_splits(b, h, nq, nk, d)
-        (out, lse), combined = _sm90_launched(forward, label)
+        route = _k1_route(b, h, nq, nk, d)
+        splits = axial.key_splits(b, h, nq, nk, d) if route == "sm90" else 1
+        (out, lse), combined = _sm90_launched(forward, label, route)
         require(combined == (splits > 1), f"{label}: combine launches {combined}, "
                                           f"{splits} key splits")
         out2, lse2 = forward()
         require(torch.equal(out, out2) and torch.equal(lse, lse2),
                 f"{label}: two K1 (lse) runs differ")
-        log(f"[backward] fused_attention (lse) {label}: attention_kernel_sm90, {splits} key "
+        log(f"[backward] fused_attention (lse) {label}: {K1_ROUTES[route]}, {splits} key "
             f"split(s), two runs bit-identical (out and lse)")
         del out2, lse2
     else:
@@ -1635,14 +1786,17 @@ def phase_backward():
 # --------------------------------------------------------------- phase 3b
 
 
-HEAD_DIM_CASES = (48, 256)  # padded to 64; D-chunked past 128
+HEAD_DIM_CASES = (48, 256)  # padded to 64; past 128 as rows of 64
 
 
 def head_dim_case(d, dtype, gen):
     """K1, K1 with lse, K3a and K3b at a head dim no kernel is built for,
-    each against its plain version (k1_case, k3_case); then the autograd
-    route, which must launch K1 (lse), K3a and K3b once each, call no plain
-    version, and give the direct calls' results bit for bit."""
+    each against its plain version (k1_case, k3_case); past head dim 128 in
+    bf16, K1 with and without lse on K2's Hopper walk (the head dim as rows
+    of 64), twice bit for bit, with a control that drops each row's last key
+    tile; then the autograd route, which must launch K1 (lse), K3a and K3b
+    once each, call no plain version, and give the direct calls' results bit
+    for bit."""
     import torch
 
     from alphafold2_tpu_torch.ops.cuda import axial
@@ -1655,6 +1809,27 @@ def head_dim_case(d, dtype, gen):
     rows.append(k1_case(label, b, h, nq, nk, d, dtype, qm, km, reps=0, gen=gen))
     q, k, v, do = _grad_operands(b, h, nq, nk, d, dtype, gen, strided=True)
     scale = d**-0.5
+    if d > axial.HEAD_DIMS[-1] and dtype == torch.bfloat16:
+        # K1 past head dim 128 runs on K2's Hopper walk, the head dim read as
+        # rows of 64: with and without lse, bit-identical reruns, a control
+        # without each row's last key tile
+        fwd = lambda: axial.fused_attention(q, k, v, q_mask=qm, kv_mask=km, sm_scale=scale)
+        lse_fwd = lambda: axial.fused_attention_lse(q, k, v, qm, km, scale)
+        out0, _ = _sm90_launched(fwd, label, "rows")
+        (out1, lse1), _ = _sm90_launched(lse_fwd, label, "rows")
+        again = lse_fwd()
+        require(torch.equal(out0, fwd()) and torch.equal(out1, again[0])
+                and torch.equal(lse1, again[1]), f"{label}: two K1 runs on the rows differ")
+        ref, ref_lse = axial.fused_attention_lse_reference(q, k, v, qm, km, scale)
+        _compare(label, "fused_attention (rows)", out0, ref, dtype)
+        _compare(label, "fused_attention (rows, lse)", out1, ref, dtype)
+        _check_lse(label, lse1, ref_lse)
+        _control(label, "fused_attention (rows)",
+                 axial.fused_attention(q, k, v, q_mask=qm, kv_mask=_drop_last_tile(km),
+                                       sm_scale=scale), ref, dtype)
+        log(f"[head dims] {label} bfloat16: K1 with and without lse on {K1_ROUTES['rows']} "
+            f"({axial.row_width(d)}-wide rows), two runs bit-identical")
+        del out0, out1, lse1, again, ref, ref_lse
     plain = (axial.fused_attention_reference, axial.fused_attention_lse_reference,
              axial.fused_attention_dq_reference, axial.fused_attention_dkv_reference)
     wrappers = (axial.fused_attention, axial.fused_attention_dq, axial.fused_attention_dkv)
@@ -1962,10 +2137,9 @@ def _reset_counts(kernels, plain):
     """Every launch count, Hopper launch count and plain-version call count to 0."""
     for fn in kernels.values():
         fn.launches = 0
-        if hasattr(fn, "sm90_launches"):
-            fn.sm90_launches = 0
-        if hasattr(fn, "wide_launches"):
-            fn.wide_launches = 0
+        for count in ("sm90_launches", "wide_launches", "packed_launches", "row_launches"):
+            if hasattr(fn, count):
+                setattr(fn, count, 0)
     for fn in plain:
         fn.calls = 0
 
@@ -2044,7 +2218,12 @@ def phase_train(sparse=False, tied=False):
     require(launches["fused_attention"] == (6 * depth - sparse_calls - tied_calls) * steps,
             "K1 launches per step")
     require(sm90["fused_attention"] == launches["fused_attention"],
-            "a K1 launch of the training path did not run attention_kernel_sm90")
+            "a K1 launch of the training path did not run its Hopper kernel")
+    # the MSA column pass (64 x 8 problems of 5 x 5), one a layer, on the
+    # packed kernel, and no other pass
+    require(kernels["fused_attention"].packed_launches == depth * steps,
+            f"K1's packed launches {kernels['fused_attention'].packed_launches}, not one MSA "
+            f"column pass a layer ({depth * steps})")
     # the MSA<-pair pass, one a layer, is the one that splits its key axis
     require(launches["fused_attention_combine"] == depth * steps,
             "K1 combine launches per step")
@@ -3432,9 +3611,11 @@ def template_axis_case(dtype, gen, reps=0, library=False):
     projections give them), each held against its plain version on a
     slice of TEMPLATE_AXIS_SLICE batch rows at each end of the batch (the
     last ones at the largest offsets); bf16 launches named on their Hopper
-    kernels, two runs bit-identical, the key and grad splits logged; a
-    negative control without each row's last valid key. Returns result
-    rows for K1, K1 (lse), K3a and K3b."""
+    kernels (K1 on attention_packed_kernel_sm90, with and without lse), two
+    runs bit-identical, the key and grad splits logged; a negative control
+    without each problem's last valid key, which still bites with 25
+    problems packed into a tile. Returns result rows for K1, K1 (lse), K3a
+    and K3b."""
     import torch
     import torch.nn.functional as F
 
@@ -3456,9 +3637,12 @@ def template_axis_case(dtype, gen, reps=0, library=False):
     train_fwd = lambda: axial.fused_attention_lse(q, k, v, mask, mask, scale)
     bf16 = dtype == torch.bfloat16
     if bf16:
-        out, _ = _sm90_launched(forward, label)
-        (out_l, lse), _ = _sm90_launched(train_fwd, label)
-        require(torch.equal(out, forward()), f"{label}: two K1 runs differ")
+        out, _ = _sm90_launched(forward, label, "packed")
+        (out_l, lse), _ = _sm90_launched(train_fwd, label, "packed")
+        again = train_fwd()
+        require(torch.equal(out, forward()) and torch.equal(out_l, again[0])
+                and torch.equal(lse, again[1]), f"{label}: two K1 runs differ")
+        del again
     else:
         out, (out_l, lse) = forward(), train_fwd()
     torch.cuda.synchronize()
@@ -3492,8 +3676,8 @@ def template_axis_case(dtype, gen, reps=0, library=False):
                   max_abs_err=max(row_k["max_abs_err"], row_v["max_abs_err"]))
     log(f"[slice kernels] {label} {row['dtype']}: the whole launch ({b} x {h} problems), "
         f"held on {2 * TEMPLATE_AXIS_SLICE} batch rows"
-        + (", every launch on attention_kernel_sm90 / dq_kernel_sm90 / dkv_kernel_sm90, two "
-           "runs bit-identical" if bf16 else ""))
+        + (", every launch on attention_packed_kernel_sm90 / dq_kernel_sm90 / "
+           "dkv_kernel_sm90, two runs bit-identical" if bf16 else ""))
     qv = mask.sum(1).double()
     row.update(_bound(4.0 * h * d * float((qv * qv).sum()),
                       4 * b * h * n * d * q.element_size() + 2 * b * n, dtype))
@@ -3678,6 +3862,7 @@ def _template_run(label, se3, card, profile=False):
     """config_4 at full width (_template_model, bf16) on its inputs:
     TEMPLATE_STEPS forward and backward passes from launch counts of 0
     (finite losses and gradients, every K1 and K3 launch on its Hopper
+    kernel, the two template-axis and two MSA column K1 passes on the packed
     kernel, every K2 launch and its backward on the wide route at R*D 1024,
     launches a step as _template_expected gives them, no plain version),
     then the pass alone and its peak memory; with ``profile`` one pass
@@ -3708,17 +3893,21 @@ def _template_run(label, se3, card, profile=False):
     wide = {n: fn.wide_launches / TEMPLATE_STEPS for n, fn in kernels.items()
             if hasattr(fn, "wide_launches") and fn.launches}
     plain_calls = sum(fn.calls for fn in plain)
+    packed = kernels["fused_attention"].packed_launches / TEMPLATE_STEPS
     expected = _template_expected()
     step_ms, peak = _time_step(lambda: _template_step(model, inputs), TEMPLATE_REPS)
     log(f"[templates] {label} ({card}): crop {TEMPLATE_CROP}, MSA {r}x{l}, {TEMPLATE_T} "
         f"templates, dim {model.dim}, depth 2, 2 template blocks, bf16: losses "
         + " ".join(f"{x:.5f}" for x in losses) + f"; the pass alone {step_ms:.2f} ms over "
         f"{TEMPLATE_REPS}, peak device memory {peak / 2**20:.1f} MiB; kernel launches a step "
-        f"{per_step}; on a Hopper kernel {hopper}, of them on the wide route {wide}; "
-        f"plain-version calls {plain_calls}")
+        f"{per_step}; on a Hopper kernel {hopper}, of them on the wide route {wide}, K1 on "
+        f"the packed kernel {packed}; plain-version calls {plain_calls}")
     require(bool(np.isfinite(losses).all()) and all(finite),
             f"{label}: a non-finite loss or gradient")
     require(plain_calls == 0, f"{label}: a plain version ran")
+    # the template-axis pass of each template block and the MSA column pass
+    # of each trunk layer on the packed kernel, and no other pass
+    require(packed == 2 + 2, f"{label}: K1 on the packed kernel {packed} times a step, not 4")
     for name, n in expected.items():
         require(per_step.get(name, 0) == n, f"{label}: {name} launched {per_step.get(name, 0)} "
                                             f"times a step, expected {n}")
@@ -4498,19 +4687,13 @@ def phase_wide_steps(reps=3):
     template pass without the SE(3) embedder (1024). No checks (phase_plm
     and phase_templates hold them); chip_compare.sh runs it on a parent's
     package. Returns {label: (ms, peak bytes)}."""
-    from alphafold2_tpu_torch.predict import init_params
-
     out = {}
     for label, tied_e2e in (("plm tied hash", False), ("plm e2e tied", True)):
         fn = _step_fn(_plm_config(True, "hash", tied_e2e), tied_e2e)
         out[label] = _time_step(fn, reps)
         del fn
         _free()
-    model = init_params(_template_model(False), 0).cuda()
-    inputs = _template_inputs(TEMPLATE_CROP, TEMPLATE_MSA, TEMPLATE_T, False, "cuda")
-    out["config_4 templates"] = _time_step(lambda: _template_step(model, inputs), reps)
-    del model, inputs
-    _free()
+    out["config_4 templates"] = phase_config4_pass(reps)
     for label, (ms, peak) in out.items():
         log(f"[wide steps] {label} ({_card()}): the step alone {ms:.2f} ms over {reps}, peak "
             f"device memory {peak / 2**20:.1f} MiB")
@@ -4524,7 +4707,7 @@ D256_TIME_CASES = {"head dim 256 (2x4, 200x150)": (2, 4, 200, 150),
 
 
 def phase_d256_time(reps=10):
-    """K1 with lse, K3a and K3b at head dim 256, bf16, operands laid out as
+    """K1 without and with lse, K3a and K3b at head dim 256, bf16, operands laid out as
     the projections lay them out, beside SDPA's forward and its whole
     backward on the same masked problem: a call's time by CUDA events over
     ``reps`` calls, its device time under torch.profiler and its host time;
@@ -4552,7 +4735,9 @@ def phase_d256_time(reps=10):
         am = km[:, None, None, :]
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         o = F.scaled_dot_product_attention(*leaves, attn_mask=am, scale=scale)
-        calls = {"lse": lambda: axial.fused_attention_lse(q, k, v, qm, km, scale),
+        calls = {"fwd": lambda: axial.fused_attention(q, k, v, q_mask=qm, kv_mask=km,
+                                                      sm_scale=scale),
+                 "lse": lambda: axial.fused_attention_lse(q, k, v, qm, km, scale),
                  "dq": lambda: axial.fused_attention_dq(*args),
                  "dkv": lambda: axial.fused_attention_dkv(*args),
                  "sdpa_fwd": lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am,
@@ -4571,8 +4756,8 @@ def phase_d256_time(reps=10):
             row[f"{name}_plain_ms"] = cuda_ms(fn, reps=1)
             row[f"{name}_bound_ms"], row[f"{name}_bound_by"] = bound["bound_ms"], bound["bound_by"]
         rows[label] = row
-        names = {"lse": "K1 with lse", "dq": "K3a", "dkv": "K3b", "sdpa_fwd": "SDPA forward",
-                 "sdpa_bwd": "SDPA backward"}
+        names = {"fwd": "K1", "lse": "K1 with lse", "dq": "K3a", "dkv": "K3b",
+                 "sdpa_fwd": "SDPA forward", "sdpa_bwd": "SDPA backward"}
         log(f"[d256 time] {label}: " + "; ".join(
             f"{names[m]} {row[f'{m}_ms']:.4f} ms, device {row[f'{m}_device_ms']:.4f} ms, host "
             f"{row[f'{m}_host_us']:.1f} us a call" for m in calls))
@@ -4581,8 +4766,8 @@ def phase_d256_time(reps=10):
             f"{row[f'{m}_plain_ms']:.3f})" for m in ("lse", "dq", "dkv")))
         log(f"[d256 time] {label}, device ms: K3a + K3b "
             f"{row['dq_device_ms'] + row['dkv_device_ms']:.4f}, SDPA backward "
-            f"{row['sdpa_bwd_device_ms']:.4f}; K1 with lse {row['lse_device_ms']:.4f}, SDPA "
-            f"forward {row['sdpa_fwd_device_ms']:.4f}")
+            f"{row['sdpa_bwd_device_ms']:.4f}; K1 {row['fwd_device_ms']:.4f}, K1 with lse "
+            f"{row['lse_device_ms']:.4f}, SDPA forward {row['sdpa_fwd_device_ms']:.4f}")
         del q, k, v, do, out, lse, args, leaves, o, calls, plain
         torch.cuda.empty_cache()
     return rows
@@ -4726,6 +4911,7 @@ def phase_serve():
     for fn in (fused_attention, tied_row_attention, fused_attention_combine):
         fn.launches = 0
     fused_attention.sm90_launches = tied_row_attention.sm90_launches = 0
+    fused_attention.packed_launches = 0
     plain = (fused_attention_reference, tied_row_attention_reference)
     for fn in plain:
         fn.calls = 0
@@ -4743,7 +4929,12 @@ def phase_serve():
                 "tied_row_attention": tied_row_attention.launches}
     require(fused_attention.sm90_launches == fused_attention.launches,
             f"{fused_attention.launches - fused_attention.sm90_launches} of K1's serving "
-            f"launches did not run attention_kernel_sm90")
+            f"launches did not run their Hopper kernel")
+    # of a trunk layer's five K1 passes, the MSA column pass on the packed
+    # kernel, and no other
+    require(5 * fused_attention.packed_launches == fused_attention.launches,
+            f"K1's packed launches {fused_attention.packed_launches} of "
+            f"{fused_attention.launches}: not one MSA column pass in five")
     require(tied_row_attention.sm90_launches == tied_row_attention.launches,
             f"{tied_row_attention.launches - tied_row_attention.sm90_launches} of K2's serving "
             f"launches did not run tied_row_attention_kernel_sm90")
@@ -5318,7 +5509,8 @@ def profile_device(what, fn, host=False):
     log(f"[profile] {what}: wall {wall_ms:.1f} ms (profiler on), device busy "
         f"{busy:.1f} ms ({busy / wall_ms:.1%}), idle {1 - busy / wall_ms:.1%}")
     # K1 shows as attention_kernel_sm90<64> (and combine_kernel<64> where it
-    # splits the key axis), K2 as tied_row_attention_kernel_sm90<64,128>
+    # splits the key axis), on the MSA column and template-axis passes as
+    # attention_packed_kernel_sm90<64>, K2 as tied_row_attention_kernel_sm90<64,128>
     # (serving) or <64,64> (tied training), K3a/K3b as
     # dq_kernel_sm90 / dkv_kernel_sm90 (and grad_merge_kernel<64> where they
     # split), K2's backward as tied_dq_kernel_sm90<64,64> /
@@ -5417,7 +5609,9 @@ def kernel_line(rows, serve, train, tied_train, sparse_train, gate, engines, tel
     8192 and 12288, config_4's at 1024), bf16, the backward's with
     ``grads_ms`` (dq, dk and dv in one call); K2 and its backward list
     ``instantiations``: their Hopper kernels on the resident and the wide
-    route."""
+    route; K1 lists its three Hopper instantiations by route
+    (attention_kernel_sm90, the packed kernel, K2's walk past head dim
+    128)."""
     serve_k1 = {"pair axial pass (1536x8, 384x384, d64)": 2,
                 "MSA column pass (512x8, 5x5, d64)": 1,
                 "pair<-MSA cross (4x8, 147456x640, d64)": 1,
@@ -5489,8 +5683,8 @@ def kernel_line(rows, serve, train, tied_train, sparse_train, gate, engines, tel
             key = label if kernel == e["name"] else f"{label}, {kernel}"
             e.setdefault("shapes", {})[key] = _shape_entry(rows, kernel, label)
     for e in entries:
-        if e["name"] in _K2_INSTANTIATIONS:
-            e["instantiations"] = _K2_INSTANTIATIONS[e["name"]]()
+        if e["name"] in _INSTANTIATIONS:
+            e["instantiations"] = _INSTANTIATIONS[e["name"]]()
     return {"kernels": entries}
 
 
@@ -5509,7 +5703,20 @@ def _k2_routes(which):
             "wide": [x["kernel"] for x in passes[:2] + [passes[2 if which == "dq" else 3]]]}
 
 
-_K2_INSTANTIATIONS = {"tied_row_attention": lambda: _k2_routes("fwd"),
+def _k1_routes():
+    """K1's Hopper instantiations by route: attention_kernel_sm90 on the
+    long passes, the packed kernel on the short ones (the MSA column passes,
+    the template axis), K2's walk on the pair axial pass at head dim 256."""
+    from alphafold2_tpu_torch.ops.cuda import axial
+    from alphafold2_tpu_torch.ops.cuda import tied_row as tr
+
+    b, h, n, d = TEMPLATE_AXIS
+    return {"sm90": K1_SM90, "packed": axial.packed_plan(b, h, n, n, d)["kernel"],
+            "rows": tr.hopper_plan(128, 256 // 64, 8, 128, 64)["kernel"]}
+
+
+_INSTANTIATIONS = {"fused_attention": _k1_routes,
+                      "tied_row_attention": lambda: _k2_routes("fwd"),
                       "tied_row_attention_bwd_dq": lambda: _k2_routes("dq"),
                       "tied_row_attention_bwd_dkv": lambda: _k2_routes("dkv")}
 

@@ -204,7 +204,8 @@ def test_cases_stand_for_the_jax_gate_one_for_one():
         "sparse_pair_512", "edge_dense_d128", "edge_sparse_block128_d128",
         "edge_tied_rows_1280", "edge_tied_rows_wide_d32", "edge_tied_rows_wide_d128",
         "plm_tied_rows_8192", "plm_e2e_tied_rows_12288", "config4_tied_rows_1024",
-        "edge_dense_d256", "scale_rows_4x512"]
+        "edge_dense_d256", "pair_axial_d256", "template_axis", "config4_msa_column",
+        "edge_packed_d32", "edge_packed_d128", "scale_rows_4x512"]
 
 
 def test_case_shapes_and_sources():
@@ -240,12 +241,17 @@ def test_case_shapes_and_sources():
         (None, 1, 5, 8, 64, 64, 64, 1), (0, None, 1, 8, 64, 64, 320, 64, 1),
         (1, None, 1, 8, 64, 64, 320, 64, 1)]
     # past head dim 128, K3a/K3b plan tied_row_attention_bwd.cu's kernels on
-    # the head dim as 4 rows of 64
-    assert [(l.role, l.source, l.args) for l in by["edge_dense_d256"].launches] == [
-        ("K1", "fused_attention", (None, 1, 2, 130, 130, 256, 1, 1)),
-        ("K3a", "tied_row_attention_bwd", (0, None, 1, 2, 130, 130, 256, 64, 1)),
-        ("K3b", "tied_row_attention_bwd", (1, None, 1, 2, 130, 130, 256, 64, 1))]
+    # the head dim as 4 rows of 64, and so does bf16 K1 K2's forward plan (the
+    # strided entry's); f32 K1 stays on fused_attention.cu's D-chunked kernel
+    assert [(l.role, l.source, l.args, l.dtypes) for l in by["edge_dense_d256"].launches] == [
+        ("K1", "fused_attention", (None, 1, 2, 130, 130, 256, 1, 1), ("float32",)),
+        ("K1", "tied_row_attention", (None, 1, 4, 2, 130, 130, 64, 1), ("bfloat16",)),
+        ("K3a", "tied_row_attention_bwd", (0, None, 1, 2, 130, 130, 256, 64, 1), lowering.DTYPES),
+        ("K3b", "tied_row_attention_bwd", (1, None, 1, 2, 130, 130, 256, 64, 1), lowering.DTYPES)]
     assert by["serve_cross_msa_from_pair"].launches[0].args == (None, 4, 8, 640, 147456, 64, 2, 1)
+    # the short passes plan K1 (the packed kernel) with no split
+    assert by["template_axis"].launches[0].args == (None, 147456, 8, 5, 5, 64, 1, 1)
+    assert by["config4_msa_column"].launches[0].args == (None, 128, 8, 16, 16, 64, 1, 1)
     assert by["scale_rows_4x512"].dtypes == ("float32",)
     every = {l.source for c in lowering.CASES for l in c.launches}
     assert every == set(build.SIGNATURES)  # every kernel source is gated

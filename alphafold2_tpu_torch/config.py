@@ -84,11 +84,11 @@ class ServeConfig:
     msa_depth: int = 0  # synthesized MSA rows per request; 0 -> data.msa_depth
     mds_iters: int = 200  # structure-realization Guttman iterations
     dtype: str = "float32"  # "float32" | "bfloat16" (params cast at build)
-    kernels: str = ""  # JAX kernel-policy spec; the port always runs K1/K2
-    donate_buffers: bool = True  # JAX buffer donation
+    kernels: str = ""  # JAX kernel-policy spec; accepted, ignored: the port runs K1/K2
+    donate_buffers: bool = True  # JAX buffer donation; accepted, ignored (no counterpart)
     return_distogram: bool = False  # ship (3L,3L,K) logits back per request
-    pipeline_depth: int = 2  # JAX pipelined dispatch depth
-    inflight_admission: bool = True  # async frontend: join in-flight batches
+    pipeline_depth: int = 2  # batches in flight on the CUDA-stream pipeline; 0 = serial
+    inflight_admission: bool = True  # async frontend: join batches still forming
     queue_depth: int = 64  # async frontend admission queue
     dwell_ms: float = 25.0  # async frontend fill wait
     default_deadline_s: float = 0.0  # per-request deadline; 0 = none

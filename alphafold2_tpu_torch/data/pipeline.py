@@ -44,10 +44,14 @@ def _smooth_walk(rng: np.random.Generator, n: int) -> np.ndarray:
     return (coords - coords.mean(0)).astype(np.float32)
 
 
-def _fill_msa(rng, seq_crop, msa_out, msa_mask_out, mutation_rate=0.15):
+def _fill_msa(rng, seq_crop, msa_out, msa_mask_out, mutation_rate=0.15,
+              mut_rows=None):
     """Fill (M, NM) MSA rows by mutating the primary sequence. The rng
     stream consumed depends only on (seed state, msa_len, M), never on the
-    sequence content."""
+    sequence content: the mutation mask is drawn first, and the
+    replacement residues for the masked positions whatever they replace.
+    :func:`featurize_delta` rests on that. ``mut_rows`` (a list) collects
+    each row's mutation mask for the delta plan."""
     M, NM = msa_out.shape
     msa_len = min(NM, len(seq_crop))
     for m in range(M):
@@ -56,6 +60,8 @@ def _fill_msa(rng, seq_crop, msa_out, msa_mask_out, mutation_rate=0.15):
         row[mut] = rng.integers(0, 20, size=int(mut.sum()))
         msa_out[m, :msa_len] = row
         msa_mask_out[m, :msa_len] = True
+        if mut_rows is not None:
+            mut_rows.append(mut)
 
 
 def _synthesize_backbone(rng: np.random.Generator, ca: np.ndarray) -> np.ndarray:
@@ -80,6 +86,26 @@ def featurize_bucketed(
     """One request -> unbatched fixed-shape features at a bucket length:
     ``seq``/``mask`` (bucket,), ``msa``/``msa_mask`` (msa_depth, msa_len or
     bucket), padded with ``AA_PAD_INDEX`` and False."""
+    item, _ = featurize_bucketed_with_plan(
+        seq_tokens, bucket_len, msa_depth, seed=seed, msa_len=msa_len
+    )
+    return item
+
+
+def featurize_bucketed_with_plan(
+    seq_tokens: np.ndarray,
+    bucket_len: int,
+    msa_depth: int,
+    seed: int = 0,
+    msa_len: int | None = None,
+) -> tuple:
+    """:func:`featurize_bucketed` plus the plan :func:`featurize_delta`
+    needs to featurize a point mutant without re-synthesizing the MSA: the
+    tokens, the derivation (bucket, msa_depth, msa_len, seed) and the
+    per-row mutation masks ``_fill_msa`` drew, which at a given (seed,
+    length, depth) do not depend on the sequence. Port of JAX's
+    ``data/pipeline.py:106-151``; the item is byte-identical to
+    :func:`featurize_bucketed`'s (the same rng order)."""
     seq_tokens = np.asarray(seq_tokens, np.int32).reshape(-1)
     L = len(seq_tokens)
     if L > bucket_len:
@@ -96,8 +122,46 @@ def featurize_bucketed(
     }
     item["seq"][:L] = seq_tokens
     item["mask"][:L] = True
-    _fill_msa(rng, seq_tokens, item["msa"], item["msa_mask"])
-    return item
+    mut_rows: list = []
+    _fill_msa(rng, seq_tokens, item["msa"], item["msa_mask"], mut_rows=mut_rows)
+    plan = {
+        "tokens": seq_tokens.copy(),
+        "bucket_len": int(bucket_len),
+        "msa_depth": int(msa_depth),
+        "msa_len": int(NM),
+        "seed": int(seed),
+        # (M, min(NM, L)) bool: where _fill_msa put a random residue
+        "mut": np.stack(mut_rows) if mut_rows else np.zeros((0, min(NM, L)), bool),
+    }
+    return item, plan
+
+
+def featurize_delta(parent_item: dict, plan: dict, mutant_tokens: np.ndarray) -> dict:
+    """Featurize a same-length mutant of ``plan``'s parent by patching only
+    the changed columns: the sequence slot, and in each MSA row the
+    positions its mutation mask left as the primary residue. Byte-identical
+    to cold featurization of the mutant at the parent's (bucket, depth,
+    seed). The masks are the parent's arrays (content-independent at equal
+    length), so callers treat items as immutable. Raises ``ValueError`` on
+    a different length. Port of JAX's ``data/pipeline.py:154-206``."""
+    mutant_tokens = np.asarray(mutant_tokens, np.int32).reshape(-1)
+    parent_tokens = plan["tokens"]
+    if len(mutant_tokens) != len(parent_tokens):
+        raise ValueError(
+            f"delta featurization needs equal lengths: mutant "
+            f"{len(mutant_tokens)} vs parent {len(parent_tokens)}"
+        )
+    positions = np.nonzero(mutant_tokens != parent_tokens)[0]
+    seq = parent_item["seq"].copy()
+    msa = parent_item["msa"].copy()
+    mut = plan["mut"]  # (M, eff_len) bool
+    eff_len = mut.shape[1] if mut.size else min(plan["msa_len"], len(parent_tokens))
+    for p in positions:
+        seq[p] = mutant_tokens[p]
+        if p < eff_len:
+            msa[~mut[:, p], p] = mutant_tokens[p]
+    return {"seq": seq, "mask": parent_item["mask"], "msa": msa,
+            "msa_mask": parent_item["msa_mask"]}
 
 
 @dataclasses.dataclass

@@ -1,6 +1,6 @@
-"""Step metrics as JSONL and stdout.
+"""Step metrics as JSONL and stdout, and event counters.
 
-Port of ``MetricsLogger`` and ``flatten_metrics`` of
+Port of ``MetricsLogger``, ``flatten_metrics`` and ``EventCounters`` of
 ``alphafold2_tpu/observe/metrics.py``. The port runs one process, so there
 is no process-index probe: the logger is enabled unless told otherwise.
 """
@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import json
 import os
+import threading
 import time
 from typing import Optional
 
@@ -63,3 +64,31 @@ def flatten_metrics(metrics: dict, prefix: str = "", sep: str = "/") -> dict:
         except (TypeError, ValueError):
             out[key] = v
     return out
+
+
+class EventCounters:
+    """Named monotonic counters for events without a step axis (requests,
+    batches, compiles, cache hits): ``bump`` from any thread, ``get`` one,
+    ``snapshot`` them all, ``log_to`` a MetricsLogger. Thread-safe: the
+    serving pipeline's stage workers and the frontend bump concurrently,
+    and a lost update would break the ledgers the tests hold exact."""
+
+    def __init__(self):
+        self._counts: dict = {}
+        self._lock = threading.Lock()
+
+    def bump(self, name: str, n: int = 1) -> int:
+        with self._lock:
+            self._counts[name] = self._counts.get(name, 0) + n
+            return self._counts[name]
+
+    def get(self, name: str) -> int:
+        with self._lock:
+            return self._counts.get(name, 0)
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return dict(self._counts)
+
+    def log_to(self, logger: MetricsLogger, step: int = 0) -> None:
+        logger.log(step, self.snapshot())

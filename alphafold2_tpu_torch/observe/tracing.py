@@ -8,10 +8,12 @@ and a Chrome-trace array that Perfetto and ``chrome://tracing`` load
 without the closing ``]``; a killed process still leaves a loadable trace.
 A tracer without a path and not enabled does nothing.
 
-JAX's request-scoped trace context (``tracectx``: ``current_trace`` and
-``use_trace``, whose ids a span attaches when a context is active) belongs
-to the serving telemetry plane, which is not ported. No context is ever
-active in a training loop, so the spans here carry only their own args.
+When a request-scoped :mod:`tracectx` context is active on the thread
+(``use_trace``), a span mints a child context for its region and carries
+its ids (``trace_id``, ``span_id``, ``parent_id``), and an instant carries
+the active context's, as JAX's ``Tracer`` attaches them (:25, :118-143,
+:173-187). No context is active in a training loop, so its spans carry
+only their own args.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import threading
 import time
 from contextlib import contextmanager
 from typing import Optional, Tuple
+
+from alphafold2_tpu_torch.observe.tracectx import current_trace, use_trace
 
 # one timeline origin a process, shared by every tracer
 _PROC_T0 = time.perf_counter()
@@ -98,14 +102,27 @@ class Tracer:
     @contextmanager
     def span(self, name: str, **args):
         """Time the block; one complete event on exit, also when it raises
-        (the event then carries ``error``)."""
+        (the event then carries ``error``). Under an active trace context
+        (and without explicit ids in ``args``) the region runs under a
+        child context whose ids the event carries, so nested spans chain
+        their parent ids."""
         if not self.enabled:
             yield _NULL_SPAN
             return
         sp = Span(name, dict(args))
+        ctx = None
+        if "trace_id" not in sp.args:
+            cur = current_trace()
+            if cur is not None:
+                ctx = cur.child()
+                sp.args.update(ctx.event_args())
         t0 = _now_us()
         try:
-            yield sp
+            if ctx is not None:
+                with use_trace(ctx):
+                    yield sp
+            else:
+                yield sp
         except BaseException as e:
             sp.args["error"] = type(e).__name__
             raise
@@ -126,9 +143,14 @@ class Tracer:
                     "tid": threading.get_ident(), **({"args": dict(args)} if args else {})})
 
     def instant(self, name: str, **args) -> None:
-        """A zero-duration marker (``"ph": "i"``)."""
+        """A zero-duration marker (``"ph": "i"``), carrying the active
+        trace context's ids unless ``args`` has its own."""
         if not self.enabled:
             return
+        if "trace_id" not in args:
+            cur = current_trace()
+            if cur is not None:
+                args = {**args, **cur.event_args()}
         self._emit({"name": name, "ph": "i", "ts": round(_now_us(), 1), "s": "p",
                     "pid": os.getpid(), "tid": threading.get_ident(),
                     **({"args": dict(args)} if args else {})})

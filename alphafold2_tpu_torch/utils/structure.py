@@ -9,6 +9,7 @@ functions, same layouts.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -62,18 +63,27 @@ def get_bucketed_distance_matrix(
     return torch.where(pair_mask, discretized, ignore_index)
 
 
+@functools.lru_cache(maxsize=None)
+def _thresholds(device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """The distogram thresholds on ``device``, copied there once: a forward
+    that realizes structures then reads nothing from the host (a blocking
+    copy would stall the host on the device mid-forward). Read-only, and
+    a normal tensor whichever mode the first caller runs in."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_THRESHOLDS_F32).to(device=device, dtype=dtype)
+
+
 def center_distogram(distogram: torch.Tensor, bins: Optional[torch.Tensor] = None):
     """(B, N, N, K) probabilities -> (central distance, confidence weight),
     each (B, N, N): the mean of bin centers (first clamped to 1.5 A, last
     inflated to 1.33x the top threshold), weight 0 past the penultimate
     threshold, zero diagonal, weight = mask / (1 + std), NaN -> 0."""
     if bins is None:
-        bins = torch.from_numpy(_THRESHOLDS_F32).to(device=distogram.device,
-                                                     dtype=distogram.dtype)
+        bins = _thresholds(distogram.device, distogram.dtype)
     half_width = 0.5 * (bins[2] - bins[1])
     centers = bins - half_width
-    centers = torch.cat([centers.new_tensor([1.5]), centers[1:-1],
-                         (1.33 * bins[-1]).reshape(1)])
+    first = torch.full((1,), 1.5, dtype=centers.dtype, device=centers.device)
+    centers = torch.cat([first, centers[1:-1], (1.33 * bins[-1]).reshape(1)])
     central = (distogram * centers).sum(-1)
     mask = (central <= bins[-2]).to(distogram.dtype)
     n = central.shape[-1]

@@ -97,6 +97,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
               f32-parameter engine's; an engine built from a 2-step
               end-to-end checkpoint equals predict(checkpoint_dir=) bit for
               bit; a bucket-128 and a bucket-256 batch are profiled;
+4b. serve_async — the serving plane at the serving phase's width and
+              weights: the twelve requests through a pipelined (depth 2:
+              copy stream, compute stream, pinned rings) and a serial engine
+              with return_distogram, every result ok and finite, distogram
+              logits and weights within 1e-5 relative of each other; each
+              path timed twice in turns (residues/s) and profiled once
+              (device idle share); then an open-loop Poisson burst of 32
+              requests at 0.8 x the serial request rate through
+              AsyncServeFrontend: four repeats (cache hits), a 128-residue
+              parent and six point mutants (delta featurization), one
+              compute-stage fault (retried on the next rung), one passed
+              deadline; the feature ledger equal to the dispatched
+              requests; p50/p95/p99 latency, counters, span totals, peak
+              memory; every K1/K2 launch on its Hopper kernel, no plain
+              version, in every run;
 5. train    — distogram pretraining at the same width (untied MSA rows,
               crop 128, MSA 5x64, batch 1, accumulation 16): 32 steps whose
               launch counts must show K1, K3a and K3b on every attention
@@ -3270,6 +3285,8 @@ def _serve_with_remat():
     log(f"[engines] serving with model.remat=True, one bucket-{a[0].bucket} batch of "
         f"{len(reqs)}: atom14 bit-equal to remat=False: {equal} (max |diff| {diff:.3e})")
     require(equal, "serving with model.remat=True differs from remat=False")
+    plain.close()
+    remat.close()
     del plain, remat
     _free()
 
@@ -4872,25 +4889,53 @@ def phase_se3_streamed():
         f"{ms:.2f} ms a layer")
 
 
-def phase_serve():
-    import numpy as np
-    import torch
+SERVE_REQUEST_LENGTHS = [50, 64, 77, 96, 110, 128, 129, 150, 192, 193, 230, 256]
+
+
+def _serve_config(**serve):
+    """The serving smoke configuration: Config() (dim 256, depth 6, heads
+    8, dim_head 64, bf16 compute), tied MSA rows, MSA depth 5, the default
+    ladder 64-256 at batch 4 and 200 MDS iterations; ``serve`` overrides
+    ServeConfig fields."""
+    import dataclasses
 
     from alphafold2_tpu_torch.config import Config
-    from alphafold2_tpu_torch.ops.cuda.axial import (
-        fused_attention, fused_attention_combine, fused_attention_reference)
-    from alphafold2_tpu_torch.ops.cuda.tied_row import (
-        tied_row_attention, tied_row_attention_reference)
-    from alphafold2_tpu_torch.serve.engine import ServeEngine, ServeRequest
-
-    from alphafold2_tpu_torch.constants import DISTOGRAM_BUCKETS
-    from alphafold2_tpu_torch.models import se3
 
     cfg = Config()  # the default ladder: buckets 64, 96, 128, 192, 256 at batch 4
     cfg.model.msa_tie_row_attn = True
     cfg.serve.msa_depth = 5
     require(cfg.serve.buckets == (64, 96, 128, 192, 256) and cfg.serve.max_batch == 4
-            and cfg.serve.mds_iters == 200, "ServeConfig's defaults changed")
+            and cfg.serve.mds_iters == 200 and cfg.serve.pipeline_depth == 2
+            and cfg.serve.feature_cache_size == 128 and cfg.serve.cache_size == 256,
+            "ServeConfig's defaults changed")
+    cfg.serve = dataclasses.replace(cfg.serve, **serve)
+    return cfg
+
+
+def _serve_requests():
+    """The twelve requests of the serving phase: SERVE_REQUEST_LENGTHS residues,
+    seeds 0-11, sequences from a seeded generator."""
+    import numpy as np
+
+    from alphafold2_tpu_torch.serve.engine import ServeRequest
+
+    rng = np.random.default_rng(7)
+    alphabet = "ACDEFGHIKLMNPQRSTVWY"
+    return [ServeRequest(seq="".join(rng.choice(list(alphabet), n)), seed=i)
+            for i, n in enumerate(SERVE_REQUEST_LENGTHS)]
+
+
+def phase_serve():
+    import numpy as np
+    import torch
+
+    from alphafold2_tpu_torch.config import Config
+    from alphafold2_tpu_torch.serve.engine import ServeEngine
+
+    from alphafold2_tpu_torch.constants import DISTOGRAM_BUCKETS
+    from alphafold2_tpu_torch.models import se3
+
+    cfg = _serve_config()
     streamed = [bk for bk in cfg.serve.buckets
                 if se3.should_chunk(cfg.serve.max_batch * 16, 14 * bk, 14 * bk)]
     require(streamed == [192, 256], f"buckets {streamed} stream the SE(3) edge attention")
@@ -4902,19 +4947,10 @@ def phase_serve():
         f"{cfg.serve.buckets}, refiner streamed at {streamed}) in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    rng = np.random.default_rng(7)
-    alphabet = "ACDEFGHIKLMNPQRSTVWY"
-    lengths = [50, 64, 77, 96, 110, 128, 129, 150, 192, 193, 230, 256]
-    seqs = ["".join(rng.choice(list(alphabet), n)) for n in lengths]
-    reqs = [ServeRequest(seq=s, seed=i) for i, s in enumerate(seqs)]
+    lengths = SERVE_REQUEST_LENGTHS
+    reqs = _serve_requests()
 
-    for fn in (fused_attention, tied_row_attention, fused_attention_combine):
-        fn.launches = 0
-    fused_attention.sm90_launches = tied_row_attention.sm90_launches = 0
-    fused_attention.packed_launches = 0
-    plain = (fused_attention_reference, tied_row_attention_reference)
-    for fn in plain:
-        fn.calls = 0
+    read = _serve_counts()
     torch.cuda.reset_peak_memory_stats()
     # the six requests of 50-128 residues that earlier runs served, then the
     # six of 129-256 that only the full ladder serves, each timed alone
@@ -4924,21 +4960,11 @@ def phase_serve():
         results += engine.predict_many(part)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    launches = {"fused_attention": fused_attention.launches,
-                "fused_attention_combine": fused_attention_combine.launches,
-                "tied_row_attention": tied_row_attention.launches}
-    require(fused_attention.sm90_launches == fused_attention.launches,
-            f"{fused_attention.launches - fused_attention.sm90_launches} of K1's serving "
-            f"launches did not run their Hopper kernel")
-    # of a trunk layer's five K1 passes, the MSA column pass on the packed
-    # kernel, and no other
-    require(5 * fused_attention.packed_launches == fused_attention.launches,
-            f"K1's packed launches {fused_attention.packed_launches} of "
-            f"{fused_attention.launches}: not one MSA column pass in five")
-    require(tied_row_attention.sm90_launches == tied_row_attention.launches,
-            f"{tied_row_attention.launches - tied_row_attention.sm90_launches} of K2's serving "
-            f"launches did not run tied_row_attention_kernel_sm90")
-    plain_calls = sum(fn.calls for fn in plain)
+    counts = read()
+    launches = {k: counts[k] for k in ("fused_attention", "fused_attention_combine",
+                                       "tied_row_attention")}
+    _require_hopper(counts, "serving")
+    plain_calls = counts["plain_calls"]
     peak = torch.cuda.max_memory_allocated()
 
     for r in results:
@@ -4954,7 +4980,8 @@ def phase_serve():
         rates.append(sum(part) / wall)
         log(f"[serve] {what}: {len(part)} requests, {sum(part)} residues in {wall:.3f} s: "
             f"{rates[-1]:.2f} residues/s")
-    log(f"[serve] {len(reqs)} requests in {engine.counters['batches']} batches; peak device "
+    log(f"[serve] {len(reqs)} requests in {engine.counters.get('serve.batches')} batches "
+        f"({engine.pipeline_desc}); peak device "
         f"memory {peak / 2**30:.2f} GiB")
     log(f"[serve] kernel launches on the path: {launches}; plain-version calls: "
         f"{plain_calls}")
@@ -4973,8 +5000,9 @@ def phase_serve():
     cfg_d.model.msa_tie_row_attn = True
     cfg_d.serve.msa_depth = 5
     cfg_d.serve.return_distogram = True
-    disto = ServeEngine(cfg_d, state_dict=engine.model.state_dict()).predict_many(
-        [reqs[7]])[0]
+    disto_engine = ServeEngine(cfg_d, state_dict=engine.model.state_dict())
+    disto = disto_engine.predict_many([reqs[7]])[0]
+    disto_engine.close()
     n3 = 3 * len(reqs[7].seq)
     require(disto.ok and disto.distogram is not None
             and disto.distogram.shape == (n3, n3, DISTOGRAM_BUCKETS)
@@ -5000,7 +5028,7 @@ def phase_serve():
             + f", the rest (featurization, realization, copies) {total - sum(spans.values()):.1f} ms")
     return {"launches": launches, "wall_s": walls, "residues_per_s": rates,
             "peak_bytes": peak, "bf16": bf16,
-            "latency_ms": [round(r.latency_s * 1e3, 3) for r in results]}
+            "latency_ms": [round(r.latency_s * 1e3, 3) for r in results], "engine": engine}
 
 
 # the bf16 serving engine against the f32-parameter one: the distogram
@@ -5041,12 +5069,14 @@ def _serve_bf16(engine, cfg_d, reqs, f32_rate, f32_disto):
         require(bool(np.isfinite(r.atom14).all()), "bf16 serving: non-finite atom14")
     rate = sum(len(r.seq) for r in out) / wall
     one = bf16.predict_many([reqs[7]])[0]
+    bf16.close()
     del bf16
     _free()
     f32_model = dataclasses.replace(cfg_d, model=dataclasses.replace(cfg_d.model,
                                                                      bfloat16=False))
-    f32 = ServeEngine(f32_model, state_dict=engine.model.state_dict()).predict_many(
-        [reqs[7]])[0]
+    f32_engine = ServeEngine(f32_model, state_dict=engine.model.state_dict())
+    f32 = f32_engine.predict_many([reqs[7]])[0]
+    f32_engine.close()
     _free()
     rel = lambda x, y: float(np.linalg.norm(x - y) / np.linalg.norm(y))
     same, drift = rel(one.distogram, f32_disto.distogram), rel(one.distogram, f32.distogram)
@@ -5088,6 +5118,7 @@ def _serve_checkpoint():
         seq = "".join(np.random.default_rng(11).choice(list("ACDEFGHIKLMNPQRSTVWY"), 64))
         engine = ServeEngine(cfg, checkpoint_dir=root)
         got = engine.predict_many([ServeRequest(seq=seq, seed=cfg.train.seed)])[0]
+        engine.close()
         want = predict(cfg, seq, msa_depth=1, seed=cfg.train.seed, checkpoint_dir=root)
         same = got.ok and np.array_equal(got.atom14, want.atom14)
         log(f"[serve] ServeEngine(checkpoint_dir=) from a 2-step end-to-end checkpoint "
@@ -5097,6 +5128,334 @@ def _serve_checkpoint():
     finally:
         shutil.rmtree(root, ignore_errors=True)
         _free()
+
+
+# --------------------------------------------------------------- async serving
+
+SERVE_ASYNC_BURST = 32  # requests of the open-loop burst
+SERVE_ASYNC_LOAD = 0.8  # the burst's Poisson rate over the serial request rate
+# distogram logits and weights, pipelined against serial: max |d| over max |serial|
+SERVE_PIPELINE_REL = 1e-5
+BURST_PARENT = 128  # residues of the burst's mutant family
+BURST_MUTANTS = 6
+BURST_FAULT_BUCKET = 64  # the burst's first dispatch there fails at "compute"
+BURST_DEADLINE_LEN = 80  # bucket 96, which the rest of the burst leaves empty
+
+
+def _serve_counts():
+    """Set K1's and K2's launch counts and the plain versions' calls to 0;
+    return a function that reads them."""
+    from alphafold2_tpu_torch.ops.cuda.axial import (
+        fused_attention, fused_attention_combine, fused_attention_reference)
+    from alphafold2_tpu_torch.ops.cuda.tied_row import (
+        tied_row_attention, tied_row_attention_reference)
+
+    for fn in (fused_attention, tied_row_attention, fused_attention_combine):
+        fn.launches = 0
+    fused_attention.sm90_launches = tied_row_attention.sm90_launches = 0
+    fused_attention.packed_launches = 0
+    plain = (fused_attention_reference, tied_row_attention_reference)
+    for fn in plain:
+        fn.calls = 0
+
+    def read():
+        return {"fused_attention": fused_attention.launches,
+                "fused_attention_combine": fused_attention_combine.launches,
+                "tied_row_attention": tied_row_attention.launches,
+                "fused_attention_sm90": fused_attention.sm90_launches,
+                "fused_attention_packed": fused_attention.packed_launches,
+                "tied_row_attention_sm90": tied_row_attention.sm90_launches,
+                "plain_calls": sum(fn.calls for fn in plain)}
+
+    return read
+
+
+def _require_hopper(counts, what):
+    """Every K1 and K2 launch of a run on its Hopper kernel (the MSA column
+    pass, one K1 pass in five, on the packed one), none on a plain version."""
+    require(counts["fused_attention"] > 0 and counts["tied_row_attention"] > 0,
+            f"{what}: K1 or K2 never launched ({counts})")
+    require(counts["fused_attention_sm90"] == counts["fused_attention"],
+            f"{what}: {counts['fused_attention'] - counts['fused_attention_sm90']} K1 launches "
+            f"off its Hopper kernel")
+    require(5 * counts["fused_attention_packed"] == counts["fused_attention"],
+            f"{what}: K1's packed launches {counts['fused_attention_packed']} of "
+            f"{counts['fused_attention']}: not one MSA column pass in five")
+    require(counts["tied_row_attention_sm90"] == counts["tied_row_attention"],
+            f"{what}: {counts['tied_row_attention'] - counts['tied_row_attention_sm90']} K2 "
+            f"launches off tied_row_attention_kernel_sm90")
+    require(counts["plain_calls"] == 0, f"{what}: a plain version ran on the serving path")
+
+
+RUNTIME_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx", "cudaLaunchKernelExC",
+                 "cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+                 "cudaMemcpyAsync", "cudaMemcpy", "cudaStreamWaitEvent")
+
+
+def _idle_share(fn):
+    """``fn()`` under torch.profiler: ``{"wall_ms", "busy_ms", "idle",
+    "runtime"}``. Busy is the union of the device activity intervals (CUPTI
+    sees every thread's kernels and copies), idle 1 - busy / wall, None if
+    the profiler recorded no device activity; ``runtime`` counts the CUDA
+    runtime calls of RUNTIME_CALLS the profiler saw."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    runtime = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CPU and e.key in RUNTIME_CALLS}
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start)
+    if not spans:
+        return {"wall_ms": wall_ms, "busy_ms": None, "idle": None, "runtime": runtime}
+    busy_us, lo, hi = 0.0, spans[0][0], spans[0][1]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy_us += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    busy_ms = (busy_us + hi - lo) / 1e3
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle": max(0.0, 1.0 - busy_ms / wall_ms),
+            "runtime": runtime}
+
+
+def _pipelined_against_serial(state_dict, reqs):
+    """The twelve requests through a pipelined and a serial engine with
+    ``return_distogram``: every result ok and finite, the distogram logits
+    and weights within SERVE_PIPELINE_REL, every K1/K2 launch of the
+    pipelined run on its Hopper kernel."""
+    import numpy as np
+
+    from alphafold2_tpu_torch.serve.engine import ServeEngine
+
+    out = {}
+    for depth in (2, 0):
+        engine = ServeEngine(_serve_config(pipeline_depth=depth, return_distogram=True),
+                             state_dict=state_dict)
+        engine.warmup()
+        read = _serve_counts()
+        out[depth] = engine.predict_many(reqs)
+        counts = read()
+        if depth:
+            _require_hopper(counts, "pipelined serving with return_distogram")
+        engine.close()
+        del engine
+        _free()
+    worst = {"distogram": 0.0, "weights": 0.0}
+    bit_equal = True
+    for p, s in zip(out[2], out[0]):
+        for r in (p, s):
+            require(r.ok, f"a request of {len(r.seq)} residues failed: {r.error}")
+            require(bool(np.isfinite(r.atom14).all() and np.isfinite(r.distogram).all()),
+                    f"non-finite output for a request of {len(r.seq)} residues")
+        for k in worst:
+            a, b = getattr(p, k), getattr(s, k)
+            worst[k] = max(worst[k], float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)))
+        bit_equal &= all(getattr(p, k).tobytes() == getattr(s, k).tobytes()
+                         for k in ("atom14", "weights", "distogram"))
+    log(f"[serve_async] pipelined (depth 2) against serial (depth 0), 12 requests with "
+        f"return_distogram: largest max|d|/max|serial| distogram {worst['distogram']:.3e}, "
+        f"weights {worst['weights']:.3e} (bound {SERVE_PIPELINE_REL}); atom14, weights and "
+        f"distogram bit-equal: {bit_equal}")
+    require(all(v <= SERVE_PIPELINE_REL for v in worst.values()),
+            "pipelined and serial serving disagree")
+    return {"max_rel": worst, "bit_equal": bit_equal}
+
+
+def _burst(rng, lengths_pool):
+    """The burst's requests in arrival order: 20 chains (lengths from
+    ``lengths_pool``, the first two in BURST_FAULT_BUCKET), a 128-residue
+    parent and its six point mutants (one seed, a parent hint), four exact
+    repeats of earlier chains, and one 80-residue request (bucket 96, which
+    nothing else uses) with a deadline of 1 ns, already passed when the
+    frontend next looks. Returns (requests, kinds)."""
+    from alphafold2_tpu_torch.serve.engine import ServeRequest
+
+    alphabet = list("ACDEFGHIKLMNPQRSTVWY")
+    chain = lambda n: "".join(rng.choice(alphabet, int(n)))  # noqa: E731
+    lengths = [BURST_FAULT_BUCKET - 4, BURST_FAULT_BUCKET - 9] + list(rng.choice(lengths_pool, 18))
+    others = [ServeRequest(chain(n), seed=1000 + i) for i, n in enumerate(lengths)]
+    parent = chain(BURST_PARENT)
+    positions = rng.choice(BURST_PARENT, BURST_MUTANTS, replace=False)
+    mutants = []
+    for p in positions:
+        sub = [a for a in alphabet if a != parent[p]][int(rng.integers(0, 19))]
+        mutants.append(ServeRequest(parent[:p] + sub + parent[p + 1:], seed=500,
+                                    parent_id="burst-parent"))
+    family = [ServeRequest(parent, seed=500, parent_id="burst-parent")] + mutants
+    dup = lambda r: ServeRequest(r.seq, seed=r.seed)  # noqa: E731
+    late = ServeRequest(chain(BURST_DEADLINE_LEN), seed=900, deadline_s=1e-9)
+    o, m = others, family[1:]
+    order = (o[:8] + [family[0], o[8], dup(o[1]), o[9], m[0], o[10], m[1], late, o[11], m[2],
+                      dup(o[3]), o[12], o[13], m[3], o[14], dup(o[5]), m[4], o[15], o[16],
+                      m[5], o[17], dup(o[7]), o[18], o[19]])
+    kinds = (["chain"] * 8 + ["parent", "chain", "repeat", "chain", "mutant", "chain", "mutant",
+                              "deadline", "chain", "mutant", "repeat", "chain", "chain",
+                              "mutant", "chain", "repeat", "mutant", "chain", "chain",
+                              "mutant", "chain", "repeat", "chain", "chain"])
+    require(len(order) == len(kinds) == SERVE_ASYNC_BURST, "the burst's composition changed")
+    return order, kinds
+
+
+def phase_serve_async(engine=None):
+    """The serving plane on the card (log tag ``[serve_async]``), on the
+    serving phase's configuration and weights (``engine``, pipelined and
+    warm; built here when the phase runs alone): the twelve requests
+    pipelined (depth 2) against serial (depth 0), outputs equal, each
+    one's residues/s and device idle share; then an open-loop Poisson burst
+    through AsyncServeFrontend (duplicates, a mutant family, a stage fault,
+    a passed deadline) with its latency quantiles, counters, span totals
+    and peak memory. Every K1/K2 launch on its Hopper kernel throughout."""
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from alphafold2_tpu_torch.observe import Tracer
+    from alphafold2_tpu_torch.serve import AsyncServeFrontend, FaultPlan, ServeEngine
+
+    t_phase = time.perf_counter()
+    if engine is None:
+        engine = ServeEngine(_serve_config())
+        engine.warmup()
+    require(engine.pipeline_desc == "depth2", f"the serving engine is {engine.pipeline_desc}")
+    state = engine.model.state_dict()
+    reqs = _serve_requests()
+    equal = _pipelined_against_serial(state, reqs)
+
+    serial = ServeEngine(_serve_config(pipeline_depth=0), state_dict=state)
+    serial.warmup()
+    residues = sum(SERVE_REQUEST_LENGTHS)
+    runs = {}
+    for label in ("serial", "pipelined", "pipelined", "serial", "serial", "pipelined"):
+        eng = serial if label == "serial" else engine
+        eng.tracer = Tracer(enabled=True)  # the stages' host spans of this run
+        torch.cuda.synchronize()
+        read = _serve_counts()
+        t0 = time.perf_counter()
+        out = eng.predict_many(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read()
+        _require_hopper(counts, f"{label} serving")
+        for r in out:
+            require(r.ok and bool(np.isfinite(r.atom14).all()),
+                    f"{label}: a request of {len(r.seq)} residues failed: {r.error}")
+        runs.setdefault(label, []).append({
+            "wall_s": wall, "residues_per_s": residues / wall, "launches": counts,
+            "spans_ms": {k: round(v["total_s"] * 1e3, 3)
+                         for k, v in eng.tracer.span_totals().items()}})
+        eng.tracer = Tracer(enabled=False)
+    profiled = {}
+    for label, eng in (("serial", serial), ("pipelined", engine)):
+        profiled[label] = prof = _idle_share(lambda eng=eng: eng.predict_many(reqs))
+        spans = {k: round(sum(r["spans_ms"].get(k, 0.0) for r in runs[label]) / len(runs[label]), 1)
+                 for k in ("serve.featurize", "serve.device_put", "serve.get_executable",
+                           "serve.dispatch", "serve.device_get", "serve.unpad")}
+        log(f"[serve_async] {label}: residues/s "
+            + " / ".join(f"{r['residues_per_s']:.2f}" for r in runs[label])
+            + f" ({residues} residues, 12 requests, 5 batches); host span ms a run (mean): "
+            + json.dumps(spans) + f"; profiled: wall {prof['wall_ms']:.1f} ms, device "
+            + ("busy not measured (no device activity recorded)" if prof["busy_ms"] is None
+               else f"busy {prof['busy_ms']:.1f} ms, idle {prof['idle']:.1%}")
+            + f"; CUDA runtime calls {json.dumps(prof['runtime'], sort_keys=True)}")
+    # the pipelined forward reads nothing from the host: no stream synchronize
+    # in its run (the serial path's blocking copies show as some), where the
+    # profiler saw the device thread's launches at all
+    launched = lambda p: sum(p["runtime"].get(k, 0) for k in RUNTIME_CALLS[:4])  # noqa: E731
+    if launched(profiled["pipelined"]) >= launched(profiled["serial"]) // 2 > 0:
+        require(profiled["pipelined"]["runtime"].get("cudaStreamSynchronize", 0) == 0,
+                "the pipelined run synchronized a stream (a host read or a blocking copy)")
+    else:
+        log("[serve_async] the profiler saw no launches of the device thread: the stream "
+            "synchronize check is not measured")
+    for label in profiled:
+        runs[label][0]["profiled"] = profiled[label]
+    serial_req_per_s = 12 / max(r["wall_s"] for r in runs["serial"])
+    serial.close()
+    del serial
+    _free()
+
+    # the open-loop burst, on a fresh engine with a tracer
+    tracer = Tracer(enabled=True)
+    plan = FaultPlan(fail_bucket=BURST_FAULT_BUCKET, times=1, fail_stage="compute")
+    burst_engine = ServeEngine(_serve_config(), state_dict=state, tracer=tracer, faults=plan)
+    burst_engine.warmup()
+    rng = np.random.default_rng(19)
+    # every bucket but the deadline request's (96)
+    pool = np.r_[np.arange(50, 65), np.arange(97, 257)]
+    order, kinds = _burst(rng, pool)
+    rate = SERVE_ASYNC_LOAD * serial_req_per_s
+    arrivals = np.cumsum(rng.exponential(1.0 / rate, SERVE_ASYNC_BURST))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    read = _serve_counts()
+    fe = AsyncServeFrontend(burst_engine)
+    t0 = time.perf_counter()
+    handles = []
+    try:
+        for t, req in zip(arrivals, order):
+            time.sleep(max(0.0, t0 + t - time.perf_counter()))
+            handles.append(fe.submit(req))
+        results = [h.result(600) for h in handles]
+        wall = time.perf_counter() - t0
+    finally:
+        fe.close()
+    counts = read()
+    peak = torch.cuda.max_memory_allocated()
+    _require_hopper(counts, "the burst")
+    for r, kind in zip(results, kinds):
+        want = "deadline_exceeded" if kind == "deadline" else "ok"
+        require(r.status == want, f"burst {kind} of {len(r.seq)} residues: {r.status} "
+                f"({r.error}), not {want}")
+        if r.ok:
+            require(bool(np.isfinite(r.atom14).all()), "burst: non-finite atom14")
+        if kind == "repeat":
+            require(r.cache_hit, "a repeated request was neither a cache hit nor deduped")
+        if kind == "mutant":
+            require(r.feat_reuse == "delta", f"a mutant was featurized {r.feat_reuse!r}, "
+                    "not from its parent")
+    retried = [r for r in results if r.retried]
+    require(plan.fired and retried and all(r.ok for r in retried),
+            f"the injected fault ({plan.fired}) gave no retried ok results")
+    stats = burst_engine.stats()
+    ledger = sum(stats.get(f"serve.feat_{k}", 0) for k in ("hits", "delta", "misses"))
+    dispatched = stats.get("sched.batched_requests", 0) + stats.get("sched.retries", 0)
+    require(ledger == dispatched, f"feature ledger {ledger} != dispatched requests {dispatched}")
+    served = [r for r in results if r.ok and not r.cache_hit]
+    rate_res = sum(len(r.seq) for r in served) / wall
+    hist = burst_engine.histogram_snapshots(1e3)
+    lat = hist["latency_s"]
+    spans = {k: {"count": v["count"], "total_ms": round(v["total_s"] * 1e3, 3)}
+             for k, v in tracer.span_totals().items() if k.startswith("serve.")}
+    log(f"[serve_async] burst: {SERVE_ASYNC_BURST} requests at a Poisson rate of "
+        f"{rate:.3f}/s ({SERVE_ASYNC_LOAD} x the serial {serial_req_per_s:.3f}/s) in "
+        f"{wall:.3f} s: {rate_res:.2f} residues/s over {len(served)} dispatched results; "
+        f"latency ms (engine histogram) p50 {lat.get('p50')} p95 {lat.get('p95')} p99 "
+        f"{lat.get('p99')} (count {lat.get('count')}); peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    log(f"[serve_async] burst statuses: "
+        + ", ".join(f"{s} {sum(r.status == s for r in results)}"
+                    for s in sorted({r.status for r in results}))
+        + f"; cache hits {sum(r.cache_hit for r in results)}, retried {len(retried)}, "
+        f"feat_reuse {dict(Counter(str(r.feat_reuse) for r in results))}; fault {plan.fired}")
+    log(f"[serve_async] burst counters: {json.dumps(stats, sort_keys=True)}")
+    log(f"[serve_async] burst span totals: {json.dumps(spans, sort_keys=True)}")
+    log(f"[serve_async] burst launches: {counts}")
+    burst_engine.close()
+    engine.close()
+    del burst_engine
+    _free()
+    log(f"[serve_async] phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"equal": equal, "runs": runs, "burst": {
+        "launches": counts, "wall_s": wall, "residues_per_s": rate_res, "latency_ms": lat,
+        "peak_bytes": peak, "counters": stats, "spans": spans, "rate_per_s": rate}}
 
 
 # --------------------------------------------------------------- KV compression
@@ -5576,7 +5935,7 @@ def _shape_entry(rows, kernel, label):
 
 
 def kernel_line(rows, serve, train, tied_train, sparse_train, gate, engines, telemetry,
-                templates, plm, compress, data):
+                templates, plm, compress, data, serve_async):
     """One entry per kernel. K1 sums one serving trunk layer's K1 calls at
     bucket 128 (two pair axial passes, the MSA column pass, both cross
     attentions; a call's time includes its combine pass where it splits),
@@ -5611,7 +5970,9 @@ def kernel_line(rows, serve, train, tied_train, sparse_train, gate, engines, tel
     ``instantiations``: their Hopper kernels on the resident and the wide
     route; K1 lists its three Hopper instantiations by route
     (attention_kernel_sm90, the packed kernel, K2's walk past head dim
-    128)."""
+    128). K1 and K2 carry ``serve_async_launches``: their launches in
+    phase_serve_async's first serial and pipelined runs of the twelve
+    requests and in its open-loop burst."""
     serve_k1 = {"pair axial pass (1536x8, 384x384, d64)": 2,
                 "MSA column pass (512x8, 5x5, d64)": 1,
                 "pair<-MSA cross (4x8, 147456x640, d64)": 1,
@@ -5685,6 +6046,11 @@ def kernel_line(rows, serve, train, tied_train, sparse_train, gate, engines, tel
     for e in entries:
         if e["name"] in _INSTANTIATIONS:
             e["instantiations"] = _INSTANTIATIONS[e["name"]]()
+        if e["name"] in ("fused_attention", "tied_row_attention"):
+            e["serve_async_launches"] = {
+                "serial": serve_async["runs"]["serial"][0]["launches"][e["name"]],
+                "pipelined": serve_async["runs"]["pipelined"][0]["launches"][e["name"]],
+                "burst": serve_async["burst"]["launches"][e["name"]]}
     return {"kernels": entries}
 
 
@@ -5780,6 +6146,7 @@ def main() -> int:
         phase_reference()
         phase_se3_streamed()
         serve = phase_serve()
+        serve_async = phase_serve_async(serve.pop("engine"))
         train = phase_train()
         tied_train = phase_train(tied=True)
         sparse_train = phase_train(sparse=True)
@@ -5798,7 +6165,8 @@ def main() -> int:
         return 1
     log(card)
     print(json.dumps(kernel_line(rows, serve, train, tied_train, sparse_train, gate,
-                                 engines, telemetry, templates, plm, compress, data)),
+                                 engines, telemetry, templates, plm, compress, data,
+                                 serve_async)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

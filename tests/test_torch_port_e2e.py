@@ -148,7 +148,7 @@ def test_serve_engine_on_cpu_batches_without_changing_results():
         assert r.weights.shape == (3 * len(r.seq), 3 * len(r.seq))
     alone = engine.predict_many(["MKVLAAGIHK"])[0]
     np.testing.assert_allclose(alone.atom14, results[1].atom14, atol=1e-5)
-    assert engine.counters["padded_slots"] == 2  # bucket 8 (1 of 2), solo rerun
+    assert engine.counters.get("serve.padded_slots") == 2  # bucket 8 (1 of 2), solo rerun
     # CPU tensors never launch a kernel
     assert (axial.fused_attention.launches,
             tied_row.tied_row_attention.launches) == launches == (0, 0)

@@ -34,7 +34,9 @@ from alphafold2_tpu_torch.utils.mds import position_keyed_init
 
 MODEL = dict(dim=16, depth=1, heads=2, dim_head=8, max_seq_len=48, bfloat16=False,
              msa_tie_row_attn=True)
-SERVE = dict(buckets=(8, 16), max_batch=2, mds_iters=5, msa_depth=3)
+# the synchronous dispatch (JAX's serve/engine.py:911-996) in both engines;
+# the pipelined path is held in tests/test_torch_port_serve_pipeline.py
+SERVE = dict(buckets=(8, 16), max_batch=2, mds_iters=5, msa_depth=3, pipeline_depth=0)
 # input order: bucket 16, bucket 8, bucket 16
 REQUESTS = ["MKVLAAGIHK", "ACDEFG", "PQRSTVWYAC"]
 
@@ -134,9 +136,9 @@ def test_latency_is_queue_wait_plus_dispatch_in_the_port():
 
 
 def test_latency_is_queue_wait_plus_dispatch_in_jax():
-    """JAX's synchronous dispatch (pipeline_depth 0), the one the port has."""
+    """JAX's synchronous dispatch (pipeline_depth 0), as the port's above."""
     cfg = JConfig(model=JModelConfig(**MODEL), data=JDataConfig(msa_depth=3),
-                  serve=JServeConfig(**SERVE, pipeline_depth=0))
+                  serve=JServeConfig(**SERVE))
     _check_latency(JServeEngine(cfg).predict_many(REQUESTS))
 
 

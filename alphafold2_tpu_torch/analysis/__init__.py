@@ -16,11 +16,25 @@
   sm_90a, ptxas's report and each source's launch plan held against the
   card's limits, and X's negative control refused. CLI:
   ``python -m alphafold2_tpu_torch.analysis.lowering [case ...]``.
+- :mod:`budgets` — ``check_budget`` verdicts, and ``lattice_report`` /
+  ``format_budget``: every rung of a serving engine's ladder against the
+  card's memory. CLI: ``python -m alphafold2_tpu_torch.analysis.budgets``.
+- :mod:`contracts` — an exact op census of each target, committed as
+  ``graph_contracts.json`` beside this file and diffed. CLI:
+  ``python -m alphafold2_tpu_torch.analysis.contracts --check|--update``.
+- :mod:`concurrency` — the lock-order graph, guard contracts and thread
+  lifecycles of the port (AF2C001-008), pure stdlib, with its committed
+  ``concurrency_contracts.json``. CLI:
+  ``python -m alphafold2_tpu_torch.analysis.concurrency [--check|--update]``.
+- :mod:`knobs` — every ``AF2TPU_*`` read against the README's port section
+  and the config fields (AF2K001-004), pure stdlib. CLI:
+  ``python -m alphafold2_tpu_torch.analysis.knobs``.
 
 Every submodule loads lazily, so importing this package imports nothing
-else: the lint stays stdlib-only and fast, and ``python -m`` runs each CLI
-without loading it twice. :mod:`audit`, :mod:`budgets`, :mod:`lowering` and
-:mod:`targets` import torch.
+else: the lint, knobs and concurrency stay stdlib-only and fast, and
+``python -m`` runs each CLI without loading it twice. :mod:`audit`,
+:mod:`budgets`, :mod:`contracts`, :mod:`lowering` and :mod:`targets` import
+torch.
 """
 
 __all__ = [
@@ -28,6 +42,9 @@ __all__ = [
     "RULES",
     "audit",
     "budgets",
+    "concurrency",
+    "contracts",
+    "knobs",
     "lint",
     "lint_file",
     "lint_paths",
@@ -38,12 +55,14 @@ __all__ = [
 
 
 _LINT_NAMES = ("Finding", "RULES", "lint_file", "lint_paths", "lint_source")
+_MODULES = ("audit", "budgets", "concurrency", "contracts", "knobs", "lint", "lowering",
+            "targets")
 
 
 def __getattr__(name):
     import importlib
 
-    if name in ("audit", "budgets", "lint", "lowering", "targets"):
+    if name in _MODULES:
         return importlib.import_module(f"alphafold2_tpu_torch.analysis.{name}")
     if name in _LINT_NAMES:
         return getattr(importlib.import_module("alphafold2_tpu_torch.analysis.lint"), name)

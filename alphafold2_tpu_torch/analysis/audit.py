@@ -167,11 +167,14 @@ def promotion_hit(func, args, kwargs) -> Optional[str]:
 
 
 class OpRecorder(TorchDispatchMode):
-    """Records every aten op it sees and the rule hits among them."""
+    """Records every aten op it sees (``op_counts``: overload name ->
+    count, the census ``analysis/contracts.py`` commits) and the rule hits
+    among them."""
 
     def __init__(self):
         super().__init__()
         self.ops = 0
+        self.op_counts: dict = {}
         self.nodes: set = set()  # autograd nodes whose ops were seen
         self.hits: dict = {}  # rule -> {description: count}
 
@@ -184,6 +187,7 @@ class OpRecorder(TorchDispatchMode):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         self.ops += 1
+        self.op_counts[func.__name__] = self.op_counts.get(func.__name__, 0) + 1
         node = torch._C._current_autograd_node()
         where = ""
         if node is not None:

@@ -37,7 +37,7 @@ class ModelConfig:
     msa_tie_row_attn: bool = False  # tie row-attention logits across MSA rows
     msa_row_shard: bool = False  # shard the MSA-row axis over a mesh
     context_parallel: Optional[str] = None  # None | "ring" | "ulysses"
-    flash_attention: Optional[bool] = None  # JAX kernel switch; port: always K1
+    flash_attention: Optional[bool] = None  # flat passes: True SDPA, False plain, None policy
     grid_parallel: bool = False  # 2D-sharded pair axial attention
     scan_layers: bool = False  # one scanned trunk layer with stacked params
     template_attn_depth: int = 2  # template pointwise-attention layers
@@ -84,7 +84,7 @@ class ServeConfig:
     msa_depth: int = 0  # synthesized MSA rows per request; 0 -> data.msa_depth
     mds_iters: int = 200  # structure-realization Guttman iterations
     dtype: str = "float32"  # "float32" | "bfloat16" (params cast at build)
-    kernels: str = ""  # JAX kernel-policy spec; accepted, ignored: the port runs K1/K2
+    kernels: str = ""  # kernel-policy spec (ops/kernels.py); "" = the process's AF2TPU_KERNELS
     donate_buffers: bool = True  # JAX buffer donation; accepted, ignored (no counterpart)
     return_distogram: bool = False  # ship (3L,3L,K) logits back per request
     pipeline_depth: int = 2  # batches in flight on the CUDA-stream pipeline; 0 = serial
@@ -119,6 +119,16 @@ class TrainConfig:
     numerics: str = "triage"
 
 
+def _tuplify(section, name):
+    """JSON round-trips tuples as lists; restore the tuple type so configs
+    compare equal (the engine's keys hold buckets), as JAX's
+    ``config.py:185`` does."""
+    value = getattr(section, name)
+    if isinstance(value, list):
+        setattr(section, name, tuple(value))
+    return section
+
+
 @dataclass
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)  # architecture
@@ -129,6 +139,21 @@ class Config:
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @classmethod
+    def from_json(cls, s: str) -> "Config":
+        """The inverse of :meth:`to_json` (JAX's ``config.py:205``): the
+        tuple fields ``train.profile_steps``, ``serve.buckets`` and
+        ``serve.long_buckets`` come back as tuples."""
+        raw = json.loads(s)
+        return cls(
+            model=ModelConfig(**raw.get("model", {})),
+            mesh=MeshConfig(**raw.get("mesh", {})),
+            data=DataConfig(**raw.get("data", {})),
+            train=_tuplify(TrainConfig(**raw.get("train", {})), "profile_steps"),
+            serve=_tuplify(_tuplify(ServeConfig(**raw.get("serve", {})), "buckets"),
+                           "long_buckets"),
+        )
 
     def apply_overrides(self, overrides: list) -> "Config":
         """Apply ``section.field=value`` strings (CLI) onto a copy."""

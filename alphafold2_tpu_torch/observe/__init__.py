@@ -51,7 +51,7 @@ from alphafold2_tpu_torch.observe.profiler import Profiler
 from alphafold2_tpu_torch.observe.registry import MetricsRegistry
 from alphafold2_tpu_torch.observe.slo import SLOMonitor, SLOSpec, parse_slo_specs
 from alphafold2_tpu_torch.observe.tracectx import TraceContext, current_trace, use_trace
-from alphafold2_tpu_torch.observe.tracing import Span, Tracer
+from alphafold2_tpu_torch.observe.tracing import Span, Tracer, device_idle_fraction
 from alphafold2_tpu_torch.observe.watchdog import LivenessWatchdog, probe_backend
 from alphafold2_tpu_torch.observe.workload import (
     WorkloadRecorder,
@@ -63,5 +63,6 @@ from alphafold2_tpu_torch.observe.workload import (
 __all__ = ["EventCounters", "FlightRecorder", "Histogram", "LivenessWatchdog", "MemorySampler",
            "MetricsLogger", "MetricsRegistry", "Profiler", "SLOMonitor", "SLOSpec", "Span",
            "TraceContext", "Tracer", "WorkloadRecorder", "build_replay", "current_trace",
-           "flatten_metrics", "flops", "load_workload", "numerics", "parse_slo_specs",
-           "probe_backend", "regress", "scrub_env", "synthetic_diurnal", "tag", "use_trace"]
+           "device_idle_fraction", "flatten_metrics", "flops", "load_workload", "numerics",
+           "parse_slo_specs", "probe_backend", "regress", "scrub_env", "synthetic_diurnal", "tag",
+           "use_trace"]

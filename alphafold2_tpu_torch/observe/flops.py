@@ -15,7 +15,12 @@ PyTorch compiles nothing, so the port counts one run of the forward
   ``ops.cuda.axial.attention_flops``, ``ops.cuda.tied_row.tied_row_flops``)
   to the thread's open ``ops.cuda.build.flop_tally`` where it launches.
   On the CPU the wrappers run their plain versions, which the mode counts
-  instead, to the same total.
+  instead, to the same total. The kernel policy's library routes
+  (``ops/kernels.py``: ``stock``, ``on``, ``splash``) run PyTorch's
+  ``scaled_dot_product_attention``, which the mode counts on the card
+  (its CUDA attention ops carry formulas) and, through
+  :data:`CPU_SDPA_FLOPS`, on the CPU; the plain routes are matmuls it
+  counts. So every policy counts the same Q·Kᵀ and P·V work.
 
 :func:`executable_costs` and :func:`executable_memory` read a counted run
 as JAX's read a compiled executable: ``flops`` (``bytes_accessed`` has no
@@ -49,6 +54,18 @@ PEAK_FLOPS = {
 SANITY_FLOPS_CEILING = 2e15
 
 
+def _cpu_sdpa_flop(query_shape, key_shape, value_shape, *args, out_shape=None, **kwargs) -> int:
+    from torch.utils.flop_counter import sdpa_flop_count
+
+    return sdpa_flop_count(query_shape, key_shape, value_shape)
+
+
+# FlopCounterMode has formulas for the CUDA attention ops of
+# scaled_dot_product_attention, none for the CPU's: the same count (Q·Kᵀ
+# and P·V, the K1 wrapper's analytic count) for the CPU op
+CPU_SDPA_FLOPS = {torch.ops.aten._scaled_dot_product_flash_attention_for_cpu: _cpu_sdpa_flop}
+
+
 @dataclasses.dataclass
 class CountedRun:
     """One counted run of a forward: ``op_flops`` from ``FlopCounterMode``,
@@ -80,7 +97,8 @@ def count_forward(fn, *args, device=None, **kwargs) -> CountedRun:
     if cuda:
         start = torch.cuda.memory_allocated(device)
         torch.cuda.reset_peak_memory_stats(device)
-    with build.flop_tally() as tally, FlopCounterMode(display=False) as counter:
+    with build.flop_tally() as tally, FlopCounterMode(display=False,
+                                                      custom_mapping=CPU_SDPA_FLOPS) as counter:
         fn(*args, **kwargs)
     peak = max(0, torch.cuda.max_memory_allocated(device) - start) if cuda else None
     return CountedRun(op_flops=float(counter.get_total_flops()), kernel_flops=dict(tally),

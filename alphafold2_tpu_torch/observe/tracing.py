@@ -78,6 +78,12 @@ class Tracer:
             self._file.write("[\n")
             self._file.flush()
 
+    @classmethod
+    def from_env(cls, var: str = "AF2TPU_TRACE_EVENTS") -> "Tracer":
+        """A tracer writing to ``$AF2TPU_TRACE_EVENTS``, disabled when it
+        is unset (JAX's ``observe/tracing.py:87``)."""
+        return cls(path=os.environ.get(var) or None)
+
     def add_sink(self, sink) -> None:
         """Call ``sink(event)`` for every event emitted from now on. Sinks
         run outside the tracer's lock, so a slow or re-entrant sink stalls
@@ -202,6 +208,40 @@ def merge_intervals(intervals) -> list:
         else:
             merged.append((start, end))
     return merged
+
+
+# span names whose extent means the device is (or is kept) busy, the names
+# JAX's engine uses and the port's engine and pipeline emit as well:
+# serve.dispatch covers the forward's launch (the serial path's and the
+# pipeline's device stage), serve.device_get the wait until its results
+# land on the host, so its extent covers the device's tail
+DEVICE_SPAN_NAMES = ("serve.dispatch", "serve.device_get")
+
+
+def device_idle_fraction(events, names=DEVICE_SPAN_NAMES) -> Optional[dict]:
+    """The device's idle share over a serving trace (JAX's
+    ``observe/tracing.py:253``): 1 - (union of the ``names`` spans) /
+    (first such span's start to the last one's end). Returns
+    ``{"device_idle_frac", "busy_s", "window_s", "dispatches"}``, or None
+    when the trace holds no ``serve.dispatch`` span."""
+    intervals = []
+    dispatches = 0
+    for e in events:
+        if e.get("ph") != "X" or e.get("name") not in names:
+            continue
+        ts = e.get("ts", 0.0)
+        intervals.append((ts / 1e6, (ts + e.get("dur", 0.0)) / 1e6))
+        if e.get("name") == "serve.dispatch":
+            dispatches += 1
+    if not dispatches or not intervals:
+        return None
+    lo = min(s for s, _ in intervals)
+    hi = max(e for _, e in intervals)
+    window = hi - lo
+    busy = sum(e - s for s, e in merge_intervals(intervals))
+    idle = max(0.0, 1.0 - busy / window) if window > 0 else 0.0
+    return {"device_idle_frac": round(idle, 4), "busy_s": round(busy, 6),
+            "window_s": round(window, 6), "dispatches": dispatches}
 
 
 def load_trace_events(path: str) -> list:

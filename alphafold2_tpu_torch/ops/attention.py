@@ -1,12 +1,21 @@
 """FeedForward (GEGLU), Attention and AxialAttention as torch modules.
 
-Port of ``alphafold2_tpu/ops/attention.py``. Every attention runs through
-the hand-written kernels: :func:`~alphafold2_tpu_torch.ops.cuda.axial.
-fused_attention` (K1) for self/cross attention and the axial passes,
+Port of ``alphafold2_tpu/ops/attention.py``. Under the default kernel
+policy every attention runs through the hand-written kernels:
+:func:`~alphafold2_tpu_torch.ops.cuda.axial.fused_attention` (K1) for
+self/cross attention and the axial passes,
 :func:`~alphafold2_tpu_torch.ops.cuda.tied_row.tied_row_attention` (K2) for
 tied MSA rows, and, with ``AxialAttention(sparse_attn=True)``, the
 block-sparse K4 of ``ops/sparse.py`` for both axial passes. Their wrappers
-run the plain PyTorch versions on CPU tensors.
+run the plain PyTorch versions on CPU tensors. The policy
+(``ops/kernels.py``), read on every call on the calling thread, picks
+another route where asked: ``axial`` for the grid axial passes, ``flash``
+for the flat self and cross passes (``stock``/``on``:
+:func:`stock_attention`, PyTorch's ``scaled_dot_product_attention``;
+``dense``/``off``: K1's plain version), ``tied_row=dense`` K2's plain
+version. A module's ``use_flash`` bool (``model.flash_attention``) is an
+explicit ``on``/``off`` and wins over ``flash``, and over ``axial=auto``,
+as JAX's ``use_flash`` does.
 
 Parameter names mirror the flax modules (``to_q``, ``to_kv``, ``to_out``,
 ``wi``, ``wo``, ``attn_width``, ``attn_height``), so ``convert.py`` maps a
@@ -51,8 +60,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from alphafold2_tpu_torch.ops.cuda.axial import fused_attention
-from alphafold2_tpu_torch.ops.cuda.tied_row import tied_row_attention
+from alphafold2_tpu_torch.ops import kernels as kernel_policy
+from alphafold2_tpu_torch.ops.cuda.axial import fused_attention, fused_attention_reference
+from alphafold2_tpu_torch.ops.cuda.tied_row import tied_row_attention, tied_row_attention_reference
 from alphafold2_tpu_torch.ops.layers import Dense
 
 
@@ -142,6 +152,42 @@ def _dense_attend(q, k, v, scale, pair: Optional[torch.Tensor], rate: float,
     return torch.einsum("bhij,brjhd->brihd", attn, v)
 
 
+def stock_attention(q, k, v, q_mask=None, kv_mask=None, sm_scale=1.0) -> torch.Tensor:
+    """K1's contract on PyTorch's ``scaled_dot_product_attention`` (the
+    ``stock`` route): q (B, H, Nq, D), k/v (B, H, Nk, D), boolean
+    ``q_mask`` (B, Nq) and ``kv_mask`` (B, Nk). Masked keys are excluded by
+    the boolean mask; masked queries, and every query of a batch row with no
+    valid key, give 0, as K1's do (such a row attends all its keys inside
+    the call, so no row of the softmax is empty)."""
+    attn_mask, keep = None, q_mask
+    if kv_mask is not None:
+        live = kv_mask.any(-1)  # (B,)
+        attn_mask = (kv_mask | ~live[:, None])[:, None, None, :]
+        dead = ~live[:, None].expand(-1, q.shape[2])
+        keep = ~dead if keep is None else keep & ~dead
+    out = F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask, scale=sm_scale)
+    if keep is not None:
+        out = out * keep[:, None, :, None].to(out.dtype)
+    return out
+
+
+def attend(route: str, q, k, v, q_mask=None, kv_mask=None, sm_scale=1.0) -> torch.Tensor:
+    """One attention on the route a policy resolved (``ops/kernels.py``):
+    ``"pallas"`` K1 (``fused_attention``), ``"stock"``
+    :func:`stock_attention`, ``"dense"`` K1's plain version
+    (``fused_attention_reference``, on any device). Each is looked up when
+    called, so a test can replace one."""
+    if route == "pallas":
+        fn = fused_attention
+    elif route == "stock":
+        fn = stock_attention
+    elif route == "dense":
+        fn = fused_attention_reference
+    else:
+        raise ValueError(f"unknown attention route {route!r}")
+    return fn(q, k, v, q_mask=q_mask, kv_mask=kv_mask, sm_scale=sm_scale)
+
+
 def grid_axial_project_attend(to_q, to_kv, to_out, heads: int, dim_head: int,
                               x: torch.Tensor, mask: Optional[torch.Tensor],
                               attend_axis: int, attend) -> torch.Tensor:
@@ -207,13 +253,18 @@ class Attention(nn.Module):
     (``tie_dim``) with abstention masking and the voting-row tie scale.
     ``dropout`` is the attention-weight dropout rate; with a ``key`` the
     forward takes the dense route. ``compress_ratio`` above 1 compresses a
-    cross-attention's keys and values (module docstring)."""
+    cross-attention's keys and values (module docstring). ``use_flash``
+    (None: the policy decides) is JAX's module field: True SDPA, False the
+    plain version, on the flat passes and, under ``axial=auto``, on the grid
+    axial passes."""
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
                  compress_ratio: int = 1,
-                 context_parallel: Optional[str] = None, dropout: float = 0.0):
+                 context_parallel: Optional[str] = None, dropout: float = 0.0,
+                 use_flash: Optional[bool] = None):
         super().__init__()
         self.dropout = dropout
+        self.use_flash = use_flash
         if context_parallel is not None:
             raise NotImplementedError("context parallelism is not ported yet")
         inner = heads * dim_head
@@ -263,12 +314,16 @@ class Attention(nn.Module):
                    attend_axis: int) -> torch.Tensor:
         """Self-attention along one axis of a (B, Hg, Wg, D) grid (see
         :func:`grid_axial_project_attend`), masking key and query validity
-        with the (B, Hg, Wg) mask."""
+        with the (B, Hg, Wg) mask, on the policy's ``axial`` route."""
         scale = self.dim_head**-0.5
+        policy = kernel_policy.current_policy()
+        route = kernel_policy.resolve_axial(policy)
+        if policy.axial == "auto" and self.use_flash is not None:
+            route = kernel_policy.resolve_flash(policy, self.use_flash)
         return grid_axial_project_attend(
             self.to_q, self.to_kv, self.to_out, self.heads, self.dim_head, x, mask,
-            attend_axis, lambda q, k, v, m: fused_attention(
-                q, k, v, q_mask=m, kv_mask=m, sm_scale=scale))
+            attend_axis, lambda q, k, v, m: attend(route, q, k, v, q_mask=m, kv_mask=m,
+                                                   sm_scale=scale))
 
     def forward(self, x, context=None, mask=None, context_mask=None,
                 tie_dim: Optional[int] = None, key: Optional[DropoutKey] = None):
@@ -296,7 +351,8 @@ class Attention(nn.Module):
                 out = _dense_attend(q, k, v, scale, _pair_mask(mask, kv_mask, n, j),
                                     self.dropout, key, None)
                 return self.to_out(out.reshape(*lead, n, h * dh))
-            out = fused_attention(
+            out = attend(
+                kernel_policy.resolve_flash(use_flash=self.use_flash),
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 q_mask=mask, kv_mask=kv_mask, sm_scale=scale,
             )  # (B, H, n, dh)
@@ -328,7 +384,9 @@ class Attention(nn.Module):
             out = _dense_attend(q, k, v, scale * tie_scale, _pair_mask(mask, km, n, j),
                                 self.dropout, key, r)
             return self.to_out(out.reshape(bt * r, n, h * dh))
-        out = tied_row_attention(
+        tied = (tied_row_attention if kernel_policy.resolve_tied_row() == "pallas"
+                else tied_row_attention_reference)
+        out = tied(
             q.contiguous(), k.contiguous(), v.contiguous(), q_mask=mask,
             kv_mask=km, sm_scale=scale, tie_scale=tie_scale,
         )  # (B, R, n, h, dh)

@@ -17,9 +17,14 @@ Port of ``alphafold2_tpu/ops/sparse.py``:
   K5a/K5b backward on the card, on the CPU their plain versions, of which
   the forward is JAX's gather-based ``block_sparse_attention`` (:119).
 
-``BlockSparseConfig.backend`` names four implementations of one function in
-the JAX package ("auto", "pallas", "jnp", "splash"); on the card every value
-runs K4/K5, on the CPU every value runs the plain versions.
+``BlockSparseConfig.backend`` names four implementations of one function,
+as in the JAX package: "pallas" K4/K5 (on the CPU their plain versions),
+"jnp" the plain gather version on any device, "splash" PyTorch's
+``scaled_dot_product_attention`` with the layout's dense boolean mask
+(:func:`splash_attention`, the library route), and "auto" whatever the
+kernel policy's ``block_sparse`` field resolves (``ops/kernels.py``; K4/K5
+by default), read on every call. A non-"auto" backend wins over the
+policy, as in JAX (``alphafold2_tpu/ops/sparse.py:373-398``).
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from alphafold2_tpu_torch.ops import kernels as kernel_policy
 from alphafold2_tpu_torch.ops.attention import DropoutKey, dropout, grid_axial_project_attend
 from alphafold2_tpu_torch.ops.cuda import block_sparse as kernels
 from alphafold2_tpu_torch.ops.cuda.block_sparse import BlockLayout
@@ -48,8 +54,8 @@ class BlockSparseConfig:
     block_size: attention block edge. num_local_blocks: sliding window width
     in blocks. num_global_blocks: leading blocks attending/attended densely.
     num_random_blocks: extra random blocks per query row; None -> the
-    reference's default seq_len/block/4. backend: the JAX package's kernel
-    choice, one of :data:`BACKENDS` (every value runs K4/K5 here).
+    reference's default seq_len/block/4. backend: the implementation, one
+    of :data:`BACKENDS` (module docstring).
     """
 
     block_size: int = 16
@@ -126,6 +132,25 @@ def config_layout(config: BlockSparseConfig, seq_len: int) -> BlockLayout:
     return pack_layout(config.layout(seq_len), config.block_size)
 
 
+def splash_attention(q, k, v, layout: BlockLayout, kv_mask=None, sm_scale=1.0):
+    """The ``splash`` route: PyTorch's ``scaled_dot_product_attention`` over
+    the layout expanded to a dense (N, N) boolean mask, composed with the
+    key mask; a query row with no valid listed key gives 0, as K4's does."""
+    nb, bs = layout.num_blocks, layout.block_size
+    rows, counts = (t.long() for t in layout.tensors(q.device)[:2])
+    slots = (torch.arange(rows.shape[1], device=q.device)[None, :] < counts[:, None]).int()
+    # padding slots list block 0 with 0: the max keeps a listed block 0
+    dense = torch.zeros((nb, nb), dtype=torch.int32, device=q.device).scatter_reduce_(
+        1, rows, slots, "amax") > 0
+    pair = dense.repeat_interleave(bs, 0).repeat_interleave(bs, 1)[None, None]  # (1, 1, N, N)
+    if kv_mask is not None:
+        pair = pair & kv_mask[:, None, None, :]
+    live = pair.any(-1, keepdim=True)  # (B or 1, 1, N, 1)
+    out = torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=pair | ~live, scale=sm_scale)
+    return out * live.to(out.dtype)
+
+
 class SparseAttention(nn.Module):
     """Block-sparse multi-head self-attention (the flax module's parameters:
     ``to_q``, ``to_kv``, ``to_out``).
@@ -157,11 +182,23 @@ class SparseAttention(nn.Module):
         if self.seq_len is not None and n > self.seq_len:
             raise ValueError(f"{what} {n} exceeds max_seq_len {self.seq_len}")
 
+    def _impl(self) -> str:
+        """"pallas", "jnp" or "splash": a non-"auto" backend, else the
+        policy (JAX's ``SparseAttention._impl``, whose ``use_pallas`` field
+        no caller of the port sets)."""
+        if self.config.backend != "auto":
+            return self.config.backend
+        return kernel_policy.resolve_block_sparse()
+
     def _attend(self, q, k, v, kv_mask):
         """(B*, H, n, dh) q/k/v, n a block multiple; keys masked by kv_mask."""
-        return kernels.block_sparse_attention(
-            q, k, v, config_layout(self.config, q.shape[2]), kv_mask=kv_mask,
-            sm_scale=self.dim_head**-0.5)
+        layout = config_layout(self.config, q.shape[2])
+        impl = self._impl()
+        if impl == "splash":
+            return splash_attention(q, k, v, layout, kv_mask, self.dim_head**-0.5)
+        fn = (kernels.block_sparse_attention if impl == "pallas"
+              else kernels.block_sparse_attention_reference)
+        return fn(q, k, v, layout, kv_mask=kv_mask, sm_scale=self.dim_head**-0.5)
 
     def grid_axial(self, x: torch.Tensor, mask: Optional[torch.Tensor],
                    attend_axis: int) -> torch.Tensor:

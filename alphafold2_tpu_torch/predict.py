@@ -3,11 +3,23 @@
 Port of ``alphafold2_tpu/predict.py``: :func:`realize_structure`,
 :func:`encode_sequence`, :func:`synthesize_msa`, :class:`Prediction` and
 :func:`predict`, which runs on the CUDA card unless the caller passes
-``device="cpu"``.
+``device="cpu"``; and :func:`main`, the command line of JAX's
+``scripts/predict.py``::
+
+    python -m alphafold2_tpu_torch.predict --seq MKTAYIAKQRQISFVKSHFSRQLEERLGLIEVQ \
+        [--checkpoint ckpt_dir] [--out pred.pdb] [--seed 0] [--device cpu] \
+        [model.dim=256 serve.kernels=axial=stock ...]
+
+It runs the whole path (elongation, the trunk, the distogram, MDS, the
+sidechains, the SE(3) refiner), writes the N/CA/C backbone as a PDB file
+and prints one summary line. Without ``--checkpoint`` the weights are
+random (from ``train.seed``). The kernel policy is ``serve.kernels`` when
+given, else ``AF2TPU_KERNELS`` (``ops/kernels.py``).
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 from typing import Optional, Union
 
@@ -15,7 +27,7 @@ import numpy as np
 import torch
 
 from alphafold2_tpu_torch import constants
-from alphafold2_tpu_torch.config import Config
+from alphafold2_tpu_torch.config import Config, parse_cli
 from alphafold2_tpu_torch.device import resolve_device
 from alphafold2_tpu_torch.utils import pdb as pdbio
 from alphafold2_tpu_torch.utils.mds import mdscaling_backbone, position_keyed_init
@@ -203,3 +215,35 @@ def predict(
         weights=out["weights"][0].float().cpu().numpy(),
         distogram=out["distogram"][0].float().cpu().numpy(),
     )
+
+
+def main(argv=None) -> int:
+    """``python -m alphafold2_tpu_torch.predict``: JAX's arguments
+    (``scripts/predict.py:25-31``) and ``--device``; prints JAX's line."""
+    from alphafold2_tpu_torch.ops.kernels import parse_policy, use_kernel_policy
+
+    ap = argparse.ArgumentParser(prog="python -m alphafold2_tpu_torch.predict",
+                                 description=__doc__.splitlines()[0])
+    ap.add_argument("--seq", required=True, help="one-letter AA sequence")
+    ap.add_argument("--checkpoint", default=None, help="training checkpoint dir")
+    ap.add_argument("--out", default="prediction.pdb")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None, help="cpu or cuda (default: the card)")
+    ap.add_argument("overrides", nargs="*", help="config overrides section.field=value")
+    args = ap.parse_args(argv)
+    cfg = parse_cli(args.overrides, Config())
+    policy = parse_policy(cfg.serve.kernels) if cfg.serve.kernels else None
+    with use_kernel_policy(policy):
+        pred = predict(cfg, args.seq, checkpoint_dir=args.checkpoint, seed=args.seed,
+                       device=args.device)
+    pdbio.save_pdb(pred.to_pdb(args.seq), args.out)
+    ca = pred.backbone[:, 1]
+    d = np.linalg.norm(ca[1:] - ca[:-1], axis=-1)
+    print(f"wrote {args.out}: {len(args.seq)} residues, "
+          f"mean consecutive CA-CA distance {d.mean():.2f} A, "
+          f"mean confidence weight {pred.weights.mean():.3f}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

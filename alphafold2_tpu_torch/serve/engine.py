@@ -22,8 +22,14 @@ Port of the single-device surface of ``alphafold2_tpu/serve/engine.py``:
   from a cached parent (``serve.delta_featurize``), byte-identical to cold
   featurization; each dispatched request bumps one of ``serve.feat_hits``,
   ``serve.feat_delta`` and ``serve.feat_misses``.
+- **Kernel policy** — ``serve.kernels`` (a spec of ``ops/kernels.py``;
+  empty: the process's ``AF2TPU_KERNELS`` at construction) is parsed once
+  and activated inside every forward of this engine, on whichever thread
+  runs it; its description (``kernels_desc``) joins the key and, when not
+  ``"auto"``, the compile records, as JAX's does (``serve/engine.py:264-275,
+  :590-595``). A fleet's replicas share one model and each keeps its own.
 - **Compile accounting** — eager PyTorch builds no executable, so the
-  port's "executable" is one warm run a ``(bucket, batch, dtype)`` key:
+  port's "executable" is one warm run a ``(bucket, batch, dtype, kernels)`` key:
   the first dispatch of a key bumps ``serve.traces`` and
   ``serve.compiles``, runs a fully masked batch of that shape once (which
   builds the kernels at first use and warms the library handles) and
@@ -81,6 +87,7 @@ from alphafold2_tpu_torch.observe.memory import MemorySampler
 from alphafold2_tpu_torch.observe.metrics import EventCounters
 from alphafold2_tpu_torch.observe.tracectx import TraceContext
 from alphafold2_tpu_torch.observe.tracing import Tracer
+from alphafold2_tpu_torch.ops.kernels import current_policy, parse_policy, use_kernel_policy
 from alphafold2_tpu_torch.predict import build_model, encode_sequence, init_params
 from alphafold2_tpu_torch.serve.bucketing import bucket_for, validate_ladder
 from alphafold2_tpu_torch.serve.cache import FeatureCache, feature_key
@@ -201,6 +208,14 @@ class ServeEngine:
         if self.serve_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"serve.dtype must be 'float32' or 'bfloat16', "
                              f"got {cfg.serve.dtype!r}")
+        # the kernel policy (ops/kernels.py): a per-engine spec wins over the
+        # process default (AF2TPU_KERNELS at construction); its description
+        # keys every executable of this engine and rides in its records.
+        # kernel_policy is None without a spec, as JAX's is; _policy is the
+        # one _forward activates on whatever thread runs it
+        self.kernel_policy = parse_policy(cfg.serve.kernels) if cfg.serve.kernels else None
+        self._policy = self.kernel_policy or current_policy()
+        self.kernels_desc = self._policy.describe()
         self.pipeline_depth = int(cfg.serve.pipeline_depth)
         if self.pipeline_depth < 0:
             raise ValueError(f"serve.pipeline_depth must be >= 0, got {self.pipeline_depth}")
@@ -287,12 +302,14 @@ class ServeEngine:
     # ----------------------------------------------------------- executables
 
     def _exe_key(self, bucket: int, batch: int) -> tuple:
-        return (bucket, batch, self.mesh_desc, self.serve_dtype)
+        return (bucket, batch, self.mesh_desc, self.serve_dtype, self.kernels_desc)
 
     def _forward(self, stacked: dict) -> dict:
-        """One forward over a batch on the device, on the current stream;
-        the picked outputs stay on the device."""
-        with self._forward_lock, torch.inference_mode():
+        """One forward over a batch on the device, on the current stream,
+        under the engine's kernel policy (the policy is thread-local, and the
+        pipeline's device worker, the serial path, the warm and the counted
+        runs all come through here); the picked outputs stay on the device."""
+        with self._forward_lock, torch.inference_mode(), use_kernel_policy(self._policy):
             out = self.model(stacked["seq"].long(), stacked["msa"].long(),
                              mask=stacked["mask"], msa_mask=stacked["msa_mask"],
                              coords0=stacked["coords0"])
@@ -339,6 +356,7 @@ class ServeEngine:
             self.compile_records.append({
                 "bucket": bucket, "batch": batch, "seconds": self._exe_compile_s[key],
                 **({"dtype": self.serve_dtype} if self.serve_dtype != "float32" else {}),
+                **({"kernels": self.kernels_desc} if self.kernels_desc != "auto" else {}),
                 **({"flops": costs["flops"]} if costs["flops"] else {}),
                 **({"flops_breakdown": breakdown} if costs["flops"] else {}),
                 **executable_memory(counted),

@@ -714,3 +714,16 @@ class FleetFrontend:
                 # counter makes a wedged pump visible on the scrape
                 self.counters.bump("fleet.pump_errors")
 
+
+def _audit_fleet_hold_router_lock(  # af2: gated-defect[AF2TPU_AUDIT_FLEET_LOCK]
+    fleet: FleetFrontend, replica: AsyncServeFrontend
+) -> None:
+    """Seeded negative control of the fleet's lock-order rule, the port's
+    copy of JAX's (``alphafold2_tpu/serve/fleet.py:720``). Never called: the
+    ``gated-defect`` marker keeps it out of the audit and of the committed
+    contracts unless ``AF2TPU_AUDIT_FLEET_LOCK=1``; then the lock graph
+    gains the forbidden edge ``FleetFrontend._lock ->
+    AsyncServeFrontend._lock`` (a replica's scheduler lock, through
+    ``submit``, under the router's lock), which ``--graph`` must show."""
+    with fleet._lock:
+        replica.submit("ACDE")

@@ -86,7 +86,7 @@ from alphafold2_tpu_torch.serve.bucketing import (
     formation_ripe,
 )
 from alphafold2_tpu_torch.serve.cache import ResultCache, result_key
-from alphafold2_tpu_torch.serve.pipeline import DispatchHandle
+from alphafold2_tpu_torch.serve.pipeline import DispatchHandle, PipelineBatch
 from alphafold2_tpu_torch.serve.engine import (
     ServeEngine,
     ServeRequest,
@@ -874,3 +874,19 @@ class AsyncServeFrontend:
                     return
             self.pump()
 
+
+def _audit_invert_locks(  # af2: gated-defect[AF2TPU_AUDIT_INVERT_LOCKS]
+    frontend: AsyncServeFrontend, batch: PipelineBatch
+) -> None:
+    """Seeded negative control of the concurrency audit
+    (``analysis/concurrency.py``), the port's copy of JAX's
+    (``alphafold2_tpu/serve/scheduler.py:871``). Never called: the
+    ``gated-defect`` marker keeps it out of the audit and of the committed
+    contracts unless ``AF2TPU_AUDIT_INVERT_LOCKS=1``; then it adds the
+    inverted order (the batch's membership lock first, the scheduler's lock
+    inside it), closing a cycle with ``submit``'s
+    ``AsyncServeFrontend._lock -> PipelineBatch._lock`` edge, and the audit
+    must exit 1 naming it."""
+    with batch._lock:
+        with frontend._lock:
+            pass

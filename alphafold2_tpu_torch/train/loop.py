@@ -63,7 +63,7 @@ from alphafold2_tpu_torch.device import resolve_device
 from alphafold2_tpu_torch.models.alphafold2 import Alphafold2
 from alphafold2_tpu_torch.observe import MetricsLogger, Profiler, Tracer, flatten_metrics
 from alphafold2_tpu_torch.observe import numerics
-from alphafold2_tpu_torch.ops.attention import DropoutKey
+from alphafold2_tpu_torch.ops.attention import Attention, DropoutKey
 from alphafold2_tpu_torch.train.optim import Optimizer, build_optimizer, global_norm
 from alphafold2_tpu_torch.utils.structure import get_bucketed_distance_matrix
 
@@ -122,9 +122,10 @@ def build_model(cfg: Config, num_embedds: Optional[int] = None) -> Alphafold2:
     bfloat16 compute when ``model.bfloat16``. ``num_embedds``, the width
     of a PLM stream's ``embedds``, builds ``embedd_project``. The mesh
     flags go to the trunk, which applies none on one device (module
-    docstring)."""
+    docstring). ``model.flash_attention`` reaches every ``Attention`` as
+    its ``use_flash``, as JAX's ``build_model`` passes it (:102)."""
     m = cfg.model
-    return Alphafold2(
+    model = Alphafold2(
         dim=m.dim, max_seq_len=m.max_seq_len, depth=m.depth, heads=m.heads,
         dim_head=m.dim_head, gelu_exact=m.gelu_exact,
         msa_tie_row_attn=m.msa_tie_row_attn,
@@ -135,6 +136,11 @@ def build_model(cfg: Config, num_embedds: Optional[int] = None) -> Alphafold2:
         grid_parallel=m.grid_parallel, context_parallel=m.context_parallel,
         num_embedds=num_embedds, cross_attn_compress_ratio=m.cross_attn_compress_ratio,
     )
+    if m.flash_attention is not None:
+        for mod in model.modules():
+            if isinstance(mod, Attention):
+                mod.use_flash = m.flash_attention
+    return model
 
 
 def init_state(cfg: Config, model: nn.Module, flax_params=None,
@@ -298,6 +304,13 @@ def batch_to_device(batch: dict, device: torch.device) -> dict:
             t = t.long()
         out[k] = t.to(device)
     return out
+
+
+def device_put_batch(batch: dict, device: Optional[Union[str, torch.device]] = None) -> dict:
+    """JAX's name (``train/loop.py:455``) for :func:`batch_to_device`: its
+    ``mesh`` argument has no counterpart here, and ``device`` defaults to the
+    card, as every entry point's does."""
+    return batch_to_device(batch, resolve_device(device))
 
 
 def close_owned(dataset, owned: bool) -> None:

@@ -137,6 +137,26 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
               every ok result, flops in every compile record, the card's
               count of a tiny key equal to the CPU's; every K1/K2 launch on
               its Hopper kernel, no plain version, in every run;
+4a. lattice — right after serve, on its engine (every rung warmed):
+              analysis/budgets.py lattice_report, each rung's peak_bytes,
+              parameters, flops and verdict against 0.9 of the card's
+              memory, all passing, no forward run again;
+4d. kernel_policy — the kernel switchboard (ops/kernels.py): the serving
+              config at bucket 128 x batch 4 under the default policy,
+              the hand kernels by name, axial=stock,flash=on (SDPA) and
+              axial=dense,flash=off,tied_row=dense (the plain versions), one
+              engine each over one parameter set: the named spec bit-equal
+              to the default, SDPA and plain within the bf16 serving bound,
+              K1/K2 launches and plain calls only where asked for, the
+              policy in each engine's key and compile records, regress
+              refusing a cross-policy comparison; each policy's forward
+              time, launches and counted flops, the span-based idle share;
+              one SparseAttention pass under block_sparse=pallas/jnp/splash
+              (K4 only under pallas, within 1e-4 in f32);
+4e. predict_cli — predict.main in-process on 128 residues at the serving
+              config (K1/K2 on their Hopper kernels, no plain call, the PDB
+              read back), then python -m alphafold2_tpu_torch.predict once
+              as a subprocess (rc 0, the summary line);
 5. train    — distogram pretraining at the same width (untied MSA rows,
               crop 128, MSA 5x64, batch 1, accumulation 16): 32 steps whose
               launch counts must show K1, K3a and K3b on every attention
@@ -301,7 +321,9 @@ template and PLM phases run alone after ``phase_build``:
 c.phase_templates(); c.phase_plm()"``, and likewise KV compression and the
 local-data phase: ``python3 -c "import chip_smoke as c; c.phase_build();
 c.phase_compress(); c.phase_data()"``, and the fleet:
-``python3 -c "import chip_smoke as c; c.phase_build(); c.phase_serve_fleet()"``.
+``python3 -c "import chip_smoke as c; c.phase_build(); c.phase_serve_fleet()"``,
+and this slice's three: ``python3 -c "import chip_smoke as c; c.phase_build();
+c.phase_kernel_policy(); c.phase_predict_cli(); c.phase_lattice()"``.
 ``chip_compare.sh`` runs them, or any other phases, for two checkouts in
 turns.
 
@@ -6359,6 +6381,284 @@ def phase_data():
         _free()
 
 
+# ------------------------------------------------- the kernel switchboard
+
+# the engines of phase_kernel_policy: the default policy, the hand kernels
+# asked for by name (flash stays auto: K1), the library route (SDPA on every
+# K1 pass; tied rows stay auto: K2) and the plain versions everywhere
+POLICY_SPECS = ("", "axial=pallas,tied_row=pallas", "axial=stock,flash=on",
+                "axial=dense,flash=off,tied_row=dense")
+POLICY_BUCKET = 128
+POLICY_LENGTHS = (128, 121, 110, 99)  # one bucket-128 batch of 4
+POLICY_REPS = 5  # forwards timed a policy, each alone between events
+SPARSE_BACKENDS = ("pallas", "jnp", "splash")
+PREDICT_CLI_LEN = 128
+
+
+def _rel_l2(a, b) -> float:
+    import numpy as np
+
+    return float(np.linalg.norm(a - b) / max(float(np.linalg.norm(b)), 1e-30))
+
+
+def _sparse_policy_case():
+    """One SparseAttention pass at the sparse training shape (the pair grid
+    of crop 128, 110 residues valid, f32) under each block_sparse choice:
+    K4 launches only under pallas, the plain gather version's calls only
+    under jnp, and the three outputs within 1e-4."""
+    import torch
+
+    from alphafold2_tpu_torch.ops.cuda import block_sparse as bsk
+    from alphafold2_tpu_torch.ops.kernels import KernelPolicy, use_kernel_policy
+    from alphafold2_tpu_torch.ops.sparse import BlockSparseConfig, SparseAttention
+
+    gen = torch.Generator().manual_seed(21)
+    attn = SparseAttention(256, 8, 64, seq_len=128, config=BlockSparseConfig())
+    with torch.no_grad():
+        for prm in attn.parameters():
+            prm.copy_(torch.randn(prm.shape, generator=gen) * prm.shape[-1] ** -0.5)
+    attn = attn.cuda()
+    x = torch.randn((1, 128, 128, 256), generator=gen).cuda()
+    mask = torch.zeros((1, 128, 128), dtype=torch.bool, device="cuda")
+    mask[:, :TRAIN_LEN, :TRAIN_LEN] = True
+    outs, launches, calls = {}, {}, {}
+    for choice in SPARSE_BACKENDS:
+        bsk.block_sparse_attention.launches = 0
+        bsk.block_sparse_attention_reference.calls = 0
+        with torch.no_grad(), use_kernel_policy(KernelPolicy(block_sparse=choice)):
+            outs[choice] = attn.grid_axial(x, mask, attend_axis=2)
+        torch.cuda.synchronize()
+        launches[choice] = bsk.block_sparse_attention.launches
+        calls[choice] = bsk.block_sparse_attention_reference.calls
+    errs = {c: float((outs[c] - outs["jnp"]).abs().max()) for c in ("pallas", "splash")}
+    log(f"[kernel_policy] SparseAttention {SPARSE_TRAIN_LABEL} f32: K4 launches {launches}, "
+        f"plain calls {calls}, max |out - jnp| {errs} (tol 1e-4)")
+    require(launches == {"pallas": 1, "jnp": 0, "splash": 0},
+            f"K4 launched outside block_sparse=pallas: {launches}")
+    require(calls == {"pallas": 0, "jnp": 1, "splash": 0},
+            f"the plain gather version ran outside block_sparse=jnp: {calls}")
+    require(max(errs.values()) <= 1e-4, f"block_sparse routes disagree: {errs}")
+    return {"launches": launches, "max_abs_err": errs}
+
+
+def phase_kernel_policy():
+    """The kernel switchboard on the card (log tag ``[kernel_policy]``): the
+    serving configuration (one bucket-128 rung at batch 4) under each spec
+    of POLICY_SPECS, one engine each over one shared parameter set, the same
+    four requests through each (pipelined: the forward runs on the
+    pipeline's device worker). The explicit hand-kernel spec is bit-equal
+    to the default; the library and plain routes' distograms within
+    SERVE_BF16_LOGITS_BOUND; K1 launches only where a K1 route was asked
+    for (the default or by name), K2 likewise (tied_row auto or pallas);
+    plain calls only under the dense spec; each engine's key and
+    compile_records carry its policy and regress refuses to compare an auto
+    record with a stock one. Each policy's forward time (CUDA events,
+    POLICY_REPS forwards each alone: median and spread), its K1/K2 and
+    runtime launches a forward, its counted flops, and the span-based idle
+    share (device_idle_fraction) beside the profiler's. Then one
+    SparseAttention pass under each block_sparse choice."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from alphafold2_tpu_torch.observe import Tracer, device_idle_fraction
+    from alphafold2_tpu_torch.observe.regress import comparable_reason
+    from alphafold2_tpu_torch.serve.engine import ServeEngine, ServeRequest
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(21)
+    alphabet = list("ACDEFGHIKLMNPQRSTVWY")
+    reqs = [ServeRequest(seq="".join(rng.choice(alphabet, n)), seed=i)
+            for i, n in enumerate(POLICY_LENGTHS)]
+    runs, model, base = {}, None, None
+    for spec in POLICY_SPECS:
+        cfg = _serve_config(buckets=(POLICY_BUCKET,), kernels=spec, return_distogram=True)
+        engine = ServeEngine(cfg, model=model, tracer=Tracer(enabled=True))
+        model = engine.model
+        try:
+            engine.warmup()
+            read = _serve_counts()
+            results = engine.predict_many(reqs)
+            torch.cuda.synchronize()
+            counts = read()
+            spans = device_idle_fraction(engine.tracer.events())
+            items = [engine._featurize_one(POLICY_BUCKET, r)[0] for r in reqs]
+            stacked = engine._to_device(engine._stack_host(POLICY_BUCKET, items, len(reqs)),
+                                        POLICY_BUCKET)
+            times = [cuda_ms(lambda: engine._forward(stacked), reps=1, warmup=int(i == 0))
+                     for i in range(POLICY_REPS)]
+            one = _serve_counts()
+            prof = _idle_share(lambda: engine._forward(stacked))
+            per_forward = one()
+        finally:
+            engine.close()
+        for r in results:
+            require(r.ok and np.isfinite(r.atom14).all() and np.isfinite(r.distogram).all(),
+                    f"policy {spec!r}: a request failed or is not finite ({r.error})")
+        desc = engine.kernels_desc
+        rec = engine.compile_records[0]
+        require(engine._exe_key(POLICY_BUCKET, 4)[-1] == desc,
+                f"policy {spec!r}: the engine's key lacks its policy")
+        require(rec.get("kernels") == (None if desc == "auto" else desc),
+                f"policy {spec!r}: compile record kernels={rec.get('kernels')!r}, not {desc!r}")
+        runtime = sum(prof["runtime"].get(k, 0) for k in RUNTIME_CALLS[:4])
+        run = {"desc": desc, "counts": counts, "per_forward": per_forward,
+               "forward_ms": {"median": statistics.median(times), "min": min(times),
+                              "max": max(times)},
+               "runtime_launches": runtime, "flops": rec.get("flops"),
+               "peak_bytes": rec.get("peak_bytes"), "idle_profiler": prof["idle"],
+               "idle_spans": spans, "record": rec,
+               "distogram": [r.distogram for r in results], "atom14": [r.atom14 for r in results]}
+        runs[spec] = run
+        base = base or run
+        d_rel = max(_rel_l2(a, b) for a, b in zip(run["distogram"], base["distogram"]))
+        d_atom = max(float(np.abs(a - b).max()) for a, b in zip(run["atom14"], base["atom14"]))
+        run["distogram_rel_l2"], run["atom14_max_abs"] = d_rel, d_atom
+        log(f"[kernel_policy] {desc}: forward at bucket {POLICY_BUCKET} x batch 4 "
+            f"{run['forward_ms']['median']:.3f} ms (min {run['forward_ms']['min']:.3f}, "
+            f"max {run['forward_ms']['max']:.3f}, {POLICY_REPS} forwards); a forward: K1 "
+            f"{per_forward['fused_attention']} ({per_forward['fused_attention_sm90']} Hopper, "
+            f"{per_forward['fused_attention_packed']} packed), K2 "
+            f"{per_forward['tied_row_attention']}, plain {per_forward['plain_calls']}, runtime "
+            f"launches {runtime}; counted flops {run['flops']}; peak {run['peak_bytes']} bytes; "
+            f"idle (profiler, one forward) {prof['idle']}; idle (spans, the four requests) "
+            f"{spans}; vs the default: distogram rel L2 {d_rel:.3e}, max |d atom14| "
+            f"{d_atom:.3e} A; serving run counts {counts}")
+    auto, named, stock, dense = (runs[s] for s in POLICY_SPECS)
+    require(named["atom14_max_abs"] == 0.0 and named["distogram_rel_l2"] == 0.0,
+            "the hand kernels asked for by name are not bit-equal to the default policy")
+    for run in (stock, dense):
+        require(run["distogram_rel_l2"] <= SERVE_BF16_LOGITS_BOUND,
+                f"{run['desc']}: distogram rel L2 {run['distogram_rel_l2']:.3e} over "
+                f"{SERVE_BF16_LOGITS_BOUND}")
+    for run in (auto, named):
+        _require_hopper(run["counts"], f"policy {run['desc']}")
+    for run, k1, k2 in ((stock, False, True), (dense, False, False)):
+        c = run["counts"]
+        require((c["fused_attention"] > 0) == k1 and (c["tied_row_attention"] > 0) == k2,
+                f"{run['desc']}: K1 {c['fused_attention']} / K2 {c['tied_row_attention']} "
+                f"launches where the policy asked for K1 {k1}, K2 {k2}")
+    require(stock["counts"]["tied_row_attention_sm90"] == stock["counts"]["tied_row_attention"],
+            f"{stock['desc']}: a K2 launch off its Hopper kernel")
+    for run in (auto, named, stock):
+        require(run["counts"]["plain_calls"] == 0, f"{run['desc']}: a plain version ran")
+    require(dense["counts"]["plain_calls"] > 0, "the dense policy ran no plain version")
+    flops = {r["desc"]: r["flops"] for r in runs.values()}
+    require(len(set(flops.values())) == 1, f"counted flops differ across policies: {flops}")
+    kind = torch.cuda.get_device_name(0)
+    records = {r["desc"]: {"metric": "serve forward ms", "device": kind, **r["record"]}
+               for r in (auto, stock)}
+    why = comparable_reason(records[stock["desc"]], records["auto"])
+    log(f"[kernel_policy] regress on an auto record against a {stock['desc']} one: {why}")
+    require(why is not None and "kernels" in why, "regress compared records across policies")
+    sparse = _sparse_policy_case()
+    seconds = time.perf_counter() - t_phase
+    log(f"[kernel_policy] phase took {seconds:.1f} s")
+    for run in runs.values():
+        for k in ("distogram", "atom14", "record"):
+            run.pop(k)
+    return {"runs": {r["desc"]: r for r in runs.values()}, "sparse": sparse,
+            "seconds": seconds}
+
+
+def phase_predict_cli():
+    """The prediction CLI on the card (log tag ``[predict_cli]``): ``main``
+    in-process on a PREDICT_CLI_LEN-residue sequence at the serving
+    configuration (tied MSA rows), every K1 and K2 launch on its Hopper
+    kernel and no plain call, the PDB it wrote read back through
+    utils/pdb.py (every residue, finite coordinates); then ``python -m
+    alphafold2_tpu_torch.predict`` once in a subprocess (rc 0, the summary
+    line)."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from alphafold2_tpu_torch import predict
+    from alphafold2_tpu_torch.utils import pdb as pdbio
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(5)
+    seq = "".join(rng.choice(list("ACDEFGHIKLMNPQRSTVWY"), PREDICT_CLI_LEN))
+    root = tempfile.mkdtemp(prefix="af2_predict_", dir=os.path.join(HERE, "build"))
+    try:
+        out = os.path.join(root, "in_process.pdb")
+        read = _serve_counts()
+        t0 = time.perf_counter()
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            rc = predict.main(["--seq", seq, "--out", out, "model.msa_tie_row_attn=true"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read()
+        require(rc == 0, f"predict.main returned {rc}")
+        _require_hopper(counts, "predict CLI")
+        line = text.getvalue().strip()
+        log(f"[predict_cli] main in-process: {line!r} in {wall:.2f} s; launches {counts}")
+        s = pdbio.load_pdb(out)
+        ca = s.coords[s.name == "CA"]
+        require(len(np.unique(s.resseq)) == PREDICT_CLI_LEN and len(ca) == PREDICT_CLI_LEN
+                and bool(np.isfinite(s.coords).all()),
+                f"the PDB read back holds {len(np.unique(s.resseq))} residues, finite "
+                f"{bool(np.isfinite(s.coords).all())}")
+        sub = os.path.join(root, "subprocess.pdb")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "alphafold2_tpu_torch.predict", "--seq", seq, "--out", sub,
+             "model.msa_tie_row_attn=true"],
+            cwd=HERE, capture_output=True, text=True, timeout=600)
+        sub_wall = time.perf_counter() - t0
+        last = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+        log(f"[predict_cli] python -m alphafold2_tpu_torch.predict: rc {proc.returncode}, "
+            f"{last!r} in {sub_wall:.2f} s")
+        require(proc.returncode == 0 and last.startswith(f"wrote {sub}: {PREDICT_CLI_LEN} "
+                                                        "residues"),
+                f"the CLI subprocess failed: rc {proc.returncode}, {proc.stderr[-2000:]}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    log(f"[predict_cli] phase took {seconds:.1f} s")
+    return {"launches": counts, "wall_s": wall, "subprocess_wall_s": sub_wall,
+            "seconds": seconds}
+
+
+def phase_lattice(engine=None):
+    """``analysis/budgets.py lattice_report`` on the card (log tag
+    ``[lattice]``) over the serving phase's engine, which warmed every rung
+    64-256 at batch 4, so no forward runs again (built and warmed here when
+    the phase runs alone): each rung's peak_bytes, parameters, flops and
+    verdict against 0.9 of the card's memory; every rung must pass."""
+    from alphafold2_tpu_torch.analysis.budgets import format_budget, lattice_report
+    from alphafold2_tpu_torch.serve.engine import ServeEngine
+
+    t_phase = time.perf_counter()
+    own = engine is None
+    if own:
+        engine = ServeEngine(_serve_config())
+        engine.warmup()
+    try:
+        before = len(engine.compile_records)
+        report = lattice_report(engine)
+        require(own or len(engine.compile_records) == before,
+                "lattice_report ran a rung the engine had already warmed")
+    finally:
+        if own:
+            engine.close()
+    for rung in report["rungs"]:
+        log(f"[lattice] bucket {rung['bucket']} x batch {rung['batch']}: peak_bytes "
+            f"{rung.get('peak_bytes')}, param_bytes {rung['param_bytes']}, flops "
+            f"{rung['flops']}; " + format_budget("verdict", rung["budget"]))
+    seconds = time.perf_counter() - t_phase
+    log(f"[lattice] verdict {report['verdict']} against {report['hbm_budget_bytes']} bytes; "
+        f"phase took {seconds:.2f} s")
+    require(report["verdict"] == "pass", f"lattice verdict {report['verdict']}")
+    return {**report, "seconds": seconds}
+
+
 def _module_spans(modules, fn):
     """Device-timeline ms from entry to exit of each named module over
     ``fn()`` (CUDA events recorded by forward hooks), and the whole
@@ -6486,7 +6786,8 @@ def _shape_entry(rows, kernel, label):
 
 
 def kernel_line(rows, serve, train, tied_train, sparse_train, gate, engines, telemetry,
-                templates, plm, compress, data, serve_async, serve_fleet):
+                templates, plm, compress, data, serve_async, serve_fleet, policy=None,
+                predict_cli=None):
     """One entry per kernel. K1 sums one serving trunk layer's K1 calls at
     bucket 128 (two pair axial passes, the MSA column pass, both cross
     attentions; a call's time includes its combine pass where it splits),
@@ -6525,7 +6826,12 @@ def kernel_line(rows, serve, train, tied_train, sparse_train, gate, engines, tel
     phase_serve_async's first serial and pipelined runs of the twelve
     requests and in its open-loop burst, and ``serve_fleet_launches``: their
     launches (K1's packed ones beside) in phase_serve_fleet's 1- and
-    2-replica runs of its stream."""
+    2-replica runs of its stream. K1 and K2 carry ``policy_launches``: their
+    launches serving phase_kernel_policy's four requests under each kernel
+    policy (by its description), and ``predict_cli_launches``: their
+    launches in phase_predict_cli's in-process run; K4 carries
+    ``policy_launches``: its launches in the SparseAttention pass under each
+    block_sparse choice."""
     serve_k1 = {"pair axial pass (1536x8, 384x384, d64)": 2,
                 "MSA column pass (512x8, 5x5, d64)": 1,
                 "pair<-MSA cross (4x8, 147456x640, d64)": 1,
@@ -6609,6 +6915,13 @@ def kernel_line(rows, serve, train, tied_train, sparse_train, gate, engines, tel
                     (e["name"], "fused_attention_packed") if e["name"] == "fused_attention"
                     else (e["name"],))}
                 for n, run in serve_fleet["runs"].items()}
+            if policy is not None:
+                e["policy_launches"] = {desc: run["counts"][e["name"]]
+                                        for desc, run in policy["runs"].items()}
+            if predict_cli is not None:
+                e["predict_cli_launches"] = predict_cli["launches"][e["name"]]
+        if e["name"] == "block_sparse_attention" and policy is not None:
+            e["policy_launches"] = dict(policy["sparse"]["launches"])
     return {"kernels": entries}
 
 
@@ -6704,9 +7017,12 @@ def main() -> int:
         phase_reference()
         phase_se3_streamed()
         serve = phase_serve()
+        lattice = phase_lattice(serve["engine"])
         serve_async = phase_serve_async(serve.pop("engine"))
         serve_fleet = phase_serve_fleet(serve_async.pop("state"), serve_async["serial_req_per_s"],
                                         serve.pop("atom14"))
+        policy = phase_kernel_policy()
+        predict_cli = phase_predict_cli()
         train = phase_train()
         tied_train = phase_train(tied=True)
         sparse_train = phase_train(sparse=True)
@@ -6726,7 +7042,7 @@ def main() -> int:
     log(card)
     print(json.dumps(kernel_line(rows, serve, train, tied_train, sparse_train, gate,
                                  engines, telemetry, templates, plm, compress, data,
-                                 serve_async, serve_fleet)),
+                                 serve_async, serve_fleet, policy, predict_cli)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

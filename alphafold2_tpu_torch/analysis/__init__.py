@@ -29,12 +29,16 @@
 - :mod:`knobs` — every ``AF2TPU_*`` read against the README's port section
   and the config fields (AF2K001-004), pure stdlib. CLI:
   ``python -m alphafold2_tpu_torch.analysis.knobs``.
+- :mod:`hlo_audit` — the collective audit: the census of each audited
+  target's collectives on gloo ranks or the card's NCCL world, the rules
+  AF2A107-110, the committed ``hlo_contracts.json``. CLI:
+  ``python -m alphafold2_tpu_torch.analysis.hlo_audit --check [--device cpu]``.
 
 Every submodule loads lazily, so importing this package imports nothing
 else: the lint, knobs and concurrency stay stdlib-only and fast, and
 ``python -m`` runs each CLI without loading it twice. :mod:`audit`,
-:mod:`budgets`, :mod:`contracts`, :mod:`lowering` and :mod:`targets` import
-torch.
+:mod:`budgets`, :mod:`contracts`, :mod:`hlo_audit`, :mod:`lowering` and
+:mod:`targets` import torch.
 """
 
 __all__ = [
@@ -44,6 +48,7 @@ __all__ = [
     "budgets",
     "concurrency",
     "contracts",
+    "hlo_audit",
     "knobs",
     "lint",
     "lint_file",
@@ -55,8 +60,8 @@ __all__ = [
 
 
 _LINT_NAMES = ("Finding", "RULES", "lint_file", "lint_paths", "lint_source")
-_MODULES = ("audit", "budgets", "concurrency", "contracts", "knobs", "lint", "lowering",
-            "targets")
+_MODULES = ("audit", "budgets", "concurrency", "contracts", "hlo_audit", "knobs", "lint",
+            "lowering", "targets")
 
 
 def __getattr__(name):

@@ -31,10 +31,14 @@ them. Rules:
   folded in with ``--rules build``.
 - ``AF2A110`` error — on the card, the device memory the target's run
   allocates (``torch.cuda.max_memory_allocated``, its arguments included)
-  over the target's ``hbm_budget_bytes`` (:mod:`budgets`).
+  over the target's ``hbm_budget_bytes`` (:mod:`budgets`); a sharded
+  target's, set for its sharded layout, scaled by the shards a rank of
+  this world lacks (``check_rank_budget``).
 
-JAX's ``AF2A104`` (donation) has no PyTorch counterpart; ``AF2A107``–``109``
-(the compiled-HLO collective census) wait for parallelism (ROADMAP).
+JAX's ``AF2A104`` (donation) has no PyTorch counterpart; ``AF2A107``–``110``
+of the collective census are ``analysis/hlo_audit.py``'s. A sharded target
+builds and runs inside its ``scope`` (a world of one rank when the process
+has no group).
 Targets waive rules with a reason (``TraceTarget.allow``).
 
 CLI::
@@ -251,8 +255,6 @@ class TargetReport:
 def audit_target(target, device) -> TargetReport:
     """Build and run one target under the recorder; every rule, honouring
     its waivers."""
-    from alphafold2_tpu_torch.analysis.budgets import check_budget
-
     device = torch.device(device)
     name = target.name
     on_card = device.type == "cuda"
@@ -260,6 +262,13 @@ def audit_target(target, device) -> TargetReport:
     if on_card:
         torch.cuda.synchronize(device)
         base = torch.cuda.memory_allocated(device)
+    with target.run_scope(device):
+        return _audit_built(target, device, name, on_card, base)
+
+
+def _audit_built(target, device, name, on_card, base) -> TargetReport:
+    from alphafold2_tpu_torch.analysis.budgets import check_budget, check_rank_budget
+
     try:
         fn, args = target.build(device)
     except Exception as e:  # noqa: BLE001 — an unbuildable target is a finding
@@ -280,7 +289,8 @@ def audit_target(target, device) -> TargetReport:
     if on_card:
         torch.cuda.synchronize(device)
         peak = torch.cuda.max_memory_allocated(device) - base
-        budget = check_budget(peak, target.hbm_budget_bytes)
+        budget = check_rank_budget(peak, target.hbm_budget_bytes, getattr(fn, "seq_ranks", 1),
+                                   target.budget_seq_ranks)
         if budget["verdict"] == "over-budget":
             findings.append(_finding(
                 "AF2A110", name, f"the run allocates {peak} bytes of device memory, over its "

@@ -75,6 +75,26 @@ def check_budget(program_bytes: Optional[int], budget_bytes: Optional[int]) -> d
     return rec
 
 
+def check_rank_budget(program_bytes: Optional[int], budget_bytes: Optional[int],
+                      seq_ranks: int, budget_seq_ranks: int = 1) -> dict:
+    """:func:`check_budget` for one rank of a target whose declared budget
+    is per rank of a layout sharded over ``budget_seq_ranks`` sequence
+    ranks (JAX's sharded targets: their CPU mesh's). On fewer sequence
+    ranks a rank holds that many times more of the pair state, so the
+    budget is scaled by the missing shards, ``budget_bytes *
+    budget_seq_ranks / seq_ranks``; the record then keeps the declared
+    figure as ``declared_budget_bytes``. On as many ranks or more the
+    declared budget holds as it is."""
+    scaled = budget_bytes
+    if budget_bytes and seq_ranks < budget_seq_ranks:
+        scaled = budget_bytes * budget_seq_ranks // max(seq_ranks, 1)
+    rec = check_budget(program_bytes, scaled)
+    if scaled != budget_bytes:
+        rec.update(declared_budget_bytes=int(budget_bytes),
+                   budget_seq_ranks=int(budget_seq_ranks), seq_ranks=int(seq_ranks))
+    return rec
+
+
 def format_budget(name: str, rec: dict) -> str:
     """One line a verdict (JAX's wording)."""
     pb, bb = rec.get("program_bytes"), rec.get("budget_bytes")
@@ -104,12 +124,15 @@ def lattice_report(engine, hbm_bytes: Optional[int] = None,
     """Gate every rung of a ``ServeEngine``'s ladder against
     ``hbm_fraction`` of the card's memory (or ``hbm_bytes``). Returns
     ``{"mesh", "hbm_budget_bytes", "rungs": [...], "verdict"}``; a rung
-    holds its ``bucket``, ``batch``, ``peak_bytes`` (the warm run's peak
-    over its start, on the card), ``param_bytes``, ``flops``, JAX's empty
-    ``collectives`` and ``comm_bytes`` 0 (one device, no mesh) and its
-    ``budget`` over ``program_bytes`` = peak + parameters. The overall
-    verdict is over-budget if any rung is, pass if every rung passes, else
-    no-data."""
+    holds its ``bucket``, ``batch`` (a long rung's ``serve.long_max_batch``,
+    rounded up to the mesh's dp multiple), ``peak_bytes`` (the warm run's
+    peak over its start on this rank, on the card), ``param_bytes``,
+    ``flops``, ``collectives`` and ``comm_bytes``: the collectives this
+    rank's warm run made (``parallel/sharding.py``'s census; none without a
+    mesh) and their bytes, and its ``budget`` over ``program_bytes`` = peak
+    + parameters, per rank. On a mesh only rank 0 holds the records the
+    report reads. The overall verdict is over-budget if any rung is, pass
+    if every rung passes, else no-data."""
     if hbm_bytes is None:
         raw = device_hbm_bytes(engine.device)
         hbm_bytes = int(raw * hbm_fraction) if raw else None
@@ -125,8 +148,8 @@ def lattice_report(engine, hbm_bytes: Optional[int] = None,
             **({"peak_bytes": int(peak)} if peak is not None else {}),
             "param_bytes": int(param_bytes),
             "flops": rec.get("flops"),
-            "collectives": {},
-            "comm_bytes": 0,
+            "collectives": dict(rec.get("collectives", {})),
+            "comm_bytes": int(sum(v["bytes"] for v in rec.get("collectives", {}).values())),
             "budget": check_budget(peak + param_bytes if peak is not None else None, hbm_bytes),
         })
     verdicts = {r["budget"]["verdict"] for r in rungs}

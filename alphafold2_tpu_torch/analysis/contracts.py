@@ -7,8 +7,8 @@ fingerprint is what one run of the target dispatches: every aten op by
 overload name with its count (through ``analysis/audit.py``'s
 ``OpRecorder``, the backward included; not ``UNCOUNTED_OPS``), the flat
 input signature and the outputs' shapes and dtypes. Each target of
-``analysis/targets.py`` runs on the CPU at the registry's tiny shapes; the
-targets that wait for parallelism stay in ``targets.NOT_PORTED``. The census is committed as
+``analysis/targets.py`` runs on the CPU at the registry's tiny shapes (the
+sharded ones on a world of one rank). The census is committed as
 ``alphafold2_tpu_torch/analysis/graph_contracts.json`` (the root
 ``graph_contracts.json`` is the JAX package's). Silent graph growth (a
 pass run twice, a new copy, a dtype conversion) or a changed call
@@ -86,11 +86,13 @@ def fingerprint_target(target) -> dict:
     recorder."""
     from alphafold2_tpu_torch.analysis.audit import OpRecorder
 
-    fn, args = target.build(torch.device("cpu"))
-    inputs = signature(args)
-    rec = OpRecorder()
-    with rec:
-        out = fn(*args)
+    device = torch.device("cpu")
+    with target.run_scope(device):
+        fn, args = target.build(device)
+        inputs = signature(args)
+        rec = OpRecorder()
+        with rec:
+            out = fn(*args)
     ops = {k: v for k, v in sorted(rec.op_counts.items()) if k not in UNCOUNTED_OPS}
     return {
         "ops": ops,

@@ -14,14 +14,21 @@ Weights come from the port's own init (``predict.init_params``, a seeded
 Targets waiving a rule carry its id in ``allow`` with a reason in
 ``allow_reasons``: a waiver without a reason fails construction, as in JAX.
 
-JAX targets that wait for parallelism (ROADMAP section 1, long chains and
-parallelism): ``serve_fwd_grid`` (a 2D pair-grid mesh) and ``serve_fwd_long`` (the
-sequence-parallel long-bucket rung) — see :data:`NOT_PORTED`.
+The two sharded targets, ``serve_fwd_grid`` (a ``(dp, spr, spc)`` grid
+mesh, bucket 8, batch 2) and ``serve_fwd_long`` (a 1D ``(1, sp)`` mesh,
+bucket 16, batch 1), run the serving forward under a mesh over the
+initialised process group's ranks, as JAX's run under a mesh over the
+devices there are (``targets.py:184-275``): on one process ``scope`` gives
+them a world of one rank (``parallel/distributed.py local_world``), where
+every collective still runs; the collective audit
+(``analysis/hlo_audit.py``) runs them on 2 and 4 gloo ranks on the CPU.
+Every JAX target has its counterpart: :data:`NOT_PORTED` is empty.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from contextlib import nullcontext
 from typing import Callable, Optional
 
 import numpy as np
@@ -37,13 +44,10 @@ JAX_COUNTERPARTS = {
     "attn_tied_row": "attn_tied_row_pallas",
     "attn_axial": "attn_axial_pallas",
     "train_step_sparse": None,  # the port's own: the block-sparse path on the card
+    "serve_fwd_grid": "serve_fwd_grid",
+    "serve_fwd_long": "serve_fwd_long",
 }
-NOT_PORTED = {
-    "serve_fwd_grid": "a 2D pair-grid mesh: parallelism is not ported "
-                      "(ROADMAP section 1, long chains and parallelism)",
-    "serve_fwd_long": "the sequence-parallel long-bucket rung: parallelism is not ported "
-                      "(ROADMAP section 1, long chains and parallelism)",
-}
+NOT_PORTED: dict = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,13 +55,23 @@ class TraceTarget:
     """One audited entry point: ``build(device)`` returns ``(fn, args)``,
     run as ``fn(*args)``. ``hbm_budget_bytes`` is the declared ceiling on
     the device memory the run allocates (``AF2A110``, on the card); None
-    records a no-data verdict."""
+    records a no-data verdict. A sharded target's budget is per rank of
+    its layout over ``budget_seq_ranks`` sequence ranks, JAX's CPU mesh;
+    on fewer it is scaled (``budgets.check_rank_budget``)."""
 
     name: str
     build: Callable[[torch.device], tuple]
     allow: frozenset = frozenset()
     allow_reasons: Optional[dict] = None
     hbm_budget_bytes: Optional[int] = None
+    sharded: bool = False  # runs under a mesh over the process group's ranks
+    budget_seq_ranks: int = 1  # the sequence ranks hbm_budget_bytes is set for
+    scope: Optional[Callable] = None  # device -> context the build and the run need
+
+    def run_scope(self, device):
+        """The context a build and its run go in (a world of one rank for a
+        sharded target in a process without a group)."""
+        return self.scope(device) if self.scope is not None else nullcontext()
 
     def __post_init__(self):
         missing = set(self.allow) - set(self.allow_reasons or {})
@@ -166,6 +180,62 @@ def _build_serve_fwd(device, dtype=torch.float32, tied=False):
     return fwd, (seq, msa, mask, msa_mask)
 
 
+def _sharded_serve_model(device, bucket: int, grid: bool):
+    from alphafold2_tpu_torch.predict import init_params
+    from alphafold2_tpu_torch.train.end2end import End2EndModel
+
+    model = End2EndModel(dim=32, depth=1, heads=2, dim_head=16, max_seq_len=3 * bucket,
+                         mds_iters=8, grid_parallel=grid)
+    return init_params(model, seed=0).to(device).eval()
+
+
+def _build_serve_fwd_mesh(device, grid: bool):
+    """The serving forward under a mesh over the process group's ranks:
+    ``grid`` a ``(dp, spr, spc)`` mesh (spc 2 from 2 ranks, spr 2 from 4,
+    the rest dp) at bucket 8, batch 2, as JAX's ``serve_fwd_grid``; else a
+    ``(1, sp)`` mesh at bucket 16, batch 1, JAX's ``serve_fwd_long``. MSA
+    depth 2, 8 MDS iterations, every rank the same inputs."""
+    import torch.distributed as dist
+
+    from alphafold2_tpu_torch.parallel.grid_parallel import make_grid_mesh
+    from alphafold2_tpu_torch.parallel.sharding import (
+        describe_mesh, make_mesh, pair_layout, use_mesh,
+    )
+
+    world = dist.get_world_size()
+    if grid:
+        bucket, batch = 8, 2
+        n_col = 2 if world >= 2 else 1
+        n_row = 2 if world >= 4 else 1
+        mesh = make_grid_mesh(world // (n_row * n_col), n_row, n_col)
+    else:
+        bucket, batch = 16, 1
+        mesh = make_mesh(1, world)
+    depth = 2
+    model = _sharded_serve_model(device, bucket, grid)
+    rng = np.random.default_rng(0)
+    seq = torch.from_numpy(rng.integers(0, 20, (batch, bucket))).to(device)
+    msa = torch.from_numpy(rng.integers(0, 20, (batch, depth, bucket))).to(device)
+    mask = torch.ones((batch, bucket), dtype=torch.bool, device=device)
+    mask[-1, bucket - 2:] = False  # a padded tail, as a bucket holds
+    msa_mask = mask[:, None].expand(batch, depth, bucket).contiguous()
+
+    def fwd(seq, msa, mask, msa_mask):
+        with torch.inference_mode(), use_mesh(mesh):
+            out = model(seq, msa, mask=mask, msa_mask=msa_mask)
+        return {"refined": out["refined"], "weights": out["weights"]}
+
+    lay = pair_layout(mesh)
+    fwd.mesh_desc, fwd.seq_ranks = describe_mesh(mesh), lay.n_row * lay.n_col
+    return fwd, (seq, msa, mask, msa_mask)
+
+
+def _world_scope(device):
+    from alphafold2_tpu_torch.parallel.distributed import local_world
+
+    return local_world(device)
+
+
 def _build_attn_tied_row(device):
     """The tied-row wrapper (K2 on the card) at a tiny shape."""
     from alphafold2_tpu_torch.ops.cuda.tied_row import tied_row_attention
@@ -203,7 +273,8 @@ def _build_attn_axial(device):
 def default_targets() -> list:
     """The audited surface: model forward, train step and gradients (dense
     and block-sparse), serve forward (float32, and bfloat16 with tied MSA
-    rows), and the attention wrappers."""
+    rows, and sharded on a grid and a 1D mesh), and the attention
+    wrappers."""
     return [
         TraceTarget(name="model_fwd", build=_build_model_fwd, hbm_budget_bytes=64 << 20),
         TraceTarget(name="train_step", build=_build_train_step),
@@ -216,6 +287,17 @@ def default_targets() -> list:
         TraceTarget(name="attn_axial", build=_build_attn_axial),
         TraceTarget(name="train_step_sparse",
                     build=lambda device: _build_train_step(device, sparse=True)),
+        # JAX's budgets (targets.py:407-428), per device of its 8-device CPU
+        # mesh: 1x2x2 for the grid, (1, 8) for the long rung, whose budget
+        # is tight on purpose, so a replicated pair state blows through it
+        TraceTarget(name="serve_fwd_grid",
+                    build=lambda device: _build_serve_fwd_mesh(device, grid=True),
+                    hbm_budget_bytes=16 << 20, sharded=True, budget_seq_ranks=4,
+                    scope=_world_scope),
+        TraceTarget(name="serve_fwd_long",
+                    build=lambda device: _build_serve_fwd_mesh(device, grid=False),
+                    hbm_budget_bytes=8 << 20, sharded=True, budget_seq_ranks=8,
+                    scope=_world_scope),
     ]
 
 

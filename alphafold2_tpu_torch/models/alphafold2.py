@@ -13,10 +13,22 @@ engines (``remat`` with ``remat_policy``, ``reversible``, ``scan_layers``;
 block-sparse pair attention with ``sparse_self_attn``, ``sparse_config``
 and ``seq_len=max_seq_len``, as :288-312 passes them; ``msa_row_shard``,
 ``grid_parallel`` and ``context_parallel`` go to the trunk, which applies
-none on one device; ``cross_attn_compress_ratio`` compresses the pair<-MSA
-pass's keys and values, :129 and :300), and the symmetrized
+them under an active mesh; ``cross_attn_compress_ratio`` compresses the
+pair<-MSA pass's keys and values, :129 and :300), and the symmetrized
 distogram head (:314-318), whose LayerNorm output is cast to the compute
-dtype (the reversible engine returns float32 streams). ``dtype`` is the
+dtype (the reversible engine returns float32 streams).
+
+Under an active device mesh (``parallel/sharding.py use_mesh``) the
+forward takes this rank's ``dp`` slice of the batch and returns this rank's
+``(b, N/spr, N/spc, K)`` block of the logits (rows over ``sp`` on a 1D
+mesh; ``sharding.gather_pair`` assembles them): the outer-sum embedding,
+the axial positional embeddings and the pair mask are built on the local
+block from the token embeddings, which every rank computes whole; the MSA
+stream is replicated; the symmetrisation ``x + x^T`` takes the transposed
+block from the ranks that hold it (``sharding.transpose_pair``: nothing
+larger than the local block moves), then the head's LayerNorm and
+projection run locally. Templates and the ``embedds`` stream are refused
+on a mesh. ``dtype`` is the
 compute dtype; parameters stay float32. ``attn_dropout`` and
 ``ff_dropout`` are active when the forward is given a ``dropout_key``
 (``ops/attention.py``), as a training step gives one; the trunk draws
@@ -52,6 +64,9 @@ from alphafold2_tpu_torch.ops.attention import (
     Attention, AxialAttention, DropoutKey, FeedForward, child_key,
 )
 from alphafold2_tpu_torch.ops.layers import Dense, LayerNorm
+from alphafold2_tpu_torch.parallel.sharding import (
+    active_mesh, check_divisible, pair_layout, shard_msa, shard_pair, transpose_pair,
+)
 from alphafold2_tpu_torch.utils.structure import get_bucketed_distance_matrix
 
 
@@ -205,13 +220,27 @@ class Alphafold2(nn.Module):
                                  f"max_num_templates {self.max_num_templates}")
         dt = self.dtype
         n_range = torch.arange(n, device=seq.device)
-
+        mesh = active_mesh()
         e = self.token_emb(seq).to(dt)
-        x = e[:, :, None, :] + e[:, None, :, :]
-        x = (x + self.pos_emb(n_range).to(dt)[None, :, None, :]
-             + self.pos_emb_ax(n_range).to(dt)[None, None, :, :])
-        x = tag("embed.pair", x)
-        pair_mask = mask[:, :, None] & mask[:, None, :] if mask is not None else None
+        e_rows = e_cols = e
+        r_range = c_range = n_range
+        m_rows = m_cols = mask
+        if mesh is not None:  # this rank's block of the outer sum
+            if templates_seq is not None or embedds is not None:
+                raise ValueError("templates and the embedds stream do not run on a device "
+                                 "mesh")
+            check_divisible(n, mesh)
+            lay = pair_layout(mesh)
+            rows, cols = lay.rows(n), lay.cols(n)
+            e_rows, e_cols, r_range, c_range = e[:, rows], e[:, cols], n_range[rows], n_range[cols]
+            if mask is not None:
+                m_rows, m_cols = mask[:, rows], mask[:, cols]
+
+        x = e_rows[:, :, None, :] + e_cols[:, None, :, :]
+        x = (x + self.pos_emb(r_range).to(dt)[None, :, None, :]
+             + self.pos_emb_ax(c_range).to(dt)[None, None, :, :])
+        x = tag("embed.pair", shard_pair(x, n))
+        pair_mask = m_rows[:, :, None] & m_cols[:, None, :] if mask is not None else None
 
         m = m_mask = None
         if msa is not None:
@@ -232,7 +261,7 @@ class Alphafold2(nn.Module):
             m = pe[:, :, None, :] + pe[:, None, :, :]  # (B, N, N, D)
             m_mask = pair_mask
         if m is not None:
-            m = tag("embed.msa", m)
+            m = tag("embed.msa", shard_msa(m, b))
 
         if templates_seq is not None:
             x = self._templates(x, pair_mask, n_range, templates_seq, templates_dist,
@@ -242,7 +271,8 @@ class Alphafold2(nn.Module):
         x, m = self.trunk(x, m, pair_mask=pair_mask, msa_mask=m_mask,
                           key=child_key(dropout_key, "trunk"))
 
-        x = 0.5 * (x + x.transpose(1, 2))
+        xt = x.transpose(1, 2) if mesh is None else transpose_pair(x, n, mesh)
+        x = 0.5 * (x + xt)
         logits = self.distogram_proj(self.distogram_norm(x).to(dt))
         return tag("distogram.logits", logits.float())
 

@@ -38,12 +38,24 @@ only ``trunk.out.pair``/``.msa`` (:362-366, :392-394).
 
 ``sparse_self_attn`` (a bool, or one per layer) makes a layer's pair axial
 passes block-sparse (K4/K5), as in JAX only the pair stream; the scanned and
-reversible engines need one value for every layer. ``msa_row_shard``,
-``grid_parallel`` and ``context_parallel`` shard over a device mesh in JAX
-and change nothing without one (``alphafold2_tpu/ops/attention.py:262-281``
-needs an active mesh); the port runs on one device with no mesh, so the
-loop and scanned engines take them and apply none, and the reversible
-engine refuses them as JAX's does.
+reversible engines need one value for every layer.
+
+Under an active device mesh (``parallel/sharding.py use_mesh``) the loop
+and scanned engines run on this rank's blocks, with JAX's layer-boundary
+placements (``alphafold2_tpu/models/trunk.py:91-166``) as
+``parallel/sharding.py``'s ``shard_pair``/``shard_msa`` checks: the pair
+grid is ``(b, N/spr, N/spc, D)`` (rows over ``sp`` on a 1D mesh), the MSA
+grid replicated. The pair axial passes run sharded (``grid_parallel``
+required on a grid mesh, as JAX's engine requires it); the MSA stream, its
+tied rows (K2) and the feedforwards run locally; the pair<-MSA pass is local
+(its keys, the MSA, are replicated); the MSA<-pair pass runs K1 with lse
+over the local pair keys and merges across the ranks
+(``Attention.forward_sharded_context``). With ``context_parallel`` ("ring"
+or "ulysses") on a 1D mesh both cross passes take JAX's context-parallel
+route instead (``Attention.forward_context_parallel``; not the compressed
+pair<-MSA pass, as in JAX). ``msa_row_shard`` is accepted and applies
+nothing yet (the MSA stays replicated, ROADMAP section 1). The reversible
+engine refuses the three flags, as JAX's does, and an active mesh.
 """
 
 from __future__ import annotations
@@ -60,6 +72,9 @@ from alphafold2_tpu_torch.ops.attention import (
     Attention, AxialAttention, DropoutKey, FeedForward, child_key,
 )
 from alphafold2_tpu_torch.ops.layers import LayerNorm
+from alphafold2_tpu_torch.parallel.sharding import (
+    SEQ_AXIS, active_mesh, axis_names, shard_msa, shard_pair,
+)
 
 
 class TrunkLayer(nn.Module):
@@ -72,7 +87,8 @@ class TrunkLayer(nn.Module):
                  gelu_exact: bool = False, msa_tie_row_attn: bool = False,
                  sparse_attn: bool = False, seq_len: Optional[int] = None,
                  sparse_config=None, attn_dropout: float = 0.0, ff_dropout: float = 0.0,
-                 cross_attn_compress_ratio: int = 1):
+                 cross_attn_compress_ratio: int = 1, grid_parallel: bool = False,
+                 context_parallel: Optional[str] = None):
         super().__init__()
         for name in ("pair_axial_norm", "msa_axial_norm", "pair_cross_norm",
                      "pair_cross_ctx_norm", "msa_cross_norm",
@@ -80,13 +96,16 @@ class TrunkLayer(nn.Module):
             self.add_module(name, LayerNorm(dim))
         self.pair_axial = AxialAttention(dim, heads, dim_head, sparse_attn=sparse_attn,
                                          seq_len=seq_len, sparse_config=sparse_config,
-                                         dropout=attn_dropout)
+                                         dropout=attn_dropout, pair_grid=True,
+                                         grid_parallel=grid_parallel)
         self.msa_axial = AxialAttention(dim, heads, dim_head, tie_row_attn=msa_tie_row_attn,
                                         dropout=attn_dropout)
         # KV compression in the pair<-MSA pass only, as JAX builds it (:124)
         self.pair_from_msa = Attention(dim, heads, dim_head, dropout=attn_dropout,
-                                       compress_ratio=cross_attn_compress_ratio)
-        self.msa_from_pair = Attention(dim, heads, dim_head, dropout=attn_dropout)
+                                       compress_ratio=cross_attn_compress_ratio,
+                                       context_parallel=context_parallel)
+        self.msa_from_pair = Attention(dim, heads, dim_head, dropout=attn_dropout,
+                                       context_parallel=context_parallel)
         self.pair_ff = FeedForward(dim, gelu_exact=gelu_exact, dropout=ff_dropout)
         self.msa_ff = FeedForward(dim, gelu_exact=gelu_exact, dropout=ff_dropout)
 
@@ -98,32 +117,54 @@ class TrunkLayer(nn.Module):
         msa_mask: Optional[torch.Tensor] = None,  # (B, M, Nm)
         key: Optional[DropoutKey] = None,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        mesh = active_mesh()
         x = x + self.pair_axial(self.pair_axial_norm(x), mask=pair_mask,
                                 key=child_key(key, "pair_axial"))
+        x = shard_pair(x)
         if m is not None:
             m = m + self.msa_axial(self.msa_axial_norm(m), mask=msa_mask,
                                    key=child_key(key, "msa_axial"))
+            m = shard_msa(m, x.shape[0])
             b, n, n2, d = x.shape
             bm, mm, nm, _ = m.shape
             x_flat = x.reshape(b, n * n2, d)
             m_flat = m.reshape(bm, mm * nm, d)
             x_mask = pair_mask.reshape(b, n * n2) if pair_mask is not None else None
             m_mask = msa_mask.reshape(bm, mm * nm) if msa_mask is not None else None
-            x_flat = x_flat + self.pair_from_msa(
-                self.pair_cross_norm(x_flat),
-                context=self.pair_cross_ctx_norm(m_flat),
-                mask=x_mask, context_mask=m_mask, key=child_key(key, "pair_from_msa"),
-            )
-            m_flat = m_flat + self.msa_from_pair(
-                self.msa_cross_norm(m_flat),
-                context=self.msa_cross_ctx_norm(x_flat),
-                mask=m_mask, context_mask=x_mask, key=child_key(key, "msa_from_pair"),
-            )
-            x = x_flat.reshape(b, n, n2, d)
-            m = m_flat.reshape(bm, mm, nm, d)
+            # JAX's context-parallel route: a 1D mesh's sp axis, uncompressed keys
+            cp = (mesh is not None and SEQ_AXIS in axis_names(mesh)
+                  and self.pair_from_msa.context_parallel is not None)
+            if cp and self.pair_from_msa.compress_ratio == 1:
+                x_flat = x_flat + self.pair_from_msa.forward_context_parallel(
+                    self.pair_cross_norm(x_flat), self.pair_cross_ctx_norm(m_flat), mesh,
+                    context_mask=m_mask, queries_sharded=True)
+            else:  # the MSA keys are replicated: local under a mesh too
+                x_flat = x_flat + self.pair_from_msa(
+                    self.pair_cross_norm(x_flat),
+                    context=self.pair_cross_ctx_norm(m_flat),
+                    mask=x_mask, context_mask=m_mask, key=child_key(key, "pair_from_msa"),
+                )
+            if mesh is None:
+                m_flat = m_flat + self.msa_from_pair(
+                    self.msa_cross_norm(m_flat),
+                    context=self.msa_cross_ctx_norm(x_flat),
+                    mask=m_mask, context_mask=x_mask, key=child_key(key, "msa_from_pair"),
+                )
+            elif cp:
+                m_flat = m_flat + self.msa_from_pair.forward_context_parallel(
+                    self.msa_cross_norm(m_flat), self.msa_cross_ctx_norm(x_flat), mesh,
+                    context_mask=x_mask, queries_sharded=False)
+            else:  # the pair keys are this rank's block: K1 with lse, merged
+                m_flat = m_flat + self.msa_from_pair.forward_sharded_context(
+                    self.msa_cross_norm(m_flat), self.msa_cross_ctx_norm(x_flat), mesh,
+                    mask=m_mask, context_mask=x_mask)
+            x = shard_pair(x_flat.reshape(b, n, n2, d))
+            m = shard_msa(m_flat.reshape(bm, mm, nm, d), b)
         x = x + self.pair_ff(self.pair_ff_norm(x), key=child_key(key, "pair_ff"))
+        x = shard_pair(x)
         if m is not None:
             m = m + self.msa_ff(self.msa_ff_norm(m), key=child_key(key, "msa_ff"))
+            m = shard_msa(m, x.shape[0])
         return x, m
 
 
@@ -265,6 +306,7 @@ class Trunk(nn.Module):
                                               dtype=dtype, **layer_kwargs)
             return
         self.remat, self.context_fn = remat, context_fn
+        layer_kwargs.update(grid_parallel=grid_parallel, context_parallel=context_parallel)
         if scan_layers:
             if len(set(sparse)) > 1:
                 raise ValueError(
@@ -283,6 +325,9 @@ class Trunk(nn.Module):
                 key: Optional[DropoutKey] = None):
         """The trunk over the streams; ``key`` (the trunk's own,
         ``trunk``) makes dropout active."""
+        if self.engine == "reversible" and active_mesh() is not None:
+            raise ValueError("the reversible engine does not run on a device mesh; use "
+                             "remat=True with it")
         if self.engine != "loop":  # the module is named after its engine
             x, m = getattr(self, self.engine)(x, m, pair_mask, msa_mask,
                                               key=child_key(key, self.engine))

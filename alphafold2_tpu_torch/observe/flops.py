@@ -28,7 +28,8 @@ counterpart and is None), and the run's peak allocation over its start on
 the card. :data:`PEAK_FLOPS` holds NVIDIA's published dense bf16 rates
 without sparsity, keyed by ``torch.cuda.get_device_name()``; a card it
 does not know (and the CPU) falls back to a measured matmul rate
-(:func:`calibrated_peak_flops`), labelled as such by :func:`mesh_mfu`.
+(:func:`calibrated_peak_flops`), labelled as such by :func:`mesh_mfu`,
+which divides by every rank's peak on a mesh.
 """
 
 from __future__ import annotations
@@ -213,19 +214,21 @@ def calibrated_peak_flops(device=None, n: int = 1024, iters: int = 8) -> Optiona
 
 
 def mesh_mfu(flops: Optional[float], seconds: float, mesh=None, device=None) -> dict:
-    """MFU of a program on one device (by default the card; ``device="cpu"``
-    asks for the CPU): ``{"mfu": ..., "mfu_basis": "published-peak" |
+    """MFU of a program (by default on the card; ``device="cpu"`` asks for
+    the CPU): ``{"mfu": ..., "mfu_basis": "published-peak" |
     "calibrated-matmul"}`` (``{"mfu": None}`` without a count or a time).
-    On a card with a published peak the denominator is that peak;
-    elsewhere the measured matmul rate. The port has no mesh: passing one
-    raises."""
-    if mesh is not None:
-        raise NotImplementedError("the port runs on one device: no mesh")
+    On a card with a published peak the denominator is that peak times the
+    ranks of ``mesh`` (a ``parallel/`` DeviceMesh, one card a rank), and
+    ``flops`` is then the whole program's, every rank's; elsewhere the
+    measured matmul rate with no multiplier, as JAX's (``observe/flops.py
+    :211-239``: CPU ranks share one machine's cores)."""
     if not flops or not seconds or seconds <= 0:
         return {"mfu": None}
     peak = device_peak_flops(device)
     if peak is not None:
-        return {"mfu": flops / seconds / peak, "mfu_basis": "published-peak"}
+        n_dev = int(mesh.size()) if mesh is not None else 1
+        return {"mfu": flops / seconds / (peak * max(1, n_dev)),
+                "mfu_basis": "published-peak"}
     peak = calibrated_peak_flops(device)
     if not peak:
         return {"mfu": None}

@@ -190,18 +190,34 @@ def attend(route: str, q, k, v, q_mask=None, kv_mask=None, sm_scale=1.0) -> torc
 
 def grid_axial_project_attend(to_q, to_kv, to_out, heads: int, dim_head: int,
                               x: torch.Tensor, mask: Optional[torch.Tensor],
-                              attend_axis: int, attend) -> torch.Tensor:
+                              attend_axis: int, attend, sharded: bool = False) -> torch.Tensor:
     """One axial self-attention pass over a (B, Hg, Wg, D) grid, shared by
     ``Attention`` and ``SparseAttention`` as the JAX package shares it
     (``alphafold2_tpu/ops/attention.py:44``): pointwise q/kv projections on
     the grid, ``attend(q, k, v, m)`` on (B*rows, H, n, dh) views with the
     (B*rows, n) mask (or None), output projection. Axis 2 attends within
     rows (over columns), axis 1 within columns (over rows); the other axis
-    folds into the batch."""
+    folds into the batch.
+
+    ``sharded=True`` takes ``x`` and ``mask`` as this rank's block of the
+    pair grid under the active mesh (``parallel/sharding.py pair_layout``):
+    the projections stay local, the attended axis is gathered by an
+    all_to_all (``parallel/grid_parallel.py grid_axial_attention``), and
+    ``attend`` runs on the gathered rows."""
     b, gh, gw, _ = x.shape
     h, dh = heads, dim_head
     q = to_q(x).view(b, gh, gw, h, dh)
     k, v = (t.view(b, gh, gw, h, dh) for t in to_kv(x).chunk(2, -1))
+    if sharded:
+        from alphafold2_tpu_torch.parallel.grid_parallel import grid_axial_attention
+        from alphafold2_tpu_torch.parallel.sharding import active_mesh
+
+        mesh = active_mesh()
+        if mesh is None:
+            raise ValueError("a sharded axial pass needs an active mesh")
+        out = grid_axial_attention(q, k, v, mask=mask, mesh=mesh, attend_axis=attend_axis,
+                                   attn_fn=attend)
+        return to_out(out.reshape(b, gh, gw, h * dh))
     if attend_axis == 1:
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))
         mask = mask.transpose(1, 2) if mask is not None else None
@@ -265,8 +281,9 @@ class Attention(nn.Module):
         super().__init__()
         self.dropout = dropout
         self.use_flash = use_flash
-        if context_parallel is not None:
-            raise NotImplementedError("context parallelism is not ported yet")
+        if context_parallel not in (None, "ring", "ulysses"):
+            raise ValueError(f"unknown context-parallel impl {context_parallel!r}")
+        self.context_parallel = context_parallel
         inner = heads * dim_head
         self.heads, self.dim_head = heads, dim_head
         self.compress_ratio = compress_ratio
@@ -311,10 +328,11 @@ class Attention(nn.Module):
         return self.to_out(out)
 
     def grid_axial(self, x: torch.Tensor, mask: Optional[torch.Tensor],
-                   attend_axis: int) -> torch.Tensor:
+                   attend_axis: int, sharded: bool = False) -> torch.Tensor:
         """Self-attention along one axis of a (B, Hg, Wg, D) grid (see
-        :func:`grid_axial_project_attend`), masking key and query validity
-        with the (B, Hg, Wg) mask, on the policy's ``axial`` route."""
+        :func:`grid_axial_project_attend`, which ``sharded`` goes to),
+        masking key and query validity with the (B, Hg, Wg) mask, on the
+        policy's ``axial`` route."""
         scale = self.dim_head**-0.5
         policy = kernel_policy.current_policy()
         route = kernel_policy.resolve_axial(policy)
@@ -323,7 +341,66 @@ class Attention(nn.Module):
         return grid_axial_project_attend(
             self.to_q, self.to_kv, self.to_out, self.heads, self.dim_head, x, mask,
             attend_axis, lambda q, k, v, m: attend(route, q, k, v, q_mask=m, kv_mask=m,
-                                                   sm_scale=scale))
+                                                   sm_scale=scale), sharded=sharded)
+
+    def forward_sharded_context(self, x, context, mesh, mask=None, context_mask=None):
+        """Cross-attention whose keys are split over the ranks of the
+        mesh's sequence axes: ``x`` (B, n, D) the same queries on every
+        rank, ``context`` (B, j, D) this rank's keys. K1 with lse over the
+        local keys, then ``parallel/seq_parallel.py merge_partials`` across
+        the ranks (one all_reduce of the max, one of the rescaled sums):
+        exact, and no rank gathers the keys. The pair grid's block is such
+        a context in the MSA<-pair pass."""
+        from alphafold2_tpu_torch.parallel.seq_parallel import attend_lse, merge_partials
+
+        h, dh = self.heads, self.dim_head
+        lead, n = tuple(x.shape[:-2]), x.shape[-2]
+        q = self.to_q(x).view(*lead, n, h, dh).transpose(1, 2)
+        k, v = (t.view(*context.shape[:-1], h, dh).transpose(1, 2)
+                for t in self.to_kv(context).chunk(2, -1))
+        out, lse = attend_lse(q, k, v, q_mask=mask, kv_mask=context_mask, sm_scale=dh**-0.5)
+        return self._project_out(merge_partials(out, lse, mesh, "seq"), lead)
+
+    def forward_context_parallel(self, x, context, mesh, context_mask=None,
+                                 queries_sharded: bool = True):
+        """JAX's context-parallel route (``alphafold2_tpu/ops/attention.py
+        :255-285``) under a 1D ``(dp, sp)`` mesh: ring or Ulysses attention
+        (``self.context_parallel``) over a token axis sharded across ``sp``,
+        keys masked by ``context_mask`` only, as JAX's. With
+        ``queries_sharded`` ``x`` is this rank's block of the queries and
+        ``context`` (with its mask) is replicated, so this rank takes its
+        ``sp`` slice of it; otherwise ``x`` is replicated, ``context`` is
+        this rank's block, and the output's blocks are gathered over ``sp``
+        so every rank holds all of it again."""
+        from alphafold2_tpu_torch.parallel.seq_parallel import sequence_parallel_attention
+        from alphafold2_tpu_torch.parallel.sharding import (
+            SEQ_AXIS, all_gather, axis_index, axis_size,
+        )
+
+        sp, i = axis_size(mesh, SEQ_AXIS), axis_index(mesh, SEQ_AXIS)
+
+        def local(t):  # this rank's sp block along the token axis
+            if t is None:
+                return None
+            if t.shape[1] % sp:
+                raise ValueError(f"{t.shape[1]} tokens do not divide by sp={sp} for "
+                                 "context parallelism")
+            step = t.shape[1] // sp
+            return t[:, i * step:(i + 1) * step]
+
+        if queries_sharded:
+            context, context_mask = local(context), local(context_mask)
+        else:
+            x = local(x)
+        h, dh = self.heads, self.dim_head
+        b, n = x.shape[0], x.shape[1]
+        q = self.to_q(x).view(b, n, h, dh).transpose(1, 2)
+        k, v = (t.view(*context.shape[:-1], h, dh).transpose(1, 2)
+                for t in self.to_kv(context).chunk(2, -1))
+        out = sequence_parallel_attention(q, k, v, mask=context_mask, mesh=mesh,
+                                          impl=self.context_parallel, sm_scale=dh**-0.5)
+        out = self._project_out(out, (b,))
+        return out if queries_sharded else all_gather(out, mesh, SEQ_AXIS, dim=1)
 
     def forward(self, x, context=None, mask=None, context_mask=None,
                 tie_dim: Optional[int] = None, key: Optional[DropoutKey] = None):
@@ -413,10 +490,12 @@ class AxialAttention(nn.Module):
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
                  tie_row_attn: bool = False, sparse_attn: bool = False,
-                 seq_len: Optional[int] = None, sparse_config=None, dropout: float = 0.0):
+                 seq_len: Optional[int] = None, sparse_config=None, dropout: float = 0.0,
+                 pair_grid: bool = False, grid_parallel: bool = False):
         super().__init__()
         self.tie_row_attn = tie_row_attn
         self.dropout = dropout
+        self.pair_grid, self.grid_parallel = pair_grid, grid_parallel
         self.block_size = None
         if sparse_attn:
             from alphafold2_tpu_torch.ops.sparse import BlockSparseConfig, SparseAttention
@@ -430,9 +509,44 @@ class AxialAttention(nn.Module):
         self.attn_width = make()
         self.attn_height = make()
 
+    def _mesh(self, context, key):
+        """The active mesh when this module is the pair stream's, after
+        JAX's refusals (``alphafold2_tpu/ops/attention.py:488-545``); None
+        otherwise."""
+        from alphafold2_tpu_torch.parallel.sharding import active_mesh, is_grid
+
+        mesh = active_mesh() if self.pair_grid else None
+        if mesh is None:
+            return None
+        if context is not None or self.tie_row_attn:
+            raise ValueError("grid_parallel axial attention is self-attention only (no "
+                             "broadcast context, no tied rows — neither occurs on the pair "
+                             "stream)")
+        if is_grid(mesh) and not self.grid_parallel:
+            raise ValueError("a (dp, spr, spc) grid mesh requires model.grid_parallel=true: "
+                             "the pair axial passes run only as the sharded transposes there")
+        if self.dropout > 0.0 and key is not None:
+            raise ValueError("attention dropout has no sharded axial route: the sharded "
+                             "passes run the fused kernels, which drop nothing")
+        return mesh
+
     def forward(self, x, mask=None, context=None, context_mask=None,
                 key: Optional[DropoutKey] = None):
         b, height, w, d = x.shape
+        mesh = self._mesh(context, key)
+        if mesh is not None:
+            if self.block_size is not None:
+                from alphafold2_tpu_torch.parallel.sharding import pair_layout
+
+                lay = pair_layout(mesh)
+                gh, gw = height * lay.n_row, w * lay.n_col
+                if gh % self.block_size or gw % self.block_size:
+                    raise ValueError(
+                        f"grid_parallel sparse attention needs block-aligned grid axes: "
+                        f"({gh}, {gw}) vs block_size {self.block_size}; pad the crop or "
+                        "change sparse_config.block_size")
+            return (self.attn_width.grid_axial(x, mask, attend_axis=1, sharded=True)
+                    + self.attn_height.grid_axial(x, mask, attend_axis=2, sharded=True))
         grid = (context is None and not self.tie_row_attn
                 and (self.dropout == 0.0 or key is None))
         if grid and self.block_size is not None:

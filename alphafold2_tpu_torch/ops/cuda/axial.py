@@ -34,7 +34,8 @@ mask, walked by persistent blocks (:func:`packed_plan`;
 :func:`packed_walk_reference` is the plain version of that walk). Every
 other shape runs
 ``csrc/fused_attention_sm90.cuh``. Where its grid leaves the card short of
-two waves, :func:`key_splits` cuts the key axis into ranges; each block then
+two waves, or a block would stream more than MAX_SPLIT_TILES key tiles,
+:func:`key_splits` cuts the key axis into ranges; each block then
 writes f32 partials and K1's combine pass (:func:`fused_attention_combine`)
 merges them. Their plain versions: :func:`attention_partials_reference` and
 :func:`combine_partials_reference`.
@@ -81,6 +82,13 @@ QUERY_TILE = 128
 KEY_TILE = 128
 SM_COUNT = 132  # streaming multiprocessors of one H100
 MIN_SPLIT_TILES = 4  # key tiles a split keeps at least
+# key tiles a split streams at most: the tensor cores' f32 accumulator of
+# P V drifts over a split's key tiles, so the output's error grows with the
+# stream while the lse (summed on the CUDA cores) stays exact (on the H100
+# against the plain version, chip_smoke.py's long_mesh checks: 0.49%
+# relative L2 after 9,216 tiles a split, 1.0% after 20,736, 0.16% after
+# 1,024; 0.05-0.07% over the pair passes' 12-30 tiles)
+MAX_SPLIT_TILES = 1024
 LOG2E = math.log2(math.e)
 LN2 = math.log(2.0)
 # K3a/K3b's Hopper kernels (csrc/fused_attention_bwd_sm90.cuh): the rows of
@@ -144,19 +152,22 @@ def at_kernel_head_dim(run, tensors):
 
 
 def key_splits(b: int, h: int, nq: int, nk: int, d: int) -> int:
-    """How many contiguous key ranges K1 cuts the key axis into: 1 where
-    its b*h*ceil(nq/128) blocks make two waves on the card's 132 SMs,
-    otherwise enough ranges for about two waves, each of at least
-    MIN_SPLIT_TILES 128-key tiles. A pure function of the shape: the
-    wrapper passes it to the kernel, the build gate plans with it. ``d``
-    does not change the count (every head dim uses 128-row, 128-key
-    tiles)."""
+    """How many contiguous key ranges K1 cuts the key axis into: enough
+    that no range streams more than MAX_SPLIT_TILES 128-key tiles, and
+    where its b*h*ceil(nq/128) blocks make less than two waves on the
+    card's 132 SMs, at least enough for about two waves, each of at least
+    MIN_SPLIT_TILES tiles. A pure function of the shape: the wrapper
+    passes it to the kernel, the build gate plans with it. ``d`` does not
+    change the count (every head dim uses 128-row, 128-key tiles)."""
     del d
     blocks = b * h * -(-nq // QUERY_TILE)
-    if blocks == 0 or blocks >= 2 * SM_COUNT:
+    if blocks == 0:
         return 1
     tiles = -(-nk // KEY_TILE)
-    return max(1, min(-(-2 * SM_COUNT // blocks), tiles // MIN_SPLIT_TILES))
+    longest = -(-tiles // MAX_SPLIT_TILES)
+    if blocks >= 2 * SM_COUNT:
+        return longest
+    return max(1, longest, min(-(-2 * SM_COUNT // blocks), tiles // MIN_SPLIT_TILES))
 
 
 def grad_splits(b: int, h: int, nq: int, nk: int, d: int, which: str) -> int:

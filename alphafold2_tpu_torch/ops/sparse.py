@@ -201,12 +201,19 @@ class SparseAttention(nn.Module):
         return fn(q, k, v, layout, kv_mask=kv_mask, sm_scale=self.dim_head**-0.5)
 
     def grid_axial(self, x: torch.Tensor, mask: Optional[torch.Tensor],
-                   attend_axis: int) -> torch.Tensor:
+                   attend_axis: int, sharded: bool = False) -> torch.Tensor:
         """Block-sparse self-attention along one axis of a (B, Hg, Wg, D)
         grid (``ops/attention.py grid_axial_project_attend``); the attended
         axis must be a multiple of the block size. The (B, Hg, Wg) mask
-        masks keys only."""
+        masks keys only. ``sharded=True`` takes this rank's block of the
+        pair grid under the active mesh: K4 runs on the rows the all_to_all
+        gathers, whose attended axis is the whole one."""
         n_att = x.shape[attend_axis]
+        if sharded:
+            from alphafold2_tpu_torch.parallel.sharding import active_mesh, pair_layout
+
+            lay = pair_layout(active_mesh())
+            n_att *= lay.n_col if attend_axis == 2 else lay.n_row
         bs = self.config.block_size
         if n_att % bs != 0:
             raise ValueError(f"grid sparse attention needs the attended axis ({n_att}) "
@@ -214,7 +221,7 @@ class SparseAttention(nn.Module):
         self._check_len(n_att, "attended axis")
         return grid_axial_project_attend(
             self.to_q, self.to_kv, self.to_out, self.heads, self.dim_head, x, mask,
-            attend_axis, self._attend)
+            attend_axis, self._attend, sharded=sharded)
 
     def forward(self, x, context=None, mask=None, context_mask=None,
                 tie_dim: Optional[int] = None, key: Optional[DropoutKey] = None):

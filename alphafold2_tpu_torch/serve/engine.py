@@ -53,11 +53,25 @@ Port of the single-device surface of ``alphafold2_tpu/serve/engine.py``:
   ``dispatch_error`` note (with a once-a-process dump) in the installed
   :mod:`~alphafold2_tpu_torch.observe.flightrec` recorder.
 
+- **Device mesh** — ``ServeEngine(cfg, mesh=...)`` (a ``parallel/``
+  DeviceMesh over an initialised process group, one process a device) runs
+  every forward sharded: the batch over ``dp``, the pair grid over the
+  sequence axes (``models/alphafold2.py``). Rank 0 owns the host side:
+  ``predict_many``, featurization, results; every other rank runs
+  :meth:`ServeEngine.follow`, which receives each forward's stacked batch
+  by broadcast, joins the sharded forward, and returns when rank 0's
+  :meth:`close` broadcasts a stop. Results exist only on rank 0. Only a
+  mesh admits ``serve.long_buckets`` (the long-chain rungs, batched at
+  ``serve.long_max_batch``), as JAX's engine gates them
+  (``serve/engine.py:212-230``). The mesh identity keys the executables,
+  the compile records (with each rank's ``program_bytes``) and the result
+  cache. Dispatch on a mesh is synchronous (``pipeline_depth`` 0).
+
 The engine runs on the CUDA card unless built with ``device="cpu"``.
 ``state_dict=`` or ``checkpoint_dir=`` replaces the random weights;
 ``model=`` serves another engine's module as it is (a fleet's replicas
-share one parameter set). Outside the port: meshes and
-``serve.long_buckets`` (they raise).
+share one parameter set). Parameters are replicated on every rank of a
+mesh.
 """
 
 from __future__ import annotations
@@ -88,6 +102,10 @@ from alphafold2_tpu_torch.observe.metrics import EventCounters
 from alphafold2_tpu_torch.observe.tracectx import TraceContext
 from alphafold2_tpu_torch.observe.tracing import Tracer
 from alphafold2_tpu_torch.ops.kernels import current_policy, parse_policy, use_kernel_policy
+from alphafold2_tpu_torch.parallel.sharding import (
+    DATA_AXIS, axis_size, broadcast_object, census, census_delta, describe_mesh, is_grid,
+    pair_layout, use_mesh,
+)
 from alphafold2_tpu_torch.predict import build_model, encode_sequence, init_params
 from alphafold2_tpu_torch.serve.bucketing import bucket_for, validate_ladder
 from alphafold2_tpu_torch.serve.cache import FeatureCache, feature_key
@@ -180,7 +198,7 @@ class ServeEngine:
                  checkpoint_dir: Optional[str] = None,
                  counters: Optional[EventCounters] = None,
                  tracer: Optional[Tracer] = None, faults=None,
-                 model: Optional[torch.nn.Module] = None):
+                 model: Optional[torch.nn.Module] = None, mesh=None):
         if state_dict is not None and checkpoint_dir:
             raise ValueError("pass state_dict or checkpoint_dir, not both")
         if model is not None and (state_dict is not None or checkpoint_dir):
@@ -188,18 +206,45 @@ class ServeEngine:
         self.cfg = cfg
         self.faults = faults
         self.device = resolve_device(device)
-        self.mesh_desc = None  # one device: JAX's describe_mesh(None)
+        # the mesh (parallel/): one process a rank; its identity keys the
+        # executables, the compile records and the result cache
+        self.mesh = mesh
+        self.mesh_desc = describe_mesh(mesh)
+        self.rank = 0
+        if mesh is not None:
+            import torch.distributed as dist
+
+            self.rank = dist.get_rank()
+        self._stopped = False
         self.buckets = validate_ladder(cfg.serve.buckets)
+        self.long_buckets: tuple = ()
         if cfg.serve.long_buckets:
-            raise NotImplementedError("mesh-gated long buckets are not ported yet")
+            long = validate_ladder(cfg.serve.long_buckets)
+            if mesh is None:
+                # the long rungs' O(N^2) pair state is what the mesh shards:
+                # refused without one, as JAX's engine refuses them
+                raise ValueError(
+                    f"serve.long_buckets={long} require a device mesh: the long-chain "
+                    "rungs are mesh-gated (construct ServeEngine with mesh=..., e.g. "
+                    "parallel.grid_parallel.make_grid_mesh)")
+            if long[0] <= self.buckets[-1]:
+                raise ValueError(f"serve.long_buckets {long} must all exceed the top "
+                                 f"regular rung {self.buckets[-1]}")
+            self.long_buckets = long
+            self.buckets = self.buckets + long
         if 3 * self.buckets[-1] > cfg.model.max_seq_len:
             raise ValueError(
                 f"largest bucket {self.buckets[-1]} elongates to {3 * self.buckets[-1]} "
                 f"tokens > model.max_seq_len={cfg.model.max_seq_len}"
             )
         self.max_batch = int(cfg.serve.max_batch)
+        self.long_max_batch = int(cfg.serve.long_max_batch)
         if self.max_batch < 1:
             raise ValueError(f"serve.max_batch must be >= 1, got {self.max_batch}")
+        if self.long_buckets and self.long_max_batch < 1:
+            raise ValueError(f"serve.long_max_batch must be >= 1, got {self.long_max_batch}")
+        if mesh is not None:
+            self._validate_mesh(mesh, cfg)
         self.msa_depth = int(cfg.serve.msa_depth or cfg.data.msa_depth)
         if self.msa_depth > constants.MAX_NUM_MSA:
             raise ValueError(f"serve msa_depth={self.msa_depth} exceeds "
@@ -219,6 +264,10 @@ class ServeEngine:
         self.pipeline_depth = int(cfg.serve.pipeline_depth)
         if self.pipeline_depth < 0:
             raise ValueError(f"serve.pipeline_depth must be >= 0, got {self.pipeline_depth}")
+        if mesh is not None and self.pipeline_depth > 0:
+            raise NotImplementedError(
+                "pipelined dispatch on a device mesh is not ported yet (ROADMAP section 1): "
+                "set serve.pipeline_depth=0")
         self.counters = counters if counters is not None else EventCounters()
         self.tracer = tracer if tracer is not None else Tracer(enabled=False)
         self.memory = MemorySampler([self.device])
@@ -286,13 +335,67 @@ class ServeEngine:
         return f"depth{self.pipeline_depth}" if self.pipeline is not None else "off"
 
     def close(self) -> None:
-        """Stop the pipeline's stage workers (in-flight batches drain first)."""
+        """Stop the pipeline's stage workers (in-flight batches drain first);
+        on a mesh, rank 0 tells the followers to stop (once)."""
         if self.pipeline is not None:
             self.pipeline.shutdown(wait=True)
+        if self.mesh is not None and self.rank == 0 and not self._stopped:
+            self._stopped = True
+            with self._forward_lock:
+                broadcast_object({"op": "stop"}, device=self._object_device())
+
+    def _validate_mesh(self, mesh, cfg: Config) -> None:
+        """JAX's checks (``serve/engine.py:377-412``): both batch sizes
+        divide by ``dp``; a grid mesh needs ``model.grid_parallel``; every
+        rung's ``3 * bucket`` pair rows divide by the sequence tile."""
+        n_dp = axis_size(mesh, DATA_AXIS)
+        if self.max_batch % n_dp or (self.long_buckets and self.long_max_batch % n_dp):
+            raise ValueError(
+                f"serve batch sizes (max_batch={self.max_batch}, long_max_batch="
+                f"{self.long_max_batch}) must divide by the mesh's dp axis ({n_dp}) for "
+                "even batch sharding")
+        if is_grid(mesh) and not cfg.model.grid_parallel:
+            raise ValueError(
+                "a (dp, spr, spc) grid mesh requires model.grid_parallel=true: the pair "
+                "axial passes run there only as the sharded transposes that keep the "
+                "long-chain rungs at O(N^2/(spr*spc)) memory a rank")
+        lay = pair_layout(mesh)
+        tile = lay.n_row * lay.n_col
+        for b in self.buckets:
+            if (3 * b) % tile:
+                raise ValueError(
+                    f"bucket {b} elongates to {3 * b} pair rows, not divisible by the "
+                    f"sequence tile ({tile}) the all-to-all transposes need; adjust "
+                    "serve.buckets or the mesh")
 
     def batch_for(self, bucket: int) -> int:
-        """Dispatch batch size of a rung (one ladder: ``serve.max_batch``)."""
-        return self.max_batch
+        """Dispatch batch size of a rung: ``serve.long_max_batch`` on the long
+        rungs (their per-request memory is what the mesh shards),
+        ``serve.max_batch`` elsewhere."""
+        return self.long_max_batch if bucket in self.long_buckets else self.max_batch
+
+    def _object_device(self):
+        """Where ``broadcast_object`` stages its bytes: the card under NCCL."""
+        return self.device if self.device.type == "cuda" else None
+
+    def follow(self) -> None:
+        """A follower rank's loop (every rank but 0 of a mesh): receive each
+        forward's stacked batch from rank 0, join the sharded forward, and
+        return when rank 0's :meth:`close` sends a stop. A forward that
+        raises here is rank 0's dispatch error too (its collectives fail),
+        so the loop goes on to the next."""
+        if self.mesh is None or self.rank == 0:
+            raise RuntimeError("follow() is for the ranks after 0 of a mesh")
+        with self._device_scope():
+            while True:
+                msg = broadcast_object(None, device=self._object_device())
+                if msg["op"] == "stop":
+                    return
+                stacked = {k: torch.from_numpy(a).to(self.device) for k, a in msg["host"].items()}
+                try:
+                    self._forward_local(stacked)
+                except Exception:  # noqa: BLE001 — rank 0 reports the dispatch's error
+                    continue
 
     def _device_scope(self):
         """The engine's device as the thread's current one (a CUDA context
@@ -308,8 +411,23 @@ class ServeEngine:
         """One forward over a batch on the device, on the current stream,
         under the engine's kernel policy (the policy is thread-local, and the
         pipeline's device worker, the serial path, the warm and the counted
-        runs all come through here); the picked outputs stay on the device."""
-        with self._forward_lock, torch.inference_mode(), use_kernel_policy(self._policy):
+        runs all come through here); the picked outputs stay on the device.
+        On a mesh rank 0 first broadcasts the batch to the followers."""
+        if self.mesh is not None:
+            if self.rank != 0:
+                raise RuntimeError(f"rank {self.rank} follows rank 0: call follow()")
+            with self._forward_lock:
+                broadcast_object({"op": "forward",
+                                  "host": {k: v.cpu().numpy() for k, v in stacked.items()}},
+                                 device=self._object_device())
+                return self._forward_local(stacked)
+        return self._forward_local(stacked)
+
+    def _forward_local(self, stacked: dict) -> dict:
+        """:meth:`_forward` on this rank alone (under the mesh when there is
+        one); on a follower rank the outputs are None."""
+        mesh = use_mesh(self.mesh) if self.mesh is not None else nullcontext()
+        with self._forward_lock, torch.inference_mode(), use_kernel_policy(self._policy), mesh:
             out = self.model(stacked["seq"].long(), stacked["msa"].long(),
                              mask=stacked["mask"], msa_mask=stacked["msa_mask"],
                              coords0=stacked["coords0"])
@@ -336,10 +454,13 @@ class ServeEngine:
             self.counters.bump("serve.traces")
             t0 = time.perf_counter()
             masked = self._to_device(self._stack_host(bucket, [], batch), bucket)
+            before = census()
             with self.tracer.span("serve.compile", bucket=bucket, batch=batch):
                 self._forward(masked)
                 if self.device.type == "cuda":
                     torch.cuda.current_stream(self.device).synchronize()
+            # this rank's collectives of one forward of the rung (none off a mesh)
+            collectives = census_delta(before, census())
             self.counters.bump("serve.compiles")
             self._exe_compile_s[key] = round(time.perf_counter() - t0, 4)
             # the cost analysis: one more masked run, counted (XLA's
@@ -353,13 +474,21 @@ class ServeEngine:
                 dim_head=self.cfg.model.dim_head, tie_rows=self.cfg.model.msa_tie_row_attn,
                 total_flops=costs["flops"])
             self._exe_breakdown[key] = breakdown
+            memory = executable_memory(counted)
+            if self.mesh is not None:
+                # this rank's bytes: its warm run's peak (on the card) plus the
+                # parameters every rank holds
+                memory["program_bytes"] = int(memory.get("peak_bytes", 0) + sum(
+                    p.numel() * p.element_size() for p in self.model.parameters()))
             self.compile_records.append({
                 "bucket": bucket, "batch": batch, "seconds": self._exe_compile_s[key],
+                **({"mesh": self.mesh_desc} if self.mesh_desc else {}),
                 **({"dtype": self.serve_dtype} if self.serve_dtype != "float32" else {}),
                 **({"kernels": self.kernels_desc} if self.kernels_desc != "auto" else {}),
                 **({"flops": costs["flops"]} if costs["flops"] else {}),
                 **({"flops_breakdown": breakdown} if costs["flops"] else {}),
-                **executable_memory(counted),
+                **({"collectives": collectives} if collectives else {}),
+                **memory,
             })
             self._executables[key] = self._forward
             return self._forward
@@ -370,7 +499,12 @@ class ServeEngine:
     # forward and fetch, so the two give the same bytes.
 
     def _padded_batch(self, bucket: int, n_real: int) -> int:
-        return self.batch_for(bucket) if self.cfg.serve.pad_batches else n_real
+        """The batch a chunk of ``n_real`` requests dispatches at: the rung's
+        batch (``serve.pad_batches``), rounded up to the mesh's dp multiple."""
+        batch = self.batch_for(bucket) if self.cfg.serve.pad_batches else n_real
+        if self.mesh is not None:
+            batch += (-batch) % axis_size(self.mesh, DATA_AXIS)
+        return batch
 
     def _featurize_one(self, bucket: int, req: ServeRequest) -> tuple:
         """Featurize one request, through the feature cache where it has
@@ -547,6 +681,8 @@ class ServeEngine:
         """Serve a request list: group by bucket, batch, dispatch, unpad.
         Results come back in input order. A request's queue wait counts
         from its own ``arrival_s``, else from the start of this call."""
+        if self.rank != 0:
+            raise RuntimeError(f"rank {self.rank} follows rank 0: call follow()")
         reqs = [_as_request(r) for r in requests]
         self.counters.bump("serve.requests", len(reqs))
         by_bucket: dict = {}

@@ -27,8 +27,9 @@ config trains as it would without them. Metrics go to ``metrics.jsonl`` in
 ``data.features="plm"`` the batches carry ``embedds`` (``data/plm.py``)
 in place of the MSA: ``End2EndModel`` repeats each residue's embedding
 x3 in place, as it elongates the tokens (:86-88), and ``embedd_project``
-takes the stream's width (JAX's init takes it from the sample batch). A
-device mesh raises.
+takes the stream's width (JAX's init takes it from the sample batch).
+Training on a device mesh raises (``loop.check_unported``); the model
+itself serves on one (:class:`End2EndModel`).
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ from alphafold2_tpu_torch.config import Config
 from alphafold2_tpu_torch.device import resolve_device
 from alphafold2_tpu_torch.models.alphafold2 import Alphafold2
 from alphafold2_tpu_torch.models.se3 import SE3Refiner
+from alphafold2_tpu_torch.parallel.sharding import active_mesh, gather_pair, pair_layout
 from alphafold2_tpu_torch.train.loop import (
     TrainState, apply_features, apply_gradients, check_unported, close_owned,
     collect_gradients, embedds_width, init_state, run_steps,
@@ -67,8 +69,16 @@ class End2EndModel(nn.Module):
     passed to :meth:`forward`. ``remat``, ``remat_policy`` and
     ``reversible`` choose the trunk's engine (JAX's fields, :71-73);
     ``msa_row_shard``, ``grid_parallel`` and ``context_parallel`` go to the
-    trunk (:75-77), which applies none on one device; ``num_embedds``, the
-    ``embedds`` width, builds ``af2.embedd_project``."""
+    trunk (:75-77), which applies them under an active mesh; ``num_embedds``,
+    the ``embedds`` width, builds ``af2.embedd_project``.
+
+    Under an active device mesh (``parallel/sharding.py use_mesh``) every
+    rank passes the whole batch; each runs the trunk on its ``dp`` slice and
+    its block of the pair grid, the logits blocks are gathered over every
+    rank (``sharding.gather_pair``: the 37-channel logits, not the trunk's
+    stream), and rank 0 alone realizes the structure (MDS, sidechains, the
+    SE(3) refiner) from them. The other ranks return the gathered
+    ``distogram`` and None for the rest."""
 
     def __init__(
         self,
@@ -115,7 +125,24 @@ class End2EndModel(nn.Module):
         seq3, mask3 = elongate(seq, mask)
         if embedds is not None:  # per residue: each repeats x3 in place
             embedds = embedds.repeat_interleave(3, dim=1)
-        logits = self.af2(seq3, msa, mask=mask3, msa_mask=msa_mask, embedds=embedds)
+        mesh = active_mesh()
+        if mesh is None:
+            logits = self.af2(seq3, msa, mask=mask3, msa_mask=msa_mask, embedds=embedds)
+        else:
+            import torch.distributed as dist
+
+            if b % pair_layout(mesh).n_data:
+                raise ValueError(f"batch {b} does not divide by the mesh's dp axis "
+                                 f"({pair_layout(mesh).n_data})")
+            bs = pair_layout(mesh).batch(b)
+            local = self.af2(seq3[bs], msa[bs] if msa is not None else None,
+                             mask=mask3[bs],
+                             msa_mask=msa_mask[bs] if msa_mask is not None else None,
+                             embedds=embedds)
+            logits = gather_pair(local, mesh, "world")
+            if dist.get_rank() != 0:
+                return {"distogram": logits, "distances": None, "weights": None,
+                        "proto": None, "refined": None}
         coords, distances, weights = realize_structure(
             logits, iters=self.mds_iters, mask=mask3, coords0=coords0,
             seed=self.mds_seed,

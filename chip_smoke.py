@@ -118,8 +118,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
               through the fleet within 1e-3 A of phase_serve's atom14, both
               replicas served; one bucket-128 batch on both replicas'
               device threads at once, bit-equal to one alone with exactly
-              twice its K1/K2 launches; a seeded Poisson stream of 48
-              requests (5 repeats) at 1.5 x the serial request rate through
+              twice its K1/K2 launches; a seeded Poisson stream of 32
+              requests (3 repeats) at 1.5 x the serial request rate through
               a 1-replica and the 2-replica fleet: goodput, p50/p95/p99,
               device idle share (profiler on), peak memory, /metrics and
               /healthz scraped (the zero-seeded fleet.* counters,
@@ -141,6 +141,27 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
               analysis/budgets.py lattice_report, each rung's peak_bytes,
               parameters, flops and verdict against 0.9 of the card's
               memory, all passing, no forward run again;
+4f. long_mesh — right after the lattice: long-chain serving on a device
+              mesh, one rank of a world-size-1 NCCL group in a subprocess
+              started with torchrun's environment, a (1, 1, 1) grid mesh,
+              model.grid_parallel: the serving configuration at full width
+              (ladder 64 plus the long rungs 512 and 768 at long_max_batch
+              1, which phase_long_meshless measured to fit the card without
+              a mesh) serves one request of 492 and one of 748 residues
+              through ServeEngine(mesh=): finite atom14, every K1 and K2
+              launch on its Hopper kernel and no plain call, the census of
+              collectives a forward makes (every all_to_all, all_reduce and
+              all_gather in place), the distogram within
+              tests/test_precision.py's relative L2 bound of the same
+              model's meshless forward, lattice_report passing on every
+              rung; each rung's forward (median of 3), peak memory,
+              mesh_mfu and launches; then the collective audit
+              (analysis/hlo_audit.py --check) on the card's NCCL world,
+              clean, with each target's measured peak against its budget.
+              (probe_gloo_cuda, not part of the run,
+              found gloo aborting on CUDA tensors in batch_isend_irecv, so
+              several ranks on the one card are not driven: multi-rank
+              exactness is held on the CPU's gloo ranks);
 4d. kernel_policy — the kernel switchboard (ops/kernels.py): the serving
               config at bucket 128 x batch 4 under the default policy,
               the hand kernels by name, axial=stock,flash=on (SDPA) and
@@ -203,7 +224,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
               for bit, and predict from it equal to predict(state_dict=);
               the step alone timed, profiled, and split into trunk,
               structure (MDS), refiner and loss; the two steps in turns;
-9. engines  — the trunk engines at the training smoke's width: the
+9. engines  — the trunk engines at the training smoke's width at depth
+              3 (ENGINE_DEPTH, the whole pass's time budget): the
               default, remat (no policy, "dots", "dots_no_batch"), scan,
               scan+remat, reversible, tied and sparse reversible, and
               end-to-end training at its CLI's width with remat and with
@@ -219,7 +241,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
               layer and six (f32 compute; bf16 on the f32 carry; bf16 on a
               bf16 carry); the reversible backward against plain autograd
               at full width, f32 and bf16; peak
-              memory at depth 6 and 12 for the default, remat and
+              memory at depth 3 and 6 for the default, remat and
               reversible engines; serving with model.remat=True equal to
               remat=False on one bucket-128 batch;
 10. telemetry — dropout, numerics and the training telemetry at the
@@ -266,7 +288,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
               profiled;
 13. plm       — small f32 distogram and end-to-end models on the plm
               stream against the CPU; the training smoke on the plm stream
-              (crop 128, untied and tied, the hash provider and an .npz
+              (crop 128, depth 3 (PLM_DEPTH, the time budget), untied and tied, the hash provider and an .npz
               the phase writes for the precomputed one, whose losses must
               equal the hash runs') for 3 steps through train.loop.train,
               and end-to-end training at its CLI's width (untied, tied) for
@@ -322,8 +344,12 @@ c.phase_templates(); c.phase_plm()"``, and likewise KV compression and the
 local-data phase: ``python3 -c "import chip_smoke as c; c.phase_build();
 c.phase_compress(); c.phase_data()"``, and the fleet:
 ``python3 -c "import chip_smoke as c; c.phase_build(); c.phase_serve_fleet()"``,
-and this slice's three: ``python3 -c "import chip_smoke as c; c.phase_build();
-c.phase_kernel_policy(); c.phase_predict_cli(); c.phase_lattice()"``.
+and the kernel policy, CLI and lattice phases: ``python3 -c "import chip_smoke as c;
+c.phase_build(); c.phase_kernel_policy(); c.phase_predict_cli(); c.phase_lattice()"``,
+and the mesh phase: ``python3 -c "import chip_smoke as c; c.phase_build();
+c.phase_long_mesh()"`` (``phase_long_meshless`` the serving forward without a
+mesh at the long rungs, which decided the long ladder; ``probe_gloo_cuda``
+whether gloo takes CUDA tensors).
 ``chip_compare.sh`` runs them, or any other phases, for two checkouts in
 turns.
 
@@ -2376,6 +2402,7 @@ def phase_train(sparse=False, tied=False):
 
 E2E_STEPS = 8  # train_end2end steps at the CLI's full width
 E2E_REPEAT_STEPS = 20  # steps on one repeated batch
+E2E_TURN_REPS = 5  # steps a turn when the two steps alternate
 E2E_RESUME = (2, 2)  # steps before the checkpoint, steps after the resume
 E2E_PARITY_MDS_ITERS = 20  # the small f32 model's MDS iterations, card vs CPU
 # a small f32 end-to-end model's gradients, card vs CPU: per-leaf relative
@@ -2829,11 +2856,11 @@ def phase_end2end():
     for kind in ("untied", "tied", "tied", "untied"):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        for _ in range(STEP_REPS):
+        for _ in range(E2E_TURN_REPS):
             out[kind]["step"]()
         torch.cuda.synchronize()
-        turns[kind].append((time.perf_counter() - t1) / STEP_REPS * 1e3)
-    log("[end2end] the steps alone in turns, ms per step over " + str(STEP_REPS)
+        turns[kind].append((time.perf_counter() - t1) / E2E_TURN_REPS * 1e3)
+    log("[end2end] the steps alone in turns, ms per step over " + str(E2E_TURN_REPS)
         + " steps: " + "; ".join(f"{k} " + ", ".join(f"{x:.2f}" for x in v)
                                  for k, v in turns.items()))
     log(f"[end2end] phase: {time.perf_counter() - t0:.1f} s")
@@ -2845,9 +2872,12 @@ def phase_end2end():
 
 ENGINE_STEPS = 3  # steps through the training entry point per engine
 ENGINE_REPS = 5  # steps timed back to back per engine
-MEMORY_DEPTHS = (6, 12)  # the trunk depths of the peak-memory sweep
-# the engines at the training smoke's width (Config(): dim 256, depth 6,
-# heads 8, dim_head 64, bf16, crop 128, MSA 5x64, batch 1): label ->
+# the engines' trunk depth: the training smoke's 6 halved, which keeps the
+# whole pass inside its time limit
+ENGINE_DEPTH = 3
+MEMORY_DEPTHS = (ENGINE_DEPTH, 2 * ENGINE_DEPTH)  # the peak-memory sweep's depths
+# the engines at the training smoke's width (Config(): dim 256, heads 8,
+# dim_head 64, bf16, crop 128, MSA 5x64, batch 1) at ENGINE_DEPTH: label ->
 # ModelConfig fields; "e2e ..." at the end-to-end CLI's width instead
 ENGINES = {
     "default": {},
@@ -2868,14 +2898,16 @@ ENGINE_GRAD_REL_L2 = 2e-2
 
 
 def _engine_config(label, depth=None):
-    """The configuration an ENGINES label names."""
+    """The configuration an ENGINES label names, at ``depth`` (by default
+    ENGINE_DEPTH, the end-to-end CLI's own depth for "e2e ...")."""
     from alphafold2_tpu_torch.config import Config
 
-    cfg = _e2e_config(False) if label.startswith("e2e") else Config()
+    e2e = label.startswith("e2e")
+    cfg = _e2e_config(False) if e2e else Config()
     for field, value in ENGINES[label].items():
         setattr(cfg.model, field, value)
-    if depth is not None:
-        cfg.model.depth = depth
+    if depth is not None or not e2e:
+        cfg.model.depth = depth if depth is not None else ENGINE_DEPTH
     return cfg
 
 
@@ -3278,15 +3310,15 @@ def _reversible_custom_vs_plain():
     return out
 
 
-def _memory_sweep(at_depth6):
-    """Peak device memory of one training step at depth 6 (from the engine
-    runs) and 12 for the default, remat and reversible engines, and each
-    engine's slope a layer."""
+def _memory_sweep(at_base):
+    """Peak device memory of one training step at MEMORY_DEPTHS (the first
+    from the engine runs) for the default, remat and reversible engines,
+    and each engine's slope a layer."""
     import torch
 
     out = {}
     for label in ("default", "remat", "reversible"):
-        peaks = {MEMORY_DEPTHS[0]: at_depth6[label]["peak_bytes"]}
+        peaks = {MEMORY_DEPTHS[0]: at_base[label]["peak_bytes"]}
         for depth in MEMORY_DEPTHS[1:]:
             resident = torch.cuda.memory_allocated()
             fn = _step_fn(_engine_config(label, depth), False)
@@ -3345,7 +3377,7 @@ def phase_engines():
     through its entry point at full width (launches a step, the step alone,
     peak memory); remat and scan held to the default engine on the card; a
     small f32 reversible model held to the CPU's plain versions; the
-    reversible step inverted at full width; peak memory at depth 6 and 12;
+    reversible step inverted at full width; peak memory at MEMORY_DEPTHS;
     serving with model.remat=True."""
     t0 = time.perf_counter()
     runs = {label: _engine_run(label) for label in ENGINES}
@@ -4033,12 +4065,17 @@ PREDICT_FLAGS = {"cross_attn_compress_ratio": 2, "msa_row_shard": True,
                  "grid_parallel": True, "context_parallel": "ring"}
 
 
+PLM_DEPTH = 3  # the training smoke's 6 halved: the whole pass's time limit
+
+
 def _plm_config(tied, provider, e2e, npz=None):
-    """The training smoke's Config() (dim 256, depth 6, crop 128, batch 1)
-    or the end-to-end CLI's (_e2e_config) on the plm stream."""
+    """The training smoke's Config() (dim 256, crop 128, batch 1) at
+    PLM_DEPTH, or the end-to-end CLI's (_e2e_config), on the plm stream."""
     from alphafold2_tpu_torch.config import Config
 
     cfg = _e2e_config(tied) if e2e else Config()
+    if not e2e:
+        cfg.model.depth = PLM_DEPTH
     cfg.model.msa_tie_row_attn = tied
     cfg.data.features, cfg.data.plm_provider, cfg.data.plm_path = "plm", provider, npz
     return cfg
@@ -5513,8 +5550,8 @@ def phase_serve_async(engine=None):
 
 
 FLEET_REPLICAS = 2
-FLEET_STREAM = 48  # requests of the open-loop stream
-FLEET_REPEATS = 5  # of them, exact (sequence, seed) repeats of earlier ones (10%)
+FLEET_STREAM = 32  # requests of the open-loop stream
+FLEET_REPEATS = 3  # of them, exact (sequence, seed) repeats of earlier ones (9%)
 FLEET_LOAD = 1.5  # the stream's Poisson rate over the serial request rate
 FLEET_KILL_AT = 0.4  # the drill kills replica 1 at this share of the 2-replica run's wall
 FLEET_DEGRADE_S = 0.05  # the degrade drill's delay a dispatch on replica 1
@@ -6659,6 +6696,584 @@ def phase_lattice(engine=None):
     return {**report, "seconds": seconds}
 
 
+LONG_BUCKETS = (512, 768)  # the long ladder's candidates, each at long_max_batch 1
+
+
+def _long_request(bucket, length, seed=0):
+    """A ``length``-residue request of seeded random residues, featurized at
+    ``bucket`` as the engine does."""
+    import numpy as np
+
+    from alphafold2_tpu_torch.serve.engine import ServeRequest
+
+    rng = np.random.default_rng(1000 + bucket)
+    return ServeRequest(seq="".join(rng.choice(list("ACDEFGHIKLMNPQRSTVWY"), length)),
+                        seed=seed)
+
+
+def _meshless_long(engine, bucket, length, reps=3):
+    """The serving model's forward at ``bucket`` x batch 1, called directly
+    (the meshless engine refuses the long rungs): a ``length``-residue
+    request featurized as the engine does. Returns ``{"ms" (median of
+    ``reps``), "peak_bytes", "out"}``, or ``{"oom": message}`` when the card
+    runs out of memory."""
+    import statistics
+
+    import torch
+
+    item, _ = engine._featurize_one(bucket, _long_request(bucket, length))
+    stacked = engine._to_device(engine._stack_host(bucket, [item], 1), bucket)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    try:
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = engine._forward(stacked)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    except torch.cuda.OutOfMemoryError as e:
+        del stacked
+        torch.cuda.empty_cache()
+        return {"oom": str(e).splitlines()[0]}
+    return {"ms": statistics.median(times), "times_ms": times,
+            "peak_bytes": torch.cuda.max_memory_allocated(), "out": out}
+
+
+def phase_long_meshless(buckets=LONG_BUCKETS):
+    """The serving configuration's forward without a mesh at each long
+    bucket x batch 1 (log tag ``[long]``): its median ms of 3, its peak
+    memory (parameters included) and the parameters' bytes, beside 0.9 of
+    the card's memory. Not part of the run: it decides the long ladder the
+    mesh phase serves."""
+    import torch
+
+    from alphafold2_tpu_torch.serve.engine import ServeEngine
+
+    cfg = _serve_config(pipeline_depth=0)
+    cfg.model.max_seq_len = 3 * max(buckets)
+    engine = ServeEngine(cfg)
+    param_bytes = sum(p.numel() * p.element_size() for p in engine.model.parameters())
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    read = _serve_counts()
+    out = {}
+    for bucket in buckets:
+        length = bucket - 20
+        run = _meshless_long(engine, bucket, length)
+        run.pop("out", None)
+        out[bucket] = run
+        if "oom" in run:
+            log(f"[long] bucket {bucket} x 1 ({length} residues), no mesh: out of memory "
+                f"({run['oom']})")
+            continue
+        fits = run["peak_bytes"] < 0.9 * card_bytes
+        log(f"[long] bucket {bucket} x 1 ({length} residues), no mesh: forward "
+            f"{run['ms']:.1f} ms (median of {run['times_ms']}), peak "
+            f"{run['peak_bytes'] / 1e9:.2f} GB with parameters {param_bytes / 1e9:.4f} GB; "
+            f"0.9 x card {0.9 * card_bytes / 1e9:.2f} GB: {'fits' if fits else 'does not fit'}")
+    log(f"[long] launches {read()}; card {_card()}")
+    engine.close()
+    return out
+
+
+LONG_MESH_BUCKETS = (512, 768)  # the long ladder the mesh phase serves (phase_long_meshless)
+LONG_MESH_TAIL = 20  # each long request is its bucket less this many residues
+LONG_MESH_TIMEOUT_S = 600
+# the several-ranks sub-phase: a (1, 2, 2) grid of four ranks on the one card
+# (a gloo group on CUDA tensors: NCCL takes one rank a device), serving one
+# request on this long rung, which the world-size-1 rank serves too
+LONG_RANKS_WORLD = 4
+LONG_RANKS_BUCKET = 96
+LONG_RANKS_LENGTH = 76
+LONG_RANKS_TIMEOUT_S = 300
+# the census of one forward on a (1, 1, 1) grid mesh of the 6-layer serving
+# model: per layer the two axial passes (q, k, v and the mask gathered, the
+# output scattered: 5 all_to_alls each over spr and spc) and the MSA<-pair
+# merge (2 all_reduces), then the symmetrisation's transpose and the logits'
+# gather; the engine's broadcast of the batch
+LONG_MESH_CENSUS = {"all_to_all@spr": 30, "all_to_all@spc": 30, "all_reduce@seq": 12,
+                    "all_to_all@seq": 1, "all_gather@world": 1, "broadcast@world": 1}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rank_env(rank, world, port, local_rank=0):
+    return dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(local_rank),
+                MASTER_ADDR="localhost", MASTER_PORT=str(port))
+
+
+def phase_long_mesh():
+    """Long-chain serving on a device mesh (log tag ``[long_mesh]``).
+
+    (a) One rank of a world-size-1 NCCL process group in a subprocess
+    started with torchrun's environment (this process holds no process
+    group), on a ``(1, 1, 1)`` grid mesh with ``model.grid_parallel``: the
+    serving configuration at full width (ladder 64 and the long rungs
+    LONG_RANKS_BUCKET and LONG_MESH_BUCKETS at ``long_max_batch`` 1) serves
+    one request of bucket - 20 residues on each rung of LONG_MESH_BUCKETS
+    through ``ServeEngine(mesh=)``. Each run must give finite atom14, K1
+    and K2 on their Hopper routes with no plain call, the expected census
+    (every collective in place), a distogram within tests/test_precision.py's
+    relative L2 bound of the same model's meshless forward, K1 at each of
+    the rung's call shapes against its plain version (``_long_rung_k1_checks``),
+    and ``lattice_report`` passing on the long rungs; each rung's forward
+    ms (median of 3, beside the meshless forward's in the same process),
+    peak, ``mesh_mfu`` and launches are logged and returned. The rank then
+    serves a LONG_RANKS_LENGTH-residue request on the LONG_RANKS_BUCKET
+    rung and keeps its distogram.
+
+    (b) LONG_RANKS_WORLD ranks on the one card (``_long_mesh_ranks``): the
+    same request on a ``(1, 2, 2)`` grid, rank 0's distogram held against
+    (a)'s, K1 and K2 on their Hopper routes on every rank.
+
+    The collective audit on the card runs beside (b)."""
+    import gc
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    if torch.cuda.is_initialized():
+        # the rank is another process on the same card: hand it the blocks
+        # this process's allocator caches from the earlier phases
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        log(f"[long_mesh] this process holds {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+            f"({torch.cuda.memory_reserved() / 1e9:.2f} reserved); the card has "
+            f"{free / 1e9:.2f} of {total / 1e9:.2f} GB free")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "long_mesh.json")
+        proc = subprocess.run(
+            [sys.executable, "-c", "import sys, chip_smoke as c; sys.exit(c.long_mesh_rank(sys.argv[1]))",
+             out], cwd=HERE, env=_rank_env(0, 1, _free_port()), timeout=LONG_MESH_TIMEOUT_S)
+        require(proc.returncode == 0, f"the mesh rank exited {proc.returncode}")
+        with open(out, encoding="utf-8") as fh:
+            result = json.load(fh)
+        audit = _start_collective_audit(tmp)  # beside (b): the audit times nothing
+        try:
+            result["ranks"] = _long_mesh_ranks(tmp)
+            result["audit"] = _finish_collective_audit(*audit)
+        finally:
+            if audit[0].poll() is None:
+                audit[0].kill()
+                audit[0].wait()
+    result["seconds"] = time.perf_counter() - t0
+    log(f"[long_mesh] phase took {result['seconds']:.1f} s")
+    return result
+
+
+def _long_mesh_ranks(tmp):
+    """Phase (b) of phase_long_mesh: LONG_RANKS_WORLD processes, each a rank
+    of a gloo group on the one card (``long_mesh_gloo_rank``); returns each
+    rank's record."""
+    t0 = time.perf_counter()
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c",
+         "import sys, chip_smoke as c; sys.exit(c.long_mesh_gloo_rank(sys.argv[1]))", tmp],
+        cwd=HERE, env=_rank_env(r, LONG_RANKS_WORLD, port)) for r in range(LONG_RANKS_WORLD)]
+    deadline = time.monotonic() + LONG_RANKS_TIMEOUT_S
+    try:
+        codes = [p.wait(timeout=max(1.0, deadline - time.monotonic())) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    require(codes == [0] * LONG_RANKS_WORLD, f"the {LONG_RANKS_WORLD} ranks exited {codes}")
+    ranks = []
+    for r in range(LONG_RANKS_WORLD):
+        with open(os.path.join(tmp, f"rank{r}.json"), encoding="utf-8") as fh:
+            ranks.append(json.load(fh))
+    log(f"[long_mesh ranks] {LONG_RANKS_WORLD} ranks on the one card took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return ranks
+
+
+def long_mesh_gloo_rank(tmp) -> int:
+    """The body of one rank of phase_long_mesh's (b) (run as its
+    subprocess): a gloo group on CUDA tensors over LONG_RANKS_WORLD ranks of
+    the one card, a ``(1, 2, 2)`` grid mesh, phase (a)'s configuration and
+    weights; rank 0 serves the LONG_RANKS_LENGTH-residue request on the
+    LONG_RANKS_BUCKET rung and holds its distogram against (a)'s
+    world-size-1 one within the bf16 bound, the others follow. Every rank
+    must launch K1 and K2 on their Hopper routes with no plain call, and
+    make three forwards' census (the warm run, the counted run, the
+    request's)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from alphafold2_tpu_torch.parallel import sharding
+    from alphafold2_tpu_torch.parallel.grid_parallel import make_grid_mesh
+    from alphafold2_tpu_torch.serve.engine import ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{os.environ['MASTER_PORT']}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_grid_mesh(1, 2, 2)
+        engine = ServeEngine(_long_mesh_config(), mesh=mesh)
+        require(engine.mesh_desc == "dp1.spr2.spc2", f"mesh {engine.mesh_desc}")
+        read = _serve_counts()  # every count 0 just before the main path
+        before = sharding.census()
+        out = {"rank": rank}
+        t0 = time.perf_counter()
+        if rank == 0:
+            (res,) = engine.predict_many([_long_request(LONG_RANKS_BUCKET, LONG_RANKS_LENGTH)])
+            out["serve_s"] = time.perf_counter() - t0
+            require(res.ok and res.bucket == LONG_RANKS_BUCKET
+                    and np.isfinite(res.atom14).all(), f"rank 0: {res.status} {res.error}")
+            ref = np.load(os.path.join(tmp, "world1_distogram.npy")).astype(np.float64)
+            got = res.distogram.astype(np.float64)
+            out["rel_l2_vs_world1"] = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+            out["max_abs_vs_world1"] = float(np.abs(got - ref).max())
+            out["launches"] = read()
+            census = sharding.census_delta(before, sharding.census())
+            engine.close()  # the followers' stop (one more broadcast, not counted)
+        else:
+            engine.follow()
+            out["serve_s"] = time.perf_counter() - t0
+            out["launches"] = read()
+            census = sharding.census_delta(before, sharding.census())
+        out["census"] = {k: v["count"] for k, v in census.items()}
+        out["comm_bytes"] = int(sum(v["bytes"] for v in census.values()))
+        log(f"[long_mesh ranks] rank {rank} of {world} (gloo, CUDA tensors, "
+            f"{engine.mesh_desc}): {out['serve_s']:.1f} s; launches {out['launches']}; "
+            f"census {out['census']}, {out['comm_bytes']} bytes"
+            + (f"; distogram vs the world-size-1 rank rel L2 {out['rel_l2_vs_world1']:.3e}, "
+               f"max abs {out['max_abs_vs_world1']:.3e}" if rank == 0 else ""))
+        _require_hopper(out["launches"], f"[long_mesh ranks] rank {rank}")
+        want = {k: 3 * v for k, v in LONG_MESH_CENSUS.items()
+                if rank == 0 or k != "broadcast@world"}
+        require(out["census"] == want, f"rank {rank}: census {out['census']}, expected {want}")
+        if rank == 0:
+            require(out["rel_l2_vs_world1"] <= SERVE_BF16_LOGITS_BOUND,
+                    f"rank 0: distogram vs the world-size-1 rank rel L2 "
+                    f"{out['rel_l2_vs_world1']:.3e}")
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w", encoding="utf-8") as fh:
+            json.dump(out, fh)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _long_mesh_config():
+    """The mesh phase's serving configuration, (a)'s and (b)'s alike (the
+    same weights from the same seed): ladder 64, the long rungs
+    LONG_RANKS_BUCKET and LONG_MESH_BUCKETS at batch 1, distograms
+    returned, ``model.grid_parallel``."""
+    cfg = _serve_config(buckets=(64,), pipeline_depth=0,
+                        long_buckets=(LONG_RANKS_BUCKET,) + LONG_MESH_BUCKETS,
+                        long_max_batch=1, return_distogram=True)
+    cfg.model.grid_parallel = True
+    cfg.model.max_seq_len = 3 * max(LONG_MESH_BUCKETS)
+    return cfg
+
+
+def _start_collective_audit(tmp):
+    """Start ``python -m alphafold2_tpu_torch.analysis.hlo_audit --check`` on
+    the card's NCCL world of one rank, its verdict to a file under ``tmp``;
+    returns (the process, the file)."""
+    path = os.path.join(tmp, "audit.json")
+    proc = subprocess.Popen([sys.executable, "-m", "alphafold2_tpu_torch.analysis.hlo_audit",
+                             "--check", "--json", path], cwd=HERE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, path
+
+
+def _finish_collective_audit(proc, path):
+    """The started audit's outcome: every audited target's census,
+    AF2A108-110 clean (the committed baseline is the CPU's 4 gloo ranks, so
+    the check reports a stale baseline, rc 0); each target's collectives
+    and its measured per-rank peak against its budget."""
+    stdout, stderr = proc.communicate(timeout=300)
+    require(proc.returncode == 0, f"the collective audit exited {proc.returncode}:\n"
+                                  f"{stdout[-2000:]}{stderr[-2000:]}")
+    with open(path, encoding="utf-8") as fh:
+        got = json.load(fh)
+    for name, rec in got["doc"]["targets"].items():
+        counts = {k: v["count"] for k, v in rec["collectives"].items()}
+        log(f"[long_mesh] audit {name} on {rec['mesh'] or 'one device'}: collectives {counts}, "
+            f"comm_bytes {rec['comm_bytes']}, peak {rec['program_bytes']} bytes, budget "
+            f"{rec['budget']['verdict']}")
+    log(f"[long_mesh] audit verdict {got['summary']['verdict']}, findings "
+        f"{got['summary']['findings']}")
+    return {"verdict": got["summary"]["verdict"],
+            "targets": {n: {"collectives": r["collectives"], "program_bytes": r["program_bytes"],
+                            "budget": r["budget"]} for n, r in got["doc"]["targets"].items()}}
+
+
+K1_CHECK_LOGITS_BYTES = 1 << 30  # the f32 logits a slice check's plain version may hold
+
+
+def _k1_slice_check(label, with_lse, q, k, v, q_mask, kv_mask, scale, got):
+    """One K1 call of the main path held against K1's plain version on the
+    same operands: a slice of its batch rows (the first two and the last
+    two) and of their queries (all of them, or the first and the last as
+    many as K1_CHECK_LOGITS_BYTES of f32 logits over every key allow),
+    each over the call's whole key axis; ``got`` is the call's own result,
+    ``(out, lse)`` with ``with_lse``. Fails the run on an output off by
+    more than the kernel phase's bf16 tolerance, and on an lse off by more
+    than 1e-4. Returns the comparison's row."""
+    import torch
+
+    from alphafold2_tpu_torch.ops.cuda import axial
+
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    bi = torch.tensor(sorted({0, 1, b - 2, b - 1} & set(range(b))), device=q.device)
+    n_sl = max(2, min(nq, K1_CHECK_LOGITS_BYTES // (len(bi) * h * nk * 4)))
+    qi = torch.tensor(sorted(set(range(n_sl // 2)) | set(range(nq - (n_sl - n_sl // 2), nq))),
+                      device=q.device)
+    rows = lambda t: t.index_select(0, bi)  # noqa: E731
+    qs, ks, vs = rows(q).index_select(2, qi), rows(k), rows(v)
+    qm = rows(q_mask).index_select(1, qi) if q_mask is not None else None
+    km = rows(kv_mask) if kv_mask is not None else None
+    route = _k1_route(b, h, nq, nk, d)
+    splits = axial.key_splits(b, h, nq, nk, d) if route == "sm90" else 1
+    what = (f"{label} ({b} x {h}, {nq} x {nk}, d{d}; {K1_ROUTES[route]}, {splits} key "
+            f"splits): rows {bi.tolist()}, {len(qi)} queries")
+    out, lse = got if with_lse else (got, None)
+    ref, ref_lse = axial.fused_attention_lse_reference(qs, ks, vs, qm, km, scale)
+    row = _compare(what, "fused_attention (lse)" if with_lse else "fused_attention",
+                   rows(out).index_select(2, qi), ref, q.dtype)
+    if with_lse:
+        _check_lse(what, rows(lse).index_select(2, qi), ref_lse)
+    return {**row, "lse": with_lse, "shape": [b, h, nq, nk, d], "splits": splits,
+            "route": route, "rows": len(bi), "queries": len(qi)}
+
+
+def _long_rung_k1_checks(engine, stacked, bucket, launches):
+    """One more mesh forward of a long rung with K1's two wrappers watched
+    where the model reaches them (``ops/attention.py``'s ``fused_attention``
+    for the axial, MSA column and pair<-MSA passes, ``ops/cuda/axial.py``'s
+    ``fused_attention_lse`` for the merged MSA<-pair pass): every call
+    launches K1 as it would, and the first call of each operand signature
+    (shapes, strides, masks, lse or not) is held against K1's plain version
+    (``_k1_slice_check``), the key-split passes and their combine included.
+    The watched calls must be every K1 launch of the forward, as many as
+    a forward of the counted run; at least one with lse. Not counted as
+    main-path launches (the counts were read before)."""
+    import torch
+
+    from alphafold2_tpu_torch.ops import attention as attention_mod
+    from alphafold2_tpu_torch.ops.cuda import axial
+
+    real = (attention_mod.fused_attention, axial.fused_attention_lse)
+    seen, checks, calls = set(), [], [0]
+
+    def watched(fn, with_lse):
+        def call(q, k, v, q_mask=None, kv_mask=None, sm_scale=1.0):
+            got = fn(q, k, v, q_mask=q_mask, kv_mask=kv_mask, sm_scale=sm_scale)
+            calls[0] += 1
+            sig = (with_lse, tuple(q.shape), tuple(k.shape), q.stride(), k.stride(),
+                   v.stride(), q_mask is None, kv_mask is None)
+            if sig not in seen:
+                seen.add(sig)
+                checks.append(_k1_slice_check(f"[long_mesh] bucket {bucket}", with_lse, q, k,
+                                              v, q_mask, kv_mask, sm_scale, got))
+            return got
+        return call
+
+    before = axial.fused_attention.launches
+    attention_mod.fused_attention = watched(real[0], False)
+    axial.fused_attention_lse = watched(real[1], True)
+    try:
+        engine._forward(stacked)
+        torch.cuda.synchronize()
+    finally:
+        attention_mod.fused_attention, axial.fused_attention_lse = real
+    ran = axial.fused_attention.launches - before
+    require(calls[0] == ran and 3 * ran == launches["fused_attention"],
+            f"bucket {bucket}: {calls[0]} watched K1 calls, {ran} launches, "
+            f"{launches['fused_attention']} in the counted three forwards")
+    require(any(c["lse"] for c in checks), f"bucket {bucket}: no K1 call with lse watched")
+    torch.cuda.empty_cache()
+    return checks
+
+
+def long_mesh_rank(out_path) -> int:
+    """The body of phase_long_mesh's rank (run as its subprocess)."""
+    import statistics
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from alphafold2_tpu_torch.analysis.budgets import format_budget, lattice_report
+    from alphafold2_tpu_torch.observe.flops import mesh_mfu
+    from alphafold2_tpu_torch.ops.kernels import use_kernel_policy
+    from alphafold2_tpu_torch.parallel import distributed, sharding
+    from alphafold2_tpu_torch.parallel.grid_parallel import make_grid_mesh
+    from alphafold2_tpu_torch.serve.engine import ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    require(distributed.initialize(), "torchrun's environment initialised no process group")
+    require(dist.get_world_size() == 1 and dist.get_backend() == "nccl",
+            f"expected one NCCL rank, got {dist.get_world_size()} {dist.get_backend()}")
+    result = {"card": _card(), "rungs": {}}
+    try:
+        mesh = make_grid_mesh(1, 1, 1)
+        engine = ServeEngine(_long_mesh_config(), mesh=mesh)
+        require(engine.mesh_desc == "dp1.spr1.spc1", f"mesh {engine.mesh_desc}")
+        read = _serve_counts()
+        for bucket in LONG_MESH_BUCKETS:
+            length = bucket - LONG_MESH_TAIL
+            req = _long_request(bucket, length)
+            read = _serve_counts()  # every count 0 just before the main path
+            before = sharding.census()
+            t_serve = time.perf_counter()
+            (res,) = engine.predict_many([req])
+            serve_s = time.perf_counter() - t_serve
+            launches = read()
+            census = sharding.census_delta(before, sharding.census())
+            require(res.ok, f"bucket {bucket}: {res.status} {res.error}")
+            require(res.bucket == bucket and res.atom14.shape == (length, 14, 3)
+                    and np.isfinite(res.atom14).all(), f"bucket {bucket}: atom14 not finite")
+            _require_hopper(launches, f"[long_mesh] bucket {bucket}")
+            # predict_many's first dispatch of a rung: the warm run, the counted
+            # run and the request's forward
+            want = {k: 3 * v for k, v in LONG_MESH_CENSUS.items()}
+            got = {k: v["count"] for k, v in census.items()}
+            require(got == want, f"bucket {bucket}: census {got}, expected {want}")
+            item, _ = engine._featurize_one(bucket, req)
+            stacked = engine._to_device(engine._stack_host(bucket, [item], 1), bucket)
+
+            def meshless():  # the same model's forward as the engine's, no mesh active
+                with torch.inference_mode(), use_kernel_policy(engine._policy):
+                    return engine.model(stacked["seq"].long(), stacked["msa"].long(),
+                                        mask=stacked["mask"], msa_mask=stacked["msa_mask"],
+                                        coords0=stacked["coords0"])
+
+            # the mesh forward and the meshless one alternate in one process:
+            # meshless, mesh, mesh, meshless, meshless, mesh; each run's peak
+            # holds the other kind's last outputs
+            times, flat_times, peaks, outs = [], [], [0, 0], [None, None]
+            for which in (0, 1, 1, 0, 0, 1):
+                outs[which] = None
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t = time.perf_counter()
+                outs[which] = engine._forward(stacked) if which else meshless()
+                torch.cuda.synchronize()
+                (times if which else flat_times).append((time.perf_counter() - t) * 1e3)
+                peaks[which] = max(peaks[which], torch.cuda.max_memory_allocated())
+            flat_peak, peak = peaks
+            ms, flat_ms = statistics.median(times), statistics.median(flat_times)
+            disto = outs[1]["distogram"][0, :3 * length, :3 * length].float()
+            ref = outs[0]["distogram"][0, :3 * length, :3 * length].float()
+            rel = float(torch.linalg.vector_norm(disto - ref)
+                        / torch.linalg.vector_norm(ref).clamp_min(1e-30))
+            max_abs = float((disto - ref).abs().max())
+            require(rel <= SERVE_BF16_LOGITS_BOUND,
+                    f"bucket {bucket}: mesh vs meshless logits rel L2 {rel:.3e}")
+            outs = disto = ref = None
+            k1_checks = _long_rung_k1_checks(engine, stacked, bucket, launches)
+            flops = engine._exe_flops.get(engine._exe_key(bucket, 1))
+            mfu = mesh_mfu(flops, ms / 1e3, mesh=mesh)
+            rung = {"residues": length, "ms": ms, "times_ms": times, "meshless_ms": flat_ms,
+                    "meshless_times_ms": flat_times, "peak_bytes": peak,
+                    "meshless_peak_bytes": flat_peak,
+                    "serve_s": serve_s, "flops": flops, **mfu, "launches": launches,
+                    "census": census, "rel_l2_vs_meshless": rel, "max_abs_vs_meshless": max_abs,
+                    "k1_checks": k1_checks}
+            result["rungs"][str(bucket)] = rung
+            log(f"[long_mesh] bucket {bucket} x 1 ({length} residues) on {engine.mesh_desc}: "
+                f"forward {ms:.1f} ms (median of {[round(t, 1) for t in times]}), the same "
+                f"model without a mesh in this process {flat_ms:.1f} ms (median of "
+                f"{[round(t, 1) for t in flat_times]}), peak {peak / 1e9:.2f} GB (meshless "
+                f"{flat_peak / 1e9:.2f}), flops "
+                f"{flops:.4e}, mesh_mfu {mfu.get('mfu')} ({mfu.get('mfu_basis')}); first "
+                f"dispatch {serve_s:.1f} s; launches {launches}; census {got}; logits vs "
+                f"meshless rel L2 {rel:.3e}, max abs {max_abs:.3e}; K1 held against its plain "
+                f"version at {len(k1_checks)} call shapes of the rung")
+            torch.cuda.empty_cache()
+        ranks_req = _long_request(LONG_RANKS_BUCKET, LONG_RANKS_LENGTH)
+        (res,) = engine.predict_many([ranks_req])
+        require(res.ok and res.bucket == LONG_RANKS_BUCKET,
+                f"bucket {LONG_RANKS_BUCKET}: {res.status} {res.error}")
+        np.save(os.path.join(os.path.dirname(out_path), "world1_distogram.npy"), res.distogram)
+        report = lattice_report(engine)
+        for rung in report["rungs"]:
+            log(f"[long_mesh] lattice bucket {rung['bucket']} x {rung['batch']}: "
+                f"comm_bytes {rung['comm_bytes']}; " + format_budget("verdict", rung["budget"]))
+        require(report["verdict"] == "pass", f"lattice verdict {report['verdict']}")
+        result["lattice"] = {str(r["bucket"]): r["budget"] for r in report["rungs"]}
+        engine.close()
+        log(f"[long_mesh] card {result['card']}")
+        with open(out_path, "w", encoding="utf-8") as fh:
+            json.dump(result, fh)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def probe_gloo_cuda(world=2):
+    """Whether gloo takes CUDA tensors for the collectives the mesh path
+    uses (all_to_all_single even and uneven, all_reduce sum and max,
+    all_gather_into_tensor, broadcast_object_list through the card, and
+    the ring's batch_isend_irecv), ``world`` ranks on the one card; not part
+    of the run. Logs each op's outcome."""
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke as c; c._gloo_cuda_rank()"], cwd=HERE,
+        env=_rank_env(r, world, port)) for r in range(world)]
+    codes = [p.wait(timeout=300) for p in procs]
+    log(f"[gloo_cuda] ranks exited {codes}")
+    return codes
+
+
+def _gloo_cuda_rank():
+    import torch
+    import torch.distributed as dist
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{os.environ['MASTER_PORT']}",
+                            rank=rank, world_size=world)
+    torch.cuda.set_device(0)
+    x = torch.arange(4 * world, dtype=torch.float32, device="cuda") + 100 * rank
+    splits = [1 + (rank + i) % 2 for i in range(world)]  # rank r sends splits[i] to i
+    recv = [1 + (i + rank) % 2 for i in range(world)]
+    ops = {
+        "all_to_all_single": lambda: dist.all_to_all_single(torch.empty_like(x), x),
+        "all_to_all_single uneven": lambda: dist.all_to_all_single(
+            x.new_empty(sum(recv)), x[:sum(splits)].contiguous(), output_split_sizes=recv,
+            input_split_sizes=splits),
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "all_reduce max": lambda: dist.all_reduce(x.clone(), op=dist.ReduceOp.MAX),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            x.new_empty(world * x.numel()), x),
+        "broadcast_object_list": lambda: dist.broadcast_object_list(
+            [{"op": "forward", "rank": rank}], src=0, device=torch.device("cuda")),
+        "batch_isend_irecv": lambda: [w.wait() for w in dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, x, (rank + 1) % world),
+            dist.P2POp(dist.irecv, torch.empty_like(x), (rank - 1) % world)])],
+    }
+    for name, op in ops.items():
+        try:
+            op()
+            torch.cuda.synchronize()
+            log(f"[gloo_cuda] rank {rank}: {name} on CUDA tensors: ok")
+        except Exception as e:  # noqa: BLE001 — the probe reports what gloo refuses
+            log(f"[gloo_cuda] rank {rank}: {name} on CUDA tensors refused: "
+                f"{type(e).__name__}: {str(e).splitlines()[0][:200]}")
+    dist.destroy_process_group()
+
+
 def _module_spans(modules, fn):
     """Device-timeline ms from entry to exit of each named module over
     ``fn()`` (CUDA events recorded by forward hooks), and the whole
@@ -6787,7 +7402,7 @@ def _shape_entry(rows, kernel, label):
 
 def kernel_line(rows, serve, train, tied_train, sparse_train, gate, engines, telemetry,
                 templates, plm, compress, data, serve_async, serve_fleet, policy=None,
-                predict_cli=None):
+                predict_cli=None, long_mesh=None):
     """One entry per kernel. K1 sums one serving trunk layer's K1 calls at
     bucket 128 (two pair axial passes, the MSA column pass, both cross
     attentions; a call's time includes its combine pass where it splits),
@@ -6831,7 +7446,12 @@ def kernel_line(rows, serve, train, tied_train, sparse_train, gate, engines, tel
     policy (by its description), and ``predict_cli_launches``: their
     launches in phase_predict_cli's in-process run; K4 carries
     ``policy_launches``: its launches in the SparseAttention pass under each
-    block_sparse choice."""
+    block_sparse choice. Every entry carries ``mesh_launches``: its launches
+    serving one request on each long rung of phase_long_mesh's
+    world-size-1 mesh (the rung's first dispatch: the warm, counted and
+    request forwards), by bucket; 0 where the mesh path does not run it;
+    and ``mesh_rank_launches``: each rank's launches in the same dispatch
+    on the LONG_RANKS_BUCKET rung of the four ranks' 1x2x2 grid."""
     serve_k1 = {"pair axial pass (1536x8, 384x384, d64)": 2,
                 "MSA column pass (512x8, 5x5, d64)": 1,
                 "pair<-MSA cross (4x8, 147456x640, d64)": 1,
@@ -6922,6 +7542,11 @@ def kernel_line(rows, serve, train, tied_train, sparse_train, gate, engines, tel
                 e["predict_cli_launches"] = predict_cli["launches"][e["name"]]
         if e["name"] == "block_sparse_attention" and policy is not None:
             e["policy_launches"] = dict(policy["sparse"]["launches"])
+        if long_mesh is not None:
+            e["mesh_launches"] = {bucket: run["launches"].get(e["name"], 0)
+                                  for bucket, run in long_mesh["rungs"].items()}
+            e["mesh_rank_launches"] = [r["launches"].get(e["name"], 0)
+                                       for r in long_mesh["ranks"]]
     return {"kernels": entries}
 
 
@@ -7018,6 +7643,7 @@ def main() -> int:
         phase_se3_streamed()
         serve = phase_serve()
         lattice = phase_lattice(serve["engine"])
+        long_mesh = phase_long_mesh()
         serve_async = phase_serve_async(serve.pop("engine"))
         serve_fleet = phase_serve_fleet(serve_async.pop("state"), serve_async["serial_req_per_s"],
                                         serve.pop("atom14"))
@@ -7042,7 +7668,7 @@ def main() -> int:
     log(card)
     print(json.dumps(kernel_line(rows, serve, train, tied_train, sparse_train, gate,
                                  engines, telemetry, templates, plm, compress, data,
-                                 serve_async, serve_fleet, policy, predict_cli)),
+                                 serve_async, serve_fleet, policy, predict_cli, long_mesh)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -176,5 +176,5 @@ def test_unported_options_raise():
     ServeEngine(cfg, device="cpu")
     cfg = _tiny_config()
     cfg.serve.long_buckets = (512,)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="require a device mesh"):
         ServeEngine(cfg, device="cpu")

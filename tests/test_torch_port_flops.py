@@ -13,8 +13,8 @@ serving engine's cost ledger on it.
   and each result's ``cost["flops_share"]`` is the key's flops over the
   batch's real members, as in JAX (``serve/engine.py:764-798``).
 - The published peaks: 989.4e12 for "NVIDIA H100 80GB HBM3", None on the
-  CPU; ``mesh_mfu`` refuses a mesh and falls back to a measured matmul rate
-  off the table.
+  CPU; ``mesh_mfu`` divides by every rank's published peak on a mesh and
+  falls back to a measured matmul rate (no multiplier) off the table.
 """
 
 import pytest
@@ -160,11 +160,21 @@ def test_published_peaks_and_mfu():
     assert flops.peak_flops_for_kind("TPU v5 lite") is None
     assert flops.device_peak_flops("cpu") is None
     assert flops.SANITY_FLOPS_CEILING == jflops.SANITY_FLOPS_CEILING
-    with pytest.raises(NotImplementedError):
-        flops.mesh_mfu(1e9, 1.0, mesh=object())
     assert flops.mesh_mfu(None, 1.0) == {"mfu": None}
     got = flops.mesh_mfu(1e9, 1.0, device="cpu")
     assert got["mfu_basis"] == "calibrated-matmul" and got["mfu"] > 0
+
+    class FourRanks:  # a mesh's size is all mesh_mfu reads
+        def size(self):
+            return 4
+
+    # on the measured rate the ranks share one machine: no multiplier (JAX's)
+    assert flops.mesh_mfu(1e9, 1.0, mesh=FourRanks(), device="cpu") == got
+    with pytest.MonkeyPatch.context() as mp:  # a published peak: every rank's
+        mp.setattr(flops, "device_peak_flops", lambda device=None: 1e12)
+        assert flops.mesh_mfu(2e12, 1.0) == {"mfu": 2.0, "mfu_basis": "published-peak"}
+        assert flops.mesh_mfu(2e12, 1.0, mesh=FourRanks()) == {
+            "mfu": 0.5, "mfu_basis": "published-peak"}
     assert flops.calibrated_peak_flops("cpu") == flops.calibrated_peak_flops("cpu")  # cached
     if not torch.cuda.is_available():  # the card by default: no quiet CPU fallback
         with pytest.raises(RuntimeError):

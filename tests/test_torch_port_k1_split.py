@@ -156,3 +156,28 @@ def test_combine_on_the_cpu_takes_the_plain_version():
         axial.fused_attention_combine(m, l[:1], acc)
     with pytest.raises(ValueError):  # q_mask of the wrong shape
         axial.fused_attention_combine(m, l, acc, q_mask=torch.ones((1, 8), dtype=torch.bool))
+
+
+# (b, h, nq, nk, d): the merged MSA<-pair pass of the long rungs 512 and 768
+# at batch 1 (2,560 / 3,840 MSA tokens over the 1,536^2 / 2,304^2 pair
+# keys), and a long key axis whose blocks already fill the card
+LONG_KEYS = {
+    "MSA<-pair, bucket 512": (1, 8, 2560, 2359296, 64),
+    "MSA<-pair, bucket 768": (1, 8, 3840, 5308416, 64),
+    "many blocks, long keys": (64, 8, 1024, 1000000, 64),
+}
+
+
+@pytest.mark.parametrize("name", list(LONG_KEYS))
+def test_no_split_streams_more_than_max_split_tiles(name):
+    """K1's f32 accumulator of P V drifts over a long stream of key tiles,
+    so no split may stream more than MAX_SPLIT_TILES of them, whatever the
+    grid; the splits still cover the key axis once."""
+    b, h, nq, nk, d = LONG_KEYS[name]
+    s = axial.key_splits(b, h, nq, nk, d)
+    ranges = axial.split_ranges(nk, s)
+    assert axial.MAX_SPLIT_TILES <= 1024
+    assert max(hi - lo for lo, hi in ranges) <= axial.MAX_SPLIT_TILES * axial.KEY_TILE
+    assert ranges[0][0] == 0 and ranges[-1][1] == nk
+    assert all(a[1] == b_[0] for a, b_ in zip(ranges, ranges[1:]))
+    assert s == -(-(-(-nk // axial.KEY_TILE)) // axial.MAX_SPLIT_TILES)

@@ -313,7 +313,7 @@ def test_depth_one_backpressure_and_refusals(engines):
                                                for i in range(5)]))
     with pytest.raises(ValueError, match="pipeline_depth"):
         engines(pipeline_depth=-1)
-    with pytest.raises(NotImplementedError, match="long buckets"):
+    with pytest.raises(ValueError, match="require a device mesh"):
         engines(long_buckets=(32,))
 
 

@@ -26,7 +26,8 @@ the axial positional embeddings and the pair mask are built on the local
 block from the token embeddings, which every rank computes whole; the MSA
 stream is replicated; the symmetrisation ``x + x^T`` takes the transposed
 block from the ranks that hold it (``sharding.transpose_pair``: nothing
-larger than the local block moves), then the head's LayerNorm and
+larger than the local block moves; under autograd its backward is the same
+transpose of the cotangent), then the head's LayerNorm and
 projection run locally. Templates and the ``embedds`` stream are refused
 on a mesh. ``dtype`` is the
 compute dtype; parameters stay float32. ``attn_dropout`` and

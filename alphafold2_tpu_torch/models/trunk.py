@@ -53,9 +53,15 @@ over the local pair keys and merges across the ranks
 (``Attention.forward_sharded_context``). With ``context_parallel`` ("ring"
 or "ulysses") on a 1D mesh both cross passes take JAX's context-parallel
 route instead (``Attention.forward_context_parallel``; not the compressed
-pair<-MSA pass, as in JAX). ``msa_row_shard`` is accepted and applies
-nothing yet (the MSA stays replicated, ROADMAP section 1). The reversible
-engine refuses the three flags, as JAX's does, and an active mesh.
+pair<-MSA pass, as in JAX). ``msa_row_shard`` leaves the MSA replicated:
+JAX's row-sharded tied rows are not ported (ROADMAP section 1). The loop
+and scanned engines train on a rank's blocks, with and without ``remat``:
+every sharded route is differentiable (``parallel/sharding.py``'s rule for
+the sharded backward), and remat's recompute replays a layer's forward
+collectives in the same order on every rank, since every rank runs the
+same graph, under the mesh and kernel policy of the forward
+(``remat_call``). The reversible engine refuses the three flags, as JAX's
+does, and an active mesh.
 """
 
 from __future__ import annotations
@@ -72,8 +78,9 @@ from alphafold2_tpu_torch.ops.attention import (
     Attention, AxialAttention, DropoutKey, FeedForward, child_key,
 )
 from alphafold2_tpu_torch.ops.layers import LayerNorm
+from alphafold2_tpu_torch.ops import kernels as kernel_policy
 from alphafold2_tpu_torch.parallel.sharding import (
-    SEQ_AXIS, active_mesh, axis_names, shard_msa, shard_pair,
+    SEQ_AXIS, active_mesh, axis_names, shard_msa, shard_pair, use_mesh,
 )
 
 
@@ -189,11 +196,21 @@ def resolve_remat_policy(name: Optional[str]):
 
 def remat_call(fn, context_fn, *args):
     """``fn(*args)`` with its activations recomputed in the backward (under
-    ``context_fn``'s policy when one is given); plain under no gradient."""
+    ``context_fn``'s policy when one is given); plain under no gradient.
+    The recompute runs under the device mesh and the kernel policy active
+    now: it runs where autograd runs the backward, which may be another
+    thread (the card's) and outside the step's ``use_mesh``, and must
+    replay the forward's route and collectives exactly."""
     if not torch.is_grad_enabled():
         return fn(*args)
+    mesh, policy = active_mesh(), kernel_policy.current_policy()
+
+    def replayed(*a):
+        with use_mesh(mesh), kernel_policy.use_kernel_policy(policy):
+            return fn(*a)
+
     kw = {} if context_fn is None else {"context_fn": context_fn}
-    return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return checkpoint(replayed, *args, use_reentrant=False, **kw)
 
 
 def stack_parameters(module: nn.Module, depth: int) -> nn.Module:

@@ -42,8 +42,9 @@ merges them. Their plain versions: :func:`attention_partials_reference` and
 
 K3a/K3b's bf16 backward at head dim 32, 64 or 128 runs the Hopper kernels of
 ``csrc/fused_attention_bwd_sm90.cuh``. Where a kernel's grid leaves the card
-short of two waves, :func:`grad_splits` cuts its long loop (keys for K3a,
-queries for K3b) into ranges; each block then writes f32 partials and K3's
+short of two waves, or a range would stream more than MAX_GRAD_SPLIT_TILES
+tiles, :func:`grad_splits` cuts its long loop (keys for K3a, queries for
+K3b) into ranges; each block then writes f32 partials and K3's
 merge pass (:func:`fused_attention_bwd_merge`) adds them in split order.
 Their plain versions: :func:`dq_partials_reference`,
 :func:`dkv_partials_reference` and :func:`merge_grad_partials_reference`.
@@ -53,6 +54,9 @@ requires it, it runs :class:`FusedAttention`: on the card K1 with the
 logsumexp forward and K3a + K3b backward, on the CPU the plain versions of
 the same math (never autograd through an einsum). Otherwise it runs the
 no-logsumexp forward, which is all serving launches.
+:func:`fused_attention_lse` is differentiable in its lse too
+(:class:`FusedAttentionLse`), as the sharded passes that merge partials by
+their lse need it.
 
 Contract (the JAX function's, with one sharpening): q (B, H, Nq, D),
 k/v (B, H, Nk, D), boolean ``q_mask`` (B, Nq) and ``kv_mask`` (B, Nk)
@@ -96,6 +100,15 @@ LN2 = math.log(2.0)
 GRAD_TILE = 64
 GRAD_SM90_HEAD_DIMS = (32, 64, 128)
 MIN_GRAD_SPLIT_TILES = 4
+# 64-row tiles a K3a key range or a K3b query range streams at most: the
+# tensor cores' f32 accumulators of dS K (K3a), dS^T Q and P^T dO (K3b)
+# drift over a long stream, as K1's of P V does. On the H100 against the
+# plain version, one split (chip_smoke.py phase_k3_streams): relative L2
+# 6.5e-4 / 6.1e-4 (K3a / K3b) after 1,024 tiles, 9.5e-4 / 8.5e-4 after
+# 2,048, 1.3e-3 / 1.3e-3 after 4,096, 2.0e-3 / 1.8e-3 after 9,216, all
+# inside the bf16 bound of 4e-3 and growing about as the root of the
+# stream; the cap is the longest stream measured
+MAX_GRAD_SPLIT_TILES = 9216
 # K1's packed kernel (csrc/fused_attention_packed_sm90.cuh kRows, kMaxN,
 # kRingBytes, kSMs; PackedControl), mirrored: 128-row tiles of G problems,
 # problems under 64 tokens, a 192 KB ring of whole stages, one persistent
@@ -172,22 +185,26 @@ def key_splits(b: int, h: int, nq: int, nk: int, d: int) -> int:
 
 def grad_splits(b: int, h: int, nq: int, nk: int, d: int, which: str) -> int:
     """How many contiguous ranges K3a (``which`` "dq") cuts its key loop
-    into, or K3b ("dkv") its query loop: 1 where the kernel's
-    b*h*ceil(rows/64) blocks (rows: queries for K3a, keys for K3b) make two
-    waves on the card's 132 SMs, otherwise enough ranges for about two
-    waves, each of at least MIN_GRAD_SPLIT_TILES 64-row tiles. A pure
-    function of the shape, as :func:`key_splits`: the wrapper passes it to
-    the kernel, the build gate plans with it. ``d`` does not change the
+    into, or K3b ("dkv") its query loop: enough that no range streams more
+    than MAX_GRAD_SPLIT_TILES 64-row tiles, and where the kernel's
+    b*h*ceil(rows/64) blocks (rows: queries for K3a, keys for K3b) make
+    less than two waves on the card's 132 SMs, at least enough for about
+    two waves, each of at least MIN_GRAD_SPLIT_TILES tiles. A pure function
+    of the shape, as :func:`key_splits`: the wrapper passes it to the
+    kernel, the build gate plans with it. ``d`` does not change the
     count."""
     del d
     if which not in ("dq", "dkv"):
         raise ValueError(f"which must be 'dq' or 'dkv', not {which!r}")
     rows, streamed = (nq, nk) if which == "dq" else (nk, nq)
     blocks = b * h * -(-rows // GRAD_TILE)
-    if blocks == 0 or blocks >= 2 * SM_COUNT:
+    if blocks == 0:
         return 1
     tiles = -(-streamed // GRAD_TILE)
-    return max(1, min(-(-2 * SM_COUNT // blocks), tiles // MIN_GRAD_SPLIT_TILES))
+    longest = -(-tiles // MAX_GRAD_SPLIT_TILES)
+    if blocks >= 2 * SM_COUNT:
+        return max(1, longest)
+    return max(1, longest, min(-(-2 * SM_COUNT // blocks), tiles // MIN_GRAD_SPLIT_TILES))
 
 
 def split_ranges(nk: int, splits: int, block: int = KEY_TILE) -> list:
@@ -645,8 +662,16 @@ fused_attention_combine.launches = 0
 def fused_attention_lse(q, k, v, q_mask=None, kv_mask=None, sm_scale=1.0):
     """K1's training forward: (out, lse), lse the (B, H, Nq) f32 logsumexp
     of each row's scaled logits over its valid keys, +inf for a row with
-    none. Not differentiable itself: :class:`FusedAttention` wraps it."""
+    none. Where grad is enabled and an input requires it, it runs
+    :class:`FusedAttentionLse`, differentiable in both outputs (the
+    sharded passes merge partials by their lse)."""
     _check(q, k, v, q_mask, kv_mask)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FusedAttentionLse.apply(q, k, v, q_mask, kv_mask, sm_scale)
+    return _lse_forward(q, k, v, q_mask, kv_mask, sm_scale)
+
+
+def _lse_forward(q, k, v, q_mask, kv_mask, sm_scale):
     if q.device.type == "cpu":
         return fused_attention_lse_reference(q, k, v, q_mask, kv_mask, sm_scale)
     build.tally_flops("fused_attention", attention_flops(*q.shape[:3], k.shape[2], q.shape[3]))
@@ -852,7 +877,7 @@ class FusedAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, q_mask, kv_mask, sm_scale):
-        out, lse = fused_attention_lse(q, k, v, q_mask, kv_mask, sm_scale)
+        out, lse = _lse_forward(q, k, v, q_mask, kv_mask, sm_scale)
         ctx.save_for_backward(q, k, v, out, lse, q_mask, kv_mask)
         ctx.sm_scale = sm_scale
         return out
@@ -862,6 +887,29 @@ class FusedAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse, q_mask, kv_mask = ctx.saved_tensors
         args = (q, k, v, dout, lse, attention_dsum(out, dout), q_mask, kv_mask, ctx.sm_scale)
+        return (fused_attention_dq(*args), *fused_attention_dkv(*args), None, None, None)
+
+
+class FusedAttentionLse(torch.autograd.Function):
+    """K1 with lse as a second differentiable output, backward by K3a/K3b
+    (their plain versions on the CPU). The lse's cotangent needs no kernel
+    of its own: d lse_i / d s_ij is the probability p_ij, so it enters the
+    logits' cotangent p_ij (dP_ij - dsum_i + dlse_i) as a shift of dsum,
+    and K3 runs with dsum - dlse (0 on rows with no valid key)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_mask, kv_mask, sm_scale):
+        out, lse = _lse_forward(q, k, v, q_mask, kv_mask, sm_scale)
+        ctx.save_for_backward(q, k, v, out, lse, q_mask, kv_mask)
+        ctx.sm_scale = sm_scale
+        return out, lse
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout, dlse):
+        q, k, v, out, lse, q_mask, kv_mask = ctx.saved_tensors
+        dsum = attention_dsum(out, dout) - torch.where(torch.isfinite(lse), dlse.float(), 0.0)
+        args = (q, k, v, dout.to(q.dtype), lse, dsum, q_mask, kv_mask, ctx.sm_scale)
         return (fused_attention_dq(*args), *fused_attention_dkv(*args), None, None, None)
 
 

@@ -32,7 +32,7 @@ import torch
 import torch.distributed as dist
 
 from alphafold2_tpu_torch.parallel.sharding import (
-    DATA_AXIS, SEQ_AXIS, axis_index, axis_size, build_mesh,
+    DATA_AXIS, SEQ_AXIS, axis_index, axis_size, build_mesh, require_process_group,
 )
 
 
@@ -76,8 +76,10 @@ def initialize(coordinator_address: Optional[str] = None,
 
 
 def pod_mesh(n_data: int = -1, n_seq: int = 1):
-    """A ``(dp, sp)`` mesh over every rank; ``n_data=-1`` fills ``dp``."""
-    total = dist.get_world_size() if dist.is_initialized() else 1
+    """A ``(dp, sp)`` mesh over every rank; ``n_data=-1`` fills ``dp``.
+    Needs an initialised process group, as every mesh does."""
+    require_process_group()
+    total = dist.get_world_size()
     if n_data == -1:
         if total % n_seq:
             raise ValueError(f"{total} ranks do not divide by sp={n_seq}")
@@ -88,16 +90,23 @@ def pod_mesh(n_data: int = -1, n_seq: int = 1):
 
 
 def global_batch(batch: dict, mesh) -> dict:
-    """This rank's ``dp`` slice (along dim 0) of every array of ``batch``,
-    which each rank holds whole; the global batch must divide by ``dp``."""
+    """This rank's ``dp`` slice (along dim 0) of every array of ``batch``
+    with a batch axis (``seq``, ``mask``, ``msa``, ``msa_mask``,
+    ``coords``, ``labels``, ``embedds``, ``backbone``: every array whose
+    leading axis is the batch ``seq`` has), which each rank holds whole;
+    other entries pass as they are. The global batch must divide by
+    ``dp``."""
     n_dp, i = axis_size(mesh, DATA_AXIS), axis_index(mesh, DATA_AXIS)
-    out = {}
-    for key, value in batch.items():
-        b = value.shape[0]
-        if b % n_dp:
-            raise ValueError(f"batch {b} of {key!r} does not divide by dp={n_dp}")
-        out[key] = value[i * (b // n_dp):(i + 1) * (b // n_dp)]
-    return out
+    lead = batch.get("seq")
+    if lead is None:
+        lead = next(v for v in batch.values() if getattr(v, "ndim", 0) > 0)
+    b = lead.shape[0]
+    if b % n_dp:
+        raise ValueError(f"batch {b} does not divide by dp={n_dp}")
+    step = b // n_dp
+    return {key: value[i * step:(i + 1) * step]
+            if getattr(value, "ndim", 0) > 0 and value.shape[0] == b else value
+            for key, value in batch.items()}
 
 
 @contextmanager

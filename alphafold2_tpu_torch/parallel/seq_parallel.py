@@ -18,6 +18,13 @@ collectives, for ranks that each hold a block of the sequence axis:
   rescaled sums): exact, and what the MSA<-pair cross-attention uses, whose
   keys are the rank's block of the pair grid.
 
+Each is differentiable: K1 with lse is (``FusedAttentionLse``: K3a/K3b run
+with dsum less the lse's cotangent), and so is every collective
+(``parallel/sharding.py``). The ring's backward passes the cotangents of
+the visiting keys and values back along the ring, the way JAX
+differentiates its ``scan`` over ``ppermute``; a merge's running max is a
+stabiliser and carries no gradient.
+
 On the CPU every K1 call runs its plain version, as the wrappers always do
 there; a kernel policy that routes the flat passes away from K1 (``flash``
 ``on`` or ``off``) runs K1's plain version with lse here, since SDPA
@@ -55,7 +62,7 @@ def _fold(state, out, lse):
     """Fold one block's normalised ``out`` and its ``lse`` into the running
     (max, sum, accumulator), all f32."""
     m, l, acc = state
-    m_new = torch.maximum(m, lse)
+    m_new = torch.maximum(m, lse.detach())
     safe = torch.where(torch.isfinite(m_new), m_new, torch.zeros_like(m_new))
     alpha, beta = torch.exp(m - safe), torch.exp(lse - safe)
     return m_new, l * alpha + beta, acc * alpha[..., None] + out.float() * beta[..., None]

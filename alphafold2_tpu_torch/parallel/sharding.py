@@ -25,14 +25,37 @@ every cross-rank step is one of the explicit collectives below.
   are whole on every rank by construction, and nothing is gathered to
   make them so.
 - Every collective of the port goes through :func:`all_to_all`,
-  :func:`all_gather`, :func:`all_reduce`, :func:`ring_shift` and
-  :func:`broadcast_object`, each of which records ``(op, mesh axis,
-  bytes)`` into a process-wide census (:func:`census`), the way
-  ``ops/cuda/build.py``'s ``count`` records kernel launches; the collective
-  audit (``analysis/hlo_audit.py``) reads it. Over an axis of one rank a
-  wrapper records what it would send and returns its input (or a view of
-  it) without calling the backend: the census stays whole, and the one
-  card's world-1 mesh copies nothing.
+  :func:`all_to_all_uneven`, :func:`all_gather`, :func:`reduce_scatter`,
+  :func:`all_reduce`, :func:`ring_shift` and :func:`broadcast_object`, each
+  of which records ``(op, mesh axis, bytes)`` into a process-wide census
+  (:func:`census`), the way ``ops/cuda/build.py``'s ``count`` records
+  kernel launches; the collective audit (``analysis/hlo_audit.py``) reads
+  it. Over an axis of one rank a wrapper records what it would send and
+  returns its input (or a view of it) without calling the backend: the
+  census stays whole, and the one card's world-1 mesh copies nothing.
+
+The sharded backward follows the rule GSPMD gives JAX implicitly:
+
+- Each collective's backward is its SPMD transpose, run where autograd
+  reaches it (an ``autograd.Function`` a wrapper, entered only where grad
+  is enabled and an input requires it): ``all_to_all`` the inverse
+  all_to_all, ``all_to_all_uneven`` the same with the split sizes swapped,
+  ``all_gather`` a reduce-scatter (sum) of which each rank keeps its
+  block, ``reduce_scatter`` an all_gather, an ``all_reduce`` sum an
+  all_reduce sum of the cotangents, ``transpose_pair`` itself,
+  ``ring_shift`` the shift the other way; an ``all_reduce`` max carries no
+  gradient. :func:`gather_pair` is an all_gather and views. The backward
+  records its collectives in the census too, so a step's census holds the
+  forward, remat's recompute and the backward.
+- A replicated tensor's cotangent is held as partials, one a rank, that
+  sum to the whole; a rank's block holds the whole cotangent of its block.
+  Each rank's loss is its own share of the global loss (its valid pairs'
+  sum over the valid count summed over the world, that count reduced with
+  no gradient), so every parameter gradient after ``backward`` is a
+  partial, summed once over the whole world (``train/loop.py``
+  ``reduce_gradients``: one flat buffer in parameter order, one all_reduce
+  a micro-step). Replicated parameters and optimizer state then stay
+  bit-identical on every rank, and so do ``grads_ok`` and the skip.
 
 ``AF2TPU_AUDIT_DROP_SHARD_PAIR`` is the audit's negative control: with it
 set, :func:`shard_pair` replicates the pair state onto every rank by an
@@ -67,17 +90,22 @@ def _device_type() -> str:
     return "cuda" if dist.get_backend() == "nccl" else "cpu"
 
 
+def require_process_group() -> None:
+    """Raise unless a process group is initialised, as every mesh needs."""
+    if not dist.is_available() or not dist.is_initialized():
+        raise RuntimeError(
+            "a device mesh needs an initialised process group: call "
+            "alphafold2_tpu_torch.parallel.distributed.initialize() (torchrun's env) "
+            "or torch.distributed.init_process_group first")
+
+
 def build_mesh(shape: tuple, names: tuple):
     """A DeviceMesh of ``shape`` over every rank of the initialised process
     group, row-major, with axis ``names``. Raises without a process group
     or when the shape does not cover the world."""
     from torch.distributed.device_mesh import init_device_mesh
 
-    if not dist.is_available() or not dist.is_initialized():
-        raise RuntimeError(
-            "a device mesh needs an initialised process group: call "
-            "alphafold2_tpu_torch.parallel.distributed.initialize() (torchrun's env) "
-            "or torch.distributed.init_process_group first")
+    require_process_group()
     world = dist.get_world_size()
     n = 1
     for s in shape:
@@ -258,11 +286,11 @@ def _nbytes(t: torch.Tensor) -> int:
 # ----------------------------------------------------------- collectives
 
 
-def all_to_all(t: torch.Tensor, mesh, axis: str, split_dim: int, concat_dim: int):
-    """JAX's tiled ``lax.all_to_all`` over one mesh axis: ``t``'s
-    ``split_dim`` cut into one chunk a rank of the axis, chunk ``i`` sent
-    to rank ``i``, the chunks received concatenated along ``concat_dim``
-    in rank order. One ``all_to_all_single``."""
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _all_to_all(t, mesh, axis, split_dim, concat_dim):
     group = axis_group(mesh, axis)
     size = dist.get_world_size(group)
     if t.shape[split_dim] % size:
@@ -278,11 +306,29 @@ def all_to_all(t: torch.Tensor, mesh, axis: str, split_dim: int, concat_dim: int
     return recv.movedim(0, concat_dim).flatten(concat_dim, concat_dim + 1)
 
 
-def all_to_all_uneven(send: torch.Tensor, send_splits: list, recv_splits: list, mesh,
-                      axis: str):
-    """``all_to_all_single`` with per-rank split sizes along dim 0 of a
-    contiguous ``send``: ``send_splits[i]`` rows go to rank ``i``,
-    ``recv_splits[i]`` rows come from it."""
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, split_dim, concat_dim):
+        ctx.args = (mesh, axis, concat_dim, split_dim)
+        return _all_to_all(t, mesh, axis, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, *ctx.args), None, None, None, None
+
+
+def all_to_all(t: torch.Tensor, mesh, axis: str, split_dim: int, concat_dim: int):
+    """JAX's tiled ``lax.all_to_all`` over one mesh axis: ``t``'s
+    ``split_dim`` cut into one chunk a rank of the axis, chunk ``i`` sent
+    to rank ``i``, the chunks received concatenated along ``concat_dim``
+    in rank order. One ``all_to_all_single``; its backward is the inverse
+    all_to_all (``concat_dim`` split, ``split_dim`` concatenated)."""
+    if _needs_grad(t):
+        return _AllToAll.apply(t, mesh, axis, split_dim, concat_dim)
+    return _all_to_all(t, mesh, axis, split_dim, concat_dim)
+
+
+def _all_to_all_uneven(send, send_splits, recv_splits, mesh, axis):
     group = axis_group(mesh, axis)
     _record("all_to_all", axis, _nbytes(send))
     if dist.get_world_size(group) == 1:
@@ -293,9 +339,29 @@ def all_to_all_uneven(send: torch.Tensor, send_splits: list, recv_splits: list, 
     return recv
 
 
-def all_gather(t: torch.Tensor, mesh, axis: str, dim: int = 0):
-    """Every rank's ``t`` of mesh axis ``axis`` concatenated along ``dim``
-    in rank order (JAX's tiled ``all_gather``)."""
+class _AllToAllUneven(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, send, send_splits, recv_splits, mesh, axis):
+        ctx.args = (recv_splits, send_splits, mesh, axis)
+        return _all_to_all_uneven(send, send_splits, recv_splits, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all_uneven(g.contiguous(), *ctx.args), None, None, None, None
+
+
+def all_to_all_uneven(send: torch.Tensor, send_splits: list, recv_splits: list, mesh,
+                      axis: str):
+    """``all_to_all_single`` with per-rank split sizes along dim 0 of a
+    contiguous ``send``: ``send_splits[i]`` rows go to rank ``i``,
+    ``recv_splits[i]`` rows come from it. Its backward sends the
+    cotangent's rows back with the split sizes swapped."""
+    if _needs_grad(send):
+        return _AllToAllUneven.apply(send, send_splits, recv_splits, mesh, axis)
+    return _all_to_all_uneven(send, send_splits, recv_splits, mesh, axis)
+
+
+def _all_gather(t, mesh, axis, dim):
     group = axis_group(mesh, axis)
     size = dist.get_world_size(group)
     if size == 1:
@@ -309,9 +375,67 @@ def all_gather(t: torch.Tensor, mesh, axis: str, dim: int = 0):
     return out.view(size, *t.shape).movedim(0, dim).flatten(dim, dim + 1)
 
 
-def all_reduce(t: torch.Tensor, mesh, axis: str, op: str = "sum"):
-    """The elementwise ``op`` ("sum" or "max") of ``t`` over mesh axis
-    ``axis``, in a new tensor (``t`` itself over one rank)."""
+def _reduce_scatter(t, mesh, axis, dim):
+    group = axis_group(mesh, axis)
+    size = dist.get_world_size(group)
+    if t.shape[dim] % size:
+        raise ValueError(f"axis {dim} of {tuple(t.shape)} does not divide by mesh axis "
+                         f"{axis}={size} for the reduce-scatter")
+    if size == 1:
+        _record("reduce_scatter", axis, _nbytes(t))
+        return t
+    send = t.unflatten(dim, (size, -1)).movedim(dim, 0).contiguous()
+    out = send.new_empty(send[0].numel())
+    _record("reduce_scatter", axis, _nbytes(send))
+    dist.reduce_scatter_tensor(out, send.view(-1), op=dist.ReduceOp.SUM, group=group)
+    return out.view(send.shape[1:])
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.args = (mesh, axis, dim)
+        return _all_gather(t, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, *ctx.args), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.args = (mesh, axis, dim)
+        return _reduce_scatter(t, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim = ctx.args
+        return _all_gather(g, mesh, axis, dim), None, None, None
+
+
+def all_gather(t: torch.Tensor, mesh, axis: str, dim: int = 0):
+    """Every rank's ``t`` of mesh axis ``axis`` concatenated along ``dim``
+    in rank order (JAX's tiled ``all_gather``). Its backward is a
+    reduce-scatter: the cotangents summed over the axis, each rank keeping
+    its own block."""
+    if _needs_grad(t):
+        return _AllGather.apply(t, mesh, axis, dim)
+    return _all_gather(t, mesh, axis, dim)
+
+
+def reduce_scatter(t: torch.Tensor, mesh, axis: str, dim: int = 0):
+    """The sum of ``t`` over mesh axis ``axis``, of which each rank keeps
+    block ``i`` (its index on the axis) along ``dim``: one
+    ``reduce_scatter_tensor`` (NCCL, and gloo on the CPU and on CUDA
+    tensors, ``chip_smoke.py`` ``probe_gloo_cuda``). Its backward is an
+    all_gather."""
+    if _needs_grad(t):
+        return _ReduceScatter.apply(t, mesh, axis, dim)
+    return _reduce_scatter(t, mesh, axis, dim)
+
+
+def _all_reduce(t, mesh, axis, op):
     group = axis_group(mesh, axis)
     _record("all_reduce", axis, _nbytes(t))
     if dist.get_world_size(group) == 1:
@@ -322,10 +446,33 @@ def all_reduce(t: torch.Tensor, mesh, axis: str, op: str = "sum"):
     return out
 
 
-def ring_shift(tensors, mesh, axis: str):
-    """Each tensor of ``tensors`` sent one hop along the ring of mesh axis
-    ``axis`` (rank ``i`` to ``i + 1``) and the previous rank's received in
-    its place, by ``batch_isend_irecv``; returns the received tensors."""
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.args = (mesh, axis)
+        return _all_reduce(t, mesh, axis, "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, *ctx.args, "sum"), None, None
+
+
+def all_reduce(t: torch.Tensor, mesh, axis: str, op: str = "sum"):
+    """The elementwise ``op`` ("sum" or "max") of ``t`` over mesh axis
+    ``axis``, in a new tensor (``t`` itself over one rank). A sum's
+    backward is the sum of the cotangents over the axis; a max carries no
+    gradient (its one use, the merges' stabiliser, cancels out of their
+    result)."""
+    if op not in ("sum", "max"):
+        raise ValueError(f"all_reduce op must be 'sum' or 'max', not {op!r}")
+    if _needs_grad(t):
+        if op == "max":
+            return _all_reduce(t.detach(), mesh, axis, op)
+        return _AllReduceSum.apply(t, mesh, axis)
+    return _all_reduce(t, mesh, axis, op)
+
+
+def _ring_shift(tensors, mesh, axis, step=1):
     group = axis_group(mesh, axis)
     size = dist.get_world_size(group)
     if size == 1:
@@ -333,8 +480,8 @@ def ring_shift(tensors, mesh, axis: str):
             _record("send_recv", axis, _nbytes(t))
         return list(tensors)
     me = dist.get_rank(group)
-    nxt = dist.get_global_rank(group, (me + 1) % size)
-    prv = dist.get_global_rank(group, (me - 1) % size)
+    nxt = dist.get_global_rank(group, (me + step) % size)
+    prv = dist.get_global_rank(group, (me - step) % size)
     ops, out = [], []
     for t in tensors:
         t = t.contiguous()
@@ -346,6 +493,35 @@ def ring_shift(tensors, mesh, axis: str):
     for work in dist.batch_isend_irecv(ops):
         work.wait()
     return out
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axis, *tensors):
+        ctx.args = (mesh, axis)
+        ctx.floating = [t.is_floating_point() for t in tensors]
+        out = _ring_shift(tensors, mesh, axis)
+        for t, f in zip(out, ctx.floating):
+            if not f:
+                ctx.mark_non_differentiable(t)
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        moved = iter(_ring_shift([g for g, f in zip(grads, ctx.floating) if f], *ctx.args,
+                                 step=-1))
+        return (None, None, *(next(moved) if f else None for f in ctx.floating))
+
+
+def ring_shift(tensors, mesh, axis: str):
+    """Each tensor of ``tensors`` sent one hop along the ring of mesh axis
+    ``axis`` (rank ``i`` to ``i + 1``) and the previous rank's received in
+    its place, by ``batch_isend_irecv``; returns the received tensors. The
+    backward sends each floating tensor's cotangent one hop the other way."""
+    tensors = list(tensors)
+    if _needs_grad(*tensors):
+        return list(_RingShift.apply(mesh, axis, *tensors))
+    return _ring_shift(tensors, mesh, axis)
 
 
 def broadcast_object(obj, src: int = 0, device: Optional[torch.device] = None):
@@ -441,12 +617,31 @@ def gather_pair(block: torch.Tensor, mesh, axis: str = "world") -> torch.Tensor:
     return g.reshape(n_data * b, lay.n_row * hr, lay.n_col * wc, *tail)
 
 
+class _TransposePair(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, n, mesh):
+        ctx.args = (n, mesh)
+        return _transpose_pair(x, n, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _transpose_pair(g, *ctx.args), None, None
+
+
 def transpose_pair(x: torch.Tensor, n: int, mesh) -> torch.Tensor:
     """This rank's block of ``x``'s transpose over the two pair axes: rows
     ``I`` and columns ``J`` of ``x^T`` are ``x[J, I]``, which other ranks
     hold. Each rank sends every rank of its sequence group the part of its
     block the other's transposed block needs, in one uneven
-    ``all_to_all_single``; nothing larger than the local block moves."""
+    ``all_to_all_single``; nothing larger than the local block moves. The
+    transpose is its own inverse and its own adjoint: its backward is
+    itself on the cotangent."""
+    if _needs_grad(x):
+        return _TransposePair.apply(x, n, mesh)
+    return _transpose_pair(x, n, mesh)
+
+
+def _transpose_pair(x, n, mesh):
     lay = pair_layout(mesh)
     axis = "seq"
     hr, wc = n // lay.n_row, n // lay.n_col
@@ -476,7 +671,7 @@ def transpose_pair(x: torch.Tensor, n: int, mesh) -> torch.Tensor:
     b = x.shape[0]
     recv_splits = [0 if s is None else b * (s[1] - s[0]) * (s[3] - s[2]) for s in recv_spec]
     flat = torch.cat(send) if send else x.new_empty((0, *tail))
-    recv = all_to_all_uneven(flat, send_splits, recv_splits, mesh, axis)
+    recv = _all_to_all_uneven(flat, send_splits, recv_splits, mesh, axis)
     out = x.new_empty(x.shape)
     at = 0
     for spec, rows in zip(recv_spec, recv_splits):

@@ -15,6 +15,11 @@ of the run that wrote the checkpoint. The newest ``keep`` checkpoints are
 kept; a writer's save first removes temporary directories that a killed
 run left. Orbax checkpoints of the JAX package are not read (that would take
 orbax); JAX parameters reach the port through ``convert.to_state_dict``.
+
+On a device mesh (``distributed=True``, a process group of several ranks
+whose state is replicated) rank 0 alone writes a checkpoint and every rank
+waits for the write at a barrier before it goes on, so each rank's next
+:meth:`CheckpointManager.latest_step` and restore read the same files.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import shutil
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 PARAMS_FILE = "params.pt"
 TRAIN_STATE_FILE = "train_state.pt"
@@ -61,13 +67,16 @@ class CheckpointManager:
     """``save(step, state)`` / ``maybe_restore(state) -> (state, step)`` /
     ``restore_params(model) -> (model, step)`` over one directory. Writes
     are synchronous, so :meth:`wait` and :meth:`close` have nothing to
-    finish; they are kept so callers read like the JAX package's."""
+    finish; they are kept so callers read like the JAX package's. With
+    ``distributed`` every rank of the process group calls :meth:`save`,
+    rank 0 writes and all meet at a barrier (module docstring)."""
 
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, distributed: bool = False):
         if keep < 1:
             raise ValueError(f"keep must be at least 1, got {keep}")
         self.directory = os.path.abspath(directory)
         self.keep = keep
+        self.distributed = distributed and dist.is_initialized()
 
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, f"step_{step}")
@@ -91,6 +100,14 @@ class CheckpointManager:
         """Write ``state`` (a ``TrainState``) as the checkpoint of ``step``,
         replacing one of the same step, then drop all but the newest
         ``keep``."""
+        if self.distributed:
+            if dist.get_rank() == 0:
+                self._write(step, state)
+            dist.barrier()
+            return
+        self._write(step, state)
+
+    def _write(self, step: int, state) -> None:
         step = int(step)
         os.makedirs(self.directory, exist_ok=True)
         # a run killed while saving leaves its temporary directory behind

@@ -28,12 +28,23 @@ config trains as it would without them. Metrics go to ``metrics.jsonl`` in
 in place of the MSA: ``End2EndModel`` repeats each residue's embedding
 x3 in place, as it elongates the tokens (:86-88), and ``embedd_project``
 takes the stream's width (JAX's init takes it from the sample batch).
-Training on a device mesh raises (``loop.check_unported``); the model
-itself serves on one (:class:`End2EndModel`).
+
+On a device mesh (:func:`make_end2end_step` with ``mesh=``, and
+:func:`train_end2end` under ``torchrun`` with ``cfg.mesh`` built as the
+distogram loop builds it, ``loop.make_train_mesh``) every rank passes the
+whole batch; :class:`End2EndModel` runs the trunk on the rank's ``dp``
+slice and pair block, gathers the logits over the world and realizes the
+structure on rank 0, whose structure loss is the global loss. The other
+ranks' losses are the gathered logits times 0, a dependency of weight 0,
+so that every rank's backward reaches the gather's reduce-scatter and
+hands its trunk its block of the cotangent; every gradient is then summed
+over the world (``loop.reduce_gradients``) and every rank applies the same
+update.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 from typing import Optional, Union
 
@@ -46,10 +57,12 @@ from alphafold2_tpu_torch.config import Config
 from alphafold2_tpu_torch.device import resolve_device
 from alphafold2_tpu_torch.models.alphafold2 import Alphafold2
 from alphafold2_tpu_torch.models.se3 import SE3Refiner
-from alphafold2_tpu_torch.parallel.sharding import active_mesh, gather_pair, pair_layout
+from alphafold2_tpu_torch.parallel.sharding import (
+    active_mesh, gather_pair, pair_layout, use_mesh,
+)
 from alphafold2_tpu_torch.train.loop import (
-    TrainState, apply_features, apply_gradients, check_unported, close_owned,
-    collect_gradients, embedds_width, init_state, run_steps,
+    TrainState, apply_features, apply_gradients, close_owned, collect_gradients,
+    embedds_width, init_state, make_train_mesh, run_steps, world_sum,
 )
 from alphafold2_tpu_torch.train.optim import global_norm
 from alphafold2_tpu_torch.utils.metrics import kabsch
@@ -192,31 +205,37 @@ def mds_start(seed: int, step: int, batch: int, n: int,
     return torch.from_numpy((2.0 * draw - 1.0).astype(np.float32)).to(device)
 
 
-def make_end2end_step(model: End2EndModel):
+def make_end2end_step(model: End2EndModel, mesh=None):
     """Build the end-to-end step: ``step(state, batch, coords0) -> (state,
     metrics)``, ``batch`` a dict of tensors on the model's device with
-    ``backbone`` (B, 3L, 3), ``coords0`` the (B, 3L, 3) MDS start.
+    ``backbone`` (B, 3L, 3), ``coords0`` the (B, 3L, 3) MDS start. On a
+    ``mesh`` every rank passes the whole batch (module docstring).
 
     As the distogram step: gradients that are not all finite are zeroed,
     still applied and counted in ``state.skipped``; leaves with no gradient
     get zeros. Metrics: ``loss``, ``grad_norm`` (of the raw gradients),
     ``grads_ok``, ``rmsd``, ``dispersion``, device tensors (nothing
-    synchronises)."""
+    synchronises without a mesh), rank 0's on every rank of a mesh."""
 
     def step(state: TrainState, batch: dict, coords0: torch.Tensor):
         params = list(state.model.parameters())
         for p in params:
             p.grad = None
-        out = state.model(batch["seq"], batch.get("msa"), mask=batch["mask"],
-                          msa_mask=batch.get("msa_mask"), embedds=batch.get("embedds"),
-                          coords0=coords0)
-        loss, aux = structure_loss(out, batch["backbone"], batch["mask"])
+        with use_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+            out = state.model(batch["seq"], batch.get("msa"), mask=batch["mask"],
+                              msa_mask=batch.get("msa_mask"), embedds=batch.get("embedds"),
+                              coords0=coords0)
+        if out["refined"] is None:  # a rank past 0: a dependency of weight 0
+            loss = (out["distogram"] * 0.0).sum()
+            aux = {"rmsd": loss.detach(), "dispersion": loss.detach()}
+        else:
+            loss, aux = structure_loss(out, batch["backbone"], batch["mask"])
         loss.backward()
-        grads, grads_ok = collect_gradients(params)
+        grads, grads_ok = collect_gradients(params, mesh)
         apply_gradients(state, grads, grads_ok)
-        return state, {"loss": loss.detach(), "grad_norm": global_norm(grads),
-                       "grads_ok": grads_ok, "rmsd": aux["rmsd"].detach(),
-                       "dispersion": aux["dispersion"].detach()}
+        return state, {"loss": world_sum(loss, mesh), "grad_norm": global_norm(grads),
+                       "grads_ok": grads_ok, "rmsd": world_sum(aux["rmsd"], mesh),
+                       "dispersion": world_sum(aux["dispersion"], mesh)}
 
     return step
 
@@ -227,10 +246,9 @@ def build_end2end_model(cfg: Config, mds_iters: int = 200,
     (:285-295): serving's fields (``predict.build_model``) and, for
     training, ``remat_policy`` and ``reversible``; the dropout rates are
     not read, as in JAX. ``num_embedds`` is the ``embedds`` width of a PLM
-    stream. A device mesh raises (``loop.check_unported``)."""
+    stream."""
     from alphafold2_tpu_torch.predict import build_model
 
-    check_unported(cfg)
     return build_model(cfg, mds_iters=mds_iters, remat_policy=cfg.model.remat_policy,
                        reversible=cfg.model.reversible, num_embedds=num_embedds)
 
@@ -244,8 +262,11 @@ def train_end2end(cfg: Config, num_steps: Optional[int] = None, dataset=None,
     ``dataset`` (an iterable of numpy batches with ``backbone``) replaces
     the configured source; each ``callbacks`` entry is called as ``cb(step,
     state, metrics)`` after every step. Checkpoints, logs and SIGTERM as
-    ``train.loop.run_steps`` says. Returns the final state."""
+    ``train.loop.run_steps`` says. Under ``torchrun`` it trains on the mesh
+    ``cfg.mesh`` asks for, as ``train.loop.train`` does. Returns the final
+    state."""
     from alphafold2_tpu_torch.data.pipeline import make_dataset
+    from alphafold2_tpu_torch.parallel.distributed import initialize
 
     t = cfg.train
     if cfg.model.max_seq_len < 3 * cfg.data.crop_len:
@@ -253,8 +274,9 @@ def train_end2end(cfg: Config, num_steps: Optional[int] = None, dataset=None,
             f"end-to-end training elongates each residue x3 (N/CA/C): "
             f"model.max_seq_len={cfg.model.max_seq_len} must be >= "
             f"3*data.crop_len={3 * cfg.data.crop_len}")
-    check_unported(cfg)
+    initialize(device=device)
     dev = resolve_device(device)
+    mesh = make_train_mesh(cfg)
     num_steps = num_steps or t.num_steps
     owned = dataset is None
     dataset = make_dataset(cfg.data, seed=t.seed) if owned else dataset
@@ -265,7 +287,7 @@ def train_end2end(cfg: Config, num_steps: Optional[int] = None, dataset=None,
 
         state = init_state(cfg, build_end2end_model(cfg, num_embedds=embedds_width(sample)),
                            device=dev)
-        step = make_end2end_step(state.model)
+        step = make_end2end_step(state.model, mesh)
 
         def step_fn(st, batch, i):
             b, l = batch["seq"].shape

@@ -34,20 +34,33 @@ provider (``data.plm_provider``, seeded by ``train.seed``) in place of the
 MSA; ``build_model`` sizes ``embedd_project`` from the stream's first
 batch, as JAX's init takes the width from its sample batch (:176-210).
 ``model.msa_row_shard``, ``grid_parallel`` and ``context_parallel`` run the
-plain model on one device: JAX's ``train`` without a mesh gives the same
+plain model without a mesh: JAX's ``train`` without a mesh gives the same
 losses and parameters bit for bit with and without each.
 
-Not ported (raises ``NotImplementedError``): a device mesh. The trunk
-engines (``remat`` with ``remat_policy``, ``reversible``, ``scan_layers``)
-and KV compression (``model.cross_attn_compress_ratio`` above 1, the
-pair<-MSA pass of every engine) train as in JAX (``models/trunk.py``,
-``models/reversible.py``, ``ops/attention.py``). A dataset the loop makes
-from ``cfg.data`` it also closes (the native loader's threads), as JAX's
-does (:712-713).
+On a device mesh (``cfg.mesh``; one process a rank under ``torchrun``,
+:func:`train` calls ``parallel.distributed.initialize`` and builds the
+mesh as JAX's :487-513 does, :func:`make_train_mesh`): parameters and
+optimizer state are replicated, each rank takes its ``dp`` slice of the
+global batch (:func:`device_put_batch`) and its block of the pair grid, and
+the step follows ``parallel/sharding.py``'s rule for the sharded backward:
+each rank's loss is its share of the global loss, the collectives
+differentiate as their SPMD transposes, and every gradient is a partial
+summed once over the world (:func:`reduce_gradients`), so every rank
+applies the same update. Metrics are global. Only rank 0 logs, traces,
+profiles and writes checkpoints; every rank restores them. Dropout has no
+sharded route (the pair stream's masks would be drawn per block): a step
+on a mesh refuses a model with a dropout rate. The trunk engines
+(``remat`` with ``remat_policy``, ``reversible``, ``scan_layers``) and KV
+compression (``model.cross_attn_compress_ratio`` above 1, the pair<-MSA
+pass of every engine) train as in JAX (``models/trunk.py``,
+``models/reversible.py``, ``ops/attention.py``); the reversible engine
+refuses a mesh, as JAX's does. A dataset the loop makes from ``cfg.data``
+it also closes (the native loader's threads), as JAX's does (:712-713).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import os
@@ -56,6 +69,7 @@ from typing import Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from alphafold2_tpu_torch.config import Config
@@ -63,7 +77,8 @@ from alphafold2_tpu_torch.device import resolve_device
 from alphafold2_tpu_torch.models.alphafold2 import Alphafold2
 from alphafold2_tpu_torch.observe import MetricsLogger, Profiler, Tracer, flatten_metrics
 from alphafold2_tpu_torch.observe import numerics
-from alphafold2_tpu_torch.ops.attention import Attention, DropoutKey
+from alphafold2_tpu_torch.ops.attention import Attention, DropoutKey, FeedForward
+from alphafold2_tpu_torch.parallel.sharding import all_reduce, pair_layout, use_mesh
 from alphafold2_tpu_torch.train.optim import Optimizer, build_optimizer, global_norm
 from alphafold2_tpu_torch.utils.structure import get_bucketed_distance_matrix
 
@@ -80,9 +95,12 @@ class TrainState:
 
 
 def distogram_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                            ignore_index: int = -100) -> torch.Tensor:
+                            ignore_index: int = -100, mesh=None) -> torch.Tensor:
     """Mean cross-entropy over the pairs whose label is not ``ignore_index``,
-    in float32; 0 when every pair is ignored."""
+    in float32; 0 when every pair is ignored. With a ``mesh`` the logits
+    and labels are this rank's block and the result is this rank's share of
+    the global mean: its pairs' sum over the valid count summed over the
+    world (reduced with no gradient), so the shares sum to the mean."""
     valid = labels != ignore_index
     safe = torch.where(valid, labels, 0).long()
     logp = torch.log_softmax(logits.float(), dim=-1)
@@ -90,7 +108,10 @@ def distogram_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     # the last forward tensor: a first non-finite here is the loss's own
     nll = numerics.tag("loss.distogram_nll", nll)
     validf = valid.to(nll.dtype)
-    return (nll * validf).sum() / validf.sum().clamp_min(1.0)
+    count = validf.sum()
+    if mesh is not None:
+        count = all_reduce(count.detach(), mesh, "world")
+    return (nll * validf).sum() / count.clamp_min(1.0)
 
 
 def apply_features(data_iter, cfg: Config):
@@ -188,13 +209,48 @@ def _param_groups(model: nn.Module) -> dict:
     return groups
 
 
-def collect_gradients(params) -> tuple:
+def reduce_gradients(grads, mesh) -> list:
+    """Every rank's partial gradients summed over the whole world: one flat
+    f32 buffer in parameter order, one all_reduce (``parallel/sharding.py``'s
+    rule for the sharded backward). ``grads`` itself without a mesh."""
+    if mesh is None:
+        return grads
+    flat = all_reduce(torch.cat([g.reshape(-1).float() for g in grads]), mesh, "world")
+    return [part.view_as(g).to(g.dtype)
+            for part, g in zip(flat.split([g.numel() for g in grads]), grads)]
+
+
+def collect_gradients(params, mesh=None) -> tuple:
     """Each parameter's gradient after ``backward`` (zeros where autograd
-    left none, as JAX gives zeros for leaves that do not reach the loss)
-    and whether all are finite, as a device bool."""
+    left none, as JAX gives zeros for leaves that do not reach the loss),
+    summed over the world on a ``mesh``, and whether all are finite, as a
+    device bool."""
     grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+    grads = reduce_gradients(grads, mesh)
     grads_ok = torch.stack([torch.isfinite(g).all() for g in grads]).all()
     return grads, grads_ok
+
+
+def world_sum(t: torch.Tensor, mesh) -> torch.Tensor:
+    """A detached metric summed over the world (``t`` without a mesh)."""
+    return t.detach() if mesh is None else all_reduce(t.detach(), mesh, "world")
+
+
+def check_mesh_model(model: nn.Module, mesh) -> None:
+    """Refuse what a step on a mesh cannot run: dropout (the sharded
+    blocks would draw their masks per block)."""
+    if mesh is None:
+        return
+    for mod in model.modules():
+        if isinstance(mod, (Attention, FeedForward)) and mod.dropout > 0.0:
+            raise ValueError("dropout has no sharded route: a training step on a device "
+                             "mesh needs model.attn_dropout and model.ff_dropout at 0")
+
+
+def is_lead_rank() -> bool:
+    """Whether this process logs, traces and writes checkpoints: rank 0 of
+    an initialised process group, or the one process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def apply_gradients(state: TrainState, grads, grads_ok: torch.Tensor) -> None:
@@ -213,27 +269,39 @@ def _labels(batch: dict) -> torch.Tensor:
     return labels
 
 
-def _forward_loss(model: nn.Module, batch: dict, key: Optional[DropoutKey]):
-    logits = model(batch["seq"], batch.get("msa"), mask=batch["mask"],
-                   msa_mask=batch.get("msa_mask"), embedds=batch.get("embedds"),
-                   dropout_key=key)
-    return logits, distogram_cross_entropy(logits, _labels(batch))
+def _forward_loss(model: nn.Module, batch: dict, key: Optional[DropoutKey], mesh=None):
+    """The logits and the loss (this rank's share of it on a ``mesh``, whose
+    labels are this rank's block of the pair grid)."""
+    with use_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+        logits = model(batch["seq"], batch.get("msa"), mask=batch["mask"],
+                       msa_mask=batch.get("msa_mask"), embedds=batch.get("embedds"),
+                       dropout_key=key)
+        labels = _labels(batch)
+        if mesh is not None:
+            lay, n = pair_layout(mesh), labels.shape[1]
+            labels = labels[:, lay.rows(n), lay.cols(n)]
+        return logits, distogram_cross_entropy(logits, labels, mesh=mesh)
 
 
-def make_train_step(model: nn.Module, numerics_mode: str = "off"):
+def make_train_step(model: nn.Module, mesh=None, numerics_mode: str = "off"):
     """Build the distogram-pretraining step: ``step(state, batch, key=None)
     -> (state, metrics)``, ``batch`` a dict of tensors on the model's
-    device, ``key`` the step's ``DropoutKey`` (dropout is off without one).
+    device (this rank's ``dp`` slice on a ``mesh``, :func:`device_put_batch`),
+    ``key`` the step's ``DropoutKey`` (dropout is off without one). On a
+    ``mesh`` the step follows the module docstring's rule; every metric is
+    the world's.
 
     Metrics: ``loss``, ``grad_norm`` (of the raw gradients), ``grads_ok``,
     ``skipped``, ``distogram_entropy``; with ``numerics_mode="norms"`` or
     ``"full"`` also ``grad_norm/<group>``, ``param_norm/<group>``,
     ``update_norm/<group>`` and ``param_norm``; with ``"full"`` also
-    ``numerics``, every tag's stats (``observe/numerics.py``). Values are
-    device tensors (nothing synchronises)."""
+    ``numerics``, every tag's stats (``observe/numerics.py``; on a mesh
+    this rank's blocks'). Values are device tensors (nothing synchronises
+    without a mesh)."""
     if numerics_mode not in ("off", "norms", "full"):
         raise ValueError(f"unknown numerics_mode {numerics_mode!r}; "
                          "expected 'off', 'norms' or 'full'")
+    check_mesh_model(model, mesh)
     groups = _param_groups(model)
     norms = numerics_mode != "off"
 
@@ -242,15 +310,20 @@ def make_train_step(model: nn.Module, numerics_mode: str = "off"):
         for p in params:
             p.grad = None
         with numerics.collect(enabled=numerics_mode == "full") as col:
-            logits, loss = _forward_loss(state.model, batch, key)
+            logits, loss = _forward_loss(state.model, batch, key, mesh)
         loss.backward()
-        grads, grads_ok = collect_gradients(params)
+        grads, grads_ok = collect_gradients(params, mesh)
         before = [p.detach().clone() for p in params] if norms else None
         apply_gradients(state, grads, grads_ok)
         with torch.no_grad():
             logits = logits.detach()
-            entropy = -(torch.softmax(logits, -1) * torch.log_softmax(logits, -1)).sum(-1).mean()
-        metrics = {"loss": loss.detach(), "grad_norm": global_norm(grads),
+            ent = -(torch.softmax(logits, -1) * torch.log_softmax(logits, -1)).sum(-1)
+            if mesh is None:
+                entropy = ent.mean()
+            else:
+                total = world_sum(torch.stack([ent.sum(), ent.new_tensor(ent.numel())]), mesh)
+                entropy = total[0] / total[1]
+        metrics = {"loss": world_sum(loss, mesh), "grad_norm": global_norm(grads),
                    "grads_ok": grads_ok, "skipped": state.skipped,
                    "distogram_entropy": entropy}
         if norms:
@@ -267,29 +340,33 @@ def make_train_step(model: nn.Module, numerics_mode: str = "off"):
     return step
 
 
-def make_triage_step(model: nn.Module):
+def make_triage_step(model: nn.Module, mesh=None):
     """The fully tagged diagnostic step of NaN triage (JAX :371-425):
     ``triage(batch, key) -> stats``, the model's current parameters run
     forward and backward under ``key`` with no state change. ``stats`` maps
     every tag to its ``numerics.tensor_stats``, then ``loss``, then
     ``grad/<group>`` (``numerics.tree_stats`` of a parameter group's
     gradients), each with its ``index`` in that order, so
-    ``numerics.first_nonfinite`` names the first tensor that went bad."""
+    ``numerics.first_nonfinite`` names the first tensor that went bad. On a
+    ``mesh`` every rank runs it (the backward's collectives need them all):
+    the loss and the gradients are the world's, the tags this rank's."""
+    check_mesh_model(model, mesh)
     groups = _param_groups(model)
 
     def triage(batch: dict, key: Optional[DropoutKey] = None) -> dict:
         params = list(model.parameters())
         with numerics.collect() as col:
-            _, loss = _forward_loss(model, batch, key)
+            _, loss = _forward_loss(model, batch, key, mesh)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = reduce_gradients([g if g is not None else torch.zeros_like(p)
+                                  for g, p in zip(grads, params)], mesh)
         stats = col.stats()
         order = len(stats)
-        stats["loss"] = {"index": order, **numerics.tensor_stats(loss)}
+        stats["loss"] = {"index": order, **numerics.tensor_stats(world_sum(loss, mesh))}
         for name in sorted(groups):  # JAX's grads are a dict in key order
             order += 1
             stats[f"grad/{name}"] = {"index": order, **numerics.tree_stats(
-                grads[i] if grads[i] is not None else torch.zeros_like(params[i])
-                for i in groups[name])}
+                grads[i] for i in groups[name])}
         return stats
 
     return triage
@@ -306,10 +383,16 @@ def batch_to_device(batch: dict, device: torch.device) -> dict:
     return out
 
 
-def device_put_batch(batch: dict, device: Optional[Union[str, torch.device]] = None) -> dict:
-    """JAX's name (``train/loop.py:455``) for :func:`batch_to_device`: its
-    ``mesh`` argument has no counterpart here, and ``device`` defaults to the
-    card, as every entry point's does."""
+def device_put_batch(batch: dict, device: Optional[Union[str, torch.device]] = None,
+                     mesh=None) -> dict:
+    """JAX's ``device_put_batch`` (``train/loop.py:455``): the numpy batch
+    on ``device`` (the card by default, as every entry point's), on a
+    ``mesh`` this rank's ``dp`` slice of it (``parallel.distributed
+    .global_batch``; every rank holds the whole global batch)."""
+    if mesh is not None:
+        from alphafold2_tpu_torch.parallel.distributed import global_batch
+
+        batch = global_batch(batch, mesh)
     return batch_to_device(batch, resolve_device(device))
 
 
@@ -320,17 +403,47 @@ def close_owned(dataset, owned: bool) -> None:
         dataset.close()
 
 
-def check_unported(cfg: Config) -> None:
-    """Raise for what neither training loop honours yet: a device mesh."""
-    mesh = cfg.mesh
-    if (mesh.data_parallel not in (1, -1) or mesh.seq_parallel != 1
-            or mesh.grid_rows * mesh.grid_cols != 1):
-        raise NotImplementedError("a device mesh is not ported yet: one device only")
+def make_train_mesh(cfg: Config):
+    """The mesh ``cfg.mesh`` asks for, as JAX's ``train`` builds it
+    (:487-513): a ``(dp, spr, spc)`` grid mesh when ``grid_rows *
+    grid_cols > 1`` (``data_parallel`` -1 fills the world), which refuses
+    ``seq_parallel`` and ``context_parallel`` and needs
+    ``model.grid_parallel``; else a ``(dp, sp)`` mesh
+    (``parallel.distributed.pod_mesh``) when ``data_parallel *
+    seq_parallel > 1`` or ``seq_parallel > 1``; else None. A mesh needs
+    an initialised process group (``parallel.distributed.initialize``), and
+    a group of several ranks needs a mesh."""
+    from alphafold2_tpu_torch.parallel.distributed import pod_mesh
+    from alphafold2_tpu_torch.parallel.grid_parallel import make_grid_mesh
+
+    m = cfg.mesh
+    mesh = None
+    if m.grid_rows * m.grid_cols > 1:
+        if m.seq_parallel > 1 or cfg.model.context_parallel:
+            raise ValueError(
+                "grid_rows/grid_cols builds a (dp, spr, spc) mesh with no sp axis: "
+                "mesh.seq_parallel and model.context_parallel cannot be combined with it")
+        if not cfg.model.grid_parallel:
+            raise ValueError(
+                "mesh.grid_rows/grid_cols requires model.grid_parallel=true — without it "
+                "the axial passes run dense and GSPMD all-gathers the attended axis, "
+                "losing the memory benefit")
+        n_dp = m.data_parallel
+        if n_dp == -1:
+            world = dist.get_world_size() if dist.is_initialized() else 1
+            n_dp = max(1, world // (m.grid_rows * m.grid_cols))
+        mesh = make_grid_mesh(n_dp, m.grid_rows, m.grid_cols)
+    elif m.data_parallel * m.seq_parallel > 1 or m.seq_parallel > 1:
+        mesh = pod_mesh(m.data_parallel, m.seq_parallel)
+    if mesh is None and dist.is_initialized() and dist.get_world_size() > 1:
+        raise ValueError(f"{dist.get_world_size()} ranks and no mesh: set mesh.data_parallel, "
+                         "mesh.seq_parallel or mesh.grid_rows/grid_cols to cover them")
+    return mesh
 
 
 def run_steps(cfg: Config, state: TrainState, step_fn, data_iter, num_steps: int,
               callbacks=(), triage_fn=None, tracer: Optional[Tracer] = None,
-              profiler: Optional[Profiler] = None) -> TrainState:
+              profiler: Optional[Profiler] = None, mesh=None) -> TrainState:
     """The loop of both training entry points: ``step_fn(state, batch, i) ->
     (state, metrics)`` for steps ``start .. num_steps - 1``, each batch
     taken from ``data_iter`` (numpy) onto the state's device.
@@ -355,17 +468,25 @@ def run_steps(cfg: Config, state: TrainState, step_fn, data_iter, num_steps: int
     ``train.next_batch``, ``train.checkpoint`` and ``train.nan_triage``,
     the ``numerics.nan_triage`` instant and, where the metrics carry
     ``numerics``, its counters; ``profiler`` opens and closes its window
-    around the steps. Returns the state."""
+    around the steps.
+
+    In a process group of several ranks every rank runs the loop on the
+    same stream: each batch goes to the device whole, or on a ``mesh`` as
+    this rank's ``dp`` slice (:func:`device_put_batch`); only rank 0 logs
+    metrics and writes checkpoints (every rank waits for the write and
+    restores the same files), and a SIGTERM on any rank stops every rank
+    after the same step. Returns the state."""
     import signal
 
     from alphafold2_tpu_torch.train.checkpoint import CheckpointManager
 
     t = cfg.train
     dev = state.skipped.device
+    group = dist.is_initialized() and dist.get_world_size() > 1
     tracer = tracer or Tracer()
     profiler = profiler or Profiler(None)
-    logger = MetricsLogger(t.checkpoint_dir)
-    ckpt = (CheckpointManager(t.checkpoint_dir, keep=t.keep_checkpoints)
+    logger = MetricsLogger(t.checkpoint_dir, enabled=is_lead_rank())
+    ckpt = (CheckpointManager(t.checkpoint_dir, keep=t.keep_checkpoints, distributed=group)
             if t.checkpoint_dir else None)
     start = 0
     if ckpt is not None:
@@ -406,7 +527,7 @@ def run_steps(cfg: Config, state: TrainState, step_fn, data_iter, num_steps: int
                 run_triage(*pending)
                 pending = None
             with tracer.span("train.next_batch", step=i):
-                batch = batch_to_device(next(data_iter), dev)
+                batch = device_put_batch(next(data_iter), dev, mesh)
             profiler.maybe_start(i)
             with tracer.span("train.step", step=i):
                 state, metrics = step_fn(state, batch, i)
@@ -429,6 +550,10 @@ def run_steps(cfg: Config, state: TrainState, step_fn, data_iter, num_steps: int
             if ckpt is not None and (i + 1) % t.checkpoint_every == 0:
                 with tracer.span("train.checkpoint", step=i + 1):
                     ckpt.save(i + 1, state)
+            if group and ckpt is not None:  # one rank's SIGTERM stops them all
+                flag = torch.tensor(float(stop["requested"]), device=dev)
+                dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+                stop["requested"] = bool(flag)
             if stop["requested"]:
                 logger.log(i, {"preempted": 1.0})
                 if ckpt.latest_step() != i + 1:
@@ -456,20 +581,27 @@ def train(cfg: Config, num_steps: Optional[int] = None, dataset=None, callbacks=
     source (a source the loop makes it closes on every exit); each
     ``callbacks`` entry is called as ``cb(step, state, metrics)`` after
     every step; checkpoints, metrics, triage, spans and the profiler window
-    as :func:`run_steps` says. Returns the final :class:`TrainState`."""
+    as :func:`run_steps` says. Under ``torchrun`` it initialises the process
+    group (NCCL on the card, gloo with ``device="cpu"``) and trains on the
+    mesh ``cfg.mesh`` asks for (:func:`make_train_mesh`); every rank reads
+    the same stream, the global batch. Returns the final
+    :class:`TrainState`."""
     from alphafold2_tpu_torch.data.pipeline import make_dataset
+    from alphafold2_tpu_torch.parallel.distributed import initialize
 
     t = cfg.train
-    check_unported(cfg)
     numerics_mode = (os.environ.get("AF2TPU_NUMERICS") or t.numerics or "off").lower()
     if numerics_mode not in ("off", "triage", "full"):
         raise ValueError(f"unknown train.numerics {numerics_mode!r}; "
                          "expected 'off', 'triage' or 'full'")
+    initialize(device=device)  # first: it picks this rank's card (LOCAL_RANK)
     dev = resolve_device(device)
+    mesh = make_train_mesh(cfg)
+    lead = is_lead_rank()
     num_steps = num_steps or t.num_steps
     owned = dataset is None
     dataset = make_dataset(cfg.data, seed=t.seed) if owned else dataset
-    tracer = Tracer(t.trace_events)
+    tracer = Tracer(t.trace_events if lead else None)
     try:
         data_iter = apply_features(iter(dataset), cfg)
         sample = next(data_iter)
@@ -477,16 +609,17 @@ def train(cfg: Config, num_steps: Optional[int] = None, dataset=None, callbacks=
 
         model = build_model(cfg, num_embedds=embedds_width(sample))
         state = init_state(cfg, model, device=dev)
-        step = make_train_step(state.model, {"off": "off", "triage": "norms",
-                                             "full": "full"}[numerics_mode])
+        step = make_train_step(state.model, mesh, {"off": "off", "triage": "norms",
+                                                   "full": "full"}[numerics_mode])
         key = lambda i: DropoutKey.for_step(t.seed + 1, i)
         triage_fn = None
         if numerics_mode != "off":
-            triage = make_triage_step(state.model)
+            triage = make_triage_step(state.model, mesh)
             triage_fn = lambda batch, i: triage(batch, key(i))
         return run_steps(cfg, state, lambda st, batch, i: step(st, batch, key(i)), data_iter,
                          num_steps, callbacks, triage_fn=triage_fn, tracer=tracer,
-                         profiler=Profiler(t.profile_dir, t.profile_steps, dev))
+                         profiler=Profiler(t.profile_dir if lead else None, t.profile_steps,
+                                           dev), mesh=mesh)
     finally:
         tracer.close()
         close_owned(dataset, owned)

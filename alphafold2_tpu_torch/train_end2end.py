@@ -10,10 +10,18 @@ Arguments are ``section.field=value`` overrides of the base config,
 every other default, plus ``--device=cpu|cuda`` (default: the card;
 without one it raises). ``train.checkpoint_dir=DIR`` keeps checkpoints
 there and resumes from the latest.
+
+On a device mesh, one process a rank under ``torchrun`` (NCCL on the card;
+``--device=cpu`` gives gloo), with ``mesh.*`` overrides that cover the
+world, e.g. two data-parallel ranks on the CPU::
+
+    torchrun --nproc_per_node 2 -m alphafold2_tpu_torch.train_end2end \
+        mesh.data_parallel=2 data.batch_size=2 --device=cpu
 """
 
 from __future__ import annotations
 
+import os
 import sys
 
 from alphafold2_tpu_torch.config import Config, DataConfig, ModelConfig, parse_cli
@@ -24,7 +32,8 @@ def main(argv) -> None:
     device, rest = split_device(argv)
     cfg = parse_cli(rest, Config(model=ModelConfig(dim=256, depth=1),
                                  data=DataConfig(crop_len=64)))
-    print("config:", cfg.to_json(), flush=True)
+    if os.environ.get("RANK", "0") == "0":  # one config line under torchrun
+        print("config:", cfg.to_json(), flush=True)
     from alphafold2_tpu_torch.train.end2end import train_end2end
 
     train_end2end(cfg, device=device)

@@ -8,10 +8,18 @@
 Arguments are ``section.field=value`` overrides of the base config,
 ``ModelConfig(dim=256, depth=1)`` with every other default, plus
 ``--device=cpu|cuda`` (default: the card; without one it raises).
+
+On a device mesh, one process a rank under ``torchrun`` (NCCL on the card;
+``--device=cpu`` gives gloo), with ``mesh.*`` overrides that cover the
+world, e.g. two data-parallel ranks on the CPU::
+
+    torchrun --nproc_per_node 2 -m alphafold2_tpu_torch.train_pre \
+        mesh.data_parallel=2 data.batch_size=2 --device=cpu
 """
 
 from __future__ import annotations
 
+import os
 import sys
 
 from alphafold2_tpu_torch.config import Config, ModelConfig, parse_cli
@@ -32,7 +40,8 @@ def split_device(argv) -> tuple:
 def main(argv) -> None:
     device, rest = split_device(argv)
     cfg = parse_cli(rest, Config(model=ModelConfig(dim=256, depth=1)))
-    print("config:", cfg.to_json(), flush=True)
+    if os.environ.get("RANK", "0") == "0":  # one config line under torchrun
+        print("config:", cfg.to_json(), flush=True)
     from alphafold2_tpu_torch.train.loop import train
 
     train(cfg, device=device)

@@ -154,14 +154,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
               all_gather in place), the distogram within
               tests/test_precision.py's relative L2 bound of the same
               model's meshless forward, lattice_report passing on every
-              rung; each rung's forward (median of 3), peak memory,
+              rung; each rung's forward (median of 2, in turns with the
+              meshless one), peak memory,
               mesh_mfu and launches; then the collective audit
               (analysis/hlo_audit.py --check) on the card's NCCL world,
               clean, with each target's measured peak against its budget.
-              (probe_gloo_cuda, not part of the run,
-              found gloo aborting on CUDA tensors in batch_isend_irecv, so
-              several ranks on the one card are not driven: multi-rank
-              exactness is held on the CPU's gloo ranks);
+              (probe_gloo_cuda, not part of the run, found gloo taking
+              every collective of the grid path on CUDA tensors,
+              reduce_scatter_tensor too, and aborting in batch_isend_irecv,
+              the ring's: four ranks on the one card serve rung 96 on a
+              1x2x2 grid; the ring is held on the CPU's gloo ranks only);
 4d. kernel_policy — the kernel switchboard (ops/kernels.py): the serving
               config at bucket 128 x batch 4 under the default policy,
               the hand kernels by name, axial=stock,flash=on (SDPA) and
@@ -184,7 +186,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
               (every K1 and K3 launch on its Hopper kernel, K3's merge pass
               on the 11 split passes a step) and no plain-version call, the
               first accumulated update at lr 0;
-              20 steps on one repeated batch whose loss must fall; a small
+              12 steps on one repeated batch whose loss must fall; a small
               f32 model whose gradients must agree between the card and the
               CPU; one step under torch.profiler; then all of it again with
               model.msa_tie_row_attn=True (K2 with lse, every launch on
@@ -211,14 +213,30 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
               rest through K1/K3a/K3b, small-model
               gradients on the grid route (crop 48) and the flat route
               (crop 40), one step under torch.profiler;
+7b. train_mesh — training on a device mesh (phase_train_mesh): one rank
+              of a world-size-1 NCCL group (a subprocess with torchrun's
+              environment): (a) the training smoke's width, dense, tied and
+              sparse, 4 steps meshless, on a (1, 1) mesh and on a 1x1x1 grid
+              in turns from one initial state (loss and every gradient
+              within the bf16 bound of the meshless step's; every launch on
+              Hopper, no plain version; one step's census); (b) crop 768,
+              MSA 5x128, remat, on a 1x1x1 grid, dense and sparse, 3 steps
+              after the meshless step's peak, K3a and K3b held at the long
+              cross passes' own call shapes; (d) the end-to-end step at its
+              CLI's width meshless and on a (1, 1) mesh; then (c) four gloo
+              ranks on the card, a 1x2x2 grid sparse with tied rows and a
+              2x2 (dp, sp) mesh dense at depth 2, crop 64, batch 2, 2 steps
+              each against the world-size-1 rank's (loss within 1e-2,
+              every gradient within 0.05 relative L2, parameters identical
+              on every rank, every launch on Hopper);
 8. end2end  — end-to-end structure training at the end-to-end CLI's width
               (dim 256, depth 1, crop 64: 192 atom tokens, 896 refiner
               atoms, 200 MDS iterations), untied then tied MSA rows: a
               small f32 model's loss and gradients on the card against the
-              CPU's plain versions; 8 steps through train_end2end, every
+              CPU's plain versions; 4 steps through train_end2end, every
               one finite and unskipped with gradients in the trunk and the
               refiner, K1 and K3 (and with tied rows K2 and its backward)
-              launched on their Hopper kernels, no plain version; 20 steps
+              launched on their Hopper kernels, no plain version; 12 steps
               on a repeated batch whose loss must fall; a checkpoint
               resumed into a fresh model equal to an uninterrupted run bit
               for bit, and predict from it equal to predict(state_dict=);
@@ -361,6 +379,7 @@ non-zero without that line. Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -389,6 +408,7 @@ MAX_PLAIN_LOGITS_BYTES = 2 << 30  # the plain version runs in batch slices below
 # a small f32 model's gradients, card vs CPU: per-leaf relative L2 error
 GRAD_REL_L2 = 1e-4
 STEP_REPS = 10  # steps timed back to back in the training phase
+TRAIN_REPEAT_STEPS = 12  # the training phase's steps on one repeated batch
 
 
 class PhaseError(RuntimeError):
@@ -1419,6 +1439,69 @@ def phase_k3_time(reps=10):
     return rows
 
 
+# the stream lengths (64-row tiles, one split) K3a and K3b are held at
+# against their plain versions, the longest a merged MSA<-pair or a
+# pair<-MSA backward at crop 768 with MSA 5 x 128 would give one split
+# without MAX_GRAD_SPLIT_TILES (9,216)
+K3_STREAM_TILES = (1024, 2048, 4096, 9216)
+
+
+def phase_k3_streams(tiles=K3_STREAM_TILES):
+    """K3a's key loop and K3b's query loop streamed over ``tiles`` 64-row
+    tiles in one split (``grad_splits`` forced to 1 for the call), bf16,
+    head dim 64, two heads of one 64-row block, unmasked, each held against
+    its plain version on the same operands and lse: the measurement that
+    chose ops/cuda/axial.py MAX_GRAD_SPLIT_TILES (log tag ``[k3 streams]``).
+    A stream within the cap must pass the kernel phase's bf16 bound; longer
+    ones are logged. Returns {(which, tiles): (rel_max, rel_l2)}."""
+    import torch
+
+    from alphafold2_tpu_torch.ops.cuda import axial
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    h, d, row = 2, 64, axial.GRAD_TILE
+    scale = d**-0.5
+    out_rows = {}
+    planned = axial.grad_splits
+    axial.grad_splits = lambda *a, **kw: 1
+    try:
+        for t in tiles:
+            for which in ("dq", "dkv"):
+                nq, nk = (row, t * row) if which == "dq" else (t * row, row)
+                q, k, v, do = _grad_operands(1, h, nq, nk, d, torch.bfloat16, gen, strided=False)
+                out, lse = axial.fused_attention_lse_reference(q, k, v, sm_scale=scale)
+                args = (q, k, v, do, lse, axial.attention_dsum(out, do), None, None, scale)
+                merges = axial.fused_attention_bwd_merge.launches
+                if which == "dq":
+                    got = (axial.fused_attention_dq(*args),)
+                    ref = (axial.fused_attention_dq_reference(*args),)
+                    sm90 = axial.fused_attention_dq.sm90_launches
+                else:
+                    got = axial.fused_attention_dkv(*args)
+                    ref = axial.fused_attention_dkv_reference(*args)
+                    sm90 = axial.fused_attention_dkv.sm90_launches
+                require(axial.fused_attention_bwd_merge.launches == merges and sm90 > 0,
+                        f"K3 {which} at {t} tiles did not run one split on its Hopper kernel")
+                worst = (0.0, 0.0)
+                for g, r in zip(got, ref):
+                    _, _, rel_max, rel_l2, _ = _errors(g, r, torch.bfloat16)
+                    worst = (max(worst[0], rel_max), max(worst[1], rel_l2))
+                max_rel, l2_rel = TOL["bfloat16"]
+                ok = worst[0] <= max_rel and worst[1] <= l2_rel
+                out_rows[(which, t)] = worst
+                log(f"[k3 streams] {'K3a' if which == 'dq' else 'K3b'} one split of {t} tiles "
+                    f"(nq {nq}, nk {nk}): max_abs_err/max|plain| {worst[0]:.3e} (tol "
+                    f"{max_rel:g}), rel_l2 {worst[1]:.3e} (tol {l2_rel:g}) "
+                    f"{'within' if ok else 'past'} the bf16 bound")
+                if t <= getattr(axial, "MAX_GRAD_SPLIT_TILES", t):
+                    require(ok, f"K3 {which}: a stream of {t} tiles, within the cap, is past "
+                                "the bf16 bound")
+                del q, k, v, do, out, lse, args, got, ref
+    finally:
+        axial.grad_splits = planned
+    return out_rows
+
+
 def phase_kernels():
     import torch
 
@@ -2361,9 +2444,10 @@ def phase_train(sparse=False, tied=False):
     cfg_b.train.warmup_steps = 1
     batch = next(iter(SyntheticDataset(cfg_b.data, seed=cfg_b.train.seed)))
     rep = []
-    loop.train(cfg_b, num_steps=20, dataset=itertools.repeat(batch),
+    loop.train(cfg_b, num_steps=TRAIN_REPEAT_STEPS, dataset=itertools.repeat(batch),
                callbacks=[lambda i, s, m: rep.append(float(m["loss"]))])
-    log(f"{tag} repeated batch, 20 steps: losses " + " ".join(f"{x:.3f}" for x in rep))
+    log(f"{tag} repeated batch, {TRAIN_REPEAT_STEPS} steps: losses "
+        + " ".join(f"{x:.3f}" for x in rep))
     require(bool(np.isfinite(rep).all()) and np.mean(rep[-5:]) < np.mean(rep[:5]) and
             rep[-1] < rep[0], "the loss did not fall on a repeated batch")
 
@@ -2400,9 +2484,9 @@ def phase_train(sparse=False, tied=False):
 # --------------------------------------------------------------- phase 5b
 
 
-E2E_STEPS = 8  # train_end2end steps at the CLI's full width
-E2E_REPEAT_STEPS = 20  # steps on one repeated batch
-E2E_TURN_REPS = 5  # steps a turn when the two steps alternate
+E2E_STEPS = 4  # train_end2end steps at the CLI's full width
+E2E_REPEAT_STEPS = 12  # steps on one repeated batch
+E2E_TURN_REPS = 3  # steps a turn when the two steps alternate
 E2E_RESUME = (2, 2)  # steps before the checkpoint, steps after the resume
 E2E_PARITY_MDS_ITERS = 20  # the small f32 model's MDS iterations, card vs CPU
 # a small f32 end-to-end model's gradients, card vs CPU: per-leaf relative
@@ -2871,7 +2955,7 @@ def phase_end2end():
 
 
 ENGINE_STEPS = 3  # steps through the training entry point per engine
-ENGINE_REPS = 5  # steps timed back to back per engine
+ENGINE_REPS = 3  # steps timed back to back per engine
 # the engines' trunk depth: the training smoke's 6 halved, which keeps the
 # whole pass inside its time limit
 ENGINE_DEPTH = 3
@@ -2935,7 +3019,7 @@ def _step_fn(cfg, e2e, key=None, numerics_mode="off"):
         step = end2end.make_end2end_step(st.model)
         extra = (end2end.mds_start(cfg.train.seed + 1, 0, 1, 3 * cfg.data.crop_len, "cuda"),)
     else:
-        step = loop.make_train_step(st.model, numerics_mode)
+        step = loop.make_train_step(st.model, numerics_mode=numerics_mode)
         extra = (key,)
 
     def fn():
@@ -3403,7 +3487,7 @@ def phase_engines():
 
 
 TELEMETRY_STEPS = 2  # steps through train.loop.train per dropout configuration
-TELEMETRY_REPS = 3  # steps timed back to back per configuration
+TELEMETRY_REPS = 2  # steps timed back to back per configuration
 # the dropout configurations at the training smoke's width: label ->
 # ModelConfig fields
 DROPOUT_RUNS = {
@@ -4052,7 +4136,7 @@ def phase_templates():
 
 PLM_STEPS = 3  # distogram steps through train.loop.train per PLM configuration
 PLM_E2E_STEPS = 2  # end-to-end steps through train_end2end
-PLM_REPS = 3  # steps timed back to back
+PLM_REPS = 2  # steps timed back to back
 PLM_RUNS = {  # label: (tied, provider, end to end)
     "plm hash": (False, "hash", False),
     "plm tied hash": (True, "hash", False),
@@ -5220,6 +5304,8 @@ def _serve_checkpoint():
 # --------------------------------------------------------------- async serving
 
 SERVE_ASYNC_BURST = 32  # requests of the open-loop burst
+# the twelve requests' runs, serial and pipelined in turns
+SERVE_ASYNC_TURNS = ("serial", "pipelined", "pipelined", "serial")
 SERVE_ASYNC_LOAD = 0.8  # the burst's Poisson rate over the serial request rate
 # distogram logits and weights, pipelined against serial: max |d| over max |serial|
 SERVE_PIPELINE_REL = 1e-5
@@ -5420,7 +5506,7 @@ def phase_serve_async(engine=None):
     serial.warmup()
     residues = sum(SERVE_REQUEST_LENGTHS)
     runs = {}
-    for label in ("serial", "pipelined", "pipelined", "serial", "serial", "pipelined"):
+    for label in SERVE_ASYNC_TURNS:
         eng = serial if label == "serial" else engine
         eng.tracer = Tracer(enabled=True)  # the stages' host spans of this run
         torch.cuda.synchronize()
@@ -5550,8 +5636,8 @@ def phase_serve_async(engine=None):
 
 
 FLEET_REPLICAS = 2
-FLEET_STREAM = 32  # requests of the open-loop stream
-FLEET_REPEATS = 3  # of them, exact (sequence, seed) repeats of earlier ones (9%)
+FLEET_STREAM = 20  # requests of the open-loop stream
+FLEET_REPEATS = 2  # of them, exact (sequence, seed) repeats of earlier ones (10%)
 FLEET_LOAD = 1.5  # the stream's Poisson rate over the serial request rate
 FLEET_KILL_AT = 0.4  # the drill kills replica 1 at this share of the 2-replica run's wall
 FLEET_DEGRADE_S = 0.05  # the degrade drill's delay a dispatch on replica 1
@@ -6427,7 +6513,7 @@ POLICY_SPECS = ("", "axial=pallas,tied_row=pallas", "axial=stock,flash=on",
                 "axial=dense,flash=off,tied_row=dense")
 POLICY_BUCKET = 128
 POLICY_LENGTHS = (128, 121, 110, 99)  # one bucket-128 batch of 4
-POLICY_REPS = 5  # forwards timed a policy, each alone between events
+POLICY_REPS = 3  # forwards timed a policy, each alone between events
 SPARSE_BACKENDS = ("pallas", "jnp", "splash")
 PREDICT_CLI_LEN = 128
 
@@ -6780,6 +6866,7 @@ def phase_long_meshless(buckets=LONG_BUCKETS):
 LONG_MESH_BUCKETS = (512, 768)  # the long ladder the mesh phase serves (phase_long_meshless)
 LONG_MESH_TAIL = 20  # each long request is its bucket less this many residues
 LONG_MESH_TIMEOUT_S = 600
+LONG_MESH_TURNS = (0, 1, 1, 0)  # meshless (0) and mesh (1) forwards a rung, in turns
 # the several-ranks sub-phase: a (1, 2, 2) grid of four ranks on the one card
 # (a gloo group on CUDA tensors: NCCL takes one rank a device), serving one
 # request on this long rung, which the world-size-1 rank serves too
@@ -6824,7 +6911,7 @@ def phase_long_mesh():
     relative L2 bound of the same model's meshless forward, K1 at each of
     the rung's call shapes against its plain version (``_long_rung_k1_checks``),
     and ``lattice_report`` passing on the long rungs; each rung's forward
-    ms (median of 3, beside the meshless forward's in the same process),
+    ms (median of 2, in turns beside the meshless forward's in the same process),
     peak, ``mesh_mfu`` and launches are logged and returned. The rank then
     serves a LONG_RANKS_LENGTH-residue request on the LONG_RANKS_BUCKET
     rung and keeps its distogram.
@@ -7160,10 +7247,10 @@ def long_mesh_rank(out_path) -> int:
                                         coords0=stacked["coords0"])
 
             # the mesh forward and the meshless one alternate in one process:
-            # meshless, mesh, mesh, meshless, meshless, mesh; each run's peak
-            # holds the other kind's last outputs
+            # meshless, mesh, mesh, meshless; each run's peak holds the other
+            # kind's last outputs
             times, flat_times, peaks, outs = [], [], [0, 0], [None, None]
-            for which in (0, 1, 1, 0, 0, 1):
+            for which in LONG_MESH_TURNS:
                 outs[which] = None
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
@@ -7222,12 +7309,595 @@ def long_mesh_rank(out_path) -> int:
     return 0
 
 
+# ------------------------------------------------ training on a device mesh
+
+# (a) the training smoke's width (Config(): dim 256, depth 6, heads 8,
+# dim_head 64, bf16, crop 128, MSA 5x64, batch 1), accumulation 1 so every
+# step updates: the steps each state takes, meshless and on each mesh, in turns
+TRAIN_MESH_STEPS = 4
+TRAIN_MESH_CONFIGS = {"dense": {}, "tied": {"msa_tie_row_attn": True},
+                      "sparse": {"sparse_self_attn": True}}
+# (b) the long crop: JAX's test_grid_sparse_768_full_train_step at full width
+TRAIN_MESH_LONG = {"crop": 768, "msa_len": 128, "min_len": 728}
+TRAIN_MESH_LONG_STEPS = 3
+# (c) four gloo ranks on the one card at depth 2, crop 64, MSA 5x64, batch 2
+TRAIN_MESH_RANKS = 4
+TRAIN_MESH_RANK_RUNS = {  # label: (mesh spec, model fields)
+    "1x2x2 sparse tied": ("1x2x2", {"grid_parallel": True, "sparse_self_attn": True,
+                                    "msa_tie_row_attn": True}),
+    "2x2 dense": ("2x2", {}),
+}
+TRAIN_MESH_RANK_STEPS = 2
+TRAIN_MESH_RANK_LOSS_REL = 1e-2
+TRAIN_MESH_RANK_GRAD_REL_L2 = 0.05  # PR 22's bound of four ranks against one
+TRAIN_MESH_E2E_STEPS = 2  # (d) end-to-end steps at the CLI's width, in turns
+TRAIN_MESH_TIMEOUT_S = 600
+# K3 at the long crop's call shapes: the f32 (query x key) logits a slice
+# check's plain version may hold
+K3_CHECK_LOGITS_BYTES = 1 << 29
+
+
+def _train_counts():
+    """Every training kernel's launch and Hopper launch count and the plain
+    versions' calls set to 0; returns a function reading them (K4 with and
+    without lse together)."""
+    kernels, plain = _training_kernels(), _plain_versions()
+    _reset_counts(kernels, plain)
+
+    def read():
+        out = {"plain_calls": sum(fn.calls for fn in plain)}
+        for name, fn in kernels.items():
+            key = name.replace(" (no lse)", "")
+            out[key] = out.get(key, 0) + fn.launches
+            if hasattr(fn, "sm90_launches"):
+                out[f"{key} sm90"] = out.get(f"{key} sm90", 0) + fn.sm90_launches
+        return out
+
+    return read
+
+
+def _count_delta(before, after):
+    return {k: after[k] - before.get(k, 0) for k in after}
+
+
+def _require_training_hopper(counts, what):
+    """Every launch of a training kernel with a Hopper kernel on it, K1 and
+    K3 launched, no plain version."""
+    require(counts["fused_attention"] > 0 and counts["fused_attention_bwd_dq"] > 0,
+            f"{what}: K1 or K3 never launched ({counts})")
+    for name in counts:
+        if name.endswith(" sm90"):
+            base = name[:-5]
+            require(counts[name] == counts[base],
+                    f"{what}: {counts[base] - counts[name]} {base} launches off its Hopper kernel")
+    require(counts["plain_calls"] == 0, f"{what}: a plain version ran on the training path")
+
+
+def _grads(model):
+    import torch
+
+    return {n: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().float().cpu()
+            for n, p in model.named_parameters()}
+
+
+def _grads_bit_equal(a, b):
+    import torch
+
+    return all(torch.equal(a[n], b[n]) for n in a)
+
+
+def _synthetic(cfg, n):
+    """The first ``n`` numpy batches of ``cfg``'s synthetic stream."""
+    import itertools
+
+    from alphafold2_tpu_torch.data.pipeline import SyntheticDataset
+
+    return list(itertools.islice(iter(SyntheticDataset(cfg.data, seed=cfg.train.seed)), n))
+
+
+def _train_mesh_cfg(fields, **data):
+    from alphafold2_tpu_torch.config import Config
+
+    cfg = Config()
+    for k, v in fields.items():
+        setattr(cfg.model, k, v)
+    for k, v in data.items():
+        setattr(cfg.data, k, v)
+    cfg.train.gradient_accumulate_every = 1
+    cfg.train.warmup_steps = 1
+    return cfg
+
+
+def _timed_step(step, state, batch, *extra):
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch, *extra)
+    torch.cuda.synchronize()
+    return state, metrics, (time.perf_counter() - t0) * 1e3, torch.cuda.max_memory_allocated()
+
+
+def _train_mesh_world1(label, fields):
+    """(a): one configuration meshless, on a (1, 1) mesh and on a 1x1x1
+    grid, TRAIN_MESH_STEPS steps each from the same initial state and
+    batches, in turns; each mesh step's loss and every gradient against the
+    meshless step's (the kernel phase's bf16 bound; bit-equal expected),
+    its launches, time and peak; one mesh step's census."""
+    import statistics
+
+    import torch
+
+    from alphafold2_tpu_torch.parallel import sharding
+    from alphafold2_tpu_torch.parallel.grid_parallel import make_grid_mesh
+    from alphafold2_tpu_torch.train import loop
+
+    cfg = _train_mesh_cfg(dict(fields, grid_parallel=True))
+    batches = _synthetic(cfg, TRAIN_MESH_STEPS)
+    runs = {"meshless": None, "(1, 1)": sharding.make_mesh(1, 1),
+            "1x1x1": make_grid_mesh(1, 1, 1)}
+    states = {k: loop.init_state(cfg, loop.build_model(cfg)) for k in runs}
+    steps = {k: loop.make_train_step(states[k].model, mesh) for k, mesh in runs.items()}
+    read = _train_counts()
+    launches = {k: {} for k in runs if k != "meshless"}
+    rec = {k: {"ms": [], "peak": 0, "losses": []} for k in runs}
+    worst, equal, census = 0.0, True, None
+    for i, batch_np in enumerate(batches):
+        ref = None
+        for name, mesh in runs.items():
+            batch = loop.device_put_batch(batch_np, "cuda", mesh)
+            before = read()
+            if name == "1x1x1" and i == 1:
+                c0 = sharding.census()
+            states[name], m, ms, peak = _timed_step(steps[name], states[name], batch)
+            if name == "1x1x1" and i == 1:
+                census = {k: v["count"] for k, v in
+                          sharding.census_delta(c0, sharding.census()).items()}
+            delta = _count_delta(before, read())
+            if name != "meshless":
+                for k, v in delta.items():
+                    launches[name][k] = launches[name].get(k, 0) + v
+            loss = float(m["loss"])
+            require(math.isfinite(loss) and bool(m["grads_ok"]), f"{label} {name} step {i}")
+            r = rec[name]
+            r["losses"].append(loss)
+            r["ms"].append(ms)
+            r["peak"] = max(r["peak"], peak)
+            grads = _grads(states[name].model)
+            if ref is None:
+                ref = (loss, grads)
+                continue
+            require(abs(loss - ref[0]) <= TOL["bfloat16"][1] * abs(ref[0]),
+                    f"[train_mesh] {label} on {name}, step {i}: loss {loss} vs meshless {ref[0]}")
+            err, leaf, _ = _leaf_errors(ref[1], grads)
+            worst = max(worst, err)
+            equal = equal and loss == ref[0] and _grads_bit_equal(ref[1], grads)
+            require(err <= TOL["bfloat16"][1],
+                    f"[train_mesh] {label} on {name}, step {i}: gradient {leaf} rel L2 {err:.3e}")
+    for name, counts in launches.items():
+        _require_training_hopper(counts, f"[train_mesh] {label} on {name}")
+    out = {"runs": {k: {"losses": r["losses"], "ms": statistics.median(r["ms"][1:]),
+                        "peak_bytes": r["peak"]} for k, r in rec.items()},
+           "launches": launches, "worst_grad_rel_l2": worst, "bit_equal": equal,
+           "census": census}
+    log(f"[train_mesh] (a) {label}, dim {cfg.model.dim}, depth {cfg.model.depth}, crop "
+        f"{cfg.data.crop_len}, {TRAIN_MESH_STEPS} steps each in turns: losses "
+        + "; ".join(f"{k} {' '.join(f'{x:.6f}' for x in r['losses'])}" for k, r in rec.items())
+        + f"; every gradient against meshless worst rel L2 {worst:.3e} (tol "
+        f"{TOL['bfloat16'][1]}), bit-equal: {equal}; step ms (median of steps 2-4) "
+        + ", ".join(f"{k} {v['ms']:.2f}" for k, v in out["runs"].items())
+        + "; peak GiB " + ", ".join(f"{k} {v['peak_bytes'] / 2**30:.2f}"
+                                     for k, v in out["runs"].items())
+        + f"; launches on 1x1x1 {launches['1x1x1']}; census of one 1x1x1 step {census}")
+    del states, steps
+    _free()
+    return out
+
+
+def _k3_slice_check(label, which, args, got):
+    """One K3a or K3b call of the main path held against its plain version
+    on the same operands: a slice of its batch rows (the first and the
+    last) and, for K3a, of its queries over every key, for K3b of its keys
+    over every query, as many as K3_CHECK_LOGITS_BYTES of f32 logits
+    allow. The kernel phase's bf16 tolerance."""
+    import torch
+
+    from alphafold2_tpu_torch.ops.cuda import axial
+
+    q, k, v, do, lse, dsum, q_mask, kv_mask, scale = args
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    bi = torch.tensor(sorted({0, b - 1}), device=q.device)
+    rows = lambda t: t.index_select(0, bi) if t is not None else None  # noqa: E731
+    q, k, v, do, lse, dsum = map(rows, (q, k, v, do, lse, dsum))
+    q_mask, kv_mask = rows(q_mask), rows(kv_mask)
+    long_n = nk if which == "dq" else nq
+    short_n = nq if which == "dq" else nk
+    n_sl = max(2, min(short_n, K3_CHECK_LOGITS_BYTES // (len(bi) * h * long_n * 4)))
+    idx = torch.tensor(sorted(set(range(n_sl // 2)) | set(range(short_n - (n_sl - n_sl // 2),
+                                                                  short_n))), device=q.device)
+    splits = axial.grad_splits(b, h, nq, nk, d, which)
+    what = (f"{label} ({b} x {h}, {nq} x {nk}, d{d}; {splits} splits of at most "
+            f"{-(-(-(-(nk if which == 'dq' else nq) // axial.GRAD_TILE)) // splits)} tiles): "
+            f"rows {bi.tolist()}, {len(idx)} {'queries' if which == 'dq' else 'keys'}")
+    if which == "dq":
+        sel = lambda t: t.index_select(2, idx)  # noqa: E731
+        ref = axial.fused_attention_dq_reference(
+            sel(q), k, v, sel(do), lse.index_select(2, idx), dsum.index_select(2, idx),
+            q_mask.index_select(1, idx) if q_mask is not None else None, kv_mask, scale)
+        rows_out = [_compare(what, "fused_attention_bwd_dq", rows(got[0]).index_select(2, idx),
+                             ref, q.dtype)]
+    else:
+        sel = lambda t: t.index_select(2, idx)  # noqa: E731
+        ref = axial.fused_attention_dkv_reference(
+            q, sel(k), sel(v), do, lse, dsum, q_mask,
+            kv_mask.index_select(1, idx) if kv_mask is not None else None, scale)
+        rows_out = [_compare(what, f"fused_attention_bwd_dkv ({n})",
+                             rows(g).index_select(2, idx), r, q.dtype)
+                    for n, g, r in zip(("dk", "dv"), got, ref)]
+    return [{**r, "shape": [b, h, nq, nk, d], "splits": splits} for r in rows_out]
+
+
+def _watch_k3(label, fn):
+    """``fn()`` with K3's launches watched (``ops/cuda/axial.py``
+    ``_launch_backward``, which K3a's and K3b's wrappers call): the first
+    call of each operand signature whose streamed loop is the long one (at
+    least 2**16 rows) is held against the plain version
+    (``_k3_slice_check``) once it has written its outputs. Returns the
+    checks."""
+    from alphafold2_tpu_torch.ops.cuda import axial
+
+    real = axial._launch_backward
+    seen, checks = set(), []
+
+    def call(which, outs, slots, q, k, v, dout, lse, dsum, q_mask, kv_mask, sm_scale):
+        hopper = real(which, outs, slots, q, k, v, dout, lse, dsum, q_mask, kv_mask, sm_scale)
+        streamed = k.shape[2] if which == "dq" else q.shape[2]
+        sig = (which, tuple(q.shape), tuple(k.shape))
+        if streamed >= 1 << 16 and sig not in seen:
+            seen.add(sig)
+            checks.extend(_k3_slice_check(
+                label, which, (q, k, v, dout, lse, dsum, q_mask, kv_mask, sm_scale), outs))
+        return hopper
+
+    axial._launch_backward = call
+    try:
+        fn()
+    finally:
+        axial._launch_backward = real
+    return checks
+
+
+def _train_mesh_long(sparse):
+    """(b): the long crop with remat on a 1x1x1 grid: the meshless step's
+    peak first, then TRAIN_MESH_LONG_STEPS mesh steps (finite, not skipped;
+    peak; ms), K3a and K3b held at the merged MSA<-pair and the pair<-MSA
+    backward's own call shapes in the last one."""
+    import statistics
+
+    import torch
+
+    from alphafold2_tpu_torch.parallel.grid_parallel import make_grid_mesh
+    from alphafold2_tpu_torch.train import loop
+
+    label = f"crop {TRAIN_MESH_LONG['crop']} {'sparse' if sparse else 'dense'}"
+    cfg = _train_mesh_cfg({"remat": True, "grid_parallel": True, "sparse_self_attn": sparse},
+                          crop_len=TRAIN_MESH_LONG["crop"], msa_len=TRAIN_MESH_LONG["msa_len"],
+                          min_len_filter=TRAIN_MESH_LONG["min_len"])
+    batches = _synthetic(cfg, TRAIN_MESH_LONG_STEPS)
+    st = loop.init_state(cfg, loop.build_model(cfg))
+    step = loop.make_train_step(st.model)
+    st, m, meshless_ms, meshless_peak = _timed_step(
+        step, st, loop.device_put_batch(batches[0], "cuda"))
+    require(meshless_peak <= 0.9 * torch.cuda.get_device_properties(0).total_memory,
+            f"{label}: the meshless step peaks at {meshless_peak / 2**30:.2f} GiB")
+    meshless_loss = float(m["loss"])
+    del st, step
+    _free()
+    mesh = make_grid_mesh(1, 1, 1)
+    st = loop.init_state(cfg, loop.build_model(cfg))
+    step = loop.make_train_step(st.model, mesh)
+    read = _train_counts()
+    times, peak, losses, checks = [], 0, [], []
+    for i, batch_np in enumerate(batches):
+        batch = loop.device_put_batch(batch_np, "cuda", mesh)
+        holder = {}
+
+        def run():
+            holder["r"] = _timed_step(step, st, batch)
+
+        if i == len(batches) - 1:  # the watched step: its plain checks count nowhere
+            launches = read()
+            checks = _watch_k3(f"[train_mesh] (b) {label}", run)
+        else:
+            run()
+            times.append(holder["r"][2])
+            peak = max(peak, holder["r"][3])
+        m = holder["r"][1]
+        require(math.isfinite(float(m["loss"])) and bool(m["grads_ok"])
+                and int(m["skipped"]) == 0, f"{label} step {i}: {float(m['loss'])}")
+        losses.append(float(m["loss"]))
+    _require_training_hopper(launches, f"[train_mesh] (b) {label}")
+    kinds = {(c["kernel"], tuple(c["shape"])) for c in checks}
+    require(any(c["kernel"] == "fused_attention_bwd_dq" for c in checks)
+            and any(c["kernel"].startswith("fused_attention_bwd_dkv") for c in checks),
+            f"{label}: K3a or K3b not held at the long call shapes ({kinds})")
+    out = {"meshless_ms": meshless_ms, "meshless_peak_bytes": meshless_peak,
+           "meshless_loss": meshless_loss, "losses": losses,
+           "ms": statistics.median(times[1:]), "peak_bytes": peak, "launches": launches,
+           "k3_checks": checks}
+    log(f"[train_mesh] (b) {label}, MSA 5x{TRAIN_MESH_LONG['msa_len']}, remat, depth "
+        f"{cfg.model.depth}: meshless step {meshless_ms:.1f} ms, peak "
+        f"{meshless_peak / 2**30:.2f} GiB, loss {meshless_loss:.6f}; 1x1x1 grid losses "
+        f"{' '.join(f'{x:.6f}' for x in losses)}, step {out['ms']:.1f} ms (step 2 of "
+        f"{len(batches)}, the last one watched), peak {peak / 2**30:.2f} GiB (steps 1-2); "
+        f"launches of steps 1-2 {launches}")
+    del st, step
+    _free()
+    return out
+
+
+def _train_mesh_rank_reference(tmp):
+    """(c)'s reference, on this world-size-1 rank: each TRAIN_MESH_RANK_RUNS
+    configuration meshless on the same global batches, each step's loss and
+    gradients and the parameters after each, saved under ``tmp``."""
+    import torch
+
+    from alphafold2_tpu_torch.train import loop
+
+    for label, (_, fields) in TRAIN_MESH_RANK_RUNS.items():
+        cfg = _train_mesh_cfg(fields, crop_len=64, batch_size=2)
+        cfg.model.depth = 2
+        st = loop.init_state(cfg, loop.build_model(cfg))
+        step = loop.make_train_step(st.model)
+        ref = []
+        for batch_np in _synthetic(cfg, TRAIN_MESH_RANK_STEPS):
+            st, m = step(st, loop.device_put_batch(batch_np, "cuda"))
+            ref.append({"loss": float(m["loss"]), "grads": _grads(st.model)})
+        torch.save(ref, os.path.join(tmp, f"reference {label}.pt"))
+        del st, step
+    _free()
+
+
+def _train_mesh_e2e():
+    """(d): the end-to-end step at the CLI's width meshless and on a (1, 1)
+    mesh, TRAIN_MESH_E2E_STEPS steps each from the same state, batch and
+    MDS start, in turns: the structure loss and every gradient within
+    E2E_GRAD_REL_L2 of the meshless step's."""
+    import torch
+
+    from alphafold2_tpu_torch.parallel import sharding
+    from alphafold2_tpu_torch.train import end2end, loop
+
+    cfg = _e2e_config(False)
+    batch_np = _synthetic(cfg, 1)[0]
+    runs = {"meshless": None, "(1, 1)": sharding.make_mesh(1, 1)}
+    states = {k: loop.init_state(cfg, end2end.build_end2end_model(cfg)) for k in runs}
+    steps = {k: end2end.make_end2end_step(states[k].model, mesh) for k, mesh in runs.items()}
+    batch = loop.batch_to_device(batch_np, torch.device("cuda"))
+    b, n = batch_np["seq"].shape
+    read = _train_counts()
+    worst, rec, launches = 0.0, {k: [] for k in runs}, {}
+    for i in range(TRAIN_MESH_E2E_STEPS):
+        coords0 = end2end.mds_start(cfg.train.seed + 1, i, b, 3 * n, "cuda")
+        ref = None
+        for name in runs:
+            before = read()
+            states[name], m = steps[name](states[name], batch, coords0)
+            if name != "meshless":
+                for k, v in _count_delta(before, read()).items():
+                    launches[k] = launches.get(k, 0) + v
+            loss = float(m["loss"])
+            require(math.isfinite(loss) and bool(m["grads_ok"]), f"e2e {name} step {i}")
+            rec[name].append(loss)
+            grads = _grads(states[name].model)
+            if ref is None:
+                ref = (loss, grads)
+                continue
+            require(abs(loss - ref[0]) <= E2E_GRAD_REL_L2 * abs(ref[0]),
+                    f"[train_mesh] (d) step {i}: loss {loss} vs meshless {ref[0]}")
+            err, leaf, sym = _leaf_errors(ref[1], grads)
+            worst = max(worst, err)
+            require(err <= E2E_GRAD_REL_L2 and sym <= E2E_ZERO_GRAD_ATOL,
+                    f"[train_mesh] (d) step {i}: gradient {leaf} rel L2 {err:.3e}")
+    _require_training_hopper(launches, "[train_mesh] (d)")
+    log(f"[train_mesh] (d) end to end at dim {cfg.model.dim}, depth {cfg.model.depth}, crop "
+        f"{cfg.data.crop_len}, {TRAIN_MESH_E2E_STEPS} steps each in turns: structure losses "
+        + "; ".join(f"{k} {' '.join(f'{x:.6f}' for x in v)}" for k, v in rec.items())
+        + f"; every gradient against meshless worst rel L2 {worst:.3e} (tol "
+        f"{E2E_GRAD_REL_L2}); launches on (1, 1) {launches}")
+    del states, steps
+    _free()
+    return {"losses": rec, "worst_grad_rel_l2": worst, "launches": launches}
+
+
+def train_mesh_rank(tmp) -> int:
+    """The body of phase_train_mesh's world-size-1 NCCL rank (run as its
+    subprocess, with torchrun's environment): (a), (b), (c)'s reference and
+    (d); the record to ``tmp``/train_mesh.json."""
+    import torch
+    import torch.distributed as dist
+
+    from alphafold2_tpu_torch.parallel import distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    require(distributed.initialize(), "torchrun's environment initialised no process group")
+    require(dist.get_world_size() == 1 and dist.get_backend() == "nccl",
+            f"expected one NCCL rank, got {dist.get_world_size()} {dist.get_backend()}")
+    try:
+        out = {"a": {label: _train_mesh_world1(label, fields)
+                     for label, fields in TRAIN_MESH_CONFIGS.items()},
+               "b": {("sparse" if sparse else "dense"): _train_mesh_long(sparse)
+                     for sparse in (False, True)}}
+        _train_mesh_rank_reference(tmp)
+        out["d"] = _train_mesh_e2e()
+        with open(os.path.join(tmp, "train_mesh.json"), "w", encoding="utf-8") as fh:
+            json.dump(out, fh)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def train_mesh_gloo_rank(tmp) -> int:
+    """The body of one rank of phase_train_mesh's (c): a gloo group on CUDA
+    tensors over TRAIN_MESH_RANKS ranks of the one card; each
+    TRAIN_MESH_RANK_RUNS configuration on its mesh from the seeded initial
+    state, TRAIN_MESH_RANK_STEPS steps on the global batches (this rank's
+    dp slice), each held against the world-size-1 rank's meshless step
+    (loss, every gradient summed over the world), the parameters
+    bit-identical on every rank after each step, every launch on Hopper.
+    reduce_scatter_tensor is probed first on CUDA tensors."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from alphafold2_tpu_torch.parallel import sharding
+    from alphafold2_tpu_torch.train import loop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{os.environ['MASTER_PORT']}",
+                            rank=rank, world_size=world)
+    out = {"rank": rank, "runs": {}}
+    try:
+        for label, (spec, fields) in TRAIN_MESH_RANK_RUNS.items():
+            cfg = _train_mesh_cfg(fields, crop_len=64, batch_size=2)
+            cfg.model.depth = 2
+            mesh = sharding.parse_mesh_spec(spec)
+            st = loop.init_state(cfg, loop.build_model(cfg))
+            step = loop.make_train_step(st.model, mesh)
+            ref = torch.load(os.path.join(tmp, f"reference {label}.pt"), weights_only=False)
+            read = _train_counts()
+            rec = {"losses": [], "grad_rel_l2": [], "same": [], "ms": []}
+            t0 = time.perf_counter()
+            c0 = sharding.census()
+            for i, batch_np in enumerate(_synthetic(cfg, TRAIN_MESH_RANK_STEPS)):
+                t_step = time.perf_counter()
+                st, m = step(st, loop.device_put_batch(batch_np, "cuda", mesh))
+                torch.cuda.synchronize()
+                rec["ms"].append((time.perf_counter() - t_step) * 1e3)
+                grads = loop.reduce_gradients(
+                    [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in st.model.parameters()], mesh)
+                got = {n: g.detach().float().cpu()
+                       for (n, _), g in zip(st.model.named_parameters(), grads)}
+                err, leaf, _ = _leaf_errors(ref[i]["grads"], got)
+                loss = float(m["loss"])
+                rec["losses"].append(loss)
+                rec["grad_rel_l2"].append(err)
+                flat = torch.cat([p.detach().reshape(-1) for p in st.model.parameters()])
+                digest = hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()
+                every = [None] * world
+                dist.all_gather_object(every, digest)
+                rec["same"].append(len(set(every)) == 1)
+                want = ref[i]["loss"]
+                require(abs(loss - want) <= TRAIN_MESH_RANK_LOSS_REL * abs(want),
+                        f"rank {rank} {label} step {i}: loss {loss} vs {want}")
+                require(err <= TRAIN_MESH_RANK_GRAD_REL_L2,
+                        f"rank {rank} {label} step {i}: gradient {leaf} rel L2 {err:.3e}")
+                require(rec["same"][-1], f"rank {rank} {label} step {i}: parameters parted")
+            launches = read()
+            rec["census"] = {k: v["count"] for k, v in
+                             sharding.census_delta(c0, sharding.census()).items()}
+            rec["launches"] = launches
+            rec["seconds"] = time.perf_counter() - t0
+            _require_training_hopper(launches, f"[train_mesh ranks] rank {rank} {label}")
+            out["runs"][label] = rec
+            log(f"[train_mesh ranks] rank {rank} of {world} (gloo, CUDA tensors, "
+                f"{sharding.describe_mesh(mesh)}) {label}: losses "
+                f"{' '.join(f'{x:.6f}' for x in rec['losses'])} vs world size 1 "
+                f"{' '.join(f'{r['loss']:.6f}' for r in ref)}; gradients worst rel L2 "
+                f"{max(rec['grad_rel_l2']):.3e} (tol {TRAIN_MESH_RANK_GRAD_REL_L2}); "
+                f"parameters the same on every rank: {all(rec['same'])}; step ms "
+                f"{' '.join(f'{x:.1f}' for x in rec['ms'])}; launches {launches}; "
+                f"census {rec['census']}")
+            del st, step
+        with open(os.path.join(tmp, f"train_rank{rank}.json"), "w", encoding="utf-8") as fh:
+            json.dump(out, fh)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _train_mesh_ranks(tmp):
+    """(c): TRAIN_MESH_RANKS gloo processes on the one card
+    (``train_mesh_gloo_rank``); returns each rank's record."""
+    t0 = time.perf_counter()
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c",
+         "import sys, chip_smoke as c; sys.exit(c.train_mesh_gloo_rank(sys.argv[1]))", tmp],
+        cwd=HERE, env=_rank_env(r, TRAIN_MESH_RANKS, port)) for r in range(TRAIN_MESH_RANKS)]
+    deadline = time.monotonic() + TRAIN_MESH_TIMEOUT_S
+    try:
+        codes = [p.wait(timeout=max(1.0, deadline - time.monotonic())) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    require(codes == [0] * TRAIN_MESH_RANKS, f"the {TRAIN_MESH_RANKS} ranks exited {codes}")
+    ranks = []
+    for r in range(TRAIN_MESH_RANKS):
+        with open(os.path.join(tmp, f"train_rank{r}.json"), encoding="utf-8") as fh:
+            ranks.append(json.load(fh))
+    log(f"[train_mesh ranks] {TRAIN_MESH_RANKS} ranks on the one card took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return ranks
+
+
+def phase_train_mesh():
+    """Training on a device mesh (log tags ``[train_mesh]``,
+    ``[train_mesh ranks]``).
+
+    One rank of a world-size-1 NCCL group in a subprocess started with
+    torchrun's environment (``train_mesh_rank``):
+    (a) the training smoke's width (dim 256, depth 6, bf16, crop 128, MSA
+    5x64), dense, tied and sparse, meshless, on a (1, 1) mesh and on a
+    1x1x1 grid in turns (``_train_mesh_world1``); (b) crop 768 with MSA
+    5x128 and remat on a 1x1x1 grid, dense and sparse, the meshless step's
+    peak first, K3 held at the long passes' call shapes
+    (``_train_mesh_long``); (c)'s reference steps; (d) the end-to-end step
+    at the CLI's width meshless and on a (1, 1) mesh (``_train_mesh_e2e``).
+    Then (c): TRAIN_MESH_RANKS gloo ranks on the one card
+    (``_train_mesh_ranks``), a 1x2x2 grid sparse with tied rows and a 2x2
+    (dp, sp) mesh dense, against the world-size-1 rank's steps."""
+    import gc
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    if torch.cuda.is_initialized():  # the ranks are other processes on the same card
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run(
+            [sys.executable, "-c",
+             "import sys, chip_smoke as c; sys.exit(c.train_mesh_rank(sys.argv[1]))", tmp],
+            cwd=HERE, env=_rank_env(0, 1, _free_port()), timeout=TRAIN_MESH_TIMEOUT_S)
+        require(proc.returncode == 0, f"the training mesh rank exited {proc.returncode}")
+        with open(os.path.join(tmp, "train_mesh.json"), encoding="utf-8") as fh:
+            result = json.load(fh)
+        result["ranks"] = _train_mesh_ranks(tmp)
+    result["seconds"] = time.perf_counter() - t0
+    log(f"[train_mesh] phase took {result['seconds']:.1f} s")
+    return result
+
+
 def probe_gloo_cuda(world=2):
     """Whether gloo takes CUDA tensors for the collectives the mesh path
     uses (all_to_all_single even and uneven, all_reduce sum and max,
-    all_gather_into_tensor, broadcast_object_list through the card, and
-    the ring's batch_isend_irecv), ``world`` ranks on the one card; not part
-    of the run. Logs each op's outcome."""
+    all_gather_into_tensor, reduce_scatter_tensor (the all_gather's
+    backward), broadcast_object_list through the card, and the ring's
+    batch_isend_irecv), ``world`` ranks on the one card; not part of the
+    run. Logs each op's outcome."""
     port = _free_port()
     procs = [subprocess.Popen(
         [sys.executable, "-c", "import chip_smoke as c; c._gloo_cuda_rank()"], cwd=HERE,
@@ -7257,6 +7927,8 @@ def _gloo_cuda_rank():
         "all_reduce max": lambda: dist.all_reduce(x.clone(), op=dist.ReduceOp.MAX),
         "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
             x.new_empty(world * x.numel()), x),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            x.new_empty(x.numel() // world), x),
         "broadcast_object_list": lambda: dist.broadcast_object_list(
             [{"op": "forward", "rank": rank}], src=0, device=torch.device("cuda")),
         "batch_isend_irecv": lambda: [w.wait() for w in dist.batch_isend_irecv([
@@ -7402,7 +8074,7 @@ def _shape_entry(rows, kernel, label):
 
 def kernel_line(rows, serve, train, tied_train, sparse_train, gate, engines, telemetry,
                 templates, plm, compress, data, serve_async, serve_fleet, policy=None,
-                predict_cli=None, long_mesh=None):
+                predict_cli=None, long_mesh=None, train_mesh=None):
     """One entry per kernel. K1 sums one serving trunk layer's K1 calls at
     bucket 128 (two pair axial passes, the MSA column pass, both cross
     attentions; a call's time includes its combine pass where it splits),
@@ -7451,7 +8123,12 @@ def kernel_line(rows, serve, train, tied_train, sparse_train, gate, engines, tel
     world-size-1 mesh (the rung's first dispatch: the warm, counted and
     request forwards), by bucket; 0 where the mesh path does not run it;
     and ``mesh_rank_launches``: each rank's launches in the same dispatch
-    on the LONG_RANKS_BUCKET rung of the four ranks' 1x2x2 grid."""
+    on the LONG_RANKS_BUCKET rung of the four ranks' 1x2x2 grid. Every
+    entry carries ``train_mesh_launches``: its launches in phase_train_mesh's
+    world-size-1 mesh steps, by run ((a) each configuration on each mesh,
+    its TRAIN_MESH_STEPS steps; (b) each long-crop run's steps before the
+    watched one; (d) the end-to-end steps), and ``train_mesh_rank_launches``:
+    each rank's launches in (c), by run."""
     serve_k1 = {"pair axial pass (1536x8, 384x384, d64)": 2,
                 "MSA column pass (512x8, 5x5, d64)": 1,
                 "pair<-MSA cross (4x8, 147456x640, d64)": 1,
@@ -7547,6 +8224,16 @@ def kernel_line(rows, serve, train, tied_train, sparse_train, gate, engines, tel
                                   for bucket, run in long_mesh["rungs"].items()}
             e["mesh_rank_launches"] = [r["launches"].get(e["name"], 0)
                                        for r in long_mesh["ranks"]]
+        if train_mesh is not None:
+            runs = {f"(a) {label} {mesh}": counts
+                    for label, a in train_mesh["a"].items()
+                    for mesh, counts in a["launches"].items()}
+            runs.update({f"(b) {label}": b["launches"] for label, b in train_mesh["b"].items()})
+            runs["(d) (1, 1)"] = train_mesh["d"]["launches"]
+            e["train_mesh_launches"] = {k: v.get(e["name"], 0) for k, v in runs.items()}
+            e["train_mesh_rank_launches"] = {
+                label: [r["runs"][label]["launches"].get(e["name"], 0)
+                        for r in train_mesh["ranks"]] for label in TRAIN_MESH_RANK_RUNS}
     return {"kernels": entries}
 
 
@@ -7592,6 +8279,14 @@ def _card() -> str:
     return smi[0] if smi else "nvidia-smi gave nothing"
 
 
+def _timed(name, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, logging its wall time as ``[phase]``."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    log(f"[phase] {name} took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "alphafold2_tpu_torch")):
         log("chip_smoke.py must run from a checkout that holds alphafold2_tpu_torch/")
@@ -7608,10 +8303,11 @@ def main() -> int:
     log(f"[device] {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}; "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     try:
-        phase_build()
-        gate = phase_gate()
-        rows = (phase_kernels() + phase_backward() + phase_head_dims() + phase_tied()
-                + phase_sparse())
+        _timed("build", phase_build)
+        gate = _timed("gate", phase_gate)
+        rows = (_timed("kernels", phase_kernels) + _timed("backward", phase_backward)
+                + _timed("head_dims", phase_head_dims) + _timed("tied", phase_tied)
+                + _timed("sparse", phase_sparse))
         for r in rows:
             if "ms" in r:
                 host = f", host {r['host_us']:.1f} us a call" if "host_us" in r else ""
@@ -7639,28 +8335,29 @@ def main() -> int:
             log(f"[sparse] per sparse training step, {name}: kernel {e['ms']:.4f} ms, plain "
                 f"{e['plain_ms']:.3f} ms, sdpa {e['library_ms']} ms, bound "
                 f"{e['bound_ms']:.4f} ms ({e['bound_by']})")
-        phase_reference()
-        phase_se3_streamed()
-        serve = phase_serve()
-        lattice = phase_lattice(serve["engine"])
-        long_mesh = phase_long_mesh()
-        serve_async = phase_serve_async(serve.pop("engine"))
-        serve_fleet = phase_serve_fleet(serve_async.pop("state"), serve_async["serial_req_per_s"],
-                                        serve.pop("atom14"))
-        policy = phase_kernel_policy()
-        predict_cli = phase_predict_cli()
-        train = phase_train()
-        tied_train = phase_train(tied=True)
-        sparse_train = phase_train(sparse=True)
-        phase_end2end()
-        engines = phase_engines()
-        telemetry = phase_train_telemetry()
-        rows += phase_slice_kernels()
-        templates = phase_templates()
-        plm = phase_plm()
-        compress_rows, compress = phase_compress()
+        _timed("reference", phase_reference)
+        _timed("se3_streamed", phase_se3_streamed)
+        serve = _timed("serve", phase_serve)
+        lattice = _timed("lattice", phase_lattice, serve["engine"])
+        long_mesh = _timed("long_mesh", phase_long_mesh)
+        serve_async = _timed("serve_async", phase_serve_async, serve.pop("engine"))
+        serve_fleet = _timed("serve_fleet", phase_serve_fleet, serve_async.pop("state"),
+                             serve_async["serial_req_per_s"], serve.pop("atom14"))
+        policy = _timed("kernel_policy", phase_kernel_policy)
+        predict_cli = _timed("predict_cli", phase_predict_cli)
+        train = _timed("train", phase_train)
+        tied_train = _timed("tied train", phase_train, tied=True)
+        sparse_train = _timed("sparse train", phase_train, sparse=True)
+        train_mesh = _timed("train_mesh", phase_train_mesh)
+        _timed("end2end", phase_end2end)
+        engines = _timed("engines", phase_engines)
+        telemetry = _timed("train_telemetry", phase_train_telemetry)
+        rows += _timed("slice_kernels", phase_slice_kernels)
+        templates = _timed("templates", phase_templates)
+        plm = _timed("plm", phase_plm)
+        compress_rows, compress = _timed("compress", phase_compress)
         rows += compress_rows
-        data = phase_data()
+        data = _timed("data", phase_data)
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
         log("chip_smoke: FAILED")
@@ -7668,7 +8365,8 @@ def main() -> int:
     log(card)
     print(json.dumps(kernel_line(rows, serve, train, tied_train, sparse_train, gate,
                                  engines, telemetry, templates, plm, compress, data,
-                                 serve_async, serve_fleet, policy, predict_cli, long_mesh)),
+                                 serve_async, serve_fleet, policy, predict_cli, long_mesh,
+                                 train_mesh)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

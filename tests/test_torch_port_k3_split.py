@@ -167,3 +167,37 @@ def test_merge_on_the_cpu_takes_the_plain_version():
     assert axial.fused_attention_bwd_merge.launches == launches
     with pytest.raises(ValueError):
         axial.fused_attention_bwd_merge(part[0])  # not (S, B, H, N, D)
+
+
+# (b, h, nq, nk, d) of the long training passes: the merged MSA<-pair and the
+# pair<-MSA backward at crop 768 with MSA 5 x 128 (rows the MSA's 640
+# tokens, the stream the pair grid's 589,824), at batch 1 and 2, and past
+# them at crop 1024 and batch 4, where the grid fills the card and one
+# split would stream the whole pair grid
+LONG_STREAMS = {
+    "crop 768 MSA<-pair": (1, 8, 640, 768 * 768, 64),
+    "crop 768 pair<-MSA": (1, 8, 768 * 768, 640, 64),
+    "crop 768 MSA<-pair, batch 2": (2, 8, 640, 768 * 768, 64),
+    "crop 1024 MSA<-pair, batch 4": (4, 8, 640, 1024 * 1024, 64),
+    "crop 1024 pair<-MSA, batch 4": (4, 8, 1024 * 1024, 640, 64),
+    "many blocks, long stream": (64, 8, 1024, 1000000, 64),
+}
+
+
+@pytest.mark.parametrize("name", list(LONG_STREAMS))
+def test_no_grad_split_streams_more_than_max_grad_split_tiles(name):
+    """K3's f32 accumulators drift over a long stream of tiles (K1's did,
+    MAX_SPLIT_TILES), so no K3a key range and no K3b query range may stream
+    more than MAX_GRAD_SPLIT_TILES, whatever the grid; the ranges still
+    cover the stream once. The cap is the longest stream held against the
+    plain version on the card (chip_smoke.py phase_k3_streams)."""
+    b, h, nq, nk, d = LONG_STREAMS[name]
+    assert axial.MAX_GRAD_SPLIT_TILES <= 9216
+    for which in ("dq", "dkv"):
+        streamed = nk if which == "dq" else nq
+        s = axial.grad_splits(b, h, nq, nk, d, which)
+        ranges = axial.split_ranges(streamed, s, axial.GRAD_TILE)
+        assert max(hi - lo for lo, hi in ranges) <= axial.MAX_GRAD_SPLIT_TILES * axial.GRAD_TILE
+        assert ranges[0][0] == 0 and ranges[-1][1] == streamed
+        assert all(a[1] == b_[0] for a, b_ in zip(ranges, ranges[1:]))
+        assert s >= -(-(-(-streamed // axial.GRAD_TILE)) // axial.MAX_GRAD_SPLIT_TILES)

@@ -176,7 +176,7 @@ def test_full_step_tags_match_jax(engine):
     batch, params, ref = _jax_reference("default" if engine == "remat" else engine)
     assert batch["mask"].all() and batch["msa_mask"].all()
     state = loop.init_state(cfg, loop.build_model(cfg), flax_params=params, device="cpu")
-    step = loop.make_train_step(state.model, "full")
+    step = loop.make_train_step(state.model, numerics_mode="full")
     _, metrics = step(state, loop.batch_to_device(batch, torch.device("cpu")))
     stats = metrics["numerics"]
     assert _ordered_names(stats) == _ordered_names(ref)

@@ -430,11 +430,22 @@ def test_config_matches_the_jax_config_and_parses_overrides():
     ("mesh", "seq_parallel", 2), ("mesh", "grid_rows", 2), ("mesh", "data_parallel", 2),
 ])
 def test_unported_options_raise(change):
+    """sidechainnet is not ported. A mesh trains under torchrun: a grid
+    mesh without model.grid_parallel is JAX's ValueError, and in one
+    process with no process group building a mesh raises, naming
+    ``parallel.distributed.initialize``."""
     cfg = _cpu_cfg()
     section, field, value = change
     setattr(getattr(cfg, section), field, value)
-    with pytest.raises(NotImplementedError):
-        loop.train(cfg, num_steps=1, device="cpu")
+    if field in ("grid_rows", "grid_cols"):
+        with pytest.raises(ValueError, match="requires model.grid_parallel=true"):
+            loop.train(cfg, num_steps=1, device="cpu")
+    elif section == "mesh":
+        with pytest.raises(RuntimeError, match=r"initialize\(\)"):
+            loop.train(cfg, num_steps=1, device="cpu")
+    else:
+        with pytest.raises(NotImplementedError):
+            loop.train(cfg, num_steps=1, device="cpu")
 
 
 @pytest.mark.parametrize("change", [

@@ -15,6 +15,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -245,7 +246,323 @@ def case_serve(payload, rank, world):
     return out
 
 
-CASES = {"parallel": case_parallel, "serve": case_serve}
+# ------------------------------------------------------ the sharded backward
+
+
+def _leaf(t):
+    return torch.from_numpy(t).requires_grad_()
+
+
+def _gather_grad_pair(block_grad, mesh):
+    from alphafold2_tpu_torch.parallel.sharding import gather_pair
+
+    return gather_pair(block_grad, mesh).numpy()
+
+
+def case_mesh_grads(payload, rank, world):
+    """Each differentiable collective against the meshless gradients of the
+    same composed function; grid_axial_attention (JAX's dense pass and the
+    K1 hook), ring and Ulysses, the merged MSA<-pair pass and the sharded
+    sparse grid pass under autograd; the census of a backward."""
+    from alphafold2_tpu_torch.ops.attention import Attention, AxialAttention
+    from alphafold2_tpu_torch.ops.cuda.axial import fused_attention
+    from alphafold2_tpu_torch.ops.sparse import BlockSparseConfig
+    from alphafold2_tpu_torch.parallel import sharding
+    from alphafold2_tpu_torch.parallel.grid_parallel import grid_axial_attention, make_grid_mesh
+    from alphafold2_tpu_torch.parallel.seq_parallel import sequence_parallel_attention
+
+    out = {}
+    grid = make_grid_mesh(1, 2, 2) if world == 4 else make_grid_mesh(1, 1, world)
+    line = sharding.make_mesh(1, world)
+    c = payload["coll"]
+    x, w = c["x"], c["w"]  # (8, 8) values and weights
+    n = x.shape[0]
+    rows = slice(rank * n // world, (rank + 1) * n // world)
+    share = (rank + 1) / (world * (world + 1) / 2)  # partial weights summing to 1
+    wt = torch.from_numpy(w)
+
+    def grad_of(leaf, loss):
+        loss.backward()
+        return leaf.grad.numpy()
+
+    t = _leaf(x[rows])
+    y = sharding.all_to_all(t, line, "sp", 1, 0)  # whole rows, this rank's columns
+    out[("all_to_all", rank)] = grad_of(t, (wt[:, rows] * y ** 2).sum())
+    t = _leaf(x[rows])
+    y = sharding.all_gather(t, line, "sp")
+    out[("all_gather", rank)] = grad_of(t, (share * wt * y ** 2).sum())
+    t = _leaf(x * share)
+    y = sharding.reduce_scatter(t, line, "sp")
+    out[("reduce_scatter", rank)] = grad_of(t, (wt[rows] * y ** 2).sum())
+    t = _leaf(x * share)
+    y = sharding.all_reduce(t, line, "sp")
+    out[("all_reduce", rank)] = grad_of(t, (share * wt * y ** 2).sum())
+    t = _leaf(x[rows])
+    (moved,) = sharding.ring_shift([t], line, "sp")
+    out[("ring_shift", rank)] = grad_of(t, (wt[rows] * moved ** 2).sum())
+    # the pair grid's transpose and gather on the grid mesh
+    lay = sharding.pair_layout(grid)
+    px, pw = c["pair"], c["pair_w"]
+    n = px.shape[1]
+    t = _leaf(_block(px, lay, n))
+    sharding.reset_census()
+    y = sharding.transpose_pair(t, n, grid)
+    (torch.from_numpy(_block(pw, lay, n)) * y ** 2).sum().backward()
+    out["census_transpose"] = sharding.census()
+    out["transpose_pair"] = _gather_grad_pair(t.grad, grid)
+    t = _leaf(_block(px, lay, n))
+    (share * torch.from_numpy(pw) * sharding.gather_pair(t, grid) ** 2).sum().backward()
+    out["gather_pair"] = _gather_grad_pair(t.grad, grid)
+
+    # grid_axial_attention, JAX's dense pass and the K1 hook
+    g = payload["grid"]
+    d = g["q"].shape[-1]
+
+    def hook(q, k, v, m):
+        return fused_attention(q, k, v, q_mask=m, kv_mask=m, sm_scale=d**-0.5)
+
+    for label, mesh in (("grid", grid), ("line", line)):
+        lay = sharding.pair_layout(mesh)
+        n = g["q"].shape[1]
+        for axis in (1, 2):
+            for fn_label, fn in (("dense", None), ("hook", hook)):
+                leaves = [_leaf(_block(g[k], lay, n)) for k in ("q", "k", "v")]
+                blk = {k: torch.from_numpy(_block(g[k], lay, n)) for k in ("mask", "valid", "w")}
+                res = grid_axial_attention(*leaves, mask=blk["mask"], mesh=mesh, attend_axis=axis,
+                                           attn_fn=fn)
+                torch.where(blk["valid"][..., None, None], res * blk["w"], 0.0).sum().backward()
+                out[("grid_axial", label, axis, fn_label)] = [
+                    _gather_grad_pair(leaf.grad, mesh) for leaf in leaves]
+
+    # ring and Ulysses on the line mesh
+    sq = payload["seq"]
+    step = sq["q"].shape[2] // world
+    sl = slice(rank * step, (rank + 1) * step)
+    for impl in ("ring", "ulysses"):
+        leaves = [_leaf(np.ascontiguousarray(sq[k][:, :, sl])) for k in ("q", "k", "v")]
+        res = sequence_parallel_attention(*leaves, mask=torch.from_numpy(sq["mask"][:, sl]),
+                                          mesh=line, impl=impl)
+        (res ** 2).sum().backward()
+        out[impl] = [sharding.all_gather(leaf.grad, line, "sp", dim=2).numpy() for leaf in leaves]
+
+    # the merged MSA<-pair pass: queries replicated, keys this rank's block
+    cr = payload["cross"]
+    torch.manual_seed(0)
+    attn = Attention(cr["x"].shape[-1], heads=2, dim_head=8)
+    step = cr["ctx"].shape[1] // world
+    sl = slice(rank * step, (rank + 1) * step)
+    xq, ctx = _leaf(cr["x"]), _leaf(np.ascontiguousarray(cr["ctx"][:, sl]))
+    res = attn.forward_sharded_context(xq, ctx, grid, mask=torch.from_numpy(cr["mask"]),
+                                       context_mask=torch.from_numpy(cr["ctx_mask"][:, sl]))
+    weight = torch.from_numpy(cr["w"]) * torch.from_numpy(cr["mask"])[..., None]
+    (share * weight * res).sum().backward()
+    out["cross"] = {"x": sharding.all_reduce(xq.grad, grid, "seq").numpy(),
+                    "ctx": sharding.all_gather(ctx.grad, grid, "seq", dim=1).numpy(),
+                    **{n_: sharding.all_reduce(p.grad, grid, "seq").numpy()
+                       for n_, p in attn.named_parameters()}}
+    if rank == 0:
+        attn.zero_grad()
+        xq, ctx = _leaf(cr["x"]), _leaf(cr["ctx"])
+        res = attn(xq, context=ctx, mask=torch.from_numpy(cr["mask"]),
+                   context_mask=torch.from_numpy(cr["ctx_mask"]))
+        (weight * res).sum().backward()
+        out["cross_meshless"] = {"x": xq.grad.numpy(), "ctx": ctx.grad.numpy(),
+                                 **{n_: p.grad.numpy() for n_, p in attn.named_parameters()}}
+
+    # the sharded block-sparse grid passes (K4's plain version) under autograd
+    sp = payload["sparse"]
+    cfg = BlockSparseConfig(block_size=16, num_local_blocks=1, num_global_blocks=1,
+                            num_random_blocks=1)
+    torch.manual_seed(0)
+    axial = AxialAttention(sp["x"].shape[-1], heads=2, dim_head=8, sparse_attn=True,
+                           seq_len=64, sparse_config=cfg, pair_grid=True, grid_parallel=True)
+    nx = sp["x"].shape[1]
+    lay = sharding.pair_layout(grid)
+    xb = _leaf(_block(sp["x"], lay, nx))
+    with sharding.use_mesh(grid):
+        res = axial(xb, mask=torch.from_numpy(_block(sp["mask"], lay, nx)))
+    (torch.from_numpy(_block(sp["w"], lay, nx)) * res).sum().backward()
+    out["sparse"] = {"x": _gather_grad_pair(xb.grad, grid),
+                     **{n_: sharding.all_reduce(p.grad, grid, "world").numpy()
+                        for n_, p in axial.named_parameters()}}
+    if rank == 0:
+        axial.zero_grad()
+        xf = _leaf(sp["x"])
+        (torch.from_numpy(sp["w"]) * axial(xf, mask=torch.from_numpy(sp["mask"]))).sum().backward()
+        out["sparse_meshless"] = {"x": xf.grad.numpy(),
+                                  **{n_: p.grad.numpy() for n_, p in axial.named_parameters()}}
+    # every rank's blocks of the collectives' gradients, gathered
+    parts = {k: v for k, v in out.items() if isinstance(k, tuple) and len(k) == 2
+             and isinstance(k[1], int)}
+    gathered = [None] * world
+    import torch.distributed as dist
+
+    dist.all_gather_object(gathered, parts)
+    for p_ in gathered:
+        out.update(p_)
+    return out
+
+
+def _tiny_cfg(spec, mesh=None, **model):
+    from alphafold2_tpu_torch.config import Config, DataConfig, ModelConfig, TrainConfig
+
+    cfg = Config(model=ModelConfig(**spec["model"]), data=DataConfig(**spec["data"]),
+                 train=TrainConfig(**spec["train"]))
+    for k, v in model.items():
+        setattr(cfg.model, k, v)
+    return cfg
+
+
+def _flat_params(model):
+    return torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+
+
+def _same_on_every_rank(model, mesh):
+    from alphafold2_tpu_torch.parallel import sharding
+
+    flat = _flat_params(model)
+    every = sharding.all_gather(flat[None], mesh, "world")
+    return bool((every == flat[None]).all())
+
+
+TRAIN_MESHES = {  # label: (world, mesh spec, model fields)
+    "2x1": (2, "2x1", {}), "1x2": (2, "1x2", {}), "1x1x2": (2, "1x1x2", {"grid_parallel": True}),
+    "ring 1x2": (2, "1x2", {"context_parallel": "ring"}),
+    "ulysses 1x2": (2, "1x2", {"context_parallel": "ulysses"}),
+    "remat 1x1x2": (2, "1x1x2", {"grid_parallel": True, "remat": True}),
+    "2x2": (4, "2x2", {}), "1x4": (4, "1x4", {}),
+    "1x2x2": (4, "1x2x2", {"grid_parallel": True}),
+    "1x2x2 sparse tied": (4, "1x2x2", {"grid_parallel": True, "sparse_self_attn": True,
+                                       "msa_tie_row_attn": True}),
+    "ring 1x4": (4, "1x4", {"context_parallel": "ring"}),
+    "ulysses 2x2": (4, "2x2", {"context_parallel": "ulysses"}),
+    "scan 2x2": (4, "2x2", {"scan_layers": True, "remat": True}),
+}
+
+
+def case_train_mesh(payload, rank, world):
+    """The distogram step on each mesh of TRAIN_MESHES at this world size,
+    from the payload's parameters and batch: each step's loss, the first
+    step's gradients (summed over the world), the parameters after the
+    steps, and whether every rank holds the same parameters after each."""
+    from alphafold2_tpu_torch.parallel.sharding import parse_mesh_spec
+    from alphafold2_tpu_torch.train import loop
+    from alphafold2_tpu_torch.train.optim import build_optimizer
+
+    spec = payload["spec"]
+    out = {}
+    for label, (w, mesh_spec, fields) in TRAIN_MESHES.items():
+        if w != world:
+            continue
+        cfg = _tiny_cfg(spec, **fields)
+        mesh = parse_mesh_spec(mesh_spec)
+        model = loop.build_model(cfg)
+        key = "sparse tied" if fields.get("sparse_self_attn") else "dense"
+        sd = payload["state_dicts"][key + (" scan" if fields.get("scan_layers") else "")]
+        model.load_state_dict(sd)
+        state = loop.TrainState(model=model,
+                                optimizer=build_optimizer(cfg, list(model.parameters())),
+                                skipped=torch.zeros((), dtype=torch.int32))
+        step = loop.make_train_step(model, mesh)
+        rec = {"losses": [], "same": [], "entropy": []}
+        for i in range(payload["steps"]):
+            batch = loop.device_put_batch(payload["batch"], "cpu", mesh)
+            state, m = step(state, batch)
+            rec["losses"].append(float(m["loss"]))
+            rec["entropy"].append(float(m["distogram_entropy"]))
+            rec["same"].append(_same_on_every_rank(model, mesh))
+            if i == 0:
+                grads = loop.reduce_gradients(
+                    [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in model.parameters()], mesh)
+                rec["grads"] = {n: g.numpy().copy()
+                                for (n, _), g in zip(model.named_parameters(), grads)}
+                rec["grads_ok"] = bool(m["grads_ok"])
+        rec["params"] = {n: p.detach().numpy().copy() for n, p in model.named_parameters()}
+        rec["skipped"] = int(state.skipped)
+        out[label] = rec
+    # the triage step on a mesh: the world's loss and gradients
+    cfg = _tiny_cfg(spec, grid_parallel=True)
+    mesh = parse_mesh_spec("1x1x2" if world == 2 else "1x2x2")
+    model = loop.build_model(cfg)
+    model.load_state_dict(payload["state_dicts"]["dense"])
+    stats = loop.make_triage_step(model, mesh)(loop.device_put_batch(payload["batch"], "cpu", mesh))
+    out["triage"] = {k: v for k, v in stats.items() if k == "loss" or k.startswith("grad/")}
+    return out
+
+
+def case_e2e_mesh(payload, rank, world):
+    """One end-to-end step on a (2, 1) and a (1, 2) mesh from the payload's
+    parameters, batch and MDS start: rank 0's metrics, the gradients summed
+    over the world, the parameters after the update, and whether every rank
+    holds them."""
+    from alphafold2_tpu_torch.parallel.sharding import parse_mesh_spec
+    from alphafold2_tpu_torch.train import end2end, loop
+    from alphafold2_tpu_torch.train.optim import build_optimizer
+
+    torch.set_flush_denormal(True)
+    spec = payload["spec"]
+    out = {}
+    for mesh_spec in ("2x1", "1x2"):
+        cfg = _tiny_cfg(spec)
+        mesh = parse_mesh_spec(mesh_spec)
+        model = end2end.End2EndModel(**payload["kw"], mds_iters=payload["mds_iters"])
+        model.load_state_dict(payload["state_dict"])
+        state = loop.TrainState(model=model,
+                                optimizer=build_optimizer(cfg, list(model.parameters())),
+                                skipped=torch.zeros((), dtype=torch.int32))
+        batch = loop.batch_to_device(payload["batch"], torch.device("cpu"))
+        state, m = end2end.make_end2end_step(model, mesh)(state, batch,
+                                                          torch.from_numpy(payload["coords0"]))
+        grads = loop.reduce_gradients([p.grad if p.grad is not None else torch.zeros_like(p)
+                                       for p in model.parameters()], mesh)
+        out[mesh_spec] = {"metrics": {k: float(v) for k, v in m.items()},
+                          "grads": {n: g.numpy().copy()
+                                    for (n, _), g in zip(model.named_parameters(), grads)},
+                          "params": {n: p.detach().numpy().copy()
+                                     for n, p in model.named_parameters()},
+                          "same": _same_on_every_rank(model, mesh), "skipped": int(state.skipped)}
+    return out
+
+
+def case_resume(payload, rank, world):
+    """Both training loops on a mesh through their entry points, with
+    checkpoints: an uninterrupted run of 4 steps against 2 steps, then a
+    fresh start that resumes from the step-2 checkpoint to 4; the
+    parameters after each and the losses each step logged."""
+    import os as _os
+
+    from alphafold2_tpu_torch.train import end2end, loop
+
+    spec, root = payload["spec"], payload["dir"]
+    out = {}
+    for loop_name, fields in (("distogram", {"grid_parallel": True}), ("end2end", {})):
+        runs = {}
+        for run, steps in (("whole", (4,)), ("resumed", (2, 4))):
+            cfg = _tiny_cfg(spec, **fields)
+            if loop_name == "end2end":
+                cfg.model.max_seq_len = 3 * cfg.data.crop_len
+                cfg.data.crop_len = 8
+                cfg.mesh.data_parallel = 2
+            else:
+                cfg.mesh.grid_cols = 2
+            cfg.train.checkpoint_dir = _os.path.join(root, f"{loop_name}_{run}")
+            cfg.train.checkpoint_every = 2
+            cfg.train.log_every = 1
+            losses = []
+            for n in steps:
+                fn = loop.train if loop_name == "distogram" else end2end.train_end2end
+                state = fn(cfg, num_steps=n, device="cpu",
+                           callbacks=[lambda i, s, m: losses.append((i, float(m["loss"])))])
+            runs[run] = {"losses": losses, "step": state.step,
+                         "params": {k: v.detach().numpy().copy()
+                                    for k, v in state.model.named_parameters()}}
+        out[loop_name] = runs
+    return out
+
+
+CASES = {"parallel": case_parallel, "serve": case_serve, "mesh_grads": case_mesh_grads,
+         "train_mesh": case_train_mesh, "e2e_mesh": case_e2e_mesh, "resume": case_resume}
 
 
 def main(case, rank, world, tmp):

@@ -56,6 +56,7 @@
 #include "attention_tile.cuh"
 #include "tied_row_attention_sm90.cuh"
 #include "tied_row_wide_sm90.cuh"
+#include "tied_row_split.cuh"
 
 namespace {
 
@@ -293,4 +294,276 @@ extern "C" int af2_tied_row_attention_wide_pass(int pass, int dtype, int batch, 
   if (wp.splits == 0 || pass < 0 || pass > 2) return cudaErrorInvalidValue;
   *plan = wide::plan_pass(false, pass, wp, batch, heads, nq, nk, rows * head_dim, head_dim);
   return cudaSuccess;
+}
+
+// ------------------------------------------------ the split route (a mesh)
+//
+// K2 on MSA rows sharded over a mesh axis (tied_row_split.cuh): each pass
+// its own entry on caller-owned buffers, so that the caller all-reduces the
+// logits (forward) and dP and dsum (backward) over the row axis between
+// them. dtype: 0 = float32, 1 = bfloat16. Operands through element strides,
+// (batch, head, token, row group) of each; planes (B*H, round64(nq),
+// round64(nk)) f32; P, dS, dS^T and P^T in the operand dtype. Each returns
+// the cudaError_t of its launches (0 on success).
+
+namespace {
+
+namespace sp = af2::split;
+
+af2::Operand operand(const long long* strides, int t) {
+  return af2::Operand{strides[4 * t], strides[4 * t + 1], strides[4 * t + 2], strides[4 * t + 3]};
+}
+
+// The Hopper route takes bf16 at row width 32, 64 or 128 whose operands TMA
+// can describe.
+bool split_hopper(int dtype, const void* const* ptrs, const af2::Operand* ops, const int* ns,
+                  int count, int batch, int heads, int features, int row_width) {
+  if (!sp::hopper_width(dtype, row_width, features)) return false;
+  for (int t = 0; t < count; ++t)
+    if (!af2::sm90::rows_operand(ptrs[t], ops[t], batch, heads, ns[t], features / row_width))
+      return false;
+  return true;
+}
+
+wide::WideOperands split_operands(int batch, int heads, int na, int nb, int features,
+                                  int row_width, const float* tie_scale, float sm_scale) {
+  wide::WideOperands a{};
+  a.batch = batch;
+  a.heads = heads;
+  a.nq = na;
+  a.nk = nb;
+  a.features = features;
+  a.row_width = row_width;
+  a.tie_scale = tie_scale;
+  a.sm_scale = sm_scale;
+  return a;
+}
+
+}  // namespace
+
+// The plan of one split pass at a shape (touches no device): pass 0 the
+// logits (of na x nb tokens; on the Hopper route its first kernel), 1 the
+// splits' sum, 2 the softmax, 3 the grad, 4 a product of m = na output
+// tokens over n = nb. hopper: whether the operands take the Hopper route.
+// work_bytes (pass 0): the workspace the logits pass needs; splits (pass
+// 0): its feature splits (1 off the Hopper route).
+extern "C" int af2_tied_split_plan(int pass, int dtype, int batch, int heads, int na, int nb,
+                                   int features, int row_width, int hopper, Af2LaunchPlan* plan,
+                                   int* splits, long long* work_bytes) {
+  if (pass < 0 || pass > 4 || (dtype != 0 && dtype != 1) || features < row_width ||
+      row_width < 1 || features % row_width != 0)
+    return cudaErrorInvalidValue;
+  const bool hop = hopper != 0 && sp::hopper_width(dtype, row_width, features);
+  *plan = sp::plan_split_pass(pass, hop, dtype, batch, heads, na, nb, features, row_width);
+  const wide::WidePlan wp = hop ? sp::plan_logits(batch, heads, na, nb, features, row_width)
+                                : wide::WidePlan{1, 1, 1};
+  if (splits != nullptr) *splits = wp.splits;
+  if (work_bytes != nullptr) *work_bytes = sp::logits_work_bytes(wp, batch, heads, na, nb);
+  return cudaSuccess;
+}
+
+// The logits pass: plane = A B^T over the fused features, A (B, R, na, H,
+// D) and B (B, R, nb, H, D); strides: 8, A's then B's. work: the plan's
+// work_bytes (256-byte aligned) where the Hopper route splits. info: 2 ints
+// out, {the Hopper route ran, its splits}, or null.
+extern "C" int af2_tied_split_logits(int dtype, const void* a, const void* b, float* plane,
+                                     const long long* strides, int batch, int heads, int na,
+                                     int nb, int features, int row_width, void* work,
+                                     long long work_bytes, int* info, void* stream) {
+  if (features < row_width || row_width < 1 || features % row_width != 0 || strides == nullptr)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const af2::Operand ops[2] = {operand(strides, 0), operand(strides, 1)};
+  const void* ptrs[2] = {a, b};
+  const int ns[2] = {na, nb};
+  const bool hop = split_hopper(dtype, ptrs, ops, ns, 2, batch, heads, features, row_width);
+  const long long nap = sp::round64(na), nbp = sp::round64(nb);
+  if (info != nullptr) info[0] = hop ? 1 : 0;
+  if (hop) {
+    const wide::WidePlan wp = sp::plan_logits(batch, heads, na, nb, features, row_width);
+    if (info != nullptr) info[1] = wp.splits;
+    const long long need = sp::logits_work_bytes(wp, batch, heads, na, nb);
+    if (need > 0 && (work == nullptr || work_bytes < need ||
+                     reinterpret_cast<uintptr_t>(work) % 256 != 0))
+      return cudaErrorInvalidValue;
+    wide::WideOperands w = split_operands(batch, heads, na, nb, features, row_width, nullptr, 1.f);
+    w.q = a;
+    w.k = b;
+    w.qs = ops[0];
+    w.ks = ops[1];
+    float* ws = wp.splits > 1 ? static_cast<float*>(work) : plane;
+    cudaError_t err;
+    switch (row_width) {
+      case 32: err = wide::launch_logits<32, 2>(w, wp, ws, s); break;
+      case 64: err = wide::launch_logits<64, 2>(w, wp, ws, s); break;
+      default: err = wide::launch_logits<128, 2>(w, wp, ws, s); break;
+    }
+    if (err != cudaSuccess || wp.splits == 1) return err;
+    const Af2LaunchPlan sum =
+        sp::plan_split_pass(1, true, dtype, batch, heads, na, nb, features, row_width);
+    sp::split_sum_kernel<<<(unsigned)sum.blocks, sum.threads, 0, s>>>(
+        ws, plane, (long long)batch * heads * nap * nbp, wp.splits);
+    return cudaGetLastError();
+  }
+  if (info != nullptr) info[1] = 1;
+  sp::LogitsParams lp;
+  lp.a = a;
+  lp.b = b;
+  lp.as = ops[0];
+  lp.bs = ops[1];
+  lp.plane = plane;
+  lp.heads = heads;
+  lp.na = na;
+  lp.nb = nb;
+  lp.nap = (int)nap;
+  lp.nbp = (int)nbp;
+  lp.features = features;
+  lp.row_width = row_width;
+  lp.a_tiles = (int)(nap / sp::kTile);
+  lp.b_tiles = (int)(nbp / sp::kTile);
+  const Af2LaunchPlan plan =
+      sp::plan_split_pass(0, false, dtype, batch, heads, na, nb, features, row_width);
+  if (!af2::grid_fits(plan)) return cudaErrorInvalidValue;
+  if (dtype == 1)
+    sp::split_logits_kernel<__nv_bfloat16><<<(unsigned)plan.blocks, plan.threads, 0, s>>>(lp);
+  else if (dtype == 0)
+    sp::split_logits_kernel<float><<<(unsigned)plan.blocks, plan.threads, 0, s>>>(lp);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}
+
+// The softmax pass on the whole logits: prob (the operand dtype) and lse
+// (B, H, nq) f32 (+inf for a row with no valid key). tie_scale (B,) f32 or
+// null. The wide route's softmax on the plane as its one split.
+extern "C" int af2_tied_split_softmax(int dtype, const float* plane, void* prob, float* lse,
+                                      const unsigned char* q_mask, const unsigned char* kv_mask,
+                                      const float* tie_scale, int batch, int heads, int nq,
+                                      int nk, float sm_scale, void* stream) {
+  wide::SoftmaxParams p;
+  p.ws = plane;
+  p.prob = prob;
+  p.lse = lse;
+  p.q_mask = q_mask;
+  p.kv_mask = kv_mask;
+  p.tie_scale = tie_scale;
+  p.heads = heads;
+  p.nq = nq;
+  p.nk = nk;
+  p.nqp = (int)sp::round64(nq);
+  p.nkp = (int)sp::round64(nk);
+  p.plane = (long long)batch * heads * p.nqp * p.nkp;
+  p.splits = 1;
+  p.scale_log2 = sm_scale * wide::kLog2e;
+  const Af2LaunchPlan plan = sp::plan_split_pass(2, false, dtype, batch, heads, nq, nk, 1, 1);
+  if (!af2::grid_fits(plan)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    wide::tied_wide_softmax_kernel<__nv_bfloat16>
+        <<<(unsigned)plan.blocks, plan.threads, 0, s>>>(p);
+  else if (dtype == 0)
+    wide::tied_wide_softmax_kernel<float><<<(unsigned)plan.blocks, plan.threads, 0, s>>>(p);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}
+
+// The grad pass: from the forward's whole logits s_plane and lse and the
+// whole dp_plane and dsum, dS (B*H, nqp, nkp) and dS^T, P^T (B*H, nkp,
+// nqp), all in the operand dtype. The wide route's grad on the planes as
+// their one split.
+extern "C" int af2_tied_split_grad(int dtype, const float* s_plane, const float* dp_plane,
+                                   const float* lse, const float* dsum, void* ds, void* ds_t,
+                                   void* p_t, const unsigned char* q_mask,
+                                   const unsigned char* kv_mask, const float* tie_scale,
+                                   int batch, int heads, int nq, int nk, float sm_scale,
+                                   void* stream) {
+  wide::GradParams p;
+  p.ws = s_plane;
+  p.dp = dp_plane;
+  p.lse = lse;
+  p.dsum = dsum;
+  p.ds = ds;
+  p.ds_t = ds_t;
+  p.p_t = p_t;
+  p.q_mask = q_mask;
+  p.kv_mask = kv_mask;
+  p.tie_scale = tie_scale;
+  p.heads = heads;
+  p.nq = nq;
+  p.nk = nk;
+  p.nqp = (int)sp::round64(nq);
+  p.nkp = (int)sp::round64(nk);
+  p.plane = (long long)batch * heads * p.nqp * p.nkp;
+  p.splits = 1;
+  p.q_tiles = p.nqp / sp::kRows;
+  p.k_tiles = p.nkp / sp::kRows;
+  p.scale_log2 = sm_scale * wide::kLog2e;
+  const Af2LaunchPlan plan = sp::plan_split_pass(3, false, dtype, batch, heads, nq, nk, 1, 1);
+  if (!af2::grid_fits(plan)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    wide::tied_wide_grad_kernel<__nv_bfloat16><<<(unsigned)plan.blocks, plan.threads, 0, s>>>(p);
+  else if (dtype == 0)
+    wide::tied_wide_grad_kernel<float><<<(unsigned)plan.blocks, plan.threads, 0, s>>>(p);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}
+
+// A product pass: out (B, R, m, H, D) = A X over n tokens, A (B*H,
+// round64(m), round64(n)) in the operand dtype, X (B, R, n, H, D), times
+// sm_scale * tie[b] where `scaled`; strides: 8, X's then out's. info: 1 int
+// out, whether the Hopper route ran, or null.
+extern "C" int af2_tied_split_product(int dtype, const void* amat, const void* x, void* out,
+                                      const long long* strides, const float* tie_scale,
+                                      int batch, int heads, int m, int n, int features,
+                                      int row_width, float sm_scale, int scaled, int* info,
+                                      void* stream) {
+  if (features < row_width || row_width < 1 || features % row_width != 0 || strides == nullptr)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const af2::Operand ops[2] = {operand(strides, 0), operand(strides, 1)};
+  const void* ptrs[2] = {x, out};
+  const int ns[2] = {n, m};
+  const bool hop = split_hopper(dtype, ptrs, ops, ns, 2, batch, heads, features, row_width);
+  if (info != nullptr) info[0] = hop ? 1 : 0;
+  if (hop) {
+    const wide::WideOperands w =
+        split_operands(batch, heads, m, n, features, row_width, tie_scale, sm_scale);
+    const auto* a = static_cast<const unsigned short*>(amat);
+    switch (row_width) {
+      case 32: return wide::launch_product<32>(w, m, x, ops[0], n, a, out, ops[1], scaled, s);
+      case 64: return wide::launch_product<64>(w, m, x, ops[0], n, a, out, ops[1], scaled, s);
+      default: return wide::launch_product<128>(w, m, x, ops[0], n, a, out, ops[1], scaled, s);
+    }
+  }
+  sp::ProductParams p;
+  p.a = amat;
+  p.x = x;
+  p.out = out;
+  p.xs = ops[0];
+  p.os = ops[1];
+  p.tie_scale = tie_scale;
+  p.sm_scale = sm_scale;
+  p.scaled = scaled;
+  p.heads = heads;
+  p.m = m;
+  p.n = n;
+  p.mp = (int)sp::round64(m);
+  p.kp = (int)sp::round64(n);
+  p.features = features;
+  p.row_width = row_width;
+  p.m_tiles = (m + sp::kTile - 1) / sp::kTile;
+  p.f_tiles = (features + sp::kTile - 1) / sp::kTile;
+  const Af2LaunchPlan plan =
+      sp::plan_split_pass(4, false, dtype, batch, heads, m, n, features, row_width);
+  if (!af2::grid_fits(plan)) return cudaErrorInvalidValue;
+  if (dtype == 1)
+    sp::split_product_kernel<__nv_bfloat16><<<(unsigned)plan.blocks, plan.threads, 0, s>>>(p);
+  else if (dtype == 0)
+    sp::split_product_kernel<float><<<(unsigned)plan.blocks, plan.threads, 0, s>>>(p);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
 }

@@ -236,15 +236,33 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---------------------------------------------------------------- (b)
+//
+// Templates on the element type T of P, dS, dS^T and P^T: the wide route
+// takes bf16; the split route (tied_row_split.cuh) launches both with its
+// one all-reduced plane as a single split, in bf16 or f32.
 
-__device__ __forceinline__ unsigned short bf16_bits(float x) {
-  return __bfloat16_as_ushort(__float2bfloat16(x));
+template <typename T>
+__device__ __forceinline__ float to_f(T x);
+template <>
+__device__ __forceinline__ float to_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
 }
 
 struct SoftmaxParams {
-  const float* ws;       // (splits, B*H, nqp, nkp) f32 partials of S
-  unsigned short* prob;  // bf16 P (B*H, nqp, nkp)
-  float* lse;            // (B, H, nq) f32, or null (serving)
+  const float* ws;  // (splits, B*H, nqp, nkp) f32 partials of S
+  void* prob;       // T P (B*H, nqp, nkp)
+  float* lse;       // (B, H, nq) f32, or null (serving)
   const unsigned char* q_mask;
   const unsigned char* kv_mask;
   const float* tie_scale;  // (B,) f32, or null (1)
@@ -253,6 +271,7 @@ struct SoftmaxParams {
   float scale_log2;  // sm_scale * log2(e); the kernel multiplies in tie[b]
 };
 
+template <typename T>
 __global__ void __launch_bounds__(kReduceThreads)
     tied_wide_softmax_kernel(const SoftmaxParams p) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -292,7 +311,7 @@ __global__ void __launch_bounds__(kReduceThreads)
     p.lse[bh * p.nq + q] = keyed ? lse2 * kLn2 : CUDART_INF_F;
   const bool live = keyed && q < p.nq &&
                     (p.q_mask == nullptr || p.q_mask[(long long)b * p.nq + q] != 0);
-  unsigned short* pr = p.prob + row * p.nkp;
+  T* pr = static_cast<T*>(p.prob) + row * p.nkp;
   for (int k = lane; k < p.nkp; k += 32) {
     float pv = 0.f;
     if (live && k < p.nk && (km == nullptr || km[k] != 0)) {
@@ -300,15 +319,16 @@ __global__ void __launch_bounds__(kReduceThreads)
       for (int sp = 0; sp < p.splits; ++sp) acc += w[sp * p.plane + k];
       pv = exp2f(acc * scale - lse2);
     }
-    pr[k] = bf16_bits(pv);
+    pr[k] = from_f<T>(pv);
   }
 }
 
 struct GradParams {
-  const float* ws;      // (2, splits, B*H, nqp, nkp) f32 partials: S, then dP
-  unsigned short* ds;   // bf16 dS (B*H, nqp, nkp)
-  unsigned short* ds_t; // bf16 dS^T (B*H, nkp, nqp)
-  unsigned short* p_t;  // bf16 P^T (B*H, nkp, nqp)
+  const float* ws;      // (splits, B*H, nqp, nkp) f32 partials of S
+  const float* dp;      // (splits, B*H, nqp, nkp) f32 partials of dP
+  void* ds;             // T dS (B*H, nqp, nkp)
+  void* ds_t;           // T dS^T (B*H, nkp, nqp)
+  void* p_t;            // T P^T (B*H, nkp, nqp)
   const float* lse;     // (B, H, nq) f32; +inf: no valid key
   const float* dsum;    // (B, H, nq) f32
   const unsigned char* q_mask;
@@ -319,8 +339,9 @@ struct GradParams {
   float scale_log2;  // sm_scale * log2(e)
 };
 
+template <typename T>
 __global__ void __launch_bounds__(kReduceThreads) tied_wide_grad_kernel(const GradParams p) {
-  __shared__ unsigned short tp[kRows][kRows + 2], tds[kRows][kRows + 2];
+  __shared__ T tp[kRows][kRows + 2], tds[kRows][kRows + 2];
   long long blk = blockIdx.x;
   const int kt = (int)(blk % p.k_tiles);
   blk /= p.k_tiles;
@@ -328,6 +349,7 @@ __global__ void __launch_bounds__(kReduceThreads) tied_wide_grad_kernel(const Gr
   const long long bh = blk / p.q_tiles;
   const int b = (int)(bh / p.heads);
   const float scale = p.scale_log2 * (p.tie_scale != nullptr ? p.tie_scale[b] : 1.f);
+  T* ds = static_cast<T*>(p.ds);
   for (int e = threadIdx.x; e < kRows * kRows; e += kReduceThreads) {
     const int ql = e / kRows, kl = e % kRows;
     const int q = qt * kRows + ql, k = kt * kRows + kl;
@@ -340,22 +362,24 @@ __global__ void __launch_bounds__(kReduceThreads) tied_wide_grad_kernel(const Gr
       float sacc = 0.f, dacc = 0.f;
       for (int sp = 0; sp < p.splits; ++sp) {
         sacc += p.ws[sp * p.plane + at];
-        dacc += p.ws[(p.splits + sp) * p.plane + at];
+        dacc += p.dp[sp * p.plane + at];
       }
       pv = exp2f(sacc * scale - l * kLog2e);
       dsv = pv * (dacc - p.dsum[bh * p.nq + q]);
     }
-    const unsigned short pb = bf16_bits(pv), db = bf16_bits(dsv);
-    p.ds[(bh * p.nqp + q) * p.nkp + k] = db;
-    tp[ql][kl] = pb;
+    const T db = from_f<T>(dsv);
+    ds[(bh * p.nqp + q) * p.nkp + k] = db;
+    tp[ql][kl] = from_f<T>(pv);
     tds[ql][kl] = db;
   }
   __syncthreads();
+  T* ds_t = static_cast<T*>(p.ds_t);
+  T* p_t = static_cast<T*>(p.p_t);
   for (int e = threadIdx.x; e < kRows * kRows; e += kReduceThreads) {
     const int kl = e / kRows, ql = e % kRows;
     const long long at = (bh * p.nkp + kt * kRows + kl) * p.nqp + qt * kRows + ql;
-    p.p_t[at] = tp[ql][kl];
-    p.ds_t[at] = tds[ql][kl];
+    p_t[at] = tp[ql][kl];
+    ds_t[at] = tds[ql][kl];
   }
 }
 
@@ -566,7 +590,8 @@ __host__ inline Af2LaunchPlan plan_pass(bool bwd, int pass, const WidePlan& wp, 
     plan.blocks = bwd ? bhs * qt * kt : bhs * qt * kRows / (kReduceThreads / 32);
     plan.threads = kReduceThreads;
     plan.dynamic_smem = 0;
-    name_kernel(plan, bwd ? "tied_wide_grad_kernel" : "tied_wide_softmax_kernel");
+    name_kernel(plan, bwd ? "tied_wide_grad_kernel<__nv_bfloat16>"
+                          : "tied_wide_softmax_kernel<__nv_bfloat16>");
   } else {
     plan = plan_product(batch, heads, pass == 3 ? nk : nq, features, row_width);
   }
@@ -723,7 +748,8 @@ __host__ inline cudaError_t launch_forward(const WideOperands& a, const WidePlan
   sp.scale_log2 = a.sm_scale * kLog2e;
   const Af2LaunchPlan red = plan_pass(false, 1, wp, a.batch, a.heads, a.nq, a.nk, a.features, D);
   if (!grid_fits(red)) return cudaErrorInvalidValue;
-  tied_wide_softmax_kernel<<<(unsigned)red.blocks, kReduceThreads, 0, stream>>>(sp);
+  tied_wide_softmax_kernel<__nv_bfloat16>
+      <<<(unsigned)red.blocks, kReduceThreads, 0, stream>>>(sp);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_product<D>(a, a.nq, a.v, a.vs, a.nk, prob, a.out, a.os, 0, stream);
@@ -746,6 +772,7 @@ __host__ inline cudaError_t launch_backward(const WideOperands& a, const WidePla
   if (err != cudaSuccess) return err;
   GradParams gp;
   gp.ws = ws;
+  gp.dp = ws + wp.splits * tile;
   gp.ds = ds;
   gp.ds_t = ds_t;
   gp.p_t = p_t;
@@ -766,7 +793,8 @@ __host__ inline cudaError_t launch_backward(const WideOperands& a, const WidePla
   gp.scale_log2 = a.sm_scale * kLog2e;
   const Af2LaunchPlan red = plan_pass(true, 1, wp, a.batch, a.heads, a.nq, a.nk, a.features, D);
   if (!grid_fits(red)) return cudaErrorInvalidValue;
-  tied_wide_grad_kernel<<<(unsigned)red.blocks, kReduceThreads, 0, stream>>>(gp);
+  tied_wide_grad_kernel<__nv_bfloat16>
+      <<<(unsigned)red.blocks, kReduceThreads, 0, stream>>>(gp);
   err = cudaGetLastError();
   if (err == cudaSuccess && want_dq)
     err = launch_product<D>(a, a.nq, a.k, a.ks, a.nk, ds, a.dq, a.dqs, 1, stream);

@@ -24,12 +24,18 @@ forward takes this rank's ``dp`` slice of the batch and returns this rank's
 mesh; ``sharding.gather_pair`` assembles them): the outer-sum embedding,
 the axial positional embeddings and the pair mask are built on the local
 block from the token embeddings, which every rank computes whole; the MSA
-stream is replicated; the symmetrisation ``x + x^T`` takes the transposed
+stream (or the ``embedds`` grid) is replicated or, with ``msa_row_shard``,
+this rank's block of its rows (``sharding.msa_row_block``: ``sp`` on a 1D
+mesh, ``spr`` on a grid mesh): the forward takes the whole MSA, as it
+takes the whole sequence, and embeds its own ``ceil(M / n)`` rows with
+their global row indices (``msa_num_pos_emb``), the last ranks' tails
+padded with rows the mask marks absent (a mask is made where none is
+given); the PLM grid's block is its rows ``pe[rows] + pe`` of the pair
+rows' split; the symmetrisation ``x + x^T`` takes the transposed
 block from the ranks that hold it (``sharding.transpose_pair``: nothing
 larger than the local block moves; under autograd its backward is the same
 transpose of the cotangent), then the head's LayerNorm and
-projection run locally. Templates and the ``embedds`` stream are refused
-on a mesh. ``dtype`` is the
+projection run locally. Templates are refused on a mesh. ``dtype`` is the
 compute dtype; parameters stay float32. ``attn_dropout`` and
 ``ff_dropout`` are active when the forward is given a ``dropout_key``
 (``ops/attention.py``), as a training step gives one; the trunk draws
@@ -66,7 +72,8 @@ from alphafold2_tpu_torch.ops.attention import (
 )
 from alphafold2_tpu_torch.ops.layers import Dense, LayerNorm
 from alphafold2_tpu_torch.parallel.sharding import (
-    active_mesh, check_divisible, pair_layout, shard_msa, shard_pair, transpose_pair,
+    active_mesh, check_divisible, msa_row_block, pair_layout, shard_msa, shard_pair,
+    transpose_pair,
 )
 from alphafold2_tpu_torch.utils.structure import get_bucketed_distance_matrix
 
@@ -150,6 +157,7 @@ class Alphafold2(nn.Module):
         self.max_seq_len = max_seq_len
         self.max_num_msas = max_num_msas
         self.max_num_templates = max_num_templates
+        self.msa_row_shard = msa_row_shard
         self.dtype = dtype
         self.token_emb = nn.Embedding(num_tokens, dim)
         self.pos_emb = nn.Embedding(max_seq_len, dim)
@@ -227,9 +235,8 @@ class Alphafold2(nn.Module):
         r_range = c_range = n_range
         m_rows = m_cols = mask
         if mesh is not None:  # this rank's block of the outer sum
-            if templates_seq is not None or embedds is not None:
-                raise ValueError("templates and the embedds stream do not run on a device "
-                                 "mesh")
+            if templates_seq is not None:
+                raise ValueError("templates do not run on a device mesh")
             check_divisible(n, mesh)
             lay = pair_layout(mesh)
             rows, cols = lay.rows(n), lay.cols(n)
@@ -243,26 +250,40 @@ class Alphafold2(nn.Module):
         x = tag("embed.pair", shard_pair(x, n))
         pair_mask = m_rows[:, :, None] & m_cols[:, None, :] if mask is not None else None
 
-        m = m_mask = None
+        m = m_mask = rows = None
         if msa is not None:
             if self.msa_pos_emb is None:
                 raise ValueError("an msa given to a model built for embedds (num_embedds "
                                  "set: no MSA embeddings)")
             nm, mm = msa.shape[-1], msa.shape[1]
+            index = torch.arange(mm, device=seq.device)
+            if mesh is not None and self.msa_row_shard:  # this rank's rows
+                rows = msa_row_block(mm, mesh)
+                if rows.pad and msa_mask is None:
+                    msa_mask = torch.ones(msa.shape, dtype=torch.bool, device=seq.device)
+                msa, index = rows.take(msa), rows.take(index, 0, fill=mm - 1)
+                msa_mask = rows.take(msa_mask, fill=False) if msa_mask is not None else None
             m = self.token_emb(msa).to(dt)
             m = m + self.msa_pos_emb(torch.arange(nm, device=seq.device)).to(dt)[None, None]
-            m = m + self.msa_num_pos_emb(
-                torch.arange(mm, device=seq.device)).to(dt)[None, :, None]
+            m = m + self.msa_num_pos_emb(index).to(dt)[None, :, None]
             m_mask = msa_mask
         elif embedds is not None:
             if self.embedd_project is None:
                 raise ValueError("embedds given to a model built without embedd_project "
                                  "(num_embedds=None)")
             pe = self.embedd_project(embedds.to(dt))
-            m = pe[:, :, None, :] + pe[:, None, :, :]  # (B, N, N, D)
-            m_mask = pair_mask
+            pe_rows, mask_rows = pe, mask
+            if mesh is not None and self.msa_row_shard:  # this rank's rows of the grid
+                rows = msa_row_block(n, mesh)
+                if rows.pad and mask is None:
+                    mask = torch.ones((b, n), dtype=torch.bool, device=seq.device)
+                pe_rows = rows.take(pe)
+                mask_rows = rows.take(mask, fill=False) if mask is not None else None
+            m = pe_rows[:, :, None, :] + pe[:, None, :, :]  # (B, N or its rows, N, D)
+            if mask is not None:
+                m_mask = mask_rows[:, :, None] & mask[:, None, :]
         if m is not None:
-            m = tag("embed.msa", shard_msa(m, b))
+            m = tag("embed.msa", shard_msa(m, b, rows=rows))
 
         if templates_seq is not None:
             x = self._templates(x, pair_mask, n_range, templates_seq, templates_dist,
@@ -270,7 +291,7 @@ class Alphafold2(nn.Module):
                                 dropout_key)
 
         x, m = self.trunk(x, m, pair_mask=pair_mask, msa_mask=m_mask,
-                          key=child_key(dropout_key, "trunk"))
+                          key=child_key(dropout_key, "trunk"), msa_rows=rows)
 
         xt = x.transpose(1, 2) if mesh is None else transpose_pair(x, n, mesh)
         x = 0.5 * (x + xt)

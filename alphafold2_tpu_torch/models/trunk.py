@@ -45,17 +45,32 @@ and scanned engines run on this rank's blocks, with JAX's layer-boundary
 placements (``alphafold2_tpu/models/trunk.py:91-166``) as
 ``parallel/sharding.py``'s ``shard_pair``/``shard_msa`` checks: the pair
 grid is ``(b, N/spr, N/spc, D)`` (rows over ``sp`` on a 1D mesh), the MSA
-grid replicated. The pair axial passes run sharded (``grid_parallel``
-required on a grid mesh, as JAX's engine requires it); the MSA stream, its
-tied rows (K2) and the feedforwards run locally; the pair<-MSA pass is local
-(its keys, the MSA, are replicated); the MSA<-pair pass runs K1 with lse
-over the local pair keys and merges across the ranks
-(``Attention.forward_sharded_context``). With ``context_parallel`` ("ring"
-or "ulysses") on a 1D mesh both cross passes take JAX's context-parallel
-route instead (``Attention.forward_context_parallel``; not the compressed
-pair<-MSA pass, as in JAX). ``msa_row_shard`` leaves the MSA replicated:
-JAX's row-sharded tied rows are not ported (ROADMAP section 1). The loop
-and scanned engines train on a rank's blocks, with and without ``remat``:
+grid replicated, or with ``msa_row_shard`` this rank's ``msa_rows.per``
+rows of it (``msa_rows``, a ``sharding.RowBlock``: over ``sp`` on a 1D
+mesh, ``spr`` on a grid mesh; the model passes it). The pair axial passes
+run sharded (``grid_parallel`` required on a grid mesh, as JAX's engine
+requires it).
+
+- A replicated MSA: the MSA stream, its tied rows (K2) and the
+  feedforwards run locally; the pair<-MSA pass is local (its keys, the
+  MSA, are replicated); the MSA<-pair pass runs K1 with lse over the local
+  pair keys and merges across the ranks
+  (``Attention.forward_sharded_context``).
+- Row-sharded MSA (``msa_rows``): the MSA's column pass trades its row
+  block for a column block by an all_to_all over the row axis; its tied
+  row pass runs K2's split route with the logits all-reduced over the row
+  axis (``Attention`` ``rows=``), its untied one and the feedforward run
+  locally; pair<-MSA attends the MSA gathered over the row axis, padding
+  dropped, so the compressed pass's key groups are JAX's; MSA<-pair
+  gathers this rank's queries over the row axis, takes K1's lse partials
+  over the local pair keys and merges them so each rank keeps its rows
+  (:meth:`TrunkLayer._cross_row_sharded`).
+
+With ``context_parallel`` ("ring" or "ulysses") on a 1D mesh both cross
+passes take JAX's context-parallel route instead
+(``Attention.forward_context_parallel``; not the compressed pair<-MSA
+pass, as in JAX), on the whole MSA (a row-sharded one gathered first). The
+loop and scanned engines train on a rank's blocks, with and without ``remat``:
 every sharded route is differentiable (``parallel/sharding.py``'s rule for
 the sharded backward), and remat's recompute replays a layer's forward
 collectives in the same order on every rank, since every rank runs the
@@ -80,7 +95,7 @@ from alphafold2_tpu_torch.ops.attention import (
 from alphafold2_tpu_torch.ops.layers import LayerNorm
 from alphafold2_tpu_torch.ops import kernels as kernel_policy
 from alphafold2_tpu_torch.parallel.sharding import (
-    SEQ_AXIS, active_mesh, axis_names, shard_msa, shard_pair, use_mesh,
+    SEQ_AXIS, RowBlock, active_mesh, all_gather, axis_names, shard_msa, shard_pair, use_mesh,
 )
 
 
@@ -123,15 +138,17 @@ class TrunkLayer(nn.Module):
         pair_mask: Optional[torch.Tensor] = None,  # (B, N, N)
         msa_mask: Optional[torch.Tensor] = None,  # (B, M, Nm)
         key: Optional[DropoutKey] = None,
+        msa_rows: Optional[RowBlock] = None,  # msa_row_shard: m is this rank's rows
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         mesh = active_mesh()
+        rows = msa_rows if mesh is not None else None
         x = x + self.pair_axial(self.pair_axial_norm(x), mask=pair_mask,
                                 key=child_key(key, "pair_axial"))
         x = shard_pair(x)
         if m is not None:
             m = m + self.msa_axial(self.msa_axial_norm(m), mask=msa_mask,
-                                   key=child_key(key, "msa_axial"))
-            m = shard_msa(m, x.shape[0])
+                                   key=child_key(key, "msa_axial"), rows=rows)
+            m = shard_msa(m, x.shape[0], rows=rows)
             b, n, n2, d = x.shape
             bm, mm, nm, _ = m.shape
             x_flat = x.reshape(b, n * n2, d)
@@ -141,38 +158,89 @@ class TrunkLayer(nn.Module):
             # JAX's context-parallel route: a 1D mesh's sp axis, uncompressed keys
             cp = (mesh is not None and SEQ_AXIS in axis_names(mesh)
                   and self.pair_from_msa.context_parallel is not None)
-            if cp and self.pair_from_msa.compress_ratio == 1:
-                x_flat = x_flat + self.pair_from_msa.forward_context_parallel(
-                    self.pair_cross_norm(x_flat), self.pair_cross_ctx_norm(m_flat), mesh,
-                    context_mask=m_mask, queries_sharded=True)
-            else:  # the MSA keys are replicated: local under a mesh too
-                x_flat = x_flat + self.pair_from_msa(
-                    self.pair_cross_norm(x_flat),
-                    context=self.pair_cross_ctx_norm(m_flat),
-                    mask=x_mask, context_mask=m_mask, key=child_key(key, "pair_from_msa"),
-                )
-            if mesh is None:
-                m_flat = m_flat + self.msa_from_pair(
-                    self.msa_cross_norm(m_flat),
-                    context=self.msa_cross_ctx_norm(x_flat),
-                    mask=m_mask, context_mask=x_mask, key=child_key(key, "msa_from_pair"),
-                )
-            elif cp:
-                m_flat = m_flat + self.msa_from_pair.forward_context_parallel(
-                    self.msa_cross_norm(m_flat), self.msa_cross_ctx_norm(x_flat), mesh,
-                    context_mask=x_mask, queries_sharded=False)
-            else:  # the pair keys are this rank's block: K1 with lse, merged
-                m_flat = m_flat + self.msa_from_pair.forward_sharded_context(
-                    self.msa_cross_norm(m_flat), self.msa_cross_ctx_norm(x_flat), mesh,
-                    mask=m_mask, context_mask=x_mask)
+            if rows is not None and cp:
+                x_flat, m_flat = self._cross_context_parallel_rows(
+                    x_flat, m_flat, x_mask, m_mask, mesh, rows, nm, key)
+            elif rows is not None:
+                x_flat, m_flat = self._cross_row_sharded(x_flat, m_flat, x_mask, m_mask, mesh,
+                                                         rows, nm, key)
+            else:
+                x_flat, m_flat = self._cross(x_flat, m_flat, x_mask, m_mask, mesh, cp, key)
             x = shard_pair(x_flat.reshape(b, n, n2, d))
-            m = shard_msa(m_flat.reshape(bm, mm, nm, d), b)
+            m = shard_msa(m_flat.reshape(bm, mm, nm, d), b, rows=rows)
         x = x + self.pair_ff(self.pair_ff_norm(x), key=child_key(key, "pair_ff"))
         x = shard_pair(x)
         if m is not None:
             m = m + self.msa_ff(self.msa_ff_norm(m), key=child_key(key, "msa_ff"))
-            m = shard_msa(m, x.shape[0])
+            m = shard_msa(m, x.shape[0], rows=rows)
         return x, m
+
+    def _cross(self, x_flat, m_flat, x_mask, m_mask, mesh, cp, key):
+        """The two cross passes on a whole (replicated) MSA."""
+        if cp and self.pair_from_msa.compress_ratio == 1:
+            x_flat = x_flat + self.pair_from_msa.forward_context_parallel(
+                self.pair_cross_norm(x_flat), self.pair_cross_ctx_norm(m_flat), mesh,
+                context_mask=m_mask, queries_sharded=True)
+        else:  # the MSA keys are replicated: local under a mesh too
+            x_flat = x_flat + self.pair_from_msa(
+                self.pair_cross_norm(x_flat),
+                context=self.pair_cross_ctx_norm(m_flat),
+                mask=x_mask, context_mask=m_mask, key=child_key(key, "pair_from_msa"),
+            )
+        if mesh is None:
+            m_flat = m_flat + self.msa_from_pair(
+                self.msa_cross_norm(m_flat),
+                context=self.msa_cross_ctx_norm(x_flat),
+                mask=m_mask, context_mask=x_mask, key=child_key(key, "msa_from_pair"),
+            )
+        elif cp:
+            m_flat = m_flat + self.msa_from_pair.forward_context_parallel(
+                self.msa_cross_norm(m_flat), self.msa_cross_ctx_norm(x_flat), mesh,
+                context_mask=x_mask, queries_sharded=False)
+        else:  # the pair keys are this rank's block: K1 with lse, merged
+            m_flat = m_flat + self.msa_from_pair.forward_sharded_context(
+                self.msa_cross_norm(m_flat), self.msa_cross_ctx_norm(x_flat), mesh,
+                mask=m_mask, context_mask=x_mask)
+        return x_flat, m_flat
+
+    def _cross_context_parallel_rows(self, x_flat, m_flat, x_mask, m_mask, mesh, rows, nm, key):
+        """JAX's context-parallel cross passes, which take the whole MSA,
+        with its rows sharded: the rows gathered over the row axis (padding
+        dropped), the replicated passes (:meth:`_cross`), then this rank's
+        rows of the result (its padded rows zero: they abstain)."""
+        b, d = m_flat.shape[0], m_flat.shape[-1]
+
+        def gather(t):
+            return all_gather(t, mesh, rows.axis, dim=1)[:, :rows.total * nm]
+
+        whole = gather(m_flat)
+        whole_mask = gather(m_mask.to(torch.uint8)).bool() if m_mask is not None else None
+        x_flat, whole = self._cross(x_flat, whole, x_mask, whole_mask, mesh, True, key)
+        mine = rows.take(whole.view(b, rows.total, nm, d))
+        return x_flat, mine.reshape(b, rows.per * nm, d)
+
+    def _cross_row_sharded(self, x_flat, m_flat, x_mask, m_mask, mesh, rows, nm, key):
+        """The two cross passes with the MSA's rows sharded (``rows``):
+        pair<-MSA gathers the normed MSA over the row axis and drops the
+        padded rows, so its keys, and the compressed pass's key groups, are
+        JAX's; MSA<-pair gathers this rank's MSA queries over the row axis,
+        takes K1's lse partials over the local pair keys and merges them so
+        that each rank keeps its rows (``Attention.forward_sharded_context``)."""
+        whole = rows.total * nm
+
+        def gather(t):
+            return all_gather(t, mesh, rows.axis, dim=1)[:, :whole]
+
+        ctx = gather(self.pair_cross_ctx_norm(m_flat))
+        ctx_mask = gather(m_mask.to(torch.uint8)).bool() if m_mask is not None else None
+        x_flat = x_flat + self.pair_from_msa(
+            self.pair_cross_norm(x_flat), context=ctx, mask=x_mask, context_mask=ctx_mask,
+            key=child_key(key, "pair_from_msa"))
+        del ctx
+        m_flat = m_flat + self.msa_from_pair.forward_sharded_context(
+            self.msa_cross_norm(m_flat), self.msa_cross_ctx_norm(x_flat), mesh, mask=m_mask,
+            context_mask=x_mask, rows=rows)
+        return x_flat, m_flat
 
 
 # the matmuls whose outputs each remat policy keeps
@@ -242,14 +310,14 @@ class ScanBody(nn.Module):
         self.layer = stack_parameters(TrunkLayer(**layer_kwargs), depth)
 
     def forward(self, x, m, pair_mask=None, msa_mask=None,
-                key: Optional[DropoutKey] = None):
+                key: Optional[DropoutKey] = None, msa_rows: Optional[RowBlock] = None):
         names, stacked = zip(*self.layer.named_parameters())
         key = child_key(key, "layer")
 
         def step(i, x, m):
             return torch.func.functional_call(
                 self.layer, depth_slice(names, stacked, i),
-                (x, m, pair_mask, msa_mask, None if key is None else key.at(i)))
+                (x, m, pair_mask, msa_mask, None if key is None else key.at(i), msa_rows))
 
         for i in range(self.depth):
             if self.remat:
@@ -339,22 +407,24 @@ class Trunk(nn.Module):
                                                      **layer_kwargs))
 
     def forward(self, x, m, pair_mask=None, msa_mask=None,
-                key: Optional[DropoutKey] = None):
+                key: Optional[DropoutKey] = None, msa_rows: Optional[RowBlock] = None):
         """The trunk over the streams; ``key`` (the trunk's own,
-        ``trunk``) makes dropout active."""
+        ``trunk``) makes dropout active; ``msa_rows`` (``msa_row_shard``
+        under a mesh) says which rows of the MSA grid ``m`` holds."""
         if self.engine == "reversible" and active_mesh() is not None:
             raise ValueError("the reversible engine does not run on a device mesh; use "
                              "remat=True with it")
         if self.engine != "loop":  # the module is named after its engine
+            rows = {"msa_rows": msa_rows} if self.engine == "scan" else {}
             x, m = getattr(self, self.engine)(x, m, pair_mask, msa_mask,
-                                              key=child_key(key, self.engine))
+                                              key=child_key(key, self.engine), **rows)
             x = tag("trunk.out.pair", x)
             if m is not None:
                 m = tag("trunk.out.msa", m)
             return x, m
         for i in range(self.depth):
             layer = getattr(self, f"layer_{i}")
-            args = (x, m, pair_mask, msa_mask, child_key(key, f"layer_{i}"))
+            args = (x, m, pair_mask, msa_mask, child_key(key, f"layer_{i}"), msa_rows)
             if self.remat:
                 x, m = remat_call(layer, self.context_fn, *args)
             else:

@@ -343,23 +343,40 @@ class Attention(nn.Module):
             attend_axis, lambda q, k, v, m: attend(route, q, k, v, q_mask=m, kv_mask=m,
                                                    sm_scale=scale), sharded=sharded)
 
-    def forward_sharded_context(self, x, context, mesh, mask=None, context_mask=None):
+    def forward_sharded_context(self, x, context, mesh, mask=None, context_mask=None,
+                                rows=None):
         """Cross-attention whose keys are split over the ranks of the
         mesh's sequence axes: ``x`` (B, n, D) the same queries on every
         rank, ``context`` (B, j, D) this rank's keys. K1 with lse over the
         local keys, then ``parallel/seq_parallel.py merge_partials`` across
         the ranks (one all_reduce of the max, one of the rescaled sums):
         exact, and no rank gathers the keys. The pair grid's block is such
-        a context in the MSA<-pair pass."""
-        from alphafold2_tpu_torch.parallel.seq_parallel import attend_lse, merge_partials
+        a context in the MSA<-pair pass.
+
+        With ``rows`` (a ``parallel/sharding.py RowBlock``: the MSA rows
+        sharded, ``msa_row_shard``) ``x`` is this rank's row block of the
+        queries: they are gathered over the row axis (every rank needs the
+        partials of rows it does not hold), attended over the local keys,
+        and merged so that each rank keeps its own rows
+        (``merge_partials_rows``)."""
+        from alphafold2_tpu_torch.parallel.seq_parallel import (
+            attend_lse, merge_partials, merge_partials_rows,
+        )
+        from alphafold2_tpu_torch.parallel.sharding import all_gather
 
         h, dh = self.heads, self.dim_head
         lead, n = tuple(x.shape[:-2]), x.shape[-2]
         q = self.to_q(x).view(*lead, n, h, dh).transpose(1, 2)
         k, v = (t.view(*context.shape[:-1], h, dh).transpose(1, 2)
                 for t in self.to_kv(context).chunk(2, -1))
+        if rows is not None:
+            q = all_gather(q, mesh, rows.axis, dim=2)
+            if mask is not None:
+                mask = all_gather(mask.to(torch.uint8), mesh, rows.axis, dim=1).bool()
         out, lse = attend_lse(q, k, v, q_mask=mask, kv_mask=context_mask, sm_scale=dh**-0.5)
-        return self._project_out(merge_partials(out, lse, mesh, "seq"), lead)
+        merged = (merge_partials_rows(out, lse, mesh, rows.axis) if rows is not None
+                  else merge_partials(out, lse, mesh, "seq"))
+        return self._project_out(merged, lead)
 
     def forward_context_parallel(self, x, context, mesh, context_mask=None,
                                  queries_sharded: bool = True):
@@ -403,7 +420,13 @@ class Attention(nn.Module):
         return out if queries_sharded else all_gather(out, mesh, SEQ_AXIS, dim=1)
 
     def forward(self, x, context=None, mask=None, context_mask=None,
-                tie_dim: Optional[int] = None, key: Optional[DropoutKey] = None):
+                tie_dim: Optional[int] = None, key: Optional[DropoutKey] = None, rows=None):
+        """``rows`` (with ``tie_dim``): the ``parallel/sharding.py RowBlock``
+        of an MSA whose rows are sharded over the active mesh
+        (``msa_row_shard``); ``tie_dim`` is then this rank's row count, the
+        masks, voting rows and tie scale are made global by one all_reduce
+        over the row axis, and the pass runs K2's split route
+        (``parallel/seq_parallel.py sharded_tied_rows``)."""
         h, dh = self.heads, self.dim_head
         has_context = context is not None
         ctx = context if has_context else x
@@ -441,6 +464,8 @@ class Attention(nn.Module):
         bt = q.shape[0]
         tie_scale = r**-0.5
         kv_side = context_mask if has_context else mask
+        if rows is not None:
+            return self._tied_row_sharded(q, k, v, mask, has_context, rows, dense)
         if mask is not None or kv_side is not None:
             # padded (row, position) entries abstain from the shared logits
             # and from the per-row output; the tie scale counts the rows
@@ -468,6 +493,38 @@ class Attention(nn.Module):
             kv_mask=km, sm_scale=scale, tie_scale=tie_scale,
         )  # (B, R, n, h, dh)
         return self.to_out(out.reshape(bt * r, n, h * dh))
+
+    def _tied_row_sharded(self, q, k, v, mask, has_context, rows, dense):
+        """The tied pass on this rank's ``rows.per`` rows (q/k/v (B, R_local,
+        n, H, dh)): as the replicated pass, with the shared masks and the
+        voting-row count taken over every rank's rows (one all_reduce over
+        the row axis), then K2's split route with its all_reduce of the
+        logits. Padded rows abstain, as padding does here."""
+        from alphafold2_tpu_torch.parallel.seq_parallel import sharded_tied_rows
+        from alphafold2_tpu_torch.parallel.sharding import active_mesh, all_reduce
+
+        mesh = active_mesh()
+        if mesh is None:
+            raise ValueError("a row-sharded tied pass needs an active mesh")
+        if has_context or dense:
+            raise ValueError("the row-sharded tied pass is self-attention without attention "
+                             "dropout")
+        bt, r, n = q.shape[:3]
+        if mask is None:
+            if rows.pad:
+                raise ValueError(f"{rows.pad} padded MSA rows need a mask to abstain")
+            tie_scale = float(r * rows.n) ** -0.5
+        else:
+            qr = mask.reshape(bt, r, n)
+            q, k, v = (t * qr[..., None, None].to(t.dtype) for t in (q, k, v))
+            local = torch.cat([(qr.any(-1)).sum(-1, keepdim=True), qr.any(1)], dim=-1)
+            whole = all_reduce(local.float(), mesh, rows.axis)
+            tie_scale = whole[:, 0].clamp_min(1.0) ** -0.5
+            mask = whole[:, 1:] > 0
+        plain = kernel_policy.resolve_tied_row() != "pallas"
+        out = sharded_tied_rows(q, k, v, mesh, rows.axis, q_mask=mask, kv_mask=mask,
+                                sm_scale=self.dim_head**-0.5, tie_scale=tie_scale, plain=plain)
+        return self.to_out(out.reshape(bt * r, n, self.heads * self.dim_head))
 
 
 class AxialAttention(nn.Module):
@@ -530,9 +587,50 @@ class AxialAttention(nn.Module):
                              "passes run the fused kernels, which drop nothing")
         return mesh
 
+    def _row_sharded(self, x, mask, rows):
+        """Both passes on this rank's block of an MSA grid's rows (``rows``,
+        a ``parallel/sharding.py RowBlock``; ``x`` (B, rows.per, W, D)).
+        The column pass attends over the rows: an all_to_all over the row
+        axis trades the row block for a column block (W padded to a
+        multiple of the axis), K1 runs on whole columns with the padded rows
+        masked as keys, and the all_to_all back returns the block. The row
+        pass runs on the local rows: untied locally, tied through K2's split
+        route (:meth:`Attention._tied_row_sharded`)."""
+        from alphafold2_tpu_torch.parallel.sharding import active_mesh, all_to_all
+
+        if self.dropout > 0.0 or self.block_size is not None:
+            raise ValueError("the row-sharded MSA passes run the fused kernels: no attention "
+                             "dropout, no block-sparse MSA stream")
+        mesh = active_mesh()
+        b, hl, w, d = x.shape
+        pad = (-w) % rows.n
+        xc = F.pad(x, (0, 0, 0, pad)) if pad else x
+        xc = all_to_all(xc, mesh, rows.axis, split_dim=2, concat_dim=1)
+        mc = None
+        if mask is not None:
+            mc = F.pad(mask, (0, pad), value=False) if pad else mask
+            mc = all_to_all(mc.to(torch.uint8), mesh, rows.axis, split_dim=2, concat_dim=1).bool()
+        m_all, wl = xc.shape[1], xc.shape[2]
+        w_out = self.attn_width(xc.transpose(1, 2).reshape(b * wl, m_all, d),
+                                mask=(mc.transpose(1, 2).reshape(b * wl, m_all)
+                                      if mc is not None else None))
+        w_out = w_out.reshape(b, wl, m_all, d).transpose(1, 2)
+        w_out = all_to_all(w_out, mesh, rows.axis, split_dim=1, concat_dim=2)[:, :, :w]
+        tie = {"tie_dim": hl, "rows": rows} if self.tie_row_attn else {}
+        h_out = self.attn_height(x.reshape(b * hl, w, d),
+                                 mask=mask.reshape(b * hl, w) if mask is not None else None,
+                                 **tie)
+        return w_out + h_out.reshape(b, hl, w, d)
+
     def forward(self, x, mask=None, context=None, context_mask=None,
-                key: Optional[DropoutKey] = None):
+                key: Optional[DropoutKey] = None, rows=None):
+        """``rows``: this is the block of an MSA grid whose rows are sharded
+        over the active mesh (:meth:`_row_sharded`)."""
         b, height, w, d = x.shape
+        if rows is not None:
+            if context is not None:
+                raise ValueError("the row-sharded MSA passes take no broadcast context")
+            return self._row_sharded(x, mask, rows)
         mesh = self._mesh(context, key)
         if mesh is not None:
             if self.block_size is not None:

@@ -109,6 +109,22 @@ SIGNATURES = {
         # head_dim, aligned, plan
         "af2_tied_row_attention_wide_route": [_I] * 8 + [_P, _P],
         "af2_tied_row_attention_wide_pass": [_I] * 9 + [_PLAN],
+        # the split route on a mesh's rows, a pass an entry. Its plan: pass,
+        # dtype, batch, heads, na, nb, features, row width, hopper, plan,
+        # splits (1 int out), workspace bytes (1 long long out)
+        "af2_tied_split_plan": [_I] * 9 + [_PLAN, _P, _P],
+        # dtype, a, b, plane, strides (8), batch, heads, na, nb, features, row
+        # width, workspace, its bytes, info (2 ints out), stream
+        "af2_tied_split_logits": [_I] + [_P] * 4 + [_I] * 6 + [_P, _L, _P, _P],
+        # dtype, plane, prob, lse, q_mask, kv_mask, tie_scale, batch, heads,
+        # nq, nk, sm_scale, stream
+        "af2_tied_split_softmax": [_I] + [_P] * 6 + [_I] * 4 + [_F, _P],
+        # dtype, s plane, dp plane, lse, dsum, ds, ds^T, p^T, q_mask, kv_mask,
+        # tie_scale, batch, heads, nq, nk, sm_scale, stream
+        "af2_tied_split_grad": [_I] + [_P] * 10 + [_I] * 4 + [_F, _P],
+        # dtype, a, x, out, strides (8), tie_scale, batch, heads, m, n,
+        # features, row width, sm_scale, scaled, info (1 int out), stream
+        "af2_tied_split_product": [_I] + [_P] * 5 + [_I] * 6 + [_F, _I, _P, _P],
     },
     # dtype, q, k, v, dout, lse, dsum, outputs (dq | dk, dv | dq, dk, dv),
     # q_mask, kv_mask, tie_scale, strides (28), batch, heads, nq, nk,

@@ -41,6 +41,16 @@ then the backward's dq, dk and dv in one call,
 math). The tie scale is data (it counts the voting rows) and carries no
 gradient; it scales the f32 logits, so dq and dk both carry it.
 
+K2's split route (``csrc/tied_row_split.cuh``, :func:`tied_split_logits`,
+:func:`tied_split_softmax`, :func:`tied_split_grad`,
+:func:`tied_split_product` and their plain versions) runs the same
+attention as passes on caller-owned planes, for MSA rows sharded over a
+mesh (``parallel/seq_parallel.py`` ``TiedRowsSharded`` all-reduces the
+logits, and in the backward dP and dsum, between them): the softmax and
+grad passes on the wide route's kernels in any dtype; the logits and
+products on the wide route's kernels in bf16 at head dim 32, 64 or 128,
+on CUDA-core kernels of their own at any other dtype or head dim.
+
 Callers pre-zero padded (row, position) entries of q/k/v (abstention), pass
 the SHARED query/column masks (B, N) and the voting-row ``tie_scale``
 (ops/attention.py). Masking follows ``axial.fused_attention``: masked keys
@@ -240,12 +250,12 @@ def _wide(bwd: bool, b: int, h: int, nq: int, nk: int, features: int,
               "blocks": tiles * splits, "threads": THREADS,
               "dynamic_smem": wide_logits_smem(ops)}
     if bwd:
-        reduce = {"kernel": WIDE_KERNELS["grad"],
+        reduce = {"kernel": f"{WIDE_KERNELS['grad']}<__nv_bfloat16>",
                   "blocks": b * h * (_round64(nq) // TILE) * (_round64(nk) // TILE)}
         products = [_product_pass(b, h, nq, features, row_width),
                     _product_pass(b, h, nk, features, row_width)]
     else:
-        reduce = {"kernel": WIDE_KERNELS["softmax"],
+        reduce = {"kernel": f"{WIDE_KERNELS['softmax']}<__nv_bfloat16>",
                   "blocks": b * h * _round64(nq) // (WIDE_REDUCE_THREADS // 32)}
         products = [_product_pass(b, h, nq, features, row_width)]
     reduce.update(threads=WIDE_REDUCE_THREADS, dynamic_smem=0)
@@ -853,3 +863,246 @@ tied_row_attention.launches = 0
 # of them, launches of tied_row_attention_kernel_sm90 or of the wide route
 tied_row_attention.sm90_launches = 0
 tied_row_attention.wide_launches = 0  # of them, the wide route's
+
+
+# ------------------------------------------------ the split route (a mesh)
+#
+# K2 on MSA rows sharded over a mesh axis (csrc/tied_row_split.cuh): the
+# logits over a rank's rows, the softmax, the grad and the products as
+# passes of their own, so that the caller (parallel/seq_parallel.py
+# TiedRowsSharded) all-reduces the logits, dP and dsum over the row axis
+# between them. On the card a plane is (B, H, Nq', Nk') f32 with the token
+# counts rounded up to 64 (zero past them) and P, dS, dS^T and P^T are in the
+# operand dtype at that padding; the plain versions, which the wrappers run
+# for CPU tensors, give the same arrays unpadded.
+
+def _row_strides(*tensors) -> list:
+    """(batch, head, token, row group) element strides of (B, R, N, H, D)
+    operands, in order."""
+    return [x for t in tensors for x in (t.stride(0), t.stride(3), t.stride(2), t.stride(1))]
+
+
+@functools.lru_cache(maxsize=None)
+def split_plan(pass_: int, dtype: int, b: int, h: int, na: int, nb: int, features: int,
+               row_width: int, hopper: bool) -> dict:
+    """The C plan of one split pass (pass 0 the logits, 1 the splits' sum,
+    2 the softmax, 3 the grad, 4 a product of ``na`` tokens over ``nb``):
+    its instantiation, launch and, for the logits, feature splits and
+    workspace bytes."""
+    lib = build.library("tied_row_attention")
+    plan, splits, work = build.LaunchPlan(), ctypes.c_int(0), ctypes.c_longlong(0)
+    build.check(lib, lib.af2_tied_split_plan(pass_, dtype, b, h, na, nb, features, row_width,
+                                             int(hopper), ctypes.byref(plan),
+                                             ctypes.byref(splits), ctypes.byref(work)),
+                "tied_split plan")
+    return {"kernel": plan.kernel.decode(), "blocks": plan.blocks, "threads": plan.threads,
+            "dynamic_smem": plan.dynamic_smem, "splits": splits.value,
+            "work_bytes": work.value}
+
+
+def _padded(n: int) -> int:
+    return -(-n // TILE) * TILE
+
+
+def tied_split_logits_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The plain version of the logits pass: (B, H, Na, Nb) f32, A B^T over
+    the fused (r, d) axis of (B, R, Na, H, D) and (B, R, Nb, H, D)."""
+    build.count(tied_split_logits_reference, calls=1)
+    return torch.einsum("brihd,brjhd->bhij", a.float(), b.float())
+
+
+tied_split_logits_reference.calls = 0
+
+
+def tied_split_logits(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The split route's logits pass over this rank's rows: A B^T over the
+    fused (r, d) axis, unscaled, f32 (B, H, Na', Nb') on the card (the
+    token counts rounded up to 64, zero past them). The forward's S (a = q,
+    b = k) and the backward's dP (a = dO, b = v)."""
+    if a.device.type == "cpu":
+        return tied_split_logits_reference(a, b)
+    bs, r, na, h, d = a.shape
+    nb = b.shape[2]
+    dtype = _DTYPES[a.dtype]
+    plane = torch.empty((bs, h, _padded(na), _padded(nb)), dtype=torch.float32, device=a.device)
+    plan = split_plan(0, dtype, bs, h, na, nb, r * d, d, True)
+    work = (torch.empty(plan["work_bytes"], dtype=torch.uint8, device=a.device)
+            if plan["work_bytes"] else None)
+    strides = (ctypes.c_longlong * 8)(*_row_strides(a, b))
+    info = (ctypes.c_int * 2)()
+    lib = build.library("tied_row_attention")
+    with torch.cuda.device(a.device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        code = lib.af2_tied_split_logits(
+            dtype, _ptr(a), _ptr(b), _ptr(plane), strides, bs, h, na, nb, r * d, d, _ptr(work),
+            work.numel() if work is not None else 0, info, stream)
+    build.check(lib, code, "tied_split_logits")
+    build.tally_flops("tied_split_logits", 2.0 * bs * h * na * nb * r * d)
+    build.count(tied_split_logits, launches=1, sm90_launches=info[0])
+    return plane
+
+
+tied_split_logits.launches = 0
+tied_split_logits.sm90_launches = 0  # of them, on the Hopper route
+
+
+def _split_masks(*masks):
+    return [m.contiguous() if m is not None else None for m in masks]
+
+
+def tied_split_softmax_reference(s, nq, nk, q_mask=None, kv_mask=None, sm_scale=1.0,
+                                 tie_scale=None, dtype=torch.float32):
+    """The plain version of the softmax pass on the whole logits ``s``: P
+    (B, H, Nq, Nk) in ``dtype`` (2^(x - lse2) with x = s * sm_scale *
+    tie[b] * log2 e; 0 for a masked key, a masked query and a row with no
+    valid key) and the lse (B, H, Nq) f32, +inf for a row with no valid
+    key."""
+    build.count(tied_split_softmax_reference, calls=1)
+    b = s.shape[0]
+    x = s[..., :nq, :nk].float() * (sm_scale * _tie_vector(tie_scale, b, 1, s.device)
+                                    * LOG2E)[:, None, None, None]
+    keys = (kv_mask if kv_mask is not None
+            else torch.ones((b, nk), dtype=torch.bool, device=s.device))[:, None, None, :]
+    m = x.masked_fill(~keys, float("-inf")).amax(-1, keepdim=True)
+    keyed = torch.isfinite(m)
+    l = torch.where(keys & keyed, torch.exp2(x - torch.where(keyed, m, 0.0)), 0.0).sum(
+        -1, keepdim=True)
+    lse2 = torch.where(keyed, m + torch.log2(l.clamp_min(1e-30)), float("inf"))
+    live = keys & keyed
+    if q_mask is not None:
+        live = live & q_mask[:, None, :, None]
+    p = torch.where(live, torch.exp2(x - torch.where(keyed, lse2, 0.0)), 0.0).to(dtype)
+    return p, (lse2 * LN2)[..., 0]
+
+
+tied_split_softmax_reference.calls = 0
+
+
+def tied_split_softmax(s, nq, nk, q_mask=None, kv_mask=None, sm_scale=1.0, tie_scale=None,
+                       dtype=torch.float32):
+    """The split route's softmax pass on the whole (all rows') logits ``s``
+    (a :func:`tied_split_logits` plane after the all-reduce): (P, lse), P in
+    ``dtype`` at the plane's padding on the card."""
+    if s.device.type == "cpu":
+        return tied_split_softmax_reference(s, nq, nk, q_mask, kv_mask, sm_scale, tie_scale,
+                                            dtype)
+    b, h = s.shape[:2]
+    tie = _tie_vector(tie_scale, b, 1, s.device)
+    qm, km = _split_masks(q_mask, kv_mask)
+    prob = torch.empty(s.shape, dtype=dtype, device=s.device)
+    lse = torch.empty((b, h, nq), dtype=torch.float32, device=s.device)
+    lib = build.library("tied_row_attention")
+    with torch.cuda.device(s.device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        code = lib.af2_tied_split_softmax(_DTYPES[dtype], _ptr(s), _ptr(prob), _ptr(lse), _ptr(qm),
+                                          _ptr(km), _ptr(tie), b, h, nq, nk, float(sm_scale),
+                                          stream)
+    build.check(lib, code, "tied_split_softmax")
+    build.count(tied_split_softmax, launches=1)
+    return prob, lse
+
+
+tied_split_softmax.launches = 0
+
+
+def tied_split_grad_reference(s, dp, lse, dsum, nq, nk, q_mask=None, kv_mask=None,
+                              sm_scale=1.0, tie_scale=None, dtype=torch.float32):
+    """The plain version of the grad pass, (dS, dS^T, P^T) in ``dtype``: p =
+    2^(S * s * log2 e - lse * log2 e) with s = sm_scale * tie[b] (0 for a
+    masked key and a dead query row), dS = p * (dP - dsum), from the whole
+    logits, dP and dsum."""
+    build.count(tied_split_grad_reference, calls=1)
+    b = s.shape[0]
+    scale = sm_scale * _tie_vector(tie_scale, b, 1, s.device)
+    live = torch.isfinite(lse)
+    if q_mask is not None:
+        live = live & q_mask[:, None, :]
+    keys = (kv_mask if kv_mask is not None
+            else torch.ones((b, nk), dtype=torch.bool, device=s.device))
+    ok = live[..., None] & keys[:, None, None, :]
+    x = s[..., :nq, :nk].float() * (scale * LOG2E)[:, None, None, None]
+    p = torch.where(ok, torch.exp2(x - torch.where(live, lse, 0.0)[..., None] * LOG2E), 0.0)
+    ds = p * (dp[..., :nq, :nk].float() - torch.where(live, dsum, 0.0)[..., None])
+    p, ds = p.to(dtype), ds.to(dtype)
+    return ds, ds.transpose(-1, -2), p.transpose(-1, -2)
+
+
+tied_split_grad_reference.calls = 0
+
+
+def tied_split_grad(s, dp, lse, dsum, nq, nk, q_mask=None, kv_mask=None, sm_scale=1.0,
+                    tie_scale=None, dtype=torch.float32):
+    """The split route's grad pass: (dS, dS^T, P^T) from the forward's whole
+    logits ``s`` and ``lse`` and the whole (all-reduced) ``dp`` and
+    ``dsum``; on the card at the planes' padding."""
+    if s.device.type == "cpu":
+        return tied_split_grad_reference(s, dp, lse, dsum, nq, nk, q_mask, kv_mask, sm_scale,
+                                         tie_scale, dtype)
+    b, h, nqp, nkp = s.shape
+    tie = _tie_vector(tie_scale, b, 1, s.device)
+    qm, km = _split_masks(q_mask, kv_mask)
+    ds = torch.empty((b, h, nqp, nkp), dtype=dtype, device=s.device)
+    ds_t, p_t = (torch.empty((b, h, nkp, nqp), dtype=dtype, device=s.device) for _ in range(2))
+    lib = build.library("tied_row_attention")
+    with torch.cuda.device(s.device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        code = lib.af2_tied_split_grad(_DTYPES[dtype], _ptr(s), _ptr(dp.contiguous()),
+                                       _ptr(lse.contiguous()), _ptr(dsum.contiguous()), _ptr(ds),
+                                       _ptr(ds_t), _ptr(p_t), _ptr(qm), _ptr(km), _ptr(tie), b, h,
+                                       nq, nk, float(sm_scale), stream)
+    build.check(lib, code, "tied_split_grad")
+    build.count(tied_split_grad, launches=1)
+    return ds, ds_t, p_t
+
+
+tied_split_grad.launches = 0
+
+
+def tied_split_product_reference(a, x, m, scale=None):
+    """The plain version of a product pass: (B, R, m, H, D) = A X over X's
+    N tokens in f32, times sm_scale * tie[b] where ``scale`` is (sm_scale,
+    tie), in X's dtype."""
+    build.count(tied_split_product_reference, calls=1)
+    n = x.shape[2]
+    out = torch.einsum("bhij,brjhd->brihd", a[..., :m, :n].float(), x.float())
+    if scale is not None:
+        sm_scale, tie = scale
+        out = out * (sm_scale * _tie_vector(tie, x.shape[0], 1, x.device))[:, None, None, None,
+                                                                           None]
+    return out.to(x.dtype)
+
+
+tied_split_product_reference.calls = 0
+
+
+def tied_split_product(a, x, m, scale=None):
+    """The split route's product pass for this rank's rows: (B, R, m, H, D)
+    = A X, A the softmax's P (out = P V'), dS (dq = s dS K'), dS^T (dk = s
+    dS^T Q') or P^T (dv = P^T dO'); ``scale`` (sm_scale, tie) multiplies in
+    s. X (B, R, N, H, D) is read through its strides."""
+    if x.device.type == "cpu":
+        return tied_split_product_reference(a, x, m, scale)
+    b, r, n, h, d = x.shape
+    out = torch.empty((b, r, m, h, d), dtype=x.dtype, device=x.device)
+    sm_scale, tie = scale if scale is not None else (1.0, None)
+    tie = _tie_vector(tie if tie is not None else 1.0, b, 1, x.device)
+    strides = (ctypes.c_longlong * 8)(*_row_strides(x, out))
+    info = (ctypes.c_int * 1)()
+    lib = build.library("tied_row_attention")
+    with torch.cuda.device(x.device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        code = lib.af2_tied_split_product(_DTYPES[x.dtype], _ptr(a.contiguous()), _ptr(x),
+                                          _ptr(out), strides, _ptr(tie), b, h, m, n, r * d, d,
+                                          float(sm_scale), int(scale is not None), info, stream)
+    build.check(lib, code, "tied_split_product")
+    build.tally_flops("tied_split_product", 2.0 * b * h * m * n * r * d)
+    build.count(tied_split_product, launches=1, sm90_launches=info[0])
+    return out
+
+
+tied_split_product.launches = 0
+tied_split_product.sm90_launches = 0  # of them, on the Hopper route
+
+SPLIT_PASSES = (tied_split_logits, tied_split_softmax, tied_split_grad, tied_split_product)
+SPLIT_PLAIN = (tied_split_logits_reference, tied_split_softmax_reference,
+               tied_split_grad_reference, tied_split_product_reference)

@@ -25,11 +25,26 @@ the visiting keys and values back along the ring, the way JAX
 differentiates its ``scan`` over ``ppermute``; a merge's running max is a
 stabiliser and carries no gradient.
 
+- :func:`tied_row_attention_sharded` and :func:`tied_row_attention` are
+  JAX's tied-row attention on MSA rows sharded over a mesh axis
+  (``:133-191``): each rank contracts its own rows' logits and one
+  all-reduce over the row axis completes them, where JAX's ``_tied_core``
+  psums. The passes are K2's split route (``ops/cuda/tied_row.py``
+  ``tied_split_*``: logits, softmax, products), and
+  :class:`TiedRowsSharded` is differentiable over them: its backward
+  all-reduces dP and dsum over the row axis, then runs the grad and
+  product passes from the saved whole logits (so the backward repeats no
+  logits over q and k and no second all-reduce of them). The model's tied
+  MSA row pass runs it under ``msa_row_shard`` (``ops/attention.py``).
+- :func:`merge_partials_rows` is :func:`merge_partials` for queries whose
+  rows each rank holds a block of (the MSA<-pair pass under
+  ``msa_row_shard``): the gathered queries' partials merged over the
+  sequence axes, each rank keeping its own rows.
+
 On the CPU every K1 call runs its plain version, as the wrappers always do
 there; a kernel policy that routes the flat passes away from K1 (``flash``
 ``on`` or ``off``) runs K1's plain version with lse here, since SDPA
-returns no logsumexp. JAX's ``tied_row_attention_sharded`` and the
-``msa_row_shard`` layout are not ported yet (ROADMAP section 1).
+returns no logsumexp.
 """
 
 from __future__ import annotations
@@ -39,7 +54,8 @@ from typing import Optional
 import torch
 
 from alphafold2_tpu_torch.parallel.sharding import (
-    SEQ_AXIS, all_gather, all_reduce, all_to_all, axis_size, ring_shift,
+    DATA_AXIS, SEQ_AXIS, _all_reduce, all_gather, all_reduce, all_to_all, axis_index, axis_names,
+    axis_size, pair_layout, reduce_scatter, ring_shift,
 )
 
 
@@ -151,3 +167,146 @@ def merge_partials(out: torch.Tensor, lse: torch.Tensor, mesh, axis: str = "seq"
     live = den > 0
     return torch.where(live[..., None], num / torch.where(live, den, 1.0)[..., None],
                        0.0).to(out.dtype)
+
+
+def merge_partials_rows(out: torch.Tensor, lse: torch.Tensor, mesh, row_axis: str):
+    """:func:`merge_partials` of (B, H, Nq, D) partials whose query axis is
+    every rank's row block of the ``row_axis`` in rank order (gathered over
+    it), over the keys split across the sequence axes: one all_reduce of
+    the row max over the sequence axes, the rescaled sums all_reduced over
+    the column axis (a grid mesh's ``spc``) and reduce-scattered over
+    ``row_axis``, so each rank keeps its own block's Nq / n_rows queries."""
+    m = all_reduce(lse, mesh, "seq", op="max")
+    safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    w = torch.exp(lse - safe)
+    packed = torch.cat([out.float() * w[..., None], w[..., None]], dim=-1)
+    col = pair_layout(mesh).col_axis
+    if col is not None:
+        packed = all_reduce(packed, mesh, col, op="sum")
+    total = reduce_scatter(packed, mesh, row_axis, dim=2)
+    num, den = total[..., :-1], total[..., -1]
+    live = den > 0
+    return torch.where(live[..., None], num / torch.where(live, den, 1.0)[..., None],
+                       0.0).to(out.dtype)
+
+
+# --------------------------------------------- tied rows sharded over rows
+
+
+def _tied_forward(q, k, v, q_mask, kv_mask, sm_scale, tie, mesh, axis, plain):
+    """The split route's forward: (out, whole logits, lse)."""
+    from alphafold2_tpu_torch.ops.cuda import tied_row as k2
+
+    logits, softmax, product = ((k2.tied_split_logits_reference, k2.tied_split_softmax_reference,
+                                 k2.tied_split_product_reference) if plain else
+                                (k2.tied_split_logits, k2.tied_split_softmax,
+                                 k2.tied_split_product))
+    nq, nk = q.shape[2], k.shape[2]
+    s = _all_reduce(logits(q, k), mesh, axis, "sum")
+    p, lse = softmax(s, nq, nk, q_mask, kv_mask, sm_scale, tie, q.dtype)
+    return product(p, v, nq), s, lse
+
+
+class TiedRowsSharded(torch.autograd.Function):
+    """Tied-row attention of this rank's rows (B, R_local, N, H, D) over a
+    row-sharded MSA: K2's split passes with one all-reduce of the logits
+    over the mesh axis ``axis`` (the forward) and one of dP and dsum (the
+    backward). ``tie`` (B,) f32 carries no gradient; ``plain`` runs the
+    passes' plain versions (the ``tied_row=dense`` policy on the card).
+    The backward's all-reduce is the SPMD transpose of the forward's: each
+    rank's dS is the same whole one, and its rows' dq, dk and dv follow."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_mask, kv_mask, sm_scale, tie, mesh, axis, plain):
+        out, s, lse = _tied_forward(q, k, v, q_mask, kv_mask, sm_scale, tie, mesh, axis, plain)
+        ctx.save_for_backward(q, k, v, out, s, lse, q_mask, kv_mask, tie)
+        ctx.args = (sm_scale, mesh, axis, plain)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        from alphafold2_tpu_torch.ops.cuda import tied_row as k2
+
+        q, k, v, out, s, lse, q_mask, kv_mask, tie = ctx.saved_tensors
+        sm_scale, mesh, axis, plain = ctx.args
+        logits, grad, product = ((k2.tied_split_logits_reference, k2.tied_split_grad_reference,
+                                  k2.tied_split_product_reference) if plain else
+                                 (k2.tied_split_logits, k2.tied_split_grad,
+                                  k2.tied_split_product))
+        dout = dout.contiguous()
+        nq, nk = q.shape[2], k.shape[2]
+        dp = logits(dout, v)
+        dsum = k2.tied_row_dsum(out, dout)
+        whole = _all_reduce(torch.cat([dp.reshape(-1), dsum.reshape(-1)]), mesh, axis, "sum")
+        dp, dsum = whole[:dp.numel()].view(dp.shape), whole[dp.numel():].view(dsum.shape)
+        ds, ds_t, p_t = grad(s, dp, lse, dsum, nq, nk, q_mask, kv_mask, sm_scale, tie, q.dtype)
+        scale = (sm_scale, tie)
+        return (product(ds, k, nq, scale), product(ds_t, q, nk, scale), product(p_t, dout, nk),
+                None, None, None, None, None, None, None)
+
+
+def sharded_tied_rows(q, k, v, mesh, axis: str, q_mask=None, kv_mask=None, sm_scale=1.0,
+                      tie_scale=None, plain: bool = False) -> torch.Tensor:
+    """Tied-row attention of this rank's rows of an MSA whose rows are
+    sharded over mesh axis ``axis``: q/k/v (B, R_local, N, H, D) in K2's
+    layout, the shared (B, N) masks and the tie scale (a number or (B,) f32)
+    as :func:`~alphafold2_tpu_torch.ops.cuda.tied_row.tied_row_attention`
+    takes them, global (every rank the same). Differentiable in q, k and v
+    (:class:`TiedRowsSharded`)."""
+    from alphafold2_tpu_torch.ops.cuda.tied_row import _check, _tie_vector
+
+    _check(q, k, v, q_mask, kv_mask)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    tie = _tie_vector(1.0 if tie_scale is None else tie_scale, q.shape[0], 1, q.device).detach()
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return TiedRowsSharded.apply(q, k, v, q_mask, kv_mask, sm_scale, tie, mesh, axis, plain)
+    return _tied_forward(q, k, v, q_mask, kv_mask, sm_scale, tie, mesh, axis, plain)[0]
+
+
+def tied_row_attention_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               num_rows_global: int, mesh, axis: str = SEQ_AXIS) -> torch.Tensor:
+    """JAX's ``tied_row_attention_sharded``: tied-row (MSA-Transformer)
+    attention of this rank's rows, q/k/v (B, R_local, H, N, D), of an MSA
+    whose rows are sharded over mesh axis ``axis``, with the scale
+    ``D**-0.5 * num_rows_global**-0.5``. Each rank contracts its own rows'
+    logits, one all-reduce over ``axis`` completes them, and the shared
+    softmax weighs the local rows' values (:func:`sharded_tied_rows`).
+    Returns this rank's (B, R_local, H, N, D)."""
+    d = q.shape[-1]
+    to_k2 = lambda t: t.transpose(2, 3)  # noqa: E731 — (B, R, H, N, D) <-> (B, R, N, H, D)
+    out = sharded_tied_rows(to_k2(q), to_k2(k), to_k2(v), mesh, axis, sm_scale=d**-0.5,
+                            tie_scale=float(num_rows_global) ** -0.5)
+    return to_k2(out)
+
+
+def tied_row_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       mesh=None) -> torch.Tensor:
+    """JAX's host-level ``tied_row_attention``: q/k/v the global (B, R, H, N,
+    D) arrays (the same on every rank); with a mesh, each rank takes its
+    (``dp``, ``sp``) block, runs :func:`tied_row_attention_sharded` on its
+    rows and the blocks are gathered back, so every rank returns the global
+    result; without one (or without an ``sp`` axis) the dense contraction.
+    Exact in both modes, as JAX's. Its gradient reaches each rank's block
+    of q, k and v (the gathers' backward reduce-scatters the cotangents)."""
+    b, r = q.shape[0], q.shape[1]
+    if mesh is None or SEQ_AXIS not in axis_names(mesh):
+        from alphafold2_tpu_torch.ops import kernels
+        from alphafold2_tpu_torch.ops.cuda import tied_row as k2
+
+        fn = (k2.tied_row_attention if kernels.resolve_tied_row() == "pallas"
+              else k2.tied_row_attention_reference)
+        to_k2 = lambda t: t.transpose(2, 3).contiguous()  # noqa: E731
+        out = fn(to_k2(q), to_k2(k), to_k2(v), sm_scale=q.shape[-1] ** -0.5, tie_scale=r**-0.5)
+        return out.transpose(2, 3)
+    sp, dp = axis_size(mesh, SEQ_AXIS), axis_size(mesh, DATA_AXIS)
+    if r % sp != 0:
+        raise ValueError(f"MSA rows {r} must divide by sp={sp}")
+    if b % dp != 0:
+        raise ValueError(f"batch {b} must divide by dp={dp}")
+    bi, ri = axis_index(mesh, DATA_AXIS), axis_index(mesh, SEQ_AXIS)
+    rows, batch = slice(ri * (r // sp), (ri + 1) * (r // sp)), slice(bi * (b // dp),
+                                                                     (bi + 1) * (b // dp))
+    out = tied_row_attention_sharded(q[batch, rows], k[batch, rows], v[batch, rows], r, mesh)
+    out = all_gather(out, mesh, SEQ_AXIS, dim=1)
+    return all_gather(out, mesh, DATA_AXIS, dim=0)

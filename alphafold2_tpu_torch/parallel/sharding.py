@@ -17,7 +17,11 @@ every cross-rank step is one of the explicit collectives below.
   same layout with ``sp`` as the row axis and one column shard, which is
   the layout JAX's ``P(dp, sp)`` constraint gives the pair grid there.
 - The MSA grid (B, M, Nm, D) is replicated over the sequence axes and
-  sharded over ``dp`` only, as in JAX.
+  sharded over ``dp`` only, as in JAX; under ``model.msa_row_shard`` its
+  rows are sharded too (JAX's ``msa_spec(rows=True)``): over ``sp`` on a
+  1D mesh, over ``spr`` on a grid mesh (replicated over ``spc``), each
+  rank holding ``ceil(M / n)`` rows of its dp slice, the last ranks' tails
+  padded with rows that abstain (:func:`msa_row_block`).
 - :func:`shard_pair`, :func:`shard_msa` and :func:`shard_batch` stand
   where JAX's sharding constraints stand, at layer boundaries; each checks
   the local block's shape against the layout (identity without an active
@@ -581,15 +585,74 @@ def _observe_pair(held: torch.Tensor, lay: Optional[PairLayout]) -> None:
         seen["whole_bytes"] = max(seen["whole_bytes"], whole)
 
 
-def shard_msa(m: torch.Tensor, b: int, mesh=None) -> torch.Tensor:
-    """The MSA grid's layer boundary: under an active mesh ``m`` is a whole
-    ``(b, M, Nm, D)`` MSA grid (replicated over the sequence axes) of the
-    same ``b`` batch rows, this rank's dp slice, as the pair block it runs
-    beside; returns ``m``."""
+@dataclasses.dataclass(frozen=True)
+class RowBlock:
+    """Where this rank's block of an MSA grid's rows lies under
+    ``msa_row_shard``: mesh axis ``axis`` (``sp`` on a 1D mesh, ``spr`` on
+    a grid mesh) of ``n`` ranks, this rank's index ``index`` on it, ``total``
+    rows in all and ``per`` = ceil(total / n) a rank. Rank ``i`` holds
+    global rows ``[i * per, (i + 1) * per)``; those past ``total`` are
+    padding that abstains (masked, zeroed where they would vote)."""
+
+    axis: str
+    n: int
+    index: int
+    total: int
+    per: int
+
+    @property
+    def offset(self) -> int:
+        """This rank's first global row."""
+        return self.index * self.per
+
+    @property
+    def pad(self) -> int:
+        """Padding rows over the whole axis (all at the global tail)."""
+        return self.n * self.per - self.total
+
+    @property
+    def valid(self) -> int:
+        """This rank's real rows (its first ``valid`` rows)."""
+        return max(0, min(self.per, self.total - self.offset))
+
+    def take(self, t: torch.Tensor, dim: int = 1, fill=0) -> torch.Tensor:
+        """This rank's ``per`` rows of ``t`` along ``dim``, a global array of
+        ``total`` rows, padded with ``fill`` past them."""
+        lo = min(self.offset, self.total)
+        block = t.narrow(dim, lo, self.valid)
+        if self.valid == self.per:
+            return block
+        shape = list(t.shape)
+        shape[dim] = self.per - self.valid
+        return torch.cat([block, t.new_full(shape, fill)], dim=dim)
+
+
+def msa_row_block(total: int, mesh) -> RowBlock:
+    """The row block of an MSA grid of ``total`` rows on ``mesh`` under
+    ``msa_row_shard`` (JAX's ``msa_spec(rows=True)``: ``sp`` on a 1D mesh,
+    ``spr`` on a grid mesh)."""
+    axis = ROW_AXIS if is_grid(mesh) else SEQ_AXIS
+    n = axis_size(mesh, axis)
+    return RowBlock(axis=axis, n=n, index=axis_index(mesh, axis), total=int(total),
+                    per=-(-int(total) // n))
+
+
+def shard_msa(m: torch.Tensor, b: int, mesh=None, rows: Optional[RowBlock] = None) -> torch.Tensor:
+    """The MSA grid's layer boundary: under an active mesh ``m`` is a
+    ``(b, M, Nm, D)`` MSA grid of the same ``b`` batch rows, this rank's dp
+    slice, as the pair block it runs beside: whole (replicated over the
+    sequence axes) or, with ``rows`` (``msa_row_shard``), this rank's
+    ``rows.per`` rows of it; returns ``m``."""
     mesh = mesh if mesh is not None else active_mesh()
-    if mesh is not None and (m.dim() != 4 or m.shape[0] != b):
+    if mesh is None:
+        return m
+    if m.dim() != 4 or m.shape[0] != b:
         raise ValueError(f"MSA block {tuple(m.shape)} is not a (b, M, Nm, D) grid of the "
                          f"pair block's {b} batch rows on {describe_mesh(mesh)}")
+    if rows is not None and m.shape[1] != rows.per:
+        raise ValueError(f"MSA block {tuple(m.shape)} does not hold this rank's {rows.per} "
+                         f"of {rows.total} rows over {rows.axis}={rows.n} on "
+                         f"{describe_mesh(mesh)}")
     return m
 
 

@@ -65,7 +65,15 @@ Port of the single-device surface of ``alphafold2_tpu/serve/engine.py``:
   ``serve.long_max_batch``), as JAX's engine gates them
   (``serve/engine.py:212-230``). The mesh identity keys the executables,
   the compile records (with each rank's ``program_bytes``) and the result
-  cache. Dispatch on a mesh is synchronous (``pipeline_depth`` 0).
+  cache. Rank 0 dispatches on a mesh as anywhere, pipelined by default:
+  every collective of a forward, the batch's broadcast first, goes out
+  from the one thread that runs the forward (the pipeline's device stage,
+  or the serial path), under one lock a mesh that every engine on that
+  mesh shares (:func:`mesh_session`), so the forwards reach the followers
+  whole and in dispatch order, even from the replicas of a fleet. The
+  broadcast sends the host stack the transfer stage already holds (no
+  device-to-host copy in the compute stage). A follower needs no pipeline:
+  :meth:`ServeEngine.follow` runs the forwards in the order they come.
 
 The engine runs on the CUDA card unless built with ``device="cpu"``.
 ``state_dict=`` or ``checkpoint_dir=`` replaces the random weights;
@@ -168,6 +176,40 @@ class ServeResult:
         return self.status == "ok"
 
 
+class MeshSession:
+    """What every engine on one mesh shares on rank 0 (a fleet's replicas
+    on one mesh too): the forward lock, held from a forward's broadcast to
+    its last collective, and how many of those engines are open: the last
+    to close tells the followers to stop."""
+
+    def __init__(self):
+        self.lock = threading.RLock()
+        self.open = 0
+
+
+_SESSIONS_LOCK = threading.Lock()
+
+
+def mesh_session(mesh) -> MeshSession:
+    """``mesh``'s one :class:`MeshSession`, kept on the mesh itself, so it
+    lives as long as the mesh does."""
+    with _SESSIONS_LOCK:
+        session = getattr(mesh, "_serve_session", None)
+        if session is None:
+            session = MeshSession()
+            mesh._serve_session = session
+        return session
+
+
+class _Stacked(dict):
+    """A dispatch's device arrays, with the host stack they were copied
+    from (``host``): what a mesh's rank 0 broadcasts to the followers."""
+
+    def __init__(self, host: dict):
+        super().__init__()
+        self.host = host
+
+
 def _as_request(r: Union[str, ServeRequest]) -> ServeRequest:
     return r if isinstance(r, ServeRequest) else ServeRequest(seq=r)
 
@@ -264,10 +306,6 @@ class ServeEngine:
         self.pipeline_depth = int(cfg.serve.pipeline_depth)
         if self.pipeline_depth < 0:
             raise ValueError(f"serve.pipeline_depth must be >= 0, got {self.pipeline_depth}")
-        if mesh is not None and self.pipeline_depth > 0:
-            raise NotImplementedError(
-                "pipelined dispatch on a device mesh is not ported yet (ROADMAP section 1): "
-                "set serve.pipeline_depth=0")
         self.counters = counters if counters is not None else EventCounters()
         self.tracer = tracer if tracer is not None else Tracer(enabled=False)
         self.memory = MemorySampler([self.device])
@@ -295,8 +333,14 @@ class ServeEngine:
         # the fetch worker) and warm runs. A fleet's replicas each hold
         # their own lock, so two forwards of one shared module may run at
         # once on two threads; the kernel wrappers keep their launch counts
-        # exact under ops.cuda.build.count's lock.
+        # exact under ops.cuda.build.count's lock. On a mesh every engine
+        # of the mesh takes its one lock: a forward's collectives, the
+        # broadcast first, must reach the followers whole and in order
         self._forward_lock = threading.RLock()
+        self._session = None
+        if mesh is not None:
+            self._session = mesh_session(mesh)
+            self._forward_lock = self._session.lock
 
         if model is None:
             model = build_model(cfg, mds_iters=cfg.serve.mds_iters)
@@ -324,10 +368,13 @@ class ServeEngine:
         self.feature_cache = FeatureCache(fcap) if fcap > 0 else None
         self.delta_featurize = bool(cfg.serve.delta_featurize)
         self.pipeline = None
-        if self.pipeline_depth > 0:
+        if self.pipeline_depth > 0 and self.rank == 0:  # a follower only follows
             from alphafold2_tpu_torch.serve.pipeline import PipelinedDispatcher
 
             self.pipeline = PipelinedDispatcher(self, depth=self.pipeline_depth)
+        if self._session is not None and self.rank == 0:
+            with self._forward_lock:
+                self._session.open += 1
 
     @property
     def pipeline_desc(self) -> str:
@@ -336,13 +383,16 @@ class ServeEngine:
 
     def close(self) -> None:
         """Stop the pipeline's stage workers (in-flight batches drain first);
-        on a mesh, rank 0 tells the followers to stop (once)."""
+        on a mesh, rank 0 tells the followers to stop once the last engine
+        on the mesh closes (:class:`MeshSession`)."""
         if self.pipeline is not None:
             self.pipeline.shutdown(wait=True)
-        if self.mesh is not None and self.rank == 0 and not self._stopped:
+        if self._session is not None and self.rank == 0 and not self._stopped:
             self._stopped = True
             with self._forward_lock:
-                broadcast_object({"op": "stop"}, device=self._object_device())
+                self._session.open -= 1
+                if self._session.open == 0:  # the last engine on the mesh
+                    broadcast_object({"op": "stop"}, device=self._object_device())
 
     def _validate_mesh(self, mesh, cfg: Config) -> None:
         """JAX's checks (``serve/engine.py:377-412``): both batch sizes
@@ -416,10 +466,11 @@ class ServeEngine:
         if self.mesh is not None:
             if self.rank != 0:
                 raise RuntimeError(f"rank {self.rank} follows rank 0: call follow()")
+            host = getattr(stacked, "host", None)
+            if host is None:  # a stack made on the device
+                host = {k: v.cpu().numpy() for k, v in stacked.items()}
             with self._forward_lock:
-                broadcast_object({"op": "forward",
-                                  "host": {k: v.cpu().numpy() for k, v in stacked.items()}},
-                                 device=self._object_device())
+                broadcast_object({"op": "forward", "host": host}, device=self._object_device())
                 return self._forward_local(stacked)
         return self._forward_local(stacked)
 
@@ -571,10 +622,11 @@ class ServeEngine:
         pinned buffers and copy with ``non_blocking`` on the current
         stream; without, a plain copy (the CPU: no copy at all)."""
         host = dict(host, coords0=position_keyed_init(3 * bucket, self.model.mds_seed))
-        if pinned is None:
-            return {k: torch.from_numpy(a).to(self.device) for k, a in host.items()}
-        out = {}
+        out = _Stacked(host)
         for k, a in host.items():
+            if pinned is None:
+                out[k] = torch.from_numpy(a).to(self.device)
+                continue
             buf = pinned.buffer(k, a.shape, torch.from_numpy(a[:0]).dtype)
             buf.numpy()[...] = a
             out[k] = buf.to(self.device, non_blocking=True)

@@ -25,8 +25,18 @@ On the card every replica runs on the one device: :meth:`FleetFrontend.build`
 builds (or loads, or restores) the model once and the other replicas serve
 that module, so one parameter set sits in device memory. Each replica keeps
 its own pipeline (copy and compute streams, pinned rings, device thread and
-forward lock), so two replicas' forwards run at once on two streams. There
-is no mesh: passing one raises.
+forward lock), so two replicas' forwards run at once on two streams.
+
+**On a mesh** (``build(..., mesh=)``, as JAX's hands one mesh to every
+replica's engine): every replica's engine serves on that mesh, sharing one
+module. On rank 0 the replicas take the mesh's one forward lock
+(``serve/engine.py mesh_session``), so the broadcast and the collectives of
+one replica's forward never interleave with another's; their pipelines
+still overlap each one's host stages. Every other rank builds the same
+fleet and calls :meth:`FleetFrontend.follow`: one ``follow()`` loop for all
+the replicas, which run the same module. :meth:`close` on rank 0 drains
+every replica, closes their engines and stops the followers once. A kill
+closes only the replica's frontend and sends nothing to the followers.
 
 **Trace continuity across the replica hop**: the router serializes each
 request's context to its W3C ``traceparent()`` form and the replica-side
@@ -247,9 +257,9 @@ class FleetFrontend:
         restores (``checkpoint_dir``) the model; the others serve replica
         0's module (``ServeEngine(model=...)``), so N replicas never hold N
         copies. Each keeps its own pipeline. ``kw`` goes to the
-        constructor; a mesh raises (the port serves on one device)."""
-        if mesh is not None:
-            raise NotImplementedError("the port's fleet serves on one device: no mesh")
+        constructor. With a ``mesh`` every replica serves on it (module
+        docstring): rank 0 gets the fleet, every other rank a fleet whose
+        :meth:`follow` it calls (its frontends never start)."""
         from alphafold2_tpu_torch.serve.engine import ServeEngine
 
         engines: list = []
@@ -257,14 +267,22 @@ class FleetFrontend:
             if not engines:
                 engines.append(ServeEngine(
                     cfg, state_dict=state_dict, checkpoint_dir=checkpoint_dir,
-                    device=device, tracer=kw.get("tracer"),
+                    device=device, tracer=kw.get("tracer"), mesh=mesh,
                 ))
             else:
                 engines.append(ServeEngine(
                     cfg, device=engines[0].device, model=engines[0].model,
-                    tracer=kw.get("tracer"),
+                    tracer=kw.get("tracer"), mesh=mesh,
                 ))
+        if mesh is not None and engines[0].rank != 0:
+            kw = dict(kw, start=False)
         return cls(engines, **kw)
+
+    def follow(self) -> None:
+        """A follower rank's one loop for every replica of a fleet on a mesh
+        (they serve one module): returns when rank 0's :meth:`close` stops
+        it."""
+        self._cells[0].engine.follow()
 
     # ------------------------------------------------------------ lifecycle
 
@@ -290,6 +308,11 @@ class FleetFrontend:
             alive = [i for i, a in enumerate(self._alive) if a]
         for i in alive:
             self._cells[i].frontend.close(timeout=timeout)
+        first = self._cells[0].engine
+        if getattr(first, "mesh", None) is not None and first.rank == 0:
+            # the last replica's engine to close stops the followers
+            for cell in self._cells:
+                cell.engine.close()
         with self._lock:
             leftovers = list(self._routed.values())
             self._routed.clear()

@@ -41,8 +41,11 @@ On a device mesh (``cfg.mesh``; one process a rank under ``torchrun``,
 :func:`train` calls ``parallel.distributed.initialize`` and builds the
 mesh as JAX's :487-513 does, :func:`make_train_mesh`): parameters and
 optimizer state are replicated, each rank takes its ``dp`` slice of the
-global batch (:func:`device_put_batch`) and its block of the pair grid, and
-the step follows ``parallel/sharding.py``'s rule for the sharded backward:
+global batch (:func:`device_put_batch`) and its block of the pair grid
+(``model.msa_row_shard`` adds its rows of the MSA or the PLM grid, which
+the model takes from the whole MSA, as it takes its pair block from the
+whole sequence: ``models/alphafold2.py``), and the step follows
+``parallel/sharding.py``'s rule for the sharded backward:
 each rank's loss is its share of the global loss, the collectives
 differentiate as their SPMD transposes, and every gradient is a partial
 summed once over the world (:func:`reduce_gradients`), so every rank

@@ -2284,7 +2284,7 @@ def _plain_versions():
             block_sparse.block_sparse_attention_reference,
             block_sparse.block_sparse_attention_lse_reference,
             block_sparse.block_sparse_attention_dq_reference,
-            block_sparse.block_sparse_attention_dkv_reference)
+            block_sparse.block_sparse_attention_dkv_reference, *tied_row.SPLIT_PLAIN)
 
 
 def _training_kernels():
@@ -2303,7 +2303,8 @@ def _training_kernels():
             "block_sparse_attention": block_sparse.block_sparse_attention_lse,
             "block_sparse_attention (no lse)": block_sparse.block_sparse_attention,
             "block_sparse_attention_bwd_dq": block_sparse.block_sparse_attention_dq,
-            "block_sparse_attention_bwd_dkv": block_sparse.block_sparse_attention_dkv}
+            "block_sparse_attention_bwd_dkv": block_sparse.block_sparse_attention_dkv,
+            **{fn.__name__: fn for fn in tied_row.SPLIT_PASSES}}
 
 
 def _reset_counts(kernels, plain):
@@ -5305,7 +5306,7 @@ def _serve_checkpoint():
 
 SERVE_ASYNC_BURST = 32  # requests of the open-loop burst
 # the twelve requests' runs, serial and pipelined in turns
-SERVE_ASYNC_TURNS = ("serial", "pipelined", "pipelined", "serial")
+SERVE_ASYNC_TURNS = ("serial", "pipelined")
 SERVE_ASYNC_LOAD = 0.8  # the burst's Poisson rate over the serial request rate
 # distogram logits and weights, pipelined against serial: max |d| over max |serial|
 SERVE_PIPELINE_REL = 1e-5
@@ -6866,7 +6867,7 @@ def phase_long_meshless(buckets=LONG_BUCKETS):
 LONG_MESH_BUCKETS = (512, 768)  # the long ladder the mesh phase serves (phase_long_meshless)
 LONG_MESH_TAIL = 20  # each long request is its bucket less this many residues
 LONG_MESH_TIMEOUT_S = 600
-LONG_MESH_TURNS = (0, 1, 1, 0)  # meshless (0) and mesh (1) forwards a rung, in turns
+LONG_MESH_TURNS = (0, 1)  # meshless (0) and mesh (1) forwards a rung, in turns
 # the several-ranks sub-phase: a (1, 2, 2) grid of four ranks on the one card
 # (a gloo group on CUDA tensors: NCCL takes one rank a device), serving one
 # request on this long rung, which the world-size-1 rank serves too
@@ -7246,9 +7247,9 @@ def long_mesh_rank(out_path) -> int:
                                         mask=stacked["mask"], msa_mask=stacked["msa_mask"],
                                         coords0=stacked["coords0"])
 
-            # the mesh forward and the meshless one alternate in one process:
-            # meshless, mesh, mesh, meshless; each run's peak holds the other
-            # kind's last outputs
+            # the mesh forward and the meshless one alternate in one process
+            # (LONG_MESH_TURNS); each run's peak holds the other kind's last
+            # outputs
             times, flat_times, peaks, outs = [], [], [0, 0], [None, None]
             for which in LONG_MESH_TURNS:
                 outs[which] = None
@@ -7891,6 +7892,735 @@ def phase_train_mesh():
     return result
 
 
+# ------------------------------------------- MSA rows sharded over a mesh
+
+# (a) the serving width (Config(): dim 256, heads 8, dim_head 64, bf16; crop
+# 128, MSA 5x64, batch 1) at MSA_ROWS_DEPTH, tied rows, msa_row_shard: the
+# MSA stream (R*D 320) and the PLM stream (its 128 grid rows, R*D 8192)
+MSA_ROWS_DEPTH = 3
+MSA_ROWS_STEPS = 3  # each meshless, (1, 1) and 1x1x1 step, in turns
+MSA_ROWS_STREAMS = ("MSA", "PLM")
+# the split route against the fused K2 of the meshless step: the four
+# training ranks' bounds (TRAIN_MESH_RANK_*), bf16 partials summed in another
+# order
+MSA_ROWS_LOSS_REL = 1e-2
+MSA_ROWS_GRAD_REL_L2 = 0.05
+# (b) each split pass against its plain version: the MSA stream's tied pass
+# (all 5 rows at world size 1), 1 and 3 local rows of it, the PLM grid's
+MSA_ROWS_MAIN_LABEL = "MSA rows (1x5x64x8x64, R*D 320)"
+MSA_ROWS_PLM_LABEL = "PLM grid rows (1x128x128x8x64, R*D 8192)"
+MSA_ROWS_KERNEL_CASES = {MSA_ROWS_MAIN_LABEL: (1, 5, 64, 8, 64),
+                         "1 local row (1x1x64x8x64)": (1, 1, 64, 8, 64),
+                         "3 local rows (1x3x64x8x64)": (1, 3, 64, 8, 64),
+                         MSA_ROWS_PLM_LABEL: (1, 128, 128, 8, 64)}
+MSA_ROWS_TIMED = (MSA_ROWS_MAIN_LABEL, MSA_ROWS_PLM_LABEL)  # each pass timed at these
+# (c) four gloo ranks on the one card at depth 2, crop 64, batch 1: the PLM
+# stream on a (1, 4) mesh (its 64 grid rows, 16 a rank) and the MSA stream
+# with MSA 5 rows on a 1x2x2 grid (3 rows a rank, one of them padding)
+MSA_ROWS_RANKS = 4
+MSA_ROWS_RANK_RUNS = {"(1, 4) PLM tied": ("1x4", "PLM", 1),
+                      "1x2x2 MSA 5 tied": ("1x2x2", "MSA", 1)}
+MSA_ROWS_RANK_STEPS = 2
+# then each rank's peak at a crop where the O(N^2) grid outweighs the
+# parameters and optimizer state: both streams, depth 2, one step each on
+# the (1, 4) mesh, rows sharded and replicated (msa_row_shard off)
+MSA_ROWS_MEM_CROP = 256
+MSA_ROWS_MEM_MESH = "1x4"
+# (d) serving at bucket 128 x 4 on the world-size-1 mesh, at this depth
+MSA_ROWS_SERVE_DEPTH = 2
+MSA_ROWS_SERVE_LENGTHS = (100, 113, 121, 128)
+
+
+def _split_wrappers():
+    from alphafold2_tpu_torch.ops.cuda import tied_row
+
+    return {fn.__name__: fn for fn in tied_row.SPLIT_PASSES}
+
+
+def _msa_rows_cfg(stream, depth=MSA_ROWS_DEPTH, crop=128, row_shard=True, **model):
+    from alphafold2_tpu_torch.config import Config
+
+    cfg = Config()
+    cfg.model.depth = depth
+    cfg.model.msa_tie_row_attn = True
+    cfg.model.msa_row_shard = row_shard
+    cfg.model.grid_parallel = True
+    for k, v in model.items():
+        setattr(cfg.model, k, v)
+    cfg.data.crop_len = crop
+    cfg.data.min_len_filter = min(cfg.data.min_len_filter, crop)
+    if stream == "PLM":
+        cfg.data.features, cfg.data.plm_provider = "plm", "hash"
+    cfg.train.gradient_accumulate_every = 1
+    cfg.train.warmup_steps = 1
+    return cfg
+
+
+def _msa_rows_batches(cfg, n, batch_size=None):
+    """The first ``n`` numpy batches of ``cfg``'s stream (the PLM stream's
+    with their hash-provider ``embedds``)."""
+    import itertools
+
+    from alphafold2_tpu_torch.data.pipeline import SyntheticDataset
+    from alphafold2_tpu_torch.train import loop
+
+    if batch_size is not None:
+        cfg.data.batch_size = batch_size
+    it = loop.apply_features(iter(SyntheticDataset(cfg.data, seed=cfg.train.seed)), cfg)
+    return list(itertools.islice(it, n))
+
+
+def _msa_rows_state(cfg, batches):
+    from alphafold2_tpu_torch.train import loop
+
+    model = loop.build_model(cfg, num_embedds=loop.embedds_width(batches[0]))
+    return loop.init_state(cfg, model)
+
+
+def _split_expected(depth, steps):
+    """Split-pass launches over ``steps`` tied steps of ``depth`` layers:
+    a layer's tied pass runs logits, softmax and P V' forward, dP, the grad
+    pass and three products backward."""
+    return {"tied_split_logits": 2 * depth * steps, "tied_split_softmax": depth * steps,
+            "tied_split_grad": depth * steps, "tied_split_product": 4 * depth * steps}
+
+
+def _require_split_route(counts, depth, steps, what):
+    """Every K2 launch of a row-sharded tied step on the split passes, on
+    the Hopper route where it has one: no fused K2 (forward or backward)
+    and no plain version."""
+    for name, want in _split_expected(depth, steps).items():
+        require(counts.get(name, 0) == want,
+                f"{what}: {counts.get(name, 0)} {name} launches, expected {want}")
+        if f"{name} sm90" in counts:
+            require(counts[f"{name} sm90"] == counts[name],
+                    f"{what}: {name} off its Hopper route")
+    for name in ("tied_row_attention", "tied_row_attention_bwd_dq", "tied_row_attention_bwd_dkv"):
+        require(counts.get(name, 0) == 0, f"{what}: the fused {name} ran on a row-sharded step")
+    require(counts["plain_calls"] == 0, f"{what}: a plain version ran")
+
+
+def _msa_rows_world1(stream):
+    """(a): one stream meshless, on a (1, 1) mesh and on a 1x1x1 grid under
+    msa_row_shard, MSA_ROWS_STEPS steps each from the same initial state
+    and batches, in turns; each mesh step's loss and every gradient against
+    the meshless step's, step ms, peak, launches by kernel."""
+    import statistics
+
+    from alphafold2_tpu_torch.parallel import sharding
+    from alphafold2_tpu_torch.parallel.grid_parallel import make_grid_mesh
+    from alphafold2_tpu_torch.train import loop
+
+    cfg = _msa_rows_cfg(stream)
+    batches = _msa_rows_batches(cfg, MSA_ROWS_STEPS)
+    runs = {"meshless": None, "(1, 1)": sharding.make_mesh(1, 1),
+            "1x1x1": make_grid_mesh(1, 1, 1)}
+    states = {k: _msa_rows_state(cfg, batches) for k in runs}
+    steps = {k: loop.make_train_step(states[k].model, mesh) for k, mesh in runs.items()}
+    read = _train_counts()
+    launches = {k: {} for k in runs}
+    rec = {k: {"ms": [], "peak": 0, "losses": []} for k in runs}
+    worst = 0.0
+    for i, batch_np in enumerate(batches):
+        ref = None
+        for name, mesh in runs.items():
+            batch = loop.device_put_batch(batch_np, "cuda", mesh)
+            before = read()
+            states[name], m, ms, peak = _timed_step(steps[name], states[name], batch)
+            for k, v in _count_delta(before, read()).items():
+                launches[name][k] = launches[name].get(k, 0) + v
+            loss = float(m["loss"])
+            require(math.isfinite(loss) and bool(m["grads_ok"]), f"{stream} {name} step {i}")
+            r = rec[name]
+            r["losses"].append(loss)
+            r["ms"].append(ms)
+            r["peak"] = max(r["peak"], peak)
+            grads = _grads(states[name].model)
+            if ref is None:
+                ref = (loss, grads)
+                continue
+            require(abs(loss - ref[0]) <= MSA_ROWS_LOSS_REL * abs(ref[0]),
+                    f"[msa_rows] {stream} on {name}, step {i}: loss {loss} vs meshless {ref[0]}")
+            err, leaf, _ = _leaf_errors(ref[1], grads)
+            worst = max(worst, err)
+            require(err <= MSA_ROWS_GRAD_REL_L2,
+                    f"[msa_rows] {stream} on {name}, step {i}: gradient {leaf} rel L2 {err:.3e}")
+    for name in ("(1, 1)", "1x1x1"):
+        _require_split_route(launches[name], MSA_ROWS_DEPTH, MSA_ROWS_STEPS,
+                             f"[msa_rows] {stream} on {name}")
+    out = {"runs": {k: {"losses": r["losses"], "ms": statistics.median(r["ms"][1:]),
+                        "peak_bytes": r["peak"]} for k, r in rec.items()},
+           "launches": launches, "worst_grad_rel_l2": worst}
+    log(f"[msa_rows] (a) {stream} stream, msa_row_shard, tied, dim {cfg.model.dim}, depth "
+        f"{cfg.model.depth}, crop {cfg.data.crop_len}, {MSA_ROWS_STEPS} steps each in turns: "
+        f"losses " + "; ".join(f"{k} {' '.join(f'{x:.6f}' for x in r['losses'])}"
+                              for k, r in rec.items())
+        + f"; every gradient against meshless worst rel L2 {worst:.3e} (tol "
+        f"{MSA_ROWS_GRAD_REL_L2}); step ms (median of steps 2-{MSA_ROWS_STEPS}) "
+        + ", ".join(f"{k} {v['ms']:.2f}" for k, v in out["runs"].items())
+        + "; peak GiB " + ", ".join(f"{k} {v['peak_bytes'] / 2**30:.3f}"
+                                     for k, v in out["runs"].items())
+        + "; launches (nonzero) " + "; ".join(
+            f"{k} {({n: v for n, v in c.items() if v})}" for k, c in launches.items()))
+    del states, steps
+    _free()
+    return out
+
+
+def _split_operands(b, r, n, h, d, gen):
+    import torch
+
+    q, k, v, do = (torch.randn((b, r, n, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    mask = torch.ones((b, n), dtype=torch.bool, device="cuda")
+    mask[:, n - n // 8:] = False  # padded columns, as the MSA's length padding
+    return q, k, v, do, mask
+
+
+def split_pass_case(label, shape, gen, reps=0):
+    """Each split pass at one (b, r, n, h, d) shape, bf16, against its plain
+    version on the same inputs (the plain forward's outputs feeding the
+    next kernel, so each pass is held alone); with ``reps``, each timed
+    (CUDA events) beside its plain version and the library call computing
+    the same function (torch.matmul of the folded operands for the logits
+    and products, torch.softmax for the softmax; the grad pass has none),
+    and SDPA on the whole tied problem. Returns result rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from alphafold2_tpu_torch.ops.cuda import tied_row as k2
+
+    b, r, n, h, d = shape
+    q, k, v, do, mask = _split_operands(b, r, n, h, d, gen)
+    scale, tie = d**-0.5, torch.full((b,), r**-0.5, device="cuda")
+    f = r * d
+    crop = lambda t: t[..., :n, :n]  # noqa: E731 — a padded plane's valid block
+    rows = []
+
+    def row(kernel, out, ref, fn, plain, ops, nbytes, library=None):
+        res = _compare(f"{label}", kernel, out, ref, torch.bfloat16)
+        if reps:
+            res.update(ms=cuda_ms(fn, reps=reps), plain_ms=cuda_ms(plain, reps=1),
+                       library_ms=cuda_ms(library, reps=reps) if library else None,
+                       **_bound(ops, nbytes, torch.bfloat16))
+        rows.append(dict(res, shape=list(shape)))
+
+    s = k2.tied_split_logits(q, k)
+    s_ref = k2.tied_split_logits_reference(q, k)
+    qf, kf = k2._fold(q).to(torch.bfloat16), k2._fold(k).to(torch.bfloat16)
+    plane = 4 * b * h * s.shape[2] * s.shape[3]
+    row("tied_split_logits", crop(s), s_ref, lambda: k2.tied_split_logits(q, k),
+        lambda: k2.tied_split_logits_reference(q, k), 2.0 * b * h * n * n * f,
+        2 * 2 * b * r * n * h * d + plane, lambda: torch.matmul(qf, kf.transpose(-1, -2)))
+    p, lse = k2.tied_split_softmax(s, n, n, mask, mask, scale, tie, torch.bfloat16)
+    p_ref, lse_ref = k2.tied_split_softmax_reference(s_ref, n, n, mask, mask, scale, tie,
+                                                     torch.bfloat16)
+    live = torch.isfinite(lse_ref)
+    require(bool(torch.equal(torch.isfinite(lse), live)), f"{label}: the softmax's dead rows")
+    _compare(label, "tied_split_softmax (lse)", lse[live], lse_ref[live], torch.float32)
+    row("tied_split_softmax", crop(p), p_ref,
+        lambda: k2.tied_split_softmax(s, n, n, mask, mask, scale, tie, torch.bfloat16),
+        lambda: k2.tied_split_softmax_reference(s_ref, n, n, mask, mask, scale, tie,
+                                                torch.bfloat16),
+        0.0, plane + 2 * b * h * s.shape[2] * s.shape[3] + 4 * b * h * n,
+        lambda: torch.softmax(s * scale, dim=-1))
+    out = k2.tied_split_product(p, v, n)
+    vf = k2._fold(v).to(torch.bfloat16)
+    a_bytes = 2 * b * h * p.shape[2] * p.shape[3]
+    row("tied_split_product", out, k2.tied_split_product_reference(p_ref, v, n),
+        lambda: k2.tied_split_product(p, v, n),
+        lambda: k2.tied_split_product_reference(p_ref, v, n), 2.0 * b * h * n * n * f,
+        a_bytes + 2 * 2 * b * r * n * h * d, lambda: torch.matmul(p, vf))
+    dp = k2.tied_split_logits(do, v)
+    dsum = k2.tied_row_dsum(out, do)
+    grads = k2.tied_split_grad(s, dp, lse, dsum, n, n, mask, mask, scale, tie, torch.bfloat16)
+    dp_ref = k2.tied_split_logits_reference(do, v)
+    refs = k2.tied_split_grad_reference(s_ref, dp_ref, lse_ref, dsum, n, n, mask, mask, scale,
+                                        tie, torch.bfloat16)
+    for part, (g, g_ref) in zip(("dS", "dS^T", "P^T"), zip(grads, refs)):
+        kernel = "tied_split_grad" if part == "dS" else f"tied_split_grad ({part})"
+        if part == "dS":
+            row(kernel, crop(g), g_ref,
+                lambda: k2.tied_split_grad(s, dp, lse, dsum, n, n, mask, mask, scale, tie,
+                                           torch.bfloat16),
+                lambda: k2.tied_split_grad_reference(s_ref, dp_ref, lse_ref, dsum, n, n, mask,
+                                                     mask, scale, tie, torch.bfloat16),
+                0.0, 2 * plane + 3 * a_bytes + 8 * b * h * n)
+        else:
+            _compare(label, kernel, crop(g), g_ref, torch.bfloat16)
+    for part, a, a_ref, x, sc in (("dq", grads[0], refs[0], k, (scale, tie)),
+                                  ("dk", grads[1], refs[1], q, (scale, tie)),
+                                  ("dv", grads[2], refs[2], do, None)):
+        _compare(label, f"tied_split_product ({part})", k2.tied_split_product(a, x, n, sc),
+                 k2.tied_split_product_reference(a_ref, x, n, sc), torch.bfloat16)
+    if reps:  # SDPA's default scale F**-0.5 is the tied scale d**-0.5 * r**-0.5
+        attn_mask = mask[:, None, None, :]
+        sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(qf, kf, vf, attn_mask=attn_mask),
+                       reps=reps)
+        for rr in rows:
+            rr["sdpa_whole_ms"] = sdpa
+    return rows
+
+
+def split_generic_case(label, shape, dtype, gen):
+    """The split passes on their CUDA-core route (f32, or bf16 at a head
+    dim the Hopper route does not take), composed into K2's forward and
+    backward, against K2's plain forward (out, lse) and its plain dq, dk
+    and dv, at the dtype's bound; the Hopper launch counts must not move."""
+    import torch
+
+    from alphafold2_tpu_torch.ops.cuda import tied_row as k2
+
+    b, r, n, h, d = shape
+    q, k, v, do = (torch.randn((b, r, n, h, d), generator=gen, device="cuda").to(dtype)
+                   for _ in range(4))
+    mask = torch.ones((b, n), dtype=torch.bool, device="cuda")
+    mask[:, n - 5:] = False
+    scale, tie = d**-0.5, torch.full((b,), r**-0.5, device="cuda")
+    hopper = (k2.tied_split_logits.sm90_launches, k2.tied_split_product.sm90_launches)
+    s = k2.tied_split_logits(q, k)
+    p, lse = k2.tied_split_softmax(s, n, n, mask, mask, scale, tie, dtype)
+    out = k2.tied_split_product(p, v, n)
+    dsum = k2.tied_row_dsum(out, do)
+    ds, ds_t, p_t = k2.tied_split_grad(s, k2.tied_split_logits(do, v), lse, dsum, n, n, mask,
+                                       mask, scale, tie, dtype)
+    got = (out, k2.tied_split_product(ds, k, n, (scale, tie)),
+           k2.tied_split_product(ds_t, q, n, (scale, tie)), k2.tied_split_product(p_t, do, n))
+    ref, ref_lse = k2.tied_row_attention_lse_reference(q, k, v, mask, mask, scale, tie)
+    args = (q, k, v, do, ref_lse, dsum, mask, mask, scale, tie)
+    want = (ref, k2.tied_row_attention_dq_reference(*args),
+            *k2.tied_row_attention_dkv_reference(*args))
+    require((k2.tied_split_logits.sm90_launches, k2.tied_split_product.sm90_launches) == hopper,
+            f"{label}: a split pass took the Hopper route")
+    return [_compare(label, f"tied_split_* ({part}, CUDA-core route)", g, w, dtype)
+            for part, g, w in zip(("out", "dq", "dk", "dv"), got, want)]
+
+
+def _watch_split(label, fn):
+    """``fn()`` with the split passes watched: the first call of each pass
+    at each operand shape is held against its plain version on the same
+    inputs once it has returned. The checks run the plain versions, so the
+    watched run's launches count nowhere. Returns the checks."""
+    import torch
+
+    from alphafold2_tpu_torch.ops.cuda import tied_row as k2
+
+    real = {fn_.__name__: fn_ for fn_ in k2.SPLIT_PASSES}
+    seen, checks = set(), []
+
+    class Watched:
+        """A pass wrapper's stand-in: calls go through ``call``, the count
+        attributes (which the wrapper updates through its module name) to
+        the wrapper itself."""
+
+        def __init__(self, fn, call):
+            object.__setattr__(self, "_fn", fn)
+            object.__setattr__(self, "_call", call)
+
+        def __call__(self, *args):
+            return self._call(*args)
+
+        def __getattr__(self, name):
+            return getattr(self._fn, name)
+
+        def __setattr__(self, name, value):
+            setattr(self._fn, name, value)
+
+    def watched(name, plain):
+        def call(*args):
+            out = real[name](*args)
+            sig = (name, tuple(tuple(a.shape) for a in args if isinstance(a, torch.Tensor)))
+            if sig not in seen:
+                seen.add(sig)
+                ref = plain(*args)
+                if name == "tied_split_softmax":
+                    nq, nk = args[1], args[2]
+                    checks.append(_compare(f"{label} {sig[1]}", name, out[0][..., :nq, :nk],
+                                           ref[0], out[0].dtype))
+                elif name == "tied_split_grad":
+                    nq, nk = args[4], args[5]
+                    checks.append(_compare(f"{label} {sig[1]}", name, out[0][..., :nq, :nk],
+                                           ref[0], out[0].dtype))
+                elif name == "tied_split_logits":
+                    n_a, n_b = args[0].shape[2], args[1].shape[2]
+                    checks.append(_compare(f"{label} {sig[1]}", name, out[..., :n_a, :n_b], ref,
+                                           args[0].dtype))
+                else:
+                    checks.append(_compare(f"{label} {sig[1]}", name, out, ref, out.dtype))
+            return out
+        return Watched(real[name], call)
+
+    plain = dict(zip(real, k2.SPLIT_PLAIN))
+    for name in real:
+        setattr(k2, name, watched(name, plain[name]))
+    try:
+        fn()
+    finally:
+        for name, f in real.items():
+            setattr(k2, name, f)
+    return checks
+
+
+def _msa_rows_watched(stream):
+    """One more row-sharded step of ``stream`` on a (1, 1) mesh with the
+    split passes watched (``_watch_split``): every pass at the shapes the
+    path gives it against its plain version."""
+    from alphafold2_tpu_torch.parallel import sharding
+    from alphafold2_tpu_torch.train import loop
+
+    cfg = _msa_rows_cfg(stream)
+    batches = _msa_rows_batches(cfg, 1)
+    mesh = sharding.make_mesh(1, 1)
+    st = _msa_rows_state(cfg, batches)
+    step = loop.make_train_step(st.model, mesh)
+    checks = _watch_split(f"[msa_rows] (b) {stream} step",
+                          lambda: step(st, loop.device_put_batch(batches[0], "cuda", mesh)))
+    require({c["kernel"] for c in checks} == set(_split_wrappers()),
+            f"{stream}: not every split pass was held on the path")
+    del st, step
+    _free()
+    return checks
+
+
+def _msa_rows_rank_reference(tmp):
+    """(c)'s reference on this world-size-1 rank: each MSA_ROWS_RANK_RUNS
+    configuration meshless on the same batches, each step's loss and
+    gradients, saved under ``tmp``."""
+    import torch
+
+    from alphafold2_tpu_torch.train import loop
+
+    for label, (_, stream, batch_size) in MSA_ROWS_RANK_RUNS.items():
+        cfg = _msa_rows_cfg(stream, depth=2, crop=64)
+        batches = _msa_rows_batches(cfg, MSA_ROWS_RANK_STEPS, batch_size)
+        require(stream == "PLM" or batches[0]["msa"].shape[1] == 5, "MSA depth is not 5")
+        st = _msa_rows_state(cfg, batches)
+        step = loop.make_train_step(st.model)
+        ref = []
+        for batch_np in batches:
+            st, m = step(st, loop.device_put_batch(batch_np, "cuda"))
+            ref.append({"loss": float(m["loss"]), "grads": _grads(st.model)})
+        torch.save({"ref": ref, "batches": batches}, os.path.join(tmp, f"rows {label}.pt"))
+        del st, step
+    _free()
+
+
+def _msa_rows_serving():
+    """(d): on the world-size-1 mesh at bucket 128 x 4 (tied rows,
+    msa_row_shard), the pipelined engine against the serial one and a
+    two-replica fleet against the single engine: every result bit-equal."""
+    import numpy as np
+
+    from alphafold2_tpu_torch.parallel import sharding
+    from alphafold2_tpu_torch.serve.engine import ServeEngine, ServeRequest
+    from alphafold2_tpu_torch.serve.fleet import FleetFrontend
+
+    mesh = sharding.make_mesh(1, 1)
+    rng = np.random.default_rng(5)
+    seqs = ["".join(rng.choice(list("ACDEFGHIKLMNPQRSTVWY"), n)) for n in MSA_ROWS_SERVE_LENGTHS]
+    reqs = [ServeRequest(s, seed=i) for i, s in enumerate(seqs)]
+    out, results = {}, {}
+    for depth in (0, 2):
+        cfg = _serve_config(pipeline_depth=depth)
+        cfg.model.depth = MSA_ROWS_SERVE_DEPTH
+        cfg.model.msa_row_shard = True
+        engine = ServeEngine(cfg, mesh=mesh) if depth == 0 else ServeEngine(
+            cfg, mesh=mesh, model=results["model"])
+        t0 = time.perf_counter()
+        got = engine.predict_many(reqs)
+        out[engine.pipeline_desc] = time.perf_counter() - t0
+        require(all(r.ok for r in got), f"pipeline {depth}: {got}")
+        results[depth] = got
+        results.setdefault("model", engine.model)
+        engine.close()
+    same = all(np.array_equal(a.atom14, b.atom14) and np.array_equal(a.weights, b.weights)
+               for a, b in zip(results[0], results[2]))
+    require(same, "[msa_rows] (d) pipelined dispatch on the mesh differs from serial")
+    fleet = FleetFrontend.build(cfg, 2, mesh=mesh, state_dict=results["model"].state_dict())
+    try:
+        t0 = time.perf_counter()
+        got = [h.result(timeout=600) for h in [fleet.submit(r) for r in reqs]]
+        out["fleet 2"] = time.perf_counter() - t0
+        dispatched = [c.engine.counters.get("serve.batches") for c in fleet.cells]
+    finally:
+        fleet.close()
+    fleet_same = all(r.ok and np.array_equal(r.atom14, b.atom14)
+                     and np.array_equal(r.weights, b.weights)
+                     for r, b in zip(got, results[0]))
+    require(fleet_same, "[msa_rows] (d) the fleet on the mesh differs from one engine")
+    log(f"[msa_rows] (d) serving on the world-size-1 mesh, bucket 128 x 4, depth "
+        f"{MSA_ROWS_SERVE_DEPTH}, msa_row_shard: pipelined bit-equal to serial: {same}; a "
+        f"two-replica fleet (dispatches {dispatched}) bit-equal to one engine: {fleet_same}; "
+        f"seconds (with each rung's warm runs) " + ", ".join(f"{k} {v:.2f}" for k, v in out.items()))
+    _free()
+    return {"seconds": out, "pipelined_equal": same, "fleet_equal": fleet_same,
+            "fleet_dispatches": dispatched}
+
+
+def msa_rows_rank(tmp) -> int:
+    """The body of phase_msa_rows's world-size-1 NCCL rank (run as its
+    subprocess, with torchrun's environment): (a), (b), (c)'s reference and
+    (d); the record to ``tmp``/msa_rows.json."""
+    import torch
+    import torch.distributed as dist
+
+    from alphafold2_tpu_torch.parallel import distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    require(distributed.initialize(), "torchrun's environment initialised no process group")
+    require(dist.get_world_size() == 1 and dist.get_backend() == "nccl",
+            f"expected one NCCL rank, got {dist.get_world_size()} {dist.get_backend()}")
+    try:
+        t0 = time.perf_counter()
+        out = {"a": {s: _msa_rows_world1(s) for s in MSA_ROWS_STREAMS}}
+        gen = torch.Generator(device="cuda").manual_seed(24)
+        rows = []
+        for label, shape in MSA_ROWS_KERNEL_CASES.items():
+            rows += split_pass_case(label, shape, gen, reps=10 if label in MSA_ROWS_TIMED else 0)
+        out["kernel_rows"] = rows
+        out["generic"] = (split_generic_case("f32 (1x3x64x8x64)", (1, 3, 64, 8, 64),
+                                             torch.float32, gen)
+                          + split_generic_case("bf16 head dim 48 (1x3x64x8x48)",
+                                               (1, 3, 64, 8, 48), torch.bfloat16, gen))
+        out["b"] = {s: _msa_rows_watched(s) for s in MSA_ROWS_STREAMS}
+        _msa_rows_rank_reference(tmp)
+        out["d"] = _msa_rows_serving()
+        out["seconds"] = time.perf_counter() - t0
+        with open(os.path.join(tmp, "msa_rows.json"), "w", encoding="utf-8") as fh:
+            json.dump(out, fh)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def msa_rows_gloo_rank(tmp) -> int:
+    """The body of one rank of phase_msa_rows's (c): a gloo group on CUDA
+    tensors over MSA_ROWS_RANKS ranks of the one card; each
+    MSA_ROWS_RANK_RUNS configuration under msa_row_shard on its mesh,
+    MSA_ROWS_RANK_STEPS steps on the world-size-1 rank's batches, held
+    against its meshless steps (loss, every gradient summed over the
+    world), the parameters bit-identical on every rank after each step,
+    every K2 launch on the split passes; then the PLM run's first step once
+    more with the grid replicated (msa_row_shard off): each rank's peak
+    beside the row-sharded one's; then both streams' peaks at
+    MSA_ROWS_MEM_CROP (``_msa_rows_rank_memory``)."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from alphafold2_tpu_torch.parallel import sharding
+    from alphafold2_tpu_torch.train import loop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{os.environ['MASTER_PORT']}",
+                            rank=rank, world_size=world)
+    out = {"rank": rank, "runs": {}}
+    try:
+        for label, (spec, stream, _) in MSA_ROWS_RANK_RUNS.items():
+            saved = torch.load(os.path.join(tmp, f"rows {label}.pt"), weights_only=False)
+            ref, batches = saved["ref"], saved["batches"]
+            rec = {"losses": [], "grad_rel_l2": [], "same": [], "peak_bytes": {}}
+            for shard in ((True, False) if stream == "PLM" else (True,)):
+                cfg = _msa_rows_cfg(stream, depth=2, crop=64, row_shard=shard)
+                mesh = sharding.parse_mesh_spec(spec)
+                st = _msa_rows_state(cfg, batches)
+                step = loop.make_train_step(st.model, mesh)
+                read = _train_counts()
+                c0 = sharding.census()
+                torch.cuda.reset_peak_memory_stats()
+                for i, batch_np in enumerate(batches if shard else batches[:1]):
+                    st, m = step(st, loop.device_put_batch(batch_np, "cuda", mesh))
+                    torch.cuda.synchronize()
+                    if not shard:
+                        continue
+                    grads = loop.reduce_gradients(
+                        [p.grad if p.grad is not None else torch.zeros_like(p)
+                         for p in st.model.parameters()], mesh)
+                    got = {n: g.detach().float().cpu()
+                           for (n, _), g in zip(st.model.named_parameters(), grads)}
+                    err, leaf, _ = _leaf_errors(ref[i]["grads"], got)
+                    loss = float(m["loss"])
+                    rec["losses"].append(loss)
+                    rec["grad_rel_l2"].append(err)
+                    flat = torch.cat([p.detach().reshape(-1) for p in st.model.parameters()])
+                    digest = hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()
+                    every = [None] * world
+                    dist.all_gather_object(every, digest)
+                    rec["same"].append(len(set(every)) == 1)
+                    want = ref[i]["loss"]
+                    require(abs(loss - want) <= MSA_ROWS_LOSS_REL * abs(want),
+                            f"rank {rank} {label} step {i}: loss {loss} vs {want}")
+                    require(err <= MSA_ROWS_GRAD_REL_L2,
+                            f"rank {rank} {label} step {i}: gradient {leaf} rel L2 {err:.3e}")
+                    require(rec["same"][-1], f"rank {rank} {label} step {i}: parameters parted")
+                rec["peak_bytes"]["rows sharded" if shard else "replicated"] = \
+                    torch.cuda.max_memory_allocated()
+                if shard:
+                    rec["launches"] = read()
+                    rec["census"] = {k: v["count"] for k, v in
+                                     sharding.census_delta(c0, sharding.census()).items()}
+                    _require_split_route(rec["launches"], 2, len(batches),
+                                         f"[msa_rows ranks] rank {rank} {label}")
+                del st, step
+                _free()
+            out["runs"][label] = rec
+            log(f"[msa_rows ranks] rank {rank} of {world} (gloo, CUDA tensors, {spec}) {label}: "
+                f"losses {' '.join(f'{x:.6f}' for x in rec['losses'])} vs world size 1 "
+                f"{' '.join(f'{r['loss']:.6f}' for r in ref)}; gradients worst rel L2 "
+                f"{max(rec['grad_rel_l2']):.3e} (tol {MSA_ROWS_GRAD_REL_L2}); parameters the "
+                f"same on every rank: {all(rec['same'])}; peak GiB "
+                + ", ".join(f"{k} {v / 2**30:.3f}" for k, v in rec["peak_bytes"].items())
+                + f"; launches (nonzero) {({k: v for k, v in rec['launches'].items() if v})}; "
+                f"census {rec['census']}")
+        out["memory"] = _msa_rows_rank_memory(rank, world)
+        with open(os.path.join(tmp, f"rows_rank{rank}.json"), "w", encoding="utf-8") as fh:
+            json.dump(out, fh)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _msa_rows_rank_memory(rank, world):
+    """This rank's peak over one step of each stream at MSA_ROWS_MEM_CROP on
+    the MSA_ROWS_MEM_MESH mesh, rows sharded and replicated, from a fresh
+    state each: {stream: {layout: {"peak_bytes", "resident_bytes"}}}, the
+    resident bytes those held after the step (parameters, gradients and
+    optimizer state)."""
+    import torch
+
+    from alphafold2_tpu_torch.parallel import sharding
+    from alphafold2_tpu_torch.train import loop
+
+    out = {}
+    for stream in MSA_ROWS_STREAMS:
+        out[stream] = {}
+        for shard in (True, False):
+            cfg = _msa_rows_cfg(stream, depth=2, crop=MSA_ROWS_MEM_CROP, row_shard=shard)
+            batches = _msa_rows_batches(cfg, 1, 1)
+            mesh = sharding.parse_mesh_spec(MSA_ROWS_MEM_MESH)
+            st = _msa_rows_state(cfg, batches)
+            step = loop.make_train_step(st.model, mesh)
+            batch = loop.device_put_batch(batches[0], "cuda", mesh)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            st, m = step(st, batch)
+            torch.cuda.synchronize()
+            require(bool(m["grads_ok"]), f"rank {rank} memory {stream} {shard}: gradients not ok")
+            layout = "rows sharded" if shard else "replicated"
+            out[stream][layout] = {"peak_bytes": torch.cuda.max_memory_allocated(),
+                                   "resident_bytes": torch.cuda.memory_allocated()}
+            del st, step, batch, m
+            _free()
+        rec = out[stream]
+        log(f"[msa_rows ranks] rank {rank} of {world} memory, {stream} stream, crop "
+            f"{MSA_ROWS_MEM_CROP}, depth 2, {MSA_ROWS_MEM_MESH}, one step: peak GiB rows sharded "
+            f"{rec['rows sharded']['peak_bytes'] / 2**30:.3f} vs replicated "
+            f"{rec['replicated']['peak_bytes'] / 2**30:.3f} (resident after the step "
+            f"{rec['rows sharded']['resident_bytes'] / 2**30:.3f} / "
+            f"{rec['replicated']['resident_bytes'] / 2**30:.3f})")
+    return out
+
+
+def phase_msa_rows():
+    """MSA rows sharded over a mesh (``model.msa_row_shard``; log tags
+    ``[msa_rows]``, ``[msa_rows ranks]``).
+
+    One rank of a world-size-1 NCCL group in a subprocess
+    (``msa_rows_rank``): (a) the serving width, tied rows, the MSA stream
+    and the PLM stream, meshless, on a (1, 1) mesh and on a 1x1x1 grid in
+    turns (``_msa_rows_world1``): every K2 launch on the split passes;
+    (b) each split pass against its plain version at the MSA stream's
+    shape, 1 and 3 local rows and the PLM grid's (``split_pass_case``),
+    timed at the MSA and PLM shapes, and at the shapes a step's path gives
+    it (``_msa_rows_watched``); (c)'s reference; (d) pipelined dispatch and
+    a two-replica fleet on the mesh (``_msa_rows_serving``). Then (c):
+    MSA_ROWS_RANKS gloo ranks on the one card, the PLM stream on a (1, 4)
+    mesh and MSA 5 rows on a 1x2x2 grid, against the world-size-1 steps."""
+    import gc
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    if torch.cuda.is_initialized():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run(
+            [sys.executable, "-c",
+             "import sys, chip_smoke as c; sys.exit(c.msa_rows_rank(sys.argv[1]))", tmp],
+            cwd=HERE, env=_rank_env(0, 1, _free_port()), timeout=TRAIN_MESH_TIMEOUT_S)
+        require(proc.returncode == 0, f"the msa_rows rank exited {proc.returncode}")
+        with open(os.path.join(tmp, "msa_rows.json"), encoding="utf-8") as fh:
+            result = json.load(fh)
+        port = _free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c",
+             "import sys, chip_smoke as c; sys.exit(c.msa_rows_gloo_rank(sys.argv[1]))", tmp],
+            cwd=HERE, env=_rank_env(r, MSA_ROWS_RANKS, port)) for r in range(MSA_ROWS_RANKS)]
+        deadline = time.monotonic() + TRAIN_MESH_TIMEOUT_S
+        try:
+            codes = [p.wait(timeout=max(1.0, deadline - time.monotonic())) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        require(codes == [0] * MSA_ROWS_RANKS, f"the {MSA_ROWS_RANKS} ranks exited {codes}")
+        result["ranks"] = []
+        for r in range(MSA_ROWS_RANKS):
+            with open(os.path.join(tmp, f"rows_rank{r}.json"), encoding="utf-8") as fh:
+                result["ranks"].append(json.load(fh))
+    for r in result["kernel_rows"]:
+        if "ms" in r:
+            log(f"[msa_rows] time {r['kernel']} {r['label']}: kernel {r['ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.3f} ms, library {r['library_ms']} ms, SDPA on the whole tied "
+                f"problem {r['sdpa_whole_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}; {r['bound_ms'] / r['ms']:.1%} of it)")
+    result["seconds"] = time.perf_counter() - t0
+    log(f"[msa_rows] phase took {result['seconds']:.1f} s")
+    return result
+
+
+def _split_entries(msa_rows):
+    """The split passes' kernel-line entries: times at the MSA stream's tied
+    pass (MSA_ROWS_MAIN_LABEL) and, in ``shapes``, at the PLM grid's;
+    ``launches``: each pass's launches over (a)'s row-sharded MSA steps on
+    the (1, 1) mesh; ``msa_rows_launches`` by run, the four ranks' too."""
+    source = "alphafold2_tpu_torch/csrc/tied_row_attention.cu"
+    replaces = {"tied_split_logits": "alphafold2_tpu/ops/pallas/tied_row.py:53",
+                "tied_split_softmax": "alphafold2_tpu/ops/pallas/tied_row.py:53",
+                "tied_split_grad": "alphafold2_tpu/ops/pallas/axial.py:275",
+                "tied_split_product": "alphafold2_tpu/ops/pallas/tied_row.py:53"}
+    rows, plm = msa_rows["kernel_rows"], MSA_ROWS_PLM_LABEL
+    entries = []
+    for name, rep in replaces.items():
+        main = next(r for r in rows if r["kernel"] == name and r["label"] == MSA_ROWS_MAIN_LABEL)
+        runs = {f"(a) {s} {mesh}": counts.get(name, 0)
+                for s, a in msa_rows["a"].items() for mesh, counts in a["launches"].items()}
+        entries.append({
+            "name": name, "route": "cuda", "source": source, "replaces": rep,
+            "launches": msa_rows["a"]["MSA"]["launches"]["(1, 1)"].get(name, 0),
+            "max_abs_err": max(r["max_abs_err"] for r in rows if r["kernel"].startswith(name)),
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "sdpa_whole_ms": main["sdpa_whole_ms"],
+            "shapes": {plm: {k: r.get(k) for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                   "library_ms", "max_abs_err")}
+                       for r in rows if r["kernel"] == name and r["label"] == plm},
+            "msa_rows_launches": runs,
+            "msa_rows_rank_launches": {label: [rk["runs"][label]["launches"].get(name, 0)
+                                               for rk in msa_rows["ranks"]]
+                                       for label in MSA_ROWS_RANK_RUNS}})
+    return entries
+
+
 def probe_gloo_cuda(world=2):
     """Whether gloo takes CUDA tensors for the collectives the mesh path
     uses (all_to_all_single even and uneven, all_reduce sum and max,
@@ -8349,6 +9079,7 @@ def main() -> int:
         tied_train = _timed("tied train", phase_train, tied=True)
         sparse_train = _timed("sparse train", phase_train, sparse=True)
         train_mesh = _timed("train_mesh", phase_train_mesh)
+        msa_rows = _timed("msa_rows", phase_msa_rows)
         _timed("end2end", phase_end2end)
         engines = _timed("engines", phase_engines)
         telemetry = _timed("train_telemetry", phase_train_telemetry)
@@ -8363,11 +9094,11 @@ def main() -> int:
         log("chip_smoke: FAILED")
         return 1
     log(card)
-    print(json.dumps(kernel_line(rows, serve, train, tied_train, sparse_train, gate,
-                                 engines, telemetry, templates, plm, compress, data,
-                                 serve_async, serve_fleet, policy, predict_cli, long_mesh,
-                                 train_mesh)),
-          flush=True)
+    line = kernel_line(rows, serve, train, tied_train, sparse_train, gate, engines, telemetry,
+                       templates, plm, compress, data, serve_async, serve_fleet, policy,
+                       predict_cli, long_mesh, train_mesh)
+    line["kernels"] += _split_entries(msa_rows)
+    print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

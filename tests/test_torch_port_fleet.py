@@ -503,8 +503,37 @@ def test_lock_rule_holds_with_live_threads():
 
 
 def test_build_refuses_a_mesh():
-    with pytest.raises(NotImplementedError):
-        fleet_mod.FleetFrontend.build(_cfg(PORT), 2, device="cpu", mesh=object())
+    """No longer refused: FleetFrontend.build(..., mesh=) builds every
+    replica on the mesh (a world-size-1 gloo mesh here; four ranks in
+    test_torch_port_serve_mesh.py), sharing one module and the mesh's one
+    session (its forward lock), and serves each request as one engine on
+    that mesh does; the last engine on the mesh to close stops the
+    followers (the world of one has none)."""
+    from alphafold2_tpu_torch.parallel import distributed, sharding
+    from alphafold2_tpu_torch.serve.engine import mesh_session
+
+    cfg = _cfg(PORT, max_batch=1, dwell_ms=1.0)
+    reqs = [serve.ServeRequest(q, seed=i) for i, q in enumerate(("ACDEFG", "MKVLITAAGH"))]
+    with distributed.local_world("cpu"):
+        mesh = sharding.make_mesh(1, 1)
+        fl = fleet_mod.FleetFrontend.build(cfg, 2, device="cpu", mesh=mesh)
+        e0, e1 = (c.engine for c in fl.cells)
+        try:
+            assert e1.model is e0.model and e0.mesh is e1.mesh is mesh
+            session = mesh_session(mesh)
+            assert e0._forward_lock is e1._forward_lock is session.lock
+            assert session.open == 2
+            results = [h.result(300) for h in [fl.submit(r) for r in reqs]]
+        finally:
+            fl.close()
+        assert session.open == 0
+        one = serve.ServeEngine(cfg, device="cpu", model=e0.model, mesh=mesh)
+        ref = one.predict_many([serve.ServeRequest(r.seq, seed=r.seed) for r in reqs])
+        one.close()
+    assert all(r.ok for r in results)
+    for got, want in zip(results, ref):
+        np.testing.assert_array_equal(got.weights, want.weights)
+        np.testing.assert_array_equal(got.atom14, want.atom14)
 
 
 # ------------------------------------------------------ a real fleet, CPU

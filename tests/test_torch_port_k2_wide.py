@@ -391,9 +391,9 @@ def test_plan_names_each_pass():
     b, r, h, n, d = PORT_SHAPES["plm"]
     fwd = [p["kernel"] for p in tied_row.wide_plan(b, r, h, n, n, d)["passes"]]
     bwd = [p["kernel"] for p in tied_row.wide_bwd_plan(b, h, n, n, r * d, d)["passes"]]
-    assert fwd == ["tied_wide_logits_kernel<64,2>", "tied_wide_softmax_kernel",
+    assert fwd == ["tied_wide_logits_kernel<64,2>", "tied_wide_softmax_kernel<__nv_bfloat16>",
                    "tied_wide_product_kernel<64,128>"]
-    assert bwd == ["tied_wide_logits_kernel<64,4>", "tied_wide_grad_kernel",
+    assert bwd == ["tied_wide_logits_kernel<64,4>", "tied_wide_grad_kernel<__nv_bfloat16>",
                    "tied_wide_product_kernel<64,128>", "tied_wide_product_kernel<64,128>"]
     assert tied_row.wide_plan(b, r, h, n, n, d)["kernel"] == fwd[0]
 

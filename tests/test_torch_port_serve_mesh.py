@@ -3,15 +3,18 @@
 
 The port's sharded engine runs on 4 gloo ranks (``torch_mesh_ranks.py``
 ``case_serve``: a ``(1, 2, 2)`` grid mesh, ``model.grid_parallel``, the
-long rung 24 at ``long_max_batch`` 1, synchronous dispatch): rank 0 serves,
+long rung 24 at ``long_max_batch`` 1, synchronous dispatch, then pipelined
+and through a fleet): rank 0 serves,
 the others follow. JAX's single-device and sharded engines (its
 ``make_grid_mesh(1, 2, 2)`` over 4 of the 8 virtual CPU devices) serve the
 same requests with the same parameters (``convert.to_state_dict``). Held:
 
 - the gate (long rungs without a mesh raise JAX's ``ValueError``), their
   admission with a mesh and ``batch_for``, a grid mesh needing
-  ``grid_parallel``, the dp divisibility of both batch sizes, and pipelined
-  dispatch refused on a mesh;
+  ``grid_parallel`` and the dp divisibility of both batch sizes;
+- pipelined dispatch on the mesh bit-equal to the serial engine, and a
+  two-replica fleet on it (``FleetFrontend.build(..., mesh=)``) whose
+  results equal the single engine's;
 - the mesh in the executables' keys, the compile records (with this rank's
   ``program_bytes``) and the result cache's key;
 - distogram logits and weights against JAX's sharded and single engines at
@@ -116,8 +119,26 @@ def test_mesh_batch_divisibility_validated(port):
 
 
 def test_pipelined_dispatch_refused_on_a_mesh(port):
-    kind, msg = port["errors"]["pipelined_on_mesh"]
-    assert kind == "NotImplementedError" and "ROADMAP" in msg
+    """No longer refused: pipelined dispatch (``serve.pipeline_depth`` 2) on
+    the (1, 2, 2) mesh gives the serial engine's results bit for bit."""
+    assert port["pipeline_desc"] == "depth2"
+    for (seq, _), (status, weights, disto, atom14) in zip(REQUESTS, port["pipelined"]):
+        _, _, w_ref, d_ref, xyz_ref = port[("single", seq)]
+        assert status == "ok"
+        assert np.array_equal(weights, w_ref) and np.array_equal(disto, d_ref)
+        assert np.array_equal(atom14, xyz_ref)
+
+
+def test_fleet_on_a_mesh_equals_one_engine(port):
+    """FleetFrontend.build(..., mesh=): two replicas sharing one module on
+    the (1, 2, 2) mesh, both dispatching, each result the single sharded
+    engine's bit for bit; the followers ran one follow() loop for both."""
+    assert port["fleet_shares_module"] and all(n > 0 for n in port["fleet_dispatches"])
+    for (seq, _), (status, weights, disto, atom14) in zip(REQUESTS, port["fleet"]):
+        _, _, w_ref, d_ref, xyz_ref = port[("single", seq)]
+        assert status == "ok"
+        assert np.array_equal(weights, w_ref) and np.array_equal(disto, d_ref)
+        assert np.array_equal(atom14, xyz_ref)
 
 
 def test_executable_keys_and_records_carry_the_mesh(port):

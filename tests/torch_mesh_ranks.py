@@ -186,10 +186,41 @@ def _serve_cfg(spec, **kw):
     return cfg
 
 
+def _pipelined_and_fleet(spec, sd, mesh, rank, requests):
+    """A pipelined engine (``serve.pipeline_depth`` 2) and a fleet of two
+    replicas on ``mesh``: rank 0 serves ``requests`` through each (the fleet
+    in two waves, so both replicas dispatch), every other rank follows
+    each; rank 0 gets their (weights, distogram, atom14) by request."""
+    from alphafold2_tpu_torch.serve.engine import ServeEngine, ServeRequest
+    from alphafold2_tpu_torch.serve.fleet import FleetFrontend
+
+    cfg = _serve_cfg(spec, serve={"pipeline_depth": 2})
+    engine = ServeEngine(cfg, state_dict=sd, device="cpu", mesh=mesh)
+    if rank != 0:
+        engine.follow()
+    else:
+        got = engine.predict_many([ServeRequest(s, seed=i) for s, i in requests])
+        out = {"pipelined": [(r.status, r.weights, r.distogram, r.atom14) for r in got],
+               "pipeline_desc": engine.pipeline_desc}
+        engine.close()
+    fleet = FleetFrontend.build(cfg, 2, state_dict=sd, device="cpu", mesh=mesh)
+    if rank != 0:
+        fleet.follow()
+        return None
+    handles = [fleet.submit(ServeRequest(s, seed=i)) for s, i in requests]
+    got = [h.result(timeout=300) for h in handles]
+    out["fleet"] = [(r.status, r.weights, r.distogram, r.atom14) for r in got]
+    out["fleet_dispatches"] = [c.engine.counters.get("serve.batches") for c in fleet.cells]
+    out["fleet_shares_module"] = fleet.cells[1].engine.model is fleet.cells[0].engine.model
+    fleet.close()
+    return out
+
+
 def case_serve(payload, rank, world):
     """The sharded engine on a (1, 2, 2) grid mesh: its refusals on every
     rank, then rank 0 serves (JAX's test_serve_mesh.py cases) while the
-    others follow."""
+    others follow; then a pipelined engine and a two-replica fleet on the
+    same mesh (``_pipelined_and_fleet``)."""
     from alphafold2_tpu_torch.parallel.grid_parallel import make_grid_mesh
     from alphafold2_tpu_torch.serve.cache import result_key
     from alphafold2_tpu_torch.serve.engine import ServeEngine, ServeRequest
@@ -205,10 +236,7 @@ def case_serve(payload, rank, world):
                                  mesh=mesh)),
             ("dp_divides_batch",
              lambda: ServeEngine(_serve_cfg(spec, serve={"max_batch": 3}), device="cpu",
-                                 mesh=mesh_dp)),
-            ("pipelined_on_mesh",
-             lambda: ServeEngine(_serve_cfg(spec, serve={"pipeline_depth": 2}), device="cpu",
-                                 mesh=mesh))):
+                                 mesh=mesh_dp))):
         try:
             make()
             out["errors"][label] = None
@@ -218,7 +246,7 @@ def case_serve(payload, rank, world):
                          state_dict=sd, device="cpu", mesh=mesh)
     if rank != 0:
         engine.follow()
-        return None
+        return _pipelined_and_fleet(spec, sd, mesh, rank, payload["requests"])
     out["ladder"] = (engine.buckets, engine.long_buckets, engine.batch_for(8),
                      engine.batch_for(24), engine.mesh_desc)
     for seq, seed in payload["requests"]:
@@ -243,6 +271,7 @@ def case_serve(payload, rank, world):
                        is not None)
     fe.close()
     engine.close()
+    out.update(_pipelined_and_fleet(spec, sd, mesh, rank, payload["requests"]))
     return out
 
 
@@ -561,7 +590,108 @@ def case_resume(payload, rank, world):
     return out
 
 
-CASES = {"parallel": case_parallel, "serve": case_serve, "mesh_grads": case_mesh_grads,
+MSA_ROWS_MESHES = {  # label: (world, mesh spec, model fields, reference run)
+    "tied 1x2": (2, "1x2", {"msa_tie_row_attn": True}, "tied8"),
+    "tied ring 1x2": (2, "1x2", {"msa_tie_row_attn": True, "context_parallel": "ring"}, "tied8"),
+    "dense remat 1x2": (2, "1x2", {"remat": True}, "dense8"),
+    "tied uneven 1x2": (2, "1x2", {"msa_tie_row_attn": True}, "tied5"),
+    "tied 1x4": (4, "1x4", {"msa_tie_row_attn": True}, "tied8"),
+    "dense 2x2": (4, "2x2", {}, "dense8"),
+    "tied scan remat 2x2": (4, "2x2", {"msa_tie_row_attn": True, "scan_layers": True,
+                                       "remat": True}, "tied8"),
+    "tied 1x2x2": (4, "1x2x2", {"msa_tie_row_attn": True, "grid_parallel": True}, "tied8"),
+    "dense 1x2x2": (4, "1x2x2", {"grid_parallel": True}, "dense8"),
+    "tied uneven 1x2x2": (4, "1x2x2", {"msa_tie_row_attn": True, "grid_parallel": True},
+                          "tied5"),
+}
+
+
+def _step_record(model, cfg, mesh, batches, step_fn=None):
+    """Steps of ``model`` on ``batches`` (numpy, global): each loss, the
+    first step's gradients summed over the world, the parameters after,
+    and whether every rank holds them after each step."""
+    from alphafold2_tpu_torch.train import loop
+    from alphafold2_tpu_torch.train.optim import build_optimizer
+
+    state = loop.TrainState(model=model, optimizer=build_optimizer(cfg, list(model.parameters())),
+                            skipped=torch.zeros((), dtype=torch.int32))
+    step = step_fn or loop.make_train_step(model, mesh)
+    rec = {"losses": [], "same": []}
+    for i, batch_np in enumerate(batches):
+        state, m = step(state, loop.device_put_batch(batch_np, "cpu", mesh))
+        rec["losses"].append(float(m["loss"]))
+        if mesh is not None:
+            rec["same"].append(_same_on_every_rank(model, mesh))
+        if i == 0:
+            grads = loop.reduce_gradients([p.grad if p.grad is not None else torch.zeros_like(p)
+                                           for p in model.parameters()], mesh)
+            rec["grads"] = {n: g.numpy().copy()
+                            for (n, _), g in zip(model.named_parameters(), grads)}
+            rec["grads_ok"] = bool(m["grads_ok"])
+    rec["params"] = {n: p.detach().numpy().copy() for n, p in model.named_parameters()}
+    rec["skipped"] = int(state.skipped)
+    return rec
+
+
+def case_msa_rows(payload, rank, world):
+    """``msa_row_shard``: JAX's ``tied_row_attention`` on a (1, world) mesh
+    (values, the q-gradient of sum(out^2) summed over the world); the
+    distogram step on each MSA_ROWS_MESHES mesh of this world size from the
+    payload's parameters and batches; the PLM grid's rows on a (1, world)
+    mesh and, at world 2, the end-to-end step on a (1, 2) mesh, each with
+    the same step without a mesh beside it; the collectives of one tied
+    step."""
+    from alphafold2_tpu_torch.parallel import sharding
+    from alphafold2_tpu_torch.parallel.seq_parallel import tied_row_attention
+    from alphafold2_tpu_torch.train import end2end, loop
+
+    out = {}
+    t = {k: torch.from_numpy(v) for k, v in payload["tied"].items()}
+    line = sharding.make_mesh(1, world)
+    q = t["q"].clone().requires_grad_()
+    got = tied_row_attention(q, t["k"], t["v"], line)
+    (got ** 2).sum().div(world).backward()
+    out["tied_row_attention"] = (got.detach().numpy(),
+                                 sharding.all_reduce(q.grad, line, "world").numpy())
+    spec = payload["spec"]
+    for label, (w, mesh_spec, fields, ref) in MSA_ROWS_MESHES.items():
+        if w != world:
+            continue
+        cfg = _tiny_cfg(spec, msa_row_shard=True, **fields)
+        mesh = sharding.parse_mesh_spec(mesh_spec)
+        model = loop.build_model(cfg)
+        model.load_state_dict(payload["state_dicts"][ref + (" scan" if fields.get("scan_layers")
+                                                            else "")])
+        c0 = sharding.census()
+        out[label] = _step_record(model, cfg, mesh, payload["batches"][ref])
+        out[label]["census"] = {k: v["count"] for k, v in
+                                sharding.census_delta(c0, sharding.census()).items()}
+    # the PLM grid's rows (the first N of its N x N grid, tied at R*D = N*dh)
+    plm = payload["plm"]
+    recs = {}
+    for name, mesh in (("meshless", None), ("mesh", line)):
+        cfg = _tiny_cfg(spec, msa_row_shard=True, msa_tie_row_attn=True)
+        model = loop.build_model(cfg, num_embedds=plm[0]["embedds"].shape[-1])
+        model.load_state_dict(payload["state_dicts"]["plm"])
+        recs[name] = _step_record(model, cfg, mesh, plm)
+    out["plm"] = recs
+    if world == 2:
+        e2e = payload["e2e"]
+        cfg = _tiny_cfg(e2e, msa_row_shard=True, msa_tie_row_attn=True)
+        coords0 = torch.from_numpy(e2e["coords0"])
+        recs = {}
+        for name, mesh in (("meshless", None), ("mesh", line)):
+            model = end2end.End2EndModel(**e2e["kw"], msa_tie_row_attn=True, msa_row_shard=True)
+            model.load_state_dict(payload["state_dicts"]["e2e"])
+            step = end2end.make_end2end_step(model, mesh)
+            recs[name] = _step_record(
+                model, cfg, mesh, [e2e["batch"]],
+                step_fn=lambda st, b, step=step: step(st, b, coords0))
+        out["e2e"] = recs
+    return out
+
+
+CASES = {"msa_rows": case_msa_rows, "parallel": case_parallel, "serve": case_serve, "mesh_grads": case_mesh_grads,
          "train_mesh": case_train_mesh, "e2e_mesh": case_e2e_mesh, "resume": case_resume}
 
 

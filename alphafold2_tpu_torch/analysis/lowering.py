@@ -88,11 +88,13 @@ class Launch:
     ``source`` called with ``args`` (``None`` marks the dtype code)."""
 
     role: str  # K1, K1c (K1's combine pass), K2, K2a/K2b (its backward; K2g the wide
-    # route's p and ds pass), K3a, K3b, K3m (K3's merge pass), ..., X
+    # route's p and ds pass), K2s (K2's split route on sharded rows), K3a, K3b,
+    # K3m (K3's merge pass), ..., X
     source: str
     symbol: str
     args: tuple
     dtypes: tuple = DTYPES  # the dtypes that launch it
+    tail: tuple = ()  # arguments after the plan's pointer (None: a null pointer)
 
     def plan_args(self, dtype: str) -> tuple:
         return tuple(_DTYPE_CODE[dtype] if a is None else a for a in self.args)
@@ -185,6 +187,24 @@ def _k2_bwd(b, r, h, n, d):
                      for role, pass_ in (("K2g", 1), ("K2a", 2), ("K2b", 3))))
 
 
+def _k2_split(b, r, h, n, d):
+    """K2's split route (``csrc/tied_row_split.cuh``), the tied pass on MSA
+    rows sharded over a mesh, as ``ops/cuda/tied_row.py``'s ``tied_split_*``
+    wrappers plan it (the Hopper route asked for, ``r`` this rank's rows):
+    the logits over the fused R*D axis (bf16 at head dim 32, 64 or 128:
+    tied_wide_logits_kernel<D,2> in feature splits, then split_sum_kernel;
+    elsewhere split_logits_kernel), the softmax and the grad passes, and
+    the product (tied_wide_product_kernel<D,C>, or split_product_kernel).
+    Forward and backward launch the same instantiations at a square
+    shape."""
+    source, symbol, null = "tied_row_attention", "af2_tied_split_plan", (None, None)
+    split = lambda pass_, dtypes=DTYPES: Launch(  # noqa: E731
+        "K2s", source, symbol, (pass_, None, b, h, n, n, r * d, d, 1), dtypes, null)
+    sums = () if tied_row.split_logits_splits(b, h, n, n, r * d, d) == 1 else (
+        split(1, ("bfloat16",)),)
+    return (split(0), *sums, split(2), split(3), split(4))
+
+
 def _k4(b, h, n, d, block):
     """K4 with operands as TMA can describe them: bf16 at head dim 32, 64
     or 128 plans the Hopper kernel (sparse_fwd_kernel_sm90), f32 the older
@@ -269,6 +289,10 @@ PORT_CASES = (
     Case("config4_msa_column", (*_k1(128, 8, 16, 16, 64), *_k3(128, 8, 16, 16, 64))),
     Case("edge_packed_d32", (*_k1(100, 4, 7, 7, 32), *_k3(100, 4, 7, 7, 32))),
     Case("edge_packed_d128", (*_k1(100, 4, 7, 7, 128), *_k3(100, 4, 7, 7, 128))),
+    # K2's split route on MSA rows sharded over a mesh, at the shapes the
+    # card trains: the MSA rows (R 5, R*D 320) and the PLM grid's (R*D 8192)
+    Case("split_msa_rows_320", _k2_split(1, 5, 8, 64, 64)),
+    Case("split_plm_rows_8192", _k2_split(1, 128, 8, 128, 64)),
     # X's valid form at X's shape (f32 only, as X)
     Case("scale_rows_4x512", (_x(4, 512),), dtypes=("float32",)),
 )
@@ -467,7 +491,8 @@ def _is_hopper_rejection(returncode: Optional[int], log: str,
 
 def _plan(lib, launch: Launch, dtype: str) -> tuple:
     plan = build.LaunchPlan()
-    code = getattr(lib, launch.symbol)(*launch.plan_args(dtype), ctypes.byref(plan))
+    code = getattr(lib, launch.symbol)(*launch.plan_args(dtype), ctypes.byref(plan),
+                                       *launch.tail)
     return code, {"blocks": plan.blocks, "threads": plan.threads,
                   "dynamic_smem": plan.dynamic_smem, "kernel": plan.kernel.decode()}
 

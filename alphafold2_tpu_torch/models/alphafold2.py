@@ -35,7 +35,15 @@ rows' split; the symmetrisation ``x + x^T`` takes the transposed
 block from the ranks that hold it (``sharding.transpose_pair``: nothing
 larger than the local block moves; under autograd its backward is the same
 transpose of the cotangent), then the head's LayerNorm and
-projection run locally. Templates are refused on a mesh. ``dtype`` is the
+projection run locally. With templates on a mesh the embeddings and the
+template blocks run on this rank's ``dp`` slice of the whole pair grid,
+replicated over the sequence axes (the meshless template stream's memory
+on every rank), and the rank's block of the result (and of the pair mask)
+goes to the trunk; the template parameters' gradients are then partials,
+as any replicated tensor's, that ``train/loop.py reduce_gradients`` sums
+(JAX's template stream runs under its mesh, ``shard_pair`` after it,
+:278-285). The numerics tag ``embed.pair`` there holds the whole grid of
+the slice. ``dtype`` is the
 compute dtype; parameters stay float32. ``attn_dropout`` and
 ``ff_dropout`` are active when the forward is given a ``dropout_key``
 (``ops/attention.py``), as a training step gives one; the trunk draws
@@ -234,20 +242,22 @@ class Alphafold2(nn.Module):
         e_rows = e_cols = e
         r_range = c_range = n_range
         m_rows = m_cols = mask
-        if mesh is not None:  # this rank's block of the outer sum
-            if templates_seq is not None:
-                raise ValueError("templates do not run on a device mesh")
+        # templates on a mesh run on this dp slice's whole grid, the block taken after
+        whole = mesh is not None and templates_seq is not None
+        if mesh is not None:
             check_divisible(n, mesh)
             lay = pair_layout(mesh)
-            rows, cols = lay.rows(n), lay.cols(n)
-            e_rows, e_cols, r_range, c_range = e[:, rows], e[:, cols], n_range[rows], n_range[cols]
-            if mask is not None:
-                m_rows, m_cols = mask[:, rows], mask[:, cols]
+            p_rows, p_cols = lay.rows(n), lay.cols(n)
+            if not whole:  # this rank's block of the outer sum
+                e_rows, e_cols = e[:, p_rows], e[:, p_cols]
+                r_range, c_range = n_range[p_rows], n_range[p_cols]
+                if mask is not None:
+                    m_rows, m_cols = mask[:, p_rows], mask[:, p_cols]
 
         x = e_rows[:, :, None, :] + e_cols[:, None, :, :]
         x = (x + self.pos_emb(r_range).to(dt)[None, :, None, :]
              + self.pos_emb_ax(c_range).to(dt)[None, None, :, :])
-        x = tag("embed.pair", shard_pair(x, n))
+        x = tag("embed.pair", x if whole else shard_pair(x, n))
         pair_mask = m_rows[:, :, None] & m_cols[:, None, :] if mask is not None else None
 
         m = m_mask = rows = None
@@ -289,6 +299,9 @@ class Alphafold2(nn.Module):
             x = self._templates(x, pair_mask, n_range, templates_seq, templates_dist,
                                 templates_mask, templates_coors, templates_sidechains,
                                 dropout_key)
+            if mesh is not None:  # this rank's block of the templated grid
+                x = shard_pair(x[:, p_rows, p_cols], n)
+                pair_mask = pair_mask[:, p_rows, p_cols] if pair_mask is not None else None
 
         x, m = self.trunk(x, m, pair_mask=pair_mask, msa_mask=m_mask,
                           key=child_key(dropout_key, "trunk"), msa_rows=rows)

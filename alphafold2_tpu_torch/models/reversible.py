@@ -32,6 +32,22 @@ promote to float32 on the add. ``use_custom_vjp=False`` runs the same
 coupling under plain autograd: the oracle the tests hold the custom backward
 to.
 
+Under an active device mesh (``parallel/sharding.py use_mesh``; a ``(dp,
+sp)`` mesh, JAX's ``RevLayerPair.__call__`` placing each update with
+``shard_pair``/``shard_msa``, :167-185) the engine runs on this rank's
+blocks as the loop trunk's layers do: the pair streams are the rank's
+``(b, N/sp, N, D)`` block and the MSA streams its ``dp`` slice, whole.
+``f_s`` takes the sharded pair axial pass (``pair_grid``), ``j_c``
+(MSA<-pair) K1 with lse over the local pair keys merged across the ranks
+(``Attention.forward_sharded_context``), and the other six run locally
+(``f_c``'s keys, the MSA, are replicated). A grid mesh needs
+``grid_parallel``, which the engine refuses, as JAX's does. The backward
+re-enters the forward's mesh and kernel policy (it may run on autograd's
+device thread), so every rank re-evaluates the same sub-functions in the
+same order and reaches the collectives' transposes together; a replicated
+stream's cotangent is held as partials, and the parameter gradients are
+partials that ``train/loop.py reduce_gradients`` sums once.
+
 Dropout: layer ``i``'s sub-function ``sub`` draws under the key
 ``trunk/reversible/layers/<sub>/...`` at index ``i``, whatever order the
 sub-functions run in, so the forward, :meth:`RevLayerPair.invert` and the
@@ -48,10 +64,12 @@ from torch import nn
 from torch.autograd.function import once_differentiable
 
 from alphafold2_tpu_torch.models.trunk import depth_slice, stack_parameters
+from alphafold2_tpu_torch.ops import kernels as kernel_policy
 from alphafold2_tpu_torch.ops.attention import (
     Attention, AxialAttention, DropoutKey, FeedForward, child_key,
 )
 from alphafold2_tpu_torch.ops.layers import LayerNorm
+from alphafold2_tpu_torch.parallel.sharding import active_mesh, use_mesh
 
 # one depth step's updates in forward order: (stream written, sub-function,
 # streams read), streams indexing h = (x1, x2, m1, m2)
@@ -91,7 +109,7 @@ class RevLayerPair(nn.Module):
         ff = lambda: FeedForward(dim, gelu_exact=gelu_exact, dropout=ff_dropout)
         self.f_s = AxialAttention(dim, heads, dim_head, sparse_attn=sparse_attn,
                                   seq_len=seq_len, sparse_config=sparse_config,
-                                  dropout=attn_dropout)
+                                  dropout=attn_dropout, pair_grid=True)
         self.g_s = ff()
         self.j_s = AxialAttention(dim, heads, dim_head, tie_row_attn=msa_tie_row_attn,
                                   dropout=attn_dropout)
@@ -133,9 +151,15 @@ class RevLayerPair(nn.Module):
 
     def _j_c(self, m2, x2, pm, mm, key):
         b, d = m2.shape[0], m2.shape[-1]
-        out = self.j_c(self._norm("j_c_norm", m2.reshape(b, -1, d)),
-                       context=self._norm("j_c_ctx_norm", x2.reshape(b, -1, d)),
-                       mask=_flat_mask(mm, b), context_mask=_flat_mask(pm, b), key=key)
+        q = self._norm("j_c_norm", m2.reshape(b, -1, d))
+        ctx = self._norm("j_c_ctx_norm", x2.reshape(b, -1, d))
+        mesh = active_mesh()
+        if mesh is None:
+            out = self.j_c(q, context=ctx, mask=_flat_mask(mm, b),
+                           context_mask=_flat_mask(pm, b), key=key)
+        else:  # the pair keys are this rank's block: K1 with lse, merged
+            out = self.j_c.forward_sharded_context(q, ctx, mesh, mask=_flat_mask(mm, b),
+                                                   context_mask=_flat_mask(pm, b))
         return out.reshape(m2.shape)
 
     def _k_c(self, m1, pm, mm, key):
@@ -179,6 +203,7 @@ class ReversibleScan(torch.autograd.Function):
         for i in range(trunk.depth):
             h = trunk.step(names, stacked, i, h, pair_mask, msa_mask, key)
         ctx.trunk, ctx.names, ctx.key = trunk, names, key
+        ctx.mesh, ctx.policy = active_mesh(), kernel_policy.current_policy()
         # only the final state: activation memory independent of depth
         ctx.save_for_backward(pair_mask, msa_mask, *h, *stacked)
         return h
@@ -198,7 +223,8 @@ class ReversibleScan(torch.autograd.Function):
                 own = owners[sub]
                 leaves = [stacked[k][i].detach().requires_grad_() for k in own]
                 inputs = [h[r].detach().requires_grad_() for r in reads]
-                with torch.enable_grad():
+                with (torch.enable_grad(), use_mesh(ctx.mesh),
+                      kernel_policy.use_kernel_policy(ctx.policy)):
                     out = torch.func.functional_call(
                         trunk.layers, {names[k]: p for k, p in zip(own, leaves)},
                         (tuple(inputs), pm, mm),

@@ -76,7 +76,8 @@ the sharded backward), and remat's recompute replays a layer's forward
 collectives in the same order on every rank, since every rank runs the
 same graph, under the mesh and kernel policy of the forward
 (``remat_call``). The reversible engine refuses the three flags, as JAX's
-does, and an active mesh.
+does, and runs on a ``(dp, sp)`` mesh with the same routes
+(``models/reversible.py``).
 """
 
 from __future__ import annotations
@@ -411,9 +412,6 @@ class Trunk(nn.Module):
         """The trunk over the streams; ``key`` (the trunk's own,
         ``trunk``) makes dropout active; ``msa_rows`` (``msa_row_shard``
         under a mesh) says which rows of the MSA grid ``m`` holds."""
-        if self.engine == "reversible" and active_mesh() is not None:
-            raise ValueError("the reversible engine does not run on a device mesh; use "
-                             "remat=True with it")
         if self.engine != "loop":  # the module is named after its engine
             rows = {"msa_rows": msa_rows} if self.engine == "scan" else {}
             x, m = getattr(self, self.engine)(x, m, pair_mask, msa_mask,

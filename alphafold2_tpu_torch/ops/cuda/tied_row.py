@@ -916,6 +916,16 @@ def split_plan(pass_: int, dtype: int, b: int, h: int, na: int, nb: int, feature
             "work_bytes": work.value}
 
 
+def split_logits_splits(b: int, h: int, na: int, nb: int, features: int,
+                        row_width: int) -> int:
+    """The feature splits of the split route's Hopper logits pass
+    (``tied_row_split.cuh plan_logits``): the wide route's count where the
+    fused axis holds a whole stage of rows, else 1. Above 1, the pass sums
+    the splits' partials (``split_sum_kernel``)."""
+    plan = _wide(False, b, h, na, nb, features, row_width)
+    return plan["splits"] if plan is not None else 1
+
+
 def _padded(n: int) -> int:
     return -(-n // TILE) * TILE
 

@@ -63,8 +63,9 @@ on a mesh refuses a model with a dropout rate. The trunk engines
 (``remat`` with ``remat_policy``, ``reversible``, ``scan_layers``) and KV
 compression (``model.cross_attn_compress_ratio`` above 1, the pair<-MSA
 pass of every engine) train as in JAX (``models/trunk.py``,
-``models/reversible.py``, ``ops/attention.py``); the reversible engine
-refuses a mesh, as JAX's does. A dataset the loop makes from ``cfg.data``
+``models/reversible.py``, ``ops/attention.py``), on a mesh too; the
+reversible engine refuses a grid mesh, ``context_parallel`` and
+``msa_row_shard``, as JAX's does. A dataset the loop makes from ``cfg.data``
 it also closes (the native loader's threads), as JAX's does (:712-713).
 """
 

@@ -10,7 +10,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
               resources within sm_90's limits, f32 and bf16, and X's
               mis-tiled negative control refused by ptxas; K3's Hopper
               kernels and their merge, K4's and K5's Hopper kernels, at head
-              dim 64 without a spill, and K4's at 32 and 128); X's valid
+              dim 64 without a spill, and K4's at 32 and 128; K2's split
+              passes at the MSA rows' and the PLM rows' training shapes,
+              their registers, spills and shared memory, no spill); X's valid
               counterpart (scale_rows) bitwise against 2 * x at (4, 512),
               timed beside torch.mul; the launch-level control, a
               2048-thread block the card must refuse with
@@ -222,16 +224,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 7b. train_mesh — training on a device mesh (phase_train_mesh): one rank
               of a world-size-1 NCCL group (a subprocess with torchrun's
               environment): (a) the training smoke's width at ENGINE_DEPTH,
-              dense, tied and sparse, 4 steps meshless, on a (1, 1) mesh and on a 1x1x1 grid
+              dense, tied and sparse, 3 steps meshless, on a (1, 1) mesh and on a 1x1x1 grid
               in turns from one initial state (loss and every gradient
               within the bf16 bound of the meshless step's; every launch on
-              Hopper, no plain version; one step's census); (b) crop 768,
+              Hopper, no plain version; one step's census); the reversible
+              engine, untied and tied, on the (1, 1) mesh only (it refuses
+              grid_parallel, as JAX's does), and a tied template pass (4
+              templates, 2 template blocks) forward and backward, likewise;
+              (b) crop 768,
               MSA 5x128, remat, on a 1x1x1 grid, dense and sparse, 3 steps
               after the meshless step's peak, K3a and K3b held at the long
               cross passes' own call shapes; (d) the end-to-end step at its
-              CLI's width meshless and on a (1, 1) mesh; then (c) four gloo
-              ranks on the card, a 1x2x2 grid sparse with tied rows and a
-              2x2 (dp, sp) mesh dense at depth 2, crop 64, batch 2, 2 steps
+              CLI's width meshless and on a (1, 1) mesh, also on the
+              reversible engine; then (c) four gloo ranks on the card, a
+              1x2x2 grid sparse with tied rows, a 2x2 (dp, sp) mesh dense
+              and one reversible tied at depth 2, crop 64, batch 2, 2 steps
               each against the world-size-1 rank's (loss within 1e-2,
               every gradient within 0.05 relative L2, parameters identical
               on every rank, every launch on Hopper);
@@ -242,7 +249,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
               CPU's plain versions; 4 steps through train_end2end, every
               one finite and unskipped with gradients in the trunk and the
               refiner, K1 and K3 (and with tied rows K2 and its backward)
-              launched on their Hopper kernels, no plain version; 12 steps
+              launched on their Hopper kernels, no plain version; 8 steps
               on a repeated batch whose loss must fall; a checkpoint
               resumed into a fresh model equal to an uninterrupted run bit
               for bit, and predict from it equal to predict(state_dict=);
@@ -370,6 +377,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
               --realize over 2 batches (finite, the forward's ms); a
               predicted backbone relaxed for 200 iterations through
               refinement's run_native_relax (the energy falls, its ms).
+16. tools     — the port's tools and examples: profile_step at its
+              defaults (dim 256, depth 2, crop 256, MSA 16x256, tied, bf16)
+              with 2 profiled steps, its top 15 device-lane rows and the
+              copy rows named, every launch on Hopper; bisect_perf at its
+              defaults under the hand kernels, SDPA and the plain versions;
+              validate_structure_math (ALL OK); examples 01-05 at their
+              full shapes in one process (runpy) under torchrun on one
+              NCCL rank, each ending in ok.
 
 ``phase_k1_time`` (not part of the run) times K1 alone on its nine
 main-path passes beside SDPA: ``python3 -c "import chip_smoke as c;
@@ -438,7 +453,7 @@ TOL = {  # (MAX_REL, L2_REL)
 MAX_PLAIN_LOGITS_BYTES = 2 << 30  # the plain version runs in batch slices below this
 # a small f32 model's gradients, card vs CPU: per-leaf relative L2 error
 GRAD_REL_L2 = 1e-4
-STEP_REPS = 10  # steps timed back to back in the training phase
+STEP_REPS = 6  # steps timed back to back in the training phase
 TRAIN_REPEAT_STEPS = 12  # the training phase's steps on one repeated batch
 
 
@@ -540,6 +555,9 @@ def phase_registers():
         log(f"[registers] {name}: {regs} registers, spills {stores}/{loads} B")
 
 
+SPLIT_GATE_CASES = ("split_msa_rows_320", "split_plm_rows_8192")  # 4 f32 + 5 bf16 launches
+
+
 def phase_gate():
     """The analysis layer on the card: the build gate, X's counterpart and
     its launch-level control, the audit of every target. Every part runs;
@@ -581,6 +599,17 @@ def phase_gate():
         log(f"[gate] K5's Hopper kernels at head dim 64 (registers, spill stores, loads): {k5}")
         check(set(k5) == set(K5_SM90), f"the gate planned K5's Hopper kernels only as {sorted(k5)}")
         check(all(x[1:] == (0, 0) for x in k5.values()), f"K5's Hopper kernels spill: {k5}")
+        # nor K2's split passes (MSA rows sharded over a mesh) at the shapes
+        # the card trains
+        split = {(rec["case"], ln["dtype"], ln.get("kernel")): (
+            ln.get("registers"), ln.get("spill_stores"), ln.get("spill_loads"),
+            ln.get("static_smem", 0) + ln.get("dynamic_smem", 0))
+            for rec in records if rec["case"] in SPLIT_GATE_CASES for ln in rec.get("launches", ())}
+        log("[gate] K2's split passes (registers, spill stores, spill loads, shared bytes): "
+            + "; ".join(f"{c} {d} {k}: {v}" for (c, d, k), v in split.items()))
+        check(len(split) == 9 * len(SPLIT_GATE_CASES),
+              f"the gate planned K2's split passes only as {sorted(split)}")
+        check(all(v[1:3] == (0, 0) for v in split.values()), f"K2's split passes spill: {split}")
         # nor K4's (K1's consumer pieces on K5a's gathered stages), which the
         # gate plans at head dim 64 and 128, at any head dim it is built for
         planned = {ln.get("kernel") for rec in records for ln in rec.get("launches", ())}
@@ -2520,8 +2549,8 @@ def phase_train(sparse=False, tied=False):
 
 
 E2E_STEPS = 4  # train_end2end steps at the CLI's full width
-E2E_REPEAT_STEPS = 12  # steps on one repeated batch
-E2E_TURN_REPS = 3  # steps a turn when the two steps alternate
+E2E_REPEAT_STEPS = 8  # steps on one repeated batch
+E2E_TURN_REPS = 2  # steps a turn when the two steps alternate
 E2E_RESUME = (2, 2)  # steps before the checkpoint, steps after the resume
 E2E_PARITY_MDS_ITERS = 20  # the small f32 model's MDS iterations, card vs CPU
 # a small f32 end-to-end model's gradients, card vs CPU: per-leaf relative
@@ -7357,9 +7386,14 @@ def long_mesh_rank(out_path) -> int:
 # (a) the training smoke's width (Config(): dim 256, heads 8, dim_head 64,
 # bf16, crop 128, MSA 5x64, batch 1) at ENGINE_DEPTH, accumulation 1 so every
 # step updates: the steps each state takes, meshless and on each mesh, in turns
-TRAIN_MESH_STEPS = 4
+TRAIN_MESH_STEPS = 3
 TRAIN_MESH_CONFIGS = {"dense": {}, "tied": {"msa_tie_row_attn": True},
                       "sparse": {"sparse_self_attn": True}}
+# (a) on the (1, 1) mesh only: the reversible engine refuses grid_parallel,
+# so the 1x1x1 grid, as JAX's does
+TRAIN_MESH_LINE_CONFIGS = {"reversible": {"reversible": True},
+                           "reversible tied": {"reversible": True, "msa_tie_row_attn": True}}
+TRAIN_MESH_TEMPLATES = 4  # (a)'s template pass: 4 templates, 2 template blocks
 # (b) the long crop: JAX's test_grid_sparse_768_full_train_step at full width
 TRAIN_MESH_LONG = {"crop": 768, "msa_len": 128, "min_len": 728}
 TRAIN_MESH_LONG_STEPS = 3
@@ -7369,6 +7403,7 @@ TRAIN_MESH_RANK_RUNS = {  # label: (mesh spec, model fields)
     "1x2x2 sparse tied": ("1x2x2", {"grid_parallel": True, "sparse_self_attn": True,
                                     "msa_tie_row_attn": True}),
     "2x2 dense": ("2x2", {}),
+    "2x2 reversible tied": ("2x2", {"reversible": True, "msa_tie_row_attn": True}),
 }
 TRAIN_MESH_RANK_STEPS = 2
 TRAIN_MESH_RANK_LOSS_REL = 1e-2
@@ -7423,10 +7458,11 @@ def _grads(model):
             for n, p in model.named_parameters()}
 
 
-def _grads_bit_equal(a, b):
+def _differing_leaves(a, b):
+    """The names of the gradient leaves of ``b`` not bit-equal to ``a``'s."""
     import torch
 
-    return all(torch.equal(a[n], b[n]) for n in a)
+    return {n for n in a if not torch.equal(a[n], b[n])}
 
 
 def _synthetic(cfg, n):
@@ -7463,78 +7499,147 @@ def _timed_step(step, state, batch, *extra):
     return state, metrics, (time.perf_counter() - t0) * 1e3, torch.cuda.max_memory_allocated()
 
 
-def _train_mesh_world1(label, fields):
-    """(a): one configuration meshless, on a (1, 1) mesh and on a 1x1x1
-    grid, TRAIN_MESH_STEPS steps each from the same initial state and
-    batches, in turns; each mesh step's loss and every gradient against the
-    meshless step's (the kernel phase's bf16 bound; bit-equal expected),
-    its launches, time and peak; one mesh step's census."""
+def _in_turns(label, runs, one, unit="step"):
+    """(a)'s comparison: TRAIN_MESH_STEPS rounds, each calling ``one(name,
+    i) -> (loss, grads, ms, peak)`` for every run of ``runs`` in order, the
+    first (meshless) the reference; each later run's loss and every
+    gradient against it (the kernel phase's bf16 bound; bit-equal
+    expected, the differing leaves named where not), every later run's
+    launches summed and held to Hopper. Returns the record and the log's
+    text from the losses on."""
     import statistics
 
-    import torch
-
-    from alphafold2_tpu_torch.parallel import sharding
-    from alphafold2_tpu_torch.parallel.grid_parallel import make_grid_mesh
-    from alphafold2_tpu_torch.train import loop
-
-    cfg = _train_mesh_cfg(dict(fields, grid_parallel=True))
-    batches = _synthetic(cfg, TRAIN_MESH_STEPS)
-    runs = {"meshless": None, "(1, 1)": sharding.make_mesh(1, 1),
-            "1x1x1": make_grid_mesh(1, 1, 1)}
-    states = {k: loop.init_state(cfg, loop.build_model(cfg)) for k in runs}
-    steps = {k: loop.make_train_step(states[k].model, mesh) for k, mesh in runs.items()}
     read = _train_counts()
-    launches = {k: {} for k in runs if k != "meshless"}
+    launches = {k: {} for k in list(runs)[1:]}
     rec = {k: {"ms": [], "peak": 0, "losses": []} for k in runs}
-    worst, equal, census = 0.0, True, None
-    for i, batch_np in enumerate(batches):
+    worst, differ = 0.0, {k: set() for k in launches}
+    for i in range(TRAIN_MESH_STEPS):
         ref = None
-        for name, mesh in runs.items():
-            batch = loop.device_put_batch(batch_np, "cuda", mesh)
+        for name in runs:
             before = read()
-            if name == "1x1x1" and i == 1:
-                c0 = sharding.census()
-            states[name], m, ms, peak = _timed_step(steps[name], states[name], batch)
-            if name == "1x1x1" and i == 1:
-                census = {k: v["count"] for k, v in
-                          sharding.census_delta(c0, sharding.census()).items()}
-            delta = _count_delta(before, read())
-            if name != "meshless":
-                for k, v in delta.items():
-                    launches[name][k] = launches[name].get(k, 0) + v
-            loss = float(m["loss"])
-            require(math.isfinite(loss) and bool(m["grads_ok"]), f"{label} {name} step {i}")
+            loss, grads, ms, peak = one(name, i)
+            require(math.isfinite(loss), f"[train_mesh] {label} {name} {unit} {i}")
             r = rec[name]
             r["losses"].append(loss)
             r["ms"].append(ms)
             r["peak"] = max(r["peak"], peak)
-            grads = _grads(states[name].model)
             if ref is None:
                 ref = (loss, grads)
                 continue
+            for k, v in _count_delta(before, read()).items():
+                launches[name][k] = launches[name].get(k, 0) + v
             require(abs(loss - ref[0]) <= TOL["bfloat16"][1] * abs(ref[0]),
-                    f"[train_mesh] {label} on {name}, step {i}: loss {loss} vs meshless {ref[0]}")
+                    f"[train_mesh] {label} on {name}, {unit} {i}: loss {loss} vs meshless "
+                    f"{ref[0]}")
             err, leaf, _ = _leaf_errors(ref[1], grads)
             worst = max(worst, err)
-            equal = equal and loss == ref[0] and _grads_bit_equal(ref[1], grads)
+            if loss != ref[0]:
+                differ[name].add("loss")
+            differ[name] |= _differing_leaves(ref[1], grads)
             require(err <= TOL["bfloat16"][1],
-                    f"[train_mesh] {label} on {name}, step {i}: gradient {leaf} rel L2 {err:.3e}")
+                    f"[train_mesh] {label} on {name}, {unit} {i}: gradient {leaf} rel L2 "
+                    f"{err:.3e}")
     for name, counts in launches.items():
         _require_training_hopper(counts, f"[train_mesh] {label} on {name}")
+    equal = not any(differ.values())
     out = {"runs": {k: {"losses": r["losses"], "ms": statistics.median(r["ms"][1:]),
                         "peak_bytes": r["peak"]} for k, r in rec.items()},
-           "launches": launches, "worst_grad_rel_l2": worst, "bit_equal": equal,
-           "census": census}
+           "launches": launches, "worst_grad_rel_l2": worst, "bit_equal": equal}
+    text = ("losses " + "; ".join(f"{k} {' '.join(f'{x:.6f}' for x in r['losses'])}"
+                                   for k, r in rec.items())
+            + f"; every gradient against meshless worst rel L2 {worst:.3e} (tol "
+            f"{TOL['bfloat16'][1]}), bit-equal: {equal}"
+            + ("" if equal else " (differing: " + ", ".join(
+                f"{k} {sorted(v)}" for k, v in differ.items()) + ")")
+            + f"; {unit} ms (median of {unit}{'es' if unit == 'pass' else 's'} "
+            f"2-{TRAIN_MESH_STEPS}) "
+            + ", ".join(f"{k} {v['ms']:.2f}" for k, v in out["runs"].items())
+            + "; peak GiB " + ", ".join(f"{k} {v['peak_bytes'] / 2**30:.2f}"
+                                         for k, v in out["runs"].items()))
+    return out, text
+
+
+def _train_mesh_world1(label, fields, grid=True):
+    """(a): one configuration meshless, on a (1, 1) mesh and (``grid``) on
+    a 1x1x1 grid, TRAIN_MESH_STEPS steps each from the same initial state
+    and batches, in turns (``_in_turns``); one step's census on the last
+    mesh."""
+    from alphafold2_tpu_torch.parallel import sharding
+    from alphafold2_tpu_torch.parallel.grid_parallel import make_grid_mesh
+    from alphafold2_tpu_torch.train import loop
+
+    cfg = _train_mesh_cfg(dict(fields, grid_parallel=True) if grid else fields)
+    batches = _synthetic(cfg, TRAIN_MESH_STEPS)
+    runs = {"meshless": None, "(1, 1)": sharding.make_mesh(1, 1)}
+    if grid:
+        runs["1x1x1"] = make_grid_mesh(1, 1, 1)
+    watched = list(runs)[-1]
+    states = {k: loop.init_state(cfg, loop.build_model(cfg)) for k in runs}
+    steps = {k: loop.make_train_step(states[k].model, mesh) for k, mesh in runs.items()}
+    census = None
+
+    def one(name, i):
+        nonlocal census
+        batch = loop.device_put_batch(batches[i], "cuda", runs[name])
+        if name == watched and i == 1:
+            c0 = sharding.census()
+        states[name], m, ms, peak = _timed_step(steps[name], states[name], batch)
+        if name == watched and i == 1:
+            census = {k: v["count"] for k, v in
+                      sharding.census_delta(c0, sharding.census()).items()}
+        require(bool(m["grads_ok"]), f"{label} {name} step {i}: gradients not finite")
+        return float(m["loss"]), _grads(states[name].model), ms, peak
+
+    out, text = _in_turns(label, runs, one)
+    out["census"] = census
     log(f"[train_mesh] (a) {label}, dim {cfg.model.dim}, depth {cfg.model.depth}, crop "
-        f"{cfg.data.crop_len}, {TRAIN_MESH_STEPS} steps each in turns: losses "
-        + "; ".join(f"{k} {' '.join(f'{x:.6f}' for x in r['losses'])}" for k, r in rec.items())
-        + f"; every gradient against meshless worst rel L2 {worst:.3e} (tol "
-        f"{TOL['bfloat16'][1]}), bit-equal: {equal}; step ms (median of steps 2-4) "
-        + ", ".join(f"{k} {v['ms']:.2f}" for k, v in out["runs"].items())
-        + "; peak GiB " + ", ".join(f"{k} {v['peak_bytes'] / 2**30:.2f}"
-                                     for k, v in out["runs"].items())
-        + f"; launches on 1x1x1 {launches['1x1x1']}; census of one 1x1x1 step {census}")
+        f"{cfg.data.crop_len}, {TRAIN_MESH_STEPS} steps each in turns: {text}; launches on "
+        f"{watched} {out['launches'][watched]}; census of one {watched} step {census}")
     del states, steps
+    _free()
+    return out
+
+
+def _train_mesh_templates():
+    """(a) templates: the tied model at the training width with 2 template
+    blocks and TRAIN_MESH_TEMPLATES templates (crop 128, MSA 5x64),
+    meshless, meshless again and on a (1, 1) mesh from the same weights and
+    inputs, TRAIN_MESH_STEPS forward and backward passes each in turns
+    (``_template_step``, ``_in_turns``). The second meshless run shows
+    what two meshless passes share bit for bit: ``template_dist_emb``'s
+    gradient (65,536 lookups of 37 rows) is summed in no fixed order by
+    the CUDA embedding backward."""
+    import torch
+
+    from alphafold2_tpu_torch.parallel import sharding
+    from alphafold2_tpu_torch.predict import init_params
+
+    runs = {"meshless": None, "meshless again": None, "(1, 1)": sharding.make_mesh(1, 1)}
+    weights = init_params(_template_model(False, depth=ENGINE_DEPTH, crop=128), 5).state_dict()
+    models = {}
+    for name in runs:
+        models[name] = _template_model(False, depth=ENGINE_DEPTH, crop=128)
+        models[name].load_state_dict(weights)
+        models[name].cuda()
+    inputs = _template_inputs(128, (5, 64), TRAIN_MESH_TEMPLATES, False, "cuda")
+
+    def one(name, i):
+        mesh = runs[name]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with sharding.use_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+            loss = float(_template_step(models[name], inputs))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return loss, _grads(models[name]), ms, torch.cuda.max_memory_allocated()
+
+    out, text = _in_turns("templates", runs, one, unit="pass")
+    log(f"[train_mesh] (a) templates ({TRAIN_MESH_TEMPLATES} templates, 2 template blocks), "
+        f"dim 256, depth {ENGINE_DEPTH}, crop 128, tied, {TRAIN_MESH_STEPS} forward and "
+        f"backward passes each in turns: {text}; launches on (1, 1) "
+        f"{out['launches']['(1, 1)']}")
+    del models
     _free()
     return out
 
@@ -7704,10 +7809,11 @@ def _train_mesh_rank_reference(tmp):
     _free()
 
 
-def _train_mesh_e2e():
-    """(d): the end-to-end step at the CLI's width meshless and on a (1, 1)
-    mesh, TRAIN_MESH_E2E_STEPS steps each from the same state, batch and
-    MDS start, in turns: the structure loss and every gradient within
+def _train_mesh_e2e(reversible=False):
+    """(d): the end-to-end step at the CLI's width (with ``reversible`` on
+    the reversible engine) meshless and on a (1, 1) mesh,
+    TRAIN_MESH_E2E_STEPS steps each from the same state, batch and MDS
+    start, in turns: the structure loss and every gradient within
     E2E_GRAD_REL_L2 of the meshless step's."""
     import torch
 
@@ -7715,6 +7821,8 @@ def _train_mesh_e2e():
     from alphafold2_tpu_torch.train import end2end, loop
 
     cfg = _e2e_config(False)
+    cfg.model.reversible = reversible
+    tag = "(d reversible)" if reversible else "(d)"
     batch_np = _synthetic(cfg, 1)[0]
     runs = {"meshless": None, "(1, 1)": sharding.make_mesh(1, 1)}
     states = {k: loop.init_state(cfg, end2end.build_end2end_model(cfg)) for k in runs}
@@ -7740,13 +7848,13 @@ def _train_mesh_e2e():
                 ref = (loss, grads)
                 continue
             require(abs(loss - ref[0]) <= E2E_GRAD_REL_L2 * abs(ref[0]),
-                    f"[train_mesh] (d) step {i}: loss {loss} vs meshless {ref[0]}")
+                    f"[train_mesh] {tag} step {i}: loss {loss} vs meshless {ref[0]}")
             err, leaf, sym = _leaf_errors(ref[1], grads)
             worst = max(worst, err)
             require(err <= E2E_GRAD_REL_L2 and sym <= E2E_ZERO_GRAD_ATOL,
-                    f"[train_mesh] (d) step {i}: gradient {leaf} rel L2 {err:.3e}")
-    _require_training_hopper(launches, "[train_mesh] (d)")
-    log(f"[train_mesh] (d) end to end at dim {cfg.model.dim}, depth {cfg.model.depth}, crop "
+                    f"[train_mesh] {tag} step {i}: gradient {leaf} rel L2 {err:.3e}")
+    _require_training_hopper(launches, f"[train_mesh] {tag}")
+    log(f"[train_mesh] {tag} end to end at dim {cfg.model.dim}, depth {cfg.model.depth}, crop "
         f"{cfg.data.crop_len}, {TRAIN_MESH_E2E_STEPS} steps each in turns: structure losses "
         + "; ".join(f"{k} {' '.join(f'{x:.6f}' for x in v)}" for k, v in rec.items())
         + f"; every gradient against meshless worst rel L2 {worst:.3e} (tol "
@@ -7772,11 +7880,15 @@ def train_mesh_rank(tmp) -> int:
             f"expected one NCCL rank, got {dist.get_world_size()} {dist.get_backend()}")
     try:
         out = {"a": {label: _train_mesh_world1(label, fields)
-                     for label, fields in TRAIN_MESH_CONFIGS.items()},
-               "b": {("sparse" if sparse else "dense"): _train_mesh_long(sparse)
-                     for sparse in (False, True)}}
+                     for label, fields in TRAIN_MESH_CONFIGS.items()}}
+        out["a"].update({label: _train_mesh_world1(label, fields, grid=False)
+                         for label, fields in TRAIN_MESH_LINE_CONFIGS.items()})
+        out["a"]["templates"] = _train_mesh_templates()
+        out["b"] = {("sparse" if sparse else "dense"): _train_mesh_long(sparse)
+                    for sparse in (False, True)}
         _train_mesh_rank_reference(tmp)
         out["d"] = _train_mesh_e2e()
+        out["d reversible"] = _train_mesh_e2e(reversible=True)
         with open(os.path.join(tmp, "train_mesh.json"), "w", encoding="utf-8") as fh:
             json.dump(out, fh)
     finally:
@@ -7903,14 +8015,18 @@ def phase_train_mesh():
     torchrun's environment (``train_mesh_rank``):
     (a) the training smoke's width (dim 256, depth ENGINE_DEPTH, bf16, crop
     128, MSA 5x64), dense, tied and sparse, meshless, on a (1, 1) mesh and on a
-    1x1x1 grid in turns (``_train_mesh_world1``); (b) crop 768 with MSA
+    1x1x1 grid in turns (``_train_mesh_world1``); the reversible engine,
+    untied and tied, meshless and on the (1, 1) mesh; a template pass
+    (``_train_mesh_templates``); (b) crop 768 with MSA
     5x128 and remat on a 1x1x1 grid, dense and sparse, the meshless step's
     peak first, K3 held at the long passes' call shapes
     (``_train_mesh_long``); (c)'s reference steps; (d) the end-to-end step
-    at the CLI's width meshless and on a (1, 1) mesh (``_train_mesh_e2e``).
+    at the CLI's width meshless and on a (1, 1) mesh, then on the
+    reversible engine (``_train_mesh_e2e``).
     Then (c): TRAIN_MESH_RANKS gloo ranks on the one card
-    (``_train_mesh_ranks``), a 1x2x2 grid sparse with tied rows and a 2x2
-    (dp, sp) mesh dense, against the world-size-1 rank's steps."""
+    (``_train_mesh_ranks``), a 1x2x2 grid sparse with tied rows, a 2x2
+    (dp, sp) mesh dense and one reversible with tied rows, against the
+    world-size-1 rank's steps."""
     import gc
     import tempfile
 
@@ -9009,6 +9125,119 @@ def phase_train_flops():
     return out
 
 
+# ----------------------------------------- the port's tools and examples
+
+TOOLS_PROFILE_STEPS = 2  # profile_step's profiled steps (after its 3 warm ones)
+TOOLS_TOP = 15  # profile_step's rows logged
+EXAMPLES_TIMEOUT_S = 300
+EXAMPLES = ("01_distogram_basics.py", "02_memory_scaling.py", "03_templates_and_plm.py",
+            "04_structure_realization.py", "05_distributed_training.py")
+
+
+def _captured(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with its standard output captured: (result,
+    the lines)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kwargs)
+    return out, [line for line in buf.getvalue().splitlines() if line.strip()]
+
+
+def _tools_profile_step():
+    """profile_step at its defaults (dim 256, depth 2, crop 256, MSA 16x256,
+    tied, bf16) with TOOLS_PROFILE_STEPS profiled steps: the top TOOLS_TOP
+    rows of the device lanes, the copy rows named; every launch on Hopper."""
+    import tempfile
+
+    from alphafold2_tpu_torch import profile_step
+
+    with tempfile.TemporaryDirectory() as tmp:
+        read = _train_counts()
+        path = profile_step.run_profiled_steps(tmp, TOOLS_PROFILE_STEPS)
+        launches = read()
+        rows, lines = _captured(profile_step.summarize, path, TOOLS_PROFILE_STEPS, top=TOOLS_TOP)
+    _require_training_hopper(launches, "[tools] profile_step")
+    for line in lines:
+        log(f"[tools] profile_step {line}")
+    require(any(line.startswith("device op time total") for line in lines) and rows,
+            "[tools] profile_step: the trace has no device lane")
+    copies = [r for r in rows if "memcpy" in r[0].lower() or "copy" in r[0].lower()
+              or "memset" in r[0].lower()]
+    log(f"[tools] profile_step: copy rows in the top {TOOLS_TOP}: "
+        + ("; ".join(f"{name[:110]} {us:.0f} us/step ({share:.1%})"
+                     for name, us, share in copies) or "none"))
+    return {"rows": rows, "copies": copies, "launches": launches}
+
+
+def _tools_bisect_perf():
+    """bisect_perf at its defaults under the three kernel policies."""
+    from alphafold2_tpu_torch import bisect_perf
+
+    table, lines = _captured(bisect_perf.measure)
+    for line in lines:
+        log(f"[tools] bisect_perf {line}")
+    require(list(table) == list(bisect_perf.POLICIES), f"[tools] bisect_perf ran {list(table)}")
+    for label, rec in table.items():
+        require(all(math.isfinite(r["ms"]) and r["ms"] > 0 and r["flops"] > 0
+                    for r in rec["rows"]), f"[tools] bisect_perf under {label}: {rec['rows']}")
+    return table
+
+
+def _tools_validate():
+    from alphafold2_tpu_torch import validate_structure_math
+
+    code, lines = _captured(validate_structure_math.main, [])
+    for line in lines:
+        log(f"[tools] validate_structure_math {line}")
+    require(code == 0 and lines[-1] == "ALL OK", "[tools] validate_structure_math failed")
+
+
+def _tools_examples():
+    """Examples 01-05 at their full shapes on the card in one process under
+    torchrun on one NCCL rank (``python -m alphafold2_tpu_torch.examples``:
+    runpy, so the process start is paid once; 05 trains on its (1, 1)
+    mesh); each must end by printing ``ok``."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("EX_TINY", "RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                        "MASTER_PORT")}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           "--nproc_per_node", "1", "-m", "alphafold2_tpu_torch.examples"],
+                          cwd=HERE, env=env, text=True, capture_output=True,
+                          timeout=EXAMPLES_TIMEOUT_S)
+    out = {}
+    for chunk in proc.stdout.split("== ")[1:]:
+        lines = [line for line in chunk.splitlines() if line.strip()]
+        for line in lines[1:]:
+            log(f"[tools] {lines[0]} {line}")
+        out[lines[0]] = lines[-1] == "ok"
+    require(proc.returncode == 0 and all(out.get(n) for n in EXAMPLES),
+            f"[tools] the examples under torchrun exited {proc.returncode}: {out}\n"
+            f"{proc.stderr[-3000:]}")
+    log(f"[tools] examples 01-05 in one process under torchrun (1 NCCL rank) took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_tools():
+    """The port's tools and examples on the card (log tag ``[tools]``):
+    profile_step, bisect_perf, validate_structure_math, then examples 01-05
+    (``_tools_*``); each part's seconds."""
+    out, seconds = {}, {}
+    for name, fn in (("profile_step", _tools_profile_step), ("bisect_perf", _tools_bisect_perf),
+                     ("validate_structure_math", _tools_validate),
+                     ("examples", _tools_examples)):
+        _free()
+        t0 = time.perf_counter()
+        out[name] = fn()
+        seconds[name] = time.perf_counter() - t0
+    log("[tools] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    out["seconds"] = seconds
+    return out
+
+
 def probe_gloo_cuda(world=2):
     """Whether gloo takes CUDA tensors for the collectives the mesh path
     uses (all_to_all_single even and uneven, all_reduce sum and max,
@@ -9348,6 +9577,7 @@ def kernel_line(rows, serve, train, tied_train, sparse_train, gate, engines, tel
                     for mesh, counts in a["launches"].items()}
             runs.update({f"(b) {label}": b["launches"] for label, b in train_mesh["b"].items()})
             runs["(d) (1, 1)"] = train_mesh["d"]["launches"]
+            runs["(d reversible) (1, 1)"] = train_mesh["d reversible"]["launches"]
             e["train_mesh_launches"] = {k: v.get(e["name"], 0) for k, v in runs.items()}
             e["train_mesh_rank_launches"] = {
                 label: [r["runs"][label]["launches"].get(e["name"], 0)
@@ -9507,6 +9737,7 @@ def main() -> int:
         compress_rows, compress = _timed("compress", phase_compress)
         rows += compress_rows
         data = _timed("data", phase_data)
+        _timed("tools", phase_tools)
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
         log("chip_smoke: FAILED")

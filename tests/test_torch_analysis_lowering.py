@@ -205,7 +205,8 @@ def test_cases_stand_for_the_jax_gate_one_for_one():
         "edge_tied_rows_1280", "edge_tied_rows_wide_d32", "edge_tied_rows_wide_d128",
         "plm_tied_rows_8192", "plm_e2e_tied_rows_12288", "config4_tied_rows_1024",
         "edge_dense_d256", "pair_axial_d256", "template_axis", "config4_msa_column",
-        "edge_packed_d32", "edge_packed_d128", "scale_rows_4x512"]
+        "edge_packed_d32", "edge_packed_d128", "split_msa_rows_320", "split_plm_rows_8192",
+        "scale_rows_4x512"]
 
 
 def test_case_shapes_and_sources():
@@ -626,8 +627,9 @@ class _FakeLib:
 
     def __getattr__(self, symbol):
         def entry(*args):
-            out = args[-1]._obj
-            plan = self.plans(symbol, args[:-1])
+            at = next(i for i, a in enumerate(args) if hasattr(a, "_obj"))  # the plan's pointer
+            out = args[at]._obj
+            plan = self.plans(symbol, args[:at])
             out.blocks, out.threads, out.dynamic_smem = plan[:3]
             out.kernel = plan[3].encode()
             return 0
@@ -664,6 +666,51 @@ def test_run_gate_assembles_cases(tmp_path, monkeypatch):
         ["K2", "K2a", "K2b"] + ["K2", "K2a", "K2b", "K2g", "K2a", "K2b"])
     assert summary == {"gate": "hopper_build", "cases": 4, "failed": [],
                        "control_rejected": True}
+
+
+@pytest.mark.parametrize("case,shape,splits", [
+    ("split_msa_rows_320", (1, 5, 8, 64, 64), 3),
+    ("split_plm_rows_8192", (1, 128, 8, 128, 64), 8),
+])
+def test_k2_split_route_is_gated_at_the_training_shapes(case, shape, splits):
+    """K2's split passes (MSA rows sharded over a mesh) at the shapes the
+    card trains: the logits (the Hopper route in feature splits, then their
+    sum in bf16), the softmax, the grad and the product, each planned by
+    ``af2_tied_split_plan`` with the Hopper route asked for, as the
+    ``tied_split_*`` wrappers plan them, and null split and workspace
+    pointers after the plan's."""
+    b, r, h, n, d = shape
+    launches = {c.name: c for c in lowering.CASES}[case].launches
+    assert [(l.role, l.source, l.symbol, l.args[0], l.dtypes, l.tail) for l in launches] == [
+        ("K2s", "tied_row_attention", "af2_tied_split_plan", pass_, dtypes, (None, None))
+        for pass_, dtypes in ((0, lowering.DTYPES), (1, ("bfloat16",)), (2, lowering.DTYPES),
+                              (3, lowering.DTYPES), (4, lowering.DTYPES))]
+    assert all(l.args[1:] == (None, b, h, n, n, r * d, d, 1) for l in launches)
+    assert len(build.SIGNATURES["tied_row_attention"]["af2_tied_split_plan"]) == 12
+    assert tied_row.split_logits_splits(b, h, n, n, r * d, d) == splits
+    assert tied_row._wide(False, b, h, n, n, r * d, d)["kernel"] == "tied_wide_logits_kernel<64,2>"
+
+
+def test_run_gate_passes_the_split_plans_null_tails(tmp_path, monkeypatch):
+    monkeypatch.setattr(build, "nvcc_path", lambda: "/fake/nvcc")
+    monkeypatch.setattr(build, "build_sources",
+                        lambda names: {n: (0, REPORT, tmp_path / f"{n}.so") for n in names})
+    seen = []
+
+    class Lib(_FakeLib):
+        def __getattr__(self, symbol):
+            entry = super().__getattr__(symbol)
+
+            def call(*args):
+                seen.append(args)
+                return entry(*args)
+            return call
+
+    monkeypatch.setattr(build, "library", lambda name: Lib(
+        lambda symbol, args: (10, 128, 1000, "dq_kernel<__nv_bfloat16,64,128>")))
+    records, summary = lowering.run_gate(("split_msa_rows_320",), demangle=_demangle)
+    assert summary["failed"] == [] and len(records[0]["launches"]) == 9  # 4 f32, 5 bf16
+    assert all(len(a) == 12 and a[10:] == (None, None) for a in seen)
 
 
 def test_run_gate_fails_a_kernel_missing_from_the_report(tmp_path, monkeypatch):

@@ -1,7 +1,8 @@
 """Template conditioning against the JAX package: ``TemplateBlock``,
 ``Alphafold2`` with templates (auto-bucketed, explicit ``templates_dist``,
 sidechains through the ``SE3TemplateEmbedder``), every gradient leaf
-against ``jax.grad``, the embedder's rotation invariance, the guards, and
+against ``jax.grad``, the model on 2 gloo ranks' (2, 1) and (1, 2) meshes
+(``torch_mesh_ranks.py``), the embedder's rotation invariance, the guards, and
 the converter on trees with and without the template modules.
 
 Inputs come from numpy seeds and go to both frameworks; weights come from
@@ -175,6 +176,51 @@ def test_every_gradient_leaf_matches_jax_grad():
     for k, g in expected.items():
         p = got[k].grad if got[k].grad is not None else torch.zeros_like(got[k])
         np.testing.assert_allclose(p.numpy(), g.numpy(), atol=GRAD_TOL, rtol=GRAD_TOL,
+                                   err_msg=k)
+
+
+@pytest.fixture(scope="module")
+def templates_on_a_mesh(tmp_path_factory):
+    """JAX's meshless model with templates on a batch of 2 (the second
+    template of each partly masked), its logits and its gradients of
+    sum(logits * w); the port's on 2 gloo ranks from the same parameters."""
+    from torch_mesh_ranks import run_ranks
+
+    one, two = _inputs(7), _inputs(8)
+    inputs = {k: np.concatenate([one[k], two[k]]) for k in one}
+    jm, pm = _models(False)
+    seq, msa, rest = _split(_jax(inputs))
+    params = jax.jit(lambda key: jm.init(key, seq, msa, **rest))(jax.random.key(0))
+    pm.load_state_dict(convert.to_state_dict(jax.tree.map(np.asarray, params), pm))
+    w = np.random.default_rng(9).standard_normal(
+        (2, N, N, constants.DISTOGRAM_BUCKETS)).astype(np.float32)
+
+    def loss(p):
+        out = jm.apply(p, seq, msa, **rest)
+        return jnp.sum(out * w), out
+
+    jgrads, logits = jax.jit(jax.grad(loss, has_aux=True))(params)
+    logits = np.asarray(logits)
+    payload = {"kw": dict(KW, max_num_templates=constants.MAX_NUM_TEMPLATES,
+                          use_se3_template_embedder=False),
+               "state_dict": pm.state_dict(), "inputs": inputs, "w": w}
+    got = run_ranks("templates_mesh", 2, tmp_path_factory.mktemp("templates"), payload)
+    return logits, convert.to_state_dict(jax.tree.map(np.asarray, jgrads), pm), got
+
+
+@pytest.mark.parametrize("mesh", ("2x1", "1x2"))
+def test_templates_on_a_mesh_match_jax(templates_on_a_mesh, mesh):
+    """The template stream on each rank's batch slice of the whole pair
+    grid, its block to the trunk: the gathered logits and the gradients
+    summed over the ranks (the template parameters' partials included)
+    equal JAX's meshless model's."""
+    logits, grads, got = templates_on_a_mesh
+    rec = got[mesh]
+    np.testing.assert_allclose(rec["logits"], logits, atol=LOGITS_TOL, rtol=LOGITS_TOL)
+    assert set(rec["grads"]) == set(grads)
+    assert any("template_block_0" in k and np.abs(rec["grads"][k]).max() > 0 for k in grads)
+    for k, g in grads.items():
+        np.testing.assert_allclose(rec["grads"][k], g.numpy(), atol=GRAD_TOL, rtol=GRAD_TOL,
                                    err_msg=k)
 
 

@@ -16,16 +16,18 @@ depth 1, heads 2, dim_head 16, crop 16, f32):
   grid pass against the meshless port;
 - the distogram step on ``2x1``, ``1x2``, ``1x1x2``, ``2x2``, ``1x4``,
   ``1x2x2`` (also sparse with tied rows), ring and Ulysses meshes, with
-  remat and the scanned engine, against JAX's meshless ``make_train_step``
+  remat, the scanned and the reversible engine, against JAX's meshless ``make_train_step``
   from the same parameters and batch: every loss within 1e-4 relative and
   the parameters after three steps within 1e-4 (JAX's own bounds), every
   first-step gradient close and nonzero where JAX's is, the parameters the
   same on every rank after every step; the triage step on a mesh;
 - the end-to-end step on ``2x1`` and ``1x2`` against JAX's (an unpadded
-  batch), every rank's backward reaching the logits' gather;
+  batch), every rank's backward reaching the logits' gather; the reversible
+  engine's end-to-end step on ``2x1`` against the port's meshless one;
 - both loops through their entry points on a mesh, checkpointed at step 2
   and resumed, equal to an uninterrupted run;
-- JAX's configuration refusals, the reversible engine's and dropout's.
+- JAX's configuration refusals, the reversible engine's (a grid mesh)
+  and dropout's; the reversible step on a (1, 1) mesh.
 """
 
 import jax
@@ -194,11 +196,15 @@ SPEC = {"model": dict(dim=32, depth=1, heads=2, dim_head=16, max_seq_len=64, bfl
         "train": dict(gradient_accumulate_every=1, warmup_steps=2)}
 
 
-def _jax_run(sparse_tied: bool):
-    """JAX's meshless step from its init: the parameters before, each
-    step's loss, the first step's gradients and the parameters after
-    STEPS steps."""
-    flags = dict(sparse_self_attn=True, msa_tie_row_attn=True) if sparse_tied else {}
+RUN_FLAGS = {"dense": {}, "sparse tied": dict(sparse_self_attn=True, msa_tie_row_attn=True),
+             "reversible": dict(reversible=True)}
+
+
+def _jax_run(run: str):
+    """JAX's meshless step from its init (``RUN_FLAGS[run]``): the
+    parameters before, each step's loss, the first step's gradients and the
+    parameters after STEPS steps."""
+    flags = RUN_FLAGS[run]
     cfg = jconfig.Config(model=jconfig.ModelConfig(**SPEC["model"], **flags),
                          data=jconfig.DataConfig(**SPEC["data"]),
                          train=jconfig.TrainConfig(**SPEC["train"]))
@@ -248,15 +254,14 @@ def _as_scan(sd: dict) -> dict:
 
 @pytest.fixture(scope="module")
 def jax_runs():
-    return {"dense": _jax_run(False), "sparse tied": _jax_run(True)}
+    return {run: _jax_run(run) for run in RUN_FLAGS}
 
 
 @pytest.fixture(scope="module")
 def state_dicts(jax_runs):
     out = {}
     for key, ref in jax_runs.items():
-        flags = dict(sparse_self_attn=True, msa_tie_row_attn=True) if key != "dense" else {}
-        model = loop.build_model(_port_cfg(**flags))
+        model = loop.build_model(_port_cfg(**RUN_FLAGS[key]))
         out[key] = convert.to_state_dict(ref["params0"], model)
         out[key + " grads"] = convert.to_state_dict(ref["grads"], model)
         out[key + " params"] = convert.to_state_dict(ref["params"], model)
@@ -269,12 +274,12 @@ def train_ranks(request, tmp_path_factory, jax_runs, state_dicts):
     world = request.param
     payload = {"spec": SPEC, "steps": STEPS, "batch": jax_runs["dense"]["batch"],
                "state_dicts": {k: v for k, v in state_dicts.items()
-                               if k in ("dense", "sparse tied", "dense scan")}}
+                               if k in ("dense", "sparse tied", "dense scan", "reversible")}}
     return world, run_ranks("train_mesh", world, tmp_path_factory.mktemp(f"t{world}"), payload)
 
 
 def _reference(label, jax_runs, state_dicts):
-    key = "sparse tied" if "sparse" in label else "dense"
+    key = next((k for k in ("sparse tied", "reversible") if k.split()[0] in label), "dense")
     grads, params = state_dicts[key + " grads"], state_dicts[key + " params"]
     if label.startswith("scan"):
         grads, params = _as_scan(grads), _as_scan(params)
@@ -356,6 +361,23 @@ def test_end2end_step_on_a_mesh_matches_jax(e2e_ranks, mesh):
     assert worst <= PARAM_ATOL, worst
 
 
+def test_reversible_end2end_step_on_a_mesh_matches_meshless(e2e_ranks):
+    """``make_end2end_step(mesh=)`` with ``model.reversible``: the step on a
+    (2, 1) mesh against the port's meshless step from the same seeded
+    parameters, batch and MDS start."""
+    _, _, got = e2e_ranks
+    ref, rec = got["reversible"]["meshless"], got["reversible"]["2x1"]
+    assert rec["grads_ok"] and rec["skipped"] == 0 and all(rec["same"])
+    np.testing.assert_allclose(rec["losses"], ref["losses"], rtol=LOSS_RTOL, atol=0)
+    total = float(np.sqrt(sum(float(np.linalg.norm(g)) ** 2 for g in ref["grads"].values())))
+    assert set(rec["grads"]) == set(ref["grads"])
+    for name, want in ref["grads"].items():
+        _check_leaf(name, torch.from_numpy(rec["grads"][name]), torch.from_numpy(want), total,
+                    GRAD_REL_L2)
+    worst = max(float(np.abs(rec["params"][n] - p).max()) for n, p in ref["params"].items())
+    assert worst <= PARAM_ATOL, worst
+
+
 # --------------------------------------------------- entry points, resume
 
 
@@ -406,20 +428,26 @@ def test_jax_config_refusals(fields, match):
 
 
 def test_reversible_engine_and_dropout_refuse_a_mesh():
-    from alphafold2_tpu_torch.parallel import distributed
+    """The reversible engine trains on a (dp, sp) mesh, as JAX's does (a
+    (1, 1) mesh here; 2x1 and 1x2 against JAX in
+    ``test_distogram_step_on_a_mesh_matches_jax``), and refuses
+    ``grid_parallel``, so a grid mesh, as JAX's does; dropout refuses a
+    mesh (a settled difference)."""
+    from alphafold2_tpu_torch.parallel import distributed, sharding
     from alphafold2_tpu_torch.parallel.grid_parallel import make_grid_mesh
 
     batch = next(iter(JSyntheticDataset(jconfig.DataConfig(**SPEC["data"]), seed=0)))
     with distributed.local_world("cpu"):
-        mesh = make_grid_mesh(1, 1, 1)
+        line = sharding.make_mesh(1, 1)
         cfg = _port_cfg(reversible=True)
         model = loop.build_model(cfg)
         state = loop.init_state(cfg, model, device="cpu")
-        step = loop.make_train_step(model, mesh)
-        with pytest.raises(ValueError, match="reversible engine does not run on a device mesh"):
-            step(state, loop.device_put_batch(batch, "cpu", mesh))
+        state, metrics = loop.make_train_step(model, line)(
+            state, loop.device_put_batch(batch, "cpu", line))
+        assert np.isfinite(float(metrics["loss"])) and bool(metrics["grads_ok"])
         with pytest.raises(ValueError, match="grid_parallel is not supported by the reversible"):
             loop.build_model(_port_cfg(reversible=True, grid_parallel=True))
+        mesh = make_grid_mesh(1, 1, 1)
         with pytest.raises(ValueError, match="dropout has no sharded route"):
             loop.make_train_step(loop.build_model(_port_cfg(ff_dropout=0.1)), mesh)
 

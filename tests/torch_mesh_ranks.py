@@ -466,6 +466,8 @@ TRAIN_MESHES = {  # label: (world, mesh spec, model fields)
     "ring 1x4": (4, "1x4", {"context_parallel": "ring"}),
     "ulysses 2x2": (4, "2x2", {"context_parallel": "ulysses"}),
     "scan 2x2": (4, "2x2", {"scan_layers": True, "remat": True}),
+    "reversible 2x1": (2, "2x1", {"reversible": True}),
+    "reversible 1x2": (2, "1x2", {"reversible": True}),
 }
 
 
@@ -486,7 +488,8 @@ def case_train_mesh(payload, rank, world):
         cfg = _tiny_cfg(spec, **fields)
         mesh = parse_mesh_spec(mesh_spec)
         model = loop.build_model(cfg)
-        key = "sparse tied" if fields.get("sparse_self_attn") else "dense"
+        key = ("sparse tied" if fields.get("sparse_self_attn") else
+               "reversible" if fields.get("reversible") else "dense")
         sd = payload["state_dicts"][key + (" scan" if fields.get("scan_layers") else "")]
         model.load_state_dict(sd)
         state = loop.TrainState(model=model,
@@ -524,8 +527,9 @@ def case_e2e_mesh(payload, rank, world):
     """One end-to-end step on a (2, 1) and a (1, 2) mesh from the payload's
     parameters, batch and MDS start: rank 0's metrics, the gradients summed
     over the world, the parameters after the update, and whether every rank
-    holds them."""
+    holds them; then the reversible engine's step meshless and on (2, 1)."""
     from alphafold2_tpu_torch.parallel.sharding import parse_mesh_spec
+    from alphafold2_tpu_torch.predict import init_params
     from alphafold2_tpu_torch.train import end2end, loop
     from alphafold2_tpu_torch.train.optim import build_optimizer
 
@@ -551,6 +555,21 @@ def case_e2e_mesh(payload, rank, world):
                           "params": {n: p.detach().numpy().copy()
                                      for n, p in model.named_parameters()},
                           "same": _same_on_every_rank(model, mesh), "skipped": int(state.skipped)}
+    # the reversible engine end to end: meshless and on a (2, 1) mesh, from
+    # one seeded init
+    cfg = _tiny_cfg(spec)
+    coords0 = torch.from_numpy(payload["coords0"])
+    whole = loop.batch_to_device(payload["batch"], torch.device("cpu"))  # every rank's
+    sd = init_params(end2end.End2EndModel(**payload["kw"], reversible=True), 1).state_dict()
+    recs = {}
+    for name, mesh in (("meshless", None), ("2x1", parse_mesh_spec("2x1"))):
+        model = end2end.End2EndModel(**payload["kw"], reversible=True,
+                                     mds_iters=payload["mds_iters"])
+        model.load_state_dict(sd)
+        step = end2end.make_end2end_step(model, mesh)
+        recs[name] = _step_record(model, cfg, mesh, [payload["batch"]],
+                                  step_fn=lambda st, _, step=step: step(st, whole, coords0))
+    out["reversible"] = recs
     return out
 
 
@@ -691,7 +710,37 @@ def case_msa_rows(payload, rank, world):
     return out
 
 
-CASES = {"msa_rows": case_msa_rows, "parallel": case_parallel, "serve": case_serve, "mesh_grads": case_mesh_grads,
+def case_templates_mesh(payload, rank, world):
+    """``Alphafold2`` with templates on a (2, 1) and a (1, 2) mesh from the
+    payload's parameters and inputs: the logits gathered over the world and
+    the gradients of sum(logits * w), summed over the world."""
+    from alphafold2_tpu_torch.models.alphafold2 import Alphafold2
+    from alphafold2_tpu_torch.parallel import sharding
+    from alphafold2_tpu_torch.train import loop
+
+    inputs = {k: torch.from_numpy(v) for k, v in payload["inputs"].items()}
+    w = torch.from_numpy(payload["w"])
+    n = inputs["seq"].shape[1]
+    out = {}
+    for spec in ("2x1", "1x2"):
+        mesh = sharding.parse_mesh_spec(spec)
+        lay = sharding.pair_layout(mesh)
+        bs = lay.batch(inputs["seq"].shape[0])
+        model = Alphafold2(**payload["kw"])
+        model.load_state_dict(payload["state_dict"])
+        local = {k: v[bs] for k, v in inputs.items()}
+        with sharding.use_mesh(mesh):
+            logits = model(local.pop("seq"), local.pop("msa"), **local)
+        (logits * w[bs][:, lay.rows(n), lay.cols(n)]).sum().backward()
+        grads = loop.reduce_gradients([p.grad if p.grad is not None else torch.zeros_like(p)
+                                       for p in model.parameters()], mesh)
+        out[spec] = {"logits": sharding.gather_pair(logits.detach(), mesh, "world").numpy(),
+                     "grads": {n_: g.numpy().copy()
+                               for (n_, _), g in zip(model.named_parameters(), grads)}}
+    return out
+
+
+CASES = {"msa_rows": case_msa_rows, "templates_mesh": case_templates_mesh, "parallel": case_parallel, "serve": case_serve, "mesh_grads": case_mesh_grads,
          "train_mesh": case_train_mesh, "e2e_mesh": case_e2e_mesh, "resume": case_resume}
 
 

@@ -53,7 +53,7 @@ from pathlib import Path
 from typing import Callable, Optional
 
 from alphafold2_tpu_torch.ops.cuda import build, tied_row
-from alphafold2_tpu_torch.ops.cuda.axial import grad_splits, key_splits, row_width
+from alphafold2_tpu_torch.ops.cuda.axial import grad_route, grad_splits, key_splits, row_width
 
 GATE = "hopper_build"
 DTYPES = ("float32", "bfloat16")
@@ -69,6 +69,7 @@ SM90_LIMITS = {
     "max_static_smem_bytes": 49_152,  # 48 KiB declared statically
     "max_registers": 255,  # per thread
     "registers_per_sm": 65_536,  # registers x threads of one block must fit
+    "max_cluster": 8,  # blocks a thread-block cluster, the portable size
 }
 
 CONTROL_CASE = "negative_control_rejects_bad_tiling"
@@ -88,8 +89,9 @@ class Launch:
     ``source`` called with ``args`` (``None`` marks the dtype code)."""
 
     role: str  # K1, K1c (K1's combine pass), K2, K2a/K2b (its backward; K2g the wide
-    # route's p and ds pass), K2s (K2's split route on sharded rows), K3a, K3b,
-    # K3m (K3's merge pass), ..., X
+    # route's p and ds pass), K2s (K2's split route on sharded rows), K3 (the
+    # one-pass backward), K3a, K3b, K3m (K3's merge pass), K3d (the dsum
+    # pass), ..., X
     source: str
     symbol: str
     args: tuple
@@ -131,18 +133,28 @@ def _k1(b, h, nq, nk, d):
 
 
 def _k3(b, h, nq, nk, d):
-    """K3a and K3b as their wrappers launch them: with the split of their
-    long loop and operands as TMA can describe them, each followed by K3's
-    merge pass (bf16 only) where it splits; past head dim 128 the kernels of
-    tied_row_attention_bwd.cu on the head dim cut into rows of
-    axial.row_width(d) (bf16 at a multiple of 64: tied_dq_kernel_sm90 /
-    tied_dkv_kernel_sm90)."""
-    if d > 128:
-        source = "tied_row_attention_bwd"
-        return tuple(Launch(role, source, f"af2_{source}_plan",
-                            (which, None, b, h, nq, nk, d, row_width(d), 1))
-                     for role, which in (("K3a", 0), ("K3b", 1)))
+    """K1's backward as its autograd Functions launch it, with operands as
+    TMA can describe them: where axial.grad_route says "onepass", bf16 the
+    one-pass kernel (attention_bwd_kernel_sm90, K3, with its cluster) and
+    f32 K3a and K3b; elsewhere K3a and K3b with the split of their long loop,
+    each followed by K3's merge pass (bf16 only) where it splits; past head
+    dim 128 the kernels of tied_row_attention_bwd.cu on the head dim cut into
+    rows of axial.row_width(d) (bf16 at a multiple of 64: tied_dq_kernel_sm90
+    / tied_dkv_kernel_sm90). Last, on every route, the dsum pass
+    (attention_dsum_kernel, K3d)."""
     source = "fused_attention_bwd"
+    dsum = Launch("K3d", source, "af2_attention_dsum_plan", (None, b, h, nq, d))
+    if d > 128:
+        tied = "tied_row_attention_bwd"
+        return (*(Launch(role, tied, f"af2_{tied}_plan",
+                         (which, None, b, h, nq, nk, d, row_width(d), 1))
+                  for role, which in (("K3a", 0), ("K3b", 1))), dsum)
+    if grad_route(b, h, nq, nk, d) == "onepass":
+        return (Launch("K3", source, "af2_fused_attention_bwd_onepass_plan",
+                       (None, b, h, nq, nk, d, 1), dtypes=("bfloat16",)),
+                *(Launch(role, source, "af2_fused_attention_bwd_plan",
+                         (which, None, b, h, nq, nk, d, 1, 1), dtypes=("float32",))
+                  for role, which in (("K3a", 0), ("K3b", 1))), dsum)
     launches = []
     for role, which, name, outs, rows in (("K3a", 0, "dq", 1, nq), ("K3b", 1, "dkv", 2, nk)):
         splits = grad_splits(b, h, nq, nk, d, name)
@@ -151,7 +163,7 @@ def _k3(b, h, nq, nk, d):
         if splits > 1:
             launches.append(Launch("K3m", source, "af2_fused_attention_bwd_merge_plan",
                                    (outs, b, h, rows, d), dtypes=("bfloat16",)))
-    return tuple(launches)
+    return (*launches, dsum)
 
 
 def _k2(b, r, h, n, d):
@@ -293,6 +305,10 @@ PORT_CASES = (
     # card trains: the MSA rows (R 5, R*D 320) and the PLM grid's (R*D 8192)
     Case("split_msa_rows_320", _k2_split(1, 5, 8, 64, 64)),
     Case("split_plm_rows_8192", _k2_split(1, 128, 8, 128, 64)),
+    # the one-pass backward at the other cluster grad_route gives it: the
+    # bench step's pair axial pass (crop 256, 2 blocks a cluster; crop 128's
+    # passes take 1 above)
+    Case("bench_pair_axial_256", (*_k1(256, 8, 256, 256, 64), *_k3(256, 8, 256, 256, 64))),
     # X's valid form at X's shape (f32 only, as X)
     Case("scale_rows_4x512", (_x(4, 512),), dtypes=("float32",)),
 )
@@ -443,7 +459,8 @@ def report_by_kernel(log: str, demangle: Callable = demangle_cufilt) -> dict:
 def check_launch(plan: dict, resources: Optional[Resources],
                  limits: dict = SM90_LIMITS) -> list:
     """The ways a planned launch breaks sm_90's limits (empty when it
-    fits). ``plan``: blocks, threads, dynamic_smem, kernel; ``resources``:
+    fits). ``plan``: blocks, threads, dynamic_smem, kernel and, for a
+    cluster launch, cluster (blocks a cluster); ``resources``:
     ptxas's report of the planned instantiation, None when the report does
     not list it."""
     problems = []
@@ -453,6 +470,10 @@ def check_launch(plan: dict, resources: Optional[Resources],
     if not 1 <= threads <= limits["max_threads"] or threads % limits["warp"]:
         problems.append(f"{threads} threads a block: at most {limits['max_threads']}, "
                         f"a multiple of {limits['warp']}")
+    cluster = plan.get("cluster", 0)
+    if cluster > 1 and (cluster > limits["max_cluster"] or blocks % cluster):
+        problems.append(f"a cluster of {cluster} blocks over {blocks} blocks: at most "
+                        f"{limits['max_cluster']}, dividing the grid")
     if resources is None:
         problems.append(f"instantiation {plan['kernel']} is not in ptxas's report: "
                         "the plan names a kernel that was never built")
@@ -494,7 +515,8 @@ def _plan(lib, launch: Launch, dtype: str) -> tuple:
     code = getattr(lib, launch.symbol)(*launch.plan_args(dtype), ctypes.byref(plan),
                                        *launch.tail)
     return code, {"blocks": plan.blocks, "threads": plan.threads,
-                  "dynamic_smem": plan.dynamic_smem, "kernel": plan.kernel.decode()}
+                  "dynamic_smem": plan.dynamic_smem, "kernel": plan.kernel.decode(),
+                  "cluster": plan.cluster}
 
 
 def _launch_record(launch, dtype, built, reports, libs) -> dict:

@@ -20,9 +20,11 @@ included). The last line sums the micro-times, one of each module.
 JAX's A/B (``AF2TPU_BENCH_AB``, default on) runs its pair module with and
 without flash and on its flat route. The port's A/B is the kernel policy
 (``ops/kernels.py use_kernel_policy``): the whole table under the hand
-kernels, then under ``axial=stock,flash=on`` (PyTorch's
-``scaled_dot_product_attention``) and under the plain versions. The flat
-route is a JAX debug escape with no counterpart here.
+kernels and under ``axial=stock,flash=on`` (PyTorch's
+``scaled_dot_product_attention``) in turns, hand, SDPA, SDPA, hand, so that
+neither always runs first on a card that warms as it goes, then once under
+the plain versions. Each run's table is printed; a policy's row is the mean
+of its runs. The flat route is a JAX debug escape with no counterpart here.
 """
 
 from __future__ import annotations
@@ -113,10 +115,17 @@ def timed(name, module, args, kwargs, device) -> dict:
     return {"name": name, "ms": ms, "flops": flops}
 
 
+# the order the policies run in: the hand kernels and SDPA in turns (A, B,
+# B, A), the plain versions once
+TURNS = ("hand kernels", "axial=stock,flash=on", "axial=stock,flash=on", "hand kernels",
+         "plain")
+
+
 def measure(device=None) -> dict:
     """The table under each kernel policy (``POLICIES``; only the hand
-    kernels with ``AF2TPU_BENCH_AB=0``): ``{policy: {"rows": [...],
-    "total_ms": sum}}``."""
+    kernels, once, with ``AF2TPU_BENCH_AB=0``), in the order of ``TURNS``:
+    ``{policy: {"rows": [...], "total_ms": sum, "runs": [[...], ...]}}``, a
+    row's ms the mean of the policy's runs."""
     import torch
 
     from alphafold2_tpu_torch.device import resolve_device
@@ -124,20 +133,28 @@ def measure(device=None) -> dict:
 
     dev = resolve_device(device)
     ab = os.environ.get("AF2TPU_BENCH_AB", "1") == "1"
-    policies = list(POLICIES) if ab else ["hand kernels"]
+    turns = TURNS if ab else ("hand kernels",)
     s = shapes()
     kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu (host clock)"
     print(f"crop={s['crop']} msa={s['msa_depth']}x{s['msa_len']} dim={s['dim']} "
           f"device={kind}", flush=True)
     modules = hot_modules(dev)
-    out = {}
-    for label in policies:
-        print(f"\nkernel policy: {label} ({POLICIES[label] or 'auto'})", flush=True)
+    runs: dict = {label: [] for label in POLICIES if label in turns}
+    for i, label in enumerate(turns):
+        print(f"\nkernel policy: {label} ({POLICIES[label] or 'auto'}), turn {i + 1} of "
+              f"{len(turns)}", flush=True)
         with use_kernel_policy(parse_policy(POLICIES[label])):
             rows = [timed(name, m, args, kw, dev) for name, m, args, kw in modules]
-        total = sum(r["ms"] for r in rows)
-        print(f"sum of micro-times (one of each): {total:.2f} ms", flush=True)
-        out[label] = {"rows": rows, "total_ms": total}
+        print(f"this run's sum: {sum(r['ms'] for r in rows):.2f} ms", flush=True)
+        runs[label].append(rows)
+    out = {}
+    for label, tables in runs.items():
+        rows = [{"name": group[0]["name"], "ms": sum(r["ms"] for r in group) / len(group),
+                 "flops": group[0]["flops"]} for group in zip(*tables)]
+        out[label] = {"rows": rows, "total_ms": sum(r["ms"] for r in rows), "runs": tables}
+        print(f"{label}: sum of micro-times (one of each): {out[label]['total_ms']:.2f} ms, "
+              f"the mean of {len(tables)} run(s) ("
+              + " / ".join(f"{sum(r['ms'] for r in t):.2f}" for t in tables) + ")", flush=True)
     return out
 
 

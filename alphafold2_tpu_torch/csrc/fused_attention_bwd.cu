@@ -48,6 +48,13 @@
 //   descriptors, where the first design staged a transposed copy of each
 //   and ran mma.sync on 32-bit shared loads.
 //
+// Where ops/cuda/axial.py grad_route() says "onepass", the autograd
+// Functions run neither: af2_fused_attention_bwd launches the one-pass
+// backward of fused_attention_bwd_onepass_sm90.cuh (dq, dk and dv from one
+// pass over each tile pair, dq summed across a thread-block cluster), and
+// af2_attention_dsum the pass both routes read, rowsum(dO * O), in one read
+// of O and dO.
+//
 // Every other bf16 problem runs dq_kernel_mma / dkv_kernel_mma below
 // (mma.sync m16n8k16, the probabilities and ds passed in registers, rounded
 // to bf16 first as `_dkv_kernel` rounds them at :199, :207); f32 operands run
@@ -59,7 +66,7 @@
 // (alphafold2_tpu_torch/ops/cuda/build.py). Bound with ctypes.
 
 #include "attention_tile.cuh"
-#include "fused_attention_bwd_sm90.cuh"
+#include "fused_attention_bwd_onepass_sm90.cuh"
 
 namespace {
 
@@ -787,7 +794,143 @@ int merge(const float* partials, void* out0, void* out1, const long long* out_st
   }
 }
 
+namespace onepass = af2::sm90::onepass;
+
+// The one-pass backward (fused_attention_bwd_onepass_sm90.cuh), or with
+// `plan_out` only its plan (`aligned` then stands for the operands'
+// alignment). strides: 21 element strides, (batch, head, token) of q, k,
+// v, dout, dq, dk, dv. bf16 operands TMA can describe and a shape
+// onepass::cluster_of takes (head dim 32 or 64); anything else is
+// cudaErrorInvalidValue.
+int run_onepass(int dtype, const void* q, const void* k, const void* v, const void* dout,
+                const float* lse, const float* dsum, void* dq, void* dk, void* dv,
+                const unsigned char* q_mask, const unsigned char* kv_mask,
+                const long long* strides, int batch, int heads, int nq, int nk, int head_dim,
+                float sm_scale, int drop_rank, void* stream, Af2LaunchPlan* plan_out = nullptr,
+                int aligned = 0) {
+  if (dtype != 1 || onepass::cluster_of(nq, nk, head_dim) == 0) return cudaErrorInvalidValue;
+  if (plan_out != nullptr) {
+    if (aligned == 0) return cudaErrorInvalidValue;
+    *plan_out = head_dim == 32 ? onepass::plan_onepass<32>(batch, heads, nq, nk)
+                               : onepass::plan_onepass<64>(batch, heads, nq, nk);
+    return cudaSuccess;
+  }
+  Operand ops[7];
+  for (int t = 0; t < 7; ++t) ops[t] = Operand{strides[3 * t], strides[3 * t + 1],
+                                               strides[3 * t + 2], 0};
+  grad::GradOperands a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.dout = dout;
+  a.lse = lse;
+  a.dsum = dsum;
+  a.q_mask = q_mask;
+  a.kv_mask = kv_mask;
+  a.out0 = dq;
+  a.out1 = nullptr;
+  a.qs = ops[0];
+  a.ks = ops[1];
+  a.vs = ops[2];
+  a.dos = ops[3];
+  a.o0s = ops[4];
+  a.batch = batch;
+  a.heads = heads;
+  a.nq = nq;
+  a.nk = nk;
+  a.sm_scale = sm_scale;
+  if (!grad::takes(a, false) || !af2::sm90::tma_operand(dk, ops[5], batch, heads, nk) ||
+      !af2::sm90::tma_operand(dv, ops[6], batch, heads, nk))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return head_dim == 32
+             ? onepass::launch_onepass<32>(a, dq, dk, dv, ops[4], ops[5], ops[6], drop_rank, s)
+             : onepass::launch_onepass<64>(a, dq, dk, dv, ops[4], ops[5], ops[6], drop_rank, s);
+}
+
+// rowsum(dO * O), or with `plan_out` only its plan. strides: 6 element
+// strides, (batch, head, token) of out, then dout; the head dim of each
+// contiguous.
+int run_dsum(int dtype, const void* out, const void* dout, const float* lse, const float* dlse,
+             float* dsum, const long long* strides, int batch, int heads, int nq, int head_dim,
+             void* stream, Af2LaunchPlan* plan_out = nullptr) {
+  if ((dtype != 0 && dtype != 1) || head_dim < 1) return cudaErrorInvalidValue;
+  const Af2LaunchPlan plan = onepass::plan_dsum(batch, heads, nq, dtype);
+  if (plan_out != nullptr) {
+    *plan_out = plan;
+    return cudaSuccess;
+  }
+  if (!af2::grid_fits(plan)) return cudaErrorInvalidConfiguration;
+  onepass::DsumParams p;
+  p.out = out;
+  p.dout = dout;
+  p.lse = lse;
+  p.dlse = dlse;
+  p.dsum = dsum;
+  for (int i = 0; i < 3; ++i) {
+    p.os[i] = strides[i];
+    p.gs[i] = strides[3 + i];
+  }
+  p.batch = batch;
+  p.heads = heads;
+  p.nq = nq;
+  p.head_dim = head_dim;
+  bool vec = dtype == 1 && head_dim % 8 == 0 && af2::aligned16(out) && af2::aligned16(dout);
+  for (int i = 0; i < 6; ++i) vec = vec && strides[i] % 8 == 0;
+  p.vec = vec ? 1 : 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = (unsigned)plan.blocks;
+  if (dtype == 1)
+    onepass::attention_dsum_kernel<__nv_bfloat16><<<blocks, plan.threads, 0, s>>>(p);
+  else
+    onepass::attention_dsum_kernel<float><<<blocks, plan.threads, 0, s>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// K3's one-pass backward: dq, dk and dv (bf16, through the strides) of one
+// problem in one launch of attention_bwd_kernel_sm90, from the forward's lse
+// and dsum. Arguments as K3a's, the three outputs in order; drop_rank: the
+// negative control's rank left out of every dq sum (-1: none). Returns the
+// cudaError_t of the launch.
+extern "C" int af2_fused_attention_bwd(int dtype, const void* q, const void* k, const void* v,
+                                       const void* dout, const float* lse, const float* dsum,
+                                       void* dq, void* dk, void* dv,
+                                       const unsigned char* q_mask,
+                                       const unsigned char* kv_mask, const long long* strides,
+                                       int batch, int heads, int nq, int nk, int head_dim,
+                                       float sm_scale, int drop_rank, void* stream) {
+  return run_onepass(dtype, q, k, v, dout, lse, dsum, dq, dk, dv, q_mask, kv_mask, strides,
+                     batch, heads, nq, nk, head_dim, sm_scale, drop_rank, stream);
+}
+
+// The one-pass backward's launch plan (its cluster in plan->cluster); 0, or
+// cudaErrorInvalidValue for a shape or dtype the kernel does not take.
+extern "C" int af2_fused_attention_bwd_onepass_plan(int dtype, int batch, int heads, int nq,
+                                                    int nk, int head_dim, int aligned,
+                                                    Af2LaunchPlan* plan) {
+  return run_onepass(dtype, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                     nullptr, nullptr, nullptr, nullptr, nullptr, batch, heads, nq, nk, head_dim,
+                     1.f, -1, nullptr, plan, aligned);
+}
+
+// rowsum(dO * O) in f32 as (batch, heads, nq), less dlse where lse is
+// finite and 0 where it is +inf (lse, dlse: contiguous (batch, heads, nq)
+// f32, each or null). dtype: 0 = float32, 1 = bfloat16.
+extern "C" int af2_attention_dsum(int dtype, const void* out, const void* dout,
+                                  const float* lse, const float* dlse, float* dsum,
+                                  const long long* strides, int batch, int heads, int nq,
+                                  int head_dim, void* stream) {
+  return run_dsum(dtype, out, dout, lse, dlse, dsum, strides, batch, heads, nq, head_dim,
+                  stream);
+}
+
+extern "C" int af2_attention_dsum_plan(int dtype, int batch, int heads, int nq, int head_dim,
+                                       Af2LaunchPlan* plan) {
+  return run_dsum(dtype, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, batch, heads,
+                  nq, head_dim, nullptr, plan);
+}
 
 // K3a. q (batch, heads, nq, head_dim), k/v (batch, heads, nk, head_dim), dout
 // and dq like q, all read or written through `strides`; lse and dsum

@@ -26,6 +26,8 @@ struct Af2LaunchPlan {
   char kernel[120];   // the instantiation as cu++filt names it, without its
                       // namespace and argument list, with no spaces:
                       // "fwd_kernel<__nv_bfloat16,16,64>"
+  int cluster;        // blocks a thread-block cluster (one-dimensional); 0 for a
+                      // launch without the cluster attribute
 };
 
 namespace af2 {

@@ -49,6 +49,16 @@ merge pass (:func:`fused_attention_bwd_merge`) adds them in split order.
 Their plain versions: :func:`dq_partials_reference`,
 :func:`dkv_partials_reference` and :func:`merge_grad_partials_reference`.
 
+Where :func:`grad_route` says ``"onepass"`` (head dim 32 or 64, one
+block of 128 keys or two over 3-4 query tiles), the backward is one kernel
+instead, ``csrc/fused_attention_bwd_onepass_sm90.cuh``
+(:func:`fused_attention_bwd`): each block owns 128 keys, passes once over
+each (query tile, key tile) pair, and the key blocks of one (batch, head)
+sum dq across a thread-block cluster in rank order. Its plain version is
+:func:`fused_attention_bwd_reference`. rowsum(dO * O), which both routes
+take, is a kernel too (:func:`attention_dsum`; plain version
+:func:`attention_dsum_reference`).
+
 :func:`fused_attention` is differentiable. When grad is enabled and an input
 requires it, it runs :class:`FusedAttention`: on the card K1 with the
 logsumexp forward and K3a + K3b backward, on the CPU the plain versions of
@@ -109,6 +119,15 @@ MIN_GRAD_SPLIT_TILES = 4
 # inside the bf16 bound of 4e-3 and growing about as the root of the
 # stream; the cap is the longest stream measured
 MAX_GRAD_SPLIT_TILES = 9216
+# the one-pass backward (csrc/fused_attention_bwd_onepass_sm90.cuh kKeys,
+# kMaxCluster, resident_tiles()), mirrored: head dim 32 or 64, 128 keys a
+# block, the key blocks of a (batch, head) one cluster of 1 or 2 blocks,
+# whose f32 dq of every 64-query tile stays resident in each block's shared
+# memory until the cluster sums it: at most 15 query tiles at head dim 32,
+# 4 at 64
+ONEPASS_KEY_TILE = 128
+ONEPASS_MAX_CLUSTER = 2
+ONEPASS_RESIDENT_TILES = {32: 15, 64: 4}
 # K1's packed kernel (csrc/fused_attention_packed_sm90.cuh kRows, kMaxN,
 # kRingBytes, kSMs; PackedControl), mirrored: 128-row tiles of G problems,
 # problems under 64 tokens, a 192 KB ring of whole stages, one persistent
@@ -155,6 +174,47 @@ def attention_grad_flops(b: int, h: int, nq: int, nk: int, d: int, which: str) -
     the recomputed S = Q·Kᵀ and dP = dO·Vᵀ, then dS·K (K3a, 6·B·H·Nq·Nk·D)
     or dSᵀ·Q and Pᵀ·dO (K3b, 8·B·H·Nq·Nk·D)."""
     return {"dq": 6.0, "dkv": 8.0}[which] * b * h * nq * nk * d
+
+
+def attention_bwd_flops(b: int, h: int, nq: int, nk: int, d: int) -> float:
+    """One one-pass backward's matmul flops at the caller's head dim, what
+    ``FlopCounterMode`` counts of its plain version: S = Q·Kᵀ, dP = dO·Vᵀ,
+    dV, dK and dQ once each, 10·B·H·Nq·Nk·D."""
+    return 10.0 * b * h * nq * nk * d
+
+
+def onepass_cluster(nq: int, nk: int, d: int) -> int:
+    """The cluster the one-pass backward gives a problem of ``nq`` queries
+    and ``nk`` keys at kernel head dim ``d``: ceil(nk/128) blocks, or 0
+    where it does not take it (a head dim other than 32 or 64; more than
+    ONEPASS_MAX_CLUSTER blocks; a cluster whose query tiles' dq does not fit
+    resident, ONEPASS_RESIDENT_TILES). Mirrors ``onepass::cluster_of``."""
+    if d not in ONEPASS_RESIDENT_TILES:
+        return 0
+    c = -(-nk // ONEPASS_KEY_TILE)
+    if c > ONEPASS_MAX_CLUSTER or (c > 1 and -(-nq // GRAD_TILE) > ONEPASS_RESIDENT_TILES[d]):
+        return 0
+    return c
+
+
+def grad_route(b: int, h: int, nq: int, nk: int, d: int) -> str:
+    """Which backward K1's autograd Functions run at a shape: ``"onepass"``
+    (:func:`fused_attention_bwd`, one kernel) where the kernel head dim
+    (:func:`kernel_head_dim`) is 32 or 64 and :func:`onepass_cluster` gives
+    one block, or a cluster of two over at least 3 query tiles (at most 4 at
+    head dim 64 fit resident); else ``"split"`` (K3a and K3b; head dim 128
+    too, whose dk, dv, S and dP do not fit the one-pass block's registers).
+    The rule follows the H100's times against K3a + K3b (PERF.md §6, PR 27:
+    one block wins at every shape measured; two at 256 queries and ties at
+    64-128; clusters of four and eight lost by 2-2.6x, and
+    :func:`onepass_cluster` gives none). A pure function of the shape,
+    as :func:`grad_splits`: the Functions route with it on the card and on
+    the CPU alike (the CPU runs the route's plain version), the build gate
+    plans with it. On the card a bf16 problem whose operands TMA cannot
+    describe, and f32, keep K3a/K3b whatever the route."""
+    del b, h
+    c = onepass_cluster(nq, nk, kernel_head_dim(d))
+    return "onepass" if c == 1 or (c == 2 and -(-nq // GRAD_TILE) >= 3) else "split"
 
 
 def at_kernel_head_dim(run, tensors):
@@ -469,6 +529,29 @@ def dkv_partials_reference(q, k, v, dout, lse, dsum, q_mask=None, kv_mask=None, 
     return torch.stack(dk), torch.stack(dv)
 
 
+def fused_attention_bwd_reference(q, k, v, dout, lse, dsum, q_mask=None, kv_mask=None,
+                                  sm_scale=1.0):
+    """The plain version of the one-pass backward: (dq, dk, dv) from one S
+    and one dP, p and ds rounded to the operand dtype first; dv = p^T dO,
+    dk = sm_scale * ds^T q, and dq summed over ONEPASS_KEY_TILE-key tiles in
+    tile order (the kernel's cluster ranks), then times sm_scale."""
+    build.count(fused_attention_bwd_reference, calls=1)
+    p = _probabilities(q, k, lse, q_mask, kv_mask, sm_scale)
+    ds = _ds(p, v, dout, dsum).to(q.dtype).float()
+    p = p.to(q.dtype).float()
+    dv = torch.einsum("bhij,bhid->bhjd", p, dout.float())
+    dk = sm_scale * torch.einsum("bhij,bhid->bhjd", ds, q.float())
+    dq = None
+    tiles = max(1, -(-k.shape[2] // ONEPASS_KEY_TILE))
+    for lo, hi in split_ranges(k.shape[2], tiles, ONEPASS_KEY_TILE):
+        part = torch.einsum("bhij,bhjd->bhid", ds[..., lo:hi], k[:, :, lo:hi].float())
+        dq = part if dq is None else dq + part
+    return (sm_scale * dq).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+fused_attention_bwd_reference.calls = 0
+
+
 def merge_grad_partials_reference(part, scale=1.0, dtype=torch.float32):
     """The plain version of K3's merge pass: the (S, B, H, N, D) f32
     partials added in split order, times ``scale``, in ``dtype``."""
@@ -478,10 +561,59 @@ def merge_grad_partials_reference(part, scale=1.0, dtype=torch.float32):
     return (acc * scale).to(dtype)
 
 
-def attention_dsum(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
-    """rowsum(dO * O) in f32, (B, H, Nq): computed outside the kernels, as
-    the JAX backward computes it outside its Pallas calls."""
-    return (out.float() * dout.float()).sum(dim=-1)
+def attention_dsum_reference(out, dout, lse=None, dlse=None):
+    """The plain version of the dsum pass: rowsum(dO * O) in f32, (B, H,
+    Nq); with ``lse``, less ``dlse`` (the lse's cotangent, or nothing)
+    where ``lse`` is finite, and 0 where it is +inf (a row with no valid
+    key, whose O K1 writes as 0)."""
+    dsum = (out.float() * dout.float()).sum(dim=-1)
+    if lse is None:
+        return dsum
+    live = torch.isfinite(lse)
+    if dlse is not None:
+        dsum = dsum - torch.where(live, dlse.float(), 0.0)
+    return torch.where(live, dsum, 0.0)
+
+
+def attention_dsum(out, dout, lse=None, dlse=None):
+    """rowsum(dO * O) (and the lse shift, :func:`attention_dsum_reference`)
+    in f32, (B, H, Nq), which both backward routes read; JAX computes it
+    outside its Pallas calls (``alphafold2_tpu/ops/pallas/axial.py:417``).
+    On the card one pass of ``attention_dsum_kernel`` over O and dO through
+    their strides (f32 or bf16); on the CPU the plain version."""
+    if out.dim() != 4 or dout.shape != out.shape:
+        raise ValueError(f"out {tuple(out.shape)} and dout {tuple(dout.shape)} must be one "
+                         f"(B, H, Nq, D) shape")
+    b, h, nq, d = out.shape
+    for name, t in (("lse", lse), ("dlse", dlse)):
+        if t is not None and tuple(t.shape) != (b, h, nq):
+            raise ValueError(f"{name} must be ({b}, {h}, {nq}), got {tuple(t.shape)}")
+    if dlse is not None and lse is None:
+        raise ValueError("dlse needs lse")
+    if out.device.type == "cpu":
+        return attention_dsum_reference(out, dout, lse, dlse)
+    if out.dtype not in _DTYPES or dout.dtype != out.dtype:
+        raise TypeError(f"the dsum pass takes f32 or bf16 out and dout of one dtype, got "
+                        f"{out.dtype}/{dout.dtype}")
+    if any(t is not None and t.device != out.device for t in (dout, lse, dlse)):
+        raise ValueError("attention_dsum operands must share one device")
+    out, dout = (t if t.stride(-1) == 1 else t.contiguous() for t in (out, dout))
+    lse, dlse = (t.float().contiguous() if t is not None else None for t in (lse, dlse))
+    dsum = torch.empty((b, h, nq), dtype=torch.float32, device=out.device)
+    if dsum.numel() == 0:
+        return dsum
+    lib = build.library("fused_attention_bwd")
+    with torch.cuda.device(out.device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        code = lib.af2_attention_dsum(_DTYPES[out.dtype], _ptr(out), _ptr(dout), _ptr(lse),
+                                      _ptr(dlse), _ptr(dsum), _strides(out, dout), b, h, nq, d,
+                                      stream)
+    build.check(lib, code, "attention_dsum")
+    build.count(attention_dsum, launches=1)
+    return dsum
+
+
+attention_dsum.launches = 0
 
 
 def _check(q, k, v, q_mask, kv_mask):
@@ -882,9 +1014,99 @@ fused_attention_dkv.launches = 0
 fused_attention_dkv.sm90_launches = 0
 
 
+def _tma_ok(t: torch.Tensor) -> bool:
+    """Can TMA describe a (B, H, N, D) bf16 operand as the Hopper kernels
+    read it: a 16-byte aligned base, the head dim contiguous, every other
+    stride of an axis longer than 1 a positive multiple of 8 elements below
+    2^39 (``sm90_ptx.cuh`` tma_operand)."""
+    return (t.data_ptr() % 16 == 0 and t.stride(-1) == 1
+            and all(n == 1 or (0 < s and s % 8 == 0 and s < 1 << 39)
+                    for n, s in zip(t.shape[:3], t.stride()[:3])))
+
+
+def fused_attention_bwd(q, k, v, dout, lse, dsum, q_mask=None, kv_mask=None, sm_scale=1.0):
+    """K3's one-pass backward: (dq, dk, dv), each in its operand's dtype,
+    from the forward's ``lse`` and ``dsum`` (:func:`attention_dsum`). On the
+    card one launch of ``attention_bwd_kernel_sm90`` (bf16 operands TMA can
+    describe, a shape :func:`onepass_cluster` takes; anything else raises),
+    on the CPU :func:`fused_attention_bwd_reference`."""
+    return _bwd_onepass(q, k, v, dout, lse, dsum, q_mask, kv_mask, sm_scale)
+
+
+def _bwd_onepass(q, k, v, dout, lse, dsum, q_mask, kv_mask, sm_scale, drop_rank=-1):
+    _check(q, k, v, q_mask, kv_mask)
+    _check_grad_operands(q, k, v, dout, lse, dsum)
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    if q.device.type == "cpu":
+        return fused_attention_bwd_reference(q, k, v, dout, lse, dsum, q_mask, kv_mask,
+                                             sm_scale)
+    if not onepass_cluster(nq, nk, kernel_head_dim(d)):
+        raise ValueError(f"the one-pass backward does not take {(b, h, nq, nk, d)}")
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the one-pass backward takes bf16, not {q.dtype}")
+    build.tally_flops("fused_attention_bwd", attention_bwd_flops(b, h, nq, nk, d))
+
+    def run(q, k, v, dout):
+        masks = _cuda_operands(q, k, v, q_mask, kv_mask, "fused_attention_bwd")
+        if dout.stride(-1) != 1:
+            dout = dout.contiguous()
+        outs = (_like_heads(q), _like_heads(k), _like_heads(v))
+        if nq == 0 or b * h == 0:
+            return outs[0], outs[1].zero_(), outs[2].zero_()
+        if not all(_tma_ok(t) for t in (q, k, v, dout)):
+            raise ValueError("the one-pass backward needs operands TMA can describe")
+        _launch_onepass(outs, q, k, v, dout, lse.contiguous(), dsum.contiguous(), *masks,
+                        sm_scale, drop_rank)
+        build.count(fused_attention_bwd, launches=1, sm90_launches=1)
+        return outs
+
+    return at_kernel_head_dim(run, (q, k, v, dout))
+
+
+def _launch_onepass(outs, q, k, v, dout, lse, dsum, q_mask, kv_mask, sm_scale, drop_rank=-1):
+    """One launch of attention_bwd_kernel_sm90 on CUDA tensors the
+    wrapper checked, writing ``outs`` (dq, dk, dv); ``q_mask``/``kv_mask``
+    contiguous or None."""
+    b, h, nq, d = q.shape
+    lib = build.library("fused_attention_bwd")
+    with torch.cuda.device(q.device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        code = lib.af2_fused_attention_bwd(
+            1, _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(lse), _ptr(dsum), *map(_ptr, outs),
+            _ptr(q_mask), _ptr(kv_mask), _strides(q, k, v, dout, *outs), b, h, nq, k.shape[2],
+            d, float(sm_scale), int(drop_rank), stream)
+    build.check(lib, code, "fused_attention_bwd")
+
+
+fused_attention_bwd.launches = 0
+fused_attention_bwd.sm90_launches = 0  # all of them: the kernel is Hopper's alone
+
+
+def fused_attention_grads(q, k, v, out, lse, dout, dlse, q_mask, kv_mask, sm_scale):
+    """K1's backward as both autograd Functions run it: dsum (the lse's
+    cotangent ``dlse``, or None, folded in) by :func:`attention_dsum`, then
+    (dq, dk, dv) by the route :func:`grad_route` names, the one-pass kernel
+    (:func:`fused_attention_bwd`) or K3a and K3b. On the card a one-pass
+    shape keeps K3a/K3b where the operands are not bf16 or TMA cannot
+    describe them; on the CPU the route's plain versions run."""
+    dout = dout.to(q.dtype)
+    # without an lse cotangent no row needs the lse: a dead row's O is 0
+    dsum = attention_dsum(out, dout, lse if dlse is not None else None, dlse)
+    args = (q, k, v, dout, lse, dsum, q_mask, kv_mask, sm_scale)
+    b, h, nq, d = q.shape
+    onepass = grad_route(b, h, nq, k.shape[2], d) == "onepass" and (
+        q.device.type == "cpu" or (q.dtype == torch.bfloat16 and (
+            kernel_head_dim(d) != d or all(_tma_ok(t) for t in (q, k, v, dout)))))
+    if onepass:
+        return fused_attention_bwd(*args)
+    return (fused_attention_dq(*args), *fused_attention_dkv(*args))
+
+
 class FusedAttention(torch.autograd.Function):
-    """Forward with the row logsumexp, backward by K3a/K3b (or, on the CPU,
-    by their plain versions)."""
+    """Forward with the row logsumexp, backward by :func:`fused_attention_grads`:
+    the one-pass kernel or K3a/K3b as :func:`grad_route` says (on the CPU,
+    their plain versions)."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_mask, kv_mask, sm_scale):
@@ -897,16 +1119,18 @@ class FusedAttention(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, dout):
         q, k, v, out, lse, q_mask, kv_mask = ctx.saved_tensors
-        args = (q, k, v, dout, lse, attention_dsum(out, dout), q_mask, kv_mask, ctx.sm_scale)
-        return (fused_attention_dq(*args), *fused_attention_dkv(*args), None, None, None)
+        grads = fused_attention_grads(q, k, v, out, lse, dout, None, q_mask, kv_mask,
+                                      ctx.sm_scale)
+        return (*grads, None, None, None)
 
 
 class FusedAttentionLse(torch.autograd.Function):
-    """K1 with lse as a second differentiable output, backward by K3a/K3b
-    (their plain versions on the CPU). The lse's cotangent needs no kernel
-    of its own: d lse_i / d s_ij is the probability p_ij, so it enters the
-    logits' cotangent p_ij (dP_ij - dsum_i + dlse_i) as a shift of dsum,
-    and K3 runs with dsum - dlse (0 on rows with no valid key)."""
+    """K1 with lse as a second differentiable output, backward as
+    :class:`FusedAttention`'s (their plain versions on the CPU). The lse's
+    cotangent needs no kernel of its own: d lse_i / d s_ij is the
+    probability p_ij, so it enters the logits' cotangent p_ij (dP_ij -
+    dsum_i + dlse_i) as a shift of dsum, and the backward runs with dsum -
+    dlse (0 on rows with no valid key), which the dsum pass writes."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_mask, kv_mask, sm_scale):
@@ -919,9 +1143,9 @@ class FusedAttentionLse(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, dout, dlse):
         q, k, v, out, lse, q_mask, kv_mask = ctx.saved_tensors
-        dsum = attention_dsum(out, dout) - torch.where(torch.isfinite(lse), dlse.float(), 0.0)
-        args = (q, k, v, dout.to(q.dtype), lse, dsum, q_mask, kv_mask, ctx.sm_scale)
-        return (fused_attention_dq(*args), *fused_attention_dkv(*args), None, None, None)
+        grads = fused_attention_grads(q, k, v, out, lse, dout, dlse, q_mask, kv_mask,
+                                      ctx.sm_scale)
+        return (*grads, None, None, None)
 
 
 def fused_attention(

@@ -46,10 +46,12 @@ BUILD_TIMEOUT_S = 600
 
 class LaunchPlan(ctypes.Structure):
     """``Af2LaunchPlan`` of ``csrc/launch_plan.cuh``: a launch's grid,
-    block, dynamic shared memory and kernel instantiation."""
+    block, dynamic shared memory, kernel instantiation and thread-block
+    cluster (0: launched without one)."""
 
     _fields_ = [("blocks", ctypes.c_longlong), ("threads", ctypes.c_int),
-                ("dynamic_smem", ctypes.c_int), ("kernel", ctypes.c_char * 120)]
+                ("dynamic_smem", ctypes.c_int), ("kernel", ctypes.c_char * 120),
+                ("cluster", ctypes.c_int)]
 
 
 _P = ctypes.c_void_p
@@ -89,6 +91,17 @@ SIGNATURES = {
         "af2_fused_attention_bwd_plan": [_I] * 9 + [_PLAN],
         # outs, batch, heads, n, head_dim, plan
         "af2_fused_attention_bwd_merge_plan": [_I] * 5 + [_PLAN],
+        # the one-pass backward: dtype, q, k, v, dout, lse, dsum, dq, dk, dv,
+        # q_mask, kv_mask, strides (21), batch, heads, nq, nk, head_dim,
+        # sm_scale, drop_rank (the negative control; -1 none), stream
+        "af2_fused_attention_bwd": [_I] + [_P] * 12 + [_I] * 5 + [_F, _I, _P],
+        # dtype, batch, heads, nq, nk, head_dim, aligned, plan
+        "af2_fused_attention_bwd_onepass_plan": [_I] * 7 + [_PLAN],
+        # rowsum(dO * O): dtype, out, dout, lse, dlse, dsum, strides (6),
+        # batch, heads, nq, head_dim, stream; its plan: dtype, batch, heads,
+        # nq, head_dim, plan
+        "af2_attention_dsum": [_I] + [_P] * 6 + [_I] * 4 + [_P],
+        "af2_attention_dsum_plan": [_I] * 5 + [_PLAN],
     },
     "tied_row_attention": {
         # dtype, q, k, v, out, q_mask, kv_mask, tie_scale, batch, rows, heads,
@@ -210,7 +223,7 @@ def count(fn, **adds) -> None:
 # onto its device thread with the rest of its thread-local state), and a
 # thread that runs under no mode is not counted.
 TALLY_NAMESPACE = "af2_kernels"
-TALLIED = ("fused_attention", "fused_attention_dq", "fused_attention_dkv",
+TALLIED = ("fused_attention", "fused_attention_dq", "fused_attention_dkv", "fused_attention_bwd",
            "tied_row_attention", "tied_row_attention_dq", "tied_row_attention_dkv",
            "tied_split_logits", "tied_split_product",
            "block_sparse_attention", "block_sparse_attention_dq", "block_sparse_attention_dkv")

@@ -53,7 +53,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
               the split passes the merge kernel alone against its plain
               version and a merge that drops the last split, which must be
               rejected; two runs bit-identical; SDPA's backward as the
-              yardstick;
+              yardstick; the one-pass backward (attention_bwd_kernel_sm90)
+              at every training pass grad_route sends to it, the crop-256
+              pair pass (a cluster of 2) and edge cases (ragged, Nk = 5, dead
+              rows, a cluster rank with every key masked, 15 resident tiles),
+              dq, dk, dv against its plain version, two runs bit-identical,
+              a control per live cluster rank that leaves it out of the dq
+              sums, which must be rejected; the dsum kernel against its
+              plain version with and without an lse cotangent, and timed on
+              the five training passes;
 3b. head dims — K1, K1 with lse, K3a and K3b at head dims 48 (zero-padded
               to 64) and 256 (as 4 rows of 64: bf16 K1 with and without
               lse on tied_row_attention_kernel_sm90, repeating bit for bit,
@@ -189,10 +197,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
               (ENGINE_DEPTH, Config()'s 6 halved for the whole pass's time
               limit; untied MSA rows, crop 128, MSA 5x64, batch 1,
               accumulation 16): 32 steps whose
-              launch counts must show K1, K3a and K3b on every attention
-              (every K1 and K3 launch on its Hopper kernel, K3's merge pass
-              on the split passes, 5 a step at depth 3 and 11 at depth 6)
-              and no plain-version call, the
+              launch counts must show K1 on every attention and its
+              backward on the route grad_route gives each pass (the one-pass
+              kernel on the pair axial and MSA passes, K3a and K3b on the
+              crosses), one dsum pass a backward (every K1 and K3 launch
+              on its Hopper kernel, K3's merge pass on the split passes, 5 a
+              step at depth 3) and no plain-version call, the
               first accumulated update at lr 0;
               12 steps on one repeated batch whose loss must fall; a small
               f32 model whose gradients must agree between the card and the
@@ -394,7 +404,11 @@ the MSA column passes of serving, training, config_4 and config_3) beside
 SDPA, with device times and bounds; ``phase_config4_pass`` config_4's
 template pass alone with its peak memory; ``phase_k3_time`` likewise times K3a
 and K3b on the five training passes beside SDPA's backward, per pass and
-per step; ``phase_k5_time`` K5a and K5b (and K4, with K1 with lse on the
+per step; ``phase_k3_bench_time`` K1's backward as the autograd Function
+runs it (the dsum pass with the one-pass kernel or K3a/K3b, as grad_route
+says) at the bench step's own calls (crop 256) and crop 128's, beside the
+parent's split route, each part and SDPA, in turns; ``phase_k5_time`` K5a
+and K5b (and K4, with K1 with lse on the
 dense problem of the same shape) on the sparse training pass and at N 512
 beside SDPA with the layout mask, per pass and per sparse step;
 ``phase_k2_time`` K2, K2 with lse and K2's backward on the tied passes
@@ -593,6 +607,20 @@ def phase_gate():
         check(set(spills) == {*K3_SM90, "grad_merge_kernel<64>"},
               f"the gate planned K3's Hopper kernels only as {sorted(spills)}")
         check(all(x == (0, 0) for x in spills.values()), f"K3's Hopper kernels spill: {spills}")
+        # the one-pass backward at the clusters grad_route gives it (1 and 2)
+        # and the dsum pass: every instantiation without a spill
+        onepass = {(ln["kernel"], ln.get("cluster")) for rec in records
+                   for ln in rec.get("launches", ()) if ln.get("role") in ("K3", "K3d")}
+        log(f"[gate] the one-pass backward and the dsum pass planned as (kernel, cluster): "
+            f"{sorted(onepass, key=str)}")
+        check({(f"{ONEPASS_SM90}<64>", 1), (f"{ONEPASS_SM90}<64>", 2)} <= onepass
+              and any(k.startswith("attention_dsum_kernel") for k, _ in onepass),
+              f"the gate planned the one-pass backward and the dsum pass only as {onepass}")
+        one = {name: res for name, res in _sm90_resources(("fused_attention_bwd",)).items()
+               if name.startswith(ONEPASS_SM90)}
+        log(f"[gate] the one-pass instantiations (registers, spill stores, loads): {one}")
+        check(len(one) == 2 and all(res[1:] == (0, 0) for res in one.values()),
+              f"the one-pass instantiations at head dims 32 and 64: {one}")
         # nor K5's, which run K3's consumers on gathered stages
         k5 = {ln["kernel"]: (ln.get("registers"), ln.get("spill_stores"), ln.get("spill_loads"))
               for rec in records for ln in rec.get("launches", ()) if ln.get("kernel") in K5_SM90}
@@ -1490,12 +1518,197 @@ def phase_k3_time(reps=10):
             f"{row[f'{n}_host_us']:.1f} us a call"
             for n, what in (("dq", "K3a"), ("dkv", "K3b"), ("sdpa", "SDPA backward"))))
         del q, k, v, do, out, lse, args, leaves, o, calls
-    weights = _step_weights(backward=True)
+    weights = _route_weights("split")
     step = {key: sum(w * rows[lb][key] for lb, w in weights.items()) for key in rows[label]}
     for kind in ("", "device_"):
         k3a, k3b = step[f"dq_{kind}ms"], step[f"dkv_{kind}ms"]
-        log(f"[k3 time] per training step, {kind or 'event '}ms: K3a {k3a:.3f} + K3b {k3b:.3f} "
+        log(f"[k3 time] per training step, the passes grad_route splits, {kind or 'event '}ms: "
+            f"K3a {k3a:.3f} + K3b {k3b:.3f} "
             f"= {k3a + k3b:.3f} ms; SDPA backward {step[f'sdpa_{kind}ms']:.3f} ms")
+    return rows
+
+
+def _bench_step_problems():
+    """One bench training step (profile_step.bench_config: crop 256, depth
+    2, MSA 16x256, tied rows, bf16) with K1's autograd Function watched:
+    each distinct attention problem it differentiates, keyed by its shape
+    and q's strides, as the step hands it to K1 (the operands as views,
+    the masks), with its forward and backward calls a step. Returns
+    {key: {"args": (q, k, v, q_mask, kv_mask, sm_scale), "fwd": n, "bwd": n}}."""
+    import torch
+
+    from alphafold2_tpu_torch import profile_step
+    from alphafold2_tpu_torch.data.pipeline import SyntheticDataset
+    from alphafold2_tpu_torch.ops.cuda import axial
+    from alphafold2_tpu_torch.train.loop import (
+        build_model, device_put_batch, init_state, make_train_step,
+    )
+
+    cfg = profile_step.bench_config()
+    batch = next(iter(SyntheticDataset(cfg.data, seed=0)))
+    state = init_state(cfg, build_model(cfg), device="cuda")
+    step = make_train_step(state.model)
+    problems = {}
+    fn = axial.FusedAttention
+    apply, backward = fn.apply, fn.backward
+
+    def key_of(q, k):
+        return (*q.shape[:3], k.shape[2], q.shape[3], *q.stride()[:3])
+
+    def watched_apply(q, k, v, q_mask, kv_mask, sm_scale):
+        rec = problems.setdefault(key_of(q, k), {"fwd": 0, "bwd": 0, "args": (
+            q.detach(), k.detach(), v.detach(), q_mask, kv_mask, sm_scale)})
+        rec["fwd"] += 1
+        return apply(q, k, v, q_mask, kv_mask, sm_scale)
+
+    def watched_backward(ctx, dout):
+        q, k = ctx.saved_tensors[:2]
+        problems[key_of(q, k)]["bwd"] += 1
+        return backward(ctx, dout)
+
+    fn.apply, fn.backward = watched_apply, staticmethod(watched_backward)
+    try:
+        step(state, device_put_batch(batch, "cuda"))
+        torch.cuda.synchronize()
+    finally:
+        fn.apply, fn.backward = apply, staticmethod(backward)
+    del state, step
+    return problems
+
+
+def _k3_bench_row(label, q, k, v, q_mask, kv_mask, scale, gen, calls):
+    """K1's backward on one problem, timed as the autograd Function runs
+    it (``hand``: the dsum glue and the kernels), beside the parent's split
+    route (the eager glue, K3a, K3b and their merges), each part alone,
+    SDPA's backward on the same masked problem, and K1 with lse beside
+    SDPA's forward: device ms a call (torch.profiler), each pair in turns
+    (A, B, B, A). Bounds: the least work (10 B·H·Nq·Nk·D for the
+    backward, 4 for the forward) and the least bytes: for the backward q,
+    k, v, dO, O and lse read, dq, dk, dv written once; for the forward q,
+    k, v read, O and lse written once."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
+
+    from alphafold2_tpu_torch.ops.cuda import axial
+
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    do = torch.randn((b, nq, h * d), device="cuda", generator=gen).to(q.dtype)
+    do = do.view(b, nq, h, d).transpose(1, 2)
+    out, lse = axial.fused_attention_lse(q, k, v, q_mask, kv_mask, scale)
+    glue = axial.attention_dsum_reference  # the parent's eager glue
+    split_args = (q, k, v, do, lse, glue(out, do), q_mask, kv_mask, scale)
+
+    def split():
+        ds = glue(out, do)
+        axial.fused_attention_dq(q, k, v, do, lse, ds, q_mask, kv_mask, scale)
+        axial.fused_attention_dkv(q, k, v, do, lse, ds, q_mask, kv_mask, scale)
+
+    def hand():
+        return axial.fused_attention_grads(q, k, v, out, lse, do, None, q_mask, kv_mask, scale)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    am = kv_mask[:, None, None, :] if kv_mask is not None else None
+    # SDPA as dispatched, or where that fails (cuDNN on the template axis's
+    # 147,456 problems) on the first backend that runs forward and backward
+    attend = lambda *t: F.scaled_dot_product_attention(*t, attn_mask=am, scale=scale)  # noqa: E731
+    try:
+        attend(*leaves).backward(do)
+        torch.cuda.synchronize()
+        backend = None
+    except RuntimeError:
+        backend = _sdpa_backend(lambda: attend(*leaves).backward(do))
+    on = lambda: sdpa_kernel([backend]) if backend else contextlib.nullcontext()  # noqa: E731
+    with on():
+        o = attend(*leaves)
+
+    def sdpa():
+        return torch.autograd.grad(o, leaves, do, retain_graph=True)
+
+    def sdpa_fwd():
+        with on():
+            return attend(q, k, v)
+
+    k1 = lambda: axial.fused_attention_lse(q, k, v, q_mask, kv_mask, scale)  # noqa: E731
+
+    def turns(a, b_):
+        ta1, tb1, tb2, ta2 = _device_ms(a), _device_ms(b_), _device_ms(b_), _device_ms(a)
+        return (ta1, ta2), (tb1, tb2)
+
+    row = {"label": label, "shape": (b, h, nq, nk, d), "calls": calls,
+           "route": axial.grad_route(b, h, nq, nk, d)}
+    row["hand"], row["sdpa"] = turns(hand, sdpa)
+    row["split"], _ = turns(split, hand)
+    row["dsum"] = _device_ms(lambda: axial.attention_dsum(out, do))
+    if axial.onepass_cluster(nq, nk, axial.kernel_head_dim(d)):  # route or not
+        dsum = axial.attention_dsum(out, do)
+        row["onepass"] = _device_ms(lambda: axial.fused_attention_bwd(
+            q, k, v, do, lse, dsum, q_mask, kv_mask, scale))
+    row["glue"] = _device_ms(lambda: glue(out, do))
+    row["k3a"] = _device_ms(lambda: axial.fused_attention_dq(*split_args))
+    row["k3b"] = _device_ms(lambda: axial.fused_attention_dkv(*split_args))
+    row["k1"], row["sdpa_fwd"] = turns(k1, sdpa_fwd)
+    qv = q_mask.sum(1) if q_mask is not None else torch.full((b,), nq, device="cuda")
+    kvn = kv_mask.sum(1) if kv_mask is not None else torch.full((b,), nk, device="cuda")
+    pairs = h * float((qv * kvn).sum())
+    io = 2 * (4 * b * h * nq * d + 4 * b * h * nk * d)  # q, dO, O, dq; k, v, dk, dv
+    row["bound_bwd"] = _bound(10.0 * d * pairs, io + 4 * b * h * nq, q.dtype)  # and lse
+    row["bound_fwd"] = _bound(4.0 * d * pairs, 2 * (2 * b * h * nq * d + 2 * b * h * nk * d)
+                              + 4 * b * h * nq, q.dtype)
+    def fmt(x):
+        return "/".join(f"{t:.4f}" for t in x) if isinstance(x, tuple) else f"{x:.4f}"
+
+    parts = ", ".join(f"{n} {fmt(row[n])}" for n in ("split", "dsum", "onepass", "glue", "k3a",
+                                                     "k3b") if n in row)
+    row["sdpa_backend"] = backend.name if backend else "default"
+    log(f"[k3 bench] {label} {row['shape']} route {row['route']}, {calls} call(s) a step: "
+        f"backward device ms hand {fmt(row['hand'])} vs SDPA {fmt(row['sdpa'])} (bound "
+        f"{row['bound_bwd']['bound_ms']:.4f}, {row['bound_bwd']['bound_by']}); {parts}; "
+        f"forward K1 lse {fmt(row['k1'])} vs SDPA {fmt(row['sdpa_fwd'])} (bound "
+        f"{row['bound_fwd']['bound_ms']:.4f}); SDPA {row['sdpa_backend']}")
+    del out, lse, split_args, leaves, o, do
+    return row
+
+
+def phase_k3_bench_time():
+    """K1's backward at the bench step's attention calls (crop 256, MSA
+    16x256: the problems one step hands K1, with its masks and strides,
+    _bench_step_problems) and at TRAIN_CASES' crop-128 training passes:
+    _k3_bench_row each, then the per-step sums (calls a step times device
+    ms). Log tag ``[k3 bench]``. No checks: phase_backward holds the kernels
+    to their plain versions. Returns the rows."""
+    import torch
+
+    log(f"[k3 bench] {_card()}")
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    rows = []
+    for key, rec in sorted(_bench_step_problems().items(), key=lambda kv: -kv[0][2] * kv[0][3]):
+        q, k, v, qm, km, scale = rec["args"]
+        b, h, nq, nk, d = key[:5]
+        rows.append(_k3_bench_row(f"bench {b}x{h}, {nq}x{nk}, q strides {key[5:]}", q, k, v,
+                                  qm, km, scale, gen, (rec["fwd"], rec["bwd"])))
+        del q, k, v, qm, km, rec
+        _free()
+    for label, (b, nq, nk, per_layer) in TRAIN_CASES.items():
+        qm, km = _train_masks(label)
+        q, k, v = _k1_operands(b, 8, nq, nk, 64, torch.bfloat16, gen, serving=True)
+        rows.append(_k3_bench_row(f"crop 128 {label}", q, k, v, qm, km, 64**-0.5, gen,
+                                  (per_layer, per_layer)))
+        del q, k, v
+    # config_4's template-axis launch: 147,456 problems of 5 x 5
+    b, h, n, d = TEMPLATE_AXIS
+    mask = _template_axis_mask(b)
+    q, k, v = _k1_operands(b, h, n, n, d, torch.bfloat16, gen, serving=True)
+    rows.append(_k3_bench_row(f"config_4 {TEMPLATE_AXIS_LABEL}", q, k, v, mask, mask, d**-0.5,
+                              gen, (2, 2)))
+    del q, k, v
+    _free()
+    for tag in ("bench", "crop 128"):
+        sel = [r for r in rows if r["label"].startswith(tag)]
+        tot = lambda key: sum(r["calls"][1] * sum(r[key]) / 2 for r in sel)  # noqa: E731
+        line = (f"hand {tot('hand'):.4f} ms vs SDPA {tot('sdpa'):.4f} ms; split route "
+                f"{tot('split'):.4f} ms")
+        log(f"[k3 bench] {tag}, one step's backward calls: {line}")
     return rows
 
 
@@ -1912,6 +2125,7 @@ K3_SPLITS = {
     "MSA<-pair (1x8, 320x16384)": (7, 1),
 }
 K3_SM90 = ("dq_kernel_sm90<64>", "dkv_kernel_sm90<64>")
+ONEPASS_SM90 = "attention_bwd_kernel_sm90"  # K3's one-pass backward
 
 
 def check_k3_plans():
@@ -1979,10 +2193,200 @@ def unaligned_k3_case(gen):
     log(f"[backward] {label}: dq_kernel_mma and dkv_kernel_mma, no merge")
 
 
+def dsum_case(label, out, do, lse, gen):
+    """The dsum kernel against its plain version on one problem, without
+    and with an lse cotangent (0 on rows with lse +inf)."""
+    import torch
+
+    from alphafold2_tpu_torch.ops.cuda import axial
+
+    dlse = torch.randn(lse.shape, device="cuda", generator=gen)
+    rows = []
+    for name, args in (("no dlse", (out, do)), ("dlse", (out, do, lse, dlse))):
+        before = axial.attention_dsum.launches
+        got = axial.attention_dsum(*args)
+        torch.cuda.synchronize()
+        require(axial.attention_dsum.launches == before + 1,
+                f"{label}: the dsum kernel did not launch")
+        ref = axial.attention_dsum_reference(*args)
+        require(bool((got[torch.isinf(lse)] == 0).all()),
+                f"{label}: the dsum pass is not 0 on a dead row")
+        rows.append(_compare(f"{label}, {name}", "attention_dsum", got, ref, torch.float32))
+    return rows
+
+
+# the one-pass backward's checks beyond the training passes: (label, b, h,
+# nq, nk, d, query lengths, key lengths); None: unmasked
+ONEPASS_EDGE_CASES = (
+    ("ragged tails 200x91 d32", 2, 2, 200, 91, 32, [197, 150], [84, 91]),
+    ("Nk=5 d64", 3, 4, 70, 5, 64, [70, 60, 5], [5, 3, 1]),
+    ("no valid key in a batch row 64x64 d32", 2, 2, 64, 64, 32, [64, 64], [0, 64]),
+    ("no valid key in a batch row, 2 ranks 64x200 d64", 2, 2, 64, 200, 64, [64, 64], [0, 200]),
+    ("unmasked 100x100 d32", 1, 2, 100, 100, 32, None, None),
+    ("a rank with every key masked 96x256 d64", 2, 2, 96, 256, 64, [96, 77], [256, 100]),
+    ("15 resident query tiles 960x256 d32", 1, 2, 960, 256, 32, [950], [250]),
+)
+
+
+def onepass_case(label, b, h, nq, nk, d, q_mask, kv_mask, gen, strided=True, reps=0,
+                 library=False):
+    """K3's one-pass backward on one bf16 problem against its plain version
+    (dq, dk, dv at K3's bf16 bound), after the dsum kernel against its plain
+    version: one launch of attention_bwd_kernel_sm90, two runs
+    bit-identical, and where the key axis spans a cluster, negative
+    controls that leave each live rank out of the dq sums, which the bound
+    must reject. Returns the result rows (dq and dk/dv as kernel
+    ``fused_attention_bwd``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from alphafold2_tpu_torch.ops.cuda import axial
+
+    bf16 = torch.bfloat16
+    require(axial.onepass_cluster(nq, nk, axial.kernel_head_dim(d)) > 0,
+            f"{label}: a shape the one-pass kernel does not take")
+    q, k, v, do = _grad_operands(b, h, nq, nk, d, bf16, gen, strided)
+    scale = d**-0.5
+    out, lse = axial.fused_attention_lse(q, k, v, q_mask, kv_mask, scale)
+    rows = dsum_case(label, out, do, lse, gen)
+    dsum = axial.attention_dsum(out, do, lse)
+    args = (q, k, v, do, lse, dsum, q_mask, kv_mask, scale)
+    before = axial.fused_attention_bwd.sm90_launches
+    dq, dk, dv = axial.fused_attention_bwd(*args)
+    torch.cuda.synchronize()
+    require(axial.fused_attention_bwd.sm90_launches == before + 1,
+            f"{label}: the one-pass backward did not launch")
+    rq, rk, rv = axial.fused_attention_bwd_reference(*args)
+    got = [_compare(label, "fused_attention_bwd dq", dq, rq, bf16),
+           _compare(label, "fused_attention_bwd dk", dk, rk, bf16),
+           _compare(label, "fused_attention_bwd dv", dv, rv, bf16)]
+    again = axial.fused_attention_bwd(*args)
+    require(all(torch.equal(x, y) for x, y in zip((dq, dk, dv), again)),
+            f"{label}: two one-pass runs differ")
+    cluster = axial.onepass_cluster(nq, nk, d)
+    km = kv_mask if kv_mask is not None else _ones(b, nk)
+    live = [r for r in range(cluster) if bool(km[:, r * 128:(r + 1) * 128].any())]
+    for r in live if len(live) > 1 else ():
+        short = axial._bwd_onepass(*args, drop_rank=r)[0]
+        _control(f"{label}, rank {r} of {cluster}", "fused_attention_bwd dq", short, rq, bf16,
+                 tile="cluster rank")
+        del short
+    log(f"[backward] {label}: attention_bwd_kernel_sm90<{d}>, cluster {cluster} (live ranks "
+        f"{live}), two runs bit-identical")
+    row = dict(got[0], kernel="fused_attention_bwd",
+               max_abs_err=max(r["max_abs_err"] for r in got))
+    row.update(_onepass_bound(b, h, nq, nk, d, q_mask, kv_mask))
+    if reps:
+        row["ms"] = cuda_ms(lambda: axial.fused_attention_bwd(*args), reps)
+        row["plain_ms"] = cuda_ms(lambda: axial.fused_attention_bwd_reference(*args), reps=1,
+                                  warmup=0)
+        if library:
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            am = kv_mask[:, None, None, :] if kv_mask is not None else None
+            o = F.scaled_dot_product_attention(*leaves, attn_mask=am, scale=scale)
+            row["library_ms"] = cuda_ms(
+                lambda: torch.autograd.grad(o, leaves, do, retain_graph=True), reps)
+            del o, leaves
+    del q, k, v, do, out, lse, dsum, args, dq, dk, dv, rq, rk, rv, again
+    torch.cuda.empty_cache()
+    return rows + [row]
+
+
+def _onepass_bound(b, h, nq, nk, d, q_mask, kv_mask):
+    """The one-pass backward's bound (_bound): 10 D operations a valid
+    (query, key) pair; q, dO, k, v, lse and dsum read once, dq, dk, dv
+    written once."""
+    import torch
+
+    qv = q_mask.sum(1) if q_mask is not None else torch.full((b,), nq, device="cuda")
+    kvn = kv_mask.sum(1) if kv_mask is not None else torch.full((b,), nk, device="cuda")
+    pairs = h * float((qv * kvn).sum())
+    nbytes = 2 * (3 * b * h * nq * d + 4 * b * h * nk * d) + 8 * b * h * nq
+    return _bound(10.0 * d * pairs, nbytes, torch.bfloat16)
+
+
+def dsum_row(label, b, h, nq, d, gen, reps=3):
+    """The dsum kernel on one training pass's O and dO (bf16 (B, H, Nq, D)
+    views of (B, Nq, H*D) buffers) against its plain version at the f32
+    tolerance, timed beside it: a result row. Bound: O and dO read once,
+    the f32 rows written; 2 D operations a row on the CUDA cores."""
+    import torch
+
+    from alphafold2_tpu_torch.ops.cuda import axial
+
+    out, do = (torch.randn((b, nq, h * d), device="cuda", generator=gen).to(torch.bfloat16)
+               .view(b, nq, h, d).transpose(1, 2) for _ in range(2))
+    got = axial.attention_dsum(out, do)
+    torch.cuda.synchronize()
+    row = _compare(label, "attention_dsum", got, axial.attention_dsum_reference(out, do),
+                   torch.float32)
+    row.update(_bound(2.0 * b * h * nq * d, 4 * b * h * nq * d + 4 * b * h * nq, torch.float32))
+    row["ms"] = cuda_ms(lambda: axial.attention_dsum(out, do), reps)
+    row["plain_ms"] = cuda_ms(lambda: axial.attention_dsum_reference(out, do), reps=1, warmup=0)
+    row["library_ms"] = None  # no one PyTorch call computes it
+    del out, do, got
+    return row
+
+
+def check_onepass_plans():
+    """The one-pass backward's C plan (af2_fused_attention_bwd_onepass_plan)
+    against axial.onepass_cluster, its mirror, at the edges of what it
+    takes: 128 keys, a cluster of 2 (257 keys refused), and the resident
+    query tiles at head dims 32 and 64 (one tile past them refused), head
+    dim 128 not at all; each plan a persistent grid of at most 132 blocks."""
+    import ctypes
+
+    from alphafold2_tpu_torch.ops.cuda import axial, build
+
+    lib = build.library("fused_attention_bwd")
+    for d in axial.GRAD_SM90_HEAD_DIMS:
+        tiles = axial.ONEPASS_RESIDENT_TILES.get(d, 0)
+        for nq, nk in ((200, 128), (64 * max(tiles, 1), 256), (64 * tiles + 1, 256),
+                       (100, 257)):
+            plan = build.LaunchPlan()
+            code = lib.af2_fused_attention_bwd_onepass_plan(1, 64, 8, nq, nk, d, 1,
+                                                            ctypes.byref(plan))
+            want = axial.onepass_cluster(nq, nk, d)
+            got = plan.cluster if code == 0 else 0
+            require(got == want, f"one-pass plan at d{d}, {nq} x {nk}: cluster {got} (code "
+                                 f"{code}), onepass_cluster {want}")
+            require(code != 0 or (plan.blocks <= axial.SM_COUNT and plan.blocks % got == 0),
+                    f"one-pass plan at d{d}, {nq} x {nk}: {plan.blocks} blocks")
+    log(f"[backward] the one-pass plans agree with onepass_cluster at head dims 32, 64 and 128 "
+        f"(resident query tiles {axial.ONEPASS_RESIDENT_TILES})")
+
+
+# the crop-256 pair axial pass (the bench step's), a one-pass cluster of 2
+CROP256_PAIR_LABEL = "pair axial, crop 256 (256x8, 256x256)"
+
+
+def onepass_checks(gen, reps=3):
+    """The one-pass backward at every TRAIN_CASES shape grad_route sends
+    to it, the crop-256 pair pass and ONEPASS_EDGE_CASES (onepass_case);
+    timed at the training shapes. Returns the rows."""
+    from alphafold2_tpu_torch.ops.cuda import axial
+
+    rows = []
+    for label, (b, nq, nk, _) in TRAIN_CASES.items():
+        if axial.grad_route(b, 8, nq, nk, 64) == "onepass":
+            rows += onepass_case(label, b, 8, nq, nk, 64, *_train_masks(label), gen, reps=reps,
+                                 library=True)
+    res = _prefix(256, [230])
+    pair = (res[:, :, None] & res[:, None, :])[0]
+    rows += onepass_case(CROP256_PAIR_LABEL, 256, 8, 256, 256, 64, pair, pair, gen, reps=reps,
+                         library=True)
+    for label, b, h, nq, nk, d, ql, kl in ONEPASS_EDGE_CASES:
+        qm = _prefix(nq, ql) if ql is not None else None
+        km = _prefix(nk, kl) if kl is not None else None
+        rows += onepass_case(label, b, h, nq, nk, d, qm, km, gen, strided=False)
+    return rows
+
+
 def phase_backward():
     import torch
 
     check_k3_plans()
+    check_onepass_plans()
     gen = torch.Generator(device="cuda").manual_seed(1)
     f32, bf16 = torch.float32, torch.bfloat16
     rows = []
@@ -1991,6 +2395,9 @@ def phase_backward():
             qm, km = _train_masks(label)
             rows += k3_case(label, b, 8, nq, nk, 64, dt, qm, km, reps=3 if dt == bf16 else 0,
                             library=dt == bf16, gen=gen, strided=True)
+    rows += onepass_checks(gen)
+    for label, (b, nq, _, _) in TRAIN_CASES.items():
+        rows.append(dsum_row(label, b, 8, nq, 64, gen))
     label = "MSA<-pair (1x8, 320x16384)"
     combine_case(label, 1, 8, 320, 16384, 64, *_train_masks(label), gen)
     for dt in (f32, bf16):
@@ -2027,9 +2434,10 @@ def head_dim_case(d, dtype, gen):
     each against its plain version (k1_case, k3_case); past head dim 128 in
     bf16, K1 with and without lse on K2's Hopper walk (the head dim as rows
     of 64), twice bit for bit, with a control that drops each row's last key
-    tile; then the autograd route, which must launch K1 (lse), K3a and K3b
-    once each, call no plain version, and give the direct calls' results bit
-    for bit."""
+    tile; then the autograd route, which must launch K1 (lse) and the
+    backward grad_route names for the shape (bf16: the one-pass kernel, or
+    K3a and K3b) once each, call no plain version, and give the direct
+    calls' results bit for bit."""
     import torch
 
     from alphafold2_tpu_torch.ops.cuda import axial
@@ -2064,22 +2472,26 @@ def head_dim_case(d, dtype, gen):
             f"({axial.row_width(d)}-wide rows), two runs bit-identical")
         del out0, out1, lse1, again, ref, ref_lse
     plain = (axial.fused_attention_reference, axial.fused_attention_lse_reference,
-             axial.fused_attention_dq_reference, axial.fused_attention_dkv_reference)
-    wrappers = (axial.fused_attention, axial.fused_attention_dq, axial.fused_attention_dkv)
+             axial.fused_attention_dq_reference, axial.fused_attention_dkv_reference,
+             axial.fused_attention_bwd_reference)
+    wrappers = (axial.fused_attention, axial.fused_attention_dq, axial.fused_attention_dkv,
+                axial.fused_attention_bwd)
     calls, launches = [f.calls for f in plain], [f.launches for f in wrappers]
-    hopper = [f.sm90_launches for f in wrappers[1:]]
+    hopper = [f.sm90_launches for f in wrappers[1:3]]
+    onepass = dtype == torch.bfloat16 and axial.grad_route(b, h, nq, nk, d) == "onepass"
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     out = axial.fused_attention(*leaves, q_mask=qm, kv_mask=km, sm_scale=scale)
     out.backward(do)
     torch.cuda.synchronize()
     ran = [f.launches - n for f, n in zip(wrappers, launches)]
-    require(ran == [1, 1, 1], f"{label}: the autograd route launched {ran} (K1, K3a, K3b)")
+    require(ran == ([1, 0, 0, 1] if onepass else [1, 1, 1, 0]),
+            f"{label}: the autograd route launched {ran} (K1, K3a, K3b, one-pass)")
     if d > axial.HEAD_DIMS[-1]:
         # past head dim 128 K3a/K3b run tied_row_attention_bwd.cu on rows of
         # 64, on its Hopper kernels wherever their plan takes the shape
         plans = [tr.hopper_bwd_plan(w, b, h, nq, nk, d, axial.row_width(d))
                  if dtype == torch.bfloat16 else None for w in ("dq", "dkv")]
-        hop = [f.sm90_launches - n for f, n in zip(wrappers[1:], hopper)]
+        hop = [f.sm90_launches - n for f, n in zip(wrappers[1:3], hopper)]
         require(hop == [int(x is not None) for x in plans],
                 f"{label}: the backward ran {hop} Hopper launches, plans {plans}")
         log(f"[head dims] {label} {rows[0]['dtype']}: K3a/K3b on "
@@ -2087,13 +2499,14 @@ def head_dim_case(d, dtype, gen):
     require([f.calls for f in plain] == calls, f"{label}: a plain version ran on the card")
     out2, lse = axial.fused_attention_lse(q, k, v, qm, km, scale)
     args = (q, k, v, do, lse, axial.attention_dsum(out2, do), qm, km, scale)
-    dk, dv = axial.fused_attention_dkv(*args)
-    require(torch.equal(out.detach(), out2) and torch.equal(leaves[0].grad,
-                                                            axial.fused_attention_dq(*args))
-            and torch.equal(leaves[1].grad, dk) and torch.equal(leaves[2].grad, dv),
+    direct = (axial.fused_attention_bwd(*args) if onepass
+              else (axial.fused_attention_dq(*args), *axial.fused_attention_dkv(*args)))
+    require(torch.equal(out.detach(), out2)
+            and all(torch.equal(x.grad, y) for x, y in zip(leaves, direct)),
             f"{label}: the autograd route differs from the direct kernel calls")
     log(f"[head dims] {label} {rows[0]['dtype']}: through kernels only, at head dim "
-        f"{axial.kernel_head_dim(d)}; autograd route bit-identical to the direct calls")
+        f"{axial.kernel_head_dim(d)}, backward {'one-pass' if onepass else 'K3a/K3b'}; "
+        f"autograd route bit-identical to the direct calls")
     return rows
 
 
@@ -2339,6 +2752,7 @@ def _plain_versions():
 
     return (axial.fused_attention_reference, axial.fused_attention_lse_reference,
             axial.fused_attention_dq_reference, axial.fused_attention_dkv_reference,
+            axial.fused_attention_bwd_reference,
             tied_row.tied_row_attention_reference, tied_row.tied_row_attention_lse_reference,
             tied_row.tied_row_attention_dq_reference, tied_row.tied_row_attention_dkv_reference,
             block_sparse.block_sparse_attention_reference,
@@ -2357,6 +2771,8 @@ def _training_kernels():
             "fused_attention_bwd_dq": axial.fused_attention_dq,
             "fused_attention_bwd_dkv": axial.fused_attention_dkv,
             "fused_attention_bwd_merge": axial.fused_attention_bwd_merge,
+            "fused_attention_bwd": axial.fused_attention_bwd,
+            "attention_dsum": axial.attention_dsum,
             "tied_row_attention": tied_row.tied_row_attention,
             "tied_row_attention_bwd_dq": tied_row.tied_row_attention_dq,
             "tied_row_attention_bwd_dkv": tied_row.tied_row_attention_dkv,
@@ -2376,6 +2792,28 @@ def _reset_counts(kernels, plain):
                 setattr(fn, count, 0)
     for fn in plain:
         fn.calls = 0
+
+
+def _k3_step_routes(depth, sparse=False, tied=False):
+    """K1's backward calls a crop-128 training step makes (TRAIN_CASES: the
+    sparse model's pair passes on K4/K5, the tied model's MSA rows on K2,
+    the last layer's MSA<-pair update with no backward) by the route
+    axial.grad_route gives each pass: {"onepass": n, "split": n, "merge": K3's
+    merge passes}."""
+    from alphafold2_tpu_torch.ops.cuda import axial
+
+    out = {"onepass": 0, "split": 0, "merge": 0}
+    for label, (b, nq, nk, per_layer) in TRAIN_CASES.items():
+        if (sparse and label.startswith("pair axial")) or (tied and label.startswith("MSA row")):
+            continue
+        calls = depth * per_layer - label.startswith("MSA<-pair")
+        if axial.grad_route(b, 8, nq, nk, 64) == "onepass":
+            out["onepass"] += calls
+        else:
+            out["split"] += calls
+            out["merge"] += calls * sum(axial.grad_splits(b, 8, nq, nk, 64, w) > 1
+                                        for w in ("dq", "dkv"))
+    return out
 
 
 def phase_train(sparse=False, tied=False):
@@ -2425,7 +2863,7 @@ def phase_train(sparse=False, tied=False):
     launches = {name: fn.launches for name, fn in kernels.items()}
     sm90 = {name: kernels[name].sm90_launches
             for name in ("fused_attention", "fused_attention_bwd_dq", "fused_attention_bwd_dkv",
-                         "tied_row_attention", "tied_row_attention_bwd_dq",
+                         "fused_attention_bwd", "tied_row_attention", "tied_row_attention_bwd_dq",
                          "tied_row_attention_bwd_dkv", "block_sparse_attention",
                          "block_sparse_attention (no lse)",
                          "block_sparse_attention_bwd_dq", "block_sparse_attention_bwd_dkv")}
@@ -2463,15 +2901,26 @@ def phase_train(sparse=False, tied=False):
     # the MSA<-pair pass, one a layer, is the one that splits its key axis
     require(launches["fused_attention_combine"] == depth * steps,
             "K1 combine launches per step")
+    # each pass's backward on the route grad_route gives its shape: the
+    # one-pass kernel, or K3a and K3b with their merges where they split
+    routes = _k3_step_routes(depth, sparse, tied)
+    require(launches["fused_attention_bwd"] == routes["onepass"] * steps
+            and sm90["fused_attention_bwd"] == launches["fused_attention_bwd"],
+            f"one-pass launches {launches['fused_attention_bwd']} (Hopper "
+            f"{sm90['fused_attention_bwd']}), grad_route sends {routes['onepass'] * steps} there")
     for name in ("fused_attention_bwd_dq", "fused_attention_bwd_dkv"):
-        require(launches[name] == (6 * depth - 1 - sparse_calls - tied_calls) * steps,
-                f"{name} launches per step")
+        require(launches[name] == routes["split"] * steps, f"{name} launches per step")
         require(sm90[name] == launches[name],
                 f"a {name} launch of the training path did not run {name[20:]}_kernel_sm90")
-    # K3b splits on each layer's pair<-MSA pass, K3a on every MSA<-pair pass
-    # that runs a backward (not the last layer's)
-    require(launches["fused_attention_bwd_merge"] == (2 * depth - 1) * steps,
+    require(launches["fused_attention_bwd_merge"] == routes["merge"] * steps,
             "K3 merge launches per step")
+    # one a backward: K1's on either route, and K5's (the sparse pair passes)
+    require(launches["attention_dsum"]
+            == (routes["onepass"] + routes["split"] + sparse_calls) * steps,
+            f"dsum launches {launches['attention_dsum']}: one a backward")
+    log(f"{tag} K1's backward a step by route: one-pass {routes['onepass']}, K3a/K3b "
+        f"{routes['split']} ({routes['merge']} merges); dsum passes "
+        f"{launches['attention_dsum'] // steps}")
     for name in ("tied_row_attention", "tied_row_attention_bwd_dq",
                  "tied_row_attention_bwd_dkv"):
         require(launches[name] == tied_calls * steps, f"{name} launches per step")
@@ -2876,10 +3325,9 @@ def _e2e_run(tied):
     tied_calls = depth if tied else 0
     require(launches["fused_attention"] == (6 * depth - tied_calls) * E2E_STEPS,
             "K1 launches per end-to-end step")
-    for name in ("fused_attention_bwd_dq", "fused_attention_bwd_dkv"):
-        # the last layer's MSA<-pair update reaches no output and runs no backward
-        require(launches[name] == (6 * depth - 1 - tied_calls) * E2E_STEPS,
-                f"{name} launches per end-to-end step")
+    # the last layer's MSA<-pair update reaches no output and runs no backward
+    require(_with_k1_backward(launches)[K1_BACKWARD] == (6 * depth - 1 - tied_calls) * E2E_STEPS,
+            "K1 backward launches per end-to-end step")
     for name in ("tied_row_attention", "tied_row_attention_bwd_dq", "tied_row_attention_bwd_dkv"):
         require(launches[name] == tied_calls * E2E_STEPS, f"{name} launches per end-to-end step")
     for name, count in sm90.items():
@@ -3127,8 +3575,7 @@ def _expected_launches(label, depth):
         # each pass runs once without the row logsumexp (the forward, under
         # no gradient) and once with it (the re-evaluation in the backward),
         # then its backward: every pass, the last layer's MSA updates too
-        out = {"fused_attention": 2 * dense * depth, "fused_attention_bwd_dq": dense * depth,
-               "fused_attention_bwd_dkv": dense * depth}
+        out = {"fused_attention": 2 * dense * depth, K1_BACKWARD: dense * depth}
         if tied:
             out.update({"tied_row_attention": 2 * depth, "tied_row_attention_bwd_dq": depth,
                         "tied_row_attention_bwd_dkv": depth})
@@ -3141,8 +3588,7 @@ def _expected_launches(label, depth):
     # remat recomputes each layer's forward in the backward; the last
     # layer's MSA<-pair update reaches no output and runs no backward
     runs = 2 if f.get("remat") else 1
-    return {"fused_attention": runs * 6 * depth, "fused_attention_bwd_dq": 6 * depth - 1,
-            "fused_attention_bwd_dkv": 6 * depth - 1}
+    return {"fused_attention": runs * 6 * depth, K1_BACKWARD: 6 * depth - 1}
 
 
 def _entry_point_run(tag, label, cfg, e2e, steps, reps, key=None):
@@ -3168,7 +3614,8 @@ def _entry_point_run(tag, label, cfg, e2e, steps, reps, key=None):
         lambda i, s, m: (losses.append(float(m["loss"])), oks.append(bool(m["grads_ok"])))])
     skipped = int(state.skipped)
     del state
-    per_step = {name: fn.launches / steps for name, fn in kernels.items() if fn.launches}
+    per_step = _with_k1_backward(
+        {name: fn.launches / steps for name, fn in kernels.items() if fn.launches})
     missed = {name: fn.launches - fn.sm90_launches for name, fn in kernels.items()
               if hasattr(fn, "sm90_launches") and fn.sm90_launches != fn.launches}
     wide = {name: fn.wide_launches / steps for name, fn in kernels.items()
@@ -3584,8 +4031,7 @@ def _expected_dropout_launches(fields, depth):
     attn = fields.get("attn_dropout", 0.0) > 0
     tied, sparse = fields.get("msa_tie_row_attn", False), fields.get("sparse_self_attn", False)
     dense = 0 if attn else 6 * depth - tied * depth - 2 * sparse * depth
-    out = {"fused_attention": dense, "fused_attention_bwd_dq": max(dense - 1, 0),
-           "fused_attention_bwd_dkv": max(dense - 1, 0)}
+    out = {"fused_attention": dense, K1_BACKWARD: max(dense - 1, 0)}
     if tied and not attn:
         out.update({"tied_row_attention": depth, "tied_row_attention_bwd_dq": depth,
                     "tied_row_attention_bwd_dkv": depth})
@@ -3735,14 +4181,14 @@ def _triage_run(card):
     runs = 3 + len(notes)  # the steps and the reruns
     log(f"[telemetry] triage run, {prefix}* NaN after step 0 ({card}): skipped {skipped}; "
         f"nan_triage at " + ", ".join(n.split("]")[0] + "]" for n in notes)
-        + f" naming {firsts}; K1 {launches['fused_attention']}, K3a "
-        f"{launches['fused_attention_bwd_dq']}, K3b {launches['fused_attention_bwd_dkv']} "
-        f"launches over 3 steps and {len(notes)} reruns")
+        + f" naming {firsts}; K1 {launches['fused_attention']}, the one-pass backward "
+        f"{launches['fused_attention_bwd']}, K3a {launches['fused_attention_bwd_dq']}, K3b "
+        f"{launches['fused_attention_bwd_dkv']} launches over 3 steps and {len(notes)} reruns")
     require(skipped == 2 and firsts == [f"trunk.layer_{TRIAGE_LAYER}.pair"] * 2,
             "the triage reruns did not name the poisoned layer")
     require(launches["fused_attention"] == 36 * runs
-            and launches["fused_attention_bwd_dq"] == 35 * runs
-            and launches["fused_attention_bwd_dkv"] == 35 * runs
+            and _with_k1_backward(launches)[K1_BACKWARD] == 35 * runs
+            and launches["fused_attention_bwd_dq"] == launches["fused_attention_bwd_dkv"]
             and kernels["fused_attention"].sm90_launches == launches["fused_attention"],
             "the triage reruns did not launch K1 and K3 as a step does")
     return {"first_nonfinite": firsts, "launches": launches}
@@ -4102,8 +4548,7 @@ def _template_expected(depth=2, template_depth=2):
     K2 on its MSA rows; every pass runs its backward but the last trunk
     layer's MSA<-pair update, which reaches no output."""
     k1 = 5 * template_depth + 5 * depth
-    return {"fused_attention": k1, "fused_attention_bwd_dq": k1 - 1,
-            "fused_attention_bwd_dkv": k1 - 1, "tied_row_attention": depth,
+    return {"fused_attention": k1, K1_BACKWARD: k1 - 1, "tied_row_attention": depth,
             "tied_row_attention_bwd_dq": depth, "tied_row_attention_bwd_dkv": depth}
 
 
@@ -4136,9 +4581,10 @@ def _template_run(label, se3, card, profile=False):
         finite.append(all(bool(torch.isfinite(p.grad).all()) for p in model.parameters()
                           if p.grad is not None))
     torch.cuda.synchronize()
-    per_step = {n: fn.launches / TEMPLATE_STEPS for n, fn in kernels.items() if fn.launches}
-    hopper = {n: fn.sm90_launches / TEMPLATE_STEPS for n, fn in kernels.items()
-              if hasattr(fn, "sm90_launches") and fn.launches}
+    per_step = _with_k1_backward(
+        {n: fn.launches / TEMPLATE_STEPS for n, fn in kernels.items() if fn.launches})
+    hopper = _with_k1_backward({n: fn.sm90_launches / TEMPLATE_STEPS for n, fn in kernels.items()
+                                if hasattr(fn, "sm90_launches") and fn.launches})
     wide = {n: fn.wide_launches / TEMPLATE_STEPS for n, fn in kernels.items()
             if hasattr(fn, "wide_launches") and fn.launches}
     plain_calls = sum(fn.calls for fn in plain)
@@ -4260,8 +4706,7 @@ def _plm_expected(cfg, e2e):
     last layer's MSA<-pair update runs no backward)."""
     depth, tied = cfg.model.depth, cfg.model.msa_tie_row_attn
     k1 = (6 - tied) * depth
-    out = {"fused_attention": k1, "fused_attention_bwd_dq": k1 - 1,
-           "fused_attention_bwd_dkv": k1 - 1}
+    out = {"fused_attention": k1, K1_BACKWARD: k1 - 1}
     if tied:
         out.update({"tied_row_attention": depth, "tied_row_attention_bwd_dq": depth,
                     "tied_row_attention_bwd_dkv": depth})
@@ -6262,14 +6707,14 @@ def _config3_expected(depth=12):
     pair axial passes; remat runs each layer's forward twice; every pass
     runs its backward but the last layer's MSA<-pair update."""
     k1 = 6 * (depth // 2) + 4 * (depth // 2)
-    return {"fused_attention": 2 * k1, "fused_attention_bwd_dq": k1 - 1,
-            "fused_attention_bwd_dkv": k1 - 1, "block_sparse_attention": 2 * depth,
+    return {"fused_attention": 2 * k1, K1_BACKWARD: k1 - 1, "block_sparse_attention": 2 * depth,
             "block_sparse_attention_bwd_dq": depth, "block_sparse_attention_bwd_dkv": depth}
 
 
 class _LaunchShapes:
     """Counts K1's and K3's launches by (kernel, Nq, Nk, Hopper kernel ran)
-    while installed, wrapping the wrappers' launch functions."""
+    while installed, wrapping the wrappers' launch functions (K3 the one-pass
+    kernel, K3a and K3b the split route's)."""
 
     def __enter__(self):
         import collections
@@ -6277,8 +6722,8 @@ class _LaunchShapes:
         from alphafold2_tpu_torch.ops.cuda import axial
 
         self.axial, self.seen = axial, collections.Counter()
-        self.saved = (axial._launch_forward, axial._launch_backward)
-        fwd, bwd = self.saved
+        self.saved = (axial._launch_forward, axial._launch_backward, axial._launch_onepass)
+        fwd, bwd, one = self.saved
 
         def forward(q, k, v, *a, **kw):
             before = axial.fused_attention.sm90_launches
@@ -6292,11 +6737,17 @@ class _LaunchShapes:
             self.seen[("K3a" if which == "dq" else "K3b", q.shape[2], k.shape[2], hopper)] += 1
             return hopper
 
-        axial._launch_forward, axial._launch_backward = forward, backward
+        def onepass(outs, q, k, *a, **kw):
+            one(outs, q, k, *a, **kw)
+            self.seen[("K3", q.shape[2], k.shape[2], 1)] += 1
+
+        axial._launch_forward, axial._launch_backward, axial._launch_onepass = (
+            forward, backward, onepass)
         return self.seen
 
     def __exit__(self, *exc):
-        self.axial._launch_forward, self.axial._launch_backward = self.saved
+        (self.axial._launch_forward, self.axial._launch_backward,
+         self.axial._launch_onepass) = self.saved
 
 
 def _compress_parity():
@@ -6351,6 +6802,7 @@ def phase_compress():
     import numpy as np
     import torch
 
+    from alphafold2_tpu_torch.ops.cuda import axial
     from alphafold2_tpu_torch.train import loop
 
     t_phase = time.perf_counter()
@@ -6368,13 +6820,15 @@ def phase_compress():
     wall = time.perf_counter() - t0
     skipped = int(state.skipped)
     del state
-    per_step = {name: fn.launches / COMPRESS_STEPS for name, fn in kernels.items()
-                if fn.launches}
+    per_step = _with_k1_backward({name: fn.launches / COMPRESS_STEPS
+                                  for name, fn in kernels.items() if fn.launches})
     missed = {name: fn.launches - fn.sm90_launches for name, fn in kernels.items()
               if hasattr(fn, "sm90_launches") and fn.sm90_launches != fn.launches}
     plain_calls = sum(fn.calls for fn in plain)
-    _, _, nq, nk, _ = COMPRESS_SHAPE
-    compressed = {k: seen[(k, nq, nk, 1)] for k in ("K1", "K3a", "K3b")}
+    cb, ch, nq, nk, cd = COMPRESS_SHAPE
+    route = axial.grad_route(cb, ch, nq, nk, cd)
+    compressed = {k: seen[(k, nq, nk, 1)]
+                  for k in ("K1",) + (("K3",) if route == "onepass" else ("K3a", "K3b"))}
     off_hopper = {key: n for key, n in seen.items() if key[3] != 1}
     expected = _config3_expected(cfg.model.depth)
     off = {name: (per_step.get(name, 0), n) for name, n in expected.items()
@@ -7438,11 +7892,26 @@ def _count_delta(before, after):
     return {k: after[k] - before.get(k, 0) for k in after}
 
 
+# K1's backward calls, on either route: a launch of the one-pass kernel, or
+# of K3a (and K3b beside it) where grad_route keeps the pass on the split
+K1_BACKWARD = "K1 backward"
+
+
+def _with_k1_backward(launches):
+    """``launches`` (by _training_kernels name) with K1_BACKWARD added: the
+    one-pass launches plus K3a's; K3a and K3b must launch alike."""
+    require(launches.get("fused_attention_bwd_dq", 0) == launches.get("fused_attention_bwd_dkv", 0),
+            f"K3a and K3b launched apart: {launches}")
+    return {**launches, K1_BACKWARD: launches.get("fused_attention_bwd", 0)
+            + launches.get("fused_attention_bwd_dq", 0)}
+
+
 def _require_training_hopper(counts, what):
     """Every launch of a training kernel with a Hopper kernel on it, K1 and
     K3 launched, no plain version."""
-    require(counts["fused_attention"] > 0 and counts["fused_attention_bwd_dq"] > 0,
-            f"{what}: K1 or K3 never launched ({counts})")
+    require(counts["fused_attention"] > 0
+            and counts["fused_attention_bwd_dq"] + counts["fused_attention_bwd"] > 0,
+            f"{what}: K1 or its backward never launched ({counts})")
     for name in counts:
         if name.endswith(" sm90"):
             base = name[:-5]
@@ -7644,12 +8113,13 @@ def _train_mesh_templates():
     return out
 
 
-def _k3_slice_check(label, which, args, got):
+def _k3_slice_check(label, which, args, got, kernel=None):
     """One K3a or K3b call of the main path held against its plain version
     on the same operands: a slice of its batch rows (the first and the
     last) and, for K3a, of its queries over every key, for K3b of its keys
     over every query, as many as K3_CHECK_LOGITS_BYTES of f32 logits
-    allow. The kernel phase's bf16 tolerance."""
+    allow. The kernel phase's bf16 tolerance. ``kernel`` names a one-pass
+    call's rows (its dq held as K3a's, its dk and dv as K3b's)."""
     import torch
 
     from alphafold2_tpu_torch.ops.cuda import axial
@@ -7675,14 +8145,14 @@ def _k3_slice_check(label, which, args, got):
         ref = axial.fused_attention_dq_reference(
             sel(q), k, v, sel(do), lse.index_select(2, idx), dsum.index_select(2, idx),
             q_mask.index_select(1, idx) if q_mask is not None else None, kv_mask, scale)
-        rows_out = [_compare(what, "fused_attention_bwd_dq", rows(got[0]).index_select(2, idx),
-                             ref, q.dtype)]
+        rows_out = [_compare(what, kernel or "fused_attention_bwd_dq",
+                             rows(got[0]).index_select(2, idx), ref, q.dtype)]
     else:
         sel = lambda t: t.index_select(2, idx)  # noqa: E731
         ref = axial.fused_attention_dkv_reference(
             q, sel(k), sel(v), do, lse, dsum, q_mask,
             kv_mask.index_select(1, idx) if kv_mask is not None else None, scale)
-        rows_out = [_compare(what, f"fused_attention_bwd_dkv ({n})",
+        rows_out = [_compare(what, f"{kernel or 'fused_attention_bwd_dkv'} ({n})",
                              rows(g).index_select(2, idx), r, q.dtype)
                     for n, g, r in zip(("dk", "dv"), got, ref)]
     return [{**r, "shape": [b, h, nq, nk, d], "splits": splits} for r in rows_out]
@@ -7690,15 +8160,25 @@ def _k3_slice_check(label, which, args, got):
 
 def _watch_k3(label, fn):
     """``fn()`` with K3's launches watched (``ops/cuda/axial.py``
-    ``_launch_backward``, which K3a's and K3b's wrappers call): the first
-    call of each operand signature whose streamed loop is the long one (at
-    least 2**16 rows) is held against the plain version
-    (``_k3_slice_check``) once it has written its outputs. Returns the
-    checks."""
+    ``_launch_backward``, which K3a's and K3b's wrappers call, and
+    ``_launch_onepass``, the one-pass kernel's): the first call of each
+    operand signature whose streamed loop is the long one (at least 2**16
+    rows; for a one-pass call its query axis, held as K3b's and with its
+    dq as K3a's) is held against the plain version (``_k3_slice_check``)
+    once it has written its outputs. Returns the checks."""
     from alphafold2_tpu_torch.ops.cuda import axial
 
-    real = axial._launch_backward
+    real, real_one = axial._launch_backward, axial._launch_onepass
     seen, checks = set(), []
+
+    def one(outs, q, k, v, dout, lse, dsum, q_mask, kv_mask, sm_scale, drop_rank=-1):
+        real_one(outs, q, k, v, dout, lse, dsum, q_mask, kv_mask, sm_scale, drop_rank)
+        sig = ("onepass", tuple(q.shape), tuple(k.shape))
+        if q.shape[2] >= 1 << 16 and sig not in seen:
+            seen.add(sig)
+            args = (q, k, v, dout, lse, dsum, q_mask, kv_mask, sm_scale)
+            checks.extend(_k3_slice_check(label, "dkv", args, outs[1:], "fused_attention_bwd"))
+            checks.extend(_k3_slice_check(label, "dq", args, outs[:1], "fused_attention_bwd dq"))
 
     def call(which, outs, slots, q, k, v, dout, lse, dsum, q_mask, kv_mask, sm_scale):
         hopper = real(which, outs, slots, q, k, v, dout, lse, dsum, q_mask, kv_mask, sm_scale)
@@ -7710,11 +8190,11 @@ def _watch_k3(label, fn):
                 label, which, (q, k, v, dout, lse, dsum, q_mask, kv_mask, sm_scale), outs))
         return hopper
 
-    axial._launch_backward = call
+    axial._launch_backward, axial._launch_onepass = call, one
     try:
         fn()
     finally:
-        axial._launch_backward = real
+        axial._launch_backward, axial._launch_onepass = real, real_one
     return checks
 
 
@@ -7770,8 +8250,9 @@ def _train_mesh_long(sparse):
     _require_training_hopper(launches, f"[train_mesh] (b) {label}")
     kinds = {(c["kernel"], tuple(c["shape"])) for c in checks}
     require(any(c["kernel"] == "fused_attention_bwd_dq" for c in checks)
-            and any(c["kernel"].startswith("fused_attention_bwd_dkv") for c in checks),
-            f"{label}: K3a or K3b not held at the long call shapes ({kinds})")
+            and any(c["kernel"].startswith(("fused_attention_bwd_dkv", "fused_attention_bwd ("))
+                    for c in checks),
+            f"{label}: K1's backward not held at the long call shapes ({kinds})")
     out = {"meshless_ms": meshless_ms, "meshless_peak_bytes": meshless_peak,
            "meshless_loss": meshless_loss, "losses": losses,
            "ms": statistics.median(times[1:]), "peak_bytes": peak, "launches": launches,
@@ -8821,7 +9302,8 @@ TRAIN_FLOPS_CASES = {"dense": {}, "tied": {"msa_tie_row_attn": True},
 TRAIN_FLOPS_STEPS = 5  # train's steps in (c): the counted first, then 4 logged rates
 # the wrappers tallied on a training step and on the split route (which runs
 # only on a mesh: phase_msa_rows's world-size-1 rank counts it)
-TALLIED = {"dense": ("fused_attention", "fused_attention_dq", "fused_attention_dkv"),
+TALLIED = {"dense": ("fused_attention", "fused_attention_dq", "fused_attention_dkv",
+                     "fused_attention_bwd"),
            "tied": ("tied_row_attention", "tied_row_attention_dq", "tied_row_attention_dkv"),
            "sparse": ("block_sparse_attention", "block_sparse_attention_dq",
                       "block_sparse_attention_dkv")}
@@ -8830,9 +9312,11 @@ TALLIED = {"dense": ("fused_attention", "fused_attention_dq", "fused_attention_d
 @contextlib.contextmanager
 def _plain_functions():
     """The kernels' autograd Functions on their plain versions on the card,
-    as they run on the CPU: K1 with lse, K3a/K3b, K2 with lse and its
-    backward, K4 with lse and K5a/K5b. The route the CPU counts, so a
-    step's count there equals the kernels' tallies plus the same ops."""
+    as they run on the CPU: K1 with lse, K3a/K3b and the one-pass
+    backward, K2 with lse and its backward, K4 with lse and K5a/K5b. The
+    route the CPU counts, so a step's count there equals the kernels'
+    tallies plus the same ops. The dsum pass too, in both modules that
+    call it (K5's Function holds it by name)."""
     from alphafold2_tpu_torch.ops.cuda import axial, block_sparse, tied_row
 
     def grads(*args):
@@ -8842,6 +9326,9 @@ def _plain_functions():
     swaps = [(axial, "_lse_forward", axial.fused_attention_lse_reference),
              (axial, "fused_attention_dq", axial.fused_attention_dq_reference),
              (axial, "fused_attention_dkv", axial.fused_attention_dkv_reference),
+             (axial, "fused_attention_bwd", axial.fused_attention_bwd_reference),
+             (axial, "attention_dsum", axial.attention_dsum_reference),
+             (block_sparse, "attention_dsum", axial.attention_dsum_reference),
              (tied_row, "tied_row_attention_lse", tied_row.tied_row_attention_lse_reference),
              (tied_row, "tied_row_attention_grads", grads),
              (block_sparse, "block_sparse_attention_lse",
@@ -8864,12 +9351,14 @@ def _policy_expected(run, msa_len):
     """The plain policy's count of a step whose kernel run is ``run``: the
     policy's plain route differentiates the plain forwards by autograd (4
     matmuls a backward) where the kernels' backwards recompute S and dP
-    (K3a, K2's dq, K5a: 6·B·H·Nq·Nk·D; K3b, K2's dk/dv, K5b: 8·...), so it
-    counts K3a's and K2's dq tallies less, K5's two less autograd's 8 over
-    the row lists (4/3 of K5a's), and K2's dsum einsum (2·B·H·Nq·R·D a
+    (K3a, K2's dq, K5a: 6·B·H·Nq·Nk·D; K3b, K2's dk/dv, K5b: 8·...; the
+    one-pass backward 10·..., once), so it counts K3a's and K2's dq tallies
+    less, a fifth of the one-pass tally less, K5's two less autograd's 8
+    over the row lists (4/3 of K5a's), and K2's dsum einsum (2·B·H·Nq·R·D a
     backward, K2's dq tally over 3·Nk) less: every other op is the same."""
     t = run.kernel_flops
     recompute = (t.get("fused_attention_dq", 0.0) + t.get("tied_row_attention_dq", 0.0)
+                 + t.get("fused_attention_bwd", 0.0) / 5.0
                  + t.get("block_sparse_attention_dq", 0.0)
                  + t.get("block_sparse_attention_dkv", 0.0)
                  - 4.0 / 3.0 * t.get("block_sparse_attention_dq", 0.0))
@@ -9411,6 +9900,16 @@ def _step_weights(backward, depth=6):
     return weights
 
 
+def _route_weights(route):
+    """_step_weights(backward=True) over the TRAIN_CASES labels whose pass
+    axial.grad_route sends to ``route``: "onepass" (the one-pass backward)
+    or "split" (K3a and K3b)."""
+    from alphafold2_tpu_torch.ops.cuda import axial
+
+    return {label: w for label, w in _step_weights(backward=True).items()
+            if axial.grad_route(TRAIN_CASES[label][0], 8, *TRAIN_CASES[label][1:3], 64) == route}
+
+
 def _shape_entry(rows, kernel, label):
     """One bf16 result row's numbers, for a kernel entry's ``shapes``."""
     (r,) = [r for r in rows if r["kernel"] == kernel and r["label"] == label
@@ -9426,8 +9925,11 @@ def kernel_line(rows, serve, train, tied_train, sparse_train, gate, engines, tel
     bucket 128 (two pair axial passes, the MSA column pass, both cross
     attentions; a call's time includes its combine pass where it splits),
     K2 its tied-row call, bf16, with the serving run's launches. K3a and
-    K3b sum one training step's calls (6 layers; the last layer's MSA<-pair
-    update runs no backward; a call's time includes its merge pass where it
+    K3b sum one training step's calls on the passes axial.grad_route splits
+    (the cross passes), the one-pass backward (fused_attention_bwd) its calls
+    on the passes the route sends to it, the dsum pass (attention_dsum)
+    every backward call (6 layers; the last layer's MSA<-pair update runs
+    no backward; a K3a/K3b call's time includes its merge pass where it
     splits), with the training run's launches; their library_ms is SDPA's
     whole backward (dq, dk and dv in one call) on the same problems. K4 (its
     training forward, with lse), K5a and K5b sum one sparse training step's
@@ -9480,6 +9982,7 @@ def kernel_line(rows, serve, train, tied_train, sparse_train, gate, engines, tel
                 "MSA column pass (512x8, 5x5, d64)": 1,
                 "pair<-MSA cross (4x8, 147456x640, d64)": 1,
                 "MSA<-pair cross (4x8, 640x147456, d64)": 1}
+    step_split, step_onepass = _route_weights("split"), _route_weights("onepass")
     step_k3 = _step_weights(backward=True)
     step_k4 = {SPARSE_TRAIN_LABEL: 12}  # 2 pair axial passes x 6 layers
     bwd = "alphafold2_tpu_torch/csrc/fused_attention_bwd.cu"
@@ -9495,9 +9998,14 @@ def kernel_line(rows, serve, train, tied_train, sparse_train, gate, engines, tel
                serve["launches"]["tied_row_attention"], rows,
                {"tied MSA rows (4x5x128x8x64, R*D=320)": 1}),
         _entry("fused_attention_bwd_dq", bwd, "alphafold2_tpu/ops/pallas/axial.py:275",
-               train["launches"]["fused_attention_bwd_dq"], rows, step_k3),
+               train["launches"]["fused_attention_bwd_dq"], rows, step_split),
         _entry("fused_attention_bwd_dkv", bwd, "alphafold2_tpu/ops/pallas/axial.py:313",
-               train["launches"]["fused_attention_bwd_dkv"], rows, step_k3),
+               train["launches"]["fused_attention_bwd_dkv"], rows, step_split),
+        _entry("fused_attention_bwd", bwd, "alphafold2_tpu/ops/pallas/axial.py:275 and :313",
+               train["launches"]["fused_attention_bwd"], rows, step_onepass),
+        _entry("attention_dsum", bwd, "none (rowsum(dO*O) outside Pallas, "
+               "alphafold2_tpu/ops/pallas/axial.py:417)", train["launches"]["attention_dsum"],
+               rows, step_k3, dtype="float32"),
         _entry("tied_row_attention_bwd_dq", tied_bwd, "alphafold2_tpu/ops/pallas/axial.py:275",
                tied_train["launches"]["tied_row_attention_bwd_dq"], rows, step_tied),
         _entry("tied_row_attention_bwd_dkv", tied_bwd, "alphafold2_tpu/ops/pallas/axial.py:313",
@@ -9537,6 +10045,7 @@ def kernel_line(rows, serve, train, tied_train, sparse_train, gate, engines, tel
                                          ("fused_attention_bwd_dq", COMPRESS_LABEL)],
               "fused_attention_bwd_dkv": [("fused_attention_bwd_dkv", TEMPLATE_AXIS_LABEL),
                                           ("fused_attention_bwd_dkv", COMPRESS_LABEL)],
+              "fused_attention_bwd": [("fused_attention_bwd", CROP256_PAIR_LABEL)],
               "tied_row_attention": [("tied_row_attention (lse)", x) for x in WIDE_TIED_CASES],
               "tied_row_attention_bwd_dq": [("tied_row_attention_bwd_dq", x)
                                             for x in WIDE_TIED_CASES],
@@ -9587,6 +10096,7 @@ def kernel_line(rows, serve, train, tied_train, sparse_train, gate, engines, tel
 
 # the kernel line's names -> the wrappers' tally names (ops/cuda/build.py)
 _TALLY_OF = {"fused_attention": "fused_attention", "fused_attention_bwd_dq": "fused_attention_dq",
+             "fused_attention_bwd": "fused_attention_bwd",
              "fused_attention_bwd_dkv": "fused_attention_dkv",
              "tied_row_attention": "tied_row_attention",
              "tied_row_attention_bwd_dq": "tied_row_attention_dq",
@@ -9690,10 +10200,13 @@ def main() -> int:
                     f"sdpa {r.get('library_ms')} ms, bound {r['bound_ms']:.4f} ms "
                     f"({r['bound_by']}; {r['ops']:.3e} ops, {r['bytes']:.3e} bytes; "
                     f"{r['bound_ms'] / r['ms']:.1%} of the bound)")
-        for name, weights in (("fused_attention (lse)", _step_weights(backward=False)),
-                              ("fused_attention_bwd_dq", _step_weights(backward=True)),
-                              ("fused_attention_bwd_dkv", _step_weights(backward=True))):
-            e = _entry(name, "", "", None, rows, weights)
+        for name, weights, dt in (
+                ("fused_attention (lse)", _step_weights(backward=False), "bfloat16"),
+                ("fused_attention_bwd_dq", _route_weights("split"), "bfloat16"),
+                ("fused_attention_bwd_dkv", _route_weights("split"), "bfloat16"),
+                ("fused_attention_bwd", _route_weights("onepass"), "bfloat16"),
+                ("attention_dsum", _step_weights(backward=True), "float32")):
+            e = _entry(name, "", "", None, rows, weights, dtype=dt)
             log(f"[backward] per training step, {name}: kernel {e['ms']:.3f} ms, plain "
                 f"{e['plain_ms']:.3f} ms, sdpa {e['library_ms']} ms, bound "
                 f"{e['bound_ms']:.4f} ms ({e['bound_by']})")

@@ -21,7 +21,7 @@ from jax.experimental import pallas as pl
 
 from alphafold2_tpu.analysis import lowering as jax_lowering
 from alphafold2_tpu_torch.analysis import lowering
-from alphafold2_tpu_torch.ops.cuda import build, controls, tied_row
+from alphafold2_tpu_torch.ops.cuda import axial, build, controls, tied_row
 
 torch.set_num_threads(1)
 
@@ -206,7 +206,7 @@ def test_cases_stand_for_the_jax_gate_one_for_one():
         "plm_tied_rows_8192", "plm_e2e_tied_rows_12288", "config4_tied_rows_1024",
         "edge_dense_d256", "pair_axial_d256", "template_axis", "config4_msa_column",
         "edge_packed_d32", "edge_packed_d128", "split_msa_rows_320", "split_plm_rows_8192",
-        "scale_rows_4x512"]
+        "bench_pair_axial_256", "scale_rows_4x512"]
 
 
 def test_case_shapes_and_sources():
@@ -214,7 +214,11 @@ def test_case_shapes_and_sources():
     # JAX's block-sparse cases: block 128, 4 heads, head dim 64
     assert by["block_sparse_fwd_n1024"].launches[0].args == (None, 1, 4, 1024, 64, 128, 1)
     assert [l.role for l in by["block_sparse_custom_vjp_n512"].launches] == ["K4", "K5a", "K5b"]
-    assert [l.role for l in by["fused_axial_bwd_256"].launches] == ["K1", "K3a", "K3b"]
+    # K1's backward at a one-pass shape: bf16 the one-pass kernel, f32 K3a
+    # and K3b, then on both the dsum pass
+    assert [(l.role, l.dtypes) for l in by["fused_axial_bwd_256"].launches] == [
+        ("K1", lowering.DTYPES), ("K3", ("bfloat16",)), ("K3a", ("float32",)),
+        ("K3b", ("float32",)), ("K3d", lowering.DTYPES)]
     assert by["tied_row_fwd_256"].launches[0].args == (None, 1, 8, 4, 256, 256, 64, 1)  # R*D 512
     # K2's backward at JAX's case_tied_row_bwd shape, R*D 512, and at the
     # training shape, R*D 320: K2 with lse, then dq (K2a) and dk/dv (K2b),
@@ -248,7 +252,8 @@ def test_case_shapes_and_sources():
         ("K1", "fused_attention", (None, 1, 2, 130, 130, 256, 1, 1), ("float32",)),
         ("K1", "tied_row_attention", (None, 1, 4, 2, 130, 130, 64, 1), ("bfloat16",)),
         ("K3a", "tied_row_attention_bwd", (0, None, 1, 2, 130, 130, 256, 64, 1), lowering.DTYPES),
-        ("K3b", "tied_row_attention_bwd", (1, None, 1, 2, 130, 130, 256, 64, 1), lowering.DTYPES)]
+        ("K3b", "tied_row_attention_bwd", (1, None, 1, 2, 130, 130, 256, 64, 1), lowering.DTYPES),
+        ("K3d", "fused_attention_bwd", (None, 1, 2, 130, 256), lowering.DTYPES)]
     assert by["serve_cross_msa_from_pair"].launches[0].args == (None, 4, 8, 640, 147456, 64, 2, 1)
     # the short passes plan K1 (the packed kernel) with no split
     assert by["template_axis"].launches[0].args == (None, 147456, 8, 5, 5, 64, 1, 1)
@@ -293,10 +298,23 @@ def test_k1_lists_its_combine_pass_where_the_key_axis_splits(case, splits):
 def test_k3_lists_its_merge_pass_where_it_splits(case, splits):
     """K3a and K3b plan with grad_splits' count and TMA-aligned operands;
     wherever one splits, K3's merge pass follows it (bf16 only) under its
-    own role, K3m: one output (dq) after K3a, two (dk, dv) after K3b."""
-    launches = [l for l in {c.name: c for c in lowering.CASES}[case].launches
-                if l.role.startswith("K3")]
-    b, h, nq, nk, d = launches[0].args[2:7]
+    own role, K3m: one output (dq) after K3a, two (dk, dv) after K3b. At a
+    shape grad_route sends to the one-pass kernel, bf16 plans that kernel
+    (K3, with its cluster) and no split or merge, and K3a/K3b plan in f32
+    alone, whole. The dsum pass (K3d) closes every backward."""
+    every = {c.name: c for c in lowering.CASES}[case].launches
+    launches = [l for l in every if l.role in ("K3", "K3a", "K3b", "K3m")]
+    assert [l.role for l in every if l.role.startswith("K3")][-1] == "K3d"
+    k3a = next(l for l in launches if l.role == "K3a")
+    b, h, nq, nk, d = k3a.args[2:7]
+    if axial.grad_route(b, h, nq, nk, d) == "onepass":
+        assert [(l.role, l.dtypes) for l in launches] == [
+            ("K3", ("bfloat16",)), ("K3a", ("float32",)), ("K3b", ("float32",))]
+        assert launches[0].symbol == "af2_fused_attention_bwd_onepass_plan"
+        assert launches[0].args == (None, b, h, nq, nk, d, 1)
+        assert [l.args for l in launches[1:]] == [(0, None, b, h, nq, nk, d, 1, 1),
+                                                  (1, None, b, h, nq, nk, d, 1, 1)]
+        return
     roles = ["K3a"] + ["K3m"] * (splits[0] > 1) + ["K3b"] + ["K3m"] * (splits[1] > 1)
     assert [l.role for l in launches] == roles
     main = [l for l in launches if l.role != "K3m"]
@@ -559,6 +577,8 @@ def test_a_plan_within_the_limits_passes():
     (dict(GOOD, threads=1024), _res(registers=255), "255 registers x 1024 threads"),
     (GOOD, _res(registers=256), "256 registers a thread > 255"),
     (GOOD, None, "not in ptxas's report"),
+    (dict(GOOD, blocks=64, cluster=16), _res(), "a cluster of 16 blocks"),
+    (dict(GOOD, blocks=66, cluster=4), _res(), "a cluster of 4 blocks over 66"),
 ])
 def test_each_broken_limit_fails(plan, res, needle):
     problems = lowering.check_launch(plan, res)
@@ -811,7 +831,10 @@ def test_x_wrapper_checks_its_operand():
 
 
 def test_launch_plan_struct_layout():
-    assert ctypes.sizeof(build.LaunchPlan) == 8 + 4 + 4 + 120
+    # blocks, threads, dynamic_smem, kernel, cluster, then padding to the
+    # long long's 8-byte alignment, as the C struct lays them out
+    assert ctypes.sizeof(build.LaunchPlan) == 8 + 4 + 4 + 120 + 4 + 4
+    assert build.LaunchPlan.cluster.offset == 8 + 4 + 4 + 120
     assert build.SIGNATURES["scale_rows"]["af2_scale_rows_plan"][-1]._type_ is build.LaunchPlan
 
 

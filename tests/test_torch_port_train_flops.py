@@ -72,7 +72,10 @@ def _k3_counts(g, b, h, nq, nk, d):
              axial.attention_grad_flops(b, h, nq, nk, d, "dq"), axial.fused_attention_dq, args),
             (_counted(axial.fused_attention_dkv_reference, *args),
              axial.attention_grad_flops(b, h, nq, nk, d, "dkv"), axial.fused_attention_dkv,
-             args)]
+             args),
+            # the one-pass backward: S and dP once, 10 units against K3a's 6 + K3b's 8
+            (_counted(axial.fused_attention_bwd_reference, *args),
+             axial.attention_bwd_flops(b, h, nq, nk, d), axial.fused_attention_bwd, args)]
 
 
 def _sparse_counts(g, b, h, n, d, cfg):
